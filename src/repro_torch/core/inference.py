@@ -1,0 +1,160 @@
+"""Parallel RL inference (paper Alg. 4) with adaptive multiple-node
+selection (paper §4.5.1).  Counterpart of ``repro/core/inference.py``.
+
+``solve`` drives a batch of B graphs to complete solutions with a trained
+policy.  Each iteration is one policy evaluation; with the adaptive
+schedule, up to d ∈ {max_d, max_d/2, max_d/4, max_d/8} top-scoring
+candidates are committed per evaluation, d shrinking with the candidate
+set (``max_d`` defaults to the paper's 8; paper-scale solves raise it so a
+solve stays tens of evaluations):
+
+    |C| >  N/2        -> d = max_d
+    |C| in (N/4, N/2] -> d = max_d/2
+    |C| in (N/8, N/4] -> d = max_d/4
+    |C| <= N/8        -> d = max_d/8  (each tier floored at 1)
+
+This slice runs the fused device engine (``engine="device"``,
+``core.engine.get_solve_step``) on the dense representation.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..device import DeviceLike, resolve_device
+from . import env as env_lib
+from .graphrep import GraphRep, get_rep
+from .policy import Policy, PolicyConfig
+from .qmodel import NEG_INF
+
+MAX_D = 8
+
+
+def adaptive_d(num_candidates: torch.Tensor, n: int,
+               max_d: int = MAX_D) -> torch.Tensor:
+    """Per-graph d from the paper's schedule (exactly 8/4/2/1 at the
+    default ``max_d=8``).  num_candidates: (B,) float."""
+    c = num_candidates
+    tier = lambda v: torch.full_like(c, v, dtype=torch.int32)  # noqa: E731
+    return torch.where(c > n / 2, tier(max_d),
+           torch.where(c > n / 4, tier(max(max_d // 2, 1)),
+           torch.where(c > n / 8, tier(max(max_d // 4, 1)),
+                       tier(max(max_d // 8, 1)))))
+
+
+def select_top_d(scores: torch.Tensor, candidate: torch.Tensor,
+                 use_adaptive: bool,
+                 max_d: int = MAX_D) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Alg. 4 lines 5-7: top-d selection mask from masked scores.
+
+    Returns ``(sel, ncommit)``: the (B, N) commit mask and the (B,)
+    per-graph commit count.  Finished graphs (all scores NEG_INF) select
+    nothing.  Ties go to the lowest index, as ``lax.top_k`` breaks them:
+    ``torch.topk`` does not promise that order, a stable descending sort
+    does.  Ties are common here (symmetric graphs, isolated padding
+    nodes, the whole NEG_INF block of masked scores)."""
+    b, n = candidate.shape
+    k = min(max_d, n)
+    top_scores, top_idx = torch.sort(scores, dim=-1, descending=True,
+                                     stable=True)
+    top_scores, top_idx = top_scores[:, :k], top_idx[:, :k]
+    ncand = candidate.sum(-1)
+    d = (adaptive_d(ncand, n, max_d) if use_adaptive
+         else torch.ones((b,), dtype=torch.int32, device=scores.device))
+    rank = torch.arange(k, device=scores.device)[None, :]
+    valid = (rank < d[:, None]) & (top_scores > NEG_INF / 2)
+    sel = torch.zeros((b, n), dtype=torch.float32, device=scores.device)
+    sel.scatter_(1, top_idx, valid.to(torch.float32))
+    return sel, valid.sum(-1, dtype=torch.int32)
+
+
+def apply_selection(state, scores, candidate, use_adaptive: bool,
+                    problem: str, max_d: int = MAX_D):
+    """Alg. 4 lines 5-9: top-d selection, the env's optional prune and
+    its commit/termination rule.  Returns (state, done, ncommit)."""
+    sel, ncommit = select_top_d(scores, candidate, use_adaptive, max_d)
+    prune = env_lib.prune_rule(problem)
+    if prune is not None:
+        sel = prune(state, sel, scores)
+        ncommit = sel.sum(-1).to(torch.int32)
+    new_state, done = env_lib.commit_rule(problem)(state, sel)
+    return new_state, done, ncommit
+
+
+def init_solve_state(rep: GraphRep, adj, problem: str = "mvc", *,
+                     device: DeviceLike = "cuda"):
+    """Fresh solve state in ``rep``'s layout on ``device``, with the env's
+    candidate rule applied.  Enforces the padding-safety contract first
+    (``env.ensure_padding_safe``)."""
+    env_lib.ensure_padding_safe(problem)
+    state = rep.init_state(adj, device=device)
+    cand_fn = env_lib.candidate_rule(problem)
+    if cand_fn is not None:
+        state = dataclasses.replace(state, candidate=cand_fn(state))
+    return state
+
+
+@dataclasses.dataclass
+class InferenceResult:
+    solution: np.ndarray       # (B, N) masks
+    sizes: np.ndarray          # (B,) |S|
+    policy_evals: int          # number of policy-model evaluations
+    nodes_committed: np.ndarray
+
+
+def check_solve_options(engine: str, spatial) -> None:
+    """Raise on the solve options this slice does not port."""
+    if engine == "host":
+        raise NotImplementedError(
+            "engine='host' (the per-eval reference loop) is not ported yet: "
+            "see ROADMAP queue A")
+    if engine != "device":
+        raise ValueError(f"unknown inference engine {engine!r}")
+    if spatial not in (0, 1, (1, 1)):
+        raise NotImplementedError(
+            f"spatial={spatial!r}: the multi-GPU mesh is ROADMAP item A9")
+
+
+def solve(params: Policy, adj0, *, num_layers: int = 2,
+          multi_node: bool = False, max_evals: Optional[int] = None,
+          rep: Union[str, GraphRep] = "dense", problem: str = "mvc",
+          engine: str = "device", spatial=0, kernel: str = "fused",
+          compute: str = "f32", max_d: int = MAX_D,
+          device: DeviceLike = "cuda") -> InferenceResult:
+    """Run Alg. 4 on ``device`` until every graph in the batch has a
+    complete solution.  ``adj0`` is an (N, N) or (B, N, N) adjacency
+    (numpy or torch); it is copied, never modified.  ``params`` must live
+    on ``device``.  ``max_evals`` defaults to N + max_d."""
+    check_solve_options(engine, spatial)
+    dev = resolve_device(device)
+    if params.device != dev:
+        raise ValueError(f"the policy is on {params.device}, the solve on "
+                         f"{dev}; move it with policy.to(...)")
+    rep = get_rep(rep)
+    state = init_solve_state(rep, adj0, problem, device=dev)
+    n = state.num_nodes
+    max_evals = max_evals or (n + max_d)
+    from .engine import get_solve_step
+    fused = get_solve_step(rep=rep, problem=problem, num_layers=num_layers,
+                           use_adaptive=multi_node, spatial=spatial,
+                           kernel=kernel, compute=compute, max_d=max_d)
+    out, evals, committed = fused(params, state, max_evals)
+    sol = out.solution.cpu().numpy()
+    return InferenceResult(solution=sol, sizes=sol.sum(-1).astype(np.int64),
+                           policy_evals=int(evals),
+                           nodes_committed=committed.cpu().numpy()
+                           .astype(np.int64))
+
+
+def solve_with_config(params: Policy, adj0, cfg: PolicyConfig, *,
+                      multi_node: bool = False, problem: str = "mvc",
+                      **kw) -> InferenceResult:
+    """``solve`` with rep/engine/spatial/num_layers/kernel/compute taken
+    from a :class:`PolicyConfig`."""
+    return solve(params, adj0, num_layers=cfg.num_layers,
+                 rep=cfg.graph_rep, engine=cfg.engine, spatial=cfg.spatial,
+                 kernel=cfg.kernel, compute=cfg.compute,
+                 multi_node=multi_node, problem=problem, **kw)

@@ -1,0 +1,127 @@
+"""structure2vec graph embedding model (paper Eq. 1, Alg. 2).
+
+Counterpart of ``repro/core/s2v.py`` for one device (``axis=None``).
+``kernel=`` selects the lowering (DESIGN.md §12):
+
+- ``"fused"`` (default): one fused launch per layer, the hand-written CUDA
+  kernel on the card (``kernels.s2v_fused.fused_s2v_layer``), with layer 0
+  elided: the embeddings start at zero (Alg. 2 line 3), so the first
+  aggregation is exactly zero and layer 1 is relu(embed1 + embed2).
+- ``"xla"``: the reference per-op chain, kept as the semantics of record
+  (named after the JAX lowering it mirrors).
+
+``compute=`` selects the matmul operand precision of the fused layer:
+``"f32"`` or ``"bf16"`` (operands rounded at use, f32 accumulation, the
+aggregate rounded once, f32 base/ReLU and Q-model).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..kernels.s2v_fused import COMPUTE_MODES, fused_s2v_layer
+
+KERNELS = ("fused", "xla")
+
+
+def compute_dtype(compute: str) -> torch.dtype:
+    """Resolve a ``PolicyConfig.compute`` mode name to the operand dtype."""
+    if compute not in COMPUTE_MODES:
+        raise ValueError(f"unknown compute mode {compute!r}; "
+                         f"available: {sorted(COMPUTE_MODES)}")
+    return torch.bfloat16 if compute == "bf16" else torch.float32
+
+
+def check_kernel(kernel: str) -> str:
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown kernel {kernel!r}; available: {KERNELS}")
+    return kernel
+
+
+class S2V(nn.Module):
+    """θ1..θ4 of Eq. 1 (embedding); θ5..θ7 live in the Q-model."""
+
+    def __init__(self, k: int, *, device=None):
+        super().__init__()
+        self.theta1 = nn.Parameter(torch.empty(k, device=device))
+        self.theta2 = nn.Parameter(torch.empty(k, device=device))
+        self.theta3 = nn.Parameter(torch.empty(k, k, device=device))
+        self.theta4 = nn.Parameter(torch.empty(k, k, device=device))
+
+    @property
+    def dim(self) -> int:
+        return self.theta1.shape[0]
+
+
+def init_s2v(k: int, *, generator: torch.Generator, device=None,
+             scale: float = 0.1) -> S2V:
+    """Random S2V weights with the JAX package's scales, drawn from
+    ``generator`` on the CPU (so a seed gives the same weights on every
+    device), then placed on ``device``."""
+    m = S2V(k)
+    with torch.no_grad():
+        m.theta1.normal_(generator=generator).mul_(scale)
+        m.theta2.normal_(generator=generator).mul_(scale)
+        m.theta3.normal_(generator=generator).mul_(scale / math.sqrt(k))
+        m.theta4.normal_(generator=generator).mul_(scale / math.sqrt(k))
+    return m.to(device)
+
+
+class _FusedDenseLayer(torch.autograd.Function):
+    """Autograd hook around the fused layer.  Its backward belongs to the
+    training slice, which will differentiate the plain composition as the
+    JAX ``custom_vjp`` does (``repro/core/s2v.py:_dense_layer_hw_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, theta4, embed, adj, base, compute):
+        return fused_s2v_layer(theta4, embed, adj, base, compute)
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError(
+            "the fused S2V layer has no backward yet: training is ROADMAP "
+            "item A4")
+
+
+def embed_local(
+    params: S2V,
+    adj_local: torch.Tensor,      # (B, Nl, N) local rows of residual adjacency
+    sol_local: torch.Tensor,      # (B, Nl)    local slice of partial solution S
+    *,
+    num_layers: int,
+    axis: Optional[str] = None,
+    kernel: str = "fused",
+    compute: str = "f32",
+) -> torch.Tensor:
+    """Returns (B, K, Nl) embeddings of the local resident nodes (Alg. 2)."""
+    check_kernel(kernel)
+    compute_dtype(compute)
+    if axis is not None:
+        raise NotImplementedError(
+            "sharded embedding (axis=...) is the multi-GPU mesh slice, "
+            "ROADMAP item A9")
+    # Line 5: embed1 = θ1 · Sᵀ  →  (B, K, Nl)
+    embed1 = params.theta1[None, :, None] * sol_local[:, None, :]
+    # Lines 7-8: w = ReLU(θ2 · deg_local);  embed2 = θ3 @ w
+    deg_local = adj_local.sum(-1)                            # (B, Nl)
+    w = torch.relu(params.theta2[None, :, None] * deg_local[:, None, :])
+    embed2 = torch.einsum("kj,bjn->bkn", params.theta3, w)
+    base = (embed1 + embed2).contiguous()                    # f32 residual term
+
+    embed = torch.zeros_like(base)                           # Line 3
+    for layer in range(num_layers):                          # Lines 9-15
+        if kernel == "fused":
+            if layer == 0:
+                # embed⁰ = 0 ⇒ the first aggregation is exactly zero
+                embed = torch.relu(base)
+            else:
+                embed = _FusedDenseLayer.apply(params.theta4, embed,
+                                               adj_local, base, compute)
+        else:
+            nbr = torch.einsum("bkl,bln->bkn", embed, adj_local)   # Line 11
+            embed3 = torch.einsum("kj,bjn->bkn", params.theta4, nbr)
+            embed = torch.relu(base + embed3)                       # Line 14
+    return embed

@@ -1,0 +1,104 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
+``nvcc`` into its own shared library, loaded with ``ctypes``.  PyTorch's
+headers are never included, so a build takes seconds, not minutes.  The
+libraries go to ``build/repro_torch/<hash>/`` at the repository root (a
+directory ``.gitignore`` lists), keyed by a hash of the sources and the
+flags, so an edited source is rebuilt and an unchanged one is reused.
+
+The build happens on first use: the first :func:`load` builds every
+source whose library is missing.  It raises when ``nvcc`` is missing or a
+build fails.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+from typing import Dict
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``; raises if the CUDA toolkit is not installed."""
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and os.access("/usr/local/cuda/bin/nvcc", os.X_OK):
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found: building the repro_torch CUDA kernels needs the "
+            "CUDA toolkit (nvcc on PATH or under /usr/local/cuda/bin)")
+    return nvcc
+
+
+def _sources() -> Dict[str, pathlib.Path]:
+    return {p.stem: p for p in sorted(CSRC.glob("*.cu"))}
+
+
+def build_dir() -> pathlib.Path:
+    """The directory this checkout's sources and flags build into."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name, path in _sources().items():
+        h.update(name.encode())
+        h.update(path.read_bytes())
+    for path in sorted(CSRC.glob("*.cuh")):
+        h.update(path.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def _build_missing(out: pathlib.Path) -> None:
+    """Build every source whose library is missing, one ``nvcc`` after
+    another; each writes a temporary file that is renamed into place only
+    when its build succeeded."""
+    nvcc = find_nvcc()
+    out.mkdir(parents=True, exist_ok=True)
+    for name, src in _sources().items():
+        lib = out / f"lib{name}.so"
+        if lib.exists():
+            continue
+        tmp = out / f"lib{name}.so.{os.getpid()}.tmp"
+        log = out / f"{name}.log"
+        with open(log, "w") as f:
+            rc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                stdout=f, stderr=subprocess.STDOUT,
+                                check=False).returncode
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed to build {name} (exit {rc}): "
+                               f"{log.read_text()[-4000:]}")
+        os.replace(tmp, lib)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        if name not in _sources():
+            raise ValueError(f"no kernel source csrc/{name}.cu")
+        out = build_dir()
+        path = out / f"lib{name}.so"
+        if not path.exists():
+            _build_missing(out)
+        lib = ctypes.CDLL(str(path))
+        _libs[name] = lib
+        return lib
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for ``name`` (ptxas register and spill report), or ''
+    when the library was reused from an earlier build."""
+    log = build_dir() / f"{name}.log"
+    return log.read_text() if log.exists() else ""

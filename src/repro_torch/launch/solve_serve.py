@@ -1,0 +1,97 @@
+"""Graph-solver service launcher: drive a mixed-size request stream through
+the port's serving layer and fused solve loop on the card, in the sync
+drain path or the async path.
+
+    PYTHONPATH=src python -m repro_torch.launch.solve_serve --warmup
+    PYTHONPATH=src python -m repro_torch.launch.solve_serve \
+        --mode async --sizes 500,1000,2000 --requests 24 --warmup
+    # on a machine without a GPU, ask for the CPU explicitly:
+    PYTHONPATH=src python -m repro_torch.launch.solve_serve --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="load policy weights from a checkpoint in the JAX "
+                         "package's format (default: fresh random policy)")
+    ap.add_argument("--requests", type=int, default=12)
+    ap.add_argument("--sizes", default="12,20,28",
+                    help="comma-separated node counts the stream mixes")
+    ap.add_argument("--kind", choices=["er", "ba", "social"], default="er")
+    ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--embed-dim", type=int, default=32)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    ap.add_argument("--mode", choices=["sync", "async"], default="sync",
+                    help="sync: queue everything and drain() once; async: "
+                         "submit futures against the scheduler thread")
+    ap.add_argument("--rate", type=float, default=0.0,
+                    help="open-loop Poisson load at this rate; needs the "
+                         "load generator, which is not ported yet")
+    ap.add_argument("--warmup", action="store_true",
+                    help="run each bucket's first dispatch before the "
+                         "first request")
+    args = ap.parse_args(argv)
+    if args.rate > 0:
+        raise NotImplementedError(
+            "--rate needs serving/loadgen.py, which is not ported yet: "
+            "see ROADMAP queue A (serving)")
+
+    import torch
+    from ..core import PolicyConfig, init_policy
+    from ..core.graphs import barabasi_albert, erdos_renyi, social_like
+    from ..serving import GraphSolverService
+
+    cfg = PolicyConfig(embed_dim=args.embed_dim, num_layers=2)
+    svc_kw = dict(device=args.device, max_batch=args.max_batch)
+    if args.ckpt_dir:
+        svc = GraphSolverService.from_checkpoint(args.ckpt_dir, cfg, **svc_kw)
+        print(f"policy loaded from {args.ckpt_dir}")
+    else:
+        gen = torch.Generator().manual_seed(args.seed)
+        params = init_policy(cfg, generator=gen, device=args.device)
+        svc = GraphSolverService(params, cfg, **svc_kw)
+        print("fresh random policy (pass --ckpt-dir for a trained one)")
+
+    sizes = [int(s) for s in args.sizes.split(",")]
+    if args.warmup:
+        info = svc.warmup(sizes)
+        print(f"warmup: {len(info['compiled'])} buckets in "
+              f"{info['seconds']:.2f}s -> request-path first dispatches == 0")
+
+    make = {"er": lambda n, s: erdos_renyi(n, 0.2, seed=s),
+            "ba": lambda n, s: barabasi_albert(n, 4, seed=s),
+            "social": lambda n, s: social_like(n, seed=s)}[args.kind]
+    rng = np.random.default_rng(args.seed)
+    adjs = [make(int(rng.choice(sizes)), args.seed + i)
+            for i in range(args.requests)]
+    t0 = time.time()
+    if args.mode == "async":
+        futures = [svc.submit_async(a) for a in adjs]
+        responses = [f.result() for f in futures]
+        svc.close()
+    else:
+        responses = svc.serve(adjs)
+    dt = time.time() - t0
+    for r in responses:
+        print(f"  req{r.id:3d}  n={len(r.solution):4d} -> bucket "
+              f"{r.bucket:4d}  |S|={r.size:4d}  evals={r.policy_evals}  "
+              f"lat={r.latency_s * 1e3:7.1f}ms")
+    s = svc.stats
+    print(f"served {s.requests} requests on {svc.device} in {dt:.2f}s: "
+          f"{s.batches} batches ({s.partial_batches} partial), "
+          f"{s.compiles} request-path first dispatches "
+          f"(+{s.warmup_compiles} warmup, {s.compile_seconds:.2f}s), "
+          f"{s.padded_rows} padded rows, {s.solve_seconds:.2f}s solving")
+
+
+if __name__ == "__main__":
+    main()

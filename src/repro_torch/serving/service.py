@@ -1,0 +1,443 @@
+"""Graph-solver service: continuous-batching request layer over the fused
+solve loop (DESIGN.md §9, §14).  Counterpart of ``repro/serving/service.py``.
+
+Requests are bucketed to power-of-two sizes with isolated-node padding
+(``bucketing``), batched, solved on the card by ``core.engine``'s solve
+loop and unpadded per request.  Two modes share every layer below
+submission:
+
+- **Sync** — ``submit()`` queues, ``drain()`` serves everything queued in
+  bucket order; ``serve()`` does both.
+- **Async** — ``submit_async()`` returns a :class:`SolveFuture`; a
+  background thread asks the :class:`DeadlineScheduler` which batch to
+  dispatch next (EDF, anti-starvation, partial dispatch after
+  ``max_wait_ms``, depth-bounded admission).
+
+Where the JAX service caches one compiled step per (bucket, problem), the
+port has nothing to compile per shape; it keeps a per-(bucket, problem)
+*first dispatch* record instead.  The first dispatch of a bucket pays the
+kernel build and load and the allocator's first allocations at that size,
+so ``compiles``, ``warmup_compiles`` and ``compile_seconds`` count that
+first run (on a born-done dummy batch), and ``warmup()`` keeps it off the
+request path as before.
+
+    svc = GraphSolverService(policy, cfg)           # device="cuda"
+    svc.warmup([512, 1024])
+    fut = svc.submit_async(adj, deadline_ms=100.0)
+    resp = fut.result()
+    svc.close()
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import threading
+import time
+from collections import deque
+from typing import Deque, Dict, List, Optional, Sequence, Set
+
+import numpy as np
+
+from ..core.graphrep import get_rep
+from ..core.inference import MAX_D, check_solve_options, init_solve_state
+from ..core.policy import Policy, PolicyConfig
+from ..device import DeviceLike, resolve_device, synchronize
+from .bucketing import (MIN_BUCKET, BatchPlan, bucket_nodes, build_plan,
+                        plan_batches, unpad_solution)
+from .scheduler import DeadlineScheduler, PendingRequest
+
+
+class ServiceOverloaded(RuntimeError):
+    """Admission-control fast-reject: the async queue is at its bound."""
+
+
+@dataclasses.dataclass(frozen=True)
+class SolveRequest:
+    id: int
+    adj: np.ndarray            # (n, n) dense adjacency
+    n: int
+    problem: str = "mvc"
+    enqueue_t: float = 0.0     # perf_counter at submission
+
+
+@dataclasses.dataclass(frozen=True)
+class SolveResponse:
+    id: int
+    solution: np.ndarray       # (n,) mask over the REQUEST's nodes
+    size: int                  # |S|
+    policy_evals: int          # evals of the batch this request rode in
+    bucket: int                # padded node count it was served at
+    problem: str
+    enqueue_t: float = 0.0     # submission
+    dispatch_t: float = 0.0    # its batch started on the device
+    complete_t: float = 0.0    # its batch's results were fetched
+
+    @property
+    def latency_s(self) -> float:
+        """Submission-to-completion wall time (queue wait + solve)."""
+        return self.complete_t - self.enqueue_t
+
+    @property
+    def wait_s(self) -> float:
+        """Queue wait: submission to batch dispatch."""
+        return self.dispatch_t - self.enqueue_t
+
+
+@dataclasses.dataclass
+class ServiceStats:
+    requests: int = 0
+    batches: int = 0
+    partial_batches: int = 0   # dispatches with unused (padded) rows
+    compiles: int = 0          # first dispatches of a bucket on the request path
+    warmup_compiles: int = 0   # first dispatches done by warmup()
+    cache_hits: int = 0
+    rejected: int = 0          # admission-control fast-rejects
+    padded_rows: int = 0       # unused batch rows dispatched (all buckets)
+    compile_seconds: float = 0.0   # first-dispatch cost, kernel build included
+    solve_seconds: float = 0.0
+    padded_rows_by_bucket: Dict[int, int] = dataclasses.field(
+        default_factory=dict)
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+class SolveFuture:
+    """Completion handle for one async submission; ``result()`` blocks
+    until its batch was dispatched and re-raises a dispatch failure."""
+
+    def __init__(self, request_id: int):
+        self.id = request_id
+        self._event = threading.Event()
+        self._response: Optional[SolveResponse] = None
+        self._exception: Optional[BaseException] = None
+
+    def done(self) -> bool:
+        return self._event.is_set()
+
+    def result(self, timeout: Optional[float] = None) -> SolveResponse:
+        if not self._event.wait(timeout):
+            raise TimeoutError(f"request {self.id} not served "
+                               f"within {timeout}s")
+        if self._exception is not None:
+            raise self._exception
+        return self._response
+
+    def _set_result(self, response: SolveResponse) -> None:
+        self._response = response
+        self._event.set()
+
+    def _set_exception(self, exc: BaseException) -> None:
+        self._exception = exc
+        self._event.set()
+
+
+class GraphSolverService:
+    """Batched graph-solver frontend over the fused solve loop.
+
+    Parameters
+    ----------
+    params : the policy, on ``device``.
+    cfg : PolicyConfig — supplies num_layers, kernel and compute; this
+        slice serves ``graph_rep="dense"`` with ``spatial=0``.
+    device : where batches are solved; ``"cuda"`` unless the caller asks
+        for the CPU.
+    multi_node : adaptive top-d commit schedule (§4.5.1) per evaluation.
+    max_batch : rows per dispatch; every batch is padded to exactly this.
+    max_wait_ms, max_queue_depth, default_deadline_ms, starvation_factor :
+        the async scheduler's knobs (see ``scheduler``).
+    """
+
+    def __init__(self, params: Policy, cfg: PolicyConfig, *,
+                 device: DeviceLike = "cuda",
+                 multi_node: bool = True, max_batch: int = 8,
+                 min_bucket: int = MIN_BUCKET,
+                 max_wait_ms: float = 50.0,
+                 max_queue_depth: int = 512,
+                 default_deadline_ms: Optional[float] = None,
+                 starvation_factor: float = 2.0):
+        from ..core.engine import get_solve_step
+        self.device = resolve_device(device)
+        if params.device != self.device:
+            raise ValueError(f"the policy is on {params.device}, the "
+                             f"service on {self.device}")
+        check_solve_options("device", cfg.spatial)
+        self.params = params
+        self.cfg = cfg
+        self.rep = get_rep(cfg.graph_rep)
+        self.multi_node = multi_node
+        self.max_batch = max_batch
+        self.rows_per_dispatch = max_batch
+        self.min_bucket = min_bucket
+        self.default_deadline_ms = default_deadline_ms
+        self.stats = ServiceStats()
+        self._queue: Deque[SolveRequest] = deque()
+        self._next_id = 0
+        self._dispatched: Set[tuple] = set()   # first-dispatch record
+        self._results: Dict[int, SolveResponse] = {}
+        self._solve = {}
+        self._get_solve_step = get_solve_step
+        # _cond guards queue/scheduler/id/running state; _device_lock
+        # serializes device work (first dispatches and dispatches)
+        self._cond = threading.Condition()
+        self._device_lock = threading.Lock()
+        self._sched = DeadlineScheduler(
+            self.rows_per_dispatch, max_wait_ms=max_wait_ms,
+            max_queue_depth=max_queue_depth,
+            starvation_factor=starvation_factor, min_bucket=min_bucket)
+        self._thread: Optional[threading.Thread] = None
+        self._running = False
+
+    @classmethod
+    def from_checkpoint(cls, ckpt_dir, cfg: PolicyConfig,
+                        step: Optional[int] = None, *,
+                        device: DeviceLike = "cuda",
+                        **kw) -> "GraphSolverService":
+        """Serve a policy saved in the JAX checkpoint format."""
+        from ..checkpoint import load_policy
+        params, _step = load_policy(ckpt_dir, cfg, step, device=device)
+        return cls(params, cfg, device=device, **kw)
+
+    # -- request intake -----------------------------------------------------
+    def _validate(self, adj: np.ndarray, problem: str) -> np.ndarray:
+        """Reject malformed adjacencies and unknown / padding-unsafe
+        problems before they are queued."""
+        from ..core import env as env_lib
+        env_lib.ensure_padding_safe(problem)
+        adj = np.asarray(adj, np.float32)
+        if adj.ndim != 2 or adj.shape[0] != adj.shape[1]:
+            raise ValueError(f"expected a square (n, n) adjacency, "
+                             f"got {adj.shape}")
+        return adj
+
+    def _make_request(self, adj: np.ndarray, problem: str) -> SolveRequest:
+        # caller holds self._cond
+        rid = self._next_id
+        self._next_id += 1
+        return SolveRequest(id=rid, adj=adj, n=adj.shape[0],
+                            problem=problem,
+                            enqueue_t=time.perf_counter())
+
+    def submit(self, adj: np.ndarray, problem: str = "mvc") -> int:
+        """Sync mode: enqueue one graph for the next ``drain()``."""
+        adj = self._validate(adj, problem)
+        with self._cond:
+            req = self._make_request(adj, problem)
+            self._queue.append(req)
+            self.stats.requests += 1
+        return req.id
+
+    def submit_async(self, adj: np.ndarray, problem: str = "mvc",
+                     deadline_ms: Optional[float] = None) -> SolveFuture:
+        """Async mode: admit one graph into the deadline scheduler and
+        return a :class:`SolveFuture`.  Raises :class:`ServiceOverloaded`
+        at the admission bound."""
+        adj = self._validate(adj, problem)
+        if deadline_ms is None:
+            deadline_ms = self.default_deadline_ms
+        with self._cond:
+            req = self._make_request(adj, problem)
+            deadline_t = (req.enqueue_t + deadline_ms / 1e3
+                          if deadline_ms is not None else math.inf)
+            future = SolveFuture(req.id)
+            if not self._sched.offer(PendingRequest(req, deadline_t,
+                                                    future)):
+                self.stats.rejected += 1
+                raise ServiceOverloaded(
+                    f"request rejected: {len(self._sched)} queued at the "
+                    f"admission bound ({self._sched.max_queue_depth})")
+            self.stats.requests += 1
+            self._start_locked()
+            self._cond.notify_all()
+        return future
+
+    def pending(self) -> int:
+        return len(self._queue) + len(self._sched)
+
+    # -- first dispatch / warmup ---------------------------------------------
+    def _key(self, nb: int, problem: str) -> tuple:
+        return (nb, problem, self.rep.name, self.multi_node,
+                self.cfg.num_layers, self.cfg.kernel, self.cfg.compute)
+
+    def _solve_fn(self, problem: str):
+        fn = self._solve.get(problem)
+        if fn is None:
+            fn = self._get_solve_step(
+                rep=self.rep, problem=problem,
+                num_layers=self.cfg.num_layers,
+                use_adaptive=self.multi_node,
+                kernel=self.cfg.kernel, compute=self.cfg.compute)
+            self._solve[problem] = fn
+        return fn
+
+    def _ensure_dispatched(self, nb: int, problem: str, *,
+                           warm: bool = False) -> None:
+        """First run of one (bucket, problem) on a batch of empty graphs:
+        the shapes of a real dispatch, but every row is born done, so the
+        loop stops after one evaluation and the measured cost is the
+        first-use cost (kernel build and load on the first bucket)."""
+        key = self._key(nb, problem)
+        if key in self._dispatched:
+            if not warm:
+                self.stats.cache_hits += 1
+            return
+        dummy = np.zeros((self.rows_per_dispatch, nb, nb), np.float32)
+        t0 = time.perf_counter()
+        state = init_solve_state(self.rep, dummy, problem,
+                                 device=self.device)
+        self._solve_fn(problem)(self.params, state, nb + MAX_D)
+        synchronize(self.device)
+        self.stats.compile_seconds += time.perf_counter() - t0
+        if warm:
+            self.stats.warmup_compiles += 1
+        else:
+            self.stats.compiles += 1
+        self._dispatched.add(key)
+
+    def warmup(self, buckets: Sequence[int],
+               problems: Sequence[str] = ("mvc",)) -> dict:
+        """Run the first dispatch of every (bucket, problem) the traffic
+        will touch, off the request path.  ``buckets`` entries are rounded
+        up to their power-of-two bucket.  After a warmup covering the
+        traffic's buckets, ``stats.compiles == 0`` holds."""
+        t0 = time.perf_counter()
+        done = []
+        with self._device_lock:
+            for problem in problems:
+                for b in buckets:
+                    nb = bucket_nodes(int(b), self.min_bucket)
+                    if self._key(nb, problem) not in self._dispatched:
+                        self._ensure_dispatched(nb, problem, warm=True)
+                        done.append([nb, problem])
+        return {"compiled": done,
+                "seconds": time.perf_counter() - t0,
+                "warmup_compiles": self.stats.warmup_compiles}
+
+    # -- dispatch -----------------------------------------------------------
+    def _dispatch(self, plan: BatchPlan) -> List[SolveResponse]:
+        self._ensure_dispatched(plan.nb, plan.problem)
+        t0 = time.perf_counter()
+        state = init_solve_state(self.rep, plan.adj, plan.problem,
+                                 device=self.device)
+        out, evals, _committed = self._solve_fn(plan.problem)(
+            self.params, state, plan.nb + MAX_D)
+        sol = out.solution.cpu().numpy()         # waits for the device
+        t1 = time.perf_counter()
+        self.stats.solve_seconds += t1 - t0
+        self.stats.batches += 1
+        unused = self.rows_per_dispatch - len(plan.request_ids)
+        self.stats.padded_rows += unused
+        self.stats.padded_rows_by_bucket[plan.nb] = (
+            self.stats.padded_rows_by_bucket.get(plan.nb, 0) + unused)
+        if unused:
+            self.stats.partial_batches += 1
+        enqueue_ts = plan.enqueue_ts or (0.0,) * len(plan.request_ids)
+        responses = []
+        for row, (rid, n, et) in enumerate(zip(plan.request_ids,
+                                               plan.sizes, enqueue_ts)):
+            mask = unpad_solution(sol[row], n)
+            responses.append(SolveResponse(
+                id=rid, solution=mask, size=int(mask.sum()),
+                policy_evals=int(evals), bucket=plan.nb,
+                problem=plan.problem, enqueue_t=et, dispatch_t=t0,
+                complete_t=t1))
+        return responses
+
+    # -- async scheduler thread ---------------------------------------------
+    def _start_locked(self) -> None:
+        if self._thread is None or not self._thread.is_alive():
+            self._running = True
+            self._thread = threading.Thread(
+                target=self._scheduler_loop,
+                name="graph-solver-scheduler", daemon=True)
+            self._thread.start()
+
+    def _scheduler_loop(self) -> None:
+        """Continuous batching: sleep until the scheduler has a ready
+        batch (or a head's max_wait expires), dispatch it outside the
+        lock, resolve its futures; on shutdown, flush what is queued."""
+        while True:
+            with self._cond:
+                batch = None
+                while self._running:
+                    batch = self._sched.next_batch(time.perf_counter())
+                    if batch is not None:
+                        break
+                    wake = self._sched.next_wake(time.perf_counter())
+                    timeout = (None if wake is None
+                               else max(wake - time.perf_counter(), 1e-4))
+                    self._cond.wait(timeout)
+                if batch is None:
+                    batch = self._sched.next_batch(time.perf_counter(),
+                                                   force=True)
+                    if batch is None:
+                        return              # stopped and fully flushed
+            (nb, problem), pendings = batch
+            plan = build_plan([p.req for p in pendings], nb, problem,
+                              self.rows_per_dispatch)
+            try:
+                with self._device_lock:
+                    responses = self._dispatch(plan)
+            except Exception as exc:    # device OOM etc.: fail the batch
+                for p in pendings:
+                    p.future._set_exception(exc)
+                continue
+            by_id = {r.id: r for r in responses}
+            for p in pendings:
+                p.future._set_result(by_id[p.req.id])
+
+    @property
+    def running(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
+
+    def close(self) -> None:
+        """Stop the async scheduler thread after flushing what is queued,
+        so every issued future resolves."""
+        with self._cond:
+            thread = self._thread
+            self._running = False
+            self._cond.notify_all()
+        if thread is not None:
+            thread.join()
+        self._thread = None
+
+    def __enter__(self) -> "GraphSolverService":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    # -- sync drain ---------------------------------------------------------
+    def drain(self) -> Dict[int, SolveResponse]:
+        """Serve every pending sync request: bucket, pad, batch, solve,
+        unpad.  If a dispatch raises, unserved requests go back on the
+        queue and computed responses are held for the next drain."""
+        with self._cond:
+            if self._running:
+                raise RuntimeError(
+                    "drain() is the sync path; the async scheduler is "
+                    "running — resolve futures or close() first")
+            requests = list(self._queue)
+            self._queue.clear()
+        pending = {r.id: r for r in requests}
+        try:
+            for plan in plan_batches(requests, self.rows_per_dispatch,
+                                     self.min_bucket):
+                with self._device_lock:
+                    responses = self._dispatch(plan)
+                for resp in responses:
+                    self._results[resp.id] = resp
+                    pending.pop(resp.id, None)
+        except BaseException:
+            with self._cond:
+                self._queue.extend(pending.values())
+            raise
+        results, self._results = self._results, {}
+        return results
+
+    def serve(self, adjs: Sequence[np.ndarray],
+              problem: str = "mvc") -> List[SolveResponse]:
+        """Submit a request stream and drain it, in submission order."""
+        ids = [self.submit(a, problem) for a in adjs]
+        results = self.drain()
+        return [results[i] for i in ids]

@@ -1,0 +1,175 @@
+"""The port's serving layer (repro_torch.serving) against the JAX
+package's on the CPU: bucketing and batch plans match, a mixed-size
+stream's answers equal the port's own direct padded solves and the JAX
+service's answers, async equals sync, drain requeues on failure, and
+warmup keeps first dispatches off the request path."""
+import dataclasses
+import math
+from types import SimpleNamespace
+
+import numpy as np
+import jax
+import pytest
+import torch
+
+from repro.core import PolicyConfig as JaxPolicyConfig
+from repro.core import init_policy as jax_init_policy
+from repro.serving import GraphSolverService as JaxService
+from repro.serving import SolveRequest as JaxRequest
+from repro.serving import plan_batches as jax_plan_batches
+from repro_torch.convert import policy_from_numpy
+from repro_torch.core import PolicyConfig, solve
+from repro_torch.core.graphs import erdos_renyi
+from repro_torch.serving import (DeadlineScheduler, GraphSolverService,
+                                 PendingRequest, SolveRequest, bucket_nodes,
+                                 pad_adjacency, plan_batches)
+
+SIZES = [6, 11, 6, 19, 11, 6, 19]
+
+
+def jax_to_numpy(params):
+    return {f"{part}.{f.name}": np.asarray(getattr(getattr(params, part),
+                                                   f.name))
+            for part in ("em", "q")
+            for f in dataclasses.fields(getattr(params, part))}
+
+
+@pytest.fixture(scope="module")
+def pair():
+    params = jax_init_policy(jax.random.key(3), JaxPolicyConfig(embed_dim=8))
+    policy = policy_from_numpy(jax_to_numpy(params), device="cpu")
+    return params, policy, PolicyConfig(embed_dim=8, num_layers=2)
+
+
+@pytest.fixture(scope="module")
+def stream():
+    return [erdos_renyi(n, 0.3, seed=10 + i) for i, n in enumerate(SIZES)]
+
+
+def test_bucketing_matches_jax():
+    from repro.serving import bucket_nodes as jax_bucket_nodes
+    for n in (1, 7, 8, 9, 16, 17, 100, 4000):
+        assert bucket_nodes(n) == jax_bucket_nodes(n)
+    a = erdos_renyi(10, 0.3, seed=0)
+    p = pad_adjacency(a, 16)
+    assert p.shape == (16, 16) and (p[:10, :10] == a).all()
+    assert p[10:].sum() == 0 and p[:, 10:].sum() == 0
+    with pytest.raises(ValueError):
+        pad_adjacency(a, 8)
+    with pytest.raises(ValueError):
+        bucket_nodes(0)
+
+
+def test_plan_batches_match_jax():
+    sizes = [5, 9, 20, 9, 5, 33]
+    adjs = [erdos_renyi(n, 0.4, seed=i) for i, n in enumerate(sizes)]
+    ours = plan_batches([SolveRequest(id=i, adj=a, n=a.shape[0])
+                         for i, a in enumerate(adjs)], max_batch=2)
+    theirs = jax_plan_batches([JaxRequest(id=i, adj=a, n=a.shape[0])
+                               for i, a in enumerate(adjs)], max_batch=2)
+    assert [(p.nb, p.request_ids, p.sizes) for p in ours] \
+        == [(p.nb, p.request_ids, p.sizes) for p in theirs]
+    for a, b in zip(ours, theirs):
+        assert (a.adj == b.adj).all() and a.adj.shape == (2, a.nb, a.nb)
+
+
+def test_service_stream_equals_direct_solves_and_jax_service(pair, stream):
+    params, policy, cfg = pair
+    svc = GraphSolverService(policy, cfg, device="cpu", max_batch=3)
+    responses = svc.serve(stream)
+    jax_resp = JaxService(params, JaxPolicyConfig(embed_dim=8),
+                          max_batch=3).serve(stream)
+    assert [len(r.solution) for r in responses] == SIZES
+    for r, jr, adj, n in zip(responses, jax_resp, stream, SIZES):
+        nb = bucket_nodes(n)
+        assert r.bucket == nb == jr.bucket
+        direct = solve(policy, pad_adjacency(adj, nb)[None], num_layers=2,
+                       multi_node=True, device="cpu")
+        assert (r.solution == direct.solution[0, :n]).all()
+        assert direct.solution[0, n:].sum() == 0
+        assert (r.solution == jr.solution).all()
+        assert r.policy_evals == jr.policy_evals and r.size == jr.size
+        keep = r.solution < 0.5
+        assert adj[np.ix_(keep, keep)].sum() == 0
+    s = svc.stats
+    assert s.requests == len(SIZES) and s.batches == 3
+    assert s.compiles == 3                 # buckets 8, 16, 32
+    assert s.cache_hits == s.batches - s.compiles
+    assert s.padded_rows == 2 and s.partial_batches == 2
+
+
+def test_async_equals_sync_and_warmup_means_no_first_dispatch(pair, stream):
+    _, policy, cfg = pair
+    sync = GraphSolverService(policy, cfg, device="cpu",
+                              max_batch=3).serve(stream)
+    svc = GraphSolverService(policy, cfg, device="cpu", max_batch=3,
+                             max_wait_ms=1.0)
+    info = svc.warmup(SIZES)
+    assert sorted(nb for nb, _ in info["compiled"]) == [8, 16, 32]
+    assert svc.warmup(SIZES)["compiled"] == []          # idempotent
+    with svc:
+        futures = [svc.submit_async(a) for a in stream]
+        responses = [f.result(timeout=120) for f in futures]
+    for a, s in zip(responses, sync):
+        assert (a.solution == s.solution).all()
+        assert a.complete_t >= a.dispatch_t >= a.enqueue_t > 0
+    assert svc.stats.compiles == 0 and svc.stats.warmup_compiles == 3
+    assert not svc.running
+
+
+def test_drain_requeues_on_failure(pair):
+    _, policy, cfg = pair
+    svc = GraphSolverService(policy, cfg, device="cpu", max_batch=1)
+    i0 = svc.submit(erdos_renyi(9, 0.3, seed=0))
+    i1 = svc.submit(erdos_renyi(9, 0.3, seed=1))
+    orig, calls = svc._dispatch, []
+
+    def flaky(plan):
+        if calls:
+            raise RuntimeError("boom")
+        calls.append(1)
+        return orig(plan)
+
+    svc._dispatch = flaky
+    with pytest.raises(RuntimeError):
+        svc.drain()
+    assert svc.pending() == 1
+    svc._dispatch = orig
+    assert set(svc.drain()) == {i0, i1}
+
+
+def test_service_rejects_bad_input_and_unported_options(pair):
+    _, policy, cfg = pair
+    svc = GraphSolverService(policy, cfg, device="cpu")
+    with pytest.raises(ValueError):
+        svc.submit(np.zeros((3, 4), np.float32))
+    with pytest.raises(NotImplementedError, match="A5"):
+        svc.submit(np.zeros((4, 4), np.float32), problem="mis")
+    with pytest.raises(NotImplementedError, match="A7"):
+        GraphSolverService(policy, dataclasses.replace(cfg,
+                                                       graph_rep="sparse"),
+                           device="cpu")
+    with pytest.raises(NotImplementedError, match="A9"):
+        GraphSolverService(policy, dataclasses.replace(cfg, spatial=(2, 1)),
+                           device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            GraphSolverService(policy, cfg)
+
+
+def _req(rid, n, enqueue_t):
+    return SimpleNamespace(id=rid, n=n, problem="mvc", enqueue_t=enqueue_t)
+
+
+def test_scheduler_edf_partial_dispatch_and_admission():
+    s = DeadlineScheduler(2, max_wait_ms=100.0, max_queue_depth=3)
+    assert s.offer(PendingRequest(_req(0, 10, 0.0), deadline_t=5.0))
+    assert s.next_batch(0.05) is None               # waiting for a companion
+    assert s.offer(PendingRequest(_req(1, 40, 0.01), deadline_t=1.0))
+    assert s.offer(PendingRequest(_req(2, 40, 0.02), deadline_t=math.inf))
+    assert not s.offer(PendingRequest(_req(3, 10, 0.03)))   # depth bound
+    (nb, _), batch = s.next_batch(0.05)             # full 64-bucket first
+    assert nb == 64 and [p.req.id for p in batch] == [1, 2]
+    assert s.next_batch(0.05) is None
+    (nb, _), batch = s.next_batch(0.2)              # head waited 200ms
+    assert nb == 16 and [p.req.id for p in batch] == [0]
