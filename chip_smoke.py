@@ -5,31 +5,46 @@
 
 Phases (any failed check raises, so the script exits non-zero):
 
-1. The fused S2V layer kernel against its plain PyTorch version on the
-   card, at f32 and bf16, at the shapes the main path gives it (served
-   buckets 512, 2048 and 4096 with B=8, K=32, and the paper-scale B=1,
-   N=20480), a ragged case and a padded case whose isolated nodes must
-   give relu(base).
-2. Served requests: GraphSolverService at K=32, L=2, multi-node selection,
-   max_batch=8, warmed up, answers 24 ER(0.15) graphs of 500..4000 nodes;
-   every answer is a vertex cover, no first dispatch lands on the request
-   path, and the kernel ran once per policy evaluation.  The async path
-   must give the same answers.
+1. Every kernel against its plain PyTorch version on the card, at the
+   shapes the main paths give it, each case also held against the layer
+   computed in f64.  The dense fused layer at f32 and bf16 (served buckets
+   512, 2048 and 4096 with B=8, K=32, the paper-scale B=1, N=20480, a
+   ragged and a padded case); the padded-sparse fused layer (f32, bf16),
+   the sparse aggregation (f32) and the CSR fused layer (f32, bf16) on
+   symmetric ER(0.15) graphs: a ragged case, a padding case whose
+   isolated nodes must give exactly relu(base) (0 for the aggregation),
+   the serving bucket (B=8, N=4096, D=768, 2.5M edge slots per graph) and
+   the paper-scale graph (B=1, N=20480, ~62.9M directed edges); the CSR
+   layer also on BA(N=1M, d=10) (~20.0M directed edges).
+2. Served requests: GraphSolverService at K=32, L=2, multi-node
+   selection, max_batch=8, warmed up, answers 24 ER(0.15) graphs of
+   500..4000 nodes, on the dense, the sparse (sparse_max_degree=768) and
+   the CSR (csr_max_edges=2.5M) representations; every answer is a vertex
+   cover, no first dispatch lands on the request path, the rep's kernel
+   ran once per policy evaluation, and the async path gives the same
+   answers.
 3. The card against the port on the CPU on one (B=8, N=256) batch:
-   first-evaluation scores within 1e-5, both solutions valid covers.
-4. A paper-scale solve: one ER(N=20480, 0.15) graph (~31.5M edges, a
-   1.68 GB adjacency on the card) with max_d=256; the answer is a cover.
-5. Where an evaluation's time goes (torch.profiler over 20 evaluations
-   of a full 4096-node bucket), then timings: kernel, plain version and
-   library yardstick (CUDA events around 10 back-to-back calls, median
-   of 30 such samples after warm-up) beside the kernel's bound.
+   first-evaluation scores within 1e-5 on each rep, and across reps on
+   the card; solutions valid covers.
+4. Large solves: the paper-scale ER(N=20480, 0.15) graph (~31.5M edges)
+   on all three reps with max_d=256, and BA(N=1M, d=10) on the CSR rep
+   with max_d=62500, built from streamed edges with no dense array; each
+   answer is a cover.  Then the sparse "xla" chain on a full 4096-node
+   bucket, whose aggregation kernel must run twice per evaluation.
+5. Where an evaluation's time goes (torch.profiler over 20 evaluations of
+   a full 4096-node bucket, per rep), then timings: each kernel, its plain
+   version and a library yardstick (CUDA events around 10 back-to-back
+   calls, median of 30 such samples after warm-up) beside its bound.
 
-It prints diagnostic JSON lines, the nvidia-smi name and power limit, one
-``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
-It exits non-zero without a CUDA device, and outside a checkout.
+It prints diagnostic JSON lines (each phase's seconds among them), the
+nvidia-smi name and power limit, one ``{"kernels": [...]}`` line, and last
+``{"ok": true, "device": {...}}``.  It exits non-zero without a CUDA
+device, and outside a checkout.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import json
 import os
 import subprocess
@@ -42,10 +57,39 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 H100_BYTES_PER_S = 3.35e12       # HBM3, NVIDIA H100 SXM data sheet
 H100_F32_FLOPS = 67e12           # f32 outside the tensor cores, same sheet
+DEVICE = "cuda"
+SERVE_SIZES = (500, 1000, 2000, 4000)
+SPARSE_MAX_DEGREE = 768          # ~7 sigma above ER(4000, 0.15)'s mean degree
+CSR_MAX_EDGES = 2_500_000        # above ER(4000, 0.15)'s 2.40M directed edges
+BUCKET = (8, 4096, 4000)         # rows, nodes, real nodes of a full bucket
+PAPER_N, PAPER_MAX_D = 20480, 256
+BA_N, BA_D, BA_MAX_D = 1_000_000, 10, 62500
+CPU_CHECK = (8, 256)             # the card-vs-CPU batch: graphs, nodes
+# (name, B, K, N, density) of the dense layer checks
+DENSE_CASES = (("ragged", 2, 16, 40, 0.3), ("padded", 2, 32, 300, 0.3),
+               ("bucket512", 8, 32, 512, 0.15),
+               ("bucket2048", 8, 32, 2048, 0.15),
+               ("serving", 8, 32, 4096, 0.15),
+               ("paper", 1, 32, PAPER_N, 0.15))
+# (name, B, K, N, density, real nodes, list width, edge slots) of the
+# sparse and CSR checks; None derives the width and slots from the graph
+GRAPH_CASES = (("ragged", 2, 16, 40, 0.3, None, None, None),
+               ("padding", 2, 32, 300, 0.3, 256, 160, None),
+               ("serving", 8, 32, 4096, 0.15, 4000, SPARSE_MAX_DEGREE,
+                CSR_MAX_EDGES),
+               ("paper", 1, 32, PAPER_N, 0.15, None, None, None))
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+@contextlib.contextmanager
+def timed_phase(name: str):
+    t0 = time.perf_counter()
+    yield
+    emit({"phase": "seconds", "name": name,
+          "seconds": time.perf_counter() - t0})
 
 
 def is_cover(adj: np.ndarray, solution: np.ndarray) -> bool:
@@ -72,6 +116,29 @@ def cuda_ms(torch, fn, reps: int = 30, inner: int = 10, warm: int = 5) -> float:
     return float(np.median(times))
 
 
+def kernel_modules():
+    from repro_torch.kernels import s2v_csr, s2v_fused, s2v_gather
+    return s2v_fused, s2v_gather, s2v_csr
+
+
+def kernel_fns():
+    """The four kernel wrappers, by name."""
+    ks, kg, kc = kernel_modules()
+    return {"fused_s2v_layer": ks.fused_s2v_layer,
+            "fused_s2v_layer_sparse": ks.fused_s2v_layer_sparse,
+            "sparse_mp_aggregate": kg.sparse_mp_aggregate,
+            "fused_s2v_layer_csr": kc.fused_s2v_layer_csr}
+
+
+def reset_counts() -> None:
+    for fn in kernel_fns().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in kernel_fns().items()}
+
+
 def layer_inputs(torch, b, k, n, rho, seed, dev):
     """Random layer inputs made on ``dev`` from ``seed``: adjacency of
     density ``rho``, embeddings and base in [-0.5, 0.5), theta4 in
@@ -87,200 +154,548 @@ def layer_inputs(torch, b, k, n, rho, seed, dev):
     return t4, embed, adj, base
 
 
-def layer_bound(b, k, nl, n):
-    """(ms, what bounds it): the least time for one f32 layer on an H100
-    SXM, each input read once and the output written once, against the
-    f32 FMAs of both products."""
-    nbytes = 4 * (k * k + b * k * nl + b * nl * n + 2 * b * k * n)
-    flops = 2 * b * k * nl * n + 2 * b * k * k * n
+def bound(nbytes: float, flops: float):
+    """(ms, what bounds it) on an H100 SXM: the bytes a call must move
+    (each input read once, the output written once) over the memory rate,
+    against its f32 operations over the f32 rate."""
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
-def kernel_tol(compute: str, nl: int) -> float:
-    """rtol = atol of the kernel against its plain version.
+def layer_bound(b, k, nl, n):
+    """Bound of one f32 dense layer: theta4, embed, adj, base in, out."""
+    return bound(4 * (k * k + b * k * nl + b * nl * n + 2 * b * k * n),
+                 2 * b * k * nl * n + 2 * b * k * k * n)
+
+
+def kernel_tol(compute: str, terms: int) -> float:
+    """rtol = atol of a kernel against its plain version.
 
     bf16: 2e-2, one rounding of the aggregate to bf16 (as
-    tests/test_fused_kernel.py).  f32: the kernel sums each aggregate in l
-    order, cuBLAS in its own; 1e-5 (as tests/test_fused_kernel.py) up to
-    Nl = 4096, then growing in proportion to Nl, as the bound on the
-    rounding error of a length-Nl f32 sum does.  At Nl = 20480 the plain
-    version alone is ~1.1e-5 from the layer computed in f64, so a fixed
-    1e-5 cannot be asked of any other summation order there."""
-    return 2e-2 if compute == "bf16" else 1e-5 * max(1.0, nl / 4096)
+    tests/test_fused_kernel.py).  f32: each kernel sums an aggregate as one
+    FMA chain in order, the plain versions in their libraries' orders;
+    1e-5 (as tests/test_fused_kernel.py) up to 4096 summed terms, then
+    growing in proportion to the longest sum, as the bound on the rounding
+    error of a length-``terms`` f32 sum does.  At 20480 terms the plain
+    dense version alone is ~1.1e-5 from the layer computed in f64, so a
+    fixed 1e-5 cannot be asked of any other summation order there."""
+    return 2e-2 if compute == "bf16" else 1e-5 * max(1.0, terms / 4096)
 
 
-def phase_kernel(torch, ks, dev):
-    """Phase 1: the kernel against its plain version on the card, at every
-    shape the main path gives it: buckets 512, 2048 and 4096 of the served
-    stream (B=8), the paper-scale graph (B=1, N=20480), a ragged case and
-    a padded case.  Every case is measured and printed before any is
-    checked.  At f32 both are also held against the layer computed in f64,
-    which says how far each is from the exact result."""
-    cases = [("ragged", 2, 16, 40, 0.3), ("padded", 2, 32, 300, 0.3),
-             ("bucket512", 8, 32, 512, 0.15),
-             ("bucket2048", 8, 32, 2048, 0.15),
-             ("serving", 8, 32, 4096, 0.15), ("paper", 1, 32, 20480, 0.15)]
-    rows, failures = [], []
-    for name, b, k, n, rho in cases:
+def graph_tol(compute: str) -> float:
+    """rtol of the sparse and CSR kernels against their plain versions,
+    relative to the sum of the absolute values of the summed terms (see
+    ``compare``): 1e-5 at f32 (as tests/test_fused_kernel.py) and 2e-2 at
+    bf16 (one rounding of the aggregate, as there)."""
+    return 2e-2 if compute == "bf16" else 1e-5
+
+
+def compare(torch, rows, failures, kernel, case, compute, out, want, exact,
+            terms, shape, scale=None):
+    """Record one kernel-vs-plain comparison (and, at f32, both against
+    the f64 result ``exact``); a failure is collected, not raised, so that
+    every case is printed first.
+
+    Without ``scale``: |out - want| <= tol + tol * |want| with
+    ``kernel_tol(compute, terms)``.  With ``scale``, the sum of the absolute
+    values of the terms behind each output (|base| + |θ4| @ (|x| @ |W|) for
+    a layer, |x| @ |W| for an aggregate): |out - want| <= tol + tol * scale
+    with ``graph_tol(compute)``, the componentwise bound that rounding
+    error analysis gives a sum in any order.  It is needed where the θ4
+    product cancels large aggregates, as it does for the non-negative
+    (ReLU) embeddings these kernels are given."""
+    diff = (out - want).abs()
+    if scale is None:
+        tol = kernel_tol(compute, terms)
+        denom = tol + tol * want.abs()
+    else:
+        tol = graph_tol(compute)
+        denom = tol + tol * scale
+    row = {"phase": "kernel_vs_plain", "kernel": kernel, "case": case,
+           **shape, "compute": compute, "max_abs_err": float(diff.max()),
+           "max_abs_want": float(want.abs().max()),
+           "rule": "|want|" if scale is None else "sum of |terms|",
+           # >1 fails
+           "worst_ratio_to_tol": float((diff / denom).max()), "tol": tol}
+    if scale is not None:
+        # the same difference under the |want| rule, for reference
+        row["worst_ratio_to_1e-5_of_want"] = float(
+            (diff / (1e-5 + 1e-5 * want.abs())).max())
+    if exact is not None:
+        row["kernel_err_vs_f64"] = float((out.double() - exact).abs().max())
+        row["plain_err_vs_f64"] = float((want.double() - exact).abs().max())
+    emit(row)
+    rows.append(row)
+    # torch.testing.assert_close's rule; a NaN ratio fails too
+    if out.shape != want.shape or not row["worst_ratio_to_tol"] <= 1:
+        failures.append(f"{kernel} {case} {compute}: max abs err "
+                        f"{row['max_abs_err']}, rtol=atol={tol}")
+
+
+def phase_kernel(torch, ks, dev, rows, failures):
+    """Phase 1, dense: the fused dense layer against its plain version at
+    every shape the dense path gives it: buckets 512, 2048 and 4096 of the
+    served stream (B=8), the paper-scale graph (B=1, N=20480), a ragged
+    case and a padded case."""
+    for name, b, k, n, rho in DENSE_CASES:
         t4, embed, adj, base = layer_inputs(torch, b, k, n, rho, SEED + n, dev)
         if name == "padded":
             adj[:, :, 256:] = 0.0
             adj[:, 256:, :] = 0.0
-        exact = None
+        exact = torch.relu(base.double() + t4.double() @ (
+            embed.double() @ adj.double()))
         for compute in ("f32", "bf16"):
             out = ks.fused_s2v_layer(t4, embed, adj, base, compute)
             want = ks.fused_s2v_layer_plain(t4, embed, adj, base, compute)
-            tol = kernel_tol(compute, n)
-            diff = (out - want).abs()
-            row = {"phase": "kernel_vs_plain", "case": name, "B": b, "K": k,
-                   "N": n, "compute": compute,
-                   "max_abs_err": float(diff.max()),
-                   "max_abs_want": float(want.abs().max()),
-                   # >1 fails: |out - want| against atol + rtol * |want|
-                   "worst_ratio_to_tol": float(
-                       (diff / (tol + tol * want.abs())).max()), "tol": tol}
-            if compute == "f32":
-                if exact is None:
-                    exact = torch.relu(base.double() + t4.double() @ (
-                        embed.double() @ adj.double()))
-                row["kernel_err_vs_f64"] = float((out - exact).abs().max())
-                row["plain_err_vs_f64"] = float((want - exact).abs().max())
-            emit(row)
-            rows.append(row)
-            # torch.testing.assert_close's rule; a NaN ratio fails too
-            if out.shape != want.shape or not row["worst_ratio_to_tol"] <= 1:
-                failures.append(f"{name} {compute}: max abs err "
-                                f"{row['max_abs_err']}, rtol=atol={tol}")
+            compare(torch, rows, failures, "fused_s2v_layer", name, compute,
+                    out, want, exact if compute == "f32" else None, n,
+                    {"B": b, "K": k, "N": n})
             if name == "padded" and not torch.equal(
                     out[:, :, 256:], torch.relu(base[:, :, 256:])):
                 failures.append(f"padded {compute}: isolated nodes must give "
                                 f"relu(base)")
-        del t4, embed, adj, base, exact, out, want, diff
+        del t4, embed, adj, base, exact, out, want
         torch.cuda.empty_cache()
-    if failures:
-        raise AssertionError("kernel disagrees with its plain version:\n"
-                             + "\n".join(failures))
-    return max(r["max_abs_err"] for r in rows if r["compute"] == "f32")
 
 
-def phase_serve(torch, ks, policy, cfg):
-    """Phase 2: served requests through GraphSolverService on the card."""
-    from repro_torch.core.graphs import erdos_renyi
+# ---------------------------------------------------------------------------
+# Sparse and CSR inputs, made on the card.
+# ---------------------------------------------------------------------------
+
+def sym_graph(torch, b, n, rho, seed, dev, real=None):
+    """(B, N, N) float32 symmetric ER(rho) adjacency on ``dev``; the nodes
+    from ``real`` on are isolated, as a serving bucket pads."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    upper = torch.triu(torch.rand((b, n, n), generator=g, device=dev) < rho,
+                       diagonal=1)
+    adj = (upper | upper.transpose(1, 2)).to(torch.float32)
+    del upper
+    if real is not None:
+        adj[:, real:, :] = 0.0
+        adj[:, :, real:] = 0.0
+    return adj
+
+
+def device_topology(torch, adj, width=None, edges=None):
+    """The padded-sparse and CSR batches of a (B, N, N) adjacency, built on
+    its device with the host builders' layout: neighbours ascending,
+    sentinel N on padding, ``width`` list slots and ``edges`` edge slots
+    (the batch's own maxima when None)."""
+    from repro_torch.core.graphs import CsrGraphBatch, SparseGraphBatch
+    b, n, _ = adj.shape
+    dev = adj.device
+    valid = adj > 0
+    true_md = int(valid.sum(-1).max())
+    width = width or max(true_md, 1)
+    if true_md > width:
+        raise AssertionError(f"max degree {true_md} exceeds the width {width}")
+    cols = torch.arange(n, device=dev, dtype=torch.int32)
+    key = torch.where(valid, cols, torch.full_like(cols, n))
+    nbr = torch.sort(key, dim=-1).values
+    del key
+    nbr = (nbr[..., :width] if width <= n else
+           torch.nn.functional.pad(nbr, (0, width - n), value=n)).contiguous()
+    sparse = SparseGraphBatch(neighbors=nbr, valid=nbr < n)
+    bi, ri, ci = valid.nonzero().unbind(1)
+    del valid
+    per = torch.bincount(bi, minlength=b)
+    true_e = int(per.max())
+    edges = edges or max(true_e, 1)
+    if true_e > edges:
+        raise AssertionError(f"{true_e} edges exceed the {edges} slots")
+    pos = torch.arange(len(bi), device=dev) - (torch.cumsum(per, 0) - per)[bi]
+    indices = torch.full((b, edges), n, dtype=torch.int32, device=dev)
+    indices[bi, pos] = ci.to(torch.int32)
+    rowc = torch.bincount(bi * n + ri, minlength=b * n).reshape(b, n)
+    indptr = torch.zeros((b, n + 1), dtype=torch.int32, device=dev)
+    indptr[:, 1:] = torch.cumsum(rowc, 1)
+    return sparse, CsrGraphBatch(indptr=indptr, indices=indices,
+                                 edge_mask=indices < n)
+
+
+def graph_case(torch, dev, b, k, n, rho, seed, real=None, width=None,
+               edges=None):
+    """One symmetric ER graph batch as sparse and CSR topology, with the
+    residual factors of a random 10% partial solution, random base and
+    theta4, x = relu of a random tensor (the main path gives these
+    kernels ReLU outputs), and the f64 aggregate x @ W over the residual
+    adjacency W."""
+    from repro_torch.core.graphs import (csr_residual_edge_mask, csr_row_ids,
+                                         residual_edge_mask)
+    adj = sym_graph(torch, b, n, rho, seed, dev, real)
+    sp, cs = device_topology(torch, adj, width, edges)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+    sol = (rand(b, n) < 0.1).to(torch.float32)
+    x, base, t4 = torch.relu(rand(b, k, n) - 0.5), rand(b, k, n) - 0.5, \
+        (rand(k, k) - 0.5) * 0.2
+    keep = (1.0 - sol).double()
+    w64 = adj.double()
+    del adj
+    w64.mul_(keep[:, :, None]).mul_(keep[:, None, :])
+    agg64 = x.double() @ w64          # W is symmetric: column i = row i
+    abs64 = x.abs().double() @ w64    # W >= 0
+    del w64
+    torch.cuda.empty_cache()
+    rid = csr_row_ids(cs.indptr, cs.num_edges)
+    return {"sp": sp, "cs": cs, "x": x, "base": base, "t4": t4,
+            "edge": residual_edge_mask(sp.neighbors, sp.valid, sol),
+            "edge_w": csr_residual_edge_mask(cs.indices, cs.edge_mask, rid,
+                                             sol),
+            "agg64": agg64, "abs64": abs64, "real": real}
+
+
+def csr_exact(torch, x, cs, edge_w):
+    """The f64 aggregate of a CSR batch, for graphs too large for a dense
+    W (a gather and a row sum in f64)."""
+    from repro_torch.core.graphs import csr_row_ids
+    from repro_torch.kernels.s2v_csr import segment_rows
+    b, k, n = x.shape
+    e = cs.num_edges
+    gathered = torch.gather(torch.nn.functional.pad(x.double(), (0, 1)), 2,
+                            cs.indices.long()[:, None, :].expand(b, k, e))
+    gathered.mul_(edge_w.double()[:, None, :])
+    return segment_rows(gathered, csr_row_ids(cs.indptr, e), n)
+
+
+def ba_arrays():
+    """BA(N=1M, d=10) streamed to CSR arrays on the host (no dense array),
+    and the seconds it took.  Runs on a thread beside the first phases."""
+    from repro_torch.core.graphs import barabasi_albert_edges, csr_from_edges
+    t0 = time.perf_counter()
+    src, dst = barabasi_albert_edges(BA_N, BA_D, seed=SEED)
+    indptr, indices = csr_from_edges(BA_N, src, dst)
+    return indptr, indices, time.perf_counter() - t0
+
+
+def run_graph_kernels(torch, case, name, rows, failures, exact=True):
+    """Kernels 3, 4 and 5 on one graph case against their plain versions
+    (and the f64 layer); the padding case's isolated nodes must give
+    exactly relu(base), 0 for the aggregation."""
+    ks, kg, kc = kernel_modules()
+    sp, cs, x, base, t4 = (case[f] for f in ("sp", "cs", "x", "base", "t4"))
+    b, k, n = x.shape
+    d = sp.max_degree
+    row_max = int((cs.indptr[:, 1:] - cs.indptr[:, :-1]).max())
+    agg64 = case["agg64"]
+    layer64 = torch.relu(base.double() + t4.double() @ agg64)
+    scale = (base.double().abs() + t4.double().abs() @ case["abs64"]).float()
+    real = case["real"]
+    shape = {"B": b, "K": k, "N": n}
+    for compute in ("f32", "bf16"):
+        args = (t4, x, sp.neighbors, case["edge"], base)
+        out = ks.fused_s2v_layer_sparse(*args, compute)
+        compare(torch, rows, failures, "fused_s2v_layer_sparse", name,
+                compute, out, ks.fused_s2v_layer_sparse_plain(*args, compute),
+                layer64 if compute == "f32" else None, d, {**shape, "D": d},
+                scale)
+        if real is not None and not torch.equal(
+                out[:, :, real:], torch.relu(base[:, :, real:])):
+            failures.append(f"sparse {name} {compute}: isolated nodes")
+        args = (t4, x, cs.indices, cs.indptr, case["edge_w"], base)
+        out = kc.fused_s2v_layer_csr(*args, compute)
+        compare(torch, rows, failures, "fused_s2v_layer_csr", name, compute,
+                out, kc.fused_s2v_layer_csr_plain(*args, compute),
+                layer64 if compute == "f32" else None, row_max,
+                {**shape, "E": cs.num_edges}, scale)
+        if real is not None and not torch.equal(
+                out[:, :, real:], torch.relu(base[:, :, real:])):
+            failures.append(f"csr {name} {compute}: isolated nodes")
+        del out, args
+        torch.cuda.empty_cache()
+    xp = torch.nn.functional.pad(x, (0, 1))
+    args = (xp, sp.neighbors, case["edge"])
+    out = kg.sparse_mp_aggregate(*args)
+    compare(torch, rows, failures, "sparse_mp_aggregate", name, "f32", out,
+            kg.sparse_mp_aggregate_plain(*args), agg64, d, {**shape, "D": d},
+            case["abs64"].float())
+    if real is not None and out[:, :, real:].any():
+        failures.append(f"aggregate {name}: isolated nodes must give 0")
+    del layer64, scale, out, xp, args
+    torch.cuda.empty_cache()
+
+
+def phase_graph_kernels(torch, dev, rows, failures):
+    """Phase 1, sparse and CSR: kernels 3, 4 and 5 at a ragged case, a
+    padding case, the serving bucket and the paper-scale graph."""
+    for name, b, k, n, rho, real, width, edges in GRAPH_CASES:
+        case = graph_case(torch, dev, b, k, n, rho, SEED + 7 * n, real,
+                          width, edges)
+        run_graph_kernels(torch, case, name, rows, failures)
+        del case
+        torch.cuda.empty_cache()
+
+
+def ba_case(torch, dev, cs, seed):
+    """Layer inputs on the BA graph: residual factors of a random 10%
+    partial solution, x = relu of a random tensor, random base, theta4."""
+    from repro_torch.core.graphs import csr_residual_edge_mask, csr_row_ids
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = cs.num_nodes
+    sol = (torch.rand((1, n), generator=g, device=dev) < 0.1).float()
+    return {"sp": None, "cs": cs, "edge": None,
+            "x": torch.relu(torch.rand((1, 32, n), generator=g, device=dev)
+                            - 0.5),
+            "base": torch.rand((1, 32, n), generator=g, device=dev) - 0.5,
+            "t4": (torch.rand((32, 32), generator=g, device=dev) - 0.5) * 0.2,
+            "edge_w": csr_residual_edge_mask(
+                cs.indices, cs.edge_mask,
+                csr_row_ids(cs.indptr, cs.num_edges), sol)}
+
+
+def ba_kernel_check(torch, dev, cs, rows, failures):
+    """Phase 1 on BA(1M, d=10): the CSR layer against its plain version
+    (and the f64 layer), where one row has degree 8975."""
+    _, _, kc = kernel_modules()
+    case = ba_case(torch, dev, cs, SEED + 1)
+    x, base, t4, edge_w = case["x"], case["base"], case["t4"], case["edge_w"]
+    n = cs.num_nodes
+    layer64 = torch.relu(base.double() + t4.double()
+                         @ csr_exact(torch, x, cs, edge_w))
+    scale = (base.double().abs() + t4.double().abs()
+             @ csr_exact(torch, x.abs(), cs, edge_w.abs())).float()
+    row_max = int((cs.indptr[:, 1:] - cs.indptr[:, :-1]).max())
+    for compute in ("f32", "bf16"):
+        args = (t4, x, cs.indices, cs.indptr, edge_w, base)
+        compare(torch, rows, failures, "fused_s2v_layer_csr", "ba1m", compute,
+                kc.fused_s2v_layer_csr(*args, compute),
+                kc.fused_s2v_layer_csr_plain(*args, compute),
+                layer64 if compute == "f32" else None, row_max,
+                {"B": 1, "K": 32, "N": n, "E": cs.num_edges,
+                 "max_row": row_max}, scale)
+    del layer64, scale, case, x, base, edge_w
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# The main paths.
+# ---------------------------------------------------------------------------
+
+def make_service(policy, cfg, rep):
     from repro_torch.serving import GraphSolverService
-    svc = GraphSolverService(policy, cfg, device="cuda", multi_node=True,
-                             max_batch=8)
-    warm = svc.warmup([512, 1024, 2048, 4096])
-    rng = np.random.default_rng(SEED)
-    sizes = rng.permutation(np.tile([500, 1000, 2000, 4000], 6))
-    adjs = [erdos_renyi(int(n), 0.15, seed=1000 + i)
-            for i, n in enumerate(sizes)]
-    ks.fused_s2v_layer.launches = 0
+    return GraphSolverService(policy, cfg, rep=rep, device=DEVICE,
+                              multi_node=True, max_batch=8,
+                              sparse_max_degree=SPARSE_MAX_DEGREE,
+                              csr_max_edges=CSR_MAX_EDGES)
+
+
+REP_KERNEL = {"dense": "fused_s2v_layer", "sparse": "fused_s2v_layer_sparse",
+              "csr": "fused_s2v_layer_csr"}
+
+
+def phase_serve(torch, policy, cfg, adjs, rep, dense=None):
+    """Phase 2: served requests through GraphSolverService on the card, on
+    one representation.  Returns (kernel launches, responses)."""
+    svc = make_service(policy, cfg, rep)
+    warm = svc.warmup(list(SERVE_SIZES))
+    reset_counts()
     t0 = time.perf_counter()
     responses = svc.serve(adjs)
     wall = time.perf_counter() - t0
-    launches = ks.fused_s2v_layer.launches
+    counts = read_counts()
+    launches = counts[REP_KERNEL[rep]]
     for r, a in zip(responses, adjs):
         if not is_cover(a, r.solution):
-            raise AssertionError(f"request {r.id} is not a vertex cover")
+            raise AssertionError(f"{rep}: request {r.id} is not a cover")
     if svc.stats.compiles != 0:
-        raise AssertionError(f"{svc.stats.compiles} first dispatches on the "
-                             f"request path after warmup")
+        raise AssertionError(f"{rep}: {svc.stats.compiles} first dispatches "
+                             f"on the request path after warmup")
     batch_evals = {(r.bucket, r.dispatch_t): r.policy_evals
                    for r in responses}
     evals = sum(batch_evals.values())
     if launches != evals:
-        raise AssertionError(f"kernel launches {launches} != policy evals "
-                             f"{evals} on the served path")
+        raise AssertionError(f"{rep}: kernel launches {launches} != policy "
+                             f"evals {evals} on the served path")
     stats = svc.stats.as_dict()
     futures = [svc.submit_async(a) for a in adjs]
     async_resp = [f.result(timeout=600) for f in futures]
     svc.close()
     for r, s in zip(async_resp, responses):
         if not np.array_equal(r.solution, s.solution):
-            raise AssertionError(f"async answer {r.id} differs from sync")
+            raise AssertionError(f"{rep}: async answer {r.id} differs from "
+                                 f"sync")
     lat = np.array([r.latency_s for r in responses]) * 1e3
-    emit({"phase": "serve", "requests": len(adjs), "wall_s": wall,
-          "requests_per_s": len(adjs) / wall,
-          "p50_ms": float(np.percentile(lat, 50)),
-          "p99_ms": float(np.percentile(lat, 99)),
-          "batches": stats["batches"], "policy_evals": evals,
-          "kernel_launches": launches, "warmup_s": warm["seconds"],
-          "first_dispatch_s": stats["compile_seconds"],
-          "solve_s": stats["solve_seconds"],
-          "cover_sizes": [r.size for r in responses]})
-    return launches
+    row = {"phase": "serve", "rep": rep, "requests": len(adjs),
+           "wall_s": wall, "requests_per_s": len(adjs) / wall,
+           "p50_ms": float(np.percentile(lat, 50)),
+           "p99_ms": float(np.percentile(lat, 99)),
+           "batches": stats["batches"], "policy_evals": evals,
+           "kernel_launches": counts, "warmup_s": warm["seconds"],
+           "first_dispatch_s": stats["compile_seconds"],
+           "solve_s": stats["solve_seconds"],
+           "cover_sizes": [r.size for r in responses]}
+    if dense is not None:
+        row["answers_equal_to_dense"] = sum(
+            bool(np.array_equal(r.solution, d.solution))
+            for r, d in zip(responses, dense))
+    emit(row)
+    return launches, responses
 
 
 def phase_card_vs_cpu(torch, policy):
-    """Phase 3: first-eval scores and solves, card against CPU."""
+    """Phase 3: first-eval scores and solves, card against CPU, on each
+    rep; first-eval scores across reps on the card."""
     from repro_torch.convert import policy_from_numpy, policy_to_numpy
-    from repro_torch.core import (DENSE, init_solve_state,
+    from repro_torch.core import (CSR, DENSE, SPARSE, init_solve_state,
                                   random_graph_batch, solve)
-    adj = random_graph_batch("er", 256, 8, seed=SEED + 7, rho=0.15)
+    adj = random_graph_batch("er", CPU_CHECK[1], CPU_CHECK[0], seed=SEED + 7,
+                             rho=0.15)
     cpu_policy = policy_from_numpy(policy_to_numpy(policy), device="cpu")
-    with torch.no_grad():
-        scores = {}
-        for dev, pol in (("cuda", policy), ("cpu", cpu_policy)):
-            st = init_solve_state(DENSE, adj, device=dev)
-            scores[dev] = DENSE.scores(pol, st, num_layers=2).cpu()
-    err = float((scores["cuda"] - scores["cpu"]).abs().max())
-    torch.testing.assert_close(scores["cuda"], scores["cpu"], rtol=1e-5,
-                               atol=1e-5)
-    res = {dev: solve(pol, adj, num_layers=2, multi_node=True, device=dev)
-           for dev, pol in (("cuda", policy), ("cpu", cpu_policy))}
-    for dev, r in res.items():
-        for g in range(adj.shape[0]):
-            if not is_cover(adj[g], r.solution[g]):
-                raise AssertionError(f"{dev} solve of graph {g} is no cover")
-    emit({"phase": "card_vs_cpu", "first_eval_max_abs_err": err,
-          "sizes_cuda": res["cuda"].sizes.tolist(),
-          "sizes_cpu": res["cpu"].sizes.tolist(),
-          "evals": [res["cuda"].policy_evals, res["cpu"].policy_evals],
-          "identical": bool(np.array_equal(res["cuda"].solution,
-                                           res["cpu"].solution))})
+    scores = {}
+    for rep in (DENSE, SPARSE, CSR):
+        with torch.no_grad():
+            for dev, pol in (("cuda", policy), ("cpu", cpu_policy)):
+                st = init_solve_state(rep, adj, device=policy.device
+                                      if dev == "cuda" else dev)
+                scores[rep.name, dev] = rep.scores(pol, st, num_layers=2).cpu()
+        err = float((scores[rep.name, "cuda"]
+                     - scores[rep.name, "cpu"]).abs().max())
+        torch.testing.assert_close(scores[rep.name, "cuda"],
+                                   scores[rep.name, "cpu"], rtol=1e-5,
+                                   atol=1e-5)
+        res = {dev: solve(pol, adj, num_layers=2, multi_node=True,
+                          rep=rep.name, device=pol.device)
+               for dev, pol in (("cuda", policy), ("cpu", cpu_policy))}
+        for dev, r in res.items():
+            for g in range(adj.shape[0]):
+                if not is_cover(adj[g], r.solution[g]):
+                    raise AssertionError(f"{rep.name} {dev} solve of graph "
+                                         f"{g} is no cover")
+        emit({"phase": "card_vs_cpu", "rep": rep.name,
+              "first_eval_max_abs_err": err,
+              "sizes_cuda": res["cuda"].sizes.tolist(),
+              "sizes_cpu": res["cpu"].sizes.tolist(),
+              "evals": [res["cuda"].policy_evals, res["cpu"].policy_evals],
+              "identical": bool(np.array_equal(res["cuda"].solution,
+                                               res["cpu"].solution))})
+    for rep in ("sparse", "csr"):
+        a, d = scores[rep, "cuda"], scores["dense", "cuda"]
+        torch.testing.assert_close(a, d, rtol=1e-5, atol=1e-5)
+        emit({"phase": "cross_rep_on_card", "rep": rep, "vs": "dense",
+              "first_eval_max_abs_err": float((a - d).abs().max()),
+              "bit_identical": bool(torch.equal(a, d))})
 
 
-def phase_paper_scale(torch, ks, policy):
-    """Phase 4: one ER(20480, 0.15) graph solved on the card."""
-    from repro_torch.core import solve
+def phase_paper_scale(torch, policy):
+    """Phase 4: one ER(20480, 0.15) graph solved on the card on all three
+    reps (sparse and CSR from batches built on the host first)."""
+    from repro_torch.core import (csr_batch_from_dense, solve,
+                                  sparse_batch_from_dense)
     from repro_torch.core.graphs import edge_count, erdos_renyi
-    n = 20480
+    n = PAPER_N
     t0 = time.perf_counter()
     adj = erdos_renyi(n, 0.15, seed=SEED + 20480)
     gen_s = time.perf_counter() - t0
     edges = edge_count(adj)
+    dense_sol = None
+    for rep, build in (("dense", None), ("sparse", sparse_batch_from_dense),
+                       ("csr", csr_batch_from_dense)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        graph = adj if build is None else build(adj, device=DEVICE)
+        build_s = time.perf_counter() - t0
+        reset_counts()
+        t0 = time.perf_counter()
+        res = solve(policy, graph, num_layers=2, multi_node=True,
+                    max_d=PAPER_MAX_D, rep=rep, device=DEVICE)
+        solve_s = time.perf_counter() - t0
+        launches = read_counts()[REP_KERNEL[rep]]
+        if not is_cover(adj, res.solution[0]):
+            raise AssertionError(f"paper-scale {rep} solve is not a cover")
+        if launches != res.policy_evals:
+            raise AssertionError(f"paper-scale {rep}: launches != evals")
+        if dense_sol is None:
+            dense_sol = res.solution[0]
+        emit({"phase": "paper_scale", "rep": rep, "N": n, "edges": edges,
+              "generate_s": gen_s, "build_s": build_s, "solve_s": solve_s,
+              "policy_evals": res.policy_evals,
+              "cover_size": int(res.sizes[0]), "kernel_launches": launches,
+              "equal_to_dense": bool(np.array_equal(res.solution[0],
+                                                    dense_sol)),
+              "peak_device_bytes": torch.cuda.max_memory_allocated()})
+        del graph, res
+    del adj
+
+
+def phase_ba(torch, policy, indptr, indices, cs, gen_s):
+    """Phase 4, CSR: BA(1M, d=10) with max_d=62500 from streamed edges;
+    the cover is checked on the CSR arrays."""
+    from repro_torch.core import solve
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    ks.fused_s2v_layer.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
-    res = solve(policy, adj, num_layers=2, multi_node=True, max_d=256,
-                device="cuda")
+    res = solve(policy, cs, num_layers=2, multi_node=True, max_d=BA_MAX_D,
+                rep="csr", device=DEVICE)
     solve_s = time.perf_counter() - t0
-    if not is_cover(adj, res.solution[0]):
-        raise AssertionError("paper-scale solve is not a vertex cover")
-    if ks.fused_s2v_layer.launches != res.policy_evals:
-        raise AssertionError("paper-scale launches != policy evals")
-    emit({"phase": "paper_scale", "N": n, "edges": edges,
-          "generate_s": gen_s, "solve_s": solve_s,
-          "policy_evals": res.policy_evals, "cover_size": int(res.sizes[0]),
-          "kernel_launches": ks.fused_s2v_layer.launches,
+    launches = read_counts()["fused_s2v_layer_csr"]
+    sol = res.solution[0] > 0.5
+    rows = np.repeat(np.arange(BA_N), np.diff(indptr))
+    if not (sol[rows] | sol[indices]).all():
+        raise AssertionError("BA(1M) CSR solve leaves an edge uncovered")
+    if launches != res.policy_evals:
+        raise AssertionError("BA(1M): launches != evals")
+    emit({"phase": "ba_1m_csr", "N": BA_N, "d": BA_D,
+          "directed_edges": int(len(indices)),
+          "max_degree": int(np.diff(indptr).max()), "generate_s": gen_s,
+          "solve_s": solve_s, "policy_evals": res.policy_evals,
+          "cover_size": int(res.sizes[0]), "kernel_launches": launches,
           "peak_device_bytes": torch.cuda.max_memory_allocated()})
 
 
-def phase_profile(torch, policy):
+def bucket_batch():
+    """A full bucket: 8 ER(4000, 0.15) graphs padded to 4096 nodes."""
+    from repro_torch.core.graphs import random_graph_batch
+    from repro_torch.serving import pad_adjacency
+    b, nb, n = BUCKET
+    return np.stack([pad_adjacency(a, nb) for a in random_graph_batch(
+        "er", n, b, seed=SEED + nb, rho=0.15)])
+
+
+def bucket_rep(name):
+    from repro_torch.core import DENSE, CsrRep, SparseRep
+    return {"dense": DENSE, "sparse": SparseRep(SPARSE_MAX_DEGREE),
+            "csr": CsrRep(CSR_MAX_EDGES)}[name]
+
+
+def phase_xla_chain(torch, policy, batch):
+    """Phase 4, sparse "xla" chain on a full 4096-node bucket: no layer-0
+    elision, so the aggregation kernel runs twice per evaluation."""
+    from repro_torch.core import solve
+    reset_counts()
+    t0 = time.perf_counter()
+    res = solve(policy, batch, num_layers=2, multi_node=True,
+                rep=bucket_rep("sparse"), kernel="xla", device=DEVICE)
+    solve_s = time.perf_counter() - t0
+    counts = read_counts()
+    launches = counts["sparse_mp_aggregate"]
+    for g in range(batch.shape[0]):
+        if not is_cover(batch[g], res.solution[g]):
+            raise AssertionError(f"xla-chain solve of graph {g} is no cover")
+    if launches != 2 * res.policy_evals:
+        raise AssertionError(f"sparse xla chain: {launches} aggregation "
+                             f"launches for {res.policy_evals} evaluations")
+    emit({"phase": "sparse_xla_chain", "B": batch.shape[0],
+          "N": batch.shape[1],
+          "policy_evals": res.policy_evals, "kernel_launches": counts,
+          "solve_s": solve_s, "cover_sizes": res.sizes.tolist()})
+    return launches
+
+
+def phase_profile(torch, policy, batch, rep):
     """Where one evaluation's time goes: 20 evaluations of the solve loop
     on a full (8, 4096) bucket under torch.profiler, device time by kernel
     and the device's busy share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import DENSE, get_solve_step, init_solve_state
-    from repro_torch.core.graphs import random_graph_batch
-    from repro_torch.serving import pad_adjacency
-    batch = np.stack([pad_adjacency(a, 4096) for a in random_graph_batch(
-        "er", 4000, 8, seed=SEED + 4096, rho=0.15)])
-    step = get_solve_step(use_adaptive=True, num_layers=2)
-    step(policy, init_solve_state(DENSE, batch, device="cuda"), 3)   # warm
-    state = init_solve_state(DENSE, batch, device="cuda")
+    from repro_torch.core import get_solve_step, init_solve_state
+    r = bucket_rep(rep)
+    step = get_solve_step(rep=r, use_adaptive=True, num_layers=2)
+    step(policy, init_solve_state(r, batch, device=DEVICE), 3)   # warm
+    state = init_solve_state(r, batch, device=DEVICE)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -297,7 +712,8 @@ def phase_profile(torch, policy):
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and dev_us(e) > 0), reverse=True)
     busy_us = sum(r[0] for r in rows)
-    emit({"phase": "profile", "B": 8, "N": 4096, "evals": evals,
+    emit({"phase": "profile", "rep": rep, "B": batch.shape[0],
+          "N": batch.shape[1], "evals": evals,
           "wall_ms_per_eval": 1e3 * wall / evals,
           "device_ms_per_eval": busy_us / 1e3 / evals,
           "device_busy_share": busy_us / 1e6 / wall,
@@ -305,11 +721,15 @@ def phase_profile(torch, policy):
                   for us, c, k in rows[:10]]})
 
 
-def phase_timing(torch, ks, dev, launches, max_abs_err):
-    """Phase 5: device times beside the bound, at the serving shape (the
-    kernels line) and at paper scale (a diagnostic line)."""
+# ---------------------------------------------------------------------------
+# Timing.
+# ---------------------------------------------------------------------------
+
+def timing_dense(torch, ks, dev):
+    """Dense layer times at the serving and paper shapes."""
     entries = {}
-    for label, b, k, n in (("serving", 8, 32, 4096), ("paper", 1, 32, 20480)):
+    for label, b, k, n in (("serving", BUCKET[0], 32, BUCKET[1]),
+                           ("paper", 1, 32, PAPER_N)):
         t4, embed, adj, base = layer_inputs(torch, b, k, n, 0.15, SEED, dev)
         bound_ms, bound_by = layer_bound(b, k, n, n)
         row = {"B": b, "K": k, "N": n, "bound_ms": bound_ms,
@@ -322,17 +742,130 @@ def phase_timing(torch, ks, dev, launches, max_abs_err):
         row["library_ms"] = cuda_ms(torch, lambda: torch.relu(
             base + torch.einsum("kj,bjn->bkn", t4, torch.bmm(embed, adj))))
         entries[label] = row
-        emit({"phase": "timing", "shape": label, **row})
+        emit({"phase": "timing", "kernel": "fused_s2v_layer", "shape": label,
+              **row})
         del t4, embed, adj, base
-    s = entries["serving"]
-    return {"kernels": [{
-        "name": "fused_s2v_layer", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/s2v_fused.cu",
-        "replaces": "src/repro/kernels/s2v_fused.py:66",
-        "launches": launches, "max_abs_err": max_abs_err,
-        "ms": s["ms_f32"], "plain_ms": s["plain_ms"],
-        "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
-        "library_ms": s["library_ms"]}]}
+        torch.cuda.empty_cache()
+    return entries["serving"]
+
+
+def library_csr(torch, cs, edge_w):
+    """The batch as one block-diagonal (B·N, B·N) torch.sparse_csr_tensor
+    of its real edges, weighted by ``edge_w`` (built outside the timing)."""
+    b, n = cs.batch, cs.num_nodes
+    counts = (cs.indptr[:, -1]).long()
+    keep = cs.edge_mask
+    cols = (cs.indices.long() + n * torch.arange(b, device=cs.device)[:, None])
+    crow = torch.cat([torch.zeros(1, dtype=torch.long, device=cs.device),
+                      (cs.indptr[:, 1:].long()
+                       + torch.cumsum(counts, 0)[:, None] - counts[:, None]
+                       ).reshape(-1)])
+    return torch.sparse_csr_tensor(crow, cols[keep], edge_w[keep],
+                                   size=(b * n, b * n))
+
+
+def graph_timing(torch, case, label, extra=None):
+    """Kernels 3, 4 and 5 on one graph case: kernel (the wrapper, its
+    node-major copy of x included), plain version and library yardstick
+    (cuSPARSE SpMM through torch.sparse.mm, then theta4, base and ReLU)."""
+    ks, kg, kc = kernel_modules()
+    sp, cs, x, base, t4 = (case[f] for f in ("sp", "cs", "x", "base", "t4"))
+    edge, edge_w = case["edge"], case["edge_w"]
+    b, k, n = x.shape
+    out = {}
+    a = library_csr(torch, cs, edge_w)
+
+    def spmm():
+        xt = x.transpose(1, 2).reshape(b * n, k)
+        return torch.sparse.mm(a, xt).reshape(b, n, k).transpose(1, 2)
+
+    def library_layer():
+        return torch.relu(base + torch.einsum("kj,bjn->bkn", t4, spmm()))
+
+    nnz_csr = int(cs.indptr[:, -1].sum())
+    if sp is not None:
+        d = sp.max_degree
+        nnz = int(sp.valid.sum())
+        slots = 8 * b * n * d
+        xp = torch.nn.functional.pad(x, (0, 1))
+        row = {"B": b, "K": k, "N": n, "D": d}
+        row["bound_ms"], row["bound_by"] = bound(
+            4 * (k * k + 3 * b * k * n) + slots, 2 * k * nnz + 2 * b * k * k * n)
+        args = (t4, x, sp.neighbors, edge, base)
+        for compute in ("f32", "bf16"):
+            row[f"ms_{compute}"] = cuda_ms(
+                torch, lambda: ks.fused_s2v_layer_sparse(*args, compute))
+        row["plain_ms"] = cuda_ms(
+            torch, lambda: ks.fused_s2v_layer_sparse_plain(*args, "f32"))
+        row["library_ms"] = cuda_ms(torch, library_layer)
+        out["fused_s2v_layer_sparse"] = row
+        emit({"phase": "timing", "kernel": "fused_s2v_layer_sparse",
+              "shape": label, **row})
+        row = {"B": b, "K": k, "N": n, "D": d}
+        row["bound_ms"], row["bound_by"] = bound(
+            4 * (b * k * (n + 1) + b * k * n) + slots, 2 * k * nnz)
+        args = (xp, sp.neighbors, edge)
+        row["ms_f32"] = cuda_ms(torch, lambda: kg.sparse_mp_aggregate(*args))
+        row["plain_ms"] = cuda_ms(
+            torch, lambda: kg.sparse_mp_aggregate_plain(*args))
+        row["library_ms"] = cuda_ms(torch, spmm)
+        out["sparse_mp_aggregate"] = row
+        emit({"phase": "timing", "kernel": "sparse_mp_aggregate",
+              "shape": label, **row})
+        del xp
+    row = {"B": b, "K": k, "N": n, "E": cs.num_edges, "edges": nnz_csr,
+           **(extra or {})}
+    # indptr, the real edges' (id, factor), x, base, theta4 in; out
+    row["bound_ms"], row["bound_by"] = bound(
+        4 * (k * k + b * (n + 1) + 3 * b * k * n) + 8 * nnz_csr,
+        2 * k * nnz_csr + 2 * b * k * k * n)
+    args = (t4, x, cs.indices, cs.indptr, edge_w, base)
+    for compute in ("f32", "bf16"):
+        row[f"ms_{compute}"] = cuda_ms(
+            torch, lambda: kc.fused_s2v_layer_csr(*args, compute))
+    row["plain_ms"] = cuda_ms(
+        torch, lambda: kc.fused_s2v_layer_csr_plain(*args, "f32"))
+    row["library_ms"] = cuda_ms(torch, library_layer)
+    out["fused_s2v_layer_csr"] = row
+    emit({"phase": "timing", "kernel": "fused_s2v_layer_csr", "shape": label,
+          **row})
+    del a
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_timing(torch, ks, dev, ba_cs):
+    """Phase 5: device times beside the bound for every kernel, at the
+    serving shape (the kernels line) and at paper scale (diagnostic
+    lines), and BA(1M) for the CSR layer."""
+    rows = {"fused_s2v_layer": timing_dense(torch, ks, dev)}
+    for label, b, n, real, width, edges in (
+            ("serving", *BUCKET, SPARSE_MAX_DEGREE, CSR_MAX_EDGES),
+            ("paper", 1, PAPER_N, None, None, None)):
+        case = graph_case(torch, dev, b, 32, n, 0.15, SEED + 11 * n, real,
+                          width, edges)
+        del case["agg64"]
+        timed = graph_timing(torch, case, label)
+        if label == "serving":
+            rows.update(timed)
+        del case
+        torch.cuda.empty_cache()
+    graph_timing(torch, ba_case(torch, dev, ba_cs, SEED + 2), "ba1m",
+                 {"max_row": int((ba_cs.indptr[:, 1:]
+                                  - ba_cs.indptr[:, :-1]).max())})
+    return rows
+
+
+REPLACES = {
+    "fused_s2v_layer": ("src/repro_torch/kernels/csrc/s2v_fused.cu",
+                        "src/repro/kernels/s2v_fused.py:66"),
+    "fused_s2v_layer_sparse": ("src/repro_torch/kernels/csrc/s2v_gather.cu",
+                               "src/repro/kernels/s2v_fused.py:193"),
+    "sparse_mp_aggregate": ("src/repro_torch/kernels/csrc/s2v_gather.cu",
+                            "src/repro/kernels/s2v_gather.py:53"),
+    "fused_s2v_layer_csr": ("src/repro_torch/kernels/csrc/s2v_csr.cu",
+                            "src/repro/kernels/s2v_csr.py:83"),
+}
 
 
 def main() -> int:
@@ -348,29 +881,86 @@ def main() -> int:
         return 1
     sys.path.insert(0, src)
     from repro_torch.core import PolicyConfig, init_policy
+    from repro_torch.core.graphs import erdos_renyi
     from repro_torch.kernels import build
-    from repro_torch.kernels import s2v_fused as ks
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
+    ks, _, _ = kernel_modules()
     t_all = time.perf_counter()
-    t0 = time.perf_counter()
-    build.load("s2v_fused")
-    ptxas = [ln.strip() for ln in build.build_log("s2v_fused").splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": ptxas})
+    with timed_phase("build"):
+        t0 = time.perf_counter()
+        for name in ("s2v_fused", "s2v_gather", "s2v_csr"):   # one nvcc each
+            build.load(name)
+        emit({"phase": "build", "seconds": time.perf_counter() - t0,
+              "ptxas": {name: [ln.strip() for ln in
+                               build.build_log(name).splitlines()
+                               if "registers" in ln or "spill" in ln]
+                        for name in ("s2v_fused", "s2v_gather", "s2v_csr")}})
 
-    max_abs_err = phase_kernel(torch, ks, dev)
+    from repro_torch.core.graphs import csr_batch_from_arrays
+    ba_pool = concurrent.futures.ThreadPoolExecutor(1)
+    ba_future = ba_pool.submit(ba_arrays)    # host work beside phases 1-3
+    rows, failures = [], []
+    with timed_phase("kernel_vs_plain"):
+        phase_kernel(torch, ks, dev, rows, failures)
+        phase_graph_kernels(torch, dev, rows, failures)
+    if failures:
+        raise AssertionError("a kernel disagrees with its plain version:\n"
+                             + "\n".join(failures))
+
     cfg = PolicyConfig(embed_dim=32, num_layers=2)
     policy = init_policy(cfg, generator=torch.Generator().manual_seed(
-        SEED), device="cuda")
-    launches = phase_serve(torch, ks, policy, cfg)
-    phase_card_vs_cpu(torch, policy)
-    phase_paper_scale(torch, ks, policy)
-    phase_profile(torch, policy)
-    kernels = phase_timing(torch, ks, dev, launches, max_abs_err)
+        SEED), device=DEVICE)
+    rng = np.random.default_rng(SEED)
+    sizes = rng.permutation(np.tile(SERVE_SIZES, 6))    # 24 requests
+    adjs = [erdos_renyi(int(n), 0.15, seed=1000 + i)
+            for i, n in enumerate(sizes)]
+    launches = {}
+    with timed_phase("serve"):
+        launches["fused_s2v_layer"], dense = phase_serve(
+            torch, policy, cfg, adjs, "dense")
+        launches["fused_s2v_layer_sparse"], _ = phase_serve(
+            torch, policy, cfg, adjs, "sparse", dense)
+        launches["fused_s2v_layer_csr"], _ = phase_serve(
+            torch, policy, cfg, adjs, "csr", dense)
+    del adjs, dense
+    with timed_phase("card_vs_cpu"):
+        phase_card_vs_cpu(torch, policy)
+    with timed_phase("paper_scale"):
+        phase_paper_scale(torch, policy)
+    with timed_phase("ba_1m_csr"):
+        indptr, indices, gen_s = ba_future.result()
+        ba_pool.shutdown()
+        ba_cs = csr_batch_from_arrays(indptr, indices, device=DEVICE)
+        ba_kernel_check(torch, dev, ba_cs, rows, failures)
+        if failures:
+            raise AssertionError("a kernel disagrees with its plain "
+                                 "version:\n" + "\n".join(failures))
+        phase_ba(torch, policy, indptr, indices, ba_cs, gen_s)
+        del indptr, indices
+    max_err = {name: max(r["max_abs_err"] for r in rows
+                         if r["kernel"] == name and r["compute"] == "f32")
+               for name in REPLACES}
+    batch = bucket_batch()
+    with timed_phase("sparse_xla_chain"):
+        launches["sparse_mp_aggregate"] = phase_xla_chain(torch, policy,
+                                                          batch)
+    with timed_phase("profile"):
+        for rep in ("dense", "sparse", "csr"):
+            phase_profile(torch, policy, batch, rep)
+    del batch
+    with timed_phase("timing"):
+        timing = phase_timing(torch, ks, dev, ba_cs)
     emit({"phase": "total", "seconds": time.perf_counter() - t_all})
 
+    kernels = {"kernels": [{
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches[name], "max_abs_err": max_err[name],
+        "ms": timing[name]["ms_f32"], "plain_ms": timing[name]["plain_ms"],
+        "bound_ms": timing[name]["bound_ms"],
+        "bound_by": timing[name]["bound_by"],
+        "library_ms": timing[name]["library_ms"]}
+        for name, (source, replaces) in REPLACES.items()]}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)

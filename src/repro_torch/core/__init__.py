@@ -1,12 +1,22 @@
 """OpenGraphGym-MG core in PyTorch: structure2vec embedding (Alg. 2),
 action evaluation (Alg. 3) and the adaptive top-d solve (Alg. 4) on the
-dense graph representation."""
-from .graphs import (GraphState, init_state, residual_adjacency,
+dense, padded-sparse and CSR graph representations."""
+from .graphs import (GraphState, SparseGraphBatch, SparseGraphState,
+                     CsrGraphBatch, CsrGraphState, init_state,
+                     residual_adjacency, residual_edge_mask,
+                     sparse_batch_from_dense, sparse_init_state, csr_row_ids,
+                     csr_segment_sum, csr_residual_edge_mask,
+                     csr_batch_from_dense, csr_batch_from_arrays,
+                     csr_batch_to_dense, csr_init_state,
+                     barabasi_albert_edges, csr_from_edges, cached_ba_csr,
                      erdos_renyi, barabasi_albert, social_like,
                      random_graph_batch)
-from .graphrep import GraphRep, DenseRep, DENSE, get_rep
+from .graphrep import (GraphRep, DenseRep, SparseRep, CsrRep, DENSE, SPARSE,
+                       CSR, get_rep, rep_for_state, rep_names)
 from .policy import PolicyConfig, Policy, init_policy, policy_scores
 from .s2v import S2V, init_s2v, embed_local
+from .s2v_sparse import embed_sparse, sparse_policy_scores, sparse_state_bytes
+from .s2v_csr import embed_csr, csr_policy_scores, csr_state_bytes
 from .qmodel import QModel, init_q, scores_local
 from .engine import get_solve_step
 from .inference import (solve, solve_with_config, adaptive_d, select_top_d,

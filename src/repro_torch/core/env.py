@@ -1,13 +1,13 @@
 """Graph learning environments (paper §3): the registry, the MVC step and
 the padding-safety contract.  Counterpart of ``repro/core/env.py``; this
-slice registers ``mvc`` on the dense representation.
+slice registers ``mvc`` on the dense, sparse and CSR representations.
 
 Each registration declares its residual mode (what topology the policy
 sees), its Alg. 4 commit/termination rule, an optional candidate rule and
 selection prune, a feasibility checker and its sense (DESIGN.md §11).  The
 serving layer pads graphs with isolated nodes, so an environment is only
 servable if its candidate derivation can never admit a degree-0 node:
-``ensure_padding_safe`` probes that on the dense representation.
+``ensure_padding_safe`` probes that on all three representations.
 """
 from __future__ import annotations
 
@@ -17,7 +17,10 @@ from typing import Callable, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from .graphs import GraphState, residual_adjacency
+from .graphs import (GraphState, csr_batch_from_dense, csr_init_state,
+                     csr_residual_edge_mask, csr_row_ids, csr_segment_sum,
+                     residual_adjacency, residual_edge_mask,
+                     sparse_batch_from_dense, sparse_init_state)
 
 EnvStep = Callable[[GraphState, torch.Tensor],
                    Tuple[GraphState, torch.Tensor, torch.Tensor]]
@@ -61,9 +64,9 @@ def residual_commit(state, sel: torch.Tensor):
     """Covering-problem commit (Alg. 4 lines 7-9, "solution" mode):
     committing a node removes its incident edges; done when no edge
     survives.  Delegates to the state's backend (dense updates ``adj`` in
-    place, see ``DenseRep.commit``)."""
-    from .graphrep import DENSE
-    return DENSE.commit(state, sel)
+    place, see ``DenseRep.commit``; sparse and CSR derive new masks)."""
+    from .graphrep import rep_for_state
+    return rep_for_state(state).commit(state, sel)
 
 
 def register(name: str, residual: Union[bool, str] = True,
@@ -123,6 +126,13 @@ def residual_mode(name: str) -> str:
     return _lookup(_MODE, name)
 
 
+def sparse_residual_flag(name: str) -> Union[bool, str]:
+    """The ``residual`` value a sparse or CSR state carries for this env:
+    True ("solution"), False ("none"), or the mode string."""
+    mode = residual_mode(name)
+    return {"solution": True, "none": False}.get(mode, mode)
+
+
 def commit_rule(name: str) -> CommitFn:
     return _lookup(_COMMIT, name)
 
@@ -151,42 +161,59 @@ def names():
 # Padding-safety contract (DESIGN.md §9/§11).
 # ---------------------------------------------------------------------------
 
-def _probe_state(adj0: torch.Tensor, sol: torch.Tensor, mode: str,
-                 cand_fn: Optional[CandidateFn]) -> GraphState:
-    """The dense state a partial solution re-materializes to under
-    ``mode`` (Tuples2Graphs), with the env's candidate rule applied."""
-    if mode == "solution":
-        adj = residual_adjacency(adj0, sol)
-    elif mode == "none":
-        adj = adj0
-    else:
+def _probe_states(adj: np.ndarray, sol: torch.Tensor, mode: str,
+                  cand_fn: Optional[CandidateFn]):
+    """The dense, sparse and CSR states a partial solution re-materializes
+    to under ``mode`` (Tuples2Graphs), with the env's candidate rule
+    applied: the path a replay tuple takes, built directly until the
+    training slice ports ``state_from_tuples``."""
+    if mode == "closed":
         raise NotImplementedError(
             "closed-neighbourhood residuals (MIS) are not ported yet: "
             "ROADMAP item A5")
-    cand = ((adj.sum(-1) > 0) & (sol < 0.5)).to(torch.float32)
-    state = GraphState(adj=adj, candidate=cand, solution=sol)
-    if cand_fn is not None:
-        state = dataclasses.replace(state, candidate=cand_fn(state))
-    return state
+    residual = mode == "solution"
+    adj0 = torch.from_numpy(adj)
+    dense = residual_adjacency(adj0, sol) if residual else adj0
+    sp = sparse_init_state(sparse_batch_from_dense(adj, device="cpu"))
+    sp_edge = (residual_edge_mask(sp.neighbors, sp.valid, sol) if residual
+               else sp.valid.to(torch.float32))
+    cs = csr_init_state(csr_batch_from_dense(adj, device="cpu"))
+    rid = csr_row_ids(cs.indptr, cs.num_edges)
+    cs_edge = (csr_residual_edge_mask(cs.indices, cs.edge_mask, rid, sol)
+               if residual else cs.edge_mask.to(torch.float32))
+    states = []
+    for st, deg in ((GraphState(adj=dense, candidate=sol, solution=sol),
+                     dense.sum(-1)),
+                    (dataclasses.replace(sp, solution=sol, residual=residual),
+                     sp_edge.sum(-1)),
+                    (dataclasses.replace(cs, solution=sol, residual=residual),
+                     csr_segment_sum(cs_edge, rid, cs.num_nodes))):
+        st = dataclasses.replace(
+            st, candidate=((deg > 0) & (sol < 0.5)).to(torch.float32))
+        if cand_fn is not None:
+            st = dataclasses.replace(st, candidate=cand_fn(st))
+        states.append(st)
+    return states
 
 
 def _probe_padding_safety(name: str) -> bool:
     """Drive the env's candidate derivation and one env step on a graph
     with isolated padding-style nodes (0-1 share the only edge; 2 and 3
-    are isolated) and report whether a degree-0 node ever becomes a
-    candidate.  Dense representation only in this slice."""
+    are isolated), on the dense, sparse and CSR representations, and
+    report whether a degree-0 node ever becomes a candidate."""
     adj = np.zeros((1, 4, 4), np.float32)
     adj[0, 0, 1] = adj[0, 1, 0] = 1.0
-    adj0 = torch.from_numpy(adj)
     mode, cand_fn = _MODE[name], _CANDIDATES[name]
     for sol in ([0, 0, 0, 0], [1, 0, 0, 0], [1, 1, 0, 0]):
-        st = _probe_state(adj0, torch.tensor([sol], dtype=torch.float32),
-                          mode, cand_fn)
+        for st in _probe_states(adj, torch.tensor([sol], dtype=torch.float32),
+                                mode, cand_fn):
+            if st.candidate[0, 2:].any():
+                return False
+    for st in _probe_states(adj, torch.zeros((1, 4)), mode, cand_fn):
+        st, _, _ = _REGISTRY[name](st, torch.tensor([0]))
         if st.candidate[0, 2:].any():
             return False
-    st = _probe_state(adj0, torch.zeros((1, 4)), mode, cand_fn)
-    st, _, _ = _REGISTRY[name](st, torch.tensor([0]))
-    return not bool(st.candidate[0, 2:].any())
+    return True
 
 
 def ensure_padding_safe(name: str) -> None:
@@ -216,25 +243,37 @@ def _onehot(v: torch.Tensor, n: int) -> torch.Tensor:
     return torch.nn.functional.one_hot(v.long(), n).to(torch.float32)
 
 
-@register("mvc", checker=lambda adj0, sol: is_cover(adj0, sol))
-def mvc_step(state: GraphState, action: torch.Tensor):
-    """Minimum Vertex Cover step (paper §4, Fig 3/4) on the dense state.
-
-    action: (B,) node ids.  Adds the node to the partial solution and
-    zeroes its row and column of the residual adjacency (a new tensor: the
-    step is functional, unlike the solve's in-place commit).  Reward is -1
-    per selected node; done when no edges remain."""
-    b, n = state.candidate.shape
-    oh = _onehot(action, n)
+def _mvc_step_dense(state: GraphState, oh: torch.Tensor):
+    """A new dense state: the step is functional, unlike the solve's
+    in-place commit."""
     solution = torch.maximum(state.solution, oh)
     keep = 1.0 - oh
     adj = state.adj * keep[:, :, None] * keep[:, None, :]
     deg = adj.sum(-1)
     candidate = ((deg > 0) & (solution < 0.5)).to(torch.float32)
-    reward = -torch.ones((b,), dtype=torch.float32, device=adj.device)
-    done = adj.sum((-1, -2)) == 0
-    return GraphState(adj=adj, candidate=candidate,
-                      solution=solution), reward, done
+    # edge weights are non-negative: no edge survives iff every degree is 0
+    return (GraphState(adj=adj, candidate=candidate, solution=solution),
+            (deg == 0).all(-1))
+
+
+@register("mvc", checker=lambda adj0, sol: is_cover(adj0, sol))
+def mvc_step(state, action: torch.Tensor):
+    """Minimum Vertex Cover step (paper §4, Fig 3/4) on any representation.
+
+    action: (B,) node ids.  Adds the node to the partial solution and
+    removes its edges from the residual graph: dense zeroes its row and
+    column in a new adjacency; sparse and CSR take their rep's commit,
+    whose residual factors drop them.  Reward is -1 per selected node;
+    done when no edges remain."""
+    from .graphrep import rep_for_state
+    b, n = state.candidate.shape
+    oh = _onehot(action, n)
+    if isinstance(state, GraphState):
+        state, done = _mvc_step_dense(state, oh)
+    else:
+        state, done = rep_for_state(state).commit(state, oh)
+    reward = -torch.ones((b,), dtype=torch.float32, device=oh.device)
+    return state, reward, done
 
 
 def is_cover(adj0: torch.Tensor, solution: torch.Tensor) -> torch.Tensor:
@@ -242,3 +281,10 @@ def is_cover(adj0: torch.Tensor, solution: torch.Tensor) -> torch.Tensor:
     keep = 1.0 - solution
     uncovered = adj0 * keep[..., :, None] * keep[..., None, :]
     return uncovered.sum((-1, -2)) == 0
+
+
+def is_cover_sparse(neighbors: torch.Tensor, valid: torch.Tensor,
+                    solution: torch.Tensor) -> torch.Tensor:
+    """The MVC invariant on the sparse representation: no residual edge
+    survives S."""
+    return residual_edge_mask(neighbors, valid, solution).sum((-1, -2)) == 0

@@ -1,14 +1,34 @@
 """Graph-representation backends (DESIGN.md §1).  Counterpart of
-``repro/core/graphrep.py``; this slice ports the dense backend only."""
+``repro/core/graphrep.py`` for solving:
+
+- ``DenseRep``  — (B, N, N) residual adjacency, rewritten per commit (in
+  place: the solve owns a copy);
+- ``SparseRep`` — (B, N, D) padded neighbour lists + masks; the topology
+  is immutable and residual edges derive from the solution mask;
+- ``CsrRep``    — flat (indptr, indices, edge_mask) CSR arrays, storage
+  proportional to the edges (DESIGN.md §13).
+
+The sparse and CSR commits write only new C/S masks, never into the
+topology, so a state built from a caller's batch shares its topology
+tensors safely.  ``prepare_dataset`` and ``state_from_tuples`` (replay
+re-materialization) belong to the training slice, ROADMAP item A4.
+"""
 from __future__ import annotations
 
-from typing import Union
+import dataclasses
+from typing import Dict, Optional, Union
 
 import torch
 
 from ..device import DeviceLike, resolve_device
-from .graphs import GraphState, init_state
+from .graphs import (CsrGraphBatch, CsrGraphState, GraphState,
+                     SparseGraphBatch, SparseGraphState, csr_batch_from_dense,
+                     csr_init_state, csr_residual_edge_mask, csr_row_ids,
+                     csr_segment_sum, init_state, residual_edge_mask,
+                     sparse_batch_from_dense, sparse_init_state)
 from .policy import Policy, policy_scores
+from .s2v_csr import csr_policy_scores, csr_state_bytes
+from .s2v_sparse import sparse_policy_scores, sparse_state_bytes
 
 
 class GraphRep:
@@ -29,6 +49,15 @@ class GraphRep:
 
     def state_bytes(self, state) -> int:
         raise NotImplementedError
+
+    def prepare_dataset(self, adj_stack):
+        raise NotImplementedError(
+            "training datasets are not ported yet: ROADMAP item A4")
+
+    def state_from_tuples(self, source, graph_idx, solutions, residual=True,
+                          candidate_fn=None):
+        raise NotImplementedError(
+            "replay re-materialization is not ported yet: ROADMAP item A4")
 
     def __repr__(self):
         return f"GraphRep({self.name})"
@@ -81,10 +110,110 @@ class DenseRep(GraphRep):
                    + state.candidate.numel() * 4 + state.solution.numel() * 4)
 
 
-DENSE = DenseRep()
+def _topology_to(g, dev: torch.device):
+    """``g`` (a batch or state) with its tensors on ``dev``; tensors
+    already there are shared, not copied."""
+    return dataclasses.replace(g, **{
+        f.name: getattr(g, f.name).to(dev) for f in dataclasses.fields(g)
+        if isinstance(getattr(g, f.name), torch.Tensor)})
 
-_LATER = {"sparse": "ROADMAP item A7 (sparse rep)",
-          "csr": "ROADMAP item A8 (CSR rep)"}
+
+class SparseRep(GraphRep):
+    """(B, N, D) padded neighbour lists: O(N·D) state, immutable topology,
+    residual edges derived from the solution mask (paper §5.2).
+    ``max_degree`` pins the list width (serving buckets); None derives it
+    per batch."""
+
+    name = "sparse"
+
+    def __init__(self, max_degree: Optional[int] = None):
+        self.max_degree = max_degree
+
+    def init_state(self, adj, *, device: DeviceLike = "cuda"
+                   ) -> SparseGraphState:
+        """A fresh state from a dense adjacency or a SparseGraphBatch, or a
+        given SparseGraphState, on ``device``."""
+        dev = resolve_device(device)
+        if isinstance(adj, SparseGraphState):
+            return _topology_to(adj, dev)
+        if isinstance(adj, SparseGraphBatch):
+            return sparse_init_state(_topology_to(adj, dev))
+        return sparse_init_state(sparse_batch_from_dense(
+            adj, self.max_degree, device=dev))
+
+    def scores(self, params, state: SparseGraphState, *, num_layers,
+               masked=True, kernel="fused", compute="f32") -> torch.Tensor:
+        return sparse_policy_scores(params, state, state.solution,
+                                    state.candidate, num_layers=num_layers,
+                                    masked=masked, residual=state.residual,
+                                    kernel=kernel, compute=compute)
+
+    def commit(self, state: SparseGraphState, sel: torch.Tensor):
+        """Covering commit: S gains ``sel``; residual edges, candidates and
+        done derive from the immutable topology.  Returns (state, done)."""
+        solution = torch.maximum(state.solution, sel)
+        edge = residual_edge_mask(state.neighbors, state.valid, solution)
+        deg = edge.sum(-1)
+        candidate = ((deg > 0) & (solution < 0.5)).to(torch.float32)
+        done = (deg == 0).all(-1)
+        return dataclasses.replace(state, candidate=candidate,
+                                   solution=solution), done
+
+    def state_bytes(self, state: SparseGraphState) -> int:
+        return sparse_state_bytes(state)
+
+
+class CsrRep(GraphRep):
+    """Flat (indptr, indices, edge_mask) CSR arrays: O(E) state, immutable
+    topology, residual edges derived from the solution mask (DESIGN.md
+    §13).  ``max_edges`` pins the padded edge capacity (serving buckets);
+    None derives it per batch."""
+
+    name = "csr"
+
+    def __init__(self, max_edges: Optional[int] = None):
+        self.max_edges = max_edges
+
+    def init_state(self, adj, *, device: DeviceLike = "cuda"
+                   ) -> CsrGraphState:
+        """A fresh state from a dense adjacency or a CsrGraphBatch, or a
+        given CsrGraphState, on ``device``."""
+        dev = resolve_device(device)
+        if isinstance(adj, CsrGraphState):
+            return _topology_to(adj, dev)
+        if isinstance(adj, CsrGraphBatch):
+            return csr_init_state(_topology_to(adj, dev))
+        return csr_init_state(csr_batch_from_dense(adj, self.max_edges,
+                                                   device=dev))
+
+    def scores(self, params, state: CsrGraphState, *, num_layers,
+               masked=True, kernel="fused", compute="f32") -> torch.Tensor:
+        return csr_policy_scores(params, state, state.solution,
+                                 state.candidate, num_layers=num_layers,
+                                 masked=masked, residual=state.residual,
+                                 kernel=kernel, compute=compute)
+
+    def commit(self, state: CsrGraphState, sel: torch.Tensor):
+        """Covering commit on CSR arrays, as ``SparseRep.commit``."""
+        solution = torch.maximum(state.solution, sel)
+        rid = csr_row_ids(state.indptr, state.num_edges)
+        edge = csr_residual_edge_mask(state.indices, state.edge_mask, rid,
+                                      solution)
+        deg = csr_segment_sum(edge, rid, state.num_nodes)
+        candidate = ((deg > 0) & (solution < 0.5)).to(torch.float32)
+        done = (deg == 0).all(-1)
+        return dataclasses.replace(state, candidate=candidate,
+                                   solution=solution), done
+
+    def state_bytes(self, state: CsrGraphState) -> int:
+        return csr_state_bytes(state)
+
+
+DENSE = DenseRep()
+SPARSE = SparseRep()
+CSR = CsrRep()
+
+_REPS: Dict[str, GraphRep] = {"dense": DENSE, "sparse": SPARSE, "csr": CSR}
 
 
 def get_rep(rep: Union[str, GraphRep, None]) -> GraphRep:
@@ -93,10 +222,19 @@ def get_rep(rep: Union[str, GraphRep, None]) -> GraphRep:
         return DENSE
     if isinstance(rep, GraphRep):
         return rep
-    if rep == "dense":
-        return DENSE
-    if rep in _LATER:
-        raise NotImplementedError(
-            f"graph_rep={rep!r} is not ported yet: {_LATER[rep]}")
-    raise ValueError(f"unknown graph representation {rep!r}; "
-                     f"available: ['csr', 'dense', 'sparse']")
+    try:
+        return _REPS[rep]
+    except KeyError:
+        raise ValueError(f"unknown graph representation {rep!r}; "
+                         f"available: {rep_names()}") from None
+
+
+def rep_names():
+    return sorted(_REPS)
+
+
+def rep_for_state(state) -> GraphRep:
+    """The backend of a state, by its type."""
+    if isinstance(state, CsrGraphState):
+        return CSR
+    return SPARSE if isinstance(state, SparseGraphState) else DENSE

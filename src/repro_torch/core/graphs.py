@@ -1,13 +1,30 @@
-"""Graph generators and the dense graph state (paper §4.1, §6.1).
+"""Graph generators and the three on-device graph representations
+(paper §4.1, §5.2; DESIGN.md §1, §13).
 
 The generators are numpy copies of ``repro/core/graphs.py``'s, so the same
-seed gives the same graph in both packages.  ``GraphState`` holds one batch
-of B graphs with N nodes as torch tensors on one device: the paper's
-(A, C, S) triple.
+seed gives the same graph in both packages.  Each state holds one batch of
+B graphs with N nodes as torch tensors on one device:
+
+- ``GraphState``: the (B, N, N) residual adjacency with the paper's C and S
+  masks, rewritten by every commit;
+- ``SparseGraphState``: padded neighbour lists (B, N, D) with the sentinel
+  id N and a validity mask.  The topology is never rewritten: residual
+  edges derive from S (:func:`residual_edge_mask`);
+- ``CsrGraphState``: flat CSR arrays (indptr, indices, edge_mask), storage
+  proportional to the edges; residual edges derive from S as for the
+  sparse state (:func:`csr_residual_edge_mask`).  Row ids are derived
+  (:func:`csr_row_ids`), never stored.
+
+The builders (``sparse_batch_from_dense``, ``csr_batch_from_dense``,
+``csr_batch_from_arrays``, ``barabasi_albert_edges``, ``csr_from_edges``)
+are numpy-identical to the JAX package's, so both packages hold the same
+arrays for the same graph.
 """
 from __future__ import annotations
 
 import dataclasses
+import pathlib
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -146,3 +163,423 @@ def residual_adjacency(adj0: torch.Tensor,
     original adjacency under a partial solution, A ⊙ (1-S)(1-S)ᵀ."""
     keep = 1.0 - solution
     return adj0 * keep[..., :, None] * keep[..., None, :]
+
+
+def _as_numpy(adj) -> np.ndarray:
+    """A host copy of an adjacency given as numpy or torch, (B, N, N)."""
+    if isinstance(adj, torch.Tensor):
+        adj = adj.detach().cpu().numpy()
+    adj = np.asarray(adj)
+    return adj[None] if adj.ndim == 2 else adj
+
+
+# ---------------------------------------------------------------------------
+# Sparse graph state: padded neighbour lists + masks (paper §4.1/§5.2).
+# The topology (neighbors, valid) is immutable; (candidate, solution) evolve.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class SparseGraphBatch:
+    """Static topology of B graphs: neighbors (B, N, D) int32 padded with
+    the sentinel id N, valid (B, N, D) bool."""
+    neighbors: torch.Tensor
+    valid: torch.Tensor
+
+    @property
+    def batch(self) -> int:
+        return self.neighbors.shape[0]
+
+    @property
+    def num_nodes(self) -> int:
+        return self.neighbors.shape[1]
+
+    @property
+    def max_degree(self) -> int:
+        return self.neighbors.shape[2]
+
+    @property
+    def device(self) -> torch.device:
+        return self.neighbors.device
+
+
+@dataclasses.dataclass
+class SparseGraphState:
+    """Sparse counterpart of :class:`GraphState`.
+
+    neighbors: (B, N, D) int32 padded neighbour ids, sentinel N for padding.
+    valid:     (B, N, D) bool static topology mask (never rewritten).
+    candidate: (B, N) float32 mask, the paper's C vector.
+    solution:  (B, N) float32 mask, the paper's S vector.
+    residual:  the env's topology mode: True ("solution": the residual
+               subgraph implied by S, MVC), False ("none": the original
+               topology) or "closed" (MIS, not ported yet).
+
+    A residual edge (u, v) exists iff the original edge exists and neither
+    endpoint is in S: O(N·D) state instead of O(N²)."""
+    neighbors: torch.Tensor
+    valid: torch.Tensor
+    candidate: torch.Tensor
+    solution: torch.Tensor
+    residual: Union[bool, str] = True
+
+    @property
+    def batch(self) -> int:
+        return self.neighbors.shape[0]
+
+    @property
+    def num_nodes(self) -> int:
+        return self.neighbors.shape[1]
+
+    @property
+    def max_degree(self) -> int:
+        return self.neighbors.shape[2]
+
+    @property
+    def device(self) -> torch.device:
+        return self.neighbors.device
+
+
+def _gather_nodes(values: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """values (B, M), ids (B, ...) int → values[b, ids[b, ...]]."""
+    b = values.shape[0]
+    flat = ids.reshape(b, -1).long()
+    return torch.gather(values, 1, flat).reshape(ids.shape)
+
+
+def residual_edge_mask(neighbors: torch.Tensor, valid: torch.Tensor,
+                       solution: torch.Tensor) -> torch.Tensor:
+    """(B, N, D) float32 residual-edge factors: valid ∧ keep[u] ∧ keep[v],
+    the sparse analogue of :func:`residual_adjacency`, derived from the
+    immutable topology and the partial solution."""
+    keep = 1.0 - solution
+    keep_pad = torch.nn.functional.pad(keep, (0, 1))        # sentinel slot
+    keep_nbr = _gather_nodes(keep_pad, neighbors)
+    return valid.to(torch.float32) * keep_nbr * keep[:, :, None]
+
+
+def sparse_batch_from_dense(adj, max_degree: Optional[int] = None, *,
+                            device: DeviceLike = "cuda") -> SparseGraphBatch:
+    """adj (B, N, N) or (N, N) → padded neighbour lists with a common max
+    degree, on ``device``; each row's neighbours in ascending id order.
+
+    ``max_degree`` of None or 0 derives the width from the batch; an
+    explicit value below the true max degree raises rather than silently
+    dropping edges."""
+    dev = resolve_device(device)
+    adj = _as_numpy(adj)
+    b, n, _ = adj.shape
+    deg = (adj > 0).sum(-1)
+    true_md = int(deg.max()) if deg.size else 0
+    if not max_degree:                       # None or 0 → derive
+        md = max(true_md, 1)
+    elif max_degree < true_md:
+        raise ValueError(
+            f"max_degree={max_degree} is below the batch's true max degree "
+            f"{true_md}; refusing to silently drop edges")
+    else:
+        md = max_degree
+    nbrs = np.full((b, n, md), n, np.int32)
+    val = np.zeros((b, n, md), bool)
+    bi, rows, cols = np.nonzero(adj > 0)
+    flat = bi * n + rows
+    counts = np.bincount(flat, minlength=b * n)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    offs = np.arange(len(flat)) - starts[flat]
+    keep = offs < md
+    nbrs[bi[keep], rows[keep], offs[keep]] = cols[keep]
+    val[bi[keep], rows[keep], offs[keep]] = True
+    return SparseGraphBatch(neighbors=torch.from_numpy(nbrs).to(dev),
+                            valid=torch.from_numpy(val).to(dev))
+
+
+def sparse_init_state(g: SparseGraphBatch) -> SparseGraphState:
+    """Fresh sparse state on ``g``'s device: empty solution; candidates =
+    degree > 0.  The state shares ``g``'s topology tensors."""
+    deg = g.valid.sum(-1)
+    return SparseGraphState(
+        neighbors=g.neighbors, valid=g.valid,
+        candidate=(deg > 0).to(torch.float32),
+        solution=torch.zeros(g.neighbors.shape[:2], dtype=torch.float32,
+                             device=g.device))
+
+
+# ---------------------------------------------------------------------------
+# CSR graph state: flat compressed-sparse-row arrays (DESIGN.md §13), storage
+# proportional to the edges.  Topology (indptr, indices, edge_mask) is
+# immutable; residual edges derive from the solution mask.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class CsrGraphBatch:
+    """Static CSR topology for B graphs with a common (N, E) shape.
+
+    indptr:    (B, N+1) int32: row j's directed edges are
+               ``indices[indptr[j]:indptr[j+1]]``; ``indptr[N]`` is the
+               graph's true directed edge count (≤ E).
+    indices:   (B, E) int32 column ids, padded with the sentinel N.
+    edge_mask: (B, E) bool, True on real edges.
+
+    Every undirected edge appears twice (u→v and v→u)."""
+    indptr: torch.Tensor
+    indices: torch.Tensor
+    edge_mask: torch.Tensor
+
+    @property
+    def batch(self) -> int:
+        return self.indptr.shape[0]
+
+    @property
+    def num_nodes(self) -> int:
+        return self.indptr.shape[1] - 1
+
+    @property
+    def num_edges(self) -> int:
+        return self.indices.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.indptr.device
+
+
+@dataclasses.dataclass
+class CsrGraphState:
+    """CSR counterpart of :class:`GraphState`: the topology fields of
+    :class:`CsrGraphBatch`, the C/S masks, and the env's ``residual`` mode
+    as on :class:`SparseGraphState`.  Row ids are not stored
+    (:func:`csr_row_ids`), keeping state bytes at 5·E + ~12·N per graph."""
+    indptr: torch.Tensor
+    indices: torch.Tensor
+    edge_mask: torch.Tensor
+    candidate: torch.Tensor
+    solution: torch.Tensor
+    residual: Union[bool, str] = True
+
+    @property
+    def batch(self) -> int:
+        return self.indptr.shape[0]
+
+    @property
+    def num_nodes(self) -> int:
+        return self.indptr.shape[1] - 1
+
+    @property
+    def num_edges(self) -> int:
+        return self.indices.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.indptr.device
+
+
+def csr_row_ids(indptr: torch.Tensor, num_edges: int) -> torch.Tensor:
+    """(B, N+1) indptr → (B, E) int32 source row of each edge slot:
+    ``row_ids[j] = #{i ∈ 1..N-1 : indptr[i] ≤ j}``, the inclusive cumsum
+    of +1 increments scattered at the interior row boundaries, as the JAX
+    package derives it.  Empty rows stack their increments on one slot;
+    boundaries at E (empty tail rows) are dropped; padded slots past
+    ``indptr[N]`` land on row N-1, where their zero factor makes them
+    inert.  The cumsum runs over the flattened batch (a scan along a long
+    inner dimension of few rows is slow on the card) and each graph then
+    subtracts the count of the graphs before it."""
+    b = indptr.shape[0]
+    inc = torch.zeros((b, num_edges + 1), dtype=torch.int32,
+                      device=indptr.device)
+    bounds = indptr[:, 1:-1].long()
+    inc.scatter_add_(1, bounds, torch.ones_like(bounds, dtype=torch.int32))
+    total = inc[:, :num_edges].reshape(-1).cumsum(0, dtype=torch.int32)
+    total = total.reshape(b, num_edges)
+    before = torch.nn.functional.pad(total[:-1, -1], (1, 0))
+    return total - before[:, None]
+
+
+def csr_segment_sum(values: torch.Tensor, row_ids: torch.Tensor,
+                    num_nodes: int) -> torch.Tensor:
+    """Per-row sums: (B, E) edge values → (B, N) node sums.
+
+    CSR row ids are non-decreasing by construction, so each row's sum is
+    the difference of two prefix sums at its first slot and the next
+    row's: no atomics (whose contention on the padded slots, all on row
+    N-1, serialises a scatter-add on the card), the same result on every
+    run.  One f64 prefix sum runs over the flattened batch (differences
+    within a graph do not see the graphs before it), so sums of 0/1 edge
+    factors are exact at any edge count."""
+    b, e = values.shape
+    prefix = torch.nn.functional.pad(values.double().reshape(-1).cumsum(0),
+                                     (1, 0))
+    rows = torch.arange(num_nodes + 1, dtype=row_ids.dtype,
+                        device=values.device).expand(b, -1).contiguous()
+    first = torch.searchsorted(row_ids.contiguous(), rows).long()
+    first = first + e * torch.arange(b, device=values.device)[:, None]
+    return (prefix[first[:, 1:]] - prefix[first[:, :-1]]).to(values.dtype)
+
+
+def csr_residual_edge_mask(indices: torch.Tensor, edge_mask: torch.Tensor,
+                           row_ids: torch.Tensor,
+                           solution: torch.Tensor) -> torch.Tensor:
+    """(B, E) float32 residual-edge factors: mask ∧ keep[row] ∧ keep[col],
+    the CSR analogue of :func:`residual_edge_mask`."""
+    keep = 1.0 - solution
+    keep_pad = torch.nn.functional.pad(keep, (0, 1))        # sentinel slot
+    return (edge_mask.to(torch.float32) * _gather_nodes(keep_pad, indices)
+            * _gather_nodes(keep, row_ids))
+
+
+def csr_batch_from_dense(adj, max_edges: Optional[int] = None, *,
+                         device: DeviceLike = "cuda") -> CsrGraphBatch:
+    """adj (B, N, N) or (N, N) → flat CSR arrays with a common edge
+    capacity, on ``device``; each row's columns ascending.
+
+    ``max_edges`` of None or 0 derives the capacity from the batch; an
+    explicit value below the true max directed-edge count raises rather
+    than silently dropping edges."""
+    dev = resolve_device(device)
+    adj = _as_numpy(adj)
+    b, n, _ = adj.shape
+    bi, rows, cols = np.nonzero(adj > 0)        # C-order: sorted by (bi, row)
+    per_graph = np.bincount(bi, minlength=b)
+    true_e = int(per_graph.max(initial=0))
+    if not max_edges:                           # None or 0 → derive
+        me = max(true_e, 1)
+    elif max_edges < true_e:
+        raise ValueError(
+            f"max_edges={max_edges} is below the batch's true directed edge "
+            f"count {true_e}; refusing to silently drop edges")
+    else:
+        me = max_edges
+    indices = np.full((b, me), n, np.int32)
+    mask = np.zeros((b, me), bool)
+    starts = np.concatenate([[0], np.cumsum(per_graph)[:-1]])
+    pos = np.arange(len(bi)) - starts[bi]
+    indices[bi, pos] = cols
+    mask[bi, pos] = True
+    rowcounts = np.bincount(bi * n + rows, minlength=b * n).reshape(b, n)
+    indptr = np.zeros((b, n + 1), np.int32)
+    np.cumsum(rowcounts, axis=1, out=indptr[:, 1:])
+    return CsrGraphBatch(indptr=torch.from_numpy(indptr).to(dev),
+                         indices=torch.from_numpy(indices).to(dev),
+                         edge_mask=torch.from_numpy(mask).to(dev))
+
+
+def csr_batch_from_arrays(indptr: np.ndarray, indices: np.ndarray,
+                          max_edges: Optional[int] = None, *,
+                          device: DeviceLike = "cuda") -> CsrGraphBatch:
+    """One graph's CSR arrays (indptr (N+1,), indices (E,)) → a B=1
+    :class:`CsrGraphBatch` on ``device``, optionally padded to
+    ``max_edges`` slots.  No dense adjacency is ever built."""
+    dev = resolve_device(device)
+    indptr = np.asarray(indptr, np.int32)
+    indices = np.asarray(indices, np.int32)
+    n = len(indptr) - 1
+    e = len(indices)
+    me = max_edges if max_edges else max(e, 1)
+    if me < e:
+        raise ValueError(
+            f"max_edges={me} is below the graph's directed edge count {e}; "
+            f"refusing to silently drop edges")
+    idx = np.full((me,), n, np.int32)
+    idx[:e] = indices
+    mask = np.zeros((me,), bool)
+    mask[:e] = True
+    return CsrGraphBatch(indptr=torch.from_numpy(indptr)[None].to(dev),
+                         indices=torch.from_numpy(idx)[None].to(dev),
+                         edge_mask=torch.from_numpy(mask)[None].to(dev))
+
+
+def csr_batch_to_dense(g) -> np.ndarray:
+    """(B, N, N) dense adjacency of a CSR batch or state (a test helper)."""
+    indptr = g.indptr.cpu().numpy()
+    indices = g.indices.cpu().numpy()
+    mask = g.edge_mask.cpu().numpy()
+    b, n = indptr.shape[0], indptr.shape[1] - 1
+    a = np.zeros((b, n, n), np.float32)
+    for i in range(b):
+        rows = np.repeat(np.arange(n), np.diff(indptr[i]))
+        a[i, rows, indices[i][mask[i]]] = 1.0
+    return a
+
+
+def csr_init_state(g: CsrGraphBatch) -> CsrGraphState:
+    """Fresh CSR state on ``g``'s device: empty solution; candidates =
+    degree > 0.  The state shares ``g``'s topology tensors."""
+    deg = g.indptr[:, 1:] - g.indptr[:, :-1]
+    return CsrGraphState(
+        indptr=g.indptr, indices=g.indices, edge_mask=g.edge_mask,
+        candidate=(deg > 0).to(torch.float32),
+        solution=torch.zeros((g.batch, g.num_nodes), dtype=torch.float32,
+                             device=g.device))
+
+
+# ---------------------------------------------------------------------------
+# Streaming edge lists and CSR assembly for paper-scale graphs (§6.4:
+# N ≥ 1M, 10M+ edges): vectorized numpy, no (N, N) array, no per-node loop.
+# ---------------------------------------------------------------------------
+
+def barabasi_albert_edges(n: int, d: int = 4, *,
+                          seed: int) -> Tuple[np.ndarray, np.ndarray]:
+    """BA(n, d) as a directed edge list (src, dst) in O(E) memory and time:
+    the Batagelj–Brandes copy model.  Edge t's target is a uniform draw
+    r[t] from the 2t endpoints of earlier edges; even draws resolve to a
+    source (``src[r/2]``), odd draws chase ``rr ← r[(rr-1)/2]`` down to one.
+    Repeated draws collapse at dedupe, so a degree can fall below d."""
+    rng = np.random.default_rng(seed)
+    m = np.minimum(np.arange(n, dtype=np.int64), d)
+    src = np.repeat(np.arange(n, dtype=np.int64), m)
+    t = np.arange(len(src), dtype=np.int64)
+    if len(t) == 0:
+        return src, src.copy()
+    r = rng.integers(0, np.maximum(2 * t, 1))
+    rr = r.copy()
+    odd = (rr & 1) == 1
+    while odd.any():
+        rr[odd] = r[(rr[odd] - 1) >> 1]
+        odd = (rr & 1) == 1
+    dst = src[rr >> 1]
+    dst[0] = 0                         # edge 0 has no predecessors: 1 → 0
+    return src, dst
+
+
+def csr_from_edges(n: int, src: np.ndarray, dst: np.ndarray, *,
+                   symmetrize: bool = True,
+                   dedupe: bool = True) -> Tuple[np.ndarray, np.ndarray]:
+    """Directed edge list → (indptr (N+1,) int32, indices (E,) int32).
+    Self-loops are dropped; ``symmetrize`` mirrors every edge; ``dedupe``
+    removes repeats by sorting the int64 key ``src·n + dst``, which also
+    gives row-major order with ascending columns."""
+    src = np.asarray(src, np.int64)
+    dst = np.asarray(dst, np.int64)
+    if symmetrize:
+        src, dst = (np.concatenate([src, dst]), np.concatenate([dst, src]))
+    keep = src != dst
+    src, dst = src[keep], dst[keep]
+    key = src * np.int64(n) + dst
+    if dedupe:
+        key = np.unique(key)
+        src, dst = key // n, key % n
+    else:
+        order = np.argsort(key, kind="stable")
+        src, dst = src[order], dst[order]
+    deg = np.bincount(src, minlength=n)
+    indptr = np.zeros((n + 1,), np.int64)
+    np.cumsum(deg, out=indptr[1:])
+    return indptr.astype(np.int32), dst.astype(np.int32)
+
+
+DATA_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
+            / "repro_torch" / "data")
+
+
+def cached_ba_csr(n: int, d: int = 4, *, seed: int,
+                  cache_dir=None) -> Tuple[np.ndarray, np.ndarray]:
+    """BA(n, d) as CSR arrays, cached as ``.npz`` under ``cache_dir``
+    (default ``build/repro_torch/data`` at the repository root, which
+    ``.gitignore`` lists)."""
+    cache = pathlib.Path(cache_dir) if cache_dir else DATA_DIR
+    cache.mkdir(parents=True, exist_ok=True)
+    path = cache / f"ba_n{n}_d{d}_s{seed}.npz"
+    if path.exists():
+        with np.load(path) as z:
+            return z["indptr"], z["indices"]
+    src, dst = barabasi_albert_edges(n, d, seed=seed)
+    indptr, indices = csr_from_edges(n, src, dst)
+    np.savez_compressed(path, indptr=indptr, indices=indices)
+    return indptr, indices

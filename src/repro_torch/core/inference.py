@@ -14,7 +14,8 @@ solve stays tens of evaluations):
     |C| <= N/8        -> d = max_d/8  (each tier floored at 1)
 
 This slice runs the fused device engine (``engine="device"``,
-``core.engine.get_solve_step``) on the dense representation.
+``core.engine.get_solve_step``) on the dense, sparse and CSR
+representations (``rep=``).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from . import env as env_lib
 from .graphrep import GraphRep, get_rep
+from .graphs import CsrGraphState, SparseGraphState
 from .policy import Policy, PolicyConfig
 from .qmodel import NEG_INF
 
@@ -86,11 +88,16 @@ def apply_selection(state, scores, candidate, use_adaptive: bool,
 
 def init_solve_state(rep: GraphRep, adj, problem: str = "mvc", *,
                      device: DeviceLike = "cuda"):
-    """Fresh solve state in ``rep``'s layout on ``device``, with the env's
-    candidate rule applied.  Enforces the padding-safety contract first
+    """Fresh solve state in ``rep``'s layout on ``device``, carrying the
+    env's residual mode (sparse and CSR states) and its candidate rule.
+    Enforces the padding-safety contract first
     (``env.ensure_padding_safe``)."""
     env_lib.ensure_padding_safe(problem)
     state = rep.init_state(adj, device=device)
+    if isinstance(state, (SparseGraphState, CsrGraphState)):
+        flag = env_lib.sparse_residual_flag(problem)
+        if state.residual != flag:
+            state = dataclasses.replace(state, residual=flag)
     cand_fn = env_lib.candidate_rule(problem)
     if cand_fn is not None:
         state = dataclasses.replace(state, candidate=cand_fn(state))
@@ -126,7 +133,9 @@ def solve(params: Policy, adj0, *, num_layers: int = 2,
           device: DeviceLike = "cuda") -> InferenceResult:
     """Run Alg. 4 on ``device`` until every graph in the batch has a
     complete solution.  ``adj0`` is an (N, N) or (B, N, N) adjacency
-    (numpy or torch); it is copied, never modified.  ``params`` must live
+    (numpy or torch), or a batch or state of ``rep``'s layout (a
+    ``CsrGraphBatch`` from ``csr_batch_from_arrays`` reaches graphs no
+    dense array could hold); it is never modified.  ``params`` must live
     on ``device``.  ``max_evals`` defaults to N + max_d."""
     check_solve_options(engine, spatial)
     dev = resolve_device(device)

@@ -86,6 +86,25 @@ class _FusedDenseLayer(torch.autograd.Function):
             "item A4")
 
 
+def check_axis(axis: Optional[str]) -> None:
+    if axis is not None:
+        raise NotImplementedError(
+            "sharded embedding (axis=...) is the multi-GPU mesh slice, "
+            "ROADMAP item A9")
+
+
+def s2v_base(params: S2V, deg: torch.Tensor,
+             sol: torch.Tensor) -> torch.Tensor:
+    """embed1 + embed2 (Alg. 2 lines 5-8), the f32 residual term of every
+    layer, from the (B, Nl) residual degrees and partial solution."""
+    # Line 5: embed1 = θ1 · Sᵀ  →  (B, K, Nl)
+    embed1 = params.theta1[None, :, None] * sol[:, None, :]
+    # Lines 7-8: w = ReLU(θ2 · deg);  embed2 = θ3 @ w
+    w = torch.relu(params.theta2[None, :, None] * deg[:, None, :])
+    embed2 = torch.einsum("kj,bjn->bkn", params.theta3, w)
+    return (embed1 + embed2).contiguous()
+
+
 def embed_local(
     params: S2V,
     adj_local: torch.Tensor,      # (B, Nl, N) local rows of residual adjacency
@@ -99,17 +118,8 @@ def embed_local(
     """Returns (B, K, Nl) embeddings of the local resident nodes (Alg. 2)."""
     check_kernel(kernel)
     compute_dtype(compute)
-    if axis is not None:
-        raise NotImplementedError(
-            "sharded embedding (axis=...) is the multi-GPU mesh slice, "
-            "ROADMAP item A9")
-    # Line 5: embed1 = θ1 · Sᵀ  →  (B, K, Nl)
-    embed1 = params.theta1[None, :, None] * sol_local[:, None, :]
-    # Lines 7-8: w = ReLU(θ2 · deg_local);  embed2 = θ3 @ w
-    deg_local = adj_local.sum(-1)                            # (B, Nl)
-    w = torch.relu(params.theta2[None, :, None] * deg_local[:, None, :])
-    embed2 = torch.einsum("kj,bjn->bkn", params.theta3, w)
-    base = (embed1 + embed2).contiguous()                    # f32 residual term
+    check_axis(axis)
+    base = s2v_base(params, adj_local.sum(-1), sol_local)
 
     embed = torch.zeros_like(base)                           # Line 3
     for layer in range(num_layers):                          # Lines 9-15

@@ -1,0 +1,135 @@
+"""Sparse (gather-based) structure2vec path: the paper's sparse graph
+storage (§4.1, §5.2).  Counterpart of ``repro/core/s2v_sparse.py`` for one
+device (``axis=None``).
+
+The topology is stored once as padded neighbour lists (B, N, D) plus the
+partial-solution mask S; a residual edge exists iff the original edge
+exists and neither endpoint is in S, so each layer is a gather over static
+ids with per-slot factors: O(N·D) memory, no adjacency rewrite.
+
+``kernel="fused"`` (default) runs each layer as one launch of
+``kernels.s2v_fused.fused_s2v_layer_sparse`` (the hand-written CUDA kernel
+on the card) and elides layer 0 (zero embeddings make the first
+aggregation exactly zero, so layer 1 is relu(embed1 + embed2)).
+``kernel="xla"`` is the reference per-op chain; its aggregation is
+``kernels.s2v_gather.sparse_mp_aggregate``, the CUDA kernel on the card,
+as the JAX chain runs its Pallas gather on the TPU.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..kernels.s2v_fused import fused_s2v_layer_sparse
+from ..kernels.s2v_gather import sparse_mp_aggregate
+from .graphs import SparseGraphState, residual_edge_mask
+from .qmodel import scores_local
+from .s2v import check_axis, check_kernel, compute_dtype, s2v_base
+
+
+def residual_edge_factors(nbr_local: torch.Tensor, valid_local: torch.Tensor,
+                          sol_local: torch.Tensor, *,
+                          axis: Optional[str] = None) -> torch.Tensor:
+    """(B, Nl, D) residual-edge factors valid ∧ keep[u] ∧ keep[v]."""
+    check_axis(axis)
+    return residual_edge_mask(nbr_local, valid_local, sol_local)
+
+
+def check_residual(residual) -> None:
+    if residual == "closed":
+        raise NotImplementedError(
+            "closed-neighbourhood residuals (MIS) on the sparse and CSR "
+            "representations are not ported yet: ROADMAP item A5")
+
+
+def edge_factors(nbr_local: torch.Tensor, valid_local: torch.Tensor,
+                 sol_local: torch.Tensor, residual, *,
+                 axis: Optional[str] = None) -> torch.Tensor:
+    """Edge factors for the env's residual mode: True/"solution" removes
+    S's edges; False/"none" keeps the original topology."""
+    check_residual(residual)
+    if residual is False or residual == "none":
+        check_axis(axis)
+        return valid_local.to(torch.float32)
+    return residual_edge_factors(nbr_local, valid_local, sol_local,
+                                 axis=axis)
+
+
+class _FusedSparseLayer(torch.autograd.Function):
+    """Autograd hook around the fused sparse layer.  Its backward belongs
+    to the training slice (the JAX ``custom_vjp`` differentiates the
+    composition, ``repro/core/s2v_sparse.py:_sparse_layer_hw_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, theta4, x, nbr, edge, base, compute):
+        return fused_s2v_layer_sparse(theta4, x, nbr, edge, base, compute)
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError(
+            "the fused sparse S2V layer has no backward yet: training is "
+            "ROADMAP item A4")
+
+
+def embed_sparse_local(params, nbr_local: torch.Tensor,
+                       edge_local: torch.Tensor, sol_local: torch.Tensor, *,
+                       num_layers: int, axis: Optional[str] = None,
+                       kernel: str = "fused",
+                       compute: str = "f32") -> torch.Tensor:
+    """structure2vec over the residual graph implied by (topology, S)
+    (Alg. 2 on sparse storage).  nbr_local (B, Nl, D) int32 neighbour ids;
+    edge_local (B, Nl, D) residual-edge factors; sol_local (B, Nl).
+    Returns (B, K, Nl)."""
+    check_kernel(kernel)
+    compute_dtype(compute)
+    check_axis(axis)
+    base = s2v_base(params, edge_local.sum(-1), sol_local)
+
+    embed = torch.zeros_like(base)
+    for layer in range(num_layers):
+        if kernel == "fused":
+            if layer == 0:
+                # embed⁰ = 0 ⇒ the first aggregation is exactly zero
+                embed = torch.relu(base)
+            else:
+                embed = _FusedSparseLayer.apply(params.theta4, embed,
+                                                nbr_local, edge_local, base,
+                                                compute)
+            continue
+        # Reference per-op chain; the sentinel column makes padding inert.
+        xp = torch.nn.functional.pad(embed, (0, 1))
+        nbr = sparse_mp_aggregate(xp, nbr_local, edge_local)
+        embed3 = torch.einsum("kj,bjn->bkn", params.theta4, nbr)
+        embed = torch.relu(base + embed3)
+    return embed
+
+
+def embed_sparse(params, g, sol: torch.Tensor, *, num_layers: int,
+                 residual=True, kernel: str = "fused",
+                 compute: str = "f32") -> torch.Tensor:
+    """Derive the edge factors for the env's ``residual`` mode from
+    (topology, S) and embed all N nodes.  ``g`` carries ``neighbors`` and
+    ``valid`` (a SparseGraphBatch or SparseGraphState)."""
+    edge = edge_factors(g.neighbors, g.valid, sol, residual)
+    return embed_sparse_local(params, g.neighbors, edge, sol,
+                              num_layers=num_layers, kernel=kernel,
+                              compute=compute)
+
+
+def sparse_policy_scores(params, g, sol: torch.Tensor, cand: torch.Tensor, *,
+                         num_layers: int, masked: bool = True, residual=True,
+                         kernel: str = "fused",
+                         compute: str = "f32") -> torch.Tensor:
+    emb = embed_sparse(params.em, g, sol, num_layers=num_layers,
+                       residual=residual, kernel=kernel, compute=compute)
+    return scores_local(params.q, emb, cand, masked=masked)
+
+
+def sparse_state_bytes(g) -> int:
+    """Per-step state bytes of the sparse representation: the topology,
+    plus the C/S masks if ``g`` is a state."""
+    total = g.neighbors.numel() * 4 + g.valid.numel()
+    if isinstance(g, SparseGraphState):
+        total += g.candidate.numel() * 4 + g.solution.numel() * 4
+    return int(total)

@@ -8,8 +8,9 @@ directory ``.gitignore`` lists), keyed by a hash of the sources and the
 flags, so an edited source is rebuilt and an unchanged one is reused.
 
 The build happens on first use: the first :func:`load` builds every
-source whose library is missing.  It raises when ``nvcc`` is missing or a
-build fails.
+source whose library is missing, all at once.  It raises when ``nvcc`` is
+missing or a build fails.  :func:`launch` calls a kernel's C entry point
+on PyTorch's current stream and raises on the CUDA error it returns.
 """
 from __future__ import annotations
 
@@ -20,7 +21,9 @@ import pathlib
 import shutil
 import subprocess
 import threading
-from typing import Dict
+from typing import Dict, Sequence
+
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -59,11 +62,12 @@ def build_dir() -> pathlib.Path:
 
 
 def _build_missing(out: pathlib.Path) -> None:
-    """Build every source whose library is missing, one ``nvcc`` after
-    another; each writes a temporary file that is renamed into place only
-    when its build succeeded."""
+    """Build every source whose library is missing, one ``nvcc`` for each,
+    all started together; each writes a temporary file that is renamed
+    into place only when its build succeeded."""
     nvcc = find_nvcc()
     out.mkdir(parents=True, exist_ok=True)
+    jobs = []
     for name, src in _sources().items():
         lib = out / f"lib{name}.so"
         if lib.exists():
@@ -71,13 +75,20 @@ def _build_missing(out: pathlib.Path) -> None:
         tmp = out / f"lib{name}.so.{os.getpid()}.tmp"
         log = out / f"{name}.log"
         with open(log, "w") as f:
-            rc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                                stdout=f, stderr=subprocess.STDOUT,
-                                check=False).returncode
+            proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                                     str(src)], stdout=f,
+                                    stderr=subprocess.STDOUT)
+        jobs.append((name, proc, tmp, lib, log))
+    failed = []
+    for name, proc, tmp, lib, log in jobs:
+        rc = proc.wait()
         if rc != 0:
-            raise RuntimeError(f"nvcc failed to build {name} (exit {rc}): "
-                               f"{log.read_text()[-4000:]}")
-        os.replace(tmp, lib)
+            failed.append(f"nvcc failed to build {name} (exit {rc}): "
+                          f"{log.read_text()[-4000:]}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -102,3 +113,18 @@ def build_log(name: str) -> str:
     when the library was reused from an earlier build."""
     log = build_dir() / f"{name}.log"
     return log.read_text() if log.exists() else ""
+
+
+def launch(name: str, fn_name: str, argtypes: Sequence, device: torch.device,
+           *args) -> None:
+    """Call ``fn_name`` of ``csrc/<name>.cu`` with ``args`` and the current
+    stream of ``device``; raise if it returns a CUDA error (a refused
+    launch never runs, and a later synchronize would not report it)."""
+    fn = getattr(load(name), fn_name)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = list(argtypes) + [ctypes.c_void_p]
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")

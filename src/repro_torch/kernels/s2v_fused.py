@@ -1,15 +1,18 @@
-"""Fused dense structure2vec layer: relu(base + θ4 @ (embed @ adj)).
+"""Fused structure2vec layers, dense and padded-sparse:
 
-Counterpart of ``repro/kernels/s2v_fused.py::fused_s2v_layer`` (the Pallas
-``_fused_dense_kernel``).  Three things live here:
+- dense:  relu(base + θ4 @ (embed @ adj)), counterpart of
+  ``repro/kernels/s2v_fused.py::fused_s2v_layer`` (``_fused_dense_kernel``),
+  the kernel in ``csrc/s2v_fused.cu``;
+- sparse: relu(base + θ4 @ Σ_d x[:, nbr[i, d]]·edge[i, d]), counterpart of
+  ``fused_s2v_layer_sparse`` (``_fused_sparse_kernel``), the kernel in
+  ``csrc/s2v_gather.cu``.
 
-- :func:`fused_s2v_layer_plain`, the PyTorch composition of the same
-  function, used by the CPU tests and as the card-side reference;
-- :func:`fused_s2v_layer`, the wrapper: on CPU tensors it computes the
-  plain version, on CUDA tensors it launches the hand-written kernel
-  (``csrc/s2v_fused.cu``) and never anything else;
-- ``fused_s2v_layer.launches``, the count of kernel launches, so a run can
-  show that its path went through the kernel.
+For each: ``<name>_plain``, the PyTorch composition of the same function,
+used by the CPU tests and as the card-side reference; ``<name>``, the
+wrapper, which computes the plain version on CPU tensors and launches the
+hand-written kernel on CUDA tensors, never anything else; and
+``<name>.launches``, the count of kernel launches, so a run can show that
+its path went through the kernel.
 
 Layouts are JAX's: θ4 (K, K), embed (B, K, Nl), adj (B, Nl, N), base
 (B, K, N); the output is (B, K, N) float32.  ``compute`` is ``"f32"`` or
@@ -23,11 +26,13 @@ import ctypes
 
 import torch
 
+from .build import launch
+
 MAX_K = 32
 COMPUTE_MODES = ("f32", "bf16")
 
 
-def _round_cd(x: torch.Tensor, compute: str) -> torch.Tensor:
+def round_cd(x: torch.Tensor, compute: str) -> torch.Tensor:
     """Round to the compute dtype's values, kept in float32 so products and
     sums stay f32 (bf16 × bf16 products are exact in f32)."""
     if compute == "bf16":
@@ -39,29 +44,58 @@ def fused_s2v_layer_plain(theta4: torch.Tensor, embed: torch.Tensor,
                           adj: torch.Tensor, base: torch.Tensor,
                           compute: str = "f32") -> torch.Tensor:
     """The layer as a PyTorch composition (the kernel's plain version)."""
-    _check_compute(compute)
-    nbr = torch.matmul(_round_cd(embed.float(), compute),
-                       _round_cd(adj.float(), compute))
-    e3 = torch.matmul(_round_cd(theta4.float(), compute),
-                      _round_cd(nbr, compute))
+    check_compute(compute)
+    nbr = torch.matmul(round_cd(embed.float(), compute),
+                       round_cd(adj.float(), compute))
+    e3 = torch.matmul(round_cd(theta4.float(), compute),
+                      round_cd(nbr, compute))
     return torch.relu(base.float() + e3)
 
 
-def _check_compute(compute: str) -> None:
+def check_compute(compute: str) -> None:
     if compute not in COMPUTE_MODES:
         raise ValueError(f"unknown compute mode {compute!r}; "
                          f"available: {list(COMPUTE_MODES)}")
 
 
-def _check_inputs(theta4, embed, adj, base) -> None:
-    tensors = {"theta4": theta4, "embed": embed, "adj": adj, "base": base}
+def check_tensors(ref: str, tensors: dict, int32=()) -> None:
+    """Every tensor on ``tensors[ref]``'s device, contiguous, int32 if its
+    name is in ``int32`` and float32 otherwise."""
+    dev = tensors[ref].device
     for name, t in tensors.items():
-        if t.device != adj.device:
-            raise ValueError(f"{name} is on {t.device}, adj on {adj.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, {ref} on {dev}")
+        want = torch.int32 if name in int32 else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {str(want)[6:]}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def check_k(b: int, k: int) -> None:
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"the fused kernel takes 1 <= K <= {MAX_K}, got {k}")
+    if not 1 <= b <= 65535:
+        raise ValueError(f"the kernels take 1 <= B <= 65535, got {b}")
+
+
+def on_cpu(t: torch.Tensor, fn: str) -> bool:
+    """True for a CPU tensor (the plain version runs), False for a CUDA
+    tensor (the kernel runs); any other device raises."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn} runs on cpu or cuda, not {t.device}")
+    return t.device.type == "cpu"
+
+
+def node_major(x: torch.Tensor) -> torch.Tensor:
+    """(B, K, M) → a (B, M, K) copy, so a kernel's gather of one node reads
+    one contiguous K-vector (a 128-byte line at K = 32)."""
+    return x.transpose(1, 2).contiguous()
+
+
+def _check_inputs(theta4, embed, adj, base) -> None:
+    check_tensors("adj", {"theta4": theta4, "embed": embed, "adj": adj,
+                          "base": base})
     if embed.dim() != 3 or adj.dim() != 3 or base.dim() != 3:
         raise ValueError("embed, adj and base must be 3-D")
     b, k, nl = embed.shape
@@ -72,21 +106,9 @@ def _check_inputs(theta4, embed, adj, base) -> None:
             f"shape mismatch: theta4 {tuple(theta4.shape)}, embed "
             f"{tuple(embed.shape)}, adj {tuple(adj.shape)}, base "
             f"{tuple(base.shape)}; expected (K,K), (B,K,Nl), (B,Nl,N), (B,K,N)")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"the fused kernel takes 1 <= K <= {MAX_K}, got {k}")
-    if not (1 <= b <= 65535 and nl >= 1 and n >= 1):
+    check_k(b, k)
+    if nl < 1 or n < 1:
         raise ValueError(f"unsupported sizes B={b}, Nl={nl}, N={n}")
-
-
-def _library():
-    from .build import load
-    lib = load("s2v_fused")
-    fn = lib.s2v_fused_layer
-    if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p])
-    return fn
 
 
 def fused_s2v_layer(theta4: torch.Tensor, embed: torch.Tensor,
@@ -94,26 +116,95 @@ def fused_s2v_layer(theta4: torch.Tensor, embed: torch.Tensor,
                     compute: str = "f32") -> torch.Tensor:
     """One dense S2V layer in one launch.  CPU tensors take the plain
     version; CUDA tensors launch the kernel on the current stream."""
-    _check_compute(compute)
+    check_compute(compute)
     _check_inputs(theta4, embed, adj, base)
-    if adj.device.type == "cpu":
+    if on_cpu(adj, "fused_s2v_layer"):
         return fused_s2v_layer_plain(theta4, embed, adj, base, compute)
-    if adj.device.type != "cuda":
-        raise ValueError(f"fused_s2v_layer runs on cpu or cuda, "
-                         f"not {adj.device}")
     b, k, nl = embed.shape
     n = adj.shape[2]
     out = torch.empty((b, k, n), dtype=torch.float32, device=adj.device)
-    launch = _library()
-    with torch.cuda.device(adj.device):
-        stream = torch.cuda.current_stream(adj.device).cuda_stream
-        err = launch(theta4.data_ptr(), embed.data_ptr(), adj.data_ptr(),
-                     base.data_ptr(), out.data_ptr(), b, k, nl, n,
-                     int(compute == "bf16"), stream)
-    if err != 0:
-        raise RuntimeError(f"s2v_fused_layer launch failed: CUDA error {err}")
+    launch("s2v_fused", "s2v_fused_layer",
+           [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5, adj.device,
+           theta4.data_ptr(), embed.data_ptr(), adj.data_ptr(),
+           base.data_ptr(), out.data_ptr(), b, k, nl, n,
+           int(compute == "bf16"))
     fused_s2v_layer.launches += 1
     return out
 
 
 fused_s2v_layer.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Padded-sparse layer.
+# ---------------------------------------------------------------------------
+
+def fused_s2v_layer_sparse_plain(theta4: torch.Tensor, x: torch.Tensor,
+                                 neighbors: torch.Tensor, edge: torch.Tensor,
+                                 base: torch.Tensor,
+                                 compute: str = "f32") -> torch.Tensor:
+    """The sparse layer as a PyTorch composition (the kernel's plain
+    version): pad x with a zero column for the sentinel id N, gather,
+    contract over the slots in f32, then θ4, base and ReLU, with operands
+    rounded to the compute dtype and the f32 aggregate rounded once."""
+    from .s2v_gather import sparse_mp_aggregate_plain
+    check_compute(compute)
+    xp = torch.nn.functional.pad(round_cd(x.float(), compute), (0, 1))
+    nbr = sparse_mp_aggregate_plain(xp, neighbors,
+                                    round_cd(edge.float(), compute))
+    e3 = torch.matmul(round_cd(theta4.float(), compute),
+                      round_cd(nbr, compute))
+    return torch.relu(base.float() + e3)
+
+
+def _check_sparse_inputs(theta4, x, neighbors, edge, base) -> None:
+    check_tensors("neighbors", {"theta4": theta4, "x": x,
+                                "neighbors": neighbors, "edge": edge,
+                                "base": base}, int32=("neighbors",))
+    if x.dim() != 3 or neighbors.dim() != 3:
+        raise ValueError("x and neighbors must be 3-D")
+    b, k, n = x.shape
+    nl, d = neighbors.shape[1:]
+    if neighbors.shape[0] != b or tuple(edge.shape) != (b, nl, d) \
+            or tuple(base.shape) != (b, k, nl) or tuple(theta4.shape) != (k, k):
+        raise ValueError(
+            f"shape mismatch: theta4 {tuple(theta4.shape)}, x "
+            f"{tuple(x.shape)}, neighbors {tuple(neighbors.shape)}, edge "
+            f"{tuple(edge.shape)}, base {tuple(base.shape)}; expected (K,K), "
+            f"(B,K,N), (B,Nl,D), (B,Nl,D), (B,K,Nl)")
+    check_k(b, k)
+    if n < 1 or nl < 1 or d < 1:
+        raise ValueError(f"unsupported sizes N={n}, Nl={nl}, D={d}")
+
+
+def fused_s2v_layer_sparse(theta4: torch.Tensor, x: torch.Tensor,
+                           neighbors: torch.Tensor, edge: torch.Tensor,
+                           base: torch.Tensor,
+                           compute: str = "f32") -> torch.Tensor:
+    """One padded-sparse S2V layer in one launch.
+
+    x (B, K, N) float32 embeddings with NO sentinel column; neighbors
+    (B, Nl, D) int32 with the sentinel id N on padding (ids outside
+    [0, N) add nothing and are never read); edge (B, Nl, D) float32
+    residual-edge factors; base (B, K, Nl).  Returns (B, K, Nl) float32.
+    CPU tensors take the plain version; CUDA tensors launch the kernel on
+    the current stream, reading a node-major copy of x."""
+    check_compute(compute)
+    _check_sparse_inputs(theta4, x, neighbors, edge, base)
+    if on_cpu(neighbors, "fused_s2v_layer_sparse"):
+        return fused_s2v_layer_sparse_plain(theta4, x, neighbors, edge, base,
+                                            compute)
+    b, k, n = x.shape
+    nl, d = neighbors.shape[1:]
+    xt = node_major(x)
+    out = torch.empty((b, k, nl), dtype=torch.float32, device=x.device)
+    launch("s2v_gather", "s2v_sparse_layer",
+           [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6, x.device,
+           theta4.data_ptr(), xt.data_ptr(), neighbors.data_ptr(),
+           edge.data_ptr(), base.data_ptr(), out.data_ptr(), b, k, n, nl, d,
+           int(compute == "bf16"))
+    fused_s2v_layer_sparse.launches += 1
+    return out
+
+
+fused_s2v_layer_sparse.launches = 0

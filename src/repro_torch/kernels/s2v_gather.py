@@ -1,0 +1,74 @@
+"""Padded-sparse structure2vec neighbour aggregation:
+
+    out[b, k, i] = Σ_d x[b, k, neighbors[b, i, d]] · edge[b, i, d]
+
+Counterpart of ``repro/kernels/s2v_gather.py::sparse_mp_aggregate`` (the
+Pallas ``_sparse_agg_kernel``), the aggregation of the sparse
+representation's ``"xla"`` reference chain.  ``x`` is (B, K, N+1) with a
+zero sentinel column at N, neighbors (B, N, D) int32 padded with N, edge
+(B, N, D) float32; the output is (B, K, N) float32.
+
+:func:`sparse_mp_aggregate_plain` is the PyTorch composition;
+:func:`sparse_mp_aggregate` computes it on CPU tensors and launches the
+hand-written kernel (``csrc/s2v_gather.cu``) on CUDA tensors, counting
+launches in ``sparse_mp_aggregate.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .build import launch
+from .s2v_fused import check_k, check_tensors, node_major, on_cpu
+
+
+def sparse_mp_aggregate_plain(x: torch.Tensor, neighbors: torch.Tensor,
+                              edge: torch.Tensor) -> torch.Tensor:
+    """Gather with int64 ids, then contract over the D slots in f32."""
+    b, k, _ = x.shape
+    n, d = neighbors.shape[1:]
+    ids = neighbors.reshape(b, 1, n * d).long().expand(b, k, n * d)
+    gathered = torch.gather(x.float(), 2, ids).reshape(b, k, n, d)
+    return torch.einsum("bknd,bnd->bkn", gathered, edge.float())
+
+
+def _check_inputs(x, neighbors, edge) -> None:
+    check_tensors("neighbors", {"x": x, "neighbors": neighbors,
+                                "edge": edge}, int32=("neighbors",))
+    if x.dim() != 3 or neighbors.dim() != 3:
+        raise ValueError("x and neighbors must be 3-D")
+    b, k, np1 = x.shape
+    if tuple(neighbors.shape[:2]) != (b, np1 - 1) \
+            or edge.shape != neighbors.shape:
+        raise ValueError(
+            f"shape mismatch: x {tuple(x.shape)}, neighbors "
+            f"{tuple(neighbors.shape)}, edge {tuple(edge.shape)}; expected "
+            f"(B,K,N+1), (B,N,D), (B,N,D)")
+    check_k(b, k)
+    if np1 < 2 or neighbors.shape[2] < 1:
+        raise ValueError(f"unsupported sizes N={np1 - 1}, "
+                         f"D={neighbors.shape[2]}")
+
+
+def sparse_mp_aggregate(x: torch.Tensor, neighbors: torch.Tensor,
+                        edge: torch.Tensor) -> torch.Tensor:
+    """The aggregation in one launch (f32).  CPU tensors take the plain
+    version; CUDA tensors launch the kernel on the current stream, reading
+    a node-major copy of x."""
+    _check_inputs(x, neighbors, edge)
+    if on_cpu(neighbors, "sparse_mp_aggregate"):
+        return sparse_mp_aggregate_plain(x, neighbors, edge)
+    b, k, _ = x.shape
+    n, d = neighbors.shape[1:]
+    xt = node_major(x)
+    out = torch.empty((b, k, n), dtype=torch.float32, device=x.device)
+    launch("s2v_gather", "s2v_sparse_aggregate",
+           [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4, x.device,
+           xt.data_ptr(), neighbors.data_ptr(), edge.data_ptr(),
+           out.data_ptr(), b, k, n, d)
+    sparse_mp_aggregate.launches += 1
+    return out
+
+
+sparse_mp_aggregate.launches = 0

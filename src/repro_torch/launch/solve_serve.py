@@ -5,6 +5,8 @@ drain path or the async path.
     PYTHONPATH=src python -m repro_torch.launch.solve_serve --warmup
     PYTHONPATH=src python -m repro_torch.launch.solve_serve \
         --mode async --sizes 500,1000,2000 --requests 24 --warmup
+    PYTHONPATH=src python -m repro_torch.launch.solve_serve --rep csr \
+        --sizes 500,1000 --csr-max-edges 200000 --warmup
     # on a machine without a GPU, ask for the CPU explicitly:
     PYTHONPATH=src python -m repro_torch.launch.solve_serve --device cpu
 """
@@ -30,6 +32,14 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--rep", choices=["dense", "sparse", "csr"],
+                    default="dense", help="graph representation")
+    ap.add_argument("--sparse-max-degree", type=int, default=None,
+                    help="sparse: neighbour-list width of every bucket "
+                         "(default: the bucket's node count)")
+    ap.add_argument("--csr-max-edges", type=int, default=None,
+                    help="csr: directed edge slots of every bucket "
+                         "(default: nb^2)")
     ap.add_argument("--mode", choices=["sync", "async"], default="sync",
                     help="sync: queue everything and drain() once; async: "
                          "submit futures against the scheduler thread")
@@ -50,8 +60,11 @@ def main(argv=None):
     from ..core.graphs import barabasi_albert, erdos_renyi, social_like
     from ..serving import GraphSolverService
 
-    cfg = PolicyConfig(embed_dim=args.embed_dim, num_layers=2)
-    svc_kw = dict(device=args.device, max_batch=args.max_batch)
+    cfg = PolicyConfig(embed_dim=args.embed_dim, num_layers=2,
+                       graph_rep=args.rep)
+    svc_kw = dict(device=args.device, max_batch=args.max_batch,
+                  sparse_max_degree=args.sparse_max_degree,
+                  csr_max_edges=args.csr_max_edges)
     if args.ckpt_dir:
         svc = GraphSolverService.from_checkpoint(args.ckpt_dir, cfg, **svc_kw)
         print(f"policy loaded from {args.ckpt_dir}")
@@ -86,7 +99,8 @@ def main(argv=None):
               f"{r.bucket:4d}  |S|={r.size:4d}  evals={r.policy_evals}  "
               f"lat={r.latency_s * 1e3:7.1f}ms")
     s = svc.stats
-    print(f"served {s.requests} requests on {svc.device} in {dt:.2f}s: "
+    print(f"served {s.requests} requests on {svc.device} "
+          f"({svc.rep.name} rep) in {dt:.2f}s: "
           f"{s.batches} batches ({s.partial_batches} partial), "
           f"{s.compiles} request-path first dispatches "
           f"(+{s.warmup_compiles} warmup, {s.compile_seconds:.2f}s), "

@@ -34,11 +34,11 @@ import math
 import threading
 import time
 from collections import deque
-from typing import Deque, Dict, List, Optional, Sequence, Set
+from typing import Deque, Dict, List, Optional, Sequence, Set, Union
 
 import numpy as np
 
-from ..core.graphrep import get_rep
+from ..core.graphrep import CsrRep, GraphRep, SparseRep, get_rep
 from ..core.inference import MAX_D, check_solve_options, init_solve_state
 from ..core.policy import Policy, PolicyConfig
 from ..device import DeviceLike, resolve_device, synchronize
@@ -138,10 +138,19 @@ class GraphSolverService:
     Parameters
     ----------
     params : the policy, on ``device``.
-    cfg : PolicyConfig — supplies num_layers, kernel and compute; this
-        slice serves ``graph_rep="dense"`` with ``spatial=0``.
+    cfg : PolicyConfig — supplies num_layers, kernel, compute and, unless
+        ``rep`` is given, the representation; ``spatial`` must be 0.
     device : where batches are solved; ``"cuda"`` unless the caller asks
         for the CPU.
+    rep : "dense", "sparse" or "csr" (default: ``cfg.graph_rep``).
+    sparse_max_degree : sparse only — the neighbour-list width of every
+        bucket; default the bucket's node count, the bound that holds for
+        any traffic.  A graph whose max degree exceeds it is rejected at
+        submission, never truncated.
+    csr_max_edges : csr only — directed edge slots per graph of every
+        bucket; default nb², the bound that holds for any traffic.  A
+        graph with more directed edges is rejected at submission, never
+        truncated.
     multi_node : adaptive top-d commit schedule (§4.5.1) per evaluation.
     max_batch : rows per dispatch; every batch is padded to exactly this.
     max_wait_ms, max_queue_depth, default_deadline_ms, starvation_factor :
@@ -150,8 +159,11 @@ class GraphSolverService:
 
     def __init__(self, params: Policy, cfg: PolicyConfig, *,
                  device: DeviceLike = "cuda",
+                 rep: Union[str, GraphRep, None] = None,
                  multi_node: bool = True, max_batch: int = 8,
                  min_bucket: int = MIN_BUCKET,
+                 sparse_max_degree: Optional[int] = None,
+                 csr_max_edges: Optional[int] = None,
                  max_wait_ms: float = 50.0,
                  max_queue_depth: int = 512,
                  default_deadline_ms: Optional[float] = None,
@@ -164,7 +176,10 @@ class GraphSolverService:
         check_solve_options("device", cfg.spatial)
         self.params = params
         self.cfg = cfg
-        self.rep = get_rep(cfg.graph_rep)
+        self.rep = get_rep(rep if rep is not None else cfg.graph_rep)
+        self.sparse_max_degree = sparse_max_degree
+        self.csr_max_edges = csr_max_edges
+        self._bucket_reps: Dict[int, GraphRep] = {}
         self.multi_node = multi_node
         self.max_batch = max_batch
         self.rows_per_dispatch = max_batch
@@ -175,7 +190,7 @@ class GraphSolverService:
         self._next_id = 0
         self._dispatched: Set[tuple] = set()   # first-dispatch record
         self._results: Dict[int, SolveResponse] = {}
-        self._solve = {}
+        self._solve: Dict[tuple, object] = {}
         self._get_solve_step = get_solve_step
         # _cond guards queue/scheduler/id/running state; _device_lock
         # serializes device work (first dispatches and dispatches)
@@ -200,14 +215,30 @@ class GraphSolverService:
 
     # -- request intake -----------------------------------------------------
     def _validate(self, adj: np.ndarray, problem: str) -> np.ndarray:
-        """Reject malformed adjacencies and unknown / padding-unsafe
-        problems before they are queued."""
+        """Reject malformed adjacencies, unknown / padding-unsafe problems
+        and graphs above the bucket's sparse or CSR cap before they are
+        queued."""
         from ..core import env as env_lib
         env_lib.ensure_padding_safe(problem)
         adj = np.asarray(adj, np.float32)
         if adj.ndim != 2 or adj.shape[0] != adj.shape[1]:
             raise ValueError(f"expected a square (n, n) adjacency, "
                              f"got {adj.shape}")
+        rep = self._bucket_rep(bucket_nodes(adj.shape[0], self.min_bucket))
+        if rep.name == "sparse":
+            deg = int((adj > 0).sum(-1).max(initial=0))
+            if deg > rep.max_degree:
+                raise ValueError(
+                    f"graph of max degree {deg} exceeds the service's "
+                    f"sparse_max_degree={rep.max_degree}; rejected rather "
+                    f"than truncated")
+        elif rep.name == "csr":
+            edges = int((adj > 0).sum())
+            if edges > rep.max_edges:
+                raise ValueError(
+                    f"graph of {edges} directed edges exceeds the "
+                    f"service's csr_max_edges={rep.max_edges}; rejected "
+                    f"rather than truncated")
         return adj
 
     def _make_request(self, adj: np.ndarray, problem: str) -> SolveRequest:
@@ -255,19 +286,36 @@ class GraphSolverService:
         return len(self._queue) + len(self._sched)
 
     # -- first dispatch / warmup ---------------------------------------------
+    def _bucket_rep(self, nb: int) -> GraphRep:
+        """The backend a bucket dispatches through: sparse pins its
+        neighbour-list width per bucket and csr its edge slots, so every
+        dispatch of a bucket has one shape."""
+        if self.rep.name not in ("sparse", "csr"):
+            return self.rep
+        rep = self._bucket_reps.get(nb)
+        if rep is None:
+            if self.rep.name == "csr":
+                rep = CsrRep(max_edges=self.csr_max_edges or nb * nb)
+            else:
+                rep = SparseRep(max_degree=self.sparse_max_degree or nb)
+            # submitters call this outside the lock: one rep per bucket wins
+            rep = self._bucket_reps.setdefault(nb, rep)
+        return rep
+
     def _key(self, nb: int, problem: str) -> tuple:
         return (nb, problem, self.rep.name, self.multi_node,
                 self.cfg.num_layers, self.cfg.kernel, self.cfg.compute)
 
-    def _solve_fn(self, problem: str):
-        fn = self._solve.get(problem)
+    def _solve_fn(self, nb: int, problem: str):
+        rep = self._bucket_rep(nb)
+        fn = self._solve.get((rep, problem))
         if fn is None:
             fn = self._get_solve_step(
-                rep=self.rep, problem=problem,
+                rep=rep, problem=problem,
                 num_layers=self.cfg.num_layers,
                 use_adaptive=self.multi_node,
                 kernel=self.cfg.kernel, compute=self.cfg.compute)
-            self._solve[problem] = fn
+            self._solve[(rep, problem)] = fn
         return fn
 
     def _ensure_dispatched(self, nb: int, problem: str, *,
@@ -283,9 +331,9 @@ class GraphSolverService:
             return
         dummy = np.zeros((self.rows_per_dispatch, nb, nb), np.float32)
         t0 = time.perf_counter()
-        state = init_solve_state(self.rep, dummy, problem,
+        state = init_solve_state(self._bucket_rep(nb), dummy, problem,
                                  device=self.device)
-        self._solve_fn(problem)(self.params, state, nb + MAX_D)
+        self._solve_fn(nb, problem)(self.params, state, nb + MAX_D)
         synchronize(self.device)
         self.stats.compile_seconds += time.perf_counter() - t0
         if warm:
@@ -317,9 +365,9 @@ class GraphSolverService:
     def _dispatch(self, plan: BatchPlan) -> List[SolveResponse]:
         self._ensure_dispatched(plan.nb, plan.problem)
         t0 = time.perf_counter()
-        state = init_solve_state(self.rep, plan.adj, plan.problem,
-                                 device=self.device)
-        out, evals, _committed = self._solve_fn(plan.problem)(
+        state = init_solve_state(self._bucket_rep(plan.nb), plan.adj,
+                                 plan.problem, device=self.device)
+        out, evals, _committed = self._solve_fn(plan.nb, plan.problem)(
             self.params, state, plan.nb + MAX_D)
         sol = out.solution.cpu().numpy()         # waits for the device
         t1 = time.perf_counter()

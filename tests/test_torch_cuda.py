@@ -1,5 +1,6 @@
-"""The port on an NVIDIA GPU: the CUDA fused S2V layer against its plain
-version, and the solve and service paths through it.  Every test here
+"""The port on an NVIDIA GPU: each CUDA kernel (the dense, padded-sparse
+and CSR fused S2V layers and the sparse aggregation) against its plain
+version, and the solve and service paths through them.  Every test here
 needs a card and skips, saying so, without one.  The file imports neither
 jax nor the JAX package, so it also runs where only torch is installed:
 
@@ -10,10 +11,14 @@ import pytest
 import torch
 
 from repro_torch.convert import policy_from_numpy, policy_to_numpy
-from repro_torch.core import (DENSE, PolicyConfig, init_policy,
-                              init_solve_state, solve)
+from repro_torch.core import (CSR, DENSE, SPARSE, PolicyConfig,
+                              csr_batch_from_dense, init_policy,
+                              init_solve_state, solve,
+                              sparse_batch_from_dense)
 from repro_torch.core.graphs import erdos_renyi, random_graph_batch
+from repro_torch.kernels import s2v_csr as kc
 from repro_torch.kernels import s2v_fused as ks
+from repro_torch.kernels import s2v_gather as kg
 from repro_torch.serving import GraphSolverService
 
 pytestmark = pytest.mark.cuda
@@ -86,6 +91,150 @@ def test_service_on_the_card(cuda):
     policy = init_policy(cfg, generator=torch.Generator().manual_seed(1),
                          device="cuda")
     svc = GraphSolverService(policy, cfg, max_batch=2)
+    svc.warmup([20, 40])
+    adjs = [erdos_renyi(n, 0.3, seed=i) for i, n in enumerate((20, 40, 33))]
+    sync = svc.serve(adjs)
+    with svc:
+        futures = [svc.submit_async(a) for a in adjs]
+        responses = [f.result(timeout=120) for f in futures]
+    assert svc.stats.compiles == 0
+    for r, s, a in zip(responses, sync, adjs):
+        assert (r.solution == s.solution).all()
+        keep = r.solution < 0.5
+        assert a[np.ix_(keep, keep)].sum() == 0
+
+
+def _graph_inputs(b, k, n, rho, seed, isolate=0, width=None):
+    """A symmetric random graph batch with ``isolate`` isolated nodes at
+    the end, as sparse and CSR topology with random edge factors (zero on
+    padding), and random x, base and θ4."""
+    rng = np.random.default_rng(seed)
+    adj = (rng.random((b, n, n)) < rho).astype(np.float32)
+    adj = np.maximum(adj, adj.transpose(0, 2, 1))
+    np.einsum("bii->bi", adj)[:] = 0
+    if isolate:
+        adj[:, -isolate:, :] = 0.0
+        adj[:, :, -isolate:] = 0.0
+    sp = sparse_batch_from_dense(adj, width, device="cpu")
+    cs = csr_batch_from_dense(adj, width and width * n, device="cpu")
+    rand = lambda s: torch.from_numpy(  # noqa: E731
+        (rng.random(s, np.float32) - 0.5).astype(np.float32))
+    edge = sp.valid.float() * torch.from_numpy(
+        rng.random(sp.valid.shape).astype(np.float32))
+    edge_w = cs.edge_mask.float() * torch.from_numpy(
+        rng.random(cs.edge_mask.shape).astype(np.float32))
+    return sp, cs, edge, edge_w, rand((b, k, n)), rand((b, k, n)), \
+        rand((k, k)) * 0.2
+
+
+CASES = ((2, 5, 33, 0.3, 0, None), (1, 8, 40, 0.2, 7, 48),
+         (3, 16, 70, 0.15, 0, None), (2, 32, 301, 0.1, 20, 96))
+
+
+@pytest.mark.parametrize("compute", ["f32", "bf16"])
+def test_sparse_layer_matches_plain_on_the_card(cuda, compute):
+    """K of 5..32, ragged N, isolated nodes, list widths above the true
+    max degree (sentinel slots) and below 32; poisoned factors on the
+    sentinel slots must add nothing."""
+    for b, k, n, rho, iso, width in CASES:
+        sp, _, edge, _, x, base, t4 = _graph_inputs(b, k, n, rho, k, iso,
+                                                    width)
+        edge[sp.neighbors == n] = 5.0
+        args = [t.to(cuda) for t in (t4, x, sp.neighbors, edge, base)]
+        before = ks.fused_s2v_layer_sparse.launches
+        out = ks.fused_s2v_layer_sparse(*args, compute)
+        torch.cuda.synchronize()
+        assert ks.fused_s2v_layer_sparse.launches == before + 1
+        torch.testing.assert_close(
+            out, ks.fused_s2v_layer_sparse_plain(*args, compute),
+            **TOL[compute])
+        if iso:
+            assert torch.equal(out[:, :, -iso:],
+                               torch.relu(args[4][:, :, -iso:]))
+
+
+def test_sparse_aggregate_matches_plain_on_the_card(cuda):
+    for b, k, n, rho, iso, width in CASES:
+        sp, _, edge, _, x, _, _ = _graph_inputs(b, k, n, rho, k + 1, iso,
+                                                width)
+        xp = torch.nn.functional.pad(x, (0, 1))
+        args = [t.to(cuda) for t in (xp, sp.neighbors, edge)]
+        before = kg.sparse_mp_aggregate.launches
+        out = kg.sparse_mp_aggregate(*args)
+        torch.cuda.synchronize()
+        assert kg.sparse_mp_aggregate.launches == before + 1
+        torch.testing.assert_close(out, kg.sparse_mp_aggregate_plain(*args),
+                                   **TOL["f32"])
+        if iso:
+            assert not out[:, :, -iso:].any()
+
+
+@pytest.mark.parametrize("compute", ["f32", "bf16"])
+def test_csr_layer_matches_plain_on_the_card(cuda, compute):
+    """As the sparse case; padded edge slots past indptr[N] carry the
+    sentinel id and a poisoned factor."""
+    for b, k, n, rho, iso, width in CASES:
+        _, cs, _, edge_w, x, base, t4 = _graph_inputs(b, k, n, rho, k + 2,
+                                                      iso, width)
+        want = kc.fused_s2v_layer_csr_plain(
+            *[t.to(cuda) for t in (t4, x, cs.indices, cs.indptr, edge_w,
+                                   base)], compute)
+        edge_w[~cs.edge_mask] = 5.0
+        args = [t.to(cuda) for t in (t4, x, cs.indices, cs.indptr, edge_w,
+                                     base)]
+        before = kc.fused_s2v_layer_csr.launches
+        out = kc.fused_s2v_layer_csr(*args, compute)
+        torch.cuda.synchronize()
+        assert kc.fused_s2v_layer_csr.launches == before + 1
+        torch.testing.assert_close(out, want, **TOL[compute])
+        if iso:
+            assert torch.equal(out[:, :, -iso:],
+                               torch.relu(args[5][:, :, -iso:]))
+
+
+@pytest.mark.parametrize("rep", ["sparse", "csr"])
+def test_sparse_and_csr_solves_on_the_card(cuda, rep):
+    """Valid covers, one kernel launch per evaluation (two aggregation
+    launches per evaluation on the sparse xla chain), first-evaluation
+    scores within 1e-5 of the port on the CPU and of the dense rep."""
+    cfg = PolicyConfig(embed_dim=32)
+    policy = init_policy(cfg, generator=torch.Generator().manual_seed(0),
+                         device="cuda")
+    adj = random_graph_batch("er", 64, 4, seed=2, rho=0.2)
+    counter = {"sparse": ks.fused_s2v_layer_sparse,
+               "csr": kc.fused_s2v_layer_csr}[rep]
+    before = counter.launches
+    res = solve(policy, adj, multi_node=True, rep=rep, device="cuda")
+    assert counter.launches - before == res.policy_evals
+    for g in range(adj.shape[0]):
+        keep = res.solution[g] < 0.5
+        assert adj[g][np.ix_(keep, keep)].sum() == 0
+    if rep == "sparse":
+        before = kg.sparse_mp_aggregate.launches
+        xla = solve(policy, adj, multi_node=True, rep=rep, kernel="xla",
+                    device="cuda")
+        assert kg.sparse_mp_aggregate.launches - before \
+            == 2 * xla.policy_evals
+    cpu = policy_from_numpy(policy_to_numpy(policy), device="cpu")
+    r = {"sparse": SPARSE, "csr": CSR}[rep]
+    with torch.no_grad():
+        got = r.scores(policy, init_solve_state(r, adj, device="cuda"),
+                       num_layers=2).cpu()
+        want = r.scores(cpu, init_solve_state(r, adj, device="cpu"),
+                        num_layers=2)
+        dense = DENSE.scores(policy, init_solve_state(DENSE, adj,
+                                                      device="cuda"),
+                             num_layers=2).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got, dense, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("rep", ["sparse", "csr"])
+def test_sparse_and_csr_service_on_the_card(cuda, rep):
+    cfg = PolicyConfig(embed_dim=16)
+    policy = init_policy(cfg, generator=torch.Generator().manual_seed(1),
+                         device="cuda")
+    svc = GraphSolverService(policy, cfg, rep=rep, max_batch=2)
     svc.warmup([20, 40])
     adjs = [erdos_renyi(n, 0.3, seed=i) for i, n in enumerate((20, 40, 33))]
     sync = svc.serve(adjs)

@@ -145,9 +145,8 @@ def test_service_rejects_bad_input_and_unported_options(pair):
         svc.submit(np.zeros((3, 4), np.float32))
     with pytest.raises(NotImplementedError, match="A5"):
         svc.submit(np.zeros((4, 4), np.float32), problem="mis")
-    with pytest.raises(NotImplementedError, match="A7"):
-        GraphSolverService(policy, dataclasses.replace(cfg,
-                                                       graph_rep="sparse"),
+    with pytest.raises(ValueError, match="graph representation"):
+        GraphSolverService(policy, dataclasses.replace(cfg, graph_rep="coo"),
                            device="cpu")
     with pytest.raises(NotImplementedError, match="A9"):
         GraphSolverService(policy, dataclasses.replace(cfg, spatial=(2, 1)),
@@ -155,6 +154,83 @@ def test_service_rejects_bad_input_and_unported_options(pair):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             GraphSolverService(policy, cfg)
+
+
+@pytest.mark.parametrize("rep", ["sparse", "csr"])
+def test_sparse_and_csr_services_equal_jax_and_dense(pair, stream, rep):
+    """One stream served on each rep: the answers equal the JAX service's
+    on that rep and the port's dense service's; async equals sync."""
+    params, policy, cfg = pair
+    dense = GraphSolverService(policy, cfg, device="cpu",
+                               max_batch=3).serve(stream)
+    svc = GraphSolverService(policy, cfg, device="cpu", rep=rep, max_batch=3)
+    assert svc.rep.name == rep
+    responses = svc.serve(stream)
+    jax_resp = JaxService(params, JaxPolicyConfig(embed_dim=8), rep=rep,
+                          max_batch=3).serve(stream)
+    for r, jr, d, adj in zip(responses, jax_resp, dense, stream):
+        assert (r.solution == jr.solution).all()
+        assert r.policy_evals == jr.policy_evals and r.bucket == jr.bucket
+        assert (r.solution == d.solution).all()
+        keep = r.solution < 0.5
+        assert adj[np.ix_(keep, keep)].sum() == 0
+    assert svc.stats.compiles == 3
+    assert {nb: r.name for nb, r in svc._bucket_reps.items()} \
+        == {8: rep, 16: rep, 32: rep}
+    with svc:
+        futures = [svc.submit_async(a) for a in stream]
+        async_resp = [f.result(timeout=120) for f in futures]
+    for a, s in zip(async_resp, responses):
+        assert (a.solution == s.solution).all()
+
+
+def test_caps_reject_rather_than_truncate(pair, stream):
+    """A graph above sparse_max_degree or csr_max_edges is refused at
+    submission; graphs under the caps are served as without them."""
+    _, policy, cfg = pair
+    big = stream[3]                                   # 19 nodes
+    deg = int(big.sum(-1).max())
+    edges = int(big.sum())
+    sp = GraphSolverService(policy, cfg, device="cpu", rep="sparse",
+                            sparse_max_degree=deg - 1)
+    with pytest.raises(ValueError, match="sparse_max_degree"):
+        sp.submit(big)
+    with pytest.raises(ValueError, match="sparse_max_degree"):
+        sp.submit_async(big)
+    cs = GraphSolverService(policy, cfg, device="cpu", rep="csr",
+                            csr_max_edges=edges - 1)
+    with pytest.raises(ValueError, match="csr_max_edges"):
+        cs.submit(big)
+    assert sp.pending() == cs.pending() == 0 and not sp.running
+    capped = GraphSolverService(policy, cfg, device="cpu", rep="csr",
+                                csr_max_edges=edges, max_batch=3)
+    free = GraphSolverService(policy, cfg, device="cpu", rep="csr",
+                              max_batch=3)
+    for a, b in zip(capped.serve([big, stream[0]]),
+                    free.serve([big, stream[0]])):
+        assert (a.solution == b.solution).all()
+    assert capped._bucket_rep(32).max_edges == edges
+    assert free._bucket_rep(32).max_edges == 32 * 32
+
+
+@pytest.mark.parametrize("rep", ["sparse", "csr"])
+def test_padding_probe_runs_on_every_rep(rep):
+    """A candidate rule that admits isolated nodes only on one
+    representation is still caught."""
+    from repro_torch.core import rep_for_state
+
+    def leaky(state):
+        if rep_for_state(state).name == rep:
+            return torch.ones_like(state.candidate)
+        return state.candidate
+
+    from repro_torch.core import env
+    env.register("pt_leaky", candidates=leaky)(env.mvc_step)
+    try:
+        with pytest.raises(ValueError, match="padding-safety"):
+            env.ensure_padding_safe("pt_leaky")
+    finally:
+        env.unregister("pt_leaky")
 
 
 def _req(rid, n, enqueue_t):
@@ -173,3 +249,13 @@ def test_scheduler_edf_partial_dispatch_and_admission():
     assert s.next_batch(0.05) is None
     (nb, _), batch = s.next_batch(0.2)              # head waited 200ms
     assert nb == 16 and [p.req.id for p in batch] == [0]
+
+
+@pytest.mark.parametrize("rep", ["dense", "sparse", "csr"])
+def test_launcher_serves_each_rep_on_the_cpu(rep, capsys):
+    from repro_torch.launch import solve_serve
+    solve_serve.main(["--device", "cpu", "--requests", "3", "--sizes",
+                      "12,20", "--embed-dim", "8", "--warmup", "--rep", rep])
+    out = capsys.readouterr().out
+    assert f"served 3 requests on cpu ({rep} rep)" in out
+    assert "0 request-path first dispatches" in out

@@ -164,13 +164,17 @@ def test_padding_safety_probe_rejects_unsafe_env():
 def test_unported_options_raise_not_implemented(pair):
     _, policy = pair
     adj = random_graph_batch("er", 10, 1, seed=0, rho=0.3)
-    for kw, item in ((dict(rep="sparse"), "A7"), (dict(rep="csr"), "A8"),
-                     (dict(problem="maxcut"), "A5"), (dict(spatial=2), "A9"),
+    for kw, item in ((dict(problem="maxcut"), "A5"),
+                     (dict(rep="sparse", problem="mis"), "A5"),
+                     (dict(rep="csr", spatial=2), "A9"),
+                     (dict(spatial=2), "A9"),
                      (dict(engine="host"), "ROADMAP")):
         with pytest.raises(NotImplementedError, match=item):
             solve(policy, adj, device="cpu", **kw)
     with pytest.raises(ValueError):
         solve(policy, adj, device="cpu", problem="bogus")
+    with pytest.raises(ValueError, match="graph representation"):
+        solve(policy, adj, device="cpu", rep="coo")
 
 
 def test_entry_points_default_to_cuda(pair):
