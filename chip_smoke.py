@@ -9,15 +9,19 @@ Phases (any failed check raises, so the script exits non-zero):
    shapes the main paths give it, each case also held against the layer
    computed in f64.  The dense fused layer at f32 and bf16 (served buckets
    512, 2048 and 4096 with B=8, K=32, the paper-scale B=1, N=20480, a
-   ragged and a padded case); the padded-sparse fused layer (f32, bf16),
-   the sparse aggregation (f32) and the CSR fused layer (f32, bf16) on
-   symmetric ER(0.15) graphs: a ragged case, a padding case whose
+   ragged and a padded case); the dense aggregate of the mesh path (f32,
+   bf16) at a ragged case (Nl=1000, N=2003), a padding case whose empty
+   columns must give exact zeros, and the row blocks of the serving
+   bucket and the paper-scale graph at sp = 2 and 4; the padded-sparse
+   fused layer (f32, bf16), the sparse aggregation (f32, also on a row
+   block of the lists, Nl=2048 of N=4096) and the CSR fused layer (f32,
+   bf16) on symmetric ER(0.15) graphs: a ragged case, a padding case whose
    isolated nodes must give exactly relu(base) (0 for the aggregation),
    the serving bucket (B=8, N=4096, D=768, 2.5M edge slots per graph) and
    the paper-scale graph (B=1, N=20480, ~62.9M directed edges); the CSR
    layer also on BA(N=1M, d=10) (~20.0M directed edges).
 2. Served requests: GraphSolverService at K=32, L=2, multi-node
-   selection, max_batch=8, warmed up, answers 24 ER(0.15) graphs of
+   selection, max_batch=8, warmed up, answers 16 ER(0.15) graphs of
    500..4000 nodes, on the dense, the sparse (sparse_max_degree=768) and
    the CSR (csr_max_edges=2.5M) representations; every answer is a vertex
    cover, no first dispatch lands on the request path, the rep's kernel
@@ -27,11 +31,26 @@ Phases (any failed check raises, so the script exits non-zero):
    first-evaluation scores within 1e-5 on each rep, and across reps on
    the card; solutions valid covers.
 4. Large solves: the paper-scale ER(N=20480, 0.15) graph (~31.5M edges)
-   on all three reps with max_d=256, and BA(N=1M, d=10) on the CSR rep
-   with max_d=62500, built from streamed edges with no dense array; each
-   answer is a cover.  Then the sparse "xla" chain on a full 4096-node
-   bucket, whose aggregation kernel must run twice per evaluation.
-5. Where an evaluation's time goes (torch.profiler over 20 evaluations of
+   on all three reps with max_d=256.
+5. The (data, graph) mesh: gloo ranks that share the one card (cuda:0),
+   spawned once per shape (1,2), (2,1), (2,2) and (1,4) after the kernels
+   are built.  On one (B=8, N=256) ER(0.15) batch, dense and sparse (CSR
+   at (2,1), the sparse "xla" chain at (1,2)) against the single-device
+   port on the card: the rep's kernel (the dense aggregate on the dense
+   mesh) once per evaluation on every rank (twice on the xla chain),
+   every answer a cover, first-evaluation scores within 1e-5, answers
+   identical except where a trajectory parts at a near-tie (both solves
+   traced; every parting printed).  At (2,2) the sync service on the 8
+   smallest served graphs, held the same way.  The paper-scale graph at
+   (1,2) and (1,4) dense and (1,4) sparse: evaluations and cover against
+   phase 4, each rank's peak device memory beside the §5.2 model; no
+   dense rank at sp = 4 may hold the whole adjacency.  Mesh times are of
+   ranks that share one card: not scaling figures.
+6. BA(N=1M, d=10) on the CSR rep with max_d=62500, built from streamed
+   edges with no dense array; the answer is a cover.  Then the sparse
+   "xla" chain on a full 4096-node bucket, whose aggregation kernel must
+   run twice per evaluation.
+7. Where an evaluation's time goes (torch.profiler over 20 evaluations of
    a full 4096-node bucket, per rep), then timings: each kernel, its plain
    version and a library yardstick (CUDA events around 10 back-to-back
    calls, median of 30 such samples after warm-up) beside its bound.
@@ -71,6 +90,22 @@ DENSE_CASES = (("ragged", 2, 16, 40, 0.3), ("padded", 2, 32, 300, 0.3),
                ("bucket2048", 8, 32, 2048, 0.15),
                ("serving", 8, 32, 4096, 0.15),
                ("paper", 1, 32, PAPER_N, 0.15))
+# (name, B, K, Nl, N, density) of the dense aggregate (kernel 2) checks: a
+# ragged case, a padding case, and the row blocks of a serving bucket and
+# of the paper-scale graph at sp = 2 and 4
+AGG_CASES = (("ragged", 2, 32, 1000, 2003, 0.15),
+             ("padding", 2, 32, 300, 512, 0.3),
+             ("serving_sp2", 8, 32, 2048, 4096, 0.15),
+             ("serving_sp4", 8, 32, 1024, 4096, 0.15),
+             ("paper_sp2", 1, 32, PAPER_N // 2, PAPER_N, 0.15),
+             ("paper_sp4", 1, 32, PAPER_N // 4, PAPER_N, 0.15))
+MESH_SHAPES = ((1, 2), (2, 1), (2, 2), (1, 4))
+MESH_CHECK = (8, 256)            # the mesh phase's batch: graphs, nodes
+MESH_SERVE_SIZES = (500, 1000)   # its served graphs: the stream's smallest
+# (rep, mesh) of the paper-scale mesh solves
+PAPER_MESH = (("dense", (1, 2)), ("dense", (1, 4)), ("sparse", (1, 4)))
+MESH_TIMEOUT_S = 420.0           # one spawn, its paper-scale solves included
+TIMING_BUDGET_S = 1.0            # per timed function (see cuda_ms)
 # (name, B, K, N, density, real nodes, list width, edge slots) of the
 # sparse and CSR checks; None derives the width and slots from the graph
 GRAPH_CASES = (("ragged", 2, 16, 40, 0.3, None, None, None),
@@ -100,9 +135,21 @@ def is_cover(adj: np.ndarray, solution: np.ndarray) -> bool:
 def cuda_ms(torch, fn, reps: int = 30, inner: int = 10, warm: int = 5) -> float:
     """Median device time of one ``fn()`` in ms: each sample puts one event
     pair around ``inner`` back-to-back calls, so the host work of a call
-    overlaps the device work of the one before it."""
+    overlaps the device work of the one before it.  A call slower than
+    TIMING_BUDGET_S / (reps · inner) gets fewer samples (at least 5 of one
+    call each), so no measurement takes much more than TIMING_BUDGET_S."""
     for _ in range(warm):
         fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    once_s = start.elapsed_time(end) / 1e3
+    if once_s * reps * inner > TIMING_BUDGET_S:
+        inner = 1
+        reps = max(5, min(reps, int(TIMING_BUDGET_S / max(once_s, 1e-9))))
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -122,9 +169,10 @@ def kernel_modules():
 
 
 def kernel_fns():
-    """The four kernel wrappers, by name."""
+    """The five kernel wrappers, by name."""
     ks, kg, kc = kernel_modules()
     return {"fused_s2v_layer": ks.fused_s2v_layer,
+            "mp_aggregate": ks.mp_aggregate,
             "fused_s2v_layer_sparse": ks.fused_s2v_layer_sparse,
             "sparse_mp_aggregate": kg.sparse_mp_aggregate,
             "fused_s2v_layer_csr": kc.fused_s2v_layer_csr}
@@ -167,6 +215,12 @@ def layer_bound(b, k, nl, n):
     """Bound of one f32 dense layer: theta4, embed, adj, base in, out."""
     return bound(4 * (k * k + b * k * nl + b * nl * n + 2 * b * k * n),
                  2 * b * k * nl * n + 2 * b * k * k * n)
+
+
+def agg_bound(b, k, nl, n):
+    """Bound of one dense aggregate: embed and adj in, the f32 partial
+    out; 2·B·K·Nl·N operations."""
+    return bound(4 * b * (nl * n + k * nl + k * n), 2 * b * k * nl * n)
 
 
 def kernel_tol(compute: str, terms: int) -> float:
@@ -256,6 +310,42 @@ def phase_kernel(torch, ks, dev, rows, failures):
                 failures.append(f"padded {compute}: isolated nodes must give "
                                 f"relu(base)")
         del t4, embed, adj, base, exact, out, want
+        torch.cuda.empty_cache()
+
+
+def agg_inputs(torch, b, k, nl, n, rho, seed, dev):
+    """Aggregate inputs made on ``dev``: embed = relu of a random tensor
+    (the main path aggregates ReLU outputs), adjacency rows of density
+    ``rho``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    embed = torch.relu(torch.rand((b, k, nl), generator=g, device=dev) - 0.5)
+    adj = (torch.rand((b, nl, n), generator=g, device=dev) < rho).to(
+        torch.float32)
+    return embed, adj
+
+
+def phase_agg_kernel(torch, ks, dev, rows, failures):
+    """Phase 1, kernel 2: the dense aggregate against its plain version,
+    componentwise to the sum of |terms| (|embed| @ |adj|, the f64 result
+    itself, as both are non-negative), at a ragged case, a padding case
+    whose empty columns must give exact zeros, and the row blocks of the
+    serving bucket and the paper-scale graph at sp = 2 and 4."""
+    for name, b, k, nl, n, rho in AGG_CASES:
+        embed, adj = agg_inputs(torch, b, k, nl, n, rho, SEED + nl + n, dev)
+        if name == "padding":
+            adj[:, :, 256:] = 0.0
+            adj[:, 256:, :] = 0.0
+        exact = embed.double() @ adj.double()
+        for compute in ("f32", "bf16"):
+            out = ks.mp_aggregate(embed, adj, compute)
+            compare(torch, rows, failures, "mp_aggregate", name, compute,
+                    out, ks.mp_aggregate_plain(embed, adj, compute),
+                    exact if compute == "f32" else None, nl,
+                    {"B": b, "K": k, "Nl": nl, "N": n}, exact.float())
+            if name == "padding" and out[:, :, 256:].any():
+                failures.append(f"mp_aggregate padding {compute}: empty "
+                                f"columns must give 0")
+        del embed, adj, exact, out
         torch.cuda.empty_cache()
 
 
@@ -414,6 +504,18 @@ def run_graph_kernels(torch, case, name, rows, failures, exact=True):
             case["abs64"].float())
     if real is not None and out[:, :, real:].any():
         failures.append(f"aggregate {name}: isolated nodes must give 0")
+    if name == "serving":
+        # a graph rank's lists at sp = 2: the upper half of the rows, its
+        # isolated padding rows included, against the whole x
+        rows_b = slice(n // 2, n)
+        args = (xp, sp.neighbors[:, rows_b].contiguous(),
+                case["edge"][:, rows_b].contiguous())
+        out = kg.sparse_mp_aggregate(*args)
+        compare(torch, rows, failures, "sparse_mp_aggregate",
+                "serving_rows_sp2", "f32", out,
+                kg.sparse_mp_aggregate_plain(*args), agg64[:, :, rows_b], d,
+                {**shape, "Nl": n // 2, "D": d},
+                case["abs64"][:, :, rows_b].float())
     del layer64, scale, out, xp, args
     torch.cuda.empty_cache()
 
@@ -581,22 +683,30 @@ def phase_card_vs_cpu(torch, policy):
 
 def phase_paper_scale(torch, policy):
     """Phase 4: one ER(20480, 0.15) graph solved on the card on all three
-    reps (sparse and CSR from batches built on the host first)."""
-    from repro_torch.core import (csr_batch_from_dense, solve,
-                                  sparse_batch_from_dense)
+    reps (sparse and CSR from batches built on the host first).  Returns
+    the graph, its sparse batch on the host and each rep's answer, for
+    the paper-scale mesh solves."""
+    from repro_torch.core import (SparseGraphBatch, csr_batch_from_dense,
+                                  solve, sparse_batch_from_dense)
     from repro_torch.core.graphs import edge_count, erdos_renyi
     n = PAPER_N
     t0 = time.perf_counter()
     adj = erdos_renyi(n, 0.15, seed=SEED + 20480)
     gen_s = time.perf_counter() - t0
     edges = edge_count(adj)
-    dense_sol = None
-    for rep, build in (("dense", None), ("sparse", sparse_batch_from_dense),
-                       ("csr", csr_batch_from_dense)):
+    single, sparse_host = {}, None
+    for rep in ("dense", "sparse", "csr"):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        graph = adj if build is None else build(adj, device=DEVICE)
+        if rep == "dense":
+            graph = adj
+        elif rep == "sparse":
+            sparse_host = sparse_batch_from_dense(adj, device="cpu")
+            graph = SparseGraphBatch(sparse_host.neighbors.to(DEVICE),
+                                     sparse_host.valid.to(DEVICE))
+        else:
+            graph = csr_batch_from_dense(adj, device=DEVICE)
         build_s = time.perf_counter() - t0
         reset_counts()
         t0 = time.perf_counter()
@@ -608,17 +718,247 @@ def phase_paper_scale(torch, policy):
             raise AssertionError(f"paper-scale {rep} solve is not a cover")
         if launches != res.policy_evals:
             raise AssertionError(f"paper-scale {rep}: launches != evals")
-        if dense_sol is None:
-            dense_sol = res.solution[0]
+        single[rep] = {"solution": res.solution[0],
+                       "evals": res.policy_evals,
+                       "peak_device_bytes": torch.cuda.max_memory_allocated()}
         emit({"phase": "paper_scale", "rep": rep, "N": n, "edges": edges,
               "generate_s": gen_s, "build_s": build_s, "solve_s": solve_s,
               "policy_evals": res.policy_evals,
               "cover_size": int(res.sizes[0]), "kernel_launches": launches,
-              "equal_to_dense": bool(np.array_equal(res.solution[0],
-                                                    dense_sol)),
-              "peak_device_bytes": torch.cuda.max_memory_allocated()})
+              "equal_to_dense": bool(np.array_equal(
+                  res.solution[0], single["dense"]["solution"])),
+              "peak_device_bytes": single[rep]["peak_device_bytes"]})
         del graph, res
-    del adj
+    return {"adj": adj, "sparse_host": sparse_host, "single": single}
+
+
+MESH_KERNEL = {("dense", "fused"): "mp_aggregate",
+               ("sparse", "fused"): "fused_s2v_layer_sparse",
+               ("csr", "fused"): "fused_s2v_layer_csr",
+               ("sparse", "xla"): "sparse_mp_aggregate"}
+
+
+def check_mesh_run(spec, ranks, i, ref, adj, failures, launches):
+    """The holds of one mesh solve against the single-device solve on the
+    card: the ranks agree; each rank launched the rep's kernel once per
+    evaluation (twice on the xla chain; B1 never on the dense mesh);
+    every answer is a cover; first-evaluation scores within rtol = atol =
+    1e-5 (the card-vs-CPU rule of phase 3); answers identical except where
+    a trajectory parts at a near-tie (``parting``)."""
+    run = ranks[0]["runs"][i]
+    rep, kernel = run["rep"], run["kernel"]
+    ref_res, ref_trace = ref[rep, kernel]
+    name = MESH_KERNEL[rep, kernel]
+    per_eval = 2 if kernel == "xla" else 1
+    tag = f"mesh {spec} {rep} {kernel}"
+    for rk in ranks:
+        other = rk["runs"][i]
+        if not np.array_equal(other["solution"], run["solution"]) \
+                or other["evals"] != run["evals"]:
+            failures.append(f"{tag}: rank {rk['rank']} differs from rank 0")
+        if other["counts"][name] != per_eval * other["evals"] \
+                or other["counts"]["fused_s2v_layer"] != 0:
+            failures.append(f"{tag}: rank {rk['rank']} launches "
+                            f"{other['counts']} for {other['evals']} evals")
+        launches[name] = launches.get(name, 0) + other["counts"][name]
+    identical = np.array_equal(run["solution"], ref_res.solution)
+    if not identical and not np.array_equal(run["trace"][1][-1],
+                                            run["solution"]):
+        failures.append(f"{tag}: the traced run differs from the solve")
+    for g in range(adj.shape[0]):
+        if not is_cover(adj[g], run["solution"][g]):
+            failures.append(f"{tag}: graph {g} is no cover")
+    first_ref, first = ref_trace[0][0], run["trace"][0][0]
+    err = float(np.abs(first - first_ref).max())
+    if not np.allclose(first, first_ref, rtol=1e-5, atol=1e-5):
+        failures.append(f"{tag}: first-evaluation scores differ by {err}")
+    cases, near = ([], True) if identical else parting(ref_trace,
+                                                       run["trace"])
+    if not near:
+        failures.append(f"{tag}: a trajectory parts at no near-tie: {cases}")
+    emit({"phase": "mesh", "backend": "gloo", "ranks_share_card": True,
+          "shape": list(spec), "rep": rep, "kernel": kernel,
+          "B": adj.shape[0], "N": adj.shape[1], "evals": run["evals"],
+          "evals_single": ref_res.policy_evals,
+          "cover_sizes": run["solution"].sum(-1).astype(int).tolist(),
+          "cover_sizes_single": ref_res.sizes.tolist(),
+          "identical_to_single": identical, "partings": cases,
+          "first_eval_max_abs_err": err,
+          "launches_per_rank": [rk["runs"][i]["counts"][name]
+                                for rk in ranks], "kernel": name,
+          "solve_s_per_rank": [rk["runs"][i]["solve_s"] for rk in ranks],
+          "note": "ranks share one card; not a scaling figure"})
+
+
+def check_mesh_service(torch, policy, spec, ranks, ref_answers, serve_adjs,
+                       failures, launches):
+    """The (2, 2) sync service against the single-device service with as
+    many rows per dispatch: covers, the ranks agree, B2 once per batch
+    evaluation, answers identical to the single-device ones except where
+    a dispatch, traced on both sides, parts at near-ties."""
+    svc = ranks[0]["service"]
+    for rk in ranks:
+        other = rk["service"]
+        if any(not np.array_equal(a, b) for a, b in zip(other["answers"],
+                                                        svc["answers"])):
+            failures.append(f"mesh service: rank {rk['rank']} differs")
+        if other["counts"]["mp_aggregate"] != sum(other["batch_evals"]):
+            failures.append(f"mesh service: rank {rk['rank']} launches "
+                            f"{other['counts']} for batch evals "
+                            f"{other['batch_evals']}")
+        launches["mp_aggregate"] += other["counts"]["mp_aggregate"]
+    cases_all, near_all = [], True
+    plans = serve_plans(serve_adjs, spec[0] * 8)
+    for (ids, sizes, trace), plan in zip(svc["plans"], plans):
+        if ids != plan.request_ids:
+            failures.append(f"mesh service plans {ids} != "
+                            f"{plan.request_ids}")
+        if trace is None:                   # every answer identical
+            continue
+        for row, (rid, n) in enumerate(zip(ids, sizes)):
+            if not np.array_equal(trace[1][-1, row, :n], svc["answers"][rid]):
+                failures.append(f"mesh service: request {rid} differs from "
+                                f"its traced plan")
+        ref_trace = traced_solve(torch, policy, plan.adj, "dense", 0,
+                                 torch.device(DEVICE))
+        cases, near = parting(ref_trace, trace)
+        cases_all += [dict(c, requests=list(ids)) for c in cases]
+        near_all &= near
+    for a, ans in zip(serve_adjs, svc["answers"]):
+        if not is_cover(a, ans):
+            failures.append("mesh service: an answer is no cover")
+    if not near_all:
+        failures.append(f"mesh service parts at no near-tie: {cases_all}")
+    emit({"phase": "mesh_service", "backend": "gloo",
+          "ranks_share_card": True, "shape": list(spec),
+          "requests": len(serve_adjs),
+          "sizes": [int(a.shape[0]) for a in serve_adjs],
+          "batches": svc["stats"]["batches"],
+          "batch_evals": svc["batch_evals"],
+          "identical_to_single": sum(
+              bool(np.array_equal(a, r))
+              for a, r in zip(svc["answers"], ref_answers)),
+          "partings": cases_all,
+          "launches_per_rank": [rk["service"]["counts"]["mp_aggregate"]
+                                for rk in ranks],
+          "solve_s": svc["stats"]["solve_seconds"],
+          "note": "ranks share one card; not a scaling figure"})
+
+
+def check_paper_mesh(spec, ranks, paper, failures, launches):
+    """The paper-scale mesh solves of one spawn: covers, the ranks agree,
+    the rep's kernel once per evaluation, and each rank's peak device
+    memory beside the §5.2 model and the single-device peak; no dense
+    rank at sp = 4 may hold the whole adjacency."""
+    from repro_torch.core import per_device_bytes, sparse_per_device_bytes
+    adj = paper["adj"]
+    n = adj.shape[0]
+    whole = 4.0 * n * n
+    for rep, shape in PAPER_MESH:
+        if shape != spec:
+            continue
+        runs = [rk["paper", rep] for rk in ranks]
+        name = MESH_KERNEL[rep, "fused"]
+        sol = runs[0]["solution"]
+        for r in runs:
+            if not np.array_equal(r["solution"], sol) \
+                    or r["counts"][name] != r["evals"]:
+                failures.append(f"paper mesh {spec} {rep}: ranks differ or "
+                                f"launches {r['counts']} != evals")
+            launches[name] = launches.get(name, 0) + r["counts"][name]
+        if not is_cover(adj, sol):
+            failures.append(f"paper mesh {spec} {rep}: no cover")
+        peaks = [r["peak_device_bytes"] for r in runs]
+        if rep == "dense" and spec[1] == 4 and max(peaks) >= whole:
+            failures.append(f"paper mesh {spec} dense: a rank's peak "
+                            f"{max(peaks)} B holds the whole adjacency")
+        single = paper["single"][rep]
+        model = (per_device_bytes(n, 1, 0.15, spec[1], dp=spec[0])
+                 if rep == "dense" else sparse_per_device_bytes(
+                     n, paper["sparse_host"].max_degree, 1, spec[1],
+                     dp=spec[0]))
+        emit({"phase": "paper_mesh", "backend": "gloo",
+              "ranks_share_card": True, "shape": list(spec), "rep": rep,
+              "N": n, "evals": runs[0]["evals"],
+              "evals_single": single["evals"], "cover_size": int(sol.sum()),
+              "cover_size_single": int(single["solution"].sum()),
+              "identical_to_single": bool(np.array_equal(
+                  sol, single["solution"])),
+              "peak_device_bytes_per_rank": peaks,
+              "peak_device_bytes_single": single["peak_device_bytes"],
+              "whole_adjacency_bytes": whole,
+              "model_bytes_per_device": model,
+              "kernel_launches_per_rank": [r["counts"][name] for r in runs],
+              "solve_s_per_rank": [r["solve_s"] for r in runs],
+              "note": "ranks share one card; not a scaling figure"})
+
+
+def phase_mesh(torch, policy, cfg, stream, paper):
+    """The mesh phase: gloo ranks sharing cuda:0, one spawn per shape in
+    MESH_SHAPES, each held to the single-device port on the card; at
+    (2, 2) the sync service; the paper-scale solves of PAPER_MESH.
+    Returns the mesh kernels' launches, summed over ranks."""
+    import tempfile
+    from repro_torch.convert import policy_to_numpy
+    from repro_torch.core import random_graph_batch, solve, spawn_mesh
+    from repro_torch.serving import GraphSolverService
+    b, n = MESH_CHECK
+    adj = random_graph_batch("er", n, b, seed=SEED + 13, rho=0.15)
+    dev = torch.device(DEVICE)
+    ref = {}
+    for rep, kernel in MESH_KERNEL:
+        res = solve(policy, adj, num_layers=2, multi_node=True, rep=rep,
+                    kernel=kernel, device=DEVICE)
+        trace = traced_solve(torch, policy, adj, rep, 0, dev, kernel)
+        if not np.array_equal(trace[1][-1], res.solution):
+            raise AssertionError(f"traced single-device {rep} {kernel} run "
+                                 f"differs from its solve")
+        ref[rep, kernel] = (res, trace)
+    serve_adjs = [a for a in stream if a.shape[0] in MESH_SERVE_SIZES][:8]
+    # the single-device service with the (2, 2) service's rows per dispatch
+    ref_answers = [r.solution for r in GraphSolverService(
+        policy, cfg, device=DEVICE, multi_node=True,
+        max_batch=2 * 8).serve(serve_adjs)]
+    refs = {key: res.solution for key, (res, _) in ref.items()}
+    weights = policy_to_numpy(policy)
+    launches, failures = {"mp_aggregate": 0}, []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        files = {"dense": os.path.join(tmp, "adj.npy"),
+                 "neighbors": os.path.join(tmp, "neighbors.npy"),
+                 "valid": os.path.join(tmp, "valid.npy")}
+        np.save(files["dense"], paper["adj"][None])
+        np.save(files["neighbors"], paper["sparse_host"].neighbors.numpy())
+        np.save(files["valid"], paper["sparse_host"].valid.numpy())
+        torch.cuda.empty_cache()
+        for spec in MESH_SHAPES:
+            reps = [rep for rep, shape in PAPER_MESH if shape == spec]
+            t0 = time.perf_counter()
+            ranks = spawn_mesh(
+                mesh_rank, *spec, device=DEVICE, backend="gloo",
+                timeout_s=MESH_TIMEOUT_S,
+                args=(weights, adj, refs,
+                      (serve_adjs, ref_answers) if spec == (2, 2) else None,
+                      dict(files, reps=reps, max_d=PAPER_MAX_D)))
+            emit({"phase": "mesh_spawn", "shape": list(spec),
+                  "seconds": time.perf_counter() - t0})
+            for i in range(len(ranks[0]["runs"])):
+                check_mesh_run(spec, ranks, i, ref, adj, failures, launches)
+            if spec == (2, 2):
+                check_mesh_service(torch, policy, spec, ranks, ref_answers,
+                                   serve_adjs, failures, launches)
+            check_paper_mesh(spec, ranks, paper, failures, launches)
+            for rk in ranks:
+                if "profile" in rk:
+                    emit({"phase": "mesh_profile", "backend": "gloo",
+                          "ranks_share_card": True, "shape": list(spec),
+                          "rank": rk["rank"], "rep": "dense", "N": PAPER_N,
+                          **rk["profile"],
+                          "note": "ranks share one card; not a scaling "
+                                  "figure"})
+    if failures:
+        raise AssertionError("the mesh phase failed:\n" + "\n".join(
+            str(f) for f in failures))
+    return launches
 
 
 def phase_ba(torch, policy, indptr, indices, cs, gen_s):
@@ -645,6 +985,196 @@ def phase_ba(torch, policy, indptr, indices, cs, gen_s):
           "solve_s": solve_s, "policy_evals": res.policy_evals,
           "cover_size": int(res.sizes[0]), "kernel_launches": launches,
           "peak_device_bytes": torch.cuda.max_memory_allocated()})
+
+
+# ---------------------------------------------------------------------------
+# The mesh: gloo ranks sharing the one card.
+# ---------------------------------------------------------------------------
+
+def traced_solve(torch, policy, adj, rep, spec, dev, kernel="fused",
+                 max_evals=None):
+    """Alg. 4 as ``engine.get_solve_step`` runs it (adaptive d, the same
+    scorer, selection, commit and stop rule), recording after every
+    evaluation (up to ``max_evals``) the whole batch's scores and solution
+    (gathered over ``data`` on a mesh), to find where two trajectories
+    part.  Never counted: only ``solve`` is the main path."""
+    import functools
+    from repro_torch.core import get_rep, init_solve_state, make_mesh
+    from repro_torch.core.inference import (MAX_D, apply_selection,
+                                            gather_batch)
+    from repro_torch.core.mesh import all_reduce_max, normalize_spatial
+    from repro_torch.core.spatial import spatial_solve_scores_fn
+    r = get_rep(rep)
+    dp, sp = normalize_spatial(spec)
+    mesh = make_mesh(dp, sp) if (dp, sp) != (1, 1) else None
+    state = init_solve_state(r, adj, device=dev, mesh=mesh)
+    if mesh is not None and rep != "csr":
+        score = spatial_solve_scores_fn(mesh, num_layers=2, rep=r,
+                                        kernel=kernel)
+    else:
+        score = functools.partial(r.scores, num_layers=2, kernel=kernel)
+    scores, sols = [], []
+    with torch.no_grad():
+        for _ in range(max_evals or state.num_nodes + MAX_D):
+            s = score(policy, state)
+            state, done, _ = apply_selection(state, s, state.candidate, True,
+                                             "mvc", MAX_D)
+            sc, so = gather_batch(mesh, s, state.solution)
+            scores.append(sc)
+            sols.append(so)
+            pending = (~done).any().to(torch.int32).reshape(1)
+            if mesh is not None:
+                all_reduce_max(pending, mesh.data)
+            if not bool(pending):
+                break
+    return np.stack(scores), np.stack(sols)
+
+
+def serve_plans(adjs, rows):
+    """The dispatch plans a sync service of ``rows`` rows per dispatch
+    makes of ``adjs``, in its order."""
+    from repro_torch.serving import SolveRequest, plan_batches
+    return plan_batches([SolveRequest(id=i, adj=a, n=a.shape[0])
+                         for i, a in enumerate(adjs)], rows)
+
+
+def mesh_rank(mesh, dev, weights, adj, refs, serve, paper):
+    """One rank of a mesh-phase spawn: full solves of the (8, 256) batch
+    on dense and sparse (CSR too at sp = 1; the sparse "xla" chain at
+    (1, 2)), each counted, then traced: in full where its answers differ
+    from the single-device ones (``refs``), else for the first
+    evaluation's scores; at (2, 2) the sync service on ``serve`` (the
+    graphs and the single-device answers); then the paper-scale solves
+    of ``paper``."""
+    import torch
+    from repro_torch.convert import policy_from_numpy
+    from repro_torch.core import PolicyConfig, SparseGraphBatch, solve
+    from repro_torch.device import synchronize
+    from repro_torch.serving import GraphSolverService
+    policy = policy_from_numpy(weights, device=dev)
+    on_card = dev.type == "cuda"
+    spec = mesh.shape
+    out = {"rank": mesh.rank, "runs": []}
+    runs = [("dense", "fused"), ("sparse", "fused")]
+    if spec[1] == 1:
+        runs.append(("csr", "fused"))
+    if spec == (1, 2):
+        runs.append(("sparse", "xla"))
+    for rep, kernel in runs:
+        synchronize(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = solve(policy, adj, num_layers=2, multi_node=True, rep=rep,
+                    kernel=kernel, spatial=spec, device=dev)
+        solve_s = time.perf_counter() - t0
+        counts = read_counts()
+        same = np.array_equal(res.solution, refs[rep, kernel])
+        trace = traced_solve(torch, policy, adj, rep, spec, dev, kernel,
+                             max_evals=1 if same else None)
+        out["runs"].append({"rep": rep, "kernel": kernel,
+                            "solution": res.solution,
+                            "evals": res.policy_evals,
+                            "committed": res.nodes_committed,
+                            "counts": counts, "solve_s": solve_s,
+                            "trace": trace})
+    if serve is not None:
+        serve_adjs, ref_answers = serve
+        svc = GraphSolverService(
+            policy, PolicyConfig(embed_dim=32, num_layers=2, spatial=spec),
+            device=dev, multi_node=True, max_batch=8)
+        svc.warmup([a.shape[0] for a in serve_adjs])
+        synchronize(dev)
+        reset_counts()
+        responses = svc.serve(serve_adjs)
+        counts = read_counts()
+        plans = []
+        for p in serve_plans(serve_adjs, svc.rows_per_dispatch):
+            same = all(np.array_equal(responses[i].solution, ref_answers[i])
+                       for i in p.request_ids)
+            plans.append((p.request_ids, p.sizes, None if same else
+                          traced_solve(torch, policy, p.adj, "dense", spec,
+                                       dev)))
+        out["service"] = {
+            "counts": counts, "stats": svc.stats.as_dict(),
+            "answers": [r.solution for r in responses],
+            "batch_evals": sorted({(r.bucket, r.dispatch_t): r.policy_evals
+                                   for r in responses}.values()),
+            "plans": plans}
+    for rep in (paper or {}).get("reps", ()):
+        if rep == "dense":
+            graph = np.load(paper["dense"], mmap_mode="c")
+        else:
+            graph = SparseGraphBatch(*(torch.from_numpy(np.load(
+                paper[f], mmap_mode="c")) for f in ("neighbors", "valid")))
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        synchronize(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = solve(policy, graph, num_layers=2, multi_node=True,
+                    max_d=paper["max_d"], rep=rep, spatial=spec, device=dev)
+        out["paper", rep] = {
+            "solve_s": time.perf_counter() - t0,
+            "solution": res.solution[0], "evals": res.policy_evals,
+            "counts": read_counts(),
+            "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
+                                  if on_card else 0)}
+        if on_card and rep == "dense" and spec == (1, 2):
+            # where a mesh evaluation's time goes, on each rank
+            from repro_torch.core import (DENSE, get_solve_step,
+                                          init_solve_state, make_mesh)
+            step = get_solve_step(rep=DENSE, use_adaptive=True,
+                                  num_layers=2, spatial=spec,
+                                  max_d=paper["max_d"])
+            state = init_solve_state(DENSE, graph, device=dev,
+                                     mesh=make_mesh(*spec))
+            out["profile"] = profile_solve(torch, step, policy, state, 20)
+        del graph
+    return out
+
+
+def parting(ref, got, tol=1e-5):
+    """Where two traced trajectories (scores, solutions) of one batch
+    part, graph by graph.  Each graph's first evaluation whose commit
+    differs gives the nodes only one side selected; the trajectories part
+    at a near-tie when every such pair's scores lie within 2·tol·(1 +
+    |score|) of each other on both sides.  Returns the cases (none when
+    every graph's trajectory is identical) and whether all are
+    near-ties."""
+    (s0, x0), (s1, x1) = ref, got
+    cases, all_near = [], True
+    for g in range(x0.shape[1]):
+        prev = np.zeros_like(x0[0, g])
+        t_end = min(len(x0), len(x1))
+        for t in range(t_end + 1):
+            a = x0[min(t, len(x0) - 1), g]
+            b = x1[min(t, len(x1) - 1), g]
+            if np.array_equal(a, b):
+                if t == t_end:
+                    break
+                prev = a
+                continue
+            only0 = np.flatnonzero((a - prev) > (b - prev))
+            only1 = np.flatnonzero((b - prev) > (a - prev))
+            tt = min(t, t_end - 1)
+            gap, scale = np.inf, 1.0
+            if len(only0) and len(only1):
+                gap = max(abs(float(sc[tt, g, u] - sc[tt, g, v]))
+                          for sc in (s0, s1) for u in only0 for v in only1)
+                scale = 1 + max(abs(float(sc[tt, g, w])) for sc in (s0, s1)
+                                for w in np.concatenate([only0, only1]))
+            near = gap <= 2 * tol * scale
+            all_near &= near
+            cases.append({"graph": g, "eval": t, "only_ref": only0.tolist(),
+                          "only_mesh": only1.tolist(), "boundary_gap": gap,
+                          "scores_ref": [float(s0[tt, g, w]) for w in
+                                         np.concatenate([only0, only1])],
+                          "scores_mesh": [float(s1[tt, g, w]) for w in
+                                          np.concatenate([only0, only1])],
+                          "near_tie": bool(near)})
+            break
+    return cases, all_near
 
 
 def bucket_batch():
@@ -686,21 +1216,16 @@ def phase_xla_chain(torch, policy, batch):
     return launches
 
 
-def phase_profile(torch, policy, batch, rep):
-    """Where one evaluation's time goes: 20 evaluations of the solve loop
-    on a full (8, 4096) bucket under torch.profiler, device time by kernel
-    and the device's busy share of the wall time."""
+def profile_solve(torch, step, policy, state, evals):
+    """``evals`` evaluations of a solve step under torch.profiler: wall ms
+    and device ms per evaluation, the device's busy share, and the ten
+    kernels with the most device time."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import get_solve_step, init_solve_state
-    r = bucket_rep(rep)
-    step = get_solve_step(rep=r, use_adaptive=True, num_layers=2)
-    step(policy, init_solve_state(r, batch, device=DEVICE), 3)   # warm
-    state = init_solve_state(r, batch, device=DEVICE)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, evals, _ = step(policy, state, 20)
+        _, ran, _ = step(policy, state, evals)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -712,13 +1237,26 @@ def phase_profile(torch, policy, batch, rep):
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and dev_us(e) > 0), reverse=True)
     busy_us = sum(r[0] for r in rows)
+    return {"evals": ran, "wall_ms_per_eval": 1e3 * wall / ran,
+            "device_ms_per_eval": busy_us / 1e3 / ran,
+            "device_busy_share": busy_us / 1e6 / wall,
+            "top": [{"name": k[:60], "calls": c,
+                     "ms_per_eval": us / 1e3 / ran}
+                    for us, c, k in rows[:10]]}
+
+
+def phase_profile(torch, policy, batch, rep):
+    """Where one evaluation's time goes: 20 evaluations of the solve loop
+    on a full (8, 4096) bucket under torch.profiler, device time by kernel
+    and the device's busy share of the wall time."""
+    from repro_torch.core import get_solve_step, init_solve_state
+    r = bucket_rep(rep)
+    step = get_solve_step(rep=r, use_adaptive=True, num_layers=2)
+    step(policy, init_solve_state(r, batch, device=DEVICE), 3)   # warm
+    state = init_solve_state(r, batch, device=DEVICE)
     emit({"phase": "profile", "rep": rep, "B": batch.shape[0],
-          "N": batch.shape[1], "evals": evals,
-          "wall_ms_per_eval": 1e3 * wall / evals,
-          "device_ms_per_eval": busy_us / 1e3 / evals,
-          "device_busy_share": busy_us / 1e6 / wall,
-          "top": [{"name": k[:60], "calls": c, "ms_per_eval": us / 1e3 / evals}
-                  for us, c, k in rows[:10]]})
+          "N": batch.shape[1],
+          **profile_solve(torch, step, policy, state, 20)})
 
 
 # ---------------------------------------------------------------------------
@@ -747,6 +1285,41 @@ def timing_dense(torch, ks, dev):
         del t4, embed, adj, base
         torch.cuda.empty_cache()
     return entries["serving"]
+
+
+def timing_agg(torch, ks, dev):
+    """Kernel 2's times at the row blocks of the bound table: a serving
+    bucket and the paper-scale graph at sp = 2 and 4; the kernels line
+    takes the serving bucket at sp = 2.  Library: torch.bmm (cuBLAS)."""
+    entries = {}
+    for name, b, k, nl, n, rho in AGG_CASES[2:]:
+        embed, adj = agg_inputs(torch, b, k, nl, n, rho, SEED, dev)
+        row = {"B": b, "K": k, "Nl": nl, "N": n}
+        row["bound_ms"], row["bound_by"] = agg_bound(b, k, nl, n)
+        for compute in ("f32", "bf16"):
+            row[f"ms_{compute}"] = cuda_ms(
+                torch, lambda: ks.mp_aggregate(embed, adj, compute))
+        row["plain_ms"] = cuda_ms(
+            torch, lambda: ks.mp_aggregate_plain(embed, adj, "f32"))
+        row["library_ms"] = cuda_ms(torch, lambda: torch.bmm(embed, adj))
+        entries[name] = row
+        emit({"phase": "timing", "kernel": "mp_aggregate", "shape": name,
+              **row})
+        del embed, adj
+        torch.cuda.empty_cache()
+    return entries["serving_sp2"]
+
+
+def library_rows(torch, nbr, edge, np1):
+    """Neighbour lists (B, Nl, D) with their factors as one (B·Nl, B·np1)
+    torch.sparse_csr_tensor, every slot stored (built outside the
+    timing): the library form of kernel 4 on a row block."""
+    b, nl, d = nbr.shape
+    dev = nbr.device
+    crow = torch.arange(0, b * nl * d + 1, d, device=dev)
+    cols = (nbr.long() + np1 * torch.arange(b, device=dev)[:, None, None])
+    return torch.sparse_csr_tensor(crow, cols.reshape(-1), edge.reshape(-1),
+                                   size=(b * nl, b * np1))
 
 
 def library_csr(torch, cs, edge_w):
@@ -812,6 +1385,26 @@ def graph_timing(torch, case, label, extra=None):
         out["sparse_mp_aggregate"] = row
         emit({"phase": "timing", "kernel": "sparse_mp_aggregate",
               "shape": label, **row})
+        if label == "serving":
+            # a graph rank's lists at sp = 2 against the whole x
+            nl = n // 2
+            args = (xp, sp.neighbors[:, nl:].contiguous(),
+                    edge[:, nl:].contiguous())
+            row = {"B": b, "K": k, "N": n, "Nl": nl, "D": d}
+            row["bound_ms"], row["bound_by"] = bound(
+                4 * (b * k * (n + 1) + b * k * nl) + 8 * b * nl * d,
+                2 * k * int(sp.valid[:, nl:].sum()))
+            row["ms_f32"] = cuda_ms(torch,
+                                    lambda: kg.sparse_mp_aggregate(*args))
+            row["plain_ms"] = cuda_ms(
+                torch, lambda: kg.sparse_mp_aggregate_plain(*args))
+            a_rows = library_rows(torch, args[1], args[2], n + 1)
+            xt = xp.transpose(1, 2).reshape(b * (n + 1), k)
+            row["library_ms"] = cuda_ms(torch, lambda: torch.sparse.mm(
+                a_rows, xt).reshape(b, nl, k).transpose(1, 2))
+            emit({"phase": "timing", "kernel": "sparse_mp_aggregate",
+                  "shape": "serving_rows_sp2", **row})
+            del a_rows, xt, args
         del xp
     row = {"B": b, "K": k, "N": n, "E": cs.num_edges, "edges": nnz_csr,
            **(extra or {})}
@@ -838,7 +1431,8 @@ def phase_timing(torch, ks, dev, ba_cs):
     """Phase 5: device times beside the bound for every kernel, at the
     serving shape (the kernels line) and at paper scale (diagnostic
     lines), and BA(1M) for the CSR layer."""
-    rows = {"fused_s2v_layer": timing_dense(torch, ks, dev)}
+    rows = {"fused_s2v_layer": timing_dense(torch, ks, dev),
+            "mp_aggregate": timing_agg(torch, ks, dev)}
     for label, b, n, real, width, edges in (
             ("serving", *BUCKET, SPARSE_MAX_DEGREE, CSR_MAX_EDGES),
             ("paper", 1, PAPER_N, None, None, None)):
@@ -859,6 +1453,8 @@ def phase_timing(torch, ks, dev, ba_cs):
 REPLACES = {
     "fused_s2v_layer": ("src/repro_torch/kernels/csrc/s2v_fused.cu",
                         "src/repro/kernels/s2v_fused.py:66"),
+    "mp_aggregate": ("src/repro_torch/kernels/csrc/s2v_fused.cu",
+                     "src/repro/kernels/s2v_fused.py:126"),
     "fused_s2v_layer_sparse": ("src/repro_torch/kernels/csrc/s2v_gather.cu",
                                "src/repro/kernels/s2v_fused.py:193"),
     "sparse_mp_aggregate": ("src/repro_torch/kernels/csrc/s2v_gather.cu",
@@ -903,6 +1499,7 @@ def main() -> int:
     rows, failures = [], []
     with timed_phase("kernel_vs_plain"):
         phase_kernel(torch, ks, dev, rows, failures)
+        phase_agg_kernel(torch, ks, dev, rows, failures)
         phase_graph_kernels(torch, dev, rows, failures)
     if failures:
         raise AssertionError("a kernel disagrees with its plain version:\n"
@@ -912,7 +1509,7 @@ def main() -> int:
     policy = init_policy(cfg, generator=torch.Generator().manual_seed(
         SEED), device=DEVICE)
     rng = np.random.default_rng(SEED)
-    sizes = rng.permutation(np.tile(SERVE_SIZES, 6))    # 24 requests
+    sizes = rng.permutation(np.tile(SERVE_SIZES, 4))    # 16 requests
     adjs = [erdos_renyi(int(n), 0.15, seed=1000 + i)
             for i, n in enumerate(sizes)]
     launches = {}
@@ -923,11 +1520,15 @@ def main() -> int:
             torch, policy, cfg, adjs, "sparse", dense)
         launches["fused_s2v_layer_csr"], _ = phase_serve(
             torch, policy, cfg, adjs, "csr", dense)
-    del adjs, dense
+    del dense
     with timed_phase("card_vs_cpu"):
         phase_card_vs_cpu(torch, policy)
     with timed_phase("paper_scale"):
-        phase_paper_scale(torch, policy)
+        paper = phase_paper_scale(torch, policy)
+    with timed_phase("mesh"):
+        launches["mp_aggregate"] = phase_mesh(torch, policy, cfg, adjs,
+                                              paper)["mp_aggregate"]
+    del adjs, paper
     with timed_phase("ba_1m_csr"):
         indptr, indices, gen_s = ba_future.result()
         ba_pool.shutdown()

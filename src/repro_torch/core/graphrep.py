@@ -10,7 +10,11 @@
 
 The sparse and CSR commits write only new C/S masks, never into the
 topology, so a state built from a caller's batch shares its topology
-tensors safely.  ``prepare_dataset`` and ``state_from_tuples`` (replay
+tensors safely.  On a mesh (``mesh.shard_state``) a dense or sparse state
+holds one rank's topology rows and the whole masks; its commit updates
+its own rows and all-gathers the residual degrees over the graph axis,
+so every rank derives the same candidates and ``done``, bit for bit the
+single-device values.  ``prepare_dataset`` and ``state_from_tuples`` (replay
 re-materialization) belong to the training slice, ROADMAP item A4.
 """
 from __future__ import annotations
@@ -26,6 +30,7 @@ from .graphs import (CsrGraphBatch, CsrGraphState, GraphState,
                      csr_init_state, csr_residual_edge_mask, csr_row_ids,
                      csr_segment_sum, init_state, residual_edge_mask,
                      sparse_batch_from_dense, sparse_init_state)
+from .mesh import gather_rows, local_rows
 from .policy import Policy, policy_scores
 from .s2v_csr import csr_policy_scores, csr_state_bytes
 from .s2v_sparse import sparse_policy_scores, sparse_state_bytes
@@ -74,8 +79,9 @@ class DenseRep(GraphRep):
         caller's buffers."""
         if isinstance(adj, GraphState):
             dev = resolve_device(device)
-            return GraphState(*(t.to(device=dev, copy=True) for t in
-                                (adj.adj, adj.candidate, adj.solution)))
+            return dataclasses.replace(adj, **{
+                name: getattr(adj, name).to(device=dev, copy=True)
+                for name in ("adj", "candidate", "solution")})
         return init_state(adj, device=device)
 
     def scores(self, params, state: GraphState, *, num_layers,
@@ -91,19 +97,22 @@ class DenseRep(GraphRep):
         Unlike the JAX backend this updates ``state.adj`` IN PLACE, which
         halves the resident state of a solve (one (B, N, N) buffer, not
         two); the state is the solve's own copy (``init_state`` copies the
-        caller's adjacency or state).  Returns (state, done)."""
+        caller's adjacency or state).  On a mesh the rank zeroes the
+        selected nodes' rows among its own and their columns, and the
+        degrees are all-gathered over the graph axis.  Returns (state,
+        done)."""
         solution = torch.maximum(state.solution, sel)
         keep = 1.0 - sel
         adj = state.adj
-        adj.mul_(keep[:, :, None])
+        adj.mul_(local_rows(keep, state.axis)[:, :, None])
         adj.mul_(keep[:, None, :])
-        deg = adj.sum(-1)
+        deg = gather_rows(adj.sum(-1), state.axis)
         candidate = ((deg > 0) & (solution < 0.5)).to(torch.float32)
         # adjacency weights are non-negative, so the residual edge set is
         # empty exactly when every degree is zero (JAX sums all of adj)
         done = (deg == 0).all(-1)
-        return GraphState(adj=adj, candidate=candidate,
-                          solution=solution), done
+        return dataclasses.replace(state, adj=adj, candidate=candidate,
+                                   solution=solution), done
 
     def state_bytes(self, state: GraphState) -> int:
         return int(state.adj.numel() * state.adj.element_size()
@@ -150,10 +159,13 @@ class SparseRep(GraphRep):
 
     def commit(self, state: SparseGraphState, sel: torch.Tensor):
         """Covering commit: S gains ``sel``; residual edges, candidates and
-        done derive from the immutable topology.  Returns (state, done)."""
+        done derive from the immutable topology (on a mesh, from the rank's
+        list rows, with the degrees all-gathered over the graph axis).
+        Returns (state, done)."""
         solution = torch.maximum(state.solution, sel)
-        edge = residual_edge_mask(state.neighbors, state.valid, solution)
-        deg = edge.sum(-1)
+        edge = residual_edge_mask(state.neighbors, state.valid, solution,
+                                  local_rows(solution, state.axis))
+        deg = gather_rows(edge.sum(-1), state.axis)
         candidate = ((deg > 0) & (solution < 0.5)).to(torch.float32)
         done = (deg == 0).all(-1)
         return dataclasses.replace(state, candidate=candidate,

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import pathlib
-from typing import Optional, Tuple, Union
+from typing import Any, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -120,10 +120,14 @@ class GraphState:
                partial solution are zeroed, paper Fig 4 right panel).
     candidate: (B, N) float32 mask — the paper's C vector.
     solution:  (B, N) float32 mask — the paper's S vector.
+    axis:      on a mesh, the graph axis (``core.mesh.Axis``) whose rank
+               holds only its (B, N/sp, N) block of ``adj`` rows; the masks
+               stay whole.  None: all N rows.
     """
     adj: torch.Tensor
     candidate: torch.Tensor
     solution: torch.Tensor
+    axis: Any = None
 
     @property
     def batch(self) -> int:
@@ -131,7 +135,7 @@ class GraphState:
 
     @property
     def num_nodes(self) -> int:
-        return self.adj.shape[-1]
+        return self.candidate.shape[-1]
 
     @property
     def device(self) -> torch.device:
@@ -213,6 +217,9 @@ class SparseGraphState:
     residual:  the env's topology mode: True ("solution": the residual
                subgraph implied by S, MVC), False ("none": the original
                topology) or "closed" (MIS, not ported yet).
+    axis:      on a mesh, the graph axis (``core.mesh.Axis``) whose rank
+               holds only its (B, N/sp, D) block of list rows (global ids);
+               the masks stay whole.  None: all N rows.
 
     A residual edge (u, v) exists iff the original edge exists and neither
     endpoint is in S: O(N·D) state instead of O(N²)."""
@@ -221,6 +228,7 @@ class SparseGraphState:
     candidate: torch.Tensor
     solution: torch.Tensor
     residual: Union[bool, str] = True
+    axis: Any = None
 
     @property
     def batch(self) -> int:
@@ -228,7 +236,7 @@ class SparseGraphState:
 
     @property
     def num_nodes(self) -> int:
-        return self.neighbors.shape[1]
+        return self.candidate.shape[1]
 
     @property
     def max_degree(self) -> int:
@@ -247,14 +255,19 @@ def _gather_nodes(values: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 
 def residual_edge_mask(neighbors: torch.Tensor, valid: torch.Tensor,
-                       solution: torch.Tensor) -> torch.Tensor:
-    """(B, N, D) float32 residual-edge factors: valid ∧ keep[u] ∧ keep[v],
+                       solution: torch.Tensor,
+                       sol_rows: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """(B, Nl, D) float32 residual-edge factors: valid ∧ keep[u] ∧ keep[v],
     the sparse analogue of :func:`residual_adjacency`, derived from the
-    immutable topology and the partial solution."""
+    immutable topology and the (B, N) partial solution.  ``sol_rows`` is
+    the solution of the lists' own Nl rows when they are one rank's block
+    of the graph; None means the lists hold all N rows."""
     keep = 1.0 - solution
+    keep_rows = keep if sol_rows is None else 1.0 - sol_rows
     keep_pad = torch.nn.functional.pad(keep, (0, 1))        # sentinel slot
     keep_nbr = _gather_nodes(keep_pad, neighbors)
-    return valid.to(torch.float32) * keep_nbr * keep[:, :, None]
+    return valid.to(torch.float32) * keep_nbr * keep_rows[:, :, None]
 
 
 def sparse_batch_from_dense(adj, max_degree: Optional[int] = None, *,

@@ -13,9 +13,10 @@ solve stays tens of evaluations):
     |C| in (N/8, N/4] -> d = max_d/4
     |C| <= N/8        -> d = max_d/8  (each tier floored at 1)
 
-This slice runs the fused device engine (``engine="device"``,
+The port runs the fused device engine (``engine="device"``,
 ``core.engine.get_solve_step``) on the dense, sparse and CSR
-representations (``rep=``).
+representations (``rep=``), on one device or on a ``spatial=(dp, sp)``
+mesh of ``torch.distributed`` ranks (``core.mesh``; CSR at sp = 1).
 """
 from __future__ import annotations
 
@@ -29,8 +30,11 @@ from ..device import DeviceLike, resolve_device
 from . import env as env_lib
 from .graphrep import GraphRep, get_rep
 from .graphs import CsrGraphState, SparseGraphState
+from .mesh import (Mesh, all_gather_tiled, is_multi, make_mesh,
+                   normalize_spatial, shard_batch, shard_nodes)
 from .policy import Policy, PolicyConfig
 from .qmodel import NEG_INF
+from .spatial import _check_divisible
 
 MAX_D = 8
 
@@ -87,13 +91,21 @@ def apply_selection(state, scores, candidate, use_adaptive: bool,
 
 
 def init_solve_state(rep: GraphRep, adj, problem: str = "mvc", *,
-                     device: DeviceLike = "cuda"):
+                     device: DeviceLike = "cuda", mesh: Optional[Mesh] = None):
     """Fresh solve state in ``rep``'s layout on ``device``, carrying the
     env's residual mode (sparse and CSR states) and its candidate rule.
     Enforces the padding-safety contract first
-    (``env.ensure_padding_safe``)."""
+    (``env.ensure_padding_safe``).
+
+    With ``mesh``, ``adj`` is the whole batch and the state is this rank's
+    tile (``mesh.shard_state``): its data rank's B/dp graphs are built on
+    the host, and only the graph rank's N/sp topology rows reach
+    ``device``, so no rank holds a whole dense adjacency there."""
     env_lib.ensure_padding_safe(problem)
-    state = rep.init_state(adj, device=device)
+    if mesh is not None:
+        state = rep.init_state(_batch_rows(mesh, adj), device="cpu")
+    else:
+        state = rep.init_state(adj, device=device)
     if isinstance(state, (SparseGraphState, CsrGraphState)):
         flag = env_lib.sparse_residual_flag(problem)
         if state.residual != flag:
@@ -101,7 +113,35 @@ def init_solve_state(rep: GraphRep, adj, problem: str = "mvc", *,
     cand_fn = env_lib.candidate_rule(problem)
     if cand_fn is not None:
         state = dataclasses.replace(state, candidate=cand_fn(state))
+    if mesh is not None:
+        state = shard_nodes(mesh, state)
+        dev = resolve_device(device)
+        state = dataclasses.replace(state, **{
+            f.name: getattr(state, f.name).to(dev).contiguous()
+            for f in dataclasses.fields(state)
+            if isinstance(getattr(state, f.name), torch.Tensor)})
     return state
+
+
+def _batch_rows(mesh: Mesh, adj):
+    """This data rank's graphs of a whole batch: a batch or state
+    dataclass, or an (N, N) / (B, N, N) array (numpy, memory-mapped or
+    torch; sliced without a copy)."""
+    if dataclasses.is_dataclass(adj):
+        return shard_batch(mesh, adj)
+    if adj.ndim == 2:
+        adj = adj[None]
+    return adj[mesh.data.rows(adj.shape[0])]
+
+
+def _batch_size(adj) -> int:
+    if dataclasses.is_dataclass(adj):
+        return adj.batch
+    return 1 if np.ndim(adj) == 2 else int(adj.shape[0])
+
+
+def _num_nodes(adj) -> int:
+    return adj.num_nodes if dataclasses.is_dataclass(adj) else adj.shape[-1]
 
 
 @dataclasses.dataclass
@@ -113,16 +153,18 @@ class InferenceResult:
 
 
 def check_solve_options(engine: str, spatial) -> None:
-    """Raise on the solve options this slice does not port."""
+    """Raise on solve options the port refuses: an unknown engine or mesh
+    spec, a mesh off the fused engine, and the unported host engine."""
+    if engine not in ("host", "device"):
+        raise ValueError(f"unknown inference engine {engine!r}")
     if engine == "host":
+        if is_multi(spatial):
+            raise ValueError("spatial solve runs on the fused path only; "
+                             "it is incompatible with engine='host'")
         raise NotImplementedError(
             "engine='host' (the per-eval reference loop) is not ported yet: "
             "see ROADMAP queue A")
-    if engine != "device":
-        raise ValueError(f"unknown inference engine {engine!r}")
-    if spatial not in (0, 1, (1, 1)):
-        raise NotImplementedError(
-            f"spatial={spatial!r}: the multi-GPU mesh is ROADMAP item A9")
+    normalize_spatial(spatial)
 
 
 def solve(params: Policy, adj0, *, num_layers: int = 2,
@@ -136,26 +178,48 @@ def solve(params: Policy, adj0, *, num_layers: int = 2,
     (numpy or torch), or a batch or state of ``rep``'s layout (a
     ``CsrGraphBatch`` from ``csr_batch_from_arrays`` reaches graphs no
     dense array could hold); it is never modified.  ``params`` must live
-    on ``device``.  ``max_evals`` defaults to N + max_d."""
+    on ``device``.  ``max_evals`` defaults to N + max_d.
+
+    ``spatial=(dp, sp)`` solves on the 2-D ``(data, graph)`` mesh (an int
+    P means ``(1, P)``): every rank of a default process group of dp·sp
+    ranks calls ``solve`` with the same whole batch, places its own tile
+    (B/dp graphs, N/sp topology rows), and receives the whole result, as
+    the JAX package's single controller does."""
     check_solve_options(engine, spatial)
     dev = resolve_device(device)
     if params.device != dev:
         raise ValueError(f"the policy is on {params.device}, the solve on "
                          f"{dev}; move it with policy.to(...)")
     rep = get_rep(rep)
-    state = init_solve_state(rep, adj0, problem, device=dev)
-    n = state.num_nodes
-    max_evals = max_evals or (n + max_d)
+    dp, sp = normalize_spatial(spatial)
+    if _batch_size(adj0) % dp:
+        raise ValueError(f"batch {_batch_size(adj0)} not divisible by the "
+                         f"data-axis size {dp} of mesh spec {spatial!r}")
     from .engine import get_solve_step
     fused = get_solve_step(rep=rep, problem=problem, num_layers=num_layers,
                            use_adaptive=multi_node, spatial=spatial,
                            kernel=kernel, compute=compute, max_d=max_d)
+    mesh = None
+    if (dp, sp) != (1, 1):
+        mesh = make_mesh(dp, sp)
+        _check_divisible(mesh, _batch_size(adj0), _num_nodes(adj0),
+                         f"{rep.name} scores")
+    state = init_solve_state(rep, adj0, problem, device=dev, mesh=mesh)
+    n = state.num_nodes
+    max_evals = max_evals or (n + max_d)
     out, evals, committed = fused(params, state, max_evals)
-    sol = out.solution.cpu().numpy()
+    sol, committed = gather_batch(mesh, out.solution, committed)
     return InferenceResult(solution=sol, sizes=sol.sum(-1).astype(np.int64),
                            policy_evals=int(evals),
-                           nodes_committed=committed.cpu().numpy()
-                           .astype(np.int64))
+                           nodes_committed=committed.astype(np.int64))
+
+
+def gather_batch(mesh: Optional[Mesh], *tensors) -> Tuple[np.ndarray, ...]:
+    """Host copies of per-graph tensors, on a mesh all-gathered over
+    ``data`` first so that every rank holds the whole batch's rows."""
+    if mesh is not None:
+        tensors = [all_gather_tiled(t, mesh.data, 0) for t in tensors]
+    return tuple(t.cpu().numpy() for t in tensors)
 
 
 def solve_with_config(params: Policy, adj0, cfg: PolicyConfig, *,

@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
+from .mesh import Axis
 from .qmodel import QModel, init_q, scores_local
 from .s2v import S2V, check_kernel, compute_dtype, embed_local, init_s2v
 
@@ -30,9 +31,10 @@ def check_collectives(mode: str) -> str:
 @dataclasses.dataclass(frozen=True)
 class PolicyConfig:
     """Paper §6.1 hyper-parameter settings; the same fields, defaults and
-    validation as the JAX ``PolicyConfig``.  This slice runs
-    ``graph_rep="dense"``, ``engine="device"`` and ``spatial=0``; the
-    entry points raise ``NotImplementedError`` on the others."""
+    validation as the JAX ``PolicyConfig``.  The port runs
+    ``engine="device"`` on the three reps, on one device or on a
+    ``spatial=(dp, sp)`` mesh (CSR at sp = 1); the entry points raise
+    ``NotImplementedError`` on ``engine="host"``."""
     embed_dim: int = 32          # K
     num_layers: int = 2          # L
     gamma: float = 0.9           # discount
@@ -91,12 +93,14 @@ def policy_scores(
     cand_local: torch.Tensor,     # (B, Nl)
     *,
     num_layers: int,
-    axis: Optional[str] = None,
+    axis: Optional[Axis] = None,
     masked: bool = True,
     kernel: str = "fused",
     compute: str = "f32",
 ) -> torch.Tensor:
-    """Q(EM(Aᶦ, Sᶦ), Cᶦ): (B, Nl) masked scores of local candidates."""
+    """Q(EM(Aᶦ, Sᶦ), Cᶦ): (B, Nl) masked scores of local candidates;
+    ``axis`` is the mesh's graph axis on a rank of a mesh, None on one
+    device."""
     emb = embed_local(params.em, adj_local, sol_local,
                       num_layers=num_layers, axis=axis, kernel=kernel,
                       compute=compute)

@@ -1,6 +1,6 @@
 """Action-evaluation model (paper Eq. 2, Alg. 3): scores every candidate
-node from the embeddings.  Counterpart of ``repro/core/qmodel.py`` for one
-device."""
+node from the embeddings.  Counterpart of ``repro/core/qmodel.py``, on one
+device or on one rank of a mesh's graph axis."""
 from __future__ import annotations
 
 import math
@@ -8,6 +8,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from .mesh import Axis, all_reduce_sum, check_axis
 
 NEG_INF = -1e9
 
@@ -43,15 +45,16 @@ def scores_local(
     embed_local: torch.Tensor,     # (B, K, Nl)
     cand_local: torch.Tensor,      # (B, Nl) candidate mask
     *,
-    axis: Optional[str] = None,
+    axis: Optional[Axis] = None,
     masked: bool = True,
 ) -> torch.Tensor:
-    """Alg. 3: (B, Nl) scores; non-candidates get NEG_INF if masked."""
-    if axis is not None:
-        raise NotImplementedError(
-            "sharded scoring (axis=...) is the multi-GPU mesh slice, "
-            "ROADMAP item A9")
+    """Alg. 3: (B, Nl) scores; non-candidates get NEG_INF if masked.
+    ``axis``: the mesh's graph axis when ``embed_local`` holds one rank's
+    Nl nodes, over which the graph embedding sum is all-reduced."""
+    check_axis(axis)
     sum_embed = embed_local.sum(-1)                              # (B, K)
+    if axis is not None:                                         # Lines 4-5
+        all_reduce_sum(sum_embed, axis)
     w1 = torch.einsum("kj,bj->bk", params.theta5, sum_embed)     # Line 6
     cand_embed = embed_local * cand_local[:, None, :]            # Lines 8-9
     w2 = torch.einsum("kj,bjn->bkn", params.theta6, cand_embed)

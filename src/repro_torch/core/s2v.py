@@ -1,12 +1,18 @@
 """structure2vec graph embedding model (paper Eq. 1, Alg. 2).
 
-Counterpart of ``repro/core/s2v.py`` for one device (``axis=None``).
+Counterpart of ``repro/core/s2v.py``: on one device (``axis=None``) or on
+one rank of a mesh's graph axis (``axis=mesh.graph``), which holds the
+(B, Nl, N) adjacency rows of its Nl = N/sp resident nodes.
 ``kernel=`` selects the lowering (DESIGN.md §12):
 
 - ``"fused"`` (default): one fused launch per layer, the hand-written CUDA
   kernel on the card (``kernels.s2v_fused.fused_s2v_layer``), with layer 0
   elided: the embeddings start at zero (Alg. 2 line 3), so the first
-  aggregation is exactly zero and layer 1 is relu(embed1 + embed2).
+  aggregation is exactly zero and layer 1 is relu(embed1 + embed2).  On a
+  mesh the fusion splits at the collective: the aggregate kernel
+  (``kernels.s2v_fused.mp_aggregate``) forms this rank's f32 partial, an
+  all-reduce over the graph axis sums the partials, and the θ4 epilogue
+  runs on the rank's own Nl columns.
 - ``"xla"``: the reference per-op chain, kept as the semantics of record
   (named after the JAX lowering it mirrors).
 
@@ -22,7 +28,9 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..kernels.s2v_fused import COMPUTE_MODES, fused_s2v_layer
+from ..kernels.s2v_fused import (COMPUTE_MODES, fused_s2v_layer,
+                                 mp_aggregate, round_cd)
+from .mesh import Axis, all_reduce_sum, check_axis
 
 KERNELS = ("fused", "xla")
 
@@ -86,11 +94,31 @@ class _FusedDenseLayer(torch.autograd.Function):
             "item A4")
 
 
-def check_axis(axis: Optional[str]) -> None:
-    if axis is not None:
+class _AggregateFused(torch.autograd.Function):
+    """Autograd hook around the aggregate of the sharded dense path.  Its
+    backward belongs to the training slice (the JAX ``custom_vjp``
+    differentiates the einsum, ``repro/core/s2v.py:_agg_hw_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, embed, adj, compute):
+        return mp_aggregate(embed, adj, compute)
+
+    @staticmethod
+    def backward(ctx, grad):
         raise NotImplementedError(
-            "sharded embedding (axis=...) is the multi-GPU mesh slice, "
-            "ROADMAP item A9")
+            "the sharded dense aggregate has no backward yet: training is "
+            "ROADMAP item A4")
+
+
+def local_aggregate(nbr_partial: torch.Tensor,
+                    axis: Optional[Axis]) -> torch.Tensor:
+    """Alg. 2 line 12: the (B, K, N) partial neighbour sums of this rank's
+    rows, summed over the graph axis (MPI_All_reduce), then this rank's Nl
+    columns.  ``axis=None``: the partial is already the whole sum."""
+    if axis is None:
+        return nbr_partial
+    full = all_reduce_sum(nbr_partial.contiguous(), axis)
+    return full[:, :, axis.rows(full.shape[2])]
 
 
 def s2v_base(params: S2V, deg: torch.Tensor,
@@ -115,7 +143,10 @@ def embed_local(
     kernel: str = "fused",
     compute: str = "f32",
 ) -> torch.Tensor:
-    """Returns (B, K, Nl) embeddings of the local resident nodes (Alg. 2)."""
+    """Returns (B, K, Nl) embeddings of the local resident nodes (Alg. 2).
+    ``axis`` names the mesh's graph axis when ``adj_local`` holds one
+    rank's rows (each layer then sums partials over it), None on one
+    device (Nl == N)."""
     check_kernel(kernel)
     compute_dtype(compute)
     check_axis(axis)
@@ -125,13 +156,23 @@ def embed_local(
     for layer in range(num_layers):                          # Lines 9-15
         if kernel == "fused":
             if layer == 0:
-                # embed⁰ = 0 ⇒ the first aggregation is exactly zero
+                # embed⁰ = 0 ⇒ the first aggregation (and its all-reduce)
+                # is exactly zero
                 embed = torch.relu(base)
-            else:
+            elif axis is None:
                 embed = _FusedDenseLayer.apply(params.theta4, embed,
                                                adj_local, base, compute)
+            else:
+                # fused up to the collective, all-reduced in f32, then the
+                # Nl-local epilogue: the collective placement of the chain
+                nbr = local_aggregate(
+                    _AggregateFused.apply(embed, adj_local, compute), axis)
+                e3 = torch.matmul(round_cd(params.theta4, compute),
+                                  round_cd(nbr, compute))
+                embed = torch.relu(base + e3)                   # Line 14
         else:
             nbr = torch.einsum("bkl,bln->bkn", embed, adj_local)   # Line 11
+            nbr = local_aggregate(nbr, axis)                        # Line 12
             embed3 = torch.einsum("kj,bjn->bkn", params.theta4, nbr)
             embed = torch.relu(base + embed3)                       # Line 14
     return embed

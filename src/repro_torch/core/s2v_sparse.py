@@ -1,6 +1,9 @@
 """Sparse (gather-based) structure2vec path: the paper's sparse graph
-storage (§4.1, §5.2).  Counterpart of ``repro/core/s2v_sparse.py`` for one
-device (``axis=None``).
+storage (§4.1, §5.2).  Counterpart of ``repro/core/s2v_sparse.py``, on one
+device (``axis=None``) or on one rank of a mesh's graph axis, which holds
+the (B, Nl, D) neighbour lists (global ids) of its Nl = N/sp resident nodes:
+each layer then all-gathers the (B, K, N) embeddings over the axis, so the
+rank's gathers reach remote-resident neighbours (DESIGN.md §3).
 
 The topology is stored once as padded neighbour lists (B, N, D) plus the
 partial-solution mask S; a residual edge exists iff the original edge
@@ -24,16 +27,23 @@ import torch
 from ..kernels.s2v_fused import fused_s2v_layer_sparse
 from ..kernels.s2v_gather import sparse_mp_aggregate
 from .graphs import SparseGraphState, residual_edge_mask
+from .mesh import Axis, all_gather_tiled, check_axis
 from .qmodel import scores_local
-from .s2v import check_axis, check_kernel, compute_dtype, s2v_base
+from .s2v import check_kernel, compute_dtype, s2v_base
 
 
 def residual_edge_factors(nbr_local: torch.Tensor, valid_local: torch.Tensor,
                           sol_local: torch.Tensor, *,
-                          axis: Optional[str] = None) -> torch.Tensor:
-    """(B, Nl, D) residual-edge factors valid ∧ keep[u] ∧ keep[v]."""
+                          axis: Optional[Axis] = None) -> torch.Tensor:
+    """(B, Nl, D) residual-edge factors valid ∧ keep[u] ∧ keep[v].  With
+    ``axis`` naming the mesh's graph axis, the (B, Nl) local solution slice
+    is all-gathered first (the paper §5.1 C/S broadcast), so the factors of
+    remote neighbour endpoints are visible to the local lists."""
     check_axis(axis)
-    return residual_edge_mask(nbr_local, valid_local, sol_local)
+    if axis is None:
+        return residual_edge_mask(nbr_local, valid_local, sol_local)
+    sol = all_gather_tiled(sol_local, axis, 1)
+    return residual_edge_mask(nbr_local, valid_local, sol, sol_local)
 
 
 def check_residual(residual) -> None:
@@ -45,7 +55,7 @@ def check_residual(residual) -> None:
 
 def edge_factors(nbr_local: torch.Tensor, valid_local: torch.Tensor,
                  sol_local: torch.Tensor, residual, *,
-                 axis: Optional[str] = None) -> torch.Tensor:
+                 axis: Optional[Axis] = None) -> torch.Tensor:
     """Edge factors for the env's residual mode: True/"solution" removes
     S's edges; False/"none" keeps the original topology."""
     check_residual(residual)
@@ -74,13 +84,15 @@ class _FusedSparseLayer(torch.autograd.Function):
 
 def embed_sparse_local(params, nbr_local: torch.Tensor,
                        edge_local: torch.Tensor, sol_local: torch.Tensor, *,
-                       num_layers: int, axis: Optional[str] = None,
+                       num_layers: int, axis: Optional[Axis] = None,
                        kernel: str = "fused",
                        compute: str = "f32") -> torch.Tensor:
     """structure2vec over the residual graph implied by (topology, S)
-    (Alg. 2 on sparse storage).  nbr_local (B, Nl, D) int32 neighbour ids;
-    edge_local (B, Nl, D) residual-edge factors; sol_local (B, Nl).
-    Returns (B, K, Nl)."""
+    (Alg. 2 on sparse storage).  nbr_local (B, Nl, D) int32 global
+    neighbour ids; edge_local (B, Nl, D) residual-edge factors; sol_local
+    (B, Nl).  With ``axis`` naming the mesh's graph axis, each layer
+    all-gathers the (B, K, N) embedding buffer first; ``axis=None`` is one
+    device (Nl == N).  Returns (B, K, Nl)."""
     check_kernel(kernel)
     compute_dtype(compute)
     check_axis(axis)
@@ -90,15 +102,19 @@ def embed_sparse_local(params, nbr_local: torch.Tensor,
     for layer in range(num_layers):
         if kernel == "fused":
             if layer == 0:
-                # embed⁰ = 0 ⇒ the first aggregation is exactly zero
+                # embed⁰ = 0 ⇒ the first aggregation (and its all-gather)
+                # is exactly zero
                 embed = torch.relu(base)
             else:
-                embed = _FusedSparseLayer.apply(params.theta4, embed,
+                full = embed if axis is None else all_gather_tiled(embed,
+                                                                   axis, 2)
+                embed = _FusedSparseLayer.apply(params.theta4, full,
                                                 nbr_local, edge_local, base,
                                                 compute)
             continue
         # Reference per-op chain; the sentinel column makes padding inert.
-        xp = torch.nn.functional.pad(embed, (0, 1))
+        full = embed if axis is None else all_gather_tiled(embed, axis, 2)
+        xp = torch.nn.functional.pad(full, (0, 1))
         nbr = sparse_mp_aggregate(xp, nbr_local, edge_local)
         embed3 = torch.einsum("kj,bjn->bkn", params.theta4, nbr)
         embed = torch.relu(base + embed3)

@@ -1,33 +1,41 @@
-// Fused dense structure2vec layer for Hopper (sm_90a):
+// Dense structure2vec kernels for Hopper (sm_90a):
 //
-//   out[b,k,n] = relu(base[b,k,n] + sum_j cd(theta4[k,j]) * cd(acc[b,j,n]))
 //   acc[b,k,n] = sum_l cd(embed[b,k,l]) * cd(adj[b,l,n])        (f32 accumulation)
+//   s2v_fused_layer:  out[b,k,n] = relu(base[b,k,n] + sum_j cd(theta4[k,j]) * cd(acc[b,j,n]))
+//   s2v_mp_aggregate: out[b,k,n] = acc[b,k,n]
 //
 // cd() is the compute-dtype rounding: the identity for f32, round-to-nearest-
 // even to bf16 for bf16, applied once to each staged tile in shared memory,
-// so no bf16 copy of adj is ever materialised in device memory.  The aggregate
-// is rounded once, before the theta4 product; base, the sum and the ReLU
-// stay f32.
+// so no bf16 copy of adj is ever materialised in device memory.  In the
+// fused layer the aggregate is rounded once, before the theta4 product;
+// base, the sum and the ReLU stay f32.  The aggregate alone is stored in f32
+// unrounded: it is the partial sum of one row block that the mesh path
+// all-reduces across ranks before its epilogue.
 //
 // Replaces: src/repro/kernels/s2v_fused.py::fused_s2v_layer, whose Pallas
 // body _fused_dense_kernel runs the l axis as a sequential grid dimension
-// and carries the (K, TN) sum across grid steps in VMEM scratch.  Blocks of a
-// CUDA grid run in parallel and in no order, so here one block owns one
-// (b, n-tile) and loops over the l tiles itself, keeping the K x TN
-// accumulator in registers; the (B, K, N) aggregate never reaches device
-// memory, which is the point of the TPU kernel.
+// and carries the (K, TN) sum across grid steps in VMEM scratch, and
+// s2v_fused.py::mp_aggregate (_agg_kernel), the same loop without the
+// epilogue.  Blocks of a CUDA grid run in parallel and in no order, so here
+// one block owns one (b, n-tile) and loops over the l tiles itself, keeping
+// the K x TN accumulator in registers; in the fused layer the (B, K, N)
+// aggregate never reaches device memory, which is the point of the TPU
+// kernel.  The TPU's mp_aggregate pads embed and adj to tile multiples in
+// device memory first; here the ragged edges (l >= Nl, n >= N) are masked
+// inside the copies, so nothing is padded.
 //
-// What bounds it: at f32 the layer reads B*Nl*N*4 bytes of adj and does
+// What bounds it: at f32 both kernels read B*Nl*N*4 bytes of adj and do
 // 2*B*K*Nl*N FLOPs, 16 FLOP/byte at K=32 -- close to the H100's balance
 // point for f32 on CUDA cores (67 TFLOP/s over 3.35 TB/s = 20 FLOP/byte), so
-// both bounds matter.  The design reads adj exactly once, with 16-byte
-// coalesced copies; the copies of the next (adj, embed) tile pair are issued
-// with cp.async into a second shared-memory buffer before the current pair
-// is multiplied, so they are in flight during the FMAs without holding
-// registers; each thread owns a (K/4) x 2 register tile, so every shared-
-// memory load feeds several FMAs; and the tiles are narrow (64 columns, 128
-// threads) so that even one graph of 20480 nodes makes 320 blocks for the
-// 132 SMs.  TMA staging and tensor cores are left for later work.
+// both bounds matter; the aggregate also writes B*K*N*4 bytes.  The design
+// reads adj exactly once, with 16-byte coalesced copies; the copies of the
+// next (adj, embed) tile pair are issued with cp.async into a second
+// shared-memory buffer before the current pair is multiplied, so they are in
+// flight during the FMAs without holding registers; each thread owns a
+// (K/4) x 2 register tile, so every shared-memory load feeds several FMAs;
+// and the tiles are narrow (64 columns, 128 threads) so that even one graph
+// of 20480 nodes makes 320 blocks for the 132 SMs.  TMA staging and tensor
+// cores are left for later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,7 +78,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N_PENDING));
 }
 
-template <int KP, bool BF16>
+// FUSED: the layer (theta4, base, ReLU epilogue); otherwise the aggregate
+// alone (theta4 and base unused).
+template <int KP, bool BF16, bool FUSED>
 __global__ void __launch_bounds__(THREADS)
 fused_dense_kernel(const float* __restrict__ theta4,
                    const float* __restrict__ embed,
@@ -80,7 +90,7 @@ fused_dense_kernel(const float* __restrict__ theta4,
                    int K, int Nl, int N, bool vec4) {
   constexpr int KPT = KP / KGROUPS;     // rows per thread: 2, 4 or 8
   static_assert(KP <= TL, "the aggregate reuses an adj tile buffer");
-  __shared__ float t4_s[KP][KP + 1];
+  __shared__ float t4_s[FUSED ? KP : 1][FUSED ? KP + 1 : 1];
   __shared__ __align__(16) float e_s[2][KP][TL];   // embed tiles, l contiguous
   __shared__ __align__(16) float a_s[2][TL * TN];  // adj tiles; then the aggregate
 
@@ -92,9 +102,11 @@ fused_dense_kernel(const float* __restrict__ theta4,
   const float* adj_b = adj + (size_t)b * Nl * N;
   const float* emb_b = embed + (size_t)b * K * Nl;
 
-  for (int i = tid; i < KP * KP; i += THREADS) {
-    const int r = i / KP, q = i % KP;
-    t4_s[r][q] = (r < K && q < K) ? round_cd<BF16>(theta4[r * K + q]) : 0.f;
+  if constexpr (FUSED) {
+    for (int i = tid; i < KP * KP; i += THREADS) {
+      const int r = i / KP, q = i % KP;
+      t4_s[r][q] = (r < K && q < K) ? round_cd<BF16>(theta4[r * K + q]) : 0.f;
+    }
   }
 
   // Issue the copies of the tile pair starting at row l0 into buffer buf.
@@ -173,66 +185,101 @@ fused_dense_kernel(const float* __restrict__ theta4,
     __syncthreads();                    // buffer buf is refilled next-but-one
   }
 
-  // Epilogue: the aggregate, rounded once, goes through shared memory so
-  // that each thread sees all K rows of its columns for the theta4 product.
-  float* agg_s = a_s[0];                // [KP][TN]
+  if constexpr (!FUSED) {   // the f32 aggregate, unrounded: 256 bytes a warp
+    const int n = n0 + 2 * cp;
 #pragma unroll
-  for (int kk = 0; kk < KPT; ++kk) {
-    agg_s[(k0 + kk) * TN + 2 * cp] = round_cd<BF16>(acc[kk][0]);
-    agg_s[(k0 + kk) * TN + 2 * cp + 1] = round_cd<BF16>(acc[kk][1]);
-  }
-  __syncthreads();
+    for (int kk = 0; kk < KPT; ++kk) {
+      const int k = k0 + kk;
+      if (k >= K) break;
+      const size_t row = ((size_t)b * K + k) * N;
+      if (n < N) out[row + n] = acc[kk][0];
+      if (n + 1 < N) out[row + n + 1] = acc[kk][1];
+    }
+  } else {
+    // Epilogue: the aggregate, rounded once, goes through shared memory so
+    // that each thread sees all K rows of its columns for the theta4 product.
+    float* agg_s = a_s[0];                // [KP][TN]
+#pragma unroll
+    for (int kk = 0; kk < KPT; ++kk) {
+      agg_s[(k0 + kk) * TN + 2 * cp] = round_cd<BF16>(acc[kk][0]);
+      agg_s[(k0 + kk) * TN + 2 * cp + 1] = round_cd<BF16>(acc[kk][1]);
+    }
+    __syncthreads();
 
 #pragma unroll
-  for (int kk = 0; kk < KPT; ++kk) {
-    const int k = k0 + kk;
-    if (k >= K) break;
-    float e3x = 0.f, e3y = 0.f;
+    for (int kk = 0; kk < KPT; ++kk) {
+      const int k = k0 + kk;
+      if (k >= K) break;
+      float e3x = 0.f, e3y = 0.f;
 #pragma unroll 8
-    for (int j = 0; j < KP; ++j) {
-      const float t = t4_s[k][j];
-      const float2 g = *reinterpret_cast<const float2*>(&agg_s[j * TN + 2 * cp]);
-      e3x = fmaf(t, g.x, e3x);
-      e3y = fmaf(t, g.y, e3y);
+      for (int j = 0; j < KP; ++j) {
+        const float t = t4_s[k][j];
+        const float2 g = *reinterpret_cast<const float2*>(&agg_s[j * TN + 2 * cp]);
+        e3x = fmaf(t, g.x, e3x);
+        e3y = fmaf(t, g.y, e3y);
+      }
+      const size_t row = ((size_t)b * K + k) * N;
+      const int n = n0 + 2 * cp;
+      if (n < N) out[row + n] = fmaxf(base[row + n] + e3x, 0.f);
+      if (n + 1 < N) out[row + n + 1] = fmaxf(base[row + n + 1] + e3y, 0.f);
     }
-    const size_t row = ((size_t)b * K + k) * N;
-    const int n = n0 + 2 * cp;
-    if (n < N) out[row + n] = fmaxf(base[row + n] + e3x, 0.f);
-    if (n + 1 < N) out[row + n + 1] = fmaxf(base[row + n + 1] + e3y, 0.f);
   }
 }
 
-template <int KP>
+template <int KP, bool FUSED>
 void launch(dim3 grid, cudaStream_t s, const float* theta4,
             const float* embed, const float* adj, const float* base,
             float* out, int K, int Nl, int N, bool bf16, bool vec4) {
   if (bf16)
-    fused_dense_kernel<KP, true><<<grid, THREADS, 0, s>>>(
+    fused_dense_kernel<KP, true, FUSED><<<grid, THREADS, 0, s>>>(
         theta4, embed, adj, base, out, K, Nl, N, vec4);
   else
-    fused_dense_kernel<KP, false><<<grid, THREADS, 0, s>>>(
+    fused_dense_kernel<KP, false, FUSED><<<grid, THREADS, 0, s>>>(
         theta4, embed, adj, base, out, K, Nl, N, vec4);
 }
 
-}  // namespace
-
-// Launches the fused layer on `stream`.  All tensors are f32 and contiguous:
-// theta4 (K,K), embed (B,K,Nl), adj (B,Nl,N), base and out (B,K,N).
-// bf16 != 0 selects bf16 operand rounding.  Returns cudaGetLastError().
-extern "C" int s2v_fused_layer(const float* theta4, const float* embed,
-                               const float* adj, const float* base, float* out,
-                               int B, int K, int Nl, int N, int bf16,
-                               void* stream) {
+template <bool FUSED>
+int launch_k(const float* theta4, const float* embed, const float* adj,
+             const float* base, float* out, int B, int K, int Nl, int N,
+             int bf16, void* stream) {
   if (B < 1 || B > 65535 || K < 1 || K > 32 || Nl < 1 || N < 1)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((N + TN - 1) / TN, B);
   const bool vec4 = (N % 4 == 0) && ((uintptr_t)adj % 16 == 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (K <= 8)
-    launch<8>(grid, s, theta4, embed, adj, base, out, K, Nl, N, bf16 != 0, vec4);
+    launch<8, FUSED>(grid, s, theta4, embed, adj, base, out, K, Nl, N,
+                     bf16 != 0, vec4);
   else if (K <= 16)
-    launch<16>(grid, s, theta4, embed, adj, base, out, K, Nl, N, bf16 != 0, vec4);
+    launch<16, FUSED>(grid, s, theta4, embed, adj, base, out, K, Nl, N,
+                      bf16 != 0, vec4);
   else
-    launch<32>(grid, s, theta4, embed, adj, base, out, K, Nl, N, bf16 != 0, vec4);
+    launch<32, FUSED>(grid, s, theta4, embed, adj, base, out, K, Nl, N,
+                      bf16 != 0, vec4);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Kernel 1.  Launches the fused layer on `stream`.  All tensors are f32 and
+// contiguous: theta4 (K,K), embed (B,K,Nl), adj (B,Nl,N), base and out
+// (B,K,N).  bf16 != 0 selects bf16 operand rounding.  Returns
+// cudaGetLastError().
+extern "C" int s2v_fused_layer(const float* theta4, const float* embed,
+                               const float* adj, const float* base, float* out,
+                               int B, int K, int Nl, int N, int bf16,
+                               void* stream) {
+  return launch_k<true>(theta4, embed, adj, base, out, B, K, Nl, N, bf16,
+                        stream);
+}
+
+// Kernel 2.  Launches the aggregate on `stream`: embed (B,K,Nl), adj
+// (B,Nl,N), out (B,K,N), all f32 and contiguous.  bf16 != 0 rounds the
+// operands to bf16; the sum and the output stay f32.  Returns
+// cudaGetLastError().
+extern "C" int s2v_mp_aggregate(const float* embed, const float* adj,
+                                float* out, int B, int K, int Nl, int N,
+                                int bf16, void* stream) {
+  return launch_k<false>(nullptr, embed, adj, nullptr, out, B, K, Nl, N, bf16,
+                         stream);
 }

@@ -96,16 +96,19 @@ bool bad_sizes(int B, int K, int ncols, int Nl, int D) {
 }  // namespace
 
 // Kernel 4.  xt (B, N+1, K): the embeddings node-major with the zero
-// sentinel column; nbr and edge (B, N, D); out (B, K, N).  f32.  Returns
+// sentinel column; nbr and edge (B, Nl, D): the neighbour lists of Nl nodes
+// (Nl = N on one device, a row block of a graph split over a mesh's graph
+// axis otherwise), with global ids; out (B, K, Nl).  f32.  Returns
 // cudaGetLastError().
 extern "C" int s2v_sparse_aggregate(const float* xt, const int* nbr,
                                     const float* edge, float* out, int B,
-                                    int K, int N, int D, void* stream) {
-  if (bad_sizes(B, K, N + 1, N, D)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + WARPS - 1) / WARPS, B);
+                                    int K, int N, int Nl, int D,
+                                    void* stream) {
+  if (bad_sizes(B, K, N + 1, Nl, D)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((Nl + WARPS - 1) / WARPS, B);
   sparse_rows_kernel<false, false><<<grid, THREADS, 0,
                                      static_cast<cudaStream_t>(stream)>>>(
-      nullptr, xt, nbr, edge, nullptr, out, K, N + 1, N, D);
+      nullptr, xt, nbr, edge, nullptr, out, K, N + 1, Nl, D);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,12 @@
-"""Fused structure2vec layers, dense and padded-sparse:
+"""Fused structure2vec layers, dense and padded-sparse, and the dense
+aggregate of the mesh path:
 
 - dense:  relu(base + θ4 @ (embed @ adj)), counterpart of
   ``repro/kernels/s2v_fused.py::fused_s2v_layer`` (``_fused_dense_kernel``),
   the kernel in ``csrc/s2v_fused.cu``;
+- dense aggregate: the f32 partial embed @ adj of one row block, counterpart
+  of ``mp_aggregate`` (``_agg_kernel``), the same kernel without its
+  epilogue;
 - sparse: relu(base + θ4 @ Σ_d x[:, nbr[i, d]]·edge[i, d]), counterpart of
   ``fused_s2v_layer_sparse`` (``_fused_sparse_kernel``), the kernel in
   ``csrc/s2v_gather.cu``.
@@ -133,6 +137,57 @@ def fused_s2v_layer(theta4: torch.Tensor, embed: torch.Tensor,
 
 
 fused_s2v_layer.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Dense aggregate (the sharded dense path).
+# ---------------------------------------------------------------------------
+
+def mp_aggregate_plain(embed: torch.Tensor, adj: torch.Tensor,
+                       compute: str = "f32") -> torch.Tensor:
+    """The aggregate as a PyTorch composition (the kernel's plain version):
+    operands rounded to the compute dtype, f32 product, f32 result."""
+    check_compute(compute)
+    return torch.matmul(round_cd(embed.float(), compute),
+                        round_cd(adj.float(), compute))
+
+
+def _check_agg_inputs(embed, adj) -> None:
+    check_tensors("adj", {"embed": embed, "adj": adj})
+    if embed.dim() != 3 or adj.dim() != 3:
+        raise ValueError("embed and adj must be 3-D")
+    b, k, nl = embed.shape
+    n = adj.shape[2]
+    if tuple(adj.shape) != (b, nl, n):
+        raise ValueError(f"shape mismatch: embed {tuple(embed.shape)}, adj "
+                         f"{tuple(adj.shape)}; expected (B,K,Nl), (B,Nl,N)")
+    check_k(b, k)
+    if nl < 1 or n < 1:
+        raise ValueError(f"unsupported sizes B={b}, Nl={nl}, N={n}")
+
+
+def mp_aggregate(embed: torch.Tensor, adj: torch.Tensor,
+                 compute: str = "f32") -> torch.Tensor:
+    """out[b, k, n] = Σ_l cd(embed[b, k, l]) · cd(adj[b, l, n]) in f32:
+    embed (B, K, Nl), adj (B, Nl, N) → (B, K, N) float32, the partial
+    aggregate of one row block.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel on the current stream."""
+    check_compute(compute)
+    _check_agg_inputs(embed, adj)
+    if on_cpu(adj, "mp_aggregate"):
+        return mp_aggregate_plain(embed, adj, compute)
+    b, k, nl = embed.shape
+    n = adj.shape[2]
+    out = torch.empty((b, k, n), dtype=torch.float32, device=adj.device)
+    launch("s2v_fused", "s2v_mp_aggregate",
+           [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5, adj.device,
+           embed.data_ptr(), adj.data_ptr(), out.data_ptr(), b, k, nl, n,
+           int(compute == "bf16"))
+    mp_aggregate.launches += 1
+    return out
+
+
+mp_aggregate.launches = 0
 
 
 # ---------------------------------------------------------------------------

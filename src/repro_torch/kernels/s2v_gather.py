@@ -5,8 +5,10 @@
 Counterpart of ``repro/kernels/s2v_gather.py::sparse_mp_aggregate`` (the
 Pallas ``_sparse_agg_kernel``), the aggregation of the sparse
 representation's ``"xla"`` reference chain.  ``x`` is (B, K, N+1) with a
-zero sentinel column at N, neighbors (B, N, D) int32 padded with N, edge
-(B, N, D) float32; the output is (B, K, N) float32.
+zero sentinel column at N; neighbors (B, Nl, D) int32 hold the global ids
+of Nl nodes' neighbours, padded with N, and edge (B, Nl, D) float32 their
+factors; the output is (B, K, Nl) float32.  Nl is N on one device and a
+row block of the graph on a mesh's graph axis.
 
 :func:`sparse_mp_aggregate_plain` is the PyTorch composition;
 :func:`sparse_mp_aggregate` computes it on CPU tensors and launches the
@@ -27,9 +29,9 @@ def sparse_mp_aggregate_plain(x: torch.Tensor, neighbors: torch.Tensor,
                               edge: torch.Tensor) -> torch.Tensor:
     """Gather with int64 ids, then contract over the D slots in f32."""
     b, k, _ = x.shape
-    n, d = neighbors.shape[1:]
-    ids = neighbors.reshape(b, 1, n * d).long().expand(b, k, n * d)
-    gathered = torch.gather(x.float(), 2, ids).reshape(b, k, n, d)
+    nl, d = neighbors.shape[1:]
+    ids = neighbors.reshape(b, 1, nl * d).long().expand(b, k, nl * d)
+    gathered = torch.gather(x.float(), 2, ids).reshape(b, k, nl, d)
     return torch.einsum("bknd,bnd->bkn", gathered, edge.float())
 
 
@@ -39,16 +41,18 @@ def _check_inputs(x, neighbors, edge) -> None:
     if x.dim() != 3 or neighbors.dim() != 3:
         raise ValueError("x and neighbors must be 3-D")
     b, k, np1 = x.shape
-    if tuple(neighbors.shape[:2]) != (b, np1 - 1) \
-            or edge.shape != neighbors.shape:
+    # a row block holds at most the graph's N nodes: lists of N rows
+    # against an x of N columns lack x's sentinel column
+    if neighbors.shape[0] != b or edge.shape != neighbors.shape \
+            or neighbors.shape[1] > np1 - 1:
         raise ValueError(
             f"shape mismatch: x {tuple(x.shape)}, neighbors "
             f"{tuple(neighbors.shape)}, edge {tuple(edge.shape)}; expected "
-            f"(B,K,N+1), (B,N,D), (B,N,D)")
+            f"(B,K,N+1), (B,Nl,D), (B,Nl,D) with Nl <= N")
     check_k(b, k)
-    if np1 < 2 or neighbors.shape[2] < 1:
-        raise ValueError(f"unsupported sizes N={np1 - 1}, "
-                         f"D={neighbors.shape[2]}")
+    nl, d = neighbors.shape[1:]
+    if np1 < 2 or nl < 1 or d < 1:
+        raise ValueError(f"unsupported sizes N={np1 - 1}, Nl={nl}, D={d}")
 
 
 def sparse_mp_aggregate(x: torch.Tensor, neighbors: torch.Tensor,
@@ -59,14 +63,14 @@ def sparse_mp_aggregate(x: torch.Tensor, neighbors: torch.Tensor,
     _check_inputs(x, neighbors, edge)
     if on_cpu(neighbors, "sparse_mp_aggregate"):
         return sparse_mp_aggregate_plain(x, neighbors, edge)
-    b, k, _ = x.shape
-    n, d = neighbors.shape[1:]
+    b, k, np1 = x.shape
+    nl, d = neighbors.shape[1:]
     xt = node_major(x)
-    out = torch.empty((b, k, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((b, k, nl), dtype=torch.float32, device=x.device)
     launch("s2v_gather", "s2v_sparse_aggregate",
-           [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4, x.device,
+           [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5, x.device,
            xt.data_ptr(), neighbors.data_ptr(), edge.data_ptr(),
-           out.data_ptr(), b, k, n, d)
+           out.data_ptr(), b, k, np1 - 1, nl, d)
     sparse_mp_aggregate.launches += 1
     return out
 

@@ -9,13 +9,50 @@ drain path or the async path.
         --sizes 500,1000 --csr-max-edges 200000 --warmup
     # on a machine without a GPU, ask for the CPU explicitly:
     PYTHONPATH=src python -m repro_torch.launch.solve_serve --device cpu
+    # on the 2-D (data, graph) mesh, one process per rank (dp·sp cards):
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m \
+        repro_torch.launch.solve_serve --spatial 2,2 --dist-backend nccl
+
+On a mesh every rank serves the same stream (the sync path runs SPMD)
+and only rank 0 prints.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
+
+TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK")
+
+
+def init_mesh_ranks(spatial, backend, device):
+    """Join the process group ``torchrun`` describes in the environment and
+    return this rank's (rank, device).  Raises without ``torchrun``."""
+    import torch
+    import torch.distributed as dist
+    from ..core.mesh import normalize_spatial, rank_device
+    dp, sp = normalize_spatial(spatial)
+    if any(v not in os.environ for v in TORCHRUN_VARS):
+        raise RuntimeError(
+            f"--spatial {dp},{sp} runs one process per mesh rank: start it "
+            f"with torchrun --nproc-per-node {dp * sp} -m "
+            f"repro_torch.launch.solve_serve --spatial {dp},{sp} "
+            f"--dist-backend nccl (one card per rank) or gloo (CPU ranks, "
+            f"or ranks sharing a card)")
+    if backend is None:
+        raise ValueError("--spatial needs --dist-backend: nccl (one card per "
+                         "rank) or gloo (CPU ranks, or ranks sharing a card)")
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    local_rank = int(os.environ["LOCAL_RANK"])
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    dev = rank_device(backend, device, local_rank, local_world)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method="env://", rank=rank,
+                            world_size=world)
+    return rank, dev
 
 
 def main(argv=None):
@@ -34,6 +71,16 @@ def main(argv=None):
                     help="cuda (default) or cpu")
     ap.add_argument("--rep", choices=["dense", "sparse", "csr"],
                     default="dense", help="graph representation")
+    ap.add_argument("--spatial", default="0",
+                    help="2-D (data, graph) mesh spec: 'dp,sp' splits each "
+                         "dispatch dp ways over the batch (--max-batch is "
+                         "per data rank) and every policy evaluation sp "
+                         "ways over node rows; a bare int P means (1, P); "
+                         "0: one device.  A mesh runs under torchrun")
+    ap.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                    help="process-group backend of a mesh: nccl (one card "
+                         "per rank) or gloo (CPU ranks, or ranks sharing a "
+                         "card)")
     ap.add_argument("--sparse-max-degree", type=int, default=None,
                     help="sparse: neighbour-list width of every bucket "
                          "(default: the bucket's node count)")
@@ -55,30 +102,50 @@ def main(argv=None):
             "--rate needs serving/loadgen.py, which is not ported yet: "
             "see ROADMAP queue A (serving)")
 
+    import torch.distributed as dist
+    from ..core import is_multi, parse_spatial
+
+    spatial = parse_spatial(args.spatial)
+    rank, device = 0, args.device
+    if is_multi(spatial):
+        if args.mode == "async":
+            raise NotImplementedError("--mode async on a mesh is not ported "
+                                      "(ROADMAP A6/A9); use --mode sync")
+        rank, device = init_mesh_ranks(spatial, args.dist_backend,
+                                       args.device)
+    try:
+        _serve(args, spatial, rank, device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _serve(args, spatial, rank: int, device) -> None:
     import torch
     from ..core import PolicyConfig, init_policy
     from ..core.graphs import barabasi_albert, erdos_renyi, social_like
     from ..serving import GraphSolverService
 
+    say = print if rank == 0 else (lambda *a, **k: None)
     cfg = PolicyConfig(embed_dim=args.embed_dim, num_layers=2,
-                       graph_rep=args.rep)
-    svc_kw = dict(device=args.device, max_batch=args.max_batch,
+                       graph_rep=args.rep, spatial=spatial)
+    svc_kw = dict(device=device, max_batch=args.max_batch,
                   sparse_max_degree=args.sparse_max_degree,
                   csr_max_edges=args.csr_max_edges)
     if args.ckpt_dir:
         svc = GraphSolverService.from_checkpoint(args.ckpt_dir, cfg, **svc_kw)
-        print(f"policy loaded from {args.ckpt_dir}")
+        say(f"policy loaded from {args.ckpt_dir}")
     else:
         gen = torch.Generator().manual_seed(args.seed)
-        params = init_policy(cfg, generator=gen, device=args.device)
+        params = init_policy(cfg, generator=gen, device=device)
         svc = GraphSolverService(params, cfg, **svc_kw)
-        print("fresh random policy (pass --ckpt-dir for a trained one)")
+        say("fresh random policy (pass --ckpt-dir for a trained one)")
 
     sizes = [int(s) for s in args.sizes.split(",")]
     if args.warmup:
         info = svc.warmup(sizes)
-        print(f"warmup: {len(info['compiled'])} buckets in "
-              f"{info['seconds']:.2f}s -> request-path first dispatches == 0")
+        say(f"warmup: {len(info['compiled'])} buckets in "
+            f"{info['seconds']:.2f}s -> request-path first dispatches == 0")
 
     make = {"er": lambda n, s: erdos_renyi(n, 0.2, seed=s),
             "ba": lambda n, s: barabasi_albert(n, 4, seed=s),
@@ -95,16 +162,17 @@ def main(argv=None):
         responses = svc.serve(adjs)
     dt = time.time() - t0
     for r in responses:
-        print(f"  req{r.id:3d}  n={len(r.solution):4d} -> bucket "
-              f"{r.bucket:4d}  |S|={r.size:4d}  evals={r.policy_evals}  "
-              f"lat={r.latency_s * 1e3:7.1f}ms")
+        say(f"  req{r.id:3d}  n={len(r.solution):4d} -> bucket "
+            f"{r.bucket:4d}  |S|={r.size:4d}  evals={r.policy_evals}  "
+            f"lat={r.latency_s * 1e3:7.1f}ms")
     s = svc.stats
-    print(f"served {s.requests} requests on {svc.device} "
-          f"({svc.rep.name} rep) in {dt:.2f}s: "
-          f"{s.batches} batches ({s.partial_batches} partial), "
-          f"{s.compiles} request-path first dispatches "
-          f"(+{s.warmup_compiles} warmup, {s.compile_seconds:.2f}s), "
-          f"{s.padded_rows} padded rows, {s.solve_seconds:.2f}s solving")
+    mesh = f", mesh {svc.mesh_shape}" if svc.mesh is not None else ""
+    say(f"served {s.requests} requests on {svc.device} "
+        f"({svc.rep.name} rep{mesh}) in {dt:.2f}s: "
+        f"{s.batches} batches ({s.partial_batches} partial), "
+        f"{s.compiles} request-path first dispatches "
+        f"(+{s.warmup_compiles} warmup, {s.compile_seconds:.2f}s), "
+        f"{s.padded_rows} padded rows, {s.solve_seconds:.2f}s solving")
 
 
 if __name__ == "__main__":

@@ -13,6 +13,14 @@ submission:
   dispatch next (EDF, anti-starvation, partial dispatch after
   ``max_wait_ms``, depth-bounded admission).
 
+``cfg.spatial = (dp, sp)`` serves on the 2-D ``(data, graph)`` mesh
+(``core.mesh``): every dispatch carries ``max_batch · dp`` rows, B/dp per
+data rank, each evaluation partitioned sp ways.  The sync path runs SPMD:
+every rank builds the same service and submits the same requests in the
+same order, so the ranks plan the same dispatches and each returns every
+response.  The async scheduler batches by wall-clock time, which differs
+across ranks, so it runs on one device only (ROADMAP A6/A9).
+
 Where the JAX service caches one compiled step per (bucket, problem), the
 port has nothing to compile per shape; it keeps a per-(bucket, problem)
 *first dispatch* record instead.  The first dispatch of a bucket pays the
@@ -39,7 +47,9 @@ from typing import Deque, Dict, List, Optional, Sequence, Set, Union
 import numpy as np
 
 from ..core.graphrep import CsrRep, GraphRep, SparseRep, get_rep
-from ..core.inference import MAX_D, check_solve_options, init_solve_state
+from ..core.inference import (MAX_D, check_solve_options, gather_batch,
+                              init_solve_state)
+from ..core.mesh import make_mesh, normalize_spatial
 from ..core.policy import Policy, PolicyConfig
 from ..device import DeviceLike, resolve_device, synchronize
 from .bucketing import (MIN_BUCKET, BatchPlan, bucket_nodes, build_plan,
@@ -138,8 +148,9 @@ class GraphSolverService:
     Parameters
     ----------
     params : the policy, on ``device``.
-    cfg : PolicyConfig — supplies num_layers, kernel, compute and, unless
-        ``rep`` is given, the representation; ``spatial`` must be 0.
+    cfg : PolicyConfig — supplies num_layers, kernel, compute, the mesh
+        (``spatial``: (dp, sp) on a mesh of dp·sp ranks, see above) and,
+        unless ``rep`` is given, the representation.
     device : where batches are solved; ``"cuda"`` unless the caller asks
         for the CPU.
     rep : "dense", "sparse" or "csr" (default: ``cfg.graph_rep``).
@@ -152,7 +163,8 @@ class GraphSolverService:
         graph with more directed edges is rejected at submission, never
         truncated.
     multi_node : adaptive top-d commit schedule (§4.5.1) per evaluation.
-    max_batch : rows per dispatch; every batch is padded to exactly this.
+    max_batch : rows per dispatch and data rank; every batch is padded to
+        exactly ``max_batch · dp`` rows.
     max_wait_ms, max_queue_depth, default_deadline_ms, starvation_factor :
         the async scheduler's knobs (see ``scheduler``).
     """
@@ -168,7 +180,7 @@ class GraphSolverService:
                  max_queue_depth: int = 512,
                  default_deadline_ms: Optional[float] = None,
                  starvation_factor: float = 2.0):
-        from ..core.engine import get_solve_step
+        from ..core.engine import _check_csr_spatial, get_solve_step
         self.device = resolve_device(device)
         if params.device != self.device:
             raise ValueError(f"the policy is on {params.device}, the "
@@ -177,12 +189,18 @@ class GraphSolverService:
         self.params = params
         self.cfg = cfg
         self.rep = get_rep(rep if rep is not None else cfg.graph_rep)
+        self.mesh_shape = normalize_spatial(cfg.spatial)      # (dp, sp)
+        self.mesh = None
+        if self.mesh_shape != (1, 1):
+            _check_csr_spatial(self.rep, self.mesh_shape[1])
+            self.mesh = make_mesh(*self.mesh_shape)
         self.sparse_max_degree = sparse_max_degree
         self.csr_max_edges = csr_max_edges
         self._bucket_reps: Dict[int, GraphRep] = {}
         self.multi_node = multi_node
         self.max_batch = max_batch
-        self.rows_per_dispatch = max_batch
+        # max_batch rows on each data rank
+        self.rows_per_dispatch = max_batch * self.mesh_shape[0]
         self.min_bucket = min_bucket
         self.default_deadline_ms = default_deadline_ms
         self.stats = ServiceStats()
@@ -262,7 +280,12 @@ class GraphSolverService:
                      deadline_ms: Optional[float] = None) -> SolveFuture:
         """Async mode: admit one graph into the deadline scheduler and
         return a :class:`SolveFuture`.  Raises :class:`ServiceOverloaded`
-        at the admission bound."""
+        at the admission bound, and ``NotImplementedError`` on a mesh."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "async serving on a mesh is not ported: its batching follows "
+                "each rank's clock, so the ranks would plan different "
+                "dispatches (ROADMAP A6/A9); use the sync serve()/drain()")
         adj = self._validate(adj, problem)
         if deadline_ms is None:
             deadline_ms = self.default_deadline_ms
@@ -304,7 +327,8 @@ class GraphSolverService:
 
     def _key(self, nb: int, problem: str) -> tuple:
         return (nb, problem, self.rep.name, self.multi_node,
-                self.cfg.num_layers, self.cfg.kernel, self.cfg.compute)
+                self.cfg.num_layers, self.mesh_shape, self.cfg.kernel,
+                self.cfg.compute)
 
     def _solve_fn(self, nb: int, problem: str):
         rep = self._bucket_rep(nb)
@@ -313,7 +337,7 @@ class GraphSolverService:
             fn = self._get_solve_step(
                 rep=rep, problem=problem,
                 num_layers=self.cfg.num_layers,
-                use_adaptive=self.multi_node,
+                use_adaptive=self.multi_node, spatial=self.mesh_shape,
                 kernel=self.cfg.kernel, compute=self.cfg.compute)
             self._solve[(rep, problem)] = fn
         return fn
@@ -332,7 +356,7 @@ class GraphSolverService:
         dummy = np.zeros((self.rows_per_dispatch, nb, nb), np.float32)
         t0 = time.perf_counter()
         state = init_solve_state(self._bucket_rep(nb), dummy, problem,
-                                 device=self.device)
+                                 device=self.device, mesh=self.mesh)
         self._solve_fn(nb, problem)(self.params, state, nb + MAX_D)
         synchronize(self.device)
         self.stats.compile_seconds += time.perf_counter() - t0
@@ -366,10 +390,11 @@ class GraphSolverService:
         self._ensure_dispatched(plan.nb, plan.problem)
         t0 = time.perf_counter()
         state = init_solve_state(self._bucket_rep(plan.nb), plan.adj,
-                                 plan.problem, device=self.device)
+                                 plan.problem, device=self.device,
+                                 mesh=self.mesh)
         out, evals, _committed = self._solve_fn(plan.nb, plan.problem)(
             self.params, state, plan.nb + MAX_D)
-        sol = out.solution.cpu().numpy()         # waits for the device
+        sol, = gather_batch(self.mesh, out.solution)  # waits for the device
         t1 = time.perf_counter()
         self.stats.solve_seconds += t1 - t0
         self.stats.batches += 1

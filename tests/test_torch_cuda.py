@@ -1,8 +1,10 @@
 """The port on an NVIDIA GPU: each CUDA kernel (the dense, padded-sparse
-and CSR fused S2V layers and the sparse aggregation) against its plain
-version, and the solve and service paths through them.  Every test here
-needs a card and skips, saying so, without one.  The file imports neither
-jax nor the JAX package, so it also runs where only torch is installed:
+and CSR fused S2V layers, the dense aggregate of the mesh path and the
+sparse aggregation) against its plain version, and the solve and service
+paths through them, on one device and on a two-rank mesh sharing the
+card.  Every test here needs a card and skips, saying so, without one.
+The file imports neither jax nor the JAX package, so it also runs where
+only torch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -16,10 +18,13 @@ from repro_torch.core import (CSR, DENSE, SPARSE, PolicyConfig,
                               init_solve_state, solve,
                               sparse_batch_from_dense)
 from repro_torch.core.graphs import erdos_renyi, random_graph_batch
+from repro_torch.core.mesh import spawn_mesh
+from repro_torch.kernels import build
 from repro_torch.kernels import s2v_csr as kc
 from repro_torch.kernels import s2v_fused as ks
 from repro_torch.kernels import s2v_gather as kg
 from repro_torch.serving import GraphSolverService
+from torch_mesh_ranks import solve_on_card
 
 pytestmark = pytest.mark.cuda
 
@@ -246,3 +251,63 @@ def test_sparse_and_csr_service_on_the_card(cuda, rep):
         assert (r.solution == s.solution).all()
         keep = r.solution < 0.5
         assert a[np.ix_(keep, keep)].sum() == 0
+
+
+@pytest.mark.parametrize("compute", ["f32", "bf16"])
+def test_mp_aggregate_matches_plain_on_the_card(cuda, compute):
+    """K of 5..32, Nl = N and Nl < N (a row block), ragged sizes (N % 4
+    != 0 takes the 4-byte copy path); columns with no adjacency give
+    exact zeros."""
+    for b, k, nl, n in ((2, 5, 33, 33), (2, 32, 50, 72), (1, 16, 1000, 2003),
+                        (3, 32, 128, 512)):
+        _, embed, adj, _ = (t.to(cuda) for t in _layer_inputs(b, k, nl, n))
+        adj[:, :, -7:] = 0.0
+        before = ks.mp_aggregate.launches
+        out = ks.mp_aggregate(embed, adj, compute)
+        torch.cuda.synchronize()
+        assert ks.mp_aggregate.launches == before + 1
+        assert out.shape == (b, k, n)
+        torch.testing.assert_close(out, ks.mp_aggregate_plain(embed, adj,
+                                                              compute),
+                                   **TOL[compute])
+        assert not out[:, :, -7:].any()
+
+
+def test_sparse_aggregate_at_row_blocks_on_the_card(cuda):
+    """B4 on the lists of a row block (Nl < N, global ids) equals its
+    plain version and the whole-graph call's rows."""
+    for b, k, n, rho, iso, width in CASES:
+        sp, _, edge, _, x, _, _ = _graph_inputs(b, k, n, rho, k + 3, iso,
+                                                width)
+        xp = torch.nn.functional.pad(x, (0, 1)).to(cuda)
+        whole = kg.sparse_mp_aggregate(xp, sp.neighbors.to(cuda),
+                                       edge.to(cuda))
+        lo, hi = n // 3, 2 * n // 3
+        args = (xp, sp.neighbors[:, lo:hi].contiguous().to(cuda),
+                edge[:, lo:hi].contiguous().to(cuda))
+        out = kg.sparse_mp_aggregate(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, kg.sparse_mp_aggregate_plain(*args),
+                                   **TOL["f32"])
+        assert torch.equal(out, whole[:, :, lo:hi])
+
+
+def test_two_rank_gloo_mesh_solve_on_one_card(cuda):
+    """A (1, 2) mesh of two ranks sharing the card over gloo: valid covers,
+    the mesh kernels launched once per evaluation on each rank."""
+    policy = init_policy(PolicyConfig(embed_dim=32),
+                         generator=torch.Generator().manual_seed(0),
+                         device="cpu")
+    adj = random_graph_batch("er", 64, 4, seed=1, rho=0.2)
+    for name in ("s2v_fused", "s2v_gather"):    # built here, not by the ranks
+        build.load(name)
+    ranks = spawn_mesh(solve_on_card, 1, 2, device="cuda", backend="gloo",
+                       timeout_s=300, args=(policy_to_numpy(policy), adj))
+    for out in ranks:
+        for rep in ("dense", "sparse"):
+            sol, evals, launches = out[rep]
+            assert launches == evals
+            assert (sol == ranks[0][rep][0]).all()
+            for g in range(adj.shape[0]):
+                keep = sol[g] < 0.5
+                assert adj[g][np.ix_(keep, keep)].sum() == 0

@@ -16,6 +16,7 @@ from repro.core import random_graph_batch
 from repro_torch.convert import policy_from_numpy
 from repro_torch.core import (PolicyConfig, init_policy, init_state,
                               policy_scores)
+from repro_torch.core.mesh import single_axis
 from repro_torch.core.s2v import embed_local
 
 # f32 sums in another order than XLA's; bf16 rounds every matmul operand
@@ -111,11 +112,18 @@ def test_init_policy_is_seeded_and_keyed_like_jax():
 
 
 def test_sharded_embedding_is_not_ported():
+    """What of the sharded embedding is still unported: its backward
+    (A4).  A bare axis name, with no mesh behind it, is refused."""
     _, policy = _pair(8)
-    st = init_state(np.zeros((1, 4, 4), np.float32), device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
+    st = init_state(random_graph_batch("er", 12, 1, seed=0, rho=0.4),
+                    device="cpu")
+    with pytest.raises(TypeError, match="mesh axis"):
         embed_local(policy.em, st.adj, st.solution, num_layers=2,
                     axis="graph")
+    emb = embed_local(policy.em, st.adj, st.solution, num_layers=2,
+                      axis=single_axis("graph"))
+    with pytest.raises(NotImplementedError, match="A4"):
+        emb.sum().backward()
 
 
 def test_fused_layer_has_no_backward_yet():

@@ -148,9 +148,14 @@ def test_service_rejects_bad_input_and_unported_options(pair):
     with pytest.raises(ValueError, match="graph representation"):
         GraphSolverService(policy, dataclasses.replace(cfg, graph_rep="coo"),
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
+    # a mesh service (tests/test_torch_mesh.py) needs its ranks' process
+    # group, and refuses CSR at sp > 1
+    with pytest.raises(RuntimeError, match="spawn_mesh"):
         GraphSolverService(policy, dataclasses.replace(cfg, spatial=(2, 1)),
                            device="cpu")
+    with pytest.raises(ValueError, match="does not support spatial"):
+        GraphSolverService(policy, dataclasses.replace(cfg, spatial=(1, 2)),
+                           rep="csr", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             GraphSolverService(policy, cfg)

@@ -166,10 +166,17 @@ def test_unported_options_raise_not_implemented(pair):
     adj = random_graph_batch("er", 10, 1, seed=0, rho=0.3)
     for kw, item in ((dict(problem="maxcut"), "A5"),
                      (dict(rep="sparse", problem="mis"), "A5"),
-                     (dict(rep="csr", spatial=2), "A9"),
-                     (dict(spatial=2), "A9"),
                      (dict(engine="host"), "ROADMAP")):
         with pytest.raises(NotImplementedError, match=item):
+            solve(policy, adj, device="cpu", **kw)
+    # a mesh solve (tests/test_torch_mesh.py) refuses CSR at sp > 1 and
+    # the host engine, and needs its ranks' process group
+    for kw, err, msg in ((dict(rep="csr", spatial=2), ValueError,
+                          "does not support spatial"),
+                         (dict(engine="host", spatial=2), ValueError,
+                          "fused path only"),
+                         (dict(spatial=2), RuntimeError, "spawn_mesh")):
+        with pytest.raises(err, match=msg):
             solve(policy, adj, device="cpu", **kw)
     with pytest.raises(ValueError):
         solve(policy, adj, device="cpu", problem="bogus")

@@ -26,6 +26,7 @@ from repro_torch.core import (SPARSE, SparseRep, env, init_solve_state,
                               rep_for_state, solve, sparse_batch_from_dense,
                               sparse_init_state)
 from repro_torch.core.graphs import SparseGraphState, residual_edge_mask
+from repro_torch.core.mesh import single_axis
 from repro_torch.core.s2v_sparse import (edge_factors, embed_sparse,
                                          embed_sparse_local,
                                          sparse_state_bytes)
@@ -218,7 +219,10 @@ def test_unported_sparse_modes_raise(pair):
     sol = torch.zeros(g.neighbors.shape[:2])
     with pytest.raises(NotImplementedError, match="A5"):
         edge_factors(g.neighbors, g.valid, sol, "closed")
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="A5"):
+        edge_factors(g.neighbors, g.valid, sol, "closed",
+                     axis=single_axis("graph"))
+    with pytest.raises(TypeError, match="mesh axis"):
         embed_sparse_local(policy.em, g.neighbors, g.valid.float(), sol,
                            num_layers=2, axis="graph")
     with pytest.raises(NotImplementedError, match="A4"):
