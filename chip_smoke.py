@@ -20,6 +20,15 @@ Phases (any failed check raises, so the script exits non-zero):
    the serving bucket (B=8, N=4096, D=768, 2.5M edge slots per graph) and
    the paper-scale graph (B=1, N=20480, ~62.9M directed edges); the CSR
    layer also on BA(N=1M, d=10) (~20.0M directed edges).
+1b. The LM kernel entry point, ``repro_torch.kernels.ops`` (phase
+   lm_kernels): with the counts at 0, one call each of ``wkv6`` (rwkv6-7b:
+   BH=128, T=4096, 64x64 heads, chunk 64), ``swa`` (gemma3-4b's local
+   layers: BH=16, T=8192, d=256, window 1024) and ``grouped_glu_ffn``
+   (qwen2-moe-a2.7b: E=60, C=320, d=2048, f=1408), which must launch
+   1, 1 and 2 kernels and give finite outputs; then each kernel against its
+   plain version and the f64 oracle (the sequential scan for wkv6) at
+   those widths and at ragged, bf16, other-chunk and other-window cases
+   (``phase_lm_kernels``), and their times beside the bounds.
 2. Served requests: GraphSolverService at K=32, L=2, multi-node
    selection, max_batch=8, warmed up, answers 16 ER(0.15) graphs of
    500..4000 nodes, on the dense, the sparse (sparse_max_degree=768) and
@@ -53,10 +62,12 @@ Phases (any failed check raises, so the script exits non-zero):
 7. Where an evaluation's time goes (torch.profiler over 20 evaluations of
    a full 4096-node bucket, per rep), then timings: each kernel, its plain
    version and a library yardstick (CUDA events around 10 back-to-back
-   calls, median of 30 such samples after warm-up) beside its bound.
+   calls, median of 30 such samples after warm-up) beside its bound
+   (the LM kernels' times are taken in phase 1b).
 
 It prints diagnostic JSON lines (each phase's seconds among them), the
-nvidia-smi name and power limit, one ``{"kernels": [...]}`` line, and last
+nvidia-smi name and power limit, one ``{"kernels": [...]}`` line (all eight
+kernels), and last
 ``{"ok": true, "device": {...}}``.  It exits non-zero without a CUDA
 device, and outside a checkout.
 """
@@ -65,6 +76,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -106,6 +118,17 @@ MESH_SERVE_SIZES = (500, 1000)   # its served graphs: the stream's smallest
 PAPER_MESH = (("dense", (1, 2)), ("dense", (1, 4)), ("sparse", (1, 4)))
 MESH_TIMEOUT_S = 420.0           # one spawn, its paper-scale solves included
 TIMING_BUDGET_S = 1.0            # per timed function (see cuda_ms)
+# The LM kernels at the full width of the models the repo ships for them:
+# rwkv6-7b's time mix, B=2 x 64 heads of 64 channels, T=4096, chunk 64
+WKV_FULL = (2 * 64, 4096, 64, 64, 64)        # BH, T, dk, dv, chunk
+# gemma3-4b's local layers: B=2 x 8 query heads (4 KV heads repeated),
+# T=8192, head_dim 256, window 1024
+SWA_FULL = (2 * 8, 8192, 256, 1024)          # BH, T, d, window
+# qwen2-moe-a2.7b's 60 experts (d=2048, f=1408) at C=320, the all-reduce
+# capacity int(T*k/ep*1.25) of models/ffn.py for T=4096, k=4, ep=64
+GLU_FULL = (60, 320, 2048, 1408)             # E, C, d, f
+W_TPU_MIN = 0.55                 # wkv6 decays at chunk 64 (wkv6.py:17-18)
+W_MODEL_MIN = math.exp(-math.e)  # the model's decays (models/rwkv.py:128)
 # (name, B, K, N, density, real nodes, list width, edge slots) of the
 # sparse and CSR checks; None derives the width and slots from the graph
 GRAPH_CASES = (("ragged", 2, 16, 40, 0.3, None, None, None),
@@ -169,13 +192,16 @@ def kernel_modules():
 
 
 def kernel_fns():
-    """The five kernel wrappers, by name."""
+    """The eight kernel wrappers, by name."""
+    from repro_torch.kernels import ops
     ks, kg, kc = kernel_modules()
     return {"fused_s2v_layer": ks.fused_s2v_layer,
             "mp_aggregate": ks.mp_aggregate,
             "fused_s2v_layer_sparse": ks.fused_s2v_layer_sparse,
             "sparse_mp_aggregate": kg.sparse_mp_aggregate,
-            "fused_s2v_layer_csr": kc.fused_s2v_layer_csr}
+            "fused_s2v_layer_csr": kc.fused_s2v_layer_csr,
+            "wkv6_chunked": ops.wkv6, "swa_attention": ops.swa,
+            "grouped_glu_ffn": ops.grouped_glu_ffn}
 
 
 def reset_counts() -> None:
@@ -246,7 +272,7 @@ def graph_tol(compute: str) -> float:
 
 
 def compare(torch, rows, failures, kernel, case, compute, out, want, exact,
-            terms, shape, scale=None):
+            terms, shape, scale=None, tol=None, gate_f64=False):
     """Record one kernel-vs-plain comparison (and, at f32, both against
     the f64 result ``exact``); a failure is collected, not raised, so that
     every case is printed first.
@@ -258,33 +284,43 @@ def compare(torch, rows, failures, kernel, case, compute, out, want, exact,
     with ``graph_tol(compute)``, the componentwise bound that rounding
     error analysis gives a sum in any order.  It is needed where the θ4
     product cancels large aggregates, as it does for the non-negative
-    (ReLU) embeddings these kernels are given."""
+    (ReLU) embeddings these kernels are given.  ``tol`` overrides either
+    default; with ``gate_f64`` the kernel is held to ``exact`` by the same
+    rule as well (|exact| in place of |want|)."""
     diff = (out - want).abs()
-    if scale is None:
-        tol = kernel_tol(compute, terms)
-        denom = tol + tol * want.abs()
-    else:
-        tol = graph_tol(compute)
-        denom = tol + tol * scale
+    if tol is None:
+        tol = kernel_tol(compute, terms) if scale is None else graph_tol(
+            compute)
+    s = want.abs() if scale is None else scale
     row = {"phase": "kernel_vs_plain", "kernel": kernel, "case": case,
            **shape, "compute": compute, "max_abs_err": float(diff.max()),
            "max_abs_want": float(want.abs().max()),
            "rule": "|want|" if scale is None else "sum of |terms|",
            # >1 fails
-           "worst_ratio_to_tol": float((diff / denom).max()), "tol": tol}
+           "worst_ratio_to_tol": float((diff / (tol + tol * s)).max()),
+           "tol": tol}
     if scale is not None:
         # the same difference under the |want| rule, for reference
         row["worst_ratio_to_1e-5_of_want"] = float(
             (diff / (1e-5 + 1e-5 * want.abs())).max())
     if exact is not None:
-        row["kernel_err_vs_f64"] = float((out.double() - exact).abs().max())
+        diff64 = (out.double() - exact).abs()
+        row["kernel_err_vs_f64"] = float(diff64.max())
         row["plain_err_vs_f64"] = float((want.double() - exact).abs().max())
+        if gate_f64:
+            s = exact.abs() if scale is None else scale
+            row["worst_ratio_vs_f64"] = float(
+                (diff64 / (tol + tol * s)).max())     # >1 fails
     emit(row)
     rows.append(row)
     # torch.testing.assert_close's rule; a NaN ratio fails too
     if out.shape != want.shape or not row["worst_ratio_to_tol"] <= 1:
         failures.append(f"{kernel} {case} {compute}: max abs err "
                         f"{row['max_abs_err']}, rtol=atol={tol}")
+    if gate_f64 and (out.shape != exact.shape
+                     or not row["worst_ratio_vs_f64"] <= 1):
+        failures.append(f"{kernel} {case} {compute} vs f64: max abs err "
+                        f"{row['kernel_err_vs_f64']}, rtol=atol={tol}")
 
 
 def phase_kernel(torch, ks, dev, rows, failures):
@@ -347,6 +383,266 @@ def phase_agg_kernel(torch, ks, dev, rows, failures):
                                 f"columns must give 0")
         del embed, adj, exact, out
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase 1b: the LM kernel entry point (repro_torch.kernels.ops).
+# ---------------------------------------------------------------------------
+
+def lm_tol(kernel: str) -> float:
+    """rtol = atol of an LM kernel against its plain version and against
+    the function computed in f64.
+
+    wkv6_chunked: 3e-4, the JAX suite's bar for the chunked form against
+    the sequential scan (tests/test_kernels.py): the chunk formula's
+    exponents reach c·|log w| (~40), so each exp is ~40 ulp from exact.
+    swa_attention: 1e-4, the JAX suite's bar (a softmax-weighted mean of
+    values of size ~1).  grouped_glu_ffn: componentwise against the sum of
+    |terms| (``glu_exact``), at ``graph_tol("f32")`` = 1e-5, the rule of
+    the sparse and CSR kernels for long sums: at d=2048 and f=1408 the
+    outputs are sums of thousands of terms that cancel, so |want| is no
+    measure of their rounding."""
+    return {"wkv6_chunked": 3e-4, "swa_attention": 1e-4,
+            "grouped_glu_ffn": graph_tol("f32")}[kernel]
+
+
+def wkv6_inputs(torch, dev, bh, t, dk, dv, w_min, seed):
+    """r, k in 0.5·N(0,1), v in N(0,1), u in 0.3·N(0,1) (as
+    tests/test_kernels.py) and decays w uniform in [w_min, 1)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    w = w_min + (1 - w_min) * torch.rand((bh, t, dk), generator=g,
+                                         device=dev)
+    return (randn(bh, t, dk) * 0.5, randn(bh, t, dk) * 0.5, randn(bh, t, dv),
+            w, randn(bh, dk) * 0.3)
+
+
+def wkv6_scan64(torch, r, k, v, w, u):
+    """The sequential scan of ref.wkv6, in f64: the independent oracle."""
+    r, k, v, w, u = (a.double() for a in (r, k, v, w, u))
+    bh, t, dk = r.shape
+    s = torch.zeros((bh, dk, v.shape[2]), dtype=torch.float64,
+                    device=r.device)
+    out = torch.empty(v.shape, dtype=torch.float64, device=r.device)
+    for i in range(t):
+        kv = k[:, i, :, None] * v[:, i, None, :]
+        out[:, i] = torch.bmm(r[:, i, None, :], s + u[:, :, None] * kv)[:, 0]
+        s = w[:, i, :, None] * s + kv
+    return out, s
+
+
+def swa_exact(torch, q, k, v, window):
+    """The masked softmax of ref.swa in f64, over blocks of 512 queries,
+    each against the keys its window reaches."""
+    bh, t, d = q.shape
+    q, k, v = (a.double() for a in (q, k, v))
+    out = torch.empty_like(q)
+    for q0 in range(0, t, 512):
+        q1 = min(q0 + 512, t)
+        k0 = max(0, q0 - window + 1)
+        logits = (q[:, q0:q1] @ k[:, k0:q1].transpose(1, 2)) * d ** -0.5
+        qi = torch.arange(q0, q1, device=q.device)[:, None]
+        kj = torch.arange(k0, q1, device=q.device)[None, :]
+        seen = (kj <= qi) & (kj > qi - window)
+        out[:, q0:q1] = torch.softmax(logits.masked_fill(~seen, -math.inf),
+                                      dim=-1) @ v[:, k0:q1]
+    return out
+
+
+def glu_exact(torch, x, wg, wu, wo):
+    """(the GLU FFN in f64, the sum of |terms| behind each output): the
+    terms of h = silu(g)·u carry g's and u's sums (|silu'(g)·u|·|x|@|wg|
+    + |silu(g)|·|x|@|wu|) beside |h|, and each output sums those through
+    |wo|."""
+    x, wg, wu, wo = (a.double() for a in (x, wg, wu, wo))
+    g, u = torch.bmm(x, wg), torch.bmm(x, wu)
+    sig = torch.sigmoid(g)
+    silu = g * sig
+    h = silu * u
+    y = torch.bmm(h, wo)
+    dsilu = sig * (1 + g * (1 - sig))
+    terms_h = (h.abs() + (dsilu * u).abs() * torch.bmm(x.abs(), wg.abs())
+               + silu.abs() * torch.bmm(x.abs(), wu.abs()))
+    return y, torch.bmm(terms_h, wo.abs())
+
+
+def glu_inputs(torch, dev, e, c, d, f, seed):
+    """x in N(0,1), weights in N(0,1)/sqrt(fan-in), as a model holds them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    return (randn(e, c, d), randn(e, d, f) * d ** -0.5,
+            randn(e, d, f) * d ** -0.5, randn(e, f, d) * f ** -0.5)
+
+
+def wkv6_bound(bh, t, dk, dv, c):
+    """r, k, w, v, u in, out and the final state out; per chunk and head
+    the multiply-adds the chunk formula needs: the strict lower triangle of
+    a = qp kpᵀ (c(c-1)/2·dk) and its diagonal bonus (c·dk), a v over the
+    lower triangle with the diagonal (c(c+1)/2·dv), qp S and kdᵀ v
+    (c·dk·dv each); two FLOPs per multiply-add."""
+    macs = (c * (c - 1) // 2 * dk + c * dk + c * (c + 1) // 2 * dv
+            + 2 * c * dk * dv)
+    return bound(4 * (bh * t * (3 * dk + 2 * dv) + bh * dk + bh * dk * dv),
+                 2 * bh * (t // c) * macs)
+
+
+def swa_bound(bh, t, d, window):
+    """q, k, v in, out out; 4·d FLOPs for each visible (query, key) pair,
+    of which query i has min(i + 1, window)."""
+    w = min(window, t)
+    pairs = bh * (w * (w + 1) // 2 + (t - w) * w)
+    return bound(4 * 4 * bh * t * d, 4 * d * pairs)
+
+
+def glu_bound(e, c, d, f):
+    """x and the three weights in, y out (the f32 scratch h is the
+    kernel's, not the function's); three (C, d, f) products per expert."""
+    return bound(4 * (2 * e * c * d + 3 * e * d * f), 6 * e * c * d * f)
+
+
+def phase_lm_kernels(torch, dev, rows, failures):
+    """Phase 1b: the three LM kernels through ``repro_torch.kernels.ops``.
+
+    The main path: with every launch count at 0, one call of each at full
+    width (rwkv6-7b, gemma3-4b's local layers, qwen2-moe-a2.7b), outputs
+    finite and of the expected shape.  Then each kernel against its plain
+    version and the f64 oracle: wkv6 at full width (chunk 64, w >= 0.55,
+    the TPU kernel's domain; and chunk 16 over the model's decay range
+    [exp(-e), 1), as launch/serve.py runs it), a ragged small case (BH=3,
+    dv=24) at chunks 16, 32 and 64, bf16 inputs; swa at full width, a
+    window that is not tile-aligned (200), a window >= T (causal) and a T
+    that is not a multiple of the 64-query tile; the GLU at full width and
+    at the ragged (3, 100, 72, 90).  Last, times beside the bounds.
+    Returns ({name: launches}, {name: timing row})."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.moe_gemm import grouped_glu_ffn_plain
+    from repro_torch.kernels.swa import swa_attention_plain
+    from repro_torch.kernels.wkv6 import wkv6_chunked_plain
+
+    bh, t, dk, dv, chunk = WKV_FULL
+    wkv = wkv6_inputs(torch, dev, bh, t, dk, dv, W_TPU_MIN, SEED + 61)
+    sbh, st, sd, window = SWA_FULL
+    g = torch.Generator(device=dev).manual_seed(SEED + 62)
+    qkv = [torch.randn((sbh, st, sd), generator=g, device=dev)
+           for _ in range(3)]
+    glu = glu_inputs(torch, dev, *GLU_FULL, SEED + 63)
+    torch.cuda.synchronize()
+    reset_counts()
+    out, sfin = ops.wkv6(*wkv, chunk=chunk)
+    att = ops.swa(*qkv, window=window)
+    y = ops.grouped_glu_ffn(*glu)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    launches = {n: counts[n] for n in ("wkv6_chunked", "swa_attention",
+                                       "grouped_glu_ffn")}
+    emit({"phase": "lm_main_path", "launches": launches})
+    for name, o, shape in (("wkv6 out", out, (bh, t, dv)),
+                           ("wkv6 state", sfin, (bh, dk, dv)),
+                           ("swa", att, (sbh, st, sd)),
+                           ("grouped_glu_ffn", y, GLU_FULL[:2] + GLU_FULL[2:3])):
+        if tuple(o.shape) != shape or not bool(torch.isfinite(o).all()):
+            failures.append(f"{name}: shape {tuple(o.shape)} (want {shape}) "
+                            f"or non-finite values on the main path")
+    if launches != {"wkv6_chunked": 1, "swa_attention": 1,
+                    "grouped_glu_ffn": 2}:
+        failures.append(f"LM main path launched {launches}, want 1, 1, 2")
+
+    def wkv_case(case, args, c, compute="f32", got=None):
+        got = got or ops.wkv6(*args, chunk=c)
+        want = wkv6_chunked_plain(*args, chunk=c)
+        exact = wkv6_scan64(torch, *args)
+        shape = {"BH": args[0].shape[0], "T": args[0].shape[1],
+                 "dk": args[0].shape[2], "dv": args[2].shape[2], "chunk": c,
+                 "w_min": float(args[3].min())}
+        for part, i in (("out", 0), ("state", 1)):
+            compare(torch, rows, failures, "wkv6_chunked", f"{case}/{part}",
+                    compute, got[i], want[i], exact[i], None, shape,
+                    tol=lm_tol("wkv6_chunked"), gate_f64=True)
+
+    wkv_case("full", wkv, chunk, got=(out, sfin))
+    del out, sfin
+    wkv_case("full_model_decays", wkv6_inputs(torch, dev, bh, t, dk, dv,
+                                              W_MODEL_MIN, SEED + 64), 16)
+    small = wkv6_inputs(torch, dev, 3, 128, 16, 24, W_TPU_MIN, SEED + 65)
+    for c in (16, 32, 64):
+        wkv_case(f"ragged_c{c}", small, c)
+    half = [a.bfloat16() for a in wkv6_inputs(torch, dev, 8, 256, 64, 64,
+                                              W_TPU_MIN, SEED + 66)]
+    wkv_case("bf16", half, 64, "bf16")
+
+    def swa_case(case, args, win, got=None):
+        got = got if got is not None else ops.swa(*args, window=win)
+        b_, t_, d_ = args[0].shape
+        compare(torch, rows, failures, "swa_attention", case, "f32", got,
+                swa_attention_plain(*args, window=win),
+                swa_exact(torch, *args, win), None,
+                {"BH": b_, "T": t_, "d": d_, "window": win},
+                tol=lm_tol("swa_attention"), gate_f64=True)
+
+    swa_case("full", qkv, window, att)
+    del att
+    for case, b_, t_, d_, win, seed in (("window200", 2, 1024, 256, 200, 67),
+                                        ("causal", 2, 512, 128, 4096, 68),
+                                        ("ragged_T", 3, 1000, 64, 300, 69)):
+        g = torch.Generator(device=dev).manual_seed(SEED + seed)
+        swa_case(case, [torch.randn((b_, t_, d_), generator=g, device=dev)
+                        for _ in range(3)], win)
+
+    def glu_case(case, args, got=None):
+        got = got if got is not None else ops.grouped_glu_ffn(*args)
+        exact, scale = glu_exact(torch, *args)
+        e_, c_, d_ = args[0].shape
+        compare(torch, rows, failures, "grouped_glu_ffn", case, "f32", got,
+                grouped_glu_ffn_plain(*args), exact, None,
+                {"E": e_, "C": c_, "d": d_, "f": args[1].shape[2]}, scale,
+                tol=lm_tol("grouped_glu_ffn"), gate_f64=True)
+
+    glu_case("full", glu, y)
+    del y
+    glu_case("ragged", glu_inputs(torch, dev, 3, 100, 72, 90, SEED + 70))
+    torch.cuda.empty_cache()
+
+    timing = {}
+    row = {"BH": bh, "T": t, "dk": dk, "dv": dv, "chunk": chunk}
+    row["bound_ms"], row["bound_by"] = wkv6_bound(bh, t, dk, dv, chunk)
+    row["ms_f32"] = cuda_ms(torch, lambda: ops.wkv6(*wkv, chunk=chunk))
+    row["plain_ms"] = cuda_ms(torch, lambda: wkv6_chunked_plain(
+        *wkv, chunk=chunk))
+    row["library_ms"] = None     # no single PyTorch call computes it
+    timing["wkv6_chunked"] = row
+    row = {"BH": sbh, "T": st, "d": sd, "window": window}
+    row["bound_ms"], row["bound_by"] = swa_bound(sbh, st, sd, window)
+    row["ms_f32"] = cuda_ms(torch, lambda: ops.swa(*qkv, window=window))
+    row["plain_ms"] = cuda_ms(torch, lambda: swa_attention_plain(
+        *qkv, window=window))
+    idx = torch.arange(st, device=dev)
+    mask = (idx[None, :] <= idx[:, None]) & (idx[None, :]
+                                             > idx[:, None] - window)
+    heads = [a[None] for a in qkv]          # (1, BH, T, d)
+    row["library_ms"] = cuda_ms(
+        torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            *heads, attn_mask=mask))
+    timing["swa_attention"] = row
+    del mask, qkv, heads
+    torch.cuda.empty_cache()
+    e, c, d, f = GLU_FULL
+    row = {"E": e, "C": c, "d": d, "f": f}
+    row["bound_ms"], row["bound_by"] = glu_bound(e, c, d, f)
+    row["ms_f32"] = cuda_ms(torch, lambda: ops.grouped_glu_ffn(*glu))
+    row["plain_ms"] = cuda_ms(torch, lambda: grouped_glu_ffn_plain(*glu))
+    x, wg, wu, wo = glu
+    row["library_ms"] = cuda_ms(torch, lambda: torch.bmm(
+        torch.nn.functional.silu(torch.bmm(x, wg)) * torch.bmm(x, wu), wo))
+    timing["grouped_glu_ffn"] = row
+    for name, r in timing.items():
+        emit({"phase": "timing", "kernel": name, "shape": "full", **r})
+    del glu, x, wg, wu, wo, wkv
+    torch.cuda.empty_cache()
+    return launches, timing
 
 
 # ---------------------------------------------------------------------------
@@ -1461,6 +1757,12 @@ REPLACES = {
                             "src/repro/kernels/s2v_gather.py:53"),
     "fused_s2v_layer_csr": ("src/repro_torch/kernels/csrc/s2v_csr.cu",
                             "src/repro/kernels/s2v_csr.py:83"),
+    "wkv6_chunked": ("src/repro_torch/kernels/csrc/wkv6.cu",
+                     "src/repro/kernels/wkv6.py:75"),
+    "swa_attention": ("src/repro_torch/kernels/csrc/swa.cu",
+                      "src/repro/kernels/swa.py:69"),
+    "grouped_glu_ffn": ("src/repro_torch/kernels/csrc/moe_gemm.cu",
+                        "src/repro/kernels/moe_gemm.py:67"),
 }
 
 
@@ -1485,13 +1787,14 @@ def main() -> int:
     t_all = time.perf_counter()
     with timed_phase("build"):
         t0 = time.perf_counter()
-        for name in ("s2v_fused", "s2v_gather", "s2v_csr"):   # one nvcc each
+        sources = build.sources()
+        for name in sources:       # the first load builds all, one nvcc each
             build.load(name)
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "ptxas": {name: [ln.strip() for ln in
                                build.build_log(name).splitlines()
                                if "registers" in ln or "spill" in ln]
-                        for name in ("s2v_fused", "s2v_gather", "s2v_csr")}})
+                        for name in sources}})
 
     from repro_torch.core.graphs import csr_batch_from_arrays
     ba_pool = concurrent.futures.ThreadPoolExecutor(1)
@@ -1504,6 +1807,11 @@ def main() -> int:
     if failures:
         raise AssertionError("a kernel disagrees with its plain version:\n"
                              + "\n".join(failures))
+    with timed_phase("lm_kernels"):
+        lm_launches, lm_timing = phase_lm_kernels(torch, dev, rows, failures)
+    if failures:
+        raise AssertionError("an LM kernel disagrees with its plain version "
+                             "or with f64:\n" + "\n".join(failures))
 
     cfg = PolicyConfig(embed_dim=32, num_layers=2)
     policy = init_policy(cfg, generator=torch.Generator().manual_seed(
@@ -1512,7 +1820,7 @@ def main() -> int:
     sizes = rng.permutation(np.tile(SERVE_SIZES, 4))    # 16 requests
     adjs = [erdos_renyi(int(n), 0.15, seed=1000 + i)
             for i, n in enumerate(sizes)]
-    launches = {}
+    launches = dict(lm_launches)
     with timed_phase("serve"):
         launches["fused_s2v_layer"], dense = phase_serve(
             torch, policy, cfg, adjs, "dense")
@@ -1552,6 +1860,7 @@ def main() -> int:
     del batch
     with timed_phase("timing"):
         timing = phase_timing(torch, ks, dev, ba_cs)
+    timing.update(lm_timing)
     emit({"phase": "total", "seconds": time.perf_counter() - t_all})
 
     kernels = {"kernels": [{

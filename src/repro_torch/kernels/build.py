@@ -46,14 +46,15 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def _sources() -> Dict[str, pathlib.Path]:
+def sources() -> Dict[str, pathlib.Path]:
+    """Every kernel source, ``{name: csrc/<name>.cu}``."""
     return {p.stem: p for p in sorted(CSRC.glob("*.cu"))}
 
 
 def build_dir() -> pathlib.Path:
     """The directory this checkout's sources and flags build into."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name, path in _sources().items():
+    for name, path in sources().items():
         h.update(name.encode())
         h.update(path.read_bytes())
     for path in sorted(CSRC.glob("*.cuh")):
@@ -68,7 +69,7 @@ def _build_missing(out: pathlib.Path) -> None:
     nvcc = find_nvcc()
     out.mkdir(parents=True, exist_ok=True)
     jobs = []
-    for name, src in _sources().items():
+    for name, src in sources().items():
         lib = out / f"lib{name}.so"
         if lib.exists():
             continue
@@ -97,7 +98,7 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        if name not in _sources():
+        if name not in sources():
             raise ValueError(f"no kernel source csrc/{name}.cu")
         out = build_dir()
         path = out / f"lib{name}.so"

@@ -1,0 +1,73 @@
+"""Grouped expert GLU FFN over per-expert capacity buffers:
+
+    y[e] = (silu(x[e] @ wg[e]) * (x[e] @ wu[e])) @ wo[e]
+
+Counterpart of ``repro/kernels/moe_gemm.py::grouped_glu_ffn`` (the Pallas
+``_glu_kernel`` and ``_proj_kernel``), the MoE layer's expert FFN
+(``models/ffn.py::_expert_ffn``).  x (E, C, d), wg and wu (E, d, f), wo
+(E, f, d), float32 or bfloat16 (upcast exactly, as the JAX wrapper does);
+the output is (E, C, d) float32.
+
+:func:`grouped_glu_ffn_plain` is the PyTorch composition (three einsums and
+SiLU, as ``ref.grouped_glu_ffn``); :func:`grouped_glu_ffn` computes it on
+CPU tensors and on CUDA tensors launches the two hand-written kernels of
+``csrc/moe_gemm.cu`` (the GLU product into an f32 scratch h (E, C, f), then
+h @ wo), counting two launches per call in ``grouped_glu_ffn.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .build import launch
+from .checks import f32_inputs, on_cpu
+
+
+def grouped_glu_ffn_plain(x: torch.Tensor, wg: torch.Tensor,
+                          wu: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    x, wg, wu, wo = (t.float() for t in (x, wg, wu, wo))
+    g = torch.einsum("ecd,edf->ecf", x, wg)
+    u = torch.einsum("ecd,edf->ecf", x, wu)
+    return torch.einsum("ecf,efd->ecd", torch.nn.functional.silu(g) * u, wo)
+
+
+def _check_shapes(x, wg, wu, wo) -> None:
+    if x.dim() != 3 or wg.dim() != 3:
+        raise ValueError("x and the weights must be 3-D")
+    e, c, d = x.shape
+    f = wg.shape[2]
+    if tuple(wg.shape) != (e, d, f) or tuple(wu.shape) != (e, d, f) \
+            or tuple(wo.shape) != (e, f, d):
+        raise ValueError(
+            f"shape mismatch: x {tuple(x.shape)}, wg {tuple(wg.shape)}, wu "
+            f"{tuple(wu.shape)}, wo {tuple(wo.shape)}; expected (E,C,d), "
+            f"(E,d,f), (E,d,f), (E,f,d)")
+    if not (1 <= e <= 65535 and c >= 1 and d >= 1 and f >= 1):
+        raise ValueError(f"unsupported sizes E={e}, C={c}, d={d}, f={f}")
+
+
+def grouped_glu_ffn(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+                    wo: torch.Tensor) -> torch.Tensor:
+    """x (E, C, d); wg/wu (E, d, f); wo (E, f, d) → (E, C, d) float32.
+    CPU tensors take the plain version; CUDA tensors launch the two
+    kernels on the current stream."""
+    x, wg, wu, wo = f32_inputs("x", {"x": x, "wg": wg, "wu": wu, "wo": wo})
+    _check_shapes(x, wg, wu, wo)
+    if on_cpu(x, "grouped_glu_ffn"):
+        return grouped_glu_ffn_plain(x, wg, wu, wo)
+    e, c, d = x.shape
+    f = wg.shape[2]
+    h = torch.empty((e, c, f), dtype=torch.float32, device=x.device)
+    y = torch.empty((e, c, d), dtype=torch.float32, device=x.device)
+    launch("moe_gemm", "moe_glu", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4,
+           x.device, x.data_ptr(), wg.data_ptr(), wu.data_ptr(), h.data_ptr(),
+           e, c, d, f)
+    grouped_glu_ffn.launches += 1
+    launch("moe_gemm", "moe_proj", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4,
+           x.device, h.data_ptr(), wo.data_ptr(), y.data_ptr(), e, c, f, d)
+    grouped_glu_ffn.launches += 1
+    return y
+
+
+grouped_glu_ffn.launches = 0

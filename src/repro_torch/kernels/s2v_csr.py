@@ -25,8 +25,8 @@ from typing import Optional
 import torch
 
 from .build import launch
-from .s2v_fused import (check_compute, check_k, check_tensors, node_major,
-                        on_cpu, round_cd)
+from .checks import check_tensors, on_cpu
+from .s2v_fused import check_compute, check_k, node_major, round_cd
 
 
 def segment_rows(values: torch.Tensor, row_ids: torch.Tensor, n: int,

@@ -31,6 +31,7 @@ import ctypes
 import torch
 
 from .build import launch
+from .checks import check_tensors, on_cpu
 
 MAX_K = 32
 COMPUTE_MODES = ("f32", "bf16")
@@ -62,33 +63,11 @@ def check_compute(compute: str) -> None:
                          f"available: {list(COMPUTE_MODES)}")
 
 
-def check_tensors(ref: str, tensors: dict, int32=()) -> None:
-    """Every tensor on ``tensors[ref]``'s device, contiguous, int32 if its
-    name is in ``int32`` and float32 otherwise."""
-    dev = tensors[ref].device
-    for name, t in tensors.items():
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, {ref} on {dev}")
-        want = torch.int32 if name in int32 else torch.float32
-        if t.dtype != want:
-            raise TypeError(f"{name} must be {str(want)[6:]}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
 def check_k(b: int, k: int) -> None:
     if not 1 <= k <= MAX_K:
         raise ValueError(f"the fused kernel takes 1 <= K <= {MAX_K}, got {k}")
     if not 1 <= b <= 65535:
         raise ValueError(f"the kernels take 1 <= B <= 65535, got {b}")
-
-
-def on_cpu(t: torch.Tensor, fn: str) -> bool:
-    """True for a CPU tensor (the plain version runs), False for a CUDA
-    tensor (the kernel runs); any other device raises."""
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{fn} runs on cpu or cuda, not {t.device}")
-    return t.device.type == "cpu"
 
 
 def node_major(x: torch.Tensor) -> torch.Tensor:

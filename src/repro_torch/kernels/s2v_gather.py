@@ -22,7 +22,8 @@ import ctypes
 import torch
 
 from .build import launch
-from .s2v_fused import check_k, check_tensors, node_major, on_cpu
+from .checks import check_tensors, on_cpu
+from .s2v_fused import check_k, node_major
 
 
 def sparse_mp_aggregate_plain(x: torch.Tensor, neighbors: torch.Tensor,

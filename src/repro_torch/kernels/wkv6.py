@@ -1,0 +1,109 @@
+"""Chunked RWKV-6 ("Finch") recurrence with data-dependent decay:
+
+    o_t = r_t · (S_{t-1} + diag(u) k_tᵀ v_t),   S_t = diag(w_t) S_{t-1} + k_tᵀ v_t
+
+Counterpart of ``repro/kernels/wkv6.py::wkv6_chunked`` (the Pallas
+``_wkv6_kernel``).  r, k, w (BH, T, dk), v (BH, T, dv), u (BH, dk), float32
+or bfloat16 (upcast exactly); w is the decay multiplier in (0, 1].  The
+sequence is taken in chunks of ``c = min(chunk, T)`` tokens (T % c == 0)
+with the TPU kernel's chunk formula (its module docstring, and
+``csrc/wkv6.cu``); the state starts at zero.  Returns (out (BH, T, dv),
+final state (BH, dk, dv)), float32.
+
+The formula's exponents reach c·|log w| inside a chunk, and f32 ``exp``
+overflows past 88: it holds for w ≥ 0.55 at c = 64 (the TPU kernel's
+documented domain) and for the model's whole range w ≥ exp(-e) ≈ 0.066 at
+c = 16.  Outside that the output is NaN, as in the JAX kernel.
+
+:func:`wkv6_chunked_plain` is the PyTorch composition, a loop over chunks
+as ``models/rwkv.py::wkv6_chunked_jnp`` writes it; :func:`wkv6_chunked`
+computes it on CPU tensors and launches the hand-written kernel
+(``csrc/wkv6.cu``, chunk ≤ 64 and dk ≤ 64) on CUDA tensors, counting
+launches in ``wkv6_chunked.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .build import launch
+from .checks import f32_inputs, on_cpu
+
+MAX_CHUNK = 64
+MAX_DK = 64
+
+
+def wkv6_chunked_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       w: torch.Tensor, u: torch.Tensor,
+                       chunk: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
+    bh, t, dk = r.shape
+    dv = v.shape[-1]
+    c = min(chunk, t)
+    r, k, v, w, u = (a.float() for a in (r, k, v, w, u))
+    lw = torch.log(torch.clamp(w, 1e-6, 1.0))
+    idx = torch.arange(c, device=r.device)
+    lower = idx[None, :] < idx[:, None]                  # s < t
+    eye = torch.eye(c, dtype=torch.float32, device=r.device)
+    s = torch.zeros((bh, dk, dv), dtype=torch.float32, device=r.device)
+    outs = []
+    for t0 in range(0, t, c):
+        rc, kc, vc, lwc = (a[:, t0:t0 + c] for a in (r, k, v, lw))
+        cum = torch.cumsum(lwc, dim=1)
+        qp = rc * torch.exp(cum - lwc)
+        kp = kc * torch.exp(-cum)
+        a = torch.where(lower, qp @ kp.transpose(1, 2), 0.0)
+        diag = (rc * u[:, None, :] * kc).sum(-1)          # (bh, c)
+        a = a + eye * diag[:, :, None]
+        outs.append(a @ vc + qp @ s)
+        cl = cum[:, -1]                                  # (bh, dk)
+        kd = kc * torch.exp(cl[:, None, :] - cum)
+        s = torch.exp(cl)[:, :, None] * s + kd.transpose(1, 2) @ vc
+    return torch.cat(outs, dim=1), s
+
+
+def _check_shapes(r, k, v, w, u, chunk) -> int:
+    """The chunk length c; raises on what the kernel does not take."""
+    if r.dim() != 3 or v.dim() != 3 or u.dim() != 2:
+        raise ValueError("r, k, v, w must be 3-D and u 2-D")
+    bh, t, dk = r.shape
+    dv = v.shape[2]
+    if tuple(k.shape) != (bh, t, dk) or tuple(w.shape) != (bh, t, dk) \
+            or tuple(v.shape[:2]) != (bh, t) or tuple(u.shape) != (bh, dk):
+        raise ValueError(
+            f"shape mismatch: r {tuple(r.shape)}, k {tuple(k.shape)}, v "
+            f"{tuple(v.shape)}, w {tuple(w.shape)}, u {tuple(u.shape)}; "
+            f"expected (BH,T,dk) x3 but v (BH,T,dv), u (BH,dk)")
+    if not (bh >= 1 and t >= 1 and 1 <= dk <= MAX_DK and dv >= 1):
+        raise ValueError(f"unsupported sizes BH={bh}, T={t}, dk={dk}, dv={dv}"
+                         f" (the kernel takes dk <= {MAX_DK})")
+    c = min(chunk, t)
+    if not 1 <= c <= MAX_CHUNK:
+        raise ValueError(f"chunk must be in [1, {MAX_CHUNK}], got {chunk}")
+    if t % c:
+        raise ValueError(f"T={t} must be divisible by chunk={c}")
+    return c
+
+
+def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 w: torch.Tensor, u: torch.Tensor, *,
+                 chunk: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
+    """(out (BH, T, dv), final state (BH, dk, dv)) in float32.  CPU tensors
+    take the plain version; CUDA tensors launch the kernel on the current
+    stream."""
+    r, k, v, w, u = f32_inputs("r", {"r": r, "k": k, "v": v, "w": w, "u": u})
+    c = _check_shapes(r, k, v, w, u, chunk)
+    if on_cpu(r, "wkv6_chunked"):
+        return wkv6_chunked_plain(r, k, v, w, u, chunk=c)
+    bh, t, dk = r.shape
+    dv = v.shape[2]
+    out = torch.empty((bh, t, dv), dtype=torch.float32, device=r.device)
+    sfin = torch.empty((bh, dk, dv), dtype=torch.float32, device=r.device)
+    launch("wkv6", "wkv6_forward", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5,
+           r.device, r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+           u.data_ptr(), out.data_ptr(), sfin.data_ptr(), bh, t, dk, dv, c)
+    wkv6_chunked.launches += 1
+    return out, sfin
+
+
+wkv6_chunked.launches = 0

@@ -1,6 +1,7 @@
 """The port on an NVIDIA GPU: each CUDA kernel (the dense, padded-sparse
-and CSR fused S2V layers, the dense aggregate of the mesh path and the
-sparse aggregation) against its plain version, and the solve and service
+and CSR fused S2V layers, the dense aggregate of the mesh path, the
+sparse aggregation, and the LM kernels wkv6, sliding-window attention and
+the grouped GLU FFN) against its plain version, and the solve and service
 paths through them, on one device and on a two-rank mesh sharing the
 card.  Every test here needs a card and skips, saying so, without one.
 The file imports neither jax nor the JAX package, so it also runs where
@@ -19,10 +20,13 @@ from repro_torch.core import (CSR, DENSE, SPARSE, PolicyConfig,
                               sparse_batch_from_dense)
 from repro_torch.core.graphs import erdos_renyi, random_graph_batch
 from repro_torch.core.mesh import spawn_mesh
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ops
 from repro_torch.kernels import s2v_csr as kc
 from repro_torch.kernels import s2v_fused as ks
 from repro_torch.kernels import s2v_gather as kg
+from repro_torch.kernels.moe_gemm import grouped_glu_ffn_plain
+from repro_torch.kernels.swa import swa_attention_plain
+from repro_torch.kernels.wkv6 import wkv6_chunked_plain
 from repro_torch.serving import GraphSolverService
 from torch_mesh_ranks import solve_on_card
 
@@ -311,3 +315,63 @@ def test_two_rank_gloo_mesh_solve_on_one_card(cuda):
             for g in range(adj.shape[0]):
                 keep = sol[g] < 0.5
                 assert adj[g][np.ix_(keep, keep)].sum() == 0
+
+
+def _randn(seed, *shapes, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy((rng.standard_normal(s) * scale).astype(
+        np.float32)) for s in shapes]
+
+
+def test_wkv6_kernel_matches_plain_on_the_card(cuda):
+    """Ragged dv (not a multiple of the 32-column tile), dk < 64, chunks
+    of 16, 32, 48 and 64, decays of the TPU kernel's domain at chunk 64
+    and of the model's range at chunk 16; the JAX suite's 3e-4 bar (the
+    chunked form against the scan)."""
+    for bh, t, dk, dv, chunk, w_min in ((3, 128, 16, 24, 32, 0.55),
+                                        (2, 256, 64, 64, 64, 0.55),
+                                        (2, 64, 64, 40, 16, 0.066),
+                                        (1, 48, 8, 8, 48, 0.55)):
+        r, k, v, u = _randn(bh + t, (bh, t, dk), (bh, t, dk), (bh, t, dv),
+                            (bh, dk), scale=0.5)
+        w = torch.from_numpy((w_min + (1 - w_min) * np.random.default_rng(
+            t).random((bh, t, dk))).astype(np.float32))
+        args = [a.to(cuda) for a in (r, k, v, w, u)]
+        before = ops.wkv6.launches
+        out, state = ops.wkv6(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        assert ops.wkv6.launches == before + 1
+        want, want_state = wkv6_chunked_plain(*args, chunk=chunk)
+        torch.testing.assert_close(out, want, rtol=3e-4, atol=3e-4)
+        torch.testing.assert_close(state, want_state, rtol=3e-4, atol=3e-4)
+
+
+def test_swa_kernel_matches_plain_on_the_card(cuda):
+    """head_dim 256 (over 48 KB of shared memory), a window that is not
+    tile-aligned, a window beyond T, T not a multiple of the 64-query
+    tile, d of 16 (one column group, partly idle); the JAX suite's 1e-4."""
+    for bh, t, d, window in ((2, 256, 32, 200), (1, 300, 256, 100),
+                             (2, 130, 64, 1000), (1, 128, 16, 32)):
+        q, k, v = (a.to(cuda) for a in _randn(t + d, *[(bh, t, d)] * 3))
+        before = ops.swa.launches
+        out = ops.swa(q, k, v, window=window)
+        torch.cuda.synchronize()
+        assert ops.swa.launches == before + 1
+        torch.testing.assert_close(
+            out, swa_attention_plain(q, k, v, window=window), rtol=1e-4,
+            atol=1e-4)
+
+
+def test_grouped_glu_kernel_matches_plain_on_the_card(cuda):
+    """Ragged C, d and f (masked in the tile loads), two launches per
+    call; the JAX suite's 1e-4."""
+    for e, c, d, f in ((3, 100, 72, 90), (2, 128, 128, 256), (1, 5, 3, 7)):
+        x, wg, wu, wo = (a.to(cuda) for a in _randn(
+            e + c, (e, c, d), (e, d, f), (e, d, f), (e, f, d)))
+        wg, wu, wo = wg * 0.1, wu * 0.1, wo * 0.1
+        before = ops.grouped_glu_ffn.launches
+        out = ops.grouped_glu_ffn(x, wg, wu, wo)
+        torch.cuda.synchronize()
+        assert ops.grouped_glu_ffn.launches == before + 2
+        torch.testing.assert_close(
+            out, grouped_glu_ffn_plain(x, wg, wu, wo), rtol=1e-4, atol=1e-4)

@@ -1,0 +1,298 @@
+"""The port's LM kernel entry points (``repro_torch.kernels.ops.wkv6``,
+``swa`` and ``grouped_glu_ffn``) on CPU tensors, where each runs its plain
+PyTorch version, against the JAX package on the same numpy inputs: the
+Pallas kernels in interpret mode (through ``repro.kernels.ops``, as
+tests/test_kernels.py runs them), the ``ref.py`` oracles, and the model
+functions with the same math (``models/rwkv.py::wkv6_chunked_jnp``,
+``models/ffn.py::_expert_ffn``).  The CUDA kernels themselves are tested
+on the card by tests/test_torch_cuda.py and chip_smoke.py.
+
+Tolerances are the JAX suite's (tests/test_kernels.py): 3e-4 for chunked
+wkv6 against the scan, 1e-4 for swa and the grouped GLU.  bf16 inputs are
+upcast exactly by both packages, so they are held at the same bars.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref
+from repro.models.ffn import _expert_ffn
+from repro.models.rwkv import wkv6_chunked_jnp
+import repro_torch.kernels as pt_kernels
+from repro_torch.kernels import ops
+from repro_torch.kernels.moe_gemm import grouped_glu_ffn_plain
+from repro_torch.kernels.swa import swa_attention_plain
+from repro_torch.kernels.wkv6 import wkv6_chunked_plain
+
+WKV_TOL = dict(rtol=3e-4, atol=3e-4)
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+def _bf16(*arrays):
+    """bf16-rounded copies: JAX bf16 arrays, and the same values as torch
+    bf16 tensors."""
+    jx = [jnp.asarray(a).astype(jnp.bfloat16) for a in arrays]
+    pt = [torch.from_numpy(np.array(a.astype(jnp.float32))).bfloat16()
+          for a in jx]
+    return jx, pt
+
+
+def _wkv_inputs(bh, t, dk, dv, seed, w_lo=0.7, w_span=0.29):
+    rng = _rng(seed)
+    r = (rng.standard_normal((bh, t, dk)) * 0.5).astype(np.float32)
+    k = (rng.standard_normal((bh, t, dk)) * 0.5).astype(np.float32)
+    v = rng.standard_normal((bh, t, dv)).astype(np.float32)
+    w = (w_lo + w_span * rng.random((bh, t, dk))).astype(np.float32)
+    u = (rng.standard_normal((bh, dk)) * 0.3).astype(np.float32)
+    return r, k, v, w, u
+
+
+def _qkv(bh, t, d, seed):
+    rng = _rng(seed)
+    return [rng.standard_normal((bh, t, d)).astype(np.float32)
+            for _ in range(3)]
+
+
+def _glu_inputs(e, c, d, f, seed):
+    rng = _rng(seed)
+    x = rng.standard_normal((e, c, d)).astype(np.float32)
+    wg, wu = ((rng.standard_normal((e, d, f)) * 0.1).astype(np.float32)
+              for _ in range(2))
+    wo = (rng.standard_normal((e, f, d)) * 0.1).astype(np.float32)
+    return x, wg, wu, wo
+
+
+# ---------------------------------------------------------------- wkv6 -----
+
+@pytest.mark.parametrize("bh,t,dk,dv,chunk", [
+    (1, 64, 8, 8, 16), (3, 128, 16, 24, 32), (2, 256, 32, 32, 64),
+    (1, 64, 16, 16, 64),   # single chunk
+])
+def test_wkv6_matches_scan_oracle(bh, t, dk, dv, chunk):
+    args = _wkv_inputs(bh, t, dk, dv, seed=bh * t + dk)
+    o, s = ops.wkv6(*_t(*args), chunk=chunk)
+    oref, sref = ref.wkv6(*args)
+    np.testing.assert_allclose(o.numpy(), np.asarray(oref), **WKV_TOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(sref), **WKV_TOL)
+
+
+@pytest.mark.parametrize("bh,t,dk,dv,chunk", [
+    (3, 128, 16, 24, 32), (1, 64, 64, 64, 64)])
+def test_wkv6_matches_pallas_kernel(bh, t, dk, dv, chunk):
+    """Same formula, so the chunked forms agree far inside the scan bar."""
+    args = _wkv_inputs(bh, t, dk, dv, seed=5)
+    o, s = ops.wkv6(*_t(*args), chunk=chunk)
+    jo, js = jops.wkv6(*args, chunk=chunk, interpret=True)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("chunk", [16, 32])
+def test_wkv6_matches_model_chunked_jnp_over_the_model_decay_range(chunk):
+    """models/rwkv.py draws w in [exp(-e), 1) = [0.066, 1); the serve
+    launcher uses chunk 16."""
+    args = _wkv_inputs(2, 128, 16, 16, seed=chunk, w_lo=np.exp(-np.e),
+                       w_span=1 - np.exp(-np.e))
+    o, s = ops.wkv6(*_t(*args), chunk=chunk)
+    jo, js = wkv6_chunked_jnp(*args, chunk=chunk)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1e-5,
+                               atol=1e-5)
+    oref, sref = ref.wkv6(*args)
+    np.testing.assert_allclose(o.numpy(), np.asarray(oref), **WKV_TOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(sref), **WKV_TOL)
+
+
+def test_wkv6_bf16_inputs_are_upcast_exactly():
+    args = _wkv_inputs(2, 64, 16, 16, seed=3, w_lo=0.8, w_span=0.19)
+    jx, pt = _bf16(*args)
+    o, s = ops.wkv6(*pt, chunk=32)
+    oref, sref = ref.wkv6(*jx)
+    np.testing.assert_allclose(o.numpy(), np.asarray(oref), **WKV_TOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(sref), **WKV_TOL)
+    o32, s32 = ops.wkv6(*(a.float() for a in pt), chunk=32)
+    assert torch.equal(o, o32) and torch.equal(s, s32)
+
+
+def test_wkv6_chunk_longer_than_t_is_one_chunk():
+    args = _t(*_wkv_inputs(1, 32, 8, 8, seed=9))
+    o, s = ops.wkv6(*args, chunk=64)
+    o1, s1 = wkv6_chunked_plain(*args, chunk=32)
+    assert torch.equal(o, o1) and torch.equal(s, s1)
+
+
+def test_wkv6_refuses_what_the_kernel_does_not_take():
+    r, k, v, w, u = _t(*_wkv_inputs(2, 48, 8, 8, seed=1))
+    with pytest.raises(ValueError, match="divisible"):
+        ops.wkv6(r, k, v, w, u, chunk=32)
+    with pytest.raises(ValueError, match="shape"):
+        ops.wkv6(r, k[:, :, :4].contiguous(), v, w, u, chunk=16)
+    with pytest.raises(ValueError, match="shape"):
+        ops.wkv6(r, k, v, w, u[:1], chunk=16)
+    with pytest.raises(ValueError, match="is on"):
+        ops.wkv6(r, k, v.to("meta"), w, u, chunk=16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.wkv6(r.double(), k, v, w, u, chunk=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.wkv6(r, k, v.transpose(0, 1), w, u, chunk=16)
+    with pytest.raises(ValueError, match="chunk"):
+        ops.wkv6(*_t(*_wkv_inputs(1, 256, 8, 8, seed=1)), chunk=128)
+    big = _t(*_wkv_inputs(1, 16, 80, 8, seed=1))
+    with pytest.raises(ValueError, match="dk <= 64"):
+        ops.wkv6(*big, chunk=16)
+
+
+# ---------------------------------------------------------------- swa ------
+
+@pytest.mark.parametrize("bh,t,d,window", [
+    (2, 256, 32, 64), (1, 128, 16, 32),
+    (2, 256, 32, 200),     # window not tile-aligned
+    (1, 512, 64, 128),
+    (1, 256, 32, 1024),    # window > T: causal attention
+    (2, 700, 32, 200),     # T not a multiple of the plain version's block
+])
+def test_swa_matches_ref(bh, t, d, window):
+    q, k, v = _qkv(bh, t, d, seed=t + window)
+    got = ops.swa(*_t(q, k, v), window=window)
+    want = ref.swa(q, k, v, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("bh,t,d,window,tile", [
+    (2, 256, 32, 200, 64), (1, 128, 16, 32, 32)])
+def test_swa_matches_pallas_kernel(bh, t, d, window, tile):
+    q, k, v = _qkv(bh, t, d, seed=11)
+    got = ops.swa(*_t(q, k, v), window=window)
+    want = jops.swa(q, k, v, window=window, tile_q=tile, tile_k=tile,
+                    interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_swa_window_covering_all_is_causal_attention():
+    q, k, v = _t(*_qkv(1, 128, 16, seed=2))
+    got = ops.swa(q, k, v, window=128)
+    mask = torch.ones(128, 128, dtype=torch.bool).tril()
+    want = torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask)
+    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(got, ops.swa(q, k, v, window=10 ** 6))
+
+
+def test_swa_scale_and_bf16_inputs():
+    q, k, v = _qkv(1, 128, 32, seed=4)
+    jx, pt = _bf16(q, k, v)
+    got = ops.swa(*pt, window=64)
+    want = ref.swa(*jx, window=64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    got = ops.swa(*_t(q, k, v), window=64, scale=0.3)
+    want = ref.swa(q, k, v, window=64, scale=0.3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_swa_refuses_what_the_kernel_does_not_take():
+    q, k, v = _t(*_qkv(2, 64, 16, seed=1))
+    with pytest.raises(ValueError, match="shape"):
+        ops.swa(q, k[:, :32].contiguous(), v, window=8)
+    with pytest.raises(ValueError, match="is on"):
+        ops.swa(q, k.to("meta"), v, window=8)
+    with pytest.raises(ValueError, match="window"):
+        ops.swa(q, k, v, window=0)
+    with pytest.raises(ValueError, match="d % 4"):
+        ops.swa(*_t(*_qkv(1, 16, 6, seed=1)), window=4)
+    with pytest.raises(ValueError, match="d <= 256"):
+        ops.swa(*_t(*_qkv(1, 4, 260, seed=1)), window=4)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.swa(q.half(), k, v, window=8)
+
+
+# ------------------------------------------------------- grouped GLU -------
+
+@pytest.mark.parametrize("e,c,d,f", [
+    (4, 32, 48, 64), (2, 128, 128, 256), (3, 100, 72, 90), (1, 16, 16, 16)])
+def test_grouped_glu_ffn_matches_ref(e, c, d, f):
+    args = _glu_inputs(e, c, d, f, seed=e * c + f)
+    got = ops.grouped_glu_ffn(*_t(*args))
+    want = ref.grouped_glu_ffn(*args)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_grouped_glu_ffn_matches_pallas_kernel_on_ragged_tiles():
+    """(3, 100, 72, 90) with 32-wide tiles: the TPU kernel pads C, d and f;
+    the port masks them."""
+    args = _glu_inputs(3, 100, 72, 90, seed=8)
+    got = ops.grouped_glu_ffn(*_t(*args))
+    want = jops.grouped_glu_ffn(*args, tile_c=32, tile_d=32, tile_f=32,
+                                interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_grouped_glu_ffn_matches_model_expert_ffn():
+    x, wg, wu, wo = _glu_inputs(3, 24, 40, 56, seed=6)
+    got = ops.grouped_glu_ffn(*_t(x, wg, wu, wo))
+    want = _expert_ffn(jnp.asarray(wg), jnp.asarray(wu), jnp.asarray(wo),
+                       jnp.asarray(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_grouped_glu_ffn_bf16_inputs_are_upcast_exactly():
+    args = _glu_inputs(2, 32, 32, 64, seed=7)
+    jx, pt = _bf16(*args)
+    got = ops.grouped_glu_ffn(*pt)
+    want = ref.grouped_glu_ffn(*jx)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert got.dtype == torch.float32
+
+
+def test_grouped_glu_ffn_refuses_what_the_kernel_does_not_take():
+    x, wg, wu, wo = _t(*_glu_inputs(2, 8, 16, 24, seed=1))
+    with pytest.raises(ValueError, match="shape"):
+        ops.grouped_glu_ffn(x, wg, wu, wo[:, :20].contiguous())
+    with pytest.raises(ValueError, match="shape"):
+        ops.grouped_glu_ffn(x, wg, wu[:1].contiguous(), wo)
+    with pytest.raises(ValueError, match="is on"):
+        ops.grouped_glu_ffn(x, wg.to("meta"), wu, wo)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.grouped_glu_ffn(x.transpose(1, 2), wg, wu, wo)
+
+
+# ------------------------------------------------------- the entry point ---
+
+def test_ops_carries_the_jax_names_and_the_wrappers_counts():
+    names = ["fused_s2v_layer", "fused_s2v_layer_sparse",
+             "fused_s2v_layer_csr", "mp_aggregate", "sparse_mp_aggregate",
+             "wkv6", "swa", "grouped_glu_ffn"]
+    for name in names:
+        assert hasattr(jops, name), name
+        fn = getattr(ops, name)
+        assert getattr(pt_kernels, name) is fn
+        assert isinstance(fn.launches, int)
+    assert sorted(ops.__all__) == sorted(names)
+
+
+def test_wrappers_on_cpu_are_the_plain_versions_and_launch_nothing():
+    before = {n: getattr(ops, n).launches
+              for n in ("wkv6", "swa", "grouped_glu_ffn")}
+    wargs = _t(*_wkv_inputs(2, 64, 8, 8, seed=2))
+    o, s = ops.wkv6(*wargs, chunk=16)
+    po, ps = wkv6_chunked_plain(*wargs, chunk=16)
+    assert torch.equal(o, po) and torch.equal(s, ps)
+    qkv = _t(*_qkv(2, 64, 16, seed=2))
+    assert torch.equal(ops.swa(*qkv, window=20),
+                       swa_attention_plain(*qkv, window=20))
+    gargs = _t(*_glu_inputs(2, 8, 16, 24, seed=2))
+    assert torch.equal(ops.grouped_glu_ffn(*gargs),
+                       grouped_glu_ffn_plain(*gargs))
+    assert before == {n: getattr(ops, n).launches for n in before}
