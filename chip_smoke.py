@@ -2,6 +2,7 @@
 """Drive the PyTorch port (src/repro_torch) on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --dense-kernels   # phase 1 and kernels 1-2's times
 
 Phases (any failed check raises, so the script exits non-zero):
 
@@ -19,7 +20,11 @@ Phases (any failed check raises, so the script exits non-zero):
    isolated nodes must give exactly relu(base) (0 for the aggregation),
    the serving bucket (B=8, N=4096, D=768, 2.5M edge slots per graph) and
    the paper-scale graph (B=1, N=20480, ~62.9M directed edges); the CSR
-   layer also on BA(N=1M, d=10) (~20.0M directed edges).
+   layer also on BA(N=1M, d=10) (~20.0M directed edges).  On every graph
+   case the representations must agree bit for bit at f32: the dense
+   layer on the residual adjacency equals the sparse and CSR layers, and
+   on the serving bucket the dense aggregate of one half of the nodes
+   equals the sparse aggregation's row block.
 1b. The LM kernel entry point, ``repro_torch.kernels.ops`` (phase
    lm_kernels): with the counts at 0, one call each of ``wkv6`` (rwkv6-7b:
    BH=128, T=4096, 64x64 heads, chunk 64), ``swa`` (gemma3-4b's local
@@ -37,8 +42,8 @@ Phases (any failed check raises, so the script exits non-zero):
    ran once per policy evaluation, and the async path gives the same
    answers.
 3. The card against the port on the CPU on one (B=8, N=256) batch:
-   first-evaluation scores within 1e-5 on each rep, and across reps on
-   the card; solutions valid covers.
+   first-evaluation scores within 1e-5 on each rep, and bit for bit
+   across reps on the card; solutions valid covers.
 4. Large solves: the paper-scale ER(N=20480, 0.15) graph (~31.5M edges)
    on all three reps with max_d=256.
 5. The (data, graph) mesh: gloo ranks that share the one card (cuda:0),
@@ -69,7 +74,10 @@ It prints diagnostic JSON lines (each phase's seconds among them), the
 nvidia-smi name and power limit, one ``{"kernels": [...]}`` line (all eight
 kernels), and last
 ``{"ok": true, "device": {...}}``.  It exits non-zero without a CUDA
-device, and outside a checkout.
+device, and outside a checkout.  With ``--dense-kernels`` it runs only
+phase 1's graph-kernel checks (the bit-identity gate included) and the
+times of kernels 1 and 2, the loop for work on those two kernels, and
+prints no kernels line and no result line.
 """
 from __future__ import annotations
 
@@ -705,8 +713,9 @@ def graph_case(torch, dev, b, k, n, rho, seed, real=None, width=None,
     """One symmetric ER graph batch as sparse and CSR topology, with the
     residual factors of a random 10% partial solution, random base and
     theta4, x = relu of a random tensor (the main path gives these
-    kernels ReLU outputs), and the f64 aggregate x @ W over the residual
-    adjacency W."""
+    kernels ReLU outputs), the residual adjacency W as a dense f32 batch
+    (for the dense kernels' bit-identity gate) and the f64 aggregate
+    x @ W."""
     from repro_torch.core.graphs import (csr_residual_edge_mask, csr_row_ids,
                                          residual_edge_mask)
     adj = sym_graph(torch, b, n, rho, seed, dev, real)
@@ -718,16 +727,15 @@ def graph_case(torch, dev, b, k, n, rho, seed, real=None, width=None,
     sol = (rand(b, n) < 0.1).to(torch.float32)
     x, base, t4 = torch.relu(rand(b, k, n) - 0.5), rand(b, k, n) - 0.5, \
         (rand(k, k) - 0.5) * 0.2
-    keep = (1.0 - sol).double()
-    w64 = adj.double()
-    del adj
-    w64.mul_(keep[:, :, None]).mul_(keep[:, None, :])
+    keep = 1.0 - sol
+    w = adj.mul_(keep[:, :, None]).mul_(keep[:, None, :])   # 0/1: exact
+    w64 = w.double()
     agg64 = x.double() @ w64          # W is symmetric: column i = row i
     abs64 = x.abs().double() @ w64    # W >= 0
     del w64
     torch.cuda.empty_cache()
     rid = csr_row_ids(cs.indptr, cs.num_edges)
-    return {"sp": sp, "cs": cs, "x": x, "base": base, "t4": t4,
+    return {"sp": sp, "cs": cs, "x": x, "base": base, "t4": t4, "w": w,
             "edge": residual_edge_mask(sp.neighbors, sp.valid, sol),
             "edge_w": csr_residual_edge_mask(cs.indices, cs.edge_mask, rid,
                                              sol),
@@ -757,10 +765,27 @@ def ba_arrays():
     return indptr, indices, time.perf_counter() - t0
 
 
+def bit_identity(torch, failures, case, kernel, out, vs, got):
+    """Record, and require, that a dense kernel's output equals another
+    representation's kernel output bit for bit on the same graph."""
+    same = bool(torch.equal(out, got))
+    emit({"phase": "bit_identity", "case": case, "kernel": kernel,
+          "vs": vs, "identical": same,
+          "max_abs_diff": float((out - got).abs().max())})
+    if not same:
+        failures.append(f"{kernel} {case} f32 differs from {vs}: the three "
+                        f"representations must sum in one order")
+
+
 def run_graph_kernels(torch, case, name, rows, failures, exact=True):
     """Kernels 3, 4 and 5 on one graph case against their plain versions
     (and the f64 layer); the padding case's isolated nodes must give
-    exactly relu(base), 0 for the aggregation."""
+    exactly relu(base), 0 for the aggregation.  Then the gate that the
+    three representations sum in one order: at f32, kernel 1 on the
+    dense residual adjacency W with embed = x must equal kernels 3 and 5
+    bit for bit, and at the serving case kernel 2 on W's columns of the
+    upper half of the nodes (by symmetry, the transposed row block) must
+    equal kernel 4 on that row block."""
     ks, kg, kc = kernel_modules()
     sp, cs, x, base, t4 = (case[f] for f in ("sp", "cs", "x", "base", "t4"))
     b, k, n = x.shape
@@ -771,9 +796,12 @@ def run_graph_kernels(torch, case, name, rows, failures, exact=True):
     scale = (base.double().abs() + t4.double().abs() @ case["abs64"]).float()
     real = case["real"]
     shape = {"B": b, "K": k, "N": n}
+    f32_out = {}
     for compute in ("f32", "bf16"):
         args = (t4, x, sp.neighbors, case["edge"], base)
         out = ks.fused_s2v_layer_sparse(*args, compute)
+        if compute == "f32":
+            f32_out["fused_s2v_layer_sparse"] = out
         compare(torch, rows, failures, "fused_s2v_layer_sparse", name,
                 compute, out, ks.fused_s2v_layer_sparse_plain(*args, compute),
                 layer64 if compute == "f32" else None, d, {**shape, "D": d},
@@ -783,6 +811,8 @@ def run_graph_kernels(torch, case, name, rows, failures, exact=True):
             failures.append(f"sparse {name} {compute}: isolated nodes")
         args = (t4, x, cs.indices, cs.indptr, case["edge_w"], base)
         out = kc.fused_s2v_layer_csr(*args, compute)
+        if compute == "f32":
+            f32_out["fused_s2v_layer_csr"] = out
         compare(torch, rows, failures, "fused_s2v_layer_csr", name, compute,
                 out, kc.fused_s2v_layer_csr_plain(*args, compute),
                 layer64 if compute == "f32" else None, row_max,
@@ -792,6 +822,10 @@ def run_graph_kernels(torch, case, name, rows, failures, exact=True):
             failures.append(f"csr {name} {compute}: isolated nodes")
         del out, args
         torch.cuda.empty_cache()
+    dense = ks.fused_s2v_layer(t4, x, case["w"], base, "f32")
+    for vs, got in f32_out.items():
+        bit_identity(torch, failures, name, "fused_s2v_layer", dense, vs, got)
+    del dense, f32_out
     xp = torch.nn.functional.pad(x, (0, 1))
     args = (xp, sp.neighbors, case["edge"])
     out = kg.sparse_mp_aggregate(*args)
@@ -812,6 +846,11 @@ def run_graph_kernels(torch, case, name, rows, failures, exact=True):
                 kg.sparse_mp_aggregate_plain(*args), agg64[:, :, rows_b], d,
                 {**shape, "Nl": n // 2, "D": d},
                 case["abs64"][:, :, rows_b].float())
+        cols = case["w"][:, :, rows_b].contiguous()
+        bit_identity(torch, failures, "serving_rows_sp2", "mp_aggregate",
+                     ks.mp_aggregate(x, cols, "f32"), "sparse_mp_aggregate",
+                     out)
+        del cols
     del layer64, scale, out, xp, args
     torch.cuda.empty_cache()
 
@@ -935,7 +974,8 @@ def phase_serve(torch, policy, cfg, adjs, rep, dense=None):
 
 def phase_card_vs_cpu(torch, policy):
     """Phase 3: first-eval scores and solves, card against CPU, on each
-    rep; first-eval scores across reps on the card."""
+    rep; first-eval scores across reps on the card, which must agree bit
+    for bit (the three reps' kernels sum in one order)."""
     from repro_torch.convert import policy_from_numpy, policy_to_numpy
     from repro_torch.core import (CSR, DENSE, SPARSE, init_solve_state,
                                   random_graph_batch, solve)
@@ -972,9 +1012,14 @@ def phase_card_vs_cpu(torch, policy):
     for rep in ("sparse", "csr"):
         a, d = scores[rep, "cuda"], scores["dense", "cuda"]
         torch.testing.assert_close(a, d, rtol=1e-5, atol=1e-5)
+        same = bool(torch.equal(a, d))
         emit({"phase": "cross_rep_on_card", "rep": rep, "vs": "dense",
               "first_eval_max_abs_err": float((a - d).abs().max()),
-              "bit_identical": bool(torch.equal(a, d))})
+              "bit_identical": same})
+        if not same:
+            raise AssertionError(f"first-evaluation scores on {rep} differ "
+                                 f"from dense on the card: the three "
+                                 f"representations must sum in one order")
 
 
 def phase_paper_scale(torch, policy):
@@ -1734,7 +1779,7 @@ def phase_timing(torch, ks, dev, ba_cs):
             ("paper", 1, PAPER_N, None, None, None)):
         case = graph_case(torch, dev, b, 32, n, 0.15, SEED + 11 * n, real,
                           width, edges)
-        del case["agg64"]
+        del case["agg64"], case["w"]
         timed = graph_timing(torch, case, label)
         if label == "serving":
             rows.update(timed)
@@ -1766,7 +1811,40 @@ REPLACES = {
 }
 
 
+def print_card() -> None:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+
+
+def dense_kernels(torch, ks, dev) -> None:
+    """``--dense-kernels``: the short loop for work on kernels 1 and 2.
+    Phase 1's dense, aggregate and graph-kernel checks (with the
+    bit-identity gate) and the two kernels' timings, about a minute with
+    the build; no served path, so it prints no kernels line and no
+    result line."""
+    rows, failures = [], []
+    with timed_phase("kernel_vs_plain"):
+        phase_kernel(torch, ks, dev, rows, failures)
+        phase_agg_kernel(torch, ks, dev, rows, failures)
+        phase_graph_kernels(torch, dev, rows, failures)
+    if failures:
+        raise AssertionError("a kernel disagrees with its plain version or "
+                             "another representation:\n"
+                             + "\n".join(failures))
+    with timed_phase("timing"):
+        timing_dense(torch, ks, dev)
+        timing_agg(torch, ks, dev)
+
+
 def main() -> int:
+    args = sys.argv[1:]
+    if args not in ([], ["--dense-kernels"]):
+        print("usage: python3 chip_smoke.py [--dense-kernels]",
+              file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script needs an "
@@ -1795,6 +1873,11 @@ def main() -> int:
                                build.build_log(name).splitlines()
                                if "registers" in ln or "spill" in ln]
                         for name in sources}})
+
+    if args:
+        dense_kernels(torch, ks, dev)
+        print_card()
+        return 0
 
     from repro_torch.core.graphs import csr_batch_from_arrays
     ba_pool = concurrent.futures.ThreadPoolExecutor(1)
@@ -1871,10 +1954,7 @@ def main() -> int:
         "bound_by": timing[name]["bound_by"],
         "library_ms": timing[name]["library_ms"]}
         for name, (source, replaces) in REPLACES.items()]}
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print_card()
     emit(kernels)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -19,7 +19,9 @@ hand-written kernel on CUDA tensors, never anything else; and
 its path went through the kernel.
 
 Layouts are JAX's: θ4 (K, K), embed (B, K, Nl), adj (B, Nl, N), base
-(B, K, N); the output is (B, K, N) float32.  ``compute`` is ``"f32"`` or
+(B, K, N); the output is (B, K, N) float32.  The dense kernel's tile
+width is chosen per launch from B, N and the card's SM count
+(:func:`dense_tile_columns`).  ``compute`` is ``"f32"`` or
 ``"bf16"``: bf16 rounds every matmul operand at use and the f32 aggregate
 once before the θ4 product, with f32 accumulation and an f32 base/ReLU
 (DESIGN.md §12).
@@ -27,6 +29,7 @@ once before the θ4 product, with f32 accumulation and an f32 base/ReLU
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -35,6 +38,8 @@ from .checks import check_tensors, on_cpu
 
 MAX_K = 32
 COMPUTE_MODES = ("f32", "bf16")
+# the dense kernel's tile widths (output columns per block), widest first
+TILE_COLUMNS = (128, 64, 32)
 
 
 def round_cd(x: torch.Tensor, compute: str) -> torch.Tensor:
@@ -76,6 +81,27 @@ def node_major(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).contiguous()
 
 
+def dense_tile_columns(b: int, n: int, sms: int) -> int:
+    """The dense kernel's tile width for B graphs of N output columns on a
+    card of ``sms`` SMs: the width whose busiest SM gets the fewest columns
+    (⌈blocks / sms⌉ · width, with B·⌈N / width⌉ blocks), the widest among
+    equals, since a narrower tile re-reads embed from L2 (K / width of
+    adj's traffic).  It does not depend on K."""
+    def busiest(tn):
+        blocks = b * -(-n // tn)
+        return -(-blocks // sms) * tn
+    return min(TILE_COLUMNS, key=busiest)    # the first (widest) of equals
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _tile(b: int, n: int, device: torch.device) -> int:
+    return dense_tile_columns(b, n, sm_count(device))
+
+
 def _check_inputs(theta4, embed, adj, base) -> None:
     check_tensors("adj", {"theta4": theta4, "embed": embed, "adj": adj,
                           "base": base})
@@ -107,10 +133,10 @@ def fused_s2v_layer(theta4: torch.Tensor, embed: torch.Tensor,
     n = adj.shape[2]
     out = torch.empty((b, k, n), dtype=torch.float32, device=adj.device)
     launch("s2v_fused", "s2v_fused_layer",
-           [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5, adj.device,
+           [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6, adj.device,
            theta4.data_ptr(), embed.data_ptr(), adj.data_ptr(),
            base.data_ptr(), out.data_ptr(), b, k, nl, n,
-           int(compute == "bf16"))
+           int(compute == "bf16"), _tile(b, n, adj.device))
     fused_s2v_layer.launches += 1
     return out
 
@@ -159,9 +185,9 @@ def mp_aggregate(embed: torch.Tensor, adj: torch.Tensor,
     n = adj.shape[2]
     out = torch.empty((b, k, n), dtype=torch.float32, device=adj.device)
     launch("s2v_fused", "s2v_mp_aggregate",
-           [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5, adj.device,
+           [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6, adj.device,
            embed.data_ptr(), adj.data_ptr(), out.data_ptr(), b, k, nl, n,
-           int(compute == "bf16"))
+           int(compute == "bf16"), _tile(b, n, adj.device))
     mp_aggregate.launches += 1
     return out
 

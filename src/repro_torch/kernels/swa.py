@@ -10,9 +10,10 @@ exactly); ``scale`` defaults to d**-0.5; the output is (BH, T, d) float32.
 of ``ref.swa``, taken over blocks of queries as
 ``models/attention.py::_sdpa_chunked`` does, each block against only the
 keys its window can reach, so no (T, T) score matrix is ever formed;
-:func:`swa_attention` computes it on CPU tensors and launches the
-hand-written flash kernel (``csrc/swa.cu``; d % 4 == 0, d <= 256) on CUDA
-tensors, counting launches in ``swa_attention.launches``.
+:func:`swa_attention` computes it on CPU tensors, at any size the JAX op
+takes, and launches the hand-written flash kernel (``csrc/swa.cu``; d % 4
+== 0, d <= 256) on CUDA tensors, counting launches in
+``swa_attention.launches``.
 """
 from __future__ import annotations
 
@@ -54,11 +55,17 @@ def _check_shapes(q, k, v, window) -> None:
                          f"{tuple(k.shape)}, v {tuple(v.shape)}; expected "
                          f"three (BH,T,d) (self-attention)")
     bh, t, d = q.shape
-    if not (1 <= bh <= 65535 and t >= 1 and 4 <= d <= MAX_D and d % 4 == 0):
-        raise ValueError(f"unsupported sizes BH={bh}, T={t}, d={d} (the "
-                         f"kernel takes d % 4 == 0, d <= {MAX_D})")
+    if not (bh >= 1 and t >= 1 and d >= 1):
+        raise ValueError(f"unsupported sizes BH={bh}, T={t}, d={d}")
     if int(window) != window or window < 1:
         raise ValueError(f"window must be a positive integer, got {window}")
+
+
+def _check_kernel_limits(bh: int, d: int) -> None:
+    """The CUDA kernel's own limits; the plain version has none."""
+    if bh > 65535 or d % 4 or d > MAX_D:
+        raise ValueError(f"the swa kernel takes BH <= 65535, d % 4 == 0 and "
+                         f"d <= {MAX_D}, got BH={bh}, d={d}")
 
 
 def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -71,6 +78,7 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if on_cpu(q, "swa_attention"):
         return swa_attention_plain(q, k, v, window=window, scale=scale)
     bh, t, d = q.shape
+    _check_kernel_limits(bh, d)
     scale = d ** -0.5 if scale is None else scale
     out = torch.empty((bh, t, d), dtype=torch.float32, device=q.device)
     launch("swa", "swa_forward", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4

@@ -17,9 +17,9 @@ c = 16.  Outside that the output is NaN, as in the JAX kernel.
 
 :func:`wkv6_chunked_plain` is the PyTorch composition, a loop over chunks
 as ``models/rwkv.py::wkv6_chunked_jnp`` writes it; :func:`wkv6_chunked`
-computes it on CPU tensors and launches the hand-written kernel
-(``csrc/wkv6.cu``, chunk ≤ 64 and dk ≤ 64) on CUDA tensors, counting
-launches in ``wkv6_chunked.launches``.
+computes it on CPU tensors, at any size the JAX op takes, and launches
+the hand-written kernel (``csrc/wkv6.cu``, chunk ≤ 64 and dk ≤ 64) on
+CUDA tensors, counting launches in ``wkv6_chunked.launches``.
 """
 from __future__ import annotations
 
@@ -63,7 +63,7 @@ def wkv6_chunked_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _check_shapes(r, k, v, w, u, chunk) -> int:
-    """The chunk length c; raises on what the kernel does not take."""
+    """The chunk length c; raises on shapes the op does not take."""
     if r.dim() != 3 or v.dim() != 3 or u.dim() != 2:
         raise ValueError("r, k, v, w must be 3-D and u 2-D")
     bh, t, dk = r.shape
@@ -74,15 +74,23 @@ def _check_shapes(r, k, v, w, u, chunk) -> int:
             f"shape mismatch: r {tuple(r.shape)}, k {tuple(k.shape)}, v "
             f"{tuple(v.shape)}, w {tuple(w.shape)}, u {tuple(u.shape)}; "
             f"expected (BH,T,dk) x3 but v (BH,T,dv), u (BH,dk)")
-    if not (bh >= 1 and t >= 1 and 1 <= dk <= MAX_DK and dv >= 1):
-        raise ValueError(f"unsupported sizes BH={bh}, T={t}, dk={dk}, dv={dv}"
-                         f" (the kernel takes dk <= {MAX_DK})")
+    if not (bh >= 1 and t >= 1 and dk >= 1 and dv >= 1):
+        raise ValueError(f"unsupported sizes BH={bh}, T={t}, dk={dk}, dv={dv}")
     c = min(chunk, t)
-    if not 1 <= c <= MAX_CHUNK:
-        raise ValueError(f"chunk must be in [1, {MAX_CHUNK}], got {chunk}")
+    if c < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
     if t % c:
         raise ValueError(f"T={t} must be divisible by chunk={c}")
     return c
+
+
+def _check_kernel_limits(dk: int, c: int) -> None:
+    """The CUDA kernel's own limits; the plain version has none."""
+    if dk > MAX_DK:
+        raise ValueError(f"the wkv6 kernel takes dk <= {MAX_DK}, got {dk}")
+    if c > MAX_CHUNK:
+        raise ValueError(f"the wkv6 kernel takes chunk <= {MAX_CHUNK}, "
+                         f"got {c}")
 
 
 def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -96,6 +104,7 @@ def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if on_cpu(r, "wkv6_chunked"):
         return wkv6_chunked_plain(r, k, v, w, u, chunk=c)
     bh, t, dk = r.shape
+    _check_kernel_limits(dk, c)
     dv = v.shape[2]
     out = torch.empty((bh, t, dv), dtype=torch.float32, device=r.device)
     sfin = torch.empty((bh, dk, dv), dtype=torch.float32, device=r.device)

@@ -18,7 +18,8 @@ from repro_torch.core import (CSR, DENSE, SPARSE, PolicyConfig,
                               csr_batch_from_dense, init_policy,
                               init_solve_state, solve,
                               sparse_batch_from_dense)
-from repro_torch.core.graphs import erdos_renyi, random_graph_batch
+from repro_torch.core.graphs import (csr_row_ids, erdos_renyi,
+                                     random_graph_batch)
 from repro_torch.core.mesh import spawn_mesh
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import s2v_csr as kc
@@ -294,6 +295,69 @@ def test_sparse_aggregate_at_row_blocks_on_the_card(cuda):
         torch.testing.assert_close(out, kg.sparse_mp_aggregate_plain(*args),
                                    **TOL["f32"])
         assert torch.equal(out, whole[:, :, lo:hi])
+
+
+@pytest.mark.parametrize("b,k,n,iso", [(2, 32, 301, 20), (1, 32, 256, 0),
+                                       (2, 8, 40, 7)])
+def test_dense_layer_is_identical_to_sparse_and_csr_on_the_card(cuda, b, k,
+                                                                n, iso):
+    """At f32 the three representations sum each node's neighbours in
+    ascending id with one fmaf each, so on a symmetric weighted adjacency
+    W kernel 1 equals kernels 3 and 5 bit for bit, and kernel 2 on W's
+    columns of a node block (the transposed row block) equals kernel 4 on
+    that block's lists.  N=301 takes kernel 1's 4-byte copy path, 256 and
+    40 its TMA path; isolated nodes give relu(base) on every rep."""
+    rng = np.random.default_rng(n + k)
+    adj = np.triu(rng.random((b, n, n)) < 0.2, 1)
+    if iso:
+        adj[:, -iso:, :] = False
+        adj[:, :, -iso:] = False
+    adj = adj | adj.transpose(0, 2, 1)
+    wt = np.triu(rng.random((b, n, n)).astype(np.float32), 1)
+    w = np.where(adj, wt + wt.transpose(0, 2, 1), 0.0).astype(np.float32)
+    sp = sparse_batch_from_dense(adj.astype(np.float32), device="cpu")
+    cs = csr_batch_from_dense(adj.astype(np.float32), device="cpu")
+    wp = torch.nn.functional.pad(torch.from_numpy(w), (0, 1))
+    nbr = sp.neighbors.long()
+    edge = torch.gather(wp, 2, nbr)            # the sentinel column is 0
+    rid = csr_row_ids(cs.indptr, cs.num_edges).long()
+    edge_w = wp[torch.arange(b)[:, None], rid, cs.indices.long()]
+    x = torch.relu(torch.from_numpy(rng.random((b, k, n), np.float32) - 0.5))
+    base = torch.from_numpy(rng.random((b, k, n), np.float32) - 0.5)
+    t4 = torch.from_numpy((rng.random((k, k), np.float32) - 0.5) * 0.2)
+    x, base, t4, w_c = (a.to(cuda) for a in (x, base, t4, torch.from_numpy(w)))
+    dense = ks.fused_s2v_layer(t4, x, w_c, base)
+    sparse = ks.fused_s2v_layer_sparse(t4, x, sp.neighbors.to(cuda),
+                                       edge.to(cuda), base)
+    csr = kc.fused_s2v_layer_csr(t4, x, cs.indices.to(cuda),
+                                 cs.indptr.to(cuda), edge_w.to(cuda), base)
+    torch.cuda.synchronize()
+    assert torch.equal(dense, sparse) and torch.equal(dense, csr)
+    lo = n // 2
+    agg = ks.mp_aggregate(x, w_c[:, :, lo:].contiguous())
+    rows = kg.sparse_mp_aggregate(
+        torch.nn.functional.pad(x, (0, 1)),
+        sp.neighbors[:, lo:].contiguous().to(cuda),
+        edge[:, lo:].contiguous().to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(agg, rows)
+
+
+def test_lm_kernels_refuse_sizes_beyond_their_limits(cuda):
+    """The CPU plain versions take these sizes (tests/test_torch_lm_kernels
+    .py); the CUDA kernels refuse them, naming their limit."""
+    r, k, v, u = _randn(1, (1, 64, 80), (1, 64, 80), (1, 64, 16), (1, 80))
+    w = torch.full((1, 64, 80), 0.9)
+    with pytest.raises(ValueError, match="dk <= 64"):
+        ops.wkv6(*(a.to(cuda) for a in (r, k, v, w, u)), chunk=16)
+    r, k, v, u = _randn(2, (1, 256, 8), (1, 256, 8), (1, 256, 8), (1, 8))
+    w = torch.full((1, 256, 8), 0.9)
+    with pytest.raises(ValueError, match="chunk <= 64"):
+        ops.wkv6(*(a.to(cuda) for a in (r, k, v, w, u)), chunk=128)
+    for d in (6, 260):
+        q, kk, vv = (a.to(cuda) for a in _randn(d, *[(1, 16, d)] * 3))
+        with pytest.raises(ValueError, match="d % 4 == 0 and d <= 256"):
+            ops.swa(q, kk, vv, window=4)
 
 
 def test_two_rank_gloo_mesh_solve_on_one_card(cuda):

@@ -1,7 +1,12 @@
 """The port's fused S2V layer (repro_torch.kernels.s2v_fused) against the
 JAX package's Pallas kernel (interpret mode) and its ``ref.s2v_layer``
-oracle, on the CPU.  The CUDA kernel itself is tested on the card by
-tests/test_torch_cuda.py."""
+oracle, on the CPU, and the dense kernel's tile-width choice.  The CUDA
+kernel itself is tested on the card by tests/test_torch_cuda.py."""
+import importlib.util
+import inspect
+import pathlib
+import re
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -95,3 +100,55 @@ def test_build_dir_is_keyed_by_the_sources():
     assert d.parent == build.BUILD_ROOT and len(d.name) == 16
     assert d == build.build_dir()
     assert (build.CSRC / "s2v_fused.cu").exists()
+
+
+# ------------------------------------------------- dense tile width ------
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+H100_SMS = 132
+
+
+def _smoke_shapes():
+    """(name, B, N) of every dense layer (B1) and dense aggregate (B2)
+    shape chip_smoke.py runs."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return ([(f"B1-{c[0]}", c[1], c[3]) for c in smoke.DENSE_CASES]
+            + [(f"B2-{c[0]}", c[1], c[4]) for c in smoke.AGG_CASES])
+
+
+SMOKE_SHAPES = _smoke_shapes()
+
+
+@pytest.mark.parametrize("name,b,n", SMOKE_SHAPES,
+                         ids=[s[0] for s in SMOKE_SHAPES])
+def test_dense_tile_columns_spread_the_blocks_over_the_sms(name, b, n):
+    """The busiest SM runs at most 1.1x the mean block count, unless even
+    the widest tile gives one block per SM or fewer."""
+    tn = ks.dense_tile_columns(b, n, H100_SMS)
+    blocks = b * -(-n // tn)
+    busiest = -(-blocks // H100_SMS)
+    widest = max(ks.TILE_COLUMNS)
+    assert (busiest <= 1.1 * blocks / H100_SMS
+            or b * -(-n // widest) <= H100_SMS)
+
+
+def test_dense_tile_columns_are_the_kernel_templates_widths():
+    src = (build.CSRC / "s2v_fused.cu").read_text()
+    widths = {int(w) for w in re.findall(r"case (\d+):", src)}
+    assert set(ks.TILE_COLUMNS) == widths
+    for sms in (1, 7, 114, 132):
+        for b in (1, 2, 3, 8, 1000):
+            for n in (1, 31, 32, 33, 100, 4096, 20480, 100001):
+                assert ks.dense_tile_columns(b, n, sms) in widths
+
+
+def test_dense_tile_columns_do_not_depend_on_k():
+    """The width is a function of the grid alone; ties go to the widest
+    (embed is re-read from L2 once per tile)."""
+    assert list(inspect.signature(ks.dense_tile_columns).parameters) == [
+        "b", "n", "sms"]
+    assert ks.dense_tile_columns(8, 4096, H100_SMS) == 128   # all tie
+    assert ks.dense_tile_columns(1, 20480, H100_SMS) == 32

@@ -148,11 +148,30 @@ def test_wkv6_refuses_what_the_kernel_does_not_take():
         ops.wkv6(r.double(), k, v, w, u, chunk=16)
     with pytest.raises(ValueError, match="contiguous"):
         ops.wkv6(r, k, v.transpose(0, 1), w, u, chunk=16)
-    with pytest.raises(ValueError, match="chunk"):
-        ops.wkv6(*_t(*_wkv_inputs(1, 256, 8, 8, seed=1)), chunk=128)
-    big = _t(*_wkv_inputs(1, 16, 80, 8, seed=1))
-    with pytest.raises(ValueError, match="dk <= 64"):
-        ops.wkv6(*big, chunk=16)
+    with pytest.raises(ValueError, match="chunk must be positive"):
+        ops.wkv6(r, k, v, w, u, chunk=0)
+
+
+@pytest.mark.parametrize("bh,t,dk,dv,chunk", [
+    (1, 64, 80, 16, 16),     # dk above the CUDA kernel's 64
+    (1, 256, 8, 8, 128),     # chunk above the CUDA kernel's 64
+])
+def test_wkv6_takes_sizes_beyond_the_kernel_limits_on_the_cpu(bh, t, dk, dv,
+                                                              chunk):
+    """On CPU tensors the op takes every size the JAX op takes (the limits
+    are the CUDA kernel's, tests/test_torch_cuda.py); decays w >= 0.7, so
+    at chunk 128 the exponents stay near 128·|log 0.7| = 46, under f32
+    exp's 88."""
+    args = _wkv_inputs(bh, t, dk, dv, seed=dk + chunk)
+    o, s = ops.wkv6(*_t(*args), chunk=chunk)
+    jo, js = jops.wkv6(*args, chunk=chunk, interpret=True)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1e-5,
+                               atol=1e-5)
+    oref, sref = ref.wkv6(*args)
+    np.testing.assert_allclose(o.numpy(), np.asarray(oref), **WKV_TOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(sref), **WKV_TOL)
 
 
 # ---------------------------------------------------------------- swa ------
@@ -210,12 +229,21 @@ def test_swa_refuses_what_the_kernel_does_not_take():
         ops.swa(q, k.to("meta"), v, window=8)
     with pytest.raises(ValueError, match="window"):
         ops.swa(q, k, v, window=0)
-    with pytest.raises(ValueError, match="d % 4"):
-        ops.swa(*_t(*_qkv(1, 16, 6, seed=1)), window=4)
-    with pytest.raises(ValueError, match="d <= 256"):
-        ops.swa(*_t(*_qkv(1, 4, 260, seed=1)), window=4)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         ops.swa(q.half(), k, v, window=8)
+
+
+@pytest.mark.parametrize("d", [6, 260])   # d % 4 != 0; d above 256
+def test_swa_takes_sizes_beyond_the_kernel_limits_on_the_cpu(d):
+    """On CPU tensors the op takes every head size the JAX op takes (the
+    limits are the CUDA kernel's, tests/test_torch_cuda.py)."""
+    q, k, v = _qkv(1, 128, d, seed=d)
+    got = ops.swa(*_t(q, k, v), window=48)
+    want = jops.swa(q, k, v, window=48, tile_q=64, tile_k=64,
+                    interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(ref.swa(q, k, v, window=48)), **TOL)
 
 
 # ------------------------------------------------------- grouped GLU -------
