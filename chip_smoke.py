@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --dense-kernels   # phase 1 and kernels 1-2's times
+    python3 chip_smoke.py --kernel-loop     # kernels 4 and 8: checks, times
 
 Phases (any failed check raises, so the script exits non-zero):
 
@@ -19,12 +20,16 @@ Phases (any failed check raises, so the script exits non-zero):
    bf16) on symmetric ER(0.15) graphs: a ragged case, a padding case whose
    isolated nodes must give exactly relu(base) (0 for the aggregation),
    the serving bucket (B=8, N=4096, D=768, 2.5M edge slots per graph) and
-   the paper-scale graph (B=1, N=20480, ~62.9M directed edges); the CSR
+   the paper-scale graph (B=1, N=20480, ~62.9M directed edges), and the
+   aggregation also on the serving bucket's lists with each node's slots
+   shuffled (sentinels among the real slots), there also at K = 16 and 7,
+   where the kernel's x windows hold more ids; the CSR
    layer also on BA(N=1M, d=10) (~20.0M directed edges).  On every graph
    case the representations must agree bit for bit at f32: the dense
    layer on the residual adjacency equals the sparse and CSR layers, and
    on the serving bucket the dense aggregate of one half of the nodes
-   equals the sparse aggregation's row block.
+   equals the sparse aggregation's row block, which equals the whole
+   call's slice.
 1b. The LM kernel entry point, ``repro_torch.kernels.ops`` (phase
    lm_kernels): with the counts at 0, one call each of ``wkv6`` (rwkv6-7b:
    BH=128, T=4096, 64x64 heads, chunk 64), ``swa`` (gemma3-4b's local
@@ -77,7 +82,11 @@ kernels), and last
 device, and outside a checkout.  With ``--dense-kernels`` it runs only
 phase 1's graph-kernel checks (the bit-identity gate included) and the
 times of kernels 1 and 2, the loop for work on those two kernels, and
-prints no kernels line and no result line.
+prints no kernels line and no result line.  With ``--kernel-loop`` it runs
+only the checks of kernels 4 and 8 (kernel 4's bit-identity gate with
+kernel 2 included) and their times, about a minute, the loop for work on
+those two kernels, and likewise prints no kernels line and no result
+line.
 """
 from __future__ import annotations
 
@@ -96,6 +105,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 H100_BYTES_PER_S = 3.35e12       # HBM3, NVIDIA H100 SXM data sheet
 H100_F32_FLOPS = 67e12           # f32 outside the tensor cores, same sheet
+H100_TF32_FLOPS = 495e12         # TF32 on the tensor cores, dense, same sheet
 DEVICE = "cuda"
 SERVE_SIZES = (500, 1000, 2000, 4000)
 SPARSE_MAX_DEGREE = 768          # ~7 sigma above ER(4000, 0.15)'s mean degree
@@ -236,11 +246,12 @@ def layer_inputs(torch, b, k, n, rho, seed, dev):
     return t4, embed, adj, base
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, rate: float = H100_F32_FLOPS):
     """(ms, what bounds it) on an H100 SXM: the bytes a call must move
     (each input read once, the output written once) over the memory rate,
-    against its f32 operations over the f32 rate."""
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+    against its operations over their peak ``rate`` (f32 on the CUDA cores
+    unless stated)."""
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / rate
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -506,10 +517,14 @@ def swa_bound(bh, t, d, window):
     return bound(4 * 4 * bh * t * d, 4 * d * pairs)
 
 
-def glu_bound(e, c, d, f):
+def glu_bound(e, c, d, f, rate=H100_TF32_FLOPS, passes=3):
     """x and the three weights in, y out (the f32 scratch h is the
-    kernel's, not the function's); three (C, d, f) products per expert."""
-    return bound(4 * (2 * e * c * d + 3 * e * d * f), 6 * e * c * d * f)
+    kernel's, not the function's); three (C, d, f) products per expert,
+    each done as ``passes`` TF32 products on the tensor cores (the split
+    hi·hi + hi·lo + lo·hi that holds f32 accuracy).  ``rate=H100_F32_FLOPS,
+    passes=1`` gives the bound of the same products on the CUDA cores."""
+    return bound(4 * (2 * e * c * d + 3 * e * d * f),
+                 passes * 6 * e * c * d * f, rate)
 
 
 def phase_lm_kernels(torch, dev, rows, failures):
@@ -524,10 +539,10 @@ def phase_lm_kernels(torch, dev, rows, failures):
     dv=24) at chunks 16, 32 and 64, bf16 inputs; swa at full width, a
     window that is not tile-aligned (200), a window >= T (causal) and a T
     that is not a multiple of the 64-query tile; the GLU at full width and
-    at the ragged (3, 100, 72, 90).  Last, times beside the bounds.
+    at the ragged (3, 100, 72, 90) and (1, 5, 3, 7) (``glu_checks``).
+    Last, times beside the bounds.
     Returns ({name: launches}, {name: timing row})."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.moe_gemm import grouped_glu_ffn_plain
     from repro_torch.kernels.swa import swa_attention_plain
     from repro_torch.kernels.wkv6 import wkv6_chunked_plain
 
@@ -600,18 +615,8 @@ def phase_lm_kernels(torch, dev, rows, failures):
         swa_case(case, [torch.randn((b_, t_, d_), generator=g, device=dev)
                         for _ in range(3)], win)
 
-    def glu_case(case, args, got=None):
-        got = got if got is not None else ops.grouped_glu_ffn(*args)
-        exact, scale = glu_exact(torch, *args)
-        e_, c_, d_ = args[0].shape
-        compare(torch, rows, failures, "grouped_glu_ffn", case, "f32", got,
-                grouped_glu_ffn_plain(*args), exact, None,
-                {"E": e_, "C": c_, "d": d_, "f": args[1].shape[2]}, scale,
-                tol=lm_tol("grouped_glu_ffn"), gate_f64=True)
-
-    glu_case("full", glu, y)
+    glu_checks(torch, dev, rows, failures, glu, y)
     del y
-    glu_case("ragged", glu_inputs(torch, dev, 3, 100, 72, 90, SEED + 70))
     torch.cuda.empty_cache()
 
     timing = {}
@@ -637,20 +642,63 @@ def phase_lm_kernels(torch, dev, rows, failures):
     timing["swa_attention"] = row
     del mask, qkv, heads
     torch.cuda.empty_cache()
-    e, c, d, f = GLU_FULL
+    for name, r in timing.items():
+        emit({"phase": "timing", "kernel": name, "shape": "full", **r})
+    timing["grouped_glu_ffn"] = glu_timing(torch, glu)
+    del glu, wkv
+    torch.cuda.empty_cache()
+    return launches, timing
+
+
+# (E, C, d, f) of the GLU checks beside the full width: ragged C, d and f,
+# and a case smaller than every tile
+GLU_RAGGED = ((3, 100, 72, 90), (1, 5, 3, 7))
+
+
+def glu_checks(torch, dev, rows, failures, glu, y=None):
+    """Kernel 8 against its plain version and against f64 by the
+    componentwise rule of ``lm_tol`` at full width (``y``: the main path's
+    output on ``glu``, when given) and at the ragged ``GLU_RAGGED``."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.moe_gemm import grouped_glu_ffn_plain
+
+    def glu_case(case, args, got=None):
+        got = got if got is not None else ops.grouped_glu_ffn(*args)
+        exact, scale = glu_exact(torch, *args)
+        e_, c_, d_ = args[0].shape
+        compare(torch, rows, failures, "grouped_glu_ffn", case, "f32", got,
+                grouped_glu_ffn_plain(*args), exact, None,
+                {"E": e_, "C": c_, "d": d_, "f": args[1].shape[2]}, scale,
+                tol=lm_tol("grouped_glu_ffn"), gate_f64=True)
+
+    glu_case("full", glu, y)
+    for i, shape in enumerate(GLU_RAGGED):
+        glu_case("ragged" if i == 0 else "tiny",
+                 glu_inputs(torch, dev, *shape, SEED + 70 + i))
+
+
+def glu_timing(torch, glu):
+    """Kernel 8's time at full width beside its bounds (three TF32 passes
+    on the tensor cores; the same products in f32 on the CUDA cores under
+    ``bound_ms_f32_cores``), its plain version and the cuBLAS yardstick."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.moe_gemm import grouped_glu_ffn_plain
+    e, c, d, f = (*glu[0].shape, glu[1].shape[2])
     row = {"E": e, "C": c, "d": d, "f": f}
     row["bound_ms"], row["bound_by"] = glu_bound(e, c, d, f)
+    row["bound_ms_f32_cores"] = glu_bound(e, c, d, f, H100_F32_FLOPS, 1)[0]
     row["ms_f32"] = cuda_ms(torch, lambda: ops.grouped_glu_ffn(*glu))
+    # the plain version and the yardstick in true f32: cuBLAS would take
+    # TF32 if allowed (repro_torch.device turns it off; stated here too)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    row["allow_tf32"] = torch.backends.cuda.matmul.allow_tf32
     row["plain_ms"] = cuda_ms(torch, lambda: grouped_glu_ffn_plain(*glu))
     x, wg, wu, wo = glu
     row["library_ms"] = cuda_ms(torch, lambda: torch.bmm(
         torch.nn.functional.silu(torch.bmm(x, wg)) * torch.bmm(x, wu), wo))
-    timing["grouped_glu_ffn"] = row
-    for name, r in timing.items():
-        emit({"phase": "timing", "kernel": name, "shape": "full", **r})
-    del glu, x, wg, wu, wo, wkv
-    torch.cuda.empty_cache()
-    return launches, timing
+    emit({"phase": "timing", "kernel": "grouped_glu_ffn", "shape": "full",
+          **row})
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -777,16 +825,14 @@ def bit_identity(torch, failures, case, kernel, out, vs, got):
                         f"representations must sum in one order")
 
 
-def run_graph_kernels(torch, case, name, rows, failures, exact=True):
-    """Kernels 3, 4 and 5 on one graph case against their plain versions
+def run_graph_kernels(torch, case, name, rows, failures):
+    """Kernels 3 and 5 on one graph case against their plain versions
     (and the f64 layer); the padding case's isolated nodes must give
-    exactly relu(base), 0 for the aggregation.  Then the gate that the
-    three representations sum in one order: at f32, kernel 1 on the
-    dense residual adjacency W with embed = x must equal kernels 3 and 5
-    bit for bit, and at the serving case kernel 2 on W's columns of the
-    upper half of the nodes (by symmetry, the transposed row block) must
-    equal kernel 4 on that row block."""
-    ks, kg, kc = kernel_modules()
+    exactly relu(base).  Then the gate that the three representations sum
+    in one order: at f32, kernel 1 on the dense residual adjacency W with
+    embed = x must equal kernels 3 and 5 bit for bit.  Last, kernel 4
+    (``check_sparse_aggregate``, with kernel 2's gate)."""
+    ks, _, kc = kernel_modules()
     sp, cs, x, base, t4 = (case[f] for f in ("sp", "cs", "x", "base", "t4"))
     b, k, n = x.shape
     d = sp.max_degree
@@ -825,33 +871,77 @@ def run_graph_kernels(torch, case, name, rows, failures, exact=True):
     dense = ks.fused_s2v_layer(t4, x, case["w"], base, "f32")
     for vs, got in f32_out.items():
         bit_identity(torch, failures, name, "fused_s2v_layer", dense, vs, got)
-    del dense, f32_out
+    del dense, f32_out, layer64, scale
+    torch.cuda.empty_cache()
+    check_sparse_aggregate(torch, case, name, rows, failures)
+
+
+def shuffle_slots(torch, nbr, edge, seed):
+    """The same neighbour lists with each node's slots in a random order,
+    so the sentinel slots lie among the real ones and ids do not ascend."""
+    g = torch.Generator(device=nbr.device).manual_seed(seed)
+    perm = torch.argsort(torch.rand(nbr.shape, generator=g,
+                                    device=nbr.device), dim=-1)
+    return (torch.gather(nbr, -1, perm).contiguous(),
+            torch.gather(edge, -1, perm).contiguous())
+
+
+def check_sparse_aggregate(torch, case, name, rows, failures):
+    """Kernel 4 on one graph case against its plain version and the f64
+    aggregate, componentwise to the sum of |terms|; the padding case's
+    isolated nodes must give 0.  At the serving case also: a graph rank's
+    row block at sp = 2, which must equal the whole call's slice bit for
+    bit, and kernel 2 on W's columns of those nodes (by symmetry, the
+    transposed row block) bit for bit; and the lists with shuffled slots,
+    whole, as that row block, and on x's first 16 and 7 rows (KP = 16 and
+    8: 2.7 and 1.3 of the kernel's x windows over the 4097 ids)."""
+    ks, kg, _ = kernel_modules()
+    sp, x = case["sp"], case["x"]
+    b, k, n = x.shape
+    d = sp.max_degree
+    agg64, abs64 = case["agg64"], case["abs64"]
+    shape = {"B": b, "K": k, "N": n, "D": d}
     xp = torch.nn.functional.pad(x, (0, 1))
-    args = (xp, sp.neighbors, case["edge"])
-    out = kg.sparse_mp_aggregate(*args)
-    compare(torch, rows, failures, "sparse_mp_aggregate", name, "f32", out,
-            kg.sparse_mp_aggregate_plain(*args), agg64, d, {**shape, "D": d},
-            case["abs64"].float())
+
+    def run(label, nbr, edge, rows_b=slice(None), whole=None,
+            k_b=slice(None)):
+        args = (xp[:, k_b].contiguous(), nbr[:, rows_b].contiguous(),
+                edge[:, rows_b].contiguous())
+        out = kg.sparse_mp_aggregate(*args)
+        nl = args[1].shape[1]
+        compare(torch, rows, failures, "sparse_mp_aggregate", label, "f32",
+                out, kg.sparse_mp_aggregate_plain(*args),
+                agg64[:, k_b, rows_b], d,
+                {**shape, "K": args[0].shape[1], "Nl": nl},
+                abs64[:, k_b, rows_b].float())
+        if whole is not None:
+            bit_identity(torch, failures, label, "sparse_mp_aggregate", out,
+                         "sparse_mp_aggregate on all rows", whole[:, :, rows_b])
+        return out
+
+    out = run(name, sp.neighbors, case["edge"])
+    real = case["real"]
     if real is not None and out[:, :, real:].any():
         failures.append(f"aggregate {name}: isolated nodes must give 0")
     if name == "serving":
         # a graph rank's lists at sp = 2: the upper half of the rows, its
         # isolated padding rows included, against the whole x
         rows_b = slice(n // 2, n)
-        args = (xp, sp.neighbors[:, rows_b].contiguous(),
-                case["edge"][:, rows_b].contiguous())
-        out = kg.sparse_mp_aggregate(*args)
-        compare(torch, rows, failures, "sparse_mp_aggregate",
-                "serving_rows_sp2", "f32", out,
-                kg.sparse_mp_aggregate_plain(*args), agg64[:, :, rows_b], d,
-                {**shape, "Nl": n // 2, "D": d},
-                case["abs64"][:, :, rows_b].float())
+        part = run("serving_rows_sp2", sp.neighbors, case["edge"], rows_b,
+                   out)
         cols = case["w"][:, :, rows_b].contiguous()
         bit_identity(torch, failures, "serving_rows_sp2", "mp_aggregate",
                      ks.mp_aggregate(x, cols, "f32"), "sparse_mp_aggregate",
-                     out)
-        del cols
-    del layer64, scale, out, xp, args
+                     part)
+        del cols, part
+        nbr, edge = shuffle_slots(torch, sp.neighbors, case["edge"],
+                                  SEED + 13)
+        out = run("serving_shuffled", nbr, edge)
+        run("serving_shuffled_rows_sp2", nbr, edge, rows_b, out)
+        for kk in (16, 7):
+            run(f"serving_shuffled_k{kk}", nbr, edge, k_b=slice(0, kk))
+        del nbr, edge
+    del out, xp
     torch.cuda.empty_cache()
 
 
@@ -1682,16 +1772,12 @@ def graph_timing(torch, case, label, extra=None):
     """Kernels 3, 4 and 5 on one graph case: kernel (the wrapper, its
     node-major copy of x included), plain version and library yardstick
     (cuSPARSE SpMM through torch.sparse.mm, then theta4, base and ReLU)."""
-    ks, kg, kc = kernel_modules()
+    ks, _, kc = kernel_modules()
     sp, cs, x, base, t4 = (case[f] for f in ("sp", "cs", "x", "base", "t4"))
     edge, edge_w = case["edge"], case["edge_w"]
     b, k, n = x.shape
     out = {}
-    a = library_csr(torch, cs, edge_w)
-
-    def spmm():
-        xt = x.transpose(1, 2).reshape(b * n, k)
-        return torch.sparse.mm(a, xt).reshape(b, n, k).transpose(1, 2)
+    spmm = library_spmm(torch, case)
 
     def library_layer():
         return torch.relu(base + torch.einsum("kj,bjn->bkn", t4, spmm()))
@@ -1701,7 +1787,6 @@ def graph_timing(torch, case, label, extra=None):
         d = sp.max_degree
         nnz = int(sp.valid.sum())
         slots = 8 * b * n * d
-        xp = torch.nn.functional.pad(x, (0, 1))
         row = {"B": b, "K": k, "N": n, "D": d}
         row["bound_ms"], row["bound_by"] = bound(
             4 * (k * k + 3 * b * k * n) + slots, 2 * k * nnz + 2 * b * k * k * n)
@@ -1715,38 +1800,8 @@ def graph_timing(torch, case, label, extra=None):
         out["fused_s2v_layer_sparse"] = row
         emit({"phase": "timing", "kernel": "fused_s2v_layer_sparse",
               "shape": label, **row})
-        row = {"B": b, "K": k, "N": n, "D": d}
-        row["bound_ms"], row["bound_by"] = bound(
-            4 * (b * k * (n + 1) + b * k * n) + slots, 2 * k * nnz)
-        args = (xp, sp.neighbors, edge)
-        row["ms_f32"] = cuda_ms(torch, lambda: kg.sparse_mp_aggregate(*args))
-        row["plain_ms"] = cuda_ms(
-            torch, lambda: kg.sparse_mp_aggregate_plain(*args))
-        row["library_ms"] = cuda_ms(torch, spmm)
-        out["sparse_mp_aggregate"] = row
-        emit({"phase": "timing", "kernel": "sparse_mp_aggregate",
-              "shape": label, **row})
-        if label == "serving":
-            # a graph rank's lists at sp = 2 against the whole x
-            nl = n // 2
-            args = (xp, sp.neighbors[:, nl:].contiguous(),
-                    edge[:, nl:].contiguous())
-            row = {"B": b, "K": k, "N": n, "Nl": nl, "D": d}
-            row["bound_ms"], row["bound_by"] = bound(
-                4 * (b * k * (n + 1) + b * k * nl) + 8 * b * nl * d,
-                2 * k * int(sp.valid[:, nl:].sum()))
-            row["ms_f32"] = cuda_ms(torch,
-                                    lambda: kg.sparse_mp_aggregate(*args))
-            row["plain_ms"] = cuda_ms(
-                torch, lambda: kg.sparse_mp_aggregate_plain(*args))
-            a_rows = library_rows(torch, args[1], args[2], n + 1)
-            xt = xp.transpose(1, 2).reshape(b * (n + 1), k)
-            row["library_ms"] = cuda_ms(torch, lambda: torch.sparse.mm(
-                a_rows, xt).reshape(b, nl, k).transpose(1, 2))
-            emit({"phase": "timing", "kernel": "sparse_mp_aggregate",
-                  "shape": "serving_rows_sp2", **row})
-            del a_rows, xt, args
-        del xp
+        out["sparse_mp_aggregate"] = timing_sparse_aggregate(
+            torch, case, label, spmm)
     row = {"B": b, "K": k, "N": n, "E": cs.num_edges, "edges": nnz_csr,
            **(extra or {})}
     # indptr, the real edges' (id, factor), x, base, theta4 in; out
@@ -1763,9 +1818,65 @@ def graph_timing(torch, case, label, extra=None):
     out["fused_s2v_layer_csr"] = row
     emit({"phase": "timing", "kernel": "fused_s2v_layer_csr", "shape": label,
           **row})
-    del a
+    del spmm
     torch.cuda.empty_cache()
     return out
+
+
+def library_spmm(torch, case):
+    """The library form of kernel 4 on a graph case: cuSPARSE SpMM
+    through torch.sparse.mm over the batch's block-diagonal CSR matrix
+    (built here, outside the timing), giving (B, K, N)."""
+    x = case["x"]
+    b, k, n = x.shape
+    a = library_csr(torch, case["cs"], case["edge_w"])
+
+    def spmm():
+        xt = x.transpose(1, 2).reshape(b * n, k)
+        return torch.sparse.mm(a, xt).reshape(b, n, k).transpose(1, 2)
+    return spmm
+
+
+def timing_sparse_aggregate(torch, case, label, spmm):
+    """Kernel 4 on a graph case (the wrapper, its node-major copy of x
+    included), its plain version and the library ``spmm``; at the serving
+    case also a graph rank's row block at sp = 2 against the whole x."""
+    _, kg, _ = kernel_modules()
+    sp, x, edge = case["sp"], case["x"], case["edge"]
+    b, k, n = x.shape
+    d = sp.max_degree
+    xp = torch.nn.functional.pad(x, (0, 1))
+    row = {"B": b, "K": k, "N": n, "D": d}
+    # x and the (id, factor) lists in, out; 2·K FLOPs per valid slot
+    row["bound_ms"], row["bound_by"] = bound(
+        4 * (b * k * (n + 1) + b * k * n) + 8 * b * n * d,
+        2 * k * int(sp.valid.sum()))
+    args = (xp, sp.neighbors, edge)
+    row["ms_f32"] = cuda_ms(torch, lambda: kg.sparse_mp_aggregate(*args))
+    row["plain_ms"] = cuda_ms(
+        torch, lambda: kg.sparse_mp_aggregate_plain(*args))
+    row["library_ms"] = cuda_ms(torch, spmm)
+    emit({"phase": "timing", "kernel": "sparse_mp_aggregate",
+          "shape": label, **row})
+    if label == "serving":
+        nl = n // 2
+        args = (xp, sp.neighbors[:, nl:].contiguous(),
+                edge[:, nl:].contiguous())
+        part = {"B": b, "K": k, "N": n, "Nl": nl, "D": d}
+        part["bound_ms"], part["bound_by"] = bound(
+            4 * (b * k * (n + 1) + b * k * nl) + 8 * b * nl * d,
+            2 * k * int(sp.valid[:, nl:].sum()))
+        part["ms_f32"] = cuda_ms(torch,
+                                 lambda: kg.sparse_mp_aggregate(*args))
+        part["plain_ms"] = cuda_ms(
+            torch, lambda: kg.sparse_mp_aggregate_plain(*args))
+        a_rows = library_rows(torch, args[1], args[2], n + 1)
+        xt = xp.transpose(1, 2).reshape(b * (n + 1), k)
+        part["library_ms"] = cuda_ms(torch, lambda: torch.sparse.mm(
+            a_rows, xt).reshape(b, nl, k).transpose(1, 2))
+        emit({"phase": "timing", "kernel": "sparse_mp_aggregate",
+              "shape": "serving_rows_sp2", **part})
+    return row
 
 
 def phase_timing(torch, ks, dev, ba_cs):
@@ -1839,11 +1950,43 @@ def dense_kernels(torch, ks, dev) -> None:
         timing_agg(torch, ks, dev)
 
 
+def kernel_loop(torch, dev) -> None:
+    """``--kernel-loop``: the short loop for work on kernels 4 and 8.
+    Kernel 4's checks on every graph case (the shuffled-slot case, the row
+    blocks and the bit-identity gate with kernel 2 included) and its times
+    at the serving bucket and its sp = 2 row block; kernel 8's checks at
+    full width and the ragged cases, and its time.  No served path, so it
+    prints no kernels line and no result line."""
+    rows, failures = [], []
+    with timed_phase("kernel_vs_plain"):
+        for name, b, k, n, rho, real, width, edges in GRAPH_CASES:
+            case = graph_case(torch, dev, b, k, n, rho, SEED + 7 * n, real,
+                              width, edges)
+            check_sparse_aggregate(torch, case, name, rows, failures)
+            del case
+            torch.cuda.empty_cache()
+        glu = glu_inputs(torch, dev, *GLU_FULL, SEED + 63)
+        glu_checks(torch, dev, rows, failures, glu)
+    if failures:
+        raise AssertionError("a kernel disagrees with its plain version, "
+                             "f64 or another kernel:\n" + "\n".join(failures))
+    with timed_phase("timing"):
+        glu_timing(torch, glu)
+        del glu
+        torch.cuda.empty_cache()
+        b, n, real = BUCKET
+        case = graph_case(torch, dev, b, 32, n, 0.15, SEED + 11 * n, real,
+                          SPARSE_MAX_DEGREE, CSR_MAX_EDGES)
+        del case["agg64"], case["w"]
+        timing_sparse_aggregate(torch, case, "serving",
+                                library_spmm(torch, case))
+
+
 def main() -> int:
     args = sys.argv[1:]
-    if args not in ([], ["--dense-kernels"]):
-        print("usage: python3 chip_smoke.py [--dense-kernels]",
-              file=sys.stderr)
+    if args not in ([], ["--dense-kernels"], ["--kernel-loop"]):
+        print("usage: python3 chip_smoke.py [--dense-kernels | "
+              "--kernel-loop]", file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -1875,7 +2018,10 @@ def main() -> int:
                         for name in sources}})
 
     if args:
-        dense_kernels(torch, ks, dev)
+        if args == ["--dense-kernels"]:
+            dense_kernels(torch, ks, dev)
+        else:
+            kernel_loop(torch, dev)
         print_card()
         return 0
 

@@ -11,58 +11,142 @@
 // product in the last-step epilogue) and _proj_kernel over a grid
 // (E, C/TC, F/TF, D/TD) with the contraction as the sequential last grid
 // axis.  CUDA blocks run in parallel and in no order, so here one block owns
-// one (expert, 64-row, 64-column) output tile and loops over the
+// one (expert, BM-row, BN-column) output tile and loops over the
 // contraction itself, with its accumulators in registers; the (E, C, f)
-// product g and u never reach device memory, only h does, as on the TPU.
+// products g and u never reach device memory, only h does, as on the TPU.
 // The TPU wrapper pads x and the weights to tile multiples in device memory
-// (_pad_to) because its BlockSpecs need whole tiles; here ragged C, d and f
-// are masked inside the tile loads (zero fill) and the stores, so nothing is
-// padded or copied.
+// (_pad_to); here ragged C, d and f are zero-filled in the tile copies and
+// masked in the stores, so nothing is padded or copied.
 //
 // What bounds it: operations.  At qwen2-moe-a2.7b's width (E=60, d=2048,
-// f=1408, C=320) the two kernels do 3.32e11 f32 FLOPs (4.96 ms at 67 TFLOP/s
-// on CUDA cores) against 2.61 GB of traffic (0.78 ms at 3.35 TB/s, mostly
-// the f32 weights).  The design keeps the FMA units fed from shared memory:
-// each thread owns a 4 x 4 register tile (two in moe_glu, one per
-// accumulator), so one float4 load of x and one of each weight per step of
-// the contraction feed 16 (moe_glu: 32) FMAs; x is staged transposed so that
-// load is a float4 too; the next 16-deep slab of x and the weights is loaded
-// into registers while the current one is multiplied, and stored into the
-// other of two shared-memory buffers, so one barrier per slab suffices.  A
-// weight tile is read by the C/64 = 5 blocks of its expert, mostly from L2.
-// Tensor cores (TF32/bf16 wgmma) and TMA are left for the PR that makes it
-// fast.
+// f=1408, C=320) the two kernels do 3.32e11 FLOPs against 2.39 GB of
+// traffic (0.71 ms at 3.35 TB/s, mostly the f32 weights).  On the CUDA
+// cores that is 4.96 ms at 67 TFLOP/s, and feeding them from shared memory
+// costs more (a float4 load is four wavefronts).  So the products run on
+// the tensor cores in TF32, which keeps 10 mantissa bits, too few to be
+// sure of the f32 bar (1e-5 of the sum of |terms| against f64).  Each f32
+// operand is split where its fragment is loaded into registers, hi =
+// tf32(a) and lo = tf32(a - hi) (round to nearest, ties away, as
+// cvt.rna.tf32.f32, done in integer operations), so a*b = hi*hi + hi*lo +
+// lo*hi + lo*lo, and lo*lo (2^-22 |a||b|) is dropped; the three products run
+// as warp-level mma.sync m16n8k8 TF32 instructions, small terms first, into
+// f32 accumulators in registers.  Three TF32 passes at 495 TFLOP/s bound
+// the call at 2.01 ms.  mma.sync takes both fragments from registers,
+// filled by plain 32-bit loads from padded tiles (row stride BK + 4 for x
+// or h, BN + 8 for the weights: every fragment load is one conflict-free
+// wavefront), so the N-major weights are the B operand as they lie, with
+// no transpose; wgmma at TF32 would need both shared operands K-major.
+// Tiles arrive through a ring of STAGES asynchronous copies (16-byte
+// cp.async.cg where the rows are whole 16-byte vectors, 4-byte copies
+// otherwise), so loads overlap the products.  8 warps; each owns 32 rows
+// (two m16 tiles) and BN / WARPS_N columns of the block tile.  The
+// fragment loads and the splits, done by every warp that reads a value,
+// take about as long as the MMAs, and a block's warps are few (one or two
+// blocks an SM), so the MMAs run well below their peak.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BM = 64;                 // rows (capacity slots) per block
-constexpr int BN = 64;                 // output columns per block
-constexpr int BK = 16;                 // contraction depth per slab
-constexpr int THREADS = 256;           // 16 x 16 threads
-constexpr int TM = 4, TN = 4;          // register tile of one thread
-constexpr int LDA = BM + 4;            // row stride of the transposed x slab
-constexpr int A_PER_T = BM * BK / THREADS;   // 4 x values a thread loads
-constexpr int B_PER_T = BK * BN / THREADS;   // 4 weights (of each) it loads
+constexpr int STAGES = 4;              // copies in flight
+constexpr int THREADS = 256;           // 8 warps
 
 __device__ __forceinline__ float silu_times(float g, float u) {
   return g / (1.f + expf(-g)) * u;
 }
 
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 or 4 bytes from gmem to smem; valid == false writes zeros.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(float* smem, const float* gmem,
+                                         bool valid) {
+  if (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_u32(smem)),
+                 "l"(gmem), "r"(valid ? 16 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_u32(smem)),
+                 "l"(gmem), "r"(valid ? 4 : 0)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N_PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N_PENDING) : "memory");
+}
+
+// tf32(a): a rounded to 10 mantissa bits, to nearest with ties away from
+// zero, as cvt.rna.tf32.f32 rounds finite values, in two integer operations
+// (the conversion instruction issues at a quarter of their rate).
+__device__ __forceinline__ unsigned tf32_rna(float a) {
+  return (__float_as_uint(a) + 0x1000u) & 0xFFFFE000u;
+}
+
+// hi = tf32(a), lo = tf32(a - hi); a - hi is exact in f32.
+__device__ __forceinline__ void split_tf32(float a, unsigned& hi,
+                                           unsigned& lo) {
+  hi = tf32_rna(a);
+  lo = tf32_rna(a - __uint_as_float(hi));
+}
+
+// c += a (16x8, row) * b (8x8, col) in TF32 with f32 accumulation.
+__device__ __forceinline__ void mma_tf32(float* c, const unsigned* a,
+                                         const unsigned* b) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The block tile: BM = 64 rows (32 per warp row) by BN = 128 columns; NB
+// weight matrices (2 for the GLU: g and u share x's fragments).  The GLU's
+// stages are BK = 16 deep, so two of its blocks fit on an SM (at most 128
+// registers a thread); the projection's are 32 deep.
+template <bool GLU>
+struct Tile {
+  static constexpr int NB = GLU ? 2 : 1;
+  static constexpr int BK = GLU ? 16 : 32;     // contraction depth a stage
+  static constexpr int LDA = BK + 4;           // row stride of the x / h tile
+  static constexpr int BM = 64, BN = 128;
+  static constexpr int WM = 32;                // a warp's rows
+  static constexpr int MT = WM / 16;           // its m16 tiles
+  static constexpr int WARPS_M = BM / WM, WARPS_N = 8 / WARPS_M;
+  static constexpr int WN = BN / WARPS_N;      // a warp's columns
+  static constexpr int NT = WN / 8;            // its n8 tiles
+  static constexpr int LDB = BN + 8;           // row stride of a weight tile
+  static constexpr int A_FLOATS = BM * LDA;
+  static constexpr int B_FLOATS = BK * LDB;
+  static constexpr int STAGE_FLOATS = A_FLOATS + NB * B_FLOATS;
+  static constexpr int SMEM = STAGES * STAGE_FLOATS * (int)sizeof(float);
+};
+
 // out[e] (M x N) = a[e] (M x K) @ b0[e] (K x N), or with GLU
 // silu(a[e] @ b0[e]) * (a[e] @ b1[e]).  Row-major, one expert per
-// blockIdx.z.
-template <bool GLU>
-__global__ void __launch_bounds__(THREADS)
-grouped_gemm_kernel(const float* __restrict__ a, const float* __restrict__ b0,
-                    const float* __restrict__ b1, float* __restrict__ out,
-                    int M, int N, int K) {
-  constexpr int NB = GLU ? 2 : 1;
-  __shared__ __align__(16) float As[2][BK][LDA];       // transposed: [k][m]
-  __shared__ __align__(16) float Bs[2][NB][BK][BN];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
+// blockIdx.z.  VEC: K and N are multiples of 4 and the pointers 16-byte
+// aligned, so every tile row is copied as whole 16-byte vectors.
+template <bool GLU, bool VEC>
+__device__ __forceinline__ void split_tf32_gemm(const float* __restrict__ a,
+                                                const float* __restrict__ b0,
+                                                const float* __restrict__ b1,
+                                                float* __restrict__ out,
+                                                int M, int N, int K) {
+  using T = Tile<GLU>;
+  constexpr int NB = T::NB, BM = T::BM, BN = T::BN, NT = T::NT, LDB = T::LDB;
+  constexpr int BK = T::BK, LDA = T::LDA, MT = T::MT;
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;          // fragment row / column
+  const int wm = warp / T::WARPS_N, wn = warp % T::WARPS_N;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const size_t e = blockIdx.z;
   const float* ae = a + e * M * K;
@@ -70,116 +154,194 @@ grouped_gemm_kernel(const float* __restrict__ a, const float* __restrict__ b0,
   be[0] = b0 + e * K * N;
   if (GLU) be[NB - 1] = b1 + e * K * N;
 
-  float ra[A_PER_T], rb[NB][B_PER_T];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < A_PER_T; ++i) {
-      const int idx = tid + i * THREADS;
-      const int gm = m0 + idx / BK, gk = k0 + idx % BK;
-      ra[i] = (gm < M && gk < K) ? ae[(size_t)gm * K + gk] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < B_PER_T; ++i) {
-      const int idx = tid + i * THREADS;
-      const int gk = k0 + idx / BN, gn = n0 + idx % BN;
-      const bool ok = gk < K && gn < N;
+  // Copy stage kt of the contraction into ring slot s: the (BM, BK) slab
+  // of a and the (BK, BN) slabs of the weights, zeros outside the arrays.
+  auto load = [&](int s, int kt) {
+    float* as = smem + s * T::STAGE_FLOATS;
+    const int k0 = kt * BK;
+    if (VEC) {
+      for (int c = tid; c < BM * BK / 4; c += THREADS) {
+        const int r = c / (BK / 4), k = 4 * (c % (BK / 4));
+        const bool ok = m0 + r < M && k0 + k < K;
+        cp_async<16>(as + r * LDA + k,
+                     ok ? ae + (size_t)(m0 + r) * K + k0 + k : ae, ok);
+      }
 #pragma unroll
       for (int j = 0; j < NB; ++j)
-        rb[j][i] = ok ? be[j][(size_t)gk * N + gn] : 0.f;
-    }
-  };
-  auto store = [&](int buf) {
+        for (int c = tid; c < BK * BN / 4; c += THREADS) {
+          const int r = c / (BN / 4), n = 4 * (c % (BN / 4));
+          const bool ok = k0 + r < K && n0 + n < N;
+          cp_async<16>(as + T::A_FLOATS + j * T::B_FLOATS + r * LDB + n,
+                       ok ? be[j] + (size_t)(k0 + r) * N + n0 + n : be[j],
+                       ok);
+        }
+    } else {
+      for (int c = tid; c < BM * BK; c += THREADS) {
+        const int r = c / BK, k = c % BK;
+        const bool ok = m0 + r < M && k0 + k < K;
+        cp_async<4>(as + r * LDA + k,
+                    ok ? ae + (size_t)(m0 + r) * K + k0 + k : ae, ok);
+      }
 #pragma unroll
-    for (int i = 0; i < A_PER_T; ++i) {
-      const int idx = tid + i * THREADS;
-      As[buf][idx % BK][idx / BK] = ra[i];
-    }
-#pragma unroll
-    for (int i = 0; i < B_PER_T; ++i) {
-      const int idx = tid + i * THREADS;
-#pragma unroll
-      for (int j = 0; j < NB; ++j) Bs[buf][j][idx / BN][idx % BN] = rb[j][i];
+      for (int j = 0; j < NB; ++j)
+        for (int c = tid; c < BK * BN; c += THREADS) {
+          const int r = c / BN, n = c % BN;
+          const bool ok = k0 + r < K && n0 + n < N;
+          cp_async<4>(as + T::A_FLOATS + j * T::B_FLOATS + r * LDB + n,
+                      ok ? be[j] + (size_t)(k0 + r) * N + n0 + n : be[j],
+                      ok);
+        }
     }
   };
 
-  float acc[NB][TM][TN];
+  float acc[NB][MT][NT][4];
 #pragma unroll
   for (int j = 0; j < NB; ++j)
 #pragma unroll
-    for (int r = 0; r < TM; ++r)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int c = 0; c < TN; ++c) acc[j][r][c] = 0.f;
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[j][mt][nt][r] = 0.f;
 
   const int nk = (K + BK - 1) / BK;
-  load(0);
-  store(0);
-  __syncthreads();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < nk) load((kt + 1) * BK);     // in flight during the FMAs
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&As[cur][kk][ty * TM]);
-      const float am[TM] = {av.x, av.y, av.z, av.w};
-#pragma unroll
-      for (int j = 0; j < NB; ++j) {
-        const float4 bv =
-            *reinterpret_cast<const float4*>(&Bs[cur][j][kk][tx * TN]);
-        const float bn[TN] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-        for (int r = 0; r < TM; ++r)
-#pragma unroll
-          for (int c = 0; c < TN; ++c)
-            acc[j][r][c] = fmaf(am[r], bn[c], acc[j][r][c]);
-      }
-    }
-    // the other buffer was last read before the previous barrier
-    if (kt + 1 < nk) store(cur ^ 1);
-    __syncthreads();
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load(s, s);
+    cp_async_commit();
   }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();                 // stage kt has landed
+    __syncthreads();                             // and slot kt-1 is free
+    if (kt + STAGES - 1 < nk) load((kt + STAGES - 1) % STAGES,
+                                   kt + STAGES - 1);
+    cp_async_commit();
+    const float* as = smem + (kt % STAGES) * T::STAGE_FLOATS;
+    const float* bs = as + T::A_FLOATS;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 8) {
+      unsigned ahi[MT][4], alo[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const float* ap = as + (wm * T::WM + mt * 16 + g) * LDA + kk + t;
+        split_tf32(ap[0], ahi[mt][0], alo[mt][0]);
+        split_tf32(ap[8 * LDA], ahi[mt][1], alo[mt][1]);
+        split_tf32(ap[4], ahi[mt][2], alo[mt][2]);
+        split_tf32(ap[8 * LDA + 4], ahi[mt][3], alo[mt][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const float* bp =
+              bs + j * T::B_FLOATS + (kk + t) * LDB + wn * T::WN + nt * 8 + g;
+          unsigned bhi[2], blo[2];
+          split_tf32(bp[0], bhi[0], blo[0]);
+          split_tf32(bp[4 * LDB], bhi[1], blo[1]);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_tf32(acc[j][mt][nt], alo[mt], bhi);
+            mma_tf32(acc[j][mt][nt], ahi[mt], blo);
+            mma_tf32(acc[j][mt][nt], ahi[mt], bhi);
+          }
+        }
+    }
+  }
+  cp_async_wait<0>();
 
+  // c0, c1 at (row g, columns 2t, 2t+1) of an m16n8 tile, c2, c3 at row g+8
   float* oe = out + e * M * N;
 #pragma unroll
-  for (int r = 0; r < TM; ++r) {
-    const int gm = m0 + ty * TM + r;
-    if (gm >= M) continue;
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int c = 0; c < TN; ++c) {
-      const int gn = n0 + tx * TN + c;
-      if (gn < N)
-        oe[(size_t)gm * N + gn] =
-            GLU ? silu_times(acc[0][r][c], acc[NB - 1][r][c]) : acc[0][r][c];
+    for (int half = 0; half < 2; ++half) {
+      const int gm = m0 + wm * T::WM + mt * 16 + g + 8 * half;
+      if (gm >= M) continue;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int gn = n0 + wn * T::WN + nt * 8 + 2 * t;
+        float v[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float* p = acc[0][mt][nt];
+          v[c] = GLU ? silu_times(p[2 * half + c],
+                                  acc[NB - 1][mt][nt][2 * half + c])
+                     : p[2 * half + c];
+        }
+        float* o = oe + (size_t)gm * N + gn;
+        if (VEC && gn + 1 < N) {
+          *reinterpret_cast<float2*>(o) = make_float2(v[0], v[1]);
+        } else {
+          if (gn < N) o[0] = v[0];
+          if (gn + 1 < N) o[1] = v[1];
+        }
+      }
     }
-  }
+}
+
+// The two kernels: the GLU at two blocks an SM, the projection at one.
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS, 2)
+glu_kernel(const float* a, const float* b0, const float* b1, float* out,
+           int M, int N, int K) {
+  split_tf32_gemm<true, VEC>(a, b0, b1, out, M, N, K);
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS)
+proj_kernel(const float* a, const float* b0, const float* b1, float* out,
+            int M, int N, int K) {
+  split_tf32_gemm<false, VEC>(a, b0, b1, out, M, N, K);
 }
 
 bool bad_sizes(int E, int M, int N, int K) {
   return E < 1 || E > 65535 || M < 1 || N < 1 || K < 1 ||
-         (M + BM - 1) / BM > 65535;
+         (M + 63) / 64 > 65535;
+}
+
+template <bool GLU, bool VEC>
+int launch_tile(const float* a, const float* b0, const float* b1, float* out,
+                int E, int M, int N, int K, cudaStream_t stream) {
+  using T = Tile<GLU>;
+  auto kernel = GLU ? glu_kernel<VEC> : proj_kernel<VEC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM, E);
+  kernel<<<grid, THREADS, T::SMEM, stream>>>(a, b0, b1, out, M, N, K);
+  return (int)cudaGetLastError();
+}
+
+template <bool GLU>
+int launch_gemm(const float* a, const float* b0, const float* b1, float* out,
+                int E, int M, int N, int K, void* stream) {
+  if (bad_sizes(E, M, N, K)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = K % 4 == 0 && N % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(a) |
+                    reinterpret_cast<uintptr_t>(b0) |
+                    reinterpret_cast<uintptr_t>(GLU ? b1 : b0) |
+                    reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  return vec ? launch_tile<GLU, true>(a, b0, b1, out, E, M, N, K, s)
+             : launch_tile<GLU, false>(a, b0, b1, out, E, M, N, K, s);
 }
 
 }  // namespace
 
 // Kernel 1.  x (E, C, d), wg and wu (E, d, f) -> h (E, C, f), f32.
-// Returns cudaGetLastError().
+// Returns the first CUDA error, if any.
 extern "C" int moe_glu(const float* x, const float* wg, const float* wu,
                        float* h, int E, int C, int d, int f, void* stream) {
-  if (bad_sizes(E, C, f, d)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((f + BN - 1) / BN, (C + BM - 1) / BM, E);
-  grouped_gemm_kernel<true><<<grid, THREADS, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      x, wg, wu, h, C, f, d);
-  return (int)cudaGetLastError();
+  return launch_gemm<true>(x, wg, wu, h, E, C, f, d, stream);
 }
 
-// Kernel 2.  h (E, C, f), wo (E, f, d) -> y (E, C, d), f32.  Returns
-// cudaGetLastError().
+// Kernel 2.  h (E, C, f), wo (E, f, d) -> y (E, C, d), f32.  Returns the
+// first CUDA error, if any.
 extern "C" int moe_proj(const float* h, const float* wo, float* y, int E,
                         int C, int f, int d, void* stream) {
-  if (bad_sizes(E, C, d, f)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((d + BN - 1) / BN, (C + BM - 1) / BM, E);
-  grouped_gemm_kernel<false><<<grid, THREADS, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      h, wo, nullptr, y, C, d, f);
-  return (int)cudaGetLastError();
+  return launch_gemm<false>(h, wo, nullptr, y, E, C, d, f, stream);
 }

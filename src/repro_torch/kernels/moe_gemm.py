@@ -13,6 +13,9 @@ SiLU, as ``ref.grouped_glu_ffn``); :func:`grouped_glu_ffn` computes it on
 CPU tensors and on CUDA tensors launches the two hand-written kernels of
 ``csrc/moe_gemm.cu`` (the GLU product into an f32 scratch h (E, C, f), then
 h @ wo), counting two launches per call in ``grouped_glu_ffn.launches``.
+The kernels multiply on the tensor cores in TF32, each f32 operand split
+into two TF32 values as :func:`tf32_split` does, and sum three of the four
+split products: ``hi·hi + hi·lo + lo·hi``.
 """
 from __future__ import annotations
 
@@ -30,6 +33,20 @@ def grouped_glu_ffn_plain(x: torch.Tensor, wg: torch.Tensor,
     g = torch.einsum("ecd,edf->ecf", x, wg)
     u = torch.einsum("ecd,edf->ecf", x, wu)
     return torch.einsum("ecf,efd->ecd", torch.nn.functional.silu(g) * u, wo)
+
+
+def tf32_split(t: torch.Tensor) -> tuple:
+    """(hi, lo) of a float32 tensor as the kernels split each operand:
+    hi = tf32(t) and lo = tf32(t - hi), where tf32 rounds to 10 mantissa
+    bits, to nearest with ties away from zero (PTX ``cvt.rna.tf32.f32``),
+    by adding half of the dropped 13 bits' range to the magnitude and
+    clearing them.  For normal values hi + lo is within 2^-22 of t,
+    relative."""
+    def tf32(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    hi = tf32(t.float())
+    return hi, tf32(t.float() - hi)
 
 
 def _check_shapes(x, wg, wu, wo) -> None:

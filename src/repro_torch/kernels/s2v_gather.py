@@ -36,6 +36,29 @@ def sparse_mp_aggregate_plain(x: torch.Tensor, neighbors: torch.Tensor,
     return torch.einsum("bknd,bnd->bkn", gathered, edge.float())
 
 
+def padded_node_major(x: torch.Tensor) -> torch.Tensor:
+    """(B, K, M) → a (B, M, KP) copy with KP = K rounded up to a multiple
+    of 4 and zeros in the added rows, so the kernel copies and reads one
+    node's K values as whole 16-byte vectors."""
+    pad = -x.shape[1] % 4
+    return node_major(torch.nn.functional.pad(x, (0, 0, 0, pad)) if pad
+                      else x)
+
+
+def padded_lists(neighbors: torch.Tensor, edge: torch.Tensor) -> tuple:
+    """The lists as the kernel reads them, four slots per 16-byte load:
+    when D is not a multiple of 4, or a list array does not start on 16
+    bytes, a copy with D rounded up to 4 whose added slots hold the id -1
+    (outside [0, N], so it adds nothing) and the factor 0; else the lists
+    themselves."""
+    pad = -neighbors.shape[2] % 4
+    if not pad and neighbors.data_ptr() % 16 == 0 \
+            and edge.data_ptr() % 16 == 0:
+        return neighbors, edge
+    return (torch.nn.functional.pad(neighbors, (0, pad), value=-1),
+            torch.nn.functional.pad(edge, (0, pad)))
+
+
 def _check_inputs(x, neighbors, edge) -> None:
     check_tensors("neighbors", {"x": x, "neighbors": neighbors,
                                 "edge": edge}, int32=("neighbors",))
@@ -60,18 +83,22 @@ def sparse_mp_aggregate(x: torch.Tensor, neighbors: torch.Tensor,
                         edge: torch.Tensor) -> torch.Tensor:
     """The aggregation in one launch (f32).  CPU tensors take the plain
     version; CUDA tensors launch the kernel on the current stream, reading
-    a node-major copy of x."""
+    a node-major copy of x whose rows are padded with zeros to a multiple
+    of 4 floats (:func:`padded_node_major`), and lists whose width is a
+    multiple of 4 (:func:`padded_lists`)."""
     _check_inputs(x, neighbors, edge)
     if on_cpu(neighbors, "sparse_mp_aggregate"):
         return sparse_mp_aggregate_plain(x, neighbors, edge)
     b, k, np1 = x.shape
-    nl, d = neighbors.shape[1:]
-    xt = node_major(x)
+    nl = neighbors.shape[1]
+    xt = padded_node_major(x)
+    neighbors, edge = padded_lists(neighbors, edge)
     out = torch.empty((b, k, nl), dtype=torch.float32, device=x.device)
     launch("s2v_gather", "s2v_sparse_aggregate",
-           [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5, x.device,
+           [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6, x.device,
            xt.data_ptr(), neighbors.data_ptr(), edge.data_ptr(),
-           out.data_ptr(), b, k, np1 - 1, nl, d)
+           out.data_ptr(), b, k, xt.shape[2], np1 - 1, nl,
+           neighbors.shape[2])
     sparse_mp_aggregate.launches += 1
     return out
 

@@ -297,6 +297,87 @@ def test_sparse_aggregate_at_row_blocks_on_the_card(cuda):
         assert torch.equal(out, whole[:, :, lo:hi])
 
 
+def _long_lists(b, n, width, seed):
+    """Neighbour lists of random length (up to ``width``) over ids drawn
+    from [0, n), ascending, the sentinel n after the real slots and the
+    last 30 nodes empty; random factors on the real slots and a poisoned
+    5.0 on the sentinel slots, which must add nothing."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(width // 3, width + 1, (b, n, 1))
+    deg[:, -30:] = 0
+    real = np.arange(width) < deg
+    nbr = np.sort(np.where(real, rng.integers(0, n, (b, n, width)), n), -1)
+    edge = np.where(nbr < n, rng.random((b, n, width)), 5.0)
+    return (torch.from_numpy(nbr.astype(np.int32)),
+            torch.from_numpy(edge.astype(np.float32)))
+
+
+@pytest.mark.parametrize("k", [30, 16, 7])
+def test_sparse_aggregate_on_shuffled_long_lists_on_the_card(cuda, k):
+    """D = 2048 slots over N = 2500 * 32 / KP ids (KP = K rounded up to 4):
+    the kernel's x windows of 96 KB hold 768 ids at K = 30, 1536 at K = 16
+    and 3072 at K = 7, so every list crosses 3.3 of them.  The lists in
+    ascending order and with each node's slots shuffled (ids not
+    ascending, sentinel slots among the real ones, so slots wait for later
+    windows and read x below the window from global memory).  Against the
+    plain version, whole and on row blocks, and each row block equals the
+    whole call's slice."""
+    b, width = 2, 2048
+    n = 2500 * 32 // (k + -k % 4)
+    nbr, edge = _long_lists(b, n, width, k)
+    perm = torch.argsort(torch.from_numpy(
+        np.random.default_rng(k).random(nbr.shape)), dim=-1)
+    shuffled = (torch.gather(nbr, -1, perm), torch.gather(edge, -1, perm))
+    real = shuffled[0] < n
+    assert bool((real[..., 1:] & ~real[..., :-1]).any())
+    g = torch.Generator().manual_seed(k)
+    x = torch.rand((b, k, n), generator=g)
+    xp = torch.nn.functional.pad(x, (0, 1)).to(cuda)
+    for nbr, edge in ((nbr, edge), shuffled):
+        nbr, edge = nbr.to(cuda), edge.to(cuda)
+        before = kg.sparse_mp_aggregate.launches
+        whole = kg.sparse_mp_aggregate(xp, nbr, edge)
+        torch.cuda.synchronize()
+        assert kg.sparse_mp_aggregate.launches == before + 1
+        torch.testing.assert_close(
+            whole, kg.sparse_mp_aggregate_plain(xp, nbr, edge), **TOL["f32"])
+        assert not whole[:, :, -30:].any()
+        for lo, hi in ((0, n // 2), (n // 3, n), (1000, 1001)):
+            args = (xp, nbr[:, lo:hi].contiguous(),
+                    edge[:, lo:hi].contiguous())
+            out = kg.sparse_mp_aggregate(*args)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(
+                out, kg.sparse_mp_aggregate_plain(*args), **TOL["f32"])
+            assert torch.equal(out, whole[:, :, lo:hi])
+
+
+def test_sparse_aggregate_reads_the_sentinel_unless_it_adds_zero(cuda):
+    """The kernel passes over a sentinel slot only where the slot adds
+    exactly zero: the sentinel column of x all zero and the factor
+    finite.  An infinite factor on a sentinel slot must give NaN, and a
+    sentinel column that is not zero must be summed, as in the plain
+    version."""
+    b, k, n, width = 2, 16, 300, 200
+    sp, _, edge, _, x, _, _ = _graph_inputs(b, k, n, 0.3, 77, 20, width)
+    xp = torch.nn.functional.pad(torch.relu(x), (0, 1)).to(cuda)
+    nbr, edge = sp.neighbors.to(cuda), edge.to(cuda)
+    hot = edge.clone()
+    hot[0, 5, -1] = float("inf")                # a sentinel slot of node 5
+    assert int(nbr[0, 5, -1]) == n
+    out = kg.sparse_mp_aggregate(xp, nbr, hot)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, kg.sparse_mp_aggregate_plain(xp, nbr, hot),
+                               equal_nan=True, **TOL["f32"])
+    assert bool(out[0, :, 5].isnan().all())
+    xs = xp.clone()
+    xs[:, :, n] = 0.25                          # a sentinel column not zero
+    out = kg.sparse_mp_aggregate(xs, nbr, edge)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, kg.sparse_mp_aggregate_plain(xs, nbr, edge),
+                               **TOL["f32"])
+
+
 @pytest.mark.parametrize("b,k,n,iso", [(2, 32, 301, 20), (1, 32, 256, 0),
                                        (2, 8, 40, 7)])
 def test_dense_layer_is_identical_to_sparse_and_csr_on_the_card(cuda, b, k,
@@ -426,9 +507,36 @@ def test_swa_kernel_matches_plain_on_the_card(cuda):
             atol=1e-4)
 
 
+def test_grouped_glu_kernel_at_full_width_holds_f64_on_the_card(cuda):
+    """qwen2-moe-a2.7b's expert width (C=320, d=2048, f=1408) at E=2, x in
+    N(0,1) and weights N(0,1)/sqrt(fan-in): against the plain version at
+    the JAX suite's 1e-4, and against the GLU in f64 by chip_smoke.py's
+    componentwise rule (1e-5 + 1e-5 * the sum of |terms| behind each
+    output, the terms of h = silu(g)·u carrying g's and u's sums)."""
+    e, c, d, f = 2, 320, 2048, 1408
+    x, wg, wu, wo = (a.to(cuda) for a in _randn(
+        5, (e, c, d), (e, d, f), (e, d, f), (e, f, d)))
+    wg, wu, wo = wg * d ** -0.5, wu * d ** -0.5, wo * f ** -0.5
+    out = ops.grouped_glu_ffn(x, wg, wu, wo)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, grouped_glu_ffn_plain(x, wg, wu, wo),
+                               rtol=1e-4, atol=1e-4)
+    x, wg, wu, wo = (a.double() for a in (x, wg, wu, wo))
+    g, u = torch.bmm(x, wg), torch.bmm(x, wu)
+    sig = torch.sigmoid(g)
+    h = g * sig * u
+    dsilu = sig * (1 + g * (1 - sig))
+    terms_h = (h.abs() + (dsilu * u).abs() * torch.bmm(x.abs(), wg.abs())
+               + (g * sig).abs() * torch.bmm(x.abs(), wu.abs()))
+    err = (out.double() - torch.bmm(h, wo)).abs()
+    assert bool((err <= 1e-5 + 1e-5 * torch.bmm(terms_h, wo.abs())).all())
+
+
 def test_grouped_glu_kernel_matches_plain_on_the_card(cuda):
-    """Ragged C, d and f (masked in the tile loads), two launches per
-    call; the JAX suite's 1e-4."""
+    """Ragged C, d and f, none a multiple of the MMA tiles (zero-filled in
+    the tile copies, masked in the stores; 4-byte copies where a row is
+    not whole 16-byte vectors), two launches per call; the JAX suite's
+    1e-4."""
     for e, c, d, f in ((3, 100, 72, 90), (2, 128, 128, 256), (1, 5, 3, 7)):
         x, wg, wu, wo = (a.to(cuda) for a in _randn(
             e + c, (e, c, d), (e, d, f), (e, d, f), (e, f, d)))

@@ -22,7 +22,7 @@ from repro.models.ffn import _expert_ffn
 from repro.models.rwkv import wkv6_chunked_jnp
 import repro_torch.kernels as pt_kernels
 from repro_torch.kernels import ops
-from repro_torch.kernels.moe_gemm import grouped_glu_ffn_plain
+from repro_torch.kernels.moe_gemm import grouped_glu_ffn_plain, tf32_split
 from repro_torch.kernels.swa import swa_attention_plain
 from repro_torch.kernels.wkv6 import wkv6_chunked_plain
 
@@ -294,6 +294,89 @@ def test_grouped_glu_ffn_refuses_what_the_kernel_does_not_take():
         ops.grouped_glu_ffn(x, wg.to("meta"), wu, wo)
     with pytest.raises(ValueError, match="contiguous"):
         ops.grouped_glu_ffn(x.transpose(1, 2), wg, wu, wo)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def test_tf32_split_rounds_to_ten_mantissa_bits_and_sums_back():
+    """hi and lo keep 10 mantissa bits (the low 13 bits clear), hi + lo
+    is within 2^-22 of the value, relative, over normal values of both
+    signs and many scales; zero splits into zeros with its sign; a tie
+    rounds away from zero, as cvt.rna.tf32.f32 does."""
+    rng = _rng(11)
+    t = torch.from_numpy((rng.standard_normal(200_000)
+                          * 10.0 ** rng.integers(-30, 30, 200_000))
+                         .astype(np.float32))
+    hi, lo = tf32_split(t)
+    assert not (_bits(hi) & 0x1FFF).any() and not (_bits(lo) & 0x1FFF).any()
+    err = (hi.double() + lo.double() - t.double()).abs()
+    assert bool((err <= 2.0 ** -22 * t.double().abs()).all())
+    assert bool((hi.sign() == t.sign()).all())
+    zeros = torch.tensor([0.0, -0.0])
+    hz, lz = tf32_split(zeros)
+    assert torch.equal(_bits(hz), _bits(zeros)) and not lz.any()
+    tie = torch.tensor([0x3F801000, 0x3F803000], dtype=torch.int32).view(
+        torch.float32)                  # 1 + 2^-11 and 1 + 3 * 2^-11
+    want = torch.tensor([0x3F802000, 0x3F804000], dtype=torch.int32)
+    assert torch.equal(_bits(tf32_split(tie)[0]), want)
+    assert torch.equal(_bits(tf32_split(-tie)[0]),
+                       want | torch.tensor(-2 ** 31, dtype=torch.int32))
+
+
+def _toward_zero(s):
+    """f64 → f32, rounded toward zero."""
+    r = s.float()
+    over = r.double().abs() > s.abs()
+    return torch.where(over, torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def _split_bmm(a, b):
+    """a @ b as the kernels compute it: the three products of the TF32
+    parts, small terms first, one m16n8k8 step of 8 of the contraction at
+    a time, each step adding its eight exact products to the f32
+    accumulator and truncating the sum toward zero, a model of the tensor
+    cores' truncating accumulation.  How an MMA aligns the eight products
+    inside a step is not modelled.  At C=320, d=2048, f=1408 (one expert)
+    the model's GLU is 1.42e-4 from f64, near the kernels' 1.34e-4 on an
+    H100 at 60 experts; at the test's shape an exact f32 sum of the three
+    products is 10x closer to f64 than the model, so it would not bound
+    the kernels' error."""
+    ahi, alo = tf32_split(a)
+    bhi, blo = tf32_split(b)
+    acc = torch.zeros(a.shape[0], a.shape[1], b.shape[2])
+    for k0 in range(0, a.shape[2], 8):
+        for x, y in ((alo, bhi), (ahi, blo), (ahi, bhi)):
+            acc = _toward_zero(acc.double() + torch.bmm(
+                x[:, :, k0:k0 + 8].double(), y[:, k0:k0 + 8].double()))
+    return acc
+
+
+def test_split_tf32_glu_holds_the_f32_bar_against_f64():
+    """The GLU from the three split products, in f32, against the GLU in
+    f64 by the kernel's rule on the card (chip_smoke.py::lm_tol): within
+    1e-5 + 1e-5 * (the sum of |terms| behind each output), the terms of
+    h = silu(g)·u carrying g's and u's sums."""
+    e, c, d, f = 2, 64, 512, 384
+    rng = _rng(12)
+    x = rng.standard_normal((e, c, d)).astype(np.float32)
+    wg, wu = ((rng.standard_normal((e, d, f)) * d ** -0.5).astype(np.float32)
+              for _ in range(2))
+    wo = (rng.standard_normal((e, f, d)) * f ** -0.5).astype(np.float32)
+    x, wg, wu, wo = _t(x, wg, wu, wo)
+    g, u = _split_bmm(x, wg), _split_bmm(x, wu)
+    y = _split_bmm(torch.nn.functional.silu(g) * u, wo)
+    x, wg, wu, wo = (a.double() for a in (x, wg, wu, wo))
+    g, u = torch.bmm(x, wg), torch.bmm(x, wu)
+    sig = torch.sigmoid(g)
+    h = g * sig * u
+    dsilu = sig * (1 + g * (1 - sig))
+    terms_h = (h.abs() + (dsilu * u).abs() * torch.bmm(x.abs(), wg.abs())
+               + (g * sig).abs() * torch.bmm(x.abs(), wu.abs()))
+    scale = torch.bmm(terms_h, wo.abs())
+    err = (y.double() - torch.bmm(h, wo)).abs()
+    assert bool((err <= 1e-5 + 1e-5 * scale).all())
 
 
 # ------------------------------------------------------- the entry point ---

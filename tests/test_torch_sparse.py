@@ -161,6 +161,60 @@ def test_sparse_aggregate_plain_matches_pallas_and_oracle(tile):
     assert not got[:, :, -5:].any()
 
 
+@pytest.mark.parametrize("k,tile", [(16, 8), (7, 32)])
+def test_sparse_aggregate_on_shuffled_slots_matches_pallas_and_oracle(k,
+                                                                      tile):
+    """Each node's slots in a random order: ids do not ascend and the
+    sentinel slots lie among the real ones.  The kernel walks any list in
+    slot order, so the plain version must agree with the Pallas kernel and
+    the oracle on such lists as well."""
+    _, x, nbr, edge, _ = _layer_case(k=k, seed=4)
+    perm = np.argsort(np.random.default_rng(9).random(nbr.shape), axis=-1)
+    nbr, edge = (np.take_along_axis(a, perm, -1) for a in (nbr, edge))
+    n = x.shape[-1]
+    real = nbr < n
+    # some row has a sentinel slot before a real one, some ids descend
+    assert (real[..., 1:] & ~real[..., :-1]).any()
+    assert (np.diff(np.where(real, nbr, -1), axis=-1) < 0).any()
+    xp = np.pad(x, ((0, 0), (0, 0), (0, 1)))
+    got = kg.sparse_mp_aggregate_plain(*_torch(xp, nbr, edge)).numpy()
+    pallas = np.asarray(ops.sparse_mp_aggregate(xp, nbr, edge, tile_n=tile,
+                                                interpret=True))
+    np.testing.assert_allclose(got, pallas, **TOL["f32"])
+    oracle = np.asarray(ref.sparse_mp_aggregate(xp, nbr, edge))
+    np.testing.assert_allclose(got, oracle, **TOL["f32"])
+    assert not got[:, :, -5:].any()
+
+
+@pytest.mark.parametrize("k", [1, 7, 8, 30, 32])
+def test_padded_node_major_pads_rows_to_whole_vectors(k):
+    """The kernel's copy of x: node-major, each row padded with zeros to a
+    multiple of 4 floats."""
+    x = torch.from_numpy(np.random.default_rng(k).random((2, k, 9),
+                                                         np.float32))
+    xt = kg.padded_node_major(x)
+    kp = -(-k // 4) * 4
+    assert xt.shape == (2, 9, kp) and xt.is_contiguous()
+    assert torch.equal(xt[:, :, :k], x.transpose(1, 2))
+    assert not xt[:, :, k:].any()
+
+
+@pytest.mark.parametrize("d", [5, 8])
+def test_padded_lists_round_the_width_to_whole_vectors(d):
+    """The kernel's lists: a width that is not a multiple of 4 is padded
+    with the id -1 (outside [0, N], which the kernel passes over) and the
+    factor 0; a width that is, on aligned arrays, is taken as it is."""
+    nbr = torch.arange(2 * 3 * d, dtype=torch.int32).reshape(2, 3, d)
+    edge = torch.rand((2, 3, d))
+    pn, pe = kg.padded_lists(nbr, edge)
+    if d % 4 == 0:
+        assert pn is nbr and pe is edge
+        return
+    assert pn.shape == pe.shape == (2, 3, 8)
+    assert torch.equal(pn[..., :d], nbr) and torch.equal(pe[..., :d], edge)
+    assert bool((pn[..., d:] == -1).all()) and not pe[..., d:].any()
+
+
 def test_wrappers_on_cpu_are_the_plain_versions_and_launch_nothing():
     t4, x, nbr, edge, base = _torch(*_layer_case())
     xp = torch.nn.functional.pad(x, (0, 1))
