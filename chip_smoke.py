@@ -2,8 +2,7 @@
 """Drive the PyTorch port (src/repro_torch) on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --dense-kernels   # phase 1 and kernels 1-2's times
-    python3 chip_smoke.py --kernel-loop     # kernels 4 and 8: checks, times
+    python3 chip_smoke.py --only <kernel>,...   # those kernels' checks, times
 
 Phases (any failed check raises, so the script exits non-zero):
 
@@ -24,7 +23,11 @@ Phases (any failed check raises, so the script exits non-zero):
    aggregation also on the serving bucket's lists with each node's slots
    shuffled (sentinels among the real slots), there also at K = 16 and 7,
    where the kernel's x windows hold more ids; the CSR
-   layer also on BA(N=1M, d=10) (~20.0M directed edges).  On every graph
+   layer also on BA(N=1M, d=10) (~20.0M directed edges).  The sparse and
+   CSR layers run by the route their rule picks (the row walk or the
+   windowed walk), and the other route, forced, must give the same bits
+   at f32 and bf16 on every case (the sparse layer also on the serving
+   lists with shuffled slots).  On every graph
    case the representations must agree bit for bit at f32: the dense
    layer on the residual adjacency equals the sparse and CSR layers, and
    on the serving bucket the dense aggregate of one half of the nodes
@@ -44,8 +47,8 @@ Phases (any failed check raises, so the script exits non-zero):
    500..4000 nodes, on the dense, the sparse (sparse_max_degree=768) and
    the CSR (csr_max_edges=2.5M) representations; every answer is a vertex
    cover, no first dispatch lands on the request path, the rep's kernel
-   ran once per policy evaluation, and the async path gives the same
-   answers.
+   ran once per policy evaluation (its launches by route printed), and
+   the async path gives the same answers.
 3. The card against the port on the CPU on one (B=8, N=256) batch:
    first-evaluation scores within 1e-5 on each rep, and bit for bit
    across reps on the card; solutions valid covers.
@@ -72,21 +75,19 @@ Phases (any failed check raises, so the script exits non-zero):
 7. Where an evaluation's time goes (torch.profiler over 20 evaluations of
    a full 4096-node bucket, per rep), then timings: each kernel, its plain
    version and a library yardstick (CUDA events around 10 back-to-back
-   calls, median of 30 such samples after warm-up) beside its bound
-   (the LM kernels' times are taken in phase 1b).
+   calls, median of 30 such samples after warm-up) beside its bound,
+   the sparse and CSR layers by each route (the LM kernels' times are
+   taken in phase 1b).
 
 It prints diagnostic JSON lines (each phase's seconds among them), the
 nvidia-smi name and power limit, one ``{"kernels": [...]}`` line (all eight
 kernels), and last
 ``{"ok": true, "device": {...}}``.  It exits non-zero without a CUDA
-device, and outside a checkout.  With ``--dense-kernels`` it runs only
-phase 1's graph-kernel checks (the bit-identity gate included) and the
-times of kernels 1 and 2, the loop for work on those two kernels, and
-prints no kernels line and no result line.  With ``--kernel-loop`` it runs
-only the checks of kernels 4 and 8 (kernel 4's bit-identity gate with
-kernel 2 included) and their times, about a minute, the loop for work on
-those two kernels, and likewise prints no kernels line and no result
-line.
+device, and outside a checkout.  With ``--only <kernel>,...`` (names of
+the kernels line) it runs only the build, phase 1's checks of those
+kernels with their gates and their times (for the sparse and CSR layers
+both routes, and the route sweep behind the rule's constant), the loop
+for work on them: it prints no kernels line and no result line.
 """
 from __future__ import annotations
 
@@ -136,6 +137,7 @@ MESH_SERVE_SIZES = (500, 1000)   # its served graphs: the stream's smallest
 PAPER_MESH = (("dense", (1, 2)), ("dense", (1, 4)), ("sparse", (1, 4)))
 MESH_TIMEOUT_S = 420.0           # one spawn, its paper-scale solves included
 TIMING_BUDGET_S = 1.0            # per timed function (see cuda_ms)
+WALKS = ("rows", "windows")      # the sparse and CSR layers' two routes
 # The LM kernels at the full width of the models the repo ships for them:
 # rwkv6-7b's time mix, B=2 x 64 heads of 64 channels, T=4096, chunk 64
 WKV_FULL = (2 * 64, 4096, 64, 64, 64)        # BH, T, dk, dv, chunk
@@ -225,10 +227,18 @@ def kernel_fns():
 def reset_counts() -> None:
     for fn in kernel_fns().values():
         fn.launches = 0
+        for route in getattr(fn, "routes", ()):
+            fn.routes[route] = 0
 
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in kernel_fns().items()}
+
+
+def read_routes() -> dict:
+    """The launches of the sparse and CSR layers by route."""
+    return {name: dict(fn.routes) for name, fn in kernel_fns().items()
+            if hasattr(fn, "routes")}
 
 
 def layer_inputs(torch, b, k, n, rho, seed, dev):
@@ -527,52 +537,84 @@ def glu_bound(e, c, d, f, rate=H100_TF32_FLOPS, passes=3):
                  passes * 6 * e * c * d * f, rate)
 
 
+LM_KERNELS = ("wkv6_chunked", "swa_attention", "grouped_glu_ffn")
+
+
+def lm_inputs(torch, dev, names=LM_KERNELS):
+    """The full-width inputs of the named LM kernels: rwkv6-7b's time mix
+    (``WKV_FULL``), gemma3-4b's local layers (``SWA_FULL``) and
+    qwen2-moe-a2.7b's experts (``GLU_FULL``)."""
+    inputs = {}
+    if "wkv6_chunked" in names:
+        bh, t, dk, dv, _ = WKV_FULL
+        inputs["wkv6_chunked"] = wkv6_inputs(torch, dev, bh, t, dk, dv,
+                                             W_TPU_MIN, SEED + 61)
+    if "swa_attention" in names:
+        g = torch.Generator(device=dev).manual_seed(SEED + 62)
+        inputs["swa_attention"] = [torch.randn(SWA_FULL[:3], generator=g,
+                                               device=dev) for _ in range(3)]
+    if "grouped_glu_ffn" in names:
+        inputs["grouped_glu_ffn"] = glu_inputs(torch, dev, *GLU_FULL,
+                                               SEED + 63)
+    return inputs
+
+
 def phase_lm_kernels(torch, dev, rows, failures):
     """Phase 1b: the three LM kernels through ``repro_torch.kernels.ops``.
 
     The main path: with every launch count at 0, one call of each at full
     width (rwkv6-7b, gemma3-4b's local layers, qwen2-moe-a2.7b), outputs
     finite and of the expected shape.  Then each kernel against its plain
-    version and the f64 oracle: wkv6 at full width (chunk 64, w >= 0.55,
-    the TPU kernel's domain; and chunk 16 over the model's decay range
-    [exp(-e), 1), as launch/serve.py runs it), a ragged small case (BH=3,
-    dv=24) at chunks 16, 32 and 64, bf16 inputs; swa at full width, a
-    window that is not tile-aligned (200), a window >= T (causal) and a T
-    that is not a multiple of the 64-query tile; the GLU at full width and
-    at the ragged (3, 100, 72, 90) and (1, 5, 3, 7) (``glu_checks``).
-    Last, times beside the bounds.
+    version and the f64 oracle (``lm_checks``), and last, times beside
+    the bounds (``lm_timing``).
     Returns ({name: launches}, {name: timing row})."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.swa import swa_attention_plain
-    from repro_torch.kernels.wkv6 import wkv6_chunked_plain
-
-    bh, t, dk, dv, chunk = WKV_FULL
-    wkv = wkv6_inputs(torch, dev, bh, t, dk, dv, W_TPU_MIN, SEED + 61)
-    sbh, st, sd, window = SWA_FULL
-    g = torch.Generator(device=dev).manual_seed(SEED + 62)
-    qkv = [torch.randn((sbh, st, sd), generator=g, device=dev)
-           for _ in range(3)]
-    glu = glu_inputs(torch, dev, *GLU_FULL, SEED + 63)
+    inputs = lm_inputs(torch, dev)
+    chunk, window = WKV_FULL[4], SWA_FULL[3]
     torch.cuda.synchronize()
     reset_counts()
-    out, sfin = ops.wkv6(*wkv, chunk=chunk)
-    att = ops.swa(*qkv, window=window)
-    y = ops.grouped_glu_ffn(*glu)
+    outs = {"wkv6_chunked": ops.wkv6(*inputs["wkv6_chunked"], chunk=chunk),
+            "swa_attention": ops.swa(*inputs["swa_attention"],
+                                     window=window),
+            "grouped_glu_ffn": ops.grouped_glu_ffn(*inputs["grouped_glu_ffn"])}
     torch.cuda.synchronize()
     counts = read_counts()
-    launches = {n: counts[n] for n in ("wkv6_chunked", "swa_attention",
-                                       "grouped_glu_ffn")}
+    launches = {n: counts[n] for n in LM_KERNELS}
     emit({"phase": "lm_main_path", "launches": launches})
-    for name, o, shape in (("wkv6 out", out, (bh, t, dv)),
-                           ("wkv6 state", sfin, (bh, dk, dv)),
-                           ("swa", att, (sbh, st, sd)),
-                           ("grouped_glu_ffn", y, GLU_FULL[:2] + GLU_FULL[2:3])):
+    bh, t, dk, dv, _ = WKV_FULL
+    for name, o, shape in (("wkv6 out", outs["wkv6_chunked"][0], (bh, t, dv)),
+                           ("wkv6 state", outs["wkv6_chunked"][1],
+                            (bh, dk, dv)),
+                           ("swa", outs["swa_attention"], SWA_FULL[:3]),
+                           ("grouped_glu_ffn", outs["grouped_glu_ffn"],
+                            GLU_FULL[:2] + GLU_FULL[2:3])):
         if tuple(o.shape) != shape or not bool(torch.isfinite(o).all()):
             failures.append(f"{name}: shape {tuple(o.shape)} (want {shape}) "
                             f"or non-finite values on the main path")
     if launches != {"wkv6_chunked": 1, "swa_attention": 1,
                     "grouped_glu_ffn": 2}:
         failures.append(f"LM main path launched {launches}, want 1, 1, 2")
+    lm_checks(torch, dev, rows, failures, LM_KERNELS, inputs, outs)
+    del outs
+    torch.cuda.empty_cache()
+    return launches, lm_timing(torch, dev, LM_KERNELS, inputs)
+
+
+def lm_checks(torch, dev, rows, failures, names, inputs, outs=None):
+    """The named LM kernels against their plain versions and the f64
+    oracle (the sequential scan for wkv6): wkv6 at full width (chunk 64,
+    w >= 0.55, the TPU kernel's domain; and chunk 16 over the model's decay
+    range [exp(-e), 1), as launch/serve.py runs it), a ragged small case
+    (BH=3, dv=24) at chunks 16, 32 and 64, bf16 inputs; swa at full width,
+    a window that is not tile-aligned (200), a window >= T (causal) and a T
+    that is not a multiple of the 64-query tile; the GLU at full width and
+    at the ragged (3, 100, 72, 90) and (1, 5, 3, 7) (``glu_checks``).  At
+    full width ``outs`` (the main path's outputs) are checked where
+    given."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.swa import swa_attention_plain
+    from repro_torch.kernels.wkv6 import wkv6_chunked_plain
+    outs = outs or {}
 
     def wkv_case(case, args, c, compute="f32", got=None):
         got = got or ops.wkv6(*args, chunk=c)
@@ -586,16 +628,18 @@ def phase_lm_kernels(torch, dev, rows, failures):
                     compute, got[i], want[i], exact[i], None, shape,
                     tol=lm_tol("wkv6_chunked"), gate_f64=True)
 
-    wkv_case("full", wkv, chunk, got=(out, sfin))
-    del out, sfin
-    wkv_case("full_model_decays", wkv6_inputs(torch, dev, bh, t, dk, dv,
-                                              W_MODEL_MIN, SEED + 64), 16)
-    small = wkv6_inputs(torch, dev, 3, 128, 16, 24, W_TPU_MIN, SEED + 65)
-    for c in (16, 32, 64):
-        wkv_case(f"ragged_c{c}", small, c)
-    half = [a.bfloat16() for a in wkv6_inputs(torch, dev, 8, 256, 64, 64,
-                                              W_TPU_MIN, SEED + 66)]
-    wkv_case("bf16", half, 64, "bf16")
+    if "wkv6_chunked" in names:
+        bh, t, dk, dv, chunk = WKV_FULL
+        wkv_case("full", inputs["wkv6_chunked"], chunk,
+                 got=outs.get("wkv6_chunked"))
+        wkv_case("full_model_decays", wkv6_inputs(
+            torch, dev, bh, t, dk, dv, W_MODEL_MIN, SEED + 64), 16)
+        small = wkv6_inputs(torch, dev, 3, 128, 16, 24, W_TPU_MIN, SEED + 65)
+        for c in (16, 32, 64):
+            wkv_case(f"ragged_c{c}", small, c)
+        half = [a.bfloat16() for a in wkv6_inputs(torch, dev, 8, 256, 64, 64,
+                                                  W_TPU_MIN, SEED + 66)]
+        wkv_case("bf16", half, 64, "bf16")
 
     def swa_case(case, args, win, got=None):
         got = got if got is not None else ops.swa(*args, window=win)
@@ -606,48 +650,64 @@ def phase_lm_kernels(torch, dev, rows, failures):
                 {"BH": b_, "T": t_, "d": d_, "window": win},
                 tol=lm_tol("swa_attention"), gate_f64=True)
 
-    swa_case("full", qkv, window, att)
-    del att
-    for case, b_, t_, d_, win, seed in (("window200", 2, 1024, 256, 200, 67),
-                                        ("causal", 2, 512, 128, 4096, 68),
-                                        ("ragged_T", 3, 1000, 64, 300, 69)):
-        g = torch.Generator(device=dev).manual_seed(SEED + seed)
-        swa_case(case, [torch.randn((b_, t_, d_), generator=g, device=dev)
-                        for _ in range(3)], win)
-
-    glu_checks(torch, dev, rows, failures, glu, y)
-    del y
+    if "swa_attention" in names:
+        swa_case("full", inputs["swa_attention"], SWA_FULL[3],
+                 outs.get("swa_attention"))
+        for case, b_, t_, d_, win, seed in (
+                ("window200", 2, 1024, 256, 200, 67),
+                ("causal", 2, 512, 128, 4096, 68),
+                ("ragged_T", 3, 1000, 64, 300, 69)):
+            g = torch.Generator(device=dev).manual_seed(SEED + seed)
+            swa_case(case, [torch.randn((b_, t_, d_), generator=g, device=dev)
+                            for _ in range(3)], win)
+    if "grouped_glu_ffn" in names:
+        glu_checks(torch, dev, rows, failures, inputs["grouped_glu_ffn"],
+                   outs.get("grouped_glu_ffn"))
     torch.cuda.empty_cache()
 
+
+def lm_timing(torch, dev, names, inputs):
+    """Times of the named LM kernels at full width beside their bounds,
+    their plain versions and a library yardstick.  Returns {name: row}."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.swa import swa_attention_plain
+    from repro_torch.kernels.wkv6 import wkv6_chunked_plain
     timing = {}
-    row = {"BH": bh, "T": t, "dk": dk, "dv": dv, "chunk": chunk}
-    row["bound_ms"], row["bound_by"] = wkv6_bound(bh, t, dk, dv, chunk)
-    row["ms_f32"] = cuda_ms(torch, lambda: ops.wkv6(*wkv, chunk=chunk))
-    row["plain_ms"] = cuda_ms(torch, lambda: wkv6_chunked_plain(
-        *wkv, chunk=chunk))
-    row["library_ms"] = None     # no single PyTorch call computes it
-    timing["wkv6_chunked"] = row
-    row = {"BH": sbh, "T": st, "d": sd, "window": window}
-    row["bound_ms"], row["bound_by"] = swa_bound(sbh, st, sd, window)
-    row["ms_f32"] = cuda_ms(torch, lambda: ops.swa(*qkv, window=window))
-    row["plain_ms"] = cuda_ms(torch, lambda: swa_attention_plain(
-        *qkv, window=window))
-    idx = torch.arange(st, device=dev)
-    mask = (idx[None, :] <= idx[:, None]) & (idx[None, :]
-                                             > idx[:, None] - window)
-    heads = [a[None] for a in qkv]          # (1, BH, T, d)
-    row["library_ms"] = cuda_ms(
-        torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-            *heads, attn_mask=mask))
-    timing["swa_attention"] = row
-    del mask, qkv, heads
-    torch.cuda.empty_cache()
+    if "wkv6_chunked" in names:
+        wkv = inputs["wkv6_chunked"]
+        bh, t, dk, dv, chunk = WKV_FULL
+        row = {"BH": bh, "T": t, "dk": dk, "dv": dv, "chunk": chunk}
+        row["bound_ms"], row["bound_by"] = wkv6_bound(bh, t, dk, dv, chunk)
+        row["ms_f32"] = cuda_ms(torch, lambda: ops.wkv6(*wkv, chunk=chunk))
+        row["plain_ms"] = cuda_ms(torch, lambda: wkv6_chunked_plain(
+            *wkv, chunk=chunk))
+        row["library_ms"] = None     # no single PyTorch call computes it
+        timing["wkv6_chunked"] = row
+    if "swa_attention" in names:
+        qkv = inputs["swa_attention"]
+        sbh, st, sd, window = SWA_FULL
+        row = {"BH": sbh, "T": st, "d": sd, "window": window}
+        row["bound_ms"], row["bound_by"] = swa_bound(sbh, st, sd, window)
+        row["ms_f32"] = cuda_ms(torch, lambda: ops.swa(*qkv, window=window))
+        row["plain_ms"] = cuda_ms(torch, lambda: swa_attention_plain(
+            *qkv, window=window))
+        idx = torch.arange(st, device=dev)
+        mask = (idx[None, :] <= idx[:, None]) & (idx[None, :]
+                                                 > idx[:, None] - window)
+        heads = [a[None] for a in qkv]          # (1, BH, T, d)
+        row["library_ms"] = cuda_ms(
+            torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                *heads, attn_mask=mask))
+        timing["swa_attention"] = row
+        del mask, heads
+        torch.cuda.empty_cache()
     for name, r in timing.items():
         emit({"phase": "timing", "kernel": name, "shape": "full", **r})
-    timing["grouped_glu_ffn"] = glu_timing(torch, glu)
-    del glu, wkv
+    if "grouped_glu_ffn" in names:
+        timing["grouped_glu_ffn"] = glu_timing(torch,
+                                               inputs["grouped_glu_ffn"])
     torch.cuda.empty_cache()
-    return launches, timing
+    return timing
 
 
 # (E, C, d, f) of the GLU checks beside the full width: ragged C, d and f,
@@ -825,13 +885,70 @@ def bit_identity(torch, failures, case, kernel, out, vs, got):
                         f"representations must sum in one order")
 
 
-def run_graph_kernels(torch, case, name, rows, failures):
+def walks(fn):
+    """The routes a layer's wrapper can be forced to take (its ``walk``
+    keyword), or () for a wrapper without one (a checkout from before the
+    windowed layers, timed beside this one)."""
+    import inspect
+    return WALKS if "walk" in inspect.signature(fn).parameters else ()
+
+
+def call_routed(fn, *args):
+    """``fn(*args)`` and the route its launch took (None for a wrapper
+    that counts no routes)."""
+    routes = getattr(fn, "routes", None)
+    before = dict(routes or {})
+    out = fn(*args)
+    route = next((r for r, c in (routes or {}).items() if c != before[r]),
+                 None)
+    return out, route
+
+
+def route_identity(torch, failures, kernel, case, compute, fn, args, out,
+                   route):
+    """The gate that a layer's two routes give the same bits: ``out`` came
+    by ``route``, the rule's choice; the other route is forced on the
+    same inputs and must equal it bit for bit."""
+    if route is None or not walks(fn):
+        return
+    other = next(w for w in walks(fn) if w != route)
+    got = fn(*args, compute, walk=other)
+    same = bool(torch.equal(out, got))
+    emit({"phase": "route_identity", "kernel": kernel, "case": case,
+          "compute": compute, "route": route, "vs": other, "identical": same,
+          "max_abs_diff": float((out - got).abs().max())})
+    if not same:
+        failures.append(f"{kernel} {case} {compute}: the {route} and {other} "
+                        f"walks differ: both must sum in slot order")
+
+
+ROUTED = ("fused_s2v_layer_sparse", "fused_s2v_layer_csr")   # two walks
+GRAPH_LAYERS = ("fused_s2v_layer",) + ROUTED
+GRAPH_AGGREGATES = ("mp_aggregate", "sparse_mp_aggregate")
+
+
+def run_graph_kernels(torch, case, name, rows, failures, names=GRAPH_LAYERS
+                      + GRAPH_AGGREGATES):
+    """Phase 1's checks on one graph case of the kernels ``names`` asks
+    for: the layers' (``check_graph_layers``) when it names any of kernels
+    1, 3 and 5 (their gate needs all three), kernel 4's
+    (``check_sparse_aggregate``, with kernel 2's gate) when it names
+    kernel 2 or 4."""
+    if set(names) & set(GRAPH_LAYERS):
+        check_graph_layers(torch, case, name, rows, failures)
+    if set(names) & set(GRAPH_AGGREGATES):
+        check_sparse_aggregate(torch, case, name, rows, failures)
+
+
+def check_graph_layers(torch, case, name, rows, failures):
     """Kernels 3 and 5 on one graph case against their plain versions
-    (and the f64 layer); the padding case's isolated nodes must give
-    exactly relu(base).  Then the gate that the three representations sum
-    in one order: at f32, kernel 1 on the dense residual adjacency W with
-    embed = x must equal kernels 3 and 5 bit for bit.  Last, kernel 4
-    (``check_sparse_aggregate``, with kernel 2's gate)."""
+    (and the f64 layer), by the route the rule picks, and that route
+    against the other bit for bit (f32 and bf16); the padding case's
+    isolated nodes must give exactly relu(base).  At the serving case also
+    kernel 3 on the lists with shuffled slots, both routes.  Then the gate
+    that the three representations sum in one order: at f32, kernel 1 on
+    the dense residual adjacency W with embed = x must equal kernels 3 and
+    5 bit for bit."""
     ks, _, kc = kernel_modules()
     sp, cs, x, base, t4 = (case[f] for f in ("sp", "cs", "x", "base", "t4"))
     b, k, n = x.shape
@@ -843,37 +960,50 @@ def run_graph_kernels(torch, case, name, rows, failures):
     real = case["real"]
     shape = {"B": b, "K": k, "N": n}
     f32_out = {}
+    layers = (("fused_s2v_layer_sparse", ks.fused_s2v_layer_sparse,
+               ks.fused_s2v_layer_sparse_plain,
+               (t4, x, sp.neighbors, case["edge"], base), d, {"D": d}),
+              ("fused_s2v_layer_csr", kc.fused_s2v_layer_csr,
+               kc.fused_s2v_layer_csr_plain,
+               (t4, x, cs.indices, cs.indptr, case["edge_w"], base), row_max,
+               {"E": cs.num_edges}))
     for compute in ("f32", "bf16"):
-        args = (t4, x, sp.neighbors, case["edge"], base)
-        out = ks.fused_s2v_layer_sparse(*args, compute)
-        if compute == "f32":
-            f32_out["fused_s2v_layer_sparse"] = out
-        compare(torch, rows, failures, "fused_s2v_layer_sparse", name,
-                compute, out, ks.fused_s2v_layer_sparse_plain(*args, compute),
-                layer64 if compute == "f32" else None, d, {**shape, "D": d},
-                scale)
-        if real is not None and not torch.equal(
-                out[:, :, real:], torch.relu(base[:, :, real:])):
-            failures.append(f"sparse {name} {compute}: isolated nodes")
-        args = (t4, x, cs.indices, cs.indptr, case["edge_w"], base)
-        out = kc.fused_s2v_layer_csr(*args, compute)
-        if compute == "f32":
-            f32_out["fused_s2v_layer_csr"] = out
-        compare(torch, rows, failures, "fused_s2v_layer_csr", name, compute,
-                out, kc.fused_s2v_layer_csr_plain(*args, compute),
-                layer64 if compute == "f32" else None, row_max,
-                {**shape, "E": cs.num_edges}, scale)
-        if real is not None and not torch.equal(
-                out[:, :, real:], torch.relu(base[:, :, real:])):
-            failures.append(f"csr {name} {compute}: isolated nodes")
-        del out, args
+        for kernel, fn, plain, args, terms, extra in layers:
+            out, route = call_routed(fn, *args, compute)
+            if compute == "f32":
+                f32_out[kernel] = out
+            compare(torch, rows, failures, kernel, name, compute, out,
+                    plain(*args, compute),
+                    layer64 if compute == "f32" else None, terms,
+                    {**shape, **extra, "route": route}, scale)
+            if real is not None and not torch.equal(
+                    out[:, :, real:], torch.relu(base[:, :, real:])):
+                failures.append(f"{kernel} {name} {compute}: isolated nodes")
+            route_identity(torch, failures, kernel, name, compute, fn, args,
+                           out, route)
+            del out
         torch.cuda.empty_cache()
+    if name == "serving":
+        nbr, edge = shuffle_slots(torch, sp.neighbors, case["edge"],
+                                  SEED + 17)
+        args = (t4, x, nbr, edge, base)
+        for compute in ("f32", "bf16"):
+            out, route = call_routed(ks.fused_s2v_layer_sparse, *args,
+                                     compute)
+            compare(torch, rows, failures, "fused_s2v_layer_sparse",
+                    "serving_shuffled", compute, out,
+                    ks.fused_s2v_layer_sparse_plain(*args, compute),
+                    layer64 if compute == "f32" else None, d,
+                    {**shape, "D": d, "route": route}, scale)
+            route_identity(torch, failures, "fused_s2v_layer_sparse",
+                           "serving_shuffled", compute,
+                           ks.fused_s2v_layer_sparse, args, out, route)
+        del nbr, edge, out, args
     dense = ks.fused_s2v_layer(t4, x, case["w"], base, "f32")
     for vs, got in f32_out.items():
         bit_identity(torch, failures, name, "fused_s2v_layer", dense, vs, got)
     del dense, f32_out, layer64, scale
     torch.cuda.empty_cache()
-    check_sparse_aggregate(torch, case, name, rows, failures)
 
 
 def shuffle_slots(torch, nbr, edge, seed):
@@ -945,13 +1075,17 @@ def check_sparse_aggregate(torch, case, name, rows, failures):
     torch.cuda.empty_cache()
 
 
-def phase_graph_kernels(torch, dev, rows, failures):
-    """Phase 1, sparse and CSR: kernels 3, 4 and 5 at a ragged case, a
-    padding case, the serving bucket and the paper-scale graph."""
+def phase_graph_kernels(torch, dev, rows, failures,
+                        names=GRAPH_LAYERS + GRAPH_AGGREGATES):
+    """Phase 1, sparse and CSR: kernels 3, 4 and 5 (those ``names`` asks
+    for, see ``run_graph_kernels``) at a ragged case, a padding case, the
+    serving bucket and the paper-scale graph."""
+    if not set(names) & set(GRAPH_LAYERS + GRAPH_AGGREGATES):
+        return
     for name, b, k, n, rho, real, width, edges in GRAPH_CASES:
         case = graph_case(torch, dev, b, k, n, rho, SEED + 7 * n, real,
                           width, edges)
-        run_graph_kernels(torch, case, name, rows, failures)
+        run_graph_kernels(torch, case, name, rows, failures, names)
         del case
         torch.cuda.empty_cache()
 
@@ -975,7 +1109,8 @@ def ba_case(torch, dev, cs, seed):
 
 def ba_kernel_check(torch, dev, cs, rows, failures):
     """Phase 1 on BA(1M, d=10): the CSR layer against its plain version
-    (and the f64 layer), where one row has degree 8975."""
+    (and the f64 layer), where one row has degree 8975, by the route the
+    rule picks and against the other route bit for bit."""
     _, _, kc = kernel_modules()
     case = ba_case(torch, dev, cs, SEED + 1)
     x, base, t4, edge_w = case["x"], case["base"], case["t4"], case["edge_w"]
@@ -985,15 +1120,18 @@ def ba_kernel_check(torch, dev, cs, rows, failures):
     scale = (base.double().abs() + t4.double().abs()
              @ csr_exact(torch, x.abs(), cs, edge_w.abs())).float()
     row_max = int((cs.indptr[:, 1:] - cs.indptr[:, :-1]).max())
+    args = (t4, x, cs.indices, cs.indptr, edge_w, base)
     for compute in ("f32", "bf16"):
-        args = (t4, x, cs.indices, cs.indptr, edge_w, base)
+        out, route = call_routed(kc.fused_s2v_layer_csr, *args, compute)
         compare(torch, rows, failures, "fused_s2v_layer_csr", "ba1m", compute,
-                kc.fused_s2v_layer_csr(*args, compute),
-                kc.fused_s2v_layer_csr_plain(*args, compute),
+                out, kc.fused_s2v_layer_csr_plain(*args, compute),
                 layer64 if compute == "f32" else None, row_max,
                 {"B": 1, "K": 32, "N": n, "E": cs.num_edges,
-                 "max_row": row_max}, scale)
-    del layer64, scale, case, x, base, edge_w
+                 "max_row": row_max, "route": route}, scale)
+        route_identity(torch, failures, "fused_s2v_layer_csr", "ba1m",
+                       compute, kc.fused_s2v_layer_csr, args, out, route)
+        del out
+    del layer64, scale, case, x, base, edge_w, args
     torch.cuda.empty_cache()
 
 
@@ -1022,7 +1160,7 @@ def phase_serve(torch, policy, cfg, adjs, rep, dense=None):
     t0 = time.perf_counter()
     responses = svc.serve(adjs)
     wall = time.perf_counter() - t0
-    counts = read_counts()
+    counts, routes = read_counts(), read_routes()
     launches = counts[REP_KERNEL[rep]]
     for r, a in zip(responses, adjs):
         if not is_cover(a, r.solution):
@@ -1050,7 +1188,8 @@ def phase_serve(torch, policy, cfg, adjs, rep, dense=None):
            "p50_ms": float(np.percentile(lat, 50)),
            "p99_ms": float(np.percentile(lat, 99)),
            "batches": stats["batches"], "policy_evals": evals,
-           "kernel_launches": counts, "warmup_s": warm["seconds"],
+           "kernel_launches": counts, "kernel_routes": routes,
+           "warmup_s": warm["seconds"],
            "first_dispatch_s": stats["compile_seconds"],
            "solve_s": stats["solve_seconds"],
            "cover_sizes": [r.size for r in responses]}
@@ -1145,6 +1284,7 @@ def phase_paper_scale(torch, policy):
                     max_d=PAPER_MAX_D, rep=rep, device=DEVICE)
         solve_s = time.perf_counter() - t0
         launches = read_counts()[REP_KERNEL[rep]]
+        routes = read_routes().get(REP_KERNEL[rep])
         if not is_cover(adj, res.solution[0]):
             raise AssertionError(f"paper-scale {rep} solve is not a cover")
         if launches != res.policy_evals:
@@ -1156,6 +1296,7 @@ def phase_paper_scale(torch, policy):
               "generate_s": gen_s, "build_s": build_s, "solve_s": solve_s,
               "policy_evals": res.policy_evals,
               "cover_size": int(res.sizes[0]), "kernel_launches": launches,
+              "kernel_routes": routes,
               "equal_to_dense": bool(np.array_equal(
                   res.solution[0], single["dense"]["solution"])),
               "peak_device_bytes": single[rep]["peak_device_bytes"]})
@@ -1404,6 +1545,7 @@ def phase_ba(torch, policy, indptr, indices, cs, gen_s):
                 rep="csr", device=DEVICE)
     solve_s = time.perf_counter() - t0
     launches = read_counts()["fused_s2v_layer_csr"]
+    routes = read_routes().get("fused_s2v_layer_csr")
     sol = res.solution[0] > 0.5
     rows = np.repeat(np.arange(BA_N), np.diff(indptr))
     if not (sol[rows] | sol[indices]).all():
@@ -1415,6 +1557,7 @@ def phase_ba(torch, policy, indptr, indices, cs, gen_s):
           "max_degree": int(np.diff(indptr).max()), "generate_s": gen_s,
           "solve_s": solve_s, "policy_evals": res.policy_evals,
           "cover_size": int(res.sizes[0]), "kernel_launches": launches,
+          "kernel_routes": routes,
           "peak_device_bytes": torch.cuda.max_memory_allocated()})
 
 
@@ -1768,10 +1911,27 @@ def library_csr(torch, cs, edge_w):
                                    size=(b * n, b * n))
 
 
-def graph_timing(torch, case, label, extra=None):
-    """Kernels 3, 4 and 5 on one graph case: kernel (the wrapper, its
-    node-major copy of x included), plain version and library yardstick
-    (cuSPARSE SpMM through torch.sparse.mm, then theta4, base and ReLU)."""
+def layer_times(torch, fn, args, row):
+    """A layer's times on one case into ``row``: ``ms_f32`` and
+    ``ms_bf16`` by the route the rule picks (``route``) and, where the
+    wrapper can be forced, each route's (``ms_<compute>_<route>``)."""
+    _, route = call_routed(fn, *args, "f32")
+    row["route"] = route
+    forced = walks(fn) if route is not None else ()
+    for compute in ("f32", "bf16"):
+        for w in forced:
+            row[f"ms_{compute}_{w}"] = cuda_ms(
+                torch, lambda: fn(*args, compute, walk=w))
+        row[f"ms_{compute}"] = (row[f"ms_{compute}_{route}"] if forced else
+                                cuda_ms(torch, lambda: fn(*args, compute)))
+
+
+def graph_timing(torch, case, label, extra=None,
+                 names=GRAPH_LAYERS + GRAPH_AGGREGATES):
+    """Kernels 3, 4 and 5 (those in ``names``) on one graph case: kernel
+    (the wrapper, its node-major copy of x included; both routes of the
+    layers), plain version and library yardstick (cuSPARSE SpMM through
+    torch.sparse.mm, then theta4, base and ReLU)."""
     ks, _, kc = kernel_modules()
     sp, cs, x, base, t4 = (case[f] for f in ("sp", "cs", "x", "base", "t4"))
     edge, edge_w = case["edge"], case["edge_w"]
@@ -1783,7 +1943,7 @@ def graph_timing(torch, case, label, extra=None):
         return torch.relu(base + torch.einsum("kj,bjn->bkn", t4, spmm()))
 
     nnz_csr = int(cs.indptr[:, -1].sum())
-    if sp is not None:
+    if sp is not None and "fused_s2v_layer_sparse" in names:
         d = sp.max_degree
         nnz = int(sp.valid.sum())
         slots = 8 * b * n * d
@@ -1791,36 +1951,81 @@ def graph_timing(torch, case, label, extra=None):
         row["bound_ms"], row["bound_by"] = bound(
             4 * (k * k + 3 * b * k * n) + slots, 2 * k * nnz + 2 * b * k * k * n)
         args = (t4, x, sp.neighbors, edge, base)
-        for compute in ("f32", "bf16"):
-            row[f"ms_{compute}"] = cuda_ms(
-                torch, lambda: ks.fused_s2v_layer_sparse(*args, compute))
+        layer_times(torch, ks.fused_s2v_layer_sparse, args, row)
         row["plain_ms"] = cuda_ms(
             torch, lambda: ks.fused_s2v_layer_sparse_plain(*args, "f32"))
         row["library_ms"] = cuda_ms(torch, library_layer)
         out["fused_s2v_layer_sparse"] = row
         emit({"phase": "timing", "kernel": "fused_s2v_layer_sparse",
               "shape": label, **row})
+    if sp is not None and "sparse_mp_aggregate" in names:
         out["sparse_mp_aggregate"] = timing_sparse_aggregate(
             torch, case, label, spmm)
-    row = {"B": b, "K": k, "N": n, "E": cs.num_edges, "edges": nnz_csr,
-           **(extra or {})}
-    # indptr, the real edges' (id, factor), x, base, theta4 in; out
-    row["bound_ms"], row["bound_by"] = bound(
-        4 * (k * k + b * (n + 1) + 3 * b * k * n) + 8 * nnz_csr,
-        2 * k * nnz_csr + 2 * b * k * k * n)
-    args = (t4, x, cs.indices, cs.indptr, edge_w, base)
-    for compute in ("f32", "bf16"):
-        row[f"ms_{compute}"] = cuda_ms(
-            torch, lambda: kc.fused_s2v_layer_csr(*args, compute))
-    row["plain_ms"] = cuda_ms(
-        torch, lambda: kc.fused_s2v_layer_csr_plain(*args, "f32"))
-    row["library_ms"] = cuda_ms(torch, library_layer)
-    out["fused_s2v_layer_csr"] = row
-    emit({"phase": "timing", "kernel": "fused_s2v_layer_csr", "shape": label,
-          **row})
+    if "fused_s2v_layer_csr" in names:
+        row = {"B": b, "K": k, "N": n, "E": cs.num_edges, "edges": nnz_csr,
+               **(extra or {})}
+        # indptr, the real edges' (id, factor), x, base, theta4 in; out
+        row["bound_ms"], row["bound_by"] = bound(
+            4 * (k * k + b * (n + 1) + 3 * b * k * n) + 8 * nnz_csr,
+            2 * k * nnz_csr + 2 * b * k * k * n)
+        args = (t4, x, cs.indices, cs.indptr, edge_w, base)
+        layer_times(torch, kc.fused_s2v_layer_csr, args, row)
+        row["plain_ms"] = cuda_ms(
+            torch, lambda: kc.fused_s2v_layer_csr_plain(*args, "f32"))
+        row["library_ms"] = cuda_ms(torch, library_layer)
+        out["fused_s2v_layer_csr"] = row
+        emit({"phase": "timing", "kernel": "fused_s2v_layer_csr",
+              "shape": label, **row})
     del spmm
     torch.cuda.empty_cache()
     return out
+
+
+# (B, N, list widths) of the route sweep: the serving bucket's B and N,
+# and the paper-scale graph's, each at list widths from well below to
+# above the windows' bytes
+ROUTE_SWEEP = ((8, 4096, (64, 128, 256, 512, 768)),
+               (1, PAPER_N, (256, 512, 1024, 2048, 3274)))
+
+
+def route_sweep(torch, dev):
+    """Both routes of kernels 3 and 5 (f32) on random lists of one width
+    D for every node (ids ascending, drawn from [0, N); the CSR batch is
+    the same lists as rows of D edges), at the ``ROUTE_SWEEP`` shapes,
+    beside the rule's choice and the two byte counts it compares: the
+    measurement behind ``walk.WINDOW_RATIO``."""
+    from repro_torch.kernels import walk
+    ks, _, kc = kernel_modules()
+    k = 32
+    for b, n, widths in ROUTE_SWEEP:
+        g = torch.Generator(device=dev).manual_seed(SEED + 23 + n)
+        x = torch.relu(torch.rand((b, k, n), generator=g, device=dev) - 0.5)
+        base = torch.rand((b, k, n), generator=g, device=dev) - 0.5
+        t4 = (torch.rand((k, k), generator=g, device=dev) - 0.5) * 0.2
+        indptr = (torch.arange(n + 1, device=dev, dtype=torch.int32)
+                  [None].expand(b, n + 1))
+        for d in widths:
+            nbr = torch.sort(torch.randint(0, n, (b, n, d), generator=g,
+                                           device=dev, dtype=torch.int32),
+                             dim=-1).values
+            edge = torch.rand((b, n, d), generator=g, device=dev)
+            row = {"B": b, "K": k, "N": n, "D": d,
+                   "window_bytes": walk.window_bytes(b, k, n, n),
+                   "list_bytes": 8 * b * n * d,
+                   "rule": walk.walk_route(b, k, n, n, b * n * d)}
+            row["ratio"] = row["window_bytes"] / row["list_bytes"]
+            csr = (t4, x, nbr.reshape(b, n * d), (indptr * d).contiguous(),
+                   edge.reshape(b, n * d), base)
+            for kernel, fn, args in (
+                    ("fused_s2v_layer_sparse", ks.fused_s2v_layer_sparse,
+                     (t4, x, nbr, edge, base)),
+                    ("fused_s2v_layer_csr", kc.fused_s2v_layer_csr, csr)):
+                for w in WALKS:
+                    row[f"{kernel}_ms_{w}"] = cuda_ms(
+                        torch, lambda: fn(*args, "f32", walk=w))
+            emit({"phase": "route_sweep", **row})
+            del nbr, edge, csr
+            torch.cuda.empty_cache()
 
 
 def library_spmm(torch, case):
@@ -1879,26 +2084,35 @@ def timing_sparse_aggregate(torch, case, label, spmm):
     return row
 
 
-def phase_timing(torch, ks, dev, ba_cs):
-    """Phase 5: device times beside the bound for every kernel, at the
-    serving shape (the kernels line) and at paper scale (diagnostic
-    lines), and BA(1M) for the CSR layer."""
-    rows = {"fused_s2v_layer": timing_dense(torch, ks, dev),
-            "mp_aggregate": timing_agg(torch, ks, dev)}
-    for label, b, n, real, width, edges in (
-            ("serving", *BUCKET, SPARSE_MAX_DEGREE, CSR_MAX_EDGES),
-            ("paper", 1, PAPER_N, None, None, None)):
-        case = graph_case(torch, dev, b, 32, n, 0.15, SEED + 11 * n, real,
-                          width, edges)
-        del case["agg64"], case["w"]
-        timed = graph_timing(torch, case, label)
-        if label == "serving":
-            rows.update(timed)
-        del case
-        torch.cuda.empty_cache()
-    graph_timing(torch, ba_case(torch, dev, ba_cs, SEED + 2), "ba1m",
-                 {"max_row": int((ba_cs.indptr[:, 1:]
-                                  - ba_cs.indptr[:, :-1]).max())})
+def phase_timing(torch, ks, dev, ba_cs,
+                 names=GRAPH_LAYERS + GRAPH_AGGREGATES):
+    """Phase 5: device times beside the bound for the graph kernels among
+    ``names``, at the serving shape (the kernels line) and at paper scale
+    (diagnostic lines), and BA(1M) for the CSR layer (``ba_cs``, when
+    given)."""
+    rows = {}
+    if "fused_s2v_layer" in names:
+        rows["fused_s2v_layer"] = timing_dense(torch, ks, dev)
+    if "mp_aggregate" in names:
+        rows["mp_aggregate"] = timing_agg(torch, ks, dev)
+    graph = [n for n in names if n in ROUTED + ("sparse_mp_aggregate",)]
+    if graph:
+        for label, b, n, real, width, edges in (
+                ("serving", *BUCKET, SPARSE_MAX_DEGREE, CSR_MAX_EDGES),
+                ("paper", 1, PAPER_N, None, None, None)):
+            case = graph_case(torch, dev, b, 32, n, 0.15, SEED + 11 * n, real,
+                              width, edges)
+            del case["agg64"], case["w"]
+            timed = graph_timing(torch, case, label, names=graph)
+            if label == "serving":
+                rows.update(timed)
+            del case
+            torch.cuda.empty_cache()
+    if ba_cs is not None and "fused_s2v_layer_csr" in names:
+        graph_timing(torch, ba_case(torch, dev, ba_cs, SEED + 2), "ba1m",
+                     {"max_row": int((ba_cs.indptr[:, 1:]
+                                      - ba_cs.indptr[:, :-1]).max())},
+                     names=("fused_s2v_layer_csr",))
     return rows
 
 
@@ -1930,63 +2144,75 @@ def print_card() -> None:
     print(smi.stdout.strip().splitlines()[0], flush=True)
 
 
-def dense_kernels(torch, ks, dev) -> None:
-    """``--dense-kernels``: the short loop for work on kernels 1 and 2.
-    Phase 1's dense, aggregate and graph-kernel checks (with the
-    bit-identity gate) and the two kernels' timings, about a minute with
-    the build; no served path, so it prints no kernels line and no
-    result line."""
-    rows, failures = [], []
-    with timed_phase("kernel_vs_plain"):
-        phase_kernel(torch, ks, dev, rows, failures)
-        phase_agg_kernel(torch, ks, dev, rows, failures)
-        phase_graph_kernels(torch, dev, rows, failures)
-    if failures:
-        raise AssertionError("a kernel disagrees with its plain version or "
-                             "another representation:\n"
-                             + "\n".join(failures))
-    with timed_phase("timing"):
-        timing_dense(torch, ks, dev)
-        timing_agg(torch, ks, dev)
+USAGE = ("usage: python3 chip_smoke.py [--only <kernel>,...]\n"
+         "  kernels: " + ", ".join(REPLACES))
 
 
-def kernel_loop(torch, dev) -> None:
-    """``--kernel-loop``: the short loop for work on kernels 4 and 8.
-    Kernel 4's checks on every graph case (the shuffled-slot case, the row
-    blocks and the bit-identity gate with kernel 2 included) and its times
-    at the serving bucket and its sp = 2 row block; kernel 8's checks at
-    full width and the ragged cases, and its time.  No served path, so it
-    prints no kernels line and no result line."""
+def parse_args(args):
+    """None for the full run (no arguments); for ``--only <kernel>,...``
+    the named kernels (``REPLACES``' keys) in ``REPLACES``' order.  Raises
+    ValueError on anything else: an unknown or empty name, or another
+    flag."""
+    if not args:
+        return None
+    if len(args) != 2 or args[0] != "--only":
+        raise ValueError(f"unknown arguments {args}")
+    parts = args[1].split(",")
+    if not all(parts):
+        raise ValueError(f"an empty kernel name in {args[1]!r}")
+    unknown = [p for p in parts if p not in REPLACES]
+    if unknown:
+        raise ValueError(f"unknown kernels {unknown}")
+    return [name for name in REPLACES if name in parts]
+
+
+def run_only(torch, ks, dev, names) -> None:
+    """``--only``: the loop for work on the named kernels.  Phase 1's
+    checks of those kernels with their gates (the graph kernels' on every
+    graph case, the CSR layer's also on BA(1M), whose host generation runs
+    on a thread beside the checks), then their times, and for the sparse
+    and CSR layers the route sweep.  No served path, so it prints no
+    kernels line and no result line.  It calls only wrapper APIs that
+    checkouts before the windowed layers have, besides ``walk=`` where a
+    wrapper takes it, so it also times a parent checkout's kernels."""
+    from repro_torch.core.graphs import csr_batch_from_arrays
+    ba_pool = ba_cs = None
+    if "fused_s2v_layer_csr" in names:
+        ba_pool = concurrent.futures.ThreadPoolExecutor(1)
+        ba_future = ba_pool.submit(ba_arrays)
     rows, failures = [], []
+    lm = [n for n in names if n in LM_KERNELS]
     with timed_phase("kernel_vs_plain"):
-        for name, b, k, n, rho, real, width, edges in GRAPH_CASES:
-            case = graph_case(torch, dev, b, k, n, rho, SEED + 7 * n, real,
-                              width, edges)
-            check_sparse_aggregate(torch, case, name, rows, failures)
-            del case
-            torch.cuda.empty_cache()
-        glu = glu_inputs(torch, dev, *GLU_FULL, SEED + 63)
-        glu_checks(torch, dev, rows, failures, glu)
+        if "fused_s2v_layer" in names:
+            phase_kernel(torch, ks, dev, rows, failures)
+        if "mp_aggregate" in names:
+            phase_agg_kernel(torch, ks, dev, rows, failures)
+        phase_graph_kernels(torch, dev, rows, failures, names)
+        inputs = lm_inputs(torch, dev, lm)
+        lm_checks(torch, dev, rows, failures, lm, inputs)
+        if ba_pool is not None:
+            indptr, indices, _ = ba_future.result()
+            ba_pool.shutdown()
+            ba_cs = csr_batch_from_arrays(indptr, indices, device=DEVICE)
+            del indptr, indices
+            ba_kernel_check(torch, dev, ba_cs, rows, failures)
     if failures:
         raise AssertionError("a kernel disagrees with its plain version, "
                              "f64 or another kernel:\n" + "\n".join(failures))
     with timed_phase("timing"):
-        glu_timing(torch, glu)
-        del glu
+        phase_timing(torch, ks, dev, ba_cs, names)
+        del ba_cs
         torch.cuda.empty_cache()
-        b, n, real = BUCKET
-        case = graph_case(torch, dev, b, 32, n, 0.15, SEED + 11 * n, real,
-                          SPARSE_MAX_DEGREE, CSR_MAX_EDGES)
-        del case["agg64"], case["w"]
-        timing_sparse_aggregate(torch, case, "serving",
-                                library_spmm(torch, case))
+        if set(names) & set(ROUTED) and walks(ks.fused_s2v_layer_sparse):
+            route_sweep(torch, dev)
+        lm_timing(torch, dev, lm, inputs)
 
 
-def main() -> int:
-    args = sys.argv[1:]
-    if args not in ([], ["--dense-kernels"], ["--kernel-loop"]):
-        print("usage: python3 chip_smoke.py [--dense-kernels | "
-              "--kernel-loop]", file=sys.stderr)
+def main(argv=None) -> int:
+    try:
+        only = parse_args(sys.argv[1:] if argv is None else argv)
+    except ValueError as e:
+        print(f"chip_smoke: {e}\n{USAGE}", file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -2017,11 +2243,8 @@ def main() -> int:
                                if "registers" in ln or "spill" in ln]
                         for name in sources}})
 
-    if args:
-        if args == ["--dense-kernels"]:
-            dense_kernels(torch, ks, dev)
-        else:
-            kernel_loop(torch, dev)
+    if only is not None:
+        run_only(torch, ks, dev, only)
         print_card()
         return 0
 

@@ -22,11 +22,28 @@
 // bounds come from indptr; row ids are not needed.
 //
 // What bounds it: bytes -- 8 bytes of (id, factor) and one x gather per edge
-// for 2*K FLOPs.  x is read node-major (the wrapper passes a (B, N, K) copy),
-// one 128-byte line per edge at K = 32.  A hub row is walked by one warp
-// alone (BA(1M, d=10) has a row of degree 8975), so that row's chain of
-// 32-edge steps bounds the kernel's time from below.
+// for 2*K FLOPs.  x is read node-major (the wrapper passes a (B, N, K) or
+// (B, N, KP) copy), one 128-byte line per edge at K = 32.  Two routes, both
+// one chain per output in edge order with the same theta4 epilogue, so they
+// give the same bits; the wrapper picks one per launch from the shapes
+// (kernels/walk.py):
+//
+// - The row walk (csr_rows_kernel): one warp per row, x re-read from L2
+//   once per edge.  Nothing is held per graph, so it is the route where x
+//   is large next to the edges (BA(1M, d=10): windows would stream 1.0 TB
+//   of x, 7813 blocks of 128 MB, against 160 MB of edges).  A hub row is
+//   walked by one warp alone (BA(1M) has a row of degree 8975), so that
+//   row's chain of 32-edge steps bounds the kernel's time from below.
+// - The windowed walk (s2v_window.cuh, shared with s2v_gather.cu): 128
+//   rows a block, 8 lanes a row, the graph's x streamed through 96 KB
+//   shared-memory windows once per block, each row walked in 32-edge
+//   chunks from its start rounded down to a 16-byte group (edges outside
+//   the row masked, the arrays never copied), each row to its own end.
+//   It pays where x is small next to the edges (the serving bucket: 134 MB
+//   of windows against 160 MB of edge slots).  A hub row delays only its
+//   own 8 lanes in each window.
 #include "s2v_rows.cuh"
+#include "s2v_window.cuh"
 
 namespace {
 
@@ -94,10 +111,10 @@ csr_rows_kernel(const float* __restrict__ theta4,
 
 }  // namespace
 
-// Kernel 5.  theta4 (K, K); xt (B, N, K): the embeddings node-major, no
-// sentinel column; indptr (B, N+1); indices and edge_w (B, E); base and out
-// (B, K, N).  bf16 != 0 selects bf16 operand rounding.  Returns
-// cudaGetLastError().
+// The layer by the row walk.  theta4 (K, K); xt (B, N, K): the embeddings
+// node-major, no sentinel column; indptr (B, N+1); indices and edge_w
+// (B, E); base and out (B, K, N).  bf16 != 0 selects bf16 operand rounding.
+// Returns cudaGetLastError().
 extern "C" int s2v_csr_layer(const float* theta4, const float* xt,
                              const int* indptr, const int* indices,
                              const float* edge_w, const float* base,
@@ -114,4 +131,24 @@ extern "C" int s2v_csr_layer(const float* theta4, const float* xt,
     csr_rows_kernel<false><<<grid, THREADS, 0, s>>>(
         theta4, xt, indptr, indices, edge_w, base, out, K, N, E);
   return (int)cudaGetLastError();
+}
+
+// The layer by the windowed walk.  As s2v_csr_layer, but xt (B, N, KP) with
+// each row padded with zeros to KP = K rounded up to a multiple of 4, and
+// xt, indices and edge_w 16-byte aligned.  Returns the first CUDA error, if
+// any.
+extern "C" int s2v_csr_layer_windowed(const float* theta4, const float* xt,
+                                      const int* indptr, const int* indices,
+                                      const float* edge_w, const float* base,
+                                      float* out, int B, int K, int KP, int N,
+                                      int E, int bf16, void* stream) {
+  if (B < 1 || B > 65535 || K < 1 || K > 32 || N < 1 || E < 1 ||
+      KP % 4 != 0 || KP < K || KP > 32 ||
+      (reinterpret_cast<uintptr_t>(xt) | reinterpret_cast<uintptr_t>(indices) |
+       reinterpret_cast<uintptr_t>(edge_w)) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const s2v_window::Args p{xt, indices, edge_w, indptr, theta4, base, out,
+                           K, KP, N, N, E};
+  return (int)s2v_window::launch_layer<s2v_window::CSR>(
+      p, B, bf16, static_cast<cudaStream_t>(stream));
 }

@@ -10,12 +10,14 @@ function is the same: edge slots past ``indptr[b, N]`` are padding, with
 the sentinel id N and a zero factor, and add nothing either way.
 
 :func:`fused_s2v_layer_csr_plain` is the PyTorch composition;
-:func:`fused_s2v_layer_csr` computes it on CPU tensors and launches the
-hand-written kernel (``csrc/s2v_csr.cu``) on CUDA tensors, counting
-launches in ``fused_s2v_layer_csr.launches``.  ``compute="bf16"`` rounds
-x, the factors and θ4 to bf16, rounds each product x·w to bf16 before the
-f32 segment-sum, and rounds the f32 aggregate once before θ4, as the JAX
-composition does (``repro/core/s2v_csr.py::_csr_layer_jnp``).
+:func:`fused_s2v_layer_csr` computes it on CPU tensors and launches a
+hand-written kernel (``csrc/s2v_csr.cu``: a row walk or a windowed walk,
+the same bits, one chosen per launch from the shapes, ``walk.py``) on CUDA
+tensors, counting launches in ``fused_s2v_layer_csr.launches``.
+``compute="bf16"`` rounds x, the factors and θ4 to bf16, rounds each
+product x·w to bf16 before the f32 segment-sum, and rounds the f32
+aggregate once before θ4, as the JAX composition does
+(``repro/core/s2v_csr.py::_csr_layer_jnp``).
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import torch
 from .build import launch
 from .checks import check_tensors, on_cpu
 from .s2v_fused import check_compute, check_k, node_major, round_cd
+from .walk import WALKS, aligned, check_walk, padded_node_major, walk_route
 
 
 def segment_rows(values: torch.Tensor, row_ids: torch.Tensor, n: int,
@@ -104,31 +107,50 @@ def _check_inputs(theta4, x, indices, indptr, edge_w, base) -> None:
 def fused_s2v_layer_csr(theta4: torch.Tensor, x: torch.Tensor,
                         indices: torch.Tensor, indptr: torch.Tensor,
                         edge_w: torch.Tensor, base: torch.Tensor,
-                        compute: str = "f32") -> torch.Tensor:
+                        compute: str = "f32", *,
+                        walk: Optional[str] = None) -> torch.Tensor:
     """One CSR S2V layer in one launch.
 
     x (B, K, N) float32 embeddings with NO sentinel column; indices (B, E)
     int32 column ids (ids outside [0, N), the sentinel N included, add
     nothing and are never read); indptr (B, N+1) int32; edge_w (B, E)
     float32 per-edge factors; base (B, K, N).  Returns (B, K, N) float32.
-    CPU tensors take the plain version; CUDA tensors launch the kernel on
-    the current stream, reading a node-major copy of x."""
+    CPU tensors take the plain version, whatever ``walk`` says; CUDA
+    tensors launch the kernel on the current stream, reading a node-major
+    copy of x, by the route :func:`walk.walk_route` picks from the shapes
+    (the row walk or the windowed walk, the same bits), or by ``walk``
+    ("rows" or "windows") where given.  The launch is counted in
+    ``fused_s2v_layer_csr.launches`` and in ``.routes`` by route."""
     check_compute(compute)
+    check_walk(walk)
     _check_inputs(theta4, x, indices, indptr, edge_w, base)
     if on_cpu(indices, "fused_s2v_layer_csr"):
         return fused_s2v_layer_csr_plain(theta4, x, indices, indptr, edge_w,
                                          base, compute)
     b, k, n = x.shape
-    xt = node_major(x)
+    e = indices.shape[1]
+    route = walk or walk_route(b, k, n, n, b * e)
     out = torch.empty((b, k, n), dtype=torch.float32, device=x.device)
-    launch("s2v_csr", "s2v_csr_layer",
-           [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5, x.device,
-           theta4.data_ptr(), xt.data_ptr(), indptr.data_ptr(),
-           indices.data_ptr(), edge_w.data_ptr(), base.data_ptr(),
-           out.data_ptr(), b, k, n, indices.shape[1],
-           int(compute == "bf16"))
+    if route == "rows":
+        xt = node_major(x)
+        launch("s2v_csr", "s2v_csr_layer",
+               [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5, x.device,
+               theta4.data_ptr(), xt.data_ptr(), indptr.data_ptr(),
+               indices.data_ptr(), edge_w.data_ptr(), base.data_ptr(),
+               out.data_ptr(), b, k, n, e, int(compute == "bf16"))
+    else:
+        xt = padded_node_major(x)
+        indices, edge_w = aligned(indices), aligned(edge_w)
+        launch("s2v_csr", "s2v_csr_layer_windowed",
+               [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6, x.device,
+               theta4.data_ptr(), xt.data_ptr(), indptr.data_ptr(),
+               indices.data_ptr(), edge_w.data_ptr(), base.data_ptr(),
+               out.data_ptr(), b, k, xt.shape[2], n, e,
+               int(compute == "bf16"))
     fused_s2v_layer_csr.launches += 1
+    fused_s2v_layer_csr.routes[route] += 1
     return out
 
 
 fused_s2v_layer_csr.launches = 0
+fused_s2v_layer_csr.routes = dict.fromkeys(WALKS, 0)

@@ -8,8 +8,9 @@ aggregate of the mesh path:
   of ``mp_aggregate`` (``_agg_kernel``), the same kernel without its
   epilogue;
 - sparse: relu(base + θ4 @ Σ_d x[:, nbr[i, d]]·edge[i, d]), counterpart of
-  ``fused_s2v_layer_sparse`` (``_fused_sparse_kernel``), the kernel in
-  ``csrc/s2v_gather.cu``.
+  ``fused_s2v_layer_sparse`` (``_fused_sparse_kernel``), the kernels in
+  ``csrc/s2v_gather.cu``: a row walk and a windowed walk that give the
+  same bits, one chosen per launch from the shapes (``walk.py``).
 
 For each: ``<name>_plain``, the PyTorch composition of the same function,
 used by the CPU tests and as the card-side reference; ``<name>``, the
@@ -30,11 +31,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
 from .build import launch
 from .checks import check_tensors, on_cpu
+from .walk import WALKS, aligned, check_walk, padded_node_major, walk_route
 
 MAX_K = 32
 COMPUTE_MODES = ("f32", "bf16")
@@ -239,32 +242,49 @@ def _check_sparse_inputs(theta4, x, neighbors, edge, base) -> None:
 
 def fused_s2v_layer_sparse(theta4: torch.Tensor, x: torch.Tensor,
                            neighbors: torch.Tensor, edge: torch.Tensor,
-                           base: torch.Tensor,
-                           compute: str = "f32") -> torch.Tensor:
+                           base: torch.Tensor, compute: str = "f32", *,
+                           walk: Optional[str] = None) -> torch.Tensor:
     """One padded-sparse S2V layer in one launch.
 
     x (B, K, N) float32 embeddings with NO sentinel column; neighbors
     (B, Nl, D) int32 with the sentinel id N on padding (ids outside
     [0, N) add nothing and are never read); edge (B, Nl, D) float32
     residual-edge factors; base (B, K, Nl).  Returns (B, K, Nl) float32.
-    CPU tensors take the plain version; CUDA tensors launch the kernel on
-    the current stream, reading a node-major copy of x."""
+    CPU tensors take the plain version, whatever ``walk`` says; CUDA
+    tensors launch the kernel on the current stream, reading a node-major
+    copy of x, by the route :func:`walk.walk_route` picks from the shapes
+    (the row walk or the windowed walk, the same bits), or by ``walk``
+    ("rows" or "windows") where given.  The launch is counted in
+    ``fused_s2v_layer_sparse.launches`` and in ``.routes`` by route."""
     check_compute(compute)
+    check_walk(walk)
     _check_sparse_inputs(theta4, x, neighbors, edge, base)
     if on_cpu(neighbors, "fused_s2v_layer_sparse"):
         return fused_s2v_layer_sparse_plain(theta4, x, neighbors, edge, base,
                                             compute)
     b, k, n = x.shape
     nl, d = neighbors.shape[1:]
-    xt = node_major(x)
+    route = walk or walk_route(b, k, n, nl, b * nl * d)
     out = torch.empty((b, k, nl), dtype=torch.float32, device=x.device)
-    launch("s2v_gather", "s2v_sparse_layer",
-           [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6, x.device,
-           theta4.data_ptr(), xt.data_ptr(), neighbors.data_ptr(),
-           edge.data_ptr(), base.data_ptr(), out.data_ptr(), b, k, n, nl, d,
-           int(compute == "bf16"))
+    if route == "rows":
+        xt = node_major(x)
+        launch("s2v_gather", "s2v_sparse_layer",
+               [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6, x.device,
+               theta4.data_ptr(), xt.data_ptr(), neighbors.data_ptr(),
+               edge.data_ptr(), base.data_ptr(), out.data_ptr(), b, k, n, nl,
+               d, int(compute == "bf16"))
+    else:
+        xt = padded_node_major(x)
+        neighbors, edge = aligned(neighbors), aligned(edge)
+        launch("s2v_gather", "s2v_sparse_layer_windowed",
+               [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7, x.device,
+               theta4.data_ptr(), xt.data_ptr(), neighbors.data_ptr(),
+               edge.data_ptr(), base.data_ptr(), out.data_ptr(), b, k,
+               xt.shape[2], n, nl, d, int(compute == "bf16"))
     fused_s2v_layer_sparse.launches += 1
+    fused_s2v_layer_sparse.routes[route] += 1
     return out
 
 
 fused_s2v_layer_sparse.launches = 0
+fused_s2v_layer_sparse.routes = dict.fromkeys(WALKS, 0)

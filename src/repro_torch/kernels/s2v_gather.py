@@ -23,7 +23,8 @@ import torch
 
 from .build import launch
 from .checks import check_tensors, on_cpu
-from .s2v_fused import check_k, node_major
+from .s2v_fused import check_k
+from .walk import padded_node_major
 
 
 def sparse_mp_aggregate_plain(x: torch.Tensor, neighbors: torch.Tensor,
@@ -34,15 +35,6 @@ def sparse_mp_aggregate_plain(x: torch.Tensor, neighbors: torch.Tensor,
     ids = neighbors.reshape(b, 1, nl * d).long().expand(b, k, nl * d)
     gathered = torch.gather(x.float(), 2, ids).reshape(b, k, nl, d)
     return torch.einsum("bknd,bnd->bkn", gathered, edge.float())
-
-
-def padded_node_major(x: torch.Tensor) -> torch.Tensor:
-    """(B, K, M) → a (B, M, KP) copy with KP = K rounded up to a multiple
-    of 4 and zeros in the added rows, so the kernel copies and reads one
-    node's K values as whole 16-byte vectors."""
-    pad = -x.shape[1] % 4
-    return node_major(torch.nn.functional.pad(x, (0, 0, 0, pad)) if pad
-                      else x)
 
 
 def padded_lists(neighbors: torch.Tensor, edge: torch.Tensor) -> tuple:

@@ -547,3 +547,193 @@ def test_grouped_glu_kernel_matches_plain_on_the_card(cuda):
         assert ops.grouped_glu_ffn.launches == before + 2
         torch.testing.assert_close(
             out, grouped_glu_ffn_plain(x, wg, wu, wo), rtol=1e-4, atol=1e-4)
+
+
+def _csr_from_lists(nbr, edge, n):
+    """The real slots (ids < n) of padded lists as CSR rows, in list order:
+    indptr (B, Nl+1), indices and factors (B, E) with E the largest total,
+    other batches padded with the sentinel n and a poisoned 5.0."""
+    b = nbr.shape[0]
+    real = nbr < n
+    counts = real.sum(-1)
+    indptr = torch.zeros((b, nbr.shape[1] + 1), dtype=torch.int32)
+    indptr[:, 1:] = torch.cumsum(counts, 1)
+    e = max(int(indptr[:, -1].max()), 1)
+    indices = torch.full((b, e), n, dtype=torch.int32)
+    edge_w = torch.full((b, e), 5.0)
+    for g in range(b):
+        m = int(indptr[g, -1])
+        indices[g, :m] = nbr[g][real[g]]
+        edge_w[g, :m] = edge[g][real[g]]
+    return indptr, indices, edge_w
+
+
+def _both_walks(fn, args, compute):
+    """The layer by each route, forced; the two must agree bit for bit."""
+    rows = fn(*args, compute, walk="rows")
+    windows = fn(*args, compute, walk="windows")
+    torch.cuda.synchronize()
+    assert torch.equal(rows, windows)
+    return windows
+
+
+def _assert_close_by_terms(out, plain, args, compute):
+    """The layer within chip_smoke.py's ``graph_tol`` of its plain version
+    (1e-5 at f32, 2e-2 at bf16) componentwise against the sum of |terms|
+    behind each output, |base| + |θ4| @ (|x|·|w| over the node's slots):
+    the bound rounding error analysis gives a sum in any order.  The θ4
+    product cancels aggregates of thousands of slots, so |want| is no
+    measure of their rounding."""
+    tol = 2e-2 if compute == "bf16" else 1e-5
+    scale = plain(*[a.abs() if a.is_floating_point() else a for a in args],
+                  "f32")
+    err = (out - plain(*args, compute)).abs()
+    assert bool((err <= tol + tol * scale).all()), float(
+        (err / (tol + tol * scale)).max())
+
+
+def _layer_args(b, k, n, nl, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.relu(torch.rand((b, k, n), generator=g) - 0.5)
+    base = torch.rand((b, k, nl), generator=g) - 0.5
+    t4 = (torch.rand((k, k), generator=g) - 0.5) * 0.2
+    return t4, x, base
+
+
+@pytest.mark.parametrize("k", [30, 16, 7])
+def test_layer_walks_agree_on_long_lists_on_the_card(cuda, k):
+    """Kernels 3 and 5 by the row walk and the windowed walk, bit for bit,
+    at f32 and bf16, and each within ``_assert_close_by_terms`` of its
+    plain version: lists
+    of up to D slots over N = 2500 * 32 / KP ids, so each crosses 3.3 x
+    windows of 96 KB; D = 2048 - K % 4 (not a multiple of 4 at K = 30 and
+    7, so padded lists start inside 16-byte groups), ascending and with
+    each node's slots shuffled (ids not ascending, sentinel slots among
+    the real ones).  The CSR batch holds each list's real slots as a row."""
+    b, width = 2, 2048 - k % 4
+    n = 2500 * 32 // (k + -k % 4)
+    nbr, edge = _long_lists(b, n, width, k)
+    perm = torch.argsort(torch.from_numpy(
+        np.random.default_rng(k).random(nbr.shape)), dim=-1)
+    shuffled = (torch.gather(nbr, -1, perm), torch.gather(edge, -1, perm))
+    t4, x, base = _layer_args(b, k, n, n, k)
+    t4, x, base = t4.to(cuda), x.to(cuda), base.to(cuda)
+    for lists in ((nbr, edge), shuffled):
+        indptr, indices, edge_w = _csr_from_lists(*lists, n)
+        for fn, plain, args in (
+                (ks.fused_s2v_layer_sparse, ks.fused_s2v_layer_sparse_plain,
+                 (t4, x, lists[0].to(cuda), lists[1].to(cuda), base)),
+                (kc.fused_s2v_layer_csr, kc.fused_s2v_layer_csr_plain,
+                 (t4, x, indices.to(cuda), indptr.to(cuda), edge_w.to(cuda),
+                  base))):
+            for compute in ("f32", "bf16"):
+                out = _both_walks(fn, args, compute)
+                _assert_close_by_terms(out, plain, args, compute)
+                assert torch.equal(out[:, :, -30:],
+                                   torch.relu(base[:, :, -30:]))
+
+
+def test_csr_walks_agree_on_unaligned_and_empty_rows_on_the_card(cuda):
+    """Rows of 0 to 9 edges in a cycle, so row starts fall at every offset
+    in a 16-byte group and empty rows lie first, last and between; E not a
+    multiple of 4 (the arrays' last group is cut short); and the same
+    arrays as a view that does not start on 16 bytes (the wrapper copies
+    it).  Both walks agree bit for bit; empty rows give relu(base)."""
+    b, k, n = 2, 32, 403
+    rng = np.random.default_rng(3)
+    deg = np.arange(n) % 10
+    deg[0] = deg[-1] = 0
+    indptr = np.zeros((b, n + 1), np.int32)
+    indptr[:, 1:] = np.cumsum(deg)
+    e = int(indptr[0, -1])
+    assert e % 4 != 0
+    indices = rng.integers(0, n, (b, e)).astype(np.int32)
+    edge_w = rng.random((b, e)).astype(np.float32)
+    t4, x, base = (a.to(cuda) for a in _layer_args(b, k, n, n, 4))
+    idx, ew = torch.from_numpy(indices).to(cuda), torch.from_numpy(
+        edge_w).to(cuda)
+    ip = torch.from_numpy(indptr).to(cuda)
+    args = (t4, x, idx, ip, ew, base)
+    empty = torch.from_numpy(deg == 0).to(cuda)
+    for compute in ("f32", "bf16"):
+        out = _both_walks(kc.fused_s2v_layer_csr, args, compute)
+        _assert_close_by_terms(out, kc.fused_s2v_layer_csr_plain, args,
+                               compute)
+        assert torch.equal(out[:, :, empty], torch.relu(base[:, :, empty]))
+    flat_i = torch.zeros(b * e + 1, dtype=torch.int32, device=cuda)
+    flat_w = torch.zeros(b * e + 1, device=cuda)
+    flat_i[1:] = idx.reshape(-1)
+    flat_w[1:] = ew.reshape(-1)
+    shifted = (flat_i[1:].view(b, e), flat_w[1:].view(b, e))
+    assert shifted[0].data_ptr() % 16 != 0
+    args = (t4, x, shifted[0], ip, shifted[1], base)
+    assert torch.equal(_both_walks(kc.fused_s2v_layer_csr, args, "f32"),
+                       kc.fused_s2v_layer_csr(t4, x, idx, ip, ew, base,
+                                              walk="rows"))
+
+
+def test_csr_walks_agree_on_one_row_across_windows_on_the_card(cuda):
+    """One hub row whose edges reach every id of a graph of N = 5000
+    nodes, 6.5 x windows at K = 32, in random order (its slots wait for
+    later windows and read earlier ids from global memory), beside rows
+    of a few edges."""
+    b, k, n = 1, 32, 5000
+    rng = np.random.default_rng(5)
+    deg = rng.integers(0, 6, n)
+    deg[17] = n
+    indptr = np.zeros((b, n + 1), np.int32)
+    indptr[0, 1:] = np.cumsum(deg)
+    e = int(indptr[0, -1])
+    indices = rng.integers(0, n, (b, e)).astype(np.int32)
+    indices[0, indptr[0, 17]:indptr[0, 18]] = rng.permutation(n)
+    edge_w = rng.random((b, e)).astype(np.float32)
+    t4, x, base = (a.to(cuda) for a in _layer_args(b, k, n, n, 6))
+    args = (t4, x, torch.from_numpy(indices).to(cuda),
+            torch.from_numpy(indptr).to(cuda),
+            torch.from_numpy(edge_w).to(cuda), base)
+    for compute in ("f32", "bf16"):
+        out = _both_walks(kc.fused_s2v_layer_csr, args, compute)
+        _assert_close_by_terms(out, kc.fused_s2v_layer_csr_plain, args,
+                               compute)
+
+
+def test_sparse_walks_agree_on_a_row_block_on_the_card(cuda):
+    """Kernel 3 on the lists of a row block (Nl < N, global ids against
+    the whole x, as a mesh's graph rank calls it): both walks agree bit
+    for bit and equal the whole call's slice, at f32 and bf16."""
+    b, k, n, width = 2, 32, 2000, 301
+    nbr, edge = _long_lists(b, n, width, 8)
+    t4, x, base = (a.to(cuda) for a in _layer_args(b, k, n, n, 8))
+    nbr, edge = nbr.to(cuda), edge.to(cuda)
+    for compute in ("f32", "bf16"):
+        whole = _both_walks(ks.fused_s2v_layer_sparse,
+                            (t4, x, nbr, edge, base), compute)
+        for lo, hi in ((0, 700), (700, n), (1000, 1001)):
+            args = (t4, x, nbr[:, lo:hi].contiguous(),
+                    edge[:, lo:hi].contiguous(),
+                    base[:, :, lo:hi].contiguous())
+            out = _both_walks(ks.fused_s2v_layer_sparse, args, compute)
+            assert torch.equal(out, whole[:, :, lo:hi])
+            _assert_close_by_terms(out, ks.fused_s2v_layer_sparse_plain,
+                                   args, compute)
+
+
+def test_walks_give_relu_base_on_isolated_padding_nodes_on_the_card(cuda):
+    """A bucket whose last nodes are padding (no edges; all-sentinel
+    lists with poisoned factors, empty CSR rows): exactly relu(base)
+    there on both walks of kernels 3 and 5, at f32 and bf16."""
+    b, k, n, iso = 2, 16, 900, 133
+    sp, cs, edge, edge_w, x, base, t4 = _graph_inputs(b, k, n, 0.05, 9, iso)
+    edge[sp.neighbors == n] = 5.0
+    edge_w[~cs.edge_mask] = 5.0
+    x = torch.relu(x)
+    for fn, args in (
+            (ks.fused_s2v_layer_sparse,
+             [a.to(cuda) for a in (t4, x, sp.neighbors, edge, base)]),
+            (kc.fused_s2v_layer_csr,
+             [a.to(cuda) for a in (t4, x, cs.indices, cs.indptr, edge_w,
+                                   base)])):
+        for compute in ("f32", "bf16"):
+            out = _both_walks(fn, args, compute)
+            assert torch.equal(out[:, :, -iso:],
+                               torch.relu(args[-1][:, :, -iso:]))
