@@ -38,7 +38,7 @@ Phases (any failed check raises, so the script exits non-zero):
    BH=128, T=4096, 64x64 heads, chunk 64), ``swa`` (gemma3-4b's local
    layers: BH=16, T=8192, d=256, window 1024) and ``grouped_glu_ffn``
    (qwen2-moe-a2.7b: E=60, C=320, d=2048, f=1408), which must launch
-   1, 1 and 2 kernels and give finite outputs; then each kernel against its
+   2, 1 and 2 kernels and give finite outputs; then each kernel against its
    plain version and the f64 oracle (the sequential scan for wkv6) at
    those widths and at ragged, bf16, other-chunk and other-window cases
    (``phase_lm_kernels``), and their times beside the bounds.
@@ -53,7 +53,7 @@ Phases (any failed check raises, so the script exits non-zero):
    first-evaluation scores within 1e-5 on each rep, and bit for bit
    across reps on the card; solutions valid covers.
 4. Large solves: the paper-scale ER(N=20480, 0.15) graph (~31.5M edges)
-   on all three reps with max_d=256.
+   on all three reps with max_d=256; the dense solve also traced.
 5. The (data, graph) mesh: gloo ranks that share the one card (cuda:0),
    spawned once per shape (1,2), (2,1), (2,2) and (1,4) after the kernels
    are built.  On one (B=8, N=256) ER(0.15) batch, dense and sparse (CSR
@@ -66,7 +66,9 @@ Phases (any failed check raises, so the script exits non-zero):
    smallest served graphs, held the same way.  The paper-scale graph at
    (1,2) and (1,4) dense and (1,4) sparse: evaluations and cover against
    phase 4, each rank's peak device memory beside the §5.2 model; no
-   dense rank at sp = 4 may hold the whole adjacency.  Mesh times are of
+   dense rank at sp = 4 may hold the whole adjacency; the (1,2) dense
+   solve traced and held to phase 4's traced solve: where they part, it
+   must be at a near-tie (every parting printed).  Mesh times are of
    ranks that share one card: not scaling figures.
 6. BA(N=1M, d=10) on the CSR rep with max_d=62500, built from streamed
    edges with no dense array; the answer is a cover.  Then the sparse
@@ -135,6 +137,8 @@ MESH_CHECK = (8, 256)            # the mesh phase's batch: graphs, nodes
 MESH_SERVE_SIZES = (500, 1000)   # its served graphs: the stream's smallest
 # (rep, mesh) of the paper-scale mesh solves
 PAPER_MESH = (("dense", (1, 2)), ("dense", (1, 4)), ("sparse", (1, 4)))
+# the paper-scale mesh solves traced beside the traced single-device solve
+PAPER_TRACE = (("dense", (1, 2)),)
 MESH_TIMEOUT_S = 420.0           # one spawn, its paper-scale solves included
 TIMING_BUDGET_S = 1.0            # per timed function (see cuda_ms)
 WALKS = ("rows", "windows")      # the sparse and CSR layers' two routes
@@ -519,12 +523,28 @@ def wkv6_bound(bh, t, dk, dv, c):
                  2 * bh * (t // c) * macs)
 
 
-def swa_bound(bh, t, d, window):
+def wkv6_split_ops_ms(bh, t, dk, dv, c, passes=3):
+    """The operations time of csrc/wkv6.cu's split at the card's peaks, in
+    ms: a (its strict lower triangle and diagonal), a v and qp S as
+    ``passes`` TF32 products on the tensor cores, kdᵀ v in f32 on the CUDA
+    cores, one after the other.  Beside ``wkv6_bound``'s byte time, which
+    it does not exceed at rwkv6-7b's width."""
+    chunks = bh * (t // c)
+    tf32 = (c * (c - 1) // 2 * dk + c * dk + c * (c + 1) // 2 * dv
+            + c * dk * dv)
+    return 1e3 * 2 * chunks * (passes * tf32 / H100_TF32_FLOPS
+                               + c * dk * dv / H100_F32_FLOPS)
+
+
+def swa_bound(bh, t, d, window, rate=H100_TF32_FLOPS, passes=3):
     """q, k, v in, out out; 4·d FLOPs for each visible (query, key) pair,
-    of which query i has min(i + 1, window)."""
+    of which query i has min(i + 1, window), each done as ``passes`` TF32
+    products on the tensor cores (the split hi·hi + hi·lo + lo·hi that
+    holds f32 accuracy).  ``rate=H100_F32_FLOPS, passes=1`` gives the
+    bound of the same products on the CUDA cores."""
     w = min(window, t)
     pairs = bh * (w * (w + 1) // 2 + (t - w) * w)
-    return bound(4 * 4 * bh * t * d, 4 * d * pairs)
+    return bound(4 * 4 * bh * t * d, passes * 4 * d * pairs, rate)
 
 
 def glu_bound(e, c, d, f, rate=H100_TF32_FLOPS, passes=3):
@@ -591,9 +611,9 @@ def phase_lm_kernels(torch, dev, rows, failures):
         if tuple(o.shape) != shape or not bool(torch.isfinite(o).all()):
             failures.append(f"{name}: shape {tuple(o.shape)} (want {shape}) "
                             f"or non-finite values on the main path")
-    if launches != {"wkv6_chunked": 1, "swa_attention": 1,
+    if launches != {"wkv6_chunked": 2, "swa_attention": 1,
                     "grouped_glu_ffn": 2}:
-        failures.append(f"LM main path launched {launches}, want 1, 1, 2")
+        failures.append(f"LM main path launched {launches}, want 2, 1, 2")
     lm_checks(torch, dev, rows, failures, LM_KERNELS, inputs, outs)
     del outs
     torch.cuda.empty_cache()
@@ -678,6 +698,7 @@ def lm_timing(torch, dev, names, inputs):
         bh, t, dk, dv, chunk = WKV_FULL
         row = {"BH": bh, "T": t, "dk": dk, "dv": dv, "chunk": chunk}
         row["bound_ms"], row["bound_by"] = wkv6_bound(bh, t, dk, dv, chunk)
+        row["ops_ms_split_tf32"] = wkv6_split_ops_ms(bh, t, dk, dv, chunk)
         row["ms_f32"] = cuda_ms(torch, lambda: ops.wkv6(*wkv, chunk=chunk))
         row["plain_ms"] = cuda_ms(torch, lambda: wkv6_chunked_plain(
             *wkv, chunk=chunk))
@@ -688,6 +709,8 @@ def lm_timing(torch, dev, names, inputs):
         sbh, st, sd, window = SWA_FULL
         row = {"BH": sbh, "T": st, "d": sd, "window": window}
         row["bound_ms"], row["bound_by"] = swa_bound(sbh, st, sd, window)
+        row["bound_ms_f32_cores"] = swa_bound(sbh, st, sd, window,
+                                              H100_F32_FLOPS, 1)[0]
         row["ms_f32"] = cuda_ms(torch, lambda: ops.swa(*qkv, window=window))
         row["plain_ms"] = cuda_ms(torch, lambda: swa_attention_plain(
             *qkv, window=window))
@@ -1253,8 +1276,9 @@ def phase_card_vs_cpu(torch, policy):
 
 def phase_paper_scale(torch, policy):
     """Phase 4: one ER(20480, 0.15) graph solved on the card on all three
-    reps (sparse and CSR from batches built on the host first).  Returns
-    the graph, its sparse batch on the host and each rep's answer, for
+    reps (sparse and CSR from batches built on the host first); the reps
+    of ``PAPER_TRACE`` also traced (``traced_solve``).  Returns the graph,
+    its sparse batch on the host and each rep's answer (and trace), for
     the paper-scale mesh solves."""
     from repro_torch.core import (SparseGraphBatch, csr_batch_from_dense,
                                   solve, sparse_batch_from_dense)
@@ -1301,6 +1325,18 @@ def phase_paper_scale(torch, policy):
                   res.solution[0], single["dense"]["solution"])),
               "peak_device_bytes": single[rep]["peak_device_bytes"]})
         del graph, res
+        if any(r == rep for r, _ in PAPER_TRACE):
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            trace = traced_solve(torch, policy, adj, rep, 0,
+                                 torch.device(DEVICE), max_d=PAPER_MAX_D)
+            if not np.array_equal(trace[1][-1, 0], single[rep]["solution"]):
+                raise AssertionError(f"traced paper-scale {rep} run differs "
+                                     f"from its solve")
+            single[rep]["trace"] = trace
+            emit({"phase": "paper_trace", "rep": rep, "N": n,
+                  "evals": len(trace[0]),
+                  "seconds": time.perf_counter() - t0})
     return {"adj": adj, "sparse_host": sparse_host, "single": single}
 
 
@@ -1421,7 +1457,10 @@ def check_paper_mesh(spec, ranks, paper, failures, launches):
     """The paper-scale mesh solves of one spawn: covers, the ranks agree,
     the rep's kernel once per evaluation, and each rank's peak device
     memory beside the §5.2 model and the single-device peak; no dense
-    rank at sp = 4 may hold the whole adjacency."""
+    rank at sp = 4 may hold the whole adjacency.  A solve of
+    ``PAPER_TRACE`` is held to the traced single-device solve: its trace
+    ends in its answer, and where the two part, they part at a near-tie
+    (``parting``)."""
     from repro_torch.core import per_device_bytes, sparse_per_device_bytes
     adj = paper["adj"]
     n = adj.shape[0]
@@ -1445,6 +1484,16 @@ def check_paper_mesh(spec, ranks, paper, failures, launches):
             failures.append(f"paper mesh {spec} dense: a rank's peak "
                             f"{max(peaks)} B holds the whole adjacency")
         single = paper["single"][rep]
+        cases, traced = [], "trace" in runs[0]
+        if traced:
+            trace = runs[0]["trace"]
+            if not np.array_equal(trace[1][-1, 0], sol):
+                failures.append(f"paper mesh {spec} {rep}: the traced run "
+                                f"differs from the solve")
+            cases, near = parting(single["trace"], trace)
+            if not near:
+                failures.append(f"paper mesh {spec} {rep}: the trajectory "
+                                f"parts at no near-tie: {cases}")
         model = (per_device_bytes(n, 1, 0.15, spec[1], dp=spec[0])
                  if rep == "dense" else sparse_per_device_bytes(
                      n, paper["sparse_host"].max_degree, 1, spec[1],
@@ -1456,6 +1505,7 @@ def check_paper_mesh(spec, ranks, paper, failures, launches):
               "cover_size_single": int(single["solution"].sum()),
               "identical_to_single": bool(np.array_equal(
                   sol, single["solution"])),
+              "traced": traced, "partings": cases,
               "peak_device_bytes_per_rank": peaks,
               "peak_device_bytes_single": single["peak_device_bytes"],
               "whole_adjacency_bytes": whole,
@@ -1510,7 +1560,9 @@ def phase_mesh(torch, policy, cfg, stream, paper):
                 timeout_s=MESH_TIMEOUT_S,
                 args=(weights, adj, refs,
                       (serve_adjs, ref_answers) if spec == (2, 2) else None,
-                      dict(files, reps=reps, max_d=PAPER_MAX_D)))
+                      dict(files, reps=reps, max_d=PAPER_MAX_D,
+                           trace=[rep for rep, shape in PAPER_TRACE
+                                  if shape == spec])))
             emit({"phase": "mesh_spawn", "shape": list(spec),
                   "seconds": time.perf_counter() - t0})
             for i in range(len(ranks[0]["runs"])):
@@ -1566,9 +1618,10 @@ def phase_ba(torch, policy, indptr, indices, cs, gen_s):
 # ---------------------------------------------------------------------------
 
 def traced_solve(torch, policy, adj, rep, spec, dev, kernel="fused",
-                 max_evals=None):
-    """Alg. 4 as ``engine.get_solve_step`` runs it (adaptive d, the same
-    scorer, selection, commit and stop rule), recording after every
+                 max_evals=None, max_d=None):
+    """Alg. 4 as ``engine.get_solve_step`` runs it (adaptive d up to
+    ``max_d``, the solve's default unless given; the same scorer,
+    selection, commit and stop rule), recording after every
     evaluation (up to ``max_evals``) the whole batch's scores and solution
     (gathered over ``data`` on a mesh), to find where two trajectories
     part.  Never counted: only ``solve`` is the main path."""
@@ -1579,6 +1632,7 @@ def traced_solve(torch, policy, adj, rep, spec, dev, kernel="fused",
     from repro_torch.core.mesh import all_reduce_max, normalize_spatial
     from repro_torch.core.spatial import spatial_solve_scores_fn
     r = get_rep(rep)
+    max_d = max_d or MAX_D
     dp, sp = normalize_spatial(spec)
     mesh = make_mesh(dp, sp) if (dp, sp) != (1, 1) else None
     state = init_solve_state(r, adj, device=dev, mesh=mesh)
@@ -1589,10 +1643,10 @@ def traced_solve(torch, policy, adj, rep, spec, dev, kernel="fused",
         score = functools.partial(r.scores, num_layers=2, kernel=kernel)
     scores, sols = [], []
     with torch.no_grad():
-        for _ in range(max_evals or state.num_nodes + MAX_D):
+        for _ in range(max_evals or state.num_nodes + max_d):
             s = score(policy, state)
             state, done, _ = apply_selection(state, s, state.candidate, True,
-                                             "mvc", MAX_D)
+                                             "mvc", max_d)
             sc, so = gather_batch(mesh, s, state.solution)
             scores.append(sc)
             sols.append(so)
@@ -1619,7 +1673,7 @@ def mesh_rank(mesh, dev, weights, adj, refs, serve, paper):
     from the single-device ones (``refs``), else for the first
     evaluation's scores; at (2, 2) the sync service on ``serve`` (the
     graphs and the single-device answers); then the paper-scale solves
-    of ``paper``."""
+    of ``paper``, those it names under ``trace`` traced too."""
     import torch
     from repro_torch.convert import policy_from_numpy
     from repro_torch.core import PolicyConfig, SparseGraphBatch, solve
@@ -1694,6 +1748,10 @@ def mesh_rank(mesh, dev, weights, adj, refs, serve, paper):
             "counts": read_counts(),
             "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
                                   if on_card else 0)}
+        if rep in paper.get("trace", ()):
+            del res
+            out["paper", rep]["trace"] = traced_solve(
+                torch, policy, graph, rep, spec, dev, max_d=paper["max_d"])
         if on_card and rep == "dense" and spec == (1, 2):
             # where a mesh evaluation's time goes, on each rank
             from repro_torch.core import (DENSE, get_solve_step,

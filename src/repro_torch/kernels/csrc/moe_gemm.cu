@@ -46,66 +46,21 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
+
+using tf32mma::cp_async;
+using tf32mma::cp_async_commit;
+using tf32mma::cp_async_wait;
+using tf32mma::mma_tf32;
+using tf32mma::split_tf32;
 
 constexpr int STAGES = 4;              // copies in flight
 constexpr int THREADS = 256;           // 8 warps
 
 __device__ __forceinline__ float silu_times(float g, float u) {
   return g / (1.f + expf(-g)) * u;
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 or 4 bytes from gmem to smem; valid == false writes zeros.
-template <int BYTES>
-__device__ __forceinline__ void cp_async(float* smem, const float* gmem,
-                                         bool valid) {
-  if (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_u32(smem)),
-                 "l"(gmem), "r"(valid ? 16 : 0)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                     smem_u32(smem)),
-                 "l"(gmem), "r"(valid ? 4 : 0)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N_PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N_PENDING) : "memory");
-}
-
-// tf32(a): a rounded to 10 mantissa bits, to nearest with ties away from
-// zero, as cvt.rna.tf32.f32 rounds finite values, in two integer operations
-// (the conversion instruction issues at a quarter of their rate).
-__device__ __forceinline__ unsigned tf32_rna(float a) {
-  return (__float_as_uint(a) + 0x1000u) & 0xFFFFE000u;
-}
-
-// hi = tf32(a), lo = tf32(a - hi); a - hi is exact in f32.
-__device__ __forceinline__ void split_tf32(float a, unsigned& hi,
-                                           unsigned& lo) {
-  hi = tf32_rna(a);
-  lo = tf32_rna(a - __uint_as_float(hi));
-}
-
-// c += a (16x8, row) * b (8x8, col) in TF32 with f32 accumulation.
-__device__ __forceinline__ void mma_tf32(float* c, const unsigned* a,
-                                         const unsigned* b) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // The block tile: BM = 64 rows (32 per warp row) by BN = 128 columns; NB

@@ -17,9 +17,12 @@ c = 16.  Outside that the output is NaN, as in the JAX kernel.
 
 :func:`wkv6_chunked_plain` is the PyTorch composition, a loop over chunks
 as ``models/rwkv.py::wkv6_chunked_jnp`` writes it; :func:`wkv6_chunked`
-computes it on CPU tensors, at any size the JAX op takes, and launches
-the hand-written kernel (``csrc/wkv6.cu``, chunk ≤ 64 and dk ≤ 64) on
-CUDA tensors, counting launches in ``wkv6_chunked.launches``.
+computes it on CPU tensors, at any size the JAX op takes, and on CUDA
+tensors launches the two hand-written kernels of ``csrc/wkv6.cu``
+(chunk ≤ 64 and dk ≤ 64): one pass over the chunks in order that keeps
+the state S_n = exp(cum_c) S_{n-1} + kdᵀ v entering every chunk, then
+every chunk's output a v + qp S_{n-1} in parallel, counting two launches
+per call in ``wkv6_chunked.launches``.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from .checks import f32_inputs, on_cpu
 
 MAX_CHUNK = 64
 MAX_DK = 64
+V_TILE = 64                  # value columns per block (csrc/wkv6.cu DVT)
 
 
 def wkv6_chunked_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -84,8 +88,10 @@ def _check_shapes(r, k, v, w, u, chunk) -> int:
     return c
 
 
-def _check_kernel_limits(dk: int, c: int) -> None:
-    """The CUDA kernel's own limits; the plain version has none."""
+def _check_kernel_limits(bh: int, dk: int, c: int) -> None:
+    """The CUDA kernels' own limits; the plain version has none."""
+    if bh > 65535:
+        raise ValueError(f"the wkv6 kernel takes BH <= 65535, got {bh}")
     if dk > MAX_DK:
         raise ValueError(f"the wkv6 kernel takes dk <= {MAX_DK}, got {dk}")
     if c > MAX_CHUNK:
@@ -97,20 +103,29 @@ def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  w: torch.Tensor, u: torch.Tensor, *,
                  chunk: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
     """(out (BH, T, dv), final state (BH, dk, dv)) in float32.  CPU tensors
-    take the plain version; CUDA tensors launch the kernel on the current
-    stream."""
+    take the plain version; CUDA tensors launch the two kernels on the
+    current stream."""
     r, k, v, w, u = f32_inputs("r", {"r": r, "k": k, "v": v, "w": w, "u": u})
     c = _check_shapes(r, k, v, w, u, chunk)
     if on_cpu(r, "wkv6_chunked"):
         return wkv6_chunked_plain(r, k, v, w, u, chunk=c)
     bh, t, dk = r.shape
-    _check_kernel_limits(dk, c)
+    _check_kernel_limits(bh, dk, c)
     dv = v.shape[2]
-    out = torch.empty((bh, t, dv), dtype=torch.float32, device=r.device)
-    sfin = torch.empty((bh, dk, dv), dtype=torch.float32, device=r.device)
-    launch("wkv6", "wkv6_forward", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5,
-           r.device, r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-           u.data_ptr(), out.data_ptr(), sfin.data_ptr(), bh, t, dk, dv, c)
+    dev = r.device
+    out = torch.empty((bh, t, dv), dtype=torch.float32, device=dev)
+    sfin = torch.empty((bh, dk, dv), dtype=torch.float32, device=dev)
+    # the state entering each chunk
+    states = torch.empty((bh, t // c, dk, -(-dv // V_TILE) * V_TILE),
+                         dtype=torch.float32, device=dev)
+    sizes = (bh, t, dk, dv, c)
+    launch("wkv6", "wkv6_state", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5,
+           dev, k.data_ptr(), v.data_ptr(), w.data_ptr(), states.data_ptr(),
+           sfin.data_ptr(), *sizes)
+    wkv6_chunked.launches += 1
+    launch("wkv6", "wkv6_out", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5,
+           dev, r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+           u.data_ptr(), states.data_ptr(), out.data_ptr(), *sizes)
     wkv6_chunked.launches += 1
     return out, sfin
 

@@ -435,6 +435,11 @@ def test_lm_kernels_refuse_sizes_beyond_their_limits(cuda):
     w = torch.full((1, 256, 8), 0.9)
     with pytest.raises(ValueError, match="chunk <= 64"):
         ops.wkv6(*(a.to(cuda) for a in (r, k, v, w, u)), chunk=128)
+    r, k, v, w, u = (torch.full(s, 0.5, device=cuda) for s in (
+        (65536, 1, 1), (65536, 1, 1), (65536, 1, 1), (65536, 1, 1),
+        (65536, 1)))
+    with pytest.raises(ValueError, match="BH <= 65535"):
+        ops.wkv6(r, k, v, w, u, chunk=1)
     for d in (6, 260):
         q, kk, vv = (a.to(cuda) for a in _randn(d, *[(1, 16, d)] * 3))
         with pytest.raises(ValueError, match="d % 4 == 0 and d <= 256"):
@@ -469,10 +474,11 @@ def _randn(seed, *shapes, scale=1.0):
 
 
 def test_wkv6_kernel_matches_plain_on_the_card(cuda):
-    """Ragged dv (not a multiple of the 32-column tile), dk < 64, chunks
-    of 16, 32, 48 and 64, decays of the TPU kernel's domain at chunk 64
-    and of the model's range at chunk 16; the JAX suite's 3e-4 bar (the
-    chunked form against the scan)."""
+    """Ragged dv (not a multiple of 4 x 8-column MMA tiles), dk < 64,
+    chunks of 16, 32, 48 and 64, decays of the TPU kernel's domain at
+    chunk 64 and of the model's range at chunk 16, two launches a call
+    (the state pass, the outputs); the JAX suite's 3e-4 bar (the chunked
+    form against the scan)."""
     for bh, t, dk, dv, chunk, w_min in ((3, 128, 16, 24, 32, 0.55),
                                         (2, 256, 64, 64, 64, 0.55),
                                         (2, 64, 64, 40, 16, 0.066),
@@ -485,7 +491,7 @@ def test_wkv6_kernel_matches_plain_on_the_card(cuda):
         before = ops.wkv6.launches
         out, state = ops.wkv6(*args, chunk=chunk)
         torch.cuda.synchronize()
-        assert ops.wkv6.launches == before + 1
+        assert ops.wkv6.launches == before + 2
         want, want_state = wkv6_chunked_plain(*args, chunk=chunk)
         torch.testing.assert_close(out, want, rtol=3e-4, atol=3e-4)
         torch.testing.assert_close(state, want_state, rtol=3e-4, atol=3e-4)
@@ -505,6 +511,77 @@ def test_swa_kernel_matches_plain_on_the_card(cuda):
         torch.testing.assert_close(
             out, swa_attention_plain(q, k, v, window=window), rtol=1e-4,
             atol=1e-4)
+
+
+def _wkv6_scan64(r, k, v, w, u):
+    """The sequential recurrence in f64 (ref.wkv6's scan)."""
+    r, k, v, w, u = (a.double() for a in (r, k, v, w, u))
+    s = torch.zeros((r.shape[0], r.shape[2], v.shape[2]),
+                    dtype=torch.float64, device=r.device)
+    out = torch.empty(v.shape, dtype=torch.float64, device=r.device)
+    for i in range(r.shape[1]):
+        kv = k[:, i, :, None] * v[:, i, None, :]
+        out[:, i] = torch.bmm(r[:, i, None, :], s + u[:, :, None] * kv)[:, 0]
+        s = w[:, i, :, None] * s + kv
+    return out, s
+
+
+@pytest.mark.parametrize("bh,t,dk,dv,chunk", [
+    (2, 64, 64, 64, 64),       # one chunk: the state pass walks one step
+    (2, 4096, 64, 64, 64),     # 64 chunks in order
+    (2, 256, 32, 100, 32),     # dv past one 64-column block, ragged
+    (3, 128, 8, 24, 16),       # dk 8: one k-step of the MMAs
+    (1, 5, 3, 7, 1),           # chunks of one token; dk, dv not % 4
+])
+def test_wkv6_kernel_holds_the_scan_on_the_card(cuda, bh, t, dk, dv, chunk):
+    """Against its plain version and the f64 scan at the JAX suite's 3e-4
+    (rtol = atol), decays in the TPU kernel's domain [0.55, 1)."""
+    r, k, v, u = _randn(t + dv, (bh, t, dk), (bh, t, dk), (bh, t, dv),
+                        (bh, dk), scale=0.5)
+    w = torch.from_numpy((0.55 + 0.45 * np.random.default_rng(dk).random(
+        (bh, t, dk))).astype(np.float32))
+    args = [a.to(cuda) for a in (r, k, v, w, u)]
+    out, state = ops.wkv6(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    want, want_state = wkv6_chunked_plain(*args, chunk=chunk)
+    torch.testing.assert_close(out, want, rtol=3e-4, atol=3e-4)
+    torch.testing.assert_close(state, want_state, rtol=3e-4, atol=3e-4)
+    exact, exact_state = _wkv6_scan64(*args)
+    for got, ref in ((out, exact), (state, exact_state)):
+        assert bool(((got.double() - ref).abs()
+                     <= 3e-4 + 3e-4 * ref.abs()).all())
+
+
+def _swa64(q, k, v, window):
+    """The masked softmax in f64."""
+    q, k, v = (a.double() for a in (q, k, v))
+    t = q.shape[1]
+    i = torch.arange(t, device=q.device)[:, None]
+    j = torch.arange(t, device=q.device)[None, :]
+    logits = (q @ k.transpose(1, 2)) * q.shape[2] ** -0.5
+    logits = logits.masked_fill(~((j <= i) & (j > i - window)),
+                                float("-inf"))
+    return torch.softmax(logits, -1) @ v
+
+
+@pytest.mark.parametrize("bh,t,d,window", [
+    (2, 300, 12, 77),          # d % 8 = 4: the last k-step half zeros
+    (2, 300, 100, 77),         # d = 100: 13 k-steps, ragged
+    (2, 2048, 256, 1024),      # gemma3-4b's head_dim and window
+    (3, 1, 4, 1),              # one token, the smallest head
+])
+def test_swa_kernel_holds_f64_on_the_card(cuda, bh, t, d, window):
+    """The split-TF32 tensor-core attention against its plain version and
+    the attention in f64 at the JAX suite's 1e-4 (rtol = atol)."""
+    q, k, v = (a.to(cuda) for a in _randn(t + d, *[(bh, t, d)] * 3))
+    out = ops.swa(q, k, v, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        out, swa_attention_plain(q, k, v, window=window), rtol=1e-4,
+        atol=1e-4)
+    exact = _swa64(q, k, v, window)
+    assert bool(((out.double() - exact).abs()
+                 <= 1e-4 + 1e-4 * exact.abs()).all())
 
 
 def test_grouped_glu_kernel_at_full_width_holds_f64_on_the_card(cuda):

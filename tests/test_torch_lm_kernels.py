@@ -332,8 +332,9 @@ def _toward_zero(s):
     return torch.where(over, torch.nextafter(r, torch.zeros_like(r)), r)
 
 
-def _split_bmm(a, b):
-    """a @ b as the kernels compute it: the three products of the TF32
+def _split_bmm(a, b, acc=None):
+    """acc + a @ b (acc zero unless given) as the kernels compute it: the
+    three products of the TF32
     parts, small terms first, one m16n8k8 step of 8 of the contraction at
     a time, each step adding its eight exact products to the f32
     accumulator and truncating the sum toward zero, a model of the tensor
@@ -345,7 +346,8 @@ def _split_bmm(a, b):
     the kernels' error."""
     ahi, alo = tf32_split(a)
     bhi, blo = tf32_split(b)
-    acc = torch.zeros(a.shape[0], a.shape[1], b.shape[2])
+    if acc is None:
+        acc = torch.zeros(a.shape[0], a.shape[1], b.shape[2])
     for k0 in range(0, a.shape[2], 8):
         for x, y in ((alo, bhi), (ahi, blo), (ahi, bhi)):
             acc = _toward_zero(acc.double() + torch.bmm(
@@ -377,6 +379,130 @@ def test_split_tf32_glu_holds_the_f32_bar_against_f64():
     scale = torch.bmm(terms_h, wo.abs())
     err = (y.double() - torch.bmm(h, wo)).abs()
     assert bool((err <= 1e-5 + 1e-5 * scale).all())
+
+
+def _swa_split_model(q, k, v, window, bkv=32):
+    """csrc/swa.cu's arithmetic on the CPU: 32-key tiles, each tile's
+    scores as two partial sums over the halves of d's 8-wide k-steps
+    (each through ``_split_bmm``) added in f32 and scaled, the online
+    softmax in f32 (p = 0 and alpha = 0 on a row that has seen nothing),
+    p split as it is stored, the accumulator rescaled by alpha and then
+    given p v through ``_split_bmm``.  Every query row walks every key
+    tile: a tile a row cannot see adds p = 0 and rescales by 1."""
+    bh, t, d = q.shape
+    scale = d ** -0.5
+    nks = -(-d // 8)
+    cut = 8 * (-(-nks // 2))
+    i = torch.arange(t)[:, None]
+    m = torch.full((bh, t, 1), -np.inf)
+    l = torch.zeros((bh, t, 1))
+    o = torch.zeros((bh, t, d))
+    for k0 in range(0, t, bkv):
+        kt, vt = k[:, k0:k0 + bkv], v[:, k0:k0 + bkv]
+        s = (_split_bmm(q[..., :cut], kt[..., :cut].transpose(1, 2))
+             + _split_bmm(q[..., cut:], kt[..., cut:].transpose(1, 2)))
+        j = torch.arange(k0, k0 + kt.shape[1])[None, :]
+        seen = (j <= i) & (j > i - window)
+        s = torch.where(seen, s * scale, -np.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        m_use = torch.where(m_new == -np.inf, 0.0, m_new)
+        alpha = torch.exp(m - m_use)
+        p = torch.exp(s - m_use)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        m = m_new
+        o = _split_bmm(p, vt, o * alpha)
+    return o / torch.clamp(l, min=1e-20)
+
+
+def _swa_f64(q, k, v, window):
+    q, k, v = (a.double() for a in (q, k, v))
+    t = q.shape[1]
+    i, j = torch.arange(t)[:, None], torch.arange(t)[None, :]
+    logits = (q @ k.transpose(1, 2)) * q.shape[2] ** -0.5
+    logits = logits.masked_fill(~((j <= i) & (j > i - window)), -np.inf)
+    return torch.softmax(logits, -1) @ v
+
+
+@pytest.mark.parametrize("t,d,window", [
+    (256, 256, 200),     # head_dim 256, a window not aligned to the tiles
+    (200, 100, 70),      # a ragged last k-step (d % 8 = 4), ragged T
+])
+def test_split_tf32_swa_holds_the_f32_bar_against_f64(t, d, window):
+    """The tensor-core attention's arithmetic (``_swa_split_model``)
+    within the JAX suite's 1e-4 (rtol = atol) of the attention in f64, and
+    of the plain version."""
+    q, k, v = _t(*_qkv(2, t, d, seed=d + window))
+    got = _swa_split_model(q, k, v, window)
+    exact = _swa_f64(q, k, v, window)
+    assert bool(((got.double() - exact).abs()
+                 <= 1e-4 + 1e-4 * exact.abs()).all())
+    torch.testing.assert_close(got, swa_attention_plain(q, k, v,
+                                                        window=window), **TOL)
+
+
+def _wkv6_chunk_parallel(r, k, v, w, u, chunk):
+    """csrc/wkv6.cu's decomposition on the CPU, exp(cum) taken as the
+    running product P of the clipped decays: the state pass S_n = P_c
+    S_{n-1} + (k * P_c / P)^T v over the chunks in order, keeping the
+    state that enters each chunk, then every chunk's output a v + qp
+    S_{n-1} at once (qp = r * P_{t-1}, kp = k / P),
+    its three products in split TF32 (``_split_bmm``), a v first into the
+    accumulator that qp S continues."""
+    bh, t, dk = r.shape
+    dv = v.shape[2]
+    c = min(chunk, t)
+    n = t // c
+    rc, kc, wc = (a.reshape(bh, n, c, dk) for a in (r, k, w))
+    vc = v.reshape(bh, n, c, dv)
+    wcl = torch.clamp(wc, 1e-6, 1.0)
+    prod = torch.cumprod(wcl, dim=2)                      # exp(cum)
+    pc = prod[:, :, -1:]                                  # (bh, n, 1, dk)
+    upd = (kc * (pc / prod)).transpose(2, 3) @ vc
+    decay = pc.transpose(2, 3)                            # (bh, n, dk, 1)
+    s = torch.zeros((bh, dk, dv))
+    entering = []
+    for i in range(n):
+        entering.append(s)
+        s = decay[:, i] * s + upd[:, i]
+    before = torch.cat([torch.ones_like(prod[:, :, :1]), prod[:, :, :-1]],
+                       dim=2)
+    qp = (rc * before).reshape(bh * n, c, dk)
+    kp = (kc / prod).reshape(bh * n, c, dk)
+    lower = torch.ones(c, c, dtype=torch.bool).tril(-1)
+    a = torch.where(lower, _split_bmm(qp, kp.transpose(1, 2)), 0.0)
+    a = a + torch.diag_embed((rc * u[:, None, None, :] * kc).sum(-1)
+                             .reshape(bh * n, c))
+    out = _split_bmm(qp, torch.stack(entering, 1).reshape(bh * n, dk, dv),
+                     _split_bmm(a, vc.reshape(bh * n, c, dv)))
+    return out.reshape(bh, t, dv), s
+
+
+@pytest.mark.parametrize("bh,t,dk,dv,chunk,w_lo", [
+    (2, 256, 64, 64, 64, 0.55),     # the TPU kernel's domain at chunk 64
+    (2, 128, 16, 16, 16, np.exp(-np.e)),   # the model's decays, chunk 16
+    (3, 192, 8, 100, 48, 0.55),     # dk 8, dv past one 64-column tile
+    (1, 64, 32, 24, 64, 0.55),      # one chunk
+])
+def test_chunk_parallel_wkv6_holds_the_scan(bh, t, dk, dv, chunk, w_lo):
+    """The two-kernel decomposition (``_wkv6_chunk_parallel``) within the
+    JAX suite's 3e-4 of the sequential scan in f64 (``ref.wkv6``'s
+    recurrence) and of the plain chunk loop."""
+    args = _wkv_inputs(bh, t, dk, dv, seed=t + dv, w_lo=w_lo,
+                       w_span=1 - w_lo)
+    o, s = _wkv6_chunk_parallel(*_t(*args), chunk)
+    po, ps = wkv6_chunked_plain(*_t(*args), chunk=chunk)
+    torch.testing.assert_close(o, po, **WKV_TOL)
+    torch.testing.assert_close(s, ps, **WKV_TOL)
+    r, k, v, w, u = (a.astype(np.float64) for a in args)
+    state = np.zeros((bh, dk, dv))
+    want = np.empty((bh, t, dv))
+    for i in range(t):
+        kv = k[:, i, :, None] * v[:, i, None, :]
+        want[:, i] = np.einsum("bk,bkv->bv", r[:, i], state + u[..., None]
+                               * kv)
+        state = w[:, i, :, None] * state + kv
+    np.testing.assert_allclose(o.numpy(), want, **WKV_TOL)
+    np.testing.assert_allclose(s.numpy(), state, **WKV_TOL)
 
 
 # ------------------------------------------------------- the entry point ---
