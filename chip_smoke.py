@@ -9,8 +9,9 @@ Phases (any failed check raises, so the script exits non-zero):
 1. Every kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it, each case also held against the layer
    computed in f64.  The dense fused layer at f32 and bf16 (served buckets
-   512, 2048 and 4096 with B=8, K=32, the paper-scale B=1, N=20480, a
-   ragged and a padded case); the dense aggregate of the mesh path (f32,
+   512, 2048 and 4096 with B=8, K=32, the train minibatch B=64, N=4096,
+   the paper-scale B=1, N=20480, a ragged and a padded case); the dense
+   aggregate of the mesh path (f32,
    bf16) at a ragged case (Nl=1000, N=2003), a padding case whose empty
    columns must give exact zeros, and the row blocks of the serving
    bucket and the paper-scale graph at sp = 2 and 4; the padded-sparse
@@ -52,6 +53,25 @@ Phases (any failed check raises, so the script exits non-zero):
 3. The card against the port on the CPU on one (B=8, N=256) batch:
    first-evaluation scores within 1e-5 on each rep, and bit for bit
    across reps on the card; solutions valid covers.
+3b. Training on the dense rep (phase train): (a) the policy gradients of
+   a (B=8, N=256) minibatch loss through B1 and the composition's
+   backward, against the "xla" chain on the card and the port on the CPU
+   (rtol = atol = 1e-5); (b) tests/test_engine.py's train configuration
+   (n=14, mb=8, tau=2, 8 steps, stored targets, epsilon 0) on the card
+   and the CPU from the same weights and draws: the same actions, losses
+   and parameters within rtol 1e-5 / atol 1e-6; (c) the paper's policy
+   width (K=32, L=2, replay 50,000, minibatch 64, tau=4) on 8 ER(0.15)
+   graphs of N=4096, 8 episode graphs a step, 20 fused steps in fresh
+   mode then 20 in stored mode, each given its draws by
+   ``draw_train_step``: B1 launched 1 + 2 tau = 9 times per warm fresh
+   step and 2 + tau = 6 per warm stored step, every warm loss finite,
+   the parameters moved, one warm step under
+   ``torch.cuda.set_sync_debug_mode("error")`` and one under
+   torch.profiler (device time of act, target, re-materialization,
+   forward, backward and Adam), the median, least and most seconds of
+   the 10 clean warm steps after them, and the peak device memory; then ``train_agent`` for one 9-step episode;
+   (d) the trained policy saved, loaded and serving the stream's 16
+   graphs, every answer a cover.
 4. Large solves: the paper-scale ER(N=20480, 0.15) graph (~31.5M edges)
    on all three reps with max_d=256; the dense solve also traced.
 5. The (data, graph) mesh: gloo ranks that share the one card (cuda:0),
@@ -75,8 +95,9 @@ Phases (any failed check raises, so the script exits non-zero):
    "xla" chain on a full 4096-node bucket, whose aggregation kernel must
    run twice per evaluation.
 7. Where an evaluation's time goes (torch.profiler over 20 evaluations of
-   a full 4096-node bucket, per rep), then timings: each kernel, its plain
-   version and a library yardstick (CUDA events around 10 back-to-back
+   a full 4096-node bucket, per rep), then timings: each kernel (B1 also
+   at the train minibatch, B=64, N=4096), its plain version and a library
+   yardstick (CUDA events around 10 back-to-back
    calls, median of 30 such samples after warm-up) beside its bound,
    the sparse and CSR layers by each route (the LM kernels' times are
    taken in phase 1b).
@@ -122,6 +143,7 @@ DENSE_CASES = (("ragged", 2, 16, 40, 0.3), ("padded", 2, 32, 300, 0.3),
                ("bucket512", 8, 32, 512, 0.15),
                ("bucket2048", 8, 32, 2048, 0.15),
                ("serving", 8, 32, 4096, 0.15),
+               ("minibatch", 64, 32, 4096, 0.15),
                ("paper", 1, 32, PAPER_N, 0.15))
 # (name, B, K, Nl, N, density) of the dense aggregate (kernel 2) checks: a
 # ragged case, a padding case, and the row blocks of a serving bucket and
@@ -139,6 +161,24 @@ MESH_SERVE_SIZES = (500, 1000)   # its served graphs: the stream's smallest
 PAPER_MESH = (("dense", (1, 2)), ("dense", (1, 4)), ("sparse", (1, 4)))
 # the paper-scale mesh solves traced beside the traced single-device solve
 PAPER_TRACE = (("dense", (1, 2)),)
+# The train phase.  Full width: the paper's policy (K=32, L=2, gamma 0.9,
+# replay 50,000, minibatch 64) with tau=4 GD iterations a step, on a
+# dataset of 8 ER(0.15) graphs at the serving bucket's N=4096, 8 episode
+# graphs a step, 20 steps a target mode (warm from index 7: 8 x 8 = 64).
+# Index 8 runs under the sync debug mode and 9 under the profiler; the
+# steps timed are the clean ones after them, not the first warm step
+# (the allocator's first minibatch).
+TRAIN_CFG = dict(embed_dim=32, num_layers=2, gamma=0.9,
+                 replay_capacity=50_000, minibatch=64)
+TRAIN_TAU, TRAIN_STEPS = 4, 20
+TRAIN_DATA = (8, 4096, 8)        # dataset graphs, nodes, episode graphs
+TRAIN_SYNC_STEP, TRAIN_PROFILE_STEP, TRAIN_TIMED_FROM = 8, 9, 10
+GRAD_CHECK = (8, 256)            # the backward check: tuples, nodes
+# tests/test_engine.py's train configuration: nodes, dataset graphs,
+# episode graphs, minibatch, tau, steps; stored targets, epsilon 0
+SMALL_TRAIN = (14, 4, 2, 8, 2, 8)
+POLICY_KEYS = ("em.theta1", "em.theta2", "em.theta3", "em.theta4",
+               "q.theta5", "q.theta6", "q.theta7")
 MESH_TIMEOUT_S = 420.0           # one spawn, its paper-scale solves included
 TIMING_BUDGET_S = 1.0            # per timed function (see cuda_ms)
 WALKS = ("rows", "windows")      # the sparse and CSR layers' two routes
@@ -1274,6 +1314,347 @@ def phase_card_vs_cpu(torch, policy):
                                  f"representations must sum in one order")
 
 
+# ---------------------------------------------------------------------------
+# The train phase.
+# ---------------------------------------------------------------------------
+
+def minibatch_loss_grads(torch, policy, state, action, target, kernel):
+    """The minibatch loss of ``train_minibatch_raw`` (unmasked scores at
+    the actions against the targets) and its gradients, by policy key."""
+    from repro_torch.core import DENSE
+    s = DENSE.scores(policy, state, num_layers=2, masked=False,
+                     kernel=kernel)
+    qsa = torch.gather(s, 1, action[:, None])[:, 0]
+    loss = torch.mean(torch.square(qsa - target))
+    grads = torch.autograd.grad(loss, list(policy.parameters()))
+    return {"loss": loss.detach(), **dict(zip(POLICY_KEYS, grads))}
+
+
+def check_train_grads(torch, policy):
+    """(a) The fused layer's backward on the card: the policy gradients
+    of a (B=8, N=256) minibatch loss with kernel="fused" (B1 forward, the
+    composition's backward) against kernel="xla" on the card and against
+    the port on the CPU, each within rtol = atol = 1e-5."""
+    from repro_torch.convert import policy_from_numpy, policy_to_numpy
+    from repro_torch.core import DENSE, random_graph_batch
+    from repro_torch.kernels.s2v_fused import fused_s2v_layer
+    b, n = GRAD_CHECK
+    adj = random_graph_batch("er", n, b, seed=SEED + 13, rho=0.15)
+    rng = np.random.default_rng(SEED + 13)
+    sol = (rng.random((b, n)) < 0.3).astype(np.float32)
+    action = rng.integers(0, n, size=b)
+    target = rng.standard_normal(b).astype(np.float32)
+    cpu_policy = policy_from_numpy(policy_to_numpy(policy), device="cpu")
+    out = {}
+    for where, pol in (("card", policy), ("cpu", cpu_policy)):
+        dev = pol.device
+        st = DENSE.state_from_tuples(DENSE.prepare_dataset(adj, device=dev),
+                                     np.arange(b), sol)
+        a, t = (torch.as_tensor(x, device=dev) for x in (action, target))
+        for kernel in ("fused", "xla"):
+            reset_counts()
+            got = minibatch_loss_grads(torch, pol, st, a, t, kernel)
+            out[where, kernel] = {k: v.cpu() for k, v in got.items()}
+            if where == "card" and fused_s2v_layer.launches != (
+                    kernel == "fused"):
+                raise AssertionError(f"the {kernel} loss launched B1 "
+                                     f"{fused_s2v_layer.launches} times")
+    row = {"phase": "train_grads", "B": b, "N": n}
+    for ref in (("card", "xla"), ("cpu", "fused")):
+        errs = {}
+        for key, want in out[ref].items():
+            got = out["card", "fused"][key]
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            errs[key] = float((got - want).abs().max())
+        row["vs_" + "_".join(ref)] = errs
+    emit(row)
+
+
+def small_train_run(torch, arrays, adj, draws, device):
+    """(b)'s run on ``device``: tests/test_engine.py's configuration
+    (stored targets, epsilon 0) from the weights ``arrays``, each step
+    given its draws.  Returns (losses, actions, trained weights)."""
+    from repro_torch.convert import policy_from_numpy, policy_to_numpy
+    from repro_torch.core import (DENSE, Agent, PolicyConfig, TrainDraws,
+                                  engine_init, get_train_step)
+    n, _, b, mb, tau, _ = SMALL_TRAIN
+    cfg = PolicyConfig(embed_dim=8, num_layers=2, minibatch=mb,
+                       replay_capacity=64, learning_rate=1e-3,
+                       eps_start=0.0, eps_end=0.0)
+    agent = Agent(cfg, num_nodes=n, target_mode="stored", device=device,
+                  params=policy_from_numpy(arrays, device=device))
+    step = get_train_step(cfg, tau=tau, target_mode="stored")
+    es = engine_init(cfg, agent.params, agent.opt, n)
+    source = DENSE.prepare_dataset(adj, device=device)
+    gi = torch.as_tensor([0, 2], device=device)
+    state = DENSE.state_from_tuples(source, gi, np.zeros((b, n), np.float32))
+    losses, actions = [], []
+    for d in draws:
+        es, state, action, _, _, loss = step(
+            es, state, source, gi,
+            TrainDraws(*(torch.as_tensor(x, device=device) for x in d)))
+        losses.append(float(loss))
+        actions.append(action.cpu().numpy())
+    return np.array(losses), np.stack(actions), policy_to_numpy(agent.params)
+
+
+def check_small_train(torch):
+    """(b) The card against the port on the CPU: the same weights, graphs
+    and draws; actions identical, losses and every parameter within rtol
+    1e-5 / atol 1e-6 (tests/test_engine.py's bar)."""
+    from repro_torch.convert import policy_to_numpy
+    from repro_torch.core import PolicyConfig, init_policy, random_graph_batch
+    n, g, b, mb, tau, steps = SMALL_TRAIN
+    adj = random_graph_batch("er", n, g, seed=SEED, rho=0.3)
+    arrays = policy_to_numpy(init_policy(
+        PolicyConfig(embed_dim=8), generator=torch.Generator().manual_seed(
+            SEED + 14), device="cpu"))
+    rng = np.random.default_rng(SEED + 14)
+    draws = [(rng.random(b).astype(np.float32), rng.integers(0, n, b),
+              rng.integers(0, min(b * (i + 1), 64), (tau, mb)))
+             for i in range(steps)]
+    card = small_train_run(torch, arrays, adj, draws, DEVICE)
+    cpu = small_train_run(torch, arrays, adj, draws, "cpu")
+    parted = np.flatnonzero((card[1] != cpu[1]).any(-1))
+    if len(parted):
+        raise AssertionError(f"small train run: the card's actions part "
+                             f"from the CPU's at step {parted[0]}: "
+                             f"{card[1][parted[0]]} vs {cpu[1][parted[0]]}")
+    warm = np.isfinite(cpu[0])
+    if not np.array_equal(np.isfinite(card[0]), warm) or warm.sum() < 4:
+        raise AssertionError(f"small train run: warm steps differ: "
+                             f"{card[0]} vs {cpu[0]}")
+    np.testing.assert_allclose(card[0][warm], cpu[0][warm], rtol=1e-5,
+                               atol=1e-6)
+    for key in POLICY_KEYS:
+        np.testing.assert_allclose(card[2][key], cpu[2][key], rtol=1e-5,
+                                   atol=1e-6, err_msg=key)
+    emit({"phase": "train_card_vs_cpu", "n": n, "steps": steps,
+          "warm_steps": int(warm.sum()),
+          "loss_max_rel_err": float(np.max(np.abs(card[0][warm]
+                                                  - cpu[0][warm])
+                                           / np.abs(cpu[0][warm]))),
+          "param_max_abs_err": max(float(np.abs(card[2][k] - cpu[2][k])
+                                         .max()) for k in POLICY_KEYS)})
+
+
+def dev_us(e, attr="self_"):
+    """A profiler event's device microseconds, ``attr`` "self_" or "" (the
+    name torch gives it has changed: device_time or cuda_time)."""
+    for name in (f"{attr}device_time_total", f"{attr}cuda_time_total"):
+        if hasattr(e, name):
+            return getattr(e, name)
+    return 0.0
+
+
+def profile_call(torch, fn):
+    """``fn()`` under torch.profiler, host and device, with the card
+    synchronized on both sides.  Returns (its result, the profiler, wall
+    seconds)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return out, prof, wall
+
+
+def kernel_rows(torch, prof):
+    """The profile's kernels, (device us, calls, name), most time first,
+    and their device us in all.  Kernels only: an operator's row repeats
+    its kernels' device time, and a ``train_step.`` range's device-side
+    span carries its name."""
+    rows = sorted(((dev_us(e), e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.key.startswith("train_step.")
+                   and dev_us(e) > 0), reverse=True)
+    return rows, sum(r[0] for r in rows)
+
+
+def profile_train_step(torch, fn):
+    """One train step under torch.profiler: wall and device ms, the device
+    ms of each ``train_step.<part>`` range (the kernels of the ops inside
+    it; the backward's run on autograd's device thread, so its part sums
+    the outermost ``autograd::engine::evaluate_function`` events) and the
+    ten kernels with the most device time."""
+    out, prof, wall = profile_call(torch, fn)
+    engine = "autograd::engine::evaluate_function"
+
+    def outermost(e):
+        p = e.cpu_parent
+        while p is not None and not p.name.startswith(engine):
+            p = p.cpu_parent
+        return p is None
+    parts = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        if e.name.startswith("train_step."):
+            part = parts.setdefault(e.name[11:], {"device_ms": 0.0,
+                                                  "host_ms": 0.0,
+                                                  "ranges": 0})
+            part["host_ms"] += e.cpu_time_total / 1e3
+            part["ranges"] += 1
+        elif e.name.startswith(engine) and outermost(e):
+            part = parts.setdefault("backward", {"device_ms": 0.0,
+                                                 "host_ms": 0.0,
+                                                 "ranges": 0})
+        else:
+            continue
+        part["device_ms"] += dev_us(e, "") / 1e3
+    kernels, busy_us = kernel_rows(torch, prof)
+    return out, {"wall_ms": 1e3 * wall, "device_ms": busy_us / 1e3,
+                 "device_busy_share": busy_us / 1e6 / wall, "parts": parts,
+                 "other_device_ms": busy_us / 1e3 - sum(
+                     p["device_ms"] for p in parts.values()),
+                 "top": [{"name": k[:60], "calls": c, "ms": us / 1e3}
+                         for us, c, k in kernels[:10]]}
+
+
+def train_mode_run(torch, agent, step, source, mode, seed):
+    """(c) ``TRAIN_STEPS`` fused steps of one target mode at full width on
+    a fresh engine (empty replay), each with its draws from
+    ``draw_train_step``: B1's launches per step (1 + 2 tau fresh and
+    2 + tau stored once warm), every warm loss finite, one warm step (and
+    its draws) under ``set_sync_debug_mode("error")`` and one under
+    torch.profiler, and the seconds of the steps from
+    ``TRAIN_TIMED_FROM``.  Returns the row it prints."""
+    from repro_torch.core import DENSE, draw_train_step, engine_init
+    from repro_torch.kernels.s2v_fused import fused_s2v_layer
+    g, n, b = TRAIN_DATA
+    es = engine_init(agent.cfg, agent.params, agent.opt, n, seed=seed,
+                     step_count=agent.step_count)
+    gi = torch.as_tensor(np.random.default_rng(seed).integers(0, g, b),
+                         device=DEVICE)
+    state = DENSE.state_from_tuples(source, gi,
+                                    torch.zeros((b, n), device=DEVICE))
+    want = {"fresh": (1, 1 + 2 * TRAIN_TAU),
+            "stored": (2, 2 + TRAIN_TAU)}[mode]
+    losses, launches, seconds, profile = [], [], [], None
+    for i in range(TRAIN_STEPS):
+        reset_counts()
+        warm = es.replay.size + b >= agent.cfg.minibatch
+
+        def run():
+            return step(es, state, source, gi, draw_train_step(
+                agent.cfg, es, state, tau=TRAIN_TAU))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == TRAIN_SYNC_STEP:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = run()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        elif i == TRAIN_PROFILE_STEP:
+            out, profile = profile_train_step(torch, run)
+        else:
+            out = run()
+        torch.cuda.synchronize()
+        if i >= TRAIN_TIMED_FROM:
+            seconds.append(time.perf_counter() - t0)
+        es, state, _, _, _, loss = out
+        losses.append(loss)
+        launches.append(fused_s2v_layer.launches)
+        if launches[-1] != want[warm]:
+            raise AssertionError(f"train {mode} step {i}: B1 launched "
+                                 f"{launches[-1]} times, not {want[warm]}")
+        if not warm and i >= TRAIN_SYNC_STEP:
+            raise AssertionError(f"train {mode} step {i} is not warm")
+    losses = [float(x) for x in losses]
+    warm_losses = losses[agent.cfg.minibatch // b - 1:]
+    if not all(math.isfinite(x) for x in warm_losses) or any(
+            math.isfinite(x) for x in losses[:len(losses)
+                                             - len(warm_losses)]):
+        raise AssertionError(f"train {mode}: losses {losses}")
+    return {"phase": "train", "mode": mode, "steps": TRAIN_STEPS,
+            "warm_steps": len(warm_losses), "B1_launches": launches,
+            "median_warm_step_s": float(np.median(seconds)),
+            "min_warm_step_s": min(seconds), "max_warm_step_s": max(seconds),
+            "timed_steps": len(seconds), "warm_step_s": seconds, "losses": losses,
+            "step_count": es.step_count, "profile": profile}
+
+
+def phase_train(torch, policy, adjs):
+    """The train phase: (a) the backward on the card, (b) a small train
+    run on the card against the CPU, (c) the full-width train steps of
+    both target modes, then ``train_agent`` for one short episode, (d) the
+    trained policy saved, loaded and serving the served stream's graphs,
+    every answer a cover.  Returns B1's launches in (c)."""
+    import tempfile
+    from repro_torch.checkpoint import load_policy, save_policy
+    from repro_torch.convert import policy_to_numpy
+    from repro_torch.core import (DENSE, Agent, PolicyConfig,
+                                  get_train_step, train_agent)
+    from repro_torch.core.graphs import random_graph_batch
+    from repro_torch.kernels.s2v_fused import fused_s2v_layer
+    check_train_grads(torch, policy)
+    check_small_train(torch)
+
+    g, n, b = TRAIN_DATA
+    t0 = time.perf_counter()
+    data = random_graph_batch("er", n, g, seed=SEED + 15, rho=0.15)
+    gen_s = time.perf_counter() - t0
+    tcfg = PolicyConfig(**TRAIN_CFG)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    agent = Agent(tcfg, num_nodes=n, device=DEVICE)
+    before = {k: v.copy() for k, v in policy_to_numpy(agent.params).items()}
+    source = DENSE.prepare_dataset(data, device=DEVICE)
+    total = 0
+    for i, mode in enumerate(("fresh", "stored")):
+        agent.target_mode = mode
+        step = get_train_step(tcfg, tau=TRAIN_TAU, target_mode=mode)
+        row = train_mode_run(torch, agent, step, source, mode, SEED + i)
+        total += sum(row["B1_launches"])
+        agent.step_count = row["step_count"]     # the epsilon schedule
+        emit({**row, "dataset": [g, n, n], "episode_graphs": b,
+              "tau": TRAIN_TAU, **TRAIN_CFG, "generate_s": gen_s})
+    peak = torch.cuda.max_memory_allocated()
+    del source
+    moved = [k for k, v in policy_to_numpy(agent.params).items()
+             if not np.array_equal(v, before[k])]
+    if not moved:
+        raise AssertionError("full-width training moved no parameter")
+    # the user's entry point: one episode of 9 steps, the last two warm
+    count0 = agent.step_count
+    warm = 9 - (tcfg.minibatch // b - 1)
+    reset_counts()
+    log = train_agent(agent, data, episodes=1, max_steps=9, tau=TRAIN_TAU,
+                      batch_graphs=b, seed=SEED + 2)
+    if agent.step_count != count0 + warm \
+            or not math.isfinite(log.losses[-1]):
+        raise AssertionError(f"train_agent: step_count {agent.step_count} "
+                             f"from {count0}, losses {log.losses}")
+    emit({"phase": "train_agent", "steps": len(log.losses),
+          "losses": log.losses, "wall_s": log.wall_time,
+          "B1_launches": fused_s2v_layer.launches,
+          "peak_device_bytes_full_width": peak, "moved": moved})
+    del data
+
+    with tempfile.TemporaryDirectory() as d:
+        save_policy(d, agent.step_count, agent.params)
+        loaded, _ = load_policy(d, tcfg, device=DEVICE)
+    for key, v in loaded.state_dict().items():
+        if not torch.equal(v, agent.params.state_dict()[key]):
+            raise AssertionError(f"the loaded policy differs at {key}")
+    svc = make_service(loaded, tcfg, "dense")
+    t0 = time.perf_counter()
+    responses = svc.serve(adjs)
+    svc.close()
+    for r, a in zip(responses, adjs):
+        if not is_cover(a, r.solution):
+            raise AssertionError(f"trained policy: request {r.id} is not a "
+                                 f"cover")
+    emit({"phase": "train_then_solve", "requests": len(adjs),
+          "wall_s": time.perf_counter() - t0,
+          "cover_sizes": [r.size for r in responses]})
+    return total
+
+
 def phase_paper_scale(torch, policy):
     """Phase 4: one ER(20480, 0.15) graph solved on the card on all three
     reps (sparse and CSR from batches built on the host first); the reps
@@ -1852,23 +2233,9 @@ def profile_solve(torch, step, policy, state, evals):
     """``evals`` evaluations of a solve step under torch.profiler: wall ms
     and device ms per evaluation, the device's busy share, and the ten
     kernels with the most device time."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _, ran, _ = step(policy, state, evals)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-    # kernels only: an operator's row repeats its kernels' device time
-    rows = sorted(((dev_us(e), e.count, e.key) for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and dev_us(e) > 0), reverse=True)
-    busy_us = sum(r[0] for r in rows)
+    (_, ran, _), prof, wall = profile_call(
+        torch, lambda: step(policy, state, evals))
+    rows, busy_us = kernel_rows(torch, prof)
     return {"evals": ran, "wall_ms_per_eval": 1e3 * wall / ran,
             "device_ms_per_eval": busy_us / 1e3 / ran,
             "device_busy_share": busy_us / 1e6 / wall,
@@ -1896,9 +2263,12 @@ def phase_profile(torch, policy, batch, rep):
 # ---------------------------------------------------------------------------
 
 def timing_dense(torch, ks, dev):
-    """Dense layer times at the serving and paper shapes."""
+    """Dense layer times at the serving, train-minibatch and paper
+    shapes."""
     entries = {}
     for label, b, k, n in (("serving", BUCKET[0], 32, BUCKET[1]),
+                           ("minibatch", TRAIN_CFG["minibatch"], 32,
+                            TRAIN_DATA[1]),
                            ("paper", 1, 32, PAPER_N)):
         t4, embed, adj, base = layer_inputs(torch, b, k, n, 0.15, SEED, dev)
         bound_ms, bound_by = layer_bound(b, k, n, n)
@@ -2341,6 +2711,8 @@ def main(argv=None) -> int:
     del dense
     with timed_phase("card_vs_cpu"):
         phase_card_vs_cpu(torch, policy)
+    with timed_phase("train"):
+        phase_train(torch, policy, adjs)
     with timed_phase("paper_scale"):
         paper = phase_paper_scale(torch, policy)
     with timed_phase("mesh"):

@@ -1,7 +1,8 @@
 """OpenGraphGym-MG core in PyTorch: structure2vec embedding (Alg. 2),
 action evaluation (Alg. 3) and the adaptive top-d solve (Alg. 4) on the
 dense, padded-sparse and CSR graph representations, on one device or on
-a 2-D (data, graph) mesh of torch.distributed ranks."""
+a 2-D (data, graph) mesh of torch.distributed ranks; and training (Alg.
+5, compressed replay §4.4) on the dense representation on one device."""
 from .graphs import (GraphState, SparseGraphBatch, SparseGraphState,
                      CsrGraphBatch, CsrGraphState, init_state,
                      residual_adjacency, residual_edge_mask,
@@ -19,7 +20,13 @@ from .s2v import S2V, init_s2v, embed_local
 from .s2v_sparse import embed_sparse, sparse_policy_scores, sparse_state_bytes
 from .s2v_csr import embed_csr, csr_policy_scores, csr_state_bytes
 from .qmodel import QModel, init_q, scores_local
-from .engine import get_solve_step
+from .agent import Agent, candidate_mask
+from .replay import (ReplayBuffer, DeviceReplay, device_replay_init,
+                     device_replay_push, device_replay_sample,
+                     device_replay_at, tuples_to_graphs)
+from .engine import (EngineState, TrainDraws, draw_train_step, engine_init,
+                     get_train_step, get_solve_step, sync_to_agent)
+from .training import train_agent, evaluate_quality, TrainLog
 from .inference import (solve, solve_with_config, adaptive_d, select_top_d,
                         apply_selection, init_solve_state, InferenceResult)
 from .mesh import (DATA, GRAPH, make_mesh, mesh_from_spec, mesh_shape,

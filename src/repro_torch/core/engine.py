@@ -1,19 +1,233 @@
-"""The fused solve loop (paper Alg. 4).  Counterpart of
-``repro/core/engine.py::get_solve_step``, whose body is one jitted
-``lax.while_loop``; here it is a Python loop with the same stop rule, on
-one device or on every rank of a ``(data, graph)`` mesh."""
+"""Device engines: the fused train step (paper Alg. 5) and the fused solve
+loop (Alg. 4).  Counterpart of ``repro/core/engine.py``.
+
+``get_train_step`` mirrors ``train_step``: epsilon-greedy acting, the env
+transition, the TD target at insertion time (``stored``, Alg. 5 line 12)
+or deferred (``fresh``), the replay push into the on-device ring
+(``core.replay.DeviceReplay``) and τ GD iterations over re-materialized
+minibatches once the replay is warm.  The JAX step is one jitted call;
+here it is a Python function that queues device work and reads nothing
+back from the device: the replay's size and the step count are host ints,
+and the caller makes the step's one fetch (``training.train_agent``).  It
+runs on one device, on the dense rep, for mvc.
+
+``torch.Generator`` cannot replay JAX's threefry key schedule, so each step
+takes its random draws (:class:`TrainDraws`) as an argument:
+:func:`draw_train_step` makes them from the engine's generator (what
+``train_agent`` does), and a parity test injects JAX's.
+
+``get_solve_step``'s body is one jitted ``lax.while_loop`` in JAX; here it
+is a Python loop with the same stop rule, on one device or on every rank
+of a ``(data, graph)`` mesh.
+"""
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Union
+from typing import Optional, Union
 
+import numpy as np
 import torch
+from torch.profiler import record_function
 
+from ..optim import AdamState
 from . import env as env_lib
+from .agent import greedy_action_state, max_q_raw, train_minibatch_raw
 from .graphrep import GraphRep, get_rep
 from .inference import apply_selection, check_solve_options
 from .mesh import MeshSpec, all_reduce_max, make_mesh, normalize_spatial
+from .policy import Policy, PolicyConfig
+from .replay import (DeviceReplay, device_replay_at, device_replay_init,
+                     device_replay_push)
 from .spatial import spatial_solve_scores_fn
+
+
+@dataclasses.dataclass
+class EngineState:
+    """What Alg. 5 mutates per step: the policy and its Adam state (updated
+    in place), the device replay, the generator of the step's draws (on
+    the policy's device) and the step count that drives epsilon."""
+    params: Policy
+    opt: AdamState
+    replay: DeviceReplay
+    generator: torch.Generator
+    step_count: int = 0
+
+
+@dataclasses.dataclass
+class TrainDraws:
+    """One step's random draws: the epsilon-roll uniforms (B,), the
+    exploratory picks (B,) (node ids; only rows that explore use theirs)
+    and the replay indices of the τ GD iterations (τ, minibatch; no rows
+    on a step that is not warm).  All on the step's device."""
+    eps_uniform: torch.Tensor
+    pick: torch.Tensor
+    sample_idx: torch.Tensor
+
+
+def engine_init(cfg: PolicyConfig, params: Policy, opt: AdamState,
+                num_nodes: int, *, seed: int = 0,
+                step_count: int = 0) -> EngineState:
+    """A fresh training carry on the policy's device.  It shares ``params``
+    and ``opt`` (the step updates them in place)."""
+    dev = params.device
+    return EngineState(
+        params=params, opt=opt,
+        replay=device_replay_init(cfg.replay_capacity, num_nodes,
+                                  device=dev),
+        generator=torch.Generator(device=dev).manual_seed(seed),
+        step_count=step_count)
+
+
+def draw_train_step(cfg: PolicyConfig, es: EngineState, state, *,
+                    tau: Optional[int] = None) -> TrainDraws:
+    """The draws of the step ``es`` takes next from ``state``, from the
+    engine's generator, with no read from the device.  A row's pick is the
+    argmax of uniforms over its candidates (a uniform candidate; a row
+    with none picks node 0, which the step never takes).  The indices are
+    uniform below the replay's size after the step's push, drawn only if
+    that size makes the step warm."""
+    tau = cfg.grad_iters if tau is None else tau
+    b, n = state.candidate.shape
+    gen, dev = es.generator, state.candidate.device
+    with record_function("train_step.draw"):
+        eps_uniform = torch.rand((b,), generator=gen, device=dev)
+        u = torch.rand((b, n), generator=gen, device=dev)
+        pick = torch.argmax(torch.where(state.candidate > 0.5, u, -1.0),
+                            dim=-1)
+        size = min(es.replay.size + b, es.replay.capacity)
+        iters = tau if size >= cfg.minibatch else 0
+        sample_idx = torch.randint(0, max(size, 1), (iters, cfg.minibatch),
+                                   generator=gen, device=dev)
+    return TrainDraws(eps_uniform, pick, sample_idx)
+
+
+def sync_to_agent(agent, es: EngineState) -> None:
+    """The carry's learned state onto an ``Agent`` (for eval, resuming)."""
+    agent.params, agent.opt = es.params, es.opt
+    agent.step_count = es.step_count
+
+
+def epsilon_f32(cfg: PolicyConfig, step_count: int) -> float:
+    """The epsilon schedule in f32, as the JAX step computes it, so that
+    injected JAX uniforms compare against the same threshold."""
+    frac = np.minimum(np.float32(1.0), np.float32(step_count)
+                      / np.float32(max(1, cfg.eps_decay_steps)))
+    return float(np.float32(cfg.eps_start)
+                 + np.float32(cfg.eps_end - cfg.eps_start) * frac)
+
+
+def check_train_options(cfg: PolicyConfig, rep: GraphRep,
+                        problem: str) -> None:
+    """Refuse what the port does not train yet, naming its ROADMAP item."""
+    if normalize_spatial(cfg.spatial) != (1, 1):
+        raise NotImplementedError(
+            f"training on a mesh (spatial={cfg.spatial!r}) is not ported "
+            f"yet: ROADMAP item \"the mesh's train half\"")
+    if rep.name != "dense":
+        raise NotImplementedError(
+            f"training on the {rep.name} rep is not ported yet: ROADMAP "
+            f"item \"training on the sparse and CSR reps\"")
+    if problem != "mvc":
+        env_lib.make(problem)            # an unknown name is a ValueError
+        raise NotImplementedError(
+            f"training {problem!r} is not ported yet: ROADMAP item \"the "
+            f"other three problems\"")
+
+
+def get_train_step(cfg: PolicyConfig, *,
+                   rep: Union[str, GraphRep, None] = None,
+                   problem: str = "mvc", tau: Optional[int] = None,
+                   target_mode: str = "fresh", explore: bool = True):
+    """The fused train step for a configuration.
+
+    Returns ``step(es, state, source, graph_idx, draws) -> (es, state',
+    action, reward, done, loss)``: ``source`` is the dataset
+    (``rep.prepare_dataset``), ``graph_idx`` the (B,) episode graph ids on
+    its device, ``draws`` the step's :class:`TrainDraws`
+    (:func:`draw_train_step`); ``es`` is updated in place and returned.
+    With ``explore=False`` every action is greedy and the draws' rolls and
+    picks go unused.  ``loss`` is the
+    last GD iteration's, NaN on a step whose replay is not yet warm (fewer
+    than ``cfg.minibatch`` tuples); ``es.step_count`` advances only on warm
+    steps.  Every policy evaluation runs the fused layer (on the card, its
+    kernel): one to act, one for the stored target, and per GD iteration
+    one for the fresh target and one for the loss.  Its parts run in
+    ``torch.profiler`` ranges named ``train_step.<part>``: act (with the
+    env transition), target, rematerialize, and the minibatch step's
+    forward, backward and adam (and draw, in :func:`draw_train_step`)."""
+    rep = get_rep(rep if rep is not None else cfg.graph_rep)
+    check_train_options(cfg, rep, problem)
+    if target_mode not in ("fresh", "stored"):
+        raise ValueError(f"unknown target_mode {target_mode!r}")
+    tau = cfg.grad_iters if tau is None else tau
+    step_fn = env_lib.make(problem)
+    residual = env_lib.residual_mode(problem)
+    cand_fn = env_lib.candidate_rule(problem)
+    gamma, mb = cfg.gamma, cfg.minibatch
+    policy_kw = dict(rep=rep, num_layers=cfg.num_layers, kernel=cfg.kernel,
+                     compute=cfg.compute)
+    stored = target_mode == "stored"
+
+    def train_step(es: EngineState, state, source: torch.Tensor,
+                   graph_idx: torch.Tensor, draws: TrainDraws):
+        # warm once the push below leaves ``mb`` tuples in the replay
+        b = state.candidate.shape[0]
+        warm = min(es.replay.size + b, es.replay.capacity) >= mb
+        if warm and tuple(draws.sample_idx.shape) != (tau, mb):
+            raise ValueError(f"a warm step needs ({tau}, {mb}) replay "
+                             f"indices, got {tuple(draws.sample_idx.shape)}")
+
+        # -- act (Alg. 1 lines 9-10) --------------------------------------
+        with record_function("train_step.act"):
+            action, _ = greedy_action_state(es.params, state, **policy_kw)
+            if explore:
+                roll = draws.eps_uniform < epsilon_f32(cfg, es.step_count)
+                has_cand = (state.candidate > 0.5).any(-1)
+                action = torch.where(roll & has_cand, draws.pick.long(),
+                                     action)
+
+            # -- env transition -------------------------------------------
+            new_state, reward, done = step_fn(state, action)
+
+        # -- remember (Alg. 5 lines 11-13) --------------------------------
+        if stored:
+            with record_function("train_step.target"):
+                nxt = max_q_raw(es.params, new_state, **policy_kw)
+                target = reward + gamma * nxt * (1.0 - done.to(torch.float32))
+        else:
+            target = torch.zeros_like(reward)
+        device_replay_push(es.replay, graph_idx, state.solution, action,
+                           target, reward, new_state.solution, done)
+
+        # -- τ GD iterations (Alg. 5 lines 15-23, §4.5.2) ------------------
+        loss = torch.full((), float("nan"), device=reward.device)
+        for t in range(tau if warm else 0):
+            gi, sol, act, tgt, rew, sol2, dn = device_replay_at(
+                es.replay, draws.sample_idx[t])
+            if not stored:
+                with record_function("train_step.rematerialize"):
+                    st2 = rep.state_from_tuples(source, gi, sol2,
+                                                residual=residual,
+                                                candidate_fn=cand_fn)
+                with record_function("train_step.target"):
+                    nxt = max_q_raw(es.params, st2, **policy_kw)
+                    tgt = rew + gamma * nxt * (1.0 - dn)
+                # one (B, N, N) minibatch state alive at a time: 4.3 GB at
+                # B = 64, N = 4096
+                del st2
+            with record_function("train_step.rematerialize"):
+                st = rep.state_from_tuples(source, gi, sol,
+                                           residual=residual,
+                                           candidate_fn=cand_fn)
+            _, _, loss = train_minibatch_raw(es.params, es.opt, st, act, tgt,
+                                             lr=cfg.learning_rate,
+                                             **policy_kw)
+            del st
+        es.step_count += int(warm)
+        return es, new_state, action, reward, done, loss
+
+    return train_step
 
 
 def _check_csr_spatial(rep: GraphRep, sp: int) -> None:

@@ -84,7 +84,8 @@ def register(name: str, residual: Union[bool, str] = True,
     if commit is None and mode == "none":
         raise NotImplementedError(
             "the assignment commit of residual=False problems is not ported "
-            "yet: ROADMAP item A5; pass commit= explicitly")
+            "yet: ROADMAP item \"the other three problems\"; pass commit= "
+            "explicitly")
 
     def deco(fn):
         _REGISTRY[name] = fn
@@ -112,8 +113,8 @@ def _lookup(table: Dict, name: str):
     except KeyError:
         if name in _LATER_PROBLEMS:
             raise NotImplementedError(
-                f"problem {name!r} is not ported yet: ROADMAP item A5 "
-                f"(the other three problems)") from None
+                f"problem {name!r} is not ported yet: ROADMAP item \"the "
+                f"other three problems\"") from None
         raise ValueError(f"unknown environment {name!r}; registered: "
                          f"{names()}") from None
 
@@ -170,7 +171,7 @@ def _probe_states(adj: np.ndarray, sol: torch.Tensor, mode: str,
     if mode == "closed":
         raise NotImplementedError(
             "closed-neighbourhood residuals (MIS) are not ported yet: "
-            "ROADMAP item A5")
+            "ROADMAP item \"the other three problems\"")
     residual = mode == "solution"
     adj0 = torch.from_numpy(adj)
     dense = residual_adjacency(adj0, sol) if residual else adj0

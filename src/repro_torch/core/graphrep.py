@@ -15,7 +15,9 @@ holds one rank's topology rows and the whole masks; its commit updates
 its own rows and all-gathers the residual degrees over the graph axis,
 so every rank derives the same candidates and ``done``, bit for bit the
 single-device values.  ``prepare_dataset`` and ``state_from_tuples`` (replay
-re-materialization) belong to the training slice, ROADMAP item A4.
+re-materialization, Alg. 5 line 21) are ported for the dense rep; the
+sparse and CSR reps' wait for ROADMAP item "training on the sparse and CSR
+reps".
 """
 from __future__ import annotations
 
@@ -34,6 +36,11 @@ from .mesh import gather_rows, local_rows
 from .policy import Policy, policy_scores
 from .s2v_csr import csr_policy_scores, csr_state_bytes
 from .s2v_sparse import sparse_policy_scores, sparse_state_bytes
+
+
+def candidate_mask(adj: torch.Tensor, solution: torch.Tensor) -> torch.Tensor:
+    """Nodes of positive residual degree outside S, as float32."""
+    return ((adj.sum(-1) > 0) & (solution < 0.5)).to(torch.float32)
 
 
 class GraphRep:
@@ -55,14 +62,22 @@ class GraphRep:
     def state_bytes(self, state) -> int:
         raise NotImplementedError
 
-    def prepare_dataset(self, adj_stack):
+    def prepare_dataset(self, adj_stack, *, device: DeviceLike = "cuda"):
+        """(G, N, N) training graphs → the dataset source on ``device``."""
         raise NotImplementedError(
-            "training datasets are not ported yet: ROADMAP item A4")
+            f"training datasets on the {self.name} rep are not ported yet: "
+            f"ROADMAP item \"training on the sparse and CSR reps\"")
 
     def state_from_tuples(self, source, graph_idx, solutions, residual=True,
                           candidate_fn=None):
+        """Tuples2Graphs (Alg. 5 line 21): the states of B replay tuples
+        from the dataset source, (B,) graph ids and (B, N) solution masks.
+        ``residual`` is the env's topology mode, ``candidate_fn`` its
+        candidate rule (``env.register``)."""
         raise NotImplementedError(
-            "replay re-materialization is not ported yet: ROADMAP item A4")
+            f"replay re-materialization on the {self.name} rep is not "
+            f"ported yet: ROADMAP item \"training on the sparse and CSR "
+            f"reps\"")
 
     def __repr__(self):
         return f"GraphRep({self.name})"
@@ -83,6 +98,38 @@ class DenseRep(GraphRep):
                 name: getattr(adj, name).to(device=dev, copy=True)
                 for name in ("adj", "candidate", "solution")})
         return init_state(adj, device=device)
+
+    def prepare_dataset(self, adj_stack, *,
+                        device: DeviceLike = "cuda") -> torch.Tensor:
+        """The (G, N, N) float32 adjacency stack on ``device``."""
+        return torch.as_tensor(adj_stack).to(device=resolve_device(device),
+                                             dtype=torch.float32)
+
+    def state_from_tuples(self, source: torch.Tensor, graph_idx, solutions,
+                          residual=True, candidate_fn=None) -> GraphState:
+        """The residual graphs of the tuples, gathered from ``source``
+        (graph ids and masks as tensors on its device, or numpy).  The gathered
+        (B, N, N) copy is the state's own, so "solution" mode masks it in
+        place (two in-place multiplies, the values of
+        ``residual_adjacency``): at B = 64, N = 4096 one copy is 4.3 GB."""
+        from .env import normalize_residual_mode
+        mode = normalize_residual_mode(residual)
+        if mode == "closed":
+            raise NotImplementedError(
+                "closed-neighbourhood residuals (MIS) are not ported yet: "
+                "ROADMAP item \"the other three problems\"")
+        sol = torch.as_tensor(solutions, device=source.device).to(
+            torch.float32)
+        adj = source[torch.as_tensor(graph_idx, device=source.device)]
+        if mode == "solution":
+            keep = 1.0 - sol
+            adj.mul_(keep[:, :, None])
+            adj.mul_(keep[:, None, :])
+        state = GraphState(adj=adj, candidate=candidate_mask(adj, sol),
+                           solution=sol)
+        if candidate_fn is not None:
+            state = dataclasses.replace(state, candidate=candidate_fn(state))
+        return state
 
     def scores(self, params, state: GraphState, *, num_layers,
                masked=True, kernel="fused", compute="f32") -> torch.Tensor:

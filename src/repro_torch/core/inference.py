@@ -163,7 +163,7 @@ def check_solve_options(engine: str, spatial) -> None:
                              "it is incompatible with engine='host'")
         raise NotImplementedError(
             "engine='host' (the per-eval reference loop) is not ported yet: "
-            "see ROADMAP queue A")
+            "ROADMAP item \"the rest of solve and serving\"")
     normalize_spatial(spatial)
 
 

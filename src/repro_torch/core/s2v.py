@@ -29,7 +29,8 @@ import torch
 from torch import nn
 
 from ..kernels.s2v_fused import (COMPUTE_MODES, fused_s2v_layer,
-                                 mp_aggregate, round_cd)
+                                 fused_s2v_layer_plain, mp_aggregate,
+                                 round_cd)
 from .mesh import Axis, all_reduce_sum, check_axis
 
 KERNELS = ("fused", "xla")
@@ -79,24 +80,45 @@ def init_s2v(k: int, *, generator: torch.Generator, device=None,
 
 
 class _FusedDenseLayer(torch.autograd.Function):
-    """Autograd hook around the fused layer.  Its backward belongs to the
-    training slice, which will differentiate the plain composition as the
-    JAX ``custom_vjp`` does (``repro/core/s2v.py:_dense_layer_hw_bwd``)."""
+    """Autograd hook around the fused layer.  The forward is the kernel on
+    the card; the backward differentiates the plain composition, as the
+    JAX ``custom_vjp`` does (``repro/core/s2v.py:_dense_layer_hw_bwd``):
+    it recomputes ``pre = base + cd(θ4) @ cd(cd(embed) @ cd(adj))``, so the
+    ReLU mask comes from ``pre``, not from the kernel's output, and takes
+    autograd's gradients of that composition, ``round_cd`` included (so
+    bf16 rounds the cotangents as ``astype`` does in JAX).  ``adj`` never
+    gets a gradient: its (B, N, N) gradient is never formed."""
 
     @staticmethod
     def forward(ctx, theta4, embed, adj, base, compute):
+        ctx.save_for_backward(theta4, embed, adj, base)
+        ctx.compute = compute
         return fused_s2v_layer(theta4, embed, adj, base, compute)
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "the fused S2V layer has no backward yet: training is ROADMAP "
-            "item A4")
+        theta4, embed, adj, base = ctx.saved_tensors
+        if ctx.needs_input_grad[2]:
+            raise NotImplementedError(
+                "the fused S2V layer takes no gradient with respect to the "
+                "adjacency")
+        wanted = [i for i in (0, 1, 3) if ctx.needs_input_grad[i]]
+        if not wanted:
+            return None, None, None, None, None
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(i in wanted) for i, t in
+                      ((0, theta4), (1, embed), (3, base))]
+            out = fused_s2v_layer_plain(inputs[0], inputs[1], adj, inputs[2],
+                                        ctx.compute)
+            got = torch.autograd.grad(
+                out, [t for t in inputs if t.requires_grad], grad)
+        grads = dict(zip(wanted, got))
+        return grads.get(0), grads.get(1), None, grads.get(3), None
 
 
 class _AggregateFused(torch.autograd.Function):
     """Autograd hook around the aggregate of the sharded dense path.  Its
-    backward belongs to the training slice (the JAX ``custom_vjp``
+    backward belongs to the mesh's train half (the JAX ``custom_vjp``
     differentiates the einsum, ``repro/core/s2v.py:_agg_hw_bwd``)."""
 
     @staticmethod
@@ -106,8 +128,8 @@ class _AggregateFused(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         raise NotImplementedError(
-            "the sharded dense aggregate has no backward yet: training is "
-            "ROADMAP item A4")
+            "the sharded dense aggregate has no backward yet: ROADMAP item "
+            "\"the mesh's train half\"")
 
 
 def local_aggregate(nbr_partial: torch.Tensor,

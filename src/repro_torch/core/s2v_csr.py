@@ -39,7 +39,7 @@ def csr_edge_factors(indices: torch.Tensor, edge_mask: torch.Tensor,
 
 class _FusedCsrLayer(torch.autograd.Function):
     """Autograd hook around the fused CSR layer.  Its backward belongs to
-    the training slice (the JAX ``custom_vjp`` differentiates the
+    training on the sparse and CSR reps (the JAX ``custom_vjp`` differentiates the
     composition, ``repro/core/s2v_csr.py:_csr_layer_hw_bwd``)."""
 
     @staticmethod
@@ -50,8 +50,8 @@ class _FusedCsrLayer(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         raise NotImplementedError(
-            "the fused CSR S2V layer has no backward yet: training is "
-            "ROADMAP item A4")
+            "the fused CSR S2V layer has no backward yet: ROADMAP item "
+            "\"training on the sparse and CSR reps\"")
 
 
 def embed_csr_local(params, indptr: torch.Tensor, indices: torch.Tensor,

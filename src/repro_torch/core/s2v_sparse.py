@@ -50,7 +50,8 @@ def check_residual(residual) -> None:
     if residual == "closed":
         raise NotImplementedError(
             "closed-neighbourhood residuals (MIS) on the sparse and CSR "
-            "representations are not ported yet: ROADMAP item A5")
+            "representations are not ported yet: ROADMAP item \"the other "
+            "three problems\"")
 
 
 def edge_factors(nbr_local: torch.Tensor, valid_local: torch.Tensor,
@@ -68,7 +69,7 @@ def edge_factors(nbr_local: torch.Tensor, valid_local: torch.Tensor,
 
 class _FusedSparseLayer(torch.autograd.Function):
     """Autograd hook around the fused sparse layer.  Its backward belongs
-    to the training slice (the JAX ``custom_vjp`` differentiates the
+    to training on the sparse and CSR reps (the JAX ``custom_vjp`` differentiates the
     composition, ``repro/core/s2v_sparse.py:_sparse_layer_hw_bwd``)."""
 
     @staticmethod
@@ -78,8 +79,8 @@ class _FusedSparseLayer(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         raise NotImplementedError(
-            "the fused sparse S2V layer has no backward yet: training is "
-            "ROADMAP item A4")
+            "the fused sparse S2V layer has no backward yet: ROADMAP item "
+            "\"training on the sparse and CSR reps\"")
 
 
 def embed_sparse_local(params, nbr_local: torch.Tensor,

@@ -16,7 +16,8 @@ rank of a mesh (:mod:`repro_torch.core.mesh`) calls them on its own tiles:
 - ``spatial_solve_scores_fn``: state in, scores out, for the solve loop.
 
 The mesh train step (``spatial_train_minibatch_fn``,
-``manual_train_minibatch_fn``) comes with training, ROADMAP item A4.
+``manual_train_minibatch_fn``) comes with ROADMAP item "the mesh's train
+half".
 """
 from __future__ import annotations
 
@@ -75,7 +76,8 @@ def sparse_spatial_scores_fn(mesh: Mesh, num_layers: int, *, residual=True,
 
     ``residual`` is the env's topology mode: True/"solution" all-gathers
     the solution slices for the residual-edge factors of remote endpoints;
-    False/"none" scores the original topology; "closed" (MIS) raises, A5."""
+    False/"none" scores the original topology; "closed" (MIS) raises (the
+    other three problems)."""
     def fn(params, nbr_l, valid_l, sol_l, cand_l):
         edge_l = edge_factors(nbr_l, valid_l, sol_l, residual,
                               axis=mesh.graph)

@@ -1,0 +1,125 @@
+"""The RL training loop (paper Alg. 5).  Counterpart of
+``repro/core/training.py`` for ``engine="device"``.
+
+``train_agent`` is the episode driver: it picks training graphs, rolls the
+env through the fused train step (``core.engine.get_train_step``), one
+step per env transition, and evaluates quality when asked (paper §6.2
+learning curves).  Each step's only read from the device is its (loss,
+done) fetch.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, List, Optional, Union
+
+import numpy as np
+import torch
+
+from . import env as env_lib
+from .agent import HOST_ENGINE, Agent
+from .engine import (draw_train_step, engine_init, get_train_step,
+                     sync_to_agent)
+from .graphrep import GraphRep, get_rep
+from .inference import solve
+
+
+@dataclasses.dataclass
+class TrainLog:
+    steps: List[int] = dataclasses.field(default_factory=list)
+    losses: List[float] = dataclasses.field(default_factory=list)
+    approx_ratios: List[float] = dataclasses.field(default_factory=list)
+    eval_steps: List[int] = dataclasses.field(default_factory=list)
+    episode_lengths: List[int] = dataclasses.field(default_factory=list)
+    wall_time: float = 0.0
+
+
+def evaluate_quality(agent: Agent, test_adj: np.ndarray,
+                     reference_sizes: np.ndarray, *,
+                     multi_node: bool = False,
+                     rep: Union[str, GraphRep, None] = None,
+                     problem: str = "mvc") -> float:
+    """Mean approximation ratio |RL solution| / |reference| (paper §6.2),
+    solved with the agent's policy on its device.  ``reference_sizes``
+    come from the caller (the JAX package's ``core/solvers.py`` is not
+    ported)."""
+    res = solve(agent.params, test_adj, num_layers=agent.cfg.num_layers,
+                multi_node=multi_node,
+                rep=rep if rep is not None else agent.cfg.graph_rep,
+                problem=problem, kernel=agent.cfg.kernel,
+                compute=agent.cfg.compute, device=agent.device)
+    return float(np.mean(res.sizes / np.maximum(reference_sizes, 1)))
+
+
+def train_agent(
+    agent: Agent,
+    train_adj: np.ndarray,            # (G, N, N) training graph dataset
+    *,
+    problem: str = "mvc",
+    rep: Union[str, GraphRep, None] = None,   # None → agent.cfg.graph_rep
+    episodes: int = 50,
+    tau: Optional[int] = None,        # GD iterations per env step (§4.5.2)
+    batch_graphs: int = 1,            # graphs stepped together per episode
+    eval_every: int = 10,             # paper: test every 10 training steps
+    eval_fn: Optional[Callable[[Agent], float]] = None,
+    max_steps: Optional[int] = None,  # global RL-training-step budget
+    seed: int = 0,
+    engine: Optional[str] = None,     # None → agent.cfg.engine
+) -> TrainLog:
+    """Train ``agent`` on its device through the fused step.  Episode
+    graphs are drawn by numpy's ``default_rng(seed)``, as in the JAX
+    package; the step's own draws (``engine.draw_train_step``) come from
+    a generator seeded with ``seed``.  The replay lives on the device, so ``agent.replay`` stays
+    untouched; the agent's policy and Adam state are updated in place."""
+    engine = engine if engine is not None else agent.cfg.engine
+    if engine == "host":
+        raise NotImplementedError(HOST_ENGINE)
+    if engine != "device":
+        raise ValueError(f"unknown training engine {engine!r}")
+    rng = np.random.default_rng(seed)
+    rep = get_rep(rep if rep is not None else agent.cfg.graph_rep)
+    fused = get_train_step(agent.cfg, rep=rep, problem=problem, tau=tau,
+                           target_mode=agent.target_mode)
+    residual = env_lib.residual_mode(problem)
+    cand_fn = env_lib.candidate_rule(problem)
+    source = rep.prepare_dataset(train_adj, device=agent.device)
+    g_count, n = source.shape[0], source.shape[-1]
+    es = engine_init(agent.cfg, agent.params, agent.opt, n, seed=seed,
+                     step_count=agent.step_count)
+    log = TrainLog()
+    t0 = time.time()
+    total_steps = 0
+    for _ep in range(episodes):
+        # Alg. 5 line 4: random training graph(s)
+        gi = torch.as_tensor(rng.integers(0, g_count, size=batch_graphs),
+                             device=agent.device)
+        state = rep.state_from_tuples(
+            source, gi, torch.zeros((batch_graphs, n), device=agent.device),
+            residual=residual, candidate_fn=cand_fn)
+        ep_len = 0
+        for _t in range(n):
+            if max_steps is not None and total_steps >= max_steps:
+                break
+            draws = draw_train_step(agent.cfg, es, state, tau=tau)
+            es, state, _act, _rew, done, loss_d = fused(es, state, source, gi,
+                                                        draws)
+            # the step's one read from the device
+            fetched = torch.cat([loss_d.reshape(1),
+                                 done.to(torch.float32)]).cpu()
+            loss, all_done = float(fetched[0]), bool((fetched[1:] > 0).all())
+            ep_len += 1
+            total_steps += 1
+            log.steps.append(total_steps)
+            log.losses.append(loss)
+            if eval_fn is not None and total_steps % eval_every == 0:
+                sync_to_agent(agent, es)
+                log.eval_steps.append(total_steps)
+                log.approx_ratios.append(eval_fn(agent))
+            if all_done:
+                break
+        log.episode_lengths.append(ep_len)
+        if max_steps is not None and total_steps >= max_steps:
+            break
+    sync_to_agent(agent, es)
+    log.wall_time = time.time() - t0
+    return log

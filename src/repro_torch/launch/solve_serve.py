@@ -110,7 +110,8 @@ def main(argv=None):
     if is_multi(spatial):
         if args.mode == "async":
             raise NotImplementedError("--mode async on a mesh is not ported "
-                                      "(ROADMAP A6/A9); use --mode sync")
+                                      "(ROADMAP item \"the rest of solve and "
+                                      "serving\"); use --mode sync")
         rank, device = init_mesh_ranks(spatial, args.dist_backend,
                                        args.device)
     try:

@@ -23,7 +23,8 @@ from repro.core import policy_scores as jax_policy_scores
 from repro.core import random_graph_batch
 from repro_torch.checkpoint import load_policy, save_policy
 from repro_torch.convert import policy_from_numpy, policy_to_numpy
-from repro_torch.core import PolicyConfig, init_state, policy_scores
+from repro_torch.core import (DENSE, Agent, PolicyConfig, init_state,
+                              policy_scores, train_agent)
 from repro_torch.launch import solve_serve
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -127,11 +128,20 @@ def test_entry_points_raise_without_cuda(tmp_path, jax_params):
         policy_from_numpy(jax_to_numpy(jax_params))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         solve_serve.main(["--requests", "1"])
+    adj = random_graph_batch("er", 10, 2, seed=0, rho=0.3)
+    cfg = PolicyConfig(embed_dim=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Agent(cfg, num_nodes=10)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DENSE.prepare_dataset(adj)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_agent(Agent(cfg, num_nodes=10), adj, episodes=1)
 
 
 def test_importing_the_port_loads_neither_jax_nor_repro():
     code = ("import sys; import repro_torch, repro_torch.core, "
             "repro_torch.serving, repro_torch.checkpoint, repro_torch.convert, "
+            "repro_torch.optim, "
             "repro_torch.launch.solve_serve, repro_torch.kernels.build; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')); "

@@ -233,10 +233,11 @@ def test_embed_csr_matches_jax(pair, kernel, compute, residual):
 def test_unported_csr_modes_raise():
     g = csr_batch_from_dense(_graphs(), device="cpu")
     rid = csr_row_ids(g.indptr, g.num_edges)
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(NotImplementedError, match="other three problems"):
         csr_edge_factors(g.indices, g.edge_mask, rid,
                          torch.zeros(3, 20), "closed")
-    with pytest.raises(NotImplementedError, match="A4"):
+    with pytest.raises(NotImplementedError,
+                       match="training on the sparse and CSR reps"):
         CSR.prepare_dataset(_graphs())
 
 

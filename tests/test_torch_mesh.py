@@ -193,7 +193,7 @@ def test_sparse_aggregate_plain_at_row_blocks_matches_pallas_and_ref(nl, n,
 def test_single_rank_axis_runs_the_sharded_branches(case):
     """An axis of size 1 communicates nothing, so the sharded code runs in
     this process: its embeddings equal the single-device ones, and the
-    sharded aggregate's backward is not ported (A4)."""
+    sharded aggregate's backward is not ported (the mesh's train half)."""
     st = init_state(case["adj"], device="cpu")
     em = case["policy"].em
     g = mesh.single_axis(mesh.GRAPH)
@@ -203,7 +203,7 @@ def test_single_rank_axis_runs_the_sharded_branches(case):
         got = embed_local(em, st.adj, st.solution, num_layers=3, axis=g,
                           kernel=kernel)
         torch.testing.assert_close(got, want, **TOL["f32"])
-    with pytest.raises(NotImplementedError, match="A4"):
+    with pytest.raises(NotImplementedError, match="mesh's train half"):
         embed_local(em, st.adj, st.solution, num_layers=2,
                     axis=g).sum().backward()
 
@@ -252,7 +252,8 @@ def test_launcher_parses_spatial_and_needs_torchrun(monkeypatch):
                           "--dist-backend", "gloo"])
     with pytest.raises(RuntimeError, match="--nproc-per-node 2"):
         solve_serve.main(["--device", "cpu", "--spatial", "2"])
-    with pytest.raises(NotImplementedError, match="A6/A9"):
+    with pytest.raises(NotImplementedError,
+                       match="rest of solve and serving"):
         solve_serve.main(["--device", "cpu", "--spatial", "1,2", "--mode",
                           "async"])
     monkeypatch.setenv("RANK", "0")
@@ -380,4 +381,4 @@ def test_mesh_service_matches_single_device_service(case, mesh_run):
                 np.testing.assert_array_equal(sol, j.solution)
                 assert evals == r.policy_evals
         for out in ranks:
-            assert "A6/A9" in out["async_error"]
+            assert "rest of solve and serving" in out["async_error"]

@@ -143,7 +143,7 @@ def test_service_rejects_bad_input_and_unported_options(pair):
     svc = GraphSolverService(policy, cfg, device="cpu")
     with pytest.raises(ValueError):
         svc.submit(np.zeros((3, 4), np.float32))
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(NotImplementedError, match="other three problems"):
         svc.submit(np.zeros((4, 4), np.float32), problem="mis")
     with pytest.raises(ValueError, match="graph representation"):
         GraphSolverService(policy, dataclasses.replace(cfg, graph_rep="coo"),

@@ -164,9 +164,10 @@ def test_padding_safety_probe_rejects_unsafe_env():
 def test_unported_options_raise_not_implemented(pair):
     _, policy = pair
     adj = random_graph_batch("er", 10, 1, seed=0, rho=0.3)
-    for kw, item in ((dict(problem="maxcut"), "A5"),
-                     (dict(rep="sparse", problem="mis"), "A5"),
-                     (dict(engine="host"), "ROADMAP")):
+    for kw, item in ((dict(problem="maxcut"), "other three problems"),
+                     (dict(rep="sparse", problem="mis"),
+                      "other three problems"),
+                     (dict(engine="host"), "rest of solve and serving")):
         with pytest.raises(NotImplementedError, match=item):
             solve(policy, adj, device="cpu", **kw)
     # a mesh solve (tests/test_torch_mesh.py) refuses CSR at sp > 1 and
