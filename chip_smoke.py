@@ -24,12 +24,15 @@ Phases (any failed check raises, so the script exits non-zero):
    aggregation also on the serving bucket's lists with each node's slots
    shuffled (sentinels among the real slots), there also at K = 16 and 7,
    where the kernel's x windows hold more ids; the CSR
-   layer also on BA(N=1M, d=10) (~20.0M directed edges).  The sparse and
-   CSR layers run by the route their rule picks (the row walk or the
-   windowed walk), and the other route, forced, must give the same bits
-   at f32 and bf16 on every case (the sparse layer also on the serving
-   lists with shuffled slots).  On every graph
-   case the representations must agree bit for bit at f32: the dense
+   layer also on BA(N=1M, d=10) (~20.0M directed edges).  The aggregates
+   the sparse and CSR backwards run: the sparse aggregation also at bf16,
+   and B5's aggregate entry (csr_aggregate, f32 and bf16) on every graph
+   case, which at f32 must equal the sparse aggregation bit for bit.
+   The sparse and CSR layers run by the route their rule picks (the row
+   walk or the windowed walk), and the other route, forced, must give the
+   same bits at f32 and bf16 on every case (the sparse layer also on the
+   serving lists with shuffled slots).  On every graph case the
+   representations must agree bit for bit at f32: the dense
    layer on the residual adjacency equals the sparse and CSR layers, and
    on the serving bucket the dense aggregate of one half of the nodes
    equals the sparse aggregation's row block, which equals the whole
@@ -53,27 +56,44 @@ Phases (any failed check raises, so the script exits non-zero):
 3. The card against the port on the CPU on one (B=8, N=256) batch:
    first-evaluation scores within 1e-5 on each rep, and bit for bit
    across reps on the card; solutions valid covers.
-3b. Training on the dense rep (phase train): (a) the policy gradients of
-   a (B=8, N=256) minibatch loss through B1 and the composition's
-   backward, against the "xla" chain on the card and the port on the CPU
-   (rtol = atol = 1e-5); (b) tests/test_engine.py's train configuration
-   (n=14, mb=8, tau=2, 8 steps, stored targets, epsilon 0) on the card
-   and the CPU from the same weights and draws: the same actions, losses
-   and parameters within rtol 1e-5 / atol 1e-6; (c) the paper's policy
-   width (K=32, L=2, replay 50,000, minibatch 64, tau=4) on 8 ER(0.15)
-   graphs of N=4096, 8 episode graphs a step, 20 fused steps in fresh
-   mode then 20 in stored mode, each given its draws by
-   ``draw_train_step``: B1 launched 1 + 2 tau = 9 times per warm fresh
-   step and 2 + tau = 6 per warm stored step, every warm loss finite,
-   the parameters moved, one warm step under
+3b. Training on the dense, sparse and CSR reps (phase train): (a) the
+   policy gradients of a (B=8, N=256) minibatch loss: on dense through
+   B1 and the composition's backward, against the "xla" chain on the
+   card and the port on the CPU (rtol = atol = 1e-5); on sparse and CSR
+   through B3/B5 and the closed-form backwards (two aggregate launches
+   each), against autograd through the plain compositions on the card
+   and against the dense rep's gradients (1e-5 at f32, 2e-2 at bf16);
+   (b) on each rep, tests/test_engine.py's train configuration (n=14,
+   mb=8, tau=2, 8 steps, stored targets, epsilon 0) on the card and the
+   CPU from the same weights and draws: the same actions, losses within
+   1e-6 relative, parameters within rtol 1e-5 / atol 1e-6; (c) on sparse
+   and CSR, the layer at the train minibatch's shape (B=64, N=4096) by
+   both routes, bit for bit; on each rep, the paper's policy width (K=32,
+   L=2, replay 50,000, minibatch 64, tau=4) on 8 ER(0.15) graphs of
+   N=4096, 8 episode graphs a step, 20 fused steps in fresh mode then 20
+   in stored mode, each given its draws by ``draw_train_step``: the
+   rep's layer kernel (B1, B3, B5) launched 1 + 2 tau = 9 times per warm
+   fresh step and 2 + tau = 6 per warm stored step, the sparse and CSR
+   aggregates 2 tau = 8 per warm step,
+   every warm loss finite, the parameters moved, one warm step under
    ``torch.cuda.set_sync_debug_mode("error")`` and one under
    torch.profiler (device time of act, target, re-materialization,
    forward, backward and Adam), the median, least and most seconds of
-   the 10 clean warm steps after them, and the peak device memory; then ``train_agent`` for one 9-step episode;
-   (d) the trained policy saved, loaded and serving the stream's 16
+   the 10 clean warm steps after them, and the peak device memory; then
+   ``train_agent`` for one 9-step episode (bf16 on sparse and CSR); (d)
+   the dense trained policy saved, loaded and serving the stream's 16
    graphs, every answer a cover.
 4. Large solves: the paper-scale ER(N=20480, 0.15) graph (~31.5M edges)
    on all three reps with max_d=256; the dense solve also traced.
+4b. The paper-scale CSR train step (phase paper_train): that graph as
+   the dataset, 8 episode copies of it a step, minibatch 64, tau=4,
+   fresh targets, the replay cut to 1024 tuples; stepped until warm,
+   then the first warm step and one more: their seconds, peak device
+   bytes and the part of the step that set it (a third warm step runs
+   under torch.profiler), B5 launches 9 and aggregate launches 8 per
+   warm step, beside the paper's 316.4 s (its
+   own hardware).  If minibatch 64 does not fit on the card, the
+   largest of 48, 32 and 16 that does runs and the cut is printed.
 5. The (data, graph) mesh: gloo ranks that share the one card (cuda:0),
    spawned once per shape (1,2), (2,1), (2,2) and (1,4) after the kernels
    are built.  On one (B=8, N=256) ER(0.15) batch, dense and sparse (CSR
@@ -103,8 +123,8 @@ Phases (any failed check raises, so the script exits non-zero):
    taken in phase 1b).
 
 It prints diagnostic JSON lines (each phase's seconds among them), the
-nvidia-smi name and power limit, one ``{"kernels": [...]}`` line (all eight
-kernels), and last
+nvidia-smi name and power limit, one ``{"kernels": [...]}`` line (the eight
+kernels, B5's aggregate entry, and the two aggregates at bf16), and last
 ``{"ok": true, "device": {...}}``.  It exits non-zero without a CUDA
 device, and outside a checkout.  With ``--only <kernel>,...`` (names of
 the kernels line) it runs only the build, phase 1's checks of those
@@ -173,7 +193,16 @@ TRAIN_CFG = dict(embed_dim=32, num_layers=2, gamma=0.9,
 TRAIN_TAU, TRAIN_STEPS = 4, 20
 TRAIN_DATA = (8, 4096, 8)        # dataset graphs, nodes, episode graphs
 TRAIN_SYNC_STEP, TRAIN_PROFILE_STEP, TRAIN_TIMED_FROM = 8, 9, 10
+TRAIN_REPS = ("dense", "sparse", "csr")
 GRAD_CHECK = (8, 256)            # the backward check: tuples, nodes
+# The paper-scale CSR train step (phase 4b): phase 4's ER(20480, 0.15)
+# graph, 8 episode copies a step, minibatch 64 (or the largest of these
+# that fits), tau 4, fresh targets; the replay cut from 50,000 tuples,
+# whose two (capacity, N) f32 masks would take 8.2 GB at N = 20480
+PAPER_EPISODE, PAPER_MINIBATCHES = 8, (64, 48, 32, 16)
+PAPER_REPLAY, PAPER_WARM_STEPS = 1024, 2
+PAPER_STEP_S = 316.4             # the paper's one-GPU training step
+PLAIN_CHUNK = 16                 # graphs per plain-version call at B = 64
 # tests/test_engine.py's train configuration: nodes, dataset graphs,
 # episode graphs, minibatch, tau, steps; stored targets, epsilon 0
 SMALL_TRAIN = (14, 4, 2, 8, 2, 8)
@@ -256,7 +285,8 @@ def kernel_modules():
 
 
 def kernel_fns():
-    """The eight kernel wrappers, by name."""
+    """The kernel wrappers, by name: the eight kernels and B5's aggregate
+    entry."""
     from repro_torch.kernels import ops
     ks, kg, kc = kernel_modules()
     return {"fused_s2v_layer": ks.fused_s2v_layer,
@@ -264,6 +294,7 @@ def kernel_fns():
             "fused_s2v_layer_sparse": ks.fused_s2v_layer_sparse,
             "sparse_mp_aggregate": kg.sparse_mp_aggregate,
             "fused_s2v_layer_csr": kc.fused_s2v_layer_csr,
+            "csr_aggregate": kc.csr_aggregate,
             "wkv6_chunked": ops.wkv6, "swa_attention": ops.swa,
             "grouped_glu_ffn": ops.grouped_glu_ffn}
 
@@ -987,7 +1018,7 @@ def route_identity(torch, failures, kernel, case, compute, fn, args, out,
 
 ROUTED = ("fused_s2v_layer_sparse", "fused_s2v_layer_csr")   # two walks
 GRAPH_LAYERS = ("fused_s2v_layer",) + ROUTED
-GRAPH_AGGREGATES = ("mp_aggregate", "sparse_mp_aggregate")
+GRAPH_AGGREGATES = ("mp_aggregate", "sparse_mp_aggregate", "csr_aggregate")
 
 
 def run_graph_kernels(torch, case, name, rows, failures, names=GRAPH_LAYERS
@@ -996,11 +1027,14 @@ def run_graph_kernels(torch, case, name, rows, failures, names=GRAPH_LAYERS
     for: the layers' (``check_graph_layers``) when it names any of kernels
     1, 3 and 5 (their gate needs all three), kernel 4's
     (``check_sparse_aggregate``, with kernel 2's gate) when it names
-    kernel 2 or 4."""
+    kernel 2 or 4, and B5's aggregate entry's (``check_csr_aggregate``,
+    with B4's gate) when it names it or kernel 4."""
     if set(names) & set(GRAPH_LAYERS):
         check_graph_layers(torch, case, name, rows, failures)
-    if set(names) & set(GRAPH_AGGREGATES):
+    if set(names) & {"mp_aggregate", "sparse_mp_aggregate"}:
         check_sparse_aggregate(torch, case, name, rows, failures)
+    if set(names) & {"sparse_mp_aggregate", "csr_aggregate"}:
+        check_csr_aggregate(torch, case, name, rows, failures)
 
 
 def check_graph_layers(torch, case, name, rows, failures):
@@ -1097,14 +1131,14 @@ def check_sparse_aggregate(torch, case, name, rows, failures):
     xp = torch.nn.functional.pad(x, (0, 1))
 
     def run(label, nbr, edge, rows_b=slice(None), whole=None,
-            k_b=slice(None)):
+            k_b=slice(None), compute="f32"):
         args = (xp[:, k_b].contiguous(), nbr[:, rows_b].contiguous(),
                 edge[:, rows_b].contiguous())
-        out = kg.sparse_mp_aggregate(*args)
+        out = kg.sparse_mp_aggregate(*args, compute)
         nl = args[1].shape[1]
-        compare(torch, rows, failures, "sparse_mp_aggregate", label, "f32",
-                out, kg.sparse_mp_aggregate_plain(*args),
-                agg64[:, k_b, rows_b], d,
+        compare(torch, rows, failures, "sparse_mp_aggregate", label, compute,
+                out, kg.sparse_mp_aggregate_plain(*args, compute),
+                agg64[:, k_b, rows_b] if compute == "f32" else None, d,
                 {**shape, "K": args[0].shape[1], "Nl": nl},
                 abs64[:, k_b, rows_b].float())
         if whole is not None:
@@ -1112,6 +1146,7 @@ def check_sparse_aggregate(torch, case, name, rows, failures):
                          "sparse_mp_aggregate on all rows", whole[:, :, rows_b])
         return out
 
+    run(name, sp.neighbors, case["edge"], compute="bf16")
     out = run(name, sp.neighbors, case["edge"])
     real = case["real"]
     if real is not None and out[:, :, real:].any():
@@ -1135,6 +1170,41 @@ def check_sparse_aggregate(torch, case, name, rows, failures):
             run(f"serving_shuffled_k{kk}", nbr, edge, k_b=slice(0, kk))
         del nbr, edge
     del out, xp
+    torch.cuda.empty_cache()
+
+
+def check_csr_aggregate(torch, case, name, rows, failures):
+    """B5's aggregate entry (the windowed walk) on one graph case against
+    its plain version, at f32 (and the f64 aggregate) and bf16,
+    componentwise to the sum of |terms|; the padding case's isolated nodes
+    must give 0.  At f32 it must equal B4's aggregate on the same graph's
+    lists bit for bit: both walk each node's slots in ascending id order,
+    as the three reps' layers do."""
+    from repro_torch.core.graphs import csr_row_ids
+    _, kg, kc = kernel_modules()
+    cs, x, edge_w = case["cs"], case["x"], case["edge_w"]
+    b, k, n = x.shape
+    rid = csr_row_ids(cs.indptr, cs.num_edges)
+    row_max = int((cs.indptr[:, 1:] - cs.indptr[:, :-1]).max())
+    args = (x, cs.indices, cs.indptr, edge_w)
+    for compute in ("f32", "bf16"):
+        out = kc.csr_aggregate(*args, compute)
+        compare(torch, rows, failures, "csr_aggregate", name, compute, out,
+                kc.csr_aggregate_plain(x, cs.indices, rid, edge_w, compute),
+                case["agg64"] if compute == "f32" else None, row_max,
+                {"B": b, "K": k, "N": n, "E": cs.num_edges},
+                case["abs64"].float())
+        real = case["real"]
+        if real is not None and out[:, :, real:].any():
+            failures.append(f"csr_aggregate {name} {compute}: isolated "
+                            f"nodes must give 0")
+        if compute == "f32" and case["sp"] is not None:
+            bit_identity(torch, failures, name, "csr_aggregate", out,
+                         "sparse_mp_aggregate", kg.sparse_mp_aggregate(
+                             torch.nn.functional.pad(x, (0, 1)),
+                             case["sp"].neighbors, case["edge"]))
+        del out
+    del rid
     torch.cuda.empty_cache()
 
 
@@ -1318,26 +1388,62 @@ def phase_card_vs_cpu(torch, policy):
 # The train phase.
 # ---------------------------------------------------------------------------
 
-def minibatch_loss_grads(torch, policy, state, action, target, kernel):
+REP_AGGREGATE = {"sparse": "sparse_mp_aggregate", "csr": "csr_aggregate"}
+
+
+@contextlib.contextmanager
+def plain_layers():
+    """The sparse and CSR layers as their plain compositions under
+    autograd (no kernel): the reference of their closed-form backwards."""
+    from repro_torch.core import s2v_csr, s2v_sparse
+    ks, _, kc = kernel_modules()
+
+    class Sparse:
+        apply = staticmethod(ks.fused_s2v_layer_sparse_plain)
+
+    class Csr:
+        apply = staticmethod(kc.fused_s2v_layer_csr_plain)
+    saved = s2v_sparse._FusedSparseLayer, s2v_csr._FusedCsrLayer
+    s2v_sparse._FusedSparseLayer, s2v_csr._FusedCsrLayer = Sparse, Csr
+    try:
+        yield
+    finally:
+        s2v_sparse._FusedSparseLayer, s2v_csr._FusedCsrLayer = saved
+
+
+def minibatch_loss_grads(torch, policy, state, action, target, kernel,
+                         rep="dense", compute="f32"):
     """The minibatch loss of ``train_minibatch_raw`` (unmasked scores at
     the actions against the targets) and its gradients, by policy key."""
-    from repro_torch.core import DENSE
-    s = DENSE.scores(policy, state, num_layers=2, masked=False,
-                     kernel=kernel)
+    from repro_torch.core import get_rep
+    s = get_rep(rep).scores(policy, state, num_layers=2, masked=False,
+                            kernel=kernel, compute=compute)
     qsa = torch.gather(s, 1, action[:, None])[:, 0]
     loss = torch.mean(torch.square(qsa - target))
     grads = torch.autograd.grad(loss, list(policy.parameters()))
     return {"loss": loss.detach(), **dict(zip(POLICY_KEYS, grads))}
 
 
+def grad_errors(torch, got, want, tol):
+    """Each key's max |got - want|, held to rtol = atol = ``tol``."""
+    errs = {}
+    for key, w in want.items():
+        torch.testing.assert_close(got[key], w, rtol=tol, atol=tol)
+        errs[key] = float((got[key] - w).abs().max())
+    return errs
+
+
 def check_train_grads(torch, policy):
-    """(a) The fused layer's backward on the card: the policy gradients
-    of a (B=8, N=256) minibatch loss with kernel="fused" (B1 forward, the
-    composition's backward) against kernel="xla" on the card and against
-    the port on the CPU, each within rtol = atol = 1e-5."""
+    """(a) The layers' backwards on the card: the policy gradients of a
+    (B=8, N=256) minibatch loss.  Dense: kernel="fused" (B1 forward, the
+    composition's backward) against kernel="xla" on the card and the port
+    on the CPU, within 1e-5.  Sparse and CSR: the closed-form backwards
+    (B3/B5 forward, two aggregate launches a layer backward) against
+    autograd through the plain compositions on the card, within 1e-5 at
+    f32 and 2e-2 at bf16 (``kernel_tol``), and against the dense rep's
+    gradients on the card at each compute mode."""
     from repro_torch.convert import policy_from_numpy, policy_to_numpy
-    from repro_torch.core import DENSE, random_graph_batch
-    from repro_torch.kernels.s2v_fused import fused_s2v_layer
+    from repro_torch.core import get_rep, random_graph_batch
     b, n = GRAD_CHECK
     adj = random_graph_batch("er", n, b, seed=SEED + 13, rho=0.15)
     rng = np.random.default_rng(SEED + 13)
@@ -1345,49 +1451,73 @@ def check_train_grads(torch, policy):
     action = rng.integers(0, n, size=b)
     target = rng.standard_normal(b).astype(np.float32)
     cpu_policy = policy_from_numpy(policy_to_numpy(policy), device="cpu")
+    fns = kernel_fns()
+
+    def run(rep, pol, kernel, compute="f32"):
+        dev = pol.device
+        r = get_rep(rep)
+        st = r.state_from_tuples(r.prepare_dataset(adj, device=dev),
+                                 np.arange(b), sol)
+        a, t = (torch.as_tensor(x, device=dev) for x in (action, target))
+        reset_counts()
+        got = minibatch_loss_grads(torch, pol, st, a, t, kernel, rep,
+                                   compute)
+        return {k: v.cpu() for k, v in got.items()}, read_counts()
+
     out = {}
     for where, pol in (("card", policy), ("cpu", cpu_policy)):
-        dev = pol.device
-        st = DENSE.state_from_tuples(DENSE.prepare_dataset(adj, device=dev),
-                                     np.arange(b), sol)
-        a, t = (torch.as_tensor(x, device=dev) for x in (action, target))
         for kernel in ("fused", "xla"):
-            reset_counts()
-            got = minibatch_loss_grads(torch, pol, st, a, t, kernel)
-            out[where, kernel] = {k: v.cpu() for k, v in got.items()}
-            if where == "card" and fused_s2v_layer.launches != (
+            out[where, kernel], counts = run("dense", pol, kernel)
+            if where == "card" and counts["fused_s2v_layer"] != (
                     kernel == "fused"):
                 raise AssertionError(f"the {kernel} loss launched B1 "
-                                     f"{fused_s2v_layer.launches} times")
-    row = {"phase": "train_grads", "B": b, "N": n}
+                                     f"{counts['fused_s2v_layer']} times")
+    row = {"phase": "train_grads", "rep": "dense", "B": b, "N": n}
     for ref in (("card", "xla"), ("cpu", "fused")):
-        errs = {}
-        for key, want in out[ref].items():
-            got = out["card", "fused"][key]
-            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-            errs[key] = float((got - want).abs().max())
-        row["vs_" + "_".join(ref)] = errs
+        row["vs_" + "_".join(ref)] = grad_errors(torch, out["card", "fused"],
+                                                 out[ref], 1e-5)
     emit(row)
+    for compute in ("f32", "bf16"):
+        dense, _ = run("dense", policy, "fused", compute)
+        for rep in ("sparse", "csr"):
+            got, counts = run(rep, policy, "fused", compute)
+            with plain_layers():
+                want, plain_counts = run(rep, policy, "fused", compute)
+            layer, agg = REP_KERNEL[rep], REP_AGGREGATE[rep]
+            if (counts[layer], counts[agg]) != (1, 2) or any(
+                    plain_counts.values()):
+                raise AssertionError(
+                    f"the {rep} {compute} loss launched {layer} "
+                    f"{counts[layer]} and {agg} {counts[agg]} times (1 and "
+                    f"2 wanted), its plain version {plain_counts}")
+            tol = kernel_tol(compute, 1)
+            emit({"phase": "train_grads", "rep": rep, "compute": compute,
+                  "B": b, "N": n, "tol": tol, "launches": {
+                      layer: counts[layer], agg: counts[agg]},
+                  "vs_autograd_of_plain": grad_errors(torch, got, want, tol),
+                  "vs_dense": grad_errors(torch, got, dense, tol)})
 
 
-def small_train_run(torch, arrays, adj, draws, device):
-    """(b)'s run on ``device``: tests/test_engine.py's configuration
-    (stored targets, epsilon 0) from the weights ``arrays``, each step
-    given its draws.  Returns (losses, actions, trained weights)."""
+def small_train_run(torch, arrays, adj, draws, device, rep):
+    """(b)'s run on ``device`` and ``rep``: tests/test_engine.py's
+    configuration (stored targets, epsilon 0) from the weights ``arrays``,
+    each step given its draws.  Returns (losses, actions, trained
+    weights)."""
     from repro_torch.convert import policy_from_numpy, policy_to_numpy
-    from repro_torch.core import (DENSE, Agent, PolicyConfig, TrainDraws,
-                                  engine_init, get_train_step)
+    from repro_torch.core import (Agent, PolicyConfig, TrainDraws,
+                                  engine_init, get_rep, get_train_step)
     n, _, b, mb, tau, _ = SMALL_TRAIN
     cfg = PolicyConfig(embed_dim=8, num_layers=2, minibatch=mb,
                        replay_capacity=64, learning_rate=1e-3,
                        eps_start=0.0, eps_end=0.0)
     agent = Agent(cfg, num_nodes=n, target_mode="stored", device=device,
                   params=policy_from_numpy(arrays, device=device))
-    step = get_train_step(cfg, tau=tau, target_mode="stored")
+    r = get_rep(rep)
+    step = get_train_step(cfg, rep=r, tau=tau, target_mode="stored")
     es = engine_init(cfg, agent.params, agent.opt, n)
-    source = DENSE.prepare_dataset(adj, device=device)
+    source = r.prepare_dataset(adj, device=device)
     gi = torch.as_tensor([0, 2], device=device)
-    state = DENSE.state_from_tuples(source, gi, np.zeros((b, n), np.float32))
+    state = r.state_from_tuples(source, gi, np.zeros((b, n), np.float32))
     losses, actions = [], []
     for d in draws:
         es, state, action, _, _, loss = step(
@@ -1398,10 +1528,11 @@ def small_train_run(torch, arrays, adj, draws, device):
     return np.array(losses), np.stack(actions), policy_to_numpy(agent.params)
 
 
-def check_small_train(torch):
-    """(b) The card against the port on the CPU: the same weights, graphs
-    and draws; actions identical, losses and every parameter within rtol
-    1e-5 / atol 1e-6 (tests/test_engine.py's bar)."""
+def check_small_train(torch, rep):
+    """(b) The card against the port on the CPU on ``rep``: the same
+    weights, graphs and draws; actions identical, losses within 1e-6
+    relative and every parameter within rtol 1e-5 / atol 1e-6
+    (tests/test_engine.py's bar)."""
     from repro_torch.convert import policy_to_numpy
     from repro_torch.core import PolicyConfig, init_policy, random_graph_batch
     n, g, b, mb, tau, steps = SMALL_TRAIN
@@ -1413,23 +1544,23 @@ def check_small_train(torch):
     draws = [(rng.random(b).astype(np.float32), rng.integers(0, n, b),
               rng.integers(0, min(b * (i + 1), 64), (tau, mb)))
              for i in range(steps)]
-    card = small_train_run(torch, arrays, adj, draws, DEVICE)
-    cpu = small_train_run(torch, arrays, adj, draws, "cpu")
+    card = small_train_run(torch, arrays, adj, draws, DEVICE, rep)
+    cpu = small_train_run(torch, arrays, adj, draws, "cpu", rep)
     parted = np.flatnonzero((card[1] != cpu[1]).any(-1))
     if len(parted):
-        raise AssertionError(f"small train run: the card's actions part "
-                             f"from the CPU's at step {parted[0]}: "
+        raise AssertionError(f"small train run on {rep}: the card's actions "
+                             f"part from the CPU's at step {parted[0]}: "
                              f"{card[1][parted[0]]} vs {cpu[1][parted[0]]}")
     warm = np.isfinite(cpu[0])
     if not np.array_equal(np.isfinite(card[0]), warm) or warm.sum() < 4:
-        raise AssertionError(f"small train run: warm steps differ: "
-                             f"{card[0]} vs {cpu[0]}")
-    np.testing.assert_allclose(card[0][warm], cpu[0][warm], rtol=1e-5,
+        raise AssertionError(f"small train run on {rep}: warm steps "
+                             f"differ: {card[0]} vs {cpu[0]}")
+    np.testing.assert_allclose(card[0][warm], cpu[0][warm], rtol=1e-6,
                                atol=1e-6)
     for key in POLICY_KEYS:
         np.testing.assert_allclose(card[2][key], cpu[2][key], rtol=1e-5,
                                    atol=1e-6, err_msg=key)
-    emit({"phase": "train_card_vs_cpu", "n": n, "steps": steps,
+    emit({"phase": "train_card_vs_cpu", "rep": rep, "n": n, "steps": steps,
           "warm_steps": int(warm.sum()),
           "loss_max_rel_err": float(np.max(np.abs(card[0][warm]
                                                   - cpu[0][warm])
@@ -1514,26 +1645,121 @@ def profile_train_step(torch, fn):
                          for us, c, k in kernels[:10]]}
 
 
-def train_mode_run(torch, agent, step, source, mode, seed):
-    """(c) ``TRAIN_STEPS`` fused steps of one target mode at full width on
-    a fresh engine (empty replay), each with its draws from
-    ``draw_train_step``: B1's launches per step (1 + 2 tau fresh and
-    2 + tau stored once warm), every warm loss finite, one warm step (and
-    its draws) under ``set_sync_debug_mode("error")`` and one under
-    torch.profiler, and the seconds of the steps from
-    ``TRAIN_TIMED_FROM``.  Returns the row it prints."""
-    from repro_torch.core import DENSE, draw_train_step, engine_init
-    from repro_torch.kernels.s2v_fused import fused_s2v_layer
+def by_graphs(torch, fn, b, chunk=PLAIN_CHUNK):
+    """``fn(graphs)`` over slices of ``chunk`` of the ``b`` graphs,
+    concatenated: a plain version at the train minibatch, whose whole
+    gathers would hold 40-60 GB at once."""
+    return torch.cat([fn(slice(i, i + chunk)) for i in range(0, b, chunk)])
+
+
+def check_train_kernels(torch, source, rep, rows, failures):
+    """Phase 1's checks at the train minibatch's shape, on the train
+    data's lists or CSR arrays (for sparse, 718 slots wide: B4's and B3's
+    any-width layout): the rep's layer (B3 or B5) and its aggregate (B4 or
+    B5's entry) on 64 of the dataset's graphs with the residual factors of
+    a random 10% partial solution, at f32 and bf16, against their plain
+    versions (``compare``, componentwise to the sum of |terms|; the plain
+    versions taken ``PLAIN_CHUNK`` graphs at a time), and the layer by the
+    route the rule picks against the other, forced, bit for bit."""
+    from repro_torch.core import get_rep
+    from repro_torch.core.graphs import (csr_residual_edge_mask, csr_row_ids,
+                                         residual_edge_mask)
+    ks, kg, kc = kernel_modules()
+    g, n, _ = TRAIN_DATA
+    b, k = TRAIN_CFG["minibatch"], TRAIN_CFG["embed_dim"]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 16)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=DEVICE)
+    gi = torch.randint(0, g, (b,), generator=gen, device=DEVICE)
+    sol = (rand(b, n) < 0.1).to(torch.float32)
+    st = get_rep(rep).state_from_tuples(source, gi, sol)
+    x, base, t4 = torch.relu(rand(b, k, n) - 0.5), rand(b, k, n) - 0.5, \
+        (rand(k, k) - 0.5) * 0.2
+    if rep == "sparse":
+        nbr = st.neighbors
+        edge = residual_edge_mask(nbr, st.valid, sol)
+        xp = torch.nn.functional.pad(x, (0, 1))
+        fn, args = ks.fused_s2v_layer_sparse, (t4, x, nbr, edge, base)
+
+        def layer_plain(s, c):
+            return ks.fused_s2v_layer_sparse_plain(t4, x[s], nbr[s], edge[s],
+                                                   base[s], c)
+
+        def agg(c):
+            return kg.sparse_mp_aggregate(xp, nbr, edge, c)
+
+        def agg_plain(s, c):
+            return kg.sparse_mp_aggregate_plain(xp[s], nbr[s], edge[s], c)
+        terms, extra = nbr.shape[2], {"D": nbr.shape[2]}
+    else:
+        rid = csr_row_ids(st.indptr, st.num_edges)
+        edge = csr_residual_edge_mask(st.indices, st.edge_mask, rid, sol)
+        topo = (st.indices, st.indptr, edge)
+        fn, args = kc.fused_s2v_layer_csr, (t4, x, *topo, base)
+
+        def layer_plain(s, c):
+            return kc.fused_s2v_layer_csr_plain(
+                t4, x[s], *(a[s] for a in topo), base[s], c)
+
+        def agg(c):
+            return kc.csr_aggregate(x, *topo, c)
+
+        def agg_plain(s, c):
+            return kc.csr_aggregate_plain(x[s], st.indices[s], rid[s],
+                                          edge[s], c)
+        terms = int((st.indptr[:, 1:] - st.indptr[:, :-1]).max())
+        extra = {"E": st.num_edges}
+    shape = {"B": b, "K": k, "N": n, **extra}
+    # x >= 0 and the factors are 0 or 1: the f32 aggregate is the sum of
+    # its terms' absolute values
+    agg_abs = by_graphs(torch, lambda s: agg_plain(s, "f32"), b)
+    layer_abs = base.abs() + t4.abs() @ agg_abs
+    for compute in ("f32", "bf16"):
+        out, route = call_routed(fn, *args, compute)
+        compare(torch, rows, failures, REP_KERNEL[rep], "train_minibatch",
+                compute, out, by_graphs(torch, lambda s: layer_plain(
+                    s, compute), b), None, terms, {**shape, "route": route},
+                layer_abs)
+        route_identity(torch, failures, REP_KERNEL[rep], "train_minibatch",
+                       compute, fn, args, out, route)
+        del out
+        compare(torch, rows, failures, REP_AGGREGATE[rep], "train_minibatch",
+                compute, agg(compute), agg_abs if compute == "f32" else
+                by_graphs(torch, lambda s: agg_plain(s, compute), b), None,
+                terms, shape, agg_abs)
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("a kernel disagrees at the train minibatch:\n"
+                             + "\n".join(failures))
+
+
+def train_mode_run(torch, agent, step, source, mode, seed, rep="dense"):
+    """(c) ``TRAIN_STEPS`` fused steps of one target mode on ``rep`` at
+    full width on a fresh engine (empty replay), each with its draws from
+    ``draw_train_step``: the rep's layer kernel (B1, B3, B5) launched
+    1 + 2 tau times per warm fresh step and 2 + tau per warm stored step,
+    on sparse and CSR the aggregate 2 tau times per warm step (two per
+    backward), every warm loss finite, one warm step (and its draws) under
+    ``set_sync_debug_mode("error")`` and one under torch.profiler, and the
+    seconds of the steps from ``TRAIN_TIMED_FROM``.  Returns the row it
+    prints."""
+    from repro_torch.core import draw_train_step, engine_init, get_rep
     g, n, b = TRAIN_DATA
+    r = get_rep(rep)
     es = engine_init(agent.cfg, agent.params, agent.opt, n, seed=seed,
                      step_count=agent.step_count)
     gi = torch.as_tensor(np.random.default_rng(seed).integers(0, g, b),
                          device=DEVICE)
-    state = DENSE.state_from_tuples(source, gi,
-                                    torch.zeros((b, n), device=DEVICE))
+    state = r.state_from_tuples(source, gi,
+                                torch.zeros((b, n), device=DEVICE))
+    layer, agg = REP_KERNEL[rep], REP_AGGREGATE.get(rep)
     want = {"fresh": (1, 1 + 2 * TRAIN_TAU),
             "stored": (2, 2 + TRAIN_TAU)}[mode]
-    losses, launches, seconds, profile = [], [], [], None
+    want_agg = (0, 2 * TRAIN_TAU) if agg else (0, 0)
+    losses, launches, agg_launches, seconds = [], [], [], []
+    profile = None
+    torch.cuda.reset_peak_memory_stats()
     for i in range(TRAIN_STEPS):
         reset_counts()
         warm = es.replay.size + b >= agent.cfg.minibatch
@@ -1558,88 +1784,123 @@ def train_mode_run(torch, agent, step, source, mode, seed):
             seconds.append(time.perf_counter() - t0)
         es, state, _, _, _, loss = out
         losses.append(loss)
-        launches.append(fused_s2v_layer.launches)
-        if launches[-1] != want[warm]:
-            raise AssertionError(f"train {mode} step {i}: B1 launched "
-                                 f"{launches[-1]} times, not {want[warm]}")
+        counts = read_counts()
+        launches.append(counts[layer])
+        agg_launches.append(counts[agg] if agg else 0)
+        if (launches[-1], agg_launches[-1]) != (want[warm], want_agg[warm]):
+            raise AssertionError(
+                f"train {rep} {mode} step {i}: {layer} launched "
+                f"{launches[-1]} times, not {want[warm]}; the aggregate "
+                f"{agg_launches[-1]}, not {want_agg[warm]}")
         if not warm and i >= TRAIN_SYNC_STEP:
-            raise AssertionError(f"train {mode} step {i} is not warm")
+            raise AssertionError(f"train {rep} {mode} step {i} is not warm")
     losses = [float(x) for x in losses]
     warm_losses = losses[agent.cfg.minibatch // b - 1:]
     if not all(math.isfinite(x) for x in warm_losses) or any(
             math.isfinite(x) for x in losses[:len(losses)
                                              - len(warm_losses)]):
-        raise AssertionError(f"train {mode}: losses {losses}")
-    return {"phase": "train", "mode": mode, "steps": TRAIN_STEPS,
-            "warm_steps": len(warm_losses), "B1_launches": launches,
+        raise AssertionError(f"train {rep} {mode}: losses {losses}")
+    return {"phase": "train", "rep": rep, "mode": mode, "steps": TRAIN_STEPS,
+            "warm_steps": len(warm_losses), "layer_kernel": layer,
+            "layer_launches": launches, "aggregate_kernel": agg,
+            "aggregate_launches": agg_launches,
             "median_warm_step_s": float(np.median(seconds)),
             "min_warm_step_s": min(seconds), "max_warm_step_s": max(seconds),
-            "timed_steps": len(seconds), "warm_step_s": seconds, "losses": losses,
-            "step_count": es.step_count, "profile": profile}
+            "timed_steps": len(seconds), "warm_step_s": seconds,
+            "losses": losses, "step_count": es.step_count,
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "profile": profile}
 
 
-def phase_train(torch, policy, adjs):
-    """The train phase: (a) the backward on the card, (b) a small train
-    run on the card against the CPU, (c) the full-width train steps of
-    both target modes, then ``train_agent`` for one short episode, (d) the
+def phase_train(torch, policy, adjs, rows, failures):
+    """The train phase: (a) the backwards on the card, (b) a small train
+    run on the card against the CPU on each rep, (c) on sparse and CSR the
+    kernels at the train minibatch against their plain versions
+    (``check_train_kernels``, into ``rows``), and the full-width train
+    steps of both target modes on each rep, then ``train_agent`` for one
+    short episode (f32 on dense, bf16 on sparse and CSR), (d) the dense
     trained policy saved, loaded and serving the served stream's graphs,
-    every answer a cover.  Returns B1's launches in (c)."""
+    every answer a cover.  Returns each kernel's launches in (c) (the
+    aggregates' at f32) and the aggregates' in the bf16 episodes."""
+    import dataclasses
     import tempfile
     from repro_torch.checkpoint import load_policy, save_policy
     from repro_torch.convert import policy_to_numpy
-    from repro_torch.core import (DENSE, Agent, PolicyConfig,
+    from repro_torch.core import (Agent, PolicyConfig, get_rep,
                                   get_train_step, train_agent)
     from repro_torch.core.graphs import random_graph_batch
-    from repro_torch.kernels.s2v_fused import fused_s2v_layer
     check_train_grads(torch, policy)
-    check_small_train(torch)
+    for rep in TRAIN_REPS:
+        check_small_train(torch, rep)
 
     g, n, b = TRAIN_DATA
     t0 = time.perf_counter()
     data = random_graph_batch("er", n, g, seed=SEED + 15, rho=0.15)
     gen_s = time.perf_counter() - t0
     tcfg = PolicyConfig(**TRAIN_CFG)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    agent = Agent(tcfg, num_nodes=n, device=DEVICE)
-    before = {k: v.copy() for k, v in policy_to_numpy(agent.params).items()}
-    source = DENSE.prepare_dataset(data, device=DEVICE)
-    total = 0
-    for i, mode in enumerate(("fresh", "stored")):
-        agent.target_mode = mode
-        step = get_train_step(tcfg, tau=TRAIN_TAU, target_mode=mode)
-        row = train_mode_run(torch, agent, step, source, mode, SEED + i)
-        total += sum(row["B1_launches"])
-        agent.step_count = row["step_count"]     # the epsilon schedule
-        emit({**row, "dataset": [g, n, n], "episode_graphs": b,
-              "tau": TRAIN_TAU, **TRAIN_CFG, "generate_s": gen_s})
-    peak = torch.cuda.max_memory_allocated()
-    del source
-    moved = [k for k, v in policy_to_numpy(agent.params).items()
-             if not np.array_equal(v, before[k])]
-    if not moved:
-        raise AssertionError("full-width training moved no parameter")
-    # the user's entry point: one episode of 9 steps, the last two warm
-    count0 = agent.step_count
-    warm = 9 - (tcfg.minibatch // b - 1)
-    reset_counts()
-    log = train_agent(agent, data, episodes=1, max_steps=9, tau=TRAIN_TAU,
-                      batch_graphs=b, seed=SEED + 2)
-    if agent.step_count != count0 + warm \
-            or not math.isfinite(log.losses[-1]):
-        raise AssertionError(f"train_agent: step_count {agent.step_count} "
-                             f"from {count0}, losses {log.losses}")
-    emit({"phase": "train_agent", "steps": len(log.losses),
-          "losses": log.losses, "wall_s": log.wall_time,
-          "B1_launches": fused_s2v_layer.launches,
-          "peak_device_bytes_full_width": peak, "moved": moved})
+    main, bf16, dense_agent = dict.fromkeys(REPLACES, 0), {}, None
+    for rep in TRAIN_REPS:
+        torch.cuda.empty_cache()
+        agent = Agent(tcfg, num_nodes=n, device=DEVICE)
+        before = {k: v.copy()
+                  for k, v in policy_to_numpy(agent.params).items()}
+        t0 = time.perf_counter()
+        source = get_rep(rep).prepare_dataset(data, device=DEVICE)
+        build_s = time.perf_counter() - t0
+        if rep != "dense":
+            check_train_kernels(torch, source, rep, rows, failures)
+        for i, mode in enumerate(("fresh", "stored")):
+            agent.target_mode = mode
+            step = get_train_step(tcfg, rep=rep, tau=TRAIN_TAU,
+                                  target_mode=mode)
+            row = train_mode_run(torch, agent, step, source, mode, SEED + i,
+                                 rep)
+            main[row["layer_kernel"]] += sum(row["layer_launches"])
+            if row["aggregate_kernel"]:
+                main[row["aggregate_kernel"]] += sum(
+                    row["aggregate_launches"])
+            agent.step_count = row["step_count"]     # the epsilon schedule
+            emit({**row, "dataset": [g, n], "episode_graphs": b,
+                  "tau": TRAIN_TAU, **TRAIN_CFG, "generate_s": gen_s,
+                  "dataset_build_s": build_s})
+        del source
+        moved = [k for k, v in policy_to_numpy(agent.params).items()
+                 if not np.array_equal(v, before[k])]
+        if not moved:
+            raise AssertionError(f"full-width training on {rep} moved no "
+                                 f"parameter")
+        # the user's entry point: one episode of 9 steps, the last two
+        # warm; f32 on dense, bf16 on sparse and CSR
+        compute = "f32" if rep == "dense" else "bf16"
+        agent.cfg = dataclasses.replace(tcfg, compute=compute)
+        count0 = agent.step_count
+        warm = 9 - (tcfg.minibatch // b - 1)
+        reset_counts()
+        log = train_agent(agent, data, rep=rep, episodes=1, max_steps=9,
+                          tau=TRAIN_TAU, batch_graphs=b, seed=SEED + 2)
+        counts = read_counts()
+        if agent.step_count != count0 + warm \
+                or not math.isfinite(log.losses[-1]):
+            raise AssertionError(f"train_agent on {rep} ({compute}): "
+                                 f"step_count {agent.step_count} from "
+                                 f"{count0}, losses {log.losses}")
+        if rep != "dense":
+            bf16[REP_AGGREGATE[rep]] = counts[REP_AGGREGATE[rep]]
+        emit({"phase": "train_agent", "rep": rep, "compute": compute,
+              "steps": len(log.losses), "losses": log.losses,
+              "wall_s": log.wall_time,
+              "launches": {k: v for k, v in counts.items() if v},
+              "moved": moved})
+        if rep == "dense":
+            agent.cfg = tcfg
+            dense_agent = agent
     del data
 
     with tempfile.TemporaryDirectory() as d:
-        save_policy(d, agent.step_count, agent.params)
+        save_policy(d, dense_agent.step_count, dense_agent.params)
         loaded, _ = load_policy(d, tcfg, device=DEVICE)
     for key, v in loaded.state_dict().items():
-        if not torch.equal(v, agent.params.state_dict()[key]):
+        if not torch.equal(v, dense_agent.params.state_dict()[key]):
             raise AssertionError(f"the loaded policy differs at {key}")
     svc = make_service(loaded, tcfg, "dense")
     t0 = time.perf_counter()
@@ -1652,15 +1913,239 @@ def phase_train(torch, policy, adjs):
     emit({"phase": "train_then_solve", "requests": len(adjs),
           "wall_s": time.perf_counter() - t0,
           "cover_sizes": [r.size for r in responses]})
-    return total
+    return main, bf16
+
+
+def alloc_site(frames, depth=3):
+    """Where an allocation was made: the innermost ``depth`` frames of its
+    Python stack that lie in ``repro_torch``, innermost first."""
+    out = []
+    for f in frames:
+        path = f["filename"].replace(os.sep, "/")
+        if "/repro_torch/" in path:
+            out.append(f"{path.split('/repro_torch/')[-1]}:{f['line']} "
+                       f"{f['name']}")
+            if len(out) == depth:
+                break
+    return " < ".join(out) or "outside repro_torch"
+
+
+def trace_peak(trace, base, top=8):
+    """The peak of the allocated bytes over an allocator trace that began
+    with ``base`` bytes allocated (each ``alloc`` adds its size, each
+    ``free_requested`` takes it away, as ``memory_allocated`` counts), the
+    site of the allocation that reached it, and the bytes alive at the
+    peak: the ``top`` sites by bytes, and those allocated before the
+    trace began."""
+    def replay(stop):
+        live, now, best = {}, base, (base, -1)
+        for i, e in enumerate(trace[:stop]):
+            if e["action"] == "alloc":
+                live[e["addr"]] = e
+                now += e["size"]
+                if now > best[0]:
+                    best = (now, i)
+            elif e["action"] == "free_requested":
+                now -= e["size"]
+                live.pop(e["addr"], None)
+        return live, best
+    _, (peak, at) = replay(len(trace))
+    live, _ = replay(at + 1)
+    sites = {}
+    for e in live.values():
+        site = sites.setdefault(alloc_site(e.get("frames", [])),
+                                {"bytes": 0, "blocks": 0})
+        site["bytes"] += e["size"]
+        site["blocks"] += 1
+    return {"allocated_before": base, "peak_bytes": peak,
+            "reached_by": (alloc_site(trace[at].get("frames", []))
+                           if at >= 0 else "before the trace"),
+            "alive_from_before": peak - sum(e["size"] for e in live.values()),
+            "alive_at_peak": [{"site": k, **v} for k, v in sorted(
+                sites.items(), key=lambda kv: -kv[1]["bytes"])[:top]]}
+
+
+def memory_peak(torch, fn):
+    """``fn()`` under the CUDA allocator's history, with each allocation's
+    Python stack: where its peak of allocated bytes comes from
+    (``trace_peak``)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.memory._record_memory_history(context="alloc", stacks="python",
+                                             max_entries=1 << 20)
+    try:
+        fn()
+        torch.cuda.synchronize()
+        trace = torch.cuda.memory._snapshot()["device_traces"][
+            torch.cuda.current_device()]
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    return trace_peak(trace, base)
+
+
+def paper_train_run(torch, source, mb):
+    """One paper-scale CSR training run at minibatch ``mb``: the fused
+    fresh-mode step on ``PAPER_EPISODE`` episode copies of the dataset's
+    one graph, stepped until the replay is warm, then
+    ``PAPER_WARM_STEPS`` warm steps, one more under torch.profiler and one
+    more under the allocator's history (``memory_peak``).  Returns every
+    step's seconds, peak device bytes and launches, the profile and where
+    the peak comes from."""
+    from repro_torch.core import (CSR, Agent, PolicyConfig, draw_train_step,
+                                  engine_init, get_train_step)
+    n = source.num_nodes
+    b = PAPER_EPISODE
+    cfg = PolicyConfig(**{**TRAIN_CFG, "minibatch": mb,
+                          "replay_capacity": PAPER_REPLAY})
+    agent = Agent(cfg, num_nodes=n, device=DEVICE)
+    step = get_train_step(cfg, rep=CSR, tau=TRAIN_TAU, target_mode="fresh")
+    es = engine_init(cfg, agent.params, agent.opt, n, seed=SEED)
+    gi = torch.zeros((b,), dtype=torch.long, device=DEVICE)
+    state = CSR.state_from_tuples(source, gi, torch.zeros((b, n),
+                                                          device=DEVICE))
+    steps = []
+    cold = -(-mb // b) - 1
+    for i in range(cold + PAPER_WARM_STEPS):
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        es, state, _, _, _, loss = step(es, state, source, gi,
+                                        draw_train_step(cfg, es, state,
+                                                        tau=TRAIN_TAU))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        steps.append({"warm": i >= cold,
+                      "seconds": time.perf_counter() - t0,
+                      "loss": float(loss),
+                      "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                      "fused_s2v_layer_csr": counts["fused_s2v_layer_csr"],
+                      "csr_aggregate": counts["csr_aggregate"]})
+
+    def one_more():
+        return step(es, state, source, gi, draw_train_step(cfg, es, state,
+                                                           tau=TRAIN_TAU))
+    _, profile = profile_train_step(torch, one_more)
+    return steps, profile, memory_peak(torch, one_more)
+
+
+def check_paper_minibatch(torch, source, mb, rows, failures):
+    """B5 and its aggregate entry at the paper-scale step's minibatch: one
+    launch each on ``mb`` copies of the graph with the residual factors
+    of a random 10% partial solution per copy (slot offsets past 2^31 in
+    the last ones), the last graph's output against the plain version of
+    that graph alone, at f32 (``compare``, componentwise to the sum of
+    |terms|)."""
+    from repro_torch.core import CSR
+    from repro_torch.core.graphs import csr_residual_edge_mask, csr_row_ids
+    _, _, kc = kernel_modules()
+    n, k = source.num_nodes, TRAIN_CFG["embed_dim"]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 21)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=DEVICE)
+    sol = (rand(mb, n) < 0.1).to(torch.float32)
+    st = CSR.state_from_tuples(source, torch.zeros((mb,), dtype=torch.long,
+                                                   device=DEVICE), sol)
+    rid = csr_row_ids(st.indptr, st.num_edges)
+    edge = csr_residual_edge_mask(st.indices, st.edge_mask, rid, sol)
+    del rid
+    x, base, t4 = torch.relu(rand(mb, k, n) - 0.5), rand(mb, k, n) - 0.5, \
+        (rand(k, k) - 0.5) * 0.2
+    topo = (st.indices, st.indptr, edge)
+    out = kc.fused_s2v_layer_csr(t4, x, *topo, base)[-1:].clone()
+    agg = kc.csr_aggregate(x, *topo)[-1:].clone()
+    last = [a[-1:].clone() for a in (x, st.indices, st.indptr, edge, base)]
+    del st, edge, topo
+    torch.cuda.empty_cache()
+    x1, indices, indptr, edge, base1 = last
+    want = kc.csr_aggregate_plain(x1, indices, csr_row_ids(
+        indptr, indices.shape[1]), edge)
+    shape = {"B": mb, "K": k, "N": n, "E": indices.shape[1],
+             "graph": mb - 1}
+    terms = int((indptr[:, 1:] - indptr[:, :-1]).max())
+    compare(torch, rows, failures, "csr_aggregate", "paper_minibatch",
+            "f32", agg, want, None, terms, shape, want)
+    compare(torch, rows, failures, "fused_s2v_layer_csr", "paper_minibatch",
+            "f32", out, kc.fused_s2v_layer_csr_plain(t4, x1, indices,
+                                                     indptr, edge, base1),
+            None, terms, shape, base1.abs() + t4.abs() @ want)
+    if failures:
+        raise AssertionError("a kernel disagrees at the paper-scale "
+                             "minibatch:\n" + "\n".join(failures))
+
+
+def phase_paper_train(torch, graph, rows, failures):
+    """Phase 4b: the paper-scale CSR train step.  The dataset is phase
+    4's ER(20480, 0.15) graph (~62.9M directed edges, its CSR batch on the
+    card), 8 episode copies of it a step, minibatch 64, tau 4, fresh
+    targets, the replay cut to ``PAPER_REPLAY`` tuples; the first warm
+    step and one more are timed, a third runs under torch.profiler and a
+    fourth under the allocator's history (where the peak comes from).
+    If minibatch 64 does not fit on the card, the largest of
+    ``PAPER_MINIBATCHES`` that does is run, and the cut is printed.  Then
+    B5 and its aggregate at that minibatch against their plain versions
+    (``check_paper_minibatch``, into ``rows``)."""
+    from repro_torch.core import CSR
+    t0 = time.perf_counter()
+    source = CSR.prepare_dataset(graph, device=DEVICE)
+    build_s = time.perf_counter() - t0
+    n, e = source.num_nodes, source.num_edges
+    for mb in PAPER_MINIBATCHES:
+        torch.cuda.empty_cache()
+        try:
+            steps, profile, peak = paper_train_run(torch, source, mb)
+            break
+        except torch.cuda.OutOfMemoryError as err:
+            emit({"phase": "paper_train_cut", "minibatch": mb,
+                  "out_of_memory": str(err).splitlines()[0][:300]})
+    else:
+        raise AssertionError(f"no minibatch of {PAPER_MINIBATCHES} fits")
+    warm = [s for s in steps if s["warm"]]
+    want = (1 + 2 * TRAIN_TAU, 2 * TRAIN_TAU)
+    if profile is not None:
+        emit({"phase": "paper_train_profile", "minibatch": mb, **profile})
+    for s in warm:
+        if (s["fused_s2v_layer_csr"], s["csr_aggregate"]) != want \
+                or not math.isfinite(s["loss"]):
+            raise AssertionError(f"paper-scale train step: {s}")
+    emit({"phase": "paper_train", "rep": "csr", "N": n, "directed_edges":
+          int(source.indptr[0, -1]), "edge_slots": e,
+          "episode_graphs": PAPER_EPISODE, "minibatch": mb,
+          "minibatch_cut": mb != PAPER_MINIBATCHES[0], "tau": TRAIN_TAU,
+          "target_mode": "fresh", "replay_capacity": PAPER_REPLAY,
+          "replay_capacity_cut_from": TRAIN_CFG["replay_capacity"],
+          "dataset_build_s": build_s,
+          "first_warm_step_s": warm[0]["seconds"],
+          "next_warm_step_s": [s["seconds"] for s in warm[1:]],
+          "cold_steps": len(steps) - len(warm),
+          "cold_step_s": [s["seconds"] for s in steps if not s["warm"]],
+          "peak_device_bytes": max(s["peak_device_bytes"] for s in warm),
+          "peak": peak,
+          # the minibatch state's arrays and the scores' transients, from
+          # the shapes
+          "reckoned_bytes": {"indices": 4 * mb * e, "edge_mask": mb * e,
+                             "row_ids": 4 * mb * e, "factors": 4 * mb * e},
+          "launches_per_warm_step": {
+              "fused_s2v_layer_csr": warm[0]["fused_s2v_layer_csr"],
+              "csr_aggregate": warm[0]["csr_aggregate"]},
+          "losses": [s["loss"] for s in warm],
+          "paper_s": PAPER_STEP_S,
+          "note": "the paper's figure: one RL training step on one GPU of "
+                  "Summit, >30M edges (its abstract); not a comparison"})
+    torch.cuda.empty_cache()
+    check_paper_minibatch(torch, source, mb, rows, failures)
+    del source
+    torch.cuda.empty_cache()
 
 
 def phase_paper_scale(torch, policy):
     """Phase 4: one ER(20480, 0.15) graph solved on the card on all three
     reps (sparse and CSR from batches built on the host first); the reps
     of ``PAPER_TRACE`` also traced (``traced_solve``).  Returns the graph,
-    its sparse batch on the host and each rep's answer (and trace), for
-    the paper-scale mesh solves."""
+    its sparse batch on the host, its CSR batch on the card (phase 4b's
+    dataset) and each rep's answer (and trace), for the paper-scale mesh
+    solves."""
     from repro_torch.core import (SparseGraphBatch, csr_batch_from_dense,
                                   solve, sparse_batch_from_dense)
     from repro_torch.core.graphs import edge_count, erdos_renyi
@@ -1681,7 +2166,7 @@ def phase_paper_scale(torch, policy):
             graph = SparseGraphBatch(sparse_host.neighbors.to(DEVICE),
                                      sparse_host.valid.to(DEVICE))
         else:
-            graph = csr_batch_from_dense(adj, device=DEVICE)
+            graph = csr_graph = csr_batch_from_dense(adj, device=DEVICE)
         build_s = time.perf_counter() - t0
         reset_counts()
         t0 = time.perf_counter()
@@ -1705,7 +2190,9 @@ def phase_paper_scale(torch, policy):
               "equal_to_dense": bool(np.array_equal(
                   res.solution[0], single["dense"]["solution"])),
               "peak_device_bytes": single[rep]["peak_device_bytes"]})
-        del graph, res
+        del res
+        if rep != "csr":
+            del graph
         if any(r == rep for r, _ in PAPER_TRACE):
             torch.cuda.empty_cache()
             t0 = time.perf_counter()
@@ -1718,7 +2205,8 @@ def phase_paper_scale(torch, policy):
             emit({"phase": "paper_trace", "rep": rep, "N": n,
                   "evals": len(trace[0]),
                   "seconds": time.perf_counter() - t0})
-    return {"adj": adj, "sparse_host": sparse_host, "single": single}
+    return {"adj": adj, "sparse_host": sparse_host, "csr": csr_graph,
+            "single": single}
 
 
 MESH_KERNEL = {("dense", "fused"): "mp_aggregate",
@@ -2389,6 +2877,8 @@ def graph_timing(torch, case, label, extra=None,
     if sp is not None and "sparse_mp_aggregate" in names:
         out["sparse_mp_aggregate"] = timing_sparse_aggregate(
             torch, case, label, spmm)
+    if "csr_aggregate" in names:
+        out["csr_aggregate"] = timing_csr_aggregate(torch, case, label, spmm)
     if "fused_s2v_layer_csr" in names:
         row = {"B": b, "K": k, "N": n, "E": cs.num_edges, "edges": nnz_csr,
                **(extra or {})}
@@ -2485,9 +2975,11 @@ def timing_sparse_aggregate(torch, case, label, spmm):
         4 * (b * k * (n + 1) + b * k * n) + 8 * b * n * d,
         2 * k * int(sp.valid.sum()))
     args = (xp, sp.neighbors, edge)
-    row["ms_f32"] = cuda_ms(torch, lambda: kg.sparse_mp_aggregate(*args))
-    row["plain_ms"] = cuda_ms(
-        torch, lambda: kg.sparse_mp_aggregate_plain(*args))
+    for compute, plain in (("f32", "plain_ms"), ("bf16", "plain_ms_bf16")):
+        row[f"ms_{compute}"] = cuda_ms(
+            torch, lambda: kg.sparse_mp_aggregate(*args, compute))
+        row[plain] = cuda_ms(
+            torch, lambda: kg.sparse_mp_aggregate_plain(*args, compute))
     row["library_ms"] = cuda_ms(torch, spmm)
     emit({"phase": "timing", "kernel": "sparse_mp_aggregate",
           "shape": label, **row})
@@ -2512,6 +3004,33 @@ def timing_sparse_aggregate(torch, case, label, spmm):
     return row
 
 
+def timing_csr_aggregate(torch, case, label, spmm):
+    """B5's aggregate entry on a graph case (the wrapper, its node-major
+    copy of x included) at f32 and bf16, its plain version (row ids made
+    outside the timing) and the library ``spmm``, which computes the f32
+    function."""
+    from repro_torch.core.graphs import csr_row_ids
+    _, _, kc = kernel_modules()
+    cs, x, edge_w = case["cs"], case["x"], case["edge_w"]
+    b, k, n = x.shape
+    nnz = int(cs.indptr[:, -1].sum())
+    row = {"B": b, "K": k, "N": n, "E": cs.num_edges, "edges": nnz}
+    # indptr, the real edges' (id, factor) and x in, out; 2·K FLOPs an edge
+    row["bound_ms"], row["bound_by"] = bound(
+        4 * (b * (n + 1) + 2 * b * k * n) + 8 * nnz, 2 * k * nnz)
+    args = (x, cs.indices, cs.indptr, edge_w)
+    rid = csr_row_ids(cs.indptr, cs.num_edges)
+    for compute, plain in (("f32", "plain_ms"), ("bf16", "plain_ms_bf16")):
+        row[f"ms_{compute}"] = cuda_ms(
+            torch, lambda: kc.csr_aggregate(*args, compute))
+        row[plain] = cuda_ms(torch, lambda: kc.csr_aggregate_plain(
+            x, cs.indices, rid, edge_w, compute))
+    row["library_ms"] = cuda_ms(torch, spmm)
+    emit({"phase": "timing", "kernel": "csr_aggregate", "shape": label,
+          **row})
+    return row
+
+
 def phase_timing(torch, ks, dev, ba_cs,
                  names=GRAPH_LAYERS + GRAPH_AGGREGATES):
     """Phase 5: device times beside the bound for the graph kernels among
@@ -2523,7 +3042,8 @@ def phase_timing(torch, ks, dev, ba_cs,
         rows["fused_s2v_layer"] = timing_dense(torch, ks, dev)
     if "mp_aggregate" in names:
         rows["mp_aggregate"] = timing_agg(torch, ks, dev)
-    graph = [n for n in names if n in ROUTED + ("sparse_mp_aggregate",)]
+    graph = [n for n in names
+             if n in ROUTED + ("sparse_mp_aggregate", "csr_aggregate")]
     if graph:
         for label, b, n, real, width, edges in (
                 ("serving", *BUCKET, SPARSE_MAX_DEGREE, CSR_MAX_EDGES),
@@ -2555,6 +3075,8 @@ REPLACES = {
                             "src/repro/kernels/s2v_gather.py:53"),
     "fused_s2v_layer_csr": ("src/repro_torch/kernels/csrc/s2v_csr.cu",
                             "src/repro/kernels/s2v_csr.py:83"),
+    "csr_aggregate": ("src/repro_torch/kernels/csrc/s2v_csr.cu",
+                      "src/repro/kernels/s2v_csr.py:83"),
     "wkv6_chunked": ("src/repro_torch/kernels/csrc/wkv6.cu",
                      "src/repro/kernels/wkv6.py:75"),
     "swa_attention": ("src/repro_torch/kernels/csrc/swa.cu",
@@ -2712,9 +3234,13 @@ def main(argv=None) -> int:
     with timed_phase("card_vs_cpu"):
         phase_card_vs_cpu(torch, policy)
     with timed_phase("train"):
-        phase_train(torch, policy, adjs)
+        train_main, train_bf16 = phase_train(torch, policy, adjs, rows,
+                                             failures)
+    launches["csr_aggregate"] = train_main["csr_aggregate"]
     with timed_phase("paper_scale"):
         paper = phase_paper_scale(torch, policy)
+    with timed_phase("paper_train"):
+        phase_paper_train(torch, paper.pop("csr"), rows, failures)
     with timed_phase("mesh"):
         launches["mp_aggregate"] = phase_mesh(torch, policy, cfg, adjs,
                                               paper)["mp_aggregate"]
@@ -2729,9 +3255,12 @@ def main(argv=None) -> int:
                                  "version:\n" + "\n".join(failures))
         phase_ba(torch, policy, indptr, indices, ba_cs, gen_s)
         del indptr, indices
-    max_err = {name: max(r["max_abs_err"] for r in rows
-                         if r["kernel"] == name and r["compute"] == "f32")
-               for name in REPLACES}
+    max_err = {(name, compute): max(r["max_abs_err"] for r in rows
+                                    if r["kernel"] == name
+                                    and r["compute"] == compute)
+               for name in REPLACES for compute in ("f32", "bf16")
+               if any(r["kernel"] == name and r["compute"] == compute
+                      for r in rows)}
     batch = bucket_batch()
     with timed_phase("sparse_xla_chain"):
         launches["sparse_mp_aggregate"] = phase_xla_chain(torch, policy,
@@ -2747,12 +3276,22 @@ def main(argv=None) -> int:
 
     kernels = {"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": launches[name], "max_abs_err": max_err[name],
+        "launches": launches[name], "max_abs_err": max_err[name, "f32"],
         "ms": timing[name]["ms_f32"], "plain_ms": timing[name]["plain_ms"],
         "bound_ms": timing[name]["bound_ms"],
         "bound_by": timing[name]["bound_by"],
         "library_ms": timing[name]["library_ms"]}
-        for name, (source, replaces) in REPLACES.items()]}
+        for name, (source, replaces) in REPLACES.items()] + [{
+        # the aggregates at bf16, as the bf16 train_agent episodes ran
+        # them; no one PyTorch call rounds the operands at use
+        "name": f"{name}_bf16", "route": "cuda",
+        "source": REPLACES[name][0], "replaces": REPLACES[name][1],
+        "launches": train_bf16[name], "max_abs_err": max_err[name, "bf16"],
+        "ms": timing[name]["ms_bf16"],
+        "plain_ms": timing[name]["plain_ms_bf16"],
+        "bound_ms": timing[name]["bound_ms"],
+        "bound_by": timing[name]["bound_by"], "library_ms": None}
+        for name in ("sparse_mp_aggregate", "csr_aggregate")]}
     print_card()
     emit(kernels)
     emit({"ok": True, "device": {"platform": "gpu",

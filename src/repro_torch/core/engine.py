@@ -9,7 +9,7 @@ minibatches once the replay is warm.  The JAX step is one jitted call;
 here it is a Python function that queues device work and reads nothing
 back from the device: the replay's size and the step count are host ints,
 and the caller makes the step's one fetch (``training.train_agent``).  It
-runs on one device, on the dense rep, for mvc.
+runs on one device, on the dense, sparse and CSR reps, for mvc.
 
 ``torch.Generator`` cannot replay JAX's threefry key schedule, so each step
 takes its random draws (:class:`TrainDraws`) as an argument:
@@ -117,17 +117,12 @@ def epsilon_f32(cfg: PolicyConfig, step_count: int) -> float:
                  + np.float32(cfg.eps_end - cfg.eps_start) * frac)
 
 
-def check_train_options(cfg: PolicyConfig, rep: GraphRep,
-                        problem: str) -> None:
+def check_train_options(cfg: PolicyConfig, problem: str) -> None:
     """Refuse what the port does not train yet, naming its ROADMAP item."""
     if normalize_spatial(cfg.spatial) != (1, 1):
         raise NotImplementedError(
             f"training on a mesh (spatial={cfg.spatial!r}) is not ported "
             f"yet: ROADMAP item \"the mesh's train half\"")
-    if rep.name != "dense":
-        raise NotImplementedError(
-            f"training on the {rep.name} rep is not ported yet: ROADMAP "
-            f"item \"training on the sparse and CSR reps\"")
     if problem != "mvc":
         env_lib.make(problem)            # an unknown name is a ValueError
         raise NotImplementedError(
@@ -157,7 +152,7 @@ def get_train_step(cfg: PolicyConfig, *,
     env transition), target, rematerialize, and the minibatch step's
     forward, backward and adam (and draw, in :func:`draw_train_step`)."""
     rep = get_rep(rep if rep is not None else cfg.graph_rep)
-    check_train_options(cfg, rep, problem)
+    check_train_options(cfg, problem)
     if target_mode not in ("fresh", "stored"):
         raise ValueError(f"unknown target_mode {target_mode!r}")
     tau = cfg.grad_iters if tau is None else tau
@@ -169,8 +164,8 @@ def get_train_step(cfg: PolicyConfig, *,
                      compute=cfg.compute)
     stored = target_mode == "stored"
 
-    def train_step(es: EngineState, state, source: torch.Tensor,
-                   graph_idx: torch.Tensor, draws: TrainDraws):
+    def train_step(es: EngineState, state, source, graph_idx: torch.Tensor,
+                   draws: TrainDraws):
         # warm once the push below leaves ``mb`` tuples in the replay
         b = state.candidate.shape[0]
         warm = min(es.replay.size + b, es.replay.capacity) >= mb
@@ -213,8 +208,9 @@ def get_train_step(cfg: PolicyConfig, *,
                 with record_function("train_step.target"):
                     nxt = max_q_raw(es.params, st2, **policy_kw)
                     tgt = rew + gamma * nxt * (1.0 - dn)
-                # one (B, N, N) minibatch state alive at a time: 4.3 GB at
-                # B = 64, N = 4096
+                # one minibatch state alive at a time: the dense rep's
+                # (B, N, N) copy is 4.3 GB at B = 64, N = 4096, the CSR
+                # rep's arrays 20.1 GB at B = 64 of ER(20480, 0.15)
                 del st2
             with record_function("train_step.rematerialize"):
                 st = rep.state_from_tuples(source, gi, sol,

@@ -15,9 +15,9 @@ holds one rank's topology rows and the whole masks; its commit updates
 its own rows and all-gathers the residual degrees over the graph axis,
 so every rank derives the same candidates and ``done``, bit for bit the
 single-device values.  ``prepare_dataset`` and ``state_from_tuples`` (replay
-re-materialization, Alg. 5 line 21) are ported for the dense rep; the
-sparse and CSR reps' wait for ROADMAP item "training on the sparse and CSR
-reps".
+re-materialization, Alg. 5 line 21) are ported for the three reps, in the
+"solution" and "none" residual modes; the "closed" mode (MIS) waits for
+ROADMAP item "the other three problems".
 """
 from __future__ import annotations
 
@@ -31,7 +31,8 @@ from .graphs import (CsrGraphBatch, CsrGraphState, GraphState,
                      SparseGraphBatch, SparseGraphState, csr_batch_from_dense,
                      csr_init_state, csr_residual_edge_mask, csr_row_ids,
                      csr_segment_sum, init_state, residual_edge_mask,
-                     sparse_batch_from_dense, sparse_init_state)
+                     sparse_batch_from_dense, sparse_init_state,
+                     symmetric_topology)
 from .mesh import gather_rows, local_rows
 from .policy import Policy, policy_scores
 from .s2v_csr import csr_policy_scores, csr_state_bytes
@@ -64,9 +65,11 @@ class GraphRep:
 
     def prepare_dataset(self, adj_stack, *, device: DeviceLike = "cuda"):
         """(G, N, N) training graphs → the dataset source on ``device``."""
-        raise NotImplementedError(
-            f"training datasets on the {self.name} rep are not ported yet: "
-            f"ROADMAP item \"training on the sparse and CSR reps\"")
+        raise NotImplementedError
+
+    def dataset_shape(self, source):
+        """(G, N): the dataset's graph count and node count."""
+        return source.batch, source.num_nodes
 
     def state_from_tuples(self, source, graph_idx, solutions, residual=True,
                           candidate_fn=None):
@@ -74,10 +77,7 @@ class GraphRep:
         from the dataset source, (B,) graph ids and (B, N) solution masks.
         ``residual`` is the env's topology mode, ``candidate_fn`` its
         candidate rule (``env.register``)."""
-        raise NotImplementedError(
-            f"replay re-materialization on the {self.name} rep is not "
-            f"ported yet: ROADMAP item \"training on the sparse and CSR "
-            f"reps\"")
+        raise NotImplementedError
 
     def __repr__(self):
         return f"GraphRep({self.name})"
@@ -105,6 +105,9 @@ class DenseRep(GraphRep):
         return torch.as_tensor(adj_stack).to(device=resolve_device(device),
                                              dtype=torch.float32)
 
+    def dataset_shape(self, source: torch.Tensor):
+        return source.shape[0], source.shape[-1]
+
     def state_from_tuples(self, source: torch.Tensor, graph_idx, solutions,
                           residual=True, candidate_fn=None) -> GraphState:
         """The residual graphs of the tuples, gathered from ``source``
@@ -112,12 +115,7 @@ class DenseRep(GraphRep):
         (B, N, N) copy is the state's own, so "solution" mode masks it in
         place (two in-place multiplies, the values of
         ``residual_adjacency``): at B = 64, N = 4096 one copy is 4.3 GB."""
-        from .env import normalize_residual_mode
-        mode = normalize_residual_mode(residual)
-        if mode == "closed":
-            raise NotImplementedError(
-                "closed-neighbourhood residuals (MIS) are not ported yet: "
-                "ROADMAP item \"the other three problems\"")
+        mode = tuples_mode(residual)
         sol = torch.as_tensor(solutions, device=source.device).to(
             torch.float32)
         adj = source[torch.as_tensor(graph_idx, device=source.device)]
@@ -125,11 +123,9 @@ class DenseRep(GraphRep):
             keep = 1.0 - sol
             adj.mul_(keep[:, :, None])
             adj.mul_(keep[:, None, :])
-        state = GraphState(adj=adj, candidate=candidate_mask(adj, sol),
-                           solution=sol)
-        if candidate_fn is not None:
-            state = dataclasses.replace(state, candidate=candidate_fn(state))
-        return state
+        return with_candidate_rule(
+            GraphState(adj=adj, candidate=candidate_mask(adj, sol),
+                       solution=sol), candidate_fn)
 
     def scores(self, params, state: GraphState, *, num_layers,
                masked=True, kernel="fused", compute="f32") -> torch.Tensor:
@@ -166,12 +162,45 @@ class DenseRep(GraphRep):
                    + state.candidate.numel() * 4 + state.solution.numel() * 4)
 
 
+def tuples_mode(residual) -> str:
+    """The env's residual mode for re-materialization: "solution" or
+    "none"; "closed" (MIS) is refused."""
+    from .env import normalize_residual_mode
+    mode = normalize_residual_mode(residual)
+    if mode == "closed":
+        raise NotImplementedError(
+            "closed-neighbourhood residuals (MIS) are not ported yet: "
+            "ROADMAP item \"the other three problems\"")
+    return mode
+
+
+def with_candidate_rule(state, candidate_fn):
+    """``state`` with the env's candidate rule applied, if it has one."""
+    if candidate_fn is None:
+        return state
+    return dataclasses.replace(state, candidate=candidate_fn(state))
+
+
 def _topology_to(g, dev: torch.device):
     """``g`` (a batch or state) with its tensors on ``dev``; tensors
     already there are shared, not copied."""
     return dataclasses.replace(g, **{
         f.name: getattr(g, f.name).to(dev) for f in dataclasses.fields(g)
         if isinstance(getattr(g, f.name), torch.Tensor)})
+
+
+def symmetric_dataset(source):
+    """``source``, a training dataset of padded lists or CSR arrays, once
+    its graphs are checked symmetric (``graphs.symmetric_topology``): the
+    sparse and CSR layers' backwards take each aggregate as its own
+    transpose, so on a one-sided edge list they would train on wrong
+    gradients."""
+    if not symmetric_topology(source):
+        raise ValueError(
+            "the sparse and CSR reps train only on symmetric graphs (u "
+            "lists v as often as v lists u, as the env builds them): their "
+            "layers' backwards take each aggregate as its own transpose")
+    return source
 
 
 class SparseRep(GraphRep):
@@ -196,6 +225,37 @@ class SparseRep(GraphRep):
             return sparse_init_state(_topology_to(adj, dev))
         return sparse_init_state(sparse_batch_from_dense(
             adj, self.max_degree, device=dev))
+
+    def prepare_dataset(self, adj_stack, *,
+                        device: DeviceLike = "cuda") -> SparseGraphBatch:
+        """The (G, N, N) training graphs as padded lists on ``device``
+        (width ``max_degree``, or the stack's largest degree); a given
+        SparseGraphBatch is moved there.  Its graphs must be symmetric
+        (``symmetric_dataset``; ValueError otherwise)."""
+        if isinstance(adj_stack, SparseGraphBatch):
+            return symmetric_dataset(_topology_to(adj_stack,
+                                                  resolve_device(device)))
+        return symmetric_dataset(sparse_batch_from_dense(
+            adj_stack, self.max_degree, device=device))
+
+    def state_from_tuples(self, source: SparseGraphBatch, graph_idx,
+                          solutions, residual=True,
+                          candidate_fn=None) -> SparseGraphState:
+        """The tuples' states: their graphs' lists gathered from
+        ``source`` (the state's own copy, never rewritten) and the masks;
+        the residual factors derive from the solution mask wherever they
+        are needed."""
+        mode = tuples_mode(residual)
+        dev = source.device
+        sol = torch.as_tensor(solutions, device=dev).to(torch.float32)
+        gi = torch.as_tensor(graph_idx, device=dev).long()
+        nbrs, valid = source.neighbors[gi], source.valid[gi]
+        deg = (residual_edge_mask(nbrs, valid, sol).sum(-1)
+               if mode == "solution" else valid.sum(-1))
+        return with_candidate_rule(SparseGraphState(
+            neighbors=nbrs, valid=valid,
+            candidate=((deg > 0) & (sol < 0.5)).to(torch.float32),
+            solution=sol, residual=mode == "solution"), candidate_fn)
 
     def scores(self, params, state: SparseGraphState, *, num_layers,
                masked=True, kernel="fused", compute="f32") -> torch.Tensor:
@@ -244,6 +304,42 @@ class CsrRep(GraphRep):
             return csr_init_state(_topology_to(adj, dev))
         return csr_init_state(csr_batch_from_dense(adj, self.max_edges,
                                                    device=dev))
+
+    def prepare_dataset(self, adj_stack, *,
+                        device: DeviceLike = "cuda") -> CsrGraphBatch:
+        """The (G, N, N) training graphs as CSR arrays on ``device`` (edge
+        capacity ``max_edges``, or the stack's largest edge count); a given
+        CsrGraphBatch (``graphs.csr_batch_from_arrays`` builds one with no
+        dense array) is moved there.  Its graphs must be symmetric
+        (``symmetric_dataset``; ValueError otherwise)."""
+        if isinstance(adj_stack, CsrGraphBatch):
+            return symmetric_dataset(_topology_to(adj_stack,
+                                                  resolve_device(device)))
+        return symmetric_dataset(csr_batch_from_dense(
+            adj_stack, self.max_edges, device=device))
+
+    def state_from_tuples(self, source: CsrGraphBatch, graph_idx, solutions,
+                          residual=True, candidate_fn=None) -> CsrGraphState:
+        """The tuples' states: their graphs' CSR arrays gathered from
+        ``source`` (the state's own copy, never rewritten) and the masks.
+        At B = 64 graphs of ER(20480, 0.15) the copy holds 16.1 GB of
+        indices and 4.0 GB of mask; the degrees' row ids and factors are
+        transients (``graphs.CHUNK_SLOTS``)."""
+        mode = tuples_mode(residual)
+        dev = source.device
+        sol = torch.as_tensor(solutions, device=dev).to(torch.float32)
+        gi = torch.as_tensor(graph_idx, device=dev).long()
+        indptr, indices = source.indptr[gi], source.indices[gi]
+        mask = source.edge_mask[gi]
+        rid = csr_row_ids(indptr, indices.shape[1])
+        edge = (csr_residual_edge_mask(indices, mask, rid, sol)
+                if mode == "solution" else mask.to(torch.float32))
+        deg = csr_segment_sum(edge, rid, sol.shape[1])
+        del rid, edge
+        return with_candidate_rule(CsrGraphState(
+            indptr=indptr, indices=indices, edge_mask=mask,
+            candidate=((deg > 0) & (sol < 0.5)).to(torch.float32),
+            solution=sol, residual=mode == "solution"), candidate_fn)
 
     def scores(self, params, state: CsrGraphState, *, num_layers,
                masked=True, kernel="fused", compute="f32") -> torch.Tensor:

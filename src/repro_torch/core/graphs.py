@@ -384,6 +384,30 @@ class CsrGraphState:
         return self.indptr.device
 
 
+# A CSR batch of more than CHUNK_SLOTS edge slots in all is taken a few
+# graphs at a time by the helpers below, so that their transients (int64
+# ids, f64 prefix sums, products) stay near CHUNK_SLOTS elements: a
+# paper-scale minibatch (64 graphs of 62.9M directed edges) would need
+# 32 GB for each int64 or f64 copy.  Every graph is computed alone either
+# way, so the values are the same.
+CHUNK_SLOTS = 1 << 28
+
+
+def _by_graphs(fn, shape, dtype: torch.dtype, num_edges: int,
+               *tensors) -> Optional[torch.Tensor]:
+    """``fn`` over a few graphs of ``tensors`` at a time, into a new tensor
+    of ``shape``, when the batch exceeds CHUNK_SLOTS slots; None otherwise
+    (the caller then computes the batch in one pass)."""
+    b = shape[0]
+    step = max(1, CHUNK_SLOTS // max(num_edges, 1))
+    if b <= step:
+        return None
+    out = torch.empty(shape, dtype=dtype, device=tensors[0].device)
+    for i in range(0, b, step):
+        out[i:i + step] = fn(*(t[i:i + step] for t in tensors))
+    return out
+
+
 def csr_row_ids(indptr: torch.Tensor, num_edges: int) -> torch.Tensor:
     """(B, N+1) indptr → (B, E) int32 source row of each edge slot:
     ``row_ids[j] = #{i ∈ 1..N-1 : indptr[i] ≤ j}``, the inclusive cumsum
@@ -395,6 +419,10 @@ def csr_row_ids(indptr: torch.Tensor, num_edges: int) -> torch.Tensor:
     inner dimension of few rows is slow on the card) and each graph then
     subtracts the count of the graphs before it."""
     b = indptr.shape[0]
+    out = _by_graphs(lambda ip: csr_row_ids(ip, num_edges), (b, num_edges),
+                     torch.int32, num_edges, indptr)
+    if out is not None:
+        return out
     inc = torch.zeros((b, num_edges + 1), dtype=torch.int32,
                       device=indptr.device)
     bounds = indptr[:, 1:-1].long()
@@ -417,6 +445,10 @@ def csr_segment_sum(values: torch.Tensor, row_ids: torch.Tensor,
     within a graph do not see the graphs before it), so sums of 0/1 edge
     factors are exact at any edge count."""
     b, e = values.shape
+    out = _by_graphs(lambda v, r: csr_segment_sum(v, r, num_nodes),
+                     (b, num_nodes), values.dtype, e, values, row_ids)
+    if out is not None:
+        return out
     prefix = torch.nn.functional.pad(values.double().reshape(-1).cumsum(0),
                                      (1, 0))
     rows = torch.arange(num_nodes + 1, dtype=row_ids.dtype,
@@ -431,10 +463,37 @@ def csr_residual_edge_mask(indices: torch.Tensor, edge_mask: torch.Tensor,
                            solution: torch.Tensor) -> torch.Tensor:
     """(B, E) float32 residual-edge factors: mask ∧ keep[row] ∧ keep[col],
     the CSR analogue of :func:`residual_edge_mask`."""
+    out = _by_graphs(csr_residual_edge_mask, indices.shape, torch.float32,
+                     indices.shape[1], indices, edge_mask, row_ids, solution)
+    if out is not None:
+        return out
     keep = 1.0 - solution
     keep_pad = torch.nn.functional.pad(keep, (0, 1))        # sentinel slot
     return (edge_mask.to(torch.float32) * _gather_nodes(keep_pad, indices)
             * _gather_nodes(keep, row_ids))
+
+
+def symmetric_topology(g) -> bool:
+    """Whether every graph of a padded-list or CSR batch is symmetric: its
+    live (u, v) slots, counted with multiplicity, are its (v, u) slots.
+    The env builds only such graphs, and the sparse and CSR layers'
+    backwards need them (``core.s2v.self_adjoint_layer_grads``).  One
+    graph at a time: two sorts of its live slots' int64 keys."""
+    n = g.num_nodes
+    if isinstance(g, CsrGraphBatch):
+        cols, live = g.indices, g.edge_mask
+        rows = csr_row_ids(g.indptr, g.num_edges)
+    else:
+        cols, live = g.neighbors, g.valid
+        rows = torch.arange(n, device=cols.device)[:, None].expand(
+            cols.shape[1:])
+    for i in range(g.batch):
+        r = (rows[i] if rows.dim() == cols.dim() else rows)[live[i]].long()
+        c = cols[i][live[i]].long()
+        if bool(((c < 0) | (c >= n)).any()) or not torch.equal(
+                torch.sort(r * n + c).values, torch.sort(c * n + r).values):
+            return False
+    return True
 
 
 def csr_batch_from_dense(adj, max_edges: Optional[int] = None, *,

@@ -116,6 +116,42 @@ class _FusedDenseLayer(torch.autograd.Function):
         return grads.get(0), grads.get(1), None, grads.get(3), None
 
 
+def self_adjoint_layer_grads(theta4: torch.Tensor, x: torch.Tensor,
+                             base: torch.Tensor, grad: torch.Tensor,
+                             aggregate, compute: str, needs):
+    """The gradients of one sparse or CSR layer, ``relu(base + cd(θ4) @
+    cd(agg))`` with ``agg = A(x)`` an f32 sum of ``cd(x)·cd(w)``, in closed
+    form: the vjp of JAX's compositions (``repro/core/s2v_sparse.py::
+    _sparse_layer_jnp``, ``repro/core/s2v_csr.py::_csr_layer_jnp``), cd
+    being the compute-dtype rounding (``round_cd``).
+
+    ``aggregate`` is A on one (B, K, N) tensor.  It must be linear and its
+    own transpose (Aᵀ = A): the input's gradient is then one more
+    aggregate, of the pre-activation's gradient through θ4, so no gathered
+    (B, K, N, D) or (B, K, E) tensor and no scatter-add is formed.  That
+    holds for every graph the env builds: its neighbour lists and CSR
+    arrays are symmetric (u lists v iff v lists u), and so are the factors
+    ``valid ∧ keep[u] ∧ keep[v]`` and ``edge_mask``.  ``pre`` is recomputed
+    from a second A(x), as JAX's ``custom_vjp`` recomputes the composition,
+    so the ReLU mask comes from ``pre``, not from the kernel's output.
+    ``needs`` says which of (θ4, x, base) want a gradient; the others are
+    None.  Two launches of A at most."""
+    need_t4, need_x, need_base = needs
+    if not any(needs):
+        return None, None, None
+    t4 = round_cd(theta4, compute)
+    agg = round_cd(aggregate(x), compute)
+    pre = base + torch.matmul(t4, agg)
+    dpre = torch.where(pre > 0, grad, torch.zeros_like(grad))
+    dt4 = dx = None
+    if need_t4:
+        dt4 = round_cd(torch.einsum("bkn,bjn->kj", dpre, agg), compute)
+    if need_x:
+        dagg = round_cd(torch.matmul(t4.t(), dpre), compute)
+        dx = round_cd(aggregate(dagg.contiguous()), compute)
+    return dt4, dx, dpre if need_base else None
+
+
 class _AggregateFused(torch.autograd.Function):
     """Autograd hook around the aggregate of the sharded dense path.  Its
     backward belongs to the mesh's train half (the JAX ``custom_vjp``

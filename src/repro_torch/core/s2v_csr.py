@@ -13,17 +13,25 @@ derive from the partial solution (:func:`csr_edge_factors`).
 the card), with layer 0 elided as on the other representations.
 ``kernel="xla"`` is the reference per-op chain in plain PyTorch (the JAX
 CSR chain calls no Pallas kernel either).
+
+Training differentiates the fused layer in closed form: with symmetric
+CSR arrays (u lists v iff v lists u, with equal factors: true of every
+graph the env builds), the input's gradient is one more aggregate
+(``kernels.s2v_csr.csr_aggregate``, B5's aggregate entry on the card),
+so no gathered (B, K, E) tensor and no scatter-add is formed.
 """
 from __future__ import annotations
 
 import torch
 
-from ..kernels.s2v_csr import csr_aggregate_plain, fused_s2v_layer_csr
+from ..kernels.s2v_csr import (csr_aggregate, csr_aggregate_plain,
+                               fused_s2v_layer_csr)
 from .graphs import (CsrGraphState, csr_residual_edge_mask, csr_row_ids,
                      csr_segment_sum)
 from .qmodel import scores_local
-from .s2v import check_kernel, compute_dtype, s2v_base
-from .s2v_sparse import check_residual
+from .s2v import (check_kernel, compute_dtype, s2v_base,
+                  self_adjoint_layer_grads)
+from .s2v_sparse import check_no_factor_grad, check_residual
 
 
 def csr_edge_factors(indices: torch.Tensor, edge_mask: torch.Tensor,
@@ -38,20 +46,34 @@ def csr_edge_factors(indices: torch.Tensor, edge_mask: torch.Tensor,
 
 
 class _FusedCsrLayer(torch.autograd.Function):
-    """Autograd hook around the fused CSR layer.  Its backward belongs to
-    training on the sparse and CSR reps (the JAX ``custom_vjp`` differentiates the
-    composition, ``repro/core/s2v_csr.py:_csr_layer_hw_bwd``)."""
+    """Autograd hook around the fused CSR layer: the kernel forward, and
+    the closed-form gradient of JAX's composition
+    (``repro/core/s2v_csr.py:_csr_layer_hw_bwd``) through two launches of
+    the CSR aggregate at the layer's compute mode: one recomputes agg, one
+    forms the input's gradient, which equals the aggregate of the
+    pre-activation's gradient only because the CSR arrays are symmetric
+    (``core.s2v.self_adjoint_layer_grads``).  The topology and the factors
+    get no gradient."""
 
     @staticmethod
     def forward(ctx, theta4, x, indices, indptr, edge_w, base, compute):
+        ctx.save_for_backward(theta4, x, indices, indptr, edge_w, base)
+        ctx.compute = compute
         return fused_s2v_layer_csr(theta4, x, indices, indptr, edge_w, base,
                                    compute)
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "the fused CSR S2V layer has no backward yet: ROADMAP item "
-            "\"training on the sparse and CSR reps\"")
+        theta4, x, indices, indptr, edge_w, base = ctx.saved_tensors
+        check_no_factor_grad(ctx, 4)
+
+        def aggregate(y):
+            return csr_aggregate(y, indices, indptr, edge_w, ctx.compute)
+        need = ctx.needs_input_grad
+        dt4, dx, dbase = self_adjoint_layer_grads(
+            theta4, x, base, grad.contiguous(), aggregate, ctx.compute,
+            (need[0], need[1], need[5]))
+        return dt4, dx, None, None, None, dbase, None
 
 
 def embed_csr_local(params, indptr: torch.Tensor, indices: torch.Tensor,

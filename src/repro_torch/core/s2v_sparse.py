@@ -17,6 +17,14 @@ aggregation exactly zero, so layer 1 is relu(embed1 + embed2)).
 ``kernel="xla"`` is the reference per-op chain; its aggregation is
 ``kernels.s2v_gather.sparse_mp_aggregate``, the CUDA kernel on the card,
 as the JAX chain runs its Pallas gather on the TPU.
+
+Training differentiates both lowerings on one device.  The backwards take
+the lists' symmetry (u lists v iff v lists u, with equal factors: true of
+every graph the env builds) to form each input gradient as one more
+aggregate (``core.s2v.self_adjoint_layer_grads``), so they form no
+gathered (B, K, N, D) tensor.  A row block of the lists (a mesh's graph
+axis) breaks that symmetry, so its backward is refused: it belongs to
+ROADMAP item "the mesh's train half".
 """
 from __future__ import annotations
 
@@ -29,7 +37,8 @@ from ..kernels.s2v_gather import sparse_mp_aggregate
 from .graphs import SparseGraphState, residual_edge_mask
 from .mesh import Axis, all_gather_tiled, check_axis
 from .qmodel import scores_local
-from .s2v import check_kernel, compute_dtype, s2v_base
+from .s2v import (check_kernel, compute_dtype, s2v_base,
+                  self_adjoint_layer_grads)
 
 
 def residual_edge_factors(nbr_local: torch.Tensor, valid_local: torch.Tensor,
@@ -67,20 +76,74 @@ def edge_factors(nbr_local: torch.Tensor, valid_local: torch.Tensor,
                                  axis=axis)
 
 
+def transposed_aggregate(nbr: torch.Tensor, edge: torch.Tensor, n: int,
+                         compute: str = "f32"):
+    """The transpose of the lists' aggregate, as a map of one (B, K, N)
+    tensor: the aggregate itself (B4 on the card, x's sentinel column
+    padded on), because the whole graph's symmetric lists are their own
+    transpose.  A row block's are not (Nl != N): refused."""
+    nl = nbr.shape[1]
+    if nl != n:
+        raise NotImplementedError(
+            f"the sparse layer's backward on a row block of the lists "
+            f"(Nl={nl} of N={n}) is not ported yet: ROADMAP item \"the "
+            f"mesh's train half\"")
+    return lambda y: sparse_mp_aggregate(torch.nn.functional.pad(y, (0, 1)),
+                                         nbr, edge, compute)
+
+
+def check_no_factor_grad(ctx, i: int) -> None:
+    if ctx.needs_input_grad[i]:
+        raise NotImplementedError(
+            "the sparse and CSR layers take no gradient with respect to "
+            "the edge factors")
+
+
 class _FusedSparseLayer(torch.autograd.Function):
-    """Autograd hook around the fused sparse layer.  Its backward belongs
-    to training on the sparse and CSR reps (the JAX ``custom_vjp`` differentiates the
-    composition, ``repro/core/s2v_sparse.py:_sparse_layer_hw_bwd``)."""
+    """Autograd hook around the fused sparse layer: the kernel forward,
+    and the closed-form gradient of JAX's composition
+    (``repro/core/s2v_sparse.py:_sparse_layer_hw_bwd``) through two
+    launches of the sparse aggregate (B4, at the layer's compute mode):
+    one recomputes agg, one forms the input's gradient, which equals the
+    aggregate of the pre-activation's gradient only because the lists are
+    symmetric (``core.s2v.self_adjoint_layer_grads``).  The lists and the
+    factors get no gradient; a row block of the lists is refused."""
 
     @staticmethod
     def forward(ctx, theta4, x, nbr, edge, base, compute):
+        ctx.save_for_backward(theta4, x, nbr, edge, base)
+        ctx.compute = compute
         return fused_s2v_layer_sparse(theta4, x, nbr, edge, base, compute)
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "the fused sparse S2V layer has no backward yet: ROADMAP item "
-            "\"training on the sparse and CSR reps\"")
+        theta4, x, nbr, edge, base = ctx.saved_tensors
+        check_no_factor_grad(ctx, 3)
+        need = ctx.needs_input_grad
+        dt4, dx, dbase = self_adjoint_layer_grads(
+            theta4, x, base, grad.contiguous(),
+            transposed_aggregate(nbr, edge, x.shape[2], ctx.compute),
+            ctx.compute, (need[0], need[1], need[4]))
+        return dt4, dx, None, None, dbase, None
+
+
+class _SparseAggregate(torch.autograd.Function):
+    """The "xla" chain's aggregation (B4 on the card) under autograd: the
+    gradient of x (B, K, N+1) is the aggregate of the output's gradient,
+    its sentinel column zero, by the lists' symmetry as above."""
+
+    @staticmethod
+    def forward(ctx, xp, nbr, edge):
+        ctx.save_for_backward(nbr, edge)
+        ctx.n = xp.shape[2] - 1
+        return sparse_mp_aggregate(xp, nbr, edge)
+
+    @staticmethod
+    def backward(ctx, grad):
+        nbr, edge = ctx.saved_tensors
+        check_no_factor_grad(ctx, 2)
+        dx = transposed_aggregate(nbr, edge, ctx.n)(grad.contiguous())
+        return torch.nn.functional.pad(dx, (0, 1)), None, None
 
 
 def embed_sparse_local(params, nbr_local: torch.Tensor,
@@ -116,7 +179,7 @@ def embed_sparse_local(params, nbr_local: torch.Tensor,
         # Reference per-op chain; the sentinel column makes padding inert.
         full = embed if axis is None else all_gather_tiled(embed, axis, 2)
         xp = torch.nn.functional.pad(full, (0, 1))
-        nbr = sparse_mp_aggregate(xp, nbr_local, edge_local)
+        nbr = _SparseAggregate.apply(xp, nbr_local, edge_local)
         embed3 = torch.einsum("kj,bjn->bkn", params.theta4, nbr)
         embed = torch.relu(base + embed3)
     return embed

@@ -83,7 +83,7 @@ def train_agent(
     residual = env_lib.residual_mode(problem)
     cand_fn = env_lib.candidate_rule(problem)
     source = rep.prepare_dataset(train_adj, device=agent.device)
-    g_count, n = source.shape[0], source.shape[-1]
+    g_count, n = rep.dataset_shape(source)
     es = engine_init(agent.cfg, agent.params, agent.opt, n, seed=seed,
                      step_count=agent.step_count)
     log = TrainLog()

@@ -6,7 +6,10 @@
 //
 // with p(x, w) = fmaf into the f32 sum at f32, and the bf16 product
 // cd(cd(x) * cd(w)) added in f32 at bf16 (the composition rounds x*w to bf16
-// before its f32 segment-sum).  Column ids outside [0, N), the padding
+// before its f32 segment-sum).  s2v_csr_aggregate writes agg itself: the
+// train step's backward of the layer recomputes agg and, for the symmetric
+// graphs the env builds, forms the input's gradient as one more aggregate
+// (core/s2v_csr.py).  Column ids outside [0, N), the padding
 // sentinel N included, add nothing and are never read.  Edge slots past
 // indptr[b, N] are padding (sentinel id, zero factor); a row-parallel walk
 // never visits them.
@@ -151,4 +154,25 @@ extern "C" int s2v_csr_layer_windowed(const float* theta4, const float* xt,
                            K, KP, N, N, E};
   return (int)s2v_window::launch_layer<s2v_window::CSR>(
       p, B, bf16, static_cast<cudaStream_t>(stream));
+}
+
+// The aggregate by the windowed walk: out (B, K, N) = agg, the f32 sums,
+// with xt, indptr, indices and edge_w as for s2v_csr_layer_windowed.
+// bf16 != 0 sums the bf16 products, as the layer does.  Returns the first
+// CUDA error, if any.
+extern "C" int s2v_csr_aggregate(const float* xt, const int* indptr,
+                                 const int* indices, const float* edge_w,
+                                 float* out, int B, int K, int KP, int N,
+                                 int E, int bf16, void* stream) {
+  if (B < 1 || B > 65535 || K < 1 || K > 32 || N < 1 || E < 1 ||
+      KP % 4 != 0 || KP < K || KP > 32 ||
+      (reinterpret_cast<uintptr_t>(xt) | reinterpret_cast<uintptr_t>(indices) |
+       reinterpret_cast<uintptr_t>(edge_w)) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const s2v_window::Args p{xt, indices, edge_w, indptr, nullptr, nullptr,
+                           out, K, KP, N, N, E};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(bf16
+      ? s2v_window::launch<s2v_window::CSR, true, false>(p, B, s)
+      : s2v_window::launch<s2v_window::CSR, false, false>(p, B, s));
 }

@@ -2,7 +2,7 @@
 // lists nbr (B, Nl, D) int32 with per-slot factors edge (B, Nl, D):
 //
 //   agg[b,k,i] = sum_d cd(x[b,k,nbr[b,i,d]]) * cd(edge[b,i,d])    (f32 sum)
-//   s2v_sparse_aggregate: out = agg                                (f32 only)
+//   s2v_sparse_aggregate: out = agg
 //   s2v_sparse_layer:     out[b,k,i] = relu(base[b,k,i] + sum_j cd(theta4[k,j]) * cd(agg[b,j,i]))
 //
 // cd() is the compute-dtype rounding (identity for f32, round to bf16 for
@@ -118,22 +118,28 @@ bool misaligned(const void* xt, const void* ids, const void* w) {
 
 // The aggregate.  xt (B, N+1, KP): the embeddings node-major with the
 // zero sentinel column, each row padded with zeros from K to KP = K rounded
-// up to a multiple of 4; nbr and edge (B, Nl, D), D a multiple of 4: the
-// neighbour lists of Nl nodes (Nl = N on one device, a row block of a graph
-// split over a mesh's graph axis otherwise), with global ids; out
-// (B, K, Nl).  f32.  xt, nbr and edge 16-byte aligned.  Returns the first
-// CUDA error, if any.
+// up to a multiple of 4; nbr and edge (B, Nl, D), any D: the neighbour
+// lists of Nl nodes (Nl = N on one device, a row block of a graph split
+// over a mesh's graph axis otherwise), with global ids; out
+// (B, K, Nl), the f32 sums.  bf16 != 0 rounds x and the factors to bf16 at
+// use, as the layer does.  xt, nbr and edge 16-byte aligned.  Returns the
+// first CUDA error, if any.
 extern "C" int s2v_sparse_aggregate(const float* xt, const int* nbr,
                                     const float* edge, float* out, int B,
                                     int K, int KP, int N, int Nl, int D,
-                                    void* stream) {
+                                    int bf16, void* stream) {
   if (bad_sizes(B, K, N + 1, Nl, D) || KP % 4 != 0 || KP < K || KP > 32 ||
-      D % 4 != 0 || misaligned(xt, nbr, edge))
+      misaligned(xt, nbr, edge))
     return (int)cudaErrorInvalidValue;
   const s2v_window::Args p{xt, nbr, edge, nullptr, nullptr, nullptr, out,
                            K, KP, N + 1, Nl, D};
-  return (int)s2v_window::launch<s2v_window::PADDED4, false, false>(
-      p, B, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using namespace s2v_window;
+  if (D % 4 == 0)
+    return (int)(bf16 ? launch<PADDED4, true, false>(p, B, s)
+                      : launch<PADDED4, false, false>(p, B, s));
+  return (int)(bf16 ? launch<PADDED, true, false>(p, B, s)
+                    : launch<PADDED, false, false>(p, B, s));
 }
 
 // The layer by the windowed walk.  theta4 (K, K); xt (B, N, KP): the

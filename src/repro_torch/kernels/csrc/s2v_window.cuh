@@ -1,6 +1,6 @@
 // The windowed walk of the gather kernels, shared by the padded-sparse
 // aggregate (B4) and fused layer (B3) in s2v_gather.cu and the CSR fused
-// layer (B5) in s2v_csr.cu:
+// layer (B5) and its aggregate in s2v_csr.cu:
 //
 //   agg[b,k,i] = sum over node i's slots of p(x[b, ids[slot], k], w[slot])
 //
@@ -24,12 +24,13 @@
 // from global memory for an id below it (only lists that are not
 // ascending have those), and a window that ends inside a chunk leaves an
 // offset into it.  Slots whose id lies outside [0, ncols) add nothing and
-// are passed over in any window; the aggregate also passes over the
-// sentinel N where x's sentinel column is zero (checked per block) and the
-// factor finite, since such a slot adds exactly zero.  No slot is passed
-// over because of its factor alone.  So every other slot is summed once,
-// in slot order, and each output is the same fmaf chain as the row walk's
-// (s2v_rows.cuh) and the dense layer's, less additions of exact zeros.
+// are passed over in any window; the padded lists' aggregate also passes
+// over the sentinel N where x's sentinel column is zero (checked per block)
+// and the factor finite, since such a slot adds exactly zero.  No slot is
+// passed over because of its factor alone.  So every other slot is summed
+// once, in slot order, and each output is the same fmaf chain as the row
+// walk's (s2v_rows.cuh) and the dense layer's, less additions of exact
+// zeros.
 //
 // What bounds it: x comes from L2 once per block (blocks x ncols x KP x 4
 // bytes), the lists from HBM once (8 bytes a slot), and every slot of a
@@ -138,13 +139,14 @@ windowed_kernel(const Args p) {
   const float* xb = p.xt + (size_t)b * ncols * p.KP;
   const int rows = WINDOW_FLOATS / p.KP;         // ids per window
   const int nwin = (ncols + rows - 1) / rows;
-  // The aggregate's sentinel column N = ncols - 1 is zero by its wrapper's
-  // contract; where it is, a sentinel slot with a finite factor adds
-  // exactly zero, so it is passed over in any window instead of waiting
-  // for the last.  The layer's x has no sentinel column: its sentinel N
-  // lies outside [0, ncols) already.
+  // The padded lists' aggregate has a sentinel column N = ncols - 1, zero
+  // by its wrapper's contract; where it is, a sentinel slot with a finite
+  // factor adds exactly zero, so it is passed over in any window instead
+  // of waiting for the last.  The layers' x and the CSR aggregate's have
+  // no sentinel column: their sentinel N lies outside [0, ncols) already.
+  constexpr bool SENTINEL = !LAYER && LISTS != CSR;
   int sentinel = -1;
-  if (!LAYER)
+  if (SENTINEL)
     sentinel = __syncthreads_and(
         threadIdx.x >= p.KP ||
         xb[(size_t)(ncols - 1) * p.KP + threadIdx.x] == 0.f) ? ncols - 1 : -1;
@@ -208,8 +210,9 @@ windowed_kernel(const Args p) {
 #pragma unroll
       for (int c = 3; c >= 0; --c) {
         const int t = 4 * sub + c, j = comp(id, c);
-        const bool none = (unsigned)j >= (unsigned)ncols ||
-                          (!LAYER && j == sentinel && isfinite(compf(wv, c)));
+        const bool none =
+            (unsigned)j >= (unsigned)ncols ||
+            (SENTINEL && j == sentinel && isfinite(compf(wv, c)));
         const bool r = t < off || (c0 + t < hi && (none || j < wend));
         if (!r) bad = c;
         if (t >= off && c0 + t < hi && !none && work < 0) work = t;
@@ -232,7 +235,7 @@ windowed_kernel(const Args p) {
           const int j = __shfl_sync(FULL, comp(id, t % 4), t / 4, 8);
           const float wj = __shfl_sync(FULL, compf(wv, t % 4), t / 4, 8);
           if (t >= off && t < end && (unsigned)j < (unsigned)ncols &&
-              k_on && (LAYER || !(j == sentinel && isfinite(wj)))) {
+              k_on && !(SENTINEL && j == sentinel && isfinite(wj))) {
             const float4 xv =
                 j >= w0 ? *reinterpret_cast<const float4*>(
                               buf + (size_t)(j - w0) * p.KP + k0)

@@ -14,6 +14,10 @@ the sentinel id N and a zero factor, and add nothing either way.
 hand-written kernel (``csrc/s2v_csr.cu``: a row walk or a windowed walk,
 the same bits, one chosen per launch from the shapes, ``walk.py``) on CUDA
 tensors, counting launches in ``fused_s2v_layer_csr.launches``.
+:func:`csr_aggregate` is the same kernel's aggregate entry (the windowed
+walk, no θ4 epilogue) beside :func:`csr_aggregate_plain`, counting in
+``csr_aggregate.launches``: the CSR layer's backward
+(``core/s2v_csr.py``) runs it twice.
 ``compute="bf16"`` rounds x, the factors and θ4 to bf16, rounds each
 product x·w to bf16 before the f32 segment-sum, and rounds the f32
 aggregate once before θ4, as the JAX composition does
@@ -83,25 +87,61 @@ def fused_s2v_layer_csr_plain(theta4: torch.Tensor, x: torch.Tensor,
 
 
 def _check_inputs(theta4, x, indices, indptr, edge_w, base) -> None:
-    check_tensors("indices", {"theta4": theta4, "x": x, "indices": indices,
-                              "indptr": indptr, "edge_w": edge_w,
-                              "base": base}, int32=("indices", "indptr"))
+    """The layer's inputs; ``theta4`` and ``base`` None for the
+    aggregate's."""
+    layer = {} if theta4 is None else {"theta4": theta4, "base": base}
+    check_tensors("indices", {"x": x, "indices": indices, "indptr": indptr,
+                              "edge_w": edge_w, **layer},
+                  int32=("indices", "indptr"))
     if x.dim() != 3 or indices.dim() != 2:
         raise ValueError("x must be 3-D and indices 2-D")
     b, k, n = x.shape
     e = indices.shape[1]
     if tuple(indices.shape) != (b, e) or tuple(indptr.shape) != (b, n + 1) \
-            or tuple(edge_w.shape) != (b, e) or base.shape != x.shape \
-            or tuple(theta4.shape) != (k, k):
+            or tuple(edge_w.shape) != (b, e) or (layer and (
+                base.shape != x.shape or tuple(theta4.shape) != (k, k))):
         raise ValueError(
-            f"shape mismatch: theta4 {tuple(theta4.shape)}, x "
+            f"shape mismatch: theta4 "
+            f"{None if theta4 is None else tuple(theta4.shape)}, x "
             f"{tuple(x.shape)}, indices {tuple(indices.shape)}, indptr "
             f"{tuple(indptr.shape)}, edge_w {tuple(edge_w.shape)}, base "
-            f"{tuple(base.shape)}; expected (K,K), (B,K,N), (B,E), (B,N+1), "
-            f"(B,E), (B,K,N)")
+            f"{None if base is None else tuple(base.shape)}; expected "
+            f"(K,K), (B,K,N), (B,E), (B,N+1), (B,E), (B,K,N)")
     check_k(b, k)
     if n < 1 or e < 1:
         raise ValueError(f"unsupported sizes N={n}, E={e}")
+
+
+def csr_aggregate(x: torch.Tensor, indices: torch.Tensor,
+                  indptr: torch.Tensor, edge_w: torch.Tensor,
+                  compute: str = "f32") -> torch.Tensor:
+    """The CSR aggregate in one launch: (B, K, N) float32 row sums of the
+    weighted edge columns of x, with the inputs of
+    :func:`fused_s2v_layer_csr`.  CPU tensors take
+    :func:`csr_aggregate_plain` (over the row ids of ``indptr``); CUDA
+    tensors launch the windowed walk on the current stream, reading a
+    node-major copy of x."""
+    check_compute(compute)
+    _check_inputs(None, x, indices, indptr, edge_w, None)
+    if on_cpu(indices, "csr_aggregate"):
+        from ..core.graphs import csr_row_ids
+        return csr_aggregate_plain(x, indices,
+                                   csr_row_ids(indptr, indices.shape[1]),
+                                   edge_w, compute)
+    b, k, n = x.shape
+    xt = padded_node_major(x)
+    indices, edge_w = aligned(indices), aligned(edge_w)
+    out = torch.empty((b, k, n), dtype=torch.float32, device=x.device)
+    launch("s2v_csr", "s2v_csr_aggregate",
+           [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6, x.device,
+           xt.data_ptr(), indptr.data_ptr(), indices.data_ptr(),
+           edge_w.data_ptr(), out.data_ptr(), b, k, xt.shape[2], n,
+           indices.shape[1], int(compute == "bf16"))
+    csr_aggregate.launches += 1
+    return out
+
+
+csr_aggregate.launches = 0
 
 
 def fused_s2v_layer_csr(theta4: torch.Tensor, x: torch.Tensor,

@@ -236,9 +236,9 @@ def test_unported_csr_modes_raise():
     with pytest.raises(NotImplementedError, match="other three problems"):
         csr_edge_factors(g.indices, g.edge_mask, rid,
                          torch.zeros(3, 20), "closed")
-    with pytest.raises(NotImplementedError,
-                       match="training on the sparse and CSR reps"):
-        CSR.prepare_dataset(_graphs())
+    with pytest.raises(NotImplementedError, match="other three problems"):
+        CSR.state_from_tuples(CSR.prepare_dataset(_graphs(), device="cpu"),
+                              [0], torch.zeros(1, 20), residual="closed")
 
 
 def _assert_same(a, b):

@@ -1,11 +1,13 @@
 """The port on an NVIDIA GPU: each CUDA kernel (the dense, padded-sparse
 and CSR fused S2V layers, the dense aggregate of the mesh path, the
-sparse aggregation, and the LM kernels wkv6, sliding-window attention and
-the grouped GLU FFN) against its plain version, and the solve and service
-paths through them, on one device and on a two-rank mesh sharing the
-card.  Every test here needs a card and skips, saying so, without one.
-The file imports neither jax nor the JAX package, so it also runs where
-only torch is installed:
+sparse aggregation and the CSR aggregate at f32 and bf16, and the LM
+kernels wkv6, sliding-window attention and the grouped GLU FFN) against
+its plain version, the sparse and CSR layers' closed-form backwards
+against autograd, and the solve and service paths through them, on
+one device and on a two-rank mesh sharing the card.  Every test here
+needs a card and skips, saying so, without one.  The file imports
+neither jax nor the JAX package, so it also runs where only torch is
+installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -177,6 +179,82 @@ def test_sparse_aggregate_matches_plain_on_the_card(cuda):
                                    **TOL["f32"])
         if iso:
             assert not out[:, :, -iso:].any()
+
+
+@pytest.mark.parametrize("compute", ["f32", "bf16"])
+def test_aggregate_entries_match_plain_on_the_card(cuda, compute):
+    """B4's aggregate at both compute modes and B5's aggregate entry
+    (the windowed walk) against their plain versions; padded CSR slots
+    past indptr[N] carry a poisoned factor and are never read."""
+    for b, k, n, rho, iso, width in CASES:
+        sp, cs, edge, edge_w, x, _, _ = _graph_inputs(b, k, n, rho, k + 3,
+                                                      iso, width)
+        xp = torch.nn.functional.pad(x, (0, 1))
+        args = [t.to(cuda) for t in (xp, sp.neighbors, edge)]
+        before = kg.sparse_mp_aggregate.launches
+        out = kg.sparse_mp_aggregate(*args, compute)
+        torch.testing.assert_close(
+            out, kg.sparse_mp_aggregate_plain(*args, compute),
+            **TOL[compute])
+        rid = csr_row_ids(cs.indptr, cs.num_edges).to(cuda)
+        want = kc.csr_aggregate_plain(x.to(cuda), cs.indices.to(cuda), rid,
+                                      edge_w.to(cuda), compute)
+        edge_w[~cs.edge_mask] = 5.0
+        args = [t.to(cuda) for t in (x, cs.indices, cs.indptr, edge_w)]
+        c_before = kc.csr_aggregate.launches
+        got = kc.csr_aggregate(*args, compute)
+        torch.cuda.synchronize()
+        assert kg.sparse_mp_aggregate.launches == before + 1
+        assert kc.csr_aggregate.launches == c_before + 1
+        torch.testing.assert_close(got, want, **TOL[compute])
+        if iso:
+            assert not out[:, :, -iso:].any() and not got[:, :, -iso:].any()
+
+
+@pytest.mark.parametrize("compute", ["f32", "bf16"])
+@pytest.mark.parametrize("rep", ["sparse", "csr"])
+def test_layer_backwards_match_autograd_on_the_card(cuda, rep, compute):
+    """The sparse and CSR layers' closed-form gradients (two aggregate
+    launches) against autograd through the plain composition, both on
+    the card, on env-built graphs with residual factors (symmetric, as
+    the backward requires)."""
+    from repro_torch.core import s2v_csr as core_csr
+    from repro_torch.core import s2v_sparse as core_sparse
+    from repro_torch.core.graphs import (csr_residual_edge_mask,
+                                         residual_edge_mask)
+    b, k, n = 3, 32, 300
+    adj = random_graph_batch("er", n, b, seed=11, rho=0.1)
+    rng = np.random.default_rng(11)
+    sol = torch.from_numpy((rng.random((b, n)) < 0.3).astype(np.float32))
+    if rep == "sparse":
+        g = sparse_batch_from_dense(adj, device="cpu")
+        topo = (g.neighbors, residual_edge_mask(g.neighbors, g.valid, sol))
+        fused, plain = core_sparse._FusedSparseLayer.apply, \
+            ks.fused_s2v_layer_sparse_plain
+        agg = kg.sparse_mp_aggregate
+    else:
+        g = csr_batch_from_dense(adj, device="cpu")
+        rid = csr_row_ids(g.indptr, g.num_edges)
+        topo = (g.indices, g.indptr,
+                csr_residual_edge_mask(g.indices, g.edge_mask, rid, sol))
+        fused, plain = core_csr._FusedCsrLayer.apply, \
+            kc.fused_s2v_layer_csr_plain
+        agg = kc.csr_aggregate
+    topo = [t.to(cuda) for t in topo]
+    t4, x, base = (t.to(cuda) for t in _layer_args(b, k, n, n, 12))
+    grad = torch.randn((b, k, n), generator=torch.Generator().manual_seed(
+        13)).to(cuda)
+
+    def grads(fn):
+        ins = [t.clone().requires_grad_(True) for t in (t4, x, base)]
+        out = fn(ins[0], ins[1], *topo, ins[2], compute)
+        return torch.autograd.grad(out, ins, grad)
+    before = agg.launches
+    got = grads(fused)
+    torch.cuda.synchronize()
+    assert agg.launches == before + 2
+    for a, w in zip(got, grads(plain)):
+        torch.testing.assert_close(a, w, **TOL[compute])
 
 
 @pytest.mark.parametrize("compute", ["f32", "bf16"])

@@ -199,22 +199,6 @@ def test_padded_node_major_pads_rows_to_whole_vectors(k):
     assert not xt[:, :, k:].any()
 
 
-@pytest.mark.parametrize("d", [5, 8])
-def test_padded_lists_round_the_width_to_whole_vectors(d):
-    """The kernel's lists: a width that is not a multiple of 4 is padded
-    with the id -1 (outside [0, N], which the kernel passes over) and the
-    factor 0; a width that is, on aligned arrays, is taken as it is."""
-    nbr = torch.arange(2 * 3 * d, dtype=torch.int32).reshape(2, 3, d)
-    edge = torch.rand((2, 3, d))
-    pn, pe = kg.padded_lists(nbr, edge)
-    if d % 4 == 0:
-        assert pn is nbr and pe is edge
-        return
-    assert pn.shape == pe.shape == (2, 3, 8)
-    assert torch.equal(pn[..., :d], nbr) and torch.equal(pe[..., :d], edge)
-    assert bool((pn[..., d:] == -1).all()) and not pe[..., d:].any()
-
-
 def test_wrappers_on_cpu_are_the_plain_versions_and_launch_nothing():
     t4, x, nbr, edge, base = _torch(*_layer_case())
     xp = torch.nn.functional.pad(x, (0, 1))
@@ -279,9 +263,8 @@ def test_unported_sparse_modes_raise(pair):
     with pytest.raises(TypeError, match="mesh axis"):
         embed_sparse_local(policy.em, g.neighbors, g.valid.float(), sol,
                            num_layers=2, axis="graph")
-    with pytest.raises(NotImplementedError,
-                       match="training on the sparse and CSR reps"):
-        SPARSE.state_from_tuples(g, [0], sol[:1])
+    with pytest.raises(NotImplementedError, match="other three problems"):
+        SPARSE.state_from_tuples(g, [0], sol[:1], residual="closed")
 
 
 def _assert_same(a, b):

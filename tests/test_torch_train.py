@@ -23,6 +23,7 @@ from repro.core import device_replay_at as jax_replay_at
 from repro.core import device_replay_init as jax_replay_init
 from repro.core import device_replay_push as jax_replay_push
 from repro.core import engine_init as jax_engine_init
+from repro.core import get_rep as jax_get_rep
 from repro.core import get_train_step as jax_get_train_step
 from repro.core import init_policy as jax_init_policy
 from repro.core import random_graph_batch
@@ -36,11 +37,11 @@ from repro.optim import adam_update as jax_adam_update
 from repro.optim import clip_by_global_norm as jax_clip
 from repro_torch.convert import (adam_from_numpy, adam_to_numpy,
                                  policy_from_numpy, policy_to_numpy)
-from repro_torch.core import (CSR, DENSE, SPARSE, Agent, PolicyConfig,
-                              ReplayBuffer, TrainDraws, candidate_mask,
-                              device_replay_at, device_replay_init,
-                              device_replay_push, device_replay_sample,
-                              draw_train_step, engine_init, get_train_step,
+from repro_torch.core import (DENSE, Agent, PolicyConfig, ReplayBuffer,
+                              TrainDraws, candidate_mask, device_replay_at,
+                              device_replay_init, device_replay_push,
+                              device_replay_sample, draw_train_step,
+                              engine_init, get_rep, get_train_step,
                               train_agent, tuples_to_graphs)
 from repro_torch.core.replay import device_replay_sample_idx
 from repro_torch.core.agent import train_minibatch_raw
@@ -332,13 +333,13 @@ def test_train_minibatch_matches_jax(kernel):
 # -- the fused train step against JAX's ----------------------------------------------
 
 def _lockstep(target_mode, eps, steps=8, n=14, b=2, mb=8, tau=2,
-              explore=True):
+              explore=True, rep="dense"):
     """JAX's fused step and the port's, stepped together on
-    tests/test_engine.py's graphs and sizes with JAX's weights; each port
-    step gets JAX's draws of that step (JAX's key schedule,
-    repro/core/engine.py).  Returns the two loss traces, the action
-    traces and the count of rows whose roll explored, then both
-    policies."""
+    tests/test_engine.py's graphs and sizes with JAX's weights, on the
+    representation ``rep``; each port step gets JAX's draws of that step
+    (JAX's key schedule, repro/core/engine.py).  Returns the two loss
+    traces, the action traces and the count of rows whose roll explored,
+    then both policies."""
     kw = dict(embed_dim=8, num_layers=2, minibatch=mb, replay_capacity=64,
               learning_rate=1e-3, eps_start=eps, eps_end=eps)
     jcfg, cfg = _cfgs(**kw)
@@ -347,18 +348,19 @@ def _lockstep(target_mode, eps, steps=8, n=14, b=2, mb=8, tau=2,
     gi = np.array([0, 2])
     zero = np.zeros((b, n), np.float32)
 
-    jstep = jax_get_train_step(jcfg, rep=JAX_DENSE, tau=tau,
+    jrep, prep = jax_get_rep(rep), get_rep(rep)
+    jstep = jax_get_train_step(jcfg, rep=jrep, tau=tau,
                                target_mode=target_mode, explore=explore)
     jes = jax_engine_init(jcfg, params, jax_adam_init(params), n, seed=0)
-    jsource = JAX_DENSE.prepare_dataset(adj)
-    jstate = JAX_DENSE.state_from_tuples(jsource, gi, zero)
+    jsource = jrep.prepare_dataset(adj)
+    jstate = jrep.state_from_tuples(jsource, gi, zero)
 
-    step = get_train_step(cfg, tau=tau, target_mode=target_mode,
+    step = get_train_step(cfg, rep=prep, tau=tau, target_mode=target_mode,
                           explore=explore)
     es = engine_init(cfg, policy, adam_init(policy), n)
-    source = DENSE.prepare_dataset(adj, device="cpu")
+    source = prep.prepare_dataset(adj, device="cpu")
     gi_t = torch.from_numpy(gi)
-    state = DENSE.state_from_tuples(source, gi_t, zero)
+    state = prep.state_from_tuples(source, gi_t, zero)
 
     key, size = jax.random.key(0), 0
     out = {"jax": ([], []), "port": ([], []), "explored": 0}
@@ -496,9 +498,7 @@ def test_unported_training_is_refused():
     adj = random_graph_batch("er", n, 2, seed=0, rho=0.3)
     cfg = PolicyConfig(embed_dim=8)
     agent = Agent(cfg, num_nodes=n, device="cpu")
-    for kw, item in ((dict(rep="sparse"), "training on the sparse and CSR"),
-                     (dict(rep="csr"), "training on the sparse and CSR"),
-                     (dict(problem="mis"), "other three problems"),
+    for kw, item in ((dict(problem="mis"), "other three problems"),
                      (dict(problem="maxcut"), "other three problems"),
                      (dict(engine="host"), "rest of solve and serving")):
         with pytest.raises(NotImplementedError, match=item):
@@ -511,9 +511,6 @@ def test_unported_training_is_refused():
                  lambda: agent.remember(0, None, 0, 0, None, False)):
         with pytest.raises(NotImplementedError, match="engine=\"host\""):
             call()
-    for rep in (SPARSE, CSR):
-        with pytest.raises(NotImplementedError, match="sparse and CSR"):
-            rep.prepare_dataset(adj, device="cpu")
     with pytest.raises(ValueError, match="target_mode"):
         Agent(cfg, num_nodes=n, device="cpu", target_mode="late")
 

@@ -1,8 +1,9 @@
 """The route of the sparse and CSR layers on the card (the row walk or the
 windowed walk), chosen from the shapes alone by
 ``repro_torch.kernels.walk.walk_route``; the wrappers' ``walk=`` keyword
-on CPU tensors; and ``chip_smoke.py``'s argument parsing (its top level
-imports only the standard library and numpy, so it imports here)."""
+on CPU tensors; and ``chip_smoke.py``'s argument parsing and its reading
+of an allocator trace (its top level imports only the standard library
+and numpy, so it imports here)."""
 import importlib.util
 import pathlib
 
@@ -146,7 +147,8 @@ def test_windowed_walk_inputs_are_whole_vectors_on_16_bytes():
 def test_chip_smoke_only_takes_every_kernel_of_the_kernels_line():
     cs = _chip_smoke()
     names = list(cs.REPLACES)
-    assert len(names) == 8
+    # the eight kernels and B5's aggregate entry
+    assert len(names) == 9 and "csr_aggregate" in names
     for name in names:
         assert cs.parse_args(["--only", name]) == [name]
     assert cs.parse_args(["--only", ",".join(reversed(names))]) == names
@@ -168,3 +170,42 @@ def test_chip_smoke_refuses_other_arguments_as_a_usage_error(argv, capsys):
         cs.parse_args(argv)
     assert cs.main(argv) == 2
     assert "usage: python3 chip_smoke.py [--only" in capsys.readouterr().err
+
+
+def _frame(path, line, name):
+    return {"filename": path, "line": line, "name": name}
+
+
+def test_chip_smoke_finds_the_peak_of_an_allocator_trace():
+    """``trace_peak`` replays alloc / free_requested from the bytes
+    allocated before the trace, names the allocation that reached the
+    peak and the sites of the blocks alive there, innermost
+    ``repro_torch`` frames first; blocks from before the trace count
+    apart, and a free that only completes changes nothing."""
+    cs = _chip_smoke()
+    rows = [_frame("/x/src/repro_torch/core/graphs.py", 10, "csr_row_ids"),
+            _frame("/x/src/repro_torch/core/graphrep.py", 5,
+                   "state_from_tuples"),
+            _frame("/x/chip_smoke.py", 1, "run")]
+    embed = [_frame("/t/torch/nn/functional.py", 3, "pad"),
+             _frame("/x/src/repro_torch/core/s2v_csr.py", 20, "embed")]
+    trace = [{"action": "alloc", "addr": 1, "size": 50, "frames": rows},
+             {"action": "alloc", "addr": 2, "size": 30, "frames": embed},
+             {"action": "free_requested", "addr": 1, "size": 50},
+             {"action": "free_completed", "addr": 1, "size": 50},
+             {"action": "alloc", "addr": 3, "size": 60, "frames": []},
+             {"action": "free_requested", "addr": 9, "size": 40},
+             {"action": "alloc", "addr": 4, "size": 20, "frames": rows}]
+    assert cs.alloc_site(rows) == ("core/graphs.py:10 csr_row_ids < "
+                                   "core/graphrep.py:5 state_from_tuples")
+    assert cs.alloc_site(rows, depth=1) == "core/graphs.py:10 csr_row_ids"
+    got = cs.trace_peak(trace, 100)
+    assert got == {"allocated_before": 100, "peak_bytes": 190,
+                   "reached_by": "outside repro_torch",
+                   "alive_from_before": 100, "alive_at_peak": [
+                       {"site": "outside repro_torch", "bytes": 60,
+                        "blocks": 1},
+                       {"site": "core/s2v_csr.py:20 embed", "bytes": 30,
+                        "blocks": 1}]}
+    assert cs.trace_peak(trace[:1], 100)["reached_by"] == cs.alloc_site(rows)
+    assert cs.trace_peak([], 7)["peak_bytes"] == 7
