@@ -108,8 +108,24 @@ Phases (any failed check raises, so the script exits non-zero):
    phase 4, each rank's peak device memory beside the §5.2 model; no
    dense rank at sp = 4 may hold the whole adjacency; the (1,2) dense
    solve traced and held to phase 4's traced solve: where they part, it
-   must be at a near-tie (every parting printed).  Mesh times are of
-   ranks that share one card: not scaling figures.
+   must be at a near-tie (every parting printed).  The mesh's train
+   half, inside the same spawns: at (1,2), (2,1) and (2,2) a small
+   lockstep on that (8, 256) batch as the dataset (4 episode graphs,
+   minibatch 8, tau 2, 6 steps with numpy draws; dense and sparse, stored
+   at epsilon 0 and fresh at 0.5, CSR too at (2,1)) against the
+   single-device port on the card: the ranks' parameters equal bit for
+   bit after every step, the same actions except from a traced near-tie
+   on, losses and parameters within rtol 1e-5 / atol 1e-6; and the
+   full-width runs (phase 3b's training cell, fresh, epsilon 1, draws
+   from draw_train_step) of dense and sparse at (2,2) and CSR at (2,1):
+   12 steps, the first warm one's first GD iteration held to the single
+   device's on the same draws (the loss by the sum-of-|terms| rule at
+   1e-5, the gradients by phase 1's long-sum rule relative to the rows'
+   |terms|; ``check_mesh_train_full``), the layer kernel (B2, B3, B5) 9 and the aggregate (B4, B5's)
+   8 launches a warm step on every rank, per rank the seconds of 4 timed
+   warm steps, the peak device bytes and the collectives a step by kind
+   and bytes.  Mesh times are of ranks that share one card: not scaling
+   figures.
 6. BA(N=1M, d=10) on the CSR rep with max_d=62500, built from streamed
    edges with no dense array; the answer is a cover.  Then the sparse
    "xla" chain on a full 4096-node bucket, whose aggregation kernel must
@@ -124,7 +140,8 @@ Phases (any failed check raises, so the script exits non-zero):
 
 It prints diagnostic JSON lines (each phase's seconds among them), the
 nvidia-smi name and power limit, one ``{"kernels": [...]}`` line (the eight
-kernels, B5's aggregate entry, and the two aggregates at bf16), and last
+kernels, B5's aggregate entry, and the two aggregates at bf16; the
+launches of B2–B5 include the full-width mesh train runs'), and last
 ``{"ok": true, "device": {...}}``.  It exits non-zero without a CUDA
 device, and outside a checkout.  With ``--only <kernel>,...`` (names of
 the kernels line) it runs only the build, phase 1's checks of those
@@ -208,6 +225,22 @@ PLAIN_CHUNK = 16                 # graphs per plain-version call at B = 64
 SMALL_TRAIN = (14, 4, 2, 8, 2, 8)
 POLICY_KEYS = ("em.theta1", "em.theta2", "em.theta3", "em.theta4",
                "q.theta5", "q.theta6", "q.theta7")
+# The mesh's train half (phase 5).  A small lockstep on MESH_CHECK's graphs
+# as the dataset: the mesh policy (K=32, L=2), 4 episode graphs, minibatch
+# 8, replay 64, tau 2, lr 1e-3, 6 steps (warm from index 1) with numpy
+# draws, at each shape of MESH_TRAIN_SMALL: dense and sparse, both target
+# modes (stored at epsilon 0, fresh at 0.5), CSR at sp = 1.
+MESH_TRAIN_SMALL = ((1, 2), (2, 1), (2, 2))
+MESH_SMALL_CFG = dict(embed_dim=32, num_layers=2, gamma=0.9, minibatch=8,
+                      replay_capacity=64, learning_rate=1e-3)
+MESH_SMALL_RUN = (4, 2, 6)       # episode graphs, tau, steps
+# The full-width runs: phase 3b's training cell (TRAIN_CFG, TRAIN_TAU,
+# TRAIN_DATA), fresh targets, epsilon 1 (every action the draws' pick, so
+# the mesh and the single device push the same tuples), draws from
+# draw_train_step; 8 steps warm the replay (8 x 8 = 64), the 8th (index
+# 7) is held to the single device, then MESH_FULL_TIMED warm steps timed.
+MESH_TRAIN_FULL = (("dense", (2, 2)), ("sparse", (2, 2)), ("csr", (2, 1)))
+MESH_FULL_WARM, MESH_FULL_TIMED = 7, 4
 MESH_TIMEOUT_S = 420.0           # one spawn, its paper-scale solves included
 TIMING_BUDGET_S = 1.0            # per timed function (see cuda_ms)
 WALKS = ("rows", "windows")      # the sparse and CSR layers' two routes
@@ -464,28 +497,36 @@ def agg_inputs(torch, b, k, nl, n, rho, seed, dev):
     return embed, adj
 
 
+def check_agg_case(torch, ks, rows, failures, name, embed, adj):
+    """The dense aggregate against its plain version on one case's inputs,
+    at f32 and bf16, componentwise to the sum of |terms| (|embed| @ |adj|,
+    the f64 result itself, as both are non-negative)."""
+    b, k, nl = embed.shape
+    n = adj.shape[2]
+    exact = embed.double() @ adj.double()
+    for compute in ("f32", "bf16"):
+        out = ks.mp_aggregate(embed, adj, compute)
+        compare(torch, rows, failures, "mp_aggregate", name, compute,
+                out, ks.mp_aggregate_plain(embed, adj, compute),
+                exact if compute == "f32" else None, nl,
+                {"B": b, "K": k, "Nl": nl, "N": n}, exact.float())
+        if name == "padding" and out[:, :, 256:].any():
+            failures.append(f"mp_aggregate padding {compute}: empty "
+                            f"columns must give 0")
+
+
 def phase_agg_kernel(torch, ks, dev, rows, failures):
-    """Phase 1, kernel 2: the dense aggregate against its plain version,
-    componentwise to the sum of |terms| (|embed| @ |adj|, the f64 result
-    itself, as both are non-negative), at a ragged case, a padding case
-    whose empty columns must give exact zeros, and the row blocks of the
-    serving bucket and the paper-scale graph at sp = 2 and 4."""
+    """Phase 1, kernel 2: the dense aggregate against its plain version
+    (``check_agg_case``) at a ragged case, a padding case whose empty
+    columns must give exact zeros, and the row blocks of the serving
+    bucket and the paper-scale graph at sp = 2 and 4."""
     for name, b, k, nl, n, rho in AGG_CASES:
         embed, adj = agg_inputs(torch, b, k, nl, n, rho, SEED + nl + n, dev)
         if name == "padding":
             adj[:, :, 256:] = 0.0
             adj[:, 256:, :] = 0.0
-        exact = embed.double() @ adj.double()
-        for compute in ("f32", "bf16"):
-            out = ks.mp_aggregate(embed, adj, compute)
-            compare(torch, rows, failures, "mp_aggregate", name, compute,
-                    out, ks.mp_aggregate_plain(embed, adj, compute),
-                    exact if compute == "f32" else None, nl,
-                    {"B": b, "K": k, "Nl": nl, "N": n}, exact.float())
-            if name == "padding" and out[:, :, 256:].any():
-                failures.append(f"mp_aggregate padding {compute}: empty "
-                                f"columns must give 0")
-        del embed, adj, exact, out
+        check_agg_case(torch, ks, rows, failures, name, embed, adj)
+        del embed, adj
         torch.cuda.empty_cache()
 
 
@@ -1399,7 +1440,11 @@ def plain_layers():
     ks, _, kc = kernel_modules()
 
     class Sparse:
-        apply = staticmethod(ks.fused_s2v_layer_sparse_plain)
+        @staticmethod
+        def apply(theta4, x, nbr, edge, base, compute, axis=None):
+            assert axis is None, "the plain sparse layer runs on one device"
+            return ks.fused_s2v_layer_sparse_plain(theta4, x, nbr, edge,
+                                                   base, compute)
 
     class Csr:
         apply = staticmethod(kc.fused_s2v_layer_csr_plain)
@@ -1653,14 +1698,19 @@ def by_graphs(torch, fn, b, chunk=PLAIN_CHUNK):
 
 
 def check_train_kernels(torch, source, rep, rows, failures):
-    """Phase 1's checks at the train minibatch's shape, on the train
-    data's lists or CSR arrays (for sparse, 718 slots wide: B4's and B3's
-    any-width layout): the rep's layer (B3 or B5) and its aggregate (B4 or
-    B5's entry) on 64 of the dataset's graphs with the residual factors of
-    a random 10% partial solution, at f32 and bf16, against their plain
-    versions (``compare``, componentwise to the sum of |terms|; the plain
-    versions taken ``PLAIN_CHUNK`` graphs at a time), and the layer by the
-    route the rule picks against the other, forced, bit for bit."""
+    """Phase 1's checks at the train shapes, on the train data's
+    re-materialized minibatch (64 of the dataset's graphs with a random
+    10% partial solution; the lists 718 slots wide, B4's and B3's
+    any-width layout), at f32 and bf16, against the plain versions
+    (``compare``, componentwise to the sum of |terms|; the plain versions
+    taken ``PLAIN_CHUNK`` graphs at a time).  Sparse and CSR: the rep's
+    layer (B3 or B5) and aggregate (B4 or B5's entry) on the whole
+    minibatch, and the layer by the route the rule picks against the
+    other, forced, bit for bit.  The (2, 2) mesh train step's tile (its
+    M/dp = 32 rows, the second graph rank's rows N/2:): dense, B2 on the
+    tile's embedding columns and adjacency rows (``check_agg_case``);
+    sparse, B3 and B4 on the tile's rows of the lists and factors over the
+    tuples' whole (B, K, N) embedding, as the all-gather gives it."""
     from repro_torch.core import get_rep
     from repro_torch.core.graphs import (csr_residual_edge_mask, csr_row_ids,
                                          residual_edge_mask)
@@ -1676,62 +1726,74 @@ def check_train_kernels(torch, source, rep, rows, failures):
     st = get_rep(rep).state_from_tuples(source, gi, sol)
     x, base, t4 = torch.relu(rand(b, k, n) - 0.5), rand(b, k, n) - 0.5, \
         (rand(k, k) - 0.5) * 0.2
-    if rep == "sparse":
-        nbr = st.neighbors
-        edge = residual_edge_mask(nbr, st.valid, sol)
-        xp = torch.nn.functional.pad(x, (0, 1))
-        fn, args = ks.fused_s2v_layer_sparse, (t4, x, nbr, edge, base)
-
-        def layer_plain(s, c):
-            return ks.fused_s2v_layer_sparse_plain(t4, x[s], nbr[s], edge[s],
-                                                   base[s], c)
-
-        def agg(c):
-            return kg.sparse_mp_aggregate(xp, nbr, edge, c)
-
-        def agg_plain(s, c):
-            return kg.sparse_mp_aggregate_plain(xp[s], nbr[s], edge[s], c)
-        terms, extra = nbr.shape[2], {"D": nbr.shape[2]}
+    tile = slice(0, b // 2), slice(n // 2, None)     # (M/dp, rows N/2:)
+    if rep == "dense":
+        check_agg_case(torch, ks, rows, failures, "train_tile_sp2",
+                       x[tile[0], :, tile[1]].contiguous(),
+                       st.adj[tile].contiguous())
+    elif rep == "sparse":
+        edge = residual_edge_mask(st.neighbors, st.valid, sol)
+        for case, gs, rs in (("train_minibatch", slice(None), slice(None)),
+                             ("train_tile_sp2",) + tile):
+            nbr, ed = st.neighbors[gs, rs].contiguous(), \
+                edge[gs, rs].contiguous()
+            xs, bs = x[gs], base[gs, :, rs].contiguous()
+            xp = torch.nn.functional.pad(xs, (0, 1))
+            check_graph_train_case(
+                torch, rows, failures, case, ks.fused_s2v_layer_sparse,
+                (t4, xs, nbr, ed, bs),
+                lambda s, c: ks.fused_s2v_layer_sparse_plain(
+                    t4, xs[s], nbr[s], ed[s], bs[s], c),
+                lambda c: kg.sparse_mp_aggregate(xp, nbr, ed, c),
+                lambda s, c: kg.sparse_mp_aggregate_plain(xp[s], nbr[s],
+                                                          ed[s], c),
+                nbr.shape[2], {"B": xs.shape[0], "K": k, "N": n,
+                               "Nl": nbr.shape[1], "D": nbr.shape[2]},
+                t4, bs, "sparse")
     else:
         rid = csr_row_ids(st.indptr, st.num_edges)
         edge = csr_residual_edge_mask(st.indices, st.edge_mask, rid, sol)
         topo = (st.indices, st.indptr, edge)
-        fn, args = kc.fused_s2v_layer_csr, (t4, x, *topo, base)
+        check_graph_train_case(
+            torch, rows, failures, "train_minibatch", kc.fused_s2v_layer_csr,
+            (t4, x, *topo, base),
+            lambda s, c: kc.fused_s2v_layer_csr_plain(
+                t4, x[s], *(a[s] for a in topo), base[s], c),
+            lambda c: kc.csr_aggregate(x, *topo, c),
+            lambda s, c: kc.csr_aggregate_plain(x[s], st.indices[s], rid[s],
+                                                edge[s], c),
+            int((st.indptr[:, 1:] - st.indptr[:, :-1]).max()),
+            {"B": b, "K": k, "N": n, "E": st.num_edges}, t4, base, "csr")
+    if failures:
+        raise AssertionError("a kernel disagrees at the train shapes:\n"
+                             + "\n".join(failures))
 
-        def layer_plain(s, c):
-            return kc.fused_s2v_layer_csr_plain(
-                t4, x[s], *(a[s] for a in topo), base[s], c)
 
-        def agg(c):
-            return kc.csr_aggregate(x, *topo, c)
-
-        def agg_plain(s, c):
-            return kc.csr_aggregate_plain(x[s], st.indices[s], rid[s],
-                                          edge[s], c)
-        terms = int((st.indptr[:, 1:] - st.indptr[:, :-1]).max())
-        extra = {"E": st.num_edges}
-    shape = {"B": b, "K": k, "N": n, **extra}
-    # x >= 0 and the factors are 0 or 1: the f32 aggregate is the sum of
-    # its terms' absolute values
+def check_graph_train_case(torch, rows, failures, case, fn, args,
+                           layer_plain, agg, agg_plain, terms, shape, t4,
+                           base, rep):
+    """One case of ``check_train_kernels`` on the sparse or CSR rep: the
+    layer ``fn(*args, compute)`` by its route against ``layer_plain(graphs,
+    compute)`` and against the other route, the aggregate ``agg(compute)``
+    against ``agg_plain(graphs, compute)``, at f32 and bf16.  The input
+    embedding is >= 0 and the factors 0 or 1, so the f32 aggregate is the
+    sum of its terms' absolute values."""
+    b = base.shape[0]
     agg_abs = by_graphs(torch, lambda s: agg_plain(s, "f32"), b)
     layer_abs = base.abs() + t4.abs() @ agg_abs
     for compute in ("f32", "bf16"):
         out, route = call_routed(fn, *args, compute)
-        compare(torch, rows, failures, REP_KERNEL[rep], "train_minibatch",
-                compute, out, by_graphs(torch, lambda s: layer_plain(
-                    s, compute), b), None, terms, {**shape, "route": route},
-                layer_abs)
-        route_identity(torch, failures, REP_KERNEL[rep], "train_minibatch",
-                       compute, fn, args, out, route)
+        compare(torch, rows, failures, REP_KERNEL[rep], case, compute, out,
+                by_graphs(torch, lambda s: layer_plain(s, compute), b), None,
+                terms, {**shape, "route": route}, layer_abs)
+        route_identity(torch, failures, REP_KERNEL[rep], case, compute, fn,
+                       args, out, route)
         del out
-        compare(torch, rows, failures, REP_AGGREGATE[rep], "train_minibatch",
-                compute, agg(compute), agg_abs if compute == "f32" else
+        compare(torch, rows, failures, REP_AGGREGATE[rep], case, compute,
+                agg(compute), agg_abs if compute == "f32" else
                 by_graphs(torch, lambda s: agg_plain(s, compute), b), None,
                 terms, shape, agg_abs)
         torch.cuda.empty_cache()
-    if failures:
-        raise AssertionError("a kernel disagrees at the train minibatch:\n"
-                             + "\n".join(failures))
 
 
 def train_mode_run(torch, agent, step, source, mode, seed, rep="dense"):
@@ -1814,11 +1876,11 @@ def train_mode_run(torch, agent, step, source, mode, seed, rep="dense"):
 
 def phase_train(torch, policy, adjs, rows, failures):
     """The train phase: (a) the backwards on the card, (b) a small train
-    run on the card against the CPU on each rep, (c) on sparse and CSR the
-    kernels at the train minibatch against their plain versions
-    (``check_train_kernels``, into ``rows``), and the full-width train
-    steps of both target modes on each rep, then ``train_agent`` for one
-    short episode (f32 on dense, bf16 on sparse and CSR), (d) the dense
+    run on the card against the CPU on each rep, (c) the kernels at the
+    train minibatch and at the mesh train step's tile against their plain
+    versions (``check_train_kernels``, into ``rows``), and the full-width
+    train steps of both target modes on each rep, then ``train_agent`` for
+    one short episode (f32 on dense, bf16 on sparse and CSR), (d) the dense
     trained policy saved, loaded and serving the served stream's graphs,
     every answer a cover.  Returns each kernel's launches in (c) (the
     aggregates' at f32) and the aggregates' in the bf16 episodes."""
@@ -1847,8 +1909,7 @@ def phase_train(torch, policy, adjs, rows, failures):
         t0 = time.perf_counter()
         source = get_rep(rep).prepare_dataset(data, device=DEVICE)
         build_s = time.perf_counter() - t0
-        if rep != "dense":
-            check_train_kernels(torch, source, rep, rows, failures)
+        check_train_kernels(torch, source, rep, rows, failures)
         for i, mode in enumerate(("fresh", "stored")):
             agent.target_mode = mode
             step = get_train_step(tcfg, rep=rep, tau=TRAIN_TAU,
@@ -2387,8 +2448,11 @@ def check_paper_mesh(spec, ranks, paper, failures, launches):
 def phase_mesh(torch, policy, cfg, stream, paper):
     """The mesh phase: gloo ranks sharing cuda:0, one spawn per shape in
     MESH_SHAPES, each held to the single-device port on the card; at
-    (2, 2) the sync service; the paper-scale solves of PAPER_MESH.
-    Returns the mesh kernels' launches, summed over ranks."""
+    (2, 2) the sync service; the mesh's train half (the small lockstep at
+    MESH_TRAIN_SMALL's shapes, the full-width runs of MESH_TRAIN_FULL,
+    against their references on one device, ``mesh_train_refs``); the
+    paper-scale solves of PAPER_MESH.  Returns the mesh kernels' launches
+    in the solves and in the full-width train runs, summed over ranks."""
     import tempfile
     from repro_torch.convert import policy_to_numpy
     from repro_torch.core import random_graph_batch, solve, spawn_mesh
@@ -2412,8 +2476,12 @@ def phase_mesh(torch, policy, cfg, stream, paper):
         max_batch=2 * 8).serve(serve_adjs)]
     refs = {key: res.solution for key, (res, _) in ref.items()}
     weights = policy_to_numpy(policy)
-    launches, failures = {"mp_aggregate": 0}, []
+    launches, train_launches, failures = {"mp_aggregate": 0}, {}, []
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        t0 = time.perf_counter()
+        train_args, train_refs = mesh_train_refs(torch, policy, adj, tmp)
+        emit({"phase": "mesh_train_refs",
+              "seconds": time.perf_counter() - t0})
         files = {"dense": os.path.join(tmp, "adj.npy"),
                  "neighbors": os.path.join(tmp, "neighbors.npy"),
                  "valid": os.path.join(tmp, "valid.npy")}
@@ -2429,6 +2497,9 @@ def phase_mesh(torch, policy, cfg, stream, paper):
                 timeout_s=MESH_TIMEOUT_S,
                 args=(weights, adj, refs,
                       (serve_adjs, ref_answers) if spec == (2, 2) else None,
+                      dict(train_args, small=spec in MESH_TRAIN_SMALL,
+                           full=[rep for rep, shape in MESH_TRAIN_FULL
+                                 if shape == spec]),
                       dict(files, reps=reps, max_d=PAPER_MAX_D,
                            trace=[rep for rep, shape in PAPER_TRACE
                                   if shape == spec])))
@@ -2439,6 +2510,10 @@ def phase_mesh(torch, policy, cfg, stream, paper):
             if spec == (2, 2):
                 check_mesh_service(torch, policy, spec, ranks, ref_answers,
                                    serve_adjs, failures, launches)
+            if spec in MESH_TRAIN_SMALL:
+                check_mesh_train_small(spec, ranks, train_refs, failures)
+            check_mesh_train_full(spec, ranks, train_refs, failures,
+                                  train_launches)
             check_paper_mesh(spec, ranks, paper, failures, launches)
             for rk in ranks:
                 if "profile" in rk:
@@ -2451,7 +2526,513 @@ def phase_mesh(torch, policy, cfg, stream, paper):
     if failures:
         raise AssertionError("the mesh phase failed:\n" + "\n".join(
             str(f) for f in failures))
-    return launches
+    return {"solve": launches, "train": train_launches}
+
+
+# ---------------------------------------------------------------------------
+# The mesh's train half: run by the ranks and, as the reference, by the
+# parent on one device.
+# ---------------------------------------------------------------------------
+
+def flat_params(torch, policy) -> np.ndarray:
+    return torch.cat([p.detach().reshape(-1) for p in policy.parameters()
+                      ]).cpu().numpy()
+
+
+def mesh_lockstep_run(torch, weights, adj, draws, dev, rep, mode, eps,
+                      mesh=None):
+    """The small lockstep's run of one case (``MESH_SMALL_CFG``,
+    ``MESH_SMALL_RUN``): on one device (``mesh`` None) or on this rank's
+    tiles, each step given its numpy draws.  Per step: the whole batch's
+    act scores (the step's own scorer, evaluated just before it, gathered
+    over ``data``), actions, loss and parameters.  Never counted: only the
+    full-width runs are the main path."""
+    import functools
+    from repro_torch.core import TrainDraws
+    from repro_torch.core.inference import gather_batch
+    from repro_torch.core.spatial import spatial_solve_scores_fn
+    b, tau, _ = MESH_SMALL_RUN
+    run = train_setup(torch, weights, rep, adj, dev, mesh,
+                      cfg=MESH_SMALL_CFG, eps=eps, tau=tau, mode=mode,
+                      gi=np.arange(0, 2 * b, 2))
+    r, policy, es, state = run["rep"], run["policy"], run["es"], run["state"]
+    score = functools.partial(r.scores, num_layers=2)
+    if mesh is not None and mesh.sp > 1:
+        score = spatial_solve_scores_fn(mesh, num_layers=2, rep=r)
+    out = {"scores": [], "actions": [], "losses": [], "params": []}
+    for d in draws:
+        with torch.no_grad():
+            scores = score(policy, state)
+        es, state, action, _, _, loss = run["step"](
+            es, state, run["source"], run["gi"],
+            TrainDraws(*(torch.as_tensor(x, device=dev) for x in d)))
+        scores, action = gather_batch(mesh, scores, action)
+        out["scores"].append(scores)
+        out["actions"].append(action)
+        out["losses"].append(float(loss))
+        out["params"].append(flat_params(torch, policy))
+    return {k: np.stack(v) for k, v in out.items()}
+
+
+def mesh_small_cases(spec):
+    """(rep, target mode, epsilon) of the small lockstep at ``spec``."""
+    reps = ("dense", "sparse") + (("csr",) if spec[1] == 1 else ())
+    return [(rep, mode, eps) for rep in reps
+            for mode, eps in (("stored", 0.0), ("fresh", 0.5))]
+
+
+def train_setup(torch, weights, rep, data, dev, mesh=None, *, cfg=TRAIN_CFG,
+                eps=1.0, tau=TRAIN_TAU, mode="fresh", gi=None):
+    """A mesh-phase train run's policy, a second copy of its weights,
+    engine, step, dataset (tile) and episode state (tile), on one device
+    (``mesh`` None) or on this rank: ``cfg`` at epsilon ``eps``, ``tau``
+    GD iterations a step with ``mode`` targets, episode graphs ``gi`` (when
+    None, ``TRAIN_DATA``'s count drawn from seed SEED + 21); ``data`` the
+    whole dataset on the host, as graphs or in ``rep``'s layout."""
+    from repro_torch.convert import policy_from_numpy
+    from repro_torch.core import (PolicyConfig, engine_init, get_rep,
+                                  get_train_step)
+    from repro_torch.core.mesh import shard_dataset
+    from repro_torch.core.spatial import tile_state_from_tuples
+    from repro_torch.optim import adam_init
+    cfg = PolicyConfig(**cfg, eps_start=eps, eps_end=eps,
+                       spatial=mesh.shape if mesh is not None else 0)
+    r = get_rep(rep)
+    policy = policy_from_numpy(weights, device=dev)
+    whole = r.prepare_dataset(data, device="cpu")
+    g, n = r.dataset_shape(whole)
+    if gi is None:
+        gi = np.random.default_rng(SEED + 21).integers(0, g, TRAIN_DATA[2])
+    zero = np.zeros((len(gi), n), np.float32)
+    if mesh is None:
+        source = r.prepare_dataset(whole, device=dev)
+        state = r.state_from_tuples(source, torch.as_tensor(gi, device=dev),
+                                    zero)
+    else:
+        source = shard_dataset(mesh, whole, device=dev)
+        state = tile_state_from_tuples(mesh, r, whole, gi, zero, device=dev)
+    del whole
+    es = engine_init(cfg, policy, adam_init(policy), n, seed=SEED + 21,
+                     mesh=mesh)
+    step = get_train_step(cfg, rep=r, tau=tau, target_mode=mode)
+    return dict(cfg=cfg, rep=r, policy=policy,
+                policy0=policy_from_numpy(weights, device=dev), es=es,
+                step=step, source=source, state=state,
+                gi=torch.as_tensor(gi, device=dev))
+
+
+@contextlib.contextmanager
+def left_out_terms(mesh):
+    """The mesh GD step with loss terms of other ranks left out of each
+    rank's gradient, the control of ``check_mesh_train_full``'s rule: at
+    sp > 1 the pooled sum as an in-place all-reduce gives it (each rank
+    differentiates only its own loss terms through the sum), at sp = 1
+    the world all-reduce of the gradients skipped."""
+    from repro_torch.core import qmodel, spatial
+    from repro_torch.core.mesh import all_reduce_sum
+
+    def in_place(s, axis):
+        return s + (all_reduce_sum(s.detach().clone(), axis) - s.detach())
+    module, name, fn = ((qmodel, "pooled_sum", in_place) if mesh.sp > 1 else
+                        (spatial, "all_reduce_world", lambda m, t: t))
+    saved = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def mesh_full_run(torch, mesh, dev, weights, rep, data):
+    """One rank's full-width run: ``MESH_FULL_WARM + 1 + MESH_FULL_TIMED``
+    fused steps with draws from ``draw_train_step``; after the first warm
+    step the loss and all-reduced gradients of its first GD iteration,
+    recomputed from the initial weights (``.loss_and_grads`` of the mesh
+    GD step), and the same at bf16 and with other ranks' loss terms left
+    out (``left_out_terms``), the rule's controls; per step its seconds,
+    kernel launches and collectives by kind; the peak device bytes over
+    the timed steps."""
+    from repro_torch.core import draw_train_step
+    from repro_torch.core.mesh import reset_traffic
+    from repro_torch.core.spatial import manual_train_minibatch_fn
+    from repro_torch.device import synchronize
+    run = train_setup(torch, weights, rep, data, dev, mesh)
+    cfg, es, state = run["cfg"], run["es"], run["state"]
+    gd, gd_bf16 = (manual_train_minibatch_fn(
+        mesh, rep=run["rep"], num_layers=cfg.num_layers,
+        lr=cfg.learning_rate, gamma=cfg.gamma, minibatch=cfg.minibatch,
+        target_mode="fresh", compute=c) for c in ("f32", "bf16"))
+    out = {"rank": mesh.rank, "seconds": [], "counts": [], "traffic": [],
+           "losses": [], "picks": [], "warm_idx": None}
+    on_card = dev.type == "cuda"
+    for i in range(MESH_FULL_WARM + 1 + MESH_FULL_TIMED):
+        draws = draw_train_step(cfg, es, state, tau=TRAIN_TAU)
+        if i == MESH_FULL_WARM + 1 and on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        synchronize(dev)
+        reset_counts()
+        reset_traffic(mesh)
+        t0 = time.perf_counter()
+        es, state, _, _, _, loss = run["step"](es, state, run["source"],
+                                               run["gi"], draws)
+        synchronize(dev)
+        out["seconds"].append(time.perf_counter() - t0)
+        out["counts"].append(read_counts())
+        out["traffic"].append(reset_traffic(mesh))
+        out["losses"].append(float(loss))
+        out["picks"].append(draws.pick[mesh.data.rows(
+            draws.pick.shape[0])].cpu().numpy())
+        if i == MESH_FULL_WARM:
+            idx = draws.sample_idx[0]
+            out["warm_idx"] = idx.cpu().numpy()
+            for name, fn, patch in (
+                    ("first_gd", gd, contextlib.nullcontext()),
+                    ("bf16", gd_bf16, contextlib.nullcontext()),
+                    ("left_out", gd, left_out_terms(mesh))):
+                with patch:
+                    loss0, grads = fn.loss_and_grads(
+                        run["policy0"], es.replay, run["source"], idx)
+                out[name] = {"loss": float(loss0), **{
+                    k: v.cpu().numpy() for k, v in grads.items()}}
+            reset_traffic(mesh)
+    out["peak_device_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                                if on_card else 0)
+    out["params"] = flat_params(torch, run["policy"])
+    return out
+
+
+def f64_grads_and_scale(torch, policy, st, action, target, num_layers):
+    """A GD iteration's loss gradients in f64, by a plain composition of
+    the policy (Alg. 2-3, the ``xla`` chain) on the dense residual
+    adjacency ``st.adj`` under autograd, and the sum of the absolute
+    values of the terms behind each gradient: the gradient of the same
+    composition with every weight and input by its absolute value, the
+    ReLUs' masks held at the f64 forward's and each row's loss derivative
+    2(q - target)/M by its absolute value, which sums |product| over every
+    path of the chain rule's expansion, every (row, node) pair's included.
+    Returns (f64 gradients, scales, the f64 scores at the actions)."""
+    f64 = torch.float64
+    adj = st.adj.to(f64)
+    sol, cand = st.solution.to(f64), st.candidate.to(f64)
+    deg = adj.sum(-1)
+    rows, act = torch.arange(adj.shape[0], device=adj.device), action.long()
+
+    def q_at_actions(w, relu):
+        pre = w["em.theta2"][None, :, None] * deg[:, None, :]
+        base = (w["em.theta1"][None, :, None] * sol[:, None, :]
+                + torch.einsum("kj,bjn->bkn", w["em.theta3"], relu(pre)))
+        mu = relu(base)                          # layer 0: zero embeddings
+        for _ in range(1, num_layers):
+            mu = relu(base + torch.einsum("kj,bjn->bkn", w["em.theta4"],
+                                          mu @ adj))
+        w1 = mu.sum(-1) @ w["q.theta5"].t()
+        w2 = (mu[rows, :, act] * cand[rows, act][:, None]) @ \
+            w["q.theta6"].t()
+        return relu(torch.cat([w1, w2], 1)) @ w["q.theta7"]
+    masks = []
+
+    def relu_true(z):
+        masks.append(z > 0)
+        return torch.relu(z)
+    names = [k for k, _ in policy.named_parameters()]
+    w = {k: v.detach().to(f64).requires_grad_(True)
+         for k, v in policy.named_parameters()}
+    wa = {k: v.detach().abs().requires_grad_(True) for k, v in w.items()}
+    with torch.enable_grad():
+        q = q_at_actions(w, relu_true)
+        err = q - target.to(f64)
+        exact = torch.autograd.grad(torch.mean(torch.square(err)),
+                                    [w[k] for k in names])
+        it = iter(masks)
+        qa = q_at_actions(wa, lambda z: z * next(it))
+        scale = torch.autograd.grad(
+            ((2 * err / err.shape[0]).abs().detach() * qa).sum(),
+            [wa[k] for k in names])
+    return dict(zip(names, exact)), dict(zip(names, scale)), q.detach()
+
+
+def single_full_ref(torch, weights, rep, data, dense, dev):
+    """The full-width run's reference on one device: the same steps up to
+    the first warm one, with the same draws, then the loss and gradients
+    of its first GD iteration from the initial weights (as the engine
+    forms them), and in f64 with each gradient's sum of |terms|
+    (``f64_grads_and_scale``, on the minibatch's dense residual adjacency
+    built from ``dense``, the dataset's graphs)."""
+    from repro_torch.core import DENSE, device_replay_at, draw_train_step
+    from repro_torch.core.agent import loss_and_grads, max_q_raw, td_loss
+    run = train_setup(torch, weights, rep, data, dev)
+    cfg, es, state, r = run["cfg"], run["es"], run["state"], run["rep"]
+    p0 = run["policy0"]
+    picks = []
+    for _ in range(MESH_FULL_WARM + 1):
+        draws = draw_train_step(cfg, es, state, tau=TRAIN_TAU)
+        es, state, _, _, _, loss = run["step"](es, state, run["source"],
+                                               run["gi"], draws)
+        picks.append(draws.pick.cpu().numpy())
+    del state
+    idx = draws.sample_idx[0]
+    gi, sol, act, _, rew, sol2, dn = device_replay_at(es.replay, idx)
+    kw = dict(rep=r, num_layers=cfg.num_layers)
+    st = r.state_from_tuples(run["source"], gi, sol2)
+    tgt = rew + cfg.gamma * max_q_raw(p0, st, **kw) * (1.0 - dn)
+    st = r.state_from_tuples(run["source"], gi, sol)
+    loss0, grads = loss_and_grads(p0, lambda p: td_loss(
+        r.scores(p, st, num_layers=cfg.num_layers, masked=False), act, tgt))
+    with torch.no_grad():
+        qsa = torch.gather(r.scores(p0, st, num_layers=cfg.num_layers,
+                                    masked=False), 1, act.long()[:, None])[:, 0]
+    if rep != "dense":
+        del st, run
+        st = DENSE.state_from_tuples(
+            DENSE.prepare_dataset(dense, device=dev), gi, sol)
+    exact, scale, q64 = f64_grads_and_scale(torch, p0, st, act, tgt,
+                                            cfg.num_layers)
+    q_err = float((q64 - qsa.double()).abs().max())
+    if not q_err <= 1e-5 * (1 + float(q64.abs().max())):
+        raise AssertionError(f"the f64 composition's scores at the actions "
+                             f"are {q_err} from the port's on {rep}")
+
+    def host(d):
+        return {k: v.cpu().numpy() for k, v in d.items()}
+    return {"loss": float(loss0), "step_loss": float(loss),
+            "idx": idx.cpu().numpy(), "picks": picks, "q_err_f64": q_err,
+            "grads": host(grads), "exact": host(exact),
+            "scale": host(scale)}
+
+
+def save_dataset(tmp, rep, source) -> dict:
+    """A whole dataset's host arrays as .npy files the ranks map: the
+    dense stack, or the fields of a SparseGraphBatch / CsrGraphBatch."""
+    import dataclasses
+    if rep == "dense":
+        arrays = {"adj": np.asarray(source)}
+    else:
+        arrays = {f.name: getattr(source, f.name).cpu().numpy()
+                  for f in dataclasses.fields(source)}
+    files = {}
+    for name, a in arrays.items():
+        files[name] = os.path.join(tmp, f"train_{rep}_{name}.npy")
+        np.save(files[name], a)
+    return {"rep": rep, "files": files}
+
+
+def load_dataset(torch, saved):
+    """The host dataset of ``save_dataset``'s files."""
+    from repro_torch.core import CsrGraphBatch, SparseGraphBatch
+    arrays = {k: np.load(f, mmap_mode="c") for k, f in
+              saved["files"].items()}
+    if saved["rep"] == "dense":
+        return arrays["adj"]
+    cls = SparseGraphBatch if saved["rep"] == "sparse" else CsrGraphBatch
+    return cls(**{k: torch.from_numpy(np.ascontiguousarray(v))
+                  for k, v in arrays.items()})
+
+
+def mesh_train_refs(torch, policy, adj, tmp):
+    """The mesh train checks' references, on the card, one device: the
+    small lockstep of every case (``mesh_small_cases`` at sp = 1) with its
+    numpy draws, and each full-width rep's first warm GD iteration
+    (``single_full_ref``) on phase 3b's training data, saved for the
+    ranks.  Returns (the arguments the ranks take, the references)."""
+    from repro_torch.convert import policy_to_numpy
+    from repro_torch.core import get_rep, random_graph_batch
+    b, tau, steps = MESH_SMALL_RUN
+    n = adj.shape[-1]
+    mb, cap = MESH_SMALL_CFG["minibatch"], MESH_SMALL_CFG["replay_capacity"]
+    rng = np.random.default_rng(SEED + 22)
+    draws = [(rng.random(b).astype(np.float32), rng.integers(0, n, b),
+              rng.integers(0, min(b * (i + 1), cap), (tau, mb)))
+             for i in range(steps)]
+    weights = policy_to_numpy(policy)
+    dev = torch.device(DEVICE)
+    small = {case: mesh_lockstep_run(torch, weights, adj, draws, dev, *case)
+             for case in mesh_small_cases((1, 1))}
+    g, nf, _ = TRAIN_DATA
+    data = random_graph_batch("er", nf, g, seed=SEED + 15, rho=0.15)
+    full, saved = {}, {}
+    for rep, _ in MESH_TRAIN_FULL:
+        host = data if rep == "dense" else get_rep(rep).prepare_dataset(
+            data, device="cpu")
+        saved[rep] = save_dataset(tmp, rep, host)
+        t0 = time.perf_counter()
+        full[rep] = single_full_ref(torch, weights, rep, host, data, dev)
+        full[rep]["seconds"] = time.perf_counter() - t0
+        del host
+        torch.cuda.empty_cache()
+    del data
+    return ({"weights": weights, "draws": draws, "data": saved},
+            {"small": small, "full": full})
+
+
+def train_parting(ref, got, tol=1e-5):
+    """The first step at which two small lockstep runs take different
+    actions, and whether every row that differs there parts at a near-tie
+    of its act scores (``parting``'s rule: the two nodes' scores within
+    2·tol·(1 + |score|) of each other on both sides).  (None, [], True)
+    when the actions agree throughout."""
+    differ = np.flatnonzero((ref["actions"] != got["actions"]).any(-1))
+    if not len(differ):
+        return None, [], True
+    t = int(differ[0])
+    cases, all_near = [], True
+    for row in np.flatnonzero(ref["actions"][t] != got["actions"][t]):
+        u, v = int(ref["actions"][t, row]), int(got["actions"][t, row])
+        sc = [x["scores"][t, row] for x in (ref, got)]
+        gap = max(abs(float(x[u] - x[v])) for x in sc)
+        scale = 1 + max(abs(float(x[w])) for x in sc for w in (u, v))
+        near = gap <= 2 * tol * scale
+        all_near &= near
+        cases.append({"step": t, "row": int(row), "ref": u, "mesh": v,
+                      "gap": gap, "near_tie": bool(near)})
+    return t, cases, all_near
+
+
+def check_mesh_train_small(spec, ranks, refs, failures):
+    """The small lockstep at ``spec`` against the single device on the
+    card: the ranks' parameters equal bit for bit after every step; the
+    same actions except from a traced near-tie on; before any parting the
+    losses, and with none the parameters, within rtol 1e-5 / atol 1e-6
+    (the CPU lockstep's bar: the all-reduced partials, the pooled sum and
+    the ownership loss's sums meet in other orders than one device's
+    fused chain, about 1e-7 apart)."""
+    for case in mesh_small_cases(spec):
+        runs = [rk["train_small"][case] for rk in ranks]
+        ref, got = refs["small"][case], runs[0]
+        tag = f"mesh train {spec} {' '.join(map(str, case))}"
+        if any(not np.array_equal(r["params"], got["params"]) for r in runs):
+            failures.append(f"{tag}: the ranks' parameters differ")
+        t, cases, near = train_parting(ref, got)
+        if not near:
+            failures.append(f"{tag}: actions part at no near-tie: {cases}")
+        upto = len(ref["losses"]) if t is None else t
+        warm = np.isfinite(ref["losses"][:upto])
+        loss_err = float(np.max(np.abs(got["losses"][:upto][warm]
+                                       - ref["losses"][:upto][warm]),
+                                initial=0.0))
+        if not np.array_equal(np.isfinite(got["losses"][:upto]), warm) \
+                or not np.allclose(got["losses"][:upto][warm],
+                                   ref["losses"][:upto][warm], rtol=1e-5,
+                                   atol=1e-6):
+            failures.append(f"{tag}: losses {got['losses']} vs "
+                            f"{ref['losses']}")
+        param_err = None
+        if t is None:
+            param_err = float(np.abs(got["params"][-1]
+                                     - ref["params"][-1]).max())
+            if not np.allclose(got["params"][-1], ref["params"][-1],
+                               rtol=1e-5, atol=1e-6):
+                failures.append(f"{tag}: parameters {param_err} apart")
+        emit({"phase": "mesh_train_small", "backend": "gloo",
+              "ranks_share_card": True, "shape": list(spec), "rep": case[0],
+              "mode": case[1], "epsilon": case[2],
+              "steps": len(ref["losses"]), "warm_steps": int(warm.sum()),
+              "identical_actions": t is None, "partings": cases,
+              "loss_max_abs_err": loss_err, "param_max_abs_err": param_err,
+              "ranks_bit_equal": all(np.array_equal(r["params"],
+                                                    got["params"])
+                                     for r in runs)})
+
+
+MESH_TRAIN_KERNELS = {"dense": ("mp_aggregate", None),
+                      "sparse": ("fused_s2v_layer_sparse",
+                                 "sparse_mp_aggregate"),
+                      "csr": ("fused_s2v_layer_csr", "csr_aggregate")}
+
+
+def check_mesh_train_full(spec, ranks, refs, failures, launches):
+    """A full-width run at ``spec``: the ranks drew the single device's
+    picks and indices and end with the same parameters bit for bit; the
+    first warm GD iteration's loss within 1e-5 of the single device's by
+    the sum-of-|terms| rule (its terms are the rows' non-negative squared
+    errors), and its gradients within 1e-5 of the single device's and of
+    the f64 composition's by the same rule (``graph_tol``), the scale
+    being each gradient's sum of |terms| over every path, every (row,
+    node) pair included (``f64_grads_and_scale``); the same rule must
+    fail the step with other ranks' loss terms left out (``left_out_terms``)
+    and is read for the bf16 step; the layer kernel 1 + 2τ and the
+    aggregate 2τ launches a warm step on every rank (B1 none); its
+    launches added to the kernels line's."""
+    for rep, shape in MESH_TRAIN_FULL:
+        if shape != spec:
+            continue
+        runs = [rk["train_full"][rep] for rk in ranks]
+        ref = refs["full"][rep]
+        tag = f"mesh train full {spec} {rep}"
+        layer, agg = MESH_TRAIN_KERNELS[rep]
+        want = {layer: 1 + 2 * TRAIN_TAU, "fused_s2v_layer": 0}
+        if agg:
+            want[agg] = 2 * TRAIN_TAU
+        n_steps = MESH_FULL_WARM + 1 + MESH_FULL_TIMED
+        for r in runs:
+            if not np.array_equal(r["params"], runs[0]["params"]):
+                failures.append(f"{tag}: rank {r['rank']}'s parameters "
+                                f"differ from rank 0's")
+            if not np.array_equal(r["warm_idx"], ref["idx"]):
+                failures.append(f"{tag}: rank {r['rank']} drew other "
+                                f"replay indices")
+            rows = slice(r["rank"] // spec[1] * TRAIN_DATA[2] // spec[0],
+                         (r["rank"] // spec[1] + 1) * TRAIN_DATA[2]
+                         // spec[0])
+            if any(not np.array_equal(p, q[rows]) for p, q in
+                   zip(r["picks"], ref["picks"])):
+                failures.append(f"{tag}: rank {r['rank']} drew other picks")
+            for i in range(MESH_FULL_WARM, n_steps):
+                got = {k: r["counts"][i][k] for k in want}
+                if got != want:
+                    failures.append(f"{tag}: rank {r['rank']} step {i} "
+                                    f"launched {got}, not {want}")
+            for name in (layer, agg):
+                if name:
+                    launches[name] = launches.get(name, 0) + sum(
+                        c[name] for c in r["counts"])
+        got, tol = runs[0]["first_gd"], graph_tol("f32")
+
+        def ratio(grads, want):
+            """The worst |grads - want| over tol·(1 + sum of |terms|)."""
+            return max(float((np.abs(grads[k] - w) / (
+                tol + tol * ref["scale"][k])).max()) for k, w in want.items())
+        loss_ratio = abs(got["loss"] - ref["loss"]) / (tol + tol * ref["loss"])
+        ratios = {"mesh_vs_single": ratio(got, ref["grads"]),
+                  "mesh_vs_f64": ratio(got, ref["exact"]),
+                  "single_vs_f64": ratio(ref["grads"], ref["exact"]),
+                  "bf16_mesh_vs_single": ratio(runs[0]["bf16"], ref["grads"]),
+                  "left_out_vs_single": ratio(runs[0]["left_out"],
+                                              ref["grads"])}
+        if not (loss_ratio <= 1 and ratios["mesh_vs_single"] <= 1
+                and ratios["mesh_vs_f64"] <= 1):
+            failures.append(f"{tag}: the first warm GD iteration's loss "
+                            f"(ratio {loss_ratio} to its tolerance) or "
+                            f"gradients ({ratios}) differ")
+        if not ratios["left_out_vs_single"] > 1:
+            failures.append(f"{tag}: the gradient rule passes a step with "
+                            f"other ranks' loss terms left out ({ratios})")
+        timed = slice(MESH_FULL_WARM + 1, n_steps)
+        emit({"phase": "mesh_train", "backend": "gloo",
+              "ranks_share_card": True, "shape": list(spec), "rep": rep,
+              "mode": "fresh", "epsilon": 1.0, **TRAIN_CFG,
+              "tau": TRAIN_TAU, "dataset": list(TRAIN_DATA[:2]),
+              "episode_graphs": TRAIN_DATA[2], "steps": n_steps,
+              "first_warm_loss": got["loss"],
+              "first_warm_loss_single": ref["loss"],
+              "loss_ratio_to_tol": loss_ratio, "grad_max_abs_err": {
+                  k: float(np.abs(got[k] - w).max())
+                  for k, w in ref["grads"].items()},
+              "grad_tol": tol, "grad_rule": "sum of |terms| over all paths",
+              "grad_worst_ratio_to_tol": ratios,
+              "f64_scores_max_abs_err": ref["q_err_f64"],
+              "single_device_ref_s": ref["seconds"],
+              "per_rank": [{
+                  "rank": r["rank"],
+                  "warm_step_s": r["seconds"][timed],
+                  "median_warm_step_s": float(np.median(r["seconds"][timed])),
+                  "first_warm_step_s": r["seconds"][MESH_FULL_WARM],
+                  "peak_device_bytes": r["peak_device_bytes"],
+                  "launches_per_warm_step": {
+                      k: r["counts"][-1][k] for k in want},
+                  "collectives_per_warm_step": r["traffic"][-1]}
+                  for r in runs],
+              "losses": runs[0]["losses"],
+              "note": "ranks share one card; not a scaling figure"})
 
 
 def phase_ba(torch, policy, indptr, indices, cs, gen_s):
@@ -2535,14 +3116,16 @@ def serve_plans(adjs, rows):
                          for i, a in enumerate(adjs)], rows)
 
 
-def mesh_rank(mesh, dev, weights, adj, refs, serve, paper):
+def mesh_rank(mesh, dev, weights, adj, refs, serve, train, paper):
     """One rank of a mesh-phase spawn: full solves of the (8, 256) batch
     on dense and sparse (CSR too at sp = 1; the sparse "xla" chain at
     (1, 2)), each counted, then traced: in full where its answers differ
     from the single-device ones (``refs``), else for the first
     evaluation's scores; at (2, 2) the sync service on ``serve`` (the
-    graphs and the single-device answers); then the paper-scale solves
-    of ``paper``, those it names under ``trace`` traced too."""
+    graphs and the single-device answers); the train runs of ``train``
+    (the small lockstep's cases with their draws, the full-width reps on
+    their saved data); then the paper-scale solves of ``paper``, those it
+    names under ``trace`` traced too."""
     import torch
     from repro_torch.convert import policy_from_numpy
     from repro_torch.core import PolicyConfig, SparseGraphBatch, solve
@@ -2597,6 +3180,18 @@ def mesh_rank(mesh, dev, weights, adj, refs, serve, paper):
             "batch_evals": sorted({(r.bucket, r.dispatch_t): r.policy_evals
                                    for r in responses}.values()),
             "plans": plans}
+    if train is not None:
+        out["train_small"] = {
+            case: mesh_lockstep_run(torch, train["weights"], adj,
+                                    train["draws"], dev, *case, mesh=mesh)
+            for case in (mesh_small_cases(spec) if train["small"] else ())}
+        out["train_full"] = {}
+        for rep in train["full"]:
+            if on_card:
+                torch.cuda.empty_cache()
+            out["train_full"][rep] = mesh_full_run(
+                torch, mesh, dev, train["weights"], rep,
+                load_dataset(torch, train["data"][rep]))
     for rep in (paper or {}).get("reps", ()):
         if rep == "dense":
             graph = np.load(paper["dense"], mmap_mode="c")
@@ -3242,8 +3837,11 @@ def main(argv=None) -> int:
     with timed_phase("paper_train"):
         phase_paper_train(torch, paper.pop("csr"), rows, failures)
     with timed_phase("mesh"):
-        launches["mp_aggregate"] = phase_mesh(torch, policy, cfg, adjs,
-                                              paper)["mp_aggregate"]
+        mesh_launches = phase_mesh(torch, policy, cfg, adjs, paper)
+    launches["mp_aggregate"] = mesh_launches["solve"]["mp_aggregate"]
+    launches["sparse_mp_aggregate"] = 0
+    for name, count in mesh_launches["train"].items():
+        launches[name] += count             # the mesh's train half
     del adjs, paper
     with timed_phase("ba_1m_csr"):
         indptr, indices, gen_s = ba_future.result()
@@ -3263,8 +3861,8 @@ def main(argv=None) -> int:
                       for r in rows)}
     batch = bucket_batch()
     with timed_phase("sparse_xla_chain"):
-        launches["sparse_mp_aggregate"] = phase_xla_chain(torch, policy,
-                                                          batch)
+        launches["sparse_mp_aggregate"] += phase_xla_chain(torch, policy,
+                                                           batch)
     with timed_phase("profile"):
         for rep in ("dense", "sparse", "csr"):
             phase_profile(torch, policy, batch, rep)

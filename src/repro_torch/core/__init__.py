@@ -2,7 +2,8 @@
 action evaluation (Alg. 3) and the adaptive top-d solve (Alg. 4) on the
 dense, padded-sparse and CSR graph representations, on one device or on
 a 2-D (data, graph) mesh of torch.distributed ranks; and training (Alg.
-5, compressed replay §4.4) on the dense representation on one device."""
+5, compressed replay §4.4) on the three representations, on one device
+or on the mesh."""
 from .graphs import (GraphState, SparseGraphBatch, SparseGraphState,
                      CsrGraphBatch, CsrGraphState, init_state,
                      residual_adjacency, residual_edge_mask,
@@ -31,9 +32,11 @@ from .inference import (solve, solve_with_config, adaptive_d, select_top_d,
                         apply_selection, init_solve_state, InferenceResult)
 from .mesh import (DATA, GRAPH, make_mesh, mesh_from_spec, mesh_shape,
                    normalize_spatial, is_multi, parse_spatial, shard_state,
-                   shard_batch, spawn_mesh, per_device_bytes,
-                   sparse_per_device_bytes, csr_per_device_bytes)
+                   shard_batch, shard_dataset, spawn_mesh, per_device_bytes,
+                   sparse_per_device_bytes, csr_per_device_bytes,
+                   minibatch_operand_bytes)
 from .spatial import (make_graph_mesh, spatial_scores_fn,
                       sparse_spatial_scores_fn, spatial_solve_scores_fn,
-                      shard_graph_arrays, shard_sparse_arrays)
+                      shard_graph_arrays, shard_sparse_arrays,
+                      manual_train_minibatch_fn, tile_state_from_tuples)
 from . import env

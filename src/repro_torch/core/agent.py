@@ -30,24 +30,50 @@ HOST_ENGINE = ('engine="host" (the host training loop) is not ported yet: '
                'engine="device" (core.training.train_agent)')
 
 
-@torch.no_grad()
-def greedy_action_state(params: Policy, state, *, rep: GraphRep,
-                        num_layers: int, kernel: str = "fused",
-                        compute: str = "f32"):
-    """argmax_v Q(s, v) over candidates (Alg. 1 line 10), and the scores."""
-    s = rep.scores(params, state, num_layers=num_layers, kernel=kernel,
-                   compute=compute)
-    return torch.argmax(s, dim=-1), s
+def max_q_from_scores(scores: torch.Tensor,
+                      candidate: torch.Tensor) -> torch.Tensor:
+    """max_v Q(s', v) from masked scores, 0 where no candidate is left."""
+    has_cand = candidate.sum(-1) > 0
+    return torch.where(has_cand, scores.amax(-1),
+                       torch.zeros_like(scores[:, 0]))
 
 
 @torch.no_grad()
 def max_q_raw(params: Policy, state, *, rep: GraphRep, num_layers: int,
               kernel: str = "fused", compute: str = "f32") -> torch.Tensor:
     """max_v Q(s', v), 0 where no candidate is left."""
-    s = rep.scores(params, state, num_layers=num_layers, kernel=kernel,
-                   compute=compute)
-    has_cand = state.candidate.sum(-1) > 0
-    return torch.where(has_cand, s.amax(-1), torch.zeros_like(s[:, 0]))
+    return max_q_from_scores(rep.scores(params, state, num_layers=num_layers,
+                                        kernel=kernel, compute=compute),
+                             state.candidate)
+
+
+def loss_and_grads(params: Policy, loss_fn):
+    """``loss_fn(params)`` and its gradients with respect to every
+    parameter, by name: the forward and backward of one GD iteration, in
+    the ``torch.profiler`` ranges ``train_step.forward`` and
+    ``train_step.backward``.  Returns (detached loss, {name: grad})."""
+    names, tensors = zip(*params.named_parameters())
+    with torch.enable_grad():
+        with record_function("train_step.forward"):
+            loss = loss_fn(params)
+        with record_function("train_step.backward"):
+            grads = torch.autograd.grad(loss, tensors)
+    return loss.detach(), dict(zip(names, grads))
+
+
+def adam_step(params: Policy, opt: AdamState, grads, *, lr: float) -> None:
+    """One Adam update of ``params`` and ``opt`` in place, in the
+    ``train_step.adam`` range."""
+    with record_function("train_step.adam"):
+        adam_update(params, grads, opt, lr=lr)
+
+
+def td_loss(scores: torch.Tensor, action: torch.Tensor,
+            target: torch.Tensor) -> torch.Tensor:
+    """The mean squared TD error of the unmasked scores at the taken
+    actions (Alg. 5 line 22)."""
+    qsa = torch.gather(scores, 1, action.long()[:, None])[:, 0]
+    return torch.mean(torch.square(qsa - target))
 
 
 def train_minibatch_raw(params: Policy, opt: AdamState, state,
@@ -56,22 +82,14 @@ def train_minibatch_raw(params: Policy, opt: AdamState, state,
                         kernel: str = "fused", compute: str = "f32"):
     """One GD iteration on a re-materialized minibatch (Alg. 5 lines
     19-23): the mean squared TD error of the unmasked scores at the taken
-    actions, its gradients, and one Adam step on ``params`` and ``opt`` in
-    place.  Returns (params, opt, loss).  Its three parts run in
-    ``torch.profiler`` ranges: ``train_step.forward``, ``.backward`` and
-    ``.adam``."""
-    names, tensors = zip(*params.named_parameters())
-    with torch.enable_grad():
-        with record_function("train_step.forward"):
-            s = rep.scores(params, state, num_layers=num_layers,
-                           masked=False, kernel=kernel, compute=compute)
-            qsa = torch.gather(s, 1, action.long()[:, None])[:, 0]
-            loss = torch.mean(torch.square(qsa - target))
-        with record_function("train_step.backward"):
-            grads = torch.autograd.grad(loss, tensors)
-    with record_function("train_step.adam"):
-        adam_update(params, dict(zip(names, grads)), opt, lr=lr)
-    return params, opt, loss.detach()
+    actions, its gradients (:func:`loss_and_grads`), and one Adam step on
+    ``params`` and ``opt`` in place (:func:`adam_step`).  Returns (params,
+    opt, loss)."""
+    loss, grads = loss_and_grads(params, lambda p: td_loss(
+        rep.scores(p, state, num_layers=num_layers, masked=False,
+                   kernel=kernel, compute=compute), action, target))
+    adam_step(params, opt, grads, lr=lr)
+    return params, opt, loss
 
 
 @dataclasses.dataclass

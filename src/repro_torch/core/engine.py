@@ -9,7 +9,11 @@ minibatches once the replay is warm.  The JAX step is one jitted call;
 here it is a Python function that queues device work and reads nothing
 back from the device: the replay's size and the step count are host ints,
 and the caller makes the step's one fetch (``training.train_agent``).  It
-runs on one device, on the dense, sparse and CSR reps, for mvc.
+runs on the dense, sparse and CSR reps, for mvc, on one device or on every
+rank of a ``(data, graph)`` mesh (``cfg.spatial``; CSR at sp = 1): each
+rank acts on its state tile with the spatial scorer, pushes into its tile
+of the one global replay, and takes the mesh GD step
+(``spatial.manual_train_minibatch_fn``).
 
 ``torch.Generator`` cannot replay JAX's threefry key schedule, so each step
 takes its random draws (:class:`TrainDraws`) as an argument:
@@ -32,14 +36,15 @@ from torch.profiler import record_function
 
 from ..optim import AdamState
 from . import env as env_lib
-from .agent import greedy_action_state, max_q_raw, train_minibatch_raw
+from .agent import max_q_from_scores, max_q_raw, train_minibatch_raw
 from .graphrep import GraphRep, get_rep
 from .inference import apply_selection, check_solve_options
-from .mesh import MeshSpec, all_reduce_max, make_mesh, normalize_spatial
+from .mesh import (Mesh, MeshSpec, all_reduce_max, make_mesh,
+                   normalize_spatial)
 from .policy import Policy, PolicyConfig
 from .replay import (DeviceReplay, device_replay_at, device_replay_init,
                      device_replay_push)
-from .spatial import spatial_solve_scores_fn
+from .spatial import manual_train_minibatch_fn, spatial_solve_scores_fn
 
 
 @dataclasses.dataclass
@@ -59,22 +64,26 @@ class TrainDraws:
     """One step's random draws: the epsilon-roll uniforms (B,), the
     exploratory picks (B,) (node ids; only rows that explore use theirs)
     and the replay indices of the τ GD iterations (τ, minibatch; no rows
-    on a step that is not warm).  All on the step's device."""
+    on a step that is not warm).  All on the step's device.  On a mesh
+    every rank holds the whole batch's draws and takes its B/dp rows."""
     eps_uniform: torch.Tensor
     pick: torch.Tensor
     sample_idx: torch.Tensor
 
 
 def engine_init(cfg: PolicyConfig, params: Policy, opt: AdamState,
-                num_nodes: int, *, seed: int = 0,
-                step_count: int = 0) -> EngineState:
+                num_nodes: int, *, seed: int = 0, step_count: int = 0,
+                mesh: Optional[Mesh] = None) -> EngineState:
     """A fresh training carry on the policy's device.  It shares ``params``
-    and ``opt`` (the step updates them in place)."""
+    and ``opt`` (the step updates them in place).  With ``mesh`` (the
+    cfg's mesh, on every rank) the replay is this rank's tile of the ring:
+    tuple rows over ``data``, the masks also over ``graph``; the generator
+    has the same seed on every rank."""
     dev = params.device
     return EngineState(
         params=params, opt=opt,
         replay=device_replay_init(cfg.replay_capacity, num_nodes,
-                                  device=dev),
+                                  device=dev, mesh=mesh),
         generator=torch.Generator(device=dev).manual_seed(seed),
         step_count=step_count)
 
@@ -86,15 +95,27 @@ def draw_train_step(cfg: PolicyConfig, es: EngineState, state, *,
     argmax of uniforms over its candidates (a uniform candidate; a row
     with none picks node 0, which the step never takes).  The indices are
     uniform below the replay's size after the step's push, drawn only if
-    that size makes the step warm."""
+    that size makes the step warm.  On a mesh (``es``'s replay is a tile)
+    every rank draws the whole batch's stream, one device's draws from the
+    same seed, and picks for its own B/dp rows from its tile's candidates
+    (the other rows' picks are 0, unused there)."""
     tau = cfg.grad_iters if tau is None else tau
     b, n = state.candidate.shape
+    mesh = es.replay.mesh
+    rows = slice(None)
+    if mesh is not None:
+        rows = mesh.data.rows(b * mesh.dp)
+        b *= mesh.dp
     gen, dev = es.generator, state.candidate.device
     with record_function("train_step.draw"):
         eps_uniform = torch.rand((b,), generator=gen, device=dev)
         u = torch.rand((b, n), generator=gen, device=dev)
-        pick = torch.argmax(torch.where(state.candidate > 0.5, u, -1.0),
-                            dim=-1)
+        pick = torch.argmax(torch.where(state.candidate > 0.5, u[rows],
+                                        -1.0), dim=-1)
+        if mesh is not None:
+            whole = torch.zeros((b,), dtype=pick.dtype, device=dev)
+            whole[rows] = pick
+            pick = whole
         size = min(es.replay.size + b, es.replay.capacity)
         iters = tau if size >= cfg.minibatch else 0
         sample_idx = torch.randint(0, max(size, 1), (iters, cfg.minibatch),
@@ -117,17 +138,37 @@ def epsilon_f32(cfg: PolicyConfig, step_count: int) -> float:
                  + np.float32(cfg.eps_end - cfg.eps_start) * frac)
 
 
-def check_train_options(cfg: PolicyConfig, problem: str) -> None:
-    """Refuse what the port does not train yet, naming its ROADMAP item."""
-    if normalize_spatial(cfg.spatial) != (1, 1):
-        raise NotImplementedError(
-            f"training on a mesh (spatial={cfg.spatial!r}) is not ported "
-            f"yet: ROADMAP item \"the mesh's train half\"")
+def check_train_options(cfg: PolicyConfig, problem: str,
+                        rep: GraphRep) -> None:
+    """Refuse what the port does not train, naming its ROADMAP item, and
+    on a mesh JAX's refusals: a minibatch the data axis does not divide,
+    CSR at sp > 1, ``collectives="manual"`` with CSR.  The port has one
+    explicit mesh GD path, which "auto" and "manual" select; "gspmd" (JAX's
+    staged reference path) is refused."""
     if problem != "mvc":
         env_lib.make(problem)            # an unknown name is a ValueError
         raise NotImplementedError(
             f"training {problem!r} is not ported yet: ROADMAP item \"the "
             f"other three problems\"")
+    dp, sp = normalize_spatial(cfg.spatial)
+    if (dp, sp) == (1, 1):
+        return
+    if cfg.minibatch % dp:
+        raise ValueError(f"minibatch {cfg.minibatch} not divisible by the "
+                         f"data-axis size {dp} of mesh spec {cfg.spatial!r}")
+    _check_csr_spatial(rep, sp)
+    if rep.name == "csr" and cfg.collectives == "manual":
+        raise ValueError(
+            "collectives='manual' does not apply to rep='csr': csr shards "
+            "the batch only (sp == 1) and trains on the plain data-parallel "
+            "step, which never replicates an operand; leave "
+            "collectives='auto'")
+    if cfg.collectives == "gspmd":
+        raise ValueError(
+            "collectives='gspmd' selects the JAX package's staged GSPMD "
+            "reference path, which the port has no counterpart of: it "
+            "trains every mesh shape on its explicit collectives; leave "
+            "collectives='auto' (or 'manual')")
 
 
 def get_train_step(cfg: PolicyConfig, *,
@@ -150,9 +191,22 @@ def get_train_step(cfg: PolicyConfig, *,
     one for the fresh target and one for the loss.  Its parts run in
     ``torch.profiler`` ranges named ``train_step.<part>``: act (with the
     env transition), target, rematerialize, and the minibatch step's
-    forward, backward and adam (and draw, in :func:`draw_train_step`)."""
+    forward, backward and adam (and draw, in :func:`draw_train_step`).
+
+    On a mesh (``cfg.spatial``) every rank of the process group calls the
+    step with its own tiles: ``es`` from ``engine_init(mesh=)``, ``state``
+    its episode tile (``spatial.tile_state_from_tuples``: its B/dp graphs,
+    its N/sp topology rows, the masks whole), ``source`` its dataset tile
+    (``mesh.shard_dataset``), and the whole batch's ``graph_idx`` and
+    ``draws``, of which it takes its rows.  It acts with the spatial
+    scorer (sp > 1; the single-device one on its rows at sp = 1), pushes
+    into the sharded ring and runs each GD iteration as
+    ``spatial.manual_train_minibatch_fn``, whose world all-reduce (range
+    ``train_step.allreduce``) keeps the ranks' parameters equal bit for
+    bit.  ``action``, ``reward`` and ``done`` are the rank's rows;
+    ``loss`` is the whole minibatch's, on every rank."""
     rep = get_rep(rep if rep is not None else cfg.graph_rep)
-    check_train_options(cfg, problem)
+    check_train_options(cfg, problem, rep)
     if target_mode not in ("fresh", "stored"):
         raise ValueError(f"unknown target_mode {target_mode!r}")
     tau = cfg.grad_iters if tau is None else tau
@@ -163,11 +217,31 @@ def get_train_step(cfg: PolicyConfig, *,
     policy_kw = dict(rep=rep, num_layers=cfg.num_layers, kernel=cfg.kernel,
                      compute=cfg.compute)
     stored = target_mode == "stored"
+    dp, sp = normalize_spatial(cfg.spatial)
+    mesh = manual_gd = None
+    score_fn = functools.partial(rep.scores, num_layers=cfg.num_layers,
+                                 kernel=cfg.kernel, compute=cfg.compute)
+    if (dp, sp) != (1, 1):
+        mesh = make_mesh(dp, sp)
+        manual_gd = manual_train_minibatch_fn(
+            mesh, rep=rep, num_layers=cfg.num_layers, lr=cfg.learning_rate,
+            gamma=gamma, minibatch=mb, residual=residual,
+            target_mode=target_mode, kernel=cfg.kernel, compute=cfg.compute)
+        if sp > 1:
+            score_fn = spatial_solve_scores_fn(
+                mesh, num_layers=cfg.num_layers, rep=rep,
+                residual=env_lib.sparse_residual_flag(problem),
+                kernel=cfg.kernel, compute=cfg.compute)
 
     def train_step(es: EngineState, state, source, graph_idx: torch.Tensor,
                    draws: TrainDraws):
+        if (es.replay.mesh is None) != (mesh is None):
+            raise ValueError(f"the engine's replay and the step's spatial="
+                             f"{cfg.spatial!r} disagree: engine_init(mesh="
+                             f"...) takes the config's mesh")
         # warm once the push below leaves ``mb`` tuples in the replay
-        b = state.candidate.shape[0]
+        b = state.candidate.shape[0] * dp
+        rows = mesh.data.rows(b) if mesh is not None else slice(None)
         warm = min(es.replay.size + b, es.replay.capacity) >= mb
         if warm and tuple(draws.sample_idx.shape) != (tau, mb):
             raise ValueError(f"a warm step needs ({tau}, {mb}) replay "
@@ -175,29 +249,36 @@ def get_train_step(cfg: PolicyConfig, *,
 
         # -- act (Alg. 1 lines 9-10) --------------------------------------
         with record_function("train_step.act"):
-            action, _ = greedy_action_state(es.params, state, **policy_kw)
+            with torch.no_grad():
+                action = torch.argmax(score_fn(es.params, state), dim=-1)
             if explore:
-                roll = draws.eps_uniform < epsilon_f32(cfg, es.step_count)
+                roll = draws.eps_uniform[rows] < epsilon_f32(cfg,
+                                                             es.step_count)
                 has_cand = (state.candidate > 0.5).any(-1)
-                action = torch.where(roll & has_cand, draws.pick.long(),
-                                     action)
+                action = torch.where(roll & has_cand,
+                                     draws.pick[rows].long(), action)
 
             # -- env transition -------------------------------------------
             new_state, reward, done = step_fn(state, action)
 
         # -- remember (Alg. 5 lines 11-13) --------------------------------
         if stored:
-            with record_function("train_step.target"):
-                nxt = max_q_raw(es.params, new_state, **policy_kw)
+            with record_function("train_step.target"), torch.no_grad():
+                nxt = max_q_from_scores(score_fn(es.params, new_state),
+                                        new_state.candidate)
                 target = reward + gamma * nxt * (1.0 - done.to(torch.float32))
         else:
             target = torch.zeros_like(reward)
-        device_replay_push(es.replay, graph_idx, state.solution, action,
-                           target, reward, new_state.solution, done)
+        device_replay_push(es.replay, graph_idx[rows], state.solution,
+                           action, target, reward, new_state.solution, done)
 
         # -- τ GD iterations (Alg. 5 lines 15-23, §4.5.2) ------------------
         loss = torch.full((), float("nan"), device=reward.device)
         for t in range(tau if warm else 0):
+            if manual_gd is not None:
+                _, _, loss = manual_gd(es.params, es.opt, es.replay, source,
+                                       draws.sample_idx[t])
+                continue
             gi, sol, act, tgt, rew, sol2, dn = device_replay_at(
                 es.replay, draws.sample_idx[t])
             if not stored:

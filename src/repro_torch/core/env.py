@@ -21,6 +21,7 @@ from .graphs import (GraphState, csr_batch_from_dense, csr_init_state,
                      csr_residual_edge_mask, csr_row_ids, csr_segment_sum,
                      residual_adjacency, residual_edge_mask,
                      sparse_batch_from_dense, sparse_init_state)
+from .mesh import gather_rows, local_rows
 
 EnvStep = Callable[[GraphState, torch.Tensor],
                    Tuple[GraphState, torch.Tensor, torch.Tensor]]
@@ -246,15 +247,18 @@ def _onehot(v: torch.Tensor, n: int) -> torch.Tensor:
 
 def _mvc_step_dense(state: GraphState, oh: torch.Tensor):
     """A new dense state: the step is functional, unlike the solve's
-    in-place commit."""
+    in-place commit.  On a mesh tile (``state.axis``) the rank's rows are
+    masked and the degrees all-gathered over the graph axis, as
+    ``DenseRep.commit`` does."""
     solution = torch.maximum(state.solution, oh)
     keep = 1.0 - oh
-    adj = state.adj * keep[:, :, None] * keep[:, None, :]
-    deg = adj.sum(-1)
+    adj = (state.adj * local_rows(keep, state.axis)[:, :, None]
+           * keep[:, None, :])
+    deg = gather_rows(adj.sum(-1), state.axis)
     candidate = ((deg > 0) & (solution < 0.5)).to(torch.float32)
     # edge weights are non-negative: no edge survives iff every degree is 0
-    return (GraphState(adj=adj, candidate=candidate, solution=solution),
-            (deg == 0).all(-1))
+    return (dataclasses.replace(state, adj=adj, candidate=candidate,
+                                solution=solution), (deg == 0).all(-1))
 
 
 @register("mvc", checker=lambda adj0, sol: is_cover(adj0, sol))

@@ -23,7 +23,21 @@ which is the layout of the JAX package's fused solve (``constrain_batch``
 for the masks, the shard_map tiles for the topology).  The collectives
 below take an :class:`Axis` of a mesh, as the JAX modules name a mesh axis
 inside ``shard_map``; on an axis of size 1 they are the identity and
-communicate nothing.
+communicate nothing.  Each mesh counts its collectives' calls and bytes by
+kind (``Mesh.traffic``).
+
+Training differentiates through the collectives, which ``shard_map``
+transposes for JAX and which torch's in-place ``torch.distributed`` calls
+hide from autograd.  So the train path takes :func:`pooled_sum` (``psum``
+whose gradient is all-reduced too) and :func:`partial_sum_columns` (the
+dense layer's all-reduce of row-block partials, then the rank's own
+columns, whose gradient is the all-gather of the columns' gradients), and
+the in-place forms refuse a tensor that requires a gradient.  The train
+step's one world all-reduce (:func:`all_reduce_world`) sums the flattened
+gradients and the loss, Alg. 5's MPI_All_reduce.  The dataset of a mesh
+run keeps every graph on every data rank and splits its node rows over
+``graph`` (:func:`shard_dataset`); the replay's tile is
+``core.replay.device_replay_init(mesh=)``'s.
 
 The backend is the caller's choice and is never switched quietly:
 ``nccl`` when each rank has its own card, ``gloo`` for CPU ranks and for
@@ -100,11 +114,14 @@ def parse_spatial(text: str) -> MeshSpec:
 class Axis:
     """One axis of a mesh as this rank sees it: ``size`` ranks, this rank
     at ``index``, ``group`` the process group of the ranks along it (None
-    on an axis of size 1, where collectives are the identity)."""
+    on an axis of size 1, where collectives are the identity).
+    ``traffic`` is its mesh's count of collectives (``Mesh.traffic``)."""
     name: str
     size: int
     index: int
     group: Any = None
+    traffic: Optional[dict] = dataclasses.field(default=None, compare=False,
+                                                hash=False, repr=False)
 
     def rows(self, total: int) -> slice:
         """This rank's block of ``total`` rows split ``size`` ways."""
@@ -131,12 +148,16 @@ def single_axis(name: str) -> Axis:
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """The (dp, sp) mesh of this rank: ``rank = data.index · sp +
-    graph.index``."""
+    graph.index``.  ``traffic`` counts the collectives this rank has
+    called on it, ``{"<kind> <axis>": [calls, bytes sent]}`` (the bytes
+    of the rank's own operand), until :func:`reset_traffic`."""
     dp: int
     sp: int
     rank: int
     data: Axis
     graph: Axis
+    traffic: dict = dataclasses.field(default_factory=dict, compare=False,
+                                      hash=False, repr=False)
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -180,9 +201,11 @@ def _build_mesh(dp: int, sp: int, world_group) -> Mesh:
             else None
         if j == g:
             groups[DATA] = grp
+    traffic = {}
     return Mesh(dp=dp, sp=sp, rank=rank,
-                data=Axis(DATA, dp, d, groups[DATA]),
-                graph=Axis(GRAPH, sp, g, groups[GRAPH]))
+                data=Axis(DATA, dp, d, groups[DATA], traffic),
+                graph=Axis(GRAPH, sp, g, groups[GRAPH], traffic),
+                traffic=traffic)
 
 
 def mesh_from_spec(spec: MeshSpec) -> Optional[Mesh]:
@@ -200,10 +223,35 @@ def mesh_shape(mesh: Mesh) -> Tuple[int, int]:
 # Axis collectives (lax.psum / pmax / all_gather(tiled=True)).
 # ---------------------------------------------------------------------------
 
+def _record(traffic: Optional[dict], key: str, t: torch.Tensor) -> None:
+    if traffic is not None:
+        calls = traffic.setdefault(key, [0, 0])
+        calls[0] += 1
+        calls[1] += t.numel() * t.element_size()
+
+
+def reset_traffic(mesh: Mesh) -> dict:
+    """The mesh's collective counts so far, which start again from none."""
+    out = {k: list(v) for k, v in mesh.traffic.items()}
+    mesh.traffic.clear()
+    return out
+
+
+def _no_grad_operand(t: torch.Tensor, what: str) -> None:
+    if t.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError(
+            f"{what} is invisible to autograd: a tensor that requires a "
+            f"gradient takes mesh.pooled_sum or mesh.partial_sum_columns, "
+            f"or a gathered layer of core.s2v_sparse")
+
+
 def all_reduce_sum(t: torch.Tensor, axis: Axis) -> torch.Tensor:
     """Σ of ``t`` over the ranks of ``axis``, in place (``t`` must be
-    contiguous); every rank receives the same values."""
+    contiguous); every rank receives the same values.  No gradient passes
+    it (:func:`pooled_sum` is the differentiable form)."""
     if axis.size > 1:
+        _no_grad_operand(t, "all_reduce_sum")
+        _record(axis.traffic, f"all_reduce {axis.name}", t)
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=axis.group)
     return t
 
@@ -211,19 +259,90 @@ def all_reduce_sum(t: torch.Tensor, axis: Axis) -> torch.Tensor:
 def all_reduce_max(t: torch.Tensor, axis: Axis) -> torch.Tensor:
     """Elementwise max of ``t`` over the ranks of ``axis``, in place."""
     if axis.size > 1:
+        _no_grad_operand(t, "all_reduce_max")
+        _record(axis.traffic, f"all_reduce_max {axis.name}", t)
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=axis.group)
     return t
 
 
 def all_gather_tiled(t: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
     """The ranks' tiles of ``axis`` concatenated along ``dim`` in rank
-    order (``lax.all_gather(..., tiled=True)``)."""
+    order (``lax.all_gather(..., tiled=True)``).  The result carries no
+    gradient back to ``t``, so ``t`` must not require one."""
     if axis.size == 1:
         return t
+    _no_grad_operand(t, "all_gather_tiled")
+    _record(axis.traffic, f"all_gather {axis.name}", t)
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(axis.size)]
     dist.all_gather(parts, t, group=axis.group)
     return torch.cat(parts, dim=dim)
+
+
+def all_reduce_world(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """Σ of ``t`` over every rank of the mesh, in place: the train step's
+    one all-reduce of the flattened gradients and the loss (Alg. 5's
+    MPI_All_reduce).  gloo and NCCL hand every rank the same reduced
+    bytes, so the ranks' Adam updates stay equal bit for bit."""
+    if mesh.dp * mesh.sp > 1:
+        _no_grad_operand(t, "all_reduce_world")
+        _record(mesh.traffic, "all_reduce world", t)
+        dist.all_reduce(t, op=dist.ReduceOp.SUM)
+    return t
+
+
+class _PooledSum(torch.autograd.Function):
+    """Σ over the axis (``lax.psum``) with its transpose: each rank's
+    loss reads the sum, so the gradient of every rank's operand is the
+    sum of the ranks' gradients of the sum, all-reduced again."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return all_reduce_sum(x.detach().clone(
+            memory_format=torch.contiguous_format), axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum(grad.clone(
+            memory_format=torch.contiguous_format), ctx.axis), None
+
+
+class _PartialSumColumns(torch.autograd.Function):
+    """The (B, K, N) row-block partials summed over the axis, then this
+    rank's Nl columns (Alg. 2 line 12).  Its transpose: every rank's
+    partial fed every rank's columns, so a partial's gradient is the
+    ranks' column gradients all-gathered along the columns."""
+
+    @staticmethod
+    def forward(ctx, partial, axis):
+        ctx.axis = axis
+        full = all_reduce_sum(partial.detach().clone(
+            memory_format=torch.contiguous_format), axis)
+        return full[:, :, axis.rows(full.shape[2])]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather_tiled(grad, ctx.axis, 2), None
+
+
+def pooled_sum(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
+    """Σ of ``x`` over the ranks of ``axis``, as a new tensor whose
+    gradient autograd sees (all-reduced again on the way back); ``x``
+    itself when ``axis`` is None or of size 1."""
+    if axis is None or axis.size == 1:
+        return x
+    return _PooledSum.apply(x, axis)
+
+
+def partial_sum_columns(partial: torch.Tensor,
+                        axis: Optional[Axis]) -> torch.Tensor:
+    """Σ over ``axis`` of the (B, K, N) partials, then this rank's Nl
+    columns, differentiable; ``partial`` itself when ``axis`` is None or
+    of size 1 (the partial is then the whole sum)."""
+    if axis is None or axis.size == 1:
+        return partial
+    return _PartialSumColumns.apply(partial, axis)
 
 
 # ---------------------------------------------------------------------------
@@ -268,6 +387,29 @@ def shard_state(mesh: Mesh, state):
     return shard_nodes(mesh, shard_batch(mesh, state))
 
 
+def shard_dataset(mesh: Mesh, source, *, device: DeviceLike = "cuda"):
+    """This rank's tile of a training dataset (``rep.prepare_dataset``'s
+    source) on ``device``: every graph, on every data rank, and the graph
+    rank's N/sp node rows of a dense (G, N, N) stack or of a
+    ``SparseGraphBatch``'s lists (JAX's ``DATASET_SPEC = P(None, graph,
+    None)``).  CSR arrays have no equal row split and stay whole (sp = 1
+    only, ``engine._check_csr_spatial``)."""
+    dev = resolve_device(device)
+    if isinstance(source, torch.Tensor):
+        return source[:, mesh.graph.rows(source.shape[1])].to(dev) \
+            .contiguous()
+    fields = _tensor_fields(source)
+    topo = [f for f in fields if f in _TOPOLOGY_ROWS]
+    rows = (mesh.graph.rows(getattr(source, topo[0]).shape[1]) if topo
+            else slice(None))
+    if not topo and mesh.sp > 1:
+        raise ValueError(f"{type(source).__name__} has no node rows to "
+                         f"split over the graph axis (sp={mesh.sp})")
+    return dataclasses.replace(source, **{
+        f: (getattr(source, f)[:, rows] if f in topo else getattr(source, f))
+        .to(dev).contiguous() for f in fields})
+
+
 def local_rows(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
     """This rank's block of the node dimension (dim 1) of a whole
     ``x``; ``x`` itself when ``axis`` is None."""
@@ -307,6 +449,34 @@ def sparse_per_device_bytes(n: int, max_deg: int, b: int, p: int,
         "candidates": 4.0 * n * b / (p * dp),
         "replay": 8.0 * replay_tuples * (n / p + 1) / dp,
     }
+
+
+def minibatch_operand_bytes(n: int, minibatch: int, dp: int, sp: int,
+                            collectives: str, rep: str = "dense",
+                            max_deg: Optional[int] = None) -> dict:
+    """Per-device live bytes of the GD loss operands inside one mesh GD
+    iteration, JAX's numbers (``repro/core/mesh.py``) for every argument.
+    The port's explicit path ("auto" and "manual") keeps every operand a
+    tile: topology (M/dp, N/sp, ·), solution/candidate (M/dp, N/sp),
+    action/target (M/dp,).  "gspmd" gives the JAX staged reference path's
+    figure (its live operands replicated on a full 2-D mesh), which the
+    port does not run."""
+    staged = collectives == "gspmd" and dp > 1 and sp > 1
+    ddp, dsp = (1, 1) if staged else (dp, sp)
+    if rep == "dense":
+        topo = 4.0 * minibatch * n * n / (ddp * dsp)
+    else:
+        d = max_deg if max_deg else n
+        topo = 5.0 * minibatch * n * d / (ddp * dsp)
+    out = {
+        "topology": topo,
+        "solution": 4.0 * minibatch * n / (ddp * dsp),
+        # candidate is dead in the GD loss and never staged: tiled always
+        "candidate": 4.0 * minibatch * n / (dp * sp),
+        "tuples": 2 * 4.0 * minibatch / ddp,        # action + target
+    }
+    out["total"] = sum(out.values())
+    return out
 
 
 def csr_per_device_bytes(n: int, edges: int, b: int,

@@ -9,7 +9,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .mesh import Axis, all_reduce_sum, check_axis
+from .mesh import Axis, check_axis, pooled_sum
 
 NEG_INF = -1e9
 
@@ -50,11 +50,10 @@ def scores_local(
 ) -> torch.Tensor:
     """Alg. 3: (B, Nl) scores; non-candidates get NEG_INF if masked.
     ``axis``: the mesh's graph axis when ``embed_local`` holds one rank's
-    Nl nodes, over which the graph embedding sum is all-reduced."""
+    Nl nodes, over which the graph embedding sum is all-reduced (with its
+    gradient: every rank's scores read the sum, ``mesh.pooled_sum``)."""
     check_axis(axis)
-    sum_embed = embed_local.sum(-1)                              # (B, K)
-    if axis is not None:                                         # Lines 4-5
-        all_reduce_sum(sum_embed, axis)
+    sum_embed = pooled_sum(embed_local.sum(-1), axis)      # (B, K), l. 4-5
     w1 = torch.einsum("kj,bj->bk", params.theta5, sum_embed)     # Line 6
     cand_embed = embed_local * cand_local[:, None, :]            # Lines 8-9
     w2 = torch.einsum("kj,bjn->bkn", params.theta6, cand_embed)

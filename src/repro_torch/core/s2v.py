@@ -16,6 +16,10 @@ one rank of a mesh's graph axis (``axis=mesh.graph``), which holds the
 - ``"xla"``: the reference per-op chain, kept as the semantics of record
   (named after the JAX lowering it mirrors).
 
+Both lowerings train on one device and on a mesh: the aggregate's
+backward is the einsum's vjp, and the all-reduce of the partials is
+``mesh.partial_sum_columns``, whose gradient autograd sees.
+
 ``compute=`` selects the matmul operand precision of the fused layer:
 ``"f32"`` or ``"bf16"`` (operands rounded at use, f32 accumulation, the
 aggregate rounded once, f32 base/ReLU and Q-model).
@@ -31,7 +35,7 @@ from torch import nn
 from ..kernels.s2v_fused import (COMPUTE_MODES, fused_s2v_layer,
                                  fused_s2v_layer_plain, mp_aggregate,
                                  round_cd)
-from .mesh import Axis, all_reduce_sum, check_axis
+from .mesh import Axis, check_axis, partial_sum_columns
 
 KERNELS = ("fused", "xla")
 
@@ -118,20 +122,24 @@ class _FusedDenseLayer(torch.autograd.Function):
 
 def self_adjoint_layer_grads(theta4: torch.Tensor, x: torch.Tensor,
                              base: torch.Tensor, grad: torch.Tensor,
-                             aggregate, compute: str, needs):
+                             aggregate, compute: str, needs,
+                             transpose=None):
     """The gradients of one sparse or CSR layer, ``relu(base + cd(θ4) @
     cd(agg))`` with ``agg = A(x)`` an f32 sum of ``cd(x)·cd(w)``, in closed
     form: the vjp of JAX's compositions (``repro/core/s2v_sparse.py::
     _sparse_layer_jnp``, ``repro/core/s2v_csr.py::_csr_layer_jnp``), cd
     being the compute-dtype rounding (``round_cd``).
 
-    ``aggregate`` is A on one (B, K, N) tensor.  It must be linear and its
-    own transpose (Aᵀ = A): the input's gradient is then one more
-    aggregate, of the pre-activation's gradient through θ4, so no gathered
-    (B, K, N, D) or (B, K, E) tensor and no scatter-add is formed.  That
-    holds for every graph the env builds: its neighbour lists and CSR
+    ``aggregate`` is A on one (B, K, N) tensor.  It must be linear, and
+    ``transpose`` (``aggregate`` when None) must be its transpose.  For the
+    whole graph A is its own transpose: the input's gradient is then one
+    more aggregate, of the pre-activation's gradient through θ4, so no
+    gathered (B, K, N, D) or (B, K, E) tensor and no scatter-add is formed.
+    That holds for every graph the env builds: its neighbour lists and CSR
     arrays are symmetric (u lists v iff v lists u), and so are the factors
-    ``valid ∧ keep[u] ∧ keep[v]`` and ``edge_mask``.  ``pre`` is recomputed
+    ``valid ∧ keep[u] ∧ keep[v]`` and ``edge_mask``.  (A row block's
+    transpose is the row block's aggregate of the all-gathered gradient,
+    ``core.s2v_sparse``.)  ``pre`` is recomputed
     from a second A(x), as JAX's ``custom_vjp`` recomputes the composition,
     so the ReLU mask comes from ``pre``, not from the kernel's output.
     ``needs`` says which of (θ4, x, base) want a gradient; the others are
@@ -148,35 +156,36 @@ def self_adjoint_layer_grads(theta4: torch.Tensor, x: torch.Tensor,
         dt4 = round_cd(torch.einsum("bkn,bjn->kj", dpre, agg), compute)
     if need_x:
         dagg = round_cd(torch.matmul(t4.t(), dpre), compute)
-        dx = round_cd(aggregate(dagg.contiguous()), compute)
+        dx = round_cd((transpose or aggregate)(dagg.contiguous()), compute)
     return dt4, dx, dpre if need_base else None
 
 
 class _AggregateFused(torch.autograd.Function):
-    """Autograd hook around the aggregate of the sharded dense path.  Its
-    backward belongs to the mesh's train half (the JAX ``custom_vjp``
-    differentiates the einsum, ``repro/core/s2v.py:_agg_hw_bwd``)."""
+    """Autograd hook around the aggregate of the sharded dense path (B2 on
+    the card), ``cd(embed) @ cd(adj_rows)`` in f32.  Its backward is the
+    vjp of that einsum, as JAX's ``custom_vjp`` differentiates it
+    (``repro/core/s2v.py:_agg_hw_bwd``): ``cd(grad @ cd(adj_rows)ᵀ)``, one
+    batched product that reads the rank's (B, Nl, N) rows once (JAX forms
+    it outside any Pallas kernel too).  Like the single-device layer it
+    gives the adjacency no gradient."""
 
     @staticmethod
     def forward(ctx, embed, adj, compute):
+        ctx.save_for_backward(adj)
+        ctx.compute = compute
         return mp_aggregate(embed, adj, compute)
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "the sharded dense aggregate has no backward yet: ROADMAP item "
-            "\"the mesh's train half\"")
-
-
-def local_aggregate(nbr_partial: torch.Tensor,
-                    axis: Optional[Axis]) -> torch.Tensor:
-    """Alg. 2 line 12: the (B, K, N) partial neighbour sums of this rank's
-    rows, summed over the graph axis (MPI_All_reduce), then this rank's Nl
-    columns.  ``axis=None``: the partial is already the whole sum."""
-    if axis is None:
-        return nbr_partial
-    full = all_reduce_sum(nbr_partial.contiguous(), axis)
-    return full[:, :, axis.rows(full.shape[2])]
+        (adj,) = ctx.saved_tensors
+        if ctx.needs_input_grad[1]:
+            raise NotImplementedError(
+                "the sharded dense aggregate takes no gradient with respect "
+                "to the adjacency")
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        rows = round_cd(adj, ctx.compute).transpose(1, 2)
+        return round_cd(torch.matmul(grad, rows), ctx.compute), None, None
 
 
 def s2v_base(params: S2V, deg: torch.Tensor,
@@ -197,7 +206,7 @@ def embed_local(
     sol_local: torch.Tensor,      # (B, Nl)    local slice of partial solution S
     *,
     num_layers: int,
-    axis: Optional[str] = None,
+    axis: Optional[Axis] = None,
     kernel: str = "fused",
     compute: str = "f32",
 ) -> torch.Tensor:
@@ -223,14 +232,14 @@ def embed_local(
             else:
                 # fused up to the collective, all-reduced in f32, then the
                 # Nl-local epilogue: the collective placement of the chain
-                nbr = local_aggregate(
+                nbr = partial_sum_columns(
                     _AggregateFused.apply(embed, adj_local, compute), axis)
                 e3 = torch.matmul(round_cd(params.theta4, compute),
                                   round_cd(nbr, compute))
                 embed = torch.relu(base + e3)                   # Line 14
         else:
             nbr = torch.einsum("bkl,bln->bkn", embed, adj_local)   # Line 11
-            nbr = local_aggregate(nbr, axis)                        # Line 12
+            nbr = partial_sum_columns(nbr, axis)                    # Line 12
             embed3 = torch.einsum("kj,bjn->bkn", params.theta4, nbr)
             embed = torch.relu(base + embed3)                       # Line 14
     return embed

@@ -18,13 +18,21 @@ aggregation exactly zero, so layer 1 is relu(embed1 + embed2)).
 ``kernels.s2v_gather.sparse_mp_aggregate``, the CUDA kernel on the card,
 as the JAX chain runs its Pallas gather on the TPU.
 
-Training differentiates both lowerings on one device.  The backwards take
-the lists' symmetry (u lists v iff v lists u, with equal factors: true of
-every graph the env builds) to form each input gradient as one more
-aggregate (``core.s2v.self_adjoint_layer_grads``), so they form no
-gathered (B, K, N, D) tensor.  A row block of the lists (a mesh's graph
-axis) breaks that symmetry, so its backward is refused: it belongs to
-ROADMAP item "the mesh's train half".
+Training differentiates both lowerings, on one device and on a row block
+of the lists.  The backwards take the lists' symmetry (u lists v iff v
+lists u, with equal factors: true of every graph the env builds) to form
+each input gradient as one more aggregate
+(``core.s2v.self_adjoint_layer_grads``), so they form no gathered
+(B, K, N, D) tensor.  On a mesh the whole graph's aggregate A is still its
+own transpose, so the ranks' row blocks A_r satisfy Σ_r A_rᵀ(y_r) =
+A(y): the gradient of a rank's (B, K, Nl) embedding is its row block's
+aggregate of the all-gathered (B, K, N) gradient.  One Function per
+lowering therefore takes the all-gather and the row-block layer
+(:class:`_FusedSparseLayer`) or aggregate (:class:`_SparseAggregate`)
+together, given the graph axis, and is the single-device Function
+without one (two row-block aggregates and one all-gather a layer
+backward, the forward's traffic).  The factors on a row block
+come from the all-gathered solution, so they stay symmetric.
 """
 from __future__ import annotations
 
@@ -76,20 +84,34 @@ def edge_factors(nbr_local: torch.Tensor, valid_local: torch.Tensor,
                                  axis=axis)
 
 
-def transposed_aggregate(nbr: torch.Tensor, edge: torch.Tensor, n: int,
-                         compute: str = "f32"):
-    """The transpose of the lists' aggregate, as a map of one (B, K, N)
-    tensor: the aggregate itself (B4 on the card, x's sentinel column
-    padded on), because the whole graph's symmetric lists are their own
-    transpose.  A row block's are not (Nl != N): refused."""
-    nl = nbr.shape[1]
-    if nl != n:
-        raise NotImplementedError(
-            f"the sparse layer's backward on a row block of the lists "
-            f"(Nl={nl} of N={n}) is not ported yet: ROADMAP item \"the "
-            f"mesh's train half\"")
+def _gather(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
+    return x if axis is None else all_gather_tiled(x, axis, 2)
+
+
+def _aggregate_fn(nbr: torch.Tensor, edge: torch.Tensor, compute: str):
+    """A_r, the lists' (row block's) aggregate, as a map of one (B, K, N)
+    tensor: B4 on the card, with x's sentinel column padded on."""
     return lambda y: sparse_mp_aggregate(torch.nn.functional.pad(y, (0, 1)),
                                          nbr, edge, compute)
+
+
+def input_grad_fn(nbr: torch.Tensor, edge: torch.Tensor, n: int,
+                  axis: Optional[Axis], compute: str = "f32"):
+    """The transpose of the lists' aggregate, as the map from the (B, K,
+    Nl) gradient of its output to the gradient of the rank's (B, K, Nl)
+    input: the row block's aggregate of the gradient all-gathered over
+    ``axis`` (of the gradient itself on one device, Nl = N), because the
+    whole graph's symmetric lists are their own transpose.  A row block
+    whose input was not gathered by the same Function (``axis`` None,
+    Nl != N) has no such form: refused."""
+    if axis is None and nbr.shape[1] != n:
+        raise NotImplementedError(
+            f"the sparse layer's backward on a row block of the lists "
+            f"(Nl={nbr.shape[1]} of N={n}) needs its input all-gathered in "
+            f"the same Function: pass the mesh's graph axis "
+            f"(embed_sparse_local with axis=mesh.graph)")
+    agg = _aggregate_fn(nbr, edge, compute)
+    return lambda y: agg(_gather(y.contiguous(), axis))
 
 
 def check_no_factor_grad(ctx, i: int) -> None:
@@ -100,19 +122,23 @@ def check_no_factor_grad(ctx, i: int) -> None:
 
 
 class _FusedSparseLayer(torch.autograd.Function):
-    """Autograd hook around the fused sparse layer: the kernel forward,
-    and the closed-form gradient of JAX's composition
+    """Autograd hook around the fused sparse layer (B3 on the card), on
+    one device (``axis`` None) or on a rank's row block of the lists,
+    whose (B, K, Nl) input is first all-gathered over the graph ``axis``.
+    The backward is the closed-form gradient of JAX's composition
     (``repro/core/s2v_sparse.py:_sparse_layer_hw_bwd``) through two
     launches of the sparse aggregate (B4, at the layer's compute mode):
     one recomputes agg, one forms the input's gradient, which equals the
-    aggregate of the pre-activation's gradient only because the lists are
-    symmetric (``core.s2v.self_adjoint_layer_grads``).  The lists and the
-    factors get no gradient; a row block of the lists is refused."""
+    aggregate (of the all-gathered dagg, on a row block) only because the
+    lists are symmetric (``core.s2v.self_adjoint_layer_grads``,
+    ``input_grad_fn``).  The lists and the factors get no gradient; a row
+    block without an axis is refused."""
 
     @staticmethod
-    def forward(ctx, theta4, x, nbr, edge, base, compute):
+    def forward(ctx, theta4, x, nbr, edge, base, compute, axis=None):
+        x = _gather(x, axis)
         ctx.save_for_backward(theta4, x, nbr, edge, base)
-        ctx.compute = compute
+        ctx.compute, ctx.axis = compute, axis
         return fused_s2v_layer_sparse(theta4, x, nbr, edge, base, compute)
 
     @staticmethod
@@ -122,28 +148,32 @@ class _FusedSparseLayer(torch.autograd.Function):
         need = ctx.needs_input_grad
         dt4, dx, dbase = self_adjoint_layer_grads(
             theta4, x, base, grad.contiguous(),
-            transposed_aggregate(nbr, edge, x.shape[2], ctx.compute),
-            ctx.compute, (need[0], need[1], need[4]))
-        return dt4, dx, None, None, dbase, None
+            _aggregate_fn(nbr, edge, ctx.compute), ctx.compute,
+            (need[0], need[1], need[4]),
+            input_grad_fn(nbr, edge, x.shape[2], ctx.axis, ctx.compute))
+        return dt4, dx, None, None, dbase, None, None
 
 
 class _SparseAggregate(torch.autograd.Function):
-    """The "xla" chain's aggregation (B4 on the card) under autograd: the
-    gradient of x (B, K, N+1) is the aggregate of the output's gradient,
-    its sentinel column zero, by the lists' symmetry as above."""
+    """The "xla" chain's aggregation (B4 on the card) under autograd, of a
+    whole (B, K, N) x or of a rank's (B, K, Nl) x all-gathered over the
+    graph ``axis`` first: x's gradient is the aggregate of the output's
+    (all-gathered) gradient, by the lists' symmetry as above; a row block
+    without an axis is refused."""
 
     @staticmethod
-    def forward(ctx, xp, nbr, edge):
+    def forward(ctx, x, nbr, edge, axis=None):
+        x = _gather(x, axis)
         ctx.save_for_backward(nbr, edge)
-        ctx.n = xp.shape[2] - 1
-        return sparse_mp_aggregate(xp, nbr, edge)
+        ctx.n, ctx.axis = x.shape[2], axis
+        return _aggregate_fn(nbr, edge, "f32")(x)
 
     @staticmethod
     def backward(ctx, grad):
         nbr, edge = ctx.saved_tensors
         check_no_factor_grad(ctx, 2)
-        dx = transposed_aggregate(nbr, edge, ctx.n)(grad.contiguous())
-        return torch.nn.functional.pad(dx, (0, 1)), None, None
+        return input_grad_fn(nbr, edge, ctx.n, ctx.axis)(grad), None, None, \
+            None
 
 
 def embed_sparse_local(params, nbr_local: torch.Tensor,
@@ -170,16 +200,12 @@ def embed_sparse_local(params, nbr_local: torch.Tensor,
                 # is exactly zero
                 embed = torch.relu(base)
             else:
-                full = embed if axis is None else all_gather_tiled(embed,
-                                                                   axis, 2)
-                embed = _FusedSparseLayer.apply(params.theta4, full,
+                embed = _FusedSparseLayer.apply(params.theta4, embed,
                                                 nbr_local, edge_local, base,
-                                                compute)
+                                                compute, axis)
             continue
         # Reference per-op chain; the sentinel column makes padding inert.
-        full = embed if axis is None else all_gather_tiled(embed, axis, 2)
-        xp = torch.nn.functional.pad(full, (0, 1))
-        nbr = _SparseAggregate.apply(xp, nbr_local, edge_local)
+        nbr = _SparseAggregate.apply(embed, nbr_local, edge_local, axis)
         embed3 = torch.einsum("kj,bjn->bkn", params.theta4, nbr)
         embed = torch.relu(base + embed3)
     return embed

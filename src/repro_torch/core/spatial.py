@@ -15,21 +15,40 @@ rank of a mesh (:mod:`repro_torch.core.mesh`) calls them on its own tiles:
   layer;
 - ``spatial_solve_scores_fn``: state in, scores out, for the solve loop.
 
-The mesh train step (``spatial_train_minibatch_fn``,
-``manual_train_minibatch_fn``) comes with ROADMAP item "the mesh's train
-half".
+The GD half is :func:`manual_train_minibatch_fn`, the counterpart of
+JAX's manual-collective step (Alg. 5's per-GPU gradient descent and
+MPI_All_reduce on the 2-D mesh), which the port runs at every mesh shape
+(it has no GSPMD): the replay rows of the minibatch exchanged over
+``data`` (``core.replay.sharded_replay_rows``), the topology
+re-materialized on the rank's tile (:func:`tile_from_tuples`), the fresh
+target's max and "has a candidate" reduced over ``graph`` outside the
+differentiated function, the squared TD errors of the (row, action node)
+pairs the tile owns (:func:`ownership_loss`), and one world all-reduce of
+the gradients and the loss before Adam.  Every collective the loss passes
+is one autograd sees (``mesh.pooled_sum``, ``mesh.partial_sum_columns``,
+the gathered sparse layers).  At sp = 1 (and for CSR, which takes sp = 1
+only) the graph axis is dropped: each data rank runs the single-device
+loss on its minibatch rows (the dense layer is B1, as on one device).
+JAX's staged-GSPMD step (``spatial_train_minibatch_fn``) is not ported.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..device import DeviceLike, resolve_device
-from .mesh import Mesh, all_gather_tiled, local_rows, make_mesh, mesh_shape
+from .agent import adam_step, loss_and_grads, max_q_from_scores
+from .graphrep import candidate_mask, tuples_mode
+from .mesh import (Axis, Mesh, all_gather_tiled, all_reduce_max,
+                   all_reduce_sum, all_reduce_world, local_rows, make_mesh,
+                   mesh_shape, shard_nodes)
 from .policy import policy_scores
 from .qmodel import scores_local
+from .replay import sharded_replay_rows
 from .s2v_sparse import edge_factors, embed_sparse_local
 
 
@@ -145,3 +164,189 @@ def shard_sparse_arrays(mesh: Mesh, neighbors, valid, sol, cand, *,
             _tile(mesh, valid, dev, torch.bool),
             _tile(mesh, sol, dev, torch.float32),
             _tile(mesh, cand, dev, torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# The GD half: re-materialization on the tile, the ownership loss and the
+# mesh GD step.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class MinibatchTile:
+    """One rank's tile of a re-materialized minibatch: the topology rows
+    of its Nl = N/sp nodes for its M/dp tuples (dense ``(adj,)``, (M/dp,
+    Nl, N); sparse ``(neighbors, valid, edge factors)``, (M/dp, Nl, D)),
+    and the solution and candidate masks of those Nl nodes."""
+    topology: Tuple[torch.Tensor, ...]
+    solution: torch.Tensor
+    candidate: torch.Tensor
+
+
+def tile_from_tuples(mesh: Mesh, rep, source, graph_idx: torch.Tensor,
+                     solution: torch.Tensor,
+                     residual=True) -> MinibatchTile:
+    """``rep.state_from_tuples`` on a rank's tile (JAX's ``_dense_remat``
+    and ``_sparse_remat``, "solution" and "none" modes): ``source`` is the
+    rank's dataset tile (``mesh.shard_dataset``), ``graph_idx`` its M/dp
+    tuples' graph ids and ``solution`` their (M/dp, Nl) mask slices.  The
+    residual topology of remote endpoints needs their solution, so the
+    keep mask (dense) or the solution (sparse factors) is all-gathered over
+    ``graph``.  Equal bit for bit to the matching rows (and columns) of the
+    single-device state."""
+    mode = tuples_mode(residual)
+    g = mesh.graph
+    gi = graph_idx.long()
+    if rep.name == "dense":
+        adj = source[gi]
+        if mode == "solution":
+            keep = 1.0 - solution
+            adj.mul_(keep[:, :, None])
+            adj.mul_(all_gather_tiled(keep, g, 1)[:, None, :])
+        return MinibatchTile((adj,), solution, candidate_mask(adj, solution))
+    if rep.name != "sparse":
+        raise ValueError(f"the tile re-materialization takes the dense and "
+                         f"sparse reps, got {rep.name!r}")
+    nbr, valid = source.neighbors[gi], source.valid[gi]
+    edge = edge_factors(nbr, valid, solution, mode, axis=g)
+    cand = ((edge.sum(-1) > 0) & (solution < 0.5)).to(torch.float32)
+    return MinibatchTile((nbr, valid, edge), solution, cand)
+
+
+def tile_scores(mesh: Mesh, params, tile: MinibatchTile, *, num_layers: int,
+                masked: bool = True, kernel: str = "fused",
+                compute: str = "f32") -> torch.Tensor:
+    """The (M/dp, Nl) scores of a tile's own nodes, the per-layer
+    collectives over ``graph`` (Alg. 2-3), differentiable."""
+    g = mesh.graph
+    if len(tile.topology) == 1:                      # dense: (adj,)
+        return policy_scores(params, tile.topology[0], tile.solution,
+                             tile.candidate, num_layers=num_layers, axis=g,
+                             masked=masked, kernel=kernel, compute=compute)
+    nbr, _valid, edge = tile.topology
+    emb = embed_sparse_local(params.em, nbr, edge, tile.solution,
+                             num_layers=num_layers, axis=g, kernel=kernel,
+                             compute=compute)
+    return scores_local(params.q, emb, tile.candidate, axis=g, masked=masked)
+
+
+def ownership_loss(scores: torch.Tensor, action: torch.Tensor,
+                   target: torch.Tensor, axis: Optional[Axis],
+                   minibatch: int) -> torch.Tensor:
+    """The squared TD errors of the (row, action node) pairs whose node is
+    among this rank's ``scores`` columns (all of them when ``axis`` is
+    None), summed and divided by the global ``minibatch``, so the sum over
+    the mesh is the single-device mean (JAX's ``_ownership_loss``)."""
+    nl = scores.shape[1]
+    loc = action.long() - (axis.index * nl if axis is not None else 0)
+    owned = (loc >= 0) & (loc < nl)
+    qsa = torch.gather(scores, 1, loc.clamp(0, nl - 1)[:, None])[:, 0]
+    sq = torch.where(owned, torch.square(qsa - target),
+                     torch.zeros_like(target))
+    return sq.sum() / minibatch
+
+
+def manual_train_minibatch_fn(mesh: Mesh, *, rep, num_layers: int,
+                              lr: float, gamma: float, minibatch: int,
+                              residual=True, target_mode: str = "fresh",
+                              kernel: str = "fused", compute: str = "f32"):
+    """The mesh GD step, run by every rank: ``fn(params, opt, replay,
+    source, idx) -> (params, opt, loss)``.  ``replay`` is the rank's tile
+    of the ring (``device_replay_init(mesh=)``), ``source`` its dataset
+    tile (``mesh.shard_dataset``), ``idx`` the (M,) replay indices of the
+    iteration, the same on every rank.  ``fn.loss_and_grads(params,
+    replay, source, idx)`` is the step without its Adam update: the loss
+    and the gradients, all-reduced over the mesh.
+
+    Collectives per iteration (dense at sp > 1; the sparse rep all-gathers
+    the (M/dp, K, Nl) embedding per layer instead, and its factors gather
+    the solution):
+
+    | collective | axis | operand |
+    | --- | --- | --- |
+    | all-gather | data | the replay rows of the minibatch (per field) |
+    | all-gather | graph | the keep mask, per re-materialization |
+    | all-reduce (+ all-gather back) | graph | the (M/dp, K, N) partial aggregate, per layer |
+    | all-reduce (+ back) | graph | the (M/dp, K) pooled embedding |
+    | all-reduce max, sum | graph | the fresh target's max and candidates |
+    | all-reduce | world | the loss and the (4K²+4K) gradient |
+    """
+    mode = tuples_mode(residual)
+    stored = target_mode == "stored"
+    g = mesh.graph if mesh.sp > 1 else None
+    kw = dict(num_layers=num_layers, kernel=kernel, compute=compute)
+    fields = (("graph_idx", "solution", "action", "target") if stored else
+              ("graph_idx", "solution", "action", "reward", "next_solution",
+               "done"))
+
+    def remat(source, gi, sol):
+        with record_function("train_step.rematerialize"):
+            if g is None:
+                return rep.state_from_tuples(source, gi, sol, residual=mode)
+            return tile_from_tuples(mesh, rep, source, gi, sol, mode)
+
+    def scores(params, st, masked):
+        if g is None:
+            return rep.scores(params, st, masked=masked, **kw)
+        return tile_scores(mesh, params, st, masked=masked, **kw)
+
+    def loss_and_grads_fn(params, replay, source, idx):
+        rows = sharded_replay_rows(replay, idx, fields)
+        if stored:
+            gi, sol, act, tgt = rows
+        else:
+            gi, sol, act, rew, sol2, dn = rows
+            st2 = remat(source, gi, sol2)
+            with record_function("train_step.target"), torch.no_grad():
+                s2 = scores(params, st2, True)
+                if g is None:
+                    nxt = max_q_from_scores(s2, st2.candidate)
+                else:
+                    # the max and "has a candidate" over the tile's nodes,
+                    # then over the graph axis: JAX's pmax and psum
+                    best = all_reduce_max(s2.amax(-1), g)
+                    has = all_reduce_sum(st2.candidate.sum(-1), g) > 0
+                    nxt = torch.where(has, best, torch.zeros_like(best))
+                tgt = rew + gamma * nxt * (1.0 - dn)
+            del st2
+        st = remat(source, gi, sol)
+        loss, grads = loss_and_grads(params, lambda p: ownership_loss(
+            scores(p, st, False), act, tgt, g, minibatch))
+        del st
+        with record_function("train_step.allreduce"):
+            names = list(grads)
+            flat = torch.cat([loss.reshape(1)]
+                             + [grads[k].reshape(-1) for k in names])
+            all_reduce_world(mesh, flat)
+            parts = flat[1:].split([grads[k].numel() for k in names])
+            grads = {k: v.view_as(grads[k]) for k, v in zip(names, parts)}
+        return flat[0], grads
+
+    def fn(params, opt, replay, source, idx):
+        loss, grads = loss_and_grads_fn(params, replay, source, idx)
+        adam_step(params, opt, grads, lr=lr)
+        return params, opt, loss
+
+    fn.loss_and_grads = loss_and_grads_fn
+    return fn
+
+
+def tile_state_from_tuples(mesh: Mesh, rep, source, graph_idx, solutions, *,
+                           device: DeviceLike = "cuda", residual=True,
+                           candidate_fn=None):
+    """This rank's tile (``mesh.shard_state``'s layout: its data rank's
+    B/dp graphs, its graph rank's N/sp topology rows, the masks whole) of
+    ``rep.state_from_tuples(source, graph_idx, solutions)`` for the whole
+    batch, on ``device``: the episode state of a mesh train step.  The
+    data rank's rows are built where ``source`` (the whole dataset) lives,
+    then the topology rows move."""
+    dev = resolve_device(device)
+    gi = torch.as_tensor(graph_idx)
+    sol = torch.as_tensor(solutions)
+    rows = mesh.data.rows(gi.shape[0])
+    state = shard_nodes(mesh, rep.state_from_tuples(
+        source, gi[rows], sol[rows], residual=residual,
+        candidate_fn=candidate_fn))
+    return dataclasses.replace(state, **{
+        f.name: getattr(state, f.name).to(dev).contiguous()
+        for f in dataclasses.fields(state)
+        if isinstance(getattr(state, f.name), torch.Tensor)})

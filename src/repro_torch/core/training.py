@@ -5,7 +5,8 @@
 env through the fused train step (``core.engine.get_train_step``), one
 step per env transition, and evaluates quality when asked (paper §6.2
 learning curves).  Each step's only read from the device is its (loss,
-done) fetch.
+done) fetch.  With ``cfg.spatial`` it trains on the ``(data, graph)``
+mesh: every rank of the process group calls it with the same arguments.
 """
 from __future__ import annotations
 
@@ -22,6 +23,8 @@ from .engine import (draw_train_step, engine_init, get_train_step,
                      sync_to_agent)
 from .graphrep import GraphRep, get_rep
 from .inference import solve
+from .mesh import all_reduce_sum, make_mesh, normalize_spatial, shard_dataset
+from .spatial import tile_state_from_tuples
 
 
 @dataclasses.dataclass
@@ -69,8 +72,17 @@ def train_agent(
     """Train ``agent`` on its device through the fused step.  Episode
     graphs are drawn by numpy's ``default_rng(seed)``, as in the JAX
     package; the step's own draws (``engine.draw_train_step``) come from
-    a generator seeded with ``seed``.  The replay lives on the device, so ``agent.replay`` stays
-    untouched; the agent's policy and Adam state are updated in place."""
+    a generator seeded with ``seed``.  The replay lives on the device, so
+    ``agent.replay`` stays untouched; the agent's policy and Adam state
+    are updated in place.
+
+    On a mesh (``agent.cfg.spatial``) every rank of the default process
+    group calls ``train_agent`` with the same arguments, as ``solve`` on a
+    mesh; ``batch_graphs`` must divide by dp.  The dataset is checked
+    whole on the host, then each rank keeps its tile on its device
+    (``mesh.shard_dataset``), and each episode's state is the rank's tile
+    (``spatial.tile_state_from_tuples``).  The step's fetch reads the
+    whole batch's ``done``, reduced over ``data``."""
     engine = engine if engine is not None else agent.cfg.engine
     if engine == "host":
         raise NotImplementedError(HOST_ENGINE)
@@ -82,20 +94,38 @@ def train_agent(
                            target_mode=agent.target_mode)
     residual = env_lib.residual_mode(problem)
     cand_fn = env_lib.candidate_rule(problem)
-    source = rep.prepare_dataset(train_adj, device=agent.device)
+    dp, sp = normalize_spatial(agent.cfg.spatial)
+    mesh = make_mesh(dp, sp) if (dp, sp) != (1, 1) else None
+    if batch_graphs % dp:
+        raise ValueError(f"batch_graphs {batch_graphs} not divisible by the "
+                         f"data-axis size {dp} of mesh spec "
+                         f"{agent.cfg.spatial!r}")
+    source = rep.prepare_dataset(
+        train_adj, device="cpu" if mesh is not None else agent.device)
     g_count, n = rep.dataset_shape(source)
+    whole = source
+    if mesh is not None:
+        source = shard_dataset(mesh, whole, device=agent.device)
     es = engine_init(agent.cfg, agent.params, agent.opt, n, seed=seed,
-                     step_count=agent.step_count)
+                     step_count=agent.step_count, mesh=mesh)
     log = TrainLog()
     t0 = time.time()
     total_steps = 0
     for _ep in range(episodes):
         # Alg. 5 line 4: random training graph(s)
-        gi = torch.as_tensor(rng.integers(0, g_count, size=batch_graphs),
-                             device=agent.device)
-        state = rep.state_from_tuples(
-            source, gi, torch.zeros((batch_graphs, n), device=agent.device),
-            residual=residual, candidate_fn=cand_fn)
+        gi_host = rng.integers(0, g_count, size=batch_graphs)
+        gi = torch.as_tensor(gi_host, device=agent.device)
+        if mesh is None:
+            state = rep.state_from_tuples(
+                source, gi, torch.zeros((batch_graphs, n),
+                                        device=agent.device),
+                residual=residual, candidate_fn=cand_fn)
+        else:
+            state = tile_state_from_tuples(
+                mesh, rep, whole, gi_host, np.zeros((batch_graphs, n),
+                                                    np.float32),
+                device=agent.device, residual=residual,
+                candidate_fn=cand_fn)
         ep_len = 0
         for _t in range(n):
             if max_steps is not None and total_steps >= max_steps:
@@ -103,10 +133,13 @@ def train_agent(
             draws = draw_train_step(agent.cfg, es, state, tau=tau)
             es, state, _act, _rew, done, loss_d = fused(es, state, source, gi,
                                                         draws)
-            # the step's one read from the device
-            fetched = torch.cat([loss_d.reshape(1),
-                                 done.to(torch.float32)]).cpu()
-            loss, all_done = float(fetched[0]), bool((fetched[1:] > 0).all())
+            # the step's one read from the device: the loss and how many
+            # of the batch's graphs are not done
+            left = (~done).sum().to(torch.float32).reshape(1)
+            if mesh is not None:
+                all_reduce_sum(left, mesh.data)
+            fetched = torch.cat([loss_d.reshape(1), left]).cpu()
+            loss, all_done = float(fetched[0]), bool(fetched[1] == 0)
             ep_len += 1
             total_steps += 1
             log.steps.append(total_steps)

@@ -192,8 +192,9 @@ def test_sparse_aggregate_plain_at_row_blocks_matches_pallas_and_ref(nl, n,
 
 def test_single_rank_axis_runs_the_sharded_branches(case):
     """An axis of size 1 communicates nothing, so the sharded code runs in
-    this process: its embeddings equal the single-device ones, and the
-    sharded aggregate's backward is not ported (the mesh's train half)."""
+    this process: its embeddings equal the single-device ones, and so do
+    their gradients (the sharded aggregate's backward, B2's, is the
+    einsum's vjp)."""
     st = init_state(case["adj"], device="cpu")
     em = case["policy"].em
     g = mesh.single_axis(mesh.GRAPH)
@@ -203,9 +204,12 @@ def test_single_rank_axis_runs_the_sharded_branches(case):
         got = embed_local(em, st.adj, st.solution, num_layers=3, axis=g,
                           kernel=kernel)
         torch.testing.assert_close(got, want, **TOL["f32"])
-    with pytest.raises(NotImplementedError, match="mesh's train half"):
-        embed_local(em, st.adj, st.solution, num_layers=2,
-                    axis=g).sum().backward()
+        grads = [torch.autograd.grad(
+            embed_local(em, st.adj, st.solution, num_layers=3, axis=axis,
+                        kernel=kernel).square().sum(), list(em.parameters()))
+            for axis in (None, g)]
+        for a, b in zip(*grads):
+            torch.testing.assert_close(b, a, **TOL["f32"])
 
 
 def test_mesh_needs_a_process_group_and_a_fitting_backend(case):

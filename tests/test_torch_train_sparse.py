@@ -25,6 +25,7 @@ from repro_torch.core import (Agent, PolicyConfig, TrainDraws, engine_init,
                               get_rep, get_train_step, train_agent)
 from repro_torch.core import s2v_csr as core_csr
 from repro_torch.core import s2v_sparse as core_sparse
+from repro_torch.core.mesh import single_axis
 from repro_torch.core.agent import train_minibatch_raw
 from repro_torch.core.graphs import (barabasi_albert_edges,
                                      csr_batch_from_arrays,
@@ -261,6 +262,11 @@ def test_asymmetric_dataset_is_refused(rep):
 
 
 def test_row_block_backward_is_refused():
+    """The layer and aggregate on a row block of the lists without an
+    axis cannot form the gradient of an input they did not gather, and say
+    that the graph axis does; given an axis of size 1 (the whole lists)
+    they equal the whole-graph backward.  No Function takes a gradient of
+    the factors."""
     b, k, n, nl = 2, 8, 30, 15
     adj = random_graph_batch("er", n, b, seed=2, rho=0.3)
     g = sparse_batch_from_dense(adj, device="cpu")
@@ -270,12 +276,28 @@ def test_row_block_backward_is_refused():
     t4 = torch.from_numpy(rng.random((k, k), np.float32))
     base = torch.from_numpy(rng.random((b, k, nl), np.float32))
     out = core_sparse._FusedSparseLayer.apply(t4, x, nbr, edge, base, "f32")
-    with pytest.raises(NotImplementedError, match="mesh's train half"):
+    with pytest.raises(NotImplementedError, match="graph axis"):
         out.sum().backward()
-    xp = torch.nn.functional.pad(x, (0, 1))
-    out = core_sparse._SparseAggregate.apply(xp, nbr, edge)
-    with pytest.raises(NotImplementedError, match="mesh's train half"):
+    out = core_sparse._SparseAggregate.apply(x, nbr, edge)
+    with pytest.raises(NotImplementedError, match="graph axis"):
         out.sum().backward()
+    whole_edge = g.valid.float()
+    one = single_axis("graph")
+    w = torch.from_numpy(rng.standard_normal((b, k, n)).astype(np.float32))
+    for bare, gathered in (
+            (lambda xx: core_sparse._FusedSparseLayer.apply(
+                t4, xx, g.neighbors, whole_edge, torch.ones((b, k, n)),
+                "f32"),
+             lambda xx: core_sparse._FusedSparseLayer.apply(
+                 t4, xx, g.neighbors, whole_edge, torch.ones((b, k, n)),
+                 "f32", one)),
+            (lambda xx: core_sparse._SparseAggregate.apply(
+                xx, g.neighbors, whole_edge),
+             lambda xx: core_sparse._SparseAggregate.apply(
+                 xx, g.neighbors, whole_edge, one))):
+        want, got = (torch.autograd.grad((w * fn(x)).sum(), [x])[0]
+                     for fn in (bare, gathered))
+        assert torch.equal(got, want)
     ew = g.valid.float().requires_grad_(True)
     out = core_sparse._FusedSparseLayer.apply(
         t4, x, g.neighbors, ew, torch.zeros((b, k, n)), "f32")

@@ -1,8 +1,8 @@
-"""Rank functions of tests/test_torch_mesh.py and tests/test_torch_cuda.py,
-run by ``repro_torch.core.mesh.spawn_mesh`` in spawned processes.  A
-spawned rank imports this module by name, so it lives apart from the test
-files and imports neither jax nor the JAX package: each rank only loads
-torch."""
+"""Rank functions of tests/test_torch_mesh.py, tests/test_torch_mesh_train.py
+and tests/test_torch_cuda.py, run by ``repro_torch.core.mesh.spawn_mesh``
+in spawned processes.  A spawned rank imports this module by name, so it
+lives apart from the test files and imports neither jax nor the JAX
+package: each rank only loads torch."""
 import time
 
 import numpy as np
@@ -118,4 +118,216 @@ def solve_on_card(mesh, dev, weights, adj):
         r = solve(policy, adj, num_layers=2, multi_node=True, rep=rep,
                   spatial=mesh.shape, device=dev)
         out[rep] = (r.solution, r.policy_evals, counter.launches - before)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Training on the mesh (tests/test_torch_mesh_train.py).
+# ---------------------------------------------------------------------------
+
+def mesh_train_run(mesh, dev, weights, adj, gi, draws, *, rep, target_mode,
+                   eps, explore=True, tau=2, kernel="fused", compute="f32",
+                   **cfg_kw):
+    """The fused train step on this rank's tiles, each step given its
+    whole-batch draws (numpy ``(eps_uniform, pick, sample_idx)``).
+    Returns the losses, the whole batch's actions (gathered over
+    ``data``), the trained weights and the step count."""
+    from repro_torch.convert import policy_to_numpy
+    from repro_torch.core import (TrainDraws, engine_init, get_rep,
+                                  get_train_step)
+    from repro_torch.core.mesh import all_gather_tiled, shard_dataset
+    from repro_torch.core.spatial import tile_state_from_tuples
+    from repro_torch.optim import adam_init
+    n = adj.shape[-1]
+    cfg = PolicyConfig(eps_start=eps, eps_end=eps, graph_rep=rep,
+                       spatial=mesh.shape, kernel=kernel, compute=compute,
+                       **cfg_kw)
+    policy = policy_from_numpy(weights, device=dev)
+    r = get_rep(rep)
+    whole = r.prepare_dataset(adj, device="cpu")
+    source = shard_dataset(mesh, whole, device=dev)
+    es = engine_init(cfg, policy, adam_init(policy), n, mesh=mesh)
+    step = get_train_step(cfg, rep=r, tau=tau, target_mode=target_mode,
+                          explore=explore)
+    state = tile_state_from_tuples(mesh, r, whole, gi,
+                                   np.zeros((len(gi), n), np.float32),
+                                   device=dev)
+    gi_t = torch.as_tensor(gi, device=dev)
+    losses, actions = [], []
+    for d in draws:
+        es, state, a, _, _, loss = step(es, state, source, gi_t, TrainDraws(
+            *(torch.as_tensor(x, device=dev) for x in d)))
+        losses.append(float(loss))
+        actions.append(all_gather_tiled(a, mesh.data, 0).cpu().numpy())
+    return {"losses": np.array(losses), "actions": np.stack(actions),
+            "params": policy_to_numpy(policy), "step_count": es.step_count}
+
+
+def rank_weights(shape, seed, index):
+    """The loss weights of graph rank ``index`` in ``collective_grads``."""
+    return np.random.default_rng(seed * 100 + index).standard_normal(
+        shape).astype(np.float32)
+
+
+def collective_grads(mesh, seed=7, b=2, k=4, n=12):
+    """Each differentiable collective on this rank's slice of a whole
+    input (the same x on every rank, from ``seed``), with a loss of its
+    own rank-seeded weights: the gradients of the rank's operands, which
+    the test holds to autograd of the whole, ungathered computation in
+    one process.  ``naive`` is the pooled sum as an in-place all-reduce
+    would give it (each rank's own loss terms only)."""
+    from repro_torch.core.graphs import (random_graph_batch,
+                                         residual_edge_mask,
+                                         sparse_batch_from_dense)
+    from repro_torch.core.mesh import (all_reduce_sum, partial_sum_columns,
+                                       pooled_sum)
+    from repro_torch.core.s2v_sparse import (_FusedSparseLayer,
+                                             _SparseAggregate)
+    rng = np.random.default_rng(seed)
+    g = mesh.graph
+    cols = g.rows(n)
+    x = torch.from_numpy(rng.standard_normal((b, k, n)).astype(np.float32))
+    a = torch.from_numpy(rng.standard_normal((n, n)).astype(np.float32))
+    adj = random_graph_batch("er", n, b, seed=seed, rho=0.4)
+    sol = torch.from_numpy((rng.random((b, n)) < 0.3).astype(np.float32))
+    t4 = torch.from_numpy(rng.standard_normal((k, k)).astype(np.float32))
+    base = torch.from_numpy(rng.standard_normal((b, k, n)).astype(
+        np.float32))
+    lists = sparse_batch_from_dense(adj, device="cpu")
+    edge = residual_edge_mask(lists.neighbors, lists.valid, sol)
+    out = {}
+
+    def grad_of(fn, *leaves):
+        leaves = [t.clone().requires_grad_(True) for t in leaves]
+        fn(*leaves).backward()
+        return [t.grad.numpy() for t in leaves]
+
+    w = torch.from_numpy(rank_weights((b, k), seed, g.index))
+    out["pooled"] = grad_of(
+        lambda xr: (w * pooled_sum(xr.sum(-1), g)).sum(), x[:, :, cols])[0]
+
+    def naive(xr):
+        s = xr.sum(-1)
+        total = all_reduce_sum(s.detach().clone(), g)
+        return (w * (s + (total - s.detach()))).sum()
+    out["naive"] = grad_of(naive, x[:, :, cols])[0]
+
+    wl = torch.from_numpy(rank_weights((b, k, n // g.size), seed + 1,
+                                        g.index))
+    out["columns"] = grad_of(
+        lambda xr: (wl * partial_sum_columns(
+            torch.einsum("bkl,ln->bkn", xr, a[cols]), g)).sum(),
+        x[:, :, cols])[0]
+    nbr = lists.neighbors[:, cols].contiguous()
+    edge_r = edge[:, cols].contiguous()
+    out["layer"] = grad_of(
+        lambda t, xr, br: (wl * _FusedSparseLayer.apply(
+            t, xr, nbr, edge_r, br, "f32", g)).sum(),
+        t4, x[:, :, cols], base[:, :, cols])
+    out["aggregate"] = grad_of(
+        lambda xr: (wl * _SparseAggregate.apply(
+            xr, nbr, edge_r, g)).sum(), x[:, :, cols])[0]
+    return out
+
+
+def tile_checks(mesh, dev, adj, seed=3, m=4):
+    """The tile re-materialization and the sharded replay against their
+    single-device counterparts built on this rank from the whole data:
+    the matching rows and columns, bit for bit.  Returns the names that
+    differ (empty when all agree)."""
+    from repro_torch.core import (get_rep, device_replay_at,
+                                  device_replay_init, device_replay_push,
+                                  residual_edge_mask)
+    from repro_torch.core.mesh import shard_dataset
+    from repro_torch.core.replay import sharded_replay_rows
+    from repro_torch.core.spatial import tile_from_tuples
+    rng = np.random.default_rng(seed)
+    g_count, n = adj.shape[0], adj.shape[-1]
+    rows, cols = mesh.data.rows(m), mesh.graph.rows(n)
+    gi = torch.from_numpy(rng.integers(0, g_count, m).astype(np.int32))
+    sol = torch.from_numpy((rng.random((m, n)) < 0.3).astype(np.float32))
+    bad = []
+    for rep in ("dense", "sparse"):
+        r = get_rep(rep)
+        whole = r.prepare_dataset(adj, device="cpu")
+        source = shard_dataset(mesh, whole, device=dev)
+        for mode in ("solution", "none"):
+            want = r.state_from_tuples(whole, gi, sol, residual=mode)
+            tile = tile_from_tuples(mesh, r, source, gi[rows].to(dev),
+                                    sol[rows][:, cols].to(dev), mode)
+            if rep == "dense":
+                got_topo = [tile.topology[0]]
+                want_topo = [want.adj[rows][:, cols]]
+            else:
+                edge = (residual_edge_mask(want.neighbors, want.valid,
+                                           want.solution)
+                        if mode == "solution" else want.valid.float())
+                got_topo = list(tile.topology)
+                want_topo = [want.neighbors[rows][:, cols],
+                             want.valid[rows][:, cols], edge[rows][:, cols]]
+            pairs = list(zip(got_topo, want_topo)) + [
+                (tile.candidate, want.candidate[rows][:, cols]),
+                (tile.solution, want.solution[rows][:, cols])]
+            if not all(torch.equal(a.cpu(), b) for a, b in pairs):
+                bad.append(f"remat {rep} {mode}")
+
+    # the ring: five pushes of 4 tuples (3 on one data rank) wrap a
+    # 10-ring; each rank pushes its data rank's rows of the batch
+    cap, b = 10, 4 if mesh.dp > 1 else 3
+    single = device_replay_init(cap, n, device="cpu")
+    tiled = device_replay_init(cap, n, device=dev, mesh=mesh)
+    fields = ("graph_idx", "solution", "action", "target", "reward",
+              "next_solution", "done")
+    for i in range(5):
+        t = [torch.from_numpy(x) for x in (
+            rng.integers(0, 5, b).astype(np.int32),
+            (rng.random((b, n)) < 0.3).astype(np.float32),
+            rng.integers(0, n, b).astype(np.int32),
+            rng.standard_normal(b).astype(np.float32),
+            -np.ones(b, np.float32),
+            (rng.random((b, n)) < 0.5).astype(np.float32),
+            rng.random(b) < 0.2)]
+        device_replay_push(single, *t)
+        mine = mesh.data.rows(b)
+        device_replay_push(tiled, *(x[mine].to(dev) for x in t))
+    if (tiled.size, tiled.ptr) != (single.size, single.ptr):
+        bad.append("replay size/ptr")
+    ring = mesh.data.rows(cap)
+    for f in fields:
+        want = getattr(single, f)[ring]
+        if f in ("solution", "next_solution"):
+            want = want[:, cols]
+        if not torch.equal(getattr(tiled, f).cpu(), want):
+            bad.append(f"replay {f}")
+    idx = torch.from_numpy(rng.integers(0, cap, 8))
+    got = sharded_replay_rows(tiled, idx.to(dev), fields)
+    want = device_replay_at(single, idx)
+    for f, a, w in zip(fields, got, want):
+        w = w[mesh.data.rows(8)]
+        if f in ("solution", "next_solution"):
+            w = w[:, cols]
+        if not torch.equal(a.cpu(), w):
+            bad.append(f"sample {f}")
+    try:
+        device_replay_init(cap - 1, n, device=dev, mesh=mesh)
+        if mesh.dp > 1:
+            bad.append("odd capacity accepted")
+    except ValueError as e:
+        if mesh.dp == 1 or "not divisible" not in str(e):
+            raise
+    return bad
+
+
+def train_shape(mesh, dev, weights, adj, gi, cases):
+    """Everything tests/test_torch_mesh_train.py checks on one mesh shape,
+    in one spawn: each train case of ``cases`` (name → keyword arguments
+    of :func:`mesh_train_run`, draws included), the collectives'
+    gradients, the tile re-materialization and the sharded replay."""
+    out = {"rank": mesh.rank, "data": mesh.data.index,
+           "graph": mesh.graph.index,
+           "grads": collective_grads(mesh),
+           "tiles": tile_checks(mesh, dev, adj)}
+    for name, kw in cases.items():
+        out["train", name] = mesh_train_run(mesh, dev, weights, adj, gi,
+                                            **kw)
     return out
