@@ -83,6 +83,26 @@ Phases (any failed check raises, so the script exits non-zero):
    ``train_agent`` for one 9-step episode (bf16 on sparse and CSR); (d)
    the dense trained policy saved, loaded and serving the stream's 16
    graphs, every answer a cover.
+3c. MaxCut, MIS and MDS on one device (phase problems), on each rep:
+   (a) a warmed service at phase 2's settings serves two graphs of each
+   served size (a full 4000-node bucket among them): every answer passes
+   a numpy checker of this script's own (MaxCut's: every positive-degree
+   node assigned), the rep's layer kernel once per evaluation, the three
+   reps' answers equal bit for bit, one evaluation's selection, prune and
+   commit at the full bucket under ``set_sync_debug_mode("error")``,
+   phase 3 for the problem (first-evaluation scores within 1e-5 of the
+   port on the CPU and bit equal across reps, solves checked); it prints
+   the seconds per evaluation at the full bucket (three evaluations after
+   the checked one, as the solve loop runs them) and the mean objective
+   (MIS and MDS |S|, MaxCut the best cut along the dense solve's
+   trajectory) beside ``solvers.heuristic_batch``'s, not gated (the
+   baselines run on a host thread from the start); (b) tests/test_problem_suite.py's train smoke
+   (n=14, 4 graphs a step, minibatch 8, tau=2, stored, epsilon 0, 6 steps)
+   on the card against the CPU, phase 3b's bar; (c) phase 3b's training
+   cell, fresh, 13 steps with draws from ``draw_train_step``: the layer
+   kernel 9 and the aggregate 8 launches a warm step, every warm loss
+   finite, the second warm step under the sync debug mode, the median,
+   least and most seconds of the last 4 and the peak device bytes.
 4. Large solves: the paper-scale ER(N=20480, 0.15) graph (~31.5M edges)
    on all three reps with max_d=256; the dense solve also traced.
 4b. The paper-scale CSR train step (phase paper_train): that graph as
@@ -141,7 +161,8 @@ Phases (any failed check raises, so the script exits non-zero):
 It prints diagnostic JSON lines (each phase's seconds among them), the
 nvidia-smi name and power limit, one ``{"kernels": [...]}`` line (the eight
 kernels, B5's aggregate entry, and the two aggregates at bf16; the
-launches of B2–B5 include the full-width mesh train runs'), and last
+launches of B2–B5 include the full-width mesh train runs', those of B1
+and B3–B5 the problems phase's served and full-width runs), and last
 ``{"ok": true, "device": {...}}``.  It exits non-zero without a CUDA
 device, and outside a checkout.  With ``--only <kernel>,...`` (names of
 the kernels line) it runs only the build, phase 1's checks of those
@@ -223,6 +244,19 @@ PLAIN_CHUNK = 16                 # graphs per plain-version call at B = 64
 # tests/test_engine.py's train configuration: nodes, dataset graphs,
 # episode graphs, minibatch, tau, steps; stored targets, epsilon 0
 SMALL_TRAIN = (14, 4, 2, 8, 2, 8)
+# The problems phase (3c): MaxCut, MIS and MDS.  Served: two graphs of each
+# served size, the first of the stream (a full 4000-node bucket among
+# them).  Small lockstep: tests/test_problem_suite.py's train smoke (n=14,
+# 4 dataset graphs, all 4 a step, minibatch 8, tau 2, 6 steps, stored,
+# epsilon 0).  Full width: phase 3b's training cell (TRAIN_CFG, TRAIN_TAU,
+# TRAIN_DATA), fresh targets; 7 steps warm the replay, index 7 is the first
+# warm step, index 8 (TRAIN_SYNC_STEP) runs under the sync debug mode and
+# the rest are timed.
+PROBLEMS = ("maxcut", "mis", "mds")
+PROBLEM_GRAPHS = 2               # served graphs of each size
+PROBLEM_SMALL = (14, 4, 4, 8, 2, 6)
+PROBLEM_SMALL_IDS = (0, 1, 2, 3)
+PROBLEM_STEPS, PROBLEM_TIMED_FROM = 13, 9
 POLICY_KEYS = ("em.theta1", "em.theta2", "em.theta3", "em.theta4",
                "q.theta5", "q.theta6", "q.theta7")
 # The mesh's train half (phase 5).  A small lockstep on MESH_CHECK's graphs
@@ -279,6 +313,34 @@ def timed_phase(name: str):
 def is_cover(adj: np.ndarray, solution: np.ndarray) -> bool:
     keep = solution < 0.5
     return float(adj[np.ix_(keep, keep)].sum()) == 0.0
+
+
+def is_independent(adj: np.ndarray, solution: np.ndarray) -> bool:
+    s = solution > 0.5
+    return float(adj[np.ix_(s, s)].sum()) == 0.0
+
+
+def is_dominating(adj: np.ndarray, solution: np.ndarray) -> bool:
+    """Every positive-degree node is in S or adjacent to it (isolated
+    nodes are padding: they need no domination)."""
+    s = solution > 0.5
+    covered = s | (adj[:, s].sum(-1) > 0)
+    return not bool(((adj.sum(-1) > 0) & ~covered).any())
+
+
+def is_full_assignment(adj: np.ndarray, solution: np.ndarray) -> bool:
+    """MaxCut's solve ends with every positive-degree node in S and no
+    isolated one: every assignment is feasible, this one is complete."""
+    return bool(np.array_equal(solution > 0.5, adj.sum(-1) > 0))
+
+
+def cut_size(adj: np.ndarray, solution: np.ndarray) -> float:
+    s = solution > 0.5
+    return float(adj[np.ix_(s, ~s)].sum())
+
+
+CHECKS = {"mvc": is_cover, "maxcut": is_full_assignment,
+          "mis": is_independent, "mds": is_dominating}
 
 
 def cuda_ms(torch, fn, reps: int = 30, inner: int = 10, warm: int = 5) -> float:
@@ -1375,10 +1437,11 @@ def phase_serve(torch, policy, cfg, adjs, rep, dense=None):
     return launches, responses
 
 
-def phase_card_vs_cpu(torch, policy):
-    """Phase 3: first-eval scores and solves, card against CPU, on each
-    rep; first-eval scores across reps on the card, which must agree bit
-    for bit (the three reps' kernels sum in one order)."""
+def phase_card_vs_cpu(torch, policy, problem="mvc"):
+    """Phase 3: first-eval scores and solves of ``problem``, card against
+    CPU, on each rep (every answer passing its checker); first-eval scores
+    across reps on the card, which must agree bit for bit (the three
+    reps' kernels sum in one order)."""
     from repro_torch.convert import policy_from_numpy, policy_to_numpy
     from repro_torch.core import (CSR, DENSE, SPARSE, init_solve_state,
                                   random_graph_batch, solve)
@@ -1389,7 +1452,8 @@ def phase_card_vs_cpu(torch, policy):
     for rep in (DENSE, SPARSE, CSR):
         with torch.no_grad():
             for dev, pol in (("cuda", policy), ("cpu", cpu_policy)):
-                st = init_solve_state(rep, adj, device=policy.device
+                st = init_solve_state(rep, adj, problem,
+                                      device=policy.device
                                       if dev == "cuda" else dev)
                 scores[rep.name, dev] = rep.scores(pol, st, num_layers=2).cpu()
         err = float((scores[rep.name, "cuda"]
@@ -1398,14 +1462,14 @@ def phase_card_vs_cpu(torch, policy):
                                    scores[rep.name, "cpu"], rtol=1e-5,
                                    atol=1e-5)
         res = {dev: solve(pol, adj, num_layers=2, multi_node=True,
-                          rep=rep.name, device=pol.device)
+                          rep=rep.name, problem=problem, device=pol.device)
                for dev, pol in (("cuda", policy), ("cpu", cpu_policy))}
         for dev, r in res.items():
             for g in range(adj.shape[0]):
-                if not is_cover(adj[g], r.solution[g]):
-                    raise AssertionError(f"{rep.name} {dev} solve of graph "
-                                         f"{g} is no cover")
-        emit({"phase": "card_vs_cpu", "rep": rep.name,
+                if not CHECKS[problem](adj[g], r.solution[g]):
+                    raise AssertionError(f"{rep.name} {dev} {problem} solve "
+                                         f"of graph {g} fails its checker")
+        emit({"phase": "card_vs_cpu", "problem": problem, "rep": rep.name,
               "first_eval_max_abs_err": err,
               "sizes_cuda": res["cuda"].sizes.tolist(),
               "sizes_cpu": res["cpu"].sizes.tolist(),
@@ -1416,7 +1480,8 @@ def phase_card_vs_cpu(torch, policy):
         a, d = scores[rep, "cuda"], scores["dense", "cuda"]
         torch.testing.assert_close(a, d, rtol=1e-5, atol=1e-5)
         same = bool(torch.equal(a, d))
-        emit({"phase": "cross_rep_on_card", "rep": rep, "vs": "dense",
+        emit({"phase": "cross_rep_on_card", "problem": problem, "rep": rep,
+              "vs": "dense",
               "first_eval_max_abs_err": float((a - d).abs().max()),
               "bit_identical": same})
         if not same:
@@ -1543,26 +1608,30 @@ def check_train_grads(torch, policy):
                   "vs_dense": grad_errors(torch, got, dense, tol)})
 
 
-def small_train_run(torch, arrays, adj, draws, device, rep):
-    """(b)'s run on ``device`` and ``rep``: tests/test_engine.py's
-    configuration (stored targets, epsilon 0) from the weights ``arrays``,
-    each step given its draws.  Returns (losses, actions, trained
-    weights)."""
+def small_train_run(torch, arrays, adj, draws, device, rep, problem="mvc",
+                    shape=SMALL_TRAIN, graph_ids=(0, 2)):
+    """(b)'s run on ``device``, ``rep`` and ``problem``: the train
+    configuration ``shape`` (stored targets, epsilon 0) from the weights
+    ``arrays``, each step given its draws.  Returns (losses, actions,
+    trained weights)."""
     from repro_torch.convert import policy_from_numpy, policy_to_numpy
     from repro_torch.core import (Agent, PolicyConfig, TrainDraws,
-                                  engine_init, get_rep, get_train_step)
-    n, _, b, mb, tau, _ = SMALL_TRAIN
+                                  engine_init, env, get_rep, get_train_step)
+    n, _, b, mb, tau, _ = shape
     cfg = PolicyConfig(embed_dim=8, num_layers=2, minibatch=mb,
                        replay_capacity=64, learning_rate=1e-3,
                        eps_start=0.0, eps_end=0.0)
     agent = Agent(cfg, num_nodes=n, target_mode="stored", device=device,
                   params=policy_from_numpy(arrays, device=device))
     r = get_rep(rep)
-    step = get_train_step(cfg, rep=r, tau=tau, target_mode="stored")
+    step = get_train_step(cfg, rep=r, problem=problem, tau=tau,
+                          target_mode="stored")
     es = engine_init(cfg, agent.params, agent.opt, n)
     source = r.prepare_dataset(adj, device=device)
-    gi = torch.as_tensor([0, 2], device=device)
-    state = r.state_from_tuples(source, gi, np.zeros((b, n), np.float32))
+    gi = torch.as_tensor(graph_ids, device=device)
+    state = r.state_from_tuples(source, gi, np.zeros((b, n), np.float32),
+                                residual=env.residual_mode(problem),
+                                candidate_fn=env.candidate_rule(problem))
     losses, actions = [], []
     for d in draws:
         es, state, action, _, _, loss = step(
@@ -1573,14 +1642,15 @@ def small_train_run(torch, arrays, adj, draws, device, rep):
     return np.array(losses), np.stack(actions), policy_to_numpy(agent.params)
 
 
-def check_small_train(torch, rep):
-    """(b) The card against the port on the CPU on ``rep``: the same
-    weights, graphs and draws; actions identical, losses within 1e-6
-    relative and every parameter within rtol 1e-5 / atol 1e-6
-    (tests/test_engine.py's bar)."""
+def check_small_train(torch, rep, problem="mvc", shape=SMALL_TRAIN,
+                      graph_ids=(0, 2)):
+    """(b) The card against the port on the CPU on ``rep`` and
+    ``problem``: the same weights, graphs and draws; actions identical,
+    losses within 1e-6 relative and every parameter within rtol 1e-5 /
+    atol 1e-6 (tests/test_engine.py's bar)."""
     from repro_torch.convert import policy_to_numpy
     from repro_torch.core import PolicyConfig, init_policy, random_graph_batch
-    n, g, b, mb, tau, steps = SMALL_TRAIN
+    n, g, b, mb, tau, steps = shape
     adj = random_graph_batch("er", n, g, seed=SEED, rho=0.3)
     arrays = policy_to_numpy(init_policy(
         PolicyConfig(embed_dim=8), generator=torch.Generator().manual_seed(
@@ -1589,23 +1659,27 @@ def check_small_train(torch, rep):
     draws = [(rng.random(b).astype(np.float32), rng.integers(0, n, b),
               rng.integers(0, min(b * (i + 1), 64), (tau, mb)))
              for i in range(steps)]
-    card = small_train_run(torch, arrays, adj, draws, DEVICE, rep)
-    cpu = small_train_run(torch, arrays, adj, draws, "cpu", rep)
+    run = (arrays, adj, draws)
+    card = small_train_run(torch, *run, DEVICE, rep, problem, shape,
+                           graph_ids)
+    cpu = small_train_run(torch, *run, "cpu", rep, problem, shape, graph_ids)
+    what = f"small {problem} train run on {rep}"
     parted = np.flatnonzero((card[1] != cpu[1]).any(-1))
     if len(parted):
-        raise AssertionError(f"small train run on {rep}: the card's actions "
-                             f"part from the CPU's at step {parted[0]}: "
+        raise AssertionError(f"{what}: the card's actions part from the "
+                             f"CPU's at step {parted[0]}: "
                              f"{card[1][parted[0]]} vs {cpu[1][parted[0]]}")
     warm = np.isfinite(cpu[0])
     if not np.array_equal(np.isfinite(card[0]), warm) or warm.sum() < 4:
-        raise AssertionError(f"small train run on {rep}: warm steps "
-                             f"differ: {card[0]} vs {cpu[0]}")
+        raise AssertionError(f"{what}: warm steps differ: {card[0]} vs "
+                             f"{cpu[0]}")
     np.testing.assert_allclose(card[0][warm], cpu[0][warm], rtol=1e-6,
                                atol=1e-6)
     for key in POLICY_KEYS:
         np.testing.assert_allclose(card[2][key], cpu[2][key], rtol=1e-5,
                                    atol=1e-6, err_msg=key)
-    emit({"phase": "train_card_vs_cpu", "rep": rep, "n": n, "steps": steps,
+    emit({"phase": "train_card_vs_cpu", "problem": problem, "rep": rep,
+          "n": n, "steps": steps,
           "warm_steps": int(warm.sum()),
           "loss_max_rel_err": float(np.max(np.abs(card[0][warm]
                                                   - cpu[0][warm])
@@ -1796,17 +1870,20 @@ def check_graph_train_case(torch, rows, failures, case, fn, args,
         torch.cuda.empty_cache()
 
 
-def train_mode_run(torch, agent, step, source, mode, seed, rep="dense"):
-    """(c) ``TRAIN_STEPS`` fused steps of one target mode on ``rep`` at
-    full width on a fresh engine (empty replay), each with its draws from
-    ``draw_train_step``: the rep's layer kernel (B1, B3, B5) launched
-    1 + 2 tau times per warm fresh step and 2 + tau per warm stored step,
-    on sparse and CSR the aggregate 2 tau times per warm step (two per
-    backward), every warm loss finite, one warm step (and its draws) under
-    ``set_sync_debug_mode("error")`` and one under torch.profiler, and the
-    seconds of the steps from ``TRAIN_TIMED_FROM``.  Returns the row it
-    prints."""
-    from repro_torch.core import draw_train_step, engine_init, get_rep
+def train_mode_run(torch, agent, step, source, mode, seed, rep="dense",
+                   problem="mvc", steps=TRAIN_STEPS,
+                   profile_step=TRAIN_PROFILE_STEP,
+                   timed_from=TRAIN_TIMED_FROM):
+    """(c) ``steps`` fused steps of one target mode on ``rep`` and
+    ``problem`` at full width on a fresh engine (empty replay), each with
+    its draws from ``draw_train_step``: the rep's layer kernel (B1, B3,
+    B5) launched 1 + 2 tau times per warm fresh step and 2 + tau per warm
+    stored step, on sparse and CSR the aggregate 2 tau times per warm step
+    (two per backward), every warm loss finite, one warm step (and its
+    draws) under ``set_sync_debug_mode("error")`` and, unless
+    ``profile_step`` is None, one under torch.profiler, and the seconds of
+    the steps from ``timed_from``.  Returns the row it prints."""
+    from repro_torch.core import draw_train_step, engine_init, env, get_rep
     g, n, b = TRAIN_DATA
     r = get_rep(rep)
     es = engine_init(agent.cfg, agent.params, agent.opt, n, seed=seed,
@@ -1814,7 +1891,9 @@ def train_mode_run(torch, agent, step, source, mode, seed, rep="dense"):
     gi = torch.as_tensor(np.random.default_rng(seed).integers(0, g, b),
                          device=DEVICE)
     state = r.state_from_tuples(source, gi,
-                                torch.zeros((b, n), device=DEVICE))
+                                torch.zeros((b, n), device=DEVICE),
+                                residual=env.residual_mode(problem),
+                                candidate_fn=env.candidate_rule(problem))
     layer, agg = REP_KERNEL[rep], REP_AGGREGATE.get(rep)
     want = {"fresh": (1, 1 + 2 * TRAIN_TAU),
             "stored": (2, 2 + TRAIN_TAU)}[mode]
@@ -1822,7 +1901,7 @@ def train_mode_run(torch, agent, step, source, mode, seed, rep="dense"):
     losses, launches, agg_launches, seconds = [], [], [], []
     profile = None
     torch.cuda.reset_peak_memory_stats()
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         reset_counts()
         warm = es.replay.size + b >= agent.cfg.minibatch
 
@@ -1837,12 +1916,12 @@ def train_mode_run(torch, agent, step, source, mode, seed, rep="dense"):
                 out = run()
             finally:
                 torch.cuda.set_sync_debug_mode(0)
-        elif i == TRAIN_PROFILE_STEP:
+        elif i == profile_step:
             out, profile = profile_train_step(torch, run)
         else:
             out = run()
         torch.cuda.synchronize()
-        if i >= TRAIN_TIMED_FROM:
+        if i >= timed_from:
             seconds.append(time.perf_counter() - t0)
         es, state, _, _, _, loss = out
         losses.append(loss)
@@ -1851,18 +1930,21 @@ def train_mode_run(torch, agent, step, source, mode, seed, rep="dense"):
         agg_launches.append(counts[agg] if agg else 0)
         if (launches[-1], agg_launches[-1]) != (want[warm], want_agg[warm]):
             raise AssertionError(
-                f"train {rep} {mode} step {i}: {layer} launched "
+                f"train {problem} {rep} {mode} step {i}: {layer} launched "
                 f"{launches[-1]} times, not {want[warm]}; the aggregate "
                 f"{agg_launches[-1]}, not {want_agg[warm]}")
         if not warm and i >= TRAIN_SYNC_STEP:
-            raise AssertionError(f"train {rep} {mode} step {i} is not warm")
+            raise AssertionError(f"train {problem} {rep} {mode} step {i} is "
+                                 f"not warm")
     losses = [float(x) for x in losses]
     warm_losses = losses[agent.cfg.minibatch // b - 1:]
     if not all(math.isfinite(x) for x in warm_losses) or any(
             math.isfinite(x) for x in losses[:len(losses)
                                              - len(warm_losses)]):
-        raise AssertionError(f"train {rep} {mode}: losses {losses}")
-    return {"phase": "train", "rep": rep, "mode": mode, "steps": TRAIN_STEPS,
+        raise AssertionError(f"train {problem} {rep} {mode}: losses "
+                             f"{losses}")
+    return {"phase": "train", "problem": problem, "rep": rep, "mode": mode,
+            "steps": steps,
             "warm_steps": len(warm_losses), "layer_kernel": layer,
             "layer_launches": launches, "aggregate_kernel": agg,
             "aggregate_launches": agg_launches,
@@ -1975,6 +2057,206 @@ def phase_train(torch, policy, adjs, rows, failures):
           "wall_s": time.perf_counter() - t0,
           "cover_sizes": [r.size for r in responses]})
     return main, bf16
+
+
+# ---------------------------------------------------------------------------
+# The problems phase: MaxCut, MIS and MDS on one device.
+# ---------------------------------------------------------------------------
+
+def problem_graphs(adjs):
+    """The phase's served graphs: the first ``PROBLEM_GRAPHS`` of each
+    served size, in stream order."""
+    picked, seen = [], {}
+    for a in adjs:
+        seen[a.shape[0]] = seen.get(a.shape[0], 0) + 1
+        if seen[a.shape[0]] <= PROBLEM_GRAPHS:
+            picked.append(a)
+    return picked
+
+
+def baseline_objectives(adjs) -> dict:
+    """Per problem, the mean objective of ``solvers.heuristic_batch`` over
+    ``adjs`` (|S| for MIS and MDS, the cut for MaxCut); host numpy, run on
+    a thread beside the card's phases."""
+    from repro_torch.core import solvers
+    out = {}
+    for problem in PROBLEMS:
+        values = []
+        for a in adjs:
+            sol = solvers.heuristic_batch(problem, a[None])[0]
+            if not CHECKS[problem](a, sol) and problem != "maxcut":
+                raise AssertionError(f"the {problem} baseline is infeasible")
+            values.append(cut_size(a, sol) if problem == "maxcut"
+                          else float(sol.sum()))
+        out[problem] = float(np.mean(values))
+    return out
+
+
+def full_bucket_batch(adjs):
+    """One dispatch's batch of the full bucket, as the service builds it:
+    the phase's 4000-node graphs padded to 4096, in rows of ``BUCKET[0]``."""
+    from repro_torch.serving import pad_adjacency
+    rows, nb, real = BUCKET
+    batch = np.zeros((rows, nb, nb), np.float32)
+    for i, a in enumerate([a for a in adjs if a.shape[0] == real]):
+        batch[i] = pad_adjacency(a, nb)
+    return batch
+
+
+def problem_serve(torch, policy, cfg, adjs, problem, rep):
+    """(a) The served graphs through a warmed service on ``rep``: every
+    answer passes the numpy checker, the rep's layer kernel ran once per
+    evaluation, no first dispatch on the request path.  Returns (the
+    responses, the kernel launches, the row it prints)."""
+    svc = make_service(policy, cfg, rep)
+    warm = svc.warmup(list(SERVE_SIZES), problems=[problem])
+    reset_counts()
+    t0 = time.perf_counter()
+    responses = svc.serve(adjs, problem=problem)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    svc.close()
+    what = f"{problem} on {rep}"
+    for r, a in zip(responses, adjs):
+        if not CHECKS[problem](a, r.solution):
+            raise AssertionError(f"{what}: request {r.id} fails the "
+                                 f"{problem} checker")
+    if svc.stats.compiles != 0:
+        raise AssertionError(f"{what}: {svc.stats.compiles} first "
+                             f"dispatches on the request path after warmup")
+    batches = {(r.bucket, r.dispatch_t): (r.policy_evals,
+                                          r.complete_t - r.dispatch_t)
+               for r in responses}
+    evals = sum(e for e, _ in batches.values())
+    launches = counts[REP_KERNEL[rep]]
+    if launches != evals:
+        raise AssertionError(f"{what}: kernel launches {launches} != policy "
+                             f"evals {evals} on the served path")
+    full = [(e, sec) for (nb, _), (e, sec) in batches.items()
+            if nb == BUCKET[1]]
+    row = {"phase": "problems_serve", "problem": problem, "rep": rep,
+           "requests": len(adjs), "wall_s": wall, "policy_evals": evals,
+           "kernel_launches": launches, "batches": len(batches),
+           "solve_s": svc.stats.solve_seconds,
+           "s_per_eval": svc.stats.solve_seconds / evals,
+           "full_bucket_evals": [e for e, _ in full],
+           "full_bucket_dispatch_s": [sec for _, sec in full],
+           "warmup_s": warm["seconds"],
+           "sizes": [r.size for r in responses]}
+    return responses, counts, row
+
+
+def full_bucket_evals(torch, policy, problem, rep, batch, timed=3):
+    """The solve's evaluations on one dispatch's batch of the full bucket:
+    the first one's selection, prune and commit under
+    ``set_sync_debug_mode("error")`` (the MIS prune's argmaxes and the MDS
+    candidates read nothing back), then ``timed`` more as the solve loop
+    runs them (each with its one read of ``done``).  Returns the seconds
+    of the state build (host conversion and copy, as a dispatch does) and
+    of one timed evaluation."""
+    from repro_torch.core.inference import apply_selection, init_solve_state
+    r = bucket_rep(rep)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = init_solve_state(r, batch, problem, device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    with torch.no_grad():
+        scores = r.scores(policy, state, num_layers=2)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, _, _ = apply_selection(state, scores, state.candidate,
+                                          True, problem)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            scores = r.scores(policy, state, num_layers=2)
+            state, done, _ = apply_selection(state, scores, state.candidate,
+                                             True, problem)
+            bool(done.all())
+    return build_s, (time.perf_counter() - t0) / timed
+
+
+def phase_problems(torch, policy, cfg, adjs, baselines):
+    """Phase 3c: MaxCut, MIS and MDS on one device, on each rep.  (a) the
+    served graphs (``problem_serve``), the three reps' answers equal bit
+    for bit, one evaluation's selection, prune and commit at the full
+    bucket with no host read and the next three timed
+    (``full_bucket_evals``), phase 3 for the
+    problem (``phase_card_vs_cpu``: first-evaluation scores within 1e-5 of
+    the CPU and bit equal across reps, checked solves), seconds per
+    evaluation, and the mean objective beside the baselines' (MaxCut:
+    ``best_trajectory_cut`` on the dense rep); (b) the small train run on
+    the card against the CPU; (c) the full-width train runs
+    (``train_mode_run``, fresh, no profiled step).  Returns the kernel
+    launches of the served and full-width runs."""
+    from repro_torch.core import Agent, PolicyConfig, get_rep, get_train_step
+    from repro_torch.core.graphs import random_graph_batch
+    from repro_torch.core.inference import best_trajectory_cut
+    launches = dict.fromkeys(REPLACES, 0)
+    batch = full_bucket_batch(adjs)
+    for problem in PROBLEMS:
+        answers = {}
+        for rep in TRAIN_REPS:
+            responses, counts, row = problem_serve(torch, policy, cfg, adjs,
+                                                   problem, rep)
+            answers[rep] = responses
+            launches[REP_KERNEL[rep]] += counts[REP_KERNEL[rep]]
+            row["full_bucket_state_build_s"], row[
+                "full_bucket_s_per_eval"] = full_bucket_evals(
+                    torch, policy, problem, rep, batch)
+            emit(row)
+        for rep in ("sparse", "csr"):
+            for r, d in zip(answers[rep], answers["dense"]):
+                if not np.array_equal(r.solution, d.solution):
+                    raise AssertionError(f"{problem}: the {rep} answer to "
+                                         f"request {r.id} differs from the "
+                                         f"dense one")
+        phase_card_vs_cpu(torch, policy, problem)
+        t0 = time.perf_counter()
+        if problem == "maxcut":
+            padded = np.zeros((len(adjs), BUCKET[1], BUCKET[1]), np.float32)
+            for i, a in enumerate(adjs):
+                padded[i, :a.shape[0], :a.shape[0]] = a
+            objective = float(best_trajectory_cut(
+                policy, padded, num_layers=2, device=DEVICE).mean())
+        else:
+            objective = float(np.mean([r.size for r in answers["dense"]]))
+        emit({"phase": "problems_quality", "problem": problem,
+              "answers_equal_across_reps": True,
+              "mean_objective": objective,
+              "objective": ("best trajectory cut" if problem == "maxcut"
+                            else "|S|"),
+              "baseline_mean_objective": baselines[problem],
+              "seconds": time.perf_counter() - t0})
+    for problem in PROBLEMS:
+        for rep in TRAIN_REPS:
+            check_small_train(torch, rep, problem, PROBLEM_SMALL,
+                              PROBLEM_SMALL_IDS)
+    g, n, b = TRAIN_DATA
+    data = random_graph_batch("er", n, g, seed=SEED + 15, rho=0.15)
+    tcfg = PolicyConfig(**TRAIN_CFG)
+    for rep in TRAIN_REPS:
+        torch.cuda.empty_cache()
+        source = get_rep(rep).prepare_dataset(data, device=DEVICE)
+        for i, problem in enumerate(PROBLEMS):
+            step = get_train_step(tcfg, rep=rep, problem=problem,
+                                  tau=TRAIN_TAU, target_mode="fresh")
+            row = train_mode_run(
+                torch, Agent(tcfg, num_nodes=n, device=DEVICE), step, source,
+                "fresh", SEED + 30 + i, rep, problem, steps=PROBLEM_STEPS,
+                profile_step=None, timed_from=PROBLEM_TIMED_FROM)
+            launches[row["layer_kernel"]] += sum(row["layer_launches"])
+            if row["aggregate_kernel"]:
+                launches[row["aggregate_kernel"]] += sum(
+                    row["aggregate_launches"])
+            del row["profile"]
+            emit({**row, "phase": "problems_train", "dataset": [g, n],
+                  "episode_graphs": b, "tau": TRAIN_TAU, **TRAIN_CFG})
+        del source
+    return launches
 
 
 def alloc_site(frames, depth=3):
@@ -3817,6 +4099,9 @@ def main(argv=None) -> int:
     sizes = rng.permutation(np.tile(SERVE_SIZES, 4))    # 16 requests
     adjs = [erdos_renyi(int(n), 0.15, seed=1000 + i)
             for i, n in enumerate(sizes)]
+    problem_adjs = problem_graphs(adjs)
+    heur_pool = concurrent.futures.ThreadPoolExecutor(1)
+    heur_future = heur_pool.submit(baseline_objectives, problem_adjs)
     launches = dict(lm_launches)
     with timed_phase("serve"):
         launches["fused_s2v_layer"], dense = phase_serve(
@@ -3832,6 +4117,12 @@ def main(argv=None) -> int:
         train_main, train_bf16 = phase_train(torch, policy, adjs, rows,
                                              failures)
     launches["csr_aggregate"] = train_main["csr_aggregate"]
+    with timed_phase("problems"):
+        baselines = heur_future.result()
+        heur_pool.shutdown()
+        problem_launches = phase_problems(torch, policy, cfg, problem_adjs,
+                                          baselines)
+    del problem_adjs
     with timed_phase("paper_scale"):
         paper = phase_paper_scale(torch, policy)
     with timed_phase("paper_train"):
@@ -3842,6 +4133,8 @@ def main(argv=None) -> int:
     launches["sparse_mp_aggregate"] = 0
     for name, count in mesh_launches["train"].items():
         launches[name] += count             # the mesh's train half
+    for name, count in problem_launches.items():
+        launches[name] += count             # MaxCut, MIS and MDS
     del adjs, paper
     with timed_phase("ba_1m_csr"):
         indptr, indices, gen_s = ba_future.result()

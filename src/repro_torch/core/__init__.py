@@ -3,7 +3,8 @@ action evaluation (Alg. 3) and the adaptive top-d solve (Alg. 4) on the
 dense, padded-sparse and CSR graph representations, on one device or on
 a 2-D (data, graph) mesh of torch.distributed ranks; and training (Alg.
 5, compressed replay §4.4) on the three representations, on one device
-or on the mesh."""
+or on the mesh; the problem suite (MVC on the mesh too; MaxCut, MIS and
+MDS on one device) and its classical baselines (``solvers``)."""
 from .graphs import (GraphState, SparseGraphBatch, SparseGraphState,
                      CsrGraphBatch, CsrGraphState, init_state,
                      residual_adjacency, residual_edge_mask,
@@ -39,4 +40,4 @@ from .spatial import (make_graph_mesh, spatial_scores_fn,
                       sparse_spatial_scores_fn, spatial_solve_scores_fn,
                       shard_graph_arrays, shard_sparse_arrays,
                       manual_train_minibatch_fn, tile_state_from_tuples)
-from . import env
+from . import env, solvers

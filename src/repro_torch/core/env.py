@@ -1,13 +1,34 @@
-"""Graph learning environments (paper §3): the registry, the MVC step and
-the padding-safety contract.  Counterpart of ``repro/core/env.py``; this
-slice registers ``mvc`` on the dense, sparse and CSR representations.
+"""Graph learning environments (paper §3): the registry, the problem suite
+and the padding-safety contract.  Counterpart of ``repro/core/env.py``:
+MVC, MaxCut, MIS (maximum independent set) and MDS (minimum dominating
+set), each on the dense, sparse and CSR representations.
 
-Each registration declares its residual mode (what topology the policy
-sees), its Alg. 4 commit/termination rule, an optional candidate rule and
-selection prune, a feasibility checker and its sense (DESIGN.md §11).  The
-serving layer pads graphs with isolated nodes, so an environment is only
-servable if its candidate derivation can never admit a degree-0 node:
-``ensure_padding_safe`` probes that on all three representations.
+Each registration declares (DESIGN.md §11):
+
+- ``residual``: what topology the policy sees, "solution" (MVC:
+  committing a node deletes its edges), "none" (MaxCut, MDS: the topology
+  is untouched) or "closed" (MIS: committing a node removes it and its
+  neighbours);
+- ``commit``: the Alg. 4 top-d commit and termination rule;
+- ``candidates``: the candidate rule, where the default "positive residual
+  degree, not in S" is wrong (MDS: a candidate must still cover an
+  undominated node);
+- ``prune``: a filter of the raw top-d selection (MIS: adjacent picks
+  would break independence);
+- ``checker``: the batched feasibility predicate on (original dense
+  adjacency, solution);
+- ``sense``: "min" or "max", for quality ratios against the baselines
+  (``core.solvers``).
+
+The serving layer pads graphs with isolated nodes, so an environment is
+only servable if its candidate derivation can never admit a degree-0 node:
+``ensure_padding_safe`` probes that on all three representations, through
+``state_from_tuples`` and one env step.  For MDS this forces the
+convention that isolated nodes count as already dominated, which
+``is_dominating_set`` checks.
+
+The three problems besides MVC run on one device; on a mesh they are
+refused (:func:`check_mesh_problem`).
 """
 from __future__ import annotations
 
@@ -17,11 +38,13 @@ from typing import Callable, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from .graphs import (GraphState, csr_batch_from_dense, csr_init_state,
-                     csr_residual_edge_mask, csr_row_ids, csr_segment_sum,
-                     residual_adjacency, residual_edge_mask,
-                     sparse_batch_from_dense, sparse_init_state)
-from .mesh import gather_rows, local_rows
+from .graphs import (CsrGraphState, GraphState, SparseGraphState,
+                     _gather_nodes, closed_neighborhood_keep,
+                     closed_neighborhood_keep_dense,
+                     csr_closed_neighborhood_keep, csr_row_ids,
+                     csr_segment_max, csr_segment_sum, residual_edge_mask)
+from .mesh import gather_rows, is_multi, local_rows
+from .qmodel import NEG_INF
 
 EnvStep = Callable[[GraphState, torch.Tensor],
                    Tuple[GraphState, torch.Tensor, torch.Tensor]]
@@ -30,8 +53,10 @@ CandidateFn = Callable[[GraphState], torch.Tensor]
 PruneFn = Callable[[GraphState, torch.Tensor, torch.Tensor], torch.Tensor]
 
 RESIDUAL_MODES = ("solution", "none", "closed")
-# The JAX package's other problems, ported by a later slice.
-_LATER_PROBLEMS = ("maxcut", "mis", "mds")
+_MAX_COMMIT = 8               # == inference.MAX_D (top-d selection width)
+# The problems the mesh runs; the others wait for the ROADMAP item below.
+MESH_PROBLEMS = ("mvc",)
+MESH_ITEM = "the other three problems on the mesh"
 
 _REGISTRY: Dict[str, EnvStep] = {}
 _MODE: Dict[str, str] = {}
@@ -56,7 +81,14 @@ def normalize_residual_mode(residual: Union[bool, str]) -> str:
                      f"or one of {RESIDUAL_MODES}")
 
 
+def residual_flag(mode: str) -> Union[bool, str]:
+    """The ``residual`` value a sparse or CSR state carries for a mode:
+    True ("solution"), False ("none"), or the mode string ("closed")."""
+    return {"solution": True, "none": False}.get(mode, mode)
+
+
 def always_feasible(adj0: torch.Tensor, solution: torch.Tensor) -> torch.Tensor:
+    """Default checker: every 0/1 assignment is feasible (MaxCut)."""
     return torch.ones(solution.shape[:-1], dtype=torch.bool,
                       device=solution.device)
 
@@ -70,6 +102,17 @@ def residual_commit(state, sel: torch.Tensor):
     return rep_for_state(state).commit(state, sel)
 
 
+def assignment_commit(state, sel: torch.Tensor):
+    """Assignment-problem commit (MaxCut): S gains ``sel`` and the
+    topology is untouched; done when no candidate remains.  Only the C/S
+    masks change, the same on every representation."""
+    solution = torch.maximum(state.solution, sel)
+    candidate = torch.clamp(state.candidate - sel, 0.0, 1.0)
+    return (dataclasses.replace(state, candidate=candidate,
+                                solution=solution),
+            candidate.sum(-1) == 0)
+
+
 def register(name: str, residual: Union[bool, str] = True,
              commit: Optional[CommitFn] = None,
              candidates: Optional[CandidateFn] = None,
@@ -77,21 +120,17 @@ def register(name: str, residual: Union[bool, str] = True,
              checker: Optional[Callable] = None,
              sense: str = "min"):
     """Register an environment step (the DESIGN.md §11 extension point).
-    ``commit`` defaults to :func:`residual_commit`; the assignment commit
-    of ``residual=False`` problems comes with the MaxCut slice."""
+    ``commit`` defaults to :func:`assignment_commit` in the "none" mode
+    and to :func:`residual_commit` otherwise."""
     mode = normalize_residual_mode(residual)
     if sense not in ("min", "max"):
         raise ValueError(f"sense must be 'min' or 'max', got {sense!r}")
-    if commit is None and mode == "none":
-        raise NotImplementedError(
-            "the assignment commit of residual=False problems is not ported "
-            "yet: ROADMAP item \"the other three problems\"; pass commit= "
-            "explicitly")
 
     def deco(fn):
         _REGISTRY[name] = fn
         _MODE[name] = mode
-        _COMMIT[name] = commit or residual_commit
+        _COMMIT[name] = commit or (assignment_commit if mode == "none"
+                                   else residual_commit)
         _CANDIDATES[name] = candidates
         _PRUNE[name] = prune
         _CHECKER[name] = checker or always_feasible
@@ -112,16 +151,26 @@ def _lookup(table: Dict, name: str):
     try:
         return table[name]
     except KeyError:
-        if name in _LATER_PROBLEMS:
-            raise NotImplementedError(
-                f"problem {name!r} is not ported yet: ROADMAP item \"the "
-                f"other three problems\"") from None
         raise ValueError(f"unknown environment {name!r}; registered: "
                          f"{names()}") from None
 
 
 def make(name: str) -> EnvStep:
     return _lookup(_REGISTRY, name)
+
+
+def check_mesh_problem(problem: str, spatial) -> None:
+    """Raise on an unknown ``problem`` (ValueError), and on a problem the
+    mesh does not run yet when ``spatial`` names a mesh: MDS needs its
+    candidates assembled over the graph axis, MIS its closed factors'
+    keep mask all-gathered, the train tile its "none" and "closed"
+    branches.  Called before any mesh or process group is built."""
+    make(problem)
+    if is_multi(spatial) and problem not in MESH_PROBLEMS:
+        raise NotImplementedError(
+            f"problem {problem!r} on a mesh (spatial={spatial!r}) is not "
+            f"ported yet: ROADMAP item \"{MESH_ITEM}\"; it runs on one "
+            f"device")
 
 
 def residual_mode(name: str) -> str:
@@ -131,8 +180,7 @@ def residual_mode(name: str) -> str:
 def sparse_residual_flag(name: str) -> Union[bool, str]:
     """The ``residual`` value a sparse or CSR state carries for this env:
     True ("solution"), False ("none"), or the mode string."""
-    mode = residual_mode(name)
-    return {"solution": True, "none": False}.get(mode, mode)
+    return residual_flag(residual_mode(name))
 
 
 def commit_rule(name: str) -> CommitFn:
@@ -163,55 +211,28 @@ def names():
 # Padding-safety contract (DESIGN.md §9/§11).
 # ---------------------------------------------------------------------------
 
-def _probe_states(adj: np.ndarray, sol: torch.Tensor, mode: str,
-                  cand_fn: Optional[CandidateFn]):
-    """The dense, sparse and CSR states a partial solution re-materializes
-    to under ``mode`` (Tuples2Graphs), with the env's candidate rule
-    applied: the path a replay tuple takes, built directly until the
-    training slice ports ``state_from_tuples``."""
-    if mode == "closed":
-        raise NotImplementedError(
-            "closed-neighbourhood residuals (MIS) are not ported yet: "
-            "ROADMAP item \"the other three problems\"")
-    residual = mode == "solution"
-    adj0 = torch.from_numpy(adj)
-    dense = residual_adjacency(adj0, sol) if residual else adj0
-    sp = sparse_init_state(sparse_batch_from_dense(adj, device="cpu"))
-    sp_edge = (residual_edge_mask(sp.neighbors, sp.valid, sol) if residual
-               else sp.valid.to(torch.float32))
-    cs = csr_init_state(csr_batch_from_dense(adj, device="cpu"))
-    rid = csr_row_ids(cs.indptr, cs.num_edges)
-    cs_edge = (csr_residual_edge_mask(cs.indices, cs.edge_mask, rid, sol)
-               if residual else cs.edge_mask.to(torch.float32))
-    states = []
-    for st, deg in ((GraphState(adj=dense, candidate=sol, solution=sol),
-                     dense.sum(-1)),
-                    (dataclasses.replace(sp, solution=sol, residual=residual),
-                     sp_edge.sum(-1)),
-                    (dataclasses.replace(cs, solution=sol, residual=residual),
-                     csr_segment_sum(cs_edge, rid, cs.num_nodes))):
-        st = dataclasses.replace(
-            st, candidate=((deg > 0) & (sol < 0.5)).to(torch.float32))
-        if cand_fn is not None:
-            st = dataclasses.replace(st, candidate=cand_fn(st))
-        states.append(st)
-    return states
-
-
 def _probe_padding_safety(name: str) -> bool:
-    """Drive the env's candidate derivation and one env step on a graph
-    with isolated padding-style nodes (0-1 share the only edge; 2 and 3
-    are isolated), on the dense, sparse and CSR representations, and
-    report whether a degree-0 node ever becomes a candidate."""
+    """Drive the env's candidate derivation (``state_from_tuples`` with its
+    residual mode and candidate rule, then one env step) on a graph with
+    isolated padding-style nodes (0-1 share the only edge; 2 and 3 are
+    isolated), on the dense, sparse and CSR representations, and report
+    whether a degree-0 node ever becomes a candidate."""
+    from .graphrep import CSR, DENSE, SPARSE
     adj = np.zeros((1, 4, 4), np.float32)
     adj[0, 0, 1] = adj[0, 1, 0] = 1.0
     mode, cand_fn = _MODE[name], _CANDIDATES[name]
-    for sol in ([0, 0, 0, 0], [1, 0, 0, 0], [1, 1, 0, 0]):
-        for st in _probe_states(adj, torch.tensor([sol], dtype=torch.float32),
-                                mode, cand_fn):
+    gi = torch.zeros((1,), dtype=torch.long)
+    for rep in (DENSE, SPARSE, CSR):
+        source = rep.prepare_dataset(adj, device="cpu")
+        for sol in ([0, 0, 0, 0], [1, 0, 0, 0], [1, 1, 0, 0]):
+            st = rep.state_from_tuples(
+                source, gi, torch.tensor([sol], dtype=torch.float32),
+                residual=mode, candidate_fn=cand_fn)
             if st.candidate[0, 2:].any():
                 return False
-    for st in _probe_states(adj, torch.zeros((1, 4)), mode, cand_fn):
+        # one real transition from the fresh state must keep padding out
+        st = rep.state_from_tuples(source, gi, torch.zeros((1, 4)),
+                                   residual=mode, candidate_fn=cand_fn)
         st, _, _ = _REGISTRY[name](st, torch.tensor([0]))
         if st.candidate[0, 2:].any():
             return False
@@ -233,17 +254,23 @@ def ensure_padding_safe(name: str) -> None:
             f"The solver service pads every graph with isolated nodes and "
             f"empty batch rows (repro_torch.serving.bucketing), so such an "
             f"env would score/commit padding. Derive candidates so deg==0 "
-            f"nodes are excluded, or register a custom `candidates` rule "
-            f"that masks them (DESIGN.md §11).")
+            f"nodes are excluded (treat isolated nodes as already "
+            f"satisfied, as the 'mds' env does), or register a custom "
+            f"`candidates` rule that masks them (DESIGN.md §11).")
+
+
+def _onehot(v: torch.Tensor, n: int) -> torch.Tensor:
+    return torch.nn.functional.one_hot(v.long(), n).to(torch.float32)
+
+
+def _rows(state) -> torch.Tensor:
+    return torch.arange(state.candidate.shape[0],
+                        device=state.candidate.device)
 
 
 # ---------------------------------------------------------------------------
 # MVC.
 # ---------------------------------------------------------------------------
-
-def _onehot(v: torch.Tensor, n: int) -> torch.Tensor:
-    return torch.nn.functional.one_hot(v.long(), n).to(torch.float32)
-
 
 def _mvc_step_dense(state: GraphState, oh: torch.Tensor):
     """A new dense state: the step is functional, unlike the solve's
@@ -281,6 +308,205 @@ def mvc_step(state, action: torch.Tensor):
     return state, reward, done
 
 
+# ---------------------------------------------------------------------------
+# MaxCut: residual "none", the assignment commit.
+# ---------------------------------------------------------------------------
+
+def _action_side_counts(state, action: torch.Tensor):
+    """(edges from the action to S, edges from it to V∖S), each (B,): the
+    dense rep reads the action's adjacency row, the sparse rep its list,
+    the CSR rep a row-match mask over the E slots (its rows are ragged)."""
+    in_s = state.solution
+    if isinstance(state, CsrGraphState):
+        rid = csr_row_ids(state.indptr, state.num_edges)
+        w = ((rid == action.to(rid.dtype)[:, None]) & state.edge_mask
+             ).to(torch.float32)
+        side = _gather_nodes(torch.nn.functional.pad(in_s, (0, 1)),
+                             state.indices)
+    elif isinstance(state, SparseGraphState):
+        rows = _rows(state)
+        w = state.valid[rows, action].to(torch.float32)
+        side = _gather_nodes(torch.nn.functional.pad(in_s, (0, 1)),
+                             state.neighbors[rows, action])
+    else:
+        w, side = state.adj[_rows(state), action], in_s
+    return (w * side).sum(-1), (w * (1.0 - side)).sum(-1)
+
+
+@register("maxcut", residual=False, sense="max")
+def maxcut_step(state, action: torch.Tensor):
+    """Maximum Cut step: moving node v into S gains (edges to V∖S) minus
+    (edges already cut to S).  The topology stays the original adjacency;
+    candidates are the positive-degree nodes not yet in S; done when
+    every one is assigned (a fixed horizon; the reward carries quality)."""
+    to_s, to_out = _action_side_counts(state, action)
+    state, done = assignment_commit(
+        state, _onehot(action, state.candidate.shape[1]))
+    if not isinstance(state, GraphState):
+        state = dataclasses.replace(state, residual=False)
+    return state, to_out - to_s, done
+
+
+# ---------------------------------------------------------------------------
+# MIS: residual "closed".  Committing v removes v and its neighbours (none
+# of them can join S again), so the policy sees the graph induced on the
+# eligible nodes.  Candidates are the surviving originally-positive-degree
+# nodes: those isolated by removals stay (free +1 picks), padding never.
+# ---------------------------------------------------------------------------
+
+def _closed_keep(state, sel: torch.Tensor) -> torch.Tensor:
+    """(B, N) keep factors of removing ``sel`` and its neighbours."""
+    if isinstance(state, CsrGraphState):
+        rid = csr_row_ids(state.indptr, state.num_edges)
+        return csr_closed_neighborhood_keep(state.indices, state.edge_mask,
+                                            rid, sel)
+    if isinstance(state, SparseGraphState):
+        return closed_neighborhood_keep(state.neighbors, state.valid, sel)
+    return closed_neighborhood_keep_dense(state.adj, sel)
+
+
+def mis_commit(state, sel: torch.Tensor, *, in_place: bool = True):
+    """Closed-neighbourhood commit (MIS): S gains ``sel``; ``sel`` and its
+    neighbours leave the candidates (and the dense adjacency: in place,
+    as ``DenseRep.commit``, unless ``in_place`` is False); done when no
+    eligible node remains."""
+    solution = torch.maximum(state.solution, sel)
+    keep = _closed_keep(state, sel)
+    candidate = state.candidate * keep
+    new = dataclasses.replace(state, candidate=candidate, solution=solution)
+    if isinstance(state, GraphState):
+        if in_place:
+            state.adj.mul_(keep[:, :, None])
+            state.adj.mul_(keep[:, None, :])
+        else:
+            new.adj = state.adj * keep[:, :, None] * keep[:, None, :]
+    return new, candidate.sum(-1) == 0
+
+
+def _pick_keep(state, idx: torch.Tensor, has: torch.Tensor) -> torch.Tensor:
+    """Keep factors of removing the one-hot pick ``idx`` (where ``has``)
+    and its neighbours.  Dense reads the pick's adjacency column, which
+    is the matvec of ``closed_neighborhood_keep_dense`` with a one-hot
+    vector, bit for bit, without its (B, N, N) pass."""
+    pick = _onehot(idx, state.candidate.shape[1]) * has[:, None]
+    if not isinstance(state, GraphState):
+        return _closed_keep(state, pick)
+    col = state.adj[_rows(state), :, idx] * has[:, None]
+    return (1.0 - pick) * (1.0 - (col > 0).to(torch.float32))
+
+
+def mis_prune(state, sel: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
+    """Thin a raw top-d selection to an independent subset: keep selected
+    nodes in descending score order (argmax ties at the lowest index),
+    dropping any selected node adjacent to one already kept.  A fixed
+    ``_MAX_COMMIT`` masked argmaxes, on the device, with no host read."""
+    kept, active = torch.zeros_like(sel), sel
+    for _ in range(_MAX_COMMIT):
+        idx = torch.argmax(torch.where(active > 0.5, scores,
+                                       torch.full_like(scores, NEG_INF)),
+                           dim=-1)
+        has = (active.sum(-1) > 0).to(torch.float32)
+        kept = torch.maximum(kept, _onehot(idx, sel.shape[1])
+                             * has[:, None])
+        active = active * _pick_keep(state, idx, has)
+    return kept
+
+
+@register("mis", residual="closed", commit=mis_commit, prune=mis_prune,
+          checker=lambda adj0, sol: is_independent_set(adj0, sol),
+          sense="max")
+def mis_step(state, action: torch.Tensor):
+    """Maximum Independent Set step: adding v to S earns +1 and removes v
+    and its neighbours from play; done when no eligible node remains.  A
+    non-candidate action (a done row of a training batch) commits nothing
+    and earns 0.  Functional: the dense adjacency is a new tensor."""
+    sel = _onehot(action, state.candidate.shape[1]) * state.candidate
+    new_state, done = mis_commit(state, sel, in_place=False)
+    return new_state, sel.sum(-1), done
+
+
+# ---------------------------------------------------------------------------
+# MDS: residual "none"; the closed-neighbourhood cover derives from
+# (topology, S).  Isolated nodes count as dominated: they are padding.
+# ---------------------------------------------------------------------------
+
+def _neighbour_sums(state, x: torch.Tensor, how: str = "sum"):
+    """(B, N) per node, the ``how`` ("sum" or "max") of the 0/1 mask ``x``
+    over its original neighbours."""
+    n = x.shape[1]
+    x_pad = torch.nn.functional.pad(x, (0, 1))              # sentinel slot
+    if isinstance(state, CsrGraphState):
+        rid = csr_row_ids(state.indptr, state.num_edges)
+        em = state.edge_mask.to(torch.float32)
+        fn = csr_segment_sum if how == "sum" else csr_segment_max
+        return fn(em * _gather_nodes(x_pad, state.indices), rid, n)
+    if isinstance(state, SparseGraphState):
+        v = state.valid.to(torch.float32) * _gather_nodes(x_pad,
+                                                          state.neighbors)
+        return v.sum(-1) if how == "sum" else v.amax(-1)
+    s = torch.einsum("bnm,bm->bn", state.adj, x)
+    return s if how == "sum" else (s > 0).to(torch.float32)
+
+
+def _degrees(state) -> torch.Tensor:
+    """(B, N) original degrees."""
+    if isinstance(state, CsrGraphState):
+        rid = csr_row_ids(state.indptr, state.num_edges)
+        return csr_segment_sum(state.edge_mask.to(torch.float32), rid,
+                               state.candidate.shape[1])
+    if isinstance(state, SparseGraphState):
+        return state.valid.to(torch.float32).sum(-1)
+    return state.adj.sum(-1)
+
+
+def _covered_and_need(state):
+    """(covered, need): the closed-neighbourhood coverage of S and the
+    mask of nodes that need domination (positive original degree)."""
+    sol = state.solution
+    covered = torch.maximum(sol, _neighbour_sums(state, sol, "max"))
+    return covered, _degrees(state) > 0
+
+
+def mds_candidates(state) -> torch.Tensor:
+    """MDS candidate rule: a node is actionable iff it is not in S and its
+    closed neighbourhood still holds an undominated positive-degree node.
+    A degree-0 node has no gain, so padding never enters."""
+    covered, need = _covered_and_need(state)
+    uncov = (need & (covered < 0.5)).to(torch.float32)
+    gain = uncov + _neighbour_sums(state, uncov)
+    return ((state.solution < 0.5) & (gain > 0)).to(torch.float32)
+
+
+def cover_commit(state, sel: torch.Tensor):
+    """Closed-neighbourhood-cover commit (MDS): S gains ``sel``; the
+    candidates re-derive from the coverage; done when every
+    positive-degree node is dominated (no candidate has a gain)."""
+    new = dataclasses.replace(state,
+                              solution=torch.maximum(state.solution, sel))
+    candidate = mds_candidates(new)
+    return (dataclasses.replace(new, candidate=candidate),
+            candidate.sum(-1) == 0)
+
+
+@register("mds", residual=False, commit=cover_commit,
+          candidates=mds_candidates,
+          checker=lambda adj0, sol: is_dominating_set(adj0, sol),
+          sense="min")
+def mds_step(state, action: torch.Tensor):
+    """Minimum Dominating Set step: adding v to S dominates v's closed
+    neighbourhood; reward -1 per selected node; done when every
+    positive-degree node is dominated.  A non-candidate action commits
+    nothing and earns 0."""
+    sel = _onehot(action, state.candidate.shape[1]) * state.candidate
+    new_state, done = cover_commit(state, sel)
+    return new_state, -sel.sum(-1), done
+
+
+# ---------------------------------------------------------------------------
+# Checkers and objectives on the original dense adjacency (B, N, N).  Each
+# sum is of 0/1 products, exact in f32 below 2^24 terms.
+# ---------------------------------------------------------------------------
+
 def is_cover(adj0: torch.Tensor, solution: torch.Tensor) -> torch.Tensor:
     """The MVC invariant: every original edge touches a solution node."""
     keep = 1.0 - solution
@@ -293,3 +519,28 @@ def is_cover_sparse(neighbors: torch.Tensor, valid: torch.Tensor,
     """The MVC invariant on the sparse representation: no residual edge
     survives S."""
     return residual_edge_mask(neighbors, valid, solution).sum((-1, -2)) == 0
+
+
+def _matvec(adj0: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("...nm,...m->...n", adj0, x)
+
+
+def is_independent_set(adj0: torch.Tensor,
+                       solution: torch.Tensor) -> torch.Tensor:
+    """The MIS invariant: no original edge has both endpoints in S."""
+    return (solution * _matvec(adj0, solution)).sum(-1) == 0
+
+
+def is_dominating_set(adj0: torch.Tensor,
+                      solution: torch.Tensor) -> torch.Tensor:
+    """The MDS invariant under the padding convention: every
+    positive-degree node is in S or adjacent to a node of S."""
+    covered = torch.maximum(
+        solution, (_matvec(adj0, solution) > 0).to(solution.dtype))
+    return ((adj0.sum(-1) > 0) & (covered < 0.5)).sum(-1) == 0
+
+
+def cut_value(adj0: torch.Tensor, solution: torch.Tensor) -> torch.Tensor:
+    """MaxCut objective: the original edges with exactly one endpoint in
+    S (each counted once, from its S side)."""
+    return (solution * _matvec(adj0, 1.0 - solution)).sum(-1)

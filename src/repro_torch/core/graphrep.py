@@ -16,8 +16,7 @@ its own rows and all-gathers the residual degrees over the graph axis,
 so every rank derives the same candidates and ``done``, bit for bit the
 single-device values.  ``prepare_dataset`` and ``state_from_tuples`` (replay
 re-materialization, Alg. 5 line 21) are ported for the three reps, in the
-"solution" and "none" residual modes; the "closed" mode (MIS) waits for
-ROADMAP item "the other three problems".
+"solution", "none" and "closed" residual modes (MVC, MaxCut and MDS, MIS).
 """
 from __future__ import annotations
 
@@ -28,7 +27,9 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from .graphs import (CsrGraphBatch, CsrGraphState, GraphState,
-                     SparseGraphBatch, SparseGraphState, csr_batch_from_dense,
+                     SparseGraphBatch, SparseGraphState,
+                     closed_neighborhood_keep, closed_neighborhood_keep_dense,
+                     csr_batch_from_dense, csr_closed_neighborhood_keep,
                      csr_init_state, csr_residual_edge_mask, csr_row_ids,
                      csr_segment_sum, init_state, residual_edge_mask,
                      sparse_batch_from_dense, sparse_init_state,
@@ -112,20 +113,28 @@ class DenseRep(GraphRep):
                           residual=True, candidate_fn=None) -> GraphState:
         """The residual graphs of the tuples, gathered from ``source``
         (graph ids and masks as tensors on its device, or numpy).  The gathered
-        (B, N, N) copy is the state's own, so "solution" mode masks it in
-        place (two in-place multiplies, the values of
-        ``residual_adjacency``): at B = 64, N = 4096 one copy is 4.3 GB."""
+        (B, N, N) copy is the state's own, so the "solution" and "closed"
+        modes mask it in place (two in-place multiplies, the values of
+        ``residual_adjacency`` and of JAX's closed mask): at B = 64,
+        N = 4096 one copy is 4.3 GB.  In the "closed" mode (MIS) the
+        candidates are the original positive-degree nodes that survive,
+        so their degrees are taken before the mask."""
         mode = tuples_mode(residual)
         sol = torch.as_tensor(solutions, device=source.device).to(
             torch.float32)
         adj = source[torch.as_tensor(graph_idx, device=source.device)]
-        if mode == "solution":
+        if mode == "closed":
+            keep = closed_neighborhood_keep_dense(adj, sol)
+            cand = ((adj.sum(-1) > 0) & (keep > 0.5)).to(torch.float32)
+        elif mode == "solution":
             keep = 1.0 - sol
+        if mode != "none":
             adj.mul_(keep[:, :, None])
             adj.mul_(keep[:, None, :])
+        if mode != "closed":
+            cand = candidate_mask(adj, sol)
         return with_candidate_rule(
-            GraphState(adj=adj, candidate=candidate_mask(adj, sol),
-                       solution=sol), candidate_fn)
+            GraphState(adj=adj, candidate=cand, solution=sol), candidate_fn)
 
     def scores(self, params, state: GraphState, *, num_layers,
                masked=True, kernel="fused", compute="f32") -> torch.Tensor:
@@ -163,15 +172,10 @@ class DenseRep(GraphRep):
 
 
 def tuples_mode(residual) -> str:
-    """The env's residual mode for re-materialization: "solution" or
-    "none"; "closed" (MIS) is refused."""
+    """The env's residual mode for re-materialization: "solution",
+    "none" or "closed"."""
     from .env import normalize_residual_mode
-    mode = normalize_residual_mode(residual)
-    if mode == "closed":
-        raise NotImplementedError(
-            "closed-neighbourhood residuals (MIS) are not ported yet: "
-            "ROADMAP item \"the other three problems\"")
-    return mode
+    return normalize_residual_mode(residual)
 
 
 def with_candidate_rule(state, candidate_fn):
@@ -245,17 +249,22 @@ class SparseRep(GraphRep):
         ``source`` (the state's own copy, never rewritten) and the masks;
         the residual factors derive from the solution mask wherever they
         are needed."""
+        from .env import residual_flag
         mode = tuples_mode(residual)
         dev = source.device
         sol = torch.as_tensor(solutions, device=dev).to(torch.float32)
         gi = torch.as_tensor(graph_idx, device=dev).long()
         nbrs, valid = source.neighbors[gi], source.valid[gi]
-        deg = (residual_edge_mask(nbrs, valid, sol).sum(-1)
-               if mode == "solution" else valid.sum(-1))
+        if mode == "closed":
+            keep = closed_neighborhood_keep(nbrs, valid, sol)
+            cand = (valid.sum(-1) > 0) & (keep > 0.5)
+        else:
+            deg = (residual_edge_mask(nbrs, valid, sol).sum(-1)
+                   if mode == "solution" else valid.sum(-1))
+            cand = (deg > 0) & (sol < 0.5)
         return with_candidate_rule(SparseGraphState(
-            neighbors=nbrs, valid=valid,
-            candidate=((deg > 0) & (sol < 0.5)).to(torch.float32),
-            solution=sol, residual=mode == "solution"), candidate_fn)
+            neighbors=nbrs, valid=valid, candidate=cand.to(torch.float32),
+            solution=sol, residual=residual_flag(mode)), candidate_fn)
 
     def scores(self, params, state: SparseGraphState, *, num_layers,
                masked=True, kernel="fused", compute="f32") -> torch.Tensor:
@@ -325,6 +334,7 @@ class CsrRep(GraphRep):
         At B = 64 graphs of ER(20480, 0.15) the copy holds 16.1 GB of
         indices and 4.0 GB of mask; the degrees' row ids and factors are
         transients (``graphs.CHUNK_SLOTS``)."""
+        from .env import residual_flag
         mode = tuples_mode(residual)
         dev = source.device
         sol = torch.as_tensor(solutions, device=dev).to(torch.float32)
@@ -335,11 +345,16 @@ class CsrRep(GraphRep):
         edge = (csr_residual_edge_mask(indices, mask, rid, sol)
                 if mode == "solution" else mask.to(torch.float32))
         deg = csr_segment_sum(edge, rid, sol.shape[1])
+        if mode == "closed":
+            keep = csr_closed_neighborhood_keep(indices, mask, rid, sol)
+            cand = (deg > 0) & (keep > 0.5)
+        else:
+            cand = (deg > 0) & (sol < 0.5)
         del rid, edge
         return with_candidate_rule(CsrGraphState(
             indptr=indptr, indices=indices, edge_mask=mask,
-            candidate=((deg > 0) & (sol < 0.5)).to(torch.float32),
-            solution=sol, residual=mode == "solution"), candidate_fn)
+            candidate=cand.to(torch.float32), solution=sol,
+            residual=residual_flag(mode)), candidate_fn)
 
     def scores(self, params, state: CsrGraphState, *, num_layers,
                masked=True, kernel="fused", compute="f32") -> torch.Tensor:

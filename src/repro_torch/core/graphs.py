@@ -216,7 +216,7 @@ class SparseGraphState:
     solution:  (B, N) float32 mask, the paper's S vector.
     residual:  the env's topology mode: True ("solution": the residual
                subgraph implied by S, MVC), False ("none": the original
-               topology) or "closed" (MIS, not ported yet).
+               topology) or "closed" (MIS: S and its neighbours removed).
     axis:      on a mesh, the graph axis (``core.mesh.Axis``) whose rank
                holds only its (B, N/sp, D) block of list rows (global ids);
                the masks stay whole.  None: all N rows.
@@ -268,6 +268,28 @@ def residual_edge_mask(neighbors: torch.Tensor, valid: torch.Tensor,
     keep_pad = torch.nn.functional.pad(keep, (0, 1))        # sentinel slot
     keep_nbr = _gather_nodes(keep_pad, neighbors)
     return valid.to(torch.float32) * keep_nbr * keep_rows[:, :, None]
+
+
+def closed_neighborhood_keep(neighbors: torch.Tensor, valid: torch.Tensor,
+                             solution: torch.Tensor) -> torch.Tensor:
+    """(B, N) keep factors of closed-neighbourhood removal (MIS): a node
+    survives iff it is neither in ``solution`` nor lists a node of it,
+    the sparse analogue of zeroing the rows and columns of S ∪ N(S)."""
+    sol_pad = torch.nn.functional.pad(solution, (0, 1))     # sentinel slot
+    s_nbr = _gather_nodes(sol_pad, neighbors)
+    any_nbr = (valid.to(torch.float32) * s_nbr).amax(-1)
+    return (1.0 - solution) * (1.0 - any_nbr)
+
+
+def closed_neighborhood_keep_dense(adj: torch.Tensor,
+                                   solution: torch.Tensor) -> torch.Tensor:
+    """Dense counterpart of :func:`closed_neighborhood_keep` over a
+    (B, N, N) adjacency, original (re-materialization) or residual (a
+    neighbour already removed has no edge left to lose).  The mask is a
+    ``> 0`` test of sums of 0/1 products, so any summation order gives
+    the same bits."""
+    nbr_s = torch.einsum("bnm,bm->bn", adj, solution)
+    return (1.0 - solution) * (1.0 - (nbr_s > 0).to(torch.float32))
 
 
 def sparse_batch_from_dense(adj, max_degree: Optional[int] = None, *,
@@ -456,6 +478,63 @@ def csr_segment_sum(values: torch.Tensor, row_ids: torch.Tensor,
     first = torch.searchsorted(row_ids.contiguous(), rows).long()
     first = first + e * torch.arange(b, device=values.device)[:, None]
     return (prefix[first[:, 1:]] - prefix[first[:, :-1]]).to(values.dtype)
+
+
+def csr_segment_max(values: torch.Tensor, row_ids: torch.Tensor,
+                    num_nodes: int) -> torch.Tensor:
+    """Per-row maxima of NON-NEGATIVE edge values: (B, E) → (B, N).  The
+    init is zero, so empty rows read 0; a maximum is the same in any
+    order, so the scatter's atomics give the same result on every run.
+    A zero value changes no maximum, so zero slots scatter to node
+    ``slot % N`` instead of their row: the padded slots, which all sit on
+    row N-1, and the zero products of sparse masks would otherwise queue
+    their atomics on a few addresses."""
+    b, e = values.shape
+    out = _by_graphs(lambda v, r: csr_segment_max(v, r, num_nodes),
+                     (b, num_nodes), values.dtype, e, values, row_ids)
+    if out is not None:
+        return out
+    spread = torch.arange(e, device=values.device) % num_nodes
+    index = torch.where(values > 0, row_ids.long(), spread)
+    out = torch.zeros((b, num_nodes), dtype=values.dtype,
+                      device=values.device)
+    return out.scatter_reduce_(1, index, values, "amax", include_self=True)
+
+
+def csr_closed_neighborhood_keep(indices: torch.Tensor,
+                                 edge_mask: torch.Tensor,
+                                 row_ids: torch.Tensor,
+                                 solution: torch.Tensor) -> torch.Tensor:
+    """(B, N) keep factors of closed-neighbourhood removal (MIS) on CSR
+    arrays: the segment maximum of sol[col] over each row plays the part
+    of the sparse rep's masked ``amax``."""
+    out = _by_graphs(csr_closed_neighborhood_keep, solution.shape,
+                     torch.float32, indices.shape[1], indices, edge_mask,
+                     row_ids, solution)
+    if out is not None:
+        return out
+    sol_pad = torch.nn.functional.pad(solution, (0, 1))     # sentinel slot
+    s_col = _gather_nodes(sol_pad, indices)
+    any_nbr = csr_segment_max(edge_mask.to(torch.float32) * s_col, row_ids,
+                              solution.shape[1])
+    return (1.0 - solution) * (1.0 - any_nbr)
+
+
+def csr_closed_edge_mask(indices: torch.Tensor, edge_mask: torch.Tensor,
+                         row_ids: torch.Tensor,
+                         solution: torch.Tensor) -> torch.Tensor:
+    """(B, E) float32 closed-neighbourhood factors (MIS): mask ∧ keep[row]
+    ∧ keep[col] with the keep factors of
+    :func:`csr_closed_neighborhood_keep`; symmetric on symmetric arrays."""
+    out = _by_graphs(csr_closed_edge_mask, indices.shape, torch.float32,
+                     indices.shape[1], indices, edge_mask, row_ids, solution)
+    if out is not None:
+        return out
+    keep = csr_closed_neighborhood_keep(indices, edge_mask, row_ids,
+                                        solution)
+    keep_pad = torch.nn.functional.pad(keep, (0, 1))        # sentinel slot
+    return (edge_mask.to(torch.float32) * _gather_nodes(keep_pad, indices)
+            * _gather_nodes(keep, row_ids))
 
 
 def csr_residual_edge_mask(indices: torch.Tensor, edge_mask: torch.Tensor,

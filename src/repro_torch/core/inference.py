@@ -15,8 +15,10 @@ solve stays tens of evaluations):
 
 The port runs the fused device engine (``engine="device"``,
 ``core.engine.get_solve_step``) on the dense, sparse and CSR
-representations (``rep=``), on one device or on a ``spatial=(dp, sp)``
-mesh of ``torch.distributed`` ranks (``core.mesh``; CSR at sp = 1).
+representations (``rep=``), for every registered problem on one device,
+and for MVC also on a ``spatial=(dp, sp)`` mesh of ``torch.distributed``
+ranks (``core.mesh``; CSR at sp = 1).  MaxCut's quality lives in its
+trajectory, not its final assignment: :func:`best_trajectory_cut`.
 """
 from __future__ import annotations
 
@@ -184,8 +186,10 @@ def solve(params: Policy, adj0, *, num_layers: int = 2,
     P means ``(1, P)``): every rank of a default process group of dp·sp
     ranks calls ``solve`` with the same whole batch, places its own tile
     (B/dp graphs, N/sp topology rows), and receives the whole result, as
-    the JAX package's single controller does."""
+    the JAX package's single controller does.  Problems other than MVC run
+    on one device only (``env.check_mesh_problem``)."""
     check_solve_options(engine, spatial)
+    env_lib.check_mesh_problem(problem, spatial)
     dev = resolve_device(device)
     if params.device != dev:
         raise ValueError(f"the policy is on {params.device}, the solve on "
@@ -220,6 +224,35 @@ def gather_batch(mesh: Optional[Mesh], *tensors) -> Tuple[np.ndarray, ...]:
     if mesh is not None:
         tensors = [all_gather_tiled(t, mesh.data, 0) for t in tensors]
     return tuple(t.cpu().numpy() for t in tensors)
+
+
+def best_trajectory_cut(params: Policy, adj0, *, num_layers: int = 2,
+                        multi_node: bool = True,
+                        device: DeviceLike = "cuda") -> np.ndarray:
+    """(B,) best MaxCut value along the solve's commit trajectory.
+
+    The maxcut env stops when no candidate remains: every positive-degree
+    node ends in S, so the final cut is 0 and the quality lives in the
+    trajectory.  The port's solve step (score, top-d selection, the
+    assignment commit) runs one evaluation at a time on the dense rep, a
+    running maximum of ``env.cut_value`` after every commit stays on the
+    device, and the host reads it once, at the end; the stop rule is the
+    solve's (``done`` read each evaluation, at most N + MAX_D)."""
+    dev = resolve_device(device)
+    state = init_solve_state(get_rep("dense"), adj0, "maxcut", device=dev)
+    adj = state.adj.clone()          # the original topology, never masked
+    best = torch.zeros(state.batch, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        for _ in range(state.num_nodes + MAX_D):
+            scores = get_rep("dense").scores(params, state,
+                                             num_layers=num_layers)
+            state, done, _ = apply_selection(state, scores, state.candidate,
+                                             multi_node, "maxcut")
+            best = torch.maximum(best, env_lib.cut_value(adj,
+                                                         state.solution))
+            if bool(done.all()):
+                break
+    return best.cpu().numpy().astype(np.float64)
 
 
 def solve_with_config(params: Policy, adj0, cfg: PolicyConfig, *,

@@ -26,22 +26,25 @@ import torch
 
 from ..kernels.s2v_csr import (csr_aggregate, csr_aggregate_plain,
                                fused_s2v_layer_csr)
-from .graphs import (CsrGraphState, csr_residual_edge_mask, csr_row_ids,
-                     csr_segment_sum)
+from .graphs import (CsrGraphState, csr_closed_edge_mask,
+                     csr_residual_edge_mask, csr_row_ids, csr_segment_sum)
 from .qmodel import scores_local
 from .s2v import (check_kernel, compute_dtype, s2v_base,
                   self_adjoint_layer_grads)
-from .s2v_sparse import check_no_factor_grad, check_residual
+from .s2v_sparse import check_no_factor_grad
 
 
 def csr_edge_factors(indices: torch.Tensor, edge_mask: torch.Tensor,
                      row_ids: torch.Tensor, sol: torch.Tensor,
                      residual) -> torch.Tensor:
     """(B, E) per-edge factors for the env's residual mode: True/"solution"
-    removes S's edges; False/"none" keeps the original topology."""
-    check_residual(residual)
+    removes S's edges; "closed" removes S's and its neighbours' edges
+    (MIS: mask ∧ keep[row] ∧ keep[col], symmetric on symmetric arrays);
+    False/"none" keeps the original topology."""
     if residual is False or residual == "none":
         return edge_mask.to(torch.float32)
+    if residual == "closed":
+        return csr_closed_edge_mask(indices, edge_mask, row_ids, sol)
     return csr_residual_edge_mask(indices, edge_mask, row_ids, sol)
 
 

@@ -42,7 +42,8 @@ import torch
 
 from ..kernels.s2v_fused import fused_s2v_layer_sparse
 from ..kernels.s2v_gather import sparse_mp_aggregate
-from .graphs import SparseGraphState, residual_edge_mask
+from .graphs import (SparseGraphState, _gather_nodes,
+                     closed_neighborhood_keep, residual_edge_mask)
 from .mesh import Axis, all_gather_tiled, check_axis
 from .qmodel import scores_local
 from .s2v import (check_kernel, compute_dtype, s2v_base,
@@ -63,23 +64,34 @@ def residual_edge_factors(nbr_local: torch.Tensor, valid_local: torch.Tensor,
     return residual_edge_mask(nbr_local, valid_local, sol, sol_local)
 
 
-def check_residual(residual) -> None:
-    if residual == "closed":
-        raise NotImplementedError(
-            "closed-neighbourhood residuals (MIS) on the sparse and CSR "
-            "representations are not ported yet: ROADMAP item \"the other "
-            "three problems\"")
+def closed_edge_factors(nbr: torch.Tensor, valid: torch.Tensor,
+                        sol: torch.Tensor) -> torch.Tensor:
+    """(B, N, D) closed-neighbourhood factors (MIS) on one device:
+    valid ∧ keep[u] ∧ keep[v], where a node is kept iff neither in S nor
+    adjacent to it.  Symmetric lists give symmetric factors, so the
+    layers' self-adjoint backwards stay exact."""
+    keep = closed_neighborhood_keep(nbr, valid, sol)
+    keep_nbr = _gather_nodes(torch.nn.functional.pad(keep, (0, 1)), nbr)
+    return valid.to(torch.float32) * keep_nbr * keep[:, :, None]
 
 
 def edge_factors(nbr_local: torch.Tensor, valid_local: torch.Tensor,
                  sol_local: torch.Tensor, residual, *,
                  axis: Optional[Axis] = None) -> torch.Tensor:
     """Edge factors for the env's residual mode: True/"solution" removes
-    S's edges; False/"none" keeps the original topology."""
-    check_residual(residual)
+    S's edges; "closed" removes S's and its neighbours' edges (one device
+    only: on a mesh its factors need the keep mask all-gathered twice
+    over the graph axis); False/"none" keeps the original topology."""
     if residual is False or residual == "none":
         check_axis(axis)
         return valid_local.to(torch.float32)
+    if residual == "closed":
+        if axis is not None:
+            raise NotImplementedError(
+                "closed-neighbourhood residuals (MIS) on a mesh are not "
+                "ported yet: ROADMAP item \"the other three problems on the "
+                "mesh\"")
+        return closed_edge_factors(nbr_local, valid_local, sol_local)
     return residual_edge_factors(nbr_local, valid_local, sol_local,
                                  axis=axis)
 

@@ -44,8 +44,16 @@ def evaluate_quality(agent: Agent, test_adj: np.ndarray,
                      problem: str = "mvc") -> float:
     """Mean approximation ratio |RL solution| / |reference| (paper §6.2),
     solved with the agent's policy on its device.  ``reference_sizes``
-    come from the caller (the JAX package's ``core/solvers.py`` is not
-    ported)."""
+    come from the caller (``core.solvers``: ``reference_sizes`` for MVC,
+    ``heuristic_batch`` for every problem).  For a "max" problem (MIS) a
+    ratio below 1 means a smaller set than the reference.  MaxCut assigns
+    every positive-degree node, so its |S| says nothing of the policy:
+    refused, use ``inference.best_trajectory_cut``."""
+    if problem == "maxcut":
+        raise ValueError(
+            "maxcut quality is not a solution-size ratio (the env assigns "
+            "every positive-degree node, so |S| is policy-independent): use "
+            "repro_torch.core.inference.best_trajectory_cut instead")
     res = solve(agent.params, test_adj, num_layers=agent.cfg.num_layers,
                 multi_node=multi_node,
                 rep=rep if rep is not None else agent.cfg.graph_rep,

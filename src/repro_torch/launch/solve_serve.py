@@ -7,6 +7,8 @@ drain path or the async path.
         --mode async --sizes 500,1000,2000 --requests 24 --warmup
     PYTHONPATH=src python -m repro_torch.launch.solve_serve --rep csr \
         --sizes 500,1000 --csr-max-edges 200000 --warmup
+    PYTHONPATH=src python -m repro_torch.launch.solve_serve --problem mis \
+        --rep sparse --warmup
     # on a machine without a GPU, ask for the CPU explicitly:
     PYTHONPATH=src python -m repro_torch.launch.solve_serve --device cpu
     # on the 2-D (data, graph) mesh, one process per rank (dp·sp cards):
@@ -64,6 +66,13 @@ def main(argv=None):
     ap.add_argument("--sizes", default="12,20,28",
                     help="comma-separated node counts the stream mixes")
     ap.add_argument("--kind", choices=["er", "ba", "social"], default="er")
+    ap.add_argument("--problem", default="mvc",
+                    choices=["mvc", "maxcut", "mis", "mds"],
+                    help="registered environment to solve: mvc (min vertex "
+                         "cover), maxcut (max cut), mis (max independent "
+                         "set), mds (min dominating set); all four serve "
+                         "through the same padded buckets on one device, "
+                         "mvc also on a mesh")
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--embed-dim", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
@@ -144,7 +153,7 @@ def _serve(args, spatial, rank: int, device) -> None:
 
     sizes = [int(s) for s in args.sizes.split(",")]
     if args.warmup:
-        info = svc.warmup(sizes)
+        info = svc.warmup(sizes, problems=[args.problem])
         say(f"warmup: {len(info['compiled'])} buckets in "
             f"{info['seconds']:.2f}s -> request-path first dispatches == 0")
 
@@ -156,11 +165,11 @@ def _serve(args, spatial, rank: int, device) -> None:
             for i in range(args.requests)]
     t0 = time.time()
     if args.mode == "async":
-        futures = [svc.submit_async(a) for a in adjs]
+        futures = [svc.submit_async(a, args.problem) for a in adjs]
         responses = [f.result() for f in futures]
         svc.close()
     else:
-        responses = svc.serve(adjs)
+        responses = svc.serve(adjs, problem=args.problem)
     dt = time.time() - t0
     for r in responses:
         say(f"  req{r.id:3d}  n={len(r.solution):4d} -> bucket "
@@ -173,7 +182,8 @@ def _serve(args, spatial, rank: int, device) -> None:
         f"{s.batches} batches ({s.partial_batches} partial), "
         f"{s.compiles} request-path first dispatches "
         f"(+{s.warmup_compiles} warmup, {s.compile_seconds:.2f}s), "
-        f"{s.padded_rows} padded rows, {s.solve_seconds:.2f}s solving")
+        f"{s.padded_rows} padded rows, {s.solve_seconds:.2f}s solving; "
+        f"problem {args.problem}")
 
 
 if __name__ == "__main__":

@@ -231,14 +231,30 @@ def test_embed_csr_matches_jax(pair, kernel, compute, residual):
 
 
 def test_unported_csr_modes_raise():
-    g = csr_batch_from_dense(_graphs(), device="cpu")
+    """The closed mode (MIS) runs on one device, equal to JAX's factors
+    and re-materialization (CSR has no graph-axis mesh path at all)."""
+    from repro.core import CSR as JAX_CSR
+    from repro.core.s2v_csr import csr_edge_factors as jax_edge_factors
+    adj = _graphs()
+    g = csr_batch_from_dense(adj, device="cpu")
     rid = csr_row_ids(g.indptr, g.num_edges)
-    with pytest.raises(NotImplementedError, match="other three problems"):
-        csr_edge_factors(g.indices, g.edge_mask, rid,
-                         torch.zeros(3, 20), "closed")
-    with pytest.raises(NotImplementedError, match="other three problems"):
-        CSR.state_from_tuples(CSR.prepare_dataset(_graphs(), device="cpu"),
-                              [0], torch.zeros(1, 20), residual="closed")
+    sol = (torch.arange(20) % 4 == 1).float().expand(3, -1).contiguous()
+    jb = jg.csr_batch_from_dense(adj)
+    np.testing.assert_array_equal(
+        csr_edge_factors(g.indices, g.edge_mask, rid, sol, "closed").numpy(),
+        np.asarray(jax_edge_factors(
+            jb.indices, jb.edge_mask, jg.csr_row_ids(jb.indptr,
+                                                     jb.indices.shape[1]),
+            jnp.asarray(sol.numpy()), "closed")))
+    got = CSR.state_from_tuples(CSR.prepare_dataset(adj, device="cpu"),
+                                [0], sol[:1], residual="closed")
+    want = JAX_CSR.state_from_tuples(JAX_CSR.prepare_dataset(adj),
+                                     np.array([0]), sol[:1].numpy(),
+                                     residual="closed")
+    for f in ("indptr", "indices", "edge_mask", "candidate", "solution"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)))
+    assert got.residual == want.residual == "closed"
 
 
 def _assert_same(a, b):

@@ -143,8 +143,15 @@ def test_service_rejects_bad_input_and_unported_options(pair):
     svc = GraphSolverService(policy, cfg, device="cpu")
     with pytest.raises(ValueError):
         svc.submit(np.zeros((3, 4), np.float32))
-    with pytest.raises(NotImplementedError, match="other three problems"):
-        svc.submit(np.zeros((4, 4), np.float32), problem="mis")
+    with pytest.raises(ValueError, match="unknown environment"):
+        svc.submit(np.zeros((4, 4), np.float32), problem="bogus")
+    # the other problems serve on one device (a mesh refuses them at
+    # submit: tests/test_torch_problems.py)
+    mis = np.zeros((4, 4), np.float32)
+    mis[0, 1] = mis[1, 0] = 1.0
+    rid = svc.submit(mis, problem="mis")
+    assert svc.drain()[rid].solution.tolist() in ([1, 0, 0, 0],
+                                                  [0, 1, 0, 0])
     with pytest.raises(ValueError, match="graph representation"):
         GraphSolverService(policy, dataclasses.replace(cfg, graph_rep="coo"),
                            device="cpu")
@@ -264,3 +271,13 @@ def test_launcher_serves_each_rep_on_the_cpu(rep, capsys):
     out = capsys.readouterr().out
     assert f"served 3 requests on cpu ({rep} rep)" in out
     assert "0 request-path first dispatches" in out
+    assert "problem mvc" in out
+    # a problem besides MVC through the same buckets, async too
+    for mode in ("sync", "async"):
+        solve_serve.main(["--device", "cpu", "--requests", "3", "--sizes",
+                          "12,20", "--embed-dim", "8", "--warmup", "--rep",
+                          rep, "--problem", "mds", "--mode", mode])
+        out = capsys.readouterr().out
+        assert f"served 3 requests on cpu ({rep} rep)" in out
+        assert "0 request-path first dispatches" in out
+        assert "problem mds" in out

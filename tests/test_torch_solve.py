@@ -164,12 +164,19 @@ def test_padding_safety_probe_rejects_unsafe_env():
 def test_unported_options_raise_not_implemented(pair):
     _, policy = pair
     adj = random_graph_batch("er", 10, 1, seed=0, rho=0.3)
-    for kw, item in ((dict(problem="maxcut"), "other three problems"),
-                     (dict(rep="sparse", problem="mis"),
-                      "other three problems"),
+    # the other problems solve on one device (tests/test_torch_problems.py)
+    # and are refused on a mesh before its ranks are asked for
+    for kw, item in ((dict(problem="maxcut", spatial=2),
+                      "other three problems on the mesh"),
+                     (dict(rep="sparse", problem="mis", spatial=(2, 1)),
+                      "other three problems on the mesh"),
                      (dict(engine="host"), "rest of solve and serving")):
         with pytest.raises(NotImplementedError, match=item):
             solve(policy, adj, device="cpu", **kw)
+    for kw in (dict(problem="maxcut"), dict(rep="sparse", problem="mis")):
+        res = solve(policy, adj, device="cpu", **kw)
+        assert env.checker(kw["problem"])(
+            torch.from_numpy(adj), torch.from_numpy(res.solution)).all()
     # a mesh solve (tests/test_torch_mesh.py) refuses CSR at sp > 1 and
     # the host engine, and needs its ranks' process group
     for kw, err, msg in ((dict(rep="csr", spatial=2), ValueError,

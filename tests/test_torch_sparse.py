@@ -252,19 +252,34 @@ def test_embed_sparse_matches_jax(pair, kernel, compute, residual):
 
 
 def test_unported_sparse_modes_raise(pair):
+    """The closed mode (MIS) runs on one device, equal to JAX's factors
+    and re-materialization, and is refused on a mesh's graph axis."""
     _, policy = pair
-    g = sparse_batch_from_dense(_graphs(), device="cpu")
-    sol = torch.zeros(g.neighbors.shape[:2])
-    with pytest.raises(NotImplementedError, match="other three problems"):
-        edge_factors(g.neighbors, g.valid, sol, "closed")
-    with pytest.raises(NotImplementedError, match="other three problems"):
+    adj = _graphs()
+    g = sparse_batch_from_dense(adj, device="cpu")
+    sol = (torch.arange(adj.shape[1]) % 5 == 0).float().expand(
+        adj.shape[0], -1).contiguous()
+    jb = jg.sparse_batch_from_dense(adj)
+    from repro.core.s2v_sparse import edge_factors as jax_edge_factors
+    np.testing.assert_array_equal(
+        edge_factors(g.neighbors, g.valid, sol, "closed").numpy(),
+        np.asarray(jax_edge_factors(jb.neighbors, jb.valid,
+                                    jnp.asarray(sol.numpy()), "closed")))
+    with pytest.raises(NotImplementedError,
+                       match="other three problems on the mesh"):
         edge_factors(g.neighbors, g.valid, sol, "closed",
                      axis=single_axis("graph"))
     with pytest.raises(TypeError, match="mesh axis"):
         embed_sparse_local(policy.em, g.neighbors, g.valid.float(), sol,
                            num_layers=2, axis="graph")
-    with pytest.raises(NotImplementedError, match="other three problems"):
-        SPARSE.state_from_tuples(g, [0], sol[:1], residual="closed")
+    from repro.core import SPARSE as JAX_SPARSE
+    got = SPARSE.state_from_tuples(g, [0], sol[:1], residual="closed")
+    want = JAX_SPARSE.state_from_tuples(jb, np.array([0]),
+                                        sol[:1].numpy(), residual="closed")
+    for f in ("neighbors", "valid", "candidate", "solution"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)))
+    assert got.residual == want.residual == "closed"
 
 
 def _assert_same(a, b):

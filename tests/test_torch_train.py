@@ -194,7 +194,7 @@ def test_host_replay_sampling_and_tuples_to_graphs_match_jax():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("residual", ["solution", "none"])
+@pytest.mark.parametrize("residual", ["solution", "none", "closed"])
 def test_state_from_tuples_matches_jax_bit_for_bit(residual):
     adj = random_graph_batch("er", 30, 5, seed=3, rho=0.25)
     t = _tuples(7, 30, seed=4)
@@ -212,9 +212,11 @@ def test_state_from_tuples_matches_jax_bit_for_bit(residual):
         candidate_mask(got.adj, got.solution).numpy(),
         np.asarray(jax_candidate_mask(want.adj, want.solution)))
     assert torch.equal(source, torch.from_numpy(adj))    # masked a copy
-    with pytest.raises(NotImplementedError, match="other three problems"):
-        DENSE.state_from_tuples(source, [0], np.zeros((1, 30)),
-                                residual="closed")
+    # on a mesh the closed mode is refused
+    from repro_torch.core.spatial import mesh_tuples_mode
+    with pytest.raises(NotImplementedError,
+                       match="other three problems on the mesh"):
+        mesh_tuples_mode("closed")
 
 
 # -- the fused layer's backward ----------------------------------------------------
@@ -333,34 +335,43 @@ def test_train_minibatch_matches_jax(kernel):
 # -- the fused train step against JAX's ----------------------------------------------
 
 def _lockstep(target_mode, eps, steps=8, n=14, b=2, mb=8, tau=2,
-              explore=True, rep="dense"):
+              explore=True, rep="dense", problem="mvc", gi=(0, 2),
+              compute="f32"):
     """JAX's fused step and the port's, stepped together on
     tests/test_engine.py's graphs and sizes with JAX's weights, on the
-    representation ``rep``; each port step gets JAX's draws of that step
-    (JAX's key schedule, repro/core/engine.py).  Returns the two loss
-    traces, the action traces and the count of rows whose roll explored,
-    then both policies."""
+    representation ``rep`` and ``problem`` (its residual mode and
+    candidate rule re-materialize the episode's states); each port step
+    gets JAX's draws of that step (JAX's key schedule,
+    repro/core/engine.py).  Returns the two loss traces, the action traces
+    and the count of rows whose roll explored, then both policies."""
     kw = dict(embed_dim=8, num_layers=2, minibatch=mb, replay_capacity=64,
-              learning_rate=1e-3, eps_start=eps, eps_end=eps)
+              learning_rate=1e-3, eps_start=eps, eps_end=eps,
+              compute=compute)
     jcfg, cfg = _cfgs(**kw)
     params, policy = _pair(jcfg)
     adj = random_graph_batch("er", n, 4, seed=0, rho=0.3)
-    gi = np.array([0, 2])
+    gi = np.array(gi)
     zero = np.zeros((b, n), np.float32)
+    from repro.core import env as jax_env
+    from repro_torch.core import env as port_env
+    jkw = dict(residual=jax_env.residual_mode(problem),
+               candidate_fn=jax_env.candidate_rule(problem))
+    pkw = dict(residual=port_env.residual_mode(problem),
+               candidate_fn=port_env.candidate_rule(problem))
 
     jrep, prep = jax_get_rep(rep), get_rep(rep)
-    jstep = jax_get_train_step(jcfg, rep=jrep, tau=tau,
+    jstep = jax_get_train_step(jcfg, rep=jrep, problem=problem, tau=tau,
                                target_mode=target_mode, explore=explore)
     jes = jax_engine_init(jcfg, params, jax_adam_init(params), n, seed=0)
     jsource = jrep.prepare_dataset(adj)
-    jstate = jrep.state_from_tuples(jsource, gi, zero)
+    jstate = jrep.state_from_tuples(jsource, gi, zero, **jkw)
 
-    step = get_train_step(cfg, rep=prep, tau=tau, target_mode=target_mode,
-                          explore=explore)
+    step = get_train_step(cfg, rep=prep, problem=problem, tau=tau,
+                          target_mode=target_mode, explore=explore)
     es = engine_init(cfg, policy, adam_init(policy), n)
     source = prep.prepare_dataset(adj, device="cpu")
     gi_t = torch.from_numpy(gi)
-    state = prep.state_from_tuples(source, gi_t, zero)
+    state = prep.state_from_tuples(source, gi_t, zero, **pkw)
 
     key, size = jax.random.key(0), 0
     out = {"jax": ([], []), "port": ([], []), "explored": 0}
@@ -498,11 +509,18 @@ def test_unported_training_is_refused():
     adj = random_graph_batch("er", n, 2, seed=0, rho=0.3)
     cfg = PolicyConfig(embed_dim=8)
     agent = Agent(cfg, num_nodes=n, device="cpu")
-    for kw, item in ((dict(problem="mis"), "other three problems"),
-                     (dict(problem="maxcut"), "other three problems"),
-                     (dict(engine="host"), "rest of solve and serving")):
-        with pytest.raises(NotImplementedError, match=item):
-            train_agent(agent, adj, episodes=1, **kw)
+    with pytest.raises(NotImplementedError, match="rest of solve and serving"):
+        train_agent(agent, adj, episodes=1, engine="host")
+    # the other problems train on one device
+    # (tests/test_torch_problems_train.py), and a mesh refuses them before
+    # it asks for its ranks
+    for problem in ("mis", "maxcut"):
+        with pytest.raises(NotImplementedError,
+                           match="other three problems on the mesh"):
+            get_train_step(dataclasses.replace(cfg, spatial=(1, 2)),
+                           problem=problem)
+        log = train_agent(agent, adj, episodes=1, problem=problem)
+        assert len(log.losses) > 0
     # a mesh config builds its step on the ranks of a process group
     # (tests/test_torch_mesh_train.py); here there is none
     with pytest.raises(RuntimeError, match="spawn_mesh"):

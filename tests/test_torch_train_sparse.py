@@ -337,7 +337,7 @@ STATE_FIELDS = {"sparse": ("neighbors", "valid", "candidate", "solution"),
                         "solution")}
 
 
-@pytest.mark.parametrize("residual", ["solution", "none"])
+@pytest.mark.parametrize("residual", ["solution", "none", "closed"])
 @pytest.mark.parametrize("rep", REPS)
 def test_state_from_tuples_matches_jax_bit_for_bit(rep, residual):
     adj = random_graph_batch("er", 30, 5, seed=3, rho=0.25)
@@ -355,9 +355,6 @@ def test_state_from_tuples_matches_jax_bit_for_bit(rep, residual):
                                       err_msg=f)
     assert got.residual == want.residual
     assert prep.dataset_shape(source) == (5, 30)
-    with pytest.raises(NotImplementedError, match="other three problems"):
-        prep.state_from_tuples(source, [0], np.zeros((1, 30)),
-                               residual="closed")
 
 
 def test_csr_helpers_by_graph_chunks_equal_one_pass(monkeypatch):
