@@ -144,7 +144,17 @@ Phases (any failed check raises, so the script exits non-zero):
    |terms|; ``check_mesh_train_full``), the layer kernel (B2, B3, B5) 9 and the aggregate (B4, B5's)
    8 launches a warm step on every rank, per rank the seconds of 4 timed
    warm steps, the peak device bytes and the collectives a step by kind
-   and bytes.  Mesh times are of ranks that share one card: not scaling
+   and bytes.  MaxCut, MIS and MDS in the same spawns: solves of that
+   batch at every shape, dense and sparse (CSR at (2,1)), held like
+   MVC's with the problem's numpy checker and evaluation counts; at
+   (2,2) the sync service of MIS and MDS beside MVC's; the small
+   lockstep of each problem fresh at epsilon 0.5 at (2,2) dense and
+   sparse and (2,1) CSR; the full-width runs of MIS dense and MDS sparse
+   at (2,2) and MaxCut CSR at (2,1), held like MVC's.  Every full-width
+   run takes one step after its first warm one with its host reads
+   counted on the ranks' own threads (``main_thread_syncs``): there must
+   be none, while one host read made in the same block, the control,
+   must be counted once.  Mesh times are of ranks that share one card: not scaling
    figures.
 6. BA(N=1M, d=10) on the CSR rep with max_d=62500, built from streamed
    edges with no dense array; the answer is a cover.  Then the sparse
@@ -161,8 +171,9 @@ Phases (any failed check raises, so the script exits non-zero):
 It prints diagnostic JSON lines (each phase's seconds among them), the
 nvidia-smi name and power limit, one ``{"kernels": [...]}`` line (the eight
 kernels, B5's aggregate entry, and the two aggregates at bf16; the
-launches of B2–B5 include the full-width mesh train runs', those of B1
-and B3–B5 the problems phase's served and full-width runs), and last
+launches of B2–B5 include the full-width mesh train runs' and the mesh
+solves of every problem, those of B1 and B3–B5 the problems phase's
+served and full-width runs), and last
 ``{"ok": true, "device": {...}}``.  It exits non-zero without a CUDA
 device, and outside a checkout.  With ``--only <kernel>,...`` (names of
 the kernels line) it runs only the build, phase 1's checks of those
@@ -273,8 +284,19 @@ MESH_SMALL_RUN = (4, 2, 6)       # episode graphs, tau, steps
 # the mesh and the single device push the same tuples), draws from
 # draw_train_step; 8 steps warm the replay (8 x 8 = 64), the 8th (index
 # 7) is held to the single device, then MESH_FULL_TIMED warm steps timed.
-MESH_TRAIN_FULL = (("dense", (2, 2)), ("sparse", (2, 2)), ("csr", (2, 1)))
+# The other problems' runs are one each: MIS dense and MDS sparse at
+# (2, 2), MaxCut CSR at (2, 1).  After the first warm step, one
+# step under the sync debug mode, then the timed ones.
+MESH_TRAIN_FULL = (("mvc", "dense", (2, 2)), ("mvc", "sparse", (2, 2)),
+                   ("mvc", "csr", (2, 1)), ("mis", "dense", (2, 2)),
+                   ("mds", "sparse", (2, 2)), ("maxcut", "csr", (2, 1)))
 MESH_FULL_WARM, MESH_FULL_TIMED = 7, 4
+# MaxCut, MIS and MDS on the mesh: solves of MESH_CHECK's batch at
+# every shape of MESH_SHAPES (dense and sparse, CSR at sp = 1); the (2, 2)
+# sync service for MESH_SERVICE_PROBLEMS beside MVC; the small lockstep of
+# each problem fresh at epsilon 0.5 on the (rep, shape) pairs below.
+MESH_SERVICE_PROBLEMS = ("mis", "mds")
+MESH_PROBLEM_SMALL = (("dense", (2, 2)), ("sparse", (2, 2)), ("csr", (2, 1)))
 MESH_TIMEOUT_S = 420.0           # one spawn, its paper-scale solves included
 TIMING_BUDGET_S = 1.0            # per timed function (see cuda_ms)
 WALKS = ("rows", "windows")      # the sparse and CSR layers' two routes
@@ -2559,18 +2581,19 @@ MESH_KERNEL = {("dense", "fused"): "mp_aggregate",
 
 
 def check_mesh_run(spec, ranks, i, ref, adj, failures, launches):
-    """The holds of one mesh solve against the single-device solve on the
-    card: the ranks agree; each rank launched the rep's kernel once per
-    evaluation (twice on the xla chain; B1 never on the dense mesh);
-    every answer is a cover; first-evaluation scores within rtol = atol =
-    1e-5 (the card-vs-CPU rule of phase 3); answers identical except where
-    a trajectory parts at a near-tie (``parting``)."""
+    """The holds of one mesh solve against the single-device solve of its
+    problem on the card: the ranks agree; each rank launched the rep's
+    kernel once per evaluation (twice on the xla chain; B1 never on the
+    dense mesh); every answer passes the problem's numpy checker
+    (``CHECKS``); first-evaluation scores within rtol = atol = 1e-5 (the
+    card-vs-CPU rule of phase 3); answers and evaluation counts identical
+    except where a trajectory parts at a near-tie (``parting``)."""
     run = ranks[0]["runs"][i]
-    rep, kernel = run["rep"], run["kernel"]
-    ref_res, ref_trace = ref[rep, kernel]
+    problem, rep, kernel = run["problem"], run["rep"], run["kernel"]
+    ref_res, ref_trace = ref[problem, rep, kernel]
     name = MESH_KERNEL[rep, kernel]
     per_eval = 2 if kernel == "xla" else 1
-    tag = f"mesh {spec} {rep} {kernel}"
+    tag = f"mesh {spec} {problem} {rep} {kernel}"
     for rk in ranks:
         other = rk["runs"][i]
         if not np.array_equal(other["solution"], run["solution"]) \
@@ -2581,13 +2604,14 @@ def check_mesh_run(spec, ranks, i, ref, adj, failures, launches):
             failures.append(f"{tag}: rank {rk['rank']} launches "
                             f"{other['counts']} for {other['evals']} evals")
         launches[name] = launches.get(name, 0) + other["counts"][name]
-    identical = np.array_equal(run["solution"], ref_res.solution)
+    identical = (np.array_equal(run["solution"], ref_res.solution)
+                 and run["evals"] == ref_res.policy_evals)
     if not identical and not np.array_equal(run["trace"][1][-1],
                                             run["solution"]):
         failures.append(f"{tag}: the traced run differs from the solve")
     for g in range(adj.shape[0]):
-        if not is_cover(adj[g], run["solution"][g]):
-            failures.append(f"{tag}: graph {g} is no cover")
+        if not CHECKS[problem](adj[g], run["solution"][g]):
+            failures.append(f"{tag}: graph {g} fails the {problem} checker")
     first_ref, first = ref_trace[0][0], run["trace"][0][0]
     err = float(np.abs(first - first_ref).max())
     if not np.allclose(first, first_ref, rtol=1e-5, atol=1e-5):
@@ -2597,33 +2621,38 @@ def check_mesh_run(spec, ranks, i, ref, adj, failures, launches):
     if not near:
         failures.append(f"{tag}: a trajectory parts at no near-tie: {cases}")
     emit({"phase": "mesh", "backend": "gloo", "ranks_share_card": True,
-          "shape": list(spec), "rep": rep, "kernel": kernel,
-          "B": adj.shape[0], "N": adj.shape[1], "evals": run["evals"],
-          "evals_single": ref_res.policy_evals,
-          "cover_sizes": run["solution"].sum(-1).astype(int).tolist(),
-          "cover_sizes_single": ref_res.sizes.tolist(),
+          "shape": list(spec), "problem": problem, "rep": rep,
+          "kernel": kernel, "B": adj.shape[0], "N": adj.shape[1],
+          "evals": run["evals"], "evals_single": ref_res.policy_evals,
+          "sizes": run["solution"].sum(-1).astype(int).tolist(),
+          "sizes_single": ref_res.sizes.tolist(),
           "identical_to_single": identical, "partings": cases,
           "first_eval_max_abs_err": err,
           "launches_per_rank": [rk["runs"][i]["counts"][name]
                                 for rk in ranks], "kernel": name,
           "solve_s_per_rank": [rk["runs"][i]["solve_s"] for rk in ranks],
+          "s_per_eval_per_rank": [rk["runs"][i]["solve_s"] / run["evals"]
+                                  for rk in ranks],
           "note": "ranks share one card; not a scaling figure"})
 
 
 def check_mesh_service(torch, policy, spec, ranks, ref_answers, serve_adjs,
-                       failures, launches):
-    """The (2, 2) sync service against the single-device service with as
-    many rows per dispatch: covers, the ranks agree, B2 once per batch
+                       failures, launches, problem):
+    """The (2, 2) sync service of ``problem`` against the single-device
+    service with as many rows per dispatch: answers that pass the
+    problem's numpy checker, the ranks agree, B2 once per batch
     evaluation, answers identical to the single-device ones except where
     a dispatch, traced on both sides, parts at near-ties."""
-    svc = ranks[0]["service"]
+    svc = ranks[0]["service"][problem]
     for rk in ranks:
-        other = rk["service"]
+        other = rk["service"][problem]
         if any(not np.array_equal(a, b) for a, b in zip(other["answers"],
                                                         svc["answers"])):
-            failures.append(f"mesh service: rank {rk['rank']} differs")
+            failures.append(f"mesh service {problem}: rank {rk['rank']} "
+                            f"differs")
         if other["counts"]["mp_aggregate"] != sum(other["batch_evals"]):
-            failures.append(f"mesh service: rank {rk['rank']} launches "
+            failures.append(f"mesh service {problem}: rank {rk['rank']} "
+                            f"launches "
                             f"{other['counts']} for batch evals "
                             f"{other['batch_evals']}")
         launches["mp_aggregate"] += other["counts"]["mp_aggregate"]
@@ -2640,17 +2669,19 @@ def check_mesh_service(torch, policy, spec, ranks, ref_answers, serve_adjs,
                 failures.append(f"mesh service: request {rid} differs from "
                                 f"its traced plan")
         ref_trace = traced_solve(torch, policy, plan.adj, "dense", 0,
-                                 torch.device(DEVICE))
+                                 torch.device(DEVICE), problem=problem)
         cases, near = parting(ref_trace, trace)
         cases_all += [dict(c, requests=list(ids)) for c in cases]
         near_all &= near
     for a, ans in zip(serve_adjs, svc["answers"]):
-        if not is_cover(a, ans):
-            failures.append("mesh service: an answer is no cover")
+        if not CHECKS[problem](a, ans):
+            failures.append(f"mesh service: a {problem} answer fails its "
+                            f"checker")
     if not near_all:
-        failures.append(f"mesh service parts at no near-tie: {cases_all}")
+        failures.append(f"mesh service {problem} parts at no near-tie: "
+                        f"{cases_all}")
     emit({"phase": "mesh_service", "backend": "gloo",
-          "ranks_share_card": True, "shape": list(spec),
+          "ranks_share_card": True, "shape": list(spec), "problem": problem,
           "requests": len(serve_adjs),
           "sizes": [int(a.shape[0]) for a in serve_adjs],
           "batches": svc["stats"]["batches"],
@@ -2659,8 +2690,9 @@ def check_mesh_service(torch, policy, spec, ranks, ref_answers, serve_adjs,
               bool(np.array_equal(a, r))
               for a, r in zip(svc["answers"], ref_answers)),
           "partings": cases_all,
-          "launches_per_rank": [rk["service"]["counts"]["mp_aggregate"]
-                                for rk in ranks],
+          "launches_per_rank": [
+              rk["service"][problem]["counts"]["mp_aggregate"]
+              for rk in ranks],
           "solve_s": svc["stats"]["solve_seconds"],
           "note": "ranks share one card; not a scaling figure"})
 
@@ -2729,12 +2761,14 @@ def check_paper_mesh(spec, ranks, paper, failures, launches):
 
 def phase_mesh(torch, policy, cfg, stream, paper):
     """The mesh phase: gloo ranks sharing cuda:0, one spawn per shape in
-    MESH_SHAPES, each held to the single-device port on the card; at
-    (2, 2) the sync service; the mesh's train half (the small lockstep at
-    MESH_TRAIN_SMALL's shapes, the full-width runs of MESH_TRAIN_FULL,
-    against their references on one device, ``mesh_train_refs``); the
-    paper-scale solves of PAPER_MESH.  Returns the mesh kernels' launches
-    in the solves and in the full-width train runs, summed over ranks."""
+    MESH_SHAPES, each held to the single-device port on the card: the
+    solves of MVC and of MaxCut, MIS and MDS; at (2, 2) the sync service
+    of MVC and of MESH_SERVICE_PROBLEMS; the mesh's train half (the small
+    lockstep of ``mesh_small_cases``, the full-width runs of
+    MESH_TRAIN_FULL, against their references on one device,
+    ``mesh_train_refs``); the paper-scale solves of PAPER_MESH.  Returns
+    the mesh kernels' launches in the solves and in the full-width train
+    runs, summed over ranks."""
     import tempfile
     from repro_torch.convert import policy_to_numpy
     from repro_torch.core import random_graph_batch, solve, spawn_mesh
@@ -2743,20 +2777,26 @@ def phase_mesh(torch, policy, cfg, stream, paper):
     adj = random_graph_batch("er", n, b, seed=SEED + 13, rho=0.15)
     dev = torch.device(DEVICE)
     ref = {}
-    for rep, kernel in MESH_KERNEL:
+    keys = [("mvc",) + k for k in MESH_KERNEL] + [
+        (p, rep, "fused") for p in PROBLEMS for rep in TRAIN_REPS]
+    for problem, rep, kernel in keys:
         res = solve(policy, adj, num_layers=2, multi_node=True, rep=rep,
-                    kernel=kernel, device=DEVICE)
-        trace = traced_solve(torch, policy, adj, rep, 0, dev, kernel)
+                    kernel=kernel, problem=problem, device=DEVICE)
+        trace = traced_solve(torch, policy, adj, rep, 0, dev, kernel,
+                             problem=problem)
         if not np.array_equal(trace[1][-1], res.solution):
-            raise AssertionError(f"traced single-device {rep} {kernel} run "
-                                 f"differs from its solve")
-        ref[rep, kernel] = (res, trace)
+            raise AssertionError(f"traced single-device {problem} {rep} "
+                                 f"{kernel} run differs from its solve")
+        ref[problem, rep, kernel] = (res, trace)
     serve_adjs = [a for a in stream if a.shape[0] in MESH_SERVE_SIZES][:8]
     # the single-device service with the (2, 2) service's rows per dispatch
-    ref_answers = [r.solution for r in GraphSolverService(
-        policy, cfg, device=DEVICE, multi_node=True,
-        max_batch=2 * 8).serve(serve_adjs)]
-    refs = {key: res.solution for key, (res, _) in ref.items()}
+    ref_svc = GraphSolverService(policy, cfg, device=DEVICE, multi_node=True,
+                                 max_batch=2 * 8)
+    ref_answers = {p: [r.solution for r in ref_svc.serve(serve_adjs,
+                                                         problem=p)]
+                   for p in ("mvc",) + MESH_SERVICE_PROBLEMS}
+    refs = {key: (res.solution, res.policy_evals)
+            for key, (res, _) in ref.items()}
     weights = policy_to_numpy(policy)
     launches, train_launches, failures = {"mp_aggregate": 0}, {}, []
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -2779,8 +2819,8 @@ def phase_mesh(torch, policy, cfg, stream, paper):
                 timeout_s=MESH_TIMEOUT_S,
                 args=(weights, adj, refs,
                       (serve_adjs, ref_answers) if spec == (2, 2) else None,
-                      dict(train_args, small=spec in MESH_TRAIN_SMALL,
-                           full=[rep for rep, shape in MESH_TRAIN_FULL
+                      dict(train_args, small=mesh_small_cases(spec),
+                           full=[(p, rep) for p, rep, shape in MESH_TRAIN_FULL
                                  if shape == spec]),
                       dict(files, reps=reps, max_d=PAPER_MAX_D,
                            trace=[rep for rep, shape in PAPER_TRACE
@@ -2790,10 +2830,11 @@ def phase_mesh(torch, policy, cfg, stream, paper):
             for i in range(len(ranks[0]["runs"])):
                 check_mesh_run(spec, ranks, i, ref, adj, failures, launches)
             if spec == (2, 2):
-                check_mesh_service(torch, policy, spec, ranks, ref_answers,
-                                   serve_adjs, failures, launches)
-            if spec in MESH_TRAIN_SMALL:
-                check_mesh_train_small(spec, ranks, train_refs, failures)
+                for p in ref_answers:
+                    check_mesh_service(torch, policy, spec, ranks,
+                                       ref_answers[p], serve_adjs, failures,
+                                       launches, p)
+            check_mesh_train_small(spec, ranks, train_refs, failures)
             check_mesh_train_full(spec, ranks, train_refs, failures,
                                   train_launches)
             check_paper_mesh(spec, ranks, paper, failures, launches)
@@ -2821,26 +2862,28 @@ def flat_params(torch, policy) -> np.ndarray:
                       ]).cpu().numpy()
 
 
-def mesh_lockstep_run(torch, weights, adj, draws, dev, rep, mode, eps,
-                      mesh=None):
+def mesh_lockstep_run(torch, weights, adj, draws, dev, problem, rep, mode,
+                      eps, mesh=None):
     """The small lockstep's run of one case (``MESH_SMALL_CFG``,
-    ``MESH_SMALL_RUN``): on one device (``mesh`` None) or on this rank's
-    tiles, each step given its numpy draws.  Per step: the whole batch's
-    act scores (the step's own scorer, evaluated just before it, gathered
-    over ``data``), actions, loss and parameters.  Never counted: only the
-    full-width runs are the main path."""
+    ``MESH_SMALL_RUN``) of ``problem``: on one device (``mesh`` None) or
+    on this rank's tiles, each step given its numpy draws.  Per step: the
+    whole batch's act scores (the step's own scorer, evaluated just before
+    it, gathered over ``data``), actions, loss and parameters.  Never
+    counted: only the full-width runs are the main path."""
     import functools
-    from repro_torch.core import TrainDraws
+    from repro_torch.core import TrainDraws, env
     from repro_torch.core.inference import gather_batch
     from repro_torch.core.spatial import spatial_solve_scores_fn
     b, tau, _ = MESH_SMALL_RUN
     run = train_setup(torch, weights, rep, adj, dev, mesh,
                       cfg=MESH_SMALL_CFG, eps=eps, tau=tau, mode=mode,
-                      gi=np.arange(0, 2 * b, 2))
+                      gi=np.arange(0, 2 * b, 2), problem=problem)
     r, policy, es, state = run["rep"], run["policy"], run["es"], run["state"]
     score = functools.partial(r.scores, num_layers=2)
     if mesh is not None and mesh.sp > 1:
-        score = spatial_solve_scores_fn(mesh, num_layers=2, rep=r)
+        score = spatial_solve_scores_fn(
+            mesh, num_layers=2, rep=r,
+            residual=env.sparse_residual_flag(problem))
     out = {"scores": [], "actions": [], "losses": [], "params": []}
     for d in draws:
         with torch.no_grad():
@@ -2857,22 +2900,31 @@ def mesh_lockstep_run(torch, weights, adj, draws, dev, rep, mode, eps,
 
 
 def mesh_small_cases(spec):
-    """(rep, target mode, epsilon) of the small lockstep at ``spec``."""
-    reps = ("dense", "sparse") + (("csr",) if spec[1] == 1 else ())
-    return [(rep, mode, eps) for rep in reps
-            for mode, eps in (("stored", 0.0), ("fresh", 0.5))]
+    """(problem, rep, target mode, epsilon) of the small lockstep at
+    ``spec``: MVC's at MESH_TRAIN_SMALL's shapes (dense and sparse, CSR
+    at sp = 1, both modes), each other problem's fresh at epsilon 0.5 on
+    MESH_PROBLEM_SMALL's (rep, shape) pairs."""
+    cases = []
+    if spec in MESH_TRAIN_SMALL:
+        reps = ("dense", "sparse") + (("csr",) if spec[1] == 1 else ())
+        cases += [("mvc", rep, mode, eps) for rep in reps
+                  for mode, eps in (("stored", 0.0), ("fresh", 0.5))]
+    return cases + [(p, rep, "fresh", 0.5) for p in PROBLEMS
+                    for rep, shape in MESH_PROBLEM_SMALL if shape == spec]
 
 
-def train_setup(torch, weights, rep, data, dev, mesh=None, *, cfg=TRAIN_CFG,
-                eps=1.0, tau=TRAIN_TAU, mode="fresh", gi=None):
+def train_setup(torch, weights, rep, data, dev, mesh=None, *, problem,
+                cfg=TRAIN_CFG, eps=1.0, tau=TRAIN_TAU, mode="fresh",
+                gi=None):
     """A mesh-phase train run's policy, a second copy of its weights,
-    engine, step, dataset (tile) and episode state (tile), on one device
-    (``mesh`` None) or on this rank: ``cfg`` at epsilon ``eps``, ``tau``
-    GD iterations a step with ``mode`` targets, episode graphs ``gi`` (when
-    None, ``TRAIN_DATA``'s count drawn from seed SEED + 21); ``data`` the
-    whole dataset on the host, as graphs or in ``rep``'s layout."""
+    engine, step, dataset (tile) and episode state (tile) of ``problem``,
+    on one device (``mesh`` None) or on this rank: ``cfg`` at epsilon
+    ``eps``, ``tau`` GD iterations a step with ``mode`` targets, episode
+    graphs ``gi`` (when None, ``TRAIN_DATA``'s count drawn from seed
+    SEED + 21); ``data`` the whole dataset on the host, as graphs or in
+    ``rep``'s layout."""
     from repro_torch.convert import policy_from_numpy
-    from repro_torch.core import (PolicyConfig, engine_init, get_rep,
+    from repro_torch.core import (PolicyConfig, engine_init, env, get_rep,
                                   get_train_step)
     from repro_torch.core.mesh import shard_dataset
     from repro_torch.core.spatial import tile_state_from_tuples
@@ -2886,21 +2938,48 @@ def train_setup(torch, weights, rep, data, dev, mesh=None, *, cfg=TRAIN_CFG,
     if gi is None:
         gi = np.random.default_rng(SEED + 21).integers(0, g, TRAIN_DATA[2])
     zero = np.zeros((len(gi), n), np.float32)
+    kw = dict(residual=env.residual_mode(problem),
+              candidate_fn=env.candidate_rule(problem))
     if mesh is None:
         source = r.prepare_dataset(whole, device=dev)
         state = r.state_from_tuples(source, torch.as_tensor(gi, device=dev),
-                                    zero)
+                                    zero, **kw)
     else:
         source = shard_dataset(mesh, whole, device=dev)
-        state = tile_state_from_tuples(mesh, r, whole, gi, zero, device=dev)
+        state = tile_state_from_tuples(mesh, r, whole, gi, zero, device=dev,
+                                       **kw)
     del whole
     es = engine_init(cfg, policy, adam_init(policy), n, seed=SEED + 21,
                      mesh=mesh)
-    step = get_train_step(cfg, rep=r, tau=tau, target_mode=mode)
+    step = get_train_step(cfg, rep=r, problem=problem, tau=tau,
+                          target_mode=mode)
     return dict(cfg=cfg, rep=r, policy=policy,
                 policy0=policy_from_numpy(weights, device=dev), es=es,
                 step=step, source=source, state=state,
                 gi=torch.as_tensor(gi, device=dev))
+
+
+@contextlib.contextmanager
+def main_thread_syncs(torch):
+    """Yields a function that lists the synchronizing CUDA calls made on
+    this thread inside the block so far.  ``set_sync_debug_mode("error")``
+    cannot hold a mesh step: gloo's worker threads synchronize their own
+    copy streams for every collective on CUDA tensors, and the mode is
+    process-wide, so it raises inside the collectives.  In "warn" mode a
+    warning raised on this thread reaches Python's ``warnings`` here,
+    while the workers' go to the C++ log (stderr): what is recorded is
+    this thread's, the step's own reads back.  The caller makes one host
+    read of its own in the block, the control that such a read is seen."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield lambda: [str(w.message) for w in caught
+                           if "synchronizing CUDA operation"
+                           in str(w.message)]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
 
 
 @contextlib.contextmanager
@@ -2925,38 +3004,51 @@ def left_out_terms(mesh):
         setattr(module, name, saved)
 
 
-def mesh_full_run(torch, mesh, dev, weights, rep, data):
-    """One rank's full-width run: ``MESH_FULL_WARM + 1 + MESH_FULL_TIMED``
-    fused steps with draws from ``draw_train_step``; after the first warm
-    step the loss and all-reduced gradients of its first GD iteration,
-    recomputed from the initial weights (``.loss_and_grads`` of the mesh
-    GD step), and the same at bf16 and with other ranks' loss terms left
-    out (``left_out_terms``), the rule's controls; per step its seconds,
-    kernel launches and collectives by kind; the peak device bytes over
-    the timed steps."""
-    from repro_torch.core import draw_train_step
+def mesh_full_run(torch, mesh, dev, weights, rep, data, problem):
+    """One rank's full-width run of ``problem``: ``MESH_FULL_WARM + 2 +
+    MESH_FULL_TIMED`` fused steps with draws from ``draw_train_step``;
+    after the first warm step the loss and all-reduced gradients of its
+    first GD iteration, recomputed from the initial weights
+    (``.loss_and_grads`` of the mesh GD step), and the same at bf16 and
+    with other ranks' loss terms left out (``left_out_terms``), the rule's
+    controls; the next step with its host reads counted
+    (``main_thread_syncs``: the env's tile rules and the rest of the step
+    run on this thread), then one deliberate host read, the control; per
+    step its seconds, kernel launches and collectives by kind; the peak
+    device bytes over the steps after the first warm one."""
+    from repro_torch.core import draw_train_step, env
     from repro_torch.core.mesh import reset_traffic
     from repro_torch.core.spatial import manual_train_minibatch_fn
     from repro_torch.device import synchronize
-    run = train_setup(torch, weights, rep, data, dev, mesh)
+    run = train_setup(torch, weights, rep, data, dev, mesh, problem=problem)
     cfg, es, state = run["cfg"], run["es"], run["state"]
     gd, gd_bf16 = (manual_train_minibatch_fn(
         mesh, rep=run["rep"], num_layers=cfg.num_layers,
         lr=cfg.learning_rate, gamma=cfg.gamma, minibatch=cfg.minibatch,
-        target_mode="fresh", compute=c) for c in ("f32", "bf16"))
+        residual=env.residual_mode(problem),
+        candidate_fn=env.candidate_rule(problem), target_mode="fresh",
+        compute=c) for c in ("f32", "bf16"))
     out = {"rank": mesh.rank, "seconds": [], "counts": [], "traffic": [],
-           "losses": [], "picks": [], "warm_idx": None}
+           "losses": [], "picks": [], "warm_idx": None, "host_syncs": None,
+           "control_syncs": None}
     on_card = dev.type == "cuda"
-    for i in range(MESH_FULL_WARM + 1 + MESH_FULL_TIMED):
+    for i in range(MESH_FULL_WARM + 2 + MESH_FULL_TIMED):
         draws = draw_train_step(cfg, es, state, tau=TRAIN_TAU)
         if i == MESH_FULL_WARM + 1 and on_card:
             torch.cuda.reset_peak_memory_stats(dev)
         synchronize(dev)
         reset_counts()
         reset_traffic(mesh)
+        checked = i == MESH_FULL_WARM + 1 and on_card
         t0 = time.perf_counter()
-        es, state, _, _, _, loss = run["step"](es, state, run["source"],
-                                               run["gi"], draws)
+        with (main_thread_syncs(torch) if checked
+              else contextlib.nullcontext()) as syncs:
+            es, state, _, _, _, loss = run["step"](es, state, run["source"],
+                                                   run["gi"], draws)
+            if checked:
+                out["host_syncs"] = syncs()
+                torch.zeros((), device=dev).item()
+                out["control_syncs"] = len(syncs()) - len(out["host_syncs"])
         synchronize(dev)
         out["seconds"].append(time.perf_counter() - t0)
         out["counts"].append(read_counts())
@@ -3033,16 +3125,17 @@ def f64_grads_and_scale(torch, policy, st, action, target, num_layers):
     return dict(zip(names, exact)), dict(zip(names, scale)), q.detach()
 
 
-def single_full_ref(torch, weights, rep, data, dense, dev):
-    """The full-width run's reference on one device: the same steps up to
-    the first warm one, with the same draws, then the loss and gradients
-    of its first GD iteration from the initial weights (as the engine
-    forms them), and in f64 with each gradient's sum of |terms|
-    (``f64_grads_and_scale``, on the minibatch's dense residual adjacency
-    built from ``dense``, the dataset's graphs)."""
-    from repro_torch.core import DENSE, device_replay_at, draw_train_step
+def single_full_ref(torch, weights, rep, data, dense, dev, problem):
+    """The full-width run's reference on one device, for ``problem``: the
+    same steps up to the first warm one, with the same draws, then the
+    loss and gradients of its first GD iteration from the initial weights
+    (as the engine forms them), and in f64 with each gradient's sum of
+    |terms| (``f64_grads_and_scale``, on the minibatch's dense residual
+    adjacency and candidates in the problem's mode, built from ``dense``,
+    the dataset's graphs)."""
+    from repro_torch.core import DENSE, device_replay_at, draw_train_step, env
     from repro_torch.core.agent import loss_and_grads, max_q_raw, td_loss
-    run = train_setup(torch, weights, rep, data, dev)
+    run = train_setup(torch, weights, rep, data, dev, problem=problem)
     cfg, es, state, r = run["cfg"], run["es"], run["state"], run["rep"]
     p0 = run["policy0"]
     picks = []
@@ -3055,9 +3148,11 @@ def single_full_ref(torch, weights, rep, data, dense, dev):
     idx = draws.sample_idx[0]
     gi, sol, act, _, rew, sol2, dn = device_replay_at(es.replay, idx)
     kw = dict(rep=r, num_layers=cfg.num_layers)
-    st = r.state_from_tuples(run["source"], gi, sol2)
+    mode = dict(residual=env.residual_mode(problem),
+                candidate_fn=env.candidate_rule(problem))
+    st = r.state_from_tuples(run["source"], gi, sol2, **mode)
     tgt = rew + cfg.gamma * max_q_raw(p0, st, **kw) * (1.0 - dn)
-    st = r.state_from_tuples(run["source"], gi, sol)
+    st = r.state_from_tuples(run["source"], gi, sol, **mode)
     loss0, grads = loss_and_grads(p0, lambda p: td_loss(
         r.scores(p, st, num_layers=cfg.num_layers, masked=False), act, tgt))
     with torch.no_grad():
@@ -3066,13 +3161,14 @@ def single_full_ref(torch, weights, rep, data, dense, dev):
     if rep != "dense":
         del st, run
         st = DENSE.state_from_tuples(
-            DENSE.prepare_dataset(dense, device=dev), gi, sol)
+            DENSE.prepare_dataset(dense, device=dev), gi, sol, **mode)
     exact, scale, q64 = f64_grads_and_scale(torch, p0, st, act, tgt,
                                             cfg.num_layers)
     q_err = float((q64 - qsa.double()).abs().max())
     if not q_err <= 1e-5 * (1 + float(q64.abs().max())):
         raise AssertionError(f"the f64 composition's scores at the actions "
-                             f"are {q_err} from the port's on {rep}")
+                             f"are {q_err} from the port's on {problem} "
+                             f"{rep}")
 
     def host(d):
         return {k: v.cpu().numpy() for k, v in d.items()}
@@ -3112,10 +3208,11 @@ def load_dataset(torch, saved):
 
 def mesh_train_refs(torch, policy, adj, tmp):
     """The mesh train checks' references, on the card, one device: the
-    small lockstep of every case (``mesh_small_cases`` at sp = 1) with its
-    numpy draws, and each full-width rep's first warm GD iteration
-    (``single_full_ref``) on phase 3b's training data, saved for the
-    ranks.  Returns (the arguments the ranks take, the references)."""
+    small lockstep of every case of every shape (``mesh_small_cases``)
+    with its numpy draws, and each full-width (problem, rep)'s first warm
+    GD iteration (``single_full_ref``) on phase 3b's training data, saved
+    for the ranks.  Returns (the arguments the ranks take, the
+    references)."""
     from repro_torch.convert import policy_to_numpy
     from repro_torch.core import get_rep, random_graph_batch
     b, tau, steps = MESH_SMALL_RUN
@@ -3128,17 +3225,20 @@ def mesh_train_refs(torch, policy, adj, tmp):
     weights = policy_to_numpy(policy)
     dev = torch.device(DEVICE)
     small = {case: mesh_lockstep_run(torch, weights, adj, draws, dev, *case)
-             for case in mesh_small_cases((1, 1))}
+             for case in sorted({c for spec in MESH_SHAPES
+                                 for c in mesh_small_cases(spec)})}
     g, nf, _ = TRAIN_DATA
     data = random_graph_batch("er", nf, g, seed=SEED + 15, rho=0.15)
     full, saved = {}, {}
-    for rep, _ in MESH_TRAIN_FULL:
+    for problem, rep, _ in MESH_TRAIN_FULL:
         host = data if rep == "dense" else get_rep(rep).prepare_dataset(
             data, device="cpu")
-        saved[rep] = save_dataset(tmp, rep, host)
+        if rep not in saved:
+            saved[rep] = save_dataset(tmp, rep, host)
         t0 = time.perf_counter()
-        full[rep] = single_full_ref(torch, weights, rep, host, data, dev)
-        full[rep]["seconds"] = time.perf_counter() - t0
+        full[problem, rep] = single_full_ref(torch, weights, rep, host, data,
+                                             dev, problem)
+        full[problem, rep]["seconds"] = time.perf_counter() - t0
         del host
         torch.cuda.empty_cache()
     del data
@@ -3173,10 +3273,11 @@ def check_mesh_train_small(spec, ranks, refs, failures):
     """The small lockstep at ``spec`` against the single device on the
     card: the ranks' parameters equal bit for bit after every step; the
     same actions except from a traced near-tie on; before any parting the
-    losses, and with none the parameters, within rtol 1e-5 / atol 1e-6
-    (the CPU lockstep's bar: the all-reduced partials, the pooled sum and
-    the ownership loss's sums meet in other orders than one device's
-    fused chain, about 1e-7 apart)."""
+    losses within 1e-6 relative (MVC's: rtol 1e-5 / atol 1e-6), and with
+    none the parameters within rtol 1e-5 / atol 1e-6 (the CPU lockstep's
+    bar: the all-reduced partials, the pooled sum and the ownership
+    loss's sums meet in other orders than one device's fused chain,
+    about 1e-7 apart)."""
     for case in mesh_small_cases(spec):
         runs = [rk["train_small"][case] for rk in ranks]
         ref, got = refs["small"][case], runs[0]
@@ -3188,13 +3289,15 @@ def check_mesh_train_small(spec, ranks, refs, failures):
             failures.append(f"{tag}: actions part at no near-tie: {cases}")
         upto = len(ref["losses"]) if t is None else t
         warm = np.isfinite(ref["losses"][:upto])
-        loss_err = float(np.max(np.abs(got["losses"][:upto][warm]
-                                       - ref["losses"][:upto][warm]),
+        diff = np.abs(got["losses"][:upto][warm] - ref["losses"][:upto][warm])
+        loss_err = float(np.max(diff, initial=0.0))
+        loss_rel = float(np.max(diff / np.abs(ref["losses"][:upto][warm]),
                                 initial=0.0))
+        rtol, atol = (1e-5, 1e-6) if case[0] == "mvc" else (1e-6, 0.0)
         if not np.array_equal(np.isfinite(got["losses"][:upto]), warm) \
                 or not np.allclose(got["losses"][:upto][warm],
-                                   ref["losses"][:upto][warm], rtol=1e-5,
-                                   atol=1e-6):
+                                   ref["losses"][:upto][warm], rtol=rtol,
+                                   atol=atol):
             failures.append(f"{tag}: losses {got['losses']} vs "
                             f"{ref['losses']}")
         param_err = None
@@ -3205,11 +3308,14 @@ def check_mesh_train_small(spec, ranks, refs, failures):
                                rtol=1e-5, atol=1e-6):
                 failures.append(f"{tag}: parameters {param_err} apart")
         emit({"phase": "mesh_train_small", "backend": "gloo",
-              "ranks_share_card": True, "shape": list(spec), "rep": case[0],
-              "mode": case[1], "epsilon": case[2],
+              "ranks_share_card": True, "shape": list(spec),
+              "problem": case[0], "rep": case[1], "mode": case[2],
+              "epsilon": case[3],
               "steps": len(ref["losses"]), "warm_steps": int(warm.sum()),
               "identical_actions": t is None, "partings": cases,
-              "loss_max_abs_err": loss_err, "param_max_abs_err": param_err,
+              "loss_max_abs_err": loss_err, "loss_max_rel_err": loss_rel,
+              "loss_rtol": rtol, "loss_atol": atol,
+              "param_max_abs_err": param_err,
               "ranks_bit_equal": all(np.array_equal(r["params"],
                                                     got["params"])
                                      for r in runs)})
@@ -3222,8 +3328,11 @@ MESH_TRAIN_KERNELS = {"dense": ("mp_aggregate", None),
 
 
 def check_mesh_train_full(spec, ranks, refs, failures, launches):
-    """A full-width run at ``spec``: the ranks drew the single device's
-    picks and indices and end with the same parameters bit for bit; the
+    """A full-width run of a (problem, rep) at ``spec``: the ranks drew
+    the single device's picks and indices and end with the same
+    parameters bit for bit; the checked step read nothing back on the
+    ranks' own threads (``main_thread_syncs``), while the control read
+    after it was counted once; the
     first warm GD iteration's loss within 1e-5 of the single device's by
     the sum-of-|terms| rule (its terms are the rows' non-negative squared
     errors), and its gradients within 1e-5 of the single device's and of
@@ -3234,21 +3343,30 @@ def check_mesh_train_full(spec, ranks, refs, failures, launches):
     and is read for the bf16 step; the layer kernel 1 + 2τ and the
     aggregate 2τ launches a warm step on every rank (B1 none); its
     launches added to the kernels line's."""
-    for rep, shape in MESH_TRAIN_FULL:
+    for problem, rep, shape in MESH_TRAIN_FULL:
         if shape != spec:
             continue
-        runs = [rk["train_full"][rep] for rk in ranks]
-        ref = refs["full"][rep]
-        tag = f"mesh train full {spec} {rep}"
+        runs = [rk["train_full"][problem, rep] for rk in ranks]
+        ref = refs["full"][problem, rep]
+        tag = f"mesh train full {spec} {problem} {rep}"
         layer, agg = MESH_TRAIN_KERNELS[rep]
         want = {layer: 1 + 2 * TRAIN_TAU, "fused_s2v_layer": 0}
         if agg:
             want[agg] = 2 * TRAIN_TAU
-        n_steps = MESH_FULL_WARM + 1 + MESH_FULL_TIMED
+        n_steps = MESH_FULL_WARM + 2 + MESH_FULL_TIMED
         for r in runs:
             if not np.array_equal(r["params"], runs[0]["params"]):
                 failures.append(f"{tag}: rank {r['rank']}'s parameters "
                                 f"differ from rank 0's")
+            if r["host_syncs"] or (r["host_syncs"] is None
+                                   and DEVICE == "cuda"):
+                failures.append(f"{tag}: rank {r['rank']}'s checked step "
+                                f"read back from the device (or was not "
+                                f"checked): {r['host_syncs']}")
+            if DEVICE == "cuda" and r["control_syncs"] != 1:
+                failures.append(f"{tag}: rank {r['rank']}'s control host "
+                                f"read recorded {r['control_syncs']} syncs, "
+                                f"not 1: the check sees no read back")
             if not np.array_equal(r["warm_idx"], ref["idx"]):
                 failures.append(f"{tag}: rank {r['rank']} drew other "
                                 f"replay indices")
@@ -3288,9 +3406,10 @@ def check_mesh_train_full(spec, ranks, refs, failures, launches):
         if not ratios["left_out_vs_single"] > 1:
             failures.append(f"{tag}: the gradient rule passes a step with "
                             f"other ranks' loss terms left out ({ratios})")
-        timed = slice(MESH_FULL_WARM + 1, n_steps)
+        timed = slice(MESH_FULL_WARM + 2, n_steps)
         emit({"phase": "mesh_train", "backend": "gloo",
-              "ranks_share_card": True, "shape": list(spec), "rep": rep,
+              "ranks_share_card": True, "shape": list(spec),
+              "problem": problem, "rep": rep,
               "mode": "fresh", "epsilon": 1.0, **TRAIN_CFG,
               "tau": TRAIN_TAU, "dataset": list(TRAIN_DATA[:2]),
               "episode_graphs": TRAIN_DATA[2], "steps": n_steps,
@@ -3307,6 +3426,11 @@ def check_mesh_train_full(spec, ranks, refs, failures, launches):
                   "rank": r["rank"],
                   "warm_step_s": r["seconds"][timed],
                   "median_warm_step_s": float(np.median(r["seconds"][timed])),
+                  "least_warm_step_s": min(r["seconds"][timed]),
+                  "most_warm_step_s": max(r["seconds"][timed]),
+                  "checked_step_host_syncs": (None if r["host_syncs"] is None
+                                              else len(r["host_syncs"])),
+                  "control_read_syncs": r["control_syncs"],
                   "first_warm_step_s": r["seconds"][MESH_FULL_WARM],
                   "peak_device_bytes": r["peak_device_bytes"],
                   "launches_per_warm_step": {
@@ -3350,15 +3474,15 @@ def phase_ba(torch, policy, indptr, indices, cs, gen_s):
 # ---------------------------------------------------------------------------
 
 def traced_solve(torch, policy, adj, rep, spec, dev, kernel="fused",
-                 max_evals=None, max_d=None):
-    """Alg. 4 as ``engine.get_solve_step`` runs it (adaptive d up to
-    ``max_d``, the solve's default unless given; the same scorer,
-    selection, commit and stop rule), recording after every
+                 max_evals=None, max_d=None, problem="mvc"):
+    """Alg. 4 as ``engine.get_solve_step`` runs it for ``problem`` (adaptive
+    d up to ``max_d``, the solve's default unless given; the same scorer,
+    selection, prune, commit and stop rule), recording after every
     evaluation (up to ``max_evals``) the whole batch's scores and solution
     (gathered over ``data`` on a mesh), to find where two trajectories
     part.  Never counted: only ``solve`` is the main path."""
     import functools
-    from repro_torch.core import get_rep, init_solve_state, make_mesh
+    from repro_torch.core import env, get_rep, init_solve_state, make_mesh
     from repro_torch.core.inference import (MAX_D, apply_selection,
                                             gather_batch)
     from repro_torch.core.mesh import all_reduce_max, normalize_spatial
@@ -3367,10 +3491,11 @@ def traced_solve(torch, policy, adj, rep, spec, dev, kernel="fused",
     max_d = max_d or MAX_D
     dp, sp = normalize_spatial(spec)
     mesh = make_mesh(dp, sp) if (dp, sp) != (1, 1) else None
-    state = init_solve_state(r, adj, device=dev, mesh=mesh)
+    state = init_solve_state(r, adj, problem, device=dev, mesh=mesh)
     if mesh is not None and rep != "csr":
-        score = spatial_solve_scores_fn(mesh, num_layers=2, rep=r,
-                                        kernel=kernel)
+        score = spatial_solve_scores_fn(
+            mesh, num_layers=2, rep=r, kernel=kernel,
+            residual=env.sparse_residual_flag(problem))
     else:
         score = functools.partial(r.scores, num_layers=2, kernel=kernel)
     scores, sols = [], []
@@ -3378,7 +3503,7 @@ def traced_solve(torch, policy, adj, rep, spec, dev, kernel="fused",
         for _ in range(max_evals or state.num_nodes + max_d):
             s = score(policy, state)
             state, done, _ = apply_selection(state, s, state.candidate, True,
-                                             "mvc", max_d)
+                                             problem, max_d)
             sc, so = gather_batch(mesh, s, state.solution)
             scores.append(sc)
             sols.append(so)
@@ -3401,13 +3526,15 @@ def serve_plans(adjs, rows):
 def mesh_rank(mesh, dev, weights, adj, refs, serve, train, paper):
     """One rank of a mesh-phase spawn: full solves of the (8, 256) batch
     on dense and sparse (CSR too at sp = 1; the sparse "xla" chain at
-    (1, 2)), each counted, then traced: in full where its answers differ
-    from the single-device ones (``refs``), else for the first
-    evaluation's scores; at (2, 2) the sync service on ``serve`` (the
-    graphs and the single-device answers); the train runs of ``train``
-    (the small lockstep's cases with their draws, the full-width reps on
-    their saved data); then the paper-scale solves of ``paper``, those it
-    names under ``trace`` traced too."""
+    (1, 2)), of MVC and then of MaxCut, MIS and MDS, each counted, then
+    traced: in full where its answers or evaluation count differ from
+    the single-device ones (``refs``), else for the first evaluation's
+    scores; at (2, 2) the sync service of MVC and of
+    MESH_SERVICE_PROBLEMS on ``serve`` (the graphs and the single-device
+    answers by problem); the train runs of ``train`` (the small lockstep's
+    cases with their draws, the full-width (problem, rep) runs on their
+    saved data); then the paper-scale solves of ``paper``, those it names
+    under ``trace`` traced too."""
     import torch
     from repro_torch.convert import policy_from_numpy
     from repro_torch.core import PolicyConfig, SparseGraphBatch, solve
@@ -3417,23 +3544,25 @@ def mesh_rank(mesh, dev, weights, adj, refs, serve, train, paper):
     on_card = dev.type == "cuda"
     spec = mesh.shape
     out = {"rank": mesh.rank, "runs": []}
-    runs = [("dense", "fused"), ("sparse", "fused")]
-    if spec[1] == 1:
-        runs.append(("csr", "fused"))
+    reps = ("dense", "sparse") + (("csr",) if spec[1] == 1 else ())
+    runs = [("mvc", rep, "fused") for rep in reps]
     if spec == (1, 2):
-        runs.append(("sparse", "xla"))
-    for rep, kernel in runs:
+        runs.append(("mvc", "sparse", "xla"))
+    runs += [(p, rep, "fused") for p in PROBLEMS for rep in reps]
+    for problem, rep, kernel in runs:
         synchronize(dev)
         reset_counts()
         t0 = time.perf_counter()
         res = solve(policy, adj, num_layers=2, multi_node=True, rep=rep,
-                    kernel=kernel, spatial=spec, device=dev)
+                    kernel=kernel, problem=problem, spatial=spec, device=dev)
         solve_s = time.perf_counter() - t0
         counts = read_counts()
-        same = np.array_equal(res.solution, refs[rep, kernel])
+        want, want_evals = refs[problem, rep, kernel]
+        same = (np.array_equal(res.solution, want)
+                and res.policy_evals == want_evals)
         trace = traced_solve(torch, policy, adj, rep, spec, dev, kernel,
-                             max_evals=1 if same else None)
-        out["runs"].append({"rep": rep, "kernel": kernel,
+                             max_evals=1 if same else None, problem=problem)
+        out["runs"].append({"problem": problem, "rep": rep, "kernel": kernel,
                             "solution": res.solution,
                             "evals": res.policy_evals,
                             "committed": res.nodes_committed,
@@ -3441,39 +3570,43 @@ def mesh_rank(mesh, dev, weights, adj, refs, serve, train, paper):
                             "trace": trace})
     if serve is not None:
         serve_adjs, ref_answers = serve
-        svc = GraphSolverService(
-            policy, PolicyConfig(embed_dim=32, num_layers=2, spatial=spec),
-            device=dev, multi_node=True, max_batch=8)
-        svc.warmup([a.shape[0] for a in serve_adjs])
-        synchronize(dev)
-        reset_counts()
-        responses = svc.serve(serve_adjs)
-        counts = read_counts()
-        plans = []
-        for p in serve_plans(serve_adjs, svc.rows_per_dispatch):
-            same = all(np.array_equal(responses[i].solution, ref_answers[i])
-                       for i in p.request_ids)
-            plans.append((p.request_ids, p.sizes, None if same else
-                          traced_solve(torch, policy, p.adj, "dense", spec,
-                                       dev)))
-        out["service"] = {
-            "counts": counts, "stats": svc.stats.as_dict(),
-            "answers": [r.solution for r in responses],
-            "batch_evals": sorted({(r.bucket, r.dispatch_t): r.policy_evals
-                                   for r in responses}.values()),
-            "plans": plans}
+        out["service"] = {}
+        for problem, answers in ref_answers.items():
+            svc = GraphSolverService(
+                policy, PolicyConfig(embed_dim=32, num_layers=2,
+                                     spatial=spec),
+                device=dev, multi_node=True, max_batch=8)
+            svc.warmup([a.shape[0] for a in serve_adjs], problems=[problem])
+            synchronize(dev)
+            reset_counts()
+            responses = svc.serve(serve_adjs, problem=problem)
+            counts = read_counts()
+            plans = []
+            for p in serve_plans(serve_adjs, svc.rows_per_dispatch):
+                same = all(np.array_equal(responses[i].solution, answers[i])
+                           for i in p.request_ids)
+                plans.append((p.request_ids, p.sizes, None if same else
+                              traced_solve(torch, policy, p.adj, "dense",
+                                           spec, dev, problem=problem)))
+            out["service"][problem] = {
+                "counts": counts, "stats": svc.stats.as_dict(),
+                "answers": [r.solution for r in responses],
+                "batch_evals": sorted({
+                    (r.bucket, r.dispatch_t): r.policy_evals
+                    for r in responses}.values()),
+                "plans": plans}
     if train is not None:
         out["train_small"] = {
             case: mesh_lockstep_run(torch, train["weights"], adj,
                                     train["draws"], dev, *case, mesh=mesh)
-            for case in (mesh_small_cases(spec) if train["small"] else ())}
+            for case in train["small"]}
         out["train_full"] = {}
-        for rep in train["full"]:
+        for problem, rep in train["full"]:
             if on_card:
                 torch.cuda.empty_cache()
-            out["train_full"][rep] = mesh_full_run(
+            out["train_full"][problem, rep] = mesh_full_run(
                 torch, mesh, dev, train["weights"], rep,
-                load_dataset(torch, train["data"][rep]))
+                load_dataset(torch, train["data"][rep]), problem)
     for rep in (paper or {}).get("reps", ()):
         if rep == "dense":
             graph = np.load(paper["dense"], mmap_mode="c")

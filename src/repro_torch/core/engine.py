@@ -9,9 +9,9 @@ minibatches once the replay is warm.  The JAX step is one jitted call;
 here it is a Python function that queues device work and reads nothing
 back from the device: the replay's size and the step count are host ints,
 and the caller makes the step's one fetch (``training.train_agent``).  It
-runs on the dense, sparse and CSR reps, for every problem on one device,
-and for mvc also on every rank of a ``(data, graph)`` mesh
-(``cfg.spatial``; CSR at sp = 1): each
+runs on the dense, sparse and CSR reps, for every problem, on one device
+and on every rank of a ``(data, graph)`` mesh (``cfg.spatial``; CSR at
+sp = 1): each
 rank acts on its state tile with the spatial scorer, pushes into its tile
 of the one global replay, and takes the mesh GD step
 (``spatial.manual_train_minibatch_fn``).
@@ -141,13 +141,12 @@ def epsilon_f32(cfg: PolicyConfig, step_count: int) -> float:
 
 def check_train_options(cfg: PolicyConfig, problem: str,
                         rep: GraphRep) -> None:
-    """Refuse what the port does not train: an unknown problem, and on a
-    mesh the problems it does not run there yet, naming their ROADMAP item
-    (``env.check_mesh_problem``), then JAX's refusals: a minibatch the
-    data axis does not divide, CSR at sp > 1, ``collectives="manual"``
-    with CSR.  The port has one explicit mesh GD path, which "auto" and
-    "manual" select; "gspmd" (JAX's staged reference path) is refused."""
-    env_lib.check_mesh_problem(problem, cfg.spatial)
+    """Refuse what the port does not train: an unknown problem, then on a
+    mesh JAX's refusals: a minibatch the data axis does not divide, CSR at
+    sp > 1, ``collectives="manual"`` with CSR.  The port has one explicit
+    mesh GD path, which "auto" and "manual" select; "gspmd" (JAX's staged
+    reference path) is refused."""
+    env_lib.make(problem)
     dp, sp = normalize_spatial(cfg.spatial)
     if (dp, sp) == (1, 1):
         return
@@ -224,7 +223,8 @@ def get_train_step(cfg: PolicyConfig, *,
         manual_gd = manual_train_minibatch_fn(
             mesh, rep=rep, num_layers=cfg.num_layers, lr=cfg.learning_rate,
             gamma=gamma, minibatch=mb, residual=residual,
-            target_mode=target_mode, kernel=cfg.kernel, compute=cfg.compute)
+            candidate_fn=cand_fn, target_mode=target_mode,
+            kernel=cfg.kernel, compute=cfg.compute)
         if sp > 1:
             score_fn = spatial_solve_scores_fn(
                 mesh, num_layers=cfg.num_layers, rep=rep,
@@ -343,7 +343,7 @@ def get_solve_step(*, rep: Union[str, GraphRep, None] = None,
     adjacency in place (the counterpart of the JAX solve donating its
     state).  Every caller builds the state fresh for the solve."""
     check_solve_options("device", spatial)
-    env_lib.check_mesh_problem(problem, spatial)
+    env_lib.make(problem)
     rep = get_rep(rep)
     dp, sp = normalize_spatial(spatial)
     mesh = None

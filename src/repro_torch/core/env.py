@@ -27,8 +27,15 @@ only servable if its candidate derivation can never admit a degree-0 node:
 convention that isolated nodes count as already dominated, which
 ``is_dominating_set`` checks.
 
-The three problems besides MVC run on one device; on a mesh they are
-refused (:func:`check_mesh_problem`).
+Every problem runs on one device and on a rank's tile of a ``(data,
+graph)`` mesh (``state.axis``, ``mesh.shard_nodes``): the tile holds N/sp
+topology rows and the whole masks, so each rule tests its own rows
+(``mesh.local_rows``) against the whole masks and all-gathers its (B, N/sp)
+result over the graph axis (``mesh.gather_rows``); MaxCut's reward sums
+the action's edges on every rank's rows over the axis.  Each such value
+is a ``> 0`` test or an integer-valued sum, so the tile gives the
+single-device bits in any order.  With ``axis`` None the rules are the
+single-device ones.
 """
 from __future__ import annotations
 
@@ -43,7 +50,7 @@ from .graphs import (CsrGraphState, GraphState, SparseGraphState,
                      closed_neighborhood_keep_dense,
                      csr_closed_neighborhood_keep, csr_row_ids,
                      csr_segment_max, csr_segment_sum, residual_edge_mask)
-from .mesh import gather_rows, is_multi, local_rows
+from .mesh import all_reduce_sum, gather_rows, local_rows
 from .qmodel import NEG_INF
 
 EnvStep = Callable[[GraphState, torch.Tensor],
@@ -54,9 +61,6 @@ PruneFn = Callable[[GraphState, torch.Tensor, torch.Tensor], torch.Tensor]
 
 RESIDUAL_MODES = ("solution", "none", "closed")
 _MAX_COMMIT = 8               # == inference.MAX_D (top-d selection width)
-# The problems the mesh runs; the others wait for the ROADMAP item below.
-MESH_PROBLEMS = ("mvc",)
-MESH_ITEM = "the other three problems on the mesh"
 
 _REGISTRY: Dict[str, EnvStep] = {}
 _MODE: Dict[str, str] = {}
@@ -159,20 +163,6 @@ def make(name: str) -> EnvStep:
     return _lookup(_REGISTRY, name)
 
 
-def check_mesh_problem(problem: str, spatial) -> None:
-    """Raise on an unknown ``problem`` (ValueError), and on a problem the
-    mesh does not run yet when ``spatial`` names a mesh: MDS needs its
-    candidates assembled over the graph axis, MIS its closed factors'
-    keep mask all-gathered, the train tile its "none" and "closed"
-    branches.  Called before any mesh or process group is built."""
-    make(problem)
-    if is_multi(spatial) and problem not in MESH_PROBLEMS:
-        raise NotImplementedError(
-            f"problem {problem!r} on a mesh (spatial={spatial!r}) is not "
-            f"ported yet: ROADMAP item \"{MESH_ITEM}\"; it runs on one "
-            f"device")
-
-
 def residual_mode(name: str) -> str:
     return _lookup(_MODE, name)
 
@@ -263,6 +253,12 @@ def _onehot(v: torch.Tensor, n: int) -> torch.Tensor:
     return torch.nn.functional.one_hot(v.long(), n).to(torch.float32)
 
 
+def _axis(state):
+    """The graph axis a tile's topology rows are split over (None: all
+    rows; a CSR state is never split)."""
+    return getattr(state, "axis", None)
+
+
 def _rows(state) -> torch.Tensor:
     return torch.arange(state.candidate.shape[0],
                         device=state.candidate.device)
@@ -314,9 +310,12 @@ def mvc_step(state, action: torch.Tensor):
 
 def _action_side_counts(state, action: torch.Tensor):
     """(edges from the action to S, edges from it to V∖S), each (B,): the
-    dense rep reads the action's adjacency row, the sparse rep its list,
-    the CSR rep a row-match mask over the E slots (its rows are ragged)."""
-    in_s = state.solution
+    dense rep reads the action's adjacency column over the state's rows
+    (the row, by symmetry), the sparse rep the action's list on the rank
+    that holds it (the others count nothing), the CSR rep a row-match mask
+    over the E slots (its rows are ragged).  On a tile (``state.axis``)
+    the counts are summed over the graph axis: integers, so exact."""
+    in_s, axis = state.solution, _axis(state)
     if isinstance(state, CsrGraphState):
         rid = csr_row_ids(state.indptr, state.num_edges)
         w = ((rid == action.to(rid.dtype)[:, None]) & state.edge_mask
@@ -324,13 +323,20 @@ def _action_side_counts(state, action: torch.Tensor):
         side = _gather_nodes(torch.nn.functional.pad(in_s, (0, 1)),
                              state.indices)
     elif isinstance(state, SparseGraphState):
-        rows = _rows(state)
-        w = state.valid[rows, action].to(torch.float32)
+        nl = state.neighbors.shape[1]
+        at = action - (axis.index * nl if axis is not None else 0)
+        mine = (at >= 0) & (at < nl)
+        at = at.clamp(0, nl - 1)
+        w = state.valid[_rows(state), at].to(torch.float32) * mine[:, None]
         side = _gather_nodes(torch.nn.functional.pad(in_s, (0, 1)),
-                             state.neighbors[rows, action])
+                             state.neighbors[_rows(state), at])
     else:
-        w, side = state.adj[_rows(state), action], in_s
-    return (w * side).sum(-1), (w * (1.0 - side)).sum(-1)
+        w = state.adj[_rows(state), :, action]
+        side = local_rows(in_s, axis)
+    counts = torch.stack([(w * side).sum(-1), (w * (1.0 - side)).sum(-1)])
+    if axis is not None:
+        all_reduce_sum(counts, axis)
+    return counts[0], counts[1]
 
 
 @register("maxcut", residual=False, sense="max")
@@ -355,31 +361,38 @@ def maxcut_step(state, action: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 def _closed_keep(state, sel: torch.Tensor) -> torch.Tensor:
-    """(B, N) keep factors of removing ``sel`` and its neighbours."""
+    """(B, N) keep factors of removing ``sel`` and its neighbours; on a
+    tile, the rank's rows tested against the whole ``sel``, gathered."""
     if isinstance(state, CsrGraphState):
         rid = csr_row_ids(state.indptr, state.num_edges)
         return csr_closed_neighborhood_keep(state.indices, state.edge_mask,
                                             rid, sel)
+    rows = local_rows(sel, state.axis)
     if isinstance(state, SparseGraphState):
-        return closed_neighborhood_keep(state.neighbors, state.valid, sel)
-    return closed_neighborhood_keep_dense(state.adj, sel)
+        keep = closed_neighborhood_keep(state.neighbors, state.valid, sel,
+                                        rows)
+    else:
+        keep = closed_neighborhood_keep_dense(state.adj, sel, rows)
+    return gather_rows(keep, state.axis)
 
 
 def mis_commit(state, sel: torch.Tensor, *, in_place: bool = True):
     """Closed-neighbourhood commit (MIS): S gains ``sel``; ``sel`` and its
     neighbours leave the candidates (and the dense adjacency: in place,
-    as ``DenseRep.commit``, unless ``in_place`` is False); done when no
-    eligible node remains."""
+    as ``DenseRep.commit``, unless ``in_place`` is False; on a tile its
+    rows by the rank's rows of the keep, its columns by the whole keep);
+    done when no eligible node remains."""
     solution = torch.maximum(state.solution, sel)
     keep = _closed_keep(state, sel)
     candidate = state.candidate * keep
     new = dataclasses.replace(state, candidate=candidate, solution=solution)
     if isinstance(state, GraphState):
+        rows = local_rows(keep, state.axis)
         if in_place:
-            state.adj.mul_(keep[:, :, None])
+            state.adj.mul_(rows[:, :, None])
             state.adj.mul_(keep[:, None, :])
         else:
-            new.adj = state.adj * keep[:, :, None] * keep[:, None, :]
+            new.adj = state.adj * rows[:, :, None] * keep[:, None, :]
     return new, candidate.sum(-1) == 0
 
 
@@ -387,11 +400,13 @@ def _pick_keep(state, idx: torch.Tensor, has: torch.Tensor) -> torch.Tensor:
     """Keep factors of removing the one-hot pick ``idx`` (where ``has``)
     and its neighbours.  Dense reads the pick's adjacency column, which
     is the matvec of ``closed_neighborhood_keep_dense`` with a one-hot
-    vector, bit for bit, without its (B, N, N) pass."""
+    vector, bit for bit, without its (B, N, N) pass; on a tile, the
+    column's rows the rank holds, gathered over the graph axis."""
     pick = _onehot(idx, state.candidate.shape[1]) * has[:, None]
     if not isinstance(state, GraphState):
         return _closed_keep(state, pick)
-    col = state.adj[_rows(state), :, idx] * has[:, None]
+    col = gather_rows(state.adj[_rows(state), :, idx] * has[:, None],
+                      state.axis)
     return (1.0 - pick) * (1.0 - (col > 0).to(torch.float32))
 
 
@@ -431,8 +446,9 @@ def mis_step(state, action: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 def _neighbour_sums(state, x: torch.Tensor, how: str = "sum"):
-    """(B, N) per node, the ``how`` ("sum" or "max") of the 0/1 mask ``x``
-    over its original neighbours."""
+    """(B, Nl) per node of the state's topology rows (all N, or a tile's
+    Nl), the ``how`` ("sum" or "max") of the whole 0/1 mask ``x`` over
+    its original neighbours."""
     n = x.shape[1]
     x_pad = torch.nn.functional.pad(x, (0, 1))              # sentinel slot
     if isinstance(state, CsrGraphState):
@@ -449,7 +465,7 @@ def _neighbour_sums(state, x: torch.Tensor, how: str = "sum"):
 
 
 def _degrees(state) -> torch.Tensor:
-    """(B, N) original degrees."""
+    """(B, Nl) original degrees of the state's topology rows."""
     if isinstance(state, CsrGraphState):
         rid = csr_row_ids(state.indptr, state.num_edges)
         return csr_segment_sum(state.edge_mask.to(torch.float32), rid,
@@ -459,22 +475,23 @@ def _degrees(state) -> torch.Tensor:
     return state.adj.sum(-1)
 
 
-def _covered_and_need(state):
-    """(covered, need): the closed-neighbourhood coverage of S and the
-    mask of nodes that need domination (positive original degree)."""
-    sol = state.solution
-    covered = torch.maximum(sol, _neighbour_sums(state, sol, "max"))
-    return covered, _degrees(state) > 0
-
-
-def mds_candidates(state) -> torch.Tensor:
+def mds_candidates(state, *, rows: bool = False) -> torch.Tensor:
     """MDS candidate rule: a node is actionable iff it is not in S and its
     closed neighbourhood still holds an undominated positive-degree node.
-    A degree-0 node has no gain, so padding never enters."""
-    covered, need = _covered_and_need(state)
-    uncov = (need & (covered < 0.5)).to(torch.float32)
-    gain = uncov + _neighbour_sums(state, uncov)
-    return ((state.solution < 0.5) & (gain > 0)).to(torch.float32)
+    A degree-0 node has no gain, so padding never enters.
+
+    On a tile (``state.axis``: the topology's rows are the rank's, the
+    solution whole) each rank tests its own rows: the undominated mask
+    is all-gathered for the gains, and the candidates too, unless
+    ``rows`` asks for the rank's (B, Nl) rows only (the train tile's)."""
+    axis = _axis(state)
+    sol = state.solution
+    sol_l = local_rows(sol, axis)
+    covered = torch.maximum(sol_l, _neighbour_sums(state, sol, "max"))
+    uncov_l = ((_degrees(state) > 0) & (covered < 0.5)).to(torch.float32)
+    gain = uncov_l + _neighbour_sums(state, gather_rows(uncov_l, axis))
+    cand = ((sol_l < 0.5) & (gain > 0)).to(torch.float32)
+    return cand if rows else gather_rows(cand, axis)
 
 
 def cover_commit(state, sel: torch.Tensor):

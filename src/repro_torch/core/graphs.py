@@ -271,25 +271,34 @@ def residual_edge_mask(neighbors: torch.Tensor, valid: torch.Tensor,
 
 
 def closed_neighborhood_keep(neighbors: torch.Tensor, valid: torch.Tensor,
-                             solution: torch.Tensor) -> torch.Tensor:
-    """(B, N) keep factors of closed-neighbourhood removal (MIS): a node
+                             solution: torch.Tensor,
+                             sol_rows: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """(B, Nl) keep factors of closed-neighbourhood removal (MIS): a node
     survives iff it is neither in ``solution`` nor lists a node of it,
-    the sparse analogue of zeroing the rows and columns of S ∪ N(S)."""
+    the sparse analogue of zeroing the rows and columns of S ∪ N(S).
+    ``solution`` is the whole (B, N) mask; ``sol_rows`` its slice of the
+    lists' own Nl rows when they are one rank's block of the graph (None:
+    the lists hold all N rows)."""
     sol_pad = torch.nn.functional.pad(solution, (0, 1))     # sentinel slot
     s_nbr = _gather_nodes(sol_pad, neighbors)
     any_nbr = (valid.to(torch.float32) * s_nbr).amax(-1)
-    return (1.0 - solution) * (1.0 - any_nbr)
+    rows = solution if sol_rows is None else sol_rows
+    return (1.0 - rows) * (1.0 - any_nbr)
 
 
-def closed_neighborhood_keep_dense(adj: torch.Tensor,
-                                   solution: torch.Tensor) -> torch.Tensor:
+def closed_neighborhood_keep_dense(adj: torch.Tensor, solution: torch.Tensor,
+                                   sol_rows: Optional[torch.Tensor] = None
+                                   ) -> torch.Tensor:
     """Dense counterpart of :func:`closed_neighborhood_keep` over a
-    (B, N, N) adjacency, original (re-materialization) or residual (a
-    neighbour already removed has no edge left to lose).  The mask is a
-    ``> 0`` test of sums of 0/1 products, so any summation order gives
-    the same bits."""
+    (B, Nl, N) adjacency, original (re-materialization) or residual (a
+    neighbour already removed has no edge left to lose), of all N rows
+    or of one rank's Nl (``sol_rows`` as above).  The mask is a ``> 0``
+    test of sums of 0/1 products, so any summation order gives the same
+    bits."""
     nbr_s = torch.einsum("bnm,bm->bn", adj, solution)
-    return (1.0 - solution) * (1.0 - (nbr_s > 0).to(torch.float32))
+    rows = solution if sol_rows is None else sol_rows
+    return (1.0 - rows) * (1.0 - (nbr_s > 0).to(torch.float32))
 
 
 def sparse_batch_from_dense(adj, max_degree: Optional[int] = None, *,

@@ -15,9 +15,9 @@ solve stays tens of evaluations):
 
 The port runs the fused device engine (``engine="device"``,
 ``core.engine.get_solve_step``) on the dense, sparse and CSR
-representations (``rep=``), for every registered problem on one device,
-and for MVC also on a ``spatial=(dp, sp)`` mesh of ``torch.distributed``
-ranks (``core.mesh``; CSR at sp = 1).  MaxCut's quality lives in its
+representations (``rep=``), for every registered problem, on one device
+or on a ``spatial=(dp, sp)`` mesh of ``torch.distributed`` ranks
+(``core.mesh``; CSR at sp = 1).  MaxCut's quality lives in its
 trajectory, not its final assignment: :func:`best_trajectory_cut`.
 """
 from __future__ import annotations
@@ -186,10 +186,11 @@ def solve(params: Policy, adj0, *, num_layers: int = 2,
     P means ``(1, P)``): every rank of a default process group of dp·sp
     ranks calls ``solve`` with the same whole batch, places its own tile
     (B/dp graphs, N/sp topology rows), and receives the whole result, as
-    the JAX package's single controller does.  Problems other than MVC run
-    on one device only (``env.check_mesh_problem``)."""
+    the JAX package's single controller does.  The env's candidate rule
+    runs on the whole host state before the tiles are placed, and its
+    rules on the tiles after (``core.env``)."""
     check_solve_options(engine, spatial)
-    env_lib.check_mesh_problem(problem, spatial)
+    env_lib.make(problem)
     dev = resolve_device(device)
     if params.device != dev:
         raise ValueError(f"the policy is on {params.device}, the solve on "

@@ -64,34 +64,63 @@ def residual_edge_factors(nbr_local: torch.Tensor, valid_local: torch.Tensor,
     return residual_edge_mask(nbr_local, valid_local, sol, sol_local)
 
 
-def closed_edge_factors(nbr: torch.Tensor, valid: torch.Tensor,
-                        sol: torch.Tensor) -> torch.Tensor:
-    """(B, N, D) closed-neighbourhood factors (MIS) on one device:
-    valid ∧ keep[u] ∧ keep[v], where a node is kept iff neither in S nor
-    adjacent to it.  Symmetric lists give symmetric factors, so the
-    layers' self-adjoint backwards stay exact."""
-    keep = closed_neighborhood_keep(nbr, valid, sol)
-    keep_nbr = _gather_nodes(torch.nn.functional.pad(keep, (0, 1)), nbr)
-    return valid.to(torch.float32) * keep_nbr * keep[:, :, None]
+def closed_keep_local(nbr_local: torch.Tensor, valid_local: torch.Tensor,
+                      sol_local: torch.Tensor, *,
+                      axis: Optional[Axis] = None) -> torch.Tensor:
+    """(B, Nl) closed-neighbourhood keep factors (MIS) of the lists' own
+    rows: a node survives iff neither in S nor adjacent to it.  With
+    ``axis`` naming the mesh's graph axis, the (B, Nl) solution slice is
+    all-gathered first, so that each rank tests its rows against remote
+    solution nodes; ``axis=None`` is one device (Nl == N)."""
+    check_axis(axis)
+    if axis is None:
+        return closed_neighborhood_keep(nbr_local, valid_local, sol_local)
+    return closed_neighborhood_keep(
+        nbr_local, valid_local, all_gather_tiled(sol_local, axis, 1),
+        sol_local)
+
+
+def keep_edge_factors(nbr_local: torch.Tensor, valid_local: torch.Tensor,
+                      keep_local: torch.Tensor, *,
+                      axis: Optional[Axis] = None) -> torch.Tensor:
+    """(B, Nl, D) factors valid ∧ keep[u] ∧ keep[v] of a (B, Nl) per-node
+    keep mask of the lists' own rows, all-gathered over ``axis`` first
+    (when given) so that the gather sees remote endpoints' keeps."""
+    keep = keep_local if axis is None else all_gather_tiled(keep_local,
+                                                            axis, 1)
+    keep_nbr = _gather_nodes(torch.nn.functional.pad(keep, (0, 1)),
+                             nbr_local)
+    return valid_local.to(torch.float32) * keep_nbr * keep_local[:, :, None]
+
+
+def closed_edge_factors(nbr_local: torch.Tensor, valid_local: torch.Tensor,
+                        sol_local: torch.Tensor, *,
+                        axis: Optional[Axis] = None) -> torch.Tensor:
+    """(B, Nl, D) closed-neighbourhood factors (MIS): valid ∧ keep[u] ∧
+    keep[v], where a node is kept iff neither in S nor adjacent to it.
+    On a mesh (``axis``) the solution is all-gathered over the graph axis
+    to form the rows' keep (:func:`closed_keep_local`), then the keep is
+    all-gathered for the remote endpoints (:func:`keep_edge_factors`): two
+    (B, N) gathers, as JAX's.  Symmetric lists give symmetric factors, so
+    the layers' self-adjoint backwards stay exact."""
+    keep = closed_keep_local(nbr_local, valid_local, sol_local, axis=axis)
+    return keep_edge_factors(nbr_local, valid_local, keep, axis=axis)
 
 
 def edge_factors(nbr_local: torch.Tensor, valid_local: torch.Tensor,
                  sol_local: torch.Tensor, residual, *,
                  axis: Optional[Axis] = None) -> torch.Tensor:
     """Edge factors for the env's residual mode: True/"solution" removes
-    S's edges; "closed" removes S's and its neighbours' edges (one device
-    only: on a mesh its factors need the keep mask all-gathered twice
-    over the graph axis); False/"none" keeps the original topology."""
+    S's edges; "closed" removes S's and its neighbours' edges
+    (:func:`closed_edge_factors`); False/"none" keeps the original
+    topology.  With ``axis``, the lists are a rank's row block and
+    ``sol_local`` its rows' slice."""
     if residual is False or residual == "none":
         check_axis(axis)
         return valid_local.to(torch.float32)
     if residual == "closed":
-        if axis is not None:
-            raise NotImplementedError(
-                "closed-neighbourhood residuals (MIS) on a mesh are not "
-                "ported yet: ROADMAP item \"the other three problems on the "
-                "mesh\"")
-        return closed_edge_factors(nbr_local, valid_local, sol_local)
+        return closed_edge_factors(nbr_local, valid_local, sol_local,
+                                   axis=axis)
     return residual_edge_factors(nbr_local, valid_local, sol_local,
                                  axis=axis)
 

@@ -43,13 +43,16 @@ from torch.profiler import record_function
 from ..device import DeviceLike, resolve_device
 from .agent import adam_step, loss_and_grads, max_q_from_scores
 from .graphrep import candidate_mask, tuples_mode
+from .graphs import (GraphState, SparseGraphState,
+                     closed_neighborhood_keep_dense)
 from .mesh import (Axis, Mesh, all_gather_tiled, all_reduce_max,
                    all_reduce_sum, all_reduce_world, local_rows, make_mesh,
                    mesh_shape, shard_nodes)
 from .policy import policy_scores
 from .qmodel import scores_local
 from .replay import sharded_replay_rows
-from .s2v_sparse import edge_factors, embed_sparse_local
+from .s2v_sparse import (closed_keep_local, edge_factors,
+                         embed_sparse_local, keep_edge_factors)
 
 
 def make_graph_mesh(p: Optional[int] = None) -> Mesh:
@@ -95,8 +98,9 @@ def sparse_spatial_scores_fn(mesh: Mesh, num_layers: int, *, residual=True,
 
     ``residual`` is the env's topology mode: True/"solution" all-gathers
     the solution slices for the residual-edge factors of remote endpoints;
-    False/"none" scores the original topology; "closed" (MIS) raises (the
-    other three problems on the mesh)."""
+    False/"none" scores the original topology; "closed" (MIS) all-gathers
+    the solution, then the rows' keep mask
+    (``s2v_sparse.closed_edge_factors``)."""
     def fn(params, nbr_l, valid_l, sol_l, cand_l):
         edge_l = edge_factors(nbr_l, valid_l, sol_l, residual,
                               axis=mesh.graph)
@@ -182,45 +186,71 @@ class MinibatchTile:
     candidate: torch.Tensor
 
 
-def mesh_tuples_mode(residual) -> str:
-    """``tuples_mode`` on a mesh, which re-materializes tiles in the
-    "solution" and "none" modes; "closed" (MIS) is refused."""
-    mode = tuples_mode(residual)
-    if mode == "closed":
-        raise NotImplementedError(
-            "closed-neighbourhood residuals (MIS) on a mesh are not ported "
-            "yet: ROADMAP item \"the other three problems on the mesh\"")
-    return mode
-
-
 def tile_from_tuples(mesh: Mesh, rep, source, graph_idx: torch.Tensor,
-                     solution: torch.Tensor,
-                     residual=True) -> MinibatchTile:
+                     solution: torch.Tensor, residual=True,
+                     candidate_fn=None) -> MinibatchTile:
     """``rep.state_from_tuples`` on a rank's tile (JAX's ``_dense_remat``
-    and ``_sparse_remat``, "solution" and "none" modes): ``source`` is the
-    rank's dataset tile (``mesh.shard_dataset``), ``graph_idx`` its M/dp
-    tuples' graph ids and ``solution`` their (M/dp, Nl) mask slices.  The
-    residual topology of remote endpoints needs their solution, so the
-    keep mask (dense) or the solution (sparse factors) is all-gathered over
-    ``graph``.  Equal bit for bit to the matching rows (and columns) of the
-    single-device state."""
-    mode = mesh_tuples_mode(residual)
+    and ``_sparse_remat``, in the "solution", "none" and "closed" modes):
+    ``source`` is the rank's dataset tile (``mesh.shard_dataset``),
+    ``graph_idx`` its M/dp tuples' graph ids and ``solution`` their
+    (M/dp, Nl) mask slices.  The residual topology of remote endpoints
+    needs their solution, so the keep mask (dense "solution"), the
+    solution (sparse "solution" factors) or the solution and then the
+    closed keep mask ("closed") is all-gathered over ``graph``.  The
+    closed mode's candidates are the original positive-degree rows that
+    survive.  ``candidate_fn`` (the env's candidate rule, MDS's) runs on
+    the tile as a state with the whole solution, all-gathered, and gives
+    the rank's rows (``rows=True``).  Equal bit for bit to the matching
+    rows (and columns) of the single-device state."""
+    mode = tuples_mode(residual)
     g = mesh.graph
     gi = graph_idx.long()
     if rep.name == "dense":
         adj = source[gi]
-        if mode == "solution":
+        if mode == "closed":
+            keep = closed_neighborhood_keep_dense(
+                adj, all_gather_tiled(solution, g, 1), solution)
+            cand = ((adj.sum(-1) > 0) & (keep > 0.5)).to(torch.float32)
+        elif mode == "solution":
             keep = 1.0 - solution
+        if mode != "none":
             adj.mul_(keep[:, :, None])
             adj.mul_(all_gather_tiled(keep, g, 1)[:, None, :])
-        return MinibatchTile((adj,), solution, candidate_mask(adj, solution))
-    if rep.name != "sparse":
+        if mode != "closed":
+            cand = candidate_mask(adj, solution)
+        tile = MinibatchTile((adj,), solution, cand)
+    elif rep.name == "sparse":
+        nbr, valid = source.neighbors[gi], source.valid[gi]
+        if mode == "closed":
+            keep = closed_keep_local(nbr, valid, solution, axis=g)
+            edge = keep_edge_factors(nbr, valid, keep, axis=g)
+            cand = (valid.sum(-1) > 0) & (keep > 0.5)
+        else:
+            edge = edge_factors(nbr, valid, solution, mode, axis=g)
+            cand = (edge.sum(-1) > 0) & (solution < 0.5)
+        tile = MinibatchTile((nbr, valid, edge), solution,
+                             cand.to(torch.float32))
+    else:
         raise ValueError(f"the tile re-materialization takes the dense and "
                          f"sparse reps, got {rep.name!r}")
-    nbr, valid = source.neighbors[gi], source.valid[gi]
-    edge = edge_factors(nbr, valid, solution, mode, axis=g)
-    cand = ((edge.sum(-1) > 0) & (solution < 0.5)).to(torch.float32)
-    return MinibatchTile((nbr, valid, edge), solution, cand)
+    if candidate_fn is not None:
+        tile.candidate = candidate_fn(_tile_state(tile, g), rows=True)
+    return tile
+
+
+def _tile_state(tile: MinibatchTile, axis: Axis):
+    """A minibatch tile as the env's rules take a tile (``state.axis``):
+    its topology rows and the solution all-gathered over ``axis``; the
+    candidates stay the tile's rows, which a rule called with
+    ``rows=True`` does not read."""
+    sol = all_gather_tiled(tile.solution, axis, 1)
+    if len(tile.topology) == 1:
+        return GraphState(adj=tile.topology[0], candidate=tile.candidate,
+                          solution=sol, axis=axis)
+    nbr, valid, _ = tile.topology
+    return SparseGraphState(neighbors=nbr, valid=valid,
+                            candidate=tile.candidate, solution=sol,
+                            residual=False, axis=axis)
 
 
 def tile_scores(mesh: Mesh, params, tile: MinibatchTile, *, num_layers: int,
@@ -258,7 +288,8 @@ def ownership_loss(scores: torch.Tensor, action: torch.Tensor,
 
 def manual_train_minibatch_fn(mesh: Mesh, *, rep, num_layers: int,
                               lr: float, gamma: float, minibatch: int,
-                              residual=True, target_mode: str = "fresh",
+                              residual=True, candidate_fn=None,
+                              target_mode: str = "fresh",
                               kernel: str = "fused", compute: str = "f32"):
     """The mesh GD step, run by every rank: ``fn(params, opt, replay,
     source, idx) -> (params, opt, loss)``.  ``replay`` is the rank's tile
@@ -268,6 +299,10 @@ def manual_train_minibatch_fn(mesh: Mesh, *, rep, num_layers: int,
     replay, source, idx)`` is the step without its Adam update: the loss
     and the gradients, all-reduced over the mesh.
 
+    ``residual`` is the env's topology mode and ``candidate_fn`` its
+    candidate rule (MDS's), which every re-materialization applies, on a
+    tile through :func:`tile_from_tuples`.
+
     Collectives per iteration (dense at sp > 1; the sparse rep all-gathers
     the (M/dp, K, Nl) embedding per layer instead, and its factors gather
     the solution):
@@ -275,13 +310,15 @@ def manual_train_minibatch_fn(mesh: Mesh, *, rep, num_layers: int,
     | collective | axis | operand |
     | --- | --- | --- |
     | all-gather | data | the replay rows of the minibatch (per field) |
-    | all-gather | graph | the keep mask, per re-materialization |
+    | all-gather | graph | the keep mask, per re-materialization ("solution") |
+    | all-gather | graph | the (M/dp, N) solution, then the keep mask, per re-materialization ("closed", MIS) |
+    | all-gather | graph | the (M/dp, N) solution, then the undominated mask, per re-materialization (MDS's candidates) |
     | all-reduce (+ all-gather back) | graph | the (M/dp, K, N) partial aggregate, per layer |
     | all-reduce (+ back) | graph | the (M/dp, K) pooled embedding |
     | all-reduce max, sum | graph | the fresh target's max and candidates |
     | all-reduce | world | the loss and the (4K²+4K) gradient |
     """
-    mode = mesh_tuples_mode(residual)
+    mode = tuples_mode(residual)
     stored = target_mode == "stored"
     g = mesh.graph if mesh.sp > 1 else None
     kw = dict(num_layers=num_layers, kernel=kernel, compute=compute)
@@ -292,8 +329,10 @@ def manual_train_minibatch_fn(mesh: Mesh, *, rep, num_layers: int,
     def remat(source, gi, sol):
         with record_function("train_step.rematerialize"):
             if g is None:
-                return rep.state_from_tuples(source, gi, sol, residual=mode)
-            return tile_from_tuples(mesh, rep, source, gi, sol, mode)
+                return rep.state_from_tuples(source, gi, sol, residual=mode,
+                                             candidate_fn=candidate_fn)
+            return tile_from_tuples(mesh, rep, source, gi, sol, mode,
+                                    candidate_fn)
 
     def scores(params, st, masked):
         if g is None:

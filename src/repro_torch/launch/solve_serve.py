@@ -14,6 +14,9 @@ drain path or the async path.
     # on the 2-D (data, graph) mesh, one process per rank (dp·sp cards):
     PYTHONPATH=src torchrun --nproc-per-node 4 -m \
         repro_torch.launch.solve_serve --spatial 2,2 --dist-backend nccl
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m \
+        repro_torch.launch.solve_serve --spatial 1,2 --dist-backend gloo \
+        --device cpu --problem mds --rep sparse
 
 On a mesh every rank serves the same stream (the sync path runs SPMD)
 and only rank 0 prints.
@@ -71,8 +74,8 @@ def main(argv=None):
                     help="registered environment to solve: mvc (min vertex "
                          "cover), maxcut (max cut), mis (max independent "
                          "set), mds (min dominating set); all four serve "
-                         "through the same padded buckets on one device, "
-                         "mvc also on a mesh")
+                         "through the same padded buckets, on one device "
+                         "or on a mesh (--spatial, sync mode)")
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--embed-dim", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)

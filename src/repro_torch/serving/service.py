@@ -20,9 +20,8 @@ every rank builds the same service and submits the same requests in the
 same order, so the ranks plan the same dispatches and each returns every
 response.  The async scheduler batches by wall-clock time, which differs
 across ranks, so it runs on one device only (ROADMAP item "the rest of
-solve and serving").  Every registered problem serves on one device; on a
-mesh ``submit`` refuses all but MVC (ROADMAP item "the other three
-problems on the mesh").
+solve and serving").  Every registered problem serves on one device and
+on a mesh.
 
 Where the JAX service caches one compiled step per (bucket, problem), the
 port has nothing to compile per shape; it keeps a per-(bucket, problem)
@@ -237,10 +236,9 @@ class GraphSolverService:
     # -- request intake -----------------------------------------------------
     def _validate(self, adj: np.ndarray, problem: str) -> np.ndarray:
         """Reject malformed adjacencies, unknown / padding-unsafe problems
-        (on a mesh, the problems it does not run yet) and graphs above the
-        bucket's sparse or CSR cap before they are queued."""
+        and graphs above the bucket's sparse or CSR cap before they are
+        queued."""
         from ..core import env as env_lib
-        env_lib.check_mesh_problem(problem, self.mesh_shape)
         env_lib.ensure_padding_safe(problem)
         adj = np.asarray(adj, np.float32)
         if adj.ndim != 2 or adj.shape[0] != adj.shape[1]:

@@ -83,20 +83,24 @@ def adj():
     return random_graph_batch("er", N, 4, seed=0, rho=0.3)
 
 
-def _jax_run(adj, rep, target_mode, eps, kernel):
-    """JAX's fused step on one device, as tests/test_torch_train.py's
-    ``_lockstep`` drives it; each step's draws (JAX's key schedule) as
-    numpy, the losses, actions and trained weights."""
+def _jax_run(adj, rep, target_mode, eps, kernel, problem="mvc"):
+    """JAX's fused step of ``problem`` on one device, as
+    tests/test_torch_train.py's ``_lockstep`` drives it; each step's draws
+    (JAX's key schedule) as numpy, the losses, actions and trained
+    weights."""
+    from repro.core import env as jax_env
     jcfg, _ = _cfgs(**CFG, eps_start=eps, eps_end=eps, kernel=kernel)
     params, _ = _pair(jcfg)
     weights = jax_to_numpy(params)          # the step donates its carry
     jrep = jax_get_rep(rep)
-    step = jax_get_train_step(jcfg, rep=jrep, tau=TAU,
+    step = jax_get_train_step(jcfg, rep=jrep, problem=problem, tau=TAU,
                               target_mode=target_mode)
     es = jax_engine_init(jcfg, params, jax_adam_init(params), N, seed=0)
     source = jrep.prepare_dataset(adj)
-    state = jrep.state_from_tuples(source, GI, np.zeros((len(GI), N),
-                                                        np.float32))
+    state = jrep.state_from_tuples(
+        source, GI, np.zeros((len(GI), N), np.float32),
+        residual=jax_env.residual_mode(problem),
+        candidate_fn=jax_env.candidate_rule(problem))
     key, size, b, mb = jax.random.key(0), 0, len(GI), CFG["minibatch"]
     draws, losses, actions = [], [], []
     for _ in range(STEPS):
@@ -377,8 +381,8 @@ def test_minibatch_operand_bytes_match_jax(rep, collectives, dp, sp):
 def test_mesh_train_refusals():
     """JAX's refusals before any rank is needed: a minibatch the data axis
     does not divide, CSR at sp > 1, collectives="manual" with CSR; the
-    port's own: "gspmd" (it has no GSPMD path) and the other problems; a
-    mesh config without a process group names spawn_mesh."""
+    port's own: "gspmd" (it has no GSPMD path); a mesh config without a
+    process group names spawn_mesh, for MIS as for MVC."""
     base = PolicyConfig(embed_dim=8, minibatch=8)
     cases = [
         (dict(spatial=(3, 1)), {}, ValueError, "minibatch 8 not divisible"),
@@ -388,8 +392,8 @@ def test_mesh_train_refusals():
          ValueError, "does not apply to rep='csr'"),
         (dict(spatial=(2, 2), collectives="gspmd"), {}, ValueError,
          "no counterpart"),
-        (dict(spatial=(2, 1)), dict(problem="mis"), NotImplementedError,
-         "other three problems"),
+        (dict(spatial=(2, 1)), dict(problem="mis"), RuntimeError,
+         "spawn_mesh"),
         (dict(spatial=(2, 2)), {}, RuntimeError, "spawn_mesh")]
     for cfg_kw, kw, err, match in cases:
         with pytest.raises(err, match=match):

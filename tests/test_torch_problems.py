@@ -37,7 +37,6 @@ REPS = ("dense", "sparse", "csr")
 FIELDS = {"dense": ("adj", "candidate", "solution"),
           "sparse": ("neighbors", "valid", "candidate", "solution"),
           "csr": ("indptr", "indices", "edge_mask", "candidate", "solution")}
-MESH_ITEM = "the other three problems on the mesh"
 
 
 @pytest.fixture(scope="module")
@@ -370,27 +369,31 @@ def test_best_trajectory_cut_equals_jax(setup, multi_node):
     assert (got > 0).all()
 
 
-# -- the mesh refuses the three problems ---------------------------------------------
+# -- the mesh takes the three problems as it takes mvc -------------------------------
 
 @pytest.mark.parametrize("problem", PROBLEMS)
 def test_three_problems_refused_on_a_mesh(setup, problem):
-    """Before any process group is needed: solve, the train step and the
-    service's submit name the ROADMAP item; mvc goes on to ask for the
-    ranks' process group."""
+    """The three problems are no longer refused on a mesh: without a
+    process group, solve and the train step ask for the ranks' one
+    (``spawn_mesh``) as mvc does; a mesh service queues their requests,
+    and refuses async serving for them as for mvc; an unknown problem is
+    still a ValueError.  The mesh runs are tests/test_torch_problems_mesh.py's."""
     adj, _, policy = setup
     for spatial in ((1, 2), (2, 1), 2):
-        with pytest.raises(NotImplementedError, match=MESH_ITEM):
-            solve(policy, adj, problem=problem, spatial=spatial,
-                  device="cpu")
-        with pytest.raises(NotImplementedError, match=MESH_ITEM):
-            get_train_step(PolicyConfig(embed_dim=8, spatial=spatial),
-                           problem=problem)
-    with pytest.raises(RuntimeError, match="spawn_mesh"):
-        solve(policy, adj, problem="mvc", spatial=(1, 2), device="cpu")
+        for p in (problem, "mvc"):
+            with pytest.raises(RuntimeError, match="spawn_mesh"):
+                solve(policy, adj, problem=p, spatial=spatial, device="cpu")
+            with pytest.raises(RuntimeError, match="spawn_mesh"):
+                get_train_step(PolicyConfig(embed_dim=8, spatial=spatial),
+                               problem=p)
     svc = GraphSolverService(policy, PolicyConfig(embed_dim=8), device="cpu")
     svc.mesh_shape = (2, 1)                        # as a mesh service holds
-    with pytest.raises(NotImplementedError, match=MESH_ITEM):
-        svc.submit(adj[0], problem=problem)
+    assert svc.submit(adj[0], problem=problem) == 0
+    assert svc.pending() == 1
+    svc.mesh = object()                            # a mesh service's mesh
+    with pytest.raises(NotImplementedError,
+                       match="rest of solve and serving"):
+        svc.submit_async(adj[0], problem=problem)
     with pytest.raises(ValueError, match="unknown environment"):
         solve(policy, adj, problem="nope", spatial=(1, 2), device="cpu")
 

@@ -165,14 +165,15 @@ def test_unported_options_raise_not_implemented(pair):
     _, policy = pair
     adj = random_graph_batch("er", 10, 1, seed=0, rho=0.3)
     # the other problems solve on one device (tests/test_torch_problems.py)
-    # and are refused on a mesh before its ranks are asked for
-    for kw, item in ((dict(problem="maxcut", spatial=2),
-                      "other three problems on the mesh"),
-                     (dict(rep="sparse", problem="mis", spatial=(2, 1)),
-                      "other three problems on the mesh"),
-                     (dict(engine="host"), "rest of solve and serving")):
-        with pytest.raises(NotImplementedError, match=item):
+    # and on a mesh, whose ranks they ask for as mvc does
+    # (tests/test_torch_problems_mesh.py)
+    for kw in (dict(problem="maxcut", spatial=2),
+               dict(rep="sparse", problem="mis", spatial=(1, 2))):
+        with pytest.raises(RuntimeError, match="spawn_mesh"):
             solve(policy, adj, device="cpu", **kw)
+    with pytest.raises(NotImplementedError,
+                       match="rest of solve and serving"):
+        solve(policy, adj, device="cpu", engine="host")
     for kw in (dict(problem="maxcut"), dict(rep="sparse", problem="mis")):
         res = solve(policy, adj, device="cpu", **kw)
         assert env.checker(kw["problem"])(

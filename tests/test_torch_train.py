@@ -212,11 +212,17 @@ def test_state_from_tuples_matches_jax_bit_for_bit(residual):
         candidate_mask(got.adj, got.solution).numpy(),
         np.asarray(jax_candidate_mask(want.adj, want.solution)))
     assert torch.equal(source, torch.from_numpy(adj))    # masked a copy
-    # on a mesh the closed mode is refused
-    from repro_torch.core.spatial import mesh_tuples_mode
-    with pytest.raises(NotImplementedError,
-                       match="other three problems on the mesh"):
-        mesh_tuples_mode("closed")
+    # a mesh's train tile takes every mode: on a mesh of one rank (axes of
+    # size 1, no communication) it is the state, bit for bit
+    from repro_torch.core.mesh import Mesh, single_axis
+    from repro_torch.core.spatial import tile_from_tuples
+    one = Mesh(1, 1, 0, single_axis("data"), single_axis("graph"))
+    tile = tile_from_tuples(one, DENSE, source,
+                            torch.from_numpy(t["graph_idx"]),
+                            torch.from_numpy(t["solution"]), residual)
+    for a, w in ((tile.topology[0], got.adj), (tile.candidate, got.candidate),
+                 (tile.solution, got.solution)):
+        assert torch.equal(a, w)
 
 
 # -- the fused layer's backward ----------------------------------------------------
@@ -512,11 +518,10 @@ def test_unported_training_is_refused():
     with pytest.raises(NotImplementedError, match="rest of solve and serving"):
         train_agent(agent, adj, episodes=1, engine="host")
     # the other problems train on one device
-    # (tests/test_torch_problems_train.py), and a mesh refuses them before
-    # it asks for its ranks
+    # (tests/test_torch_problems_train.py) and on a mesh, whose ranks they
+    # ask for as mvc does (tests/test_torch_problems_mesh.py)
     for problem in ("mis", "maxcut"):
-        with pytest.raises(NotImplementedError,
-                           match="other three problems on the mesh"):
+        with pytest.raises(RuntimeError, match="spawn_mesh"):
             get_train_step(dataclasses.replace(cfg, spatial=(1, 2)),
                            problem=problem)
         log = train_agent(agent, adj, episodes=1, problem=problem)

@@ -127,13 +127,13 @@ def solve_on_card(mesh, dev, weights, adj):
 
 def mesh_train_run(mesh, dev, weights, adj, gi, draws, *, rep, target_mode,
                    eps, explore=True, tau=2, kernel="fused", compute="f32",
-                   **cfg_kw):
-    """The fused train step on this rank's tiles, each step given its
-    whole-batch draws (numpy ``(eps_uniform, pick, sample_idx)``).
-    Returns the losses, the whole batch's actions (gathered over
-    ``data``), the trained weights and the step count."""
+                   problem="mvc", **cfg_kw):
+    """The fused train step of ``problem`` on this rank's tiles, each step
+    given its whole-batch draws (numpy ``(eps_uniform, pick,
+    sample_idx)``).  Returns the losses, the whole batch's actions
+    (gathered over ``data``), the trained weights and the step count."""
     from repro_torch.convert import policy_to_numpy
-    from repro_torch.core import (TrainDraws, engine_init, get_rep,
+    from repro_torch.core import (TrainDraws, engine_init, env, get_rep,
                                   get_train_step)
     from repro_torch.core.mesh import all_gather_tiled, shard_dataset
     from repro_torch.core.spatial import tile_state_from_tuples
@@ -147,11 +147,12 @@ def mesh_train_run(mesh, dev, weights, adj, gi, draws, *, rep, target_mode,
     whole = r.prepare_dataset(adj, device="cpu")
     source = shard_dataset(mesh, whole, device=dev)
     es = engine_init(cfg, policy, adam_init(policy), n, mesh=mesh)
-    step = get_train_step(cfg, rep=r, tau=tau, target_mode=target_mode,
-                          explore=explore)
-    state = tile_state_from_tuples(mesh, r, whole, gi,
-                                   np.zeros((len(gi), n), np.float32),
-                                   device=dev)
+    step = get_train_step(cfg, rep=r, problem=problem, tau=tau,
+                          target_mode=target_mode, explore=explore)
+    state = tile_state_from_tuples(
+        mesh, r, whole, gi, np.zeros((len(gi), n), np.float32), device=dev,
+        residual=env.residual_mode(problem),
+        candidate_fn=env.candidate_rule(problem))
     gi_t = torch.as_tensor(gi, device=dev)
     losses, actions = [], []
     for d in draws:
@@ -330,4 +331,205 @@ def train_shape(mesh, dev, weights, adj, gi, cases):
     for name, kw in cases.items():
         out["train", name] = mesh_train_run(mesh, dev, weights, adj, gi,
                                             **kw)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# MaxCut, MIS and MDS on the mesh (tests/test_torch_problems_mesh.py).
+# ---------------------------------------------------------------------------
+
+PROBLEMS = ("maxcut", "mis", "mds")
+
+
+def _copy(state):
+    """``state`` with every tensor cloned: the dense commit writes its
+    adjacency in place, and a tile of ``shard_state`` is a view."""
+    import dataclasses
+    return dataclasses.replace(state, **{
+        f.name: getattr(state, f.name).clone()
+        for f in dataclasses.fields(state)
+        if isinstance(getattr(state, f.name), torch.Tensor)})
+
+
+def _pick(rng, cand):
+    """(B,) a random candidate of each row (node 0 where none is left)."""
+    u = torch.from_numpy(rng.random(cand.shape).astype(np.float32))
+    return torch.argmax(torch.where(cand > 0.5, u, -1.0), dim=-1)
+
+
+def tile_rule_checks(mesh, dev, adj, seed=5):
+    """Each env rule of MaxCut, MIS and MDS on this rank's tile of a state
+    (``shard_state``: its graphs, its topology rows, the masks whole)
+    against the rule on the whole single-device state built here from
+    the same data, on a fresh and a partial state of the dense and sparse
+    reps: the solve's first state (``init_solve_state``), the step, the
+    commit, MIS's prune and closed keep, MDS's
+    candidates (whole and the rank's rows); then the closed keep and
+    factors of the sparse lists' rows, and the train tile
+    (``tile_from_tuples``) in each problem's mode with its candidate rule.
+    Bit for bit the matching rows (and columns).  Returns the names of the
+    checks that differ (empty when all agree)."""
+    from repro_torch.core import env, get_rep
+    from repro_torch.core.mesh import local_rows, shard_dataset, shard_state
+    from repro_torch.core.s2v_sparse import (closed_edge_factors,
+                                             closed_keep_local, edge_factors)
+    from repro_torch.core.spatial import tile_from_tuples
+    rng = np.random.default_rng(seed)
+    b, n = adj.shape[0], adj.shape[-1]
+    rows, cols = mesh.data.rows(b), mesh.graph.rows(n)
+    g = mesh.graph
+    bad = []
+
+    def same(name, got, want):
+        if not torch.equal(got.cpu(), want):
+            bad.append(name)
+
+    def topo(st):
+        return ((st.adj,) if hasattr(st, "adj")
+                else (st.neighbors, st.valid))
+
+    def same_state(name, got, want):
+        same(f"{name} candidate", got.candidate, want.candidate[rows])
+        same(f"{name} solution", got.solution, want.solution[rows])
+        for i, (a, w) in enumerate(zip(topo(got), topo(want))):
+            same(f"{name} topology {i}", a, w[rows][:, cols])
+
+    gi = torch.arange(b)
+    for rep in ("dense", "sparse"):
+        r = get_rep(rep)
+        source = r.prepare_dataset(adj, device="cpu")
+        tiles = shard_dataset(mesh, source, device=dev)
+        for problem in PROBLEMS:
+            mode, cand_fn = env.residual_mode(problem), \
+                env.candidate_rule(problem)
+            # the solve's first masks: candidates derived on the host
+            # before the tiles are placed (the sparse lists' width is the
+            # data rank's graphs' own, so only the masks are compared)
+            got = init_solve_state(r, adj, problem, device=dev, mesh=mesh)
+            want = init_solve_state(r, adj, problem, device="cpu")
+            same(f"{rep} {problem} solve candidates", got.candidate,
+                 want.candidate[rows])
+            same(f"{rep} {problem} solve solution", got.solution,
+                 want.solution[rows])
+            for kind, p in (("fresh", 0.0), ("partial", 0.25)):
+                tag = f"{rep} {problem} {kind}"
+                sol = torch.from_numpy((rng.random((b, n)) < p).astype(
+                    np.float32))
+                whole = r.state_from_tuples(source, gi, sol, residual=mode,
+                                            candidate_fn=cand_fn)
+
+                def tile():
+                    return _copy(shard_state(mesh, _copy(whole)))
+                # the step, with a candidate action of each row
+                action = _pick(rng, whole.candidate)
+                want = env.make(problem)(_copy(whole), action)
+                got = env.make(problem)(tile(), action[rows])
+                same_state(f"{tag} step", got[0], want[0])
+                same(f"{tag} step reward", got[1], want[1][rows])
+                same(f"{tag} step done", got[2], want[2][rows])
+                # the commit of a few candidates
+                sel = whole.candidate * torch.from_numpy(
+                    (rng.random((b, n)) < 0.3).astype(np.float32))
+                want = env.commit_rule(problem)(_copy(whole), sel)
+                got = env.commit_rule(problem)(tile(), sel[rows])
+                same_state(f"{tag} commit", got[0], want[0])
+                same(f"{tag} commit done", got[1], want[1][rows])
+                if problem == "mis":
+                    scores = torch.from_numpy(rng.standard_normal(
+                        (b, n)).astype(np.float32))
+                    same(f"{tag} prune",
+                         env.mis_prune(tile(), sel[rows], scores[rows]),
+                         env.mis_prune(whole, sel, scores)[rows])
+                    same(f"{tag} closed keep",
+                         env._closed_keep(tile(), sel[rows]),
+                         env._closed_keep(whole, sel)[rows])
+                if problem == "mds":
+                    want = env.mds_candidates(whole)
+                    same(f"{tag} candidates",
+                         env.mds_candidates(tile()), want[rows])
+                    same(f"{tag} candidate rows",
+                         env.mds_candidates(tile(), rows=True),
+                         want[rows][:, cols])
+                # the train tile of the same tuples
+                t = tile_from_tuples(mesh, r, tiles, gi[rows],
+                                     local_rows(sol[rows], g).to(dev), mode,
+                                     cand_fn)
+                want_topo = topo(whole)
+                if rep == "sparse":
+                    want_topo += (edge_factors(
+                        whole.neighbors, whole.valid, whole.solution,
+                        env.residual_flag(mode)),)
+                for i, (a, w) in enumerate(zip(t.topology, want_topo)):
+                    same(f"{tag} remat topology {i}", a, w[rows][:, cols])
+                same(f"{tag} remat candidate", t.candidate,
+                     whole.candidate[rows][:, cols])
+                same(f"{tag} remat solution", t.solution,
+                     whole.solution[rows][:, cols])
+                if rep == "sparse" and problem == "mis":
+                    nbr = whole.neighbors[rows][:, cols].contiguous()
+                    valid = whole.valid[rows][:, cols].contiguous()
+                    sl = sol[rows][:, cols].contiguous()
+                    same(f"{tag} closed keep rows",
+                         closed_keep_local(nbr, valid, sl, axis=g),
+                         closed_keep_local(whole.neighbors, whole.valid,
+                                           sol)[rows][:, cols])
+                    same(f"{tag} closed factors",
+                         closed_edge_factors(nbr, valid, sl, axis=g),
+                         closed_edge_factors(whole.neighbors, whole.valid,
+                                             sol)[rows][:, cols])
+    return bad
+
+
+def train_agent_run(mesh, dev, adj, problem, rep):
+    """``train_agent`` of ``problem`` on ``rep`` (two episodes of 2 graphs,
+    tau 1, at most 8 steps, seed 0) from the agent's seeded policy, on
+    this rank of ``mesh`` (None: one device).  Returns the losses, the
+    episode lengths, the trained weights and the step count."""
+    from repro_torch.convert import policy_to_numpy
+    from repro_torch.core import Agent, train_agent
+    cfg = PolicyConfig(embed_dim=8, num_layers=2, minibatch=8,
+                       replay_capacity=64, learning_rate=1e-3,
+                       graph_rep=rep,
+                       spatial=mesh.shape if mesh is not None else 0)
+    agent = Agent(cfg, num_nodes=adj.shape[-1], device=dev)
+    log = train_agent(agent, adj, problem=problem, episodes=2, tau=1,
+                      batch_graphs=2, max_steps=8, seed=0)
+    return {"losses": np.array(log.losses), "lengths": log.episode_lengths,
+            "params": policy_to_numpy(agent.params),
+            "step_count": agent.step_count}
+
+
+def problems_shape(mesh, dev, weights, adj, stream, rules_adj, train):
+    """Everything tests/test_torch_problems_mesh.py checks on one mesh
+    shape, in one spawn: solves of MaxCut, MIS and MDS on dense and
+    sparse (CSR at sp = 1), the sync service per problem at (2, 2), the
+    tile rules on ``rules_adj`` (:func:`tile_rule_checks`), the train
+    cases of ``train["cases"]`` (name → keyword arguments of
+    :func:`mesh_train_run`) from ``train["weights"]`` on ``train["adj"]``'s
+    episode graphs ``train["gi"]``, and ``train_agent`` of each (problem,
+    rep) of ``train["agent"]`` (:func:`train_agent_run`)."""
+    policy = policy_from_numpy(weights, device=dev)
+    spec = mesh.shape
+    out = {"rank": mesh.rank, "data": mesh.data.index,
+           "rules": tile_rule_checks(mesh, dev, rules_adj)}
+    reps = REPS + (("csr",) if spec[1] == 1 else ())
+    for problem in PROBLEMS:
+        for rep in reps:
+            r = solve(policy, adj, num_layers=2, multi_node=True, rep=rep,
+                      problem=problem, spatial=spec, device=dev)
+            out["solve", problem, rep] = (r.solution, r.policy_evals,
+                                          r.nodes_committed)
+        if spec == (2, 2):
+            svc = GraphSolverService(
+                policy, PolicyConfig(embed_dim=8, spatial=spec),
+                device=dev, multi_node=True, max_batch=2)
+            out["service", problem] = [
+                (r.id, r.solution, r.size, r.policy_evals)
+                for r in svc.serve(stream, problem=problem)]
+    for name, kw in train["cases"].items():
+        out["train", name] = mesh_train_run(
+            mesh, dev, train["weights"], train["adj"], train["gi"], **kw)
+    for problem, rep in train["agent"]:
+        out["agent", problem, rep] = train_agent_run(mesh, dev, train["adj"],
+                                                     problem, rep)
     return out
