@@ -28,11 +28,12 @@ Phases (any failed check raises, so the script exits non-zero):
    the sparse and CSR backwards run: the sparse aggregation also at bf16,
    and B5's aggregate entry (csr_aggregate, f32 and bf16) on every graph
    case, which at f32 must equal the sparse aggregation bit for bit.
-   The sparse and CSR layers run by the route their rule picks (the row
-   walk or the windowed walk), and the other route, forced, must give the
-   same bits at f32 and bf16 on every case (the sparse layer also on the
-   serving lists with shuffled slots).  On every graph case the
-   representations must agree bit for bit at f32: the dense
+   The sparse and CSR layers and B5's aggregate entry run by the route
+   their rule picks (the row walk or the windowed walk), and the other
+   route, forced, must give the same bits at f32 and bf16 on every case
+   (the sparse layer also on the serving lists with shuffled slots).  On
+   every graph case the representations must agree bit for bit at f32:
+   the dense
    layer on the residual adjacency equals the sparse and CSR layers, and
    on the serving bucket the dense aggregate of one half of the nodes
    equals the sparse aggregation's row block, which equals the whole
@@ -157,15 +158,29 @@ Phases (any failed check raises, so the script exits non-zero):
    must be counted once.  Mesh times are of ranks that share one card: not scaling
    figures.
 6. BA(N=1M, d=10) on the CSR rep with max_d=62500, built from streamed
-   edges with no dense array; the answer is a cover.  Then the sparse
-   "xla" chain on a full 4096-node bucket, whose aggregation kernel must
-   run twice per evaluation.
+   edges with no dense array; the answer is a cover.
+6b. Neighbour-sampled training on that resident graph (phase
+   sampled_train, ROADMAP A5): ``NeighborSampler`` (512 seeds, fanouts
+   (8, 4)) draws 64 subgraphs of 20,992 nodes and 40,960 edge slots,
+   stacked on the card as the CSR dataset (their real nodes, edges and
+   maximum degrees and the host seconds a subgraph printed); phase 3b's
+   full width (replay 50,000), tau=4, fresh, 8 episode graphs a step, 13
+   steps: B5 9 and its aggregate 8 launches a warm step, every one by the
+   row walk, one warm step under the sync debug mode, one profiled, the
+   rest timed, the peak bytes; on the first warm minibatch's state B5's
+   aggregate by the row walk against the windowed walk forced, bit for
+   bit, and against its plain version (f32 and bf16); ``train_agent`` for
+   one 9-step episode, every launch by the row walk; then the resident
+   BA(1M) solved with the trained policy (max_d=62500), a cover.  Then
+   the sparse "xla" chain on a full 4096-node bucket, whose aggregation
+   kernel must run twice per evaluation.
 7. Where an evaluation's time goes (torch.profiler over 20 evaluations of
    a full 4096-node bucket, per rep), then timings: each kernel (B1 also
    at the train minibatch, B=64, N=4096), its plain version and a library
    yardstick (CUDA events around 10 back-to-back
    calls, median of 30 such samples after warm-up) beside its bound,
-   the sparse and CSR layers by each route (the LM kernels' times are
+   the sparse and CSR layers and the CSR aggregate by each route, the
+   aggregate also at the sampled minibatch (the LM kernels' times are
    taken in phase 1b).
 
 It prints diagnostic JSON lines (each phase's seconds among them), the
@@ -173,12 +188,14 @@ nvidia-smi name and power limit, one ``{"kernels": [...]}`` line (the eight
 kernels, B5's aggregate entry, and the two aggregates at bf16; the
 launches of B2–B5 include the full-width mesh train runs' and the mesh
 solves of every problem, those of B1 and B3–B5 the problems phase's
-served and full-width runs), and last
+served and full-width runs, those of B5 and its aggregate the sampled
+training's steps, episode and resident solve), and last
 ``{"ok": true, "device": {...}}``.  It exits non-zero without a CUDA
 device, and outside a checkout.  With ``--only <kernel>,...`` (names of
 the kernels line) it runs only the build, phase 1's checks of those
 kernels with their gates and their times (for the sparse and CSR layers
-both routes, and the route sweep behind the rule's constant), the loop
+and the CSR aggregate both routes, the aggregate also at the sampled
+minibatch, and the route sweep behind the rule's constant), the loop
 for work on them: it prints no kernels line and no result line.
 """
 from __future__ import annotations
@@ -252,6 +269,17 @@ PAPER_EPISODE, PAPER_MINIBATCHES = 8, (64, 48, 32, 16)
 PAPER_REPLAY, PAPER_WARM_STEPS = 1024, 2
 PAPER_STEP_S = 316.4             # the paper's one-GPU training step
 PLAIN_CHUNK = 16                 # graphs per plain-version call at B = 64
+# Neighbour-sampled training on the resident BA(1M, d=10) (phase
+# sampled_train, ROADMAP A5): 512 seeds a subgraph and JAX's default
+# fanouts (8, 4), so the node budget is 512·(1 + 8 + 32) = 20,992 (the
+# paper's N = 20,480 of §6.4) and the edge budget 2·512·40 = 40,960; 64
+# subgraphs stacked as the dataset; TRAIN_CFG (the replay of 50,000 not
+# cut: its two bool masks take 2.1 GB), tau 4, fresh targets, 8 episode
+# graphs a step, 13 steps (index 7 the first warm one, 8 under the sync
+# debug mode, 9 profiled, 10-12 timed), then ``train_agent`` for one
+# 9-step episode and a solve of the resident graph with that policy
+SAMPLED_SEEDS, SAMPLED_FANOUTS, SAMPLED_GRAPHS = 512, (8, 4), 64
+SAMPLED_STEPS = 13
 # tests/test_engine.py's train configuration: nodes, dataset graphs,
 # episode graphs, minibatch, tau, steps; stored targets, epsilon 0
 SMALL_TRAIN = (14, 4, 2, 8, 2, 8)
@@ -428,7 +456,8 @@ def read_counts() -> dict:
 
 
 def read_routes() -> dict:
-    """The launches of the sparse and CSR layers by route."""
+    """The launches of the sparse and CSR layers and of the CSR aggregate
+    by route."""
     return {name: dict(fn.routes) for name, fn in kernel_fns().items()
             if hasattr(fn, "routes")}
 
@@ -1299,12 +1328,13 @@ def check_sparse_aggregate(torch, case, name, rows, failures):
 
 
 def check_csr_aggregate(torch, case, name, rows, failures):
-    """B5's aggregate entry (the windowed walk) on one graph case against
-    its plain version, at f32 (and the f64 aggregate) and bf16,
-    componentwise to the sum of |terms|; the padding case's isolated nodes
-    must give 0.  At f32 it must equal B4's aggregate on the same graph's
-    lists bit for bit: both walk each node's slots in ascending id order,
-    as the three reps' layers do."""
+    """B5's aggregate entry on one graph case against its plain version,
+    at f32 (and the f64 aggregate) and bf16, componentwise to the sum of
+    |terms|, by the route the rule picks and against the other route,
+    forced, bit for bit; the padding case's isolated nodes must give 0.
+    At f32 it must equal B4's aggregate on the same graph's lists bit for
+    bit: both walk each node's slots in ascending id order, as the three
+    reps' layers do."""
     from repro_torch.core.graphs import csr_row_ids
     _, kg, kc = kernel_modules()
     cs, x, edge_w = case["cs"], case["x"], case["edge_w"]
@@ -1313,12 +1343,14 @@ def check_csr_aggregate(torch, case, name, rows, failures):
     row_max = int((cs.indptr[:, 1:] - cs.indptr[:, :-1]).max())
     args = (x, cs.indices, cs.indptr, edge_w)
     for compute in ("f32", "bf16"):
-        out = kc.csr_aggregate(*args, compute)
+        out, route = call_routed(kc.csr_aggregate, *args, compute)
         compare(torch, rows, failures, "csr_aggregate", name, compute, out,
                 kc.csr_aggregate_plain(x, cs.indices, rid, edge_w, compute),
                 case["agg64"] if compute == "f32" else None, row_max,
-                {"B": b, "K": k, "N": n, "E": cs.num_edges},
+                {"B": b, "K": k, "N": n, "E": cs.num_edges, "route": route},
                 case["abs64"].float())
+        route_identity(torch, failures, "csr_aggregate", name, compute,
+                       kc.csr_aggregate, args, out, route)
         real = case["real"]
         if real is not None and out[:, :, real:].any():
             failures.append(f"csr_aggregate {name} {compute}: isolated "
@@ -1349,16 +1381,17 @@ def phase_graph_kernels(torch, dev, rows, failures,
 
 
 def ba_case(torch, dev, cs, seed):
-    """Layer inputs on the BA graph: residual factors of a random 10%
-    partial solution, x = relu of a random tensor, random base, theta4."""
+    """Layer inputs on a CSR batch (the BA graph, or the subgraphs sampled
+    from it): residual factors of a random 10% partial solution, x = relu
+    of a random tensor, random base, theta4."""
     from repro_torch.core.graphs import csr_residual_edge_mask, csr_row_ids
     g = torch.Generator(device=dev).manual_seed(seed)
-    n = cs.num_nodes
-    sol = (torch.rand((1, n), generator=g, device=dev) < 0.1).float()
+    b, n = cs.batch, cs.num_nodes
+    sol = (torch.rand((b, n), generator=g, device=dev) < 0.1).float()
     return {"sp": None, "cs": cs, "edge": None,
-            "x": torch.relu(torch.rand((1, 32, n), generator=g, device=dev)
+            "x": torch.relu(torch.rand((b, 32, n), generator=g, device=dev)
                             - 0.5),
-            "base": torch.rand((1, 32, n), generator=g, device=dev) - 0.5,
+            "base": torch.rand((b, 32, n), generator=g, device=dev) - 0.5,
             "t4": (torch.rand((32, 32), generator=g, device=dev) - 0.5) * 0.2,
             "edge_w": csr_residual_edge_mask(
                 cs.indices, cs.edge_mask,
@@ -1895,7 +1928,8 @@ def check_graph_train_case(torch, rows, failures, case, fn, args,
 def train_mode_run(torch, agent, step, source, mode, seed, rep="dense",
                    problem="mvc", steps=TRAIN_STEPS,
                    profile_step=TRAIN_PROFILE_STEP,
-                   timed_from=TRAIN_TIMED_FROM):
+                   timed_from=TRAIN_TIMED_FROM, data=TRAIN_DATA,
+                   warm_hook=None):
     """(c) ``steps`` fused steps of one target mode on ``rep`` and
     ``problem`` at full width on a fresh engine (empty replay), each with
     its draws from ``draw_train_step``: the rep's layer kernel (B1, B3,
@@ -1904,9 +1938,13 @@ def train_mode_run(torch, agent, step, source, mode, seed, rep="dense",
     (two per backward), every warm loss finite, one warm step (and its
     draws) under ``set_sync_debug_mode("error")`` and, unless
     ``profile_step`` is None, one under torch.profiler, and the seconds of
-    the steps from ``timed_from``.  Returns the row it prints."""
+    the steps from ``timed_from``.  ``data`` is (dataset graphs, nodes,
+    episode graphs); ``warm_hook(es)``, where given, is called once after
+    the first warm step, outside its counts and times.  Returns the row it
+    prints, with the layer's and the aggregate's launches by route over
+    the run."""
     from repro_torch.core import draw_train_step, engine_init, env, get_rep
-    g, n, b = TRAIN_DATA
+    g, n, b = data
     r = get_rep(rep)
     es = engine_init(agent.cfg, agent.params, agent.opt, n, seed=seed,
                      step_count=agent.step_count)
@@ -1921,6 +1959,8 @@ def train_mode_run(torch, agent, step, source, mode, seed, rep="dense",
             "stored": (2, 2 + TRAIN_TAU)}[mode]
     want_agg = (0, 2 * TRAIN_TAU) if agg else (0, 0)
     losses, launches, agg_launches, seconds = [], [], [], []
+    routed = read_routes()
+    routes = {k: dict.fromkeys(WALKS, 0) for k in (layer, agg) if k in routed}
     profile = None
     torch.cuda.reset_peak_memory_stats()
     for i in range(steps):
@@ -1950,6 +1990,10 @@ def train_mode_run(torch, agent, step, source, mode, seed, rep="dense",
         counts = read_counts()
         launches.append(counts[layer])
         agg_launches.append(counts[agg] if agg else 0)
+        by_route = read_routes()
+        for kernel, total in routes.items():
+            for route, count in by_route[kernel].items():
+                total[route] += count
         if (launches[-1], agg_launches[-1]) != (want[warm], want_agg[warm]):
             raise AssertionError(
                 f"train {problem} {rep} {mode} step {i}: {layer} launched "
@@ -1958,6 +2002,9 @@ def train_mode_run(torch, agent, step, source, mode, seed, rep="dense",
         if not warm and i >= TRAIN_SYNC_STEP:
             raise AssertionError(f"train {problem} {rep} {mode} step {i} is "
                                  f"not warm")
+        if warm_hook is not None and warm:
+            warm_hook(es)
+            warm_hook = None
     losses = [float(x) for x in losses]
     warm_losses = losses[agent.cfg.minibatch // b - 1:]
     if not all(math.isfinite(x) for x in warm_losses) or any(
@@ -1970,12 +2017,33 @@ def train_mode_run(torch, agent, step, source, mode, seed, rep="dense",
             "warm_steps": len(warm_losses), "layer_kernel": layer,
             "layer_launches": launches, "aggregate_kernel": agg,
             "aggregate_launches": agg_launches,
+            "layer_routes": routes.get(layer),
+            "aggregate_routes": routes.get(agg),
             "median_warm_step_s": float(np.median(seconds)),
             "min_warm_step_s": min(seconds), "max_warm_step_s": max(seconds),
             "timed_steps": len(seconds), "warm_step_s": seconds,
             "losses": losses, "step_count": es.step_count,
             "peak_device_bytes": torch.cuda.max_memory_allocated(),
             "profile": profile}
+
+
+def agent_episode(agent, data, rep, b, seed):
+    """The user's entry point: ``train_agent`` for one episode of 9 steps
+    of ``b`` graphs on ``rep``, the last two warm (minibatch 64).  Returns
+    the log and the episode's launches, in all and by route."""
+    from repro_torch.core import train_agent
+    count0 = agent.step_count
+    reset_counts()
+    log = train_agent(agent, data, rep=rep, episodes=1, max_steps=9,
+                      tau=TRAIN_TAU, batch_graphs=b, seed=seed)
+    counts, routes = read_counts(), read_routes()
+    warm = 9 - (agent.cfg.minibatch // b - 1)
+    if agent.step_count != count0 + warm \
+            or not math.isfinite(log.losses[-1]):
+        raise AssertionError(f"train_agent on {rep} ({agent.cfg.compute}): "
+                             f"step_count {agent.step_count} from {count0}, "
+                             f"losses {log.losses}")
+    return log, counts, routes
 
 
 def phase_train(torch, policy, adjs, rows, failures):
@@ -1992,8 +2060,7 @@ def phase_train(torch, policy, adjs, rows, failures):
     import tempfile
     from repro_torch.checkpoint import load_policy, save_policy
     from repro_torch.convert import policy_to_numpy
-    from repro_torch.core import (Agent, PolicyConfig, get_rep,
-                                  get_train_step, train_agent)
+    from repro_torch.core import Agent, PolicyConfig, get_rep, get_train_step
     from repro_torch.core.graphs import random_graph_batch
     check_train_grads(torch, policy)
     for rep in TRAIN_REPS:
@@ -2020,6 +2087,10 @@ def phase_train(torch, policy, adjs, rows, failures):
                                   target_mode=mode)
             row = train_mode_run(torch, agent, step, source, mode, SEED + i,
                                  rep)
+            if rep == "csr" and row["aggregate_routes"]["rows"]:
+                raise AssertionError(f"train csr {mode}: the aggregate took "
+                                     f"the row walk at the train cell: "
+                                     f"{row['aggregate_routes']}")
             main[row["layer_kernel"]] += sum(row["layer_launches"])
             if row["aggregate_kernel"]:
                 main[row["aggregate_kernel"]] += sum(
@@ -2038,17 +2109,7 @@ def phase_train(torch, policy, adjs, rows, failures):
         # warm; f32 on dense, bf16 on sparse and CSR
         compute = "f32" if rep == "dense" else "bf16"
         agent.cfg = dataclasses.replace(tcfg, compute=compute)
-        count0 = agent.step_count
-        warm = 9 - (tcfg.minibatch // b - 1)
-        reset_counts()
-        log = train_agent(agent, data, rep=rep, episodes=1, max_steps=9,
-                          tau=TRAIN_TAU, batch_graphs=b, seed=SEED + 2)
-        counts = read_counts()
-        if agent.step_count != count0 + warm \
-                or not math.isfinite(log.losses[-1]):
-            raise AssertionError(f"train_agent on {rep} ({compute}): "
-                                 f"step_count {agent.step_count} from "
-                                 f"{count0}, losses {log.losses}")
+        log, counts, _ = agent_episode(agent, data, rep, b, SEED + 2)
         if rep != "dense":
             bf16[REP_AGGREGATE[rep]] = counts[REP_AGGREGATE[rep]]
         emit({"phase": "train_agent", "rep": rep, "compute": compute,
@@ -2385,7 +2446,8 @@ def paper_train_run(torch, source, mb):
                       "loss": float(loss),
                       "peak_device_bytes": torch.cuda.max_memory_allocated(),
                       "fused_s2v_layer_csr": counts["fused_s2v_layer_csr"],
-                      "csr_aggregate": counts["csr_aggregate"]})
+                      "csr_aggregate": counts["csr_aggregate"],
+                      "csr_aggregate_routes": read_routes()["csr_aggregate"]})
 
     def one_more():
         return step(es, state, source, gi, draw_train_step(cfg, es, state,
@@ -2472,6 +2534,7 @@ def phase_paper_train(torch, graph, rows, failures):
         emit({"phase": "paper_train_profile", "minibatch": mb, **profile})
     for s in warm:
         if (s["fused_s2v_layer_csr"], s["csr_aggregate"]) != want \
+                or s["csr_aggregate_routes"]["rows"] \
                 or not math.isfinite(s["loss"]):
             raise AssertionError(f"paper-scale train step: {s}")
     emit({"phase": "paper_train", "rep": "csr", "N": n, "directed_edges":
@@ -2494,6 +2557,8 @@ def phase_paper_train(torch, graph, rows, failures):
           "launches_per_warm_step": {
               "fused_s2v_layer_csr": warm[0]["fused_s2v_layer_csr"],
               "csr_aggregate": warm[0]["csr_aggregate"]},
+          "csr_aggregate_routes_per_warm_step": warm[0][
+              "csr_aggregate_routes"],
           "losses": [s["loss"] for s in warm],
           "paper_s": PAPER_STEP_S,
           "note": "the paper's figure: one RL training step on one GPU of "
@@ -3441,9 +3506,10 @@ def check_mesh_train_full(spec, ranks, refs, failures, launches):
               "note": "ranks share one card; not a scaling figure"})
 
 
-def phase_ba(torch, policy, indptr, indices, cs, gen_s):
+def phase_ba(torch, policy, indptr, indices, cs, gen_s, label="ba_1m_csr"):
     """Phase 4, CSR: BA(1M, d=10) with max_d=62500 from streamed edges;
-    the cover is checked on the CSR arrays."""
+    the cover is checked on the CSR arrays.  Prints the row as ``label``
+    and returns B5's launches."""
     from repro_torch.core import solve
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3460,13 +3526,157 @@ def phase_ba(torch, policy, indptr, indices, cs, gen_s):
         raise AssertionError("BA(1M) CSR solve leaves an edge uncovered")
     if launches != res.policy_evals:
         raise AssertionError("BA(1M): launches != evals")
-    emit({"phase": "ba_1m_csr", "N": BA_N, "d": BA_D,
+    emit({"phase": label, "N": BA_N, "d": BA_D,
           "directed_edges": int(len(indices)),
           "max_degree": int(np.diff(indptr).max()), "generate_s": gen_s,
           "solve_s": solve_s, "policy_evals": res.policy_evals,
           "cover_size": int(res.sizes[0]), "kernel_launches": launches,
           "kernel_routes": routes,
           "peak_device_bytes": torch.cuda.max_memory_allocated()})
+    return launches
+
+
+def sampled_batch(torch, indptr, indices):
+    """``SAMPLED_GRAPHS`` subgraphs of the resident graph stacked on the
+    card (``NeighborSampler.training_batch``), their shapes and the host
+    seconds a subgraph (the sampling and each subgraph's copy to the
+    card)."""
+    from repro_torch.core import NeighborSampler
+    sampler = NeighborSampler(indptr, indices, batch_size=SAMPLED_SEEDS,
+                              fanouts=SAMPLED_FANOUTS, seed=SEED)
+    t0 = time.perf_counter()
+    batch, maps = sampler.training_batch(SAMPLED_GRAPHS, device=DEVICE)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    ip = batch.indptr.cpu().numpy()
+
+    def spread(v):
+        return {"least": int(v.min()), "mean": float(v.mean()),
+                "most": int(v.max())}
+    shape = {"seeds": SAMPLED_SEEDS, "fanouts": list(SAMPLED_FANOUTS),
+             "subgraphs": SAMPLED_GRAPHS, "node_budget": sampler.node_budget,
+             "edge_budget": sampler.edge_budget,
+             "real_nodes": spread((maps >= 0).sum(1)),
+             "directed_edges": spread(ip[:, -1]),
+             "max_degree": spread(np.diff(ip, axis=1).max(1)),
+             "host_s_per_subgraph": host_s / SAMPLED_GRAPHS}
+    return batch, shape
+
+
+def check_sampled_aggregate(torch, source, tuples, rows, failures):
+    """B5's aggregate entry on the first warm minibatch's state: the replay's
+    64 tuples when it first holds a minibatch (``tuples``: graph ids and
+    solutions), re-materialized on the sampled dataset with their residual
+    factors, x random in [-0.5, 0.5) (the backward aggregates signed
+    gradients).  At f32 and bf16, by the route the rule picks, which must be
+    the row walk, against the windowed walk forced, bit for bit, and
+    against the plain version (and at f32 the f64 aggregate)
+    componentwise to the sum of |terms| (``compare``)."""
+    from repro_torch.core import CSR, env
+    from repro_torch.core.graphs import csr_row_ids
+    from repro_torch.core.s2v_csr import csr_edge_factors
+    _, _, kc = kernel_modules()
+    gi, sol = tuples
+    st = CSR.state_from_tuples(source, gi, sol.float(),
+                               residual=env.residual_mode("mvc"),
+                               candidate_fn=env.candidate_rule("mvc"))
+    rid = csr_row_ids(st.indptr, st.num_edges)
+    edge_w = csr_edge_factors(st.indices, st.edge_mask, rid, st.solution,
+                              st.residual)
+    b, n = st.solution.shape
+    k = TRAIN_CFG["embed_dim"]
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 25)
+    x = torch.rand((b, k, n), generator=g, device=DEVICE) - 0.5
+    args = (x, st.indices, st.indptr, edge_w)
+    scale = kc.csr_aggregate_plain(x.abs(), st.indices, rid, edge_w.abs())
+    exact = csr_exact(torch, x, st, edge_w)
+    terms = int((st.indptr[:, 1:] - st.indptr[:, :-1]).max())
+    shape = {"B": b, "K": k, "N": n, "E": st.num_edges,
+             "edges": int(st.indptr[:, -1].sum())}
+    for compute in ("f32", "bf16"):
+        out, route = call_routed(kc.csr_aggregate, *args, compute)
+        compare(torch, rows, failures, "csr_aggregate", "sampled_minibatch",
+                compute, out, kc.csr_aggregate_plain(x, st.indices, rid,
+                                                     edge_w, compute),
+                exact if compute == "f32" else None, terms,
+                {**shape, "route": route}, scale)
+        route_identity(torch, failures, "csr_aggregate", "sampled_minibatch",
+                       compute, kc.csr_aggregate, args, out, route)
+        if route != "rows":
+            failures.append(f"csr_aggregate sampled_minibatch {compute}: "
+                            f"the rule took the {route} walk, not rows")
+        del out
+    del st, rid, edge_w, x, scale, exact
+    torch.cuda.empty_cache()
+
+
+def phase_sampled_train(torch, indptr, indices, cs, gen_s, rows, failures):
+    """Neighbour-sampled training on the resident BA(1M, d=10) (ROADMAP
+    A5): ``SAMPLED_GRAPHS`` subgraphs drawn by ``NeighborSampler`` stacked
+    on the card as the CSR dataset; at TRAIN_CFG's full width, fresh
+    targets, ``SAMPLED_STEPS`` fused steps (``train_mode_run``: B5 9 and
+    its aggregate 8 launches a warm step, every one by the row walk, one
+    warm step under the sync debug mode, one profiled, the rest timed);
+    B5's aggregate on the first warm minibatch's state by both routes
+    (``check_sampled_aggregate``); ``train_agent`` for one 9-step episode;
+    then the resident graph solved with the trained policy (``phase_ba``,
+    ``cs`` its CSR batch on the card).  Returns the dataset and the
+    launches of B5 and its aggregate."""
+    from repro_torch.core import CSR, Agent, PolicyConfig, get_train_step
+    batch, shape = sampled_batch(torch, indptr, indices)
+    t0 = time.perf_counter()
+    source = CSR.prepare_dataset(batch, device=DEVICE)
+    build_s = time.perf_counter() - t0
+    nb, b = source.num_nodes, TRAIN_DATA[2]
+    cfg = PolicyConfig(**TRAIN_CFG)
+    agent = Agent(cfg, num_nodes=nb, device=DEVICE)
+    agent.target_mode = "fresh"
+    step = get_train_step(cfg, rep=CSR, tau=TRAIN_TAU, target_mode="fresh")
+    first = {}
+
+    def keep_first_warm(es):
+        mb = cfg.minibatch
+        first["tuples"] = (es.replay.graph_idx[:mb].clone(),
+                           es.replay.solution[:mb].clone())
+    torch.cuda.empty_cache()
+    row = train_mode_run(torch, agent, step, source, "fresh", SEED + 5,
+                         "csr", steps=SAMPLED_STEPS,
+                         data=(SAMPLED_GRAPHS, nb, b),
+                         warm_hook=keep_first_warm)
+    agent.step_count = row["step_count"]
+    launches = {"fused_s2v_layer_csr": sum(row["layer_launches"]),
+                "csr_aggregate": sum(row["aggregate_launches"])}
+    for kernel in ("layer_routes", "aggregate_routes"):
+        if row[kernel]["windows"]:
+            raise AssertionError(f"sampled_train: {kernel} {row[kernel]}: "
+                                 f"every launch must take the row walk")
+    profile = row.pop("profile")
+    emit({**row, "phase": "sampled_train", **shape,
+          "dataset_build_s": build_s, "episode_graphs": b, "tau": TRAIN_TAU,
+          **TRAIN_CFG,
+          "device_busy_share": profile["device_busy_share"],
+          "profile": profile})
+    check_sampled_aggregate(torch, source, first.pop("tuples"), rows,
+                            failures)
+    if failures:
+        raise AssertionError("a kernel disagrees at the sampled minibatch:\n"
+                             + "\n".join(failures))
+
+    torch.cuda.empty_cache()
+    log, counts, routes = agent_episode(agent, source, "csr", b, SEED + 3)
+    if any(routes[k]["windows"] for k in launches):
+        raise AssertionError(f"train_agent on the sampled dataset: routes "
+                             f"{routes}: every launch must take the row walk")
+    for k in launches:
+        launches[k] += counts[k]
+    emit({"phase": "sampled_train_agent", "steps": len(log.losses),
+          "losses": log.losses, "wall_s": log.wall_time,
+          "routes": {k: routes[k] for k in launches}})
+    torch.cuda.empty_cache()
+    launches["fused_s2v_layer_csr"] += phase_ba(
+        torch, agent.params, indptr, indices, cs, gen_s,
+        label="sampled_train_solve")
+    return source, launches
 
 
 # ---------------------------------------------------------------------------
@@ -3838,7 +4048,7 @@ def library_csr(torch, cs, edge_w):
 
 
 def layer_times(torch, fn, args, row):
-    """A layer's times on one case into ``row``: ``ms_f32`` and
+    """A routed kernel's times on one case into ``row``: ``ms_f32`` and
     ``ms_bf16`` by the route the rule picks (``route``) and, where the
     wrapper can be forced, each route's (``ms_<compute>_<route>``)."""
     _, route = call_routed(fn, *args, "f32")
@@ -4016,7 +4226,8 @@ def timing_sparse_aggregate(torch, case, label, spmm):
 
 def timing_csr_aggregate(torch, case, label, spmm):
     """B5's aggregate entry on a graph case (the wrapper, its node-major
-    copy of x included) at f32 and bf16, its plain version (row ids made
+    copy of x included) at f32 and bf16, by the route the rule picks and
+    by each route forced (``layer_times``), its plain version (row ids made
     outside the timing) and the library ``spmm``, which computes the f32
     function."""
     from repro_torch.core.graphs import csr_row_ids
@@ -4030,9 +4241,8 @@ def timing_csr_aggregate(torch, case, label, spmm):
         4 * (b * (n + 1) + 2 * b * k * n) + 8 * nnz, 2 * k * nnz)
     args = (x, cs.indices, cs.indptr, edge_w)
     rid = csr_row_ids(cs.indptr, cs.num_edges)
+    layer_times(torch, kc.csr_aggregate, args, row)
     for compute, plain in (("f32", "plain_ms"), ("bf16", "plain_ms_bf16")):
-        row[f"ms_{compute}"] = cuda_ms(
-            torch, lambda: kc.csr_aggregate(*args, compute))
         row[plain] = cuda_ms(torch, lambda: kc.csr_aggregate_plain(
             x, cs.indices, rid, edge_w, compute))
     row["library_ms"] = cuda_ms(torch, spmm)
@@ -4042,11 +4252,12 @@ def timing_csr_aggregate(torch, case, label, spmm):
 
 
 def phase_timing(torch, ks, dev, ba_cs,
-                 names=GRAPH_LAYERS + GRAPH_AGGREGATES):
+                 names=GRAPH_LAYERS + GRAPH_AGGREGATES, sampled=None):
     """Phase 5: device times beside the bound for the graph kernels among
     ``names``, at the serving shape (the kernels line) and at paper scale
-    (diagnostic lines), and BA(1M) for the CSR layer (``ba_cs``, when
-    given)."""
+    (diagnostic lines), BA(1M) for the CSR layer (``ba_cs``, when given)
+    and the sampled minibatch for the CSR aggregate (``sampled``, the 64
+    subgraphs of BA(1M), when given)."""
     rows = {}
     if "fused_s2v_layer" in names:
         rows["fused_s2v_layer"] = timing_dense(torch, ks, dev)
@@ -4071,6 +4282,9 @@ def phase_timing(torch, ks, dev, ba_cs,
                      {"max_row": int((ba_cs.indptr[:, 1:]
                                       - ba_cs.indptr[:, :-1]).max())},
                      names=("fused_s2v_layer_csr",))
+    if sampled is not None and "csr_aggregate" in names:
+        graph_timing(torch, ba_case(torch, dev, sampled, SEED + 3),
+                     "sampled_minibatch", names=("csr_aggregate",))
     return rows
 
 
@@ -4130,14 +4344,20 @@ def run_only(torch, ks, dev, names) -> None:
     """``--only``: the loop for work on the named kernels.  Phase 1's
     checks of those kernels with their gates (the graph kernels' on every
     graph case, the CSR layer's also on BA(1M), whose host generation runs
-    on a thread beside the checks), then their times, and for the sparse
-    and CSR layers the route sweep.  No served path, so it prints no
-    kernels line and no result line.  It calls only wrapper APIs that
-    checkouts before the windowed layers have, besides ``walk=`` where a
-    wrapper takes it, so it also times a parent checkout's kernels."""
+    on a thread beside the checks), then their times (the CSR aggregate's
+    also at the sampled minibatch, 64 subgraphs of BA(1M), both routes),
+    and for the sparse and CSR layers the route sweep.  No served path,
+    so it prints no kernels line and no result line.  It calls only
+    wrapper APIs that checkouts before the windowed layers have, besides
+    ``walk=`` where a wrapper takes it (and the sampler where the
+    checkout has one), so it also times a parent checkout's kernels."""
+    import repro_torch.core
     from repro_torch.core.graphs import csr_batch_from_arrays
-    ba_pool = ba_cs = None
-    if "fused_s2v_layer_csr" in names:
+    ba_pool = ba_cs = sampled = None
+    # the sampled minibatch needs the sampler, which older checkouts lack
+    sample = ("csr_aggregate" in names
+              and hasattr(repro_torch.core, "NeighborSampler"))
+    if "fused_s2v_layer_csr" in names or sample:
         ba_pool = concurrent.futures.ThreadPoolExecutor(1)
         ba_future = ba_pool.submit(ba_arrays)
     rows, failures = [], []
@@ -4153,15 +4373,19 @@ def run_only(torch, ks, dev, names) -> None:
         if ba_pool is not None:
             indptr, indices, _ = ba_future.result()
             ba_pool.shutdown()
-            ba_cs = csr_batch_from_arrays(indptr, indices, device=DEVICE)
+            if sample:
+                sampled, shape = sampled_batch(torch, indptr, indices)
+                emit({"phase": "sampled_minibatch", **shape})
+            if "fused_s2v_layer_csr" in names:
+                ba_cs = csr_batch_from_arrays(indptr, indices, device=DEVICE)
+                ba_kernel_check(torch, dev, ba_cs, rows, failures)
             del indptr, indices
-            ba_kernel_check(torch, dev, ba_cs, rows, failures)
     if failures:
         raise AssertionError("a kernel disagrees with its plain version, "
                              "f64 or another kernel:\n" + "\n".join(failures))
     with timed_phase("timing"):
-        phase_timing(torch, ks, dev, ba_cs, names)
-        del ba_cs
+        phase_timing(torch, ks, dev, ba_cs, names, sampled)
+        del ba_cs, sampled
         torch.cuda.empty_cache()
         if set(names) & set(ROUTED) and walks(ks.fused_s2v_layer_sparse):
             route_sweep(torch, dev)
@@ -4278,7 +4502,12 @@ def main(argv=None) -> int:
             raise AssertionError("a kernel disagrees with its plain "
                                  "version:\n" + "\n".join(failures))
         phase_ba(torch, policy, indptr, indices, ba_cs, gen_s)
+        with timed_phase("sampled_train"):
+            sampled, sampled_launches = phase_sampled_train(
+                torch, indptr, indices, ba_cs, gen_s, rows, failures)
         del indptr, indices
+    for name, count in sampled_launches.items():
+        launches[name] += count             # the sampled training
     max_err = {(name, compute): max(r["max_abs_err"] for r in rows
                                     if r["kernel"] == name
                                     and r["compute"] == compute)
@@ -4294,7 +4523,8 @@ def main(argv=None) -> int:
             phase_profile(torch, policy, batch, rep)
     del batch
     with timed_phase("timing"):
-        timing = phase_timing(torch, ks, dev, ba_cs)
+        timing = phase_timing(torch, ks, dev, ba_cs, sampled=sampled)
+    del sampled
     timing.update(lm_timing)
     emit({"phase": "total", "seconds": time.perf_counter() - t_all})
 

@@ -4,7 +4,8 @@ dense, padded-sparse and CSR graph representations, on one device or on
 a 2-D (data, graph) mesh of torch.distributed ranks; and training (Alg.
 5, compressed replay §4.4) on the three representations, on one device
 or on the mesh; the problem suite (MVC on the mesh too; MaxCut, MIS and
-MDS on one device) and its classical baselines (``solvers``)."""
+MDS on one device) and its classical baselines (``solvers``); and
+neighbour-sampled training on one resident CSR graph (``sampling``)."""
 from .graphs import (GraphState, SparseGraphBatch, SparseGraphState,
                      CsrGraphBatch, CsrGraphState, init_state,
                      residual_adjacency, residual_edge_mask,
@@ -29,6 +30,7 @@ from .replay import (ReplayBuffer, DeviceReplay, device_replay_init,
 from .engine import (EngineState, TrainDraws, draw_train_step, engine_init,
                      get_train_step, get_solve_step, sync_to_agent)
 from .training import train_agent, evaluate_quality, TrainLog
+from .sampling import NeighborSampler, SampledSubgraph
 from .inference import (solve, solve_with_config, adaptive_d, select_top_d,
                         apply_selection, init_solve_state, InferenceResult)
 from .mesh import (DATA, GRAPH, make_mesh, mesh_from_spec, mesh_shape,

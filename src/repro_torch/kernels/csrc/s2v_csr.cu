@@ -6,9 +6,10 @@
 //
 // with p(x, w) = fmaf into the f32 sum at f32, and the bf16 product
 // cd(cd(x) * cd(w)) added in f32 at bf16 (the composition rounds x*w to bf16
-// before its f32 segment-sum).  s2v_csr_aggregate writes agg itself: the
-// train step's backward of the layer recomputes agg and, for the symmetric
-// graphs the env builds, forms the input's gradient as one more aggregate
+// before its f32 segment-sum).  s2v_csr_aggregate (the windowed walk) and
+// s2v_csr_aggregate_rows (the row walk) write agg itself: the train step's
+// backward of the layer recomputes agg and, for the symmetric graphs the env
+// builds, forms the input's gradient as one more aggregate
 // (core/s2v_csr.py).  Column ids outside [0, N), the padding
 // sentinel N included, add nothing and are never read.  Edge slots past
 // indptr[b, N] are padding (sentinel id, zero factor); a row-parallel walk
@@ -34,9 +35,13 @@
 // - The row walk (csr_rows_kernel): one warp per row, x re-read from L2
 //   once per edge.  Nothing is held per graph, so it is the route where x
 //   is large next to the edges (BA(1M, d=10): windows would stream 1.0 TB
-//   of x, 7813 blocks of 128 MB, against 160 MB of edges).  A hub row is
-//   walked by one warp alone (BA(1M) has a row of degree 8975), so that
-//   row's chain of 32-edge steps bounds the kernel's time from below.
+//   of x, 7813 blocks of 128 MB, against 160 MB of edges; a minibatch of
+//   64 subgraphs sampled from it, N = 20,992: 28.2 GB of windows against
+//   21 MB of edge slots).  A hub row is walked by one warp alone (BA(1M)
+//   has a row of degree 8975), so that row's chain of 32-edge steps bounds
+//   the kernel's time from below.  The aggregate takes the same walk with
+//   the LAYER flag off: the same chain, acc stored with no theta4 product,
+//   base or relu, so the aggregate's two routes give the same bits too.
 // - The windowed walk (s2v_window.cuh, shared with s2v_gather.cu): 128
 //   rows a block, 8 lanes a row, the graph's x streamed through 96 KB
 //   shared-memory windows once per block, each row walked in 32-edge
@@ -52,7 +57,9 @@ namespace {
 
 using namespace s2v_rows;
 
-template <bool BF16>
+// LAYER: relu(base + theta4 @ agg); otherwise agg itself (theta4 and base
+// are not read and may be null).
+template <bool BF16, bool LAYER>
 __global__ void __launch_bounds__(THREADS)
 csr_rows_kernel(const float* __restrict__ theta4,
                 const float* __restrict__ xt,       // (B, N, K)
@@ -67,7 +74,7 @@ csr_rows_kernel(const float* __restrict__ theta4,
   const int b = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int i0 = blockIdx.x * WARPS, i = i0 + warp;
-  load_theta4<BF16>(t4T, theta4, K);
+  if (LAYER) load_theta4<BF16>(t4T, theta4, K);
   __syncthreads();
 
   float acc = 0.f;
@@ -107,9 +114,28 @@ csr_rows_kernel(const float* __restrict__ theta4,
       }
     }
   }
-  stage[lane][warp] = theta4_product<BF16>(t4T, acc, K, lane);
+  stage[lane][warp] = LAYER ? theta4_product<BF16>(t4T, acc, K, lane) : acc;
   __syncthreads();
-  store_tile(stage, base, out, b, K, N, i0);
+  store_tile(stage, LAYER ? base : nullptr, out, b, K, N, i0);
+}
+
+// The row walk's launch, shared by the layer and the aggregate entries.
+template <bool LAYER>
+int launch_rows(const float* theta4, const float* xt, const int* indptr,
+                const int* indices, const float* edge_w, const float* base,
+                float* out, int B, int K, int N, int E, int bf16,
+                void* stream) {
+  if (B < 1 || B > 65535 || K < 1 || K > 32 || N < 1 || E < 1)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + WARPS - 1) / WARPS, B);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    csr_rows_kernel<true, LAYER><<<grid, THREADS, 0, s>>>(
+        theta4, xt, indptr, indices, edge_w, base, out, K, N, E);
+  else
+    csr_rows_kernel<false, LAYER><<<grid, THREADS, 0, s>>>(
+        theta4, xt, indptr, indices, edge_w, base, out, K, N, E);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -123,17 +149,8 @@ extern "C" int s2v_csr_layer(const float* theta4, const float* xt,
                              const float* edge_w, const float* base,
                              float* out, int B, int K, int N, int E, int bf16,
                              void* stream) {
-  if (B < 1 || B > 65535 || K < 1 || K > 32 || N < 1 || E < 1)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + WARPS - 1) / WARPS, B);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    csr_rows_kernel<true><<<grid, THREADS, 0, s>>>(
-        theta4, xt, indptr, indices, edge_w, base, out, K, N, E);
-  else
-    csr_rows_kernel<false><<<grid, THREADS, 0, s>>>(
-        theta4, xt, indptr, indices, edge_w, base, out, K, N, E);
-  return (int)cudaGetLastError();
+  return launch_rows<true>(theta4, xt, indptr, indices, edge_w, base, out, B,
+                           K, N, E, bf16, stream);
 }
 
 // The layer by the windowed walk.  As s2v_csr_layer, but xt (B, N, KP) with
@@ -175,4 +192,15 @@ extern "C" int s2v_csr_aggregate(const float* xt, const int* indptr,
   return (int)(bf16
       ? s2v_window::launch<s2v_window::CSR, true, false>(p, B, s)
       : s2v_window::launch<s2v_window::CSR, false, false>(p, B, s));
+}
+
+// The aggregate by the row walk: out (B, K, N) = agg, the f32 sums, with xt,
+// indptr, indices and edge_w as for s2v_csr_layer.  bf16 != 0 sums the bf16
+// products, as the layer does.  Returns cudaGetLastError().
+extern "C" int s2v_csr_aggregate_rows(const float* xt, const int* indptr,
+                                      const int* indices, const float* edge_w,
+                                      float* out, int B, int K, int N, int E,
+                                      int bf16, void* stream) {
+  return launch_rows<false>(nullptr, xt, indptr, indices, edge_w, nullptr,
+                            out, B, K, N, E, bf16, stream);
 }

@@ -14,10 +14,10 @@ the sentinel id N and a zero factor, and add nothing either way.
 hand-written kernel (``csrc/s2v_csr.cu``: a row walk or a windowed walk,
 the same bits, one chosen per launch from the shapes, ``walk.py``) on CUDA
 tensors, counting launches in ``fused_s2v_layer_csr.launches``.
-:func:`csr_aggregate` is the same kernel's aggregate entry (the windowed
-walk, no θ4 epilogue) beside :func:`csr_aggregate_plain`, counting in
-``csr_aggregate.launches``: the CSR layer's backward
-(``core/s2v_csr.py``) runs it twice.
+:func:`csr_aggregate` is the same kernel's aggregate entry (either walk,
+routed as the layer is, no θ4 epilogue) beside :func:`csr_aggregate_plain`,
+counting in ``csr_aggregate.launches`` and ``.routes``: the CSR layer's
+backward (``core/s2v_csr.py``) runs it twice.
 ``compute="bf16"`` rounds x, the factors and θ4 to bf16, rounds each
 product x·w to bf16 before the f32 segment-sum, and rounds the f32
 aggregate once before θ4, as the JAX composition does
@@ -114,14 +114,19 @@ def _check_inputs(theta4, x, indices, indptr, edge_w, base) -> None:
 
 def csr_aggregate(x: torch.Tensor, indices: torch.Tensor,
                   indptr: torch.Tensor, edge_w: torch.Tensor,
-                  compute: str = "f32") -> torch.Tensor:
+                  compute: str = "f32", *,
+                  walk: Optional[str] = None) -> torch.Tensor:
     """The CSR aggregate in one launch: (B, K, N) float32 row sums of the
     weighted edge columns of x, with the inputs of
     :func:`fused_s2v_layer_csr`.  CPU tensors take
-    :func:`csr_aggregate_plain` (over the row ids of ``indptr``); CUDA
-    tensors launch the windowed walk on the current stream, reading a
-    node-major copy of x."""
+    :func:`csr_aggregate_plain` (over the row ids of ``indptr``), whatever
+    ``walk`` says; CUDA tensors launch the kernel on the current stream,
+    reading a node-major copy of x, by the route the layer would take at
+    these shapes (:func:`walk.walk_route`; the same bits either way), or by
+    ``walk`` where given.  The launch is counted in
+    ``csr_aggregate.launches`` and in ``.routes`` by route."""
     check_compute(compute)
+    check_walk(walk)
     _check_inputs(None, x, indices, indptr, edge_w, None)
     if on_cpu(indices, "csr_aggregate"):
         from ..core.graphs import csr_row_ids
@@ -129,19 +134,31 @@ def csr_aggregate(x: torch.Tensor, indices: torch.Tensor,
                                    csr_row_ids(indptr, indices.shape[1]),
                                    edge_w, compute)
     b, k, n = x.shape
-    xt = padded_node_major(x)
-    indices, edge_w = aligned(indices), aligned(edge_w)
+    e = indices.shape[1]
+    route = walk or walk_route(b, k, n, n, b * e)
     out = torch.empty((b, k, n), dtype=torch.float32, device=x.device)
-    launch("s2v_csr", "s2v_csr_aggregate",
-           [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6, x.device,
-           xt.data_ptr(), indptr.data_ptr(), indices.data_ptr(),
-           edge_w.data_ptr(), out.data_ptr(), b, k, xt.shape[2], n,
-           indices.shape[1], int(compute == "bf16"))
+    if route == "rows":
+        xt = node_major(x)
+        launch("s2v_csr", "s2v_csr_aggregate_rows",
+               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5, x.device,
+               xt.data_ptr(), indptr.data_ptr(), indices.data_ptr(),
+               edge_w.data_ptr(), out.data_ptr(), b, k, n, e,
+               int(compute == "bf16"))
+    else:
+        xt = padded_node_major(x)
+        indices, edge_w = aligned(indices), aligned(edge_w)
+        launch("s2v_csr", "s2v_csr_aggregate",
+               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6, x.device,
+               xt.data_ptr(), indptr.data_ptr(), indices.data_ptr(),
+               edge_w.data_ptr(), out.data_ptr(), b, k, xt.shape[2], n, e,
+               int(compute == "bf16"))
     csr_aggregate.launches += 1
+    csr_aggregate.routes[route] += 1
     return out
 
 
 csr_aggregate.launches = 0
+csr_aggregate.routes = dict.fromkeys(WALKS, 0)
 
 
 def fused_s2v_layer_csr(theta4: torch.Tensor, x: torch.Tensor,

@@ -1,9 +1,10 @@
 """The route of the padded-sparse and CSR layers (``fused_s2v_layer_sparse``,
-``fused_s2v_layer_csr``) on the card: the row walk or the windowed walk.
+``fused_s2v_layer_csr``) and of the CSR aggregate (``csr_aggregate``) on
+the card: the row walk or the windowed walk.
 
 Both routes are hand-written kernels that sum each output as one fmaf
-chain in slot order, with the same θ4 epilogue, so they give the same
-bits (``csrc/s2v_gather.cu``, ``csrc/s2v_csr.cu``).  The windowed walk
+chain in slot order, with the same θ4 epilogue (none for the aggregate),
+so they give the same bits (``csrc/s2v_gather.cu``, ``csrc/s2v_csr.cu``).  The windowed walk
 (``csrc/s2v_window.cuh``) streams the whole graph's x through every block
 of 128 output nodes; the row walk reads x once per slot from L2 and
 nothing per block.  So the windowed walk pays only where x is small next

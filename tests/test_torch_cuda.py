@@ -892,3 +892,45 @@ def test_walks_give_relu_base_on_isolated_padding_nodes_on_the_card(cuda):
             out = _both_walks(fn, args, compute)
             assert torch.equal(out[:, :, -iso:],
                                torch.relu(args[-1][:, :, -iso:]))
+
+
+@pytest.mark.parametrize("compute", ["f32", "bf16"])
+def test_csr_aggregate_walks_agree_on_a_sampled_batch_on_the_card(cuda,
+                                                                   compute):
+    """B5's aggregate entry by the row walk and the windowed walk, bit for
+    bit, on 8 subgraphs that ``NeighborSampler`` draws from BA(20000,
+    d=10) with 64 seeds and fanouts (8, 4) (node budget 2624, edge budget
+    5120; padding nodes and slots with poisoned factors), with the residual
+    factors of a random 10% partial solution; each route within
+    ``_assert_close_by_terms`` of the plain version, and 0 on the padding
+    nodes.  The rule picks the row walk there, and counts it."""
+    from repro_torch.core import NeighborSampler
+    from repro_torch.core.graphs import (barabasi_albert_edges,
+                                         csr_from_edges,
+                                         csr_residual_edge_mask)
+    n = 20_000
+    indptr, indices = csr_from_edges(n, *barabasi_albert_edges(n, 10,
+                                                               seed=3))
+    s = NeighborSampler(indptr, indices, batch_size=64, fanouts=(8, 4),
+                        seed=1)
+    cs, maps = s.training_batch(8, device=cuda)
+    b, nb = cs.batch, cs.num_nodes
+    g = torch.Generator(device=cuda).manual_seed(5)
+    sol = (torch.rand((b, nb), generator=g, device=cuda) < 0.1).float()
+    edge_w = csr_residual_edge_mask(cs.indices, cs.edge_mask,
+                                    csr_row_ids(cs.indptr, cs.num_edges),
+                                    sol)
+    edge_w[~cs.edge_mask] = 5.0
+    x = torch.relu(torch.rand((b, 32, nb), generator=g, device=cuda) - 0.5)
+    args = (x, cs.indices, cs.indptr, edge_w)
+
+    def plain(x, indices, indptr, edge_w, compute):
+        return kc.csr_aggregate_plain(x, indices, csr_row_ids(
+            indptr, indices.shape[1]), edge_w, compute)
+    routes = dict(kc.csr_aggregate.routes)
+    out = kc.csr_aggregate(*args, compute)
+    assert kc.csr_aggregate.routes["rows"] == routes["rows"] + 1
+    assert torch.equal(_both_walks(kc.csr_aggregate, args, compute), out)
+    _assert_close_by_terms(out, plain, args, compute)
+    padding = torch.from_numpy(maps < 0).to(cuda)
+    assert padding.any() and not out.transpose(1, 2)[padding].any()

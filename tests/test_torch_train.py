@@ -342,20 +342,31 @@ def test_train_minibatch_matches_jax(kernel):
 
 def _lockstep(target_mode, eps, steps=8, n=14, b=2, mb=8, tau=2,
               explore=True, rep="dense", problem="mvc", gi=(0, 2),
-              compute="f32"):
+              compute="f32", source=None):
     """JAX's fused step and the port's, stepped together on
     tests/test_engine.py's graphs and sizes with JAX's weights, on the
     representation ``rep`` and ``problem`` (its residual mode and
     candidate rule re-materialize the episode's states); each port step
     gets JAX's draws of that step (JAX's key schedule,
-    repro/core/engine.py).  Returns the two loss traces, the action traces
-    and the count of rows whose roll explored, then both policies."""
+    repro/core/engine.py).  ``source``, where given, is the dataset in
+    place of those graphs: a pair of CSR batches (JAX's, the port's on the
+    CPU) of the same graphs, whose node count replaces ``n``.  Returns the
+    two loss traces, the action traces and the count of rows whose roll
+    explored, then both policies."""
     kw = dict(embed_dim=8, num_layers=2, minibatch=mb, replay_capacity=64,
               learning_rate=1e-3, eps_start=eps, eps_end=eps,
               compute=compute)
     jcfg, cfg = _cfgs(**kw)
     params, policy = _pair(jcfg)
-    adj = random_graph_batch("er", n, 4, seed=0, rho=0.3)
+    jrep, prep = jax_get_rep(rep), get_rep(rep)
+    if source is None:
+        adj = random_graph_batch("er", n, 4, seed=0, rho=0.3)
+        jsource = jrep.prepare_dataset(adj)
+        source = prep.prepare_dataset(adj, device="cpu")
+    else:
+        jsource, source = source[0], prep.prepare_dataset(source[1],
+                                                          device="cpu")
+        n = source.num_nodes
     gi = np.array(gi)
     zero = np.zeros((b, n), np.float32)
     from repro.core import env as jax_env
@@ -365,17 +376,14 @@ def _lockstep(target_mode, eps, steps=8, n=14, b=2, mb=8, tau=2,
     pkw = dict(residual=port_env.residual_mode(problem),
                candidate_fn=port_env.candidate_rule(problem))
 
-    jrep, prep = jax_get_rep(rep), get_rep(rep)
     jstep = jax_get_train_step(jcfg, rep=jrep, problem=problem, tau=tau,
                                target_mode=target_mode, explore=explore)
     jes = jax_engine_init(jcfg, params, jax_adam_init(params), n, seed=0)
-    jsource = jrep.prepare_dataset(adj)
     jstate = jrep.state_from_tuples(jsource, gi, zero, **jkw)
 
     step = get_train_step(cfg, rep=prep, problem=problem, tau=tau,
                           target_mode=target_mode, explore=explore)
     es = engine_init(cfg, policy, adam_init(policy), n)
-    source = prep.prepare_dataset(adj, device="cpu")
     gi_t = torch.from_numpy(gi)
     state = prep.state_from_tuples(source, gi_t, zero, **pkw)
 

@@ -1,5 +1,5 @@
-"""The route of the sparse and CSR layers on the card (the row walk or the
-windowed walk), chosen from the shapes alone by
+"""The route of the sparse and CSR layers and of the CSR aggregate on the
+card (the row walk or the windowed walk), chosen from the shapes alone by
 ``repro_torch.kernels.walk.walk_route``; the wrappers' ``walk=`` keyword
 on CPU tensors; and ``chip_smoke.py``'s argument parsing and its reading
 of an allocator trace (its top level imports only the standard library
@@ -50,6 +50,29 @@ def test_walk_route_at_the_main_path_shapes(case, b, k, n, nl, slots, want):
     assert walk_route(b, k, n, nl, slots) == want
 
 
+# (case, B, K, N, E, expected route) of B5's aggregate entry in the CSR
+# backward: a minibatch of 64 subgraphs sampled from BA(1M, d=10) by 512
+# seeds and fanouts (8, 4) (node budget 20,992, edge budget 40,960), the
+# training cell (64 ER(4096, 0.15) states of ~2.52M slots) and the
+# paper-scale step (64 copies of ER(20480, 0.15), 62.9M slots)
+AGGREGATE_ROUTES = [
+    ("sampled_minibatch", 64, 32, 20_992, 40_960, "rows"),
+    ("train_minibatch", 64, 32, 4096, 2_520_000, "windows"),
+    ("paper_minibatch", 64, 32, 20480, 62_914_560, "windows"),
+]
+
+
+@pytest.mark.parametrize("case,b,k,n,e,want", AGGREGATE_ROUTES,
+                         ids=[r[0] for r in AGGREGATE_ROUTES])
+def test_aggregate_route_at_the_train_shapes(case, b, k, n, e, want):
+    """csr_aggregate routes as the layer does: walk_route(B, K, N, N,
+    B·E).  At the sampled minibatch the windows would stream 28.2 GB
+    against 21 MB of slots."""
+    assert walk_route(b, k, n, n, b * e) == want
+    if case == "sampled_minibatch":
+        assert window_bytes(b, k, n, n) == 64 * 164 * 20_992 * 128
+
+
 def test_window_bytes_count_every_block_reading_its_graph():
     # the serving bucket: 256 blocks of 128 nodes, each 4096 x 32 floats
     assert window_bytes(8, 32, 4096, 4096) == 256 * 4096 * 32 * 4
@@ -95,14 +118,30 @@ def _csr_args(seed=0, b=2, k=5, n=9):
                 np.float32))]
 
 
-LAYERS = [("sparse", ks.fused_s2v_layer_sparse,
+def _csr_aggregate_args(seed=0):
+    """The CSR aggregate's inputs: x, indices, indptr, edge_w."""
+    return _csr_args(seed)[1:5]
+
+
+def _csr_aggregate_plain(x, indices, indptr, edge_w, compute):
+    from repro_torch.core.graphs import csr_row_ids
+    return kc.csr_aggregate_plain(x, indices,
+                                  csr_row_ids(indptr, indices.shape[1]),
+                                  edge_w, compute)
+
+
+# the wrappers that take ``walk=``: the sparse and CSR layers and B5's
+# aggregate entry
+ROUTED = [("sparse", ks.fused_s2v_layer_sparse,
            ks.fused_s2v_layer_sparse_plain, _sparse_args),
           ("csr", kc.fused_s2v_layer_csr, kc.fused_s2v_layer_csr_plain,
-           _csr_args)]
+           _csr_args),
+          ("csr_aggregate", kc.csr_aggregate, _csr_aggregate_plain,
+           _csr_aggregate_args)]
 
 
-@pytest.mark.parametrize("name,fn,plain,make", LAYERS,
-                         ids=[layer[0] for layer in LAYERS])
+@pytest.mark.parametrize("name,fn,plain,make", ROUTED,
+                         ids=[r[0] for r in ROUTED])
 @pytest.mark.parametrize("walk", [None, "rows", "windows"])
 @pytest.mark.parametrize("compute", ["f32", "bf16"])
 def test_cpu_tensors_take_the_plain_version_whatever_the_walk(
@@ -115,16 +154,16 @@ def test_cpu_tensors_take_the_plain_version_whatever_the_walk(
     assert fn.launches == launches and fn.routes == routes
 
 
-@pytest.mark.parametrize("name,fn,plain,make", LAYERS,
-                         ids=[layer[0] for layer in LAYERS])
+@pytest.mark.parametrize("name,fn,plain,make", ROUTED,
+                         ids=[r[0] for r in ROUTED])
 @pytest.mark.parametrize("walk", ["diagonal", "Rows", "", 1])
 def test_unknown_walks_are_refused_on_any_device(name, fn, plain, make, walk):
     with pytest.raises(ValueError, match="unknown walk"):
         fn(*make(), "f32", walk=walk)
 
 
-@pytest.mark.parametrize("name,fn,plain,make", LAYERS,
-                         ids=[layer[0] for layer in LAYERS])
+@pytest.mark.parametrize("name,fn,plain,make", ROUTED,
+                         ids=[r[0] for r in ROUTED])
 def test_walk_is_keyword_only(name, fn, plain, make):
     with pytest.raises(TypeError):
         fn(*make(), "f32", "rows")
