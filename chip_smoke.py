@@ -84,6 +84,35 @@ Phases (any failed check raises, so the script exits non-zero):
    ``train_agent`` for one 9-step episode (bf16 on sparse and CSR); (d)
    the dense trained policy saved, loaded and serving the stream's 16
    graphs, every answer a cover.
+3b'. The host engines (phase host_engines, ROADMAP A6a): (a) on a full
+   bucket (8 graphs of 4000 nodes at 4096) on each rep,
+   ``solve(engine="host")``, the per-evaluation loop, equal to the fused
+   solve bit for bit (solutions, evaluations, commits), the rep's layer
+   kernel once an evaluation, and on dense a counting ``step_fn`` with
+   the default engine taking the same loop, one call an evaluation;
+   seconds an evaluation of each; (b) ``train_agent(engine="host")`` at
+   phase 3b's cell on its dataset, 13 steps, fresh on each rep and stored
+   on dense, each agent building its host replay of 50,000 tuples (the
+   resident growth printed and held under a twentieth of the ring's
+   bytes): the layer and aggregate launches of each warm step equal to
+   the fused step's (9 and 8 fresh, 6 and 8 stored), NaN losses before
+   warm and finite after, ``step_count`` the warm steps; seconds a warm
+   step beside the fused step's and the synchronizing calls on the main
+   thread a warm step, by line (``main_thread_syncs`` in "warn" mode,
+   with a control read counted once); (c) at tests/test_engine.py's shape
+   on each rep, the host loop on the card against the port's on the CPU
+   (fresh, epsilon 0.5: the same replay, losses within 1e-6 relative)
+   and the host loop fed the fused step's replay indices against the
+   fused step (stored, epsilon 0: losses and parameters within rtol 1e-5
+   / atol 1e-6); (d) open-loop load (``serving.loadgen``) on the dense
+   service: 32 graphs of the served sizes, a deadline of twice phase 2's
+   dense p99, at half and twice its requests/s, sync and async, each on
+   a fresh warmed service: every request accounted for, no first
+   dispatch on the request path, the layer once an evaluation, every
+   answer a cover and equal to ``serve()``'s; each ``LoadReport``
+   printed; (e) ``python -m repro_torch.launch.solve_serve --mode async
+   --rate 50 --requests 24 --warmup`` in its own process prints its
+   report line.
 3c. MaxCut, MIS and MDS on one device (phase problems), on each rep:
    (a) a warmed service at phase 2's settings serves two graphs of each
    served size (a full 4000-node bucket among them): every answer passes
@@ -171,7 +200,11 @@ Phases (any failed check raises, so the script exits non-zero):
    aggregate by the row walk against the windowed walk forced, bit for
    bit, and against its plain version (f32 and bf16); ``train_agent`` for
    one 9-step episode, every launch by the row walk; then the resident
-   BA(1M) solved with the trained policy (max_d=62500), a cover.  Then
+   BA(1M) solved with the trained policy (max_d=62500), a cover; then
+   ``train_agent(engine="host")`` for one 9-step episode on that dataset
+   (phase sampled_host_train, its agent's host replay at N = 20,992): B5
+   9 and its aggregate 8 launches a warm step, every one by the row
+   walk, finite warm losses.  Then
    the sparse "xla" chain on a full 4096-node bucket, whose aggregation
    kernel must run twice per evaluation.
 7. Where an evaluation's time goes (torch.profiler over 20 evaluations of
@@ -188,8 +221,9 @@ nvidia-smi name and power limit, one ``{"kernels": [...]}`` line (the eight
 kernels, B5's aggregate entry, and the two aggregates at bf16; the
 launches of B2–B5 include the full-width mesh train runs' and the mesh
 solves of every problem, those of B1 and B3–B5 the problems phase's
-served and full-width runs, those of B5 and its aggregate the sampled
-training's steps, episode and resident solve), and last
+served and full-width runs and the host engines' solves, host training
+runs and open-loop load, those of B5 and its aggregate the sampled
+training's steps, episode, host episode and resident solve), and last
 ``{"ok": true, "device": {...}}``.  It exits non-zero without a CUDA
 device, and outside a checkout.  With ``--only <kernel>,...`` (names of
 the kernels line) it runs only the build, phase 1's checks of those
@@ -283,6 +317,19 @@ SAMPLED_STEPS = 13
 # tests/test_engine.py's train configuration: nodes, dataset graphs,
 # episode graphs, minibatch, tau, steps; stored targets, epsilon 0
 SMALL_TRAIN = (14, 4, 2, 8, 2, 8)
+# The host engines (phase host_engines, ROADMAP A6a).  The per-evaluation
+# solve on a full bucket per rep; the host training loop at phase 3b's
+# cell (TRAIN_CFG, TRAIN_TAU, TRAIN_DATA), fresh on each rep and stored
+# on dense, 13 steps (index 7 the first warm one, 9-12 timed), and on the
+# sampled dataset one 9-step episode; open-loop load on the dense service:
+# 32 requests of the served sizes at half and twice phase 2's dense
+# requests/s, a deadline of twice its p99, both drive modes; the
+# launcher's --rate
+HOST_STEPS, HOST_TIMED_FROM = 13, 9
+HOST_EPS = 0.5                   # the small card-vs-CPU host run's epsilon
+OPEN_LOOP_REQUESTS, OPEN_LOOP_RATES = 32, (0.5, 2.0)
+LAUNCHER_RATE = ("--mode", "async", "--rate", "50", "--requests", "24",
+                 "--warmup")
 # The problems phase (3c): MaxCut, MIS and MDS.  Served: two graphs of each
 # served size, the first of the stream (a full 4000-node bucket among
 # them).  Small lockstep: tests/test_problem_suite.py's train smoke (n=14,
@@ -1444,7 +1491,8 @@ REP_KERNEL = {"dense": "fused_s2v_layer", "sparse": "fused_s2v_layer_sparse",
 
 def phase_serve(torch, policy, cfg, adjs, rep, dense=None):
     """Phase 2: served requests through GraphSolverService on the card, on
-    one representation.  Returns (kernel launches, responses)."""
+    one representation.  Returns (kernel launches, responses, the row it
+    prints)."""
     svc = make_service(policy, cfg, rep)
     warm = svc.warmup(list(SERVE_SIZES))
     reset_counts()
@@ -1489,7 +1537,7 @@ def phase_serve(torch, policy, cfg, adjs, rep, dense=None):
             bool(np.array_equal(r.solution, d.solution))
             for r, d in zip(responses, dense))
     emit(row)
-    return launches, responses
+    return launches, responses, row
 
 
 def phase_card_vs_cpu(torch, policy, problem="mvc"):
@@ -2055,7 +2103,8 @@ def phase_train(torch, policy, adjs, rows, failures):
     one short episode (f32 on dense, bf16 on sparse and CSR), (d) the dense
     trained policy saved, loaded and serving the served stream's graphs,
     every answer a cover.  Returns each kernel's launches in (c) (the
-    aggregates' at f32) and the aggregates' in the bf16 episodes."""
+    aggregates' at f32), the aggregates' in the bf16 episodes, the median
+    warm step seconds by (rep, mode) and the train dataset."""
     import dataclasses
     import tempfile
     from repro_torch.checkpoint import load_policy, save_policy
@@ -2072,6 +2121,7 @@ def phase_train(torch, policy, adjs, rows, failures):
     gen_s = time.perf_counter() - t0
     tcfg = PolicyConfig(**TRAIN_CFG)
     main, bf16, dense_agent = dict.fromkeys(REPLACES, 0), {}, None
+    fused_s = {}
     for rep in TRAIN_REPS:
         torch.cuda.empty_cache()
         agent = Agent(tcfg, num_nodes=n, device=DEVICE)
@@ -2096,6 +2146,7 @@ def phase_train(torch, policy, adjs, rows, failures):
                 main[row["aggregate_kernel"]] += sum(
                     row["aggregate_launches"])
             agent.step_count = row["step_count"]     # the epsilon schedule
+            fused_s[rep, mode] = row["median_warm_step_s"]
             emit({**row, "dataset": [g, n], "episode_graphs": b,
                   "tau": TRAIN_TAU, **TRAIN_CFG, "generate_s": gen_s,
                   "dataset_build_s": build_s})
@@ -2120,7 +2171,6 @@ def phase_train(torch, policy, adjs, rows, failures):
         if rep == "dense":
             agent.cfg = tcfg
             dense_agent = agent
-    del data
 
     with tempfile.TemporaryDirectory() as d:
         save_policy(d, dense_agent.step_count, dense_agent.params)
@@ -2139,7 +2189,488 @@ def phase_train(torch, policy, adjs, rows, failures):
     emit({"phase": "train_then_solve", "requests": len(adjs),
           "wall_s": time.perf_counter() - t0,
           "cover_sizes": [r.size for r in responses]})
-    return main, bf16
+    return main, bf16, fused_s, data
+
+
+# ---------------------------------------------------------------------------
+# The host engines (ROADMAP A6a): the per-evaluation solve, the host
+# training loop, open-loop load.
+# ---------------------------------------------------------------------------
+
+def add_counts(total: dict, counts: dict) -> None:
+    for name, count in counts.items():
+        total[name] = total.get(name, 0) + count
+
+
+def rss_bytes() -> int:
+    """This process's resident bytes (Linux ``/proc``)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def host_replay_agent(cfg, n, **kw):
+    """An ``Agent`` on the card whose ``__post_init__`` builds its host
+    replay, and what that costs: the ring's bytes and the process's
+    resident growth, which must stay under a twentieth of them (numpy's
+    zeros are calloc-backed, so an untouched ring takes no pages)."""
+    from repro_torch.core import Agent
+    before = rss_bytes()
+    agent = Agent(cfg, num_nodes=n, device=DEVICE, **kw)
+    grown = rss_bytes() - before
+    ring = agent.replay.nbytes()
+    if grown > ring // 20:
+        raise AssertionError(f"an Agent's host replay of {ring} bytes grew "
+                             f"the resident set by {grown} bytes")
+    return agent, {"replay_bytes": ring, "resident_growth_bytes": grown}
+
+
+def phase_host_solve(torch, policy):
+    """(a) The per-evaluation solve on a full bucket (8 graphs of 4000
+    nodes at 4096) on each rep: ``solve(engine="host")`` equal to the
+    fused solve bit for bit (solutions, evaluations, commits), every
+    answer a cover, the rep's layer kernel once an evaluation; on dense a
+    counting ``step_fn`` with the default engine takes the same loop, one
+    call an evaluation.  Prints seconds an evaluation of both engines.
+    Returns the launches."""
+    from repro_torch.core import solve, solve_step
+    batch = bucket_batch()
+    launches = {}
+    for rep in ("dense", "sparse", "csr"):
+        r = bucket_rep(rep)
+        layer = REP_KERNEL[rep]
+        kw = dict(num_layers=2, multi_node=True, rep=r, device=DEVICE)
+        calls = []
+        step = solve_step(rep=r, num_layers=2, use_adaptive=True)
+
+        def counting(p, st):
+            calls.append(1)
+            return step(p, st)
+        runs = {}
+        for name, extra in (("device", {}), ("host", {"engine": "host"}),
+                            ("step_fn", {"step_fn": counting})):
+            if name == "step_fn" and rep != "dense":
+                continue
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = solve(policy, batch, **kw, **extra)
+            runs[name] = (res, time.perf_counter() - t0)
+            counts = read_counts()
+            add_counts(launches, counts)
+            if counts[layer] != res.policy_evals:
+                raise AssertionError(f"{name} solve on {rep}: {layer} "
+                                     f"launched {counts[layer]} times for "
+                                     f"{res.policy_evals} evaluations")
+        fused = runs["device"][0]
+        for name, (res, _) in runs.items():
+            if not (np.array_equal(res.solution, fused.solution)
+                    and res.policy_evals == fused.policy_evals
+                    and np.array_equal(res.nodes_committed,
+                                       fused.nodes_committed)):
+                raise AssertionError(f"{name} solve on {rep} differs from "
+                                     f"the fused solve: {res.policy_evals} "
+                                     f"vs {fused.policy_evals} evaluations")
+        if calls and len(calls) != fused.policy_evals:
+            raise AssertionError(f"step_fn called {len(calls)} times for "
+                                 f"{fused.policy_evals} evaluations")
+        for g in range(batch.shape[0]):
+            if not is_cover(batch[g], fused.solution[g]):
+                raise AssertionError(f"{rep} solve of graph {g}: no cover")
+        emit({"phase": "host_solve", "rep": rep, "B": batch.shape[0],
+              "N": batch.shape[1], "policy_evals": fused.policy_evals,
+              "step_fn_calls": len(calls) or None,
+              **{f"{name}_s_per_eval": t / res.policy_evals
+                 for name, (res, t) in runs.items()},
+              "cover_sizes": fused.sizes.tolist()})
+    return launches
+
+
+def host_train_run(torch, agent, data, rep, mode, seed, fused_s=None,
+                   steps=HOST_STEPS, timed_from=HOST_TIMED_FROM, b=None):
+    """(b) ``train_agent(engine="host")`` on ``data`` at full width for
+    ``steps`` steps of one episode, the rep's layer kernel (and on sparse
+    and CSR the aggregate) counted each step through ``eval_fn`` at every
+    step: 1 + 2 tau and 2 tau a warm fresh step, 2 + tau and 2 tau a warm
+    stored one, as the fused step; NaN losses before the replay is warm,
+    finite after; ``step_count`` advanced by the warm steps; the seconds
+    of the steps from ``timed_from`` and the synchronizing calls on this
+    thread a warm step (``main_thread_syncs``, with their lines), beside
+    the fused step's seconds ``fused_s``.  Returns the launches, and those
+    of the layer and the aggregate by route."""
+    from repro_torch.core import train_agent
+    b = TRAIN_DATA[2] if b is None else b
+    layer, agg = REP_KERNEL[rep], REP_AGGREGATE.get(rep)
+    routes = {k: dict.fromkeys(WALKS, 0) for k in (layer, agg)
+              if k in read_routes()}
+    agent.target_mode = mode
+    count0, marks = agent.step_count, []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with main_thread_syncs(torch) as syncs:
+        torch.cuda.synchronize()
+        counted = len(syncs())       # whether synchronize() itself counts
+
+        def mark(_agent):
+            where = syncs(where=True)
+            torch.cuda.synchronize()
+            marks.append((time.perf_counter(), read_counts(), where))
+            for kernel, by_route in read_routes().items():
+                if kernel in routes:
+                    for route, count in by_route.items():
+                        routes[kernel][route] += count
+            reset_counts()
+            return 0.0
+        reset_counts()
+        log = train_agent(agent, data, rep=rep, episodes=1, max_steps=steps,
+                          tau=TRAIN_TAU, batch_graphs=b, seed=seed,
+                          engine="host", eval_every=1, eval_fn=mark)
+        before = len(syncs())
+        float(torch.ones(1, device=DEVICE).sum())      # the control read
+        control = len(syncs()) - before
+    if control != 1:
+        raise AssertionError(f"the control read was counted {control} times")
+    warm_from = agent.cfg.minibatch // b - 1
+    want = {"fresh": (1, 1 + 2 * TRAIN_TAU),
+            "stored": (2, 2 + TRAIN_TAU)}[mode]
+    want_agg = (0, 2 * TRAIN_TAU) if agg else (0, 0)
+    launches = {layer: 0}
+    if agg:
+        launches[agg] = 0
+    for i, (_, counts, _) in enumerate(marks):
+        warm = i >= warm_from
+        add_counts(launches, {k: counts[k] for k in launches})
+        got = (counts[layer], counts[agg] if agg else 0)
+        if got != (want[warm], want_agg[warm]):
+            raise AssertionError(
+                f"host loop {rep} {mode} step {i}: {layer} and the "
+                f"aggregate launched {got}, not {(want[warm], want_agg[warm])}")
+    losses = log.losses
+    if len(losses) != steps or not all(
+            math.isfinite(x) == (i >= warm_from) for i, x in
+            enumerate(losses)):
+        raise AssertionError(f"host loop {rep} {mode}: losses {losses}")
+    if agent.step_count - count0 != steps - warm_from:
+        raise AssertionError(f"host loop {rep} {mode}: step_count "
+                             f"{agent.step_count} from {count0}")
+    seconds = [marks[i][0] - marks[i - 1][0]
+               for i in range(max(timed_from, 1), steps)]
+    reads = [len(marks[i][2]) - len(marks[i - 1][2]) - counted
+             for i in range(warm_from + 1, steps)]
+    last = marks[-1][2][len(marks[-2][2]):]
+    emit({"phase": "host_train", "rep": rep, "mode": mode, "steps": steps,
+          "warm_steps": steps - warm_from, "episode_graphs": b,
+          "tau": TRAIN_TAU, "layer_kernel": layer,
+          "aggregate_kernel": agg, "launches": launches, "routes": routes,
+          "median_warm_step_s": float(np.median(seconds)) if seconds
+          else None, "warm_step_s": seconds,
+          "fused_median_warm_step_s": fused_s,
+          "syncs_per_warm_step": reads,
+          "syncs_by_line_last_step": {k: last.count(k) for k in
+                                      sorted(set(last))},
+          "synchronize_counted": counted, "losses": losses,
+          "step_count": agent.step_count,
+          "peak_device_bytes": torch.cuda.max_memory_allocated()})
+    return launches, routes
+
+
+class ReplayedIndices:
+    """Stands in for ``Agent._rng`` where the host loop must draw the
+    fused step's replay indices: ``integers`` hands them out in order."""
+
+    def __init__(self, batches):
+        self.batches = list(batches)
+
+    def integers(self, low, high, size):
+        idx = self.batches.pop(0)
+        if idx.shape != (size,) or int(idx.max()) >= high:
+            raise AssertionError(f"replayed indices {idx} for {size} "
+                                 f"below {high}")
+        return idx
+
+
+def host_small_run(torch, arrays, adj, device, rep):
+    """``train_agent(engine="host")`` at SMALL_TRAIN's shape on
+    ``device`` from the weights ``arrays``, fresh targets at epsilon
+    ``HOST_EPS`` (the agent's numpy draws explore).  Returns (losses,
+    replay, trained weights)."""
+    from repro_torch.convert import policy_from_numpy, policy_to_numpy
+    from repro_torch.core import Agent, PolicyConfig, train_agent
+    n, _, b, mb, tau, steps = SMALL_TRAIN
+    cfg = PolicyConfig(embed_dim=8, num_layers=2, minibatch=mb,
+                       replay_capacity=64, learning_rate=1e-3,
+                       eps_start=HOST_EPS, eps_end=HOST_EPS)
+    agent = Agent(cfg, num_nodes=n, device=device,
+                  params=policy_from_numpy(arrays, device=device))
+    log = train_agent(agent, adj, rep=rep, episodes=2, max_steps=steps,
+                      tau=tau, batch_graphs=b, seed=SEED, engine="host")
+    return np.array(log.losses), agent.replay, policy_to_numpy(agent.params)
+
+
+def host_fed_fused(torch, arrays, adj, rep):
+    """tests/test_engine.py:129's check on the card: the fused step
+    (stored targets, epsilon 0, draws from ``draw_train_step``) and the
+    host loop fed its replay indices (``ReplayedIndices``) from the same
+    weights.  Returns both loss traces and both policies' weights."""
+    from repro_torch.convert import policy_from_numpy, policy_to_numpy
+    from repro_torch.core import (Agent, PolicyConfig, draw_train_step,
+                                  engine_init, env, get_rep, get_train_step)
+    n, _, b, mb, tau, steps = SMALL_TRAIN
+    cfg = PolicyConfig(embed_dim=8, num_layers=2, minibatch=mb,
+                       replay_capacity=64, learning_rate=1e-3,
+                       eps_start=0.0, eps_end=0.0)
+    r = get_rep(rep)
+    source = r.prepare_dataset(adj, device=DEVICE)
+    gi = np.array([0, 2])
+    zero = np.zeros((b, n), np.float32)
+    residual = env.residual_mode("mvc")
+    agents = [Agent(cfg, num_nodes=n, target_mode="stored", device=DEVICE,
+                    params=policy_from_numpy(arrays, device=DEVICE))
+              for _ in range(2)]
+    fused = get_train_step(cfg, rep=r, tau=tau, target_mode="stored")
+    es = engine_init(cfg, agents[0].params, agents[0].opt, n, seed=SEED)
+    state = r.state_from_tuples(source, gi, zero, residual=residual)
+    fused_losses, indices = [], []
+    for _ in range(steps):
+        draws = draw_train_step(cfg, es, state, tau=tau)
+        indices += list(draws.sample_idx.cpu().numpy())
+        es, state, _, _, _, loss = fused(es, state, source,
+                                         torch.as_tensor(gi, device=DEVICE),
+                                         draws)
+        fused_losses.append(float(loss))
+    agent = agents[1]
+    agent._rng = ReplayedIndices(indices)
+    state = r.state_from_tuples(source, gi, zero, residual=residual)
+    host_losses = []
+    for _ in range(steps):
+        a = agent.act(state, explore=False)
+        new, rew, done = env.make("mvc")(state,
+                                         torch.as_tensor(a, device=DEVICE))
+        agent.remember(gi, state, a, rew, new, done)
+        host_losses.append(agent.train(source, tau=tau, residual=residual))
+        state = new
+    if agent._rng.batches or es.step_count != agent.step_count:
+        raise AssertionError(f"host loop fed the fused indices on {rep}: "
+                             f"{len(agent._rng.batches)} batches unused, "
+                             f"step counts {es.step_count}, "
+                             f"{agent.step_count}")
+    return (np.array(fused_losses), np.array(host_losses),
+            policy_to_numpy(es.params), policy_to_numpy(agent.params))
+
+
+def check_host_small(torch, rep):
+    """(c) At SMALL_TRAIN's shape on ``rep``: the host loop on the card
+    against the port's on the CPU (the same replay, so the same actions;
+    losses within 1e-6 relative, parameters within rtol 1e-5 / atol
+    1e-6), and the host loop fed the fused step's indices against the
+    fused step on the card (losses and parameters within rtol 1e-5 /
+    atol 1e-6)."""
+    from repro_torch.convert import policy_to_numpy
+    from repro_torch.core import PolicyConfig, init_policy, random_graph_batch
+    n, g = SMALL_TRAIN[:2]
+    adj = random_graph_batch("er", n, g, seed=SEED, rho=0.3)
+    arrays = policy_to_numpy(init_policy(
+        PolicyConfig(embed_dim=8), generator=torch.Generator().manual_seed(
+            SEED + 14), device="cpu"))
+    card = host_small_run(torch, arrays, adj, DEVICE, rep)
+    cpu = host_small_run(torch, arrays, adj, "cpu", rep)
+    what = f"small host run on {rep}"
+    if (card[1].size, card[1]._ptr) != (cpu[1].size, cpu[1]._ptr):
+        raise AssertionError(f"{what}: replay sizes differ")
+    for f in ("graph_idx", "solution", "action", "reward", "next_solution",
+              "done"):
+        if not np.array_equal(getattr(card[1], f), getattr(cpu[1], f)):
+            raise AssertionError(f"{what}: the replay's {f} parts from the "
+                                 f"CPU's")
+    warm = np.isfinite(cpu[0])
+    if not np.array_equal(np.isfinite(card[0]), warm) or warm.sum() < 4:
+        raise AssertionError(f"{what}: warm steps differ: {card[0]} vs "
+                             f"{cpu[0]}")
+    np.testing.assert_allclose(card[0][warm], cpu[0][warm], rtol=1e-6,
+                               atol=1e-6)
+    for key in POLICY_KEYS:
+        np.testing.assert_allclose(card[2][key], cpu[2][key], rtol=1e-5,
+                                   atol=1e-6, err_msg=key)
+    fl, hl, fw, hw = host_fed_fused(torch, arrays, adj, rep)
+    fwarm = np.isfinite(fl)
+    if not np.array_equal(np.isfinite(hl), fwarm) or fwarm.sum() < 4:
+        raise AssertionError(f"host fed the fused indices on {rep}: warm "
+                             f"steps differ: {hl} vs {fl}")
+    np.testing.assert_allclose(hl[fwarm], fl[fwarm], rtol=1e-5, atol=1e-6)
+    for key in POLICY_KEYS:
+        np.testing.assert_allclose(hw[key], fw[key], rtol=1e-5, atol=1e-6,
+                                   err_msg=key)
+    emit({"phase": "host_train_small", "rep": rep, "n": n,
+          "replay_tuples": int(card[1].size), "warm_steps": int(warm.sum()),
+          "card_vs_cpu_loss_max_rel_err": float(np.max(
+              np.abs(card[0][warm] - cpu[0][warm]) / np.abs(cpu[0][warm]))),
+          "card_vs_cpu_param_max_abs_err": max(
+              float(np.abs(card[2][k] - cpu[2][k]).max())
+              for k in POLICY_KEYS),
+          "host_vs_fused_loss_max_rel_err": float(np.max(
+              np.abs(hl[fwarm] - fl[fwarm]) / np.abs(fl[fwarm]))),
+          "host_vs_fused_param_max_abs_err": max(
+              float(np.abs(hw[k] - fw[k]).max()) for k in POLICY_KEYS)})
+
+
+def recording(svc) -> dict:
+    """``svc``'s dispatched responses by request id, as they are made (the
+    load generator returns only its report)."""
+    seen = {}
+    dispatch = svc._dispatch
+
+    def record(plan):
+        responses = dispatch(plan)
+        seen.update((r.id, r) for r in responses)
+        return responses
+    svc._dispatch = record
+    return seen
+
+
+def phase_open_loop(torch, policy, cfg, dense_row):
+    """(d) Open-loop load on one warmed dense service: ``make_workload`` of
+    ``OPEN_LOOP_REQUESTS`` graphs of the served sizes (ER 0.15), a
+    deadline twice phase 2's dense p99, at ``OPEN_LOOP_RATES`` times its
+    requests/s (one seed: the same graphs at both rates), through
+    ``run_open_loop`` in sync and async mode.  The service answers
+    ``serve()`` first, then every run: each run starts on an empty queue
+    with the async scheduler closed, and no run may add a first dispatch
+    on the request path.  Every request accounted for, the layer kernel
+    once an evaluation, every answer a cover and equal to ``serve()``'s
+    for that graph.  Prints each ``LoadReport``.  Returns the launches."""
+    from repro_torch.serving import make_workload, run_open_loop
+    rate, deadline = dense_row["requests_per_s"], 2 * dense_row["p99_ms"]
+    launches, want, base = {}, None, None
+    svc = make_service(policy, cfg, "dense")
+    svc.warmup(list(SERVE_SIZES))
+    seen = recording(svc)
+    for factor in OPEN_LOOP_RATES:
+        t0 = time.perf_counter()
+        wl = make_workload(factor * rate, OPEN_LOOP_REQUESTS, SERVE_SIZES,
+                           rho=0.15, deadline_ms=deadline, seed=SEED)
+        gen_s = time.perf_counter() - t0
+        if base is None:
+            base = wl
+            want = svc.serve(list(wl.adjs))
+            for r, a in zip(want, wl.adjs):
+                if not is_cover(a, r.solution):
+                    raise AssertionError(f"open loop: serve() answer {r.id} "
+                                         f"is not a cover")
+        elif not all(np.array_equal(a, b)
+                     for a, b in zip(wl.adjs, base.adjs)):
+            raise AssertionError("open loop: one seed gave other graphs at "
+                                 "another rate")
+        for mode in ("sync", "async"):
+            what = f"open loop {mode} at {factor} x {rate:.2f} rps"
+            if svc.pending() or svc.running:
+                raise AssertionError(f"{what}: the service is not idle")
+            first, before = svc._next_id, svc.stats.as_dict()
+            seen.clear()
+            reset_counts()
+            report = run_open_loop(svc, wl, mode=mode)
+            svc.close()
+            counts = read_counts()
+            add_counts(launches, counts)
+            if report.completed + report.rejected != report.submitted \
+                    or report.submitted != len(wl):
+                raise AssertionError(f"{what}: {report}")
+            if svc.stats.compiles:
+                raise AssertionError(f"{what}: {svc.stats.compiles} first "
+                                     f"dispatches on the request path")
+            if sorted(seen) != list(range(first, first + report.completed)) \
+                    or report.rejected:
+                raise AssertionError(f"{what}: answered ids {sorted(seen)} "
+                                     f"from {first}, {report.rejected} "
+                                     f"rejected")
+            for i, r in seen.items():
+                if not (np.array_equal(r.solution, want[i - first].solution)
+                        and is_cover(wl.adjs[i - first], r.solution)):
+                    raise AssertionError(f"{what}: answer {i - first} "
+                                         f"differs from serve()'s")
+            evals = sum({(r.bucket, r.dispatch_t): r.policy_evals
+                         for r in seen.values()}.values())
+            if counts["fused_s2v_layer"] != evals:
+                raise AssertionError(f"{what}: {counts['fused_s2v_layer']} "
+                                     f"layer launches for {evals} "
+                                     f"evaluations")
+            emit({"phase": "open_loop", "rate_factor": factor,
+                  "phase2_dense_requests_per_s": rate,
+                  **{k: svc.stats.as_dict()[k] - before[k]
+                     for k in ("batches", "partial_batches")},
+                  "policy_evals": evals, "generate_s": gen_s,
+                  **report.as_dict()})
+    return launches
+
+
+def launcher_rate():
+    """(e) The launcher's ``--rate`` in a process of its own on the card:
+    it must exit 0 and print the load report line."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.solve_serve",
+           *LAUNCHER_RATE]
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=600)
+    lines = [ln for ln in out.stdout.splitlines() if "rps offered" in ln]
+    if out.returncode != 0 or not lines \
+            or not lines[0].startswith("async @ 50.0 rps offered: "):
+        raise AssertionError(f"the launcher's --rate: rc {out.returncode}, "
+                             f"{out.stdout[-2000:]} {out.stderr[-2000:]}")
+    emit({"phase": "launcher_rate", "args": list(LAUNCHER_RATE),
+          "line": lines[0], "seconds": time.perf_counter() - t0})
+
+
+def phase_host_engines(torch, policy, cfg, data, fused_s, dense_row):
+    """The host engines (ROADMAP A6a): (a) ``phase_host_solve``; (b) the
+    host training loop at phase 3b's cell (``host_train_run``): fresh on
+    each rep and stored on dense, on the train phase's dataset, each agent
+    with its host replay (``host_replay_agent``); (c) the small checks
+    (``check_host_small``); (d) ``phase_open_loop``; (e)
+    ``launcher_rate``.  Returns the launches of (a), (b) and (d)."""
+    from repro_torch.core import PolicyConfig
+    launches = phase_host_solve(torch, policy)
+    tcfg = PolicyConfig(**TRAIN_CFG)
+    for rep, mode, seed in (("dense", "fresh", SEED + 6),
+                            ("dense", "stored", SEED + 7),
+                            ("sparse", "fresh", SEED + 6),
+                            ("csr", "fresh", SEED + 6)):
+        agent, memory = host_replay_agent(tcfg, data.shape[-1])
+        emit({"phase": "host_replay", "rep": rep, "mode": mode,
+              "capacity": tcfg.replay_capacity, "N": data.shape[-1],
+              **memory})
+        run, routes = host_train_run(torch, agent, data, rep, mode, seed,
+                                     fused_s.get((rep, mode)))
+        add_counts(launches, run)
+        if rep == "csr" and routes["csr_aggregate"]["rows"]:
+            raise AssertionError(f"host loop csr {mode}: the aggregate took "
+                                 f"the row walk at the train cell: {routes}")
+        del agent
+    for rep in TRAIN_REPS:
+        check_host_small(torch, rep)
+    add_counts(launches, phase_open_loop(torch, policy, cfg, dense_row))
+    launcher_rate()
+    return launches
+
+
+def sampled_host_run(torch, source):
+    """The host loop on the sampled dataset (phase sampled_host_train):
+    ``train_agent(engine="host")`` for one 9-step episode of 8 of the 64
+    BA(1M) subgraphs at TRAIN_CFG (its host replay of 50,000 tuples at
+    N = 20,992 built by the agent, ``host_replay_agent``), ``tau`` 4,
+    fresh: B5 9 and its aggregate 8 launches a warm step, every one by the
+    row walk, finite warm losses.  Returns the launches."""
+    from repro_torch.core import PolicyConfig
+    cfg = PolicyConfig(**TRAIN_CFG)
+    torch.cuda.empty_cache()
+    agent, memory = host_replay_agent(cfg, source.num_nodes)
+    emit({"phase": "host_replay", "rep": "csr", "mode": "fresh",
+          "capacity": cfg.replay_capacity, "N": source.num_nodes, **memory})
+    launches, routes = host_train_run(torch, agent, source, "csr", "fresh",
+                                      SEED + 8, steps=9, timed_from=8)
+    for k in launches:
+        if routes[k]["windows"] or not routes[k]["rows"]:
+            raise AssertionError(f"sampled host loop: {k} took the windowed "
+                                 f"walk: {routes[k]}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3027,7 +3558,8 @@ def train_setup(torch, weights, rep, data, dev, mesh=None, *, problem,
 @contextlib.contextmanager
 def main_thread_syncs(torch):
     """Yields a function that lists the synchronizing CUDA calls made on
-    this thread inside the block so far.  ``set_sync_debug_mode("error")``
+    this thread inside the block so far (with ``where=True`` the file and
+    line of each).  ``set_sync_debug_mode("error")``
     cannot hold a mesh step: gloo's worker threads synchronize their own
     copy streams for every collective on CUDA tensors, and the mode is
     process-wide, so it raises inside the collectives.  In "warn" mode a
@@ -3040,9 +3572,10 @@ def main_thread_syncs(torch):
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            yield lambda: [str(w.message) for w in caught
-                           if "synchronizing CUDA operation"
-                           in str(w.message)]
+            yield lambda where=False: [
+                f"{os.path.basename(w.filename)}:{w.lineno}" if where
+                else str(w.message) for w in caught
+                if "synchronizing CUDA operation" in str(w.message)]
         finally:
             torch.cuda.set_sync_debug_mode(0)
 
@@ -4461,19 +4994,23 @@ def main(argv=None) -> int:
     heur_future = heur_pool.submit(baseline_objectives, problem_adjs)
     launches = dict(lm_launches)
     with timed_phase("serve"):
-        launches["fused_s2v_layer"], dense = phase_serve(
+        launches["fused_s2v_layer"], dense, dense_row = phase_serve(
             torch, policy, cfg, adjs, "dense")
-        launches["fused_s2v_layer_sparse"], _ = phase_serve(
+        launches["fused_s2v_layer_sparse"], _, _ = phase_serve(
             torch, policy, cfg, adjs, "sparse", dense)
-        launches["fused_s2v_layer_csr"], _ = phase_serve(
+        launches["fused_s2v_layer_csr"], _, _ = phase_serve(
             torch, policy, cfg, adjs, "csr", dense)
     del dense
     with timed_phase("card_vs_cpu"):
         phase_card_vs_cpu(torch, policy)
     with timed_phase("train"):
-        train_main, train_bf16 = phase_train(torch, policy, adjs, rows,
-                                             failures)
+        train_main, train_bf16, fused_s, train_data = phase_train(
+            torch, policy, adjs, rows, failures)
     launches["csr_aggregate"] = train_main["csr_aggregate"]
+    with timed_phase("host_engines"):
+        host_launches = phase_host_engines(torch, policy, cfg, train_data,
+                                           fused_s, dense_row)
+    del train_data
     with timed_phase("problems"):
         baselines = heur_future.result()
         heur_pool.shutdown()
@@ -4505,9 +5042,14 @@ def main(argv=None) -> int:
         with timed_phase("sampled_train"):
             sampled, sampled_launches = phase_sampled_train(
                 torch, indptr, indices, ba_cs, gen_s, rows, failures)
+        with timed_phase("sampled_host_train"):
+            for name, count in sampled_host_run(torch, sampled).items():
+                host_launches[name] += count
         del indptr, indices
     for name, count in sampled_launches.items():
         launches[name] += count             # the sampled training
+    for name, count in host_launches.items():
+        launches[name] += count             # the host engines
     max_err = {(name, compute): max(r["max_abs_err"] for r in rows
                                     if r["kernel"] == name
                                     and r["compute"] == compute)

@@ -4,16 +4,20 @@ agent over the structure2vec + action-evaluation policy.  Counterpart of
 
 Training follows Alg. 5: each env step runs τ gradient-descent iterations
 (§4.5.2) over minibatches that ``GraphRep.state_from_tuples`` (Tuples2Graphs)
-re-materializes from compressed replay tuples.  The port trains through
-the fused step (``core.engine.get_train_step``, ``core.training``); the
-host loop's ``Agent.act``, ``remember`` and ``train`` (``engine="host"``)
-are not ported.
+re-materializes from compressed replay tuples.  Two engines drive it
+(``core.training.train_agent``): the fused step (``core.engine``), whose
+replay lives on the device, and the host loop here, ``Agent.act``,
+``remember`` and ``train`` over the host ``ReplayBuffer``.  Every random
+choice of the host loop is a numpy draw from ``Agent._rng`` (the explore
+rolls and picks, the replay indices), as in the JAX package, so with
+JAX's weights carried across the two host loops take the same steps.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -21,13 +25,23 @@ from ..device import DeviceLike, resolve_device
 from ..optim import AdamState, adam_init, adam_update
 # candidate_mask lives beside its caller, DenseRep.state_from_tuples; it is
 # importable from here as from the JAX package's agent
-from .graphrep import GraphRep, candidate_mask  # noqa: F401
-from .policy import Policy, PolicyConfig, init_policy
+from .graphrep import (CSR, DENSE, SPARSE, GraphRep,  # noqa: F401
+                       candidate_mask, rep_for_state)
+from .graphs import CsrGraphBatch, SparseGraphBatch
+from .mesh import is_multi
+from .policy import Policy, PolicyConfig, init_policy, policy_scores
 from .replay import ReplayBuffer
 
-HOST_ENGINE = ('engine="host" (the host training loop) is not ported yet: '
-               'ROADMAP item "the rest of solve and serving"; train with '
-               'engine="device" (core.training.train_agent)')
+MESH_HOST_LOOP = ("the host training loop on a mesh is not ported (ROADMAP "
+                  "item \"async serving on a mesh\"): train on the mesh "
+                  "with engine=\"device\"")
+
+
+def host(x) -> np.ndarray:
+    """``x`` (a tensor on any device, or array-like) as a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 def max_q_from_scores(scores: torch.Tensor,
@@ -45,6 +59,41 @@ def max_q_raw(params: Policy, state, *, rep: GraphRep, num_layers: int,
     return max_q_from_scores(rep.scores(params, state, num_layers=num_layers,
                                         kernel=kernel, compute=compute),
                              state.candidate)
+
+
+max_q_state = max_q_raw
+
+
+@torch.no_grad()
+def greedy_action_state(params: Policy, state, *, rep: GraphRep,
+                        num_layers: int, kernel: str = "fused",
+                        compute: str = "f32"):
+    """argmax_v Q(s, v) over the candidates (Alg. 1 line 10; the first
+    maximum, node 0 where none is left) and the masked scores."""
+    s = rep.scores(params, state, num_layers=num_layers, kernel=kernel,
+                   compute=compute)
+    return torch.argmax(s, dim=-1), s
+
+
+def _dense_scores(params: Policy, adj, sol, cand, num_layers: int):
+    dev = params.device
+    return policy_scores(params, *(torch.as_tensor(x, device=dev).to(
+        torch.float32) for x in (adj, sol, cand)), num_layers=num_layers)
+
+
+@torch.no_grad()
+def greedy_action(params: Policy, adj, sol, cand, *, num_layers: int):
+    """``greedy_action_state`` on dense (B, N, N) arrays."""
+    s = _dense_scores(params, adj, sol, cand, num_layers)
+    return torch.argmax(s, dim=-1), s
+
+
+@torch.no_grad()
+def max_q(params: Policy, adj, sol, cand, *, num_layers: int):
+    """``max_q_state`` on dense (B, N, N) arrays."""
+    cand = torch.as_tensor(cand, device=params.device).to(torch.float32)
+    return max_q_from_scores(_dense_scores(params, adj, sol, cand,
+                                           num_layers), cand)
 
 
 def loss_and_grads(params: Policy, loss_fn):
@@ -92,14 +141,25 @@ def train_minibatch_raw(params: Policy, opt: AdamState, state,
     return params, opt, loss
 
 
+def _rep_for_source(source) -> GraphRep:
+    """The backend of a training dataset, by its type: a CSR batch (a
+    ``NeighborSampler.training_batch`` among them), padded lists, else a
+    dense adjacency stack."""
+    if isinstance(source, CsrGraphBatch):
+        return CSR
+    return SPARSE if isinstance(source, SparseGraphBatch) else DENSE
+
+
 @dataclasses.dataclass
 class Agent:
-    """The agent's learned state: the policy, its Adam state, the step
-    count that drives the epsilon schedule and the host replay of
-    ``engine="host"``, which is not ported: ``replay`` stays None unless
-    given, and the fused engine, whose replay lives on the device, leaves
-    it untouched.  The policy is ``init_policy``'s from a generator seeded
-    with 0, or ``params``, which must live on ``device``."""
+    """The agent's learned state: the policy, its Adam state, the host
+    replay of the host loop and the step count that drives the epsilon
+    schedule.  The policy is ``init_policy``'s from a generator seeded
+    with 0, or ``params``, which must live on ``device``; the replay is an
+    empty ``ReplayBuffer(cfg.replay_capacity, num_nodes)`` unless given
+    (numpy's zeros are calloc-backed, so an untouched ring takes no
+    resident memory).  The fused engine, whose replay lives on the
+    device, leaves ``replay`` untouched."""
     cfg: PolicyConfig
     num_nodes: int
     params: Optional[Policy] = None
@@ -122,19 +182,98 @@ class Agent:
                              f"agent on {self.device}")
         if self.opt is None:
             self.opt = adam_init(self.params)
+        if self.replay is None:
+            self.replay = ReplayBuffer(self.cfg.replay_capacity,
+                                       self.num_nodes)
+        self._rng = np.random.default_rng(0)
 
+    def _policy_kw(self, rep: GraphRep) -> dict:
+        return dict(rep=rep, num_layers=self.cfg.num_layers,
+                    kernel=self.cfg.kernel, compute=self.cfg.compute)
+
+    # -- acting ------------------------------------------------------------
     def epsilon(self) -> float:
         c = self.cfg
         frac = min(1.0, self.step_count / max(1, c.eps_decay_steps))
         return c.eps_start + (c.eps_end - c.eps_start) * frac
 
-    def act(self, state, explore: bool = True):
-        raise NotImplementedError(HOST_ENGINE)
+    def act(self, state, explore: bool = True) -> np.ndarray:
+        """Batched epsilon-greedy actions (Alg. 1 lines 9-10) on the host,
+        on any rep's state.  Exploring, a row rolls ``_rng.random(b)``
+        against epsilon, and an exploring row with candidates takes the
+        argmax of ``_rng.random((b, n))`` over them, a uniform pick."""
+        b, n = state.candidate.shape
+        greedy, _ = greedy_action_state(self.params, state,
+                                        **self._policy_kw(
+                                            rep_for_state(state)))
+        greedy = host(greedy)
+        if not explore:
+            return greedy
+        eps = self.epsilon()
+        cand = host(state.candidate) > 0.5
+        explore_row = (self._rng.random(b) < eps) & cand.any(-1)
+        u = self._rng.random((b, n)) * cand
+        return np.where(explore_row, np.argmax(u, axis=-1), greedy)
 
+    # -- remembering ---------------------------------------------------------
     def remember(self, graph_idx, prev_state, action, reward, next_state,
                  done) -> None:
-        raise NotImplementedError(HOST_ENGINE)
+        """Store the step's compressed tuples.  ``"stored"`` computes the TD
+        target now (Alg. 5 line 12), from ``max_q_state`` on
+        ``next_state``; ``"fresh"`` stores (r, S', done) and bootstraps at
+        training time with the current policy.  The target is JAX's numpy
+        expression on host arrays, so it rounds as JAX's does."""
+        reward = host(reward)
+        if self.target_mode == "stored":
+            nxt = max_q_state(self.params, next_state,
+                              **self._policy_kw(rep_for_state(next_state)))
+            target = reward + self.cfg.gamma * host(nxt) * (
+                1.0 - np.asarray(host(done), np.float32))
+        else:
+            target = np.zeros_like(reward)
+        self.replay.push_batch(host(graph_idx), host(prev_state.solution),
+                               host(action), target, reward=reward,
+                               next_solution=host(next_state.solution),
+                               done=host(done))
 
+    # -- training -----------------------------------------------------------
     def train(self, source, tau: Optional[int] = None, residual=True,
               candidate_fn=None) -> float:
-        raise NotImplementedError(HOST_ENGINE)
+        """τ GD iterations on minibatches sampled from the host replay
+        (§4.5.2).  ``source`` is the dataset in any rep (a dense (G, N, N)
+        stack, a ``SparseGraphBatch``, or a ``CsrGraphBatch``, e.g.
+        ``NeighborSampler.training_batch``'s), on the policy's device;
+        ``residual`` and ``candidate_fn`` are the env's (``env.register``).
+        Returns the last iteration's loss, or NaN (no draw, no step
+        counted) while the replay holds fewer than a minibatch."""
+        if is_multi(self.cfg.spatial):
+            raise NotImplementedError(MESH_HOST_LOOP)
+        rep = _rep_for_source(source)
+        tau = self.cfg.grad_iters if tau is None else tau
+        if self.replay.size < self.cfg.minibatch:
+            return float("nan")
+        kw = self._policy_kw(rep)
+        dev = self.params.device
+        loss = float("nan")
+        for _ in range(tau):
+            gi, sol, act, tgt, rew, sol2, done = self.replay.sample(
+                self.cfg.minibatch, self._rng)
+            if self.target_mode == "fresh":
+                st2 = rep.state_from_tuples(source, gi, sol2,
+                                            residual=residual,
+                                            candidate_fn=candidate_fn)
+                nxt = max_q_state(self.params, st2, **kw)
+                del st2
+                # float64 on the host (1.0 - a bool array), as JAX's
+                tgt = rew + self.cfg.gamma * host(nxt) * (1.0 - done)
+            st = rep.state_from_tuples(source, gi, sol, residual=residual,
+                                       candidate_fn=candidate_fn)
+            _, _, l = train_minibatch_raw(
+                self.params, self.opt, st,
+                torch.as_tensor(act, device=dev),
+                torch.as_tensor(tgt, dtype=torch.float32, device=dev),
+                lr=self.cfg.learning_rate, **kw)
+            del st
+            loss = float(l)
+        self.step_count += 1
+        return loss

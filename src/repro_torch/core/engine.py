@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -39,7 +39,7 @@ from ..optim import AdamState
 from . import env as env_lib
 from .agent import max_q_from_scores, max_q_raw, train_minibatch_raw
 from .graphrep import GraphRep, get_rep
-from .inference import apply_selection, check_solve_options
+from .inference import check_solve_options, solve_step
 from .mesh import (Mesh, MeshSpec, all_reduce_max, make_mesh,
                    normalize_spatial)
 from .policy import Policy, PolicyConfig
@@ -322,9 +322,13 @@ def get_solve_step(*, rep: Union[str, GraphRep, None] = None,
                    problem: str = "mvc", num_layers: int = 2,
                    use_adaptive: bool = False, spatial: MeshSpec = 0,
                    kernel: str = "fused", compute: str = "f32",
-                   max_d: int = 8):
+                   max_d: int = 8, step: Optional[Callable] = None):
     """Returns ``solve_fn(params, state, max_evals) -> (final_state,
     evals, committed)``: score → top-d commit → done check, repeated.
+
+    ``step(params, state) -> (state, done, ncommit)`` replaces the score
+    and commit of one evaluation (default :func:`inference.solve_step`);
+    it is what ``solve``'s ``step_fn`` drives, on one device only.
 
     The stop rule is the ``lax.while_loop``'s: evaluate while some graph
     is not done and ``evals < max_evals``; ``done`` starts all False, so
@@ -342,7 +346,7 @@ def get_solve_step(*, rep: Union[str, GraphRep, None] = None,
     ``solve_fn`` consumes ``state``: the dense commit updates its
     adjacency in place (the counterpart of the JAX solve donating its
     state).  Every caller builds the state fresh for the solve."""
-    check_solve_options("device", spatial)
+    check_solve_options("device", spatial, step)
     env_lib.make(problem)
     rep = get_rep(rep)
     dp, sp = normalize_spatial(spatial)
@@ -350,14 +354,16 @@ def get_solve_step(*, rep: Union[str, GraphRep, None] = None,
     if (dp, sp) != (1, 1):
         _check_csr_spatial(rep, sp)
         mesh = make_mesh(dp, sp)
-    if mesh is not None and rep.name != "csr":
-        score_fn = spatial_solve_scores_fn(
-            mesh, num_layers=num_layers, rep=rep,
-            residual=env_lib.sparse_residual_flag(problem), kernel=kernel,
-            compute=compute)
-    else:
-        score_fn = functools.partial(rep.scores, num_layers=num_layers,
-                                     kernel=kernel, compute=compute)
+    if step is None:
+        score_fn = None
+        if mesh is not None and rep.name != "csr":
+            score_fn = spatial_solve_scores_fn(
+                mesh, num_layers=num_layers, rep=rep,
+                residual=env_lib.sparse_residual_flag(problem),
+                kernel=kernel, compute=compute)
+        step = solve_step(rep=rep, problem=problem, num_layers=num_layers,
+                          use_adaptive=use_adaptive, kernel=kernel,
+                          compute=compute, max_d=max_d, score_fn=score_fn)
 
     @torch.no_grad()
     def solve_fn(params, state, max_evals: int):
@@ -366,11 +372,9 @@ def get_solve_step(*, rep: Union[str, GraphRep, None] = None,
         committed = torch.zeros((b,), dtype=torch.int32,
                                 device=state.candidate.device)
         while evals < max_evals:
-            scores = score_fn(params, state)
-            state, done, ncommit = apply_selection(
-                state, scores, state.candidate, use_adaptive, problem, max_d)
+            state, done, ncommit = step(params, state)
             evals += 1
-            committed += ncommit
+            committed += ncommit.to(torch.int32)
             # One host read of `done` per evaluation: it waits for the
             # device.  A CUDA graph, or checking every k evaluations, would
             # remove this round trip; that is later work.

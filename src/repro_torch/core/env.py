@@ -45,11 +45,13 @@ from typing import Callable, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..device import DeviceLike
 from .graphs import (CsrGraphState, GraphState, SparseGraphState,
                      _gather_nodes, closed_neighborhood_keep,
                      closed_neighborhood_keep_dense,
                      csr_closed_neighborhood_keep, csr_row_ids,
-                     csr_segment_max, csr_segment_sum, residual_edge_mask)
+                     csr_segment_max, csr_segment_sum, init_state,
+                     residual_edge_mask)
 from .mesh import all_reduce_sum, gather_rows, local_rows
 from .qmodel import NEG_INF
 
@@ -165,6 +167,12 @@ def make(name: str) -> EnvStep:
 
 def residual_mode(name: str) -> str:
     return _lookup(_MODE, name)
+
+
+def residual_semantics(name: str) -> bool:
+    """True for any residual-rewriting mode (the boolean view of
+    :func:`residual_mode`)."""
+    return residual_mode(name) != "none"
 
 
 def sparse_residual_flag(name: str) -> Union[bool, str]:
@@ -523,6 +531,16 @@ def mds_step(state, action: torch.Tensor):
 # Checkers and objectives on the original dense adjacency (B, N, N).  Each
 # sum is of 0/1 products, exact in f32 below 2^24 terms.
 # ---------------------------------------------------------------------------
+
+def reset(adj, *, device: DeviceLike = "cuda") -> GraphState:
+    """A fresh dense episode state of ``adj`` on ``device``."""
+    return init_state(adj, device=device)
+
+
+def solution_size(state) -> torch.Tensor:
+    """(B,) |S| of a state."""
+    return state.solution.sum(-1)
+
 
 def is_cover(adj0: torch.Tensor, solution: torch.Tensor) -> torch.Tensor:
     """The MVC invariant: every original edge touches a solution node."""

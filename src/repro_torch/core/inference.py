@@ -13,17 +13,25 @@ solve stays tens of evaluations):
     |C| in (N/8, N/4] -> d = max_d/4
     |C| <= N/8        -> d = max_d/8  (each tier floored at 1)
 
-The port runs the fused device engine (``engine="device"``,
-``core.engine.get_solve_step``) on the dense, sparse and CSR
-representations (``rep=``), for every registered problem, on one device
-or on a ``spatial=(dp, sp)`` mesh of ``torch.distributed`` ranks
-(``core.mesh``; CSR at sp = 1).  MaxCut's quality lives in its
-trajectory, not its final assignment: :func:`best_trajectory_cut`.
+Both engines run it on the dense, sparse and CSR representations
+(``rep=``), for every registered problem, through one loop
+(``core.engine.get_solve_step``): one policy evaluation, then a blocking
+read of ``done``.  ``engine="device"`` (default) runs it on one device or
+on a ``spatial=(dp, sp)`` mesh of ``torch.distributed`` ranks
+(``core.mesh``; CSR at sp = 1).  ``engine="host"``, JAX's per-evaluation
+reference loop, is that loop on one device: the JAX package's fused
+engine reads nothing until the end, the port's already reads once an
+evaluation.  A ``step_fn(params, state) -> (state, done, ncommit)`` given
+to ``solve`` replaces the loop's step (default :func:`solve_step`),
+whatever the engine, as in the JAX package.
+
+MaxCut's quality lives in its trajectory, not its final assignment:
+:func:`best_trajectory_cut`, a ``step_fn`` over that loop.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -154,23 +162,41 @@ class InferenceResult:
     nodes_committed: np.ndarray
 
 
-def check_solve_options(engine: str, spatial) -> None:
+def check_solve_options(engine: str, spatial, step_fn=None) -> None:
     """Raise on solve options the port refuses: an unknown engine or mesh
-    spec, a mesh off the fused engine, and the unported host engine."""
+    spec, and a mesh with ``engine="host"`` or a ``step_fn``."""
     if engine not in ("host", "device"):
         raise ValueError(f"unknown inference engine {engine!r}")
-    if engine == "host":
-        if is_multi(spatial):
-            raise ValueError("spatial solve runs on the fused path only; "
-                             "it is incompatible with engine='host'")
-        raise NotImplementedError(
-            "engine='host' (the per-eval reference loop) is not ported yet: "
-            "ROADMAP item \"the rest of solve and serving\"")
+    if is_multi(spatial) and (engine == "host" or step_fn is not None):
+        raise ValueError("spatial solve runs on the fused path only; it is "
+                         "incompatible with engine='host' and with step_fn "
+                         "overrides")
     normalize_spatial(spatial)
+
+
+def solve_step(*, rep: GraphRep, problem: str = "mvc", num_layers: int = 2,
+               use_adaptive: bool = False, kernel: str = "fused",
+               compute: str = "f32", max_d: int = MAX_D,
+               score_fn: Optional[Callable] = None):
+    """One evaluation of the solve loop, ``step(params, state) -> (state,
+    done, ncommit)``: ``score_fn(params, state)`` (default ``rep.scores``,
+    the rep's layer kernel once at L = 2) and :func:`apply_selection`.
+    The loop runs it under ``torch.no_grad()``."""
+    rep = get_rep(rep)
+    score_fn = score_fn or (lambda params, state: rep.scores(
+        params, state, num_layers=num_layers, kernel=kernel,
+        compute=compute))
+
+    def step(params, state):
+        return apply_selection(state, score_fn(params, state),
+                               state.candidate, use_adaptive, problem, max_d)
+
+    return step
 
 
 def solve(params: Policy, adj0, *, num_layers: int = 2,
           multi_node: bool = False, max_evals: Optional[int] = None,
+          step_fn: Optional[Callable] = None,
           rep: Union[str, GraphRep] = "dense", problem: str = "mvc",
           engine: str = "device", spatial=0, kernel: str = "fused",
           compute: str = "f32", max_d: int = MAX_D,
@@ -180,7 +206,8 @@ def solve(params: Policy, adj0, *, num_layers: int = 2,
     (numpy or torch), or a batch or state of ``rep``'s layout (a
     ``CsrGraphBatch`` from ``csr_batch_from_arrays`` reaches graphs no
     dense array could hold); it is never modified.  ``params`` must live
-    on ``device``.  ``max_evals`` defaults to N + max_d.
+    on ``device``.  ``max_evals`` defaults to N + max_d.  ``engine="host"``
+    and ``step_fn`` (which replaces the loop's step) run on one device.
 
     ``spatial=(dp, sp)`` solves on the 2-D ``(data, graph)`` mesh (an int
     P means ``(1, P)``): every rank of a default process group of dp·sp
@@ -189,7 +216,7 @@ def solve(params: Policy, adj0, *, num_layers: int = 2,
     the JAX package's single controller does.  The env's candidate rule
     runs on the whole host state before the tiles are placed, and its
     rules on the tiles after (``core.env``)."""
-    check_solve_options(engine, spatial)
+    check_solve_options(engine, spatial, step_fn)
     env_lib.make(problem)
     dev = resolve_device(device)
     if params.device != dev:
@@ -203,7 +230,8 @@ def solve(params: Policy, adj0, *, num_layers: int = 2,
     from .engine import get_solve_step
     fused = get_solve_step(rep=rep, problem=problem, num_layers=num_layers,
                            use_adaptive=multi_node, spatial=spatial,
-                           kernel=kernel, compute=compute, max_d=max_d)
+                           kernel=kernel, compute=compute, max_d=max_d,
+                           step=step_fn)
     mesh = None
     if (dp, sp) != (1, 1):
         mesh = make_mesh(dp, sp)
@@ -234,25 +262,27 @@ def best_trajectory_cut(params: Policy, adj0, *, num_layers: int = 2,
 
     The maxcut env stops when no candidate remains: every positive-degree
     node ends in S, so the final cut is 0 and the quality lives in the
-    trajectory.  The port's solve step (score, top-d selection, the
-    assignment commit) runs one evaluation at a time on the dense rep, a
-    running maximum of ``env.cut_value`` after every commit stays on the
-    device, and the host reads it once, at the end; the stop rule is the
-    solve's (``done`` read each evaluation, at most N + MAX_D)."""
+    trajectory.  A ``step_fn`` over the solve loop (the default step
+    returns only the final state) keeps a running maximum of
+    ``env.cut_value`` after every commit on the device, and the host reads
+    it once, at the end."""
     dev = resolve_device(device)
-    state = init_solve_state(get_rep("dense"), adj0, "maxcut", device=dev)
-    adj = state.adj.clone()          # the original topology, never masked
-    best = torch.zeros(state.batch, dtype=torch.float32, device=dev)
-    with torch.no_grad():
-        for _ in range(state.num_nodes + MAX_D):
-            scores = get_rep("dense").scores(params, state,
-                                             num_layers=num_layers)
-            state, done, _ = apply_selection(state, scores, state.candidate,
-                                             multi_node, "maxcut")
-            best = torch.maximum(best, env_lib.cut_value(adj,
-                                                         state.solution))
-            if bool(done.all()):
-                break
+    best = torch.zeros(_batch_size(adj0), dtype=torch.float32, device=dev)
+    step = solve_step(rep=get_rep("dense"), problem="maxcut",
+                      num_layers=num_layers, use_adaptive=multi_node)
+    adj = None
+
+    def recording_step(p, s):
+        nonlocal adj
+        if adj is None:     # the original topology: the commit masks s.adj
+            adj = s.adj.clone()
+        out = step(p, s)
+        torch.maximum(best, env_lib.cut_value(adj, out[0].solution),
+                      out=best)
+        return out
+
+    solve(params, adj0, num_layers=num_layers, problem="maxcut",
+          step_fn=recording_step, device=dev)
     return best.cpu().numpy().astype(np.float64)
 
 

@@ -31,10 +31,11 @@ def check_collectives(mode: str) -> str:
 @dataclasses.dataclass(frozen=True)
 class PolicyConfig:
     """Paper §6.1 hyper-parameter settings; the same fields, defaults and
-    validation as the JAX ``PolicyConfig``.  The port runs
-    ``engine="device"`` on the three reps, on one device or on a
-    ``spatial=(dp, sp)`` mesh (CSR at sp = 1); the entry points raise
-    ``NotImplementedError`` on ``engine="host"``."""
+    validation as the JAX ``PolicyConfig``.  Both engines run on the
+    three reps: ``engine="device"`` (the fused solve and train step) on
+    one device or on a ``spatial=(dp, sp)`` mesh (CSR at sp = 1),
+    ``engine="host"`` (the per-evaluation solve, the host training loop)
+    on one device."""
     embed_dim: int = 32          # K
     num_layers: int = 2          # L
     gamma: float = 0.9           # discount
@@ -84,6 +85,12 @@ def init_policy(cfg: PolicyConfig, *, generator: torch.Generator,
     dev = resolve_device(device)
     return Policy(init_s2v(cfg.embed_dim, generator=generator, device=dev),
                   init_q(cfg.embed_dim, generator=generator, device=dev))
+
+
+def num_params(cfg: PolicyConfig) -> int:
+    """4K² + 4K: the gradient all-reduce payload (paper §5.1(3))."""
+    k = cfg.embed_dim
+    return 4 * k * k + 4 * k
 
 
 def policy_scores(

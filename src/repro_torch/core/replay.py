@@ -55,6 +55,22 @@ class ReplayBuffer:
         self.next_solution = np.zeros((r, n), bool)
         self.done = np.zeros((r,), bool)
 
+    def push(self, graph_idx: int, solution, action: int, target: float,
+             reward: float = 0.0, next_solution=None,
+             done: bool = False) -> None:
+        """Insert one tuple at the ring pointer."""
+        i = self._ptr
+        self.graph_idx[i] = graph_idx
+        self.solution[i] = np.asarray(solution) > 0.5
+        self.action[i] = action
+        self.target[i] = target
+        self.reward[i] = reward
+        if next_solution is not None:
+            self.next_solution[i] = np.asarray(next_solution) > 0.5
+        self.done[i] = done
+        self._ptr = (i + 1) % self.capacity
+        self.size = min(self.size + 1, self.capacity)
+
     def push_batch(self, graph_idx, solution, action, target,
                    reward=None, next_solution=None, done=None) -> None:
         """Insert B tuples at the ring pointer, wrapping modulo the
@@ -75,6 +91,12 @@ class ReplayBuffer:
                           else np.atleast_1d(np.asarray(done)) > 0)
         self._ptr = int((self._ptr + b) % self.capacity)
         self.size = min(self.size + b, self.capacity)
+
+    def sample(self, batch: int, rng: np.random.Generator):
+        """``batch`` tuples drawn uniformly, with replacement, over the
+        warm region [0, size) by ``rng.integers``: the host loop's
+        minibatch, in ``sample_at``'s layout."""
+        return self.sample_at(rng.integers(0, self.size, size=batch))
 
     def sample_at(self, idx):
         """The tuples at ``idx``: (graph_idx, S, action, stored target,
@@ -124,6 +146,15 @@ class DeviceReplay:
     def nbytes(self) -> int:
         return sum(getattr(self, f).numel() * getattr(self, f).element_size()
                    for f in _FIELDS)
+
+
+def device_replay_from_host(rb: ReplayBuffer, *,
+                            device: DeviceLike = "cuda") -> DeviceReplay:
+    """A host ring's contents, ``size`` and pointer as a device ring on
+    ``device`` (warm starts, parity tests)."""
+    dev = resolve_device(device)
+    return DeviceReplay(size=rb.size, ptr=rb._ptr, **{
+        f: torch.from_numpy(getattr(rb, f)).to(dev) for f in _FIELDS})
 
 
 _DTYPES = dict(graph_idx=torch.int32, solution=torch.bool,

@@ -243,3 +243,12 @@ def embed_local(
             embed3 = torch.einsum("kj,bjn->bkn", params.theta4, nbr)
             embed = torch.relu(base + embed3)                       # Line 14
     return embed
+
+
+def embed_full(params: S2V, adj: torch.Tensor, sol: torch.Tensor, *,
+               num_layers: int, kernel: str = "fused",
+               compute: str = "f32") -> torch.Tensor:
+    """The single-device embedding (Nl == N): ``embed_local`` with no
+    axis."""
+    return embed_local(params, adj, sol, num_layers=num_layers, axis=None,
+                       kernel=kernel, compute=compute)

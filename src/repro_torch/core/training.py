@@ -1,12 +1,15 @@
 """The RL training loop (paper Alg. 5).  Counterpart of
-``repro/core/training.py`` for ``engine="device"``.
+``repro/core/training.py``.
 
 ``train_agent`` is the episode driver: it picks training graphs, rolls the
-env through the fused train step (``core.engine.get_train_step``), one
-step per env transition, and evaluates quality when asked (paper §6.2
-learning curves).  Each step's only read from the device is its (loss,
-done) fetch.  With ``cfg.spatial`` it trains on the ``(data, graph)``
-mesh: every rank of the process group calls it with the same arguments.
+env one step per transition and evaluates quality when asked (paper §6.2
+learning curves), through either engine.  ``engine="device"`` takes the
+fused train step (``core.engine.get_train_step``), whose only read from
+the device is its (loss, done) fetch; with ``cfg.spatial`` it trains on
+the ``(data, graph)`` mesh, every rank of the process group calling it
+with the same arguments.  ``engine="host"`` is the reference loop over
+``Agent.act``, the env step, ``Agent.remember`` and ``Agent.train`` on the
+host replay, on one device.
 """
 from __future__ import annotations
 
@@ -18,12 +21,13 @@ import numpy as np
 import torch
 
 from . import env as env_lib
-from .agent import HOST_ENGINE, Agent
+from .agent import MESH_HOST_LOOP, Agent, host
 from .engine import (draw_train_step, engine_init, get_train_step,
                      sync_to_agent)
 from .graphrep import GraphRep, get_rep
 from .inference import solve
-from .mesh import all_reduce_sum, make_mesh, normalize_spatial, shard_dataset
+from .mesh import (all_reduce_sum, is_multi, make_mesh, normalize_spatial,
+                   shard_dataset)
 from .spatial import tile_state_from_tuples
 
 
@@ -57,7 +61,8 @@ def evaluate_quality(agent: Agent, test_adj: np.ndarray,
     res = solve(agent.params, test_adj, num_layers=agent.cfg.num_layers,
                 multi_node=multi_node,
                 rep=rep if rep is not None else agent.cfg.graph_rep,
-                problem=problem, kernel=agent.cfg.kernel,
+                problem=problem, engine=agent.cfg.engine,
+                kernel=agent.cfg.kernel,
                 compute=agent.cfg.compute, device=agent.device)
     return float(np.mean(res.sizes / np.maximum(reference_sizes, 1)))
 
@@ -77,29 +82,38 @@ def train_agent(
     seed: int = 0,
     engine: Optional[str] = None,     # None → agent.cfg.engine
 ) -> TrainLog:
-    """Train ``agent`` on its device through the fused step.  Episode
-    graphs are drawn by numpy's ``default_rng(seed)``, as in the JAX
-    package; the step's own draws (``engine.draw_train_step``) come from
-    a generator seeded with ``seed``.  The replay lives on the device, so
-    ``agent.replay`` stays untouched; the agent's policy and Adam state
-    are updated in place.
+    """Train ``agent`` on its device.  Episode graphs are drawn by numpy's
+    ``default_rng(seed)``, as in the JAX package.  The agent's policy and
+    Adam state are updated in place.
 
-    On a mesh (``agent.cfg.spatial``) every rank of the default process
-    group calls ``train_agent`` with the same arguments, as ``solve`` on a
-    mesh; ``batch_graphs`` must divide by dp.  The dataset is checked
-    whole on the host, then each rank keeps its tile on its device
-    (``mesh.shard_dataset``), and each episode's state is the rank's tile
-    (``spatial.tile_state_from_tuples``).  The step's fetch reads the
-    whole batch's ``done``, reduced over ``data``."""
+    ``engine="device"`` (``agent.cfg.engine`` by default) takes the fused
+    step: its draws (``engine.draw_train_step``) come from a generator
+    seeded with ``seed``, and its replay lives on the device, so
+    ``agent.replay`` stays untouched.  ``engine="host"`` is the reference
+    loop: ``Agent.act``, the env step, ``Agent.remember`` with host copies
+    of the reward and done, then ``Agent.train``; its draws are the
+    agent's numpy ``_rng``, as JAX's host loop's, and it reads from the
+    device each step's actions, candidates, masks, reward and done, and
+    per GD iteration the fresh targets and the loss.
+
+    On a mesh (``agent.cfg.spatial``, device engine only) every rank of
+    the default process group calls ``train_agent`` with the same
+    arguments, as ``solve`` on a mesh; ``batch_graphs`` must divide by dp.
+    The dataset is checked whole on the host, then each rank keeps its
+    tile on its device (``mesh.shard_dataset``), and each episode's state
+    is the rank's tile (``spatial.tile_state_from_tuples``).  The step's
+    fetch reads the whole batch's ``done``, reduced over ``data``."""
     engine = engine if engine is not None else agent.cfg.engine
-    if engine == "host":
-        raise NotImplementedError(HOST_ENGINE)
-    if engine != "device":
+    if engine not in ("host", "device"):
         raise ValueError(f"unknown training engine {engine!r}")
+    if engine == "host" and is_multi(agent.cfg.spatial):
+        raise NotImplementedError(MESH_HOST_LOOP)
     rng = np.random.default_rng(seed)
     rep = get_rep(rep if rep is not None else agent.cfg.graph_rep)
-    fused = get_train_step(agent.cfg, rep=rep, problem=problem, tau=tau,
-                           target_mode=agent.target_mode)
+    fused = (get_train_step(agent.cfg, rep=rep, problem=problem, tau=tau,
+                            target_mode=agent.target_mode)
+             if engine == "device" else None)
+    step_fn = env_lib.make(problem)
     residual = env_lib.residual_mode(problem)
     cand_fn = env_lib.candidate_rule(problem)
     dp, sp = normalize_spatial(agent.cfg.spatial)
@@ -114,8 +128,9 @@ def train_agent(
     whole = source
     if mesh is not None:
         source = shard_dataset(mesh, whole, device=agent.device)
-    es = engine_init(agent.cfg, agent.params, agent.opt, n, seed=seed,
-                     step_count=agent.step_count, mesh=mesh)
+    es = (engine_init(agent.cfg, agent.params, agent.opt, n, seed=seed,
+                      step_count=agent.step_count, mesh=mesh)
+          if fused is not None else None)
     log = TrainLog()
     t0 = time.time()
     total_steps = 0
@@ -138,22 +153,20 @@ def train_agent(
         for _t in range(n):
             if max_steps is not None and total_steps >= max_steps:
                 break
-            draws = draw_train_step(agent.cfg, es, state, tau=tau)
-            es, state, _act, _rew, done, loss_d = fused(es, state, source, gi,
-                                                        draws)
-            # the step's one read from the device: the loss and how many
-            # of the batch's graphs are not done
-            left = (~done).sum().to(torch.float32).reshape(1)
-            if mesh is not None:
-                all_reduce_sum(left, mesh.data)
-            fetched = torch.cat([loss_d.reshape(1), left]).cpu()
-            loss, all_done = float(fetched[0]), bool(fetched[1] == 0)
+            if fused is None:
+                loss, state, all_done = _host_step(
+                    agent, state, source, gi_host, step_fn, tau, residual,
+                    cand_fn)
+            else:
+                loss, state, all_done = _fused_step(
+                    agent, fused, es, state, source, gi, tau, mesh)
             ep_len += 1
             total_steps += 1
             log.steps.append(total_steps)
             log.losses.append(loss)
             if eval_fn is not None and total_steps % eval_every == 0:
-                sync_to_agent(agent, es)
+                if es is not None:
+                    sync_to_agent(agent, es)
                 log.eval_steps.append(total_steps)
                 log.approx_ratios.append(eval_fn(agent))
             if all_done:
@@ -161,6 +174,34 @@ def train_agent(
         log.episode_lengths.append(ep_len)
         if max_steps is not None and total_steps >= max_steps:
             break
-    sync_to_agent(agent, es)
+    if es is not None:
+        sync_to_agent(agent, es)
     log.wall_time = time.time() - t0
     return log
+
+
+def _fused_step(agent, fused, es, state, source, gi, tau, mesh):
+    """One fused step; its one read from the device is the loss and how
+    many of the batch's graphs are not done.  Returns (loss, state', all
+    done)."""
+    draws = draw_train_step(agent.cfg, es, state, tau=tau)
+    es, state, _act, _rew, done, loss_d = fused(es, state, source, gi, draws)
+    left = (~done).sum().to(torch.float32).reshape(1)
+    if mesh is not None:
+        all_reduce_sum(left, mesh.data)
+    fetched = torch.cat([loss_d.reshape(1), left]).cpu()
+    return float(fetched[0]), state, bool(fetched[1] == 0)
+
+
+def _host_step(agent, state, source, gi, step_fn, tau, residual, cand_fn):
+    """One step of the host loop (JAX's ``engine="host"`` branch): act,
+    the env transition, remember, then τ GD iterations.  Returns (loss,
+    state', all done), the stop test on the host copy of ``done``."""
+    action = agent.act(state, explore=True)
+    new_state, reward, done = step_fn(
+        state, torch.as_tensor(action, device=agent.device))
+    done = host(done)
+    agent.remember(gi, state, action, host(reward), new_state, done)
+    loss = agent.train(source, tau=tau, residual=residual,
+                       candidate_fn=cand_fn)
+    return loss, new_state, bool(done.all())

@@ -9,6 +9,9 @@ drain path or the async path.
         --sizes 500,1000 --csr-max-edges 200000 --warmup
     PYTHONPATH=src python -m repro_torch.launch.solve_serve --problem mis \
         --rep sparse --warmup
+    # open-loop Poisson load at a fixed offered rate (requests/s)
+    PYTHONPATH=src python -m repro_torch.launch.solve_serve \
+        --mode async --rate 50 --requests 200 --warmup
     # on a machine without a GPU, ask for the CPU explicitly:
     PYTHONPATH=src python -m repro_torch.launch.solve_serve --device cpu
     # on the 2-D (data, graph) mesh, one process per rank (dp·sp cards):
@@ -19,7 +22,7 @@ drain path or the async path.
         --device cpu --problem mds --rep sparse
 
 On a mesh every rank serves the same stream (the sync path runs SPMD)
-and only rank 0 prints.
+and only rank 0 prints; ``--mode async`` and ``--rate`` run on one device.
 """
 from __future__ import annotations
 
@@ -103,16 +106,23 @@ def main(argv=None):
                     help="sync: queue everything and drain() once; async: "
                          "submit futures against the scheduler thread")
     ap.add_argument("--rate", type=float, default=0.0,
-                    help="open-loop Poisson load at this rate; needs the "
-                         "load generator, which is not ported yet")
+                    help="offered load in requests/s; > 0 drives an "
+                         "open-loop Poisson arrival stream "
+                         "(serving/loadgen.py) in --mode instead of a "
+                         "burst")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="per-request latency SLO: the async scheduler's "
+                         "EDF order and the goodput's on-time count")
+    ap.add_argument("--max-wait-ms", type=float, default=50.0,
+                    help="longest head-of-queue wait before an underfilled "
+                         "bucket dispatches partial")
+    ap.add_argument("--queue-depth", type=int, default=512,
+                    help="admission bound: async submissions beyond this "
+                         "depth are rejected (ServiceOverloaded)")
     ap.add_argument("--warmup", action="store_true",
                     help="run each bucket's first dispatch before the "
                          "first request")
     args = ap.parse_args(argv)
-    if args.rate > 0:
-        raise NotImplementedError(
-            "--rate needs serving/loadgen.py, which is not ported yet: "
-            "see ROADMAP queue A (serving)")
 
     import torch.distributed as dist
     from ..core import is_multi, parse_spatial
@@ -120,10 +130,11 @@ def main(argv=None):
     spatial = parse_spatial(args.spatial)
     rank, device = 0, args.device
     if is_multi(spatial):
-        if args.mode == "async":
-            raise NotImplementedError("--mode async on a mesh is not ported "
-                                      "(ROADMAP item \"the rest of solve and "
-                                      "serving\"); use --mode sync")
+        if args.mode == "async" or args.rate > 0:
+            raise NotImplementedError(
+                "--mode async and --rate on a mesh are not ported (ROADMAP "
+                "item \"async serving on a mesh\"); use --mode sync "
+                "without --rate")
         rank, device = init_mesh_ranks(spatial, args.dist_backend,
                                        args.device)
     try:
@@ -137,14 +148,17 @@ def _serve(args, spatial, rank: int, device) -> None:
     import torch
     from ..core import PolicyConfig, init_policy
     from ..core.graphs import barabasi_albert, erdos_renyi, social_like
-    from ..serving import GraphSolverService
+    from ..serving import GraphSolverService, make_workload, run_open_loop
 
     say = print if rank == 0 else (lambda *a, **k: None)
     cfg = PolicyConfig(embed_dim=args.embed_dim, num_layers=2,
                        graph_rep=args.rep, spatial=spatial)
     svc_kw = dict(device=device, max_batch=args.max_batch,
                   sparse_max_degree=args.sparse_max_degree,
-                  csr_max_edges=args.csr_max_edges)
+                  csr_max_edges=args.csr_max_edges,
+                  max_wait_ms=args.max_wait_ms,
+                  max_queue_depth=args.queue_depth,
+                  default_deadline_ms=args.deadline_ms)
     if args.ckpt_dir:
         svc = GraphSolverService.from_checkpoint(args.ckpt_dir, cfg, **svc_kw)
         say(f"policy loaded from {args.ckpt_dir}")
@@ -160,6 +174,18 @@ def _serve(args, spatial, rank: int, device) -> None:
         say(f"warmup: {len(info['compiled'])} buckets in "
             f"{info['seconds']:.2f}s -> request-path first dispatches == 0")
 
+    if args.rate > 0:
+        wl = make_workload(args.rate, args.requests, sizes,
+                           problem=args.problem, kind=args.kind,
+                           deadline_ms=args.deadline_ms, seed=args.seed)
+        rep = run_open_loop(svc, wl, mode=args.mode)
+        svc.close()
+        say(f"{rep.mode} @ {args.rate:.1f} rps offered: "
+            f"p50 {rep.p50_ms:.1f}ms p99 {rep.p99_ms:.1f}ms, "
+            f"goodput {rep.goodput_rps:.1f} rps "
+            f"({rep.on_time}/{rep.submitted} on time, "
+            f"{rep.rejected} shed)")
+        return
     make = {"er": lambda n, s: erdos_renyi(n, 0.2, seed=s),
             "ba": lambda n, s: barabasi_albert(n, 4, seed=s),
             "social": lambda n, s: social_like(n, seed=s)}[args.kind]

@@ -19,8 +19,8 @@ data rank, each evaluation partitioned sp ways.  The sync path runs SPMD:
 every rank builds the same service and submits the same requests in the
 same order, so the ranks plan the same dispatches and each returns every
 response.  The async scheduler batches by wall-clock time, which differs
-across ranks, so it runs on one device only (ROADMAP item "the rest of
-solve and serving").  Every registered problem serves on one device and
+across ranks, so it runs on one device only (ROADMAP item "async serving
+on a mesh").  Every registered problem serves on one device and
 on a mesh.
 
 Where the JAX service caches one compiled step per (bucket, problem), the
@@ -287,8 +287,8 @@ class GraphSolverService:
             raise NotImplementedError(
                 "async serving on a mesh is not ported: its batching follows "
                 "each rank's clock, so the ranks would plan different "
-                "dispatches (ROADMAP item \"the rest of solve and "
-                "serving\"); use the sync serve()/drain()")
+                "dispatches (ROADMAP item \"async serving on a mesh\"); "
+                "use the sync serve()/drain()")
         adj = self._validate(adj, problem)
         if deadline_ms is None:
             deadline_ms = self.default_deadline_ms

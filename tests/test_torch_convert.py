@@ -114,8 +114,10 @@ def test_launcher_runs_on_the_cpu_when_asked(capsys):
     out = capsys.readouterr().out
     assert "served 4 requests on cpu" in out
     assert "0 request-path first dispatches" in out
-    with pytest.raises(NotImplementedError, match="loadgen"):
-        solve_serve.main(["--device", "cpu", "--rate", "5"])
+    # --rate drives the open-loop load generator and prints its report
+    solve_serve.main(["--device", "cpu", "--rate", "50", "--requests", "3",
+                      "--sizes", "12", "--embed-dim", "8"])
+    assert "sync @ 50.0 rps offered: p50 " in capsys.readouterr().out
 
 
 def test_entry_points_raise_without_cuda(tmp_path, jax_params):

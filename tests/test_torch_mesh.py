@@ -256,10 +256,11 @@ def test_launcher_parses_spatial_and_needs_torchrun(monkeypatch):
                           "--dist-backend", "gloo"])
     with pytest.raises(RuntimeError, match="--nproc-per-node 2"):
         solve_serve.main(["--device", "cpu", "--spatial", "2"])
-    with pytest.raises(NotImplementedError,
-                       match="rest of solve and serving"):
-        solve_serve.main(["--device", "cpu", "--spatial", "1,2", "--mode",
-                          "async"])
+    for extra in (["--mode", "async"], ["--rate", "5"]):
+        with pytest.raises(NotImplementedError,
+                           match="async serving on a mesh"):
+            solve_serve.main(["--device", "cpu", "--spatial", "1,2"]
+                             + extra)
     monkeypatch.setenv("RANK", "0")
     monkeypatch.setenv("WORLD_SIZE", "2")
     monkeypatch.setenv("LOCAL_RANK", "0")
@@ -385,4 +386,4 @@ def test_mesh_service_matches_single_device_service(case, mesh_run):
                 np.testing.assert_array_equal(sol, j.solution)
                 assert evals == r.policy_evals
         for out in ranks:
-            assert "rest of solve and serving" in out["async_error"]
+            assert "async serving on a mesh" in out["async_error"]

@@ -392,7 +392,7 @@ def test_three_problems_refused_on_a_mesh(setup, problem):
     assert svc.pending() == 1
     svc.mesh = object()                            # a mesh service's mesh
     with pytest.raises(NotImplementedError,
-                       match="rest of solve and serving"):
+                       match="async serving on a mesh"):
         svc.submit_async(adj[0], problem=problem)
     with pytest.raises(ValueError, match="unknown environment"):
         solve(policy, adj, problem="nope", spatial=(1, 2), device="cpu")

@@ -171,9 +171,12 @@ def test_unported_options_raise_not_implemented(pair):
                dict(rep="sparse", problem="mis", spatial=(1, 2))):
         with pytest.raises(RuntimeError, match="spawn_mesh"):
             solve(policy, adj, device="cpu", **kw)
-    with pytest.raises(NotImplementedError,
-                       match="rest of solve and serving"):
-        solve(policy, adj, device="cpu", engine="host")
+    # the per-evaluation loop runs on one device and gives the fused
+    # solve's answer (tests/test_torch_host_engine.py holds it to JAX's)
+    host = solve(policy, adj, device="cpu", engine="host")
+    fused = solve(policy, adj, device="cpu")
+    np.testing.assert_array_equal(host.solution, fused.solution)
+    assert host.policy_evals == fused.policy_evals
     for kw in (dict(problem="maxcut"), dict(rep="sparse", problem="mis")):
         res = solve(policy, adj, device="cpu", **kw)
         assert env.checker(kw["problem"])(

@@ -8,6 +8,7 @@ autograd's through the plain composition, and within 1e-5 of JAX's vjp;
 train steps within rtol 1e-5 / atol 1e-6 of JAX's fused step (the bar
 ``tests/test_engine.py`` sets between JAX's host loop and fused step)."""
 import dataclasses
+import math
 
 import numpy as np
 import jax
@@ -41,7 +42,7 @@ from repro_torch.core import (DENSE, Agent, PolicyConfig, ReplayBuffer,
                               TrainDraws, candidate_mask, device_replay_at,
                               device_replay_init, device_replay_push,
                               device_replay_sample, draw_train_step,
-                              engine_init, get_rep, get_train_step,
+                              engine_init, env, get_rep, get_train_step,
                               train_agent, tuples_to_graphs)
 from repro_torch.core.replay import device_replay_sample_idx
 from repro_torch.core.agent import train_minibatch_raw
@@ -490,7 +491,7 @@ def test_train_agent_trains_on_the_cpu():
                        replay_capacity=128, learning_rate=1e-3)
     host = ReplayBuffer(cfg.replay_capacity, n)
     agent = Agent(cfg, num_nodes=n, device="cpu", replay=host)
-    assert Agent(cfg, num_nodes=n, device="cpu").replay is None
+    assert Agent(cfg, num_nodes=n, device="cpu").replay.size == 0
     before = {k: v.copy() for k, v in policy_to_numpy(agent.params).items()}
     log = train_agent(agent, adj, episodes=4, tau=2, eval_every=10 ** 9,
                       seed=0)
@@ -523,8 +524,19 @@ def test_unported_training_is_refused():
     adj = random_graph_batch("er", n, 2, seed=0, rho=0.3)
     cfg = PolicyConfig(embed_dim=8)
     agent = Agent(cfg, num_nodes=n, device="cpu")
-    with pytest.raises(NotImplementedError, match="rest of solve and serving"):
-        train_agent(agent, adj, episodes=1, engine="host")
+    # the host loop runs on one device (tests/test_torch_host_engine.py)
+    log = train_agent(agent, adj, episodes=1, engine="host")
+    assert len(log.losses) > 0 and agent.replay.size == len(log.losses)
+    # and so do its parts: act, remember and train on the host replay
+    state = DENSE.init_state(adj, device="cpu")
+    action = agent.act(state)
+    assert state.candidate[torch.arange(2), action].all()
+    new, reward, done = env.mvc_step(state, torch.as_tensor(action))
+    size = agent.replay.size
+    agent.remember([0, 1], state, action, reward, new, done)
+    assert agent.replay.size == size + 2
+    assert math.isnan(agent.train(torch.from_numpy(adj))) == (
+        agent.replay.size < cfg.minibatch)
     # the other problems train on one device
     # (tests/test_torch_problems_train.py) and on a mesh, whose ranks they
     # ask for as mvc does (tests/test_torch_problems_mesh.py)
@@ -540,10 +552,6 @@ def test_unported_training_is_refused():
         get_train_step(dataclasses.replace(cfg, spatial=(1, 2)))
     with pytest.raises(ValueError, match="unknown environment"):
         get_train_step(cfg, problem="tsp")
-    for call in (lambda: agent.act(None), lambda: agent.train(None),
-                 lambda: agent.remember(0, None, 0, 0, None, False)):
-        with pytest.raises(NotImplementedError, match="engine=\"host\""):
-            call()
     with pytest.raises(ValueError, match="target_mode"):
         Agent(cfg, num_nodes=n, device="cpu", target_mode="late")
 
