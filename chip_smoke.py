@@ -372,6 +372,24 @@ MESH_FULL_WARM, MESH_FULL_TIMED = 7, 4
 # each problem fresh at epsilon 0.5 on the (rep, shape) pairs below.
 MESH_SERVICE_PROBLEMS = ("mis", "mds")
 MESH_PROBLEM_SMALL = (("dense", (2, 2)), ("sparse", (2, 2)), ("csr", (2, 1)))
+# Async serving, open-loop load and the host training loop on the mesh
+# (ROADMAP A6b), in the (2, 2) spawn after its sync service: the MVC async
+# service on the same graphs, rank 0 its one planner and the other ranks
+# following; open-loop load of MESH_OPEN_LOOP_REQUESTS graphs of
+# MESH_SERVE_SIZES at MESH_OPEN_LOOP_FACTOR times the sync service's burst
+# requests/s, in both modes; the host loop's small lockstep
+# (MESH_SMALL_CFG, MESH_SMALL_RUN, fresh, epsilon 1 so that every action is
+# the agents' numpy pick) on MESH_HOST_SMALL's (rep, shape) pairs, and
+# MESH_HOST_STEPS host-loop steps at MESH_TRAIN_FULL's MVC dense (2, 2)
+# cell (the replay warm from index 7: 8 x 8 = 64 tuples; the warm steps
+# after the first timed); the launcher's --rate on a (2, 1) mesh under
+# torchrun.
+MESH_OPEN_LOOP_REQUESTS, MESH_OPEN_LOOP_FACTOR = 16, 2.0
+MESH_HOST_SMALL = (("dense", (2, 2)), ("csr", (2, 1)))
+MESH_HOST_FULL = ("mvc", "dense", (2, 2))
+MESH_HOST_STEPS, MESH_HOST_WARM_FROM = 11, 7
+MESH_LAUNCHER_RATE = ("--spatial", "2,1", "--dist-backend", "gloo",
+                      *LAUNCHER_RATE)
 MESH_TIMEOUT_S = 420.0           # one spawn, its paper-scale solves included
 TIMING_BUDGET_S = 1.0            # per timed function (see cuda_ms)
 WALKS = ("rows", "windows")      # the sparse and CSR layers' two routes
@@ -3293,6 +3311,225 @@ def check_mesh_service(torch, policy, spec, ranks, ref_answers, serve_adjs,
           "note": "ranks share one card; not a scaling figure"})
 
 
+def check_mesh_async(torch, policy, spec, ranks, serve_adjs, failures,
+                     launches):
+    """The (2, 2) service's async half (``mesh_async_rank``): for the async
+    burst and each open-loop mode, every request answered once with a
+    cover, no first dispatch on the request path, every rank's
+    dispatches and answers rank 0's, each rank's B2 launches its batch
+    evaluations; the burst's answers the sync service's except where a
+    dispatch, traced on both sides, parts at near-ties
+    (``check_mesh_service``'s rule); the open-loop answers the mesh's own
+    ``serve()``'s of the same graphs.  Prints the plans' bytes and
+    milliseconds a dispatch (rank 0 sending, the others receiving) and
+    rank 0's reports."""
+    from repro_torch.serving import make_workload
+    halves = ranks[0]["async"]
+    wl = make_workload(halves["rate"], MESH_OPEN_LOOP_REQUESTS,
+                       MESH_SERVE_SIZES, rho=0.15, seed=SEED)
+    for key in ("burst", ("open_loop", "async"), ("open_loop", "sync")):
+        burst = key == "burst"
+        tag = "mesh async burst" if burst else f"mesh open loop {key[1]}"
+        runs = [rk["async"][key] for rk in ranks]
+        lead = runs[0]
+        graphs = serve_adjs if burst else list(wl.adjs)
+        first = 0 if burst else lead["first"]
+        ids = sorted(i for d in lead["dispatches"] for i in d["ids"])
+        if ids != list(range(first, first + len(graphs))):
+            failures.append(f"{tag}: answered ids {ids}")
+        for rk, r in zip(ranks, runs):
+            same = [d["ids"] for d in r["dispatches"]] == [
+                d["ids"] for d in lead["dispatches"]] and all(
+                np.array_equal(a, b)
+                for d, e in zip(r["dispatches"], lead["dispatches"])
+                for a, b in zip(d["answers"], e["answers"]))
+            if not same:
+                failures.append(f"{tag}: rank {rk['rank']}'s dispatches "
+                                f"differ from rank 0's")
+            evals = sum(d["evals"] for d in r["dispatches"])
+            if r["counts"]["mp_aggregate"] != evals:
+                failures.append(f"{tag}: rank {rk['rank']} launched "
+                                f"{r['counts']['mp_aggregate']} B2 for "
+                                f"{evals} batch evaluations")
+            if r["compiles"]:
+                failures.append(f"{tag}: rank {rk['rank']}: {r['compiles']} "
+                                f"first dispatches on the request path")
+            launches["mp_aggregate"] += r["counts"]["mp_aggregate"]
+        cases_all, near_all, differing = [], True, 0
+        for d in lead["dispatches"]:
+            for rid, ans in zip(d["ids"], d["answers"]):
+                if not is_cover(graphs[rid - first], ans):
+                    failures.append(f"{tag}: answer {rid} is not a cover")
+            if d["trace"] is None:
+                continue
+            differing += 1
+            ref_trace = traced_solve(torch, policy, d["adj"], "dense", 0,
+                                     torch.device(DEVICE))
+            cases, near = parting(ref_trace, d["trace"])
+            cases_all += [dict(c, requests=list(d["ids"])) for c in cases]
+            near_all &= near
+        if not burst and differing:
+            failures.append(f"{tag}: {differing} dispatches answer other "
+                            f"than the mesh's serve() of the same graphs")
+        if not near_all:
+            failures.append(f"{tag}: parts at no near-tie: {cases_all}")
+        dispatches = len(lead["dispatches"])
+        if lead["channel"]["plans"] != dispatches + 1:   # and the stop
+            failures.append(f"{tag}: {lead['channel']['plans']} plans for "
+                            f"{dispatches} dispatches")
+        row = {"phase": "mesh_async" if burst else "mesh_open_loop",
+               "backend": "gloo", "ranks_share_card": True,
+               "shape": list(spec), "problem": "mvc",
+               "requests": len(graphs), "dispatches": dispatches,
+               "batch_evals": [d["evals"] for d in lead["dispatches"]],
+               "differing_dispatches": differing, "partings": cases_all,
+               "plan_bytes_per_dispatch":
+                   lead["channel"]["payload_bytes"] / dispatches,
+               "plan_ms_per_dispatch_per_rank": [
+                   1e3 * r["channel"]["seconds"] / dispatches
+                   for r in runs],
+               "launches_per_rank": [r["counts"]["mp_aggregate"]
+                                     for r in runs],
+               "seconds": lead["seconds"],
+               "note": "ranks share one card; not a scaling figure"}
+        if burst:
+            row["identical_to_sync"] = len(graphs) - sum(
+                len(d["ids"]) for d in lead["dispatches"]
+                if d["trace"] is not None)
+        else:
+            rep = lead["report"]
+            if not (rep["submitted"] == rep["completed"] == len(graphs)
+                    and rep["rejected"] == 0):
+                failures.append(f"{tag}: {rep}")
+            row.update(mode=key[1], rate_rps=halves["rate"],
+                       rate_factor=MESH_OPEN_LOOP_FACTOR,
+                       **{k: rep[k] for k in (
+                           "p50_ms", "p99_ms", "mean_ms", "goodput_rps",
+                           "wall_s", "completed", "rejected")})
+        emit(row)
+
+
+def check_mesh_host(spec, ranks, refs, failures, launches):
+    """The host loop on the mesh (``mesh_host_small``, ``mesh_host_full``):
+    each small run of ``spec`` against the single-device host loop on the
+    card (``refs``): the ranks' weights bit for bit, the replay's tuples
+    identical (epsilon 1: every action the agents' numpy pick), losses
+    and weights within rtol 1e-5 / atol 1e-6 (the mesh sums the loss and
+    the gradients in other orders); at MESH_HOST_FULL's shape the
+    full-width run: B1 once a cold step (the act) and 1 + tau a warm one
+    (the act and the whole-state fresh targets), B2 tau a warm step (the
+    GD forward on the tile), finite losses from the first warm step, the
+    control read counted once; its seconds a warm step beside the fused
+    mesh step's in the same spawn, the syncs of its step after the first
+    warm one and peak bytes per rank."""
+    for rep, shape in MESH_HOST_SMALL:
+        if shape != spec:
+            continue
+        runs = [rk["host_small"][rep] for rk in ranks]
+        ref, got = refs[rep], runs[0]
+        tag = f"mesh host loop {spec} {rep}"
+        if any(not np.array_equal(r["params"], got["params"]) for r in runs):
+            failures.append(f"{tag}: the ranks' weights differ")
+        ring = all(np.array_equal(got["ring"][f], ref["ring"][f])
+                   for f in ref["ring"])
+        if not ring:
+            failures.append(f"{tag}: the replay's tuples differ from one "
+                            f"device's")
+        warm = np.isfinite(ref["losses"])
+        loss_err = float(np.max(np.abs(got["losses"][warm]
+                                       - ref["losses"][warm]), initial=0.0))
+        if not (np.array_equal(np.isfinite(got["losses"]), warm)
+                and warm.sum() >= 3
+                and np.allclose(got["losses"][warm], ref["losses"][warm],
+                                rtol=1e-5, atol=1e-6)):
+            failures.append(f"{tag}: losses {got['losses']} vs "
+                            f"{ref['losses']}")
+        param_err = float(np.abs(got["params"] - ref["params"]).max())
+        if not np.allclose(got["params"], ref["params"], rtol=1e-5,
+                           atol=1e-6):
+            failures.append(f"{tag}: weights {param_err} apart")
+        emit({"phase": "mesh_host_small", "backend": "gloo",
+              "ranks_share_card": True, "shape": list(spec), "rep": rep,
+              "steps": len(ref["losses"]), "warm_steps": int(warm.sum()),
+              "replay_tuples": int(len(ref["ring"]["action"])),
+              "identical_replay": ring, "loss_max_abs_err": loss_err,
+              "param_max_abs_err": param_err})
+    if spec != MESH_HOST_FULL[2]:
+        return
+    runs = [rk["host_full"] for rk in ranks]
+    timed = slice(MESH_HOST_WARM_FROM + 1, None)
+    for rk, r in zip(ranks, runs):
+        tag = f"mesh host loop {spec} dense, rank {rk['rank']}"
+        for i, c in enumerate(r["counts"]):
+            warm = i >= MESH_HOST_WARM_FROM
+            want = (1 + TRAIN_TAU, TRAIN_TAU) if warm else (1, 0)
+            got = (c["fused_s2v_layer"], c["mp_aggregate"])
+            if got != want:
+                failures.append(f"{tag}: step {i} launched B1, B2 {got}, "
+                                f"not {want}")
+            if math.isfinite(r["losses"][i]) != warm:
+                failures.append(f"{tag}: losses {r['losses']}")
+        if r["control_syncs"] != 1:
+            failures.append(f"{tag}: the control read was counted "
+                            f"{r['control_syncs']} times")
+        for name in ("fused_s2v_layer", "mp_aggregate"):
+            launches[name] = launches.get(name, 0) + sum(
+                c[name] for c in r["counts"])
+    fused = [rk["train_full"][MESH_HOST_FULL[:2]]["seconds"][
+        MESH_FULL_WARM + 2:] for rk in ranks]
+    emit({"phase": "mesh_host_train", "backend": "gloo",
+          "ranks_share_card": True, "shape": list(spec), "rep": "dense",
+          "problem": "mvc", "steps": MESH_HOST_STEPS,
+          "warm_steps": MESH_HOST_STEPS - MESH_HOST_WARM_FROM,
+          "tau": TRAIN_TAU, "minibatch": TRAIN_CFG["minibatch"],
+          "N": TRAIN_DATA[1],
+          "launches_per_warm_step": {
+              "fused_s2v_layer": 1 + TRAIN_TAU, "mp_aggregate": TRAIN_TAU},
+          "median_warm_step_s_per_rank": [float(np.median(r["seconds"][
+              timed])) for r in runs],
+          "warm_step_s_rank0": runs[0]["seconds"][timed],
+          "fused_median_warm_step_s_per_rank": [float(np.median(f))
+                                                for f in fused],
+          "syncs_one_warm_step_per_rank": [r["syncs"] for r in runs],
+          "syncs_by_line_rank0": runs[0]["syncs_by_line"],
+          "peak_gb_per_rank": [r["peak_device_bytes"] / 1e9 for r in runs],
+          "losses_rank0": runs[0]["losses"],
+          "note": "ranks share one card; not a scaling figure"})
+
+
+def launcher_mesh_rate():
+    """The launcher's ``--rate --mode async`` on a (2, 1) mesh of two gloo
+    ranks sharing the card, under torchrun: it must exit 0 with the load
+    report line printed once, by rank 0.  Its processes are a session of
+    their own, killed whole if it outlives its limit."""
+    import signal
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "2", "-m", "repro_torch.launch.solve_serve",
+           *MESH_LAUNCHER_RATE]
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        env.pop(var, None)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError("the launcher's --rate on a mesh did not end "
+                             "within 300 s; killed")
+    lines = [ln for ln in stdout.splitlines() if "rps offered" in ln]
+    if proc.returncode != 0 or len(lines) != 1 \
+            or not lines[0].startswith("async @ 50.0 rps offered: "):
+        raise AssertionError(f"the launcher's --rate on a mesh: rc "
+                             f"{proc.returncode}, {stdout[-2000:]} "
+                             f"{stderr[-2000:]}")
+    emit({"phase": "launcher_mesh_rate", "args": list(MESH_LAUNCHER_RATE),
+          "line": lines[0], "seconds": time.perf_counter() - t0})
+
+
 def check_paper_mesh(spec, ranks, paper, failures, launches):
     """The paper-scale mesh solves of one spawn: covers, the ranks agree,
     the rep's kernel once per evaluation, and each rank's peak device
@@ -3359,11 +3596,14 @@ def phase_mesh(torch, policy, cfg, stream, paper):
     """The mesh phase: gloo ranks sharing cuda:0, one spawn per shape in
     MESH_SHAPES, each held to the single-device port on the card: the
     solves of MVC and of MaxCut, MIS and MDS; at (2, 2) the sync service
-    of MVC and of MESH_SERVICE_PROBLEMS; the mesh's train half (the small
-    lockstep of ``mesh_small_cases``, the full-width runs of
-    MESH_TRAIN_FULL, against their references on one device,
-    ``mesh_train_refs``); the paper-scale solves of PAPER_MESH.  Returns
-    the mesh kernels' launches in the solves and in the full-width train
+    of MVC and of MESH_SERVICE_PROBLEMS, then the async service and
+    open-loop load with rank 0 as the one planner (``check_mesh_async``);
+    the mesh's train half (the small lockstep of ``mesh_small_cases``, the
+    full-width runs of MESH_TRAIN_FULL, against their references on one
+    device, ``mesh_train_refs``) and the host loop on the mesh
+    (``check_mesh_host``); the paper-scale solves of PAPER_MESH; then the
+    launcher's --rate on a mesh under torchrun.  Returns the mesh kernels'
+    launches in the solves, the services and in the full-width train
     runs, summed over ranks."""
     import tempfile
     from repro_torch.convert import policy_to_numpy
@@ -3394,6 +3634,10 @@ def phase_mesh(torch, policy, cfg, stream, paper):
     refs = {key: (res.solution, res.policy_evals)
             for key, (res, _) in ref.items()}
     weights = policy_to_numpy(policy)
+    t0 = time.perf_counter()
+    host_refs = {rep: mesh_host_small(torch, weights, adj, dev, rep)
+                 for rep, _ in MESH_HOST_SMALL}
+    a6b_s = {"host_refs": time.perf_counter() - t0}
     launches, train_launches, failures = {"mp_aggregate": 0}, {}, []
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         t0 = time.perf_counter()
@@ -3417,7 +3661,10 @@ def phase_mesh(torch, policy, cfg, stream, paper):
                       (serve_adjs, ref_answers) if spec == (2, 2) else None,
                       dict(train_args, small=mesh_small_cases(spec),
                            full=[(p, rep) for p, rep, shape in MESH_TRAIN_FULL
-                                 if shape == spec]),
+                                 if shape == spec],
+                           host_small=[rep for rep, shape in MESH_HOST_SMALL
+                                       if shape == spec],
+                           host_full=spec == MESH_HOST_FULL[2]),
                       dict(files, reps=reps, max_d=PAPER_MAX_D,
                            trace=[rep for rep, shape in PAPER_TRACE
                                   if shape == spec])))
@@ -3430,9 +3677,15 @@ def phase_mesh(torch, policy, cfg, stream, paper):
                     check_mesh_service(torch, policy, spec, ranks,
                                        ref_answers[p], serve_adjs, failures,
                                        launches, p)
+                check_mesh_async(torch, policy, spec, ranks, serve_adjs,
+                                 failures, launches)
             check_mesh_train_small(spec, ranks, train_refs, failures)
             check_mesh_train_full(spec, ranks, train_refs, failures,
                                   train_launches)
+            check_mesh_host(spec, ranks, host_refs, failures,
+                            train_launches)
+            for part, sec in ranks[0].get("a6b_s", {}).items():
+                a6b_s[f"{part} {spec[0]}x{spec[1]}"] = sec
             check_paper_mesh(spec, ranks, paper, failures, launches)
             for rk in ranks:
                 if "profile" in rk:
@@ -3442,6 +3695,12 @@ def phase_mesh(torch, policy, cfg, stream, paper):
                           **rk["profile"],
                           "note": "ranks share one card; not a scaling "
                                   "figure"})
+    t0 = time.perf_counter()
+    launcher_mesh_rate()
+    a6b_s["launcher"] = time.perf_counter() - t0
+    # what the async half, the host loop and the launcher add to the phase
+    emit({"phase": "mesh_a6b_seconds", **a6b_s,
+          "total": sum(a6b_s.values())})
     if failures:
         raise AssertionError("the mesh phase failed:\n" + "\n".join(
             str(f) for f in failures))
@@ -4266,6 +4525,190 @@ def serve_plans(adjs, rows):
                          for i, a in enumerate(adjs)], rows)
 
 
+# ---------------------------------------------------------------------------
+# Async serving, open-loop load and the host loop on the mesh (ROADMAP A6b):
+# run by the ranks of a mesh-phase spawn.
+# ---------------------------------------------------------------------------
+
+def record_dispatches(svc) -> list:
+    """Every rank's record of the dispatches it runs, as (plan,
+    responses): rank 0 plans them and the others receive the same plans;
+    the solutions are all-gathered, so every rank holds rank 0's."""
+    runs = []
+    dispatch = svc._dispatch
+
+    def record(plan):
+        responses = dispatch(plan)
+        runs.append((plan, responses))
+        return responses
+    svc._dispatch = record
+    return runs
+
+
+def lead_or_follow(mesh, svc, lead):
+    """Rank 0 runs ``lead(svc)``, then closes the service; the other ranks
+    follow it until it does.  Returns rank 0's result (None elsewhere)."""
+    if mesh.rank != 0:
+        svc.follow()
+        return None
+    try:
+        return lead(svc)
+    finally:
+        svc.close()
+
+
+def dispatch_summary(torch, policy, runs, want, spec, dev) -> list:
+    """The recorded dispatches as the parent checks them: ids, sizes,
+    answers and evaluations; where an answer differs from ``want`` (by
+    request id) the dispatch's padded batch and its mesh solve traced
+    (every rank holds the same plans and answers, so every rank traces
+    the same dispatches, as the traced solve's collectives need)."""
+    out = []
+    for plan, responses in runs:
+        same = all(np.array_equal(r.solution, want[r.id]) for r in responses)
+        out.append({"ids": plan.request_ids, "sizes": plan.sizes,
+                    "answers": [r.solution for r in responses],
+                    "evals": responses[0].policy_evals,
+                    "adj": None if same else plan.adj,
+                    "trace": None if same else traced_solve(
+                        torch, policy, plan.adj, "dense", spec, dev)})
+    return out
+
+
+def mesh_async_rank(torch, mesh, dev, policy, cfg, serve_adjs, sync_answers,
+                    rate):
+    """One rank's async half of the (2, 2) service: a warmed MVC service
+    (every rank warms it) answering ``serve_adjs`` through
+    ``submit_async`` on rank 0 while the others follow; then
+    ``make_workload(rate, MESH_OPEN_LOOP_REQUESTS, MESH_SERVE_SIZES)``
+    served by every rank (``serve()``, SPMD) and driven open-loop in both
+    modes by rank 0 (``run_open_loop``), the others following.  Per run:
+    the rank's launches, its plan channel's traffic, the dispatches
+    (``dispatch_summary``: against the sync answers and ``serve()``'s),
+    seconds, and rank 0's report."""
+    from repro_torch.device import synchronize
+    from repro_torch.serving import (GraphSolverService, make_workload,
+                                     run_open_loop)
+    spec = mesh.shape
+    svc = GraphSolverService(policy, cfg, device=dev, multi_node=True,
+                             max_batch=8)
+    svc.warmup([a.shape[0] for a in serve_adjs])
+    runs = record_dispatches(svc)
+    wl = make_workload(rate, MESH_OPEN_LOOP_REQUESTS, MESH_SERVE_SIZES,
+                       rho=0.15, seed=SEED)
+
+    def drive(lead):
+        runs.clear()
+        synchronize(dev)
+        reset_counts()
+        before = dict(svc._channel.stats)
+        t0 = time.perf_counter()
+        result = lead_or_follow(mesh, svc, lead)
+        synchronize(dev)
+        return {"seconds": time.perf_counter() - t0, "counts": read_counts(),
+                "channel": {k: svc._channel.stats[k] - v
+                            for k, v in before.items()},
+                "result": result, "compiles": svc.stats.compiles}
+
+    out = {"rate": rate, "requests": len(wl)}
+    burst = drive(lambda s: [f.result() for f in
+                             [s.submit_async(a) for a in serve_adjs]])
+    burst.pop("result")
+    burst["dispatches"] = dispatch_summary(torch, policy, runs,
+                                           dict(enumerate(sync_answers)),
+                                           spec, dev)
+    out["burst"] = burst
+    runs.clear()
+    base = [r.solution for r in svc.serve(list(wl.adjs))]
+    for mode in ("async", "sync"):
+        got = drive(lambda s: run_open_loop(s, wl, mode=mode).as_dict())
+        got["report"] = got.pop("result")
+        got["first"] = min(i for plan, _ in runs for i in plan.request_ids)
+        got["dispatches"] = dispatch_summary(
+            torch, policy, runs,
+            {got["first"] + i: a for i, a in enumerate(base)}, spec, dev)
+        out["open_loop", mode] = got
+    return out
+
+
+def mesh_host_run(torch, weights, data, dev, rep, spatial, *, cfg, tau, b,
+                  steps, eval_fn=None):
+    """``train_agent(engine="host")`` of MVC on ``data`` (host graphs) at
+    epsilon 1, fresh targets, for ``steps`` steps of one episode of ``b``
+    graphs from seed SEED + 23, on one device (``spatial`` 0) or on this
+    rank of the ``spatial`` mesh.  Returns the agent and its log."""
+    from repro_torch.convert import policy_from_numpy
+    from repro_torch.core import Agent, PolicyConfig, train_agent
+    cfg = PolicyConfig(**cfg, eps_start=1.0, eps_end=1.0, spatial=spatial)
+    agent = Agent(cfg, num_nodes=data.shape[-1], device=dev,
+                  params=policy_from_numpy(weights, device=dev))
+    log = train_agent(agent, data, rep=rep, episodes=1, max_steps=steps,
+                      tau=tau, batch_graphs=b, seed=SEED + 23,
+                      engine="host", eval_every=1, eval_fn=eval_fn)
+    return agent, log
+
+
+def mesh_host_small(torch, weights, adj, dev, rep, spatial=0) -> dict:
+    """The host loop's small lockstep run (MESH_SMALL_CFG, MESH_SMALL_RUN)
+    on ``adj``: losses, the replay's tuples and the trained weights.
+    Never counted: the full-width run is the main path."""
+    b, tau, steps = MESH_SMALL_RUN
+    agent, log = mesh_host_run(torch, weights, adj, dev, rep, spatial,
+                               cfg=MESH_SMALL_CFG, tau=tau, b=b, steps=steps)
+    ring = agent.replay
+    return {"losses": np.array(log.losses),
+            "ring": {f: getattr(ring, f)[:ring.size].copy() for f in
+                     ("graph_idx", "solution", "action", "reward",
+                      "next_solution", "done")},
+            "params": flat_params(torch, agent.params)}
+
+
+def mesh_host_full(torch, mesh, dev, weights, data) -> dict:
+    """One rank's host loop at MESH_HOST_FULL's cell: MESH_HOST_STEPS steps
+    (TRAIN_CFG, TRAIN_TAU, TRAIN_DATA's episode graphs), each step's
+    seconds and kernel launches, the losses and the peak device bytes;
+    the step after the first warm one with the synchronizing calls made
+    on this thread counted (``main_thread_syncs`` in "warn" mode, as
+    ``mesh_full_run``), then one deliberate host read, the control."""
+    from repro_torch.device import synchronize
+    marks, counted = [], {}
+    checked = MESH_HOST_WARM_FROM + 1
+    window = main_thread_syncs(torch)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def mark(_agent):
+        if len(marks) == checked:          # the counted step ends here
+            syncs = counted["syncs"]
+            counted["where"] = syncs(where=True)
+            torch.zeros((), device=dev).item()
+            counted["control"] = len(syncs()) - len(counted["where"])
+            window.__exit__(None, None, None)
+        synchronize(dev)
+        marks.append((time.perf_counter(), read_counts()))
+        reset_counts()
+        if len(marks) == checked:          # the counted step starts
+            counted["syncs"] = window.__enter__()
+        return 0.0
+    synchronize(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    _, log = mesh_host_run(torch, weights, data, dev, "dense", mesh.shape,
+                           cfg=TRAIN_CFG, tau=TRAIN_TAU, b=TRAIN_DATA[2],
+                           steps=MESH_HOST_STEPS, eval_fn=mark)
+    times = [t0] + [m[0] for m in marks]
+    where = counted.get("where") or []
+    return {"seconds": [b - a for a, b in zip(times, times[1:])],
+            "counts": [m[1] for m in marks],
+            "syncs": len(where),
+            "syncs_by_line": {k: where.count(k) for k in sorted(set(where))},
+            "control_syncs": counted.get("control"),
+            "losses": list(log.losses),
+            "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
+                                  if on_card else 0)}
+
+
 def mesh_rank(mesh, dev, weights, adj, refs, serve, train, paper):
     """One rank of a mesh-phase spawn: full solves of the (8, 256) batch
     on dense and sparse (CSR too at sp = 1; the sparse "xla" chain at
@@ -4274,10 +4717,14 @@ def mesh_rank(mesh, dev, weights, adj, refs, serve, train, paper):
     the single-device ones (``refs``), else for the first evaluation's
     scores; at (2, 2) the sync service of MVC and of
     MESH_SERVICE_PROBLEMS on ``serve`` (the graphs and the single-device
-    answers by problem); the train runs of ``train`` (the small lockstep's
-    cases with their draws, the full-width (problem, rep) runs on their
-    saved data); then the paper-scale solves of ``paper``, those it names
-    under ``trace`` traced too."""
+    answers by problem), then its async half (``mesh_async_rank``); the
+    train runs of ``train`` (the small lockstep's cases with their draws,
+    the full-width (problem, rep) runs on their saved data, the host
+    loop's small runs on ``train["host_small"]``'s reps and, where
+    ``train["host_full"]``, its full-width run); then the paper-scale
+    solves of ``paper``, those it names under ``trace`` traced too.  Each
+    service is closed before the next collective: no collective runs
+    beside a service that leads or follows."""
     import torch
     from repro_torch.convert import policy_from_numpy
     from repro_torch.core import PolicyConfig, SparseGraphBatch, solve
@@ -4322,7 +4769,10 @@ def mesh_rank(mesh, dev, weights, adj, refs, serve, train, paper):
             svc.warmup([a.shape[0] for a in serve_adjs], problems=[problem])
             synchronize(dev)
             reset_counts()
+            t0 = time.perf_counter()
             responses = svc.serve(serve_adjs, problem=problem)
+            synchronize(dev)
+            serve_s = time.perf_counter() - t0
             counts = read_counts()
             plans = []
             for p in serve_plans(serve_adjs, svc.rows_per_dispatch):
@@ -4333,11 +4783,22 @@ def mesh_rank(mesh, dev, weights, adj, refs, serve, train, paper):
                                            spec, dev, problem=problem)))
             out["service"][problem] = {
                 "counts": counts, "stats": svc.stats.as_dict(),
+                "serve_s": serve_s,
                 "answers": [r.solution for r in responses],
                 "batch_evals": sorted({
                     (r.bucket, r.dispatch_t): r.policy_evals
                     for r in responses}.values()),
                 "plans": plans}
+        # the async half: rank 0 plans, at twice the sync burst's rate
+        # (rank 0's clock sets it; the other ranks follow its plans)
+        sync = out["service"]["mvc"]
+        t0 = time.perf_counter()
+        out["async"] = mesh_async_rank(
+            torch, mesh, dev, policy,
+            PolicyConfig(embed_dim=32, num_layers=2, spatial=spec),
+            serve_adjs, sync["answers"],
+            MESH_OPEN_LOOP_FACTOR * len(serve_adjs) / sync["serve_s"])
+        out["a6b_s"] = {"async": time.perf_counter() - t0}
     if train is not None:
         out["train_small"] = {
             case: mesh_lockstep_run(torch, train["weights"], adj,
@@ -4350,6 +4811,17 @@ def mesh_rank(mesh, dev, weights, adj, refs, serve, train, paper):
             out["train_full"][problem, rep] = mesh_full_run(
                 torch, mesh, dev, train["weights"], rep,
                 load_dataset(torch, train["data"][rep]), problem)
+        t0 = time.perf_counter()
+        out["host_small"] = {
+            rep: mesh_host_small(torch, train["weights"], adj, dev, rep,
+                                 spec) for rep in train["host_small"]}
+        if train["host_full"]:
+            if on_card:
+                torch.cuda.empty_cache()
+            out["host_full"] = mesh_host_full(
+                torch, mesh, dev, train["weights"],
+                load_dataset(torch, train["data"]["dense"]))
+        out.setdefault("a6b_s", {})["host"] = time.perf_counter() - t0
     for rep in (paper or {}).get("reps", ()):
         if rep == "dense":
             graph = np.load(paper["dense"], mmap_mode="c")

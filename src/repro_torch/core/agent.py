@@ -11,6 +11,13 @@ replay lives on the device, and the host loop here, ``Agent.act``,
 choice of the host loop is a numpy draw from ``Agent._rng`` (the explore
 rolls and picks, the replay indices), as in the JAX package, so with
 JAX's weights carried across the two host loops take the same steps.
+
+On a mesh (``cfg.spatial``) every rank runs the host loop SPMD, as JAX's
+host loop runs on its mesh: the ranks hold the same numpy streams, so
+they draw the same episodes, actions and replay rows; ``act``,
+``remember`` and the fresh targets run on the whole states, replicated,
+and only the GD step goes through the mesh
+(``spatial.spatial_train_minibatch_fn`` on the rank's tile).
 """
 from __future__ import annotations
 
@@ -28,14 +35,9 @@ from ..optim import AdamState, adam_init, adam_update
 from .graphrep import (CSR, DENSE, SPARSE, GraphRep,  # noqa: F401
                        candidate_mask, rep_for_state)
 from .graphs import CsrGraphBatch, SparseGraphBatch
-from .mesh import is_multi
+from .mesh import is_multi, make_mesh, normalize_spatial
 from .policy import Policy, PolicyConfig, init_policy, policy_scores
 from .replay import ReplayBuffer
-
-MESH_HOST_LOOP = ("the host training loop on a mesh is not ported (ROADMAP "
-                  "item \"async serving on a mesh\"): train on the mesh "
-                  "with engine=\"device\"")
-
 
 def host(x) -> np.ndarray:
     """``x`` (a tensor on any device, or array-like) as a numpy array."""
@@ -186,6 +188,35 @@ class Agent:
             self.replay = ReplayBuffer(self.cfg.replay_capacity,
                                        self.num_nodes)
         self._rng = np.random.default_rng(0)
+        self._mesh_steps = {}
+
+    def check_mesh(self, rep: GraphRep, n: int):
+        """The mesh of ``cfg.spatial`` for the host loop's GD step on ``rep``
+        with ``n`` nodes, or None on one device.  Raises as the fused
+        path does without a process group (``spawn_mesh``), for CSR at
+        sp > 1, and with JAX's text when the minibatch does not divide by
+        dp or the nodes by sp."""
+        if not is_multi(self.cfg.spatial):
+            return None
+        from .engine import _check_csr_spatial
+        from .spatial import _check_divisible
+        dp, sp = normalize_spatial(self.cfg.spatial)
+        _check_csr_spatial(rep, sp)
+        mesh = make_mesh(dp, sp)
+        _check_divisible(mesh, self.cfg.minibatch, n, "spatial GD")
+        return mesh
+
+    def _mesh_step(self, mesh, rep: GraphRep):
+        """The cached mesh GD step of ``rep``."""
+        fn = self._mesh_steps.get(rep.name)
+        if fn is None:
+            from .spatial import spatial_train_minibatch_fn
+            fn = spatial_train_minibatch_fn(
+                mesh, rep=rep, num_layers=self.cfg.num_layers,
+                lr=self.cfg.learning_rate, kernel=self.cfg.kernel,
+                compute=self.cfg.compute)
+            self._mesh_steps[rep.name] = fn
+        return fn
 
     def _policy_kw(self, rep: GraphRep) -> dict:
         return dict(rep=rep, num_layers=self.cfg.num_layers,
@@ -245,10 +276,13 @@ class Agent:
         ``NeighborSampler.training_batch``'s), on the policy's device;
         ``residual`` and ``candidate_fn`` are the env's (``env.register``).
         Returns the last iteration's loss, or NaN (no draw, no step
-        counted) while the replay holds fewer than a minibatch."""
-        if is_multi(self.cfg.spatial):
-            raise NotImplementedError(MESH_HOST_LOOP)
+        counted) while the replay holds fewer than a minibatch.
+
+        On a mesh every rank calls it with the whole ``source`` on its
+        device; each GD iteration's step runs on the rank's tile
+        (:meth:`check_mesh` for the refusals)."""
         rep = _rep_for_source(source)
+        mesh = self.check_mesh(rep, rep.dataset_shape(source)[1])
         tau = self.cfg.grad_iters if tau is None else tau
         if self.replay.size < self.cfg.minibatch:
             return float("nan")
@@ -266,13 +300,22 @@ class Agent:
                 del st2
                 # float64 on the host (1.0 - a bool array), as JAX's
                 tgt = rew + self.cfg.gamma * host(nxt) * (1.0 - done)
-            st = rep.state_from_tuples(source, gi, sol, residual=residual,
-                                       candidate_fn=candidate_fn)
-            _, _, l = train_minibatch_raw(
-                self.params, self.opt, st,
-                torch.as_tensor(act, device=dev),
-                torch.as_tensor(tgt, dtype=torch.float32, device=dev),
-                lr=self.cfg.learning_rate, **kw)
+            act_t = torch.as_tensor(act, device=dev)
+            tgt_t = torch.as_tensor(tgt, dtype=torch.float32, device=dev)
+            if mesh is None:
+                st = rep.state_from_tuples(source, gi, sol,
+                                           residual=residual,
+                                           candidate_fn=candidate_fn)
+                _, _, l = train_minibatch_raw(
+                    self.params, self.opt, st, act_t, tgt_t,
+                    lr=self.cfg.learning_rate, **kw)
+            else:
+                from .spatial import tile_state_from_tuples
+                st = tile_state_from_tuples(
+                    mesh, rep, source, gi, sol, device=dev,
+                    residual=residual, candidate_fn=candidate_fn)
+                _, _, l = self._mesh_step(mesh, rep)(
+                    self.params, self.opt, st, act_t, tgt_t)
             del st
             loss = float(l)
         self.step_count += 1

@@ -45,6 +45,10 @@ ranks that share one card (NCCL refuses two ranks on one card).
 :func:`spawn_mesh` starts a mesh of local processes for tests and smoke
 runs; the launcher takes its ranks from ``torchrun``.
 
+A service on a mesh has one planner, rank 0 (``serving.service``): it
+sends each dispatch's plan through a :class:`PlanChannel` before any
+collective of that dispatch, and the other ranks run the same dispatch.
+
 ``PolicyConfig.spatial`` keeps the JAX contract: an int P means ``(1,
 P)``, ``0``/``None`` mean ``(1, 1)`` (no mesh), ``(dp, sp)`` the 2-D mesh.
 """
@@ -53,6 +57,8 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import functools
+import gc
+import json
 import os
 import queue as queue_lib
 import tempfile
@@ -60,8 +66,10 @@ import time
 import traceback
 from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed import distributed_c10d
 
 from ..device import DeviceLike, resolve_device
 
@@ -185,20 +193,36 @@ def make_mesh(dp: int = 1, sp: Optional[int] = None) -> Mesh:
     return _build_mesh(dp, sp, dist.group.WORLD)
 
 
+def _world_timeout() -> Optional[datetime.timedelta]:
+    """The default group's timeout, which ``new_group`` does not inherit
+    (it takes the backend's default, 30 minutes for gloo); None where the
+    backend does not tell it."""
+    world = dist.group.WORLD
+    for dev in ("cpu", "cuda"):
+        try:
+            return world._get_backend(torch.device(dev)).options._timeout
+        except (RuntimeError, AttributeError):
+            continue
+    return None
+
+
 @functools.lru_cache(maxsize=16)
 def _build_mesh(dp: int, sp: int, world_group) -> Mesh:
     rank = dist.get_rank()
     d, g = divmod(rank, sp)
     groups = {}
+    # the axis groups time out with the default group, so a rank stuck in
+    # an axis collective raises when a world collective would
+    timeout = _world_timeout()
     # every rank creates every group, in one order (new_group is collective)
     for i in range(dp):
-        grp = dist.new_group([i * sp + j for j in range(sp)]) if sp > 1 \
-            else None
+        grp = dist.new_group([i * sp + j for j in range(sp)],
+                             timeout=timeout) if sp > 1 else None
         if i == d:
             groups[GRAPH] = grp
     for j in range(sp):
-        grp = dist.new_group([i * sp + j for i in range(dp)]) if dp > 1 \
-            else None
+        grp = dist.new_group([i * sp + j for i in range(dp)],
+                             timeout=timeout) if dp > 1 else None
         if j == g:
             groups[DATA] = grp
     traffic = {}
@@ -206,6 +230,20 @@ def _build_mesh(dp: int, sp: int, world_group) -> Mesh:
                 data=Axis(DATA, dp, d, groups[DATA], traffic),
                 graph=Axis(GRAPH, sp, g, groups[GRAPH], traffic),
                 traffic=traffic)
+
+
+def destroy_meshes() -> None:
+    """Forget every cached mesh, then destroy the process groups.  A
+    cached mesh holds its axis groups, which ``dist.destroy_process_group``
+    shuts down but cannot free; left to the interpreter's exit, a gloo
+    group's teardown can abort the process ("terminate called without an
+    active exception", exit code -6).  So the meshes go first, and every
+    group is freed while the interpreter is whole."""
+    _build_mesh.cache_clear()
+    gc.collect()
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    gc.collect()
 
 
 def mesh_from_spec(spec: MeshSpec) -> Optional[Mesh]:
@@ -343,6 +381,87 @@ def partial_sum_columns(partial: torch.Tensor,
     if axis is None or axis.size == 1:
         return partial
     return _PartialSumColumns.apply(partial, axis)
+
+
+# ---------------------------------------------------------------------------
+# The plan channel: rank 0's plans to the other ranks of a mesh service.
+# ---------------------------------------------------------------------------
+
+PLAN_POLL_S = (1e-4, 5e-3)    # a follower's first and longest store poll
+
+
+class PlanChannel:
+    """Rank 0's plans to the other ranks of a mesh, in order: a service's
+    one planner (``serving.service``) sends each dispatch's plan before
+    any collective of that dispatch runs.
+
+    A plan is a small JSON header and an optional flat float32 payload.
+    The header goes to the key ``<name>/<number>`` of the default group's
+    rendezvous store; the payload follows as one broadcast from rank 0
+    over the world group.  A follower polls the store for the next key
+    and joins the broadcast only once the key is there.  So an idle
+    follower waits in no collective and outlives the group's timeout
+    however long rank 0 plans nothing; a blocking gloo collective would
+    raise once that timeout ran out.
+
+    Every rank of the mesh builds its channel with the same ``name``, and
+    the planner and the followers number their plans alike.  gloo
+    broadcasts host tensors; under nccl the payload moves through
+    ``device``.  ``stats`` counts this rank's plans, payload bytes and
+    the seconds spent sending (rank 0) or receiving once the key was
+    there (the others)."""
+
+    def __init__(self, mesh: Mesh, name: str, device: DeviceLike):
+        self.mesh = mesh
+        self.prefix = f"repro_torch/plan/{name}/"
+        self.store = distributed_c10d._get_default_store()
+        self.device = (resolve_device(device) if dist.get_backend() == "nccl"
+                       else torch.device("cpu"))
+        self.number = 0
+        self.stats = {"plans": 0, "payload_bytes": 0, "seconds": 0.0}
+
+    def _next_key(self) -> str:
+        key = f"{self.prefix}{self.number}"
+        self.number += 1
+        return key
+
+    def _count(self, nbytes: int, t0: float) -> None:
+        self.stats["plans"] += 1
+        self.stats["payload_bytes"] += nbytes
+        self.stats["seconds"] += time.perf_counter() - t0
+
+    def send(self, header: dict, payload: Optional[np.ndarray] = None) -> None:
+        """Rank 0: publish the next plan, then broadcast its payload."""
+        t0 = time.perf_counter()
+        size = 0 if payload is None else int(payload.size)
+        self.store.set(self._next_key(), json.dumps(dict(header,
+                                                         payload=size)))
+        if size:
+            buf = torch.from_numpy(np.ascontiguousarray(
+                payload, np.float32)).to(self.device)
+            _record(self.mesh.traffic, "broadcast world", buf)
+            dist.broadcast(buf, src=0)
+        self._count(4 * size, t0)
+
+    def recv(self) -> Tuple[dict, Optional[np.ndarray]]:
+        """A follower: wait for rank 0's next plan, then receive its
+        payload.  Returns (header, payload or None)."""
+        key = self._next_key()
+        delay, longest = PLAN_POLL_S
+        while not self.store.check([key]):
+            time.sleep(delay)
+            delay = min(2 * delay, longest)
+        t0 = time.perf_counter()
+        header = json.loads(self.store.get(key))
+        payload = None
+        if header["payload"]:
+            buf = torch.empty(header["payload"], dtype=torch.float32,
+                              device=self.device)
+            _record(self.mesh.traffic, "broadcast world", buf)
+            dist.broadcast(buf, src=0)
+            payload = buf.cpu().numpy()
+        self._count(4 * header["payload"], t0)
+        return header, payload
 
 
 # ---------------------------------------------------------------------------
@@ -523,22 +642,31 @@ def rank_device(backend: str, device: DeviceLike, local_rank: int,
 
 
 def _rank_main(fn, rank: int, dp: int, sp: int, device, backend: str,
-               store_path: str, timeout_s: float, results, args) -> None:
-    """Body of one spawned rank: join the group, build the mesh, run
-    ``fn(mesh, device, *args)`` and report its result or traceback."""
+               store_path: str, timeout_s: float, group_timeout_s: float,
+               results, args) -> None:
+    """Body of one spawned rank: meet the others in the store (within
+    ``timeout_s``, so a short group timeout does not also bound how much
+    later than the first rank the last one starts), join the group, build
+    the mesh, run ``fn(mesh, device, *args)`` and report its result or
+    traceback."""
     torch.set_num_threads(1)
     try:
         world = dp * sp
         dev = rank_device(backend, device, rank, world)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
+        store = dist.FileStore(store_path, world)
+        store.set_timeout(datetime.timedelta(seconds=timeout_s))
+        store.add("repro_torch/started", 1)
+        while store.add("repro_torch/started", 0) < world:
+            time.sleep(0.01)
         dist.init_process_group(
-            backend, store=dist.FileStore(store_path, world), rank=rank,
-            world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
+            backend, store=store, rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=group_timeout_s))
         try:
             out = fn(make_mesh(dp, sp), dev, *args)
         finally:
-            dist.destroy_process_group()
+            destroy_meshes()
         results.put((rank, True, out))
     except BaseException:                 # reported to the parent, who raises
         results.put((rank, False, traceback.format_exc()))
@@ -546,6 +674,7 @@ def _rank_main(fn, rank: int, dp: int, sp: int, device, backend: str,
 
 def spawn_mesh(fn: Callable, dp: int, sp: int, *, device: DeviceLike,
                backend: str, timeout_s: float = 60.0,
+               group_timeout_s: Optional[float] = None,
                args: Sequence = ()) -> list:
     """Run ``fn(mesh, device, *args)`` on a (dp, sp) mesh of dp·sp local
     processes and return each rank's result, by rank.
@@ -556,7 +685,9 @@ def spawn_mesh(fn: Callable, dp: int, sp: int, *, device: DeviceLike,
     ``fn`` must be importable at module level.  Any rank's exception is
     raised here with its traceback; if the ranks have not all reported
     within ``timeout_s`` seconds (a hung collective), every rank is killed
-    and ``TimeoutError`` raised."""
+    and ``TimeoutError`` raised.  ``group_timeout_s`` (default
+    ``timeout_s``) is the process group's own timeout, after which a rank
+    waiting in a collective raises."""
     world = dp * sp
     rank_device(backend, device, 0, world)          # refuse before spawning
     ctx = torch.multiprocessing.get_context("spawn")
@@ -564,7 +695,8 @@ def spawn_mesh(fn: Callable, dp: int, sp: int, *, device: DeviceLike,
     with tempfile.TemporaryDirectory(prefix="repro_torch_mesh_") as tmp:
         procs = [ctx.Process(target=_rank_main, daemon=True, args=(
             fn, r, dp, sp, str(device), backend, os.path.join(tmp, "store"),
-            timeout_s, results, tuple(args))) for r in range(world)]
+            timeout_s, group_timeout_s or timeout_s, results, tuple(args)))
+            for r in range(world)]
         for p in procs:
             p.start()
         out = {}

@@ -29,7 +29,12 @@ is one autograd sees (``mesh.pooled_sum``, ``mesh.partial_sum_columns``,
 the gathered sparse layers).  At sp = 1 (and for CSR, which takes sp = 1
 only) the graph axis is dropped: each data rank runs the single-device
 loss on its minibatch rows (the dense layer is B1, as on one device).
-JAX's staged-GSPMD step (``spatial_train_minibatch_fn``) is not ported.
+
+The host training loop's step on a mesh is :func:`spatial_train_minibatch_fn`
+(JAX's name, whose staged-GSPMD lowering the port does not copy): it
+takes the rank's tile of a minibatch the host loop re-materialized
+(:func:`tile_state_from_tuples`) and the whole minibatch's actions and
+targets, and shares the fused step's loss, all-reduce and Adam update.
 """
 from __future__ import annotations
 
@@ -286,6 +291,37 @@ def ownership_loss(scores: torch.Tensor, action: torch.Tensor,
     return sq.sum() / minibatch
 
 
+def _tile_scorer(mesh: Mesh, rep, **kw):
+    """``scores(params, tile, masked)``: a minibatch tile's (M/dp, Nl)
+    scores (:func:`tile_scores`), or at sp = 1 the rep's scores of the
+    data rank's state."""
+    if mesh.sp == 1:
+        return lambda params, st, masked: rep.scores(params, st,
+                                                     masked=masked, **kw)
+    return lambda params, st, masked: tile_scores(mesh, params, st,
+                                                  masked=masked, **kw)
+
+
+def _tile_loss_and_grads(mesh: Mesh, params, st, action: torch.Tensor,
+                         target: torch.Tensor, scores, minibatch: int):
+    """The GD iteration on a rank's minibatch tile, both mesh steps' inner
+    part: the ownership loss of the tile's (row, action node) pairs
+    (``action``, ``target``: the data rank's M/dp tuples), its gradients,
+    then one world all-reduce of the loss and the flattened gradients.
+    Returns (loss, grads) summed over the mesh."""
+    g = mesh.graph if mesh.sp > 1 else None
+    loss, grads = loss_and_grads(params, lambda p: ownership_loss(
+        scores(p, st, False), action, target, g, minibatch))
+    with record_function("train_step.allreduce"):
+        names = list(grads)
+        flat = torch.cat([loss.reshape(1)]
+                         + [grads[k].reshape(-1) for k in names])
+        all_reduce_world(mesh, flat)
+        parts = flat[1:].split([grads[k].numel() for k in names])
+        grads = {k: v.view_as(grads[k]) for k, v in zip(names, parts)}
+    return flat[0], grads
+
+
 def manual_train_minibatch_fn(mesh: Mesh, *, rep, num_layers: int,
                               lr: float, gamma: float, minibatch: int,
                               residual=True, candidate_fn=None,
@@ -321,7 +357,8 @@ def manual_train_minibatch_fn(mesh: Mesh, *, rep, num_layers: int,
     mode = tuples_mode(residual)
     stored = target_mode == "stored"
     g = mesh.graph if mesh.sp > 1 else None
-    kw = dict(num_layers=num_layers, kernel=kernel, compute=compute)
+    scores = _tile_scorer(mesh, rep, num_layers=num_layers, kernel=kernel,
+                          compute=compute)
     fields = (("graph_idx", "solution", "action", "target") if stored else
               ("graph_idx", "solution", "action", "reward", "next_solution",
                "done"))
@@ -333,11 +370,6 @@ def manual_train_minibatch_fn(mesh: Mesh, *, rep, num_layers: int,
                                              candidate_fn=candidate_fn)
             return tile_from_tuples(mesh, rep, source, gi, sol, mode,
                                     candidate_fn)
-
-    def scores(params, st, masked):
-        if g is None:
-            return rep.scores(params, st, masked=masked, **kw)
-        return tile_scores(mesh, params, st, masked=masked, **kw)
 
     def loss_and_grads_fn(params, replay, source, idx):
         rows = sharded_replay_rows(replay, idx, fields)
@@ -359,17 +391,8 @@ def manual_train_minibatch_fn(mesh: Mesh, *, rep, num_layers: int,
                 tgt = rew + gamma * nxt * (1.0 - dn)
             del st2
         st = remat(source, gi, sol)
-        loss, grads = loss_and_grads(params, lambda p: ownership_loss(
-            scores(p, st, False), act, tgt, g, minibatch))
-        del st
-        with record_function("train_step.allreduce"):
-            names = list(grads)
-            flat = torch.cat([loss.reshape(1)]
-                             + [grads[k].reshape(-1) for k in names])
-            all_reduce_world(mesh, flat)
-            parts = flat[1:].split([grads[k].numel() for k in names])
-            grads = {k: v.view_as(grads[k]) for k, v in zip(names, parts)}
-        return flat[0], grads
+        return _tile_loss_and_grads(mesh, params, st, act, tgt, scores,
+                                    minibatch)
 
     def fn(params, opt, replay, source, idx):
         loss, grads = loss_and_grads_fn(params, replay, source, idx)
@@ -400,3 +423,48 @@ def tile_state_from_tuples(mesh: Mesh, rep, source, graph_idx, solutions, *,
         f.name: getattr(state, f.name).to(dev).contiguous()
         for f in dataclasses.fields(state)
         if isinstance(getattr(state, f.name), torch.Tensor)})
+
+
+def _minibatch_tile(mesh: Mesh, state) -> MinibatchTile:
+    """A rank's tile of a whole-row state (:func:`tile_state_from_tuples`'s
+    layout: topology rows, masks whole) as the loss takes it: the
+    topology rows (sparse: with the edge factors of the state's residual
+    mode, whose remote endpoints' solution is all-gathered over
+    ``graph``) and the masks of the rank's Nl nodes."""
+    g = mesh.graph
+    sol = local_rows(state.solution, g).contiguous()
+    cand = local_rows(state.candidate, g).contiguous()
+    if isinstance(state, GraphState):
+        return MinibatchTile((state.adj,), sol, cand)
+    edge = edge_factors(state.neighbors, state.valid, sol, state.residual,
+                        axis=g)
+    return MinibatchTile((state.neighbors, state.valid, edge), sol, cand)
+
+
+def spatial_train_minibatch_fn(mesh: Mesh, *, rep, num_layers: int,
+                               lr: float, kernel: str = "fused",
+                               compute: str = "f32"):
+    """The host training loop's GD step on the mesh, run by every rank
+    (JAX's ``spatial_train_minibatch_fn``, the drop-in for the
+    single-device ``train_minibatch_raw``): ``fn(params, opt, state,
+    action, target) -> (params, opt, loss)``, ``params`` and ``opt``
+    updated in place.  ``state`` is this rank's tile of the minibatch the
+    host loop re-materialized (:func:`tile_state_from_tuples`: its data
+    rank's M/dp tuples, its graph rank's N/sp topology rows, the masks
+    whole); ``action`` and ``target`` are the whole minibatch's (M,), the
+    same on every rank.  The loss, its all-reduce and Adam are
+    :func:`manual_train_minibatch_fn`'s (:func:`_tile_loss_and_grads`);
+    ``loss`` is the mesh's, the single-device mean.  CSR takes sp = 1."""
+    scores = _tile_scorer(mesh, rep, num_layers=num_layers, kernel=kernel,
+                          compute=compute)
+
+    def fn(params, opt, state, action, target):
+        m = action.shape[0]
+        rows = mesh.data.rows(m)
+        st = state if mesh.sp == 1 else _minibatch_tile(mesh, state)
+        loss, grads = _tile_loss_and_grads(mesh, params, st, action[rows],
+                                           target[rows], scores, m)
+        adam_step(params, opt, grads, lr=lr)
+        return params, opt, loss
+
+    return fn

@@ -9,7 +9,7 @@ the device is its (loss, done) fetch; with ``cfg.spatial`` it trains on
 the ``(data, graph)`` mesh, every rank of the process group calling it
 with the same arguments.  ``engine="host"`` is the reference loop over
 ``Agent.act``, the env step, ``Agent.remember`` and ``Agent.train`` on the
-host replay, on one device.
+host replay, on one device or, SPMD, on every rank of a mesh.
 """
 from __future__ import annotations
 
@@ -21,12 +21,12 @@ import numpy as np
 import torch
 
 from . import env as env_lib
-from .agent import MESH_HOST_LOOP, Agent, host
+from .agent import Agent, host
 from .engine import (draw_train_step, engine_init, get_train_step,
                      sync_to_agent)
 from .graphrep import GraphRep, get_rep
 from .inference import solve
-from .mesh import (all_reduce_sum, is_multi, make_mesh, normalize_spatial,
+from .mesh import (all_reduce_sum, make_mesh, normalize_spatial,
                    shard_dataset)
 from .spatial import tile_state_from_tuples
 
@@ -96,18 +96,19 @@ def train_agent(
     device each step's actions, candidates, masks, reward and done, and
     per GD iteration the fresh targets and the loss.
 
-    On a mesh (``agent.cfg.spatial``, device engine only) every rank of
-    the default process group calls ``train_agent`` with the same
-    arguments, as ``solve`` on a mesh; ``batch_graphs`` must divide by dp.
-    The dataset is checked whole on the host, then each rank keeps its
-    tile on its device (``mesh.shard_dataset``), and each episode's state
-    is the rank's tile (``spatial.tile_state_from_tuples``).  The step's
-    fetch reads the whole batch's ``done``, reduced over ``data``."""
+    On a mesh (``agent.cfg.spatial``) every rank of the default process
+    group calls ``train_agent`` with the same arguments, as ``solve`` on a
+    mesh.  The device engine's ``batch_graphs`` must divide by dp: the
+    dataset is checked whole on the host, then each rank keeps its tile on
+    its device (``mesh.shard_dataset``), and each episode's state is the
+    rank's tile (``spatial.tile_state_from_tuples``); the step's fetch
+    reads the whole batch's ``done``, reduced over ``data``.  The host
+    engine runs JAX's host loop on every rank: the whole dataset and
+    episode states on each, and each GD iteration's step on the rank's
+    tile (``Agent.train``)."""
     engine = engine if engine is not None else agent.cfg.engine
     if engine not in ("host", "device"):
         raise ValueError(f"unknown training engine {engine!r}")
-    if engine == "host" and is_multi(agent.cfg.spatial):
-        raise NotImplementedError(MESH_HOST_LOOP)
     rng = np.random.default_rng(seed)
     rep = get_rep(rep if rep is not None else agent.cfg.graph_rep)
     fused = (get_train_step(agent.cfg, rep=rep, problem=problem, tau=tau,
@@ -117,14 +118,18 @@ def train_agent(
     residual = env_lib.residual_mode(problem)
     cand_fn = env_lib.candidate_rule(problem)
     dp, sp = normalize_spatial(agent.cfg.spatial)
-    mesh = make_mesh(dp, sp) if (dp, sp) != (1, 1) else None
-    if batch_graphs % dp:
+    # the fused step's mesh; the host loop's GD step takes its own
+    mesh = (make_mesh(dp, sp) if (dp, sp) != (1, 1) and fused is not None
+            else None)
+    if mesh is not None and batch_graphs % dp:
         raise ValueError(f"batch_graphs {batch_graphs} not divisible by the "
                          f"data-axis size {dp} of mesh spec "
                          f"{agent.cfg.spatial!r}")
     source = rep.prepare_dataset(
         train_adj, device="cpu" if mesh is not None else agent.device)
     g_count, n = rep.dataset_shape(source)
+    if fused is None:
+        agent.check_mesh(rep, n)
     whole = source
     if mesh is not None:
         source = shard_dataset(mesh, whole, device=agent.device)

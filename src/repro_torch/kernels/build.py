@@ -6,6 +6,8 @@ headers are never included, so a build takes seconds, not minutes.  The
 libraries go to ``build/repro_torch/<hash>/`` at the repository root (a
 directory ``.gitignore`` lists), keyed by a hash of the sources and the
 flags, so an edited source is rebuilt and an unchanged one is reused.
+:func:`set_build_root` moves that root (``serving.enable_compile_cache``)
+for the libraries not loaded yet.
 
 The build happens on first use: the first :func:`load` builds every
 source whose library is missing, all at once.  It raises when ``nvcc`` is
@@ -32,6 +34,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+
+
+def set_build_root(root) -> pathlib.Path:
+    """Build into, and load from, ``<root>/<hash>/`` from now on.  A
+    library this process has loaded already stays in use."""
+    global BUILD_ROOT
+    BUILD_ROOT = pathlib.Path(root).resolve()
+    return BUILD_ROOT
 
 
 def find_nvcc() -> str:

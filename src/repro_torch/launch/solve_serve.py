@@ -20,9 +20,15 @@ drain path or the async path.
     PYTHONPATH=src torchrun --nproc-per-node 2 -m \
         repro_torch.launch.solve_serve --spatial 1,2 --dist-backend gloo \
         --device cpu --problem mds --rep sparse
+    # open-loop load on the mesh: rank 0 plans, the other ranks follow
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m \
+        repro_torch.launch.solve_serve --spatial 2,1 --dist-backend gloo \
+        --device cpu --mode async --rate 50 --requests 24 --warmup
 
-On a mesh every rank serves the same stream (the sync path runs SPMD)
-and only rank 0 prints; ``--mode async`` and ``--rate`` run on one device.
+On a mesh only rank 0 prints.  A sync burst runs SPMD: every rank serves
+the same stream.  With ``--mode async`` or ``--rate``, rank 0 alone
+makes the stream and submits it, as the service's one planner, and the
+other ranks follow its dispatches (``GraphSolverService.follow``).
 """
 from __future__ import annotations
 
@@ -78,7 +84,7 @@ def main(argv=None):
                          "cover), maxcut (max cut), mis (max independent "
                          "set), mds (min dominating set); all four serve "
                          "through the same padded buckets, on one device "
-                         "or on a mesh (--spatial, sync mode)")
+                         "or on a mesh (--spatial)")
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--embed-dim", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
@@ -126,22 +132,18 @@ def main(argv=None):
 
     import torch.distributed as dist
     from ..core import is_multi, parse_spatial
+    from ..core.mesh import destroy_meshes
 
     spatial = parse_spatial(args.spatial)
     rank, device = 0, args.device
     if is_multi(spatial):
-        if args.mode == "async" or args.rate > 0:
-            raise NotImplementedError(
-                "--mode async and --rate on a mesh are not ported (ROADMAP "
-                "item \"async serving on a mesh\"); use --mode sync "
-                "without --rate")
         rank, device = init_mesh_ranks(spatial, args.dist_backend,
                                        args.device)
     try:
         _serve(args, spatial, rank, device)
     finally:
         if dist.is_initialized():
-            dist.destroy_process_group()
+            destroy_meshes()
 
 
 def _serve(args, spatial, rank: int, device) -> None:
@@ -173,6 +175,9 @@ def _serve(args, spatial, rank: int, device) -> None:
         info = svc.warmup(sizes, problems=[args.problem])
         say(f"warmup: {len(info['compiled'])} buckets in "
             f"{info['seconds']:.2f}s -> request-path first dispatches == 0")
+    if rank != 0 and (args.mode == "async" or args.rate > 0):
+        svc.follow()                # rank 0 plans and submits
+        return
 
     if args.rate > 0:
         wl = make_workload(args.rate, args.requests, sizes,

@@ -9,11 +9,16 @@ never changes ``done``.  Unused batch rows are empty graphs, born done.
 That property is an enforced registry contract
 (``repro_torch.core.env.ensure_padding_safe``), checked by
 ``plan_batches`` for every problem a plan targets.
+
+On a mesh, rank 0 plans every dispatch and sends each plan to the other
+ranks (``serving.service``): :func:`plan_payload` is its wire form, the
+occupied rows' adjacencies without their padding, and
+:func:`plan_from_payload` rebuilds the padded plan on the receiver.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 
@@ -87,6 +92,41 @@ def plan_batches(requests: Sequence, max_batch: int,
             plans.append(build_plan(reqs[i:i + max_batch], nb, problem,
                                     max_batch))
     return plans
+
+
+class _WireRequest(NamedTuple):
+    """A request as a received plan carries it (no submission time)."""
+    id: int
+    n: int
+    adj: np.ndarray
+
+
+def plan_payload(plan: BatchPlan) -> np.ndarray:
+    """The wire form of a plan's graphs: each occupied row's real (n, n)
+    block, float32 and flat, in row order.  The dense rep multiplies by
+    the adjacency's values, so they travel lossless; the padding does not
+    travel, :func:`plan_from_payload` rebuilds it."""
+    blocks = [plan.adj[row, :n, :n].ravel()
+              for row, n in enumerate(plan.sizes)]
+    return np.concatenate(blocks) if blocks else np.zeros(0, np.float32)
+
+
+def plan_from_payload(nb: int, problem: str, request_ids: Sequence[int],
+                      sizes: Sequence[int], payload: np.ndarray,
+                      rows: int) -> BatchPlan:
+    """The plan :func:`plan_payload` was taken from, padded to ``rows``
+    rows of the ``nb`` bucket by :func:`build_plan` (its submission times
+    stay the sender's)."""
+    entries = sum(int(n) ** 2 for n in sizes)
+    if entries != payload.size:
+        raise ValueError(f"a payload of {payload.size} values for graphs "
+                         f"of {entries} adjacency entries")
+    reqs, off = [], 0
+    for rid, n in zip(request_ids, sizes):
+        reqs.append(_WireRequest(int(rid), int(n),
+                                 payload[off:off + n * n].reshape(n, n)))
+        off += n * n
+    return build_plan(reqs, nb, problem, rows)
 
 
 def unpad_solution(solution_row: np.ndarray, n: int) -> np.ndarray:

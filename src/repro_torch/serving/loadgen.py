@@ -29,9 +29,10 @@ of wall time from first arrival to last completion — late completions and
 rejects both subtract from it, which is what makes the sync path's
 unbounded queueing visible at overload.
 
-A mesh service (``svc.mesh``) is refused: each rank's clock would pace
-and batch the stream differently, so the ranks would plan different
-dispatches (ROADMAP item "async serving on a mesh").
+On a mesh service (``svc.mesh``) the load runs on rank 0, the service's
+one planner, in both modes (``GraphSolverService.lead``): the sync
+mode's drains plan for every rank as the async scheduler does.  The
+other ranks call ``svc.follow()`` until rank 0's ``svc.close()``.
 """
 from __future__ import annotations
 
@@ -141,19 +142,16 @@ def run_open_loop(svc: GraphSolverService, workload: Workload,
     The generator never waits for a result before submitting the next
     request — submission timing is set by the workload's arrival clock
     alone.  Returns the :class:`LoadReport`; per-request latencies come
-    from the timestamps the service stamps on every response.  Raises
-    ``NotImplementedError`` on a mesh service, before submitting."""
-    if svc.mesh is not None:
-        raise NotImplementedError(
-            "open-loop load on a mesh service is not ported: each rank's "
-            "clock would pace and batch the stream differently (ROADMAP "
-            "item \"async serving on a mesh\")")
+    from the timestamps the service stamps on every response.  On a mesh
+    it runs on rank 0, which leads the service from here on (the caller
+    closes it); any other rank raises ``ValueError`` before submitting."""
+    if mode not in ("async", "sync"):
+        raise ValueError(f"unknown drive mode {mode!r} "
+                         "(expected 'async' or 'sync')")
+    svc.lead()
     if mode == "async":
         return _run_async(svc, workload)
-    if mode == "sync":
-        return _run_sync(svc, workload)
-    raise ValueError(f"unknown drive mode {mode!r} "
-                     "(expected 'async' or 'sync')")
+    return _run_sync(svc, workload)
 
 
 def _run_async(svc: GraphSolverService, workload: Workload) -> LoadReport:

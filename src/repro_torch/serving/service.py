@@ -15,13 +15,31 @@ submission:
 
 ``cfg.spatial = (dp, sp)`` serves on the 2-D ``(data, graph)`` mesh
 (``core.mesh``): every dispatch carries ``max_batch · dp`` rows, B/dp per
-data rank, each evaluation partitioned sp ways.  The sync path runs SPMD:
-every rank builds the same service and submits the same requests in the
-same order, so the ranks plan the same dispatches and each returns every
-response.  The async scheduler batches by wall-clock time, which differs
-across ranks, so it runs on one device only (ROADMAP item "async serving
-on a mesh").  Every registered problem serves on one device and
-on a mesh.
+data rank, each evaluation partitioned sp ways.  Every rank builds the
+service, in the same order as its other services.  Then the mesh is
+driven one of two ways:
+
+- **SPMD, sync only** — every rank ``serve()``s (or ``submit()``s and
+  ``drain()``s) the same requests in the same order, so the ranks plan
+  the same dispatches and each returns every response.
+- **One planner** — rank 0 is the service's one front end, as the JAX
+  service's single controller is: ``submit_async``, the scheduler,
+  admission, deadlines and futures exist on rank 0 alone, and its
+  ``drain()`` too plans for every rank once it leads (:meth:`lead`, which
+  ``submit_async`` and ``loadgen.run_open_loop`` call).  The other ranks
+  call :meth:`follow`, which runs rank 0's dispatches until rank 0's
+  ``close()``.  Before each dispatch's first collective, rank 0 sends its
+  plan (bucket, problem, request ids and sizes, whether it is the
+  bucket's first dispatch, and the requests' adjacencies) through a
+  ``core.mesh.PlanChannel``; each follower pads the graphs itself
+  (``bucketing.plan_from_payload``) and runs the same ``_dispatch``.  The
+  followers never read the clock to plan, and refuse ``submit_async``.
+  A failed dispatch leaves the ranks' collectives out of step, so on a
+  mesh it fails the service: rank 0 fails every queued future and
+  refuses new ones, and each rank left waiting in a collective of that
+  dispatch raises when the group's timeout runs out.
+
+Every registered problem serves on one device and on a mesh.
 
 Where the JAX service caches one compiled step per (bucket, problem), the
 port has nothing to compile per shape; it keeps a per-(bucket, problem)
@@ -40,6 +58,7 @@ request path as before.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 import threading
 import time
@@ -51,12 +70,31 @@ import numpy as np
 from ..core.graphrep import CsrRep, GraphRep, SparseRep, get_rep
 from ..core.inference import (MAX_D, check_solve_options, gather_batch,
                               init_solve_state)
-from ..core.mesh import make_mesh, normalize_spatial
+from ..core.mesh import PlanChannel, make_mesh, normalize_spatial
 from ..core.policy import Policy, PolicyConfig
 from ..device import DeviceLike, resolve_device, synchronize
 from .bucketing import (MIN_BUCKET, BatchPlan, bucket_nodes, build_plan,
-                        plan_batches, unpad_solution)
+                        plan_batches, plan_from_payload, plan_payload,
+                        unpad_solution)
 from .scheduler import DeadlineScheduler, PendingRequest
+
+# names the plan channel of each mesh service; every rank builds its mesh
+# services in one order, so the n-th is the same service on every rank
+_MESH_SERVICES = itertools.count()
+
+
+def enable_compile_cache(cache_dir) -> bool:
+    """The restarted server's warm path (JAX's persistent compilation
+    cache): the port compiles nothing per shape, and its only restart
+    cost is the ``nvcc`` build of its kernels.  This points the kernel
+    build root (``kernels.build``) at ``cache_dir``, so a restarted
+    process's ``warmup()`` loads the libraries built there and runs no
+    ``nvcc``.  Returns True.  A library this process has already loaded
+    stays in use: call it before the first dispatch, or it has no
+    effect."""
+    from ..kernels import build
+    build.set_build_root(cache_dir)
+    return True
 
 
 class ServiceOverloaded(RuntimeError):
@@ -169,6 +207,14 @@ class GraphSolverService:
         exactly ``max_batch · dp`` rows.
     max_wait_ms, max_queue_depth, default_deadline_ms, starvation_factor :
         the async scheduler's knobs (see ``scheduler``).
+
+    On a mesh, the dispatches' collectives run on the mesh's cached axis
+    groups (``core.mesh.make_mesh``, one mesh per shape) and on the world
+    group: on rank 0 from the thread that dispatches (the scheduler
+    thread while async traffic runs), on the others from the thread in
+    :meth:`follow`.  No other thread of any rank may call a collective
+    while a service leads or follows: close the service (and let every
+    ``follow()`` return) before the next collective.
     """
 
     def __init__(self, params: Policy, cfg: PolicyConfig, *,
@@ -193,9 +239,13 @@ class GraphSolverService:
         self.rep = get_rep(rep if rep is not None else cfg.graph_rep)
         self.mesh_shape = normalize_spatial(cfg.spatial)      # (dp, sp)
         self.mesh = None
+        self._channel: Optional[PlanChannel] = None
         if self.mesh_shape != (1, 1):
             _check_csr_spatial(self.rep, self.mesh_shape[1])
             self.mesh = make_mesh(*self.mesh_shape)
+            self._channel = PlanChannel(
+                self.mesh, f"service{next(_MESH_SERVICES)}", self.device)
+        self.rank = self.mesh.rank if self.mesh is not None else 0
         self.sparse_max_degree = sparse_max_degree
         self.csr_max_edges = csr_max_edges
         self._bucket_reps: Dict[int, GraphRep] = {}
@@ -222,6 +272,8 @@ class GraphSolverService:
             starvation_factor=starvation_factor, min_bucket=min_bucket)
         self._thread: Optional[threading.Thread] = None
         self._running = False
+        self._leading = False     # rank 0 plans for every rank (lead())
+        self._failed: Optional[BaseException] = None   # a mesh dispatch
 
     @classmethod
     def from_checkpoint(cls, ckpt_dir, cfg: PolicyConfig,
@@ -282,17 +334,15 @@ class GraphSolverService:
                      deadline_ms: Optional[float] = None) -> SolveFuture:
         """Async mode: admit one graph into the deadline scheduler and
         return a :class:`SolveFuture`.  Raises :class:`ServiceOverloaded`
-        at the admission bound, and ``NotImplementedError`` on a mesh."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "async serving on a mesh is not ported: its batching follows "
-                "each rank's clock, so the ranks would plan different "
-                "dispatches (ROADMAP item \"async serving on a mesh\"); "
-                "use the sync serve()/drain()")
+        at the admission bound.  On a mesh, rank 0 alone takes
+        submissions (it leads, :meth:`lead`); the other ranks raise
+        ``ValueError`` and :meth:`follow`."""
+        self.lead()
         adj = self._validate(adj, problem)
         if deadline_ms is None:
             deadline_ms = self.default_deadline_ms
         with self._cond:
+            self._check_alive()
             req = self._make_request(adj, problem)
             deadline_t = (req.enqueue_t + deadline_ms / 1e3
                           if deadline_ms is not None else math.inf)
@@ -310,6 +360,88 @@ class GraphSolverService:
 
     def pending(self) -> int:
         return len(self._queue) + len(self._sched)
+
+    # -- the mesh's one planner ----------------------------------------------
+    def _check_alive(self) -> None:
+        if self._failed is not None:
+            raise RuntimeError(
+                f"this mesh service failed in a dispatch and serves no "
+                f"more: {self._failed!r}") from self._failed
+
+    def lead(self) -> None:
+        """Make rank 0 the mesh's one planner, until :meth:`close`: from
+        now on each of its dispatches (async, ``drain()`` and the flush
+        of ``close()``) and warmups is sent to the other ranks, which run
+        it in :meth:`follow`.  A no-op on one device and while leading;
+        ``ValueError`` on any rank but 0."""
+        if self.mesh is None:
+            return
+        if self.rank != 0:
+            raise ValueError(
+                f"rank {self.rank} of the mesh {self.mesh_shape} takes no "
+                f"submissions: rank 0 is the service's one front end and "
+                f"planner; submit on rank 0 and call follow() here")
+        self._check_alive()
+        self._leading = True
+
+    def follow(self) -> int:
+        """The other ranks' side of a service whose rank 0 leads: run
+        each of rank 0's warmups and dispatches, in rank 0's order, until
+        rank 0 closes the service.  Returns the number of dispatches run.
+        The stats count them as rank 0's do (``requests`` the rows
+        served); the responses are rank 0's to hand out.  ``ValueError``
+        on one device and on rank 0."""
+        if self.mesh is None or self.rank == 0:
+            raise ValueError("follow() runs on the ranks other than 0 of a "
+                             "mesh service, whose rank 0 leads")
+        served = 0
+        while True:
+            header, payload = self._channel.recv()
+            if header["kind"] == "stop":
+                return served
+            nb, problem = header["nb"], header["problem"]
+            with self._device_lock:
+                # rank 0's first-dispatch record decides, so that every
+                # rank runs the collectives of the same first dispatches
+                if header["first"]:
+                    self._dispatched.discard(self._key(nb, problem))
+                else:
+                    self._dispatched.add(self._key(nb, problem))
+                if header["kind"] == "warm":
+                    self._ensure_dispatched(nb, problem, warm=True)
+                    continue
+                plan = plan_from_payload(nb, problem, header["ids"],
+                                         header["sizes"], payload,
+                                         self.rows_per_dispatch)
+                self._dispatch(plan)
+            self.stats.requests += len(plan.request_ids)
+            served += 1
+
+    def _send(self, kind: str, nb: int, problem: str,
+              plan: Optional[BatchPlan] = None) -> None:
+        """While leading, send the next plan (the caller holds the device
+        lock, so plans go out in the order they run)."""
+        if self._leading:
+            self._channel.send(
+                {"kind": kind, "nb": nb, "problem": problem,
+                 "first": self._key(nb, problem) not in self._dispatched,
+                 "ids": list(plan.request_ids) if plan else [],
+                 "sizes": list(plan.sizes) if plan else []},
+                plan_payload(plan) if plan else None)
+
+    def _run(self, plan: BatchPlan) -> List[SolveResponse]:
+        """One dispatch, its plan sent first while leading.  On a mesh a
+        failure fails the service (the ranks' collectives are out of
+        step)."""
+        with self._device_lock:
+            self._check_alive()
+            try:
+                self._send("dispatch", plan.nb, plan.problem, plan)
+                return self._dispatch(plan)
+            except BaseException as exc:
+                if self.mesh is not None:
+                    self._failed = exc
+                raise
 
     # -- first dispatch / warmup ---------------------------------------------
     def _bucket_rep(self, nb: int) -> GraphRep:
@@ -374,7 +506,9 @@ class GraphSolverService:
         """Run the first dispatch of every (bucket, problem) the traffic
         will touch, off the request path.  ``buckets`` entries are rounded
         up to their power-of-two bucket.  After a warmup covering the
-        traffic's buckets, ``stats.compiles == 0`` holds."""
+        traffic's buckets, ``stats.compiles == 0`` holds.  On a mesh every
+        rank calls it with the same arguments, or rank 0 alone while it
+        leads (the others run it in :meth:`follow`)."""
         t0 = time.perf_counter()
         done = []
         with self._device_lock:
@@ -382,6 +516,7 @@ class GraphSolverService:
                 for b in buckets:
                     nb = bucket_nodes(int(b), self.min_bucket)
                     if self._key(nb, problem) not in self._dispatched:
+                        self._send("warm", nb, problem)
                         self._ensure_dispatched(nb, problem, warm=True)
                         done.append([nb, problem])
         return {"compiled": done,
@@ -428,10 +563,26 @@ class GraphSolverService:
                 name="graph-solver-scheduler", daemon=True)
             self._thread.start()
 
+    def _fail_queued(self, exc: BaseException) -> None:
+        """A failed mesh service: every queued future fails with ``exc``
+        and the scheduler thread stops."""
+        with self._cond:
+            self._running = False
+            while True:
+                batch = self._sched.next_batch(time.perf_counter(),
+                                               force=True)
+                if batch is None:
+                    return
+                for p in batch[1]:
+                    p.future._set_exception(exc)
+
     def _scheduler_loop(self) -> None:
         """Continuous batching: sleep until the scheduler has a ready
         batch (or a head's max_wait expires), dispatch it outside the
         lock, resolve its futures; on shutdown, flush what is queued."""
+        if self.device.type == "cuda":      # the current card is per thread
+            import torch
+            torch.cuda.set_device(self.device)
         while True:
             with self._cond:
                 batch = None
@@ -452,11 +603,13 @@ class GraphSolverService:
             plan = build_plan([p.req for p in pendings], nb, problem,
                               self.rows_per_dispatch)
             try:
-                with self._device_lock:
-                    responses = self._dispatch(plan)
+                responses = self._run(plan)
             except Exception as exc:    # device OOM etc.: fail the batch
                 for p in pendings:
                     p.future._set_exception(exc)
+                if self._failed is not None:
+                    self._fail_queued(exc)
+                    return
                 continue
             by_id = {r.id: r for r in responses}
             for p in pendings:
@@ -468,7 +621,8 @@ class GraphSolverService:
 
     def close(self) -> None:
         """Stop the async scheduler thread after flushing what is queued,
-        so every issued future resolves."""
+        so every issued future resolves; while leading a mesh, then send
+        the stop plan, on which every :meth:`follow` returns."""
         with self._cond:
             thread = self._thread
             self._running = False
@@ -476,6 +630,10 @@ class GraphSolverService:
         if thread is not None:
             thread.join()
         self._thread = None
+        if self._leading:
+            with self._device_lock:
+                self._channel.send({"kind": "stop"})
+            self._leading = False
 
     def __enter__(self) -> "GraphSolverService":
         return self
@@ -487,7 +645,9 @@ class GraphSolverService:
     def drain(self) -> Dict[int, SolveResponse]:
         """Serve every pending sync request: bucket, pad, batch, solve,
         unpad.  If a dispatch raises, unserved requests go back on the
-        queue and computed responses are held for the next drain."""
+        queue and computed responses are held for the next drain.  On a
+        mesh, every rank drains the same queue (SPMD), or rank 0 alone
+        while it leads."""
         with self._cond:
             if self._running:
                 raise RuntimeError(
@@ -499,8 +659,7 @@ class GraphSolverService:
         try:
             for plan in plan_batches(requests, self.rows_per_dispatch,
                                      self.min_bucket):
-                with self._device_lock:
-                    responses = self._dispatch(plan)
+                responses = self._run(plan)
                 for resp in responses:
                     self._results[resp.id] = resp
                     pending.pop(resp.id, None)

@@ -5,8 +5,8 @@ both, and the port's service driven open-loop in both modes.
 Bars: workloads bit for bit JAX's (arrivals, sizes, adjacency bits);
 ``_report`` JAX's dict exactly on the same responses; every open-loop
 request accounted for and answered as the JAX service answers that graph;
-a mesh service refused before anything is submitted; the launcher's
-``--rate`` line."""
+a mesh service's follower refused before anything is submitted; the
+launcher's ``--rate`` line."""
 import dataclasses
 
 import numpy as np
@@ -160,10 +160,10 @@ def test_unknown_mode_and_a_mesh_service_are_refused(pair, workload):
     svc = GraphSolverService(policy, cfg, device="cpu")
     with pytest.raises(ValueError, match="unknown drive mode"):
         run_open_loop(svc, workload, mode="burst")
-    svc.mesh = object()                            # a mesh service's mesh
+    svc.mesh, svc.rank = object(), 1    # a follower of a mesh service
     for mode in ("sync", "async"):
-        with pytest.raises(NotImplementedError,
-                           match="async serving on a mesh"):
+        with pytest.raises(ValueError, match="rank 0 is the service's one "
+                                             "front end and planner"):
             run_open_loop(svc, workload, mode=mode)
     assert svc.stats.requests == 0 and svc.pending() == 0
 
@@ -180,9 +180,12 @@ def test_launcher_rate_prints_the_report_line(capsys, mode):
 
 
 def test_launcher_refuses_rate_on_a_mesh(monkeypatch):
+    """``--rate`` on a mesh runs one process per rank: without torchrun
+    the launcher asks for it (tests/test_torch_mesh_async.py runs it
+    under torchrun)."""
     for var in solve_serve.TORCHRUN_VARS:
         monkeypatch.delenv(var, raising=False)
-    with pytest.raises(NotImplementedError, match="async serving on a mesh"):
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
         solve_serve.main(["--device", "cpu", "--spatial", "1,2", "--rate",
                           "5"])
 

@@ -257,8 +257,7 @@ def test_launcher_parses_spatial_and_needs_torchrun(monkeypatch):
     with pytest.raises(RuntimeError, match="--nproc-per-node 2"):
         solve_serve.main(["--device", "cpu", "--spatial", "2"])
     for extra in (["--mode", "async"], ["--rate", "5"]):
-        with pytest.raises(NotImplementedError,
-                           match="async serving on a mesh"):
+        with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
             solve_serve.main(["--device", "cpu", "--spatial", "1,2"]
                              + extra)
     monkeypatch.setenv("RANK", "0")
@@ -361,7 +360,8 @@ def test_mesh_node_divisibility_error_matches_jax(mesh_run):
 def test_mesh_service_matches_single_device_service(case, mesh_run):
     """tests/test_mesh.py:210-260: a dp>1 service (max_batch per data
     rank) gives every request the single-device service's answer (the
-    port's and JAX's) with as many rows per dispatch; async raises."""
+    port's and JAX's) with as many rows per dispatch; a rank other than 0
+    refuses async submissions (rank 0 is the one planner)."""
     spec, ranks = mesh_run
     if spec[0] == 1:
         assert all(("service", "dense") not in out for out in ranks)
@@ -386,4 +386,8 @@ def test_mesh_service_matches_single_device_service(case, mesh_run):
                 np.testing.assert_array_equal(sol, j.solution)
                 assert evals == r.policy_evals
         for out in ranks:
-            assert "async serving on a mesh" in out["async_error"]
+            if out["rank"] == 0:
+                assert "async_error" not in out
+            else:
+                assert "rank 0 is the service's one front end" \
+                    in out["async_error"]

@@ -376,8 +376,9 @@ def test_three_problems_refused_on_a_mesh(setup, problem):
     """The three problems are no longer refused on a mesh: without a
     process group, solve and the train step ask for the ranks' one
     (``spawn_mesh``) as mvc does; a mesh service queues their requests,
-    and refuses async serving for them as for mvc; an unknown problem is
-    still a ValueError.  The mesh runs are tests/test_torch_problems_mesh.py's."""
+    and its ranks other than 0 refuse async submissions of them as of
+    mvc's; an unknown problem is still a ValueError.  The mesh runs are
+    tests/test_torch_problems_mesh.py's."""
     adj, _, policy = setup
     for spatial in ((1, 2), (2, 1), 2):
         for p in (problem, "mvc"):
@@ -390,9 +391,9 @@ def test_three_problems_refused_on_a_mesh(setup, problem):
     svc.mesh_shape = (2, 1)                        # as a mesh service holds
     assert svc.submit(adj[0], problem=problem) == 0
     assert svc.pending() == 1
-    svc.mesh = object()                            # a mesh service's mesh
-    with pytest.raises(NotImplementedError,
-                       match="async serving on a mesh"):
+    svc.mesh, svc.rank = object(), 1    # a follower of a mesh service
+    with pytest.raises(ValueError, match="rank 0 is the service's one "
+                                         "front end"):
         svc.submit_async(adj[0], problem=problem)
     with pytest.raises(ValueError, match="unknown environment"):
         solve(policy, adj, problem="nope", spatial=(1, 2), device="cpu")

@@ -1,5 +1,7 @@
-"""Rank functions of tests/test_torch_mesh.py, tests/test_torch_mesh_train.py
-and tests/test_torch_cuda.py, run by ``repro_torch.core.mesh.spawn_mesh``
+"""Rank functions of tests/test_torch_mesh.py, tests/test_torch_mesh_train.py,
+tests/test_torch_problems_mesh.py, tests/test_torch_mesh_async.py,
+tests/test_torch_mesh_host.py and tests/test_torch_cuda.py, run by
+``repro_torch.core.mesh.spawn_mesh``
 in spawned processes.  A spawned rank imports this module by name, so it
 lives apart from the test files and imports neither jax nor the JAX
 package: each rank only loads torch."""
@@ -87,10 +89,11 @@ def run_shape(mesh, dev, weights, adj, partial_sol, stream):
                 "batches": svc.stats.batches,
                 "responses": [(r.id, r.solution, r.size, r.policy_evals)
                               for r in responses]}
-        try:
-            svc.submit_async(stream[0])
-        except NotImplementedError as e:
-            out["async_error"] = str(e)
+        if mesh.rank != 0:                  # rank 0 alone takes them
+            try:
+                svc.submit_async(stream[0])
+            except ValueError as e:
+                out["async_error"] = str(e)
     return out
 
 
@@ -532,4 +535,262 @@ def problems_shape(mesh, dev, weights, adj, stream, rules_adj, train):
     for problem, rep in train["agent"]:
         out["agent", problem, rep] = train_agent_run(mesh, dev, train["adj"],
                                                      problem, rep)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Async serving and open-loop load on the mesh, rank 0 the one planner
+# (tests/test_torch_mesh_async.py).
+# ---------------------------------------------------------------------------
+
+STATS = ("requests", "batches", "partial_batches", "padded_rows",
+         "compiles", "warmup_compiles", "cache_hits")
+
+
+def _stats(svc):
+    return {k: getattr(svc.stats, k) for k in STATS} | {
+        "padded_rows_by_bucket": dict(svc.stats.padded_rows_by_bucket)}
+
+
+def _answers(responses):
+    return [(r.id, r.solution, r.size, r.policy_evals, r.bucket)
+            for r in responses]
+
+
+def _lead_or_follow(mesh, svc, lead):
+    """Rank 0 runs ``lead(svc)`` and closes the service; the others
+    follow it.  Returns rank 0's result, or the number of dispatches a
+    follower ran, and every rank's stats."""
+    if mesh.rank == 0:
+        try:
+            out = lead(svc)
+        finally:
+            svc.close()
+    else:
+        out = svc.follow()
+    return {"out": out, "stats": _stats(svc)}
+
+
+def _recording(svc):
+    """Rank 0's responses of every dispatch, by request id (the load
+    generator returns its report only)."""
+    seen = {}
+    dispatch = svc._dispatch
+
+    def record(plan):
+        responses = dispatch(plan)
+        seen.update((r.id, (r.solution, r.size)) for r in responses)
+        return responses
+    svc._dispatch = record
+    return seen
+
+
+def async_shape(mesh, dev, weights, stream, buckets, workload_kw):
+    """Everything tests/test_torch_mesh_async.py checks on one mesh
+    shape, in one spawn: the SPMD sync service, then services whose rank
+    0 leads and whose other ranks follow: async answers after a warmup
+    on every rank, the fast reject at the depth bound, ``drain`` refused
+    while async runs, ``close`` flushing an underfilled batch, a
+    follower refusing ``submit_async``, and at (2, 2) open-loop load in
+    both modes.  Returns this rank's results."""
+    import threading
+    from repro_torch.serving import (ServiceOverloaded, make_workload,
+                                     run_open_loop)
+    policy = policy_from_numpy(weights, device=dev)
+    cfg = PolicyConfig(embed_dim=8, spatial=mesh.shape)
+
+    def service(**kw):
+        return GraphSolverService(policy, cfg, device=dev, multi_node=True,
+                                  **kw)
+    out = {"rank": mesh.rank}
+    svc = service(max_batch=2)
+    out["sync"] = _answers(svc.serve(stream))
+    out["sync_stats"] = _stats(svc)
+
+    # async after a warmup on every rank
+    svc = service(max_batch=2, max_wait_ms=10.0)
+    out["warmup"] = svc.warmup(buckets)["compiled"]
+
+    def run_async(s):
+        futures = [s.submit_async(a, deadline_ms=5_000.0) for a in stream]
+        return _answers(f.result(timeout=60) for f in futures)
+    out["async"] = _lead_or_follow(mesh, svc, run_async)
+    out["channel"] = dict(svc._channel.stats)
+    if mesh.rank != 0:
+        try:
+            svc.submit_async(stream[0])
+        except ValueError as e:
+            out["follower_error"] = str(e)
+
+    # the fast reject at the depth bound, the dispatch thread pinned on
+    # rank 0 by its device lock
+    def reject(s):
+        futures, rejected = [], 0
+        with s._device_lock:
+            futures.append(s.submit_async(stream[0]))
+            deadline = time.time() + 10
+            while len(s._sched) and time.time() < deadline:
+                time.sleep(0.001)
+            futures += [s.submit_async(stream[0]) for _ in range(2)]
+            try:
+                s.submit_async(stream[0])
+            except ServiceOverloaded:
+                rejected = s.stats.rejected
+        return {"rejected": rejected,
+                "sizes": [f.result(timeout=60).size for f in futures]}
+    out["reject"] = _lead_or_follow(
+        mesh, service(max_batch=1, max_wait_ms=0.0, max_queue_depth=2),
+        reject)
+
+    # drain() refused while async runs; close() flushes the batch
+    def drain_refused(s):
+        fut = s.submit_async(stream[0])
+        try:
+            s.drain()
+            error = None
+        except RuntimeError as e:
+            error = str(e)
+        s.close()
+        return {"error": error, "bucket": fut.result(timeout=60).bucket}
+    out["drain"] = _lead_or_follow(
+        mesh, service(max_batch=2, max_wait_ms=1000.0), drain_refused)
+
+    def flush(s):
+        fut = s.submit_async(np.asarray(stream[1]))
+        s.close()
+        r = fut.result(timeout=60)
+        return {"bucket": r.bucket, "n": len(r.solution)}
+    out["flush"] = _lead_or_follow(
+        mesh, service(max_batch=4, max_wait_ms=60_000.0), flush)
+
+    if workload_kw is not None:
+        for mode in ("async", "sync"):
+            svc = service(max_batch=2, max_wait_ms=5.0)
+            svc.warmup(buckets)
+
+            def load(s, mode=mode):
+                seen = _recording(s)
+                rep = run_open_loop(s, make_workload(**workload_kw),
+                                    mode=mode)
+                return {"report": rep.as_dict(), "seen": seen}
+            out["open_loop", mode] = _lead_or_follow(mesh, svc, load)
+    out["threads"] = threading.active_count()
+    return out
+
+
+def idle_and_fail(mesh, dev, weights, stream, idle_s):
+    """A service that idles ``idle_s`` (longer than the group's timeout)
+    before rank 0 submits, then serves; then a service whose dispatch
+    fails on rank 0 (an injected error): rank 0's future fails, the
+    service refuses new work and its ``close()`` returns, and the other
+    ranks raise from ``follow()`` within the group's timeout.  Rank 0
+    stays in the group until they have, so theirs is the collective's
+    timeout, not a peer gone.  Returns what each rank saw and how long
+    the failure took it."""
+    from torch.distributed import distributed_c10d
+    store = distributed_c10d._get_default_store()
+    policy = policy_from_numpy(weights, device=dev)
+    cfg = PolicyConfig(embed_dim=8, spatial=mesh.shape)
+    svc = GraphSolverService(policy, cfg, device=dev, multi_node=True,
+                             max_batch=2, max_wait_ms=5.0)
+    svc.warmup([a.shape[0] for a in stream])
+
+    def idle_then_serve(s):
+        time.sleep(idle_s)
+        return _answers(f.result(timeout=60) for f in
+                        [s.submit_async(a) for a in stream])
+    t0 = time.perf_counter()
+    out = {"idle": _lead_or_follow(mesh, svc, idle_then_serve),
+           "idle_s": time.perf_counter() - t0}
+
+    svc = GraphSolverService(policy, cfg, device=dev, multi_node=True,
+                             max_batch=2, max_wait_ms=5.0)
+    svc.warmup([a.shape[0] for a in stream])
+    t0 = time.perf_counter()
+    if mesh.rank == 0:
+        def fail(*a, **k):
+            raise RuntimeError("injected dispatch failure")
+        svc._solve_fn = lambda nb, problem: fail
+        fut = svc.submit_async(stream[0])
+        seen = {}
+        try:
+            fut.result(timeout=60)
+        except RuntimeError as e:
+            seen["future"] = str(e)
+        try:
+            svc.submit_async(stream[0])
+        except RuntimeError as e:
+            seen["submit"] = str(e)
+        svc.close()
+        seen["closed_s"] = time.perf_counter() - t0
+        store.wait([f"test/raised/{r}" for r in range(1, mesh.dp * mesh.sp)])
+    else:
+        seen = {}
+        try:
+            svc.follow()
+        except RuntimeError as e:
+            seen["follow"] = str(e)
+        store.set(f"test/raised/{mesh.rank}", "1")
+    out["fail"] = seen
+    out["fail_s"] = time.perf_counter() - t0
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The host training loop on the mesh (tests/test_torch_mesh_host.py).
+# ---------------------------------------------------------------------------
+
+def host_loop_run(mesh, dev, adj, weights, adam, *, rep, mode, problem,
+                  n, b, mb, tau, steps, episodes):
+    """``train_agent(engine="host")`` on this rank of ``mesh`` from JAX's
+    weights and Adam state (numpy), tests/test_torch_host_engine.py's
+    run.  Returns the replay ring, losses, episode lengths, weights, the
+    step counts."""
+    from repro_torch.convert import adam_from_numpy, policy_to_numpy
+    from repro_torch.core import Agent, train_agent
+    from repro_torch.core.replay import _FIELDS
+    cfg = PolicyConfig(embed_dim=8, num_layers=2, minibatch=mb,
+                       replay_capacity=64, learning_rate=1e-3,
+                       graph_rep=rep, spatial=mesh.shape)
+    agent = Agent(cfg, num_nodes=n, target_mode=mode, device=dev,
+                  params=policy_from_numpy(weights, device=dev),
+                  opt=adam_from_numpy(adam, device=dev))
+    log = train_agent(agent, adj, problem=problem, episodes=episodes,
+                      tau=tau, batch_graphs=b, max_steps=steps,
+                      eval_every=10 ** 9, seed=0, engine="host")
+    ring = agent.replay
+    return {"ring": {f: getattr(ring, f).copy() for f in _FIELDS},
+            "size": ring.size, "ptr": ring._ptr,
+            "losses": np.array(log.losses), "lengths": log.episode_lengths,
+            "params": policy_to_numpy(agent.params),
+            "step_count": agent.step_count, "opt_step": int(agent.opt.step)}
+
+
+def host_refusals(mesh, dev, adj):
+    """The mesh host loop's refusals on this rank: a minibatch that does
+    not divide by dp, nodes that do not divide by sp, CSR at sp > 1."""
+    from repro_torch.core import Agent, train_agent
+    out = {}
+    for name, kw, graphs in (
+            ("minibatch", dict(minibatch=7), adj),
+            ("nodes", dict(minibatch=8), adj[:, :13, :13]),
+            ("csr", dict(minibatch=8, graph_rep="csr"), adj)):
+        cfg = PolicyConfig(embed_dim=8, replay_capacity=64,
+                           spatial=mesh.shape, **kw)
+        agent = Agent(cfg, num_nodes=graphs.shape[-1], device=dev)
+        try:
+            train_agent(agent, graphs, episodes=1, batch_graphs=2,
+                        max_steps=2, engine="host")
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+def host_shape(mesh, dev, adj, cases):
+    """Everything tests/test_torch_mesh_host.py checks on one mesh
+    shape, in one spawn: each case of ``cases`` (name → keyword arguments
+    of :func:`host_loop_run`) and the refusals."""
+    out = {"rank": mesh.rank, "refusals": host_refusals(mesh, dev, adj)}
+    for name, kw in cases.items():
+        out[name] = host_loop_run(mesh, dev, adj, **kw)
     return out
