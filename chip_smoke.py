@@ -46,7 +46,31 @@ Phases (any failed check raises, so the script exits non-zero):
    2, 1 and 2 kernels and give finite outputs; then each kernel against its
    plain version and the f64 oracle (the sequential scan for wkv6) at
    those widths and at ragged, bf16, other-chunk and other-window cases
-   (``phase_lm_kernels``), and their times beside the bounds.
+   (``phase_lm_kernels``), and their times beside the bounds; wkv6 also
+   from a state ``s0`` (full width, chunk 16) and as two calls chained
+   through the state against the whole call.
+1c. LM serving (phase lm_serve, ROADMAP A8a): rwkv6-7b, gemma3-4b and
+   qwen2-moe-a2.7b at full width and depth in bf16, one at a time, random
+   weights made on the card from the seed.  Each prefill (rwkv6-7b B=4,
+   T=512; gemma3-4b B=2, T=2048, so the 1024 window bites; qwen2-moe
+   B=2, T=256) runs with the counts at 0 and must launch its kernel
+   exactly (B6 64 = 2 a layer at ``wkv_chunk=16``, B7 29 = 1 a local
+   layer, B8 48 = 2 a layer) and no other LM kernel, with finite logits
+   (and a finite final RWKV state); the kernel's first call on that path
+   is captured and held to its plain version and f64 by ``lm_tol``'s
+   rules, and timed there (on the path's bf16 inputs and on f32 copies,
+   beside its bound, its plain version and a library call).  Then three
+   timed prefills, one under torch.profiler (the kernel's device ms and
+   share), and the decode with the counts at 0: 16 tokens of rwkv6-7b
+   through ``launch/serve.py``'s main (no B6: a one-token step), 8 of
+   qwen2-moe after its prompt on the prefill's caches grown by 9 slots
+   (B8 48 a step); ms a token, tokens/s, one more step profiled, peak
+   device GB.  Then the card against the port on the CPU: the three
+   models at full width in f32 cut to 2 layers (B=1, T=64), prefill
+   logits within 1e-3 of the largest |logit|, and on the card 16 decode
+   steps within 2e-3 of the prefill; the ten reduced archs' prefill
+   (1e-4) and 8 greedy decode steps (1e-3 of the largest |logit|), the
+   same tokens unless a parting at a near-tie, which is printed.
 2. Served requests: GraphSolverService at K=32, L=2, multi-node
    selection, max_batch=8, warmed up, answers 16 ER(0.15) graphs of
    500..4000 nodes, on the dense, the sparse (sparse_max_degree=768) and
@@ -247,8 +271,9 @@ device, and outside a checkout.  With ``--only <kernel>,...`` (names of
 the kernels line) it runs only the build, phase 1's checks of those
 kernels with their gates and their times (for the sparse and CSR layers
 and the CSR aggregate both routes, the aggregate also at the sampled
-minibatch, and the route sweep behind the rule's constant), the loop
-for work on them: it prints no kernels line and no result line.
+minibatch, and the route sweep behind the rule's constant; for an LM
+kernel also phase 1c on its model), the loop for work on them: it
+prints no kernels line and no result line.
 """
 from __future__ import annotations
 
@@ -794,12 +819,13 @@ def wkv6_inputs(torch, dev, bh, t, dk, dv, w_min, seed):
             w, randn(bh, dk) * 0.3)
 
 
-def wkv6_scan64(torch, r, k, v, w, u):
-    """The sequential scan of ref.wkv6, in f64: the independent oracle."""
+def wkv6_scan64(torch, r, k, v, w, u, s0=None):
+    """The sequential scan of ref.wkv6, in f64, from the state ``s0``
+    (zero when None): the independent oracle."""
     r, k, v, w, u = (a.double() for a in (r, k, v, w, u))
     bh, t, dk = r.shape
     s = torch.zeros((bh, dk, v.shape[2]), dtype=torch.float64,
-                    device=r.device)
+                    device=r.device) if s0 is None else s0.double()
     out = torch.empty(v.shape, dtype=torch.float64, device=r.device)
     for i in range(t):
         kv = k[:, i, :, None] * v[:, i, None, :]
@@ -978,10 +1004,10 @@ def lm_checks(torch, dev, rows, failures, names, inputs, outs=None):
     from repro_torch.kernels.wkv6 import wkv6_chunked_plain
     outs = outs or {}
 
-    def wkv_case(case, args, c, compute="f32", got=None):
-        got = got or ops.wkv6(*args, chunk=c)
-        want = wkv6_chunked_plain(*args, chunk=c)
-        exact = wkv6_scan64(torch, *args)
+    def wkv_case(case, args, c, compute="f32", got=None, s0=None):
+        got = got or ops.wkv6(*args, s0=s0, chunk=c)
+        want = wkv6_chunked_plain(*args, s0=s0, chunk=c)
+        exact = wkv6_scan64(torch, *args, s0=s0)
         shape = {"BH": args[0].shape[0], "T": args[0].shape[1],
                  "dk": args[0].shape[2], "dv": args[2].shape[2], "chunk": c,
                  "w_min": float(args[3].min())}
@@ -994,8 +1020,30 @@ def lm_checks(torch, dev, rows, failures, names, inputs, outs=None):
         bh, t, dk, dv, chunk = WKV_FULL
         wkv_case("full", inputs["wkv6_chunked"], chunk,
                  got=outs.get("wkv6_chunked"))
-        wkv_case("full_model_decays", wkv6_inputs(
-            torch, dev, bh, t, dk, dv, W_MODEL_MIN, SEED + 64), 16)
+        model = wkv6_inputs(torch, dev, bh, t, dk, dv, W_MODEL_MIN,
+                            SEED + 64)
+        wkv_case("full_model_decays", model, 16)
+        # from a state (the model's s0), and two calls chained through the
+        # state against the whole call
+        g = torch.Generator(device=dev).manual_seed(SEED + 74)
+        s0 = 0.5 * torch.randn((bh, dk, dv), generator=g, device=dev)
+        whole = ops.wkv6(*model, s0=s0, chunk=16)
+        wkv_case("full_model_decays_s0", model, 16, got=whole, s0=s0)
+        h = t // 2
+        o1, s1 = ops.wkv6(*(a[:, :h].contiguous() if a.dim() == 3 else a
+                            for a in model), s0=s0, chunk=16)
+        o2, s2 = ops.wkv6(*(a[:, h:].contiguous() if a.dim() == 3 else a
+                            for a in model), s0=s1, chunk=16)
+        shape = {"BH": bh, "T": t, "dk": dk, "dv": dv, "chunk": 16,
+                 "halves": 2}
+        exact = wkv6_scan64(torch, *model, s0=s0)
+        for part, got, want, ex in (
+                ("out", torch.cat([o1, o2], 1), whole[0], exact[0]),
+                ("state", s2, whole[1], exact[1])):
+            compare(torch, rows, failures, "wkv6_chunked",
+                    f"chained_halves_s0/{part}", "f32", got, want, ex, None,
+                    shape, tol=lm_tol("wkv6_chunked"), gate_f64=True)
+        del model, whole, exact, o1, o2, s1, s2
         small = wkv6_inputs(torch, dev, 3, 128, 16, 24, W_TPU_MIN, SEED + 65)
         for c in (16, 32, 64):
             wkv_case(f"ragged_c{c}", small, c)
@@ -1124,6 +1172,450 @@ def glu_timing(torch, glu):
     emit({"phase": "timing", "kernel": "grouped_glu_ffn", "shape": "full",
           **row})
     return row
+
+
+# ---------------------------------------------------------------------------
+# Phase 1c: LM serving on the card (repro_torch.models), B6-B8 on its path.
+# ---------------------------------------------------------------------------
+
+# (arch, batch, prompt tokens, decode tokens, its kernel, launches a
+# prefill, launches a decode step) of the full-width models, bf16 weights
+LM_SERVE = (("rwkv6-7b", 4, 512, 16, "wkv6_chunked", 64, 0),
+            ("gemma3-4b", 2, 2048, 0, "swa_attention", 29, 0),
+            ("qwen2-moe-a2.7b", 2, 256, 8, "grouped_glu_ffn", 48, 48))
+LM_WKV_CHUNK = 16                # the model's decays need chunk 16 (B6)
+LM_PREFILL_TIMED = 3             # timed prefills after the checked one
+LM_CPU_CHECK = (2, 1, 64)        # full width, f32: layers, batch, tokens
+LM_DECODE_CHECK = 16             # decode steps held to the prefill
+LM_REDUCED = (2, 32, 8)          # the ten reduced archs: batch, tokens, steps
+# the kernels' symbols in a profile
+LM_SYMBOLS = {"wkv6_chunked": ("wkv6_state_kernel", "wkv6_out_kernel"),
+              "swa_attention": ("swa_kernel",),
+              "grouped_glu_ffn": ("glu_kernel", "proj_kernel")}
+# where each model module calls its kernel's wrapper
+LM_CALL_SITES = {"wkv6_chunked": ("rwkv", "wkv6_chunked"),
+                 "swa_attention": ("attention", "swa_attention"),
+                 "grouped_glu_ffn": ("ffn", "grouped_glu_ffn")}
+
+
+@contextlib.contextmanager
+def first_call(torch, kernel):
+    """Record the arguments and the result of the first call the models
+    make to ``kernel``'s wrapper (copies, so later layers cannot change
+    them); the wrapper itself runs and counts as always."""
+    import importlib
+    module_name, attr = LM_CALL_SITES[kernel]
+    module = importlib.import_module(f"repro_torch.models.{module_name}")
+    real = getattr(module, attr)
+    seen = {}
+
+    def copy(a):
+        if torch.is_tensor(a):
+            return a.detach().clone()
+        if isinstance(a, tuple):
+            return tuple(copy(x) for x in a)
+        return a
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        if not seen:
+            seen.update(args=copy(args), kw={k: copy(v) for k, v in
+                                             kw.items()}, out=copy(out))
+        return out
+    setattr(module, attr, spy)
+    try:
+        yield seen
+    finally:
+        setattr(module, attr, real)
+
+
+def lm_call_check(torch, rows, failures, kernel, arch, seen):
+    """The first launch of ``kernel`` on ``arch``'s prefill against its
+    plain version and f64, by ``lm_tol``'s rules (the bf16 inputs upcast
+    exactly).  Returns the timing row of the kernel at that call's shape:
+    the wrapper on the path's inputs (bf16, upcast inside) and on f32
+    copies, its plain version and a library call, beside the bound."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.moe_gemm import grouped_glu_ffn_plain
+    from repro_torch.kernels.swa import swa_attention_plain
+    from repro_torch.kernels.wkv6 import wkv6_chunked_plain
+    args, kw, out = seen["args"], seen["kw"], seen["out"]
+    f32 = [a.float() for a in args]
+    case = f"{arch}_prefill"
+    row = {"arch": arch, "dtype_in": str(args[0].dtype)[6:]}
+    if kernel == "wkv6_chunked":
+        chunk = kw["chunk"]
+        want = wkv6_chunked_plain(*f32, chunk=chunk)
+        exact = wkv6_scan64(torch, *f32)
+        bh, t, dk = f32[0].shape
+        dv = f32[2].shape[2]
+        shape = {"BH": bh, "T": t, "dk": dk, "dv": dv, "chunk": chunk,
+                 "w_min": float(f32[3].min())}
+        for part, i in (("out", 0), ("state", 1)):
+            compare(torch, rows, failures, kernel, f"{case}/{part}", "f32",
+                    out[i], want[i], exact[i], None, shape,
+                    tol=lm_tol(kernel), gate_f64=True)
+        row.update(shape)
+        row["bound_ms"], row["bound_by"] = wkv6_bound(bh, t, dk, dv, chunk)
+        row["ms"] = cuda_ms(torch, lambda: ops.wkv6(*args, chunk=chunk))
+        row["ms_f32_inputs"] = cuda_ms(torch, lambda: ops.wkv6(*f32,
+                                                               chunk=chunk))
+        row["plain_ms"] = cuda_ms(torch, lambda: wkv6_chunked_plain(
+            *f32, chunk=chunk))
+        row["library_ms"] = None     # no single PyTorch call computes it
+    elif kernel == "swa_attention":
+        window, scale = kw["window"], kw["scale"]
+        bh, t, d = f32[0].shape
+        shape = {"BH": bh, "T": t, "d": d, "window": window}
+        compare(torch, rows, failures, kernel, case, "f32", out,
+                swa_attention_plain(*f32, window=window, scale=scale),
+                swa_exact(torch, *f32, window), None, shape,
+                tol=lm_tol(kernel), gate_f64=True)
+        row.update(shape)
+        row["bound_ms"], row["bound_by"] = swa_bound(bh, t, d, window)
+        row["ms"] = cuda_ms(torch, lambda: ops.swa(*args, window=window,
+                                                   scale=scale))
+        row["ms_f32_inputs"] = cuda_ms(torch, lambda: ops.swa(
+            *f32, window=window, scale=scale))
+        row["plain_ms"] = cuda_ms(torch, lambda: swa_attention_plain(
+            *f32, window=window, scale=scale))
+        idx = torch.arange(t, device=f32[0].device)
+        mask = (idx[None, :] <= idx[:, None]) & (idx[None, :]
+                                                 > idx[:, None] - window)
+        heads = [a[None] for a in f32]
+        row["library_ms"] = cuda_ms(
+            torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                *heads, attn_mask=mask, scale=scale))
+        del mask, heads
+    else:
+        exact, scale = glu_exact(torch, *f32)
+        e, c, d = f32[0].shape
+        f = f32[1].shape[2]
+        shape = {"E": e, "C": c, "d": d, "f": f}
+        compare(torch, rows, failures, kernel, case, "f32", out,
+                grouped_glu_ffn_plain(*f32), exact, None, shape, scale,
+                tol=lm_tol(kernel), gate_f64=True)
+        del exact, scale
+        row.update(shape)
+        row["bound_ms"], row["bound_by"] = glu_bound(e, c, d, f)
+        row["ms"] = cuda_ms(torch, lambda: ops.grouped_glu_ffn(*args))
+        row["ms_f32_inputs"] = cuda_ms(torch, lambda: ops.grouped_glu_ffn(
+            *f32))
+        row["plain_ms"] = cuda_ms(torch, lambda: grouped_glu_ffn_plain(*f32))
+        x, wg, wu, wo = f32
+        row["library_ms"] = cuda_ms(torch, lambda: torch.bmm(
+            torch.nn.functional.silu(torch.bmm(x, wg)) * torch.bmm(x, wu),
+            wo))
+    emit({"phase": "lm_serve_timing", "kernel": kernel, **row})
+    torch.cuda.empty_cache()
+    return row
+
+
+def lm_prompt(cfg, b, t, seed):
+    """A (b, t) int32 prompt of numpy draws (seeded) over the vocabulary."""
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (b, t), dtype=np.int32)
+
+
+def grown_cache(torch, cfg, caches, extra):
+    """A prefill's caches with ``extra`` empty slots after its T for the
+    attention layers (k, v zero, k_pos -1), so decode continues at
+    position T without overwriting the prompt's slots."""
+    from repro_torch.models import build_program
+    out = []
+    for (reps, unit), seg in zip(build_program(cfg), caches):
+        new_seg = []
+        for (kind, _), c in zip(unit, seg):
+            c = dict(c)
+            if kind in ("attn", "swa"):
+                axis = 1 if reps == 1 else 2
+                for key, fill in (("k", 0), ("v", 0), ("k_pos", -1)):
+                    a = c[key]
+                    pad = list(a.shape)
+                    pad[axis] = extra
+                    c[key] = torch.cat([a, torch.full(pad, fill, dtype=a.dtype,
+                                                       device=a.device)],
+                                       dim=axis)
+            new_seg.append(c)
+        out.append(new_seg)
+    return out
+
+
+def lm_profile(torch, fn, kernel):
+    """One ``fn()`` under torch.profiler: wall ms, device ms of every
+    kernel, the named kernel's device ms and launches, and the top five."""
+    _, prof, wall = profile_call(torch, fn)
+    kernels, busy_us = kernel_rows(torch, prof)
+    mine = [(us, c) for us, c, k in kernels
+            if any(s in k for s in LM_SYMBOLS[kernel])]
+    kern_us = sum(us for us, _ in mine)
+    return {"wall_ms": 1e3 * wall, "device_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / 1e6 / wall,
+            "kernel_device_ms": kern_us / 1e3,
+            "kernel_launches_profiled": sum(c for _, c in mine),
+            "kernel_share_of_device": kern_us / max(busy_us, 1e-9),
+            "top": [{"name": k[:60], "calls": c, "ms": us / 1e3}
+                    for us, c, k in kernels[:5]]}
+
+
+def lm_serve_model(torch, dev, rows, failures, spec):
+    """One full-width model of ``LM_SERVE``: weights made on the card, the
+    prefill with the counts at 0 (its kernel's first call captured and
+    checked), timed prefills, one profiled, then the decode (rwkv6-7b
+    through ``launch/serve.py``'s main, qwen2-moe-a2.7b after its prompt
+    on the prefill's grown caches) with the counts at 0.  Returns
+    ({kernel: launches}, summary row)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import (ModelCtx, init_cache, init_params,
+                                    make_decode_step, make_prefill,
+                                    param_count)
+    arch, b, t, gen, kernel, per_prefill, per_step = spec
+    cfg = get_arch(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    summary = {"arch": arch, "dtype": cfg.dtype, "layers": cfg.n_layers,
+               "params": param_count(params),
+               "init_s": time.perf_counter() - t0, "batch": b, "prompt": t}
+    ctx = ModelCtx(remat=False, wkv_chunk=LM_WKV_CHUNK)
+    prefill = make_prefill(cfg, ctx)
+    tokens = torch.from_numpy(lm_prompt(cfg, b, t, SEED + 80)).to(dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    with first_call(torch, kernel) as seen:
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+    counts = {n: read_counts()[n] for n in LM_KERNELS}
+    launches = dict(counts)
+    summary["prefill_launches"] = counts
+    want = {n: per_prefill if n == kernel else 0 for n in LM_KERNELS}
+    if counts != want:
+        failures.append(f"{arch} prefill launched {counts}, want {want}")
+    finite = bool(torch.isfinite(logits).all())
+    if tuple(logits.shape) != (b, cfg.vocab_size) or not finite:
+        failures.append(f"{arch} prefill logits {tuple(logits.shape)}, "
+                        f"finite {finite}")
+    if kernel == "wkv6_chunked":
+        states = [c["wkv"] for seg in caches for c in seg]
+        summary["rwkv_state_finite"] = all(bool(torch.isfinite(s).all())
+                                           for s in states)
+        if not summary["rwkv_state_finite"]:
+            failures.append(f"{arch}: a non-finite RWKV state after prefill")
+    summary["kernel"] = lm_call_check(torch, rows, failures, kernel, arch,
+                                      seen)
+    del seen
+    times = []
+    for _ in range(LM_PREFILL_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    summary.update(prefill_first_ms=1e3 * first_s,
+                   prefill_ms=1e3 * float(np.median(times)),
+                   prefill_ms_min=1e3 * min(times),
+                   prefill_tokens_per_s=b * t / float(np.median(times)),
+                   profile=lm_profile(torch, lambda: prefill(
+                       params, {"tokens": tokens}), kernel))
+    dec = make_decode_step(cfg, ctx)
+    if gen and arch == "rwkv6-7b":
+        reset_counts()
+        out = serve.main(["--arch", arch, "--batch", str(b), "--gen",
+                          str(gen), "--device", "cuda"], params=params)
+        counts = {n: read_counts()[n] for n in LM_KERNELS}
+        dt = out["seconds"]
+        summary.update(decode_tokens=out["tokens"].shape[0],
+                       decode_ms_per_token=1e3 * dt / gen,
+                       decode_tokens_per_s=gen * b / dt)
+        # a decode step like the launcher's, for the profile below
+        caches = init_cache(cfg, b, gen + 1, device=dev)
+        pos = torch.zeros((b,), dtype=torch.int32, device=dev)
+        tok = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+    elif gen:
+        caches = grown_cache(torch, cfg, caches, gen + 1)
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        for i in range(gen):
+            pos = torch.full((b,), t + i, dtype=torch.int32, device=dev)
+            dlogits, nxt, caches = dec(params, caches, tok, pos)
+            tok = nxt[:, None]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {n: read_counts()[n] for n in LM_KERNELS}
+        if not bool(torch.isfinite(dlogits).all()):
+            failures.append(f"{arch}: non-finite decode logits")
+        summary.update(decode_tokens=gen, decode_ms_per_token=1e3 * dt / gen,
+                       decode_tokens_per_s=gen * b / dt)
+        pos = torch.full((b,), t + gen, dtype=torch.int32, device=dev)
+    if gen:
+        # one more step, profiled (outside the counted run)
+        summary["decode_profile"] = lm_profile(
+            torch, lambda: dec(params, caches, tok, pos), kernel)
+        want = {n: per_step * gen if n == kernel else 0 for n in LM_KERNELS}
+        if counts != want:
+            failures.append(f"{arch} decode launched {counts}, want {want}")
+        summary["decode_launches"] = counts
+        for n in LM_KERNELS:
+            launches[n] += counts[n]
+    summary["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    emit({"phase": "lm_serve", **summary})
+    del params, caches, logits
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def lm_max_rule(got, want, frac):
+    """|got - want| <= frac · max|want| (a CPU tensor ``want``)."""
+    err = float((got.cpu() - want).abs().max())
+    scale = float(want.abs().max())
+    return err, scale, err <= frac * scale
+
+
+def lm_card_vs_cpu(torch, dev, failures, names=LM_KERNELS):
+    """The three models at full width in f32, cut to 2 layers (B=1, T=64):
+    the card's prefill logits within 1e-3 of the largest |logit| of the
+    port's on the CPU (the same weights, made on the card and copied
+    over); on the card, 16 decode steps within rtol = atol = 2e-3 of the
+    prefill of those 16 tokens (tests/test_models.py's bar)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import (ModelCtx, init_cache, init_params,
+                                    make_decode_step, make_prefill)
+    from repro_torch.models.common import tree_map
+    layers, b, t = LM_CPU_CHECK
+    ctx = ModelCtx(remat=False, wkv_chunk=LM_WKV_CHUNK)
+    for arch, _, _, _, kernel, _, _ in LM_SERVE:
+        if kernel not in names:
+            continue
+        cfg = dataclasses.replace(get_arch(arch), n_layers=layers,
+                                  dtype="float32")
+        params = init_params(cfg, seed=SEED + 1, device=dev)
+        host = tree_map(lambda a: a.cpu(), params)
+        toks = lm_prompt(cfg, b, t, SEED + 81)
+        prefill = make_prefill(cfg, ctx)
+        card, _ = prefill(params, {"tokens": torch.from_numpy(toks).to(dev)})
+        t0 = time.perf_counter()
+        cpu, _ = prefill(host, {"tokens": torch.from_numpy(toks)})
+        cpu_s = time.perf_counter() - t0
+        err, scale, ok = lm_max_rule(card, cpu, 1e-3)
+        row = {"phase": "lm_card_vs_cpu", "arch": arch, "layers": layers,
+               "batch": b, "tokens": t, "prefill_max_abs_err": err,
+               "max_abs_logit": scale, "cpu_prefill_s": cpu_s}
+        if not ok:
+            failures.append(f"{arch} (2 layers, f32): card prefill {err} "
+                            f"from the CPU's, over 1e-3 of {scale}")
+        n = LM_DECODE_CHECK
+        head = torch.from_numpy(toks[:, :n]).to(dev)
+        want, _ = prefill(params, {"tokens": head})
+        dec = make_decode_step(cfg, ctx)
+        cache = init_cache(cfg, b, n, device=dev)
+        for i in range(n):
+            got, _, cache = dec(params, cache, head[:, i:i + 1],
+                                torch.full((b,), i, dtype=torch.int32,
+                                           device=dev))
+        diff = (got - want).abs()
+        ratio = float((diff / (2e-3 + 2e-3 * want.abs())).max())
+        row.update(decode_vs_prefill_max_abs_err=float(diff.max()),
+                   decode_vs_prefill_worst_ratio=ratio)
+        if not ratio <= 1:
+            failures.append(f"{arch} (2 layers, f32): {n} decode steps "
+                            f"{float(diff.max())} from the prefill")
+        emit(row)
+        del params, host, cache
+        torch.cuda.empty_cache()
+
+
+def lm_reduced_card_vs_cpu(torch, dev, failures):
+    """Every reduced arch (f32) on the card against the port on the CPU,
+    same weights: prefill logits within rtol = atol = 1e-4, then 8 greedy
+    decode steps from ``init_cache`` with the same tokens and logits
+    within 1e-3 of the largest |logit| (the full-width rule: a decode
+    step can be ill-conditioned; reduced rwkv6-7b's came to 0.96 of an
+    elementwise 1e-4 rule on an H100).  Where the card's token
+    parts from the CPU's, the CPU's logits of the two tokens are printed;
+    the parting passes only at a near-tie (their gap within 1e-3 of the
+    largest |logit|), and both sides go on with the CPU's token."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models import (ModelCtx, init_cache, init_params,
+                                    make_decode_step, make_prefill)
+    from repro_torch.models.common import tree_map
+    b, t, steps = LM_REDUCED
+    ctx = ModelCtx(remat=False, wkv_chunk=LM_WKV_CHUNK)
+    for arch in sorted(ARCHS):
+        cfg = ARCHS[arch].reduced()
+        host = init_params(cfg, seed=SEED + 2, device="cpu")
+        params = tree_map(lambda a: a.to(dev), host)
+        seq = t + cfg.vlm_patches
+        batch = synthetic_batch(cfg, seq, b, "prefill", seed=SEED + 3,
+                                device="cpu")
+        prefill = make_prefill(cfg, ctx)
+        cpu, _ = prefill(host, batch)
+        card, _ = prefill(params, {k: v.to(dev) for k, v in batch.items()})
+        diff = (card.cpu() - cpu).abs()
+        ratio = float((diff / (1e-4 + 1e-4 * cpu.abs())).max())
+        row = {"phase": "lm_reduced", "arch": arch,
+               "prefill_max_abs_err": float(diff.max()),
+               "prefill_worst_ratio": ratio, "partings": []}
+        if not ratio <= 1:
+            failures.append(f"{cfg.name}: card prefill {float(diff.max())} "
+                            f"from the CPU's")
+        if not cfg.is_encoder:
+            dec = make_decode_step(cfg, ctx)
+            cc = init_cache(cfg, b, steps, device=dev)
+            cp = init_cache(cfg, b, steps, device="cpu")
+            tok = torch.zeros((b, 1), dtype=torch.int32)
+            worst = 0.0
+            for i in range(steps):
+                pos = torch.full((b,), i, dtype=torch.int32)
+                lc, nc, cc = dec(params, cc, tok.to(dev), pos.to(dev))
+                lp, np_, cp = dec(host, cp, tok, pos)
+                err, scale, _ = lm_max_rule(lc, lp, 1e-3)
+                worst = max(worst, err / (1e-3 * scale))
+                for r in np.flatnonzero(nc.cpu().numpy() != np_.numpy()):
+                    a, c = int(np_[r]), int(nc[r])
+                    gap = float(lp[r, a] - lp[r, c])
+                    near = gap <= 1e-3 * scale
+                    row["partings"].append({"step": i, "row": int(r),
+                                            "cpu_token": a, "card_token": c,
+                                            "cpu_logit_gap": gap,
+                                            "near_tie": near})
+                    if not near:
+                        failures.append(f"{cfg.name}: decode step {i} row "
+                                        f"{r} parts at a gap of {gap}")
+                tok = np_[:, None]
+            row["decode_worst_ratio"] = worst
+            if not worst <= 1:
+                failures.append(f"{cfg.name}: card decode logits {worst} "
+                                f"of the 1e-3 rule from the CPU's")
+        emit(row)
+    torch.cuda.empty_cache()
+
+
+def phase_lm_serve(torch, dev, rows, failures, names=LM_KERNELS):
+    """Phase 1c: LM serving at full width on the card, one model at a time
+    (``LM_SERVE``, the models whose kernel is among ``names``), then the
+    card against the CPU (full width cut to 2 layers, and the ten reduced
+    archs).  Returns ({kernel: launches}, {kernel: summary})."""
+    launches = {n: 0 for n in LM_KERNELS}
+    summaries = {}
+    for spec in LM_SERVE:
+        if spec[4] not in names:
+            continue
+        counts, summaries[spec[4]] = lm_serve_model(torch, dev, rows,
+                                                    failures, spec)
+        for n, c in counts.items():
+            launches[n] += c
+    lm_card_vs_cpu(torch, dev, failures, names)
+    lm_reduced_card_vs_cpu(torch, dev, failures)
+    return launches, summaries
 
 
 # ---------------------------------------------------------------------------
@@ -5709,6 +6201,12 @@ def run_only(torch, ks, dev, names) -> None:
         phase_graph_kernels(torch, dev, rows, failures, names)
         inputs = lm_inputs(torch, dev, lm)
         lm_checks(torch, dev, rows, failures, lm, inputs)
+        if lm:
+            del inputs
+            torch.cuda.empty_cache()
+            with timed_phase("lm_serve"):
+                phase_lm_serve(torch, dev, rows, failures, lm)
+            inputs = lm_inputs(torch, dev, lm)
         if ba_pool is not None:
             indptr, indices, _ = ba_future.result()
             ba_pool.shutdown()
@@ -5787,6 +6285,13 @@ def main(argv=None) -> int:
     if failures:
         raise AssertionError("an LM kernel disagrees with its plain version "
                              "or with f64:\n" + "\n".join(failures))
+    with timed_phase("lm_serve"):
+        serve_launches, _ = phase_lm_serve(torch, dev, rows, failures)
+    if failures:
+        raise AssertionError("LM serving failed a check:\n"
+                             + "\n".join(failures))
+    for name, count in serve_launches.items():
+        lm_launches[name] += count          # the models' prefill and decode
 
     cfg = PolicyConfig(embed_dim=32, num_layers=2)
     policy = init_policy(cfg, generator=torch.Generator().manual_seed(

@@ -4,11 +4,13 @@ port.
 The JAX ``PolicyParams`` flattens to ``em.theta1..4`` and ``q.theta5..7``;
 these are exactly the ``state_dict`` keys of :class:`Policy`.  An Adam
 state crosses as ``step`` and its moments under ``mu.<key>`` and
-``nu.<key>``.  Arrays cross as numpy, so neither side imports the other.
+``nu.<key>``.  An LM's parameter tree crosses as the same nested dicts and
+lists of arrays on both sides (``models/lm.py``), bfloat16 leaves bit for
+bit.  Arrays cross as numpy, so neither side imports the other.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -108,3 +110,70 @@ def adam_to_numpy(state: AdamState) -> Dict[str, np.ndarray]:
         out.update({f"{m}.{key}": moments[key].detach().cpu().numpy()
                     for key in POLICY_KEYS})
     return out
+
+
+def _is_bf16(arr: np.ndarray) -> bool:
+    return "bfloat16" in str(arr.dtype)
+
+
+def _lm_leaf(path: str, arr, want, device) -> torch.Tensor:
+    """One parameter as a tensor on ``device``; ``want`` is its (shape,
+    dtype) in the port's tree.  A bfloat16 leaf crosses as its bits."""
+    shape, dtype = want
+    arr = np.asarray(arr)
+    if tuple(arr.shape) != shape:
+        raise ValueError(f"{path}: shape {tuple(arr.shape)}, expected "
+                         f"{shape} for this config")
+    if dtype == torch.bfloat16:
+        if not (_is_bf16(arr) or arr.dtype == np.uint16):
+            raise TypeError(f"{path}: dtype {arr.dtype}, expected bfloat16 "
+                            f"(or its uint16 bit pattern)")
+        bits = np.ascontiguousarray(arr).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    if arr.dtype != np.float32:
+        raise TypeError(f"{path}: dtype {arr.dtype}, expected float32")
+    return torch.from_numpy(np.ascontiguousarray(arr).copy()).to(device)
+
+
+def _lm_tree(path: str, tree, want, device):
+    if isinstance(want, dict):
+        if not isinstance(tree, Mapping):
+            raise TypeError(f"{path or 'params'}: expected a dict")
+        _check_keys(path or "params", tree, want)
+        return {k: _lm_tree(f"{path}.{k}" if path else k, tree[k], want[k],
+                            device) for k in want}
+    if isinstance(want, list):
+        if not isinstance(tree, (list, tuple)) or len(tree) != len(want):
+            raise ValueError(f"{path}: expected a list of {len(want)}")
+        return [_lm_tree(f"{path}[{i}]", t, w, device)
+                for i, (t, w) in enumerate(zip(tree, want))]
+    return _lm_leaf(path, tree, want, device)
+
+
+def lm_params_from_numpy(tree, cfg, *, device: DeviceLike = "cuda"
+                         ) -> Dict[str, Any]:
+    """The port's LM parameter tree on ``device`` from the same tree of
+    numpy arrays (JAX's ``init_params`` output through ``np.asarray``):
+    every key, list length, shape and dtype checked against ``cfg``."""
+    from .models.lm import param_shapes
+    return _lm_tree("", tree, param_shapes(cfg), resolve_device(device))
+
+
+def lm_params_to_numpy(params) -> Dict[str, Any]:
+    """The LM parameter tree as numpy arrays: float32 leaves as float32,
+    bfloat16 leaves bit for bit as ``ml_dtypes.bfloat16`` where that
+    package is installed, else as their uint16 bit pattern (which
+    :func:`lm_params_from_numpy` takes back)."""
+    from .models.common import tree_map
+    try:
+        import ml_dtypes
+        bf16 = ml_dtypes.bfloat16
+    except ImportError:
+        bf16 = np.uint16
+
+    def leaf(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(bf16)
+        return t.numpy().copy()
+    return tree_map(leaf, params)

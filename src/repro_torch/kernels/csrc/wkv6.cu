@@ -29,8 +29,9 @@
 // order; the outputs, which hold most of the work, take every chunk of
 // every head in parallel.  Two kernels:
 //   1. wkv6_state_kernel, one block per (head, 64 value columns), walks
-//      the chunks: S_n = diag(exp(cum_c)) S_{n-1} + (k * exp(cum_c - cum))^T
-//      v, the state in registers; half the block scans chunk n while the
+//      the chunks from S_0 = s0 (zero when none is given; the model's
+//      rwkv_apply passes the layer's carried state): S_n = diag(exp(cum_c))
+//      S_{n-1} + (k * exp(cum_c - cum))^T v, the state in registers; half the block scans chunk n while the
 //      other half multiplies chunk n - 1 and chunk n + 1 is copied
 //      (16-byte cp.async, three stages); it writes the state entering
 //      every chunk to a scratch array, and S_T.
@@ -198,9 +199,9 @@ __device__ __forceinline__ void load_decays(float (&wv)[16],
 template <bool VEC>
 __global__ void __launch_bounds__(THREADS, 1)
 wkv6_state_kernel(const float* __restrict__ k, const float* __restrict__ v,
-                  const float* __restrict__ w, float* __restrict__ states,
-                  float* __restrict__ sfin, int T, int dk, int dv, int c,
-                  int dvp) {
+                  const float* __restrict__ w, const float* __restrict__ s0,
+                  float* __restrict__ states, float* __restrict__ sfin,
+                  int T, int dk, int dv, int c, int dvp) {
   extern __shared__ __align__(16) float smem[];
   float* gs = smem + 3 * STAGE;              // exp(cum_c) per channel, x2
   const int tid = threadIdx.x, nch = T / c;
@@ -219,6 +220,18 @@ wkv6_state_kernel(const float* __restrict__ k, const float* __restrict__ v,
   const int i = tb >> 1, seg = tb & 1;
   const int tx = tid & 15, ty = (tid >> 4) & 7;
   float S[8][4] = {};
+  if (s0 != nullptr && !scans) {             // the state entering chunk 0
+#pragma unroll
+    for (int a = 0; a < 8; ++a) {
+      const int row = 8 * ty + a;
+      if (row >= dk) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = j0 + 4 * tx + e;
+        if (j < dv) S[a][e] = s0[(bh * dk + row) * dv + j];
+      }
+    }
+  }
   load(0);
   cp_async_commit();
   for (int it = 0; it <= nch; ++it) {
@@ -473,12 +486,13 @@ cudaError_t raise_smem(K kernel, int bytes) {
 // The scratch the two kernels share: states (BH, T / c, dk, dvp) f32, the
 // state entering each chunk, with dvp = dv rounded up to 64.
 
-// Kernel 1.  k, w (BH, T, dk), v (BH, T, dv) -> states and sfin (BH, dk,
-// dv), the state after the last chunk.  Returns the first CUDA error, if
-// any.
+// Kernel 1.  k, w (BH, T, dk), v (BH, T, dv) and s0 (BH, dk, dv), the
+// state entering the first chunk (zero where s0 is null) -> states and
+// sfin (BH, dk, dv), the state after the last chunk.  Returns the first
+// CUDA error, if any.
 extern "C" int wkv6_state(const float* k, const float* v, const float* w,
-                          float* states, float* sfin, int BH, int T, int dk,
-                          int dv, int c, void* stream) {
+                          const float* s0, float* states, float* sfin, int BH,
+                          int T, int dk, int dv, int c, void* stream) {
   if (bad_sizes(BH, T, dk, dv, c)) return (int)cudaErrorInvalidValue;
   const int dvp = (dv + DVT - 1) / DVT * DVT;
   const bool vec = vec_dims(dk, dv) && aligned16(k) && aligned16(v) &&
@@ -488,7 +502,7 @@ extern "C" int wkv6_state(const float* k, const float* v, const float* w,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(BH, dvp / DVT);
   kernel<<<grid, THREADS, STATE_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      k, v, w, states, sfin, T, dk, dv, c, dvp);
+      k, v, w, s0, states, sfin, T, dk, dv, c, dvp);
   return (int)cudaGetLastError();
 }
 

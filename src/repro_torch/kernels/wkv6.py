@@ -7,7 +7,9 @@ Counterpart of ``repro/kernels/wkv6.py::wkv6_chunked`` (the Pallas
 or bfloat16 (upcast exactly); w is the decay multiplier in (0, 1].  The
 sequence is taken in chunks of ``c = min(chunk, T)`` tokens (T % c == 0)
 with the TPU kernel's chunk formula (its module docstring, and
-``csrc/wkv6.cu``); the state starts at zero.  Returns (out (BH, T, dv),
+``csrc/wkv6.cu``); the state starts at ``s0`` (BH, dk, dv), zero when
+None, as in ``models/rwkv.py::wkv6_chunked_jnp`` (the JAX kernel takes no
+initial state; the model's function does).  Returns (out (BH, T, dv),
 final state (BH, dk, dv)), float32.
 
 The formula's exponents reach c·|log w| inside a chunk, and f32 ``exp``
@@ -40,6 +42,7 @@ V_TILE = 64                  # value columns per block (csrc/wkv6.cu DVT)
 
 def wkv6_chunked_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        w: torch.Tensor, u: torch.Tensor,
+                       s0: torch.Tensor | None = None,
                        chunk: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
     bh, t, dk = r.shape
     dv = v.shape[-1]
@@ -49,7 +52,8 @@ def wkv6_chunked_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     idx = torch.arange(c, device=r.device)
     lower = idx[None, :] < idx[:, None]                  # s < t
     eye = torch.eye(c, dtype=torch.float32, device=r.device)
-    s = torch.zeros((bh, dk, dv), dtype=torch.float32, device=r.device)
+    s = torch.zeros((bh, dk, dv), dtype=torch.float32, device=r.device) \
+        if s0 is None else s0.float()
     outs = []
     for t0 in range(0, t, c):
         rc, kc, vc, lwc = (a[:, t0:t0 + c] for a in (r, k, v, lw))
@@ -66,7 +70,7 @@ def wkv6_chunked_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs, dim=1), s
 
 
-def _check_shapes(r, k, v, w, u, chunk) -> int:
+def _check_shapes(r, k, v, w, u, s0, chunk) -> int:
     """The chunk length c; raises on shapes the op does not take."""
     if r.dim() != 3 or v.dim() != 3 or u.dim() != 2:
         raise ValueError("r, k, v, w must be 3-D and u 2-D")
@@ -78,6 +82,9 @@ def _check_shapes(r, k, v, w, u, chunk) -> int:
             f"shape mismatch: r {tuple(r.shape)}, k {tuple(k.shape)}, v "
             f"{tuple(v.shape)}, w {tuple(w.shape)}, u {tuple(u.shape)}; "
             f"expected (BH,T,dk) x3 but v (BH,T,dv), u (BH,dk)")
+    if s0 is not None and tuple(s0.shape) != (bh, dk, dv):
+        raise ValueError(f"s0 has shape {tuple(s0.shape)}, expected "
+                         f"(BH, dk, dv) = {(bh, dk, dv)}")
     if not (bh >= 1 and t >= 1 and dk >= 1 and dv >= 1):
         raise ValueError(f"unsupported sizes BH={bh}, T={t}, dk={dk}, dv={dv}")
     c = min(chunk, t)
@@ -101,14 +108,19 @@ def _check_kernel_limits(bh: int, dk: int, c: int) -> None:
 
 def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  w: torch.Tensor, u: torch.Tensor, *,
+                 s0: torch.Tensor | None = None,
                  chunk: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
-    """(out (BH, T, dv), final state (BH, dk, dv)) in float32.  CPU tensors
-    take the plain version; CUDA tensors launch the two kernels on the
-    current stream."""
-    r, k, v, w, u = f32_inputs("r", {"r": r, "k": k, "v": v, "w": w, "u": u})
-    c = _check_shapes(r, k, v, w, u, chunk)
+    """(out (BH, T, dv), final state (BH, dk, dv)) in float32, from the
+    state ``s0`` (zero when None).  CPU tensors take the plain version;
+    CUDA tensors launch the two kernels on the current stream."""
+    named = {"r": r, "k": k, "v": v, "w": w, "u": u}
+    if s0 is not None:
+        named["s0"] = s0
+    r, k, v, w, u, *rest = f32_inputs("r", named)
+    s0 = rest[0] if rest else None
+    c = _check_shapes(r, k, v, w, u, s0, chunk)
     if on_cpu(r, "wkv6_chunked"):
-        return wkv6_chunked_plain(r, k, v, w, u, chunk=c)
+        return wkv6_chunked_plain(r, k, v, w, u, s0=s0, chunk=c)
     bh, t, dk = r.shape
     _check_kernel_limits(bh, dk, c)
     dv = v.shape[2]
@@ -119,8 +131,9 @@ def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     states = torch.empty((bh, t // c, dk, -(-dv // V_TILE) * V_TILE),
                          dtype=torch.float32, device=dev)
     sizes = (bh, t, dk, dv, c)
-    launch("wkv6", "wkv6_state", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5,
-           dev, k.data_ptr(), v.data_ptr(), w.data_ptr(), states.data_ptr(),
+    launch("wkv6", "wkv6_state", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5,
+           dev, k.data_ptr(), v.data_ptr(), w.data_ptr(),
+           None if s0 is None else s0.data_ptr(), states.data_ptr(),
            sfin.data_ptr(), *sizes)
     wkv6_chunked.launches += 1
     launch("wkv6", "wkv6_out", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5,

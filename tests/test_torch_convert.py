@@ -143,7 +143,8 @@ def test_entry_points_raise_without_cuda(tmp_path, jax_params):
 def test_importing_the_port_loads_neither_jax_nor_repro():
     code = ("import sys; import repro_torch, repro_torch.core, "
             "repro_torch.serving, repro_torch.checkpoint, repro_torch.convert, "
-            "repro_torch.optim, "
+            "repro_torch.optim, repro_torch.configs, repro_torch.models, "
+            "repro_torch.data, repro_torch.launch.serve, "
             "repro_torch.launch.solve_serve, repro_torch.kernels.build; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')); "

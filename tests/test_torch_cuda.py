@@ -934,3 +934,76 @@ def test_csr_aggregate_walks_agree_on_a_sampled_batch_on_the_card(cuda,
     _assert_close_by_terms(out, plain, args, compute)
     padding = torch.from_numpy(maps < 0).to(cuda)
     assert padding.any() and not out.transpose(1, 2)[padding].any()
+
+
+def test_wkv6_kernel_from_a_state_on_the_card(cuda):
+    """B6 from ``s0`` against its plain version (3e-4), two calls chained
+    through the state against the whole call, and a zero ``s0`` equal to
+    none bit for bit."""
+    for bh, t, dk, dv, chunk in ((3, 128, 16, 24, 32), (2, 256, 64, 64, 16)):
+        r, k, v, u, s0 = _randn(bh + t + 1, (bh, t, dk), (bh, t, dk),
+                                (bh, t, dv), (bh, dk), (bh, dk, dv),
+                                scale=0.5)
+        w = torch.from_numpy((0.066 + 0.934 * np.random.default_rng(
+            t).random((bh, t, dk))).astype(np.float32))
+        args = [a.to(cuda) for a in (r, k, v, w, u)]
+        s0 = s0.to(cuda)
+        out, state = ops.wkv6(*args, s0=s0, chunk=chunk)
+        want, want_state = wkv6_chunked_plain(*args, s0=s0, chunk=chunk)
+        torch.testing.assert_close(out, want, rtol=3e-4, atol=3e-4)
+        torch.testing.assert_close(state, want_state, rtol=3e-4, atol=3e-4)
+        h = t // 2
+        first = [a[:, :h].contiguous() if a.dim() == 3 else a for a in args]
+        second = [a[:, h:].contiguous() if a.dim() == 3 else a for a in args]
+        o1, s1 = ops.wkv6(*first, s0=s0, chunk=chunk)
+        o2, s2 = ops.wkv6(*second, s0=s1, chunk=chunk)
+        torch.testing.assert_close(torch.cat([o1, o2], 1), out, rtol=3e-4,
+                                   atol=3e-4)
+        torch.testing.assert_close(s2, state, rtol=3e-4, atol=3e-4)
+        z = ops.wkv6(*args, s0=torch.zeros_like(s0), chunk=chunk)
+        n = ops.wkv6(*args, chunk=chunk)
+        assert torch.equal(z[0], n[0]) and torch.equal(z[1], n[1])
+
+
+@pytest.mark.parametrize("name,extra,kernel,per_layer", [
+    ("rwkv6-7b", {}, "wkv6", 2),
+    ("gemma3-4b", {"sliding_window": 8}, "swa", 1),
+    ("qwen2-moe-a2.7b", {}, "grouped_glu_ffn", 2)])
+def test_model_prefill_runs_its_kernel_on_the_card(cuda, name, extra, kernel,
+                                                   per_layer):
+    """A reduced f32 model's prefill and 4 decode steps on the card against
+    the same weights on the CPU (1e-4), its kernel launched on every layer
+    of its kind in the prefill."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import (ModelCtx, init_cache, init_params,
+                                    layer_sigs, make_decode_step,
+                                    make_prefill)
+    from repro_torch.models.common import tree_map
+    cfg = dataclasses.replace(get_arch(name).reduced(), **extra)
+    params = init_params(cfg, seed=1, device="cpu")
+    on_card = tree_map(lambda a: a.to(cuda), params)
+    ctx = ModelCtx(remat=False, wkv_chunk=16)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 32), dtype=np.int32))
+    fn = getattr(ops, kernel)
+    before = fn.launches
+    got, _ = make_prefill(cfg, ctx)(on_card, {"tokens": toks.to(cuda)})
+    torch.cuda.synchronize()
+    sig = {"wkv6": ("rwkv", None), "swa": ("swa", None),
+           "grouped_glu_ffn": (None, "moe")}[kernel]
+    layers = sum(sig[0] in (None, kind) and sig[1] in (None, ffn)
+                 for kind, ffn in layer_sigs(cfg))
+    assert layers >= 1
+    assert fn.launches - before == per_layer * layers
+    want, _ = make_prefill(cfg, ctx)(params, {"tokens": toks})
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    dec = make_decode_step(cfg, ctx)
+    cc, cp = init_cache(cfg, 2, 8, device=cuda), init_cache(cfg, 2, 8,
+                                                            device="cpu")
+    for i in range(4):
+        pos = torch.full((2,), i, dtype=torch.int32)
+        lc, _, cc = dec(on_card, cc, toks[:, i:i + 1].to(cuda), pos.to(cuda))
+        lp, _, cp = dec(params, cp, toks[:, i:i + 1], pos)
+        torch.testing.assert_close(lc.cpu(), lp, rtol=1e-4, atol=1e-4)

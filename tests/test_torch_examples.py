@@ -5,7 +5,9 @@ Bars: each prints its lines; every solution it returns is feasible by
 the env's checkers (``repro_torch.core.env``); ``pt_spatial_inference``'s
 mesh scores (4 gloo ranks, a (2, 2) mesh) are within 1e-5 of one
 device's on both representations and its collective lines say by what
-the mesh's counts differ from the paper's model; run without
+the mesh's counts differ from the paper's model; ``pt_serve_batched``
+on JAX's weights generates the tokens ``examples/serve_batched.py``
+prints for every request; run without
 ``--device``, every script asks for the card and raises without one."""
 import importlib
 import pathlib
@@ -19,7 +21,7 @@ from repro_torch.core import env
 
 EXAMPLES = pathlib.Path(__file__).resolve().parents[1] / "examples"
 SCRIPTS = ("pt_quickstart", "pt_train_mvc_agent", "pt_solve_service",
-           "pt_spatial_inference")
+           "pt_spatial_inference", "pt_serve_batched")
 
 
 def _script(name):
@@ -133,3 +135,37 @@ def test_spatial_inference_on_four_ranks(capsys):
     assert "counted 1 = 128 B (x2: Mesh.traffic counts" in lines
     assert "counted 0 (an evaluation takes no gradient)" in lines
     assert "per-rank adjacency bytes" in text
+
+
+@pytest.mark.parametrize("arch", ["llama3-405b", "gemma3-4b"])
+def test_serve_batched_generates_jax_tokens(arch, monkeypatch, capsys):
+    """The same prompts (numpy seed 0) and loop as JAX's example, on JAX's
+    seed-0 weights carried across: the same request lines."""
+    import dataclasses
+
+    import jax
+
+    from repro.configs import get_arch as jax_get_arch
+    from repro.models import init_params as jax_init_params
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import lm_params_from_numpy
+    argv = ["--arch", arch, "--gen-tokens", "6"]
+    monkeypatch.setattr(sys, "argv", ["serve_batched.py"] + argv)
+    _script("serve_batched").main()
+    want = capsys.readouterr().out.splitlines()
+    jcfg = dataclasses.replace(jax_get_arch(arch).reduced(), dtype="float32")
+    params = lm_params_from_numpy(
+        jax.tree.map(np.asarray, jax_init_params(jax.random.key(0), jcfg)),
+        dataclasses.replace(get_arch(arch).reduced(), dtype="float32"),
+        device="cpu")
+    out = _script("pt_serve_batched").main(argv + ["--device", "cpu"],
+                                           params=params)
+    got = capsys.readouterr().out.splitlines()
+    assert got[0] == want[0]                      # name and params
+    reqs = [ln for ln in got if ln.startswith("  req")]
+    assert len(reqs) == 4
+    assert reqs == [ln for ln in want if ln.startswith("  req")]
+    assert got[1].startswith("served 4 requests, ")
+    # a row generates from its prompt's last token to the loop's end
+    maxlen = max(len(p) for p in out["prompts"])
+    assert [len(o) for o in out["outputs"]] == [maxlen + 6 + 1] * 4

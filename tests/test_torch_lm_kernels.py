@@ -116,6 +116,43 @@ def test_wkv6_matches_model_chunked_jnp_over_the_model_decay_range(chunk):
     np.testing.assert_allclose(s.numpy(), np.asarray(sref), **WKV_TOL)
 
 
+@pytest.mark.parametrize("bh,t,dk,dv,chunk", [(2, 64, 16, 16, 16),
+                                               (3, 128, 24, 24, 32)])
+def test_wkv6_from_a_state_matches_the_model_and_the_scan(bh, t, dk, dv,
+                                                          chunk):
+    """``s0``: the state entering the first chunk, as the model's
+    ``wkv6_chunked_jnp(s0=...)`` and ``ref.wkv6(s0=...)`` take it, over
+    the model's decay range."""
+    args = _wkv_inputs(bh, t, dk, dv, seed=40 + chunk, w_lo=np.exp(-np.e),
+                       w_span=1 - np.exp(-np.e))
+    s0 = (_rng(41).standard_normal((bh, dk, dv)) * 0.5).astype(np.float32)
+    o, s = ops.wkv6(*_t(*args), s0=torch.from_numpy(s0), chunk=chunk)
+    po, ps = wkv6_chunked_plain(*_t(*args), s0=torch.from_numpy(s0),
+                                chunk=chunk)
+    assert torch.equal(o, po) and torch.equal(s, ps)
+    for jo, js in (wkv6_chunked_jnp(*args, s0=jnp.asarray(s0), chunk=chunk),
+                   ref.wkv6(*args, s0=jnp.asarray(s0))):
+        np.testing.assert_allclose(o.numpy(), np.asarray(jo), **WKV_TOL)
+        np.testing.assert_allclose(s.numpy(), np.asarray(js), **WKV_TOL)
+    # two calls chained through the state are the whole call
+    h = t // 2
+    o1, s1 = ops.wkv6(*(a[:, :h].contiguous() if a.dim() == 3 and
+                        a.shape[1] == t else a for a in _t(*args)),
+                      s0=torch.from_numpy(s0), chunk=chunk)
+    o2, s2 = ops.wkv6(*(a[:, h:].contiguous() if a.dim() == 3 and
+                        a.shape[1] == t else a for a in _t(*args)),
+                      s0=s1, chunk=chunk)
+    np.testing.assert_allclose(torch.cat([o1, o2], 1).numpy(), o.numpy(),
+                               **WKV_TOL)
+    np.testing.assert_allclose(s2.numpy(), s.numpy(), **WKV_TOL)
+    # a zero state is no state, bit for bit
+    z, zs = ops.wkv6(*_t(*args), s0=torch.zeros((bh, dk, dv)), chunk=chunk)
+    n, ns = ops.wkv6(*_t(*args), chunk=chunk)
+    assert torch.equal(z, n) and torch.equal(zs, ns)
+    with pytest.raises(ValueError, match="s0 has shape"):
+        ops.wkv6(*_t(*args), s0=torch.zeros((bh, dk, dv + 1)), chunk=chunk)
+
+
 def test_wkv6_bf16_inputs_are_upcast_exactly():
     args = _wkv_inputs(2, 64, 16, 16, seed=3, w_lo=0.8, w_span=0.19)
     jx, pt = _bf16(*args)
