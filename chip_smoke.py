@@ -71,6 +71,30 @@ Phases (any failed check raises, so the script exits non-zero):
    steps within 2e-3 of the prefill; the ten reduced archs' prefill
    (1e-4) and 8 greedy decode steps (1e-3 of the largest |logit|), the
    same tokens unless a parting at a near-tie, which is printed.
+1d. LM training (phase lm_train, ROADMAP A8b): gemma3-4b at full depth
+   (B=1, T=2048), rwkv6-7b cut to 4 layers (B=2, T=512) and
+   qwen2-moe-a2.7b cut to 2 (B=2, T=256), full width, bf16 weights from
+   the seed and f32 Adam moments, one at a time, ``make_train_step`` at
+   lr 3e-4, clip 1.0, ``ModelCtx(remat=True, wkv_chunk=16)`` on
+   ``token_stream``: every step with the counts at 0 must launch its
+   kernel as often as the program says (``lm_step_launches``: B7 54 = 2
+   x 25 rematerialized local layers + 4, B6 16, B8 8) and no other LM
+   kernel, with a finite loss and grad norm; after the cold step every
+   leaf's gradient is finite and not all zero, and on sampled elements
+   the parameters are Adam's step from their values before (so a kernel
+   cut off from autograd fails); the kernel's first call on the path,
+   fed a seeded cotangent, gives each input's gradient within
+   ``lm_tol`` of the largest |g| of the f64 function's, and its forward
+   and plain backward are timed there; the warm steps are timed (ms,
+   tokens/s, peak GB), and one more gemma3-4b step runs under
+   torch.profiler (device ms by ``lm_step.*`` range and of the plain
+   backwards) and one under the allocator's history (the part that sets
+   the peak).  Then the card against the port on the CPU: the three
+   models at full width in f32 cut to 2 layers (B=1, T=64), the loss
+   within 1e-5 relative and each leaf's gradient within 1e-3 of its
+   largest |g| on the CPU; one train step of each of the ten reduced
+   archs, the loss within 1e-5, the gradients within 1e-3 of each leaf's
+   largest |g| and the parameters by the CPU lockstep's Adam rule.
 2. Served requests: GraphSolverService at K=32, L=2, multi-node
    selection, max_batch=8, warmed up, answers 16 ER(0.15) graphs of
    500..4000 nodes, on the dense, the sparse (sparse_max_degree=768) and
@@ -95,7 +119,7 @@ Phases (any failed check raises, so the script exits non-zero):
    and CSR, the layer at the train minibatch's shape (B=64, N=4096) by
    both routes, bit for bit; on each rep, the paper's policy width (K=32,
    L=2, replay 50,000, minibatch 64, tau=4) on 8 ER(0.15) graphs of
-   N=4096, 8 episode graphs a step, 20 fused steps in fresh mode then 20
+   N=4096, 8 episode graphs a step, 12 fused steps in fresh mode then 12
    in stored mode, each given its draws by ``draw_train_step``: the
    rep's layer kernel (B1, B3, B5) launched 1 + 2 tau = 9 times per warm
    fresh step and 2 + tau = 6 per warm stored step, the sparse and CSR
@@ -104,7 +128,7 @@ Phases (any failed check raises, so the script exits non-zero):
    ``torch.cuda.set_sync_debug_mode("error")`` and one under
    torch.profiler (device time of act, target, re-materialization,
    forward, backward and Adam), the median, least and most seconds of
-   the 10 clean warm steps after them, and the peak device memory; then
+   the 2 clean warm steps after them, and the peak device memory; then
    ``train_agent`` for one 9-step episode (bf16 on sparse and CSR); (d)
    the dense trained policy saved, loaded and serving the stream's 16
    graphs, every answer a cover.
@@ -115,7 +139,7 @@ Phases (any failed check raises, so the script exits non-zero):
    kernel once an evaluation, and on dense a counting ``step_fn`` with
    the default engine taking the same loop, one call an evaluation;
    seconds an evaluation of each; (b) ``train_agent(engine="host")`` at
-   phase 3b's cell on its dataset, 13 steps, fresh on each rep and stored
+   phase 3b's cell on its dataset, 11 steps, fresh on each rep and stored
    on dense, each agent building its host replay of 50,000 tuples (the
    resident growth printed and held under a twentieth of the ring's
    bytes): the layer and aggregate launches of each warm step equal to
@@ -129,7 +153,7 @@ Phases (any failed check raises, so the script exits non-zero):
    and the host loop fed the fused step's replay indices against the
    fused step (stored, epsilon 0: losses and parameters within rtol 1e-5
    / atol 1e-6); (d) open-loop load (``serving.loadgen``) on the dense
-   service: 32 graphs of the served sizes, a deadline of twice phase 2's
+   service: 8 graphs of the served sizes, a deadline of twice phase 2's
    dense p99, at half and twice its requests/s, sync and async, each on
    a fresh warmed service: every request accounted for, no first
    dispatch on the request path, the layer once an evaluation, every
@@ -153,18 +177,18 @@ Phases (any failed check raises, so the script exits non-zero):
    baselines run on a host thread from the start); (b) tests/test_problem_suite.py's train smoke
    (n=14, 4 graphs a step, minibatch 8, tau=2, stored, epsilon 0, 6 steps)
    on the card against the CPU, phase 3b's bar; (c) phase 3b's training
-   cell, fresh, 13 steps with draws from ``draw_train_step``: the layer
+   cell, fresh, 10 steps with draws from ``draw_train_step``: the layer
    kernel 9 and the aggregate 8 launches a warm step, every warm loss
-   finite, the second warm step under the sync debug mode, the median,
-   least and most seconds of the last 4 and the peak device bytes.
+   finite, the second warm step under the sync debug mode, the seconds
+   of the last and the peak device bytes.
 4. Large solves: the paper-scale ER(N=20480, 0.15) graph (~31.5M edges)
    on all three reps with max_d=256; the dense solve also traced.
 4b. The paper-scale CSR train step (phase paper_train): that graph as
    the dataset, 8 episode copies of it a step, minibatch 64, tau=4,
    fresh targets, the replay cut to 1024 tuples; stepped until warm,
-   then the first warm step and one more: their seconds, peak device
-   bytes and the part of the step that set it (a third warm step runs
-   under torch.profiler), B5 launches 9 and aggregate launches 8 per
+   then the first warm step: its seconds, peak device bytes and the part
+   of the step that set it (a second warm step runs under
+   torch.profiler), B5 launches 9 and aggregate launches 8 per
    warm step, beside the paper's 316.4 s (its
    own hardware).  If minibatch 64 does not fit on the card, the
    largest of 48, 32 and 16 that does runs and the cut is printed.
@@ -192,11 +216,11 @@ Phases (any failed check raises, so the script exits non-zero):
    on, losses and parameters within rtol 1e-5 / atol 1e-6; and the
    full-width runs (phase 3b's training cell, fresh, epsilon 1, draws
    from draw_train_step) of dense and sparse at (2,2) and CSR at (2,1):
-   12 steps, the first warm one's first GD iteration held to the single
+   10 steps, the first warm one's first GD iteration held to the single
    device's on the same draws (the loss by the sum-of-|terms| rule at
    1e-5, the gradients by phase 1's long-sum rule relative to the rows'
    |terms|; ``check_mesh_train_full``), the layer kernel (B2, B3, B5) 9 and the aggregate (B4, B5's)
-   8 launches a warm step on every rank, per rank the seconds of 4 timed
+   8 launches a warm step on every rank, per rank the seconds of 2 timed
    warm steps, the peak device bytes and the collectives a step by kind
    and bytes.  MaxCut, MIS and MDS in the same spawns: solves of that
    batch at every shape, dense and sparse (CSR at (2,1)), held like
@@ -327,13 +351,13 @@ PAPER_TRACE = (("dense", (1, 2)),)
 # The train phase.  Full width: the paper's policy (K=32, L=2, gamma 0.9,
 # replay 50,000, minibatch 64) with tau=4 GD iterations a step, on a
 # dataset of 8 ER(0.15) graphs at the serving bucket's N=4096, 8 episode
-# graphs a step, 20 steps a target mode (warm from index 7: 8 x 8 = 64).
+# graphs a step, 12 steps a target mode (warm from index 7: 8 x 8 = 64).
 # Index 8 runs under the sync debug mode and 9 under the profiler; the
 # steps timed are the clean ones after them, not the first warm step
 # (the allocator's first minibatch).
 TRAIN_CFG = dict(embed_dim=32, num_layers=2, gamma=0.9,
                  replay_capacity=50_000, minibatch=64)
-TRAIN_TAU, TRAIN_STEPS = 4, 20
+TRAIN_TAU, TRAIN_STEPS = 4, 12
 TRAIN_DATA = (8, 4096, 8)        # dataset graphs, nodes, episode graphs
 TRAIN_SYNC_STEP, TRAIN_PROFILE_STEP, TRAIN_TIMED_FROM = 8, 9, 10
 TRAIN_REPS = ("dense", "sparse", "csr")
@@ -343,7 +367,7 @@ GRAD_CHECK = (8, 256)            # the backward check: tuples, nodes
 # that fits), tau 4, fresh targets; the replay cut from 50,000 tuples,
 # whose two (capacity, N) f32 masks would take 8.2 GB at N = 20480
 PAPER_EPISODE, PAPER_MINIBATCHES = 8, (64, 48, 32, 16)
-PAPER_REPLAY, PAPER_WARM_STEPS = 1024, 2
+PAPER_REPLAY, PAPER_WARM_STEPS = 1024, 1
 PAPER_STEP_S = 316.4             # the paper's one-GPU training step
 PLAIN_CHUNK = 16                 # graphs per plain-version call at B = 64
 # Neighbour-sampled training on the resident BA(1M, d=10) (phase
@@ -397,14 +421,14 @@ SMALL_TRAIN = (14, 4, 2, 8, 2, 8)
 # The host engines (phase host_engines, ROADMAP A6a).  The per-evaluation
 # solve on a full bucket per rep; the host training loop at phase 3b's
 # cell (TRAIN_CFG, TRAIN_TAU, TRAIN_DATA), fresh on each rep and stored
-# on dense, 13 steps (index 7 the first warm one, 9-12 timed), and on the
+# on dense, 11 steps (index 7 the first warm one, 9-10 timed), and on the
 # sampled dataset one 9-step episode; open-loop load on the dense service:
-# 32 requests of the served sizes at half and twice phase 2's dense
+# 8 requests of the served sizes at half and twice phase 2's dense
 # requests/s, a deadline of twice its p99, both drive modes; the
 # launcher's --rate
-HOST_STEPS, HOST_TIMED_FROM = 13, 9
+HOST_STEPS, HOST_TIMED_FROM = 11, 9
 HOST_EPS = 0.5                   # the small card-vs-CPU host run's epsilon
-OPEN_LOOP_REQUESTS, OPEN_LOOP_RATES = 32, (0.5, 2.0)
+OPEN_LOOP_REQUESTS, OPEN_LOOP_RATES = 8, (0.5, 2.0)
 LAUNCHER_RATE = ("--mode", "async", "--rate", "50", "--requests", "24",
                  "--warmup")
 # The problems phase (3c): MaxCut, MIS and MDS.  Served: two graphs of each
@@ -419,7 +443,7 @@ PROBLEMS = ("maxcut", "mis", "mds")
 PROBLEM_GRAPHS = 2               # served graphs of each size
 PROBLEM_SMALL = (14, 4, 4, 8, 2, 6)
 PROBLEM_SMALL_IDS = (0, 1, 2, 3)
-PROBLEM_STEPS, PROBLEM_TIMED_FROM = 13, 9
+PROBLEM_STEPS, PROBLEM_TIMED_FROM = 10, 9
 POLICY_KEYS = ("em.theta1", "em.theta2", "em.theta3", "em.theta4",
                "q.theta5", "q.theta6", "q.theta7")
 # The mesh's train half (phase 5).  A small lockstep on MESH_CHECK's graphs
@@ -442,7 +466,7 @@ MESH_SMALL_RUN = (4, 2, 6)       # episode graphs, tau, steps
 MESH_TRAIN_FULL = (("mvc", "dense", (2, 2)), ("mvc", "sparse", (2, 2)),
                    ("mvc", "csr", (2, 1)), ("mis", "dense", (2, 2)),
                    ("mds", "sparse", (2, 2)), ("maxcut", "csr", (2, 1)))
-MESH_FULL_WARM, MESH_FULL_TIMED = 7, 4
+MESH_FULL_WARM, MESH_FULL_TIMED = 7, 2
 # MaxCut, MIS and MDS on the mesh: solves of MESH_CHECK's batch at
 # every shape of MESH_SHAPES (dense and sparse, CSR at sp = 1); the (2, 2)
 # sync service for MESH_SERVICE_PROBLEMS beside MVC; the small lockstep of
@@ -461,14 +485,14 @@ MESH_PROBLEM_SMALL = (("dense", (2, 2)), ("sparse", (2, 2)), ("csr", (2, 1)))
 # cell (the replay warm from index 7: 8 x 8 = 64 tuples; the warm steps
 # after the first timed); the launcher's --rate on a (2, 1) mesh under
 # torchrun.
-MESH_OPEN_LOOP_REQUESTS, MESH_OPEN_LOOP_FACTOR = 16, 2.0
+MESH_OPEN_LOOP_REQUESTS, MESH_OPEN_LOOP_FACTOR = 4, 2.0
 MESH_HOST_SMALL = (("dense", (2, 2)), ("csr", (2, 1)))
 MESH_HOST_FULL = ("mvc", "dense", (2, 2))
-MESH_HOST_STEPS, MESH_HOST_WARM_FROM = 11, 7
+MESH_HOST_STEPS, MESH_HOST_WARM_FROM = 9, 7
 MESH_LAUNCHER_RATE = ("--spatial", "2,1", "--dist-backend", "gloo",
                       *LAUNCHER_RATE)
 MESH_TIMEOUT_S = 420.0           # one spawn, its paper-scale solves included
-TIMING_BUDGET_S = 1.0            # per timed function (see cuda_ms)
+TIMING_BUDGET_S = 0.5            # per timed function (see cuda_ms)
 WALKS = ("rows", "windows")      # the sparse and CSR layers' two routes
 # The LM kernels at the full width of the models the repo ships for them:
 # rwkv6-7b's time mix, B=2 x 64 heads of 64 channels, T=4096, chunk 64
@@ -826,12 +850,12 @@ def wkv6_scan64(torch, r, k, v, w, u, s0=None):
     bh, t, dk = r.shape
     s = torch.zeros((bh, dk, v.shape[2]), dtype=torch.float64,
                     device=r.device) if s0 is None else s0.double()
-    out = torch.empty(v.shape, dtype=torch.float64, device=r.device)
+    outs = []                    # stacked, so autograd can run through it
     for i in range(t):
         kv = k[:, i, :, None] * v[:, i, None, :]
-        out[:, i] = torch.bmm(r[:, i, None, :], s + u[:, :, None] * kv)[:, 0]
+        outs.append(torch.bmm(r[:, i, None, :], s + u[:, :, None] * kv)[:, 0])
         s = w[:, i, :, None] * s + kv
-    return out, s
+    return torch.stack(outs, dim=1), s
 
 
 def swa_exact(torch, q, k, v, window):
@@ -1619,6 +1643,503 @@ def phase_lm_serve(torch, dev, rows, failures, names=LM_KERNELS):
 
 
 # ---------------------------------------------------------------------------
+# Phase 1d: LM training on one device (ROADMAP A8b).
+# ---------------------------------------------------------------------------
+
+# (arch, layers (None: the config's), batch, tokens, steps, its kernel):
+# full width in bf16 from the seed, f32 Adam moments, remat on, wkv chunk
+# 16, lr 3e-4, clip 1.0; the first step cold, the rest warm.  rwkv6-7b is
+# cut to 4 layers (all 32 with f32 moments need ~88 GB: 7.31B x 12 B),
+# qwen2-moe-a2.7b to 2 (its 64 padded experts a layer); gemma3-4b runs all
+# 34 at T = 2048, where the 1024 window bites
+LM_TRAIN = (("gemma3-4b", None, 1, 2048, 5, "swa_attention"),
+            ("rwkv6-7b", 4, 2, 512, 2, "wkv6_chunked"),
+            ("qwen2-moe-a2.7b", 2, 2, 256, 2, "grouped_glu_ffn"))
+LM_TRAIN_LR, LM_TRAIN_CLIP = 3e-4, 1.0
+LM_TRAIN_PROFILED = "gemma3-4b"  # its warm step profiled and memory-traced
+LM_MOVE_SAMPLE = 4096            # elements a leaf held to Adam's own step
+LM_GRAD_RTOL = 1e-4              # the CPU tests' gradient bar (rtol, A)
+LM_CALL_LAUNCHES = {"wkv6_chunked": 2, "swa_attention": 1,
+                    "grouped_glu_ffn": 2}
+
+
+def lm_step_launches(cfg, remat=True) -> dict:
+    """The LM kernels' launches in one train step of ``cfg``, from its
+    program: one call a layer of the kernel's kind, twice in a segment of
+    more than one repeat under remat (the forward, then the backward's
+    recomputation); B6 and B8 launch twice a call."""
+    from repro_torch.models import build_program
+    calls = dict.fromkeys(LM_KERNELS, 0)
+    for reps, unit in build_program(cfg):
+        times = reps * (2 if remat and reps > 1 else 1)
+        for kind, ffn in unit:
+            calls["wkv6_chunked"] += times * (kind == "rwkv")
+            calls["swa_attention"] += times * (kind == "swa"
+                                               and bool(cfg.sliding_window))
+            calls["grouped_glu_ffn"] += times * (ffn == "moe")
+    return {n: c * LM_CALL_LAUNCHES[n] for n, c in calls.items()}
+
+
+def lm_leaves(tree):
+    """[(path, tensor)] of a parameter tree, JAX's key paths."""
+    from repro_torch.checkpoint import keyed_leaves
+    return keyed_leaves(tree)
+
+
+def lm_grad_atol(arch: str) -> float:
+    """A of the gradient bar 1e-4·|g| + A·max|g| (tests/test_torch_lm_train
+    .py): 1e-5, and 1e-4 for rwkv6-7b, whose gradient moves by more than
+    2e-5 of a leaf's max under a half-ulp change of its weights."""
+    return 1e-4 if arch.startswith("rwkv") else 1e-5
+
+
+def adam_sample(torch, params, seed):
+    """Up to ``LM_MOVE_SAMPLE`` seeded elements of every leaf, before a
+    step: [(path, flat indices, values)]."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    out = []
+    for path, p in lm_leaves(params):
+        n = p.numel()
+        idx = (torch.arange(n, device=p.device) if n <= LM_MOVE_SAMPLE else
+               torch.randint(n, (LM_MOVE_SAMPLE,), generator=g,
+                             device=p.device))
+        out.append((path, idx, p.detach().reshape(-1)[idx].clone()))
+    return out
+
+
+def check_first_step(torch, failures, arch, params, grads, sample, lr):
+    """After the cold step (``grads`` the clipped gradients Adam took):
+    every leaf has a gradient, finite and not all zero, and on the sampled
+    elements the parameters are Adam's first step from their values
+    before (``adam_update`` on those elements alone, bit for bit): so a
+    leaf cut off from autograd (a zero gradient) or an update that did not
+    happen fails.  Leaves none of whose sampled elements moved are listed
+    (a bf16 value of 0.5 does not move by lr 3e-4: half its ulp is
+    9.8e-4).  Returns a summary."""
+    from repro_torch.optim import adam_init, adam_update
+    grad_of = dict(lm_leaves(grads))
+    param_of = dict(lm_leaves(params))
+    unmoved, worst = [], 0.0
+    for path, idx, before in sample:
+        g = grad_of.get(path)
+        if g is None or not bool(torch.isfinite(g).all()):
+            failures.append(f"{arch} {path}: gradient None or not finite")
+            continue
+        gmax = float(g.abs().max())
+        if not gmax > 0:
+            failures.append(f"{arch} {path}: gradient zero everywhere")
+        want = {"p": before.clone()}
+        adam_update(want, {"p": g.reshape(-1)[idx]}, adam_init(want),
+                    lr=lr)
+        after = param_of[path].detach().reshape(-1)[idx]
+        if not torch.equal(after, want["p"]):
+            failures.append(f"{arch} {path}: the step is not Adam's on the "
+                            f"sampled elements")
+        if torch.equal(after, before):
+            unmoved.append({"leaf": path, "dtype": str(before.dtype)[6:],
+                            "min_abs_value": float(before.abs().min())})
+        worst = max(worst, gmax)
+    return {"leaves": len(sample), "unmoved_leaves": unmoved,
+            "largest_abs_grad": worst}
+
+
+def lm_backward_check(torch, failures, kernel, arch, seen):
+    """The first kernel call of a train step, taken again on its inputs
+    (f32 copies, the bf16 ones upcast exactly) with a seeded cotangent:
+    the kernel forward through its autograd Function, the gradients of
+    every input held to the f64 function's (``wkv6_scan64``,
+    ``swa_exact``, ``glu_exact``): |g - g64| <= lm_tol(kernel) ·
+    max|g64| per input.  Times the kernel forward, its backward (the
+    plain version recomputed and differentiated) and the plain forward at
+    that shape.  Returns the row."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.moe_gemm import grouped_glu_ffn_plain
+    from repro_torch.kernels.swa import swa_attention_plain
+    from repro_torch.kernels.wkv6 import wkv6_chunked_plain
+    args, kw = seen["args"], seen["kw"]
+    ins = [a.float().requires_grad_(True) for a in args]
+    ex = [a.double().requires_grad_(True) for a in args]
+    g = torch.Generator(device=ins[0].device).manual_seed(SEED + 95)
+    if kernel == "wkv6_chunked":
+        chunk = kw["chunk"]
+
+        def fwd(*a):
+            return ops.wkv6(*a, chunk=chunk)
+
+        def plain(*a):
+            return wkv6_chunked_plain(*a, chunk=chunk)
+        exact = wkv6_scan64(torch, *ex)
+        shape = {"BH": args[0].shape[0], "T": args[0].shape[1],
+                 "dk": args[0].shape[2], "chunk": chunk}
+    elif kernel == "swa_attention":
+        window, scale = kw["window"], kw["scale"]
+
+        def fwd(*a):
+            return ops.swa(*a, window=window, scale=scale)
+
+        def plain(*a):
+            return swa_attention_plain(*a, window=window, scale=scale)
+        exact = swa_exact(torch, *ex, window)
+        shape = {"BH": args[0].shape[0], "T": args[0].shape[1],
+                 "d": args[0].shape[2], "window": window}
+    else:
+        fwd, plain = ops.grouped_glu_ffn, grouped_glu_ffn_plain
+        exact = glu_exact(torch, *ex)[0]
+        shape = dict(zip("ECdf", (*args[0].shape, args[1].shape[2])))
+    out = fwd(*ins)
+    outs = out if isinstance(out, tuple) else (out,)
+    cts = [torch.randn(o.shape, generator=g, device=o.device) for o in outs]
+    got = torch.autograd.grad(outs, ins, cts, retain_graph=True)
+    exacts = exact if isinstance(exact, tuple) else (exact,)
+    want = torch.autograd.grad(exacts, ex, [c.double() for c in cts])
+    tol = lm_tol(kernel)
+    row = {"phase": "lm_train_backward", "kernel": kernel, "arch": arch,
+           **shape, "rule": f"|g - g64| <= {tol} max|g64|", "inputs": []}
+    for i, (a, b) in enumerate(zip(got, want)):
+        err = float((a.double() - b).abs().max())
+        scale = float(b.abs().max())
+        row["inputs"].append({"input": i, "max_abs_err": err,
+                              "max_abs_g64": scale,
+                              "ratio": err / max(tol * scale, 1e-300)})
+        if not err <= tol * scale:
+            failures.append(f"{kernel} backward on {arch}'s path, input "
+                            f"{i}: {err} from f64, over {tol} of {scale}")
+    del exact, exacts, want, ex
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        row["ms"] = cuda_ms(torch, lambda: fwd(*ins))
+        row["plain_ms"] = cuda_ms(torch, lambda: plain(*ins))
+    row["backward_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
+        outs, ins, cts, retain_graph=True))
+    emit(row)
+    del out, outs, got
+    torch.cuda.empty_cache()
+    return row
+
+
+def lm_train_profile(torch, fn, kernel):
+    """One train step under torch.profiler: wall and device ms, the device
+    ms of each ``lm_step.<part>`` range (forward, clip, adam; a remat
+    unit and a loss chunk in the forward and again in the backward, told
+    apart by whether an autograd engine event encloses them), the plain
+    backwards of the kernels (``plain_backward``), the backward as the
+    outermost autograd engine events, the kernel's device ms, launches and
+    share, and the top kernels."""
+    _, prof, wall = profile_call(torch, fn)
+    engine = "autograd::engine::evaluate_function"
+
+    def in_backward(e):
+        p = e.cpu_parent
+        while p is not None:
+            if p.name.startswith(engine):
+                return True
+            p = p.cpu_parent
+        return False
+    parts = {}
+
+    def add(name, e):
+        part = parts.setdefault(name, {"device_ms": 0.0, "ranges": 0})
+        part["device_ms"] += dev_us(e, "") / 1e3
+        part["ranges"] += 1
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        if e.name in ("lm_step.forward", "lm_step.clip", "lm_step.adam"):
+            add(e.name[8:], e)
+        elif e.name in ("lm_step.unit", "lm_step.loss_chunk"):
+            add(e.name[8:] + (" recomputed" if in_backward(e)
+                              else " forward"), e)
+        elif e.name == "plain_backward":
+            add("plain_backward", e)
+        elif e.name.startswith(engine) and not in_backward(e):
+            add("backward", e)
+    kernels, busy_us = kernel_rows(torch, prof)
+    mine = [(us, c) for us, c, k in kernels
+            if any(s in k for s in LM_SYMBOLS[kernel])]
+    kern_us = sum(us for us, _ in mine)
+    return {"wall_ms": 1e3 * wall, "device_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / 1e6 / wall, "parts": parts,
+            "kernel_device_ms": kern_us / 1e3,
+            "kernel_launches_profiled": sum(c for _, c in mine),
+            "kernel_share_of_device": kern_us / max(busy_us, 1e-9),
+            "top": [{"name": k[:60], "calls": c, "ms": us / 1e3}
+                    for us, c, k in kernels[:10]]}
+
+
+def lm_loss_chunks_ms(torch, cfg, params, b, t):
+    """Device ms of ``chunked_xent`` forward and backward (h and the tied
+    head) at the step's shape: the loss chunks' part of a step."""
+    from repro_torch.models import chunked_xent
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 96)
+    embed = params["embed"].detach().requires_grad_(True)
+    h = (torch.randn((b, t, cfg.d_model), generator=g, device=DEVICE)
+         ).to(embed.dtype).requires_grad_(True)
+    labels = torch.randint(cfg.vocab_size, (b, t), generator=g,
+                           device=DEVICE)
+
+    def run():
+        return torch.autograd.grad(chunked_xent(h, embed, labels), (h, embed))
+    ms = cuda_ms(torch, run, warm=1)
+    del h, embed
+    torch.cuda.empty_cache()
+    return ms
+
+
+def lm_train_model(torch, dev, failures, spec):
+    """One model of ``LM_TRAIN``: weights and f32 Adam moments made on the
+    card, the cold step with the counts at 0 (its kernel's first call
+    captured, the gradients and Adam's step checked, ``check_first_step``),
+    the kernel's backward on that call's inputs (``lm_backward_check``),
+    then the warm steps, each with the counts at 0 and timed.  The
+    profiled model's warm step once more under torch.profiler and once
+    under the allocator's history.  Returns ({kernel: launches}, summary
+    row)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.data import token_stream
+    from repro_torch.models import (ModelCtx, init_params, make_train_step,
+                                    param_count)
+    from repro_torch.optim import adam_init
+    arch, layers, b, t, steps, kernel = spec
+    cfg = get_arch(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED + 5, device=dev)
+    opt = adam_init(params)
+    torch.cuda.synchronize()
+    summary = {"arch": arch, "dtype": cfg.dtype, "layers": cfg.n_layers,
+               "params": param_count(params), "batch": b, "tokens": t,
+               "init_s": time.perf_counter() - t0, "lr": LM_TRAIN_LR,
+               "clip": LM_TRAIN_CLIP, "moments": "float32"}
+    ctx = ModelCtx(remat=True, wkv_chunk=LM_WKV_CHUNK)
+    step = make_train_step(cfg, ctx, lr=LM_TRAIN_LR, clip_norm=LM_TRAIN_CLIP)
+    batches = list(token_stream(cfg, t, b, steps=steps, seed=SEED + 90,
+                                device=dev))
+    want = lm_step_launches(cfg)
+    summary["launches_a_step_expected"] = want
+    sample = adam_sample(torch, params, SEED + 91)
+    torch.cuda.synchronize()
+    reset_counts()
+    with first_call(torch, kernel) as seen:
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batches[0], with_grads=True)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+    counts = {n: read_counts()[n] for n in LM_KERNELS}
+    launches = dict(counts)
+    if counts != want:
+        failures.append(f"{arch} cold train step launched {counts}, want "
+                        f"{want}")
+    losses = [float(m["loss"])]
+    gnorms = [float(m["grad_norm"])]
+    if not (math.isfinite(losses[0]) and math.isfinite(gnorms[0])):
+        failures.append(f"{arch}: loss {losses[0]}, grad norm {gnorms[0]}")
+    summary["first_step"] = check_first_step(torch, failures, arch, params,
+                                             m["grads"], sample, LM_TRAIN_LR)
+    del m, sample
+    torch.cuda.empty_cache()
+    summary["kernel_backward"] = lm_backward_check(torch, failures, kernel,
+                                                   arch, seen)
+    del seen
+    times = []
+    for batch in batches[1:]:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = {n: read_counts()[n] for n in LM_KERNELS}
+        if counts != want:
+            failures.append(f"{arch} warm train step launched {counts}, "
+                            f"want {want}")
+        for n, c in counts.items():
+            launches[n] += c
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        if not (math.isfinite(losses[-1]) and math.isfinite(gnorms[-1])):
+            failures.append(f"{arch}: loss {losses[-1]}, grad norm "
+                            f"{gnorms[-1]}")
+        del m
+    warm = float(np.median(times))
+    summary.update(launches_counted=launches, steps=steps,
+                   cold_step_ms=1e3 * cold_s, warm_step_ms=1e3 * warm,
+                   warm_step_ms_all=[1e3 * x for x in times],
+                   tokens_per_s=b * t / warm, losses=losses,
+                   grad_norms=gnorms,
+                   peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if arch == LM_TRAIN_PROFILED:
+        summary["profile"] = lm_train_profile(
+            torch, lambda: step(params, opt, batches[-1]), kernel)
+        summary["memory"] = memory_peak(torch, lambda: step(
+            params, opt, batches[-1]))
+        summary["loss_chunks_ms"] = lm_loss_chunks_ms(torch, cfg, params,
+                                                      b, t)
+    emit({"phase": "lm_train", **summary})
+    del params, opt, batches
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def lm_grad_rule(got, want, atol):
+    """max over the leaf of |got - want| / (LM_GRAD_RTOL·|want| +
+    atol·max|want|), ``want`` on the CPU; > 1 fails."""
+    scale = float(want.abs().max())
+    bound = LM_GRAD_RTOL * want.abs() + atol * max(scale, 1e-30)
+    return float(((got.cpu() - want).abs() / bound).max())
+
+
+def adam_bound(torch, p, g, m, v, t, atol, lr, b1=0.9, b2=0.999, eps=1e-8):
+    """The CPU lockstep's bar on one Adam step (tests/test_torch_lm_train_
+    step.py::adam_rule): with the gradient known to within δg = 1e-4·|g| +
+    A·max|g|, |Δp| <= 1e-6·|p| + lr·min(2, 2·|∂u/∂g|·δg) for the update u
+    = m̂/(√v̂ + eps), |∂u/∂g| at the reference's moments after the step.
+    Returns (the bound on |Δp|, δg)."""
+    dg = LM_GRAD_RTOL * g.abs() + atol * g.abs().max()
+    bc1, bc2 = 1 - b1 ** t, 1 - b2 ** t
+    mhat, root = m.abs() / bc1, torch.sqrt(v / bc2)
+    sens = ((1 - b1) / (bc1 * (root + eps))
+            + mhat * (1 - b2) * g.abs() / (bc2 * root * (root + eps) ** 2))
+    sens = torch.nan_to_num(sens, nan=math.inf)
+    return (1e-6 * p.abs() + lr * torch.clamp(2 * sens * dg, max=2.0), dg)
+
+
+def lm_train_card_vs_cpu(torch, dev, failures, names=LM_KERNELS):
+    """The train models at full width in f32, cut to ``LM_CPU_CHECK``'s 2
+    layers (B=1, T=64), remat on: the loss and every leaf's gradient on
+    the card against the port on the CPU, same weights: the loss within
+    1e-5 relative, each gradient within 1e-3 of the leaf's largest |g| on
+    the CPU."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.data import token_stream
+    from repro_torch.models import ModelCtx, init_params, loss_and_grads
+    from repro_torch.models.common import tree_map
+    layers, b, t = LM_CPU_CHECK
+    ctx = ModelCtx(remat=True, wkv_chunk=LM_WKV_CHUNK)
+    # the CPU's reference without remat: the same values (bit for bit on
+    # the CPU, tests/test_torch_lm_train.py), a third less CPU time
+    cpu_ctx = ModelCtx(remat=False, wkv_chunk=LM_WKV_CHUNK)
+    for arch, _, _, _, _, kernel in LM_TRAIN:
+        if kernel not in names:
+            continue
+        cfg = dataclasses.replace(get_arch(arch), n_layers=layers,
+                                  dtype="float32")
+        params = init_params(cfg, seed=SEED + 6, device=dev)
+        host = tree_map(lambda a: a.cpu(), params)
+        batch = next(iter(token_stream(cfg, t, b, steps=1, seed=SEED + 92,
+                                       device="cpu")))
+        loss, _, grads = loss_and_grads(params, cfg, {
+            k: v.to(dev) for k, v in batch.items()}, ctx)
+        t0 = time.perf_counter()
+        want, _, wgrads = loss_and_grads(host, cfg, batch, cpu_ctx)
+        cpu_s = time.perf_counter() - t0
+        rel = abs(float(loss) / float(want) - 1)
+        worst, where = 0.0, None
+        for (path, g), (_, w) in zip(lm_leaves(grads), lm_leaves(wgrads)):
+            err, scale, _ = lm_max_rule(g, w, 1e-3)
+            if err / max(1e-3 * scale, 1e-300) > worst:
+                worst, where = err / max(1e-3 * scale, 1e-300), path
+        emit({"phase": "lm_train_card_vs_cpu", "arch": arch,
+              "layers": layers, "batch": b, "tokens": t,
+              "loss": float(want), "loss_rel_err": rel,
+              "grad_worst_ratio_to_1e-3_of_max": worst, "at": where,
+              "cpu_s": cpu_s})
+        if not rel <= 1e-5:
+            failures.append(f"{arch} (2 layers, f32): card loss {rel} "
+                            f"relative from the CPU's")
+        if not worst <= 1:
+            failures.append(f"{arch} (2 layers, f32): gradient {where} "
+                            f"{worst} of 1e-3 of its max from the CPU's")
+        del params, host, grads, wgrads
+        torch.cuda.empty_cache()
+
+
+def lm_train_reduced(torch, dev, failures):
+    """Every reduced arch (f32): one ``make_train_step`` (lr 1e-3, clip 1.0)
+    on the card against the port on the CPU from the same weights and
+    Adam state: the loss within 1e-5 relative, the parameters by the CPU
+    lockstep's Adam rule (``adam_bound``, at the CPU's moments) and the
+    clipped gradients within 1e-3 of each leaf's largest |g| (the
+    full-width rule: the card's kernels are not the CPU's plain versions,
+    and reduced jamba's dt_proj gradient came to 1.01 of the CPU tests'
+    tighter ``lm_grad_rule`` on an H100, which is printed beside it)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models import ModelCtx, init_params, make_train_step
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim import adam_init
+    lr = 1e-3
+    ctx = ModelCtx(remat=True, wkv_chunk=LM_WKV_CHUNK)
+    cpu_ctx = ModelCtx(remat=False, wkv_chunk=LM_WKV_CHUNK)
+    for arch in sorted(ARCHS):
+        cfg = ARCHS[arch].reduced()
+        atol = lm_grad_atol(arch)
+        host = init_params(cfg, seed=SEED + 7, device="cpu")
+        params = tree_map(lambda a: a.to(dev, copy=True), host)
+        seq = 32 + cfg.vlm_patches
+        batch = synthetic_batch(cfg, seq, 2, "train", seed=SEED + 93,
+                                device="cpu")
+        ho = adam_init(host)
+        _, ho, want = make_train_step(cfg, cpu_ctx, lr=lr, clip_norm=1.0)(
+            host, ho, batch, with_grads=True)
+        _, _, got = make_train_step(cfg, ctx, lr=lr, clip_norm=1.0)(
+            params, adam_init(params), {k: v.to(dev) for k, v in
+                                        batch.items()}, with_grads=True)
+        rel = abs(float(got["loss"]) / float(want["loss"]) - 1)
+        grad_worst = tight_worst = param_worst = 0.0
+        where = None
+        for (path, g), (_, wg), (_, p), (_, wp), (_, wm), (_, wv) in zip(
+                lm_leaves(got["grads"]), lm_leaves(want["grads"]),
+                lm_leaves(params), lm_leaves(host), lm_leaves(ho.mu),
+                lm_leaves(ho.nu)):
+            err, scale, _ = lm_max_rule(g, wg, 1e-3)
+            r = err / max(1e-3 * scale, 1e-300)
+            if r > grad_worst:
+                grad_worst, where = r, path
+            tight_worst = max(tight_worst, lm_grad_rule(g, wg, atol))
+            bound, _ = adam_bound(torch, wp, wg, wm, wv, 1, atol, lr)
+            param_worst = max(param_worst, float(
+                ((p.cpu() - wp).abs() / bound).max()))
+        emit({"phase": "lm_train_reduced", "arch": arch, "loss_rel_err": rel,
+              "grad_worst_ratio_to_1e-3_of_max": grad_worst, "at": where,
+              "grad_worst_ratio_to_cpu_test_bar": tight_worst,
+              "param_worst_ratio": param_worst})
+        if not rel <= 1e-5:
+            failures.append(f"{cfg.name}: card loss {rel} relative from the "
+                            f"CPU's")
+        if not grad_worst <= 1:
+            failures.append(f"{cfg.name}: card gradient {where} at "
+                            f"{grad_worst} of 1e-3 of its max")
+        if not param_worst <= 1:
+            failures.append(f"{cfg.name}: card parameters at {param_worst} "
+                            f"of the Adam rule")
+    torch.cuda.empty_cache()
+
+
+def phase_lm_train(torch, dev, failures, names=LM_KERNELS):
+    """Phase 1d: LM training at full width on the card, one model at a time
+    (``LM_TRAIN``, the models whose kernel is among ``names``), then the
+    card against the CPU (full width cut to 2 layers, and the ten reduced
+    archs).  Returns ({kernel: launches}, {kernel: summary})."""
+    launches = {n: 0 for n in LM_KERNELS}
+    summaries = {}
+    for spec in LM_TRAIN:
+        if spec[5] not in names:
+            continue
+        counts, summaries[spec[5]] = lm_train_model(torch, dev, failures,
+                                                    spec)
+        for n, c in counts.items():
+            launches[n] += c
+    lm_train_card_vs_cpu(torch, dev, failures, names)
+    lm_train_reduced(torch, dev, failures)
+    return launches, summaries
+
+
+# ---------------------------------------------------------------------------
 # Sparse and CSR inputs, made on the card.
 # ---------------------------------------------------------------------------
 
@@ -2353,6 +2874,11 @@ def check_small_train(torch, rep, problem="mvc", shape=SMALL_TRAIN,
                                          .max()) for k in POLICY_KEYS)})
 
 
+# the port's profiler ranges: the graph-RL train step's parts, the LM
+# train step's, and the LM kernels' plain backwards
+RANGE_PREFIXES = ("train_step.", "lm_step.", "plain_backward")
+
+
 def dev_us(e, attr="self_"):
     """A profiler event's device microseconds, ``attr`` "self_" or "" (the
     name torch gives it has changed: device_time or cuda_time)."""
@@ -2380,11 +2906,11 @@ def profile_call(torch, fn):
 def kernel_rows(torch, prof):
     """The profile's kernels, (device us, calls, name), most time first,
     and their device us in all.  Kernels only: an operator's row repeats
-    its kernels' device time, and a ``train_step.`` range's device-side
-    span carries its name."""
+    its kernels' device time, and a profiler range's device-side span
+    (``RANGE_PREFIXES``) carries its name."""
     rows = sorted(((dev_us(e), e.count, e.key) for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not e.key.startswith("train_step.")
+                   and not e.key.startswith(RANGE_PREFIXES)
                    and dev_us(e) > 0), reverse=True)
     return rows, sum(r[0] for r in rows)
 
@@ -3600,8 +4126,8 @@ def phase_paper_train(torch, graph, rows, failures):
     4's ER(20480, 0.15) graph (~62.9M directed edges, its CSR batch on the
     card), 8 episode copies of it a step, minibatch 64, tau 4, fresh
     targets, the replay cut to ``PAPER_REPLAY`` tuples; the first warm
-    step and one more are timed, a third runs under torch.profiler and a
-    fourth under the allocator's history (where the peak comes from).
+    step is timed, a second runs under torch.profiler and a third under
+    the allocator's history (where the peak comes from).
     If minibatch 64 does not fit on the card, the largest of
     ``PAPER_MINIBATCHES`` that does is run, and the cut is printed.  Then
     B5 and its aggregate at that minibatch against their plain versions
@@ -6206,6 +6732,8 @@ def run_only(torch, ks, dev, names) -> None:
             torch.cuda.empty_cache()
             with timed_phase("lm_serve"):
                 phase_lm_serve(torch, dev, rows, failures, lm)
+            with timed_phase("lm_train"):
+                phase_lm_train(torch, dev, failures, lm)
             inputs = lm_inputs(torch, dev, lm)
         if ba_pool is not None:
             indptr, indices, _ = ba_future.result()
@@ -6292,6 +6820,13 @@ def main(argv=None) -> int:
                              + "\n".join(failures))
     for name, count in serve_launches.items():
         lm_launches[name] += count          # the models' prefill and decode
+    with timed_phase("lm_train"):
+        train_launches, _ = phase_lm_train(torch, dev, failures)
+    if failures:
+        raise AssertionError("LM training failed a check:\n"
+                             + "\n".join(failures))
+    for name, count in train_launches.items():
+        lm_launches[name] += count          # the models' train steps
 
     cfg = PolicyConfig(embed_dim=32, num_layers=2)
     policy = init_policy(cfg, generator=torch.Generator().manual_seed(

@@ -1,1 +1,2 @@
-from .ckpt import latest_step, load_policy, save_policy
+from .ckpt import (keyed_leaves, latest_step, load_policy,
+                   restore_checkpoint, save_checkpoint, save_policy)

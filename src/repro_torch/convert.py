@@ -6,7 +6,8 @@ these are exactly the ``state_dict`` keys of :class:`Policy`.  An Adam
 state crosses as ``step`` and its moments under ``mu.<key>`` and
 ``nu.<key>``.  An LM's parameter tree crosses as the same nested dicts and
 lists of arrays on both sides (``models/lm.py``), bfloat16 leaves bit for
-bit.  Arrays cross as numpy, so neither side imports the other.
+bit, and its Adam state as ``step`` and two such trees of moments.
+Arrays cross as numpy, so neither side imports the other.
 """
 from __future__ import annotations
 
@@ -177,3 +178,48 @@ def lm_params_to_numpy(params) -> Dict[str, Any]:
             return t.view(torch.int16).numpy().view(bf16)
         return t.numpy().copy()
     return tree_map(leaf, params)
+
+
+def _moment_dtype(arr) -> torch.dtype:
+    """A moment leaf's dtype: float32, or bfloat16 (or its uint16 bits)."""
+    arr = np.asarray(arr)
+    if _is_bf16(arr) or arr.dtype == np.uint16:
+        return torch.bfloat16
+    return torch.float32
+
+
+def lm_adam_from_numpy(state, cfg, *, device: DeviceLike = "cuda"):
+    """The port's Adam state of an LM on ``device`` from JAX's (its
+    ``AdamState`` through ``jax.tree.map(np.asarray, ...)``, or a mapping
+    with ``step``, ``mu`` and ``nu``): every moment's path and shape
+    checked against ``cfg``, each kept in its own dtype (f32 or bf16)."""
+    from .models.common import tree_map
+    from .models.lm import param_shapes
+    get = state.get if isinstance(state, Mapping) else (
+        lambda k: getattr(state, k))
+    dev = resolve_device(device)
+    shapes = param_shapes(cfg)
+
+    def moments(tree, name):
+        dtype = _moment_dtype(_first_leaf(tree))
+        return _lm_tree(name, tree, tree_map(lambda w: (w[0], dtype),
+                                             shapes), dev)
+    step = torch.full((), int(np.asarray(get("step"))), dtype=torch.int32,
+                      device=dev)
+    return AdamState(step=step, mu=moments(get("mu"), "mu"),
+                     nu=moments(get("nu"), "nu"))
+
+
+def _first_leaf(tree):
+    while isinstance(tree, (Mapping, list, tuple)):
+        tree = next(iter(tree.values())) if isinstance(tree, Mapping) \
+            else tree[0]
+    return tree
+
+
+def lm_adam_to_numpy(state: AdamState) -> Dict[str, Any]:
+    """An LM's Adam state as {"step": int32, "mu": tree, "nu": tree} of
+    numpy arrays, the moments as :func:`lm_params_to_numpy` gives them."""
+    return {"step": np.asarray(int(state.step), np.int32),
+            "mu": lm_params_to_numpy(state.mu),
+            "nu": lm_params_to_numpy(state.nu)}

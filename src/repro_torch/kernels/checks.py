@@ -1,9 +1,11 @@
 """Input checks shared by the kernel wrappers: every tensor on one device,
 of an accepted dtype and contiguous, and the dispatch on that device (the
-plain version on the CPU, the kernel on CUDA)."""
+plain version on the CPU, the kernel on CUDA); and the backward that the
+LM kernels' autograd Functions share (``plain_grads``)."""
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
 
 def check_tensors(ref: str, tensors: dict, int32=(),
@@ -37,3 +39,30 @@ def on_cpu(t: torch.Tensor, fn: str) -> bool:
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{fn} runs on cpu or cuda, not {t.device}")
     return t.device.type == "cpu"
+
+
+def plain_grads(plain, ctx, cotangents) -> tuple:
+    """The backward of an autograd Function whose forward is a kernel: the
+    gradients of ``plain`` (its plain version, a function of the saved
+    tensors in order) at ``ctx.saved_tensors``, recomputed under
+    ``enable_grad``, by ``torch.autograd.grad`` of the outputs that have a
+    cotangent (an output whose cotangent is None is left out), in the
+    ``plain_backward`` profiler range.  One entry per saved tensor: None
+    where no gradient is needed, or for a saved None."""
+    saved = ctx.saved_tensors
+    n = len(saved)
+    pairs = [(o, g) for o, g in enumerate(cotangents) if g is not None]
+    wanted = [i for i in range(n) if ctx.needs_input_grad[i]
+              and saved[i] is not None]
+    if not pairs or not wanted:
+        return (None,) * n
+    with torch.enable_grad(), record_function("plain_backward"):
+        inputs = [None if t is None else t.detach().requires_grad_(
+            i in wanted) for i, t in enumerate(saved)]
+        outs = plain(*inputs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        got = torch.autograd.grad([outs[o] for o, _ in pairs],
+                                  [inputs[i] for i in wanted],
+                                  [g for _, g in pairs], allow_unused=True)
+    grads = dict(zip(wanted, got))
+    return tuple(grads.get(i) for i in range(n))

@@ -12,7 +12,9 @@ the output is (E, C, d) float32.
 SiLU, as ``ref.grouped_glu_ffn``); :func:`grouped_glu_ffn` computes it on
 CPU tensors and on CUDA tensors launches the two hand-written kernels of
 ``csrc/moe_gemm.cu`` (the GLU product into an f32 scratch h (E, C, f), then
-h @ wo), counting two launches per call in ``grouped_glu_ffn.launches``.
+h @ wo), counting two launches per call in ``grouped_glu_ffn.launches``,
+inside an autograd Function whose backward differentiates the plain
+version (``checks.plain_grads``).
 The kernels multiply on the tensor cores in TF32, each f32 operand split
 into two TF32 values as :func:`tf32_split` does, and sum three of the four
 split products: ``hi·hi + hi·lo + lo·hi``.
@@ -24,7 +26,7 @@ import ctypes
 import torch
 
 from .build import launch
-from .checks import f32_inputs, on_cpu
+from .checks import f32_inputs, on_cpu, plain_grads
 
 
 def grouped_glu_ffn_plain(x: torch.Tensor, wg: torch.Tensor,
@@ -64,15 +66,8 @@ def _check_shapes(x, wg, wu, wo) -> None:
         raise ValueError(f"unsupported sizes E={e}, C={c}, d={d}, f={f}")
 
 
-def grouped_glu_ffn(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
-                    wo: torch.Tensor) -> torch.Tensor:
-    """x (E, C, d); wg/wu (E, d, f); wo (E, f, d) → (E, C, d) float32.
-    CPU tensors take the plain version; CUDA tensors launch the two
-    kernels on the current stream."""
-    x, wg, wu, wo = f32_inputs("x", {"x": x, "wg": wg, "wu": wu, "wo": wo})
-    _check_shapes(x, wg, wu, wo)
-    if on_cpu(x, "grouped_glu_ffn"):
-        return grouped_glu_ffn_plain(x, wg, wu, wo)
+def _launch(x, wg, wu, wo):
+    """The two kernels on the current stream."""
     e, c, d = x.shape
     f = wg.shape[2]
     h = torch.empty((e, c, f), dtype=torch.float32, device=x.device)
@@ -85,6 +80,34 @@ def grouped_glu_ffn(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
            x.device, h.data_ptr(), wo.data_ptr(), y.data_ptr(), e, c, f, d)
     grouped_glu_ffn.launches += 1
     return y
+
+
+class _GroupedGlu(torch.autograd.Function):
+    """The kernels forward; the backward differentiates the plain version
+    on the saved inputs, as JAX differentiates ``moe_dense_apply``'s
+    einsums (no backward kernel there)."""
+
+    @staticmethod
+    def forward(ctx, x, wg, wu, wo):
+        ctx.save_for_backward(x, wg, wu, wo)
+        return _launch(x, wg, wu, wo)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return plain_grads(grouped_glu_ffn_plain, ctx, (grad,))
+
+
+def grouped_glu_ffn(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+                    wo: torch.Tensor) -> torch.Tensor:
+    """x (E, C, d); wg/wu (E, d, f); wo (E, f, d) → (E, C, d) float32.
+    CPU tensors take the plain version; CUDA tensors launch the two
+    kernels on the current stream, through an autograd Function whose
+    backward is the plain version's."""
+    x, wg, wu, wo = f32_inputs("x", {"x": x, "wg": wg, "wu": wu, "wo": wo})
+    _check_shapes(x, wg, wu, wo)
+    if on_cpu(x, "grouped_glu_ffn"):
+        return grouped_glu_ffn_plain(x, wg, wu, wo)
+    return _GroupedGlu.apply(x, wg, wu, wo)
 
 
 grouped_glu_ffn.launches = 0

@@ -13,7 +13,8 @@ keys its window can reach, so no (T, T) score matrix is ever formed;
 :func:`swa_attention` computes it on CPU tensors, at any size the JAX op
 takes, and launches the hand-written flash kernel (``csrc/swa.cu``; d % 4
 == 0, d <= 256) on CUDA tensors, counting launches in
-``swa_attention.launches``.
+``swa_attention.launches``, inside an autograd Function whose backward
+differentiates the plain version (``checks.plain_grads``).
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import ctypes
 import torch
 
 from .build import launch
-from .checks import f32_inputs, on_cpu
+from .checks import f32_inputs, on_cpu, plain_grads
 
 MAX_D = 256
 Q_BLOCK = 512                # queries per block of the plain version
@@ -68,15 +69,8 @@ def _check_kernel_limits(bh: int, d: int) -> None:
                          f"d <= {MAX_D}, got BH={bh}, d={d}")
 
 
-def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  window: int, scale: float | None = None) -> torch.Tensor:
-    """(BH, T, d) float32.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel on the current stream."""
-    q, k, v = f32_inputs("q", {"q": q, "k": k, "v": v})
-    _check_shapes(q, k, v, window)
-    window = int(window)
-    if on_cpu(q, "swa_attention"):
-        return swa_attention_plain(q, k, v, window=window, scale=scale)
+def _launch(q, k, v, window, scale):
+    """The kernel on the current stream."""
     bh, t, d = q.shape
     _check_kernel_limits(bh, d)
     scale = d ** -0.5 if scale is None else scale
@@ -86,6 +80,37 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            v.data_ptr(), out.data_ptr(), bh, t, d, min(window, t), scale)
     swa_attention.launches += 1
     return out
+
+
+class _Swa(torch.autograd.Function):
+    """The kernel forward; the backward differentiates the plain version
+    on the saved inputs, as JAX differentiates its window attention
+    (``models/attention.py::_sdpa_chunked``; no backward kernel there)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.window, ctx.scale = window, scale
+        return _launch(q, k, v, window, scale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return plain_grads(lambda q, k, v: swa_attention_plain(
+            q, k, v, window=ctx.window, scale=ctx.scale), ctx,
+            (grad,)) + (None, None)
+
+
+def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  window: int, scale: float | None = None) -> torch.Tensor:
+    """(BH, T, d) float32.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel on the current stream, through an autograd
+    Function whose backward is the plain version's."""
+    q, k, v = f32_inputs("q", {"q": q, "k": k, "v": v})
+    _check_shapes(q, k, v, window)
+    window = int(window)
+    if on_cpu(q, "swa_attention"):
+        return swa_attention_plain(q, k, v, window=window, scale=scale)
+    return _Swa.apply(q, k, v, window, scale)
 
 
 swa_attention.launches = 0

@@ -24,7 +24,10 @@ tensors launches the two hand-written kernels of ``csrc/wkv6.cu``
 (chunk ≤ 64 and dk ≤ 64): one pass over the chunks in order that keeps
 the state S_n = exp(cum_c) S_{n-1} + kdᵀ v entering every chunk, then
 every chunk's output a v + qp S_{n-1} in parallel, counting two launches
-per call in ``wkv6_chunked.launches``.
+per call in ``wkv6_chunked.launches``.  On CUDA tensors the launch sits in
+an autograd Function whose backward differentiates the plain version on
+the saved inputs (``checks.plain_grads``), as JAX differentiates
+``wkv6_chunked_jnp``: JAX has no backward kernel either.
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ import ctypes
 import torch
 
 from .build import launch
-from .checks import f32_inputs, on_cpu
+from .checks import f32_inputs, on_cpu, plain_grads
 
 MAX_CHUNK = 64
 MAX_DK = 64
@@ -106,21 +109,8 @@ def _check_kernel_limits(bh: int, dk: int, c: int) -> None:
                          f"got {c}")
 
 
-def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 w: torch.Tensor, u: torch.Tensor, *,
-                 s0: torch.Tensor | None = None,
-                 chunk: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
-    """(out (BH, T, dv), final state (BH, dk, dv)) in float32, from the
-    state ``s0`` (zero when None).  CPU tensors take the plain version;
-    CUDA tensors launch the two kernels on the current stream."""
-    named = {"r": r, "k": k, "v": v, "w": w, "u": u}
-    if s0 is not None:
-        named["s0"] = s0
-    r, k, v, w, u, *rest = f32_inputs("r", named)
-    s0 = rest[0] if rest else None
-    c = _check_shapes(r, k, v, w, u, s0, chunk)
-    if on_cpu(r, "wkv6_chunked"):
-        return wkv6_chunked_plain(r, k, v, w, u, s0=s0, chunk=c)
+def _launch(r, k, v, w, u, s0, c):
+    """The two kernels on the current stream: (out, final state)."""
     bh, t, dk = r.shape
     _check_kernel_limits(bh, dk, c)
     dv = v.shape[2]
@@ -141,6 +131,46 @@ def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            u.data_ptr(), states.data_ptr(), out.data_ptr(), *sizes)
     wkv6_chunked.launches += 1
     return out, sfin
+
+
+class _Wkv6(torch.autograd.Function):
+    """The kernels forward; the backward differentiates the plain version
+    on the saved inputs, as JAX differentiates ``wkv6_chunked_jnp`` (there
+    is no backward kernel in the JAX package).  Either output may come
+    back without a cotangent: a training loss reads ``out`` and leaves the
+    final state alone."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0, c):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        ctx.c = c
+        return _launch(r, k, v, w, u, s0, c)
+
+    @staticmethod
+    def backward(ctx, g_out, g_state):
+        return plain_grads(
+            lambda *a: wkv6_chunked_plain(*a, chunk=ctx.c), ctx,
+            (g_out, g_state)) + (None,)
+
+
+def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 w: torch.Tensor, u: torch.Tensor, *,
+                 s0: torch.Tensor | None = None,
+                 chunk: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
+    """(out (BH, T, dv), final state (BH, dk, dv)) in float32, from the
+    state ``s0`` (zero when None).  CPU tensors take the plain version;
+    CUDA tensors launch the two kernels on the current stream, through an
+    autograd Function whose backward is the plain version's."""
+    named = {"r": r, "k": k, "v": v, "w": w, "u": u}
+    if s0 is not None:
+        named["s0"] = s0
+    r, k, v, w, u, *rest = f32_inputs("r", named)
+    s0 = rest[0] if rest else None
+    c = _check_shapes(r, k, v, w, u, s0, chunk)
+    if on_cpu(r, "wkv6_chunked"):
+        return wkv6_chunked_plain(r, k, v, w, u, s0=s0, chunk=c)
+    return _Wkv6.apply(r, k, v, w, u, s0, c)
 
 
 wkv6_chunked.launches = 0

@@ -1,5 +1,5 @@
-"""Model assembly and the serving steps for every architecture of the
-configs.  Counterpart of the serving half of ``repro/models/lm.py``.
+"""Model assembly, the loss and the train, eval and serving steps for
+every architecture of the configs.  Counterpart of ``repro/models/lm.py``.
 
 One generic implementation covers the ten architectures through the
 config's layer program: decoder LMs (dense, MoE, SSM, hybrid), the
@@ -14,15 +14,25 @@ Caches follow the same layout.  So weights cross from JAX by a structural
 map (``convert.lm_params_from_numpy``).
 
 Steps:
+  train_step(params, opt, batch)        -> (params, opt, metrics)
+  eval_step(params, batch)              -> metrics
   prefill(params, batch)                -> (last_logits, caches)
   decode_step(params, caches, tok, pos) -> (logits, next_tok, caches)
+
+The train step updates the parameters and the Adam state in place (and
+returns them).  The vocabulary loss is taken in sequence chunks, each
+recomputed in the backward (``chunked_xent``), so no (B, T, V) logits
+buffer is formed: the 262k-vocabulary gemma3 configs need it.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 import torch
+from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
+from .. import optim
 from ..device import DeviceLike, resolve_device
 from .blocks import (ModelCtx, block_apply, build_program, init_block,
                      init_block_cache)
@@ -30,6 +40,7 @@ from .common import (F32, dense_init, embed_init, rms_norm, tree_leaves,
                      tree_map)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+LOSS_CHUNK = 512
 
 
 def _dtype_of(cfg) -> torch.dtype:
@@ -148,6 +159,32 @@ def _at(tree, r: int):
     return tree_map(lambda a: a[r], tree)
 
 
+def _remat_unit(seg_params, unit, r, reps, x, cfg, ctx, pos):
+    """(x, aux) of one repeat under ``checkpoint``, in the
+    ``lm_step.unit`` range: run in the forward, and again in the backward
+    (the rematerialization)."""
+    with record_function("lm_step.unit"):
+        x, _, aux = _unit_apply(seg_params, unit, r, reps, x, cfg, ctx,
+                                None, pos)
+    return x, aux
+
+
+def _unit_apply(seg_params, unit, r, reps, x, cfg, ctx, seg_cache, pos):
+    """One repeat ``r`` of a segment's unit: (x, [new caches], aux)."""
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    layer_new = []
+    for j, sig in enumerate(unit):
+        pj = seg_params[j] if reps == 1 else _at(seg_params[j], r)
+        cj = None
+        if seg_cache is not None:
+            cj = seg_cache[j] if reps == 1 else _at(seg_cache[j], r)
+        x, nc, a = block_apply(pj, x, cfg=cfg, sig=sig, ctx=ctx, cache=cj,
+                               pos=pos)
+        aux = aux + a
+        layer_new.append(nc)
+    return x, layer_new, aux
+
+
 def _apply_segments(params, cfg, x, ctx: ModelCtx,
                     caches: Optional[list] = None,
                     pos: Optional[torch.Tensor] = None,
@@ -157,6 +194,10 @@ def _apply_segments(params, cfg, x, ctx: ModelCtx,
     caches=None, collect_cache=False → forward with no cache I/O.
     caches=None, collect_cache=True  → prefill (fresh caches returned).
     caches=list                      → decode (caches read and updated).
+    With ``ctx.remat``, a forward with no caches recomputes each repeat of
+    a segment of more than one repeat in the backward (JAX's
+    ``jax.checkpoint`` of its scan body, ``nothing_saveable``): only the
+    unit's input is kept.
     Returns (x, new_caches | None, aux_sum)."""
     aux_total = torch.zeros((), dtype=F32, device=x.device)
     want_cache = collect_cache or caches is not None
@@ -165,18 +206,20 @@ def _apply_segments(params, cfg, x, ctx: ModelCtx,
     for si, (reps, unit) in enumerate(build_program(cfg)):
         seg_params = params["segments"][si]
         seg_cache = caches[si] if caches is not None else None
+        remat = (ctx.remat and reps > 1 and not want_cache
+                 and torch.is_grad_enabled())
         per_rep = []
         for r in range(reps):
-            layer_new = []
-            for j, sig in enumerate(unit):
-                pj = seg_params[j] if reps == 1 else _at(seg_params[j], r)
-                cj = None
-                if seg_cache is not None:
-                    cj = seg_cache[j] if reps == 1 else _at(seg_cache[j], r)
-                x, nc, aux = block_apply(pj, x, cfg=cfg, sig=sig, ctx=ctx,
-                                         cache=cj, pos=pos)
-                aux_total = aux_total + aux
-                layer_new.append(nc)
+            if remat:
+                # the segment's values are arguments: the backward
+                # recomputes the repeat after this loop has moved on
+                x, aux = checkpoint(_remat_unit, seg_params, unit, r, reps,
+                                    x, cfg, ctx, pos, use_reentrant=False)
+                layer_new = None
+            else:
+                x, layer_new, aux = _unit_apply(seg_params, unit, r, reps, x,
+                                                cfg, ctx, seg_cache, pos)
+            aux_total = aux_total + aux
             per_rep.append(layer_new)
         if want_cache:
             new_caches.append(per_rep[0] if reps == 1 else [
@@ -188,6 +231,150 @@ def _apply_segments(params, cfg, x, ctx: ModelCtx,
 
 def _final_hidden(params, cfg, x):
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+# ------------------------------------------------------------- loss --------
+
+def _xent_chunk(hc, embed_w, lc, mc):
+    """(Σ masked (lse - gold), Σ mask) of one chunk, its logits in f32, in
+    the ``lm_step.loss_chunk`` range (again in the backward)."""
+    with record_function("lm_step.loss_chunk"):
+        logits = torch.einsum("btd,vd->btv", hc.float(), embed_w.float())
+        lse = torch.logsumexp(logits, dim=-1)
+        # the gold logit by a gather: the same value as JAX's masked sum
+        # over the vocabulary's iota (one term and zeros)
+        gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+        return torch.sum((lse - gold) * mc), torch.sum(mc)
+
+
+def chunked_xent(h, embed_w, labels, mask=None, chunk: int = LOSS_CHUNK):
+    """Cross-entropy over the vocabulary without a full (B, T, V) logits
+    buffer.  h (B, T, d) the final hidden; embed_w (V, d) the tied output
+    head; labels (B, T).  The sequence is cut as JAX cuts it (``nc =
+    max(T // chunk, 1)`` chunks of ``T // nc`` tokens; a remainder is left
+    out), and each chunk is recomputed in the backward (JAX's
+    ``jax.checkpoint``), so one chunk's f32 logits live at a time."""
+    b, t, _ = h.shape
+    nc = max(t // chunk, 1)
+    cs = t // nc
+    if mask is None:
+        mask = torch.ones((b, t), dtype=F32, device=h.device)
+    tot = torch.zeros((), dtype=F32, device=h.device)
+    cnt = torch.zeros((), dtype=F32, device=h.device)
+    for i in range(nc):
+        part = slice(i * cs, (i + 1) * cs)
+        args = (h[:, part], embed_w, labels[:, part], mask[:, part])
+        if torch.is_grad_enabled():
+            s, c = checkpoint(_xent_chunk, *args, use_reentrant=False)
+        else:
+            s, c = _xent_chunk(*args)
+        tot = tot + s
+        cnt = cnt + c
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def _next_token(tokens, dev):
+    """JAX's next-token labels and mask: the inputs shifted left by one,
+    the last position padded with 0 and masked out."""
+    tokens = torch.as_tensor(tokens, device=dev)
+    b, t = tokens.shape
+    labels = torch.zeros((b, t), dtype=tokens.dtype, device=dev)
+    labels[:, :-1] = tokens[:, 1:]
+    mask = torch.zeros((b, t), dtype=F32, device=dev)
+    mask[:, :-1] = 1.0
+    return labels, mask
+
+
+def _shift_left(a):
+    """``jnp.pad(a[:, 1:], ((0, 0), (0, 1)))``."""
+    return torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
+
+
+def loss_fn(params, cfg, batch, ctx: ModelCtx):
+    """(loss, metrics) of one batch, as JAX's ``loss_fn``: the chunked
+    cross-entropy of the next token (of ``labels`` where the batch has
+    them: hubert's frame labels, llava's text with its patches masked
+    out), plus ``mtp_weight`` × the MTP head's loss of the token after
+    (``mtp``), plus ``router_aux_weight`` × the MoE layers' load-balance
+    loss (``aux``).  metrics: ``xent``, ``aux`` and, with the MTP head,
+    ``mtp``."""
+    x, labels, mask = _embed_inputs(params, cfg, batch, ctx)
+    x = ctx.sharder.act(x, "act_resid_in")
+    x, _, aux = _apply_segments(params, cfg, x, ctx)
+    h = _final_hidden(params, cfg, x)
+    if labels is None:
+        labels, mask = _next_token(batch["tokens"], h.device)
+    loss = chunked_xent(h, params["embed"], labels, mask)
+    metrics = {"xent": loss, "aux": aux}
+    if cfg.mtp_weight > 0 and not cfg.is_encoder:
+        h2 = torch.einsum("btd,de->bte", h, params["mtp_proj"])
+        mask2 = mask if mask is not None else torch.ones(
+            labels.shape, dtype=F32, device=h.device)
+        mtp = chunked_xent(h2, params["embed"], _shift_left(labels),
+                           _shift_left(mask2))
+        metrics["mtp"] = mtp
+        loss = loss + cfg.mtp_weight * mtp
+    if cfg.is_moe:
+        loss = loss + cfg.router_aux_weight * aux
+    return loss, metrics
+
+
+def loss_and_grads(params, cfg, batch, ctx: ModelCtx):
+    """(loss, metrics, grads): the loss and its gradient with respect to
+    every leaf of ``params`` (a tree of the parameters' structure and
+    dtypes; a leaf the loss does not reach gets zeros, as in JAX)."""
+    leaves = tree_leaves(params)
+    flags = [p.requires_grad for p in leaves]
+    try:
+        for p in leaves:
+            p.requires_grad_(True)
+        with torch.enable_grad():
+            with record_function("lm_step.forward"):
+                loss, metrics = loss_fn(params, cfg, batch, ctx)
+            with record_function("lm_step.backward"):
+                got = torch.autograd.grad(loss, leaves, allow_unused=True)
+    finally:
+        for p, f in zip(leaves, flags):
+            p.requires_grad_(f)
+    got = iter([torch.zeros_like(p) if g is None else g
+                for p, g in zip(leaves, got)])
+    grads = tree_map(lambda _: next(got), params)
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return loss.detach(), metrics, grads
+
+
+# ------------------------------------------------------------- steps -------
+
+def make_train_step(cfg, ctx: ModelCtx, *, lr: float = 3e-4,
+                    clip_norm: Optional[float] = 1.0):
+    """``train_step(params, opt, batch, *, with_grads=False) -> (params,
+    opt, metrics)``: the gradient of ``loss_fn``, clipped to a global norm
+    of ``clip_norm`` (scaled in place), then one Adam step of rate ``lr``,
+    both in place.  metrics: ``loss_fn``'s, ``loss`` and ``grad_norm`` (0
+    without clipping); with ``with_grads`` also ``grads``, the gradients
+    Adam took."""
+    def train_step(params, opt, batch, *, with_grads: bool = False):
+        loss, metrics, grads = loss_and_grads(params, cfg, batch, ctx)
+        with record_function("lm_step.clip"):
+            if clip_norm is not None:
+                gnorm = optim.clip_by_global_norm_(grads, clip_norm)
+            else:
+                gnorm = torch.zeros((), dtype=F32, device=loss.device)
+        with record_function("lm_step.adam"):
+            optim.adam_update(params, grads, opt, lr=lr)
+        metrics = dict(metrics, grad_norm=gnorm, loss=loss)
+        if with_grads:
+            metrics["grads"] = grads
+        return params, opt, metrics
+    return train_step
+
+
+def make_eval_step(cfg, ctx: ModelCtx):
+    @torch.no_grad()
+    def eval_step(params, batch):
+        _, metrics = loss_fn(params, cfg, batch, ctx)
+        return metrics
+    return eval_step
 
 
 # ------------------------------------------------------------- steps -------

@@ -1007,3 +1007,86 @@ def test_model_prefill_runs_its_kernel_on_the_card(cuda, name, extra, kernel,
         lc, _, cc = dec(on_card, cc, toks[:, i:i + 1].to(cuda), pos.to(cuda))
         lp, _, cp = dec(params, cp, toks[:, i:i + 1], pos)
         torch.testing.assert_close(lc.cpu(), lp, rtol=1e-4, atol=1e-4)
+
+
+def test_lm_kernel_functions_give_the_plain_gradients_on_the_card(cuda):
+    """B6, B7 and B8 on CUDA tensors run their kernels forward and take the
+    plain versions' gradients: every input gradient equal to autograd's
+    through the plain version on the card, bit for bit (the backward is
+    that computation); B6 with a cotangent on the output alone and on
+    both outputs, from a state."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=cuda) * scale
+                ).requires_grad_(True)
+
+    def check(kernel, fn, plain, inputs, ct):
+        before = kernel.launches
+        got = torch.autograd.grad(fn(*inputs), inputs, ct,
+                                  allow_unused=True)
+        assert kernel.launches > before
+        again = [t.detach().clone().requires_grad_(True) for t in inputs]
+        want = torch.autograd.grad(plain(*again), again, ct,
+                                   allow_unused=True)
+        for a, b in zip(got, want):
+            assert (a is None and b is None) or torch.equal(a, b)
+    bh, t, n = 4, 64, 64
+    w = (torch.exp(-torch.exp(torch.rand((bh, t, n), generator=g,
+                                         device=cuda) * 3.7 - 3.0))
+         ).requires_grad_(True)
+    wkv = [randn(bh, t, n, scale=0.5), randn(bh, t, n, scale=0.5),
+           randn(bh, t, n), w, randn(bh, n, scale=0.3)]
+    s0 = randn(bh, n, n, scale=0.5)
+    ct = torch.randn((bh, t, n), generator=g, device=cuda)
+    check(ops.wkv6, lambda *a: ops.wkv6(*a, chunk=16)[0],
+          lambda *a: wkv6_chunked_plain(*a, chunk=16)[0], wkv, ct)
+    cs = torch.randn((bh, n, n), generator=g, device=cuda)
+    check(ops.wkv6, lambda *a: ops.wkv6(*a[:5], s0=a[5], chunk=16),
+          lambda *a: wkv6_chunked_plain(*a, chunk=16), wkv + [s0], (ct, cs))
+    q = [randn(8, 300, 256) for _ in range(3)]
+    check(ops.swa, lambda *a: ops.swa(*a, window=100),
+          lambda *a: swa_attention_plain(*a, window=100), q,
+          torch.randn((8, 300, 256), generator=g, device=cuda))
+    e, c, d, f = 3, 40, 64, 96
+    glu = [randn(e, c, d), randn(e, d, f, scale=d ** -0.5),
+           randn(e, d, f, scale=d ** -0.5), randn(e, f, d, scale=f ** -0.5)]
+    check(ops.grouped_glu_ffn, ops.grouped_glu_ffn, grouped_glu_ffn_plain,
+          glu, torch.randn((e, c, d), generator=g, device=cuda))
+
+
+@pytest.mark.parametrize("name,extra,kernel", [
+    ("rwkv6-7b", {}, "wkv6"),
+    ("gemma3-4b", {"sliding_window": 8}, "swa"),
+    ("qwen2-moe-a2.7b", {}, "grouped_glu_ffn")])
+def test_model_gradients_through_the_kernels_on_the_card(cuda, name, extra,
+                                                         kernel):
+    """A reduced f32 model's loss and gradients on the card, through its
+    kernel, against the same weights on the CPU: every parameter leaf has
+    a finite gradient, within 1e-4 of the leaf's largest |g| on the CPU;
+    the loss within 1e-5 relative."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import token_stream
+    from repro_torch.models import ModelCtx, init_params, loss_and_grads
+    from repro_torch.models.common import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_arch(name).reduced(), **extra)
+    params = init_params(cfg, seed=2, device="cpu")
+    on_card = tree_map(lambda a: a.to(cuda), params)
+    batch = next(iter(token_stream(cfg, 32, 2, steps=1, seed=4,
+                                   device="cpu")))
+    ctx = ModelCtx(remat=True, wkv_chunk=16)
+    fn = getattr(ops, kernel)
+    before = fn.launches
+    loss, _, grads = loss_and_grads(on_card, cfg, {
+        k: v.to(cuda) for k, v in batch.items()}, ctx)
+    torch.cuda.synchronize()
+    assert fn.launches > before
+    want, _, wgrads = loss_and_grads(params, cfg, batch, ctx)
+    assert float(loss) == pytest.approx(float(want), rel=1e-5)
+    for g, w in zip(tree_leaves(grads), tree_leaves(wgrads)):
+        assert g is not None and bool(torch.isfinite(g).all())
+        assert float(w.abs().max()) > 0
+        err = float((g.cpu() - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max())

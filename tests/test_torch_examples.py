@@ -7,7 +7,9 @@ mesh scores (4 gloo ranks, a (2, 2) mesh) are within 1e-5 of one
 device's on both representations and its collective lines say by what
 the mesh's counts differ from the paper's model; ``pt_serve_batched``
 on JAX's weights generates the tokens ``examples/serve_batched.py``
-prints for every request; run without
+prints for every request; ``pt_train_lm`` on JAX's weights prints
+``examples/train_lm.py``'s losses (rtol 1e-5) and ``DECREASED``; run
+without
 ``--device``, every script asks for the card and raises without one."""
 import importlib
 import pathlib
@@ -21,7 +23,7 @@ from repro_torch.core import env
 
 EXAMPLES = pathlib.Path(__file__).resolve().parents[1] / "examples"
 SCRIPTS = ("pt_quickstart", "pt_train_mvc_agent", "pt_solve_service",
-           "pt_spatial_inference", "pt_serve_batched")
+           "pt_spatial_inference", "pt_serve_batched", "pt_train_lm")
 
 
 def _script(name):
@@ -169,3 +171,41 @@ def test_serve_batched_generates_jax_tokens(arch, monkeypatch, capsys):
     # a row generates from its prompt's last token to the loop's end
     maxlen = max(len(p) for p in out["prompts"])
     assert [len(o) for o in out["outputs"]] == [maxlen + 6 + 1] * 4
+
+
+def test_train_lm_decreases_as_jax_does(monkeypatch, capsys):
+    """The default run (gemma3-4b reduced, a 2048-token vocabulary, 12
+    steps) on JAX's seed-0 weights carried across: the losses JAX's
+    example prints and its last line."""
+    import dataclasses
+
+    import jax
+
+    from repro.configs import get_arch as jax_get_arch
+    from repro.models import init_params as jax_init_params
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import lm_params_from_numpy
+    monkeypatch.setattr(sys, "argv", ["train_lm.py"])
+    _script("train_lm").main()
+    want = capsys.readouterr().out.splitlines()
+    jcfg = dataclasses.replace(jax_get_arch("gemma3-4b").reduced(),
+                               vocab_size=2048, dtype="float32")
+    params = lm_params_from_numpy(
+        jax.tree.map(np.asarray, jax_init_params(jax.random.key(0), jcfg)),
+        dataclasses.replace(get_arch("gemma3-4b").reduced(),
+                            vocab_size=2048, dtype="float32"), device="cpu")
+    out = _script("pt_train_lm").main(["--device", "cpu"], params=params)
+    got = capsys.readouterr().out.splitlines()
+    assert got[0] == want[0]                      # name, params, layers
+
+    def losses(lines):
+        return [float(ln.split()[3]) for ln in lines
+                if ln.startswith("step ")]
+    assert len(losses(got)) == len(losses(want)) == 12
+    np.testing.assert_allclose(losses(got), losses(want), rtol=1e-5,
+                               atol=1e-4)         # printed to 4 decimals
+    np.testing.assert_allclose(out["losses"][0], losses(want)[0], rtol=1e-5)
+    assert got[-1].endswith("(DECREASED)") and want[-1].endswith(
+        "(DECREASED)")
+    first, last = got[-1].split()[1], got[-1].split()[3]
+    assert (first, last) == (want[-1].split()[1], want[-1].split()[3])
