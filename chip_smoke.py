@@ -95,6 +95,23 @@ Phases (any failed check raises, so the script exits non-zero):
    largest |g| on the CPU; one train step of each of the ten reduced
    archs, the loss within 1e-5, the gradients within 1e-3 of each leaf's
    largest |g| and the parameters by the CPU lockstep's Adam rule.
+1e. The LM mesh (phase lm_mesh, ROADMAP A8c): first B8 at the capacity
+   buffers the mesh gives it (E_loc=16, C=40 and E_loc=32, C=20) against
+   its plain version and f64, timed; then one spawn of 4 gloo ranks
+   sharing the card, each building the LM meshes (2,2) and (1,4), on
+   qwen2-moe-a2.7b at full width (B=2, T=256): (a) the expert-parallel
+   MoE layer in allreduce, alltoall and alltoall_rep at the no-drop
+   capacity factor (16) against the one-device layer, by B8's rule
+   against the layer's sum of |terms|, allreduce's aux data shard 0's;
+   (b) at the default 1.25 on the card against the same call on CPU
+   copies over the same gloo groups (B8's plain version), by the same
+   rule, aux within 1e-5: B8 twice a card call on each rank's capacity
+   buffer and never on the CPU copies; (c) the model cut to 2 layers in
+   f32 in allreduce mode, each rank's prefill logits within 1e-4 of the
+   largest |logit| of the parent's (1, 1) prefill of the same rows, B8 4
+   launches a prefill; (d) printed: ms of a layer call and a prefill
+   (ranks share one card: not a scaling figure), each rank's peak GB,
+   bytes held beside JAX's plan, and collectives by kind and bytes.
 2. Served requests: GraphSolverService at K=32, L=2, multi-node
    selection, max_batch=8, warmed up, answers 16 ER(0.15) graphs of
    500..4000 nodes, on the dense, the sparse (sparse_max_degree=768) and
@@ -153,7 +170,7 @@ Phases (any failed check raises, so the script exits non-zero):
    and the host loop fed the fused step's replay indices against the
    fused step (stored, epsilon 0: losses and parameters within rtol 1e-5
    / atol 1e-6); (d) open-loop load (``serving.loadgen``) on the dense
-   service: 8 graphs of the served sizes, a deadline of twice phase 2's
+   service: 4 graphs of the served sizes, a deadline of twice phase 2's
    dense p99, at half and twice its requests/s, sync and async, each on
    a fresh warmed service: every request accounted for, no first
    dispatch on the request path, the layer once an evaluation, every
@@ -162,10 +179,11 @@ Phases (any failed check raises, so the script exits non-zero):
    --rate 50 --requests 24 --warmup`` in its own process prints its
    report line.
 3c. MaxCut, MIS and MDS on one device (phase problems), on each rep:
-   (a) a warmed service at phase 2's settings serves two graphs of each
-   served size (a full 4000-node bucket among them): every answer passes
-   a numpy checker of this script's own (MaxCut's: every positive-degree
-   node assigned), the rep's layer kernel once per evaluation, the three
+   (a) a warmed service at phase 2's settings serves one graph of each
+   served size (a 4000-node one, in the 4096 bucket, among them): every
+   answer passes a numpy checker of this script's own (MaxCut's: every
+   positive-degree node assigned), the rep's layer kernel once per
+   evaluation, the three
    reps' answers equal bit for bit, one evaluation's selection, prune and
    commit at the full bucket under ``set_sync_debug_mode("error")``,
    phase 3 for the problem (first-evaluation scores within 1e-5 of the
@@ -220,8 +238,8 @@ Phases (any failed check raises, so the script exits non-zero):
    device's on the same draws (the loss by the sum-of-|terms| rule at
    1e-5, the gradients by phase 1's long-sum rule relative to the rows'
    |terms|; ``check_mesh_train_full``), the layer kernel (B2, B3, B5) 9 and the aggregate (B4, B5's)
-   8 launches a warm step on every rank, per rank the seconds of 2 timed
-   warm steps, the peak device bytes and the collectives a step by kind
+   8 launches a warm step on every rank, per rank the seconds of a timed
+   warm step, the peak device bytes and the collectives a step by kind
    and bytes.  MaxCut, MIS and MDS in the same spawns: solves of that
    batch at every shape, dense and sparse (CSR at (2,1)), held like
    MVC's with the problem's numpy checker and evaluation counts; at
@@ -289,14 +307,16 @@ solves of every problem, those of B1 and B3–B5 the problems phase's
 served and full-width runs and the host engines' solves, host training
 runs and open-loop load, those of B5 and its aggregate the sampled
 training's steps, episode, host episode and resident solve, on one
-device and on the (2, 1) mesh), and last
+device and on the (2, 1) mesh, and those of B8 the LM mesh's layer
+calls and prefills on every rank), and last
 ``{"ok": true, "device": {...}}``.  It exits non-zero without a CUDA
 device, and outside a checkout.  With ``--only <kernel>,...`` (names of
 the kernels line) it runs only the build, phase 1's checks of those
 kernels with their gates and their times (for the sparse and CSR layers
 and the CSR aggregate both routes, the aggregate also at the sampled
 minibatch, and the route sweep behind the rule's constant; for an LM
-kernel also phase 1c on its model), the loop for work on them: it
+kernel also phases 1c and 1d on its model, and for grouped_glu_ffn phase
+1e), the loop for work on them: it
 prints no kernels line and no result line.
 """
 from __future__ import annotations
@@ -423,24 +443,23 @@ SMALL_TRAIN = (14, 4, 2, 8, 2, 8)
 # cell (TRAIN_CFG, TRAIN_TAU, TRAIN_DATA), fresh on each rep and stored
 # on dense, 11 steps (index 7 the first warm one, 9-10 timed), and on the
 # sampled dataset one 9-step episode; open-loop load on the dense service:
-# 8 requests of the served sizes at half and twice phase 2's dense
+# 4 requests of the served sizes at half and twice phase 2's dense
 # requests/s, a deadline of twice its p99, both drive modes; the
 # launcher's --rate
 HOST_STEPS, HOST_TIMED_FROM = 11, 9
 HOST_EPS = 0.5                   # the small card-vs-CPU host run's epsilon
-OPEN_LOOP_REQUESTS, OPEN_LOOP_RATES = 8, (0.5, 2.0)
+OPEN_LOOP_REQUESTS, OPEN_LOOP_RATES = 4, (0.5, 2.0)
 LAUNCHER_RATE = ("--mode", "async", "--rate", "50", "--requests", "24",
                  "--warmup")
-# The problems phase (3c): MaxCut, MIS and MDS.  Served: two graphs of each
-# served size, the first of the stream (a full 4000-node bucket among
-# them).  Small lockstep: tests/test_problem_suite.py's train smoke (n=14,
+# The problems phase (3c): MaxCut, MIS and MDS.  Served: one graph of each
+# served size, the first of the stream (a 4000-node one among them).  Small lockstep: tests/test_problem_suite.py's train smoke (n=14,
 # 4 dataset graphs, all 4 a step, minibatch 8, tau 2, 6 steps, stored,
 # epsilon 0).  Full width: phase 3b's training cell (TRAIN_CFG, TRAIN_TAU,
 # TRAIN_DATA), fresh targets; 7 steps warm the replay, index 7 is the first
 # warm step, index 8 (TRAIN_SYNC_STEP) runs under the sync debug mode and
 # the rest are timed.
 PROBLEMS = ("maxcut", "mis", "mds")
-PROBLEM_GRAPHS = 2               # served graphs of each size
+PROBLEM_GRAPHS = 1               # served graphs of each size
 PROBLEM_SMALL = (14, 4, 4, 8, 2, 6)
 PROBLEM_SMALL_IDS = (0, 1, 2, 3)
 PROBLEM_STEPS, PROBLEM_TIMED_FROM = 10, 9
@@ -466,7 +485,7 @@ MESH_SMALL_RUN = (4, 2, 6)       # episode graphs, tau, steps
 MESH_TRAIN_FULL = (("mvc", "dense", (2, 2)), ("mvc", "sparse", (2, 2)),
                    ("mvc", "csr", (2, 1)), ("mis", "dense", (2, 2)),
                    ("mds", "sparse", (2, 2)), ("maxcut", "csr", (2, 1)))
-MESH_FULL_WARM, MESH_FULL_TIMED = 7, 2
+MESH_FULL_WARM, MESH_FULL_TIMED = 7, 1
 # MaxCut, MIS and MDS on the mesh: solves of MESH_CHECK's batch at
 # every shape of MESH_SHAPES (dense and sparse, CSR at sp = 1); the (2, 2)
 # sync service for MESH_SERVICE_PROBLEMS beside MVC; the small lockstep of
@@ -485,7 +504,7 @@ MESH_PROBLEM_SMALL = (("dense", (2, 2)), ("sparse", (2, 2)), ("csr", (2, 1)))
 # cell (the replay warm from index 7: 8 x 8 = 64 tuples; the warm steps
 # after the first timed); the launcher's --rate on a (2, 1) mesh under
 # torchrun.
-MESH_OPEN_LOOP_REQUESTS, MESH_OPEN_LOOP_FACTOR = 4, 2.0
+MESH_OPEN_LOOP_REQUESTS, MESH_OPEN_LOOP_FACTOR = 2, 2.0
 MESH_HOST_SMALL = (("dense", (2, 2)), ("csr", (2, 1)))
 MESH_HOST_FULL = ("mvc", "dense", (2, 2))
 MESH_HOST_STEPS, MESH_HOST_WARM_FROM = 9, 7
@@ -2137,6 +2156,422 @@ def phase_lm_train(torch, dev, failures, names=LM_KERNELS):
     lm_train_card_vs_cpu(torch, dev, failures, names)
     lm_train_reduced(torch, dev, failures)
     return launches, summaries
+
+
+# ---------------------------------------------------------------------------
+# Phase 1e: the LM mesh (ROADMAP A8c).
+# ---------------------------------------------------------------------------
+
+# qwen2-moe-a2.7b at full width (d=2048, 60 experts padded to 64, top-4,
+# d_ff_expert=1408, 4 shared experts) on gloo ranks that share cuda:0: one
+# spawn of 4 ranks, which builds the meshes (2, 2) and (1, 4).  The layer
+# takes B=2, T=256, f32 activations and bf16 weights from the seed held in
+# f32; the model is cut to 2 layers, in f32.  A layer at capacity factor
+# E_p/k (16) drops no token; at the default 1.25 the capacity is the
+# mesh's (allreduce: 40 at (1, 4), 20 at (2, 2); alltoall: 10 before the
+# exchange, m x 10 after it).
+LM_MESH_ARCH = "qwen2-moe-a2.7b"
+LM_MESH_SHAPES = ((2, 2), (1, 4))
+LM_MESH_MODES = ("allreduce", "alltoall", "alltoall_rep")
+LM_MESH_BT = (2, 256)            # batch, tokens
+LM_MESH_LAYERS = 2
+LM_MESH_CF = 1.25                # moe_sharded_apply's default
+LM_MESH_TIMED = 2                # timed layer calls and prefills a shape
+# the prefill logits on the mesh against one device's, relative to the
+# largest |logit|: the CPU tests' 1e-4 logits bar (both sides run B8 on
+# the same token rows; only the order of the sums over the experts and the
+# ranks differs)
+LM_MESH_LOGIT_TOL = 1e-4
+LM_MESH_TIMEOUT_S = 300.0
+LM_MESH_CPU_THREADS = 2          # a rank's threads for its CPU copies' call
+
+
+def lm_mesh_cfgs():
+    """(the layer's config, the model's: cut to LM_MESH_LAYERS, f32)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    cfg = get_arch(LM_MESH_ARCH)
+    return cfg, dataclasses.replace(cfg, n_layers=LM_MESH_LAYERS,
+                                    dtype="float32")
+
+
+def moe_terms(torch, p, x, cfg, chunk=16):
+    """The sum of |terms| behind each output of the no-drop MoE layer, in
+    f64: sum over experts of |gate| x ``glu_exact``'s terms of the expert
+    at the token, plus the shared expert's.  It bounds the terms of every
+    capacity path too (a dropped token has fewer)."""
+    from repro_torch.models.ffn import _route
+    b, t, d = x.shape
+    xf = x.reshape(-1, d)
+    ids, w, _ = _route(p["router"], xf, cfg.experts_per_token)
+    gates = torch.zeros((b * t, cfg.n_experts), dtype=torch.float64,
+                        device=x.device).scatter_add_(1, ids, w.double())
+    total = torch.zeros((b * t, d), dtype=torch.float64, device=x.device)
+    for e0 in range(0, cfg.n_experts, chunk):
+        e1 = min(cfg.n_experts, e0 + chunk)
+        _, s = glu_exact(torch, xf[None].expand(e1 - e0, -1, -1),
+                         p["ewg"][e0:e1], p["ewu"][e0:e1], p["ewo"][e0:e1])
+        total += torch.einsum("te,etd->td", gates[:, e0:e1], s)
+        del s
+    sh = p["shared"]
+    _, s = glu_exact(torch, xf[None], sh["wg"][None], sh["wu"][None],
+                     sh["wo"][None])
+    return (total + s[0]).reshape(b, t, d)
+
+
+def mesh_rows(lm, b):
+    """This rank's rows of a batch of ``b`` over the data axis, the whole
+    batch where it does not split."""
+    index, count = lm.block(("data",))
+    if b % count:
+        return 0, b
+    return index * (b // count), (index + 1) * (b // count)
+
+
+def wall_ms(torch, fn, reps):
+    """(result of the last call, median ms of ``reps`` calls), each timed on
+    the host clock to a synchronize: ranks share the card and meet in
+    collectives, so device events would not time a rank's call."""
+    times, out = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return out, float(np.median(times))
+
+
+def lm_mesh_layer(torch, lm, dev, cfg, whole, x, dense_y, scale, tol):
+    """(a) and (b) of ``phase_lm_mesh`` on one mesh: every mode at the
+    no-drop factor against the one-device layer, then at the default
+    factor on the card against the same call on CPU copies over the same
+    groups; the card calls' B8 launches (2 a call, none on the CPU), a
+    call's collectives and ms.  Returns ({mode: row}, launches)."""
+    from repro_torch.core.mesh import reset_traffic
+    from repro_torch.models import Sharder
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.ffn import _route, moe_sharded_apply, \
+        padded_experts
+    from repro_torch.models.shard import tree_bytes
+    from repro_torch.sharding import param_specs
+    ep = padded_experts(cfg.n_experts)
+    no_drop = ep / cfg.experts_per_token
+    p = Sharder(lm, {}).place_params(whole, param_specs(whole, lm))
+    p_cpu = tree_map(lambda a: a.cpu(), p)
+    lo, hi = mesh_rows(lm, x.shape[0])
+    xr, s = x[lo:hi].contiguous(), scale[lo:hi]
+    # data shard 0's aux, what JAX's layer returns on every rank
+    dp = lm.shape["data"]
+    x0 = x[:x.shape[0] // dp] if x.shape[0] % dp == 0 else x
+    aux0 = float(_route(whole["router"], x0.reshape(-1, x.shape[2]),
+                        cfg.experts_per_token)[2])
+    rows, launches = {}, 0
+
+    def ratio(got, want):
+        return float(((got.double() - want.double()).abs()
+                      / (tol + tol * s)).max())
+
+    def call(pp, xx, cf, mode):
+        return moe_sharded_apply(pp, xx, cfg=cfg, mesh=lm, mode=mode,
+                                 capacity_factor=cf, data_axes=("data",))
+    for mode in LM_MESH_MODES:
+        row = {"experts_held": int(p["ewg"].shape[0]),
+               "expert_bytes": tree_bytes({k: p[k] for k in
+                                           ("ewg", "ewu", "ewo")})}
+        torch.cuda.synchronize()
+        reset_counts()
+        y, aux = call(p, xr, no_drop, mode)
+        row["launches_no_drop"] = read_counts()["grouped_glu_ffn"]
+        row["ratio_vs_dense"] = ratio(y, dense_y[lo:hi])
+        if mode == "allreduce":
+            row["aux_rel_vs_shard0"] = abs(float(aux) - aux0) / abs(aux0)
+        reset_traffic(lm)
+        reset_counts()
+        y, aux = call(p, xr, LM_MESH_CF, mode)
+        row["traffic"] = reset_traffic(lm)
+        row["launches"] = read_counts()["grouped_glu_ffn"]
+        _, row["ms"] = wall_ms(torch, lambda: call(p, xr, LM_MESH_CF, mode),
+                               LM_MESH_TIMED)
+        launches += row["launches_no_drop"] + read_counts()[
+            "grouped_glu_ffn"]
+        reset_counts()
+        threads = torch.get_num_threads()
+        torch.set_num_threads(LM_MESH_CPU_THREADS)
+        t0 = time.perf_counter()
+        y_cpu, aux_cpu = call(p_cpu, xr.cpu(), LM_MESH_CF, mode)
+        row["cpu_ms"] = 1e3 * (time.perf_counter() - t0)
+        torch.set_num_threads(threads)
+        row["launches_on_cpu"] = read_counts()["grouped_glu_ffn"]
+        row["ratio_vs_cpu"] = ratio(y, y_cpu.to(dev))
+        row["max_abs_err_vs_cpu"] = float((y.cpu() - y_cpu).abs().max())
+        row["aux"], row["aux_cpu"] = float(aux), float(aux_cpu)
+        rows[mode] = row
+    return rows, launches
+
+
+def lm_mesh_model(torch, lm, cfg2, params, tokens):
+    """(c) of ``phase_lm_mesh`` on one mesh: the 2-layer model's prefill of
+    this rank's rows in allreduce mode (counted, then LM_MESH_TIMED timed),
+    its logits, collectives and B8 launches, and the bytes the rank holds
+    beside JAX's plan."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.mesh import reset_traffic
+    from repro_torch.data import batch_spec
+    from repro_torch.models import ModelCtx, Sharder, make_prefill, \
+        param_shapes
+    from repro_torch.models.shard import plan_bytes, tree_bytes
+    from repro_torch.sharding import (activation_rules, batch_specs,
+                                      param_specs)
+    b, t = tokens.shape
+    shp = ShapeConfig("prefill", t, b, "prefill")
+    sh = Sharder(lm, activation_rules(lm, shp))
+    specs = param_specs(param_shapes(cfg2), lm)
+    placed = sh.place_params(params, specs)
+    prefill = make_prefill(cfg2, ModelCtx(mesh=lm, moe_mode="allreduce",
+                                          sharder=sh, remat=False))
+    batch = sh.place_batch({"tokens": tokens}, batch_specs(
+        batch_spec(cfg2, t, b, "prefill"), lm, shp))
+    torch.cuda.synchronize()
+    reset_traffic(lm)
+    reset_counts()
+    logits, _ = prefill(placed, batch)
+    torch.cuda.synchronize()
+    row = {"rows": mesh_rows(lm, b), "traffic": reset_traffic(lm),
+           "launches": read_counts()["grouped_glu_ffn"],
+           "logits": logits.cpu().numpy(),
+           "bytes": tree_bytes(placed),
+           "plan_bytes": plan_bytes(param_shapes(cfg2), specs, lm)}
+    reset_counts()
+    _, row["ms"] = wall_ms(torch, lambda: prefill(placed, batch),
+                           LM_MESH_TIMED)
+    row["launches_timed"] = read_counts()["grouped_glu_ffn"]
+    return row
+
+
+def lm_mesh_rank(mesh, dev, cfg, cfg2, tokens):
+    """One rank of the lm_mesh spawn (4 ranks): the meshes of
+    LM_MESH_SHAPES, the layer's checks on each (``lm_mesh_layer``), then
+    the model's (``lm_mesh_model``).  Weights and inputs are made on the
+    rank's card from the seed, as the parent makes its own."""
+    import torch
+    from repro_torch.core.mesh import make_named_mesh
+    from repro_torch.models import init_params
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.ffn import init_moe, moe_dense_apply
+    lms = {shape: make_named_mesh(shape, ("data", "model"))
+           for shape in LM_MESH_SHAPES}
+    b, t = tokens.shape
+    out = {"rank": mesh.rank, "layer": {}, "model": {}, "launches": 0}
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        gen = torch.Generator(device=dev).manual_seed(SEED + 90)
+        whole = tree_map(lambda a: a.float(),
+                         init_moe(gen, cfg, torch.bfloat16, dev))
+        x = torch.randn((b, t, cfg.d_model), generator=gen, device=dev)
+        dense_y, _ = moe_dense_apply(whole, x, cfg=cfg)
+        scale = moe_terms(torch, whole, x, cfg)
+        for shape, lm in lms.items():
+            out["layer"][shape], n = lm_mesh_layer(
+                torch, lm, dev, cfg, whole, x, dense_y, scale,
+                lm_tol("grouped_glu_ffn"))
+            out["launches"] += n
+        del whole, x, dense_y, scale
+        torch.cuda.empty_cache()
+        params = init_params(cfg2, seed=SEED + 91, device=dev)
+        for shape, lm in lms.items():
+            row = lm_mesh_model(torch, lm, cfg2, params,
+                                torch.from_numpy(tokens).to(dev))
+            out["launches"] += row["launches"] + row["launches_timed"]
+            out["model"][shape] = row
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def lm_mesh_refs(torch, dev, cfg2, tokens):
+    """The 2-layer model's prefill logits on one device, in the parent: a
+    (1, 1) mesh in allreduce mode (capacity by the tokens it is given) on
+    each data block of each shape's data axis, timed on the whole batch.
+    Returns ({(dp, index): logits on the CPU}, ms)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import ModelCtx, Sharder, init_params, \
+        make_prefill
+    from repro_torch.sharding import activation_rules
+    lm = make_host_mesh(1)
+    b, t = tokens.shape
+    params = init_params(cfg2, seed=SEED + 91, device=dev)
+    refs, ms = {}, None
+    with torch.no_grad():
+        for dp in sorted({shape[0] for shape in LM_MESH_SHAPES}):
+            n = b // dp
+            for i in range(dp):
+                shp = ShapeConfig("prefill", t, n, "prefill")
+                prefill = make_prefill(cfg2, ModelCtx(
+                    mesh=lm, moe_mode="allreduce", remat=False,
+                    sharder=Sharder(lm, activation_rules(lm, shp))))
+                batch = {"tokens": torch.from_numpy(
+                    tokens[i * n:(i + 1) * n]).to(dev)}
+                logits, ms_dp = wall_ms(torch, lambda: prefill(params,
+                                                               batch)[0],
+                                        1 + (LM_MESH_TIMED if dp == 1
+                                             else 0))
+                refs[dp, i] = logits.cpu()
+                if dp == 1:
+                    ms = ms_dp
+    del params
+    torch.cuda.empty_cache()
+    return refs, ms
+
+
+def lm_mesh_capacity(cfg, shape, mode, cf=LM_MESH_CF):
+    """B8's (E_loc, C) on a rank of ``shape`` in ``mode``: allreduce's
+    capacity of the rank's B/dp·T tokens; alltoall's m buffers of the
+    capacity of its T/m of each sequence, after the exchange."""
+    from repro_torch.models.ffn import padded_experts
+    b, t = LM_MESH_BT
+    dp, m = shape
+    ep, k = padded_experts(cfg.n_experts), cfg.experts_per_token
+
+    def cap(tokens):
+        return min(max(int(tokens * k / ep * cf), 1), tokens)
+    tokens = b // dp * t
+    return ep // m, (cap(tokens) if mode == "allreduce"
+                     else m * cap(tokens // m))
+
+
+def lm_mesh_kernel(torch, dev, rows, failures, cfg):
+    """B8 at the capacity buffers the mesh gives it (``lm_mesh_capacity``,
+    qwen2-moe's d and f), against its plain version and f64 by
+    ``lm_tol``'s rule, timed beside its bound, its plain version and a
+    library call, in the parent before the ranks start."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.moe_gemm import grouped_glu_ffn_plain
+    d, f = cfg.d_model, cfg.d_ff_expert
+    shapes = sorted({lm_mesh_capacity(cfg, shape, mode)
+                     for shape in LM_MESH_SHAPES for mode in LM_MESH_MODES})
+    out = {}
+    for e, c in shapes:
+        x, wg, wu, wo = glu_inputs(torch, dev, e, c, d, f, SEED + 93)
+        exact, scale = glu_exact(torch, x, wg, wu, wo)
+        shape = {"E": e, "C": c, "d": d, "f": f}
+        compare(torch, rows, failures, "grouped_glu_ffn", f"lm_mesh_E{e}",
+                "f32", ops.grouped_glu_ffn(x, wg, wu, wo),
+                grouped_glu_ffn_plain(x, wg, wu, wo), exact, None, shape,
+                scale, tol=lm_tol("grouped_glu_ffn"), gate_f64=True)
+        del exact, scale
+        row = dict(shape)
+        row["bound_ms"], row["bound_by"] = glu_bound(e, c, d, f)
+        row["ms"] = cuda_ms(torch, lambda: ops.grouped_glu_ffn(x, wg, wu,
+                                                               wo))
+        row["plain_ms"] = cuda_ms(torch, lambda: grouped_glu_ffn_plain(
+            x, wg, wu, wo))
+        row["library_ms"] = cuda_ms(torch, lambda: torch.bmm(
+            torch.nn.functional.silu(torch.bmm(x, wg)) * torch.bmm(x, wu),
+            wo))
+        emit({"phase": "lm_mesh_timing", "kernel": "grouped_glu_ffn",
+              **row})
+        out[e, c] = row
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_mesh(torch, dev, rows, failures):
+    """Phase 1e: the LM mesh (ROADMAP A8c) on gloo ranks sharing the card
+    (``lm_mesh_rank``): (a) the MoE layer in each mode at each shape at
+    the no-drop factor against the one-device layer (``moe_dense_apply``),
+    B8's rule (``lm_tol``) against the layer's sum of |terms|, allreduce's
+    aux against data shard 0's; (b) the same at the default factor on the
+    card against the call on CPU copies (B8's plain version) over the same
+    gloo groups, by the same rule, aux within 1e-5; (c) the 2-layer model's
+    prefill at each shape against the parent's (1, 1) prefill of the same
+    rows, within LM_MESH_LOGIT_TOL of the largest |logit|; (d) printed: ms
+    of the layer and the prefill (ranks share one card: not a scaling
+    figure), each rank's peak GB and bytes beside JAX's plan, the
+    collectives, B8's launches (2 a card call, 4 a prefill, none on CPU
+    copies).  Before the ranks start, B8 itself at the capacity buffers
+    they give it (``lm_mesh_kernel``).  Returns B8's launches on the
+    mesh, summed over ranks."""
+    from repro_torch.core import spawn_mesh
+    cfg, cfg2 = lm_mesh_cfgs()
+    b, t = LM_MESH_BT
+    tokens = lm_prompt(cfg, b, t, SEED + 92)
+    lm_mesh_kernel(torch, dev, rows, failures, cfg)
+    t0 = time.perf_counter()
+    refs, ref_ms = lm_mesh_refs(torch, dev, cfg2, tokens)
+    ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = spawn_mesh(lm_mesh_rank, 1, 4, device=DEVICE, backend="gloo",
+                       timeout_s=LM_MESH_TIMEOUT_S,
+                       args=(cfg, cfg2, tokens))
+    spawn_s = time.perf_counter() - t0
+    note = "ranks share one card; not a scaling figure"
+    for shape in LM_MESH_SHAPES:
+        for mode in LM_MESH_MODES:
+            per = [rk["layer"][shape][mode] for rk in ranks]
+            for i, r in enumerate(per):
+                bad = [k for k in ("ratio_vs_dense", "ratio_vs_cpu")
+                       if not r[k] <= 1]
+                if r.get("aux_rel_vs_shard0", 0.0) > 1e-6:
+                    bad.append("aux_rel_vs_shard0")
+                if abs(r["aux"] - r["aux_cpu"]) > 1e-5 * abs(r["aux_cpu"]):
+                    bad.append("aux vs cpu")
+                if (r["launches_no_drop"], r["launches"],
+                        r["launches_on_cpu"]) != (2, 2, 0):
+                    bad.append("launches")
+                if bad:
+                    failures.append(f"lm_mesh {shape} {mode} rank {i}: "
+                                    f"{bad}: {r}")
+            emit({"phase": "lm_mesh", "shape": list(shape), "mode": mode,
+                  "B": b, "T": t, "capacity_factor": LM_MESH_CF,
+                  "ms_per_rank": [r["ms"] for r in per],
+                  "worst_ratio_vs_dense": max(r["ratio_vs_dense"]
+                                              for r in per),
+                  "worst_ratio_vs_cpu": max(r["ratio_vs_cpu"] for r in per),
+                  "max_abs_err_vs_cpu": max(r["max_abs_err_vs_cpu"]
+                                            for r in per),
+                  "cpu_ms_per_rank": [r["cpu_ms"] for r in per],
+                  "aux_per_rank": [r["aux"] for r in per],
+                  "aux_rel_vs_shard0": per[0].get("aux_rel_vs_shard0"),
+                  "experts_held": per[0]["experts_held"],
+                  "expert_bytes_per_rank": per[0]["expert_bytes"],
+                  "launches_per_rank": [r["launches"] for r in per],
+                  "traffic_rank0": per[0]["traffic"], "note": note})
+        errs = []
+        for rk in ranks:
+            row = rk["model"][shape]
+            lo, hi = row["rows"]
+            dp = shape[0]
+            want = refs[dp, lo // (b // dp)] if dp > 1 else refs[1, 0]
+            got = torch.from_numpy(row["logits"])
+            err = float((got - want).abs().max())
+            errs.append(err / float(want.abs().max()))
+            if not errs[-1] <= LM_MESH_LOGIT_TOL or row["launches"] != \
+                    2 * LM_MESH_LAYERS:
+                failures.append(f"lm_mesh model {shape} rank {rk['rank']}: "
+                                f"logits {err} from one device's "
+                                f"(max |logit| {float(want.abs().max())}), "
+                                f"B8 launches {row['launches']}")
+        emit({"phase": "lm_mesh_model", "shape": list(shape),
+              "mode": "allreduce", "layers": LM_MESH_LAYERS, "B": b, "T": t,
+              "logit_err_rel_max_per_rank": errs,
+              "tol": LM_MESH_LOGIT_TOL,
+              "prefill_ms_per_rank": [rk["model"][shape]["ms"]
+                                      for rk in ranks],
+              "one_device_prefill_ms": ref_ms,
+              "param_bytes_per_rank": [rk["model"][shape]["bytes"]
+                                       for rk in ranks],
+              "jax_plan_bytes_per_device": ranks[0]["model"][shape][
+                  "plan_bytes"],
+              "launches_per_rank": [rk["model"][shape]["launches"]
+                                    for rk in ranks],
+              "traffic_rank0": ranks[0]["model"][shape]["traffic"],
+              "note": note})
+    emit({"phase": "lm_mesh_ranks", "peak_gb_per_rank": [
+        rk["peak_gb"] for rk in ranks], "launches_per_rank": [
+        rk["launches"] for rk in ranks], "refs_s": ref_s,
+        "spawn_s": spawn_s})
+    return sum(rk["launches"] for rk in ranks)
 
 
 # ---------------------------------------------------------------------------
@@ -6734,6 +7169,9 @@ def run_only(torch, ks, dev, names) -> None:
                 phase_lm_serve(torch, dev, rows, failures, lm)
             with timed_phase("lm_train"):
                 phase_lm_train(torch, dev, failures, lm)
+            if "grouped_glu_ffn" in lm:
+                with timed_phase("lm_mesh"):
+                    phase_lm_mesh(torch, dev, rows, failures)
             inputs = lm_inputs(torch, dev, lm)
         if ba_pool is not None:
             indptr, indices, _ = ba_future.result()
@@ -6827,6 +7265,12 @@ def main(argv=None) -> int:
                              + "\n".join(failures))
     for name, count in train_launches.items():
         lm_launches[name] += count          # the models' train steps
+    with timed_phase("lm_mesh"):
+        lm_launches["grouped_glu_ffn"] += phase_lm_mesh(torch, dev, rows,
+                                                        failures)
+    if failures:
+        raise AssertionError("the LM mesh failed a check:\n"
+                             + "\n".join(failures))
 
     cfg = PolicyConfig(embed_dim=32, num_layers=2)
     policy = init_policy(cfg, generator=torch.Generator().manual_seed(

@@ -51,6 +51,13 @@ collective of that dispatch, and the other ranks run the same dispatch.
 
 ``PolicyConfig.spatial`` keeps the JAX contract: an int P means ``(1,
 P)``, ``0``/``None`` mean ``(1, 1)`` (no mesh), ``(dp, sp)`` the 2-D mesh.
+
+The LM substrate names its axes as JAX's LM mesh does (``data``,
+``model``, and ``pod`` across pods): :func:`make_named_mesh` builds such
+a :class:`NamedMesh` over the same ranks and groups
+(``repro_torch.launch.mesh`` builds the production and host meshes), and
+the expert-parallel MoE exchanges its capacity buffers with
+:func:`all_to_all`.
 """
 from __future__ import annotations
 
@@ -232,6 +239,93 @@ def _build_mesh(dp: int, sp: int, world_group) -> Mesh:
                 traffic=traffic)
 
 
+@dataclasses.dataclass(frozen=True)
+class NamedMesh:
+    """A mesh of named axes over ``torch.distributed`` ranks, as the LM
+    substrate names them (``("data", "model")``, ``("pod", "data",
+    "model")``): the port's counterpart of a ``jax.sharding.Mesh``.  The
+    ranks lie row-major over the axes, as JAX reshapes its device list, so
+    the last axis varies fastest.  ``axis_names`` and ``shape`` (name →
+    size) are what the sharding rules read; ``axes`` holds this rank's
+    :class:`Axis` of each name, with its process group, and ``traffic``
+    counts the collectives called on them (``Mesh.traffic``'s form)."""
+    axis_names: Tuple[str, ...]
+    shape: dict
+    rank: int
+    axes: dict
+    traffic: dict = dataclasses.field(default_factory=dict, compare=False,
+                                      hash=False, repr=False)
+
+    @property
+    def size(self) -> int:
+        return int(np.prod([self.shape[a] for a in self.axis_names]))
+
+    def axis(self, name: str) -> Axis:
+        return self.axes[name]
+
+    def block(self, names: Sequence[str]) -> Tuple[int, int]:
+        """(index, count) of this rank's block of a dim split over the
+        axes ``names`` together, the first the major one (JAX's order for
+        a tuple entry of a ``PartitionSpec``)."""
+        index, count = 0, 1
+        for name in names:
+            ax = self.axes[name]
+            index, count = index * ax.size + ax.index, count * ax.size
+        return index, count
+
+
+def make_named_mesh(shape: Sequence[int], axis_names: Sequence[str]
+                    ) -> NamedMesh:
+    """The mesh of ``shape`` over the axes ``axis_names``: the ranks of the
+    default process group, whose world size must be the product of
+    ``shape``.  A mesh whose axes are all of size 1 needs no process group
+    and builds in a single process.  Every rank must call it, in the same
+    order (the axis groups are created collectively); a mesh is built once
+    per shape, names and process group."""
+    shape, axis_names = tuple(int(s) for s in shape), tuple(axis_names)
+    if len(shape) != len(axis_names) or len(set(axis_names)) != len(shape):
+        raise ValueError(f"mesh shape {shape} and axis names {axis_names} "
+                         f"must pair one distinct name with each size")
+    if min(shape) < 1:
+        raise ValueError(f"mesh sizes must be >= 1, got {shape}")
+    need = int(np.prod(shape))
+    if need == 1:
+        return _build_named_mesh(shape, axis_names, None)
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"the mesh {dict(zip(axis_names, shape))} needs "
+            f"torch.distributed initialized on each of its {need} ranks: "
+            f"start them with repro_torch.core.mesh.spawn_mesh or torchrun")
+    world = dist.get_world_size()
+    if world != need:
+        raise ValueError(f"mesh {dict(zip(axis_names, shape))} needs {need} "
+                         f"ranks, the process group has {world}")
+    return _build_named_mesh(shape, axis_names, dist.group.WORLD)
+
+
+@functools.lru_cache(maxsize=16)
+def _build_named_mesh(shape, axis_names, world_group) -> NamedMesh:
+    rank = 0 if world_group is None else dist.get_rank()
+    coords = np.unravel_index(rank, shape)
+    ranks = np.arange(int(np.prod(shape))).reshape(shape)
+    timeout = _world_timeout() if world_group is not None else None
+    traffic = {}
+    axes = {}
+    for i, name in enumerate(axis_names):
+        group = None
+        if shape[i] > 1:
+            # every line of ranks along axis i, in one order on every rank
+            lines = np.moveaxis(ranks, i, -1).reshape(-1, shape[i])
+            for line in lines:
+                grp = dist.new_group([int(r) for r in line], timeout=timeout)
+                if rank in line:
+                    group = grp
+        axes[name] = Axis(name, shape[i], int(coords[i]), group, traffic)
+    return NamedMesh(axis_names=axis_names, shape=dict(zip(axis_names,
+                                                           shape)),
+                     rank=rank, axes=axes, traffic=traffic)
+
+
 def destroy_meshes() -> None:
     """Forget every cached mesh, then destroy the process groups.  A
     cached mesh holds its axis groups, which ``dist.destroy_process_group``
@@ -240,6 +334,7 @@ def destroy_meshes() -> None:
     active exception", exit code -6).  So the meshes go first, and every
     group is freed while the interpreter is whole."""
     _build_mesh.cache_clear()
+    _build_named_mesh.cache_clear()
     gc.collect()
     if dist.is_initialized():
         dist.destroy_process_group()
@@ -315,6 +410,26 @@ def all_gather_tiled(t: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
     parts = [torch.empty_like(t) for _ in range(axis.size)]
     dist.all_gather(parts, t, group=axis.group)
     return torch.cat(parts, dim=dim)
+
+
+def all_to_all(t: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """The exchange of ``t``'s leading blocks over the ranks of ``axis``
+    (``lax.all_to_all(..., split_axis=0, concat_axis=0, tiled=False)``):
+    ``t`` is (size, ...), and block j of the result is block ``index`` of
+    rank j's ``t``.  No gradient passes it.  gloo takes CUDA operands too
+    (ranks that share a card), and moves them through the host itself."""
+    if axis.size == 1:
+        return t
+    if t.shape[0] != axis.size:
+        raise ValueError(f"all_to_all over the {axis.name} axis of size "
+                         f"{axis.size} needs a leading dim of that size, got "
+                         f"{tuple(t.shape)}")
+    _no_grad_operand(t, "all_to_all")
+    _record(axis.traffic, f"all_to_all {axis.name}", t)
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t, group=axis.group)
+    return out
 
 
 def all_reduce_world(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:

@@ -9,6 +9,13 @@ package's format.  Counterpart of ``repro/launch/train.py``, with
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-4b \
         --reduced --steps 10 --batch 2 --seq 128 --device cpu
 
+``--production-mesh`` builds JAX's (data, model) = (16, 16) mesh over
+the 256 ranks of a ``torchrun`` launch (``launch/mesh.py``, which raises
+without them) with JAX's activation rules; its train step then refuses,
+because LM training on the mesh is ROADMAP A8e.  Without the mesh
+``--moe-mode allreduce`` and ``alltoall`` run the dense MoE layer, as
+JAX's launcher does.
+
 The RWKV layers take the sequence in chunks of 16 tokens, where JAX's
 launcher takes 32: the same function, and the chunk formula stays finite
 over the model's whole decay range only at 16 (``kernels/wkv6.py``).
@@ -21,11 +28,14 @@ import time
 
 from ..checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from ..configs import ARCHS, get_arch
+from ..configs.base import ShapeConfig
 from ..data import token_stream
 from ..device import resolve_device
-from ..models import ModelCtx, init_params, make_train_step, param_count
-from ..models.ffn import MESH_ITEM
+from ..models import (ModelCtx, Sharder, init_params, make_train_step,
+                      param_count)
 from ..optim import adam_init
+from ..sharding import activation_rules
+from .mesh import make_production_mesh
 
 
 def parse_args(argv=None):
@@ -42,7 +52,7 @@ def parse_args(argv=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--production-mesh", action="store_true",
-                    help="the 16x16 mesh (not ported: the LM mesh)")
+                    help="build the 16x16 mesh (needs 256 ranks)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     return ap.parse_args(argv)
@@ -54,15 +64,21 @@ def main(argv=None, params=None) -> dict:
     held to another framework's on the same weights.  Returns {"cfg",
     "losses", "grad_norms", "params", "opt", "seconds"}."""
     args = parse_args(argv)
-    if args.production_mesh or args.moe_mode == "alltoall":
-        raise ValueError(f"the production mesh and --moe-mode alltoall "
-                         f"are {MESH_ITEM}, not ported yet")
     dev = resolve_device(args.device)
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = dataclasses.replace(cfg.reduced(), dtype="float32")
-    # without the production mesh "allreduce" is the dense layer, as in JAX
-    ctx = ModelCtx(remat=False, moe_mode="dense", wkv_chunk=16)
+    if args.production_mesh:
+        mesh = make_production_mesh()
+        shp = ShapeConfig("cli", args.seq, args.batch, "train")
+        ctx = ModelCtx(mesh=mesh, moe_mode=args.moe_mode, wkv_chunk=16,
+                       sharder=Sharder(mesh, activation_rules(mesh, shp)))
+    else:
+        # without the mesh "allreduce" is the dense layer, and moe_apply
+        # runs "alltoall" dense too, as in JAX
+        ctx = ModelCtx(remat=False, moe_mode=args.moe_mode
+                       if args.moe_mode != "allreduce" else "dense",
+                       wkv_chunk=16)
     if params is None:
         params = init_params(cfg, seed=0, device=dev)
     opt = adam_init(params)

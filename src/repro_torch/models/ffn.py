@@ -1,13 +1,27 @@
 """Feed-forward blocks: dense MLP/GLU, RWKV channel mix, and
 Mixture-of-Experts.  Counterpart of ``repro/models/ffn.py``.
 
-On one device the MoE layer computes every expert for every token and
-combines them by the router's sparse weights (JAX's ``moe_dense_apply``).
-Its all-experts product goes through kernel B8
-(``kernels/moe_gemm.py::grouped_glu_ffn``) on the (E, T·B, d) broadcast
-of the tokens: the hand-written kernels on CUDA tensors, the plain
-version on CPU tensors.  JAX's expert-parallel ``moe_sharded_apply``
-comes with the LM mesh (ROADMAP A8c).
+The MoE layer runs in one of three modes (JAX's):
+
+- ``dense``     — every expert computed for every token, combined by the
+                  router's sparse weights (``moe_dense_apply``): the
+                  one-device layer and the correctness oracle.
+- ``allreduce`` — the paper's spatial style: the tokens are replicated
+                  over the ``model`` axis, the experts split over it; each
+                  rank computes its experts' capacity buffers and a sum
+                  over ``model`` combines the partial token outputs.
+- ``alltoall``  — expert parallelism: the tokens are also split over
+                  ``model`` for dispatch, and two all-to-alls move only the
+                  routed tokens (``alltoall_rep``: the flat token list
+                  split, where ``alltoall`` splits each sequence).
+
+Every mode's expert GLU goes through kernel B8
+(``kernels/moe_gemm.py::grouped_glu_ffn``): on one device on the (E, T·B,
+d) broadcast of the tokens, on a mesh on each rank's (E_loc, C, d)
+capacity buffer; the hand-written kernels on CUDA tensors, the plain
+version on CPU tensors.  JAX runs the expert-parallel modes inside
+``shard_map``; the port writes them as rank code over the LM mesh's
+``model`` and data axes (``moe_sharded_apply``).
 
 The expert count is padded to a multiple of 16 so expert weights shard on
 any production mesh (the padded experts are unroutable).
@@ -17,12 +31,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..core.mesh import all_gather_tiled, all_reduce_sum, all_to_all
 from ..kernels.moe_gemm import grouped_glu_ffn
 from .common import F32, dense_init
 from .shard import NO_SHARD
 
 EXPERT_PAD = 16
-MESH_ITEM = "ROADMAP A8c, 'The LM mesh'"
+MESH_ITEM = "ROADMAP A8e, 'LM training on the mesh'"
 
 
 def padded_experts(n: int) -> int:
@@ -111,6 +126,10 @@ def moe_dense_apply(p, x, *, cfg, sharder=NO_SHARD):
     experts' GLU through B8."""
     b, t, d = x.shape
     e = cfg.n_experts
+    if p["ewg"].shape[0] < e:
+        raise ValueError(f"the dense MoE layer needs all {e} experts on "
+                         f"the rank, which holds {p['ewg'].shape[0]}: a "
+                         f"rank's expert block takes moe_sharded_apply")
     xf = x.reshape(b * t, d)
     ids, w, aux = _route(p["router"], xf, cfg.experts_per_token)
     gates = torch.zeros((b * t, e), dtype=x.dtype, device=x.device)
@@ -125,11 +144,157 @@ def moe_dense_apply(p, x, *, cfg, sharder=NO_SHARD):
     return y.reshape(b, t, d), aux
 
 
+
+
+def _gather_capacity(w_te, c: int):
+    """w_te (T, E_loc) combine weights (0 where unrouted).  Per expert, the
+    top-C tokens.  Returns (idx (E_loc, C) token ids, wsel (E_loc, C)).
+    Among tokens of weight 0 the pick may differ from ``lax.top_k``'s;
+    their rows are multiplied by 0."""
+    wsel, idx = torch.topk(w_te.T.float(), c, dim=-1)
+    return idx, wsel.to(w_te.dtype)
+
+
+def _combine_weights(ids, w, e_first: int, e_local: int):
+    """(T, E_loc) weights of experts [e_first, e_first + e_local) from the
+    router's (T, k) picks: at most one pick per expert, so the sum is
+    exact."""
+    experts = e_first + torch.arange(e_local, device=ids.device)
+    le = ids[:, :, None] - experts[None, None, :]
+    return torch.sum(torch.where(le == 0, w[:, :, None],
+                                 torch.zeros((), dtype=w.dtype,
+                                             device=w.device)), dim=1)
+
+
+def _scatter_rows(t: int, idx, yb):
+    """(t, d) sum of the buffer rows ``yb`` (E·C, d) into their tokens."""
+    out = torch.zeros((t, yb.shape[-1]), dtype=yb.dtype, device=yb.device)
+    return out.index_add_(0, idx.reshape(-1), yb.reshape(-1, yb.shape[-1]))
+
+
+def _moe_local(p, xf, cfg, e_first: int, e_local: int, capacity: int):
+    """The rank's experts [e_first, e_first + e_local) on the tokens it
+    sees, xf (T, d), through B8 on their (E_loc, C, d) capacity buffer.
+    Returns the partial output (T, d) and the aux loss."""
+    t, d = xf.shape
+    ids, w, aux = _route(p["router"], xf, cfg.experts_per_token)
+    idx, wsel = _gather_capacity(_combine_weights(ids, w, e_first, e_local),
+                                 capacity)
+    xb = xf[idx.reshape(-1)].reshape(e_local, capacity, d)
+    yb = grouped_glu_ffn(xb, p["ewg"], p["ewu"], p["ewo"]).to(xf.dtype)
+    return _scatter_rows(t, idx, yb * wsel[..., None]), aux
+
+
+def _capacity(tokens: int, cfg, ep: int, capacity_factor: float) -> int:
+    return min(max(int(tokens * cfg.experts_per_token / ep *
+                       capacity_factor), 1), tokens)
+
+
+def _pmean(v: torch.Tensor, axis) -> torch.Tensor:
+    """``lax.pmean`` of a scalar over ``axis``."""
+    return all_reduce_sum(v.reshape(1).clone(), axis)[0] / axis.size
+
+
+def _shard0(v: torch.Tensor, mesh, data_axes) -> torch.Tensor:
+    """Data shard 0's value of a scalar on every rank: JAX's ``aux`` leaves
+    ``shard_map`` with ``out_specs=P()`` unchecked, so the global value is
+    the first device's, whose data index is 0 on every data axis."""
+    for name in data_axes:
+        ax = mesh.axis(name)
+        if ax.size > 1:
+            v = all_reduce_sum((v * (ax.index == 0)).reshape(1), ax)[0]
+    return v
+
+
+def moe_sharded_apply(p, x, *, cfg, mesh, mode: str = "allreduce",
+                      capacity_factor: float = 1.25, sharder=NO_SHARD,
+                      data_axes=("data",), model_axis="model"):
+    """The expert-parallel MoE layer as one rank's code (JAX's
+    ``shard_map`` body, see the module docstring).
+
+    ``x`` (B_loc, T, d) is the rank's rows: the batch's block of its data
+    rank when the batch splits over the data axes, the whole batch on
+    every rank when it does not (a decode of one sequence), as JAX's
+    ``bspec``.  ``p`` holds the router and the shared expert whole and
+    the rank's block of the experts, (E_p/m, d, f) on a ``model`` axis of
+    size m (``Sharder.place_params``).  Returns the rank's (B_loc, T, d)
+    rows and the aux loss, which is JAX's value: the mean over ``model``
+    of data shard 0's, on every rank (at dp > 1 not the global batch's).
+
+    The capacity is JAX's: per expert ``int(tokens·k/E_p·factor)`` of the
+    tokens a rank routes (its B_loc·T in allreduce mode; in alltoall mode
+    its T/m of each sequence, or its 1/m of the flat tokens with
+    ``alltoall_rep`` or where T does not split), so a result depends on
+    the mesh's shape unless nothing drops.  No gradient: the collectives
+    are not differentiable yet (ROADMAP A8e)."""
+    if mode not in ("allreduce", "alltoall", "alltoall_rep"):
+        raise ValueError(f"unknown MoE mode {mode!r}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, p["router"], p["ewg"], p["ewu"],
+                                      p["ewo"])):
+        raise ValueError(f"a gradient through the expert-parallel MoE "
+                         f"layer is {MESH_ITEM}, not ported yet")
+    ep = padded_experts(cfg.n_experts)
+    model = mesh.axis(model_axis)
+    m, my = model.size, model.index
+    if ep % m:
+        raise ValueError(f"{ep} experts do not split over the {model_axis} "
+                         f"axis of size {m}")
+    e_local = ep // m
+    if p["ewg"].shape[0] != e_local:
+        raise ValueError(f"the rank holds {p['ewg'].shape[0]} experts, its "
+                         f"block of {ep} over {model_axis} is {e_local}: "
+                         f"place them with Sharder.place_params")
+    b_loc, t, d = x.shape
+    seq_sharded = mode == "alltoall" and t % m == 0 and t >= m
+    mode = "alltoall" if mode == "alltoall_rep" else mode
+    xf = x.reshape(-1, d)
+    if mode == "allreduce":
+        cap = _capacity(b_loc * t, cfg, ep, capacity_factor)
+        out, aux = _moe_local(p, xf, cfg, my * e_local, e_local, cap)
+        out = all_reduce_sum(out.contiguous(), model)
+    else:
+        if seq_sharded:
+            tcs = t // m
+            xc = x[:, my * tcs:(my + 1) * tcs].reshape(-1, d)
+        else:
+            if xf.shape[0] % m or xf.shape[0] < m:
+                raise ValueError(f"{xf.shape[0]} tokens do not split over "
+                                 f"the {model_axis} axis of size {m}")
+            tc0 = xf.shape[0] // m
+            xc = xf[my * tc0:(my + 1) * tc0]
+        tc = xc.shape[0]
+        ids, w, aux = _route(p["router"], xc, cfg.experts_per_token)
+        cap = _capacity(tc, cfg, ep, capacity_factor)
+        # a capacity buffer for every (global) expert from the local chunk
+        idx, wsel = _gather_capacity(_combine_weights(ids, w, 0, ep), cap)
+        xb = xc[idx.reshape(-1)].reshape(m, e_local, cap, d)
+        # rank j receives every peer's buffers of ITS experts
+        xb = all_to_all(xb, model)
+        xb = xb.transpose(0, 1).reshape(e_local, m * cap, d).contiguous()
+        yb = grouped_glu_ffn(xb, p["ewg"], p["ewu"], p["ewo"]).to(x.dtype)
+        yb = yb.reshape(e_local, m, cap, d).transpose(0, 1).contiguous()
+        yb = all_to_all(yb, model)                 # back to the source rank
+        outc = _scatter_rows(tc, idx, yb.reshape(ep, cap, d)
+                             * wsel[..., None])
+        if seq_sharded:
+            out = all_gather_tiled(outc.reshape(b_loc, t // m, d), model, 1)
+        else:
+            out = all_gather_tiled(outc, model, 0)
+    aux = _shard0(_pmean(aux, model), mesh, data_axes)
+    y = out.reshape(b_loc, t, d)
+    if "shared" in p:
+        y = y + mlp_apply(p["shared"], x, gated=True, sharder=sharder)
+    return sharder.act(y, "act_resid"), aux
+
+
 def moe_apply(p, x, *, cfg, mesh=None, mode: str = "dense",
               sharder=NO_SHARD):
-    """The MoE layer on one device (``mesh`` None): ``moe_dense_apply``.
-    The expert-parallel modes run on the LM mesh, not ported yet."""
-    if mesh is not None:
-        raise ValueError(f"moe_apply on a mesh (mode {mode!r}) is "
-                         f"{MESH_ITEM}, not ported yet; pass mesh=None")
-    return moe_dense_apply(p, x, cfg=cfg, sharder=sharder)
+    """JAX's dispatch: the dense layer with mode ``dense`` or no mesh,
+    else the expert-parallel layer with the mesh's non-``model`` axes as
+    its data axes."""
+    if mode == "dense" or mesh is None:
+        return moe_dense_apply(p, x, cfg=cfg, sharder=sharder)
+    data_axes = tuple(a for a in mesh.axis_names if a != "model")
+    return moe_sharded_apply(p, x, cfg=cfg, mesh=mesh, mode=mode,
+                             sharder=sharder, data_axes=data_axes)

@@ -19,6 +19,11 @@ Steps:
   prefill(params, batch)                -> (last_logits, caches)
   decode_step(params, caches, tok, pos) -> (logits, next_tok, caches)
 
+On the LM mesh (``ctx.mesh``) the prefill and the decode step run as
+rank code: each rank on its rows of the batch and its caches, the MoE
+layers' experts split over ``model`` (``models.shard``).  The loss, and
+so the train and eval steps, refuse a mesh (ROADMAP A8e).
+
 The train step updates the parameters and the Adam state in place (and
 returns them).  The vocabulary loss is taken in sequence chunks, each
 recomputed in the backward (``chunked_xent``), so no (B, T, V) logits
@@ -38,6 +43,7 @@ from .blocks import (ModelCtx, block_apply, build_program, init_block,
                      init_block_cache)
 from .common import (F32, dense_init, embed_init, rms_norm, tree_leaves,
                      tree_map)
+from .ffn import MESH_ITEM
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 LOSS_CHUNK = 512
@@ -109,13 +115,23 @@ def param_shapes(cfg) -> Dict[str, Any]:
                     _init_params(cfg, None, torch.device("meta")))
 
 
-def init_cache(cfg, batch: int, seq: int, *,
-               device: DeviceLike = "cuda") -> list:
-    dev = resolve_device(device)
+def _init_cache(cfg, batch: int, seq: int, dev: torch.device) -> list:
     dtype = _dtype_of(cfg)
     return [[_stack_reps(lambda r, sig=sig: init_block_cache(
         cfg, sig, batch, seq, dtype, dev), reps) for sig in unit]
         for reps, unit in build_program(cfg)]
+
+
+def init_cache(cfg, batch: int, seq: int, *,
+               device: DeviceLike = "cuda") -> list:
+    return _init_cache(cfg, batch, seq, resolve_device(device))
+
+
+def cache_shapes(cfg, batch: int, seq: int) -> list:
+    """The cache tree of ``init_cache`` as (shape, dtype) leaves, made on
+    the meta device (no memory)."""
+    return tree_map(lambda a: (tuple(a.shape), a.dtype),
+                    _init_cache(cfg, batch, seq, torch.device("meta")))
 
 
 def param_count(params) -> int:
@@ -298,6 +314,10 @@ def loss_fn(params, cfg, batch, ctx: ModelCtx):
     (``mtp``), plus ``router_aux_weight`` × the MoE layers' load-balance
     loss (``aux``).  metrics: ``xent``, ``aux`` and, with the MTP head,
     ``mtp``."""
+    if ctx.mesh is not None:
+        raise ValueError(f"the loss on a mesh is {MESH_ITEM}, not ported "
+                         f"yet: its gradients need differentiable MoE "
+                         f"collectives and reductions over the mesh")
     x, labels, mask = _embed_inputs(params, cfg, batch, ctx)
     x = ctx.sharder.act(x, "act_resid_in")
     x, _, aux = _apply_segments(params, cfg, x, ctx)

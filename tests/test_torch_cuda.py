@@ -4,7 +4,8 @@ sparse aggregation and the CSR aggregate at f32 and bf16, and the LM
 kernels wkv6, sliding-window attention and the grouped GLU FFN) against
 its plain version, the sparse and CSR layers' closed-form backwards
 against autograd, and the solve and service paths through them, on
-one device and on a two-rank mesh sharing the card.  Every test here
+one device and on a two-rank mesh sharing the card; the LM mesh's MoE
+layer on such a mesh.  Every test here
 needs a card and skips, saying so, without one.  The file imports
 neither jax nor the JAX package, so it also runs where only torch is
 installed:
@@ -31,7 +32,7 @@ from repro_torch.kernels.moe_gemm import grouped_glu_ffn_plain
 from repro_torch.kernels.swa import swa_attention_plain
 from repro_torch.kernels.wkv6 import wkv6_chunked_plain
 from repro_torch.serving import GraphSolverService
-from torch_mesh_ranks import solve_on_card
+from torch_mesh_ranks import LM_MODES, lm_moe_on_card, solve_on_card
 
 pytestmark = pytest.mark.cuda
 
@@ -1090,3 +1091,35 @@ def test_model_gradients_through_the_kernels_on_the_card(cuda, name, extra,
         assert float(w.abs().max()) > 0
         err = float((g.cpu() - w).abs().max())
         assert err <= 1e-4 * float(w.abs().max())
+
+
+def test_lm_moe_layer_on_a_two_rank_gloo_mesh_on_the_card(cuda):
+    """The expert-parallel MoE layer of reduced qwen2-moe with 60 experts
+    on a (1, 2) LM mesh of two ranks sharing the card over gloo (which
+    moves the all-to-alls' CUDA tensors through the host): B8 launched on
+    each rank's capacity buffer (2 a call) and each mode at the no-drop
+    factor within 1e-4 of the dense layer on the CPU (B8's split TF32
+    against f32)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.ffn import init_moe, moe_dense_apply
+    from repro_torch.models.common import tree_map
+    cfg = dataclasses.replace(get_arch("qwen2-moe-a2.7b").reduced(),
+                              n_experts=60, experts_per_token=4)
+    moe = init_moe(torch.Generator().manual_seed(3), cfg, torch.float32,
+                   torch.device("cpu"))
+    x = torch.randn((2, 8, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(4))
+    want, _ = moe_dense_apply(moe, x, cfg=cfg)
+    build.load("moe_gemm")                  # built here, not by the ranks
+    ranks = spawn_mesh(lm_moe_on_card, 1, 2, device="cuda", backend="gloo",
+                       timeout_s=300, args=(
+                           cfg, tree_map(lambda a: a.numpy(), moe),
+                           x.numpy(), 64 / 4))
+    for out in ranks:
+        for mode in LM_MODES:
+            y, aux, launches = out[mode]
+            assert launches == 2
+            np.testing.assert_allclose(y, want.numpy(), rtol=1e-4,
+                                       atol=1e-4)

@@ -35,6 +35,7 @@ from repro_torch.data import batch_spec, synthetic_batch, token_stream
 from repro_torch.models import (ModelCtx, build_program, init_cache,
                                 init_params, layer_sigs, param_count,
                                 param_shapes)
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.ffn import moe_apply, padded_experts
 
 ALL = sorted(JAX_ARCHS)
@@ -239,11 +240,14 @@ def test_token_stream_is_jax_bit_for_bit():
 # ---------------------------------------------------- refusals, device -----
 
 def test_moe_on_a_mesh_is_refused_by_its_roadmap_item():
+    """The expert-parallel layer runs on a mesh (tests/test_torch_lm_mesh.py);
+    a gradient through it is ROADMAP A8e's, and is refused by its title."""
     cfg = get_arch("qwen2-moe-a2.7b").reduced()
     p = init_params(cfg, device="cpu")["segments"][0][0]["ffn"]
-    x = torch.zeros((1, 2, cfg.d_model))
-    with pytest.raises(ValueError, match="ROADMAP A8c, 'The LM mesh'"):
-        moe_apply(p, x, cfg=cfg, mesh=object(), mode="allreduce")
+    x = torch.zeros((1, 2, cfg.d_model), requires_grad=True)
+    with pytest.raises(ValueError,
+                       match="ROADMAP A8e, 'LM training on the mesh'"):
+        moe_apply(p, x, cfg=cfg, mesh=make_host_mesh(1), mode="allreduce")
 
 
 def test_lm_entry_points_raise_without_cuda():

@@ -6,8 +6,9 @@ its bars).
 Bars: on JAX's weights the launcher prints JAX's parameter line exactly
 and its ``step`` lines' loss within rtol 1e-5 and grad norm within rtol
 1e-5 (each beside the digits printed); resumed from its own checkpoint it
-continues the run it saved bit for bit; the production mesh and
-``--moe-mode alltoall`` raise naming "The LM mesh"; without a card it
+continues the run it saved bit for bit; ``--moe-mode alltoall`` without
+a mesh trains as the dense run and as JAX's launcher does; the production
+mesh raises without 256 ranks, naming ``torchrun``; without a card it
 raises unless asked for the CPU."""
 import contextlib
 import dataclasses
@@ -79,6 +80,24 @@ def test_launcher_prints_jax_loss_lines(arch, monkeypatch, capsys):
         ln.startswith("3 steps in") for ln in got)
 
 
+def test_launcher_alltoall_without_mesh_is_jax_dense(monkeypatch, capsys):
+    """``--moe-mode alltoall`` with no mesh: JAX's launcher keeps the mode
+    and its ``moe_apply`` runs the dense layer; the port's prints JAX's
+    lines."""
+    arch = "qwen2-moe-a2.7b"
+    argv = ["--arch", arch, "--reduced", "--steps", "2", "--batch", "2",
+            "--seq", "16", "--moe-mode", "alltoall"]
+    want = _jax_lines(argv, monkeypatch)
+    jcfg = dataclasses.replace(JAX_ARCHS[arch].reduced(), dtype="float32")
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
+    params = lm_params_from_numpy(_np(jax_init_params(jax.random.key(0),
+                                                      jcfg)), cfg,
+                                  device="cpu")
+    capsys.readouterr()
+    train.main(argv + ["--device", "cpu"], params=params)
+    assert_lines_match(capsys.readouterr().out.splitlines(), want)
+
+
 def test_launcher_resumes_from_its_checkpoint(tmp_path, capsys):
     """Three steps and a checkpoint, then two more from it: the same
     losses as five steps in one run (the stream is reseeded by the
@@ -106,14 +125,18 @@ def test_launcher_resumes_from_its_checkpoint(tmp_path, capsys):
 
 
 def test_launcher_refusals():
+    """The production mesh needs 256 ranks, as JAX's needs 256 devices;
+    without it ``--moe-mode alltoall`` and ``allreduce`` run the dense
+    layer, as JAX's launcher does."""
     base = ["--arch", "qwen2-moe-a2.7b", "--reduced", "--device", "cpu"]
-    with pytest.raises(ValueError, match="The LM mesh"):
+    with pytest.raises(RuntimeError, match="need 256 ranks.*torchrun"):
         train.main(base + ["--production-mesh"])
-    with pytest.raises(ValueError, match="The LM mesh"):
-        train.main(base + ["--moe-mode", "alltoall"])
-    out = train.main(base + ["--moe-mode", "allreduce", "--steps", "1",
-                             "--seq", "16"])
-    assert np.isfinite(out["losses"][0])
+    run = ["--steps", "2", "--seq", "16"]
+    dense = train.main(base + run)["losses"]
+    assert train.main(base + ["--moe-mode", "alltoall"] + run)[
+        "losses"] == dense
+    out = train.main(base + ["--moe-mode", "allreduce"] + run)
+    assert out["losses"] == dense and np.isfinite(out["losses"][0])
     if torch.cuda.is_available():
         return
     with pytest.raises(RuntimeError, match="device='cpu'"):

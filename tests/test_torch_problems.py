@@ -510,7 +510,7 @@ def test_chip_smoke_checkers_agree_with_the_port():
     """``chip_smoke.py`` holds the card's answers to numpy checkers of its
     own; on padded graphs and many solutions they agree with the port's
     (MaxCut's: the solve's complete assignment of the positive-degree
-    nodes), and the phase's served graphs are two of each size."""
+    nodes), and the phase's served graphs are the first of each size."""
     from test_torch_walk import _chip_smoke
     cs = _chip_smoke()
     adj = random_graph_batch("er", 16, 3, seed=13, rho=0.3)
@@ -535,5 +535,5 @@ def test_chip_smoke_checkers_agree_with_the_port():
     stream = [np.zeros((n, n), np.float32) for n in
               (500, 4000, 500, 1000, 500, 2000, 4000, 4000, 1000, 2000, 1000)]
     picked = cs.problem_graphs(stream)
-    assert [a.shape[0] for a in picked] == [500, 4000, 500, 1000, 2000,
-                                            4000, 1000, 2000]
+    assert [a.shape[0] for a in picked] == [500, 4000, 1000, 2000]
+    assert picked[0] is stream[0] and picked[1] is stream[1]

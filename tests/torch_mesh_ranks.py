@@ -1,11 +1,11 @@
 """Rank functions of tests/test_torch_mesh.py, tests/test_torch_mesh_train.py,
 tests/test_torch_problems_mesh.py, tests/test_torch_mesh_async.py,
-tests/test_torch_mesh_host.py and tests/test_torch_cuda.py, run by
-``repro_torch.core.mesh.spawn_mesh``
-in spawned processes (``sampled_train_agent_run`` also on one device, by
-tests/test_torch_sampling.py).  A spawned rank imports this module by name, so it
-lives apart from the test files and imports neither jax nor the JAX
-package: each rank only loads torch."""
+tests/test_torch_mesh_host.py, tests/test_torch_lm_mesh.py and
+tests/test_torch_cuda.py, run by ``repro_torch.core.mesh.spawn_mesh`` in
+spawned processes (``sampled_train_agent_run`` also on one device, by
+tests/test_torch_sampling.py).  A spawned rank imports this module by
+name, so it lives apart from the test files and imports neither jax nor
+the JAX package: each rank only loads torch."""
 import time
 
 import numpy as np
@@ -879,4 +879,156 @@ def sampled_train_agent_run(mesh, dev, *, weights, adam, cfg, engine,
         ring = agent.replay
         out.update(size_ptr=(ring.size, ring._ptr),
                    ring={f: getattr(ring, f).copy() for f in _FIELDS})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The LM mesh (tests/test_torch_lm_mesh.py).
+# ---------------------------------------------------------------------------
+
+LM_MODES = ("allreduce", "alltoall", "alltoall_rep")
+
+
+def _lm_rows(lm, b):
+    """(start, stop) of this rank's rows of a batch of ``b`` over the data
+    axes, the whole batch where it does not split (JAX's ``bspec``)."""
+    daxes = tuple(a for a in lm.axis_names if a != "model")
+    index, count = lm.block(daxes)
+    if b % count:
+        return 0, b
+    n = b // count
+    return index * n, (index + 1) * n
+
+
+def lm_moe_layer(lm, dev, cfg, moe, x, factors):
+    """The MoE layer in every mode at every capacity factor on the named
+    mesh ``lm``: this rank's rows of the output, the aux loss and the
+    collectives of each call (``Mesh.traffic``), and the refusal of whole
+    experts on a split ``model`` axis."""
+    from repro_torch.core.mesh import reset_traffic
+    from repro_torch.models import Sharder
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.ffn import moe_sharded_apply
+    from repro_torch.sharding import P, param_specs
+    sh = Sharder(lm, {})
+    whole = tree_map(lambda a: torch.as_tensor(a, device=dev), moe)
+    p = sh.place_params(whole, param_specs(whole, lm))
+    lo, hi = _lm_rows(lm, x.shape[0])
+    xr = torch.as_tensor(x[lo:hi], device=dev)
+    daxes = tuple(a for a in lm.axis_names if a != "model")
+    out = {"rows": (lo, hi), "expert_rows": tuple(p["ewg"].shape)}
+    for mode in LM_MODES:
+        for cf in factors:
+            reset_traffic(lm)
+            with torch.no_grad():
+                y, aux = moe_sharded_apply(p, xr, cfg=cfg, mesh=lm,
+                                           mode=mode, capacity_factor=cf,
+                                           data_axes=daxes)
+            out[mode, cf] = (y.cpu().numpy(), float(aux),
+                             reset_traffic(lm))
+    if lm.shape["model"] > 1:
+        try:
+            moe_sharded_apply(whole, xr, cfg=cfg, mesh=lm, data_axes=daxes)
+        except ValueError as e:
+            out["whole_error"] = str(e)
+    return out
+
+
+def lm_model_run(lm, dev, cfg, weights, mode, tokens, first, steps, slots):
+    """The reduced model on the named mesh ``lm`` in MoE mode ``mode``: the
+    prefill of this rank's rows of ``tokens`` (B, T), then ``steps``
+    greedy decode steps from a fresh cache of ``slots`` from ``first``
+    (B, 1), each rank on its rows (its own next tokens fed back).  The
+    experts are placed by ``param_specs``, the rows by ``batch_specs``.
+    Returns the rows, the prefill logits, each step's logits and next
+    tokens, and the bytes this rank holds beside JAX's plan."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.data import batch_spec
+    from repro_torch.models import (ModelCtx, Sharder, init_cache,
+                                    make_decode_step, make_prefill,
+                                    param_shapes)
+    from repro_torch.models.shard import plan_bytes, tree_bytes
+    from repro_torch.sharding import (activation_rules, batch_specs,
+                                      param_specs)
+    b, t = tokens.shape
+    shp = ShapeConfig("prefill", t, b, "prefill")
+    sh = Sharder(lm, activation_rules(lm, shp))
+    specs = param_specs(param_shapes(cfg), lm)
+    params = sh.place_params(lm_params_from_numpy(weights, cfg, device=dev),
+                             specs)
+    ctx = ModelCtx(mesh=lm, moe_mode=mode, sharder=sh, remat=False)
+    batch = sh.place_batch({"tokens": tokens}, batch_specs(
+        batch_spec(cfg, t, b, "prefill"), lm, shp))
+    logits, _ = make_prefill(cfg, ctx)(params, batch)
+    out = {"rows": _lm_rows(lm, b), "prefill": logits.cpu().numpy(),
+           "decode": [], "bytes": tree_bytes(params),
+           "plan_bytes": plan_bytes(param_shapes(cfg), specs, lm)}
+    dshp = ShapeConfig("decode", slots, b, "decode")
+    dsh = Sharder(lm, activation_rules(lm, dshp))
+    dspecs = batch_specs(batch_spec(cfg, slots, b, "decode"), lm, dshp)
+    dec = make_decode_step(cfg, ModelCtx(mesh=lm, moe_mode=mode,
+                                         sharder=dsh, remat=False))
+    tok = dsh.place_batch({"token": first}, dspecs)["token"]
+    cache = init_cache(cfg, tok.shape[0], slots, device=dev)
+    for i in range(steps):
+        pos = dsh.place_batch({"pos": np.full((b,), i, np.int32)},
+                              dspecs)["pos"]
+        logits, nxt, cache = dec(params, cache, tok, pos)
+        out["decode"].append((logits.cpu().numpy(), nxt.cpu().numpy()))
+        tok = nxt[:, None]
+    return out
+
+
+def lm_mesh_shapes(mesh, dev, cfg, moe, x, factors, shapes, model=None):
+    """Every check of tests/test_torch_lm_mesh.py on the named meshes of
+    ``shapes`` (each of the spawn's world size), in one spawn: the MoE
+    layer (``lm_moe_layer``), then, where ``model`` gives (weights, runs,
+    tokens, first, steps, slots), the model runs ``runs`` ((shape, mode)
+    pairs); on the last shape an ``all_to_all`` of rank-stamped blocks
+    over ``model`` with its traffic."""
+    from repro_torch.core.mesh import (all_to_all, make_named_mesh,
+                                       reset_traffic)
+    out = {}
+    for shape in shapes:
+        lm = make_named_mesh(shape, ("data", "model"))
+        out["layer", shape] = lm_moe_layer(lm, dev, cfg, moe, x, factors)
+        if model is not None:
+            weights, runs, tokens, first, steps, slots = model
+            for run_shape_, mode in runs:
+                if run_shape_ == shape:
+                    out["model", shape, mode] = lm_model_run(
+                        lm, dev, cfg, weights, mode, tokens, first, steps,
+                        slots)
+    ax = lm.axis("model")
+    sent = (torch.arange(ax.size * 3, dtype=torch.float32).reshape(
+        ax.size, 3) + 100 * ax.index).to(dev)
+    reset_traffic(lm)
+    got = all_to_all(sent, ax)
+    out["all_to_all"] = (ax.index, got.cpu().numpy(), reset_traffic(lm))
+    return out
+
+
+def lm_moe_on_card(mesh, dev, cfg, moe, x, factor):
+    """The MoE layer in every mode at ``factor`` on a (1, P) named mesh of
+    this spawn's ranks, on ``dev``: this rank's output and B8's launches
+    of each call (tests/test_torch_cuda.py)."""
+    from repro_torch.core.mesh import make_named_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.models import Sharder
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.ffn import moe_sharded_apply
+    from repro_torch.sharding import param_specs
+    lm = make_named_mesh((1, mesh.sp), ("data", "model"))
+    whole = tree_map(lambda a: torch.as_tensor(a, device=dev), moe)
+    p = Sharder(lm, {}).place_params(whole, param_specs(whole, lm))
+    out = {}
+    for mode in LM_MODES:
+        before = ops.grouped_glu_ffn.launches
+        with torch.no_grad():
+            y, aux = moe_sharded_apply(p, torch.as_tensor(x, device=dev),
+                                       cfg=cfg, mesh=lm, mode=mode,
+                                       capacity_factor=factor)
+        out[mode] = (y.cpu().numpy(), float(aux),
+                     ops.grouped_glu_ffn.launches - before)
     return out
