@@ -61,12 +61,12 @@ Phases (any failed check raises, so the script exits non-zero):
    rules, and timed there (on the path's bf16 inputs and on f32 copies,
    beside its bound, its plain version and a library call).  Then three
    timed prefills, one under torch.profiler (the kernel's device ms and
-   share), and the decode with the counts at 0: 16 tokens of rwkv6-7b
-   through ``launch/serve.py``'s main (no B6: a one-token step), 8 of
-   qwen2-moe after its prompt on the prefill's caches grown by 9 slots
+   share), and the decode with the counts at 0: 8 tokens of rwkv6-7b
+   through ``launch/serve.py``'s main (no B6: a one-token step), 4 of
+   qwen2-moe after its prompt on the prefill's caches grown by 5 slots
    (B8 48 a step); ms a token, tokens/s, one more step profiled, peak
    device GB.  Then the card against the port on the CPU: the three
-   models at full width in f32 cut to 2 layers (B=1, T=64), prefill
+   models at full width in f32 cut to 2 layers (B=1, T=32), prefill
    logits within 1e-3 of the largest |logit|, and on the card 16 decode
    steps within 2e-3 of the prefill; the ten reduced archs' prefill
    (1e-4) and 8 greedy decode steps (1e-3 of the largest |logit|), the
@@ -90,7 +90,7 @@ Phases (any failed check raises, so the script exits non-zero):
    torch.profiler (device ms by ``lm_step.*`` range and of the plain
    backwards) and one under the allocator's history (the part that sets
    the peak).  Then the card against the port on the CPU: the three
-   models at full width in f32 cut to 2 layers (B=1, T=64), the loss
+   models at full width in f32 cut to 2 layers (B=1, T=32), the loss
    within 1e-5 relative and each leaf's gradient within 1e-3 of its
    largest |g| on the CPU; one train step of each of the ten reduced
    archs, the loss within 1e-5, the gradients within 1e-3 of each leaf's
@@ -112,6 +112,19 @@ Phases (any failed check raises, so the script exits non-zero):
    launches a prefill; (d) printed: ms of a layer call and a prefill
    (ranks share one card: not a scaling figure), each rank's peak GB,
    bytes held beside JAX's plan, and collectives by kind and bytes.
+   Then training on both meshes (ROADMAP A8e): (e) the model at full
+   width cut to one layer in f32, allreduce, lr 3e-4, clip 1.0, remat
+   on: a cold step whose loss and grad norm are within 1e-5 and 1e-4 of
+   one device's step on each data block (gradients averaged over the
+   blocks, then clipped), every gradient the rank holds (its block of the
+   experts) within 1e-3 of the leaf's max and every updated parameter by
+   the Adam rule, B8 2 launches a step, then a warm step timed; (f) the
+   reduced 60-expert model in every mode at both shapes, one step on the
+   card against CPU copies over the same groups (loss 1e-5, gradients
+   1e-3 of the max, parameters by the Adam rule), B8 as often as the
+   layer program says on the card (8) and never on the CPU; printed:
+   each rank's warm step ms, peak GB, the gradient reduction over
+   ``data`` (bytes, ms) and the collectives forward and backward.
 2. Served requests: GraphSolverService at K=32, L=2, multi-node
    selection, max_batch=8, warmed up, answers 16 ER(0.15) graphs of
    500..4000 nodes, on the dense, the sparse (sparse_max_degree=768) and
@@ -443,12 +456,12 @@ SMALL_TRAIN = (14, 4, 2, 8, 2, 8)
 # cell (TRAIN_CFG, TRAIN_TAU, TRAIN_DATA), fresh on each rep and stored
 # on dense, 11 steps (index 7 the first warm one, 9-10 timed), and on the
 # sampled dataset one 9-step episode; open-loop load on the dense service:
-# 4 requests of the served sizes at half and twice phase 2's dense
+# 2 requests of the served sizes at half and twice phase 2's dense
 # requests/s, a deadline of twice its p99, both drive modes; the
 # launcher's --rate
 HOST_STEPS, HOST_TIMED_FROM = 11, 9
 HOST_EPS = 0.5                   # the small card-vs-CPU host run's epsilon
-OPEN_LOOP_REQUESTS, OPEN_LOOP_RATES = 4, (0.5, 2.0)
+OPEN_LOOP_REQUESTS, OPEN_LOOP_RATES = 2, (0.5, 2.0)
 LAUNCHER_RATE = ("--mode", "async", "--rate", "50", "--requests", "24",
                  "--warmup")
 # The problems phase (3c): MaxCut, MIS and MDS.  Served: one graph of each
@@ -1223,12 +1236,12 @@ def glu_timing(torch, glu):
 
 # (arch, batch, prompt tokens, decode tokens, its kernel, launches a
 # prefill, launches a decode step) of the full-width models, bf16 weights
-LM_SERVE = (("rwkv6-7b", 4, 512, 16, "wkv6_chunked", 64, 0),
+LM_SERVE = (("rwkv6-7b", 4, 512, 8, "wkv6_chunked", 64, 0),
             ("gemma3-4b", 2, 2048, 0, "swa_attention", 29, 0),
-            ("qwen2-moe-a2.7b", 2, 256, 8, "grouped_glu_ffn", 48, 48))
+            ("qwen2-moe-a2.7b", 2, 256, 4, "grouped_glu_ffn", 48, 48))
 LM_WKV_CHUNK = 16                # the model's decays need chunk 16 (B6)
-LM_PREFILL_TIMED = 3             # timed prefills after the checked one
-LM_CPU_CHECK = (2, 1, 64)        # full width, f32: layers, batch, tokens
+LM_PREFILL_TIMED = 2             # timed prefills after the checked one
+LM_CPU_CHECK = (2, 1, 32)        # full width, f32: layers, batch, tokens
 LM_DECODE_CHECK = 16             # decode steps held to the prefill
 LM_REDUCED = (2, 32, 8)          # the ten reduced archs: batch, tokens, steps
 # the kernels' symbols in a profile
@@ -1522,7 +1535,7 @@ def lm_max_rule(got, want, frac):
 
 
 def lm_card_vs_cpu(torch, dev, failures, names=LM_KERNELS):
-    """The three models at full width in f32, cut to 2 layers (B=1, T=64):
+    """The three models at full width in f32, cut to 2 layers (B=1, T=32):
     the card's prefill logits within 1e-3 of the largest |logit| of the
     port's on the CPU (the same weights, made on the card and copied
     over); on the card, 16 decode steps within rtol = atol = 2e-3 of the
@@ -1671,7 +1684,7 @@ def phase_lm_serve(torch, dev, rows, failures, names=LM_KERNELS):
 # cut to 4 layers (all 32 with f32 moments need ~88 GB: 7.31B x 12 B),
 # qwen2-moe-a2.7b to 2 (its 64 padded experts a layer); gemma3-4b runs all
 # 34 at T = 2048, where the 1024 window bites
-LM_TRAIN = (("gemma3-4b", None, 1, 2048, 5, "swa_attention"),
+LM_TRAIN = (("gemma3-4b", None, 1, 2048, 3, "swa_attention"),
             ("rwkv6-7b", 4, 2, 512, 2, "wkv6_chunked"),
             ("qwen2-moe-a2.7b", 2, 2, 256, 2, "grouped_glu_ffn"))
 LM_TRAIN_LR, LM_TRAIN_CLIP = 3e-4, 1.0
@@ -2011,13 +2024,16 @@ def lm_grad_rule(got, want, atol):
     return float(((got.cpu() - want).abs() / bound).max())
 
 
-def adam_bound(torch, p, g, m, v, t, atol, lr, b1=0.9, b2=0.999, eps=1e-8):
+def adam_bound(torch, p, g, m, v, t, atol, lr, b1=0.9, b2=0.999, eps=1e-8,
+               gmax=None):
     """The CPU lockstep's bar on one Adam step (tests/test_torch_lm_train_
     step.py::adam_rule): with the gradient known to within δg = 1e-4·|g| +
     A·max|g|, |Δp| <= 1e-6·|p| + lr·min(2, 2·|∂u/∂g|·δg) for the update u
-    = m̂/(√v̂ + eps), |∂u/∂g| at the reference's moments after the step.
-    Returns (the bound on |Δp|, δg)."""
-    dg = LM_GRAD_RTOL * g.abs() + atol * g.abs().max()
+    = m̂/(√v̂ + eps), |∂u/∂g| at the reference's moments after the step;
+    ``gmax`` the leaf's max |g| where ``g`` is a part of it.  Returns (the
+    bound on |Δp|, δg)."""
+    dg = LM_GRAD_RTOL * g.abs() + atol * (g.abs().max() if gmax is None
+                                          else gmax)
     bc1, bc2 = 1 - b1 ** t, 1 - b2 ** t
     mhat, root = m.abs() / bc1, torch.sqrt(v / bc2)
     sens = ((1 - b1) / (bc1 * (root + eps))
@@ -2028,7 +2044,7 @@ def adam_bound(torch, p, g, m, v, t, atol, lr, b1=0.9, b2=0.999, eps=1e-8):
 
 def lm_train_card_vs_cpu(torch, dev, failures, names=LM_KERNELS):
     """The train models at full width in f32, cut to ``LM_CPU_CHECK``'s 2
-    layers (B=1, T=64), remat on: the loss and every leaf's gradient on
+    layers (B=1, T=32), remat on: the loss and every leaf's gradient on
     the card against the port on the CPU, same weights: the loss within
     1e-5 relative, each gradient within 1e-3 of the leaf's largest |g| on
     the CPU."""
@@ -2184,6 +2200,21 @@ LM_MESH_TIMED = 2                # timed layer calls and prefills a shape
 LM_MESH_LOGIT_TOL = 1e-4
 LM_MESH_TIMEOUT_S = 300.0
 LM_MESH_CPU_THREADS = 2          # a rank's threads for its CPU copies' call
+# (e) LM training on the mesh at full width: qwen2-moe-a2.7b cut to one
+# layer in f32 (a (2, 2) rank holds 639.4M parameters; with gradients, two
+# moments and Adam's temporaries about 15 GB, four ranks on one card),
+# allreduce mode, remat on (one layer: no segment repeats, so nothing is
+# recomputed), lr and clip of lm_train
+LM_MESH_TRAIN_LAYERS = 1
+LM_MESH_TRAIN_TIMED = 1          # warm steps timed a shape
+LM_MESH_TRAIN_GRAD = 1e-3        # lm_train's card rule: of each leaf's max
+LM_MESH_TRAIN_LOSS = 1e-5        # relative
+LM_MESH_TRAIN_NORM = 1e-4        # relative
+# (f) the reduced qwen2-moe with its own 60 experts (the CPU tests'
+# config), every mode at both shapes, one step, card against CPU copies
+LM_MESH_REDUCED = dict(dtype="float32", n_experts=60, experts_per_token=4)
+LM_MESH_REDUCED_BT = (4, 32)
+LM_MESH_REDUCED_LR = 1e-3
 
 
 def lm_mesh_cfgs():
@@ -2349,10 +2380,309 @@ def lm_mesh_model(torch, lm, cfg2, params, tokens):
     return row
 
 
+def lm_mesh_train_cfgs():
+    """(the full-width config cut to LM_MESH_TRAIN_LAYERS in f32, the
+    reduced 60-expert config)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    cfg = get_arch(LM_MESH_ARCH)
+    return (dataclasses.replace(cfg, n_layers=LM_MESH_TRAIN_LAYERS,
+                                dtype="float32"),
+            dataclasses.replace(cfg.reduced(), **LM_MESH_REDUCED))
+
+
+def lm_mesh_setup(torch, lm, cfg, params, tokens, mode, lr):
+    """The rank's placed parameters (the experts as blocks in the
+    expert-parallel modes), fresh Adam state, rows of ``tokens`` and train
+    step on the mesh ``lm``, as ``launch/train.py --production-mesh``
+    places them."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import batch_spec
+    from repro_torch.models import ModelCtx, Sharder, make_train_step, \
+        param_shapes
+    from repro_torch.models.shard import block_leaves
+    from repro_torch.optim import adam_init
+    from repro_torch.sharding import activation_rules, batch_specs, \
+        param_specs
+    b, t = tokens.shape
+    shp = ShapeConfig("train", t, b, "train")
+    sh = Sharder(lm, activation_rules(lm, shp))
+    specs = param_specs(param_shapes(cfg), lm)
+    names = block_leaves(lm, mode)
+    placed = sh.place_params(params, specs, names)
+    batch = sh.place_batch({"tokens": tokens}, batch_specs(
+        batch_spec(cfg, t, b, "train"), lm, shp))
+    ctx = ModelCtx(mesh=lm, moe_mode=mode, sharder=sh, remat=True)
+    step = make_train_step(cfg, ctx, lr=lr, clip_norm=LM_TRAIN_CLIP)
+    return placed, adam_init(placed), batch, step, (sh, specs, names, lr)
+
+
+def lm_mesh_block_ref(torch, dev, cfg, tokens, dp):
+    """(e)'s reference on one device, for a mesh of ``dp`` data ranks: the
+    step of a (1, 1) mesh in allreduce mode (which routes a block's tokens
+    with the capacity a (dp, m) rank gives them) on each data block of
+    ``tokens``, the gradients averaged over the blocks (the global loss's:
+    the blocks count the same tokens), then clipped.  Returns (params
+    before the step, clipped gradients, loss as the mesh gives it:
+    the blocks' mean xent plus the aux weight times block 0's aux, grad
+    norm)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import ModelCtx, Sharder, init_params, \
+        loss_and_grads
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim import clip_by_global_norm_
+    from repro_torch.sharding import activation_rules
+    one = make_host_mesh(1)
+    b, t = tokens.shape
+    n = b // dp
+    ctx = ModelCtx(mesh=one, moe_mode="allreduce", remat=True,
+                   sharder=Sharder(one, activation_rules(
+                       one, ShapeConfig("train", t, n, "train"))))
+    params = init_params(cfg, seed=SEED + 94, device=dev)
+    acc, xents, auxs = None, [], []
+    for j in range(dp):
+        _, metrics, grads = loss_and_grads(params, cfg, {
+            "tokens": tokens[j * n:(j + 1) * n]}, ctx)
+        xents.append(float(metrics["xent"]))
+        auxs.append(float(metrics["aux"]))
+        acc = grads if acc is None else tree_map(lambda a, g: a.add_(g),
+                                                 acc, grads)
+        del grads
+    if dp > 1:
+        tree_map(lambda a: a.div_(dp), acc)
+    norm = clip_by_global_norm_(acc, LM_TRAIN_CLIP)
+    loss = float(np.mean(xents)) + cfg.router_aux_weight * auxs[0]
+    return params, acc, loss, float(norm)
+
+
+def lm_mesh_hold(torch, failures, tag, got, p0, gref, lr, atol,
+                 chunk=1 << 24):
+    """Every leaf the rank holds (``got``: [(path, gradient, updated
+    parameter)] on the CPU) against the reference's (``p0``: the
+    parameters before the step, ``gref``: the clipped gradients, trees of
+    the rank's leaves): the gradient within 1e-3 of the leaf's max |g|
+    (lm_train's card rule), the parameter by the Adam rule at ``atol``
+    (``adam_bound``, the reference's first step from its gradient).  A
+    leaf is taken ``chunk`` elements at a time: Adam is elementwise, and
+    four ranks' temporaries on a whole embedding would not fit the card.
+    Returns the worst ratios and where."""
+    from repro_torch.optim import AdamState, adam_update
+    p0, gref = dict(lm_leaves(p0)), dict(lm_leaves(gref))
+    worst, where = {"grad": 0.0, "param": 0.0}, {}
+    for path, g, p in got:
+        w, w0 = gref[path].reshape(-1), p0[path].reshape(-1)
+        g, p = g.reshape(-1), p.reshape(-1)
+        gmax = float(w.abs().max())
+        err = par = 0.0
+        for lo in range(0, w.numel(), chunk):
+            wc, gc = w[lo:lo + chunk], g[lo:lo + chunk].to(w.device)
+            err = max(err, float((gc - wc).abs().max()))
+            st = AdamState(step=torch.zeros((), dtype=torch.int32,
+                                            device=w.device),
+                           mu={"x": torch.zeros_like(wc)},
+                           nu={"x": torch.zeros_like(wc)})
+            pn = {"x": w0[lo:lo + chunk].clone()}
+            adam_update(pn, {"x": wc}, st, lr=lr)
+            bound, _ = adam_bound(torch, pn["x"], wc, st.mu["x"],
+                                  st.nu["x"], 1, atol, lr, gmax=gmax)
+            par = max(par, float(((p[lo:lo + chunk].to(w.device)
+                                   - pn["x"]).abs() / bound).max()))
+            del st, pn, bound, gc
+        for k, r in (("grad", err / max(LM_MESH_TRAIN_GRAD * gmax, 1e-30)),
+                     ("param", par)):
+            if r > worst[k]:
+                worst[k], where[k] = r, path
+    for k, v in worst.items():
+        if not v <= 1:
+            failures.append(f"lm_mesh_train {tag}: {k} {where[k]} at {v} "
+                            f"of its rule")
+    return worst, where
+
+
+def whole_checksum(torch, params, names):
+    """A checksum of the bits of every whole leaf of ``params`` (all but
+    the blocks ``names``), f32 words summed: the step takes a model rank's
+    gradient of a whole leaf as complete, so these leaves must stay equal
+    bit for bit on every rank of the mesh, which the parent checks."""
+    return sum(int(torch.sum(p.view(torch.int32), dtype=torch.int64))
+               for path, p in lm_leaves(params)
+               if not any(f"['{n}']" in path for n in names))
+
+
+@contextlib.contextmanager
+def timed_grad_reduce(torch):
+    """Host-clock ms of each gradient reduction the train step makes
+    (``models.lm``'s calls of ``core.mesh.all_reduce_grads`` over the data
+    axes and ``broadcast_first`` of the whole leaves over ``model``), each
+    between two synchronizes, in the {name: [ms]} it yields."""
+    from repro_torch.models import lm
+    names = ("all_reduce_grads", "broadcast_first")
+    real = {n: getattr(lm, n) for n in names}
+    times = {n: [] for n in names}
+
+    def timed(name):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[name](*args, **kw)
+            torch.cuda.synchronize()
+            times[name].append(1e3 * (time.perf_counter() - t0))
+            return out
+        return call
+    for n in names:
+        setattr(lm, n, timed(n))
+    try:
+        yield times
+    finally:
+        for n in names:
+            setattr(lm, n, real[n])
+
+
+def lm_mesh_train_full(torch, lm, dev, cfg, tokens, failures):
+    """(e) on one mesh: qwen2-moe-a2.7b at full width cut to one layer, in
+    allreduce mode: the cold step with the counts at 0 (B8's launches, the
+    collectives by kind, forward and backward), its loss, norm, every
+    gradient and updated parameter the rank holds against one device's
+    step on each data block (``lm_mesh_block_ref``, run on the rank after
+    its own state is freed: the parent's would sit beside four ranks'),
+    then a warm step timed, its gradient reduction over ``data`` and the
+    whole leaves' broadcast over ``model`` timed inside it.  Returns the
+    row."""
+    from repro_torch.core.mesh import reset_traffic
+    from repro_torch.models import init_params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # seconds from each mark to the next: setup and the cold step, the
+    # host copies, the warm step, the reference, the hold
+    stage = {"setup_and_cold": time.perf_counter()}
+    whole = init_params(cfg, seed=SEED + 94, device=dev)
+    params, opt, batch, step, setup = lm_mesh_setup(
+        torch, lm, cfg, whole, tokens, "allreduce", LM_TRAIN_LR)
+    del whole
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    reset_traffic(lm)
+    reset_counts()
+    t0 = time.perf_counter()
+    params, opt, m = step(params, opt, batch, with_grads=True)
+    torch.cuda.synchronize()
+    row = {"shape": list(lm.shape.values()), "layers": cfg.n_layers,
+           "cold_ms": 1e3 * (time.perf_counter() - t0),
+           "launches": read_counts()["grouped_glu_ffn"],
+           "traffic": reset_traffic(lm),
+           **{k: float(m[k]) for k in ("loss", "xent", "aux", "grad_norm")}}
+    row["whole_checksum"] = whole_checksum(torch, params, setup[2])
+    stage["copies"] = time.perf_counter()
+    got = [(path, g.to("cpu", copy=True), p.to("cpu", copy=True))
+           for (path, g), (_, p) in zip(lm_leaves(m.pop("grads")),
+                                        lm_leaves(params))]
+    stage["warm"] = time.perf_counter()
+    reset_counts()
+    with timed_grad_reduce(torch) as reduce_ms:
+        # [1]: the last step's result would keep the state alive
+        row["warm_ms"] = wall_ms(torch, lambda: step(params, opt, batch),
+                                 LM_MESH_TRAIN_TIMED)[1]
+    row["grad_reduce_ms"] = reduce_ms
+    row["launches_total"] = row["launches"] + read_counts()[
+        "grouped_glu_ffn"]
+    row["grad_reduce"] = {k: v for k, v in reset_traffic(lm).items()
+                          if k.startswith("grad_")}
+    row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, opt, m
+    torch.cuda.empty_cache()
+    stage["ref"] = time.perf_counter()
+    ref_params, ref_grads, loss, norm = lm_mesh_block_ref(
+        torch, dev, cfg, tokens, lm.shape["data"])
+    row["ref_loss"], row["ref_grad_norm"] = loss, norm
+    row["loss_rel"] = abs(row["loss"] / loss - 1)
+    row["grad_norm_rel"] = abs(row["grad_norm"] / norm - 1)
+    tag = f"full {tuple(lm.shape.values())}"
+    if not row["loss_rel"] <= LM_MESH_TRAIN_LOSS:
+        failures.append(f"lm_mesh_train {tag}: loss {row['loss']} against "
+                        f"one device's {loss}")
+    if not row["grad_norm_rel"] <= LM_MESH_TRAIN_NORM:
+        failures.append(f"lm_mesh_train {tag}: grad norm "
+                        f"{row['grad_norm']} against one device's {norm}")
+    want = lm_step_launches(cfg)["grouped_glu_ffn"]
+    if row["launches"] != want:
+        failures.append(f"lm_mesh_train {tag}: B8 launched {row['launches']}"
+                        f" times in the step, the program predicts {want}")
+    sh, specs, names, lr = setup
+    # the rank's blocks of the reference, its whole experts freed
+    ref_params, ref_grads = (sh.place_params(t, specs, names)
+                             for t in (ref_params, ref_grads))
+    torch.cuda.empty_cache()
+    stage["hold"] = time.perf_counter()
+    row["worst"], row["at"] = lm_mesh_hold(
+        torch, failures, tag, got, ref_params, ref_grads, lr,
+        LM_MESH_TRAIN_GRAD)
+    del ref_params, ref_grads, got
+    torch.cuda.empty_cache()
+    stage["end"] = time.perf_counter()
+    marks = list(stage.items())
+    row["stage_s"] = {k: t1 - t0 for (k, t0), (_, t1) in zip(marks,
+                                                           marks[1:])}
+    return row
+
+
+def lm_mesh_train_reduced(torch, lm, dev, cfg, failures):
+    """(f) on one mesh: the reduced 60-expert qwen2-moe in every mode, one
+    step on the card (B8's launches against the program's count) and the
+    same step on CPU copies over the same gloo groups (no launch): the
+    loss within 1e-5, every gradient within 1e-3 of the leaf's max, the
+    parameters by the Adam rule, and each run's ``whole_checksum`` for the
+    parent to hold equal over the ranks.  Returns {mode: row}."""
+    from repro_torch.models import init_params
+    from repro_torch.models.common import tree_map
+    b, t = LM_MESH_REDUCED_BT
+    tokens = torch.from_numpy(lm_prompt(cfg, b, t, SEED + 95))
+    host = init_params(cfg, seed=SEED + 96, device="cpu")
+    rows = {}
+    for mode in LM_MESH_MODES:
+        tag = f"reduced {tuple(lm.shape.values())} {mode}"
+        params, opt, batch, step, setup = lm_mesh_setup(
+            torch, lm, cfg, tree_map(lambda a: a.to(dev), host),
+            tokens.to(dev), mode, LM_MESH_REDUCED_LR)
+        hp, ho, hb, hstep, _ = lm_mesh_setup(
+            torch, lm, cfg, tree_map(lambda a: a.clone(), host), tokens,
+            mode, LM_MESH_REDUCED_LR)
+        torch.cuda.synchronize()
+        reset_counts()
+        _, _, m = step(params, opt, batch, with_grads=True)
+        torch.cuda.synchronize()
+        row = {"launches": read_counts()["grouped_glu_ffn"],
+               "launches_want": lm_step_launches(cfg)["grouped_glu_ffn"]}
+        row["whole_checksum"] = whole_checksum(torch, params, setup[2])
+        threads = torch.get_num_threads()
+        torch.set_num_threads(LM_MESH_CPU_THREADS)
+        p0 = tree_map(lambda a: a.clone(), hp)
+        _, _, hm = hstep(hp, ho, hb, with_grads=True)
+        torch.set_num_threads(threads)
+        row["whole_checksum_cpu"] = whole_checksum(torch, hp, setup[2])
+        row["launches_on_cpu"] = read_counts()["grouped_glu_ffn"] - row[
+            "launches"]
+        row["loss_rel"] = abs(float(m["loss"]) / float(hm["loss"]) - 1)
+        got = [(path, g.cpu(), p.cpu()) for (path, g), (_, p) in
+               zip(lm_leaves(m["grads"]), lm_leaves(params))]
+        row["worst"], row["at"] = lm_mesh_hold(
+            torch, failures, tag, got, p0, hm["grads"], setup[3],
+            lm_grad_atol(LM_MESH_ARCH))
+        if (row["launches"], row["launches_on_cpu"]) != (
+                row["launches_want"], 0) or not row["loss_rel"] <= 1e-5:
+            failures.append(f"lm_mesh_train {tag}: {row}")
+        rows[mode] = row
+        del params, opt, m, hm, hp, ho
+    torch.cuda.empty_cache()
+    return rows
+
+
 def lm_mesh_rank(mesh, dev, cfg, cfg2, tokens):
     """One rank of the lm_mesh spawn (4 ranks): the meshes of
     LM_MESH_SHAPES, the layer's checks on each (``lm_mesh_layer``), then
-    the model's (``lm_mesh_model``).  Weights and inputs are made on the
+    the model's (``lm_mesh_model``), then training on each: (e) at full
+    width (``lm_mesh_train_full``) and (f) reduced in every mode
+    (``lm_mesh_train_reduced``).  Weights and inputs are made on the
     rank's card from the seed, as the parent makes its own."""
     import torch
     from repro_torch.core.mesh import make_named_mesh
@@ -2384,7 +2714,21 @@ def lm_mesh_rank(mesh, dev, cfg, cfg2, tokens):
                                 torch.from_numpy(tokens).to(dev))
             out["launches"] += row["launches"] + row["launches_timed"]
             out["model"][shape] = row
+        del params
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    cfg_full, cfg_reduced = lm_mesh_train_cfgs()
+    out["train"], out["train_reduced"], out["failures"] = {}, {}, []
+    for shape, lm in lms.items():
+        row = lm_mesh_train_full(torch, lm, dev, cfg_full,
+                                 torch.from_numpy(tokens).to(dev),
+                                 out["failures"])
+        out["launches"] += row["launches_total"]
+        out["train"][shape] = row
+    for shape, lm in lms.items():
+        rows = lm_mesh_train_reduced(torch, lm, dev, cfg_reduced,
+                                     out["failures"])
+        out["launches"] += sum(r["launches"] for r in rows.values())
+        out["train_reduced"][shape] = rows
     return out
 
 
@@ -2489,9 +2833,19 @@ def phase_lm_mesh(torch, dev, rows, failures):
     of the layer and the prefill (ranks share one card: not a scaling
     figure), each rank's peak GB and bytes beside JAX's plan, the
     collectives, B8's launches (2 a card call, 4 a prefill, none on CPU
-    copies).  Before the ranks start, B8 itself at the capacity buffers
-    they give it (``lm_mesh_kernel``).  Returns B8's launches on the
-    mesh, summed over ranks."""
+    copies).  Then training (ROADMAP A8e): (e) qwen2-moe-a2.7b at full
+    width cut to one layer, f32, B=2, T=256, in allreduce mode at each
+    shape, its loss, grad norm, every gradient and updated parameter the
+    rank holds against one device's step on each data block, gradients
+    averaged (``lm_mesh_block_ref``); (f) the reduced 60-expert model in
+    every mode at each shape, one step on the card against CPU copies over
+    the same groups, B8's launches by the layer program
+    (``lm_step_launches``); printed: each rank's warm step ms, peak GB,
+    the gradient reduction's bytes and ms and the collectives forward and
+    backward, beside the card's name and power limit.  Before the ranks
+    start, B8 itself at the capacity buffers they give it
+    (``lm_mesh_kernel``).  Returns B8's launches on the mesh, summed over
+    ranks."""
     from repro_torch.core import spawn_mesh
     cfg, cfg2 = lm_mesh_cfgs()
     b, t = LM_MESH_BT
@@ -2567,10 +2921,58 @@ def phase_lm_mesh(torch, dev, rows, failures):
                                     for rk in ranks],
               "traffic_rank0": ranks[0]["model"][shape]["traffic"],
               "note": note})
+    card = card_line()
+    for shape in LM_MESH_SHAPES:
+        per = [rk["train"][shape] for rk in ranks]
+        equal = len({r["whole_checksum"] for r in per}) == 1
+        if not equal:
+            failures.append(f"lm_mesh_train full {shape}: the whole leaves "
+                            f"differ between ranks after the step")
+        emit({"phase": "lm_mesh_train", "shape": list(shape),
+              "mode": "allreduce", "layers": LM_MESH_TRAIN_LAYERS, "B": b,
+              "T": t, "lr": LM_TRAIN_LR, "clip": LM_TRAIN_CLIP,
+              "remat": True, "card": card,
+              **{k: per[0][k] for k in ("loss", "ref_loss", "grad_norm",
+                                        "ref_grad_norm", "xent", "aux")},
+              "loss_rel_per_rank": [r["loss_rel"] for r in per],
+              "grad_norm_rel_per_rank": [r["grad_norm_rel"] for r in per],
+              "worst_per_rank": [r["worst"] for r in per],
+              "at_rank0": per[0]["at"],
+              "whole_leaves_equal_on_every_rank": equal,
+              "launches_per_rank": [r["launches"] for r in per],
+              "cold_ms_per_rank": [r["cold_ms"] for r in per],
+              "warm_ms_per_rank": [r["warm_ms"] for r in per],
+              "peak_gb_per_rank": [r["peak_gb"] for r in per],
+              "grad_reduce_ms_per_rank": [r["grad_reduce_ms"] for r in per],
+              "grad_reduce_per_rank": [r["grad_reduce"] for r in per],
+              "stage_s_rank0": per[0]["stage_s"],
+              "traffic_per_rank": [r["traffic"] for r in per],
+              "note": note})
+        for mode in LM_MESH_MODES:
+            per = [rk["train_reduced"][shape][mode] for rk in ranks]
+            equal = [len({r[k] for r in per}) == 1 for k in (
+                "whole_checksum", "whole_checksum_cpu")]
+            if not all(equal):
+                failures.append(f"lm_mesh_train reduced {shape} {mode}: the "
+                                f"whole leaves differ between ranks after "
+                                f"the step (card, CPU copies): {equal}")
+            emit({"phase": "lm_mesh_train_reduced", "shape": list(shape),
+                  "mode": mode, "card": card, "B": LM_MESH_REDUCED_BT[0],
+                  "T": LM_MESH_REDUCED_BT[1],
+                  "loss_rel_per_rank": [r["loss_rel"] for r in per],
+                  "worst_per_rank": [r["worst"] for r in per],
+                  "launches_per_rank": [r["launches"] for r in per],
+                  "launches_want": per[0]["launches_want"],
+                  "launches_on_cpu_per_rank": [r["launches_on_cpu"]
+                                               for r in per],
+                  "whole_leaves_equal_on_every_rank": equal[0],
+                  "whole_leaves_equal_on_every_rank_cpu": equal[1]})
+    failures.extend(f"rank {rk['rank']}: {f}" for rk in ranks
+                    for f in rk["failures"])
     emit({"phase": "lm_mesh_ranks", "peak_gb_per_rank": [
         rk["peak_gb"] for rk in ranks], "launches_per_rank": [
         rk["launches"] for rk in ranks], "refs_s": ref_s,
-        "spawn_s": spawn_s})
+        "spawn_s": spawn_s, "card": card})
     return sum(rk["launches"] for rk in ranks)
 
 
@@ -7102,12 +7504,16 @@ REPLACES = {
 }
 
 
-def print_card() -> None:
+def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def print_card() -> None:
+    print(card_line(), flush=True)
 
 
 USAGE = ("usage: python3 chip_smoke.py [--only <kernel>,...]\n"

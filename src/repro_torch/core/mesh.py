@@ -28,11 +28,22 @@ kind (``Mesh.traffic``).
 
 Training differentiates through the collectives, which ``shard_map``
 transposes for JAX and which torch's in-place ``torch.distributed`` calls
-hide from autograd.  So the train path takes :func:`pooled_sum` (``psum``
-whose gradient is all-reduced too) and :func:`partial_sum_columns` (the
-dense layer's all-reduce of row-block partials, then the rank's own
-columns, whose gradient is the all-gather of the columns' gradients), and
-the in-place forms refuse a tensor that requires a gradient.  The train
+hide from autograd.  So the graph mesh's train path, where every rank's
+loss differs, takes :func:`pooled_sum` (``psum`` whose gradient is
+all-reduced too) and :func:`partial_sum_columns` (the dense layer's
+all-reduce of row-block partials, then the rank's own columns, whose
+gradient is the all-gather of the columns' gradients), and the in-place
+forms refuse a tensor that requires a gradient.  On the LM mesh the loss
+is the same on every rank, and the pairs are Megatron's:
+:func:`copy_to_axis` (a value replicated over an axis enters work split
+over it: the identity, all-reduced on the way back) and
+:func:`reduce_from_axis` (partials summed into a replicated value: an
+all-reduce whose gradient is the identity); :func:`all_to_all` and
+:func:`all_gather_tiled` pass a gradient too (the reverse exchange, the
+rank's block of the replicated cotangent), :func:`all_reduce_grads`
+sums the gradient leaves over the data axes, and :func:`broadcast_first`
+hands every rank the first rank's bits of the leaves that all hold
+whole.  The graph train
 step's one world all-reduce (:func:`all_reduce_world`) sums the flattened
 gradients and the loss, Alg. 5's MPI_All_reduce.  The dataset of a mesh
 run keeps every graph on every data rank and splits its node rows over
@@ -375,17 +386,24 @@ def _no_grad_operand(t: torch.Tensor, what: str) -> None:
         raise RuntimeError(
             f"{what} is invisible to autograd: a tensor that requires a "
             f"gradient takes mesh.pooled_sum or mesh.partial_sum_columns, "
-            f"or a gathered layer of core.s2v_sparse")
+            f"a gathered layer of core.s2v_sparse, or on the LM mesh "
+            f"mesh.reduce_from_axis")
+
+
+def _sum(t: torch.Tensor, axis: Axis, key: str) -> torch.Tensor:
+    _record(axis.traffic, key, t)
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=axis.group)
+    return t
 
 
 def all_reduce_sum(t: torch.Tensor, axis: Axis) -> torch.Tensor:
     """Σ of ``t`` over the ranks of ``axis``, in place (``t`` must be
     contiguous); every rank receives the same values.  No gradient passes
-    it (:func:`pooled_sum` is the differentiable form)."""
+    it (:func:`pooled_sum` and :func:`reduce_from_axis` are the
+    differentiable forms)."""
     if axis.size > 1:
         _no_grad_operand(t, "all_reduce_sum")
-        _record(axis.traffic, f"all_reduce {axis.name}", t)
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=axis.group)
+        _sum(t, axis, f"all_reduce {axis.name}")
     return t
 
 
@@ -398,13 +416,7 @@ def all_reduce_max(t: torch.Tensor, axis: Axis) -> torch.Tensor:
     return t
 
 
-def all_gather_tiled(t: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
-    """The ranks' tiles of ``axis`` concatenated along ``dim`` in rank
-    order (``lax.all_gather(..., tiled=True)``).  The result carries no
-    gradient back to ``t``, so ``t`` must not require one."""
-    if axis.size == 1:
-        return t
-    _no_grad_operand(t, "all_gather_tiled")
+def _gather(t: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
     _record(axis.traffic, f"all_gather {axis.name}", t)
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(axis.size)]
@@ -412,24 +424,79 @@ def all_gather_tiled(t: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
+def _exchange(t: torch.Tensor, axis: Axis, key: str) -> torch.Tensor:
+    _record(axis.traffic, key, t)
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t, group=axis.group)
+    return out
+
+
+class _GatherReplicated(torch.autograd.Function):
+    """The tiled all-gather whose result's cotangent is the same on every
+    rank of the axis (a loss replicated over it): each tile's gradient is
+    this rank's block of that cotangent, with no communication."""
+
+    @staticmethod
+    def forward(ctx, t, axis, dim):
+        ctx.axis, ctx.dim, ctx.n = axis, dim, t.shape[dim]
+        return _gather(t.detach(), axis, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.axis.index * ctx.n,
+                           ctx.n).contiguous(), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """The block exchange, whose transpose is the same exchange of the
+    cotangent (block j went to rank j's block ``index``)."""
+
+    @staticmethod
+    def forward(ctx, t, axis):
+        ctx.axis = axis
+        return _exchange(t.detach(), axis, f"all_to_all {axis.name}")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _exchange(grad, ctx.axis,
+                         f"all_to_all {ctx.axis.name} backward"), None
+
+
+def _needs_grad(t: torch.Tensor) -> bool:
+    return t.requires_grad and torch.is_grad_enabled()
+
+
+def all_gather_tiled(t: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+    """The ranks' tiles of ``axis`` concatenated along ``dim`` in rank
+    order (``lax.all_gather(..., tiled=True)``).  Its gradient is this
+    rank's block of the result's: right where that cotangent is the same
+    on every rank of ``axis``, as on the LM mesh, whose loss is replicated
+    (not a reduce-scatter, which a rank's own loss would need)."""
+    if axis.size == 1:
+        return t
+    if _needs_grad(t):
+        return _GatherReplicated.apply(t, axis, dim)
+    return _gather(t, axis, dim)
+
+
 def all_to_all(t: torch.Tensor, axis: Axis) -> torch.Tensor:
     """The exchange of ``t``'s leading blocks over the ranks of ``axis``
     (``lax.all_to_all(..., split_axis=0, concat_axis=0, tiled=False)``):
     ``t`` is (size, ...), and block j of the result is block ``index`` of
-    rank j's ``t``.  No gradient passes it.  gloo takes CUDA operands too
-    (ranks that share a card), and moves them through the host itself."""
+    rank j's ``t``.  Its gradient is the same exchange of the result's
+    (counted as ``all_to_all <axis> backward``).  gloo takes CUDA operands
+    too (ranks that share a card), and moves them through the host
+    itself."""
     if axis.size == 1:
         return t
     if t.shape[0] != axis.size:
         raise ValueError(f"all_to_all over the {axis.name} axis of size "
                          f"{axis.size} needs a leading dim of that size, got "
                          f"{tuple(t.shape)}")
-    _no_grad_operand(t, "all_to_all")
-    _record(axis.traffic, f"all_to_all {axis.name}", t)
-    t = t.contiguous()
-    out = torch.empty_like(t)
-    dist.all_to_all_single(out, t, group=axis.group)
-    return out
+    if _needs_grad(t):
+        return _AllToAll.apply(t, axis)
+    return _exchange(t, axis, f"all_to_all {axis.name}")
 
 
 def all_reduce_world(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
@@ -496,6 +563,85 @@ def partial_sum_columns(partial: torch.Tensor,
     if axis is None or axis.size == 1:
         return partial
     return _PartialSumColumns.apply(partial, axis)
+
+
+class _CopyToAxis(torch.autograd.Function):
+    """Megatron's f: the identity, whose gradient is summed over the
+    axis."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum(grad.clone(memory_format=torch.contiguous_format),
+                    ctx.axis, f"all_reduce {ctx.axis.name} backward"), None
+
+
+class _ReduceFromAxis(torch.autograd.Function):
+    """Megatron's g: Σ over the axis, whose gradient is the identity."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        return _sum(x.detach().clone(memory_format=torch.contiguous_format),
+                    axis, f"all_reduce {axis.name}")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_axis(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """``x``, replicated over ``axis``, entering work split over it (the
+    LM mesh's tokens and router before the experts of ``model``): the
+    identity, whose gradient is the sum of the ranks' partial gradients
+    (``shard_map``'s transpose of an input its spec leaves unsplit)."""
+    if axis.size == 1 or not _needs_grad(x):
+        return x
+    return _CopyToAxis.apply(x, axis)
+
+
+def reduce_from_axis(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """Σ over ``axis`` of the ranks' partials into a value replicated over
+    it, whose gradient passes to each partial unchanged (the loss is
+    replicated, so its cotangent already is).  Without a gradient the sum
+    is taken in place in a contiguous ``x``."""
+    if axis.size == 1:
+        return x
+    if not _needs_grad(x):
+        return all_reduce_sum(x.contiguous(), axis)
+    return _ReduceFromAxis.apply(x, axis)
+
+
+def broadcast_first(ts: Sequence[torch.Tensor], axis: Axis) -> None:
+    """Each tensor of ``ts`` (contiguous) overwritten in place by the first
+    rank's of ``axis``, one broadcast a tensor, counted as
+    ``grad_broadcast <axis>``: the ranks then hold the same bits, where
+    each computed its own from the same inputs by kernels whose bits may
+    differ between processes."""
+    if axis.size == 1:
+        return
+    src = dist.get_global_rank(axis.group, 0)
+    for t in ts:
+        _record(axis.traffic, f"grad_broadcast {axis.name}", t)
+        dist.broadcast(t, src, group=axis.group)
+
+
+def all_reduce_grads(grads: Sequence[torch.Tensor],
+                     axes: Sequence[Axis]) -> List[torch.Tensor]:
+    """Each gradient summed over the ranks of every axis of ``axes`` (the
+    LM mesh's data axes), one all-reduce a leaf and an axis, counted as
+    ``grad_all_reduce <axis>``: no flattened copy of the gradients, which
+    at full width would be a second set of them.  Returns the summed
+    leaves (each ``grads`` leaf itself where it is contiguous)."""
+    out = [g.contiguous() for g in grads]
+    for ax in axes:
+        if ax.size > 1:
+            for g in out:
+                _sum(g, ax, f"grad_all_reduce {ax.name}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -785,6 +931,26 @@ def _rank_main(fn, rank: int, dp: int, sp: int, device, backend: str,
         results.put((rank, True, out))
     except BaseException:                 # reported to the parent, who raises
         results.put((rank, False, traceback.format_exc()))
+
+
+TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK")
+
+
+def join_torchrun(backend: str, device: DeviceLike
+                  ) -> Tuple[int, torch.device]:
+    """Join the process group that ``torchrun`` describes in the
+    environment (``TORCHRUN_VARS`` and its rendezvous) on this rank's
+    device (:func:`rank_device`), which becomes the current card.  Returns
+    (rank, device)."""
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    local_rank = int(os.environ["LOCAL_RANK"])
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    dev = rank_device(backend, device, local_rank, local_world)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method="env://", rank=rank,
+                            world_size=world)
+    return rank, dev
 
 
 def spawn_mesh(fn: Callable, dp: int, sp: int, *, device: DeviceLike,

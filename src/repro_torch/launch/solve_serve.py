@@ -38,15 +38,12 @@ import time
 
 import numpy as np
 
-TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK")
+from ..core.mesh import TORCHRUN_VARS, join_torchrun, normalize_spatial
 
 
 def init_mesh_ranks(spatial, backend, device):
     """Join the process group ``torchrun`` describes in the environment and
     return this rank's (rank, device).  Raises without ``torchrun``."""
-    import torch
-    import torch.distributed as dist
-    from ..core.mesh import normalize_spatial, rank_device
     dp, sp = normalize_spatial(spatial)
     if any(v not in os.environ for v in TORCHRUN_VARS):
         raise RuntimeError(
@@ -58,15 +55,7 @@ def init_mesh_ranks(spatial, backend, device):
     if backend is None:
         raise ValueError("--spatial needs --dist-backend: nccl (one card per "
                          "rank) or gloo (CPU ranks, or ranks sharing a card)")
-    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
-    local_rank = int(os.environ["LOCAL_RANK"])
-    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
-    dev = rank_device(backend, device, local_rank, local_world)
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
-    dist.init_process_group(backend, init_method="env://", rank=rank,
-                            world_size=world)
-    return rank, dev
+    return join_torchrun(backend, device)
 
 
 def main(argv=None):

@@ -21,23 +21,31 @@ d) broadcast of the tokens, on a mesh on each rank's (E_loc, C, d)
 capacity buffer; the hand-written kernels on CUDA tensors, the plain
 version on CPU tensors.  JAX runs the expert-parallel modes inside
 ``shard_map``; the port writes them as rank code over the LM mesh's
-``model`` and data axes (``moe_sharded_apply``).
+``model`` and data axes (``moe_sharded_apply``), differentiable by
+``shard_map``'s transpose: the tokens and the router enter the split work
+through ``copy_to_axis`` (their gradients summed over ``model``), the
+partial outputs leave through ``reduce_from_axis``, the exchanges pass
+their gradients back, and the aux loss keeps JAX's value and gradient
+(``_AuxOfMesh``).
 
 The expert count is padded to a multiple of 16 so expert weights shard on
 any production mesh (the padded experts are unroutable).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
-from ..core.mesh import all_gather_tiled, all_reduce_sum, all_to_all
+from ..core.mesh import (all_gather_tiled, all_reduce_sum, all_to_all,
+                         copy_to_axis, reduce_from_axis)
 from ..kernels.moe_gemm import grouped_glu_ffn
 from .common import F32, dense_init
+from ..sharding.rules import data_axes_of
 from .shard import NO_SHARD
 
 EXPERT_PAD = 16
-MESH_ITEM = "ROADMAP A8e, 'LM training on the mesh'"
 
 
 def padded_experts(n: int) -> int:
@@ -108,8 +116,12 @@ def init_moe(gen, cfg, dtype, device):
     return p
 
 
-def _route(router_w, x_flat, k: int):
-    """Returns (ids (T,k), weights (T,k) renormalized, aux_loss scalar)."""
+def _route(router_w, x_flat, k: int, batch_axes=()):
+    """Returns (ids (T,k), weights (T,k) renormalized, aux_loss scalar).
+    ``batch_axes`` are the mesh axes the batch's rows are split over where
+    the layer is JAX's global one (the dense layer on a mesh): the
+    load-balance means are then the global batch's, their blocks' means
+    averaged over those axes."""
     logits = torch.einsum("td,de->te", x_flat.float(), router_w)
     probs = torch.softmax(logits, dim=-1)
     w, ids = torch.topk(probs, k, dim=-1)
@@ -117,13 +129,19 @@ def _route(router_w, x_flat, k: int):
     # load-balance aux (Switch-style): E * Σ_e f_e · P_e
     e = router_w.shape[1]
     f = F.one_hot(ids, e).to(F32).sum(1).mean(0)
-    aux = e * torch.sum(f * probs.mean(0))
+    pm = probs.mean(0)
+    for ax in batch_axes:
+        f = reduce_from_axis(f, ax) / ax.size
+        pm = reduce_from_axis(pm, ax) / ax.size
+    aux = e * torch.sum(f * pm)
     return ids, w.to(x_flat.dtype), aux
 
 
-def moe_dense_apply(p, x, *, cfg, sharder=NO_SHARD):
+def moe_dense_apply(p, x, *, cfg, sharder=NO_SHARD, mesh=None):
     """Every expert for every token, combined by the router's weights; the
-    experts' GLU through B8."""
+    experts' GLU through B8.  On a ``mesh`` (``x`` the rank's rows) the
+    aux loss is the global batch's, as JAX's layer over global arrays
+    computes it."""
     b, t, d = x.shape
     e = cfg.n_experts
     if p["ewg"].shape[0] < e:
@@ -131,7 +149,9 @@ def moe_dense_apply(p, x, *, cfg, sharder=NO_SHARD):
                          f"the rank, which holds {p['ewg'].shape[0]}: a "
                          f"rank's expert block takes moe_sharded_apply")
     xf = x.reshape(b * t, d)
-    ids, w, aux = _route(p["router"], xf, cfg.experts_per_token)
+    axes = () if mesh is None else [mesh.axis(a)
+                                    for a in data_axes_of(mesh)]
+    ids, w, aux = _route(p["router"], xf, cfg.experts_per_token, axes)
     gates = torch.zeros((b * t, e), dtype=x.dtype, device=x.device)
     gates.scatter_add_(1, ids, w)
     xe = xf[None].expand(e, b * t, d).contiguous()
@@ -206,6 +226,25 @@ def _shard0(v: torch.Tensor, mesh, data_axes) -> torch.Tensor:
     return v
 
 
+class _AuxOfMesh(torch.autograd.Function):
+    """JAX's aux on the mesh: the value is data shard 0's mean over
+    ``model`` (``_pmean`` then ``_shard0``); the gradient hands each
+    rank's own aux c/n, n the devices of the layer's axes, and moves
+    nothing.  ``shard_map``'s transpose divides the P() output's
+    cotangent by the axes it leaves out and ``pmean``'s psum transposes
+    to a psum, so JAX's router gradient is the mean over the devices of
+    their aux gradients, while its value is one shard's."""
+
+    @staticmethod
+    def forward(ctx, aux, mesh, model, data_axes):
+        ctx.n = model.size * math.prod(mesh.axis(a).size for a in data_axes)
+        return _shard0(_pmean(aux.detach(), model), mesh, data_axes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad / ctx.n, None, None, None
+
+
 def moe_sharded_apply(p, x, *, cfg, mesh, mode: str = "allreduce",
                       capacity_factor: float = 1.25, sharder=NO_SHARD,
                       data_axes=("data",), model_axis="model"):
@@ -225,15 +264,15 @@ def moe_sharded_apply(p, x, *, cfg, mesh, mode: str = "allreduce",
     tokens a rank routes (its B_loc·T in allreduce mode; in alltoall mode
     its T/m of each sequence, or its 1/m of the flat tokens with
     ``alltoall_rep`` or where T does not split), so a result depends on
-    the mesh's shape unless nothing drops.  No gradient: the collectives
-    are not differentiable yet (ROADMAP A8e)."""
+    the mesh's shape unless nothing drops.
+
+    The gradient is JAX's for a loss replicated on every rank: the rank's
+    gradient of ``x``, the router and the shared expert is whole, and of
+    its expert blocks its data rank's share, which the train step sums
+    over the data axes (``lm.loss_and_grads``).  The aux loss passes c/n
+    of its cotangent c to each of the n ranks' own aux (``_AuxOfMesh``)."""
     if mode not in ("allreduce", "alltoall", "alltoall_rep"):
         raise ValueError(f"unknown MoE mode {mode!r}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, p["router"], p["ewg"], p["ewu"],
-                                      p["ewo"])):
-        raise ValueError(f"a gradient through the expert-parallel MoE "
-                         f"layer is {MESH_ITEM}, not ported yet")
     ep = padded_experts(cfg.n_experts)
     model = mesh.axis(model_axis)
     m, my = model.size, model.index
@@ -248,15 +287,18 @@ def moe_sharded_apply(p, x, *, cfg, mesh, mode: str = "allreduce",
     b_loc, t, d = x.shape
     seq_sharded = mode == "alltoall" and t % m == 0 and t >= m
     mode = "alltoall" if mode == "alltoall_rep" else mode
-    xf = x.reshape(-1, d)
+    # the shared expert below reads ``x``: it is not split over ``model``
+    xs = copy_to_axis(x, model)
+    local = dict(p, router=copy_to_axis(p["router"], model))
+    xf = xs.reshape(-1, d)
     if mode == "allreduce":
         cap = _capacity(b_loc * t, cfg, ep, capacity_factor)
-        out, aux = _moe_local(p, xf, cfg, my * e_local, e_local, cap)
-        out = all_reduce_sum(out.contiguous(), model)
+        out, aux = _moe_local(local, xf, cfg, my * e_local, e_local, cap)
+        out = reduce_from_axis(out, model)
     else:
         if seq_sharded:
             tcs = t // m
-            xc = x[:, my * tcs:(my + 1) * tcs].reshape(-1, d)
+            xc = xs[:, my * tcs:(my + 1) * tcs].reshape(-1, d)
         else:
             if xf.shape[0] % m or xf.shape[0] < m:
                 raise ValueError(f"{xf.shape[0]} tokens do not split over "
@@ -264,7 +306,7 @@ def moe_sharded_apply(p, x, *, cfg, mesh, mode: str = "allreduce",
             tc0 = xf.shape[0] // m
             xc = xf[my * tc0:(my + 1) * tc0]
         tc = xc.shape[0]
-        ids, w, aux = _route(p["router"], xc, cfg.experts_per_token)
+        ids, w, aux = _route(local["router"], xc, cfg.experts_per_token)
         cap = _capacity(tc, cfg, ep, capacity_factor)
         # a capacity buffer for every (global) expert from the local chunk
         idx, wsel = _gather_capacity(_combine_weights(ids, w, 0, ep), cap)
@@ -281,7 +323,7 @@ def moe_sharded_apply(p, x, *, cfg, mesh, mode: str = "allreduce",
             out = all_gather_tiled(outc.reshape(b_loc, t // m, d), model, 1)
         else:
             out = all_gather_tiled(outc, model, 0)
-    aux = _shard0(_pmean(aux, model), mesh, data_axes)
+    aux = _AuxOfMesh.apply(aux, mesh, model, tuple(data_axes))
     y = out.reshape(b_loc, t, d)
     if "shared" in p:
         y = y + mlp_apply(p["shared"], x, gated=True, sharder=sharder)
@@ -294,7 +336,6 @@ def moe_apply(p, x, *, cfg, mesh=None, mode: str = "dense",
     else the expert-parallel layer with the mesh's non-``model`` axes as
     its data axes."""
     if mode == "dense" or mesh is None:
-        return moe_dense_apply(p, x, cfg=cfg, sharder=sharder)
-    data_axes = tuple(a for a in mesh.axis_names if a != "model")
+        return moe_dense_apply(p, x, cfg=cfg, sharder=sharder, mesh=mesh)
     return moe_sharded_apply(p, x, cfg=cfg, mesh=mesh, mode=mode,
-                             sharder=sharder, data_axes=data_axes)
+                             sharder=sharder, data_axes=data_axes_of(mesh))

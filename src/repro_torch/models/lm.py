@@ -19,10 +19,20 @@ Steps:
   prefill(params, batch)                -> (last_logits, caches)
   decode_step(params, caches, tok, pos) -> (logits, next_tok, caches)
 
-On the LM mesh (``ctx.mesh``) the prefill and the decode step run as
-rank code: each rank on its rows of the batch and its caches, the MoE
-layers' experts split over ``model`` (``models.shard``).  The loss, and
-so the train and eval steps, refuse a mesh (ROADMAP A8e).
+On the LM mesh (``ctx.mesh``) every step runs as rank code: each rank on
+its rows of the batch (and its caches), the MoE layers' experts split
+over ``model`` (``models.shard``).  The loss is JAX's global one on every
+rank: the cross-entropies' sums and counts are summed over the data axes
+before their ratio.  The gradient is JAX's too: each rank differentiates
+that replicated loss (the MoE layer passes its gradients through its
+collectives, ``ffn.moe_sharded_apply``), then every leaf is summed over
+the data axes and none over ``model``, and the clip takes the global norm,
+the expert blocks' squares summed over ``model``.  After a step every
+whole leaf is equal on every rank, bit for bit: the ranks of a data group
+receive the same reduced bytes, and the ranks of a ``model`` group take
+model rank 0's gradients of the whole leaves, which each computed from
+the same values but by its own process's kernels, whose bits can
+differ.
 
 The train step updates the parameters and the Adam state in place (and
 returns them).  The vocabulary loss is taken in sequence chunks, each
@@ -38,12 +48,15 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from .. import optim
+from ..core.mesh import (all_reduce_grads, all_reduce_sum, broadcast_first,
+                         reduce_from_axis)
 from ..device import DeviceLike, resolve_device
+from ..sharding.rules import data_axes_of, map_with_path
 from .blocks import (ModelCtx, block_apply, build_program, init_block,
                      init_block_cache)
 from .common import (F32, dense_init, embed_init, rms_norm, tree_leaves,
                      tree_map)
-from .ffn import MESH_ITEM
+from .shard import BLOCK_AXIS, block_leaves
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 LOSS_CHUNK = 512
@@ -263,13 +276,14 @@ def _xent_chunk(hc, embed_w, lc, mc):
         return torch.sum((lse - gold) * mc), torch.sum(mc)
 
 
-def chunked_xent(h, embed_w, labels, mask=None, chunk: int = LOSS_CHUNK):
-    """Cross-entropy over the vocabulary without a full (B, T, V) logits
-    buffer.  h (B, T, d) the final hidden; embed_w (V, d) the tied output
-    head; labels (B, T).  The sequence is cut as JAX cuts it (``nc =
-    max(T // chunk, 1)`` chunks of ``T // nc`` tokens; a remainder is left
-    out), and each chunk is recomputed in the backward (JAX's
-    ``jax.checkpoint``), so one chunk's f32 logits live at a time."""
+def xent_parts(h, embed_w, labels, mask=None, chunk: int = LOSS_CHUNK):
+    """(Σ masked cross-entropy, Σ mask) over the vocabulary without a full
+    (B, T, V) logits buffer.  h (B, T, d) the final hidden; embed_w (V, d)
+    the tied output head; labels (B, T).  The sequence is cut as JAX cuts
+    it (``nc = max(T // chunk, 1)`` chunks of ``T // nc`` tokens; a
+    remainder is left out), and each chunk is recomputed in the backward
+    (JAX's ``jax.checkpoint``), so one chunk's f32 logits live at a
+    time."""
     b, t, _ = h.shape
     nc = max(t // chunk, 1)
     cs = t // nc
@@ -286,6 +300,20 @@ def chunked_xent(h, embed_w, labels, mask=None, chunk: int = LOSS_CHUNK):
             s, c = _xent_chunk(*args)
         tot = tot + s
         cnt = cnt + c
+    return tot, cnt
+
+
+def chunked_xent(h, embed_w, labels, mask=None, chunk: int = LOSS_CHUNK,
+                 mesh=None):
+    """The mean cross-entropy of :func:`xent_parts`; on a mesh the global
+    batch's, its sum and count summed over the data axes first (JAX's
+    over the global arrays), the same on every rank."""
+    tot, cnt = xent_parts(h, embed_w, labels, mask, chunk)
+    if mesh is not None:
+        both = torch.stack([tot, cnt])
+        for name in data_axes_of(mesh):
+            both = reduce_from_axis(both, mesh.axis(name))
+        tot, cnt = both[0], both[1]
     return tot / torch.clamp(cnt, min=1.0)
 
 
@@ -313,25 +341,23 @@ def loss_fn(params, cfg, batch, ctx: ModelCtx):
     out), plus ``mtp_weight`` × the MTP head's loss of the token after
     (``mtp``), plus ``router_aux_weight`` × the MoE layers' load-balance
     loss (``aux``).  metrics: ``xent``, ``aux`` and, with the MTP head,
-    ``mtp``."""
-    if ctx.mesh is not None:
-        raise ValueError(f"the loss on a mesh is {MESH_ITEM}, not ported "
-                         f"yet: its gradients need differentiable MoE "
-                         f"collectives and reductions over the mesh")
+    ``mtp``.  On a mesh each rank passes its rows of the batch, and the
+    loss and metrics are the global batch's (``aux`` data shard 0's, as
+    JAX's), the same on every rank."""
     x, labels, mask = _embed_inputs(params, cfg, batch, ctx)
     x = ctx.sharder.act(x, "act_resid_in")
     x, _, aux = _apply_segments(params, cfg, x, ctx)
     h = _final_hidden(params, cfg, x)
     if labels is None:
         labels, mask = _next_token(batch["tokens"], h.device)
-    loss = chunked_xent(h, params["embed"], labels, mask)
+    loss = chunked_xent(h, params["embed"], labels, mask, mesh=ctx.mesh)
     metrics = {"xent": loss, "aux": aux}
     if cfg.mtp_weight > 0 and not cfg.is_encoder:
         h2 = torch.einsum("btd,de->bte", h, params["mtp_proj"])
         mask2 = mask if mask is not None else torch.ones(
             labels.shape, dtype=F32, device=h.device)
         mtp = chunked_xent(h2, params["embed"], _shift_left(labels),
-                           _shift_left(mask2))
+                           _shift_left(mask2), mesh=ctx.mesh)
         metrics["mtp"] = mtp
         loss = loss + cfg.mtp_weight * mtp
     if cfg.is_moe:
@@ -342,7 +368,11 @@ def loss_fn(params, cfg, batch, ctx: ModelCtx):
 def loss_and_grads(params, cfg, batch, ctx: ModelCtx):
     """(loss, metrics, grads): the loss and its gradient with respect to
     every leaf of ``params`` (a tree of the parameters' structure and
-    dtypes; a leaf the loss does not reach gets zeros, as in JAX)."""
+    dtypes; a leaf the loss does not reach gets zeros, as in JAX).  On a
+    mesh each leaf is then summed over the data axes, one all-reduce a
+    leaf (``core.mesh.all_reduce_grads``), in the ``lm_step.grad_reduce``
+    range, and the whole leaves take model rank 0's bits
+    (``core.mesh.broadcast_first``, ``lm_step.grad_broadcast``)."""
     leaves = tree_leaves(params)
     flags = [p.requires_grad for p in leaves]
     try:
@@ -356,14 +386,54 @@ def loss_and_grads(params, cfg, batch, ctx: ModelCtx):
     finally:
         for p, f in zip(leaves, flags):
             p.requires_grad_(f)
-    got = iter([torch.zeros_like(p) if g is None else g
-                for p, g in zip(leaves, got)])
+    got = [torch.zeros_like(p) if g is None else g
+           for p, g in zip(leaves, got)]
+    if ctx.mesh is not None:
+        with record_function("lm_step.grad_reduce"):
+            got = all_reduce_grads(got, [ctx.mesh.axis(a) for a in
+                                         data_axes_of(ctx.mesh)])
+    got = iter(got)
     grads = tree_map(lambda _: next(got), params)
+    if ctx.mesh is not None:
+        # the model ranks' gradients of a whole leaf are complete, but each
+        # comes from its own process's kernels, whose bits can differ (the
+        # CPU's GEMMs by the operands' alignment): model rank 0's become
+        # every rank's, so the whole leaves stay equal bit for bit
+        with record_function("lm_step.grad_broadcast"):
+            broadcast_first(_split_blocks(grads, ctx)[0],
+                            ctx.mesh.axis(BLOCK_AXIS))
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, grads
 
 
+def _split_blocks(tree, ctx: ModelCtx):
+    """([whole leaves], [the leaves a rank holds as blocks over ``model``,
+    ``shard.block_leaves``]) of a tree of the parameters' structure."""
+    names = block_leaves(ctx.mesh, ctx.moe_mode)
+    whole, blocks = [], []
+    map_with_path(lambda path, g: (blocks if path[-1] in names
+                                   else whole).append(g), tree)
+    return whole, blocks
+
+
 # ------------------------------------------------------------- steps -------
+
+def grad_norm(grads, ctx: ModelCtx) -> torch.Tensor:
+    """The f32 global norm of the gradients: on a mesh whose ranks hold
+    the experts as blocks (``shard.block_leaves``), the whole leaves'
+    squares and the blocks' summed over ``model``, the same on every
+    rank."""
+    if not block_leaves(ctx.mesh, ctx.moe_mode):
+        return optim.global_norm(grads)
+    whole, blocks = _split_blocks(grads, ctx)
+    sq = torch.zeros((1,), dtype=F32, device=whole[0].device)
+    for g in blocks:
+        sq += torch.sum(torch.square(g.float()))
+    sq = all_reduce_sum(sq, ctx.mesh.axis(BLOCK_AXIS))[0]
+    for g in whole:
+        sq = sq + torch.sum(torch.square(g.float()))
+    return optim.sqrt_f32(sq)
+
 
 def make_train_step(cfg, ctx: ModelCtx, *, lr: float = 3e-4,
                     clip_norm: Optional[float] = 1.0):
@@ -372,12 +442,15 @@ def make_train_step(cfg, ctx: ModelCtx, *, lr: float = 3e-4,
     of ``clip_norm`` (scaled in place), then one Adam step of rate ``lr``,
     both in place.  metrics: ``loss_fn``'s, ``loss`` and ``grad_norm`` (0
     without clipping); with ``with_grads`` also ``grads``, the gradients
-    Adam took."""
+    Adam took.  On a mesh every rank calls it on its rows of the batch
+    and its parameters (the experts' blocks where ``shard.block_leaves``
+    says), and the norm is the global one (:func:`grad_norm`)."""
     def train_step(params, opt, batch, *, with_grads: bool = False):
         loss, metrics, grads = loss_and_grads(params, cfg, batch, ctx)
         with record_function("lm_step.clip"):
             if clip_norm is not None:
-                gnorm = optim.clip_by_global_norm_(grads, clip_norm)
+                gnorm = optim.clip_by_global_norm_(
+                    grads, clip_norm, grad_norm(grads, ctx))
             else:
                 gnorm = torch.zeros((), dtype=F32, device=loss.device)
         with record_function("lm_step.adam"):

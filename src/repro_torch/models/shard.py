@@ -16,9 +16,13 @@ What stands in for a ``device_put`` with a ``NamedSharding`` is
 A rank places only what its rank code computes on a block: the batch rows
 (``place_batch``, by ``sharding.batch_specs``) and the MoE expert leaves
 ``ewg``/``ewu``/``ewo`` on their expert dim (``place_params``, by the
-``model`` entry of ``sharding.param_specs``).  Every other leaf stays
+``model`` entry of ``sharding.param_specs``), where the MoE layer is
+expert-parallel (:func:`block_leaves`, which the train step's gradient
+norm and the launcher's checkpoints read too).  Every other leaf stays
 whole on every rank, a deliberate divergence from JAX's plan, whose bytes
-per device :func:`plan_bytes` gives beside the rank's own.
+per device :func:`plan_bytes` gives beside the rank's own.  Training
+sums every gradient leaf over the data axes (``sharding.data_axes_of``)
+and none over ``model``.
 """
 from __future__ import annotations
 
@@ -28,10 +32,35 @@ from typing import Any, Dict, Optional, Sequence
 
 import torch
 
+from ..core.mesh import all_gather_tiled
 from ..sharding.rules import P, leaf_shape, map_with_path, spec_shards
 from .common import tree_leaves
 
 EXPERT_LEAVES = ("ewg", "ewu", "ewo")
+BLOCK_AXIS = "model"
+
+
+def block_leaves(mesh, moe_mode: str) -> tuple:
+    """The names of the leaves a rank holds as blocks over ``model``
+    (``BLOCK_AXIS``, on their expert dim): the MoE expert leaves where the
+    layer is expert-parallel on a mesh; none on one device or with
+    ``moe_mode="dense"``, whose layer needs every expert."""
+    return EXPERT_LEAVES if mesh is not None and moe_mode != "dense" \
+        else ()
+
+
+def gather_blocks(tree, specs, mesh, names):
+    """``tree`` with each leaf named in ``names`` all-gathered whole over
+    ``model`` along the dim of its spec's ``model`` entry (every rank must
+    call it): the inverse of :meth:`Sharder.place_params` on those
+    leaves."""
+    ax = mesh.axis(BLOCK_AXIS)
+
+    def leaf(path, spec, x):
+        if path[-1] not in names:
+            return x
+        return all_gather_tiled(x, ax, list(spec).index(BLOCK_AXIS))
+    return map_with_path(leaf, specs, tree)
 
 
 class NoSharder:
@@ -72,6 +101,7 @@ class Sharder:
         """This rank's block of the global ``x`` under ``spec``: each dim
         with an entry split over its axes (the first the major one), as
         ``jax.device_put(x, NamedSharding(mesh, spec))`` lays it out."""
+        whole = x
         for dim, ax in enumerate(spec):
             names = _names(ax)
             if not names:
@@ -82,7 +112,10 @@ class Sharder:
                                  f"split over {names} ({count} blocks)")
             n = x.shape[dim] // count
             x = x.narrow(dim, index * n, n)
-        return x.contiguous()
+        # a block is the rank's own memory, not a view that keeps the
+        # whole tensor alive
+        return x.contiguous() if x is whole else x.clone(
+            memory_format=torch.contiguous_format)
 
     def place_batch(self, batch: dict, specs: dict) -> dict:
         """The rank's rows of every input of ``batch``, by ``specs``
@@ -90,13 +123,14 @@ class Sharder:
         return {k: self.place(torch.as_tensor(v), specs[k])
                 for k, v in batch.items()}
 
-    def place_params(self, params, specs):
-        """The parameter tree a rank holds: the MoE expert leaves' blocks
-        on their expert dim (the ``model`` entry of their spec in
-        ``specs``, ``sharding.param_specs``'s tree), every other leaf
-        whole."""
+    def place_params(self, params, specs, names=EXPERT_LEAVES):
+        """The parameter tree a rank holds (or a tree of the parameters'
+        structure, such as Adam's moments): the blocks of the leaves in
+        ``names`` (the MoE experts) on their expert dim (the ``model``
+        entry of their spec in ``specs``, ``sharding.param_specs``'s
+        tree), every other leaf whole."""
         def leaf(path, spec, x):
-            if path[-1] not in EXPERT_LEAVES:
+            if path[-1] not in names:
                 return x
             return self.place(x, P(*(a if a == "model" else None
                                      for a in spec)))

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -37,7 +37,7 @@ class AdamState:
     nu: Any                 # second moments
 
 
-def _sqrt(x: torch.Tensor) -> torch.Tensor:
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
     """The correctly rounded f32 square root, as XLA's: on the CPU
     ``torch.sqrt``'s vectorized f32 path is not (an ulp off in about one
     element in 150), so it takes the f64 root, whose rounding to f32 is
@@ -73,7 +73,7 @@ def global_norm(grads) -> torch.Tensor:
     sq = 0
     for g in tree_leaves(grads):
         sq = sq + torch.sum(torch.square(g.float()))
-    return _sqrt(sq)
+    return sqrt_f32(sq)
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -91,10 +91,15 @@ def clip_by_global_norm(grads, max_norm: float
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads, max_norm: float,
+                         norm: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """:func:`clip_by_global_norm` in place (the same values, no second
-    set of gradients).  Returns the norm."""
-    norm = global_norm(grads)
+    set of gradients), by ``norm`` where it is given (a mesh's global
+    norm of gradients that a rank holds only blocks of).  Returns the
+    norm."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = _clip_scale(norm, max_norm)
     for g in tree_leaves(grads):
         if g.dtype == F32:
@@ -130,7 +135,7 @@ def adam_update(params: Params, grads, state: AdamState, *,
         del g32
         m.copy_(m32)
         v.copy_(v32)
-        den = _sqrt(v32.div_(bc2)).add_(eps)
+        den = sqrt_f32(v32.div_(bc2)).add_(eps)
         del v32
         delta = m32.div_(bc1).div_(den)
         del den

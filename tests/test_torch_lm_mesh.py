@@ -20,9 +20,11 @@ shard 0's at dp > 1); at 64 (no drops) also within 1e-4 of the port's
 model in f32 at (2,2) allreduce and (1,4) alltoall: the prefill logits
 and 2 greedy decode steps (logits and tokens) within 1e-4 of JAX's jitted
 steps under ``ModelCtx(mesh, moe_mode, Sharder(...))``.  ``all_to_all``
-exchanges rank-stamped blocks and is counted in ``Mesh.traffic``; a
-gradient through the layer and whole experts on a split ``model`` axis
-are refused; ``moe_apply(mode="dense")`` on a mesh is the dense layer."""
+exchanges rank-stamped blocks and is counted in ``Mesh.traffic``; whole
+experts on a split ``model`` axis are refused; ``moe_apply(mode="dense")``
+on a mesh is the dense layer; a gradient passes the layer and the train
+and eval steps run on a one-rank mesh (their bars on 2 and 4 ranks are
+tests/test_torch_lm_mesh_train.py's)."""
 import dataclasses
 import os
 import subprocess
@@ -275,14 +277,24 @@ def test_moe_layer_collectives_by_mode(ranks):
             traffic["whole_error"]
 
 
-def test_moe_gradient_on_the_mesh_is_refused(ref):
+def test_moe_gradient_on_a_one_rank_mesh_is_the_dense_layers(ref):
+    """A gradient passes the expert-parallel layer (held to JAX's on 2 and
+    4 ranks in tests/test_torch_lm_mesh_train.py): on a (1,1) mesh at
+    factor 64, where no token drops, x's gradient is the dense layer's;
+    ``moe_apply`` passes one in alltoall mode too."""
     p = _torch_moe(ref["moe_tree"])
     x = torch.from_numpy(ref["x"]).requires_grad_(True)
-    with pytest.raises(ValueError, match="LM training on the mesh"):
-        moe_sharded_apply(p, x, cfg=_cfg(), mesh=make_host_mesh(1))
-    with pytest.raises(ValueError, match="LM training on the mesh"):
-        moe_apply(p, x, cfg=_cfg(), mesh=make_host_mesh(1),
-                  mode="alltoall")
+
+    def grad_x(y):
+        return torch.autograd.grad(y.square().sum(), x)[0]
+    want = grad_x(moe_dense_apply(p, x, cfg=_cfg())[0])
+    got = grad_x(moe_sharded_apply(p, x, cfg=_cfg(), mesh=make_host_mesh(1),
+                                   capacity_factor=64.0)[0])
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-5 * float(want.abs().max()))
+    got = grad_x(moe_apply(p, x, cfg=_cfg(), mesh=make_host_mesh(1),
+                           mode="alltoall")[0])
+    assert got.shape == x.shape and bool(torch.isfinite(got).all())
 
 
 def test_moe_apply_dense_on_a_mesh_is_the_dense_layer(ref):
@@ -295,14 +307,31 @@ def test_moe_apply_dense_on_a_mesh_is_the_dense_layer(ref):
     np.testing.assert_allclose(want.numpy(), ref["dense"], **TOL)
 
 
-def test_train_step_on_a_mesh_is_refused(ref):
+def test_train_and_eval_steps_on_a_one_rank_mesh(ref):
+    """The train and eval steps run on a mesh (held to JAX's on 2 and 4
+    ranks in tests/test_torch_lm_mesh_train.py): on a (1,1) mesh the
+    allreduce and alltoall layers route the same tokens with the same
+    capacity, so their steps agree, and the eval step's metrics are the
+    train step's."""
     from repro_torch.models import make_eval_step, make_train_step
+    from repro_torch.models.common import tree_leaves
     from repro_torch.optim import adam_init
     cfg = _cfg()
-    params = lm_params_from_numpy(ref["params_tree"], cfg, device="cpu")
-    ctx = ModelCtx(mesh=make_host_mesh(1), moe_mode="allreduce")
     batch = {"tokens": torch.from_numpy(ref["tokens"])}
-    with pytest.raises(ValueError, match="LM training on the mesh"):
-        make_train_step(cfg, ctx)(params, adam_init(params), batch)
-    with pytest.raises(ValueError, match="LM training on the mesh"):
-        make_eval_step(cfg, ctx)(params, batch)
+    got = {}
+    for mode in ("allreduce", "alltoall"):
+        params = lm_params_from_numpy(ref["params_tree"], cfg, device="cpu")
+        ctx = ModelCtx(mesh=make_host_mesh(1), moe_mode=mode)
+        metrics = make_eval_step(cfg, ctx)(params, batch)
+        _, _, m = make_train_step(cfg, ctx)(params, adam_init(params), batch,
+                                            with_grads=True)
+        for k in ("xent", "aux"):
+            assert float(m[k]) == pytest.approx(float(metrics[k]), rel=1e-6)
+        got[mode] = m
+    a, b = got["allreduce"], got["alltoall"]
+    assert float(a["loss"]) == pytest.approx(float(b["loss"]), rel=1e-6)
+    assert float(a["grad_norm"]) == pytest.approx(float(b["grad_norm"]),
+                                                  rel=1e-5)
+    for ga, gb in zip(tree_leaves(a["grads"]), tree_leaves(b["grads"])):
+        np.testing.assert_allclose(ga.numpy(), gb.numpy(), rtol=1e-4,
+                                   atol=1e-5 * float(gb.abs().max()))

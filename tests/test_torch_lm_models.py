@@ -36,7 +36,7 @@ from repro_torch.models import (ModelCtx, build_program, init_cache,
                                 init_params, layer_sigs, param_count,
                                 param_shapes)
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.models.ffn import moe_apply, padded_experts
+from repro_torch.models.ffn import padded_experts
 
 ALL = sorted(JAX_ARCHS)
 
@@ -239,15 +239,38 @@ def test_token_stream_is_jax_bit_for_bit():
 
 # ---------------------------------------------------- refusals, device -----
 
-def test_moe_on_a_mesh_is_refused_by_its_roadmap_item():
-    """The expert-parallel layer runs on a mesh (tests/test_torch_lm_mesh.py);
-    a gradient through it is ROADMAP A8e's, and is refused by its title."""
+def test_moe_gradient_on_a_mesh_is_the_dense_layers_without_drops():
+    """A gradient passes the expert-parallel layer on a mesh
+    (tests/test_torch_lm_mesh_train.py holds it to JAX's on 2 and 4
+    ranks): on a one-rank mesh at a factor that drops no token, every
+    mode's gradient of x and of every leaf is the dense layer's."""
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.ffn import moe_dense_apply, moe_sharded_apply
     cfg = get_arch("qwen2-moe-a2.7b").reduced()
-    p = init_params(cfg, device="cpu")["segments"][0][0]["ffn"]
-    x = torch.zeros((1, 2, cfg.d_model), requires_grad=True)
-    with pytest.raises(ValueError,
-                       match="ROADMAP A8e, 'LM training on the mesh'"):
-        moe_apply(p, x, cfg=cfg, mesh=make_host_mesh(1), mode="allreduce")
+    p = tree_map(lambda a: a[0].clone(),
+                 init_params(cfg, device="cpu")["segments"][0][0]["ffn"])
+    x = torch.randn((2, 4, cfg.d_model),
+                    generator=torch.Generator().manual_seed(0))
+    no_drop = padded_experts(cfg.n_experts) / cfg.experts_per_token
+
+    def grads(fn):
+        leaves = [x] + tree_leaves(p)
+        for t in leaves:
+            t.requires_grad_(True)
+        y, aux = fn(p, x)
+        got = torch.autograd.grad(y.square().sum() + aux, leaves)
+        for t in leaves:
+            t.requires_grad_(False)
+        return got
+    want = grads(lambda q, xx: moe_dense_apply(q, xx, cfg=cfg))
+    for mode in ("allreduce", "alltoall", "alltoall_rep"):
+        got = grads(lambda q, xx: moe_sharded_apply(
+            q, xx, cfg=cfg, mesh=make_host_mesh(1), mode=mode,
+            capacity_factor=no_drop))
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-4,
+                                       atol=1e-5 * float(w.abs().max()))
+            assert float(w.abs().max()) > 0
 
 
 def test_lm_entry_points_raise_without_cuda():

@@ -8,8 +8,10 @@ and its ``step`` lines' loss within rtol 1e-5 and grad norm within rtol
 1e-5 (each beside the digits printed); resumed from its own checkpoint it
 continues the run it saved bit for bit; ``--moe-mode alltoall`` without
 a mesh trains as the dense run and as JAX's launcher does; the production
-mesh raises without 256 ranks, naming ``torchrun``; without a card it
-raises unless asked for the CPU."""
+mesh raises without 256 ranks, naming ``torchrun`` (on a mesh of ranks the
+launcher trains: tests/test_torch_lm_mesh_train.py), and under torchrun
+it joins the process group first; without a card it raises unless asked
+for the CPU."""
 import contextlib
 import dataclasses
 import io
@@ -124,10 +126,37 @@ def test_launcher_resumes_from_its_checkpoint(tmp_path, capsys):
     assert float(m["loss"]) == second["losses"][0]
 
 
+def test_production_mesh_joins_the_torchrun_group(monkeypatch):
+    """With torchrun's variables set (a world of one rank here) the
+    launcher joins that process group, gloo on the CPU, before it builds
+    the production mesh, which then asks for its 256 ranks."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.core.mesh import destroy_meshes
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    for var, value in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                           MASTER_ADDR="127.0.0.1",
+                           MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(var, value)
+    assert not dist.is_initialized()
+    try:
+        with pytest.raises(RuntimeError, match="need 256 ranks.*have 1"):
+            train.main(["--arch", "qwen2-moe-a2.7b", "--reduced",
+                        "--device", "cpu", "--production-mesh"])
+        assert dist.is_initialized()
+        assert (dist.get_backend(), dist.get_world_size()) == ("gloo", 1)
+    finally:
+        destroy_meshes()
+    assert not dist.is_initialized()
+
+
 def test_launcher_refusals():
-    """The production mesh needs 256 ranks, as JAX's needs 256 devices;
-    without it ``--moe-mode alltoall`` and ``allreduce`` run the dense
-    layer, as JAX's launcher does."""
+    """The production mesh needs 256 ranks, as JAX's needs 256 devices
+    (``main(mesh=)`` trains on a smaller one); without it ``--moe-mode
+    alltoall`` and ``allreduce`` run the dense layer, as JAX's launcher
+    does."""
     base = ["--arch", "qwen2-moe-a2.7b", "--reduced", "--device", "cpu"]
     with pytest.raises(RuntimeError, match="need 256 ranks.*torchrun"):
         train.main(base + ["--production-mesh"])

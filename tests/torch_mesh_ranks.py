@@ -6,6 +6,7 @@ spawned processes (``sampled_train_agent_run`` also on one device, by
 tests/test_torch_sampling.py).  A spawned rank imports this module by
 name, so it lives apart from the test files and imports neither jax nor
 the JAX package: each rank only loads torch."""
+import os
 import time
 
 import numpy as np
@@ -1031,4 +1032,327 @@ def lm_moe_on_card(mesh, dev, cfg, moe, x, factor):
                                        capacity_factor=factor)
         out[mode] = (y.cpu().numpy(), float(aux),
                      ops.grouped_glu_ffn.launches - before)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# LM training on the mesh (tests/test_torch_lm_mesh_train.py).
+# ---------------------------------------------------------------------------
+
+def npz_tree(z, prefix, cfg):
+    """The numpy tree of ``cfg``'s parameter structure (JAX's) from the
+    flat arrays ``z`` keyed ``prefix`` + ``jax.tree_util.keystr(path)``."""
+    from repro_torch.models import param_shapes
+
+    def build(node, path):
+        if isinstance(node, dict):
+            return {k: build(v, f"{path}[{k!r}]") for k, v in node.items()}
+        if isinstance(node, list):
+            return [build(v, f"{path}[{i}]") for i, v in enumerate(node)]
+        return z[path]
+    return build(param_shapes(cfg), prefix)
+
+
+def _with_specs(tree, specs, path=""):
+    """[(keystr path, leaf name, spec, leaf)] in JAX's flattening order."""
+    if isinstance(tree, dict):
+        return [e for k in sorted(tree) for e in _with_specs(
+            tree[k], specs[k], f"{path}[{k!r}]")]
+    if isinstance(tree, list):
+        return [e for i, (t, s) in enumerate(zip(tree, specs))
+                for e in _with_specs(t, s, f"{path}[{i}]")]
+    name = path.rsplit("['", 1)[-1][:-2]
+    return [(path, name, specs, tree)]
+
+
+def _block(lm, spec):
+    """(dim, index, count) of a rank's block under ``spec``'s ``model``
+    entry."""
+    ax = lm.axis("model")
+    return (list(spec).index("model"), ax.index, ax.size)
+
+
+def _split(lm, trees, specs, names):
+    """The rank's leaves of parallel trees ``trees`` (numpy): {path:
+    values} of the whole leaves and {path: (values, block)} of its blocks
+    (the leaves named in ``names``), and a digest of the whole leaves'
+    bytes."""
+    import hashlib
+    flat = [_with_specs(t, specs) for t in trees]
+    whole, blocks, digest = {}, {}, hashlib.sha256()
+    for entries in zip(*flat):
+        path, name, spec, _ = entries[0]
+        vals = tuple(e[3].detach().cpu().numpy() for e in entries)
+        if name in names:
+            blocks[path] = (vals, _block(lm, spec))
+        else:
+            whole[path] = vals
+            for v in vals:
+                digest.update(v.tobytes())
+    return whole, blocks, digest.hexdigest()
+
+
+def _lm_layer_vjp(lm, dev, cfg, moe, x, dy, daux, mode, cf):
+    """The vjp of the MoE layer's (rows, aux) on the named mesh ``lm``:
+    this rank's rows of x's gradient, and the parameters' (the router, the
+    shared expert and the rank's expert blocks) summed over the data
+    axes."""
+    from repro_torch.core.mesh import all_reduce_grads
+    from repro_torch.models import Sharder
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.ffn import moe_sharded_apply
+    from repro_torch.models.shard import EXPERT_LEAVES
+    from repro_torch.sharding import data_axes_of, param_specs
+    whole = tree_map(lambda a: torch.as_tensor(a, device=dev), moe)
+    specs = param_specs(whole, lm)
+    p = Sharder(lm, {}).place_params(whole, specs)
+    leaves = _with_specs(p, specs)
+    for *_, t in leaves:
+        t.requires_grad_(True)
+    lo, hi = _lm_rows(lm, x.shape[0])
+    xr = torch.as_tensor(x[lo:hi], device=dev).requires_grad_(True)
+    daxes = data_axes_of(lm)
+    y, aux = moe_sharded_apply(p, xr, cfg=cfg, mesh=lm, mode=mode,
+                               capacity_factor=cf, data_axes=daxes)
+    got = torch.autograd.grad(
+        [y, aux], [xr] + [t for *_, t in leaves],
+        [torch.as_tensor(dy[lo:hi], device=dev),
+         torch.tensor(float(daux), device=dev)])
+    grads = all_reduce_grads(got[1:], [lm.axis(a) for a in daxes])
+    out = {"rows": (lo, hi), "dx": got[0].cpu().numpy(), "whole": {},
+           "blocks": {}}
+    for (path, name, spec, _), g in zip(leaves, grads):
+        if name in EXPERT_LEAVES:
+            out["blocks"][path] = (g.cpu().numpy(), _block(lm, spec))
+        else:
+            out["whole"][path] = g.cpu().numpy()
+    return out
+
+
+def _lm_train_run(lm, dev, ref, run, plan, out):
+    """Every lockstep step of ``run`` on the named mesh ``lm``, each from
+    JAX's state before it (read from ``ref``, converted and placed): the
+    step's metrics, the whole leaves of (gradients, parameters, moments)
+    from world rank 0, every rank's blocks and digest."""
+    import dataclasses
+    import os
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.convert import lm_adam_from_numpy, lm_params_from_numpy
+    from repro_torch.data import batch_spec
+    from repro_torch.models import (ModelCtx, Sharder, make_eval_step,
+                                    make_train_step, param_shapes)
+    from repro_torch.models.shard import block_leaves
+    from repro_torch.optim import adam_init
+    from repro_torch.sharding import (activation_rules, batch_specs,
+                                      param_specs)
+    name, arch, over, shape, mode = run
+    cfg = dataclasses.replace(get_arch(arch).reduced(), **over)
+    z = np.load(_ready(ref, f"{name}.npz"))
+    b, t = z["batch0/tokens"].shape
+    shp = ShapeConfig("train", t, b, "train")
+    sh = Sharder(lm, activation_rules(lm, shp))
+    specs = param_specs(param_shapes(cfg), lm)
+    names = block_leaves(lm, mode)
+    ctx = ModelCtx(mesh=lm, moe_mode=mode, sharder=sh)
+    step = make_train_step(cfg, ctx, lr=plan["lr"], clip_norm=plan["clip"])
+    bspecs = batch_specs(batch_spec(cfg, t, b, "train"), lm, shp)
+    steps = []
+    for i in range(plan["steps"]):
+        params = lm_params_from_numpy(npz_tree(z, f"s{i}/params", cfg), cfg,
+                                      device=dev)
+        opt = adam_init(params) if i == 0 else lm_adam_from_numpy(
+            {"step": np.int32(i), "mu": npz_tree(z, f"s{i}/mu", cfg),
+             "nu": npz_tree(z, f"s{i}/nu", cfg)}, cfg, device=dev)
+        params, opt.mu, opt.nu = (sh.place_params(tr, specs, names)
+                                  for tr in (params, opt.mu, opt.nu))
+        batch = sh.place_batch({k.split("/", 1)[1]: z[k] for k in z.files
+                                if k.startswith(f"batch{i}/")}, bspecs)
+        if name == plan["eval_run"] and i == 0:
+            out["eval"] = {k: float(v) for k, v in
+                           make_eval_step(cfg, ctx)(params, batch).items()}
+        params, opt, m = step(params, opt, batch, with_grads=True)
+        whole, blocks, digest = _split(lm, (m.pop("grads"), params, opt.mu,
+                                            opt.nu), specs, names)
+        steps.append({"metrics": {k: float(v) for k, v in m.items()},
+                      "whole": whole if dist.get_rank() == 0 else None,
+                      "blocks": blocks, "digest": digest})
+    z.close()
+    return steps
+
+
+def _lm_whole_bits_step(lm, dev, cfg, b, t, threads):
+    """One train step of ``cfg`` in allreduce and alltoall mode on ``lm``
+    from seeded weights and tokens, at ``threads`` CPU threads a rank (the
+    CPU's GEMMs then give bits that can differ between processes): per
+    mode the digest of the whole leaves' gradients, parameters and
+    moments after the step."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import batch_spec
+    from repro_torch.models import (ModelCtx, Sharder, init_params,
+                                    make_train_step, param_shapes)
+    from repro_torch.models.shard import block_leaves
+    from repro_torch.optim import adam_init
+    from repro_torch.sharding import (activation_rules, batch_specs,
+                                      param_specs)
+    tokens = np.random.default_rng(95).integers(0, cfg.vocab_size, (b, t),
+                                                dtype=np.int32)
+    shp = ShapeConfig("train", t, b, "train")
+    sh = Sharder(lm, activation_rules(lm, shp))
+    specs = param_specs(param_shapes(cfg), lm)
+    batch = sh.place_batch({"tokens": tokens}, batch_specs(
+        batch_spec(cfg, t, b, "train"), lm, shp))
+    before = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    out = {}
+    try:
+        for mode in ("allreduce", "alltoall"):
+            names = block_leaves(lm, mode)
+            params = sh.place_params(init_params(cfg, seed=96, device=dev),
+                                     specs, names)
+            opt = adam_init(params)
+            step = make_train_step(cfg, ModelCtx(mesh=lm, moe_mode=mode,
+                                                 sharder=sh), lr=1e-3)
+            params, opt, m = step(params, opt, batch, with_grads=True)
+            out[mode] = _split(lm, (m["grads"], params, opt.mu, opt.nu),
+                               specs, names)[2]
+    finally:
+        torch.set_num_threads(before)
+    return out
+
+
+def _launch(argv, mesh, params=None):
+    """``launch.train.main`` on ``mesh``: its losses, grad norms, printed
+    lines and the experts a rank holds."""
+    import contextlib
+    import io
+    from repro_torch.launch import train
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = train.main(argv + ["--production-mesh"], params=params,
+                         mesh=mesh)
+    ewg = res["params"]["segments"][0][0]["ffn"]["ewg"]
+    return res, {"losses": res["losses"], "grad_norms": res["grad_norms"],
+                 "lines": buf.getvalue().splitlines(),
+                 "experts_held": int(ewg.shape[-3])}
+
+
+def _ready(ref, name, timeout_s=600.0):
+    """The path of the file ``name`` in ``ref`` once the reference has
+    renamed it into place whole; raises where a writer left its failure
+    mark (``ref``/failed) or the file is ``timeout_s`` late."""
+    path, t0 = os.path.join(ref, name), time.time()
+    while not os.path.exists(path):
+        if os.path.exists(os.path.join(ref, "failed")):
+            raise RuntimeError(f"the reference failed before writing {name}")
+        if time.time() - t0 > timeout_s:
+            raise TimeoutError(f"{name} not written in {timeout_s} s")
+        time.sleep(0.2)
+    return path
+
+
+def _twin_meshes(shape, names):
+    """This rank's mesh of ``shape`` where the world holds two of them side
+    by side (rank r in copy r // size, at rank r % size of it), so one
+    spawn of ranks runs a smaller mesh too: each axis's lines of ranks
+    made into groups as ``core.mesh.make_named_mesh`` makes them, in one
+    order on every rank."""
+    import torch.distributed as dist
+    from repro_torch.core.mesh import Axis, NamedMesh
+    size, world_rank = int(np.prod(shape)), dist.get_rank()
+    rank = world_rank % size
+    coords = np.unravel_index(rank, shape)
+    ranks = np.arange(2 * size).reshape((2,) + tuple(shape))
+    traffic, axes = {}, {}
+    for i, name in enumerate(names):
+        group = None
+        if shape[i] > 1:
+            for line in np.moveaxis(ranks, i + 1, -1).reshape(-1, shape[i]):
+                grp = dist.new_group([int(r) for r in line])
+                if world_rank in line:
+                    group = grp
+        axes[name] = Axis(name, shape[i], int(coords[i]), group, traffic)
+    return NamedMesh(axis_names=tuple(names), shape=dict(zip(names, shape)),
+                     rank=rank, axes=axes, traffic=traffic)
+
+
+def lm_mesh_train(mesh, dev, ref, plan):
+    """Every check of tests/test_torch_lm_mesh_train.py in one spawn of 4
+    ranks, on named meshes (2,2), (1,4) and two side-by-side (1,2) ones
+    (``_twin_meshes``): first the launcher on the mesh, which needs none
+    of JAX's files (its loss lines on JAX's weights in allreduce and dense
+    mode at (2,2), a (1,2) run's checkpoint with the rank's gathered trees,
+    a (1,2) run resumed from the one-device checkpoint in
+    ``ref``/one_device) and a step at (1,4) whose ranks' own gradients of
+    the whole leaves can differ (``_lm_whole_bits_step``), then the MoE
+    layer's vjp, the lockstep train runs
+    and the eval step, JAX's trees read from each npz file in ``ref`` as
+    it lands (``_ready``)."""
+    import dataclasses
+    import os
+    import shutil
+    import torch.distributed as dist
+    from repro_torch.checkpoint import keyed_leaves
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.core.mesh import make_named_mesh
+    from repro_torch.models import param_shapes
+    from repro_torch.models.shard import block_leaves, gather_blocks
+    from repro_torch.sharding import param_specs
+    names = ("data", "model")
+    meshes = {(2, 2): make_named_mesh((2, 2), names),
+              (1, 4): make_named_mesh((1, 4), names),
+              (1, 2): _twin_meshes((1, 2), names)}
+    out = {"layer": {}, "runs": {}, "launch": {}}
+    argv, steps, jparams = plan["launch"]
+    lcfg = dataclasses.replace(get_arch(argv[1]).reduced(), dtype="float32")
+    for mode in ("allreduce", "dense"):
+        out["launch"][mode] = _launch(
+            argv + ["--steps", str(steps), "--moe-mode", mode],
+            meshes[(2, 2)], lm_params_from_numpy(jparams, lcfg,
+                                                 device=dev))[1]
+    lm, copy = meshes[(1, 2)], dist.get_rank() // 2
+    res, _ = _launch(argv + ["--steps", "2", "--moe-mode", "allreduce",
+                             "--ckpt-dir", os.path.join(ref,
+                                                        f"mesh_ckpt{copy}")],
+                     lm, lm_params_from_numpy(jparams, lcfg, device=dev))
+    blocks = block_leaves(lm, "allreduce")
+    specs = param_specs(param_shapes(lcfg), lm)
+    opt = res["opt"]
+    gathered = (gather_blocks(res["params"], specs, lm, blocks),
+                dataclasses.replace(
+                    opt, mu=gather_blocks(opt.mu, specs, lm, blocks),
+                    nu=gather_blocks(opt.nu, specs, lm, blocks)))
+    out["ckpt"] = {"gathered": {k: v.cpu().numpy() for k, v in
+                                keyed_leaves(gathered)}}
+    resume = os.path.join(ref, f"resume{copy}")
+    if lm.rank == 0:
+        shutil.copytree(os.path.join(ref, "one_device"), resume)
+    dist.barrier()
+    out["resume"] = _launch(argv + ["--steps", "1", "--moe-mode",
+                                    "allreduce", "--ckpt-dir", resume],
+                            lm)[1]
+    arch, over, b, t, threads = plan["whole_bits"]
+    out["whole_bits"] = _lm_whole_bits_step(
+        meshes[(1, 4)], dev, dataclasses.replace(get_arch(arch).reduced(),
+                                                 **over), b, t, threads)
+    arch, over, cases, aux_case = plan["layer"]
+    cfg = dataclasses.replace(get_arch(arch).reduced(), **over)
+    with np.load(_ready(ref, "layer.npz")) as z:
+        moe = {k: z[f"moe['{k}']"] for k in ("router", "ewg", "ewu", "ewo")}
+        moe["shared"] = {k: z[f"moe['shared']['{k}']"]
+                         for k in ("wg", "wu", "wo")}
+        x, dy, daux = z["x"], z["dy"], z["daux"]
+    for shape, mode, cf in cases:
+        key = f"{shape}/{mode}/{cf}"
+        out["layer"][key] = _lm_layer_vjp(meshes[shape], dev, cfg, moe, x,
+                                          dy, daux, mode, cf)
+        if (shape, mode, cf) == aux_case:
+            out["layer"]["aux_only/" + key] = _lm_layer_vjp(
+                meshes[shape], dev, cfg, moe, x, np.zeros_like(dy), 1.0,
+                mode, cf)
+    for run in plan["runs"]:
+        out["runs"][run[0]] = _lm_train_run(meshes[run[3]], dev, ref, run,
+                                            plan, out)
     return out
