@@ -125,6 +125,22 @@ Phases (any failed check raises, so the script exits non-zero):
    layer program says on the card (8) and never on the CPU; printed:
    each rank's warm step ms, peak GB, the gradient reduction over
    ``data`` (bytes, ms) and the collectives forward and backward.
+1f. The dry-run and roofline tools (phase dryrun, ROADMAP A8d): (a)
+   rank 0 of the 16x16 production mesh counted on the meta device
+   (``repro_torch.launch.dryrun``, ``dryrun_graph``; a shape-only mesh,
+   no process group): the paper's graph policy at N=21000,
+   qwen2-moe-a2.7b's prefill_32k in allreduce mode and gemma3-4b's
+   train_4k, each printed (counted FLOPs, bytes, peak, collectives,
+   roofline terms), none moving the card's allocated bytes even for a
+   moment; (b) the graph policy evaluation at paper scale (B=1, N=20480,
+   K=32, L=2; B2 once a call) and gemma3-4b's prefill at B=2, T=2048 in
+   bf16 (B7 29 times a call), each counted on a 1-rank shape-only mesh,
+   then run on the card with the same step function: the counted argument
+   bytes the real ones exactly, the median of 7 CUDA-event runs not below
+   the counted ``step_time_bound_s`` (the H100 data sheet's rates), the
+   counted peak above the arguments within 10% of the allocator's (else
+   the allocator's view of its peak printed), beside the card's name and
+   power limit.
 2. Served requests: GraphSolverService at K=32, L=2, multi-node
    selection, max_batch=8, warmed up, answers 16 ER(0.15) graphs of
    500..4000 nodes, on the dense, the sparse (sparse_max_degree=768) and
@@ -320,8 +336,9 @@ solves of every problem, those of B1 and B3–B5 the problems phase's
 served and full-width runs and the host engines' solves, host training
 runs and open-loop load, those of B5 and its aggregate the sampled
 training's steps, episode, host episode and resident solve, on one
-device and on the (2, 1) mesh, and those of B8 the LM mesh's layer
-calls and prefills on every rank), and last
+device and on the (2, 1) mesh, those of B8 the LM mesh's layer
+calls and prefills on every rank, and those of B2 and B7 the dry-run
+phase's timed steps), and last
 ``{"ok": true, "device": {...}}``.  It exits non-zero without a CUDA
 device, and outside a checkout.  With ``--only <kernel>,...`` (names of
 the kernels line) it runs only the build, phase 1's checks of those
@@ -2974,6 +2991,198 @@ def phase_lm_mesh(torch, dev, rows, failures):
         rk["launches"] for rk in ranks], "refs_s": ref_s,
         "spawn_s": spawn_s, "card": card})
     return sum(rk["launches"] for rk in ranks)
+
+
+# ---------------------------------------------------------------------------
+# Phase 1f: the dry-run and roofline tools (ROADMAP A8d).
+# ---------------------------------------------------------------------------
+
+# (a) counted on meta at the production mesh (16x16, rank 0)
+DRYRUN_PAPER_NODES = 21000       # the paper's largest graph
+DRYRUN_LM = (("qwen2-moe-a2.7b", "prefill_32k", "allreduce"),
+             ("gemma3-4b", "train_4k", "allreduce"))
+# (b) counted on a 1-rank shape-only mesh, then timed on the card
+DRYRUN_GRAPH = (1, PAPER_N, 32, 2, 0.15)     # B, N, K, L, rho: paper scale
+DRYRUN_PREFILL = ("gemma3-4b", 2, 2048)      # LM_SERVE's gemma3-4b prefill
+DRYRUN_WARM, DRYRUN_TIMED = 2, 7             # calls before, CUDA-event runs
+DRYRUN_PEAK_TOL = 0.10           # counted peak against the allocator's
+
+
+def dryrun_meta(torch, failures, name, fn):
+    """``fn()`` (a dry-run on meta) with the card's allocator watched: it
+    must allocate nothing there, not even for a moment.  Returns its
+    record."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rec = fn()
+    seconds = time.perf_counter() - t0
+    moved = (torch.cuda.memory_allocated() - before,
+             torch.cuda.max_memory_allocated() - before)
+    if moved != (0, 0):
+        failures.append(f"dryrun {name}: a meta count moved the card's "
+                        f"allocated bytes by {moved[0]} (peak {moved[1]})")
+    rec["host_s"] = seconds
+    return rec
+
+
+def dryrun_time(torch, fn):
+    """(median ms of ``DRYRUN_TIMED`` CUDA-event runs of one ``fn()``, each
+    after ``DRYRUN_WARM`` warm calls, and the allocator's peak bytes above
+    what was allocated before one call, its result included)."""
+    for _ in range(DRYRUN_WARM):
+        fn()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    times = []
+    for _ in range(DRYRUN_TIMED):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times)), times, peak
+
+
+def dryrun_bound(torch, failures, name, rec, args, fn, kernel, per_call):
+    """(b) for one step: the count ``rec`` (on a 1-rank shape-only mesh)
+    against ``fn()`` on the card's ``args``: the counted argument bytes
+    the real ones exactly, the measured median ms not below the bound
+    (``step_time_bound_s``), the counted peak above the arguments within
+    DRYRUN_PEAK_TOL of the allocator's (else the allocator's view of its
+    peak printed beside the count's), and ``kernel`` launched
+    ``per_call`` times a call and no other kernel.  Returns the row."""
+    from repro_torch.models.shard import tree_bytes
+    real_args = tree_bytes(args)
+    reset_counts()
+    ms, times, peak = dryrun_time(torch, fn)
+    counts = read_counts()
+    calls = DRYRUN_WARM + 1 + DRYRUN_TIMED
+    want = {n: per_call * calls if n == kernel else 0 for n in counts}
+    r, m = rec["roofline"], rec["memory"]
+    bound_ms = 1e3 * r["step_time_bound_s"]
+    gap = (m["temp_bytes"] - peak) / max(peak, 1)
+    row = {"phase": "dryrun_bound", "step": name, "card": card_line(),
+           "counted_by": rec["counted_by"],
+           "flops_counted": rec["flops"],
+           "bytes_counted": rec["bytes_accessed"],
+           **{k: r[k] for k in ("compute_s", "memory_s", "collective_s",
+                                "dominant", "analytic_flops_global",
+                                "analytic_bytes_global")},
+           "step_time_bound_ms": bound_ms, "measured_ms": ms,
+           "measured_ms_runs": times, "measured_over_bound": ms / bound_ms,
+           "argument_bytes_counted": m["argument_bytes"],
+           "argument_bytes_real": real_args,
+           "peak_above_args_counted": m["temp_bytes"],
+           "peak_above_args_measured": peak, "peak_gap": gap,
+           "peak_top_counted": rec["peak_top"][:4],
+           "launches": {n: c for n, c in counts.items() if c},
+           "count_host_s": rec["host_s"]}
+    if m["argument_bytes"] != real_args:
+        failures.append(f"dryrun {name}: counted argument bytes "
+                        f"{m['argument_bytes']}, the card's {real_args}")
+    if not ms >= bound_ms:
+        failures.append(f"dryrun {name}: measured {ms} ms below the "
+                        f"counted bound {bound_ms} ms")
+    if abs(gap) > DRYRUN_PEAK_TOL:
+        row["allocator_at_peak"] = memory_peak(torch, fn)
+        failures.append(f"dryrun {name}: counted peak {m['temp_bytes']} B "
+                        f"above the arguments, the allocator's {peak} B "
+                        f"(gap {gap:+.3f})")
+    if counts != want:
+        failures.append(f"dryrun {name}: launches {counts}, want {want}")
+    emit(row)
+    return row
+
+
+def phase_dryrun(torch, dev, failures):
+    """Phase 1f: the dry-run and roofline tools (ROADMAP A8d).  (a) rank 0
+    of the 16x16 production mesh counted on meta (``launch.dryrun``): the
+    paper's graph policy at N=21000, qwen2-moe-a2.7b's prefill_32k in
+    allreduce mode and gemma3-4b's train_4k, each summarized, none moving
+    the card's allocated bytes.  (b) two steps that one card holds,
+    counted on a 1-rank shape-only mesh and then timed on the card
+    (``dryrun_bound``): the graph policy evaluation at paper scale (B2 once
+    a call) and gemma3-4b's prefill at LM_SERVE's B=2, T=2048 in bf16 (B7
+    29 times a call; its weights made anew from the seed: ``lm_serve`` no
+    longer holds them).  Returns {kernel: launches}."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.mesh import shape_mesh
+    from repro_torch.launch import dryrun, dryrun_graph
+    from repro_torch.models import init_params
+    card = card_line()
+    rec = dryrun_meta(torch, failures, "graph", lambda: dryrun_graph
+                      .lower_graph_policy(DRYRUN_PAPER_NODES))
+    r = rec["roofline"]
+    emit({"phase": "dryrun_meta", "step": "papergraph_policy_eval",
+          "card": card, "mesh": rec["mesh"], "nodes": rec["nodes"],
+          "counted_by": rec["counted_by"], "host_s": rec["host_s"],
+          "memory": rec["memory"], "collectives": rec["collectives"],
+          "paper_model_bytes": rec["paper_model_bytes"],
+          **{k: r[k] for k in ("compute_s", "memory_s", "collective_s",
+                               "dominant", "step_time_bound_s")}})
+    for arch, shape, mode in DRYRUN_LM:
+        rec = dryrun_meta(torch, failures, f"{arch} {shape}",
+                          lambda: dryrun.lower_and_compile(arch, shape,
+                                                           moe_mode=mode))
+        print(dryrun.summarize(rec), flush=True)
+        emit({"phase": "dryrun_meta", "step": f"{arch} {shape}",
+              "card": card, "host_s": rec["host_s"],
+              **{k: rec[k] for k in ("mesh", "moe_mode", "flops",
+                                     "bytes_accessed", "memory",
+                                     "plan_argument_bytes", "traffic",
+                                     "collectives", "flops_ratio")},
+              "step_time_bound_s": rec["roofline"]["step_time_bound_s"]})
+
+    launches = {}
+    b, n, k, l, rho = DRYRUN_GRAPH
+    mesh = shape_mesh((1, 1), ("data", "graph"))
+    rec = dryrun_meta(torch, failures, "graph 1x1", lambda: dryrun_graph
+                      .lower_graph_policy(n, batch=b, k=k, l=l, mesh=mesh))
+    params, adj, sol, cand = dryrun_graph.graph_policy_inputs(n, b, k, mesh,
+                                                              device=dev)
+    adj.bernoulli_(rho, generator=torch.Generator(device=dev).manual_seed(
+        SEED + 93))
+    cand.fill_(1.0)
+    args = list(params.parameters()) + [adj, sol, cand]
+    fn = dryrun_graph.graph_policy_eval(mesh, l)
+    row = dryrun_bound(torch, failures, "graph policy eval", rec, args,
+                       lambda: fn(params, adj, sol, cand), "mp_aggregate", 1)
+    launches["mp_aggregate"] = row["launches"].get("mp_aggregate", 0)
+    del params, adj, sol, cand, args, fn
+    torch.cuda.empty_cache()
+
+    arch, b, t = DRYRUN_PREFILL
+    cfg = get_arch(arch)
+    shp = ShapeConfig("lm_serve", t, b, "prefill")
+    mesh = shape_mesh((1, 1), ("data", "model"))
+    rec = dryrun_meta(torch, failures, f"{arch} prefill 1x1",
+                      lambda: dryrun.dry_run(cfg, shp, mesh, remat=False))
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device=dev)
+    tokens = torch.from_numpy(lm_prompt(cfg, b, t, SEED + 80)).to(dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rs = dryrun.rank_step(cfg, shp, mesh, remat=False, params=params,
+                          batch={"tokens": tokens})
+    row = dryrun_bound(torch, failures, f"{arch} prefill", rec,
+                       dryrun._leaves(rs.args), lambda: rs.step(*rs.args),
+                       "swa_attention", next(spec[5] for spec in LM_SERVE
+                                             if spec[0] == arch))
+    launches["swa_attention"] = row["launches"].get("swa_attention", 0)
+    emit({"phase": "dryrun_weights", "arch": arch, "init_s": init_s})
+    del params, tokens, rs
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -7677,6 +7886,11 @@ def main(argv=None) -> int:
     if failures:
         raise AssertionError("the LM mesh failed a check:\n"
                              + "\n".join(failures))
+    with timed_phase("dryrun"):
+        dry_launches = phase_dryrun(torch, dev, failures)
+    if failures:
+        raise AssertionError("the dry-run tools failed a check:\n"
+                             + "\n".join(failures))
 
     cfg = PolicyConfig(embed_dim=32, num_layers=2)
     policy = init_policy(cfg, generator=torch.Generator().manual_seed(
@@ -7752,6 +7966,8 @@ def main(argv=None) -> int:
         launches[name] += count             # the sampled training
     for name, count in host_launches.items():
         launches[name] += count             # the host engines
+    for name, count in dry_launches.items():
+        launches[name] += count             # the dry-run's timed steps
     max_err = {(name, compute): max(r["max_abs_err"] for r in rows
                                     if r["kernel"] == name
                                     and r["compute"] == compute)

@@ -69,6 +69,12 @@ a :class:`NamedMesh` over the same ranks and groups
 (``repro_torch.launch.mesh`` builds the production and host meshes), and
 the expert-parallel MoE exchanges its capacity buffers with
 :func:`all_to_all`.
+
+:func:`shape_mesh` builds either kind of mesh as one rank of it sees it,
+with no process group: its collectives take meta tensors, record their
+calls and bytes into ``traffic`` as a real mesh's do, and return meta
+results of the right shape (``launch/dryrun.py`` counts one rank's
+program at the production mesh's shard shapes on it).
 """
 from __future__ import annotations
 
@@ -158,6 +164,30 @@ class Axis:
         return slice(self.index * n, (self.index + 1) * n)
 
 
+class _ShapeOnly:
+    """The process group of a shape-only mesh's axes: there is none."""
+
+    def __repr__(self) -> str:
+        return "SHAPE_ONLY"
+
+
+SHAPE_ONLY = _ShapeOnly()
+
+
+def _moves(group, *ts: torch.Tensor) -> bool:
+    """Whether a collective over ``group`` moves data: False on a
+    shape-only mesh's axis (:data:`SHAPE_ONLY`), whose collectives take
+    meta tensors and move nothing; a real tensor there raises."""
+    if group is not SHAPE_ONLY:
+        return True
+    for t in ts:
+        if t.device.type != "meta":
+            raise ValueError(f"a shape-only mesh moves no data: its "
+                             f"collectives take meta tensors, got one on "
+                             f"{t.device}")
+    return False
+
+
 def check_axis(axis: Optional[Axis]) -> None:
     """``axis`` is None (one device) or an :class:`Axis` of a mesh: a bare
     axis name carries no process group."""
@@ -176,7 +206,8 @@ class Mesh:
     """The (dp, sp) mesh of this rank: ``rank = data.index · sp +
     graph.index``.  ``traffic`` counts the collectives this rank has
     called on it, ``{"<kind> <axis>": [calls, bytes sent]}`` (the bytes
-    of the rank's own operand), until :func:`reset_traffic`."""
+    of the rank's own operand), until :func:`reset_traffic`.
+    ``shape_only``: built by :func:`shape_mesh`, with no process group."""
     dp: int
     sp: int
     rank: int
@@ -184,10 +215,18 @@ class Mesh:
     graph: Axis
     traffic: dict = dataclasses.field(default_factory=dict, compare=False,
                                       hash=False, repr=False)
+    shape_only: bool = False
 
     @property
     def shape(self) -> Tuple[int, int]:
         return (self.dp, self.sp)
+
+    @property
+    def size(self) -> int:
+        return self.dp * self.sp
+
+    def axis(self, name: str) -> Axis:
+        return {DATA: self.data, GRAPH: self.graph}[name]
 
 
 def make_mesh(dp: int = 1, sp: Optional[int] = None) -> Mesh:
@@ -259,13 +298,15 @@ class NamedMesh:
     the last axis varies fastest.  ``axis_names`` and ``shape`` (name →
     size) are what the sharding rules read; ``axes`` holds this rank's
     :class:`Axis` of each name, with its process group, and ``traffic``
-    counts the collectives called on them (``Mesh.traffic``'s form)."""
+    counts the collectives called on them (``Mesh.traffic``'s form);
+    ``shape_only``: built by :func:`shape_mesh`, with no process group."""
     axis_names: Tuple[str, ...]
     shape: dict
     rank: int
     axes: dict
     traffic: dict = dataclasses.field(default_factory=dict, compare=False,
                                       hash=False, repr=False)
+    shape_only: bool = False
 
     @property
     def size(self) -> int:
@@ -337,6 +378,37 @@ def _build_named_mesh(shape, axis_names, world_group) -> NamedMesh:
                      rank=rank, axes=axes, traffic=traffic)
 
 
+def shape_mesh(shape: Sequence[int], axis_names: Sequence[str],
+               rank: int = 0) -> Union[Mesh, NamedMesh]:
+    """The mesh of ``shape`` over ``axis_names`` as rank ``rank`` of it
+    sees it (the ranks row-major over the axes, as on a real mesh), with no
+    process group: each axis of size > 1 has the group
+    :data:`SHAPE_ONLY`.  Its collectives take meta tensors, record their
+    calls and bytes into ``traffic`` as a real mesh's do, and return meta
+    results of the right shape without communicating; a real tensor
+    raises at a collective that would communicate.  On axes of size 1
+    nothing communicates, so a mesh of one rank runs real tensors as one
+    device does.  The axis names ``("data", "graph")`` give the graph
+    :class:`Mesh`, any others a :class:`NamedMesh`."""
+    shape, axis_names = tuple(int(s) for s in shape), tuple(axis_names)
+    if len(shape) != len(axis_names) or len(set(axis_names)) != len(shape):
+        raise ValueError(f"mesh shape {shape} and axis names {axis_names} "
+                         f"must pair one distinct name with each size")
+    if min(shape) < 1 or not 0 <= rank < int(np.prod(shape)):
+        raise ValueError(f"no rank {rank} on a mesh of shape {shape}")
+    coords = np.unravel_index(rank, shape)
+    traffic = {}
+    axes = {name: Axis(name, size, int(i), SHAPE_ONLY if size > 1 else None,
+                       traffic)
+            for name, size, i in zip(axis_names, shape, coords)}
+    if axis_names == (DATA, GRAPH):
+        return Mesh(dp=shape[0], sp=shape[1], rank=rank, data=axes[DATA],
+                    graph=axes[GRAPH], traffic=traffic, shape_only=True)
+    return NamedMesh(axis_names=axis_names, shape=dict(zip(axis_names,
+                                                           shape)),
+                     rank=rank, axes=axes, traffic=traffic, shape_only=True)
+
+
 def destroy_meshes() -> None:
     """Forget every cached mesh, then destroy the process groups.  A
     cached mesh holds its axis groups, which ``dist.destroy_process_group``
@@ -392,7 +464,8 @@ def _no_grad_operand(t: torch.Tensor, what: str) -> None:
 
 def _sum(t: torch.Tensor, axis: Axis, key: str) -> torch.Tensor:
     _record(axis.traffic, key, t)
-    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=axis.group)
+    if _moves(axis.group, t):
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=axis.group)
     return t
 
 
@@ -412,7 +485,8 @@ def all_reduce_max(t: torch.Tensor, axis: Axis) -> torch.Tensor:
     if axis.size > 1:
         _no_grad_operand(t, "all_reduce_max")
         _record(axis.traffic, f"all_reduce_max {axis.name}", t)
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=axis.group)
+        if _moves(axis.group, t):
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=axis.group)
     return t
 
 
@@ -420,7 +494,8 @@ def _gather(t: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
     _record(axis.traffic, f"all_gather {axis.name}", t)
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(axis.size)]
-    dist.all_gather(parts, t, group=axis.group)
+    if _moves(axis.group, t):
+        dist.all_gather(parts, t, group=axis.group)
     return torch.cat(parts, dim=dim)
 
 
@@ -428,7 +503,8 @@ def _exchange(t: torch.Tensor, axis: Axis, key: str) -> torch.Tensor:
     _record(axis.traffic, key, t)
     t = t.contiguous()
     out = torch.empty_like(t)
-    dist.all_to_all_single(out, t, group=axis.group)
+    if _moves(axis.group, t):
+        dist.all_to_all_single(out, t, group=axis.group)
     return out
 
 
@@ -507,7 +583,8 @@ def all_reduce_world(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     if mesh.dp * mesh.sp > 1:
         _no_grad_operand(t, "all_reduce_world")
         _record(mesh.traffic, "all_reduce world", t)
-        dist.all_reduce(t, op=dist.ReduceOp.SUM)
+        if _moves(SHAPE_ONLY if mesh.shape_only else None, t):
+            dist.all_reduce(t, op=dist.ReduceOp.SUM)
     return t
 
 
@@ -623,10 +700,12 @@ def broadcast_first(ts: Sequence[torch.Tensor], axis: Axis) -> None:
     differ between processes."""
     if axis.size == 1:
         return
-    src = dist.get_global_rank(axis.group, 0)
+    src = None if axis.group is SHAPE_ONLY else \
+        dist.get_global_rank(axis.group, 0)
     for t in ts:
         _record(axis.traffic, f"grad_broadcast {axis.name}", t)
-        dist.broadcast(t, src, group=axis.group)
+        if _moves(axis.group, t):
+            dist.broadcast(t, src, group=axis.group)
 
 
 def all_reduce_grads(grads: Sequence[torch.Tensor],

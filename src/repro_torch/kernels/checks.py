@@ -1,7 +1,8 @@
 """Input checks shared by the kernel wrappers: every tensor on one device,
 of an accepted dtype and contiguous, and the dispatch on that device (the
-plain version on the CPU, the kernel on CUDA); and the backward that the
-LM kernels' autograd Functions share (``plain_grads``)."""
+plain version on the CPU and on meta, the kernel on CUDA); and the
+backward that the LM kernels' autograd Functions share
+(``plain_grads``)."""
 from __future__ import annotations
 
 import torch
@@ -34,11 +35,13 @@ def f32_inputs(ref: str, tensors: dict) -> list:
 
 
 def on_cpu(t: torch.Tensor, fn: str) -> bool:
-    """True for a CPU tensor (the plain version runs), False for a CUDA
-    tensor (the kernel runs); any other device raises."""
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{fn} runs on cpu or cuda, not {t.device}")
-    return t.device.type == "cpu"
+    """True for a CPU tensor (the plain version runs) and for a meta
+    tensor (the plain version propagates shapes and computes nothing:
+    ``launch.dryrun`` counts a step so), False for a CUDA tensor (the
+    kernel runs); any other device raises."""
+    if t.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"{fn} runs on cpu, cuda or meta, not {t.device}")
+    return t.device.type != "cuda"
 
 
 def plain_grads(plain, ctx, cotangents) -> tuple:

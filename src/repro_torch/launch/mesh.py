@@ -23,9 +23,15 @@ def _world() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
+def production_layout(multi_pod: bool = False):
+    """(shape, axis names) of the production mesh."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False) -> NamedMesh:
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    shape, axes = production_layout(multi_pod)
     nranks = 512 if multi_pod else 256
     have = _world()
     if have < nranks:

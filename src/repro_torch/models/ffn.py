@@ -128,7 +128,10 @@ def _route(router_w, x_flat, k: int, batch_axes=()):
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
     # load-balance aux (Switch-style): E * Σ_e f_e · P_e
     e = router_w.shape[1]
-    f = F.one_hot(ids, e).to(F32).sum(1).mean(0)
+    # the one-hot by a comparison: F.one_hot reads the ids' min back to
+    # the host on the CPU and takes other ops on each device
+    experts = torch.arange(e, device=ids.device)
+    f = (ids[:, :, None] == experts).to(F32).sum(1).mean(0)
     pm = probs.mean(0)
     for ax in batch_axes:
         f = reduce_from_axis(f, ax) / ax.size

@@ -319,14 +319,11 @@ def chunked_xent(h, embed_w, labels, mask=None, chunk: int = LOSS_CHUNK,
 
 def _next_token(tokens, dev):
     """JAX's next-token labels and mask: the inputs shifted left by one,
-    the last position padded with 0 and masked out."""
+    the last position padded with 0 and masked out (shifted tensors, no
+    scalar assignment, whose ops differ by device)."""
     tokens = torch.as_tensor(tokens, device=dev)
-    b, t = tokens.shape
-    labels = torch.zeros((b, t), dtype=tokens.dtype, device=dev)
-    labels[:, :-1] = tokens[:, 1:]
-    mask = torch.zeros((b, t), dtype=F32, device=dev)
-    mask[:, :-1] = 1.0
-    return labels, mask
+    return _shift_left(tokens), _shift_left(torch.ones(tokens.shape,
+                                                       dtype=F32, device=dev))
 
 
 def _shift_left(a):

@@ -41,8 +41,9 @@ def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
     """The correctly rounded f32 square root, as XLA's: on the CPU
     ``torch.sqrt``'s vectorized f32 path is not (an ulp off in about one
     element in 150), so it takes the f64 root, whose rounding to f32 is
-    exact; CUDA's f32 ``sqrt`` is correctly rounded."""
-    if x.is_cuda:
+    exact; CUDA's f32 ``sqrt`` is correctly rounded.  A meta tensor takes
+    CUDA's route, so a step counted on meta is the card's."""
+    if x.device.type != "cpu":
         return torch.sqrt(x)
     return torch.sqrt(x.double()).float()
 

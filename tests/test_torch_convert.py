@@ -145,7 +145,9 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.serving, repro_torch.checkpoint, repro_torch.convert, "
             "repro_torch.optim, repro_torch.configs, repro_torch.models, "
             "repro_torch.data, repro_torch.launch.serve, "
-            "repro_torch.launch.solve_serve, repro_torch.kernels.build; "
+            "repro_torch.launch.solve_serve, repro_torch.kernels.build, "
+            "repro_torch.roofline.report, repro_torch.roofline.count, "
+            "repro_torch.launch.dryrun, repro_torch.launch.dryrun_graph; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')); "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -5,7 +5,8 @@ kernels wkv6, sliding-window attention and the grouped GLU FFN) against
 its plain version, the sparse and CSR layers' closed-form backwards
 against autograd, and the solve and service paths through them, on
 one device and on a two-rank mesh sharing the card; the LM mesh's MoE
-layer on such a mesh.  Every test here
+layer on such a mesh; the dry-run's counts of a step against the card's
+run of the same step.  Every test here
 needs a card and skips, saying so, without one.  The file imports
 neither jax nor the JAX package, so it also runs where only torch is
 installed:
@@ -1123,3 +1124,66 @@ def test_lm_moe_layer_on_a_two_rank_gloo_mesh_on_the_card(cuda):
             assert launches == 2
             np.testing.assert_allclose(y, want.numpy(), rtol=1e-4,
                                        atol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["prefill", "train", "decode"])
+def test_dry_run_counts_a_kernel_free_step_as_the_card_runs_it(cuda, mode):
+    """granite-20b reduced runs no LM kernel, so its step on the card is
+    the one counted on meta: the same counts on both devices, and the
+    counted peak above the arguments within 10% of the allocator's."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.mesh import shape_mesh
+    from repro_torch.data import synthetic_batch
+    from repro_torch.launch import dryrun
+    from repro_torch.models import init_params
+    from repro_torch.roofline.count import count
+    cfg = get_arch("granite-20b").reduced()
+    shape = ShapeConfig("tiny", 64, 4, mode)
+    mesh = shape_mesh((1, 1), ("data", "model"))
+    on_meta = dryrun.rank_step(cfg, shape, mesh)
+    meta = count(on_meta.step, *on_meta.args)[1]
+    rs = dryrun.rank_step(
+        cfg, shape, mesh, params=init_params(cfg, seed=0, device=cuda),
+        batch=synthetic_batch(cfg, 64, 4, mode, seed=1, device=cuda))
+    rs.step(*rs.args)                       # cuBLAS's workspace, once
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, card = count(rs.step, *rs.args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert (card.flops, card.bytes, card.peak, card.ops) == \
+        (meta.flops, meta.bytes, meta.peak, meta.ops)
+    assert abs(meta.peak - peak) <= 0.10 * peak
+
+
+def test_dry_run_bound_holds_the_paper_scale_policy_eval(cuda):
+    """The policy evaluation at B=1, N=4096 counted on a 1-rank shape-only
+    mesh, then run on the card: the counted bound not above the measured
+    time, the counted peak within 10% of the allocator's, B2 once."""
+    from repro_torch.core.mesh import shape_mesh
+    from repro_torch.launch import dryrun_graph
+    mesh = shape_mesh((1, 1), ("data", "graph"))
+    rec = dryrun_graph.lower_graph_policy(4096, mesh=mesh)
+    params, adj, sol, cand = dryrun_graph.graph_policy_inputs(4096, 1, 32,
+                                                              mesh, cuda)
+    adj.bernoulli_(0.15)
+    cand.fill_(1.0)
+    fn = dryrun_graph.graph_policy_eval(mesh, 2)
+    fn(params, adj, sol, cand)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = ks.mp_aggregate.launches
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn(params, adj, sol, cand)
+    end.record()
+    end.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert ks.mp_aggregate.launches == before + 1
+    assert start.elapsed_time(end) >= 1e3 * rec["roofline"][
+        "step_time_bound_s"]
+    assert abs(rec["memory"]["temp_bytes"] - peak) <= 0.10 * peak
+    assert tuple(out[1].shape) == (1, 4096)

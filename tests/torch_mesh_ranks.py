@@ -1,7 +1,7 @@
 """Rank functions of tests/test_torch_mesh.py, tests/test_torch_mesh_train.py,
 tests/test_torch_problems_mesh.py, tests/test_torch_mesh_async.py,
-tests/test_torch_mesh_host.py, tests/test_torch_lm_mesh.py and
-tests/test_torch_cuda.py, run by ``repro_torch.core.mesh.spawn_mesh`` in
+tests/test_torch_mesh_host.py, tests/test_torch_lm_mesh.py,
+tests/test_torch_dryrun.py and tests/test_torch_cuda.py, run by ``repro_torch.core.mesh.spawn_mesh`` in
 spawned processes (``sampled_train_agent_run`` also on one device, by
 tests/test_torch_sampling.py).  A spawned rank imports this module by
 name, so it lives apart from the test files and imports neither jax nor
@@ -1356,3 +1356,40 @@ def lm_mesh_train(mesh, dev, ref, plan):
         out["runs"][run[0]] = _lm_train_run(meshes[run[3]], dev, ref, run,
                                             plan, out)
     return out
+
+
+def mesh_collectives(lm, graph, make):
+    """Each collective of ``core.mesh`` once: on the LM mesh ``lm``'s
+    ``model`` axis (sum, max, tiled gather, exchange, gradient sum,
+    broadcast, Megatron's f and g with a backward) and the graph mesh
+    ``graph``'s world sum, on tensors ``make(shape, value)`` gives (a
+    value that depends on the rank).  Returns ({name: result}, the LM
+    mesh's traffic, the graph mesh's traffic).  tests/test_torch_dryrun.py
+    runs it on real ranks and on their shape-only twins."""
+    from repro_torch.core import mesh as m
+    ax, r = lm.axis("model"), lm.rank
+    out = {"sum": m.all_reduce_sum(make((3,), r + 1.0), ax),
+           "max": m.all_reduce_max(make((2,), 2.0 * r), ax),
+           "gather": m.all_gather_tiled(make((2, 3), r), ax, 1),
+           "a2a": m.all_to_all(make((2, 4), r), ax),
+           "grads": m.all_reduce_grads([make((5,), r + 1.0)], [ax])[0]}
+    b = make((4,), r + 3.0)
+    m.broadcast_first([b], ax)
+    out["bcast"] = b
+    x = make((3,), r + 1.0).requires_grad_()
+    with torch.enable_grad():
+        y = m.reduce_from_axis(m.copy_to_axis(x, ax) * 2.0, ax)
+        (out["copy_grad"],) = torch.autograd.grad(y.sum(), x)
+    out["reduce"] = y.detach()
+    out["world"] = m.all_reduce_world(graph, make((2,), r + 1.0))
+    return out, dict(lm.traffic), dict(graph.traffic)
+
+
+def real_mesh_collectives(mesh, dev):
+    """:func:`mesh_collectives` on this spawn's (1, 2) graph mesh and the
+    (1, 2) LM mesh of the same ranks, on CPU tensors."""
+    from repro_torch.core.mesh import make_named_mesh
+    lm = make_named_mesh((1, 2), ("data", "model"))
+    out, lt, gt = mesh_collectives(
+        lm, mesh, lambda shape, v: torch.full(shape, float(v), device=dev))
+    return {k: v.numpy() for k, v in out.items()}, lt, gt
