@@ -106,12 +106,24 @@ Phases (any failed check raises, so the script exits non-zero):
    (b) at the default 1.25 on the card against the same call on CPU
    copies over the same gloo groups (B8's plain version), by the same
    rule, aux within 1e-5: B8 twice a card call on each rank's capacity
-   buffer and never on the CPU copies; (c) the model cut to 2 layers in
-   f32 in allreduce mode, each rank's prefill logits within 1e-4 of the
-   largest |logit| of the parent's (1, 1) prefill of the same rows, B8 4
-   launches a prefill; (d) printed: ms of a layer call and a prefill
-   (ranks share one card: not a scaling figure), each rank's peak GB,
-   bytes held beside JAX's plan, and collectives by kind and bytes.
+   buffer and never on the CPU copies; (c) serving on the tensor-parallel
+   blocks (ROADMAP A9a): the model cut to 2 layers in f32 in allreduce
+   mode at both shapes, and gemma3-4b at full width (8 heads over 4 kv
+   heads, vocabulary 262,144) cut to its first 2 layers (both window
+   layers) at (1, 4), each rank holding its heads, d_ff, shared-expert
+   d_ff and vocabulary rows as blocks over ``model`` beside its experts:
+   the prefill of the rank's rows and 2 greedy decode tokens, logits
+   within 1e-4 of the largest |logit| of the parent's (1, 1) run on the
+   same rows and the same tokens, first on the expert-only blocks of
+   ROADMAP A8c (timed beside), then on the serving blocks with the counts
+   at 0 (B8 4 launches a qwen2-moe prefill and a decode token, B7 2 a
+   gemma3-4b prefill), each rank's first B7 launch on its 2 query heads
+   and first B8 launch on its expert buffer held to their plain versions
+   and f64 (``lm_tol``), its bytes of the blocks JAX's plan
+   (``param_specs(zero3=False)``) to the byte; (d) printed: ms of a layer
+   call, a prefill and a warm decode token in both layouts (ranks share
+   one card: not a scaling figure), each rank's peak GB, bytes held
+   beside JAX's plan, and collectives by kind and bytes.
    Then training on both meshes (ROADMAP A8e): (e) the model at full
    width cut to one layer in f32, allreduce, lr 3e-4, clip 1.0, remat
    on: a cold step whose loss and grad norm are within 1e-5 and 1e-4 of
@@ -2232,15 +2244,23 @@ LM_MESH_TRAIN_NORM = 1e-4        # relative
 LM_MESH_REDUCED = dict(dtype="float32", n_experts=60, experts_per_token=4)
 LM_MESH_REDUCED_BT = (4, 32)
 LM_MESH_REDUCED_LR = 1e-3
+# (c) serving on the tensor-parallel blocks (ROADMAP A9a): each model cut
+# to LM_MESH_LAYERS in f32 at its shapes and MoE mode, a prefill of
+# LM_MESH_BT and LM_MESH_DECODE greedy tokens after it.  gemma3-4b's first
+# two layers are window layers (window 1024 > T), so B7 runs on a rank's
+# 2 of 8 query heads; its 4 kv heads split one a rank.
+LM_MESH_SERVE = (("qwen2-moe-a2.7b", LM_MESH_SHAPES, "allreduce"),
+                 ("gemma3-4b", ((1, 4),), "dense"))
+LM_MESH_DECODE = 2
+LM_MESH_KERNELS = ("swa_attention", "grouped_glu_ffn")
 
 
-def lm_mesh_cfgs():
-    """(the layer's config, the model's: cut to LM_MESH_LAYERS, f32)."""
+def lm_mesh_serve_cfg(arch):
+    """``arch`` at full width cut to LM_MESH_LAYERS, in f32."""
     import dataclasses
     from repro_torch.configs import get_arch
-    cfg = get_arch(LM_MESH_ARCH)
-    return cfg, dataclasses.replace(cfg, n_layers=LM_MESH_LAYERS,
-                                    dtype="float32")
+    return dataclasses.replace(get_arch(arch), n_layers=LM_MESH_LAYERS,
+                               dtype="float32")
 
 
 def moe_terms(torch, p, x, cfg, chunk=16):
@@ -2358,43 +2378,139 @@ def lm_mesh_layer(torch, lm, dev, cfg, whole, x, dense_y, scale, tol):
     return rows, launches
 
 
-def lm_mesh_model(torch, lm, cfg2, params, tokens):
-    """(c) of ``phase_lm_mesh`` on one mesh: the 2-layer model's prefill of
-    this rank's rows in allreduce mode (counted, then LM_MESH_TIMED timed),
-    its logits, collectives and B8 launches, and the bytes the rank holds
-    beside JAX's plan."""
+def rank_first_call(torch, kernel, seen):
+    """A rank's first launch of ``kernel`` on the serving path (``seen``,
+    from ``first_call``) against its plain version and f64 by
+    ``compare``'s rules and ``lm_tol`` (B7: |want|; B8: the sum of
+    |terms|), returned unprinted: the shape, the largest difference and
+    the worst ratios to the tolerance (> 1 fails)."""
+    from repro_torch.kernels.moe_gemm import grouped_glu_ffn_plain
+    from repro_torch.kernels.swa import swa_attention_plain
+    args, kw, out = seen["args"], seen["kw"], seen["out"]
+    f32 = [a.float() for a in args]
+    tol = lm_tol(kernel)
+    if kernel == "swa_attention":
+        want = swa_attention_plain(*f32, window=kw["window"],
+                                   scale=kw["scale"])
+        exact = swa_exact(torch, *f32, kw["window"])
+        scale, scale64 = want.abs(), exact.abs()
+        bh, t, d = f32[0].shape
+        shape = {"BH": bh, "T": t, "d": d, "window": kw["window"]}
+    else:
+        want = grouped_glu_ffn_plain(*f32)
+        exact, scale = glu_exact(torch, *f32)
+        scale64 = scale
+        e, c, d = f32[0].shape
+        shape = {"E": e, "C": c, "d": d, "f": f32[1].shape[2]}
+    diff = (out.float() - want).abs()
+    return {**shape, "tol": tol, "max_abs_err": float(diff.max()),
+            "worst_ratio_to_tol": float((diff / (tol + tol * scale)).max()),
+            "worst_ratio_vs_f64": float(((out.double() - exact).abs()
+                                         / (tol + tol * scale64)).max())}
+
+
+def lm_mesh_generate(torch, cfg, prefill, decode, params, batch, rows,
+                     mesh=None):
+    """A prefill of ``batch`` then LM_MESH_DECODE greedy tokens from its
+    caches grown by LM_MESH_DECODE + LM_MESH_TIMED slots, the first token
+    the prefill's argmax, then LM_MESH_TIMED more tokens, warm, timed:
+    (prefill logits, [(logits, next tokens)] of the first LM_MESH_DECODE,
+    the median ms of a timed token, the first tokens' collectives on
+    ``mesh``)."""
+    from repro_torch.core.mesh import reset_traffic
+    logits, caches = prefill(params, batch)
+    caches = grown_cache(torch, cfg, caches, LM_MESH_DECODE + LM_MESH_TIMED)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    t = batch["tokens"].shape[1]
+    steps, ms, traffic = [], [], {}
+    if mesh is not None:
+        reset_traffic(mesh)
+    for i in range(LM_MESH_DECODE + LM_MESH_TIMED):
+        if i == LM_MESH_DECODE and mesh is not None:
+            traffic = reset_traffic(mesh)
+        pos = torch.full((rows,), t + i, dtype=torch.int32,
+                         device=tok.device)
+        (lg, nxt, caches), step_ms = wall_ms(
+            torch, lambda: decode(params, caches, tok, pos), 1)
+        if i < LM_MESH_DECODE:
+            steps.append((lg.cpu().numpy(), nxt.cpu().numpy()))
+        else:
+            ms.append(step_ms)
+        tok = nxt[:, None]
+    return logits.cpu().numpy(), steps, float(np.median(ms)), traffic
+
+
+def lm_mesh_serve(torch, lm, dev, arch, mode, tokens):
+    """(c) of ``phase_lm_mesh`` for one model on one mesh: the rank's rows
+    of ``tokens`` prefilled, then LM_MESH_DECODE greedy tokens
+    (``lm_mesh_generate``), first on the expert-only blocks (ROADMAP A8c),
+    then on the serving blocks (``block_leaves(serving=True)``, placed
+    from the whole f32 tree, which is freed before they run: four ranks
+    share the card) with the counts at 0 and the first launch of each LM
+    kernel held to its plain version (``rank_first_call``).  Per layout:
+    logits, tokens, ms of a prefill (LM_MESH_TIMED) and a decode token,
+    launches, collectives, and the bytes held beside JAX's plan, of every
+    leaf and of the blocks."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.mesh import reset_traffic
     from repro_torch.data import batch_spec
-    from repro_torch.models import ModelCtx, Sharder, make_prefill, \
-        param_shapes
-    from repro_torch.models.shard import plan_bytes, tree_bytes
-    from repro_torch.sharding import (activation_rules, batch_specs,
-                                      param_specs)
+    from repro_torch.models import ModelCtx, Sharder, init_params, \
+        make_decode_step, make_prefill, param_shapes
+    from repro_torch.models.shard import block_bytes, block_leaves, \
+        plan_bytes, tree_bytes
+    from repro_torch.sharding import activation_rules, batch_specs, \
+        param_specs
+    cfg = lm_mesh_serve_cfg(arch)
     b, t = tokens.shape
     shp = ShapeConfig("prefill", t, b, "prefill")
     sh = Sharder(lm, activation_rules(lm, shp))
-    specs = param_specs(param_shapes(cfg2), lm)
-    placed = sh.place_params(params, specs)
-    prefill = make_prefill(cfg2, ModelCtx(mesh=lm, moe_mode="allreduce",
-                                          sharder=sh, remat=False))
+    shapes = param_shapes(cfg)
+    specs = param_specs(shapes, lm)
+    ctx = ModelCtx(mesh=lm, moe_mode=mode, sharder=sh, remat=False)
+    prefill, decode = make_prefill(cfg, ctx), make_decode_step(cfg, ctx)
     batch = sh.place_batch({"tokens": tokens}, batch_specs(
-        batch_spec(cfg2, t, b, "prefill"), lm, shp))
-    torch.cuda.synchronize()
-    reset_traffic(lm)
-    reset_counts()
-    logits, _ = prefill(placed, batch)
-    torch.cuda.synchronize()
-    row = {"rows": mesh_rows(lm, b), "traffic": reset_traffic(lm),
-           "launches": read_counts()["grouped_glu_ffn"],
-           "logits": logits.cpu().numpy(),
-           "bytes": tree_bytes(placed),
-           "plan_bytes": plan_bytes(param_shapes(cfg2), specs, lm)}
-    reset_counts()
-    _, row["ms"] = wall_ms(torch, lambda: prefill(placed, batch),
-                           LM_MESH_TIMED)
-    row["launches_timed"] = read_counts()["grouped_glu_ffn"]
-    return row
+        batch_spec(cfg, t, b, "prefill"), lm, shp))
+    lo, hi = mesh_rows(lm, b)
+    whole = init_params(cfg, seed=SEED + 91, device=dev)
+    out = {"rows": (lo, hi)}
+    for layout, serving in (("experts", False), ("tp", True)):
+        names = block_leaves(lm, mode, serving=serving)
+        params = sh.place_params(whole, specs, names)
+        if serving:
+            del whole
+            torch.cuda.empty_cache()
+        row = {"bytes": tree_bytes(params),
+               "plan_bytes": plan_bytes(shapes, specs, lm),
+               "block_bytes": block_bytes(params, shapes, specs, lm,
+                                          names)}
+        torch.cuda.synchronize()
+        reset_traffic(lm)
+        reset_counts()
+        with contextlib.ExitStack() as calls:
+            seen = {k: calls.enter_context(first_call(torch, k))
+                    for k in LM_MESH_KERNELS} if serving else {}
+            logits, caches = prefill(params, batch)
+        torch.cuda.synchronize()
+        row["traffic"] = reset_traffic(lm)
+        row["launches"] = {k: read_counts()[k] for k in LM_MESH_KERNELS}
+        row["first_call"] = {k: rank_first_call(torch, k, v)
+                             for k, v in seen.items() if v}
+        del logits, caches, seen
+        reset_counts()
+        row["prefill"], row["decode"], row["decode_ms"], \
+            row["decode_traffic"] = lm_mesh_generate(
+                torch, cfg, prefill, decode, params, batch, hi - lo, lm)
+        row["generate_launches"] = {k: read_counts()[k]
+                                    for k in LM_MESH_KERNELS}
+        reset_counts()
+        _, row["prefill_ms"] = wall_ms(torch, lambda: prefill(params, batch),
+                                       LM_MESH_TIMED)
+        row["launches_timed"] = {k: read_counts()[k]
+                                 for k in LM_MESH_KERNELS}
+        out[layout] = row
+        del params
+        torch.cuda.empty_cache()
+    return out
 
 
 def lm_mesh_train_cfgs():
@@ -2519,12 +2635,17 @@ def lm_mesh_hold(torch, failures, tag, got, p0, gref, lr, atol,
 
 def whole_checksum(torch, params, names):
     """A checksum of the bits of every whole leaf of ``params`` (all but
-    the blocks ``names``), f32 words summed: the step takes a model rank's
-    gradient of a whole leaf as complete, so these leaves must stay equal
-    bit for bit on every rank of the mesh, which the parent checks."""
-    return sum(int(torch.sum(p.view(torch.int32), dtype=torch.int64))
-               for path, p in lm_leaves(params)
-               if not any(f"['{n}']" in path for n in names))
+    the blocks of the kinds ``names``, ``shard.block_leaves``), f32 words
+    summed: the step takes a model rank's gradient of a whole leaf as
+    complete, so these leaves must stay equal bit for bit on every rank
+    of the mesh, which the parent checks."""
+    from repro_torch.models.shard import leaf_kinds
+    from repro_torch.sharding.rules import map_with_path
+    sums = []
+    map_with_path(lambda _, p, kind: sums.append(0 if kind in names else int(
+        torch.sum(p.view(torch.int32), dtype=torch.int64))),
+        params, leaf_kinds(params))
+    return sum(sums)
 
 
 @contextlib.contextmanager
@@ -2694,10 +2815,11 @@ def lm_mesh_train_reduced(torch, lm, dev, cfg, failures):
     return rows
 
 
-def lm_mesh_rank(mesh, dev, cfg, cfg2, tokens):
+def lm_mesh_rank(mesh, dev, cfg, tokens):
     """One rank of the lm_mesh spawn (4 ranks): the meshes of
     LM_MESH_SHAPES, the layer's checks on each (``lm_mesh_layer``), then
-    the model's (``lm_mesh_model``), then training on each: (e) at full
+    serving each LM_MESH_SERVE model at its shapes on ``tokens[arch]``
+    (``lm_mesh_serve``), then training on each: (e) at full
     width (``lm_mesh_train_full``) and (f) reduced in every mode
     (``lm_mesh_train_reduced``).  Weights and inputs are made on the
     rank's card from the seed, as the parent makes its own."""
@@ -2708,8 +2830,9 @@ def lm_mesh_rank(mesh, dev, cfg, cfg2, tokens):
     from repro_torch.models.ffn import init_moe, moe_dense_apply
     lms = {shape: make_named_mesh(shape, ("data", "model"))
            for shape in LM_MESH_SHAPES}
-    b, t = tokens.shape
-    out = {"rank": mesh.rank, "layer": {}, "model": {}, "launches": 0}
+    b, t = LM_MESH_BT
+    out = {"rank": mesh.rank, "layer": {}, "model": {}, "launches": 0,
+           "serve_launches": dict.fromkeys(LM_MESH_KERNELS, 0)}
     torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
         gen = torch.Generator(device=dev).manual_seed(SEED + 90)
@@ -2725,20 +2848,25 @@ def lm_mesh_rank(mesh, dev, cfg, cfg2, tokens):
             out["launches"] += n
         del whole, x, dense_y, scale
         torch.cuda.empty_cache()
-        params = init_params(cfg2, seed=SEED + 91, device=dev)
-        for shape, lm in lms.items():
-            row = lm_mesh_model(torch, lm, cfg2, params,
-                                torch.from_numpy(tokens).to(dev))
-            out["launches"] += row["launches"] + row["launches_timed"]
-            out["model"][shape] = row
-        del params
+        t0 = time.perf_counter()
+        for arch, shapes, mode in LM_MESH_SERVE:
+            for shape in shapes:
+                row = lm_mesh_serve(torch, lms[shape], dev, arch, mode,
+                                    torch.from_numpy(tokens[arch]).to(dev))
+                for layout in ("experts", "tp"):
+                    for part in ("launches", "generate_launches",
+                                 "launches_timed"):
+                        for k, n in row[layout][part].items():
+                            out["serve_launches"][k] += n
+                out["model"][arch, shape] = row
+        out["serve_s"] = time.perf_counter() - t0
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     cfg_full, cfg_reduced = lm_mesh_train_cfgs()
     out["train"], out["train_reduced"], out["failures"] = {}, {}, []
     for shape, lm in lms.items():
         row = lm_mesh_train_full(torch, lm, dev, cfg_full,
-                                 torch.from_numpy(tokens).to(dev),
-                                 out["failures"])
+                                 torch.from_numpy(tokens[LM_MESH_ARCH]).to(
+                                     dev), out["failures"])
         out["launches"] += row["launches_total"]
         out["train"][shape] = row
     for shape, lm in lms.items():
@@ -2749,39 +2877,46 @@ def lm_mesh_rank(mesh, dev, cfg, cfg2, tokens):
     return out
 
 
-def lm_mesh_refs(torch, dev, cfg2, tokens):
-    """The 2-layer model's prefill logits on one device, in the parent: a
-    (1, 1) mesh in allreduce mode (capacity by the tokens it is given) on
-    each data block of each shape's data axis, timed on the whole batch.
-    Returns ({(dp, index): logits on the CPU}, ms)."""
+def lm_mesh_refs(torch, dev, tokens):
+    """One device's serving of each LM_MESH_SERVE model, in the parent: a
+    (1, 1) mesh in the model's mode (its capacity by the tokens it is
+    given) on each data block of each of its shapes' data axes, the
+    prefill and LM_MESH_DECODE greedy tokens (``lm_mesh_generate``).
+    Returns ({(arch, dp, index): (prefill logits, [(logits, tokens)])},
+    {arch: (ms of a prefill, of a decode token) on the whole batch})."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import ModelCtx, Sharder, init_params, \
-        make_prefill
+        make_decode_step, make_prefill
     from repro_torch.sharding import activation_rules
     lm = make_host_mesh(1)
-    b, t = tokens.shape
-    params = init_params(cfg2, seed=SEED + 91, device=dev)
-    refs, ms = {}, None
+    refs, ms = {}, {}
     with torch.no_grad():
-        for dp in sorted({shape[0] for shape in LM_MESH_SHAPES}):
-            n = b // dp
-            for i in range(dp):
-                shp = ShapeConfig("prefill", t, n, "prefill")
-                prefill = make_prefill(cfg2, ModelCtx(
-                    mesh=lm, moe_mode="allreduce", remat=False,
-                    sharder=Sharder(lm, activation_rules(lm, shp))))
-                batch = {"tokens": torch.from_numpy(
-                    tokens[i * n:(i + 1) * n]).to(dev)}
-                logits, ms_dp = wall_ms(torch, lambda: prefill(params,
-                                                               batch)[0],
-                                        1 + (LM_MESH_TIMED if dp == 1
-                                             else 0))
-                refs[dp, i] = logits.cpu()
-                if dp == 1:
-                    ms = ms_dp
-    del params
-    torch.cuda.empty_cache()
+        for arch, shapes, mode in LM_MESH_SERVE:
+            cfg = lm_mesh_serve_cfg(arch)
+            b, t = tokens[arch].shape
+            params = init_params(cfg, seed=SEED + 91, device=dev)
+            for dp in sorted({shape[0] for shape in shapes}):
+                n = b // dp
+                for i in range(dp):
+                    shp = ShapeConfig("prefill", t, n, "prefill")
+                    ctx = ModelCtx(mesh=lm, moe_mode=mode, remat=False,
+                                   sharder=Sharder(lm, activation_rules(
+                                       lm, shp)))
+                    prefill = make_prefill(cfg, ctx)
+                    batch = {"tokens": torch.from_numpy(
+                        tokens[arch][i * n:(i + 1) * n]).to(dev)}
+                    logits, steps, step_ms, _ = lm_mesh_generate(
+                        torch, cfg, prefill, make_decode_step(cfg, ctx),
+                        params, batch, n)
+                    refs[arch, dp, i] = (logits, steps)
+                    if dp == 1:
+                        _, prefill_ms = wall_ms(
+                            torch, lambda: prefill(params, batch),
+                            LM_MESH_TIMED)
+                        ms[arch] = (prefill_ms, step_ms)
+            del params
+            torch.cuda.empty_cache()
     return refs, ms
 
 
@@ -2844,13 +2979,19 @@ def phase_lm_mesh(torch, dev, rows, failures):
     B8's rule (``lm_tol``) against the layer's sum of |terms|, allreduce's
     aux against data shard 0's; (b) the same at the default factor on the
     card against the call on CPU copies (B8's plain version) over the same
-    gloo groups, by the same rule, aux within 1e-5; (c) the 2-layer model's
-    prefill at each shape against the parent's (1, 1) prefill of the same
-    rows, within LM_MESH_LOGIT_TOL of the largest |logit|; (d) printed: ms
-    of the layer and the prefill (ranks share one card: not a scaling
-    figure), each rank's peak GB and bytes beside JAX's plan, the
-    collectives, B8's launches (2 a card call, 4 a prefill, none on CPU
-    copies).  Then training (ROADMAP A8e): (e) qwen2-moe-a2.7b at full
+    gloo groups, by the same rule, aux within 1e-5; (c) serving each
+    LM_MESH_SERVE model (the 2-layer qwen2-moe at each shape, gemma3-4b at
+    (1, 4)) on the expert-only blocks and on the serving blocks
+    (``lm_mesh_serve``): the prefill and LM_MESH_DECODE greedy tokens
+    against the parent's (1, 1) run on the same rows, within
+    LM_MESH_LOGIT_TOL of the largest |logit| and the same tokens, each
+    kernel's first launch on the rank's blocks within its rule, the
+    blocks' bytes JAX's plan (``check_lm_mesh_serve``); (d) printed: ms of
+    the layer, a prefill and a decode token in both layouts (ranks share
+    one card: not a scaling figure), each rank's peak GB and bytes beside
+    JAX's plan, the collectives, the launches (B8 2 a card call, 4 a
+    qwen2-moe prefill or decode step, none on CPU copies; B7 2 a gemma3-4b
+    prefill).  Then training (ROADMAP A8e): (e) qwen2-moe-a2.7b at full
     width cut to one layer, f32, B=2, T=256, in allreduce mode at each
     shape, its loss, grad norm, every gradient and updated parameter the
     rank holds against one device's step on each data block, gradients
@@ -2861,20 +3002,21 @@ def phase_lm_mesh(torch, dev, rows, failures):
     the gradient reduction's bytes and ms and the collectives forward and
     backward, beside the card's name and power limit.  Before the ranks
     start, B8 itself at the capacity buffers they give it
-    (``lm_mesh_kernel``).  Returns B8's launches on the mesh, summed over
-    ranks."""
+    (``lm_mesh_kernel``).  Returns B7's and B8's launches on the mesh,
+    summed over ranks."""
+    from repro_torch.configs import get_arch
     from repro_torch.core import spawn_mesh
-    cfg, cfg2 = lm_mesh_cfgs()
+    cfg = get_arch(LM_MESH_ARCH)
     b, t = LM_MESH_BT
-    tokens = lm_prompt(cfg, b, t, SEED + 92)
+    tokens = {arch: lm_prompt(lm_mesh_serve_cfg(arch), b, t, SEED + 92)
+              for arch, _, _ in LM_MESH_SERVE}
     lm_mesh_kernel(torch, dev, rows, failures, cfg)
     t0 = time.perf_counter()
-    refs, ref_ms = lm_mesh_refs(torch, dev, cfg2, tokens)
+    refs, ref_ms = lm_mesh_refs(torch, dev, tokens)
     ref_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     ranks = spawn_mesh(lm_mesh_rank, 1, 4, device=DEVICE, backend="gloo",
-                       timeout_s=LM_MESH_TIMEOUT_S,
-                       args=(cfg, cfg2, tokens))
+                       timeout_s=LM_MESH_TIMEOUT_S, args=(cfg, tokens))
     spawn_s = time.perf_counter() - t0
     note = "ranks share one card; not a scaling figure"
     for shape in LM_MESH_SHAPES:
@@ -2908,37 +3050,8 @@ def phase_lm_mesh(torch, dev, rows, failures):
                   "expert_bytes_per_rank": per[0]["expert_bytes"],
                   "launches_per_rank": [r["launches"] for r in per],
                   "traffic_rank0": per[0]["traffic"], "note": note})
-        errs = []
-        for rk in ranks:
-            row = rk["model"][shape]
-            lo, hi = row["rows"]
-            dp = shape[0]
-            want = refs[dp, lo // (b // dp)] if dp > 1 else refs[1, 0]
-            got = torch.from_numpy(row["logits"])
-            err = float((got - want).abs().max())
-            errs.append(err / float(want.abs().max()))
-            if not errs[-1] <= LM_MESH_LOGIT_TOL or row["launches"] != \
-                    2 * LM_MESH_LAYERS:
-                failures.append(f"lm_mesh model {shape} rank {rk['rank']}: "
-                                f"logits {err} from one device's "
-                                f"(max |logit| {float(want.abs().max())}), "
-                                f"B8 launches {row['launches']}")
-        emit({"phase": "lm_mesh_model", "shape": list(shape),
-              "mode": "allreduce", "layers": LM_MESH_LAYERS, "B": b, "T": t,
-              "logit_err_rel_max_per_rank": errs,
-              "tol": LM_MESH_LOGIT_TOL,
-              "prefill_ms_per_rank": [rk["model"][shape]["ms"]
-                                      for rk in ranks],
-              "one_device_prefill_ms": ref_ms,
-              "param_bytes_per_rank": [rk["model"][shape]["bytes"]
-                                       for rk in ranks],
-              "jax_plan_bytes_per_device": ranks[0]["model"][shape][
-                  "plan_bytes"],
-              "launches_per_rank": [rk["model"][shape]["launches"]
-                                    for rk in ranks],
-              "traffic_rank0": ranks[0]["model"][shape]["traffic"],
-              "note": note})
     card = card_line()
+    check_lm_mesh_serve(torch, ranks, refs, ref_ms, failures, card, note)
     for shape in LM_MESH_SHAPES:
         per = [rk["train"][shape] for rk in ranks]
         equal = len({r["whole_checksum"] for r in per}) == 1
@@ -2988,9 +3101,103 @@ def phase_lm_mesh(torch, dev, rows, failures):
                     for f in rk["failures"])
     emit({"phase": "lm_mesh_ranks", "peak_gb_per_rank": [
         rk["peak_gb"] for rk in ranks], "launches_per_rank": [
-        rk["launches"] for rk in ranks], "refs_s": ref_s,
+        rk["launches"] for rk in ranks], "serve_launches_per_rank": [
+        rk["serve_launches"] for rk in ranks], "serve_s_per_rank": [
+        rk["serve_s"] for rk in ranks], "refs_s": ref_s,
         "spawn_s": spawn_s, "card": card})
-    return sum(rk["launches"] for rk in ranks)
+    launches = {k: sum(rk["serve_launches"][k] for rk in ranks)
+                for k in LM_MESH_KERNELS}
+    launches["grouped_glu_ffn"] += sum(rk["launches"] for rk in ranks)
+    return launches
+
+
+def lm_mesh_serve_faults(row, want, wants, tp):
+    """(relative logit errors, faults) of one rank's serving ``row`` of
+    one layout against the parent's one-device run ``want`` (prefill
+    logits, [(logits, tokens)]): the logits within LM_MESH_LOGIT_TOL of
+    the largest |logit|, the tokens equal, the launches ``wants`` ({row
+    key: counts}), and on the serving blocks (``tp``) each kernel's first
+    launch within its rule and the blocks' bytes JAX's plan."""
+    def rel(x, w):
+        return float(np.abs(x - w).max() / np.abs(w).max())
+    logits, steps = want
+    errs = [rel(row["prefill"], logits)] + [
+        rel(lg, w[0]) for (lg, _), w in zip(row["decode"], steps)]
+    bad = [] if max(errs) <= LM_MESH_LOGIT_TOL else [f"logits {errs}"]
+    if not all(np.array_equal(nxt, w[1])
+               for (_, nxt), w in zip(row["decode"], steps)):
+        bad.append("greedy tokens differ")
+    bad += [f"{part} {row[part]} != {n}" for part, n in wants.items()
+            if row[part] != n]
+    if tp:
+        held, plan = row["block_bytes"]
+        if held != plan:
+            bad.append(f"block bytes {held} != plan {plan}")
+        for k, n in wants["launches"].items():
+            fc = row["first_call"].get(k)
+            if n and (fc is None or not max(fc["worst_ratio_to_tol"],
+                                            fc["worst_ratio_vs_f64"]) <= 1):
+                bad.append(f"{k} first call {fc}")
+    return errs, bad
+
+
+def check_lm_mesh_serve(torch, ranks, refs, ref_ms, failures, card, note):
+    """(c) and (d) of ``phase_lm_mesh``: each rank's serving of each
+    LM_MESH_SERVE model at each shape, in both layouts, held against the
+    parent's one device on the same rows (``lm_mesh_refs``) by
+    ``lm_mesh_serve_faults``, the launches by the layer program; printed
+    beside the card."""
+    b, _ = LM_MESH_BT
+    for arch, shapes, mode in LM_MESH_SERVE:
+        prefill = {k: n for k, n in lm_step_launches(
+            lm_mesh_serve_cfg(arch), remat=False).items()
+            if k in LM_MESH_KERNELS}
+        # a decode token takes B8 as a prefill does, and no B7
+        tokens = LM_MESH_DECODE + LM_MESH_TIMED
+        wants = {"launches": prefill,
+                 "generate_launches": {
+                     k: n + tokens * n * (k == "grouped_glu_ffn")
+                     for k, n in prefill.items()},
+                 "launches_timed": {k: LM_MESH_TIMED * n
+                                    for k, n in prefill.items()}}
+        for shape in shapes:
+            dp = shape[0]
+            per = {layout: [] for layout in ("experts", "tp")}
+            for rk in ranks:
+                got = rk["model"][arch, shape]
+                want = refs[arch, dp, got["rows"][0] // (b // dp)]
+                for layout, errs in per.items():
+                    err, bad = lm_mesh_serve_faults(got[layout], want, wants,
+                                                    layout == "tp")
+                    errs.append(err)
+                    if bad:
+                        failures.append(f"lm_mesh serve {arch} {shape} "
+                                        f"{layout} rank {rk['rank']}: {bad}")
+            rows = [rk["model"][arch, shape] for rk in ranks]
+            emit({"phase": "lm_mesh_serve", "arch": arch,
+                  "shape": list(shape), "mode": mode,
+                  "layers": LM_MESH_LAYERS, "B": b, "T": LM_MESH_BT[1],
+                  "decode_tokens": LM_MESH_DECODE, "card": card,
+                  "tol": LM_MESH_LOGIT_TOL,
+                  "one_device_prefill_ms": ref_ms[arch][0],
+                  "one_device_decode_ms": ref_ms[arch][1],
+                  **{f"{layout}_{key}": [r[layout][name] if fn is None else
+                                         fn(r[layout][name]) for r in rows]
+                     for layout in ("experts", "tp")
+                     for key, name, fn in (
+                         ("prefill_ms_per_rank", "prefill_ms", None),
+                         ("decode_ms_per_rank", "decode_ms", None),
+                         ("param_bytes_per_rank", "bytes", None),
+                         ("block_bytes_per_rank", "block_bytes", list),
+                         ("launches_per_rank", "launches", None))},
+                  "logit_err_rel_per_rank": per,
+                  "jax_plan_bytes_per_device": rows[0]["tp"]["plan_bytes"],
+                  "tp_first_call_per_rank": [r["tp"]["first_call"]
+                                             for r in rows],
+                  "experts_traffic_rank0": rows[0]["experts"]["traffic"],
+                  "tp_traffic_rank0": rows[0]["tp"]["traffic"],
+                  "tp_decode_traffic_rank0": rows[0]["tp"][
+                      "decode_traffic"], "note": note})
 
 
 # ---------------------------------------------------------------------------
@@ -7881,8 +8088,8 @@ def main(argv=None) -> int:
     for name, count in train_launches.items():
         lm_launches[name] += count          # the models' train steps
     with timed_phase("lm_mesh"):
-        lm_launches["grouped_glu_ffn"] += phase_lm_mesh(torch, dev, rows,
-                                                        failures)
+        for name, count in phase_lm_mesh(torch, dev, rows, failures).items():
+            lm_launches[name] += count      # the mesh's layer, serving, train
     if failures:
         raise AssertionError("the LM mesh failed a check:\n"
                              + "\n".join(failures))

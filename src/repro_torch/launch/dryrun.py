@@ -17,8 +17,14 @@ mesh records the collectives the rank calls.  Nothing is allocated.
 Every number of a record is the port's own count of its rank, except
 ``plan_argument_bytes``, the bytes a device holds under JAX's plan
 (``models.shard.plan_bytes``), and the analytic terms, which are JAX's
-arithmetic on the config.  The port's rank holds every leaf whole but the
-MoE experts (ROADMAP C), so its ``argument_bytes`` are not JAX's plan.
+arithmetic on the config.  A prefill or decode rank holds the serving
+blocks (``models.shard.block_leaves(serving=True)``): the experts, and
+the attention heads, d_ff and vocabulary where JAX's plan splits them over
+``model``, with their all-reduces and gathers in the traffic; a train
+rank holds the experts only (tensor parallelism in training is ROADMAP
+A9b).  Every other leaf stays whole (MLA, RWKV-6, Mamba, the frontends,
+JAX's data-axis splits), so a rank's ``argument_bytes`` are not JAX's
+plan.
 The roofline terms take ``roofline.HW``, the H100's data-sheet rates.
 
 Usage:
@@ -99,8 +105,10 @@ def rank_step(cfg, shape, mesh, *, moe_mode: str = "allreduce",
               clip_norm: Optional[float] = 1.0, q_chunk: int = 512,
               params=None, batch=None) -> RankStep:
     """Rank ``mesh.rank``'s step of ``cfg`` at ``shape`` on ``mesh``: its
-    parameters (the MoE experts its block over ``model`` where the layer
-    is expert-parallel, every other leaf whole), its rows of the batch,
+    parameters (its blocks over ``model`` of ``shard.block_leaves``: the
+    MoE experts where the layer is expert-parallel, and at a prefill or
+    decode shape the serving set's heads, d_ff and vocabulary; every
+    other leaf whole), its rows of the batch,
     Adam's state or its cache, placed by the ``Sharder``'s rules, and the
     step built on a ``ModelCtx`` of the mesh.  ``params`` (a whole tree)
     and ``batch`` (a whole batch of ``batch_spec``'s structure) are meta
@@ -109,17 +117,20 @@ def rank_step(cfg, shape, mesh, *, moe_mode: str = "allreduce",
     if layout != "tp":
         raise ValueError(
             f"layout {layout!r} is a plan of JAX's that the port's rank "
-            f"code does not run: a rank holds its batch rows and expert "
-            f"blocks only (ROADMAP C); take layout='tp'")
+            f"code does not run (ROADMAP A9e): a rank holds its batch rows "
+            f"and its blocks over model of the 'tp' layout; take "
+            f"layout='tp'")
     moe_mode = moe_mode if cfg.is_moe else "dense"
     sharder = Sharder(mesh, activation_rules(mesh, shape, layout=layout))
     ctx = ModelCtx(mesh=mesh, moe_mode=moe_mode, sharder=sharder,
                    remat=remat, q_chunk=q_chunk, wkv_chunk=WKV_CHUNK)
     shapes = param_shapes(cfg)
     pspecs = param_specs(shapes, mesh, zero3=zero3, layout=layout)
+    serving = shape.mode != "train"
     params = sharder.place_params(meta_tree(shapes) if params is None
                                   else params, pspecs,
-                                  block_leaves(mesh, moe_mode))
+                                  block_leaves(mesh, moe_mode,
+                                               serving=serving))
     bshape = batch_spec(cfg, shape.seq_len, shape.global_batch, shape.mode)
     bspecs = batch_specs(bshape, mesh, shape, layout=layout)
     batch = sharder.place_batch(meta_tree(bshape) if batch is None
@@ -141,10 +152,11 @@ def rank_step(cfg, shape, mesh, *, moe_mode: str = "allreduce",
         cshape = cache_shapes(cfg, b, shape.seq_len)
         plan += plan_bytes(cshape, cache_specs(cshape, mesh, shape, b), mesh)
         tok = batch["token"]
-        cache = (meta_tree(cache_shapes(cfg, tok.shape[0], shape.seq_len))
+        cache = (meta_tree(cache_shapes(cfg, tok.shape[0], shape.seq_len,
+                                        mesh=mesh))
                  if tok.device.type == "meta" else
                  init_cache(cfg, tok.shape[0], shape.seq_len,
-                            device=tok.device))
+                            device=tok.device, mesh=mesh))
         step = make_decode_step(cfg, ctx)
         args = (params, cache, batch["token"], batch["pos"])
     return RankStep(step, args, ctx, plan, data_shards)

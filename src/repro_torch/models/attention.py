@@ -13,16 +13,27 @@ outside Pallas.
 Decode takes a KV cache and one query token.  Caches:
   GQA: {"k": (B, S, KV, hd), "v": (B, S, KV, hd), "k_pos": (B, S) int32}
   MLA: {"ckv": (B, S, kv_lora), "krope": (B, S, rope_dim)}
+
+On the serving path of the LM mesh a GQA layer is tensor-parallel over
+``model`` (``models.shard``): a rank holds wq's and wo's blocks of H/m
+query heads, and of wk/wv its KV/m kv heads where they split, else the
+whole (KV % m != 0, e.g. granite-20b's one kv head), of which it keeps the
+kv heads its query heads read (query head j reads kv head j // g).  Its
+cache holds those kv heads (:func:`rank_kv_heads`), its window prefill
+runs B7 on its (B·H/m, T, hd) operands, and the row-parallel wo's partial
+output is summed over ``model`` (``core.mesh.reduce_from_axis``).  The
+head counts come from the rank's weights; an MLA layer computes whole.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
+from ..core.mesh import reduce_from_axis
 from ..kernels.swa import swa_attention
 from .common import apply_rope, dense_init, rms_norm
-from .shard import NO_SHARD
+from .shard import BLOCK_AXIS, NO_SHARD, split_axis
 
 NEG_INF = -1e30
 Q_CHUNK = 512
@@ -89,35 +100,88 @@ def _swa_prefill(q, k, v, window, scale):
     return out.reshape(b, kvh, g, t, hd).permute(0, 3, 1, 2, 4).to(q.dtype)
 
 
+def rank_kv_heads(cfg, h_loc: int, index: int
+                  ) -> Tuple[int, int, Optional[list]]:
+    """(first, count, read) of the kv heads a rank's ``h_loc`` query
+    heads, block ``index`` of the layer's H, read (query head j reads kv
+    head j // g, g = H / KV): the heads [first, first + count), and
+    ``read``, each local query head's local kv head, None where they form
+    whole groups (local query head i reads i // (h_loc / count))."""
+    h, kvh = cfg.n_heads, cfg.n_kv_heads
+    g = h // kvh
+    a = index * h_loc
+    first, last = a // g, (a + h_loc - 1) // g
+    count = last - first + 1
+    read = [(a + i) // g - first for i in range(h_loc)]
+    if h_loc % count == 0 and read == [i // (h_loc // count)
+                                       for i in range(h_loc)]:
+        read = None
+    return first, count, read
+
+
+def cache_kv_heads(cfg, mesh=None) -> int:
+    """The kv heads a GQA layer's decode cache holds on a rank of
+    ``mesh`` whose attention is tensor-parallel (``shard.block_leaves``'
+    serving set): its block's where the query heads split over ``model``
+    (JAX's ``param_specs`` rule, H % m == 0), else all KV."""
+    m = 1 if mesh is None else mesh.shape[BLOCK_AXIS]
+    if m == 1 or cfg.n_heads % m:
+        return cfg.n_kv_heads
+    index = mesh.axis(BLOCK_AXIS).index
+    return rank_kv_heads(cfg, cfg.n_heads // m, index)[1]
+
+
+def _read_heads(a, read):
+    """(B, S, count, hd) kv heads → (B, S, h_loc, hd), each local query
+    head's own (``rank_kv_heads``' ``read``)."""
+    return a.index_select(2, torch.tensor(read, device=a.device))
+
+
 def gqa_apply(p, x, *, cfg, kind: str = "causal",
               cache: Optional[dict] = None,
               pos: Optional[torch.Tensor] = None,
-              sharder=NO_SHARD, q_chunk: int = Q_CHUNK):
+              sharder=NO_SHARD, q_chunk: int = Q_CHUNK, mesh=None):
     """x (B, T, d).  Prefill when cache is None; else a one-token decode
-    at position ``pos`` (B,) int32.  Returns (out, new_cache)."""
+    at position ``pos`` (B,) int32.  Returns (out, new_cache).  On a
+    ``mesh`` whose rank holds wq's block of the heads (``shard``), the
+    rank's heads, and the output summed over ``model``."""
     b, t, d = x.shape
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    g = h // kvh
+    h, hd = p["wq"].shape[-2], cfg.head_dim
+    ax = split_axis(mesh, h, cfg.n_heads)
+    wk, wv = p["wk"], p["wv"]
+    kvh, read = wk.shape[-2], None
+    if ax is not None:
+        first, kvh, read = rank_kv_heads(cfg, h, ax.index)
+        if wk.shape[-2] != kvh:
+            # wk/wv whole: the kv heads this rank's query heads read
+            wk, wv = (w.narrow(-2, first, kvh) for w in (wk, wv))
     window = cfg.sliding_window
     scale = hd ** -0.5
 
     q = torch.einsum("btd,dhk->bthk", x, p["wq"])
-    k = torch.einsum("btd,dhk->bthk", x, p["wk"])
-    v = torch.einsum("btd,dhk->bthk", x, p["wv"])
+    k = torch.einsum("btd,dhk->bthk", x, wk)
+    v = torch.einsum("btd,dhk->bthk", x, wv)
     q = sharder.act(q, "act_qkv")
     k = sharder.act(k, "act_kv")
     v = sharder.act(v, "act_kv")
+
+    def grouped(k, v):
+        """k, v as the (B, S, KV', hd) operands of q's (KV', G) groups."""
+        if read is None:
+            return k, v, kvh, h // kvh
+        return _read_heads(k, read), _read_heads(v, read), h, 1
 
     if cache is None:
         positions = torch.arange(t, device=x.device)
         q = apply_rope(q, positions[None, :], cfg.rope_theta)
         k = apply_rope(k, positions[None, :], cfg.rope_theta)
-        qg = q.reshape(b, t, kvh, g, hd)
+        kg, vg, kvg, g = grouped(k, v)
+        qg = q.reshape(b, t, kvg, g, hd)
         if kind == "window":
-            out = _swa_prefill(qg, k, v, window, scale)
+            out = _swa_prefill(qg, kg, vg, window, scale)
         else:
-            out = _sdpa_chunked(qg, k, v, positions, positions, kind, window,
-                                scale, q_chunk=q_chunk)
+            out = _sdpa_chunked(qg, kg, vg, positions, positions, kind,
+                                window, scale, q_chunk=q_chunk)
         new_cache = {"k": k, "v": v,
                      "k_pos": positions[None].expand(b, t).to(torch.int32)}
     else:
@@ -133,20 +197,23 @@ def gqa_apply(p, x, *, cfg, kind: str = "causal",
         cpos = _scatter_time(cache["k_pos"], pos[:, None], slot)
         ck = sharder.act(ck, "cache_kv")
         cv = sharder.act(cv, "cache_kv")
+        kg, vg, kvg, g = grouped(ck, cv)
         logits = torch.einsum("btkgh,bskh->bkgts",
-                              q.reshape(b, 1, kvh, g, hd).float(),
-                              ck.float()) * scale
+                              q.reshape(b, 1, kvg, g, hd).float(),
+                              kg.float()) * scale
         valid = (cpos >= 0) & (cpos <= pos[:, None])         # (B, S)
         if kind == "window":
             valid = valid & (cpos > (pos[:, None] - window))
         logits = torch.where(valid[:, None, None, None, :], logits, NEG_INF)
         pattn = torch.softmax(logits, dim=-1)
-        out = torch.einsum("bkgts,bskh->btkgh", pattn, cv.float())
+        out = torch.einsum("bkgts,bskh->btkgh", pattn, vg.float())
         out = out.to(x.dtype)
         new_cache = {"k": ck, "v": cv, "k_pos": cpos}
 
     out = out.reshape(b, t, h, hd)
     y = torch.einsum("bthk,hkd->btd", out, p["wo"])
+    if ax is not None:
+        y = reduce_from_axis(y, ax)
     return sharder.act(y, "act_resid"), new_cache
 
 

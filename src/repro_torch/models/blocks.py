@@ -7,6 +7,10 @@ A segment is ``(repeats, unit)`` where ``unit`` is a tuple of per-layer
 over ``repeats`` (JAX scans over them; the port loops).  Heterogeneous
 tails (e.g. gemma3-4b's 34 = 5×6 + 4 layers) fall back to single-layer
 segments.
+
+On the LM mesh ``block_apply`` hands the mesh to the GQA mixer and the
+FFNs: each reads from its weights whether the rank holds tensor-parallel
+blocks (``models.shard``) and sums its partial output over ``model``.
 """
 from __future__ import annotations
 
@@ -16,13 +20,14 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from .attention import gqa_apply, init_gqa, init_mla, mla_apply
+from .attention import cache_kv_heads, gqa_apply, init_gqa, init_mla, \
+    mla_apply
 from .common import F32, rms_norm
 from .ffn import (init_mlp, init_moe, init_rwkv_cm, mlp_apply, moe_apply,
                   rwkv_cm_apply)
 from .mamba import d_inner_of, init_mamba, mamba_apply
 from .rwkv import init_rwkv, rwkv_apply
-from .shard import NO_SHARD
+from .shard import NO_SHARD, split_axis
 
 Sig = Tuple[str, str]  # (mixer kind, ffn kind)
 
@@ -93,10 +98,12 @@ def init_block(gen, cfg, sig: Sig, dtype, device) -> Dict:
     return p
 
 
-def init_block_cache(cfg, sig: Sig, batch: int, seq: int, dtype, device):
-    """Decode-time cache for one layer."""
+def init_block_cache(cfg, sig: Sig, batch: int, seq: int, dtype, device,
+                     mesh=None):
+    """Decode-time cache for one layer (a GQA layer's kv heads a rank's of
+    ``mesh`` under the serving blocks, ``attention.cache_kv_heads``)."""
     kind, ffn_kind = sig
-    d, kv, hd = cfg.d_model, cfg.n_kv_heads, cfg.head_dim
+    d, kv, hd = cfg.d_model, cache_kv_heads(cfg, mesh), cfg.head_dim
 
     def zeros(shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=device)
@@ -141,7 +148,7 @@ def block_apply(p, x, *, cfg, sig: Sig, ctx: ModelCtx,
                        if cache is not None else None)
         out, mc = gqa_apply(p["mixer"], h, cfg=cfg, kind=attn_kind,
                             cache=mixer_cache, pos=pos, sharder=sharder,
-                            q_chunk=ctx.q_chunk)
+                            q_chunk=ctx.q_chunk, mesh=ctx.mesh)
     elif kind == "mla":
         mixer_cache = ({k: cache[k] for k in ("ckv", "krope")}
                        if cache is not None else None)
@@ -171,9 +178,9 @@ def block_apply(p, x, *, cfg, sig: Sig, ctx: ModelCtx,
                 torch.zeros_like(h2[:, :1]))
         y, new_cache["cm_shift"] = rwkv_cm_apply(p["ffn"], h2, x_prev=prev,
                                                  sharder=sharder)
-    elif ffn_kind == "mlp":
-        y = mlp_apply(p["ffn"], h2, gated=False, sharder=sharder)
     else:
-        y = mlp_apply(p["ffn"], h2, gated=True, sharder=sharder)
+        axis = split_axis(ctx.mesh, p["ffn"]["wu"].shape[-1], cfg.d_ff)
+        y = mlp_apply(p["ffn"], h2, gated=ffn_kind != "mlp",
+                      sharder=sharder, axis=axis)
     x = x + y
     return x, new_cache, aux

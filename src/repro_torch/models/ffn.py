@@ -28,6 +28,14 @@ partial outputs leave through ``reduce_from_axis``, the exchanges pass
 their gradients back, and the aux loss keeps JAX's value and gradient
 (``_AuxOfMesh``).
 
+On the serving path of the LM mesh the MLP and the MoE shared experts
+are tensor-parallel over ``model`` (``models.shard``): a rank holds wu's
+and wg's d_ff columns and wo's d_ff rows, and the partial output is
+summed over ``model`` (``mlp_apply(axis=)``); in ``allreduce`` mode the
+shared experts' partial joins the routed experts' partial in the layer's
+one all-reduce, in ``alltoall`` mode it takes its own.  RWKV's channel
+mix computes whole.
+
 The expert count is padded to a multiple of 16 so expert weights shard on
 any production mesh (the padded experts are unroutable).
 """
@@ -43,7 +51,7 @@ from ..core.mesh import (all_gather_tiled, all_reduce_sum, all_to_all,
 from ..kernels.moe_gemm import grouped_glu_ffn
 from .common import F32, dense_init
 from ..sharding.rules import data_axes_of
-from .shard import NO_SHARD
+from .shard import NO_SHARD, split_axis
 
 EXPERT_PAD = 16
 
@@ -62,7 +70,19 @@ def init_mlp(gen, d: int, d_ff: int, dtype, device, gated: bool):
     return p
 
 
-def mlp_apply(p, x, *, gated: bool, sharder=NO_SHARD):
+def mlp_apply(p, x, *, gated: bool, sharder=NO_SHARD, axis=None):
+    """The MLP (gated: GLU) on x (B, T, d).  With ``axis`` (the ``model``
+    axis of a rank holding the d_ff blocks, ``shard.split_axis``) the
+    rank's columns, and the partial output summed over it."""
+    y = mlp_partial(p, x, gated=gated, sharder=sharder)
+    if axis is not None:
+        y = reduce_from_axis(y, axis)
+    return sharder.act(y, "act_resid")
+
+
+def mlp_partial(p, x, *, gated: bool, sharder=NO_SHARD):
+    """The MLP's output from the d_ff columns ``p`` holds: the whole
+    output, or on a rank holding d_ff blocks its partial sum."""
     up = torch.einsum("btd,df->btf", x, p["wu"])
     if gated:
         gate = torch.einsum("btd,df->btf", x, p["wg"])
@@ -70,8 +90,15 @@ def mlp_apply(p, x, *, gated: bool, sharder=NO_SHARD):
     else:
         h = F.gelu(up, approximate="tanh")    # jax.nn.gelu's default
     h = sharder.act(h, "act_ffn")
-    y = torch.einsum("btf,fd->btd", h, p["wo"])
-    return sharder.act(y, "act_resid")
+    return torch.einsum("btf,fd->btd", h, p["wo"])
+
+
+def shared_axis(p, cfg, mesh):
+    """The ``model`` axis where a rank holds the MoE shared experts' d_ff
+    blocks, else None."""
+    ffe = cfg.d_ff_expert or cfg.d_ff
+    return split_axis(mesh, p["shared"]["wu"].shape[-1],
+                      ffe * cfg.n_shared_experts)
 
 
 # ------------------------------------------------------------- RWKV CM -----
@@ -162,8 +189,8 @@ def moe_dense_apply(p, x, *, cfg, sharder=NO_SHARD, mesh=None):
                          p["ewo"][:e]).to(x.dtype)
     y = torch.einsum("te,etd->td", gates, yo)
     if "shared" in p:
-        y = y + mlp_apply(p["shared"], x, gated=True,
-                          sharder=sharder).reshape(b * t, d)
+        y = y + mlp_apply(p["shared"], x, gated=True, sharder=sharder,
+                          axis=shared_axis(p, cfg, mesh)).reshape(b * t, d)
     return y.reshape(b, t, d), aux
 
 
@@ -257,9 +284,10 @@ def moe_sharded_apply(p, x, *, cfg, mesh, mode: str = "allreduce",
     ``x`` (B_loc, T, d) is the rank's rows: the batch's block of its data
     rank when the batch splits over the data axes, the whole batch on
     every rank when it does not (a decode of one sequence), as JAX's
-    ``bspec``.  ``p`` holds the router and the shared expert whole and
-    the rank's block of the experts, (E_p/m, d, f) on a ``model`` axis of
-    size m (``Sharder.place_params``).  Returns the rank's (B_loc, T, d)
+    ``bspec``.  ``p`` holds the router whole, the shared experts whole
+    (or, on the serving path, as the rank's d_ff blocks) and the rank's
+    block of the experts, (E_p/m, d, f) on a ``model`` axis of size m
+    (``Sharder.place_params``).  Returns the rank's (B_loc, T, d)
     rows and the aux loss, which is JAX's value: the mean over ``model``
     of data shard 0's, on every rank (at dp > 1 not the global batch's).
 
@@ -290,13 +318,20 @@ def moe_sharded_apply(p, x, *, cfg, mesh, mode: str = "allreduce",
     b_loc, t, d = x.shape
     seq_sharded = mode == "alltoall" and t % m == 0 and t >= m
     mode = "alltoall" if mode == "alltoall_rep" else mode
-    # the shared expert below reads ``x``: it is not split over ``model``
+    # the shared experts: whole (the training path) or the rank's d_ff
+    # blocks (serving), whose partial is summed over ``model``
+    sh_ax = shared_axis(p, cfg, mesh) if "shared" in p else None
+    joined = mode == "allreduce" and sh_ax is not None
     xs = copy_to_axis(x, model)
     local = dict(p, router=copy_to_axis(p["router"], model))
     xf = xs.reshape(-1, d)
     if mode == "allreduce":
         cap = _capacity(b_loc * t, cfg, ep, capacity_factor)
         out, aux = _moe_local(local, xf, cfg, my * e_local, e_local, cap)
+        if joined:
+            # the shared partial joins the routed one: one all-reduce
+            out = out + mlp_partial(p["shared"], xs, gated=True,
+                                    sharder=sharder).reshape(-1, d)
         out = reduce_from_axis(out, model)
     else:
         if seq_sharded:
@@ -328,8 +363,9 @@ def moe_sharded_apply(p, x, *, cfg, mesh, mode: str = "allreduce",
             out = all_gather_tiled(outc, model, 0)
     aux = _AuxOfMesh.apply(aux, mesh, model, tuple(data_axes))
     y = out.reshape(b_loc, t, d)
-    if "shared" in p:
-        y = y + mlp_apply(p["shared"], x, gated=True, sharder=sharder)
+    if "shared" in p and not joined:
+        y = y + mlp_apply(p["shared"], x, gated=True, sharder=sharder,
+                          axis=sh_ax)
     return sharder.act(y, "act_resid"), aux
 
 

@@ -20,8 +20,17 @@ Steps:
   decode_step(params, caches, tok, pos) -> (logits, next_tok, caches)
 
 On the LM mesh (``ctx.mesh``) every step runs as rank code: each rank on
-its rows of the batch (and its caches), the MoE layers' experts split
-over ``model`` (``models.shard``).  The loss is JAX's global one on every
+its rows of the batch (and its caches) and on the blocks it holds over
+``model`` (``models.shard``).  Serving holds the tensor-parallel blocks
+too: the embedding lookup reads the rank's vocabulary rows (zeros for
+tokens outside its block) and sums them over ``model``; the tied head
+computes the rank's vocabulary block of the logits, in f32 from the
+block alone, and gathers the blocks whole over ``model``; the greedy
+token is the paper's Alg. 4 pick (each rank's max and first argmax with
+its block's offset, gathered, the first largest taken); a rank's decode
+cache holds its kv heads (``init_cache(mesh=)``).  Training holds only
+the MoE experts as blocks: the loss refuses tensor-parallel blocks,
+naming ROADMAP A9b.  The loss is JAX's global one on every
 rank: the cross-entropies' sums and counts are summed over the data axes
 before their ratio.  The gradient is JAX's too: each rank differentiates
 that replicated loss (the MoE layer passes its gradients through its
@@ -48,15 +57,16 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from .. import optim
-from ..core.mesh import (all_reduce_grads, all_reduce_sum, broadcast_first,
-                         reduce_from_axis)
+from ..core.mesh import (all_gather_tiled, all_reduce_grads, all_reduce_sum,
+                         broadcast_first, reduce_from_axis)
 from ..device import DeviceLike, resolve_device
 from ..sharding.rules import data_axes_of, map_with_path
 from .blocks import (ModelCtx, block_apply, build_program, init_block,
                      init_block_cache)
 from .common import (F32, dense_init, embed_init, rms_norm, tree_leaves,
                      tree_map)
-from .shard import BLOCK_AXIS, block_leaves
+from .shard import (A9B, ATTENTION, BLOCK_AXIS, EMBED, FFN, block_leaves,
+                    leaf_kinds, split_axis)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 LOSS_CHUNK = 512
@@ -128,23 +138,28 @@ def param_shapes(cfg) -> Dict[str, Any]:
                     _init_params(cfg, None, torch.device("meta")))
 
 
-def _init_cache(cfg, batch: int, seq: int, dev: torch.device) -> list:
+def _init_cache(cfg, batch: int, seq: int, dev: torch.device,
+                mesh=None) -> list:
     dtype = _dtype_of(cfg)
     return [[_stack_reps(lambda r, sig=sig: init_block_cache(
-        cfg, sig, batch, seq, dtype, dev), reps) for sig in unit]
+        cfg, sig, batch, seq, dtype, dev, mesh), reps) for sig in unit]
         for reps, unit in build_program(cfg)]
 
 
 def init_cache(cfg, batch: int, seq: int, *,
-               device: DeviceLike = "cuda") -> list:
-    return _init_cache(cfg, batch, seq, resolve_device(device))
+               device: DeviceLike = "cuda", mesh=None) -> list:
+    """The decode cache of ``batch`` rows and ``seq`` slots; on a rank of
+    ``mesh`` that holds the serving blocks (``shard.block_leaves(...,
+    serving=True)``), a GQA layer's cache holds the rank's kv heads."""
+    return _init_cache(cfg, batch, seq, resolve_device(device), mesh)
 
 
-def cache_shapes(cfg, batch: int, seq: int) -> list:
+def cache_shapes(cfg, batch: int, seq: int, mesh=None) -> list:
     """The cache tree of ``init_cache`` as (shape, dtype) leaves, made on
     the meta device (no memory)."""
     return tree_map(lambda a: (tuple(a.shape), a.dtype),
-                    _init_cache(cfg, batch, seq, torch.device("meta")))
+                    _init_cache(cfg, batch, seq, torch.device("meta"),
+                                mesh))
 
 
 def param_count(params) -> int:
@@ -165,7 +180,7 @@ def _embed_inputs(params, cfg, batch: Dict[str, Any], ctx: ModelCtx):
         x = torch.einsum("btf,fd->btd", take("frames").to(dtype),
                          params["frontend_proj"])
         return x, labels, None
-    tok_emb = params["embed"][take("tokens").long()]
+    tok_emb = _embed_lookup(params["embed"], take("tokens"), cfg, ctx.mesh)
     if cfg.vlm_patches:
         patches = torch.einsum("bpf,fd->bpd", take("patches").to(dtype),
                                params["frontend_proj"])
@@ -182,6 +197,81 @@ def _embed_inputs(params, cfg, batch: Dict[str, Any], ctx: ModelCtx):
                                 labels], dim=1)
         return x, labels, mask
     return tok_emb, labels, None
+
+
+def _embed_lookup(embed, tokens, cfg, mesh):
+    """The embedding rows of ``tokens``.  On a rank holding the vocabulary
+    as its block over ``model``: its rows for the tokens in its block,
+    zeros for the rest, summed over ``model`` (each token's one row and
+    zeros, so the sum is exact)."""
+    tokens = tokens.long()
+    ax = split_axis(mesh, embed.shape[0], cfg.vocab_size)
+    if ax is None:
+        return embed[tokens]
+    n = embed.shape[0]
+    local = tokens - ax.index * n
+    mine = (local >= 0) & (local < n)
+    rows = embed[local.clamp(0, n - 1)]
+    rows = torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                           device=rows.device))
+    return reduce_from_axis(rows, ax)
+
+
+def _head_logits(h, embed, cfg, mesh, spec: str):
+    """The tied head's f32 logits of ``h`` (``spec``: the einsum), whole:
+    on a rank holding the vocabulary as its block over ``model`` its
+    block's logits from its block alone (1/m of the f32 copy), gathered
+    whole along the vocabulary.  Returns (logits, the rank's block of
+    them, the ``model`` axis or None)."""
+    block = torch.einsum(spec, h.float(), embed.float())
+    ax = split_axis(mesh, embed.shape[0], cfg.vocab_size)
+    if ax is None:
+        return block, block, None
+    return all_gather_tiled(block, ax, block.dim() - 1), block, ax
+
+
+def _greedy(block, ax):
+    """The greedy token (B,) int32 of the (B, V) logits whose rank's block
+    is ``block``: on a mesh the paper's Alg. 4 pick over ``model``, each
+    rank's largest logit and its first index (with the block's offset),
+    gathered, then the first largest, which keeps ``torch.argmax``'s
+    first-index rule on ties (the blocks lie in rank order)."""
+    local = torch.argmax(block, dim=-1)
+    if ax is None:
+        return local.to(torch.int32)
+    best = torch.gather(block, -1, local[:, None])
+    index = (local[:, None] + ax.index * block.shape[-1]).double()
+    # one gather of (value, index) pairs, both exact in f64
+    pairs = all_gather_tiled(torch.stack([best.double(), index], -1), ax, 1)
+    pick = torch.argmax(pairs[..., 0], dim=-1)
+    return pairs[..., 1].gather(1, pick[:, None])[:, 0].to(torch.int32)
+
+
+def _refuse_tensor_parallel(params, cfg) -> None:
+    """The training path holds only the MoE experts as blocks: parameters
+    holding tensor-parallel blocks (``shard.block_leaves(...,
+    serving=True)``: the vocabulary's rows, a GQA layer's query heads, an
+    MLP's or the shared experts' d_ff, each narrower than ``cfg``'s) are
+    refused, naming the queue item that ports them."""
+    ffe = (cfg.d_ff_expert or cfg.d_ff) * cfg.n_shared_experts
+    whole = {(EMBED, "embed"): (0, cfg.vocab_size),
+             (ATTENTION, "wq"): (-2, cfg.n_heads),
+             (FFN, "wu"): (-1, cfg.d_ff)}
+    split = []
+
+    def leaf(path, x, kind):
+        dim, n = whole.get((kind, path[-1]), (None, None))
+        if kind == FFN and path[-2] == "shared":
+            n = ffe
+        if dim is not None and x.shape[dim] != n:
+            split.append(path)
+    map_with_path(leaf, params, leaf_kinds(params))
+    if split:
+        raise ValueError(
+            f"the training path holds only the MoE experts as blocks over "
+            f"{BLOCK_AXIS}; these parameters hold tensor-parallel blocks "
+            f"({len(split)} leaves), which training takes in ROADMAP item "
+            f"{A9B!r}")
 
 
 def _at(tree, r: int):
@@ -341,6 +431,7 @@ def loss_fn(params, cfg, batch, ctx: ModelCtx):
     ``mtp``.  On a mesh each rank passes its rows of the batch, and the
     loss and metrics are the global batch's (``aux`` data shard 0's, as
     JAX's), the same on every rank."""
+    _refuse_tensor_parallel(params, cfg)
     x, labels, mask = _embed_inputs(params, cfg, batch, ctx)
     x = ctx.sharder.act(x, "act_resid_in")
     x, _, aux = _apply_segments(params, cfg, x, ctx)
@@ -408,8 +499,9 @@ def _split_blocks(tree, ctx: ModelCtx):
     ``shard.block_leaves``]) of a tree of the parameters' structure."""
     names = block_leaves(ctx.mesh, ctx.moe_mode)
     whole, blocks = [], []
-    map_with_path(lambda path, g: (blocks if path[-1] in names
-                                   else whole).append(g), tree)
+    map_with_path(lambda path, g, kind: (blocks if kind in names
+                                         else whole).append(g),
+                  tree, leaf_kinds(tree))
     return whole, blocks
 
 
@@ -479,12 +571,10 @@ def make_prefill(cfg, ctx: ModelCtx):
         h = _final_hidden(params, cfg, x)
         if cfg.is_encoder:
             # per-frame classification logits (hubert pretext targets)
-            logits = torch.einsum("btd,vd->btv", h.float(),
-                                  params["embed"].float())
-            return logits, None
-        logits = torch.einsum("bd,vd->bv", h[:, -1].float(),
-                              params["embed"].float())
-        return logits, caches
+            return _head_logits(h, params["embed"], cfg, ctx.mesh,
+                                "btd,vd->btv")[0], None
+        return _head_logits(h[:, -1], params["embed"], cfg, ctx.mesh,
+                            "bd,vd->bv")[0], caches
     return prefill
 
 
@@ -496,15 +586,15 @@ def make_decode_step(cfg, ctx: ModelCtx):
         if cfg.is_encoder:
             raise ValueError("encoder has no decode step")
         dev = params["embed"].device
-        x = params["embed"][torch.as_tensor(token, device=dev).long()]
+        x = _embed_lookup(params["embed"], torch.as_tensor(token, device=dev),
+                          cfg, ctx.mesh)
         x = ctx.sharder.act(x, "act_resid_in")
         x, new_caches, _ = _apply_segments(
             params, cfg, x, ctx, caches=caches,
             pos=torch.as_tensor(pos, device=dev))
         h = _final_hidden(params, cfg, x)
-        logits = torch.einsum("bd,vd->bv", h[:, 0].float(),
-                              params["embed"].float())
+        logits, block, ax = _head_logits(h[:, 0], params["embed"], cfg,
+                                         ctx.mesh, "bd,vd->bv")
         # the paper's all-gather + argmax (Alg. 4) applied to vocab logits
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
-        return logits, next_tok, new_caches
+        return logits, _greedy(block, ax), new_caches
     return decode_step

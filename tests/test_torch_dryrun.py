@@ -39,11 +39,13 @@ from repro_torch.sharding import batch_specs, param_specs
 
 MODES = ("prefill", "train", "decode")
 REDUCED = ("gemma3-4b", "rwkv6-7b", "qwen2-moe-a2.7b")
-# the ratios PERF.md §6 records from a CPU run of python -m
-# repro_torch.launch.dryrun --all: a dense, an MoE and a recurrent arch
-RATIOS = {("gemma3-4b", "prefill_32k"): 0.936,
-          ("qwen2-moe-a2.7b", "prefill_32k"): 1.134,
-          ("rwkv6-7b", "decode_32k"): 0.997}
+# the ratios PERF.md §6 records from CPU runs of python -m
+# repro_torch.launch.dryrun: a dense, an MoE and a recurrent arch, their
+# serving ranks on the tensor-parallel blocks (a rank computes 1/16 of the
+# split heads, d_ff and vocabulary: gemma3-4b's 8 heads stay whole at 16)
+RATIOS = {("gemma3-4b", "prefill_32k"): 0.358,
+          ("qwen2-moe-a2.7b", "prefill_32k"): 0.0868,
+          ("rwkv6-7b", "decode_32k"): 0.962}
 # JAX's record keys (repro/launch/dryrun.py's ``rec``)
 JAX_KEYS = {"arch", "shape", "mesh", "chips", "moe_mode", "zero3", "layout",
             "moment_dtype", "params_total", "params_active", "lower_s",
@@ -105,8 +107,10 @@ def test_a_dry_run_makes_nothing_on_a_real_device():
 
 @pytest.mark.parametrize("shape_name", ["train_4k", "decode_32k"])
 def test_argument_bytes_are_the_placed_inputs(shape_name):
-    """qwen2-moe-a2.7b at 16×16: the experts a block over ``model``,
-    every other leaf whole, the batch rows over ``data``."""
+    """qwen2-moe-a2.7b at 16×16: the experts a block over ``model`` and,
+    at the decode shape, the serving blocks too (the attention heads, the
+    shared experts' d_ff and the vocabulary, all of which split 16 ways
+    there), every other leaf whole; the batch rows over ``data``."""
     cfg, shape = get_arch("qwen2-moe-a2.7b"), SHAPES[shape_name]
     mesh = dryrun.production_mesh()
     rs = dryrun.rank_step(cfg, shape, mesh, zero3=True)
@@ -114,9 +118,15 @@ def test_argument_bytes_are_the_placed_inputs(shape_name):
     full = tree_bytes(dryrun.meta_tree(param_shapes(cfg)))
     e_loc = padded_experts(cfg.n_experts) // 16
     assert params["segments"][0][0]["ffn"]["ewg"].shape[1] == e_loc
-    ex = sum(p.numel() * p.element_size() for seg in params["segments"]
-             for blk in seg for k, p in blk["ffn"].items()
-             if k in ("ewg", "ewu", "ewo"))
+    blk = params["segments"][0][0]
+    blocks = [blk["ffn"][k] for k in ("ewg", "ewu", "ewo")]
+    if shape_name == "decode_32k":
+        assert params["embed"].shape[0] == cfg.vocab_size // 16
+        assert blk["mixer"]["wq"].shape[2] == cfg.n_heads // 16
+        assert blk["ffn"]["shared"]["wo"].shape[1] == 4 * 1408 // 16
+        blocks += [params["embed"]] + list(blk["mixer"].values()) + list(
+            blk["ffn"]["shared"].values())
+    ex = sum(p.numel() * p.element_size() for p in blocks)
     assert tree_bytes(params) == full - 15 * ex
     rec = dryrun.count_rank_step(rs)
     assert rec["memory"]["argument_bytes"] == \
@@ -140,6 +150,8 @@ def test_argument_bytes_are_the_placed_inputs(shape_name):
         cs = cache_shapes(cfg, 128, shape.seq_len)
         plan += plan_bytes(cs, cache_specs(cs, mesh, shape, 128), mesh)
         assert rs.args[2].shape == (128 // 16, 1)
+        # the rank's cache holds its kv heads
+        assert rs.args[1][0][0]["k"].shape == (24, 8, shape.seq_len, 1, 128)
     assert rs.plan_bytes == plan
     assert rs.data_shards == 16
 
@@ -151,33 +163,38 @@ def _moe_layers(cfg):
 
 @pytest.mark.parametrize("mode", ["allreduce", "alltoall"])
 def test_moe_collectives_are_the_layers_shape_arithmetic(mode):
-    """qwen2-moe-a2.7b's prefill at 16×16 (T cut to 512): each MoE layer
-    sums its (B_loc·T, d) partial output over ``model`` (allreduce) or
-    exchanges its (m, E/m, C, d) capacity buffers twice and gathers its
-    (B_loc, T/m, d) rows (alltoall), and sums the aux over ``model`` and
-    takes data shard 0's over ``data``."""
+    """qwen2-moe-a2.7b's prefill at 16×16 (T cut to 512), the serving
+    blocks: the embedding's rows summed over ``model`` once, then each
+    layer sums its attention's (B_loc, T, d) partial over ``model``; its
+    MoE sums the routed and shared experts' partials in one all-reduce
+    (allreduce) or exchanges its (m, E/m, C, d) capacity buffers twice,
+    gathers its (B_loc, T/m, d) rows and sums the shared experts' partial
+    (alltoall), and sums the aux over ``model`` and takes data shard 0's
+    over ``data``; the head gathers the last token's f32 logits over the
+    vocabulary once."""
     cfg, t = get_arch("qwen2-moe-a2.7b"), 512
     rec = dryrun.lower_and_compile("qwen2-moe-a2.7b", "prefill_32k",
                                    moe_mode=mode, seq_override=t)
     nl, b_loc, d, m = _moe_layers(cfg), 32 // 16, cfg.d_model, 16
     ep = padded_experts(cfg.n_experts)
-    aux = {"all_reduce model": [nl, 4 * nl], "all_reduce data": [nl, 4 * nl]}
+    rows = b_loc * t * d * 2
+    head = b_loc * cfg.vocab_size // m * 4
+    want = {"all_reduce model": [1 + 3 * nl, rows + nl * (2 * rows + 4)],
+            "all_reduce data": [nl, 4 * nl],
+            "all_gather model": [1, head]}
+    coll_ar = (rows + nl * (2 * rows + 4)) * 2 * 15 / 16 + \
+        nl * 2 * 4 * 15 / 16
     if mode == "allreduce":
-        rows = b_loc * t * d * 2
-        want = dict(aux, **{"all_reduce model": [2 * nl,
-                                                  nl * (rows + 4)]})
-        coll_ar = nl * (2 * (rows + 4) * 15 / 16 + 2 * 4 * 15 / 16)
+        assert rec["collectives"]["all-gather"] == head * 15
     else:
         cap = _capacity(b_loc * t // m, cfg, ep, 1.25)
         buf = ep * cap * d * 2
-        want = dict(aux, **{"all_to_all model": [2 * nl, 2 * nl * buf],
-                            "all_gather model": [nl, nl * b_loc * (t // m)
-                                                 * d * 2]})
-        coll_ar = nl * (2 * 4 * 15 / 16 + 2 * 4 * 15 / 16)
+        gathered = nl * b_loc * (t // m) * d * 2
+        want.update({"all_to_all model": [2 * nl, 2 * nl * buf],
+                     "all_gather model": [nl + 1, gathered + head]})
         assert rec["collectives"]["all-to-all"] == \
             pytest.approx(2 * nl * buf * 15 / 16, rel=1e-12)
-        assert rec["collectives"]["all-gather"] == \
-            nl * b_loc * (t // m) * d * 2 * 15
+        assert rec["collectives"]["all-gather"] == (gathered + head) * 15
     assert rec["traffic"] == want
     assert rec["collectives"]["all-reduce"] == pytest.approx(coll_ar,
                                                              rel=1e-12)

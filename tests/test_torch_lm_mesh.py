@@ -17,9 +17,11 @@ gloo ranks, every mode, capacity factors 1.25 and 64, each rank's rows
 within rtol 1e-5 / atol 1e-5 of JAX's and the aux loss too (JAX's is data
 shard 0's at dp > 1); at 64 (no drops) also within 1e-4 of the port's
 ``moe_dense_apply`` (JAX's own bar, tests/test_models.py).  The reduced
-model in f32 at (2,2) allreduce and (1,4) alltoall: the prefill logits
-and 2 greedy decode steps (logits and tokens) within 1e-4 of JAX's jitted
-steps under ``ModelCtx(mesh, moe_mode, Sharder(...))``.  ``all_to_all``
+model in f32 at (2,2) allreduce and (1,4) alltoall, on the serving
+blocks (tensor-parallel heads, shared d_ff and vocabulary beside the
+experts): the prefill logits and 2 greedy decode steps (logits and
+tokens) within 1e-4 of JAX's jitted steps under ``ModelCtx(mesh,
+moe_mode, Sharder(...))``.  ``all_to_all``
 exchanges rank-stamped blocks and is counted in ``Mesh.traffic``; whole
 experts on a split ``model`` axis are refused; ``moe_apply(mode="dense")``
 on a mesh is the dense layer; a gradient passes the layer and the train
@@ -244,8 +246,10 @@ def test_model_on_the_mesh_matches_jax(run, ref, ranks):
                                        **MODEL_TOL,
                                        err_msg=f"rank {i} step {s}")
             assert np.array_equal(nxt, ref[f"{key}/next{s}"][rows]), (i, s)
-        # the experts are the only leaves a rank holds a block of
-        assert got["plan_bytes"] < got["bytes"]
+        # the serving blocks (experts, heads, shared d_ff, vocabulary) are
+        # JAX's plan to the byte, and at this size so is every leaf
+        held, plan = got["block_bytes"]
+        assert held == plan and got["bytes"] == got["plan_bytes"]
 
 
 def test_all_to_all_exchanges_blocks_and_is_counted(ranks):

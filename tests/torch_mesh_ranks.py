@@ -936,42 +936,52 @@ def lm_moe_layer(lm, dev, cfg, moe, x, factors):
 
 
 def lm_model_run(lm, dev, cfg, weights, mode, tokens, first, steps, slots):
-    """The reduced model on the named mesh ``lm`` in MoE mode ``mode``: the
-    prefill of this rank's rows of ``tokens`` (B, T), then ``steps``
-    greedy decode steps from a fresh cache of ``slots`` from ``first``
-    (B, 1), each rank on its rows (its own next tokens fed back).  The
-    experts are placed by ``param_specs``, the rows by ``batch_specs``.
-    Returns the rows, the prefill logits, each step's logits and next
-    tokens, and the bytes this rank holds beside JAX's plan."""
+    """The reduced model on the named mesh ``lm`` in MoE mode ``mode`` on
+    the serving blocks (``shard.block_leaves(serving=True)``): the prefill
+    of this rank's rows of ``tokens`` (B, T), then ``steps`` greedy decode
+    steps from a fresh cache of ``slots`` (the rank's kv heads) from
+    ``first`` (B, 1), each rank on its rows (its own next tokens fed
+    back).  The leaves are placed by ``param_specs``, the rows by
+    ``batch_specs``.  Returns the rows, the prefill logits, each step's
+    logits and next tokens, the bytes this rank holds beside JAX's plan
+    (zero3=False), of every leaf and of its blocks, and the collectives
+    of the prefill."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.core.mesh import reset_traffic
     from repro_torch.data import batch_spec
     from repro_torch.models import (ModelCtx, Sharder, init_cache,
                                     make_decode_step, make_prefill,
                                     param_shapes)
-    from repro_torch.models.shard import plan_bytes, tree_bytes
+    from repro_torch.models.shard import (block_bytes, block_leaves,
+                                          plan_bytes, tree_bytes)
     from repro_torch.sharding import (activation_rules, batch_specs,
                                       param_specs)
     b, t = tokens.shape
     shp = ShapeConfig("prefill", t, b, "prefill")
     sh = Sharder(lm, activation_rules(lm, shp))
-    specs = param_specs(param_shapes(cfg), lm)
+    shapes = param_shapes(cfg)
+    specs = param_specs(shapes, lm)
+    names = block_leaves(lm, mode, serving=True)
     params = sh.place_params(lm_params_from_numpy(weights, cfg, device=dev),
-                             specs)
+                             specs, names)
     ctx = ModelCtx(mesh=lm, moe_mode=mode, sharder=sh, remat=False)
     batch = sh.place_batch({"tokens": tokens}, batch_specs(
         batch_spec(cfg, t, b, "prefill"), lm, shp))
+    reset_traffic(lm)
     logits, _ = make_prefill(cfg, ctx)(params, batch)
     out = {"rows": _lm_rows(lm, b), "prefill": logits.cpu().numpy(),
-           "decode": [], "bytes": tree_bytes(params),
-           "plan_bytes": plan_bytes(param_shapes(cfg), specs, lm)}
+           "traffic": reset_traffic(lm), "decode": [],
+           "bytes": tree_bytes(params),
+           "plan_bytes": plan_bytes(shapes, specs, lm),
+           "block_bytes": block_bytes(params, shapes, specs, lm, names)}
     dshp = ShapeConfig("decode", slots, b, "decode")
     dsh = Sharder(lm, activation_rules(lm, dshp))
     dspecs = batch_specs(batch_spec(cfg, slots, b, "decode"), lm, dshp)
     dec = make_decode_step(cfg, ModelCtx(mesh=lm, moe_mode=mode,
                                          sharder=dsh, remat=False))
     tok = dsh.place_batch({"token": first}, dspecs)["token"]
-    cache = init_cache(cfg, tok.shape[0], slots, device=dev)
+    cache = init_cache(cfg, tok.shape[0], slots, device=dev, mesh=lm)
     for i in range(steps):
         pos = dsh.place_batch({"pos": np.full((b,), i, np.int32)},
                               dspecs)["pos"]
@@ -1007,6 +1017,44 @@ def lm_mesh_shapes(mesh, dev, cfg, moe, x, factors, shapes, model=None):
     reset_traffic(lm)
     got = all_to_all(sent, ax)
     out["all_to_all"] = (ax.index, got.cpu().numpy(), reset_traffic(lm))
+    return out
+
+
+def _greedy_ties(lm):
+    """Alg. 4's pick (``models.lm._greedy``) on the (1, 4) mesh ``lm``
+    over (3, 20) logits in vocabulary blocks of 5, with ties within a
+    rank and across ranks, beside ``torch.argmax`` of the whole rows."""
+    from repro_torch.models.lm import _greedy
+    whole = torch.zeros((3, 20))
+    whole[0, 7] = whole[0, 13] = 2.0          # across ranks 1 and 2
+    whole[1, 3] = whole[1, 4] = whole[1, 19] = 1.5
+    ax = lm.axis("model")
+    block = whole[:, 5 * ax.index:5 * (ax.index + 1)]
+    return (_greedy(block, ax).tolist(),
+            torch.argmax(whole, dim=-1).to(torch.int32).tolist())
+
+
+def lm_tp_runs(mesh, dev, runs, weights, tokens, first, steps, slots):
+    """Every rank-side run of tests/test_torch_lm_tp.py in one spawn of 4
+    ranks, on named meshes (2,2), (1,4) and two side-by-side (1,2) ones
+    (``_twin_meshes``): ``lm_model_run`` on the serving blocks for each
+    (key, (arch, overrides), shape, mode) of ``runs`` on the seeded
+    ``weights[key]``, then Alg. 4's pick on ties (``_greedy_ties``)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.core.mesh import make_named_mesh
+    names = ("data", "model")
+    meshes = {(2, 2): make_named_mesh((2, 2), names),
+              (1, 4): make_named_mesh((1, 4), names),
+              (1, 2): _twin_meshes((1, 2), names)}
+    out = {"ties": _greedy_ties(meshes[(1, 4)])}
+    for key, (arch, over), shape, mode in runs:
+        cfg = dataclasses.replace(get_arch(arch).reduced(), **over)
+        with torch.no_grad():
+            out[f"{key}/{shape}"] = lm_model_run(
+                meshes[shape], dev, cfg, weights[key], mode,
+                torch.as_tensor(tokens), torch.as_tensor(first), steps,
+                slots)
     return out
 
 
@@ -1075,15 +1123,17 @@ def _block(lm, spec):
 def _split(lm, trees, specs, names):
     """The rank's leaves of parallel trees ``trees`` (numpy): {path:
     values} of the whole leaves and {path: (values, block)} of its blocks
-    (the leaves named in ``names``), and a digest of the whole leaves'
-    bytes."""
+    (the expert leaves, where ``names``, the training path's block kinds,
+    holds them), and a digest of the whole leaves' bytes."""
     import hashlib
+    from repro_torch.models.shard import EXPERT_LEAVES, EXPERTS
+    experts = EXPERT_LEAVES if EXPERTS in names else ()
     flat = [_with_specs(t, specs) for t in trees]
     whole, blocks, digest = {}, {}, hashlib.sha256()
     for entries in zip(*flat):
         path, name, spec, _ = entries[0]
         vals = tuple(e[3].detach().cpu().numpy() for e in entries)
-        if name in names:
+        if name in experts:
             blocks[path] = (vals, _block(lm, spec))
         else:
             whole[path] = vals
