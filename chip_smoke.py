@@ -124,13 +124,18 @@ Phases (any failed check raises, so the script exits non-zero):
    call, a prefill and a warm decode token in both layouts (ranks share
    one card: not a scaling figure), each rank's peak GB, bytes held
    beside JAX's plan, and collectives by kind and bytes.
-   Then training on both meshes (ROADMAP A8e): (e) the model at full
-   width cut to one layer in f32, allreduce, lr 3e-4, clip 1.0, remat
-   on: a cold step whose loss and grad norm are within 1e-5 and 1e-4 of
-   one device's step on each data block (gradients averaged over the
-   blocks, then clipped), every gradient the rank holds (its block of the
-   experts) within 1e-3 of the leaf's max and every updated parameter by
-   the Adam rule, B8 2 launches a step, then a warm step timed; (f) the
+   Then training on both meshes (ROADMAP A8e, A9b), each rank holding
+   JAX's layout "tp" (``block_leaves``: its experts, heads, d_ff,
+   shared-expert d_ff and vocabulary rows as blocks over ``model``):
+   (e) the model at full width cut to one layer in f32, allreduce, lr
+   3e-4, clip 1.0, remat on: a cold step whose loss and grad norm are
+   within 1e-5 and 1e-4 of one device's step on each data block
+   (gradients averaged over the blocks, then clipped), every gradient
+   the rank holds (its blocks) within 1e-3 of the leaf's max and every
+   updated parameter by the Adam rule, B8 2 launches a step, the
+   backward's all-reduces over ``model`` (Megatron's f) as many as
+   ``lm_f_backward`` predicts, the blocks' bytes JAX's plan to the byte,
+   then a warm step timed; (f) the
    reduced 60-expert model in every mode at both shapes, one step on the
    card against CPU copies over the same groups (loss 1e-5, gradients
    1e-3 of the max, parameters by the Adam rule), B8 as often as the
@@ -1741,6 +1746,35 @@ def lm_step_launches(cfg, remat=True) -> dict:
     return {n: c * LM_CALL_LAUNCHES[n] for n, c in calls.items()}
 
 
+def lm_f_backward(cfg, m, mode) -> int:
+    """Megatron's f in one train step of ``cfg`` on a rank whose ``model``
+    axis has ``m`` ranks, in MoE mode ``mode``, from its program: the
+    backward's all-reduces over ``model`` (``all_reduce model
+    backward``).  A GQA layer whose query heads split (H % m == 0) takes
+    one, two more where its kv heads do not (wk/wv read whole); an MLP
+    whose d_ff splits one; an expert-parallel MoE layer two (its tokens
+    and its router) and its shared experts' one outside allreduce mode,
+    where they read the layer's; the dense MoE layer its shared experts'
+    one; the head one a loss (two with the MTP head) where the vocabulary
+    splits.  Each repeat of a segment counts once: remat reruns the
+    forward only."""
+    from repro_torch.models import build_program
+    if m == 1:
+        return 0
+    heads = cfg.n_heads % m == 0
+    shared = (cfg.d_ff_expert or cfg.d_ff) * cfg.n_shared_experts
+    shared = shared > 0 and shared % m == 0
+    per = {"attn": heads * (1 + 2 * (cfg.n_kv_heads % m != 0)),
+           "mlp": cfg.d_ff % m == 0,
+           "moe": (shared if mode == "dense" else
+                   2 + (shared and mode != "allreduce"))}
+    per["swa"], per["glu"] = per["attn"], per["mlp"]
+    n = sum(reps * (per.get(kind, 0) + per.get(ffn, 0))
+            for reps, unit in build_program(cfg) for kind, ffn in unit)
+    heads_out = 1 + (cfg.mtp_weight > 0 and not cfg.is_encoder)
+    return n + heads_out * (cfg.vocab_size % m == 0)
+
+
 def lm_leaves(tree):
     """[(path, tensor)] of a parameter tree, JAX's key paths."""
     from repro_torch.checkpoint import keyed_leaves
@@ -2443,8 +2477,9 @@ def lm_mesh_generate(torch, cfg, prefill, decode, params, batch, rows,
 def lm_mesh_serve(torch, lm, dev, arch, mode, tokens):
     """(c) of ``phase_lm_mesh`` for one model on one mesh: the rank's rows
     of ``tokens`` prefilled, then LM_MESH_DECODE greedy tokens
-    (``lm_mesh_generate``), first on the expert-only blocks (ROADMAP A8c),
-    then on the serving blocks (``block_leaves(serving=True)``, placed
+    (``lm_mesh_generate``), first on the expert-only blocks (ROADMAP A8c,
+    named ``(EXPERTS,)``), then on JAX's tensor-parallel blocks
+    (``block_leaves``, placed
     from the whole f32 tree, which is freed before they run: four ranks
     share the card) with the counts at 0 and the first launch of each LM
     kernel held to its plain version (``rank_first_call``).  Per layout:
@@ -2456,8 +2491,8 @@ def lm_mesh_serve(torch, lm, dev, arch, mode, tokens):
     from repro_torch.data import batch_spec
     from repro_torch.models import ModelCtx, Sharder, init_params, \
         make_decode_step, make_prefill, param_shapes
-    from repro_torch.models.shard import block_bytes, block_leaves, \
-        plan_bytes, tree_bytes
+    from repro_torch.models.shard import EXPERTS, block_bytes, \
+        block_leaves, plan_bytes, tree_bytes
     from repro_torch.sharding import activation_rules, batch_specs, \
         param_specs
     cfg = lm_mesh_serve_cfg(arch)
@@ -2473,8 +2508,9 @@ def lm_mesh_serve(torch, lm, dev, arch, mode, tokens):
     lo, hi = mesh_rows(lm, b)
     whole = init_params(cfg, seed=SEED + 91, device=dev)
     out = {"rows": (lo, hi)}
-    for layout, serving in (("experts", False), ("tp", True)):
-        names = block_leaves(lm, mode, serving=serving)
+    for layout, names in (("experts", (EXPERTS,) if mode != "dense"
+                           else ()), ("tp", block_leaves(lm, mode))):
+        serving = layout == "tp"
         params = sh.place_params(whole, specs, names)
         if serving:
             del whole
@@ -2525,7 +2561,8 @@ def lm_mesh_train_cfgs():
 
 
 def lm_mesh_setup(torch, lm, cfg, params, tokens, mode, lr):
-    """The rank's placed parameters (the experts as blocks in the
+    """The rank's placed parameters (JAX's layout, ``block_leaves``: the
+    heads, d_ff and vocabulary as blocks, and the experts in the
     expert-parallel modes), fresh Adam state, rows of ``tokens`` and train
     step on the mesh ``lm``, as ``launch/train.py --production-mesh``
     places them."""
@@ -2633,18 +2670,19 @@ def lm_mesh_hold(torch, failures, tag, got, p0, gref, lr, atol,
     return worst, where
 
 
-def whole_checksum(torch, params, names):
+def whole_checksum(torch, params, specs, names):
     """A checksum of the bits of every whole leaf of ``params`` (all but
-    the blocks of the kinds ``names``, ``shard.block_leaves``), f32 words
-    summed: the step takes a model rank's gradient of a whole leaf as
-    complete, so these leaves must stay equal bit for bit on every rank
-    of the mesh, which the parent checks."""
-    from repro_torch.models.shard import leaf_kinds
+    the blocks of the kinds ``names``, ``shard.block_leaves``, that
+    ``shard.block_dims`` of ``specs`` cuts), f32 words summed: the step
+    takes a model rank's gradient of a whole leaf as complete, so these
+    leaves must stay equal bit for bit on every rank of the mesh, which
+    the parent checks."""
+    from repro_torch.models.shard import block_dims
     from repro_torch.sharding.rules import map_with_path
     sums = []
-    map_with_path(lambda _, p, kind: sums.append(0 if kind in names else int(
+    map_with_path(lambda _, p, dim: sums.append(0 if dim is not None else int(
         torch.sum(p.view(torch.int32), dtype=torch.int64))),
-        params, leaf_kinds(params))
+        params, block_dims(specs, names))
     return sum(sums)
 
 
@@ -2679,8 +2717,10 @@ def timed_grad_reduce(torch):
 
 def lm_mesh_train_full(torch, lm, dev, cfg, tokens, failures):
     """(e) on one mesh: qwen2-moe-a2.7b at full width cut to one layer, in
-    allreduce mode: the cold step with the counts at 0 (B8's launches, the
-    collectives by kind, forward and backward), its loss, norm, every
+    allreduce mode, on JAX's layout (``lm_mesh_setup``; the blocks' bytes
+    beside JAX's plan): the cold step with the counts at 0 (B8's launches,
+    the collectives by kind, forward and backward, the backward's f
+    all-reduces against ``lm_f_backward``), its loss, norm, every
     gradient and updated parameter the rank holds against one device's
     step on each data block (``lm_mesh_block_ref``, run on the rank after
     its own state is freed: the parent's would sit beside four ranks'),
@@ -2688,7 +2728,8 @@ def lm_mesh_train_full(torch, lm, dev, cfg, tokens, failures):
     whole leaves' broadcast over ``model`` timed inside it.  Returns the
     row."""
     from repro_torch.core.mesh import reset_traffic
-    from repro_torch.models import init_params
+    from repro_torch.models import init_params, param_shapes
+    from repro_torch.models.shard import block_bytes, plan_bytes, tree_bytes
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     # seconds from each mark to the next: setup and the cold step, the
@@ -2698,6 +2739,11 @@ def lm_mesh_train_full(torch, lm, dev, cfg, tokens, failures):
     params, opt, batch, step, setup = lm_mesh_setup(
         torch, lm, cfg, whole, tokens, "allreduce", LM_TRAIN_LR)
     del whole
+    shapes, (_, specs, names, _) = param_shapes(cfg), setup
+    held = {"bytes": tree_bytes(params),
+            "plan_bytes": plan_bytes(shapes, specs, lm),
+            "block_bytes": list(block_bytes(params, shapes, specs, lm,
+                                            names))}
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     reset_traffic(lm)
@@ -2708,9 +2754,13 @@ def lm_mesh_train_full(torch, lm, dev, cfg, tokens, failures):
     row = {"shape": list(lm.shape.values()), "layers": cfg.n_layers,
            "cold_ms": 1e3 * (time.perf_counter() - t0),
            "launches": read_counts()["grouped_glu_ffn"],
-           "traffic": reset_traffic(lm),
+           "traffic": reset_traffic(lm), **held,
            **{k: float(m[k]) for k in ("loss", "xent", "aux", "grad_norm")}}
-    row["whole_checksum"] = whole_checksum(torch, params, setup[2])
+    row["f_backward"] = row["traffic"].get("all_reduce model backward",
+                                           [0])[0]
+    row["f_backward_want"] = lm_f_backward(cfg, lm.shape["model"],
+                                           "allreduce")
+    row["whole_checksum"] = whole_checksum(torch, params, *setup[1:3])
     stage["copies"] = time.perf_counter()
     got = [(path, g.to("cpu", copy=True), p.to("cpu", copy=True))
            for (path, g), (_, p) in zip(lm_leaves(m.pop("grads")),
@@ -2746,6 +2796,14 @@ def lm_mesh_train_full(torch, lm, dev, cfg, tokens, failures):
     if row["launches"] != want:
         failures.append(f"lm_mesh_train {tag}: B8 launched {row['launches']}"
                         f" times in the step, the program predicts {want}")
+    if row["f_backward"] != row["f_backward_want"]:
+        failures.append(f"lm_mesh_train {tag}: {row['f_backward']} "
+                        f"all-reduces over model in the backward, the "
+                        f"program predicts {row['f_backward_want']}")
+    if row["block_bytes"][0] != row["block_bytes"][1]:
+        failures.append(f"lm_mesh_train {tag}: the blocks hold "
+                        f"{row['block_bytes'][0]} bytes, JAX's plan "
+                        f"{row['block_bytes'][1]}")
     sh, specs, names, lr = setup
     # the rank's blocks of the reference, its whole experts freed
     ref_params, ref_grads = (sh.place_params(t, specs, names)
@@ -2791,13 +2849,13 @@ def lm_mesh_train_reduced(torch, lm, dev, cfg, failures):
         torch.cuda.synchronize()
         row = {"launches": read_counts()["grouped_glu_ffn"],
                "launches_want": lm_step_launches(cfg)["grouped_glu_ffn"]}
-        row["whole_checksum"] = whole_checksum(torch, params, setup[2])
+        row["whole_checksum"] = whole_checksum(torch, params, *setup[1:3])
         threads = torch.get_num_threads()
         torch.set_num_threads(LM_MESH_CPU_THREADS)
         p0 = tree_map(lambda a: a.clone(), hp)
         _, _, hm = hstep(hp, ho, hb, with_grads=True)
         torch.set_num_threads(threads)
-        row["whole_checksum_cpu"] = whole_checksum(torch, hp, setup[2])
+        row["whole_checksum_cpu"] = whole_checksum(torch, hp, *setup[1:3])
         row["launches_on_cpu"] = read_counts()["grouped_glu_ffn"] - row[
             "launches"]
         row["loss_rel"] = abs(float(m["loss"]) / float(hm["loss"]) - 1)
@@ -2991,16 +3049,20 @@ def phase_lm_mesh(torch, dev, rows, failures):
     one card: not a scaling figure), each rank's peak GB and bytes beside
     JAX's plan, the collectives, the launches (B8 2 a card call, 4 a
     qwen2-moe prefill or decode step, none on CPU copies; B7 2 a gemma3-4b
-    prefill).  Then training (ROADMAP A8e): (e) qwen2-moe-a2.7b at full
+    prefill).  Then training (ROADMAP A8e, A9b) on JAX's layout
+    (``block_leaves``): (e) qwen2-moe-a2.7b at full
     width cut to one layer, f32, B=2, T=256, in allreduce mode at each
     shape, its loss, grad norm, every gradient and updated parameter the
     rank holds against one device's step on each data block, gradients
-    averaged (``lm_mesh_block_ref``); (f) the reduced 60-expert model in
+    averaged (``lm_mesh_block_ref``), its backward's f all-reduces by
+    ``lm_f_backward`` and its blocks' bytes JAX's plan; (f) the reduced
+    60-expert model in
     every mode at each shape, one step on the card against CPU copies over
     the same groups, B8's launches by the layer program
     (``lm_step_launches``); printed: each rank's warm step ms, peak GB,
-    the gradient reduction's bytes and ms and the collectives forward and
-    backward, beside the card's name and power limit.  Before the ranks
+    bytes beside JAX's plan, the gradient reduction's bytes and ms and the
+    collectives forward and backward, beside the card's name and power
+    limit.  Before the ranks
     start, B8 itself at the capacity buffers they give it
     (``lm_mesh_kernel``).  Returns B7's and B8's launches on the mesh,
     summed over ranks."""
@@ -3075,6 +3137,11 @@ def phase_lm_mesh(torch, dev, rows, failures):
               "peak_gb_per_rank": [r["peak_gb"] for r in per],
               "grad_reduce_ms_per_rank": [r["grad_reduce_ms"] for r in per],
               "grad_reduce_per_rank": [r["grad_reduce"] for r in per],
+              "param_bytes_per_rank": [r["bytes"] for r in per],
+              "block_bytes_per_rank": [r["block_bytes"] for r in per],
+              "jax_plan_bytes_per_device": per[0]["plan_bytes"],
+              "f_backward_per_rank": [r["f_backward"] for r in per],
+              "f_backward_want": per[0]["f_backward_want"],
               "stage_s_rank0": per[0]["stage_s"],
               "traffic_per_rank": [r["traffic"] for r in per],
               "note": note})

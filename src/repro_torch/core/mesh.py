@@ -671,10 +671,13 @@ class _ReduceFromAxis(torch.autograd.Function):
 
 
 def copy_to_axis(x: torch.Tensor, axis: Axis) -> torch.Tensor:
-    """``x``, replicated over ``axis``, entering work split over it (the
-    LM mesh's tokens and router before the experts of ``model``): the
-    identity, whose gradient is the sum of the ranks' partial gradients
-    (``shard_map``'s transpose of an input its spec leaves unsplit)."""
+    """``x``, replicated over ``axis``, entering work split over it (on
+    the LM mesh the tokens and the router before the experts of
+    ``model``, a layer's input before its heads or d_ff columns, the
+    final hidden before the head's vocabulary block, a whole weight a
+    rank reads only in part): the identity, whose gradient is the sum of
+    the ranks' partial gradients (``shard_map``'s transpose of an input
+    its spec leaves unsplit)."""
     if axis.size == 1 or not _needs_grad(x):
         return x
     return _CopyToAxis.apply(x, axis)

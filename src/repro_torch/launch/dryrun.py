@@ -17,12 +17,13 @@ mesh records the collectives the rank calls.  Nothing is allocated.
 Every number of a record is the port's own count of its rank, except
 ``plan_argument_bytes``, the bytes a device holds under JAX's plan
 (``models.shard.plan_bytes``), and the analytic terms, which are JAX's
-arithmetic on the config.  A prefill or decode rank holds the serving
-blocks (``models.shard.block_leaves(serving=True)``): the experts, and
-the attention heads, d_ff and vocabulary where JAX's plan splits them over
-``model``, with their all-reduces and gathers in the traffic; a train
-rank holds the experts only (tensor parallelism in training is ROADMAP
-A9b).  Every other leaf stays whole (MLA, RWKV-6, Mamba, the frontends,
+arithmetic on the config.  A rank holds the blocks of
+``models.shard.block_leaves`` at every shape: the experts, and the
+attention heads, d_ff and vocabulary where JAX's plan splits them over
+``model``, with their all-reduces and gathers in the traffic (at a train
+shape also the backward's f all-reduces, ``all_reduce model backward``,
+and the loss's max and sum over ``model`` a chunk, forward and
+recomputed).  Every other leaf stays whole (MLA, RWKV-6, Mamba, the frontends,
 JAX's data-axis splits), so a rank's ``argument_bytes`` are not JAX's
 plan.
 The roofline terms take ``roofline.HW``, the H100's data-sheet rates.
@@ -106,9 +107,8 @@ def rank_step(cfg, shape, mesh, *, moe_mode: str = "allreduce",
               params=None, batch=None) -> RankStep:
     """Rank ``mesh.rank``'s step of ``cfg`` at ``shape`` on ``mesh``: its
     parameters (its blocks over ``model`` of ``shard.block_leaves``: the
-    MoE experts where the layer is expert-parallel, and at a prefill or
-    decode shape the serving set's heads, d_ff and vocabulary; every
-    other leaf whole), its rows of the batch,
+    MoE experts where the layer is expert-parallel, the heads, d_ff and
+    vocabulary; every other leaf whole), its rows of the batch,
     Adam's state or its cache, placed by the ``Sharder``'s rules, and the
     step built on a ``ModelCtx`` of the mesh.  ``params`` (a whole tree)
     and ``batch`` (a whole batch of ``batch_spec``'s structure) are meta
@@ -126,11 +126,9 @@ def rank_step(cfg, shape, mesh, *, moe_mode: str = "allreduce",
                    remat=remat, q_chunk=q_chunk, wkv_chunk=WKV_CHUNK)
     shapes = param_shapes(cfg)
     pspecs = param_specs(shapes, mesh, zero3=zero3, layout=layout)
-    serving = shape.mode != "train"
     params = sharder.place_params(meta_tree(shapes) if params is None
                                   else params, pspecs,
-                                  block_leaves(mesh, moe_mode,
-                                               serving=serving))
+                                  block_leaves(mesh, moe_mode))
     bshape = batch_spec(cfg, shape.seq_len, shape.global_batch, shape.mode)
     bspecs = batch_specs(bshape, mesh, shape, layout=layout)
     batch = sharder.place_batch(meta_tree(bshape) if batch is None

@@ -17,11 +17,15 @@ the 256 ranks of a ``torchrun`` launch, each of which joins the process
 group on its own card (nccl; gloo with ``--device cpu``) before the mesh
 is built (``launch/mesh.py``, which raises without 256 ranks), with
 JAX's activation rules: every rank places the
-parameters and Adam's moments (the MoE experts as blocks over ``model``
-in the expert-parallel modes, ``--moe-mode allreduce`` or ``alltoall``;
-whole with ``dense``), takes its rows of each batch and runs the step;
-rank 0 prints and writes the checkpoints, whose expert blocks are
-gathered whole first, so a checkpoint is JAX's global tree.  Without the
+parameters and Adam's moments in JAX's layout "tp" (``models.shard.
+block_leaves``: the GQA heads, the MLP's and shared experts' d_ff and
+the vocabulary as blocks over ``model`` where JAX's plan splits them, and
+the MoE experts in the expert-parallel modes, ``--moe-mode allreduce`` or
+``alltoall``; the experts whole with ``dense``), takes its rows of each
+batch and runs the step; rank 0 prints and writes the checkpoints, whose
+blocks of every kind are gathered whole first, so a checkpoint is JAX's
+global tree, and a checkpoint (of a mesh or of one device) is restored
+whole and placed into the blocks.  Without the
 mesh ``--moe-mode allreduce`` and ``alltoall`` run the dense MoE layer, as
 JAX's launcher does.
 

@@ -14,15 +14,21 @@ Decode takes a KV cache and one query token.  Caches:
   GQA: {"k": (B, S, KV, hd), "v": (B, S, KV, hd), "k_pos": (B, S) int32}
   MLA: {"ckv": (B, S, kv_lora), "krope": (B, S, rope_dim)}
 
-On the serving path of the LM mesh a GQA layer is tensor-parallel over
-``model`` (``models.shard``): a rank holds wq's and wo's blocks of H/m
-query heads, and of wk/wv its KV/m kv heads where they split, else the
-whole (KV % m != 0, e.g. granite-20b's one kv head), of which it keeps the
-kv heads its query heads read (query head j reads kv head j // g).  Its
+On the LM mesh a GQA layer is tensor-parallel over ``model``
+(``models.shard``): a rank holds wq's and wo's blocks of H/m query heads,
+and of wk/wv its KV/m kv heads where they split, else the whole
+(KV % m != 0, e.g. granite-20b's one kv head), of which it keeps the kv
+heads its query heads read (query head j reads kv head j // g).  Its
 cache holds those kv heads (:func:`rank_kv_heads`), its window prefill
 runs B7 on its (B·H/m, T, hd) operands, and the row-parallel wo's partial
-output is summed over ``model`` (``core.mesh.reduce_from_axis``).  The
-head counts come from the rank's weights; an MLA layer computes whole.
+output is summed over ``model`` (Megatron's g,
+``core.mesh.reduce_from_axis``).  The replicated input enters the split
+heads through Megatron's f (``core.mesh.copy_to_axis``), so its gradient
+is the sum of the ranks' partials; so do whole wk/wv, whose rank's
+gradient is only its query heads' share.  The head counts come from the
+rank's weights; a layer whose query heads do not split (and an MLA
+layer) computes whole, with no f: its gradients are complete on every
+rank.
 """
 from __future__ import annotations
 
@@ -30,7 +36,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..core.mesh import reduce_from_axis
+from ..core.mesh import copy_to_axis, reduce_from_axis
 from ..kernels.swa import swa_attention
 from .common import apply_rope, dense_init, rms_norm
 from .shard import BLOCK_AXIS, NO_SHARD, split_axis
@@ -121,8 +127,8 @@ def rank_kv_heads(cfg, h_loc: int, index: int
 
 def cache_kv_heads(cfg, mesh=None) -> int:
     """The kv heads a GQA layer's decode cache holds on a rank of
-    ``mesh`` whose attention is tensor-parallel (``shard.block_leaves``'
-    serving set): its block's where the query heads split over ``model``
+    ``mesh`` whose attention is tensor-parallel (``shard.block_leaves``):
+    its block's where the query heads split over ``model``
     (JAX's ``param_specs`` rule, H % m == 0), else all KV."""
     m = 1 if mesh is None else mesh.shape[BLOCK_AXIS]
     if m == 1 or cfg.n_heads % m:
@@ -144,17 +150,22 @@ def gqa_apply(p, x, *, cfg, kind: str = "causal",
     """x (B, T, d).  Prefill when cache is None; else a one-token decode
     at position ``pos`` (B,) int32.  Returns (out, new_cache).  On a
     ``mesh`` whose rank holds wq's block of the heads (``shard``), the
-    rank's heads, and the output summed over ``model``."""
+    rank's heads: ``x`` enters through f, the output is summed over
+    ``model``."""
     b, t, d = x.shape
     h, hd = p["wq"].shape[-2], cfg.head_dim
     ax = split_axis(mesh, h, cfg.n_heads)
     wk, wv = p["wk"], p["wv"]
     kvh, read = wk.shape[-2], None
     if ax is not None:
+        x = copy_to_axis(x, ax)
         first, kvh, read = rank_kv_heads(cfg, h, ax.index)
-        if wk.shape[-2] != kvh:
-            # wk/wv whole: the kv heads this rank's query heads read
-            wk, wv = (w.narrow(-2, first, kvh) for w in (wk, wv))
+        if wk.shape[-2] == cfg.n_kv_heads:
+            # wk/wv whole (KV % m != 0): the kv heads this rank's query
+            # heads read; a rank's gradient of them is its heads' share,
+            # summed by f
+            wk, wv = (copy_to_axis(w, ax).narrow(-2, first, kvh)
+                      for w in (wk, wv))
     window = cfg.sliding_window
     scale = hd ** -0.5
 

@@ -101,7 +101,7 @@ def init_block(gen, cfg, sig: Sig, dtype, device) -> Dict:
 def init_block_cache(cfg, sig: Sig, batch: int, seq: int, dtype, device,
                      mesh=None):
     """Decode-time cache for one layer (a GQA layer's kv heads a rank's of
-    ``mesh`` under the serving blocks, ``attention.cache_kv_heads``)."""
+    ``mesh`` under its blocks, ``attention.cache_kv_heads``)."""
     kind, ffn_kind = sig
     d, kv, hd = cfg.d_model, cache_kv_heads(cfg, mesh), cfg.head_dim
 

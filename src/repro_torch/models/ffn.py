@@ -28,13 +28,14 @@ partial outputs leave through ``reduce_from_axis``, the exchanges pass
 their gradients back, and the aux loss keeps JAX's value and gradient
 (``_AuxOfMesh``).
 
-On the serving path of the LM mesh the MLP and the MoE shared experts
-are tensor-parallel over ``model`` (``models.shard``): a rank holds wu's
-and wg's d_ff columns and wo's d_ff rows, and the partial output is
-summed over ``model`` (``mlp_apply(axis=)``); in ``allreduce`` mode the
-shared experts' partial joins the routed experts' partial in the layer's
-one all-reduce, in ``alltoall`` mode it takes its own.  RWKV's channel
-mix computes whole.
+On the LM mesh the MLP and the MoE shared experts are tensor-parallel
+over ``model`` (``models.shard``): a rank holds wu's and wg's d_ff columns
+and wo's d_ff rows, the replicated input enters through Megatron's f
+(``copy_to_axis``) and the partial output is summed over ``model``
+(``mlp_apply(axis=)``); in ``allreduce`` mode the shared experts' partial
+reads the layer's one f'd input and joins the routed experts' partial in
+its one all-reduce, in ``alltoall`` mode and the dense layer it takes its
+own f and all-reduce.  RWKV's channel mix computes whole.
 
 The expert count is padded to a multiple of 16 so expert weights shard on
 any production mesh (the padded experts are unroutable).
@@ -73,7 +74,10 @@ def init_mlp(gen, d: int, d_ff: int, dtype, device, gated: bool):
 def mlp_apply(p, x, *, gated: bool, sharder=NO_SHARD, axis=None):
     """The MLP (gated: GLU) on x (B, T, d).  With ``axis`` (the ``model``
     axis of a rank holding the d_ff blocks, ``shard.split_axis``) the
-    rank's columns, and the partial output summed over it."""
+    rank's columns: x enters through f, the partial output is summed
+    over the axis."""
+    if axis is not None:
+        x = copy_to_axis(x, axis)
     y = mlp_partial(p, x, gated=gated, sharder=sharder)
     if axis is not None:
         y = reduce_from_axis(y, axis)
@@ -284,8 +288,9 @@ def moe_sharded_apply(p, x, *, cfg, mesh, mode: str = "allreduce",
     ``x`` (B_loc, T, d) is the rank's rows: the batch's block of its data
     rank when the batch splits over the data axes, the whole batch on
     every rank when it does not (a decode of one sequence), as JAX's
-    ``bspec``.  ``p`` holds the router whole, the shared experts whole
-    (or, on the serving path, as the rank's d_ff blocks) and the rank's
+    ``bspec``.  ``p`` holds the router whole, the shared experts as the
+    rank's d_ff blocks (or whole, placed by the default ``place_params``
+    kinds or where d_ff does not split) and the rank's
     block of the experts, (E_p/m, d, f) on a ``model`` axis of size m
     (``Sharder.place_params``).  Returns the rank's (B_loc, T, d)
     rows and the aux loss, which is JAX's value: the mean over ``model``
@@ -298,9 +303,10 @@ def moe_sharded_apply(p, x, *, cfg, mesh, mode: str = "allreduce",
     the mesh's shape unless nothing drops.
 
     The gradient is JAX's for a loss replicated on every rank: the rank's
-    gradient of ``x``, the router and the shared expert is whole, and of
-    its expert blocks its data rank's share, which the train step sums
-    over the data axes (``lm.loss_and_grads``).  The aux loss passes c/n
+    gradient of ``x``, the router and a whole shared expert is whole, and
+    of its expert blocks (and shared d_ff blocks) its data rank's share,
+    which the train step sums over the data axes
+    (``lm.loss_and_grads``).  The aux loss passes c/n
     of its cotangent c to each of the n ranks' own aux (``_AuxOfMesh``)."""
     if mode not in ("allreduce", "alltoall", "alltoall_rep"):
         raise ValueError(f"unknown MoE mode {mode!r}")
@@ -318,8 +324,8 @@ def moe_sharded_apply(p, x, *, cfg, mesh, mode: str = "allreduce",
     b_loc, t, d = x.shape
     seq_sharded = mode == "alltoall" and t % m == 0 and t >= m
     mode = "alltoall" if mode == "alltoall_rep" else mode
-    # the shared experts: whole (the training path) or the rank's d_ff
-    # blocks (serving), whose partial is summed over ``model``
+    # the shared experts: the rank's d_ff blocks, whose partial is summed
+    # over ``model`` (whole where JAX's plan keeps d_ff whole)
     sh_ax = shared_axis(p, cfg, mesh) if "shared" in p else None
     joined = mode == "allreduce" and sh_ax is not None
     xs = copy_to_axis(x, model)

@@ -21,27 +21,34 @@ Steps:
 
 On the LM mesh (``ctx.mesh``) every step runs as rank code: each rank on
 its rows of the batch (and its caches) and on the blocks it holds over
-``model`` (``models.shard``).  Serving holds the tensor-parallel blocks
-too: the embedding lookup reads the rank's vocabulary rows (zeros for
-tokens outside its block) and sums them over ``model``; the tied head
-computes the rank's vocabulary block of the logits, in f32 from the
-block alone, and gathers the blocks whole over ``model``; the greedy
-token is the paper's Alg. 4 pick (each rank's max and first argmax with
-its block's offset, gathered, the first largest taken); a rank's decode
-cache holds its kv heads (``init_cache(mesh=)``).  Training holds only
-the MoE experts as blocks: the loss refuses tensor-parallel blocks,
-naming ROADMAP A9b.  The loss is JAX's global one on every
-rank: the cross-entropies' sums and counts are summed over the data axes
-before their ratio.  The gradient is JAX's too: each rank differentiates
-that replicated loss (the MoE layer passes its gradients through its
-collectives, ``ffn.moe_sharded_apply``), then every leaf is summed over
-the data axes and none over ``model``, and the clip takes the global norm,
-the expert blocks' squares summed over ``model``.  After a step every
-whole leaf is equal on every rank, bit for bit: the ranks of a data group
-receive the same reduced bytes, and the ranks of a ``model`` group take
-model rank 0's gradients of the whole leaves, which each computed from
-the same values but by its own process's kernels, whose bits can
-differ.
+``model``, the same on every path (``shard.block_leaves``: the experts,
+the GQA heads, the MLP's and shared experts' d_ff and the vocabulary,
+where JAX's ``param_specs`` splits them).  The embedding lookup reads the
+rank's vocabulary rows (zeros for tokens outside its block) and sums them
+over ``model``; the tied head computes the rank's vocabulary block of the
+logits, in f32 from the block alone, and serving gathers the blocks whole
+over ``model``; the greedy token is the paper's Alg. 4 pick (each rank's
+max and first argmax with its block's offset, gathered, the first largest
+taken); a rank's decode cache holds its kv heads (``init_cache(mesh=)``).
+The loss is JAX's global one on every rank: over a split vocabulary each
+chunk's logsumexp is combined over ``model`` (the max, then the sum of
+exponentials) and the gold logit is the rank's where the label lies in
+its block, summed (``xent_parts(axis=)``), so no rank forms a chunk's
+whole logits; the cross-entropies' sums and counts are summed over the
+data axes before their ratio.  The gradient is JAX's too: each rank
+differentiates that replicated loss, the replicated activations entering
+split work through Megatron's f (``core.mesh.copy_to_axis``: the heads,
+d_ff, the experts, the head's vocabulary block), whose gradient sums the
+ranks' partials over ``model``; then every leaf is summed over the data
+axes, and the clip takes the global norm, the blocks' squares summed over
+``model`` and each whole leaf's counted once.  A step refuses a tree
+placed in another layout, naming the first leaf that differs
+(:func:`check_layout`).  After a step every whole leaf is equal on every
+rank, bit for bit: the ranks of a data group receive the same reduced
+bytes, and the ranks of a ``model`` group take model rank 0's gradients
+of the whole leaves (the norms, the router and the leaves JAX's plan
+keeps whole), which each computed completely but by its own process's
+kernels, whose bits can differ.
 
 The train step updates the parameters and the Adam state in place (and
 returns them).  The vocabulary loss is taken in sequence chunks, each
@@ -57,16 +64,16 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from .. import optim
-from ..core.mesh import (all_gather_tiled, all_reduce_grads, all_reduce_sum,
-                         broadcast_first, reduce_from_axis)
+from ..core.mesh import (all_gather_tiled, all_reduce_grads, all_reduce_max,
+                         all_reduce_sum, broadcast_first, copy_to_axis,
+                         reduce_from_axis)
 from ..device import DeviceLike, resolve_device
-from ..sharding.rules import data_axes_of, map_with_path
+from ..sharding.rules import data_axes_of, map_with_path, param_specs
 from .blocks import (ModelCtx, block_apply, build_program, init_block,
                      init_block_cache)
 from .common import (F32, dense_init, embed_init, rms_norm, tree_leaves,
                      tree_map)
-from .shard import (A9B, ATTENTION, BLOCK_AXIS, EMBED, FFN, block_leaves,
-                    leaf_kinds, split_axis)
+from .shard import BLOCK_AXIS, block_dims, block_leaves, split_axis
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 LOSS_CHUNK = 512
@@ -149,8 +156,8 @@ def _init_cache(cfg, batch: int, seq: int, dev: torch.device,
 def init_cache(cfg, batch: int, seq: int, *,
                device: DeviceLike = "cuda", mesh=None) -> list:
     """The decode cache of ``batch`` rows and ``seq`` slots; on a rank of
-    ``mesh`` that holds the serving blocks (``shard.block_leaves(...,
-    serving=True)``), a GQA layer's cache holds the rank's kv heads."""
+    ``mesh`` (holding the blocks of ``shard.block_leaves``), a GQA layer's
+    cache holds the rank's kv heads."""
     return _init_cache(cfg, batch, seq, resolve_device(device), mesh)
 
 
@@ -247,33 +254,6 @@ def _greedy(block, ax):
     return pairs[..., 1].gather(1, pick[:, None])[:, 0].to(torch.int32)
 
 
-def _refuse_tensor_parallel(params, cfg) -> None:
-    """The training path holds only the MoE experts as blocks: parameters
-    holding tensor-parallel blocks (``shard.block_leaves(...,
-    serving=True)``: the vocabulary's rows, a GQA layer's query heads, an
-    MLP's or the shared experts' d_ff, each narrower than ``cfg``'s) are
-    refused, naming the queue item that ports them."""
-    ffe = (cfg.d_ff_expert or cfg.d_ff) * cfg.n_shared_experts
-    whole = {(EMBED, "embed"): (0, cfg.vocab_size),
-             (ATTENTION, "wq"): (-2, cfg.n_heads),
-             (FFN, "wu"): (-1, cfg.d_ff)}
-    split = []
-
-    def leaf(path, x, kind):
-        dim, n = whole.get((kind, path[-1]), (None, None))
-        if kind == FFN and path[-2] == "shared":
-            n = ffe
-        if dim is not None and x.shape[dim] != n:
-            split.append(path)
-    map_with_path(leaf, params, leaf_kinds(params))
-    if split:
-        raise ValueError(
-            f"the training path holds only the MoE experts as blocks over "
-            f"{BLOCK_AXIS}; these parameters hold tensor-parallel blocks "
-            f"({len(split)} leaves), which training takes in ROADMAP item "
-            f"{A9B!r}")
-
-
 def _at(tree, r: int):
     return tree_map(lambda a: a[r], tree)
 
@@ -354,36 +334,59 @@ def _final_hidden(params, cfg, x):
 
 # ------------------------------------------------------------- loss --------
 
-def _xent_chunk(hc, embed_w, lc, mc):
+def _xent_chunk(hc, embed_w, lc, mc, axis):
     """(Σ masked (lse - gold), Σ mask) of one chunk, its logits in f32, in
-    the ``lm_step.loss_chunk`` range (again in the backward)."""
+    the ``lm_step.loss_chunk`` range (again in the backward, with its
+    collectives in the same order on every rank).  With ``axis`` (the
+    vocabulary split over it, ``embed_w`` the rank's rows) the rank's
+    block of the logits alone: the logsumexp from the largest logit over
+    the axis (held constant: the function does not depend on it) and the
+    exponentials' sum over it, the gold logit the rank's where the label
+    lies in its block, else 0, summed over it."""
     with record_function("lm_step.loss_chunk"):
         logits = torch.einsum("btd,vd->btv", hc.float(), embed_w.float())
-        lse = torch.logsumexp(logits, dim=-1)
-        # the gold logit by a gather: the same value as JAX's masked sum
-        # over the vocabulary's iota (one term and zeros)
-        gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+        if axis is None:
+            lse = torch.logsumexp(logits, dim=-1)
+            # the gold logit by a gather: the same value as JAX's masked
+            # sum over the vocabulary's iota (one term and zeros)
+            gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+        else:
+            top = all_reduce_max(logits.detach().amax(dim=-1), axis)
+            lse = torch.log(reduce_from_axis(torch.sum(
+                torch.exp(logits - top[..., None]), dim=-1), axis)) + top
+            n = embed_w.shape[0]
+            local = lc.long() - axis.index * n
+            mine = (local >= 0) & (local < n)
+            gold = torch.gather(logits, -1,
+                                local.clamp(0, n - 1)[..., None])[..., 0]
+            gold = reduce_from_axis(torch.where(mine, gold, 0.0), axis)
         return torch.sum((lse - gold) * mc), torch.sum(mc)
 
 
-def xent_parts(h, embed_w, labels, mask=None, chunk: int = LOSS_CHUNK):
+def xent_parts(h, embed_w, labels, mask=None, chunk: int = LOSS_CHUNK,
+               axis=None):
     """(Σ masked cross-entropy, Σ mask) over the vocabulary without a full
     (B, T, V) logits buffer.  h (B, T, d) the final hidden; embed_w (V, d)
-    the tied output head; labels (B, T).  The sequence is cut as JAX cuts
-    it (``nc = max(T // chunk, 1)`` chunks of ``T // nc`` tokens; a
-    remainder is left out), and each chunk is recomputed in the backward
-    (JAX's ``jax.checkpoint``), so one chunk's f32 logits live at a
-    time."""
+    the tied output head, or with ``axis`` (``shard.split_axis``) the
+    rank's block of its rows, the vocabulary split over that axis; labels
+    (B, T).  The sequence is cut as JAX cuts it (``nc = max(T // chunk,
+    1)`` chunks of ``T // nc`` tokens; a remainder is left out), and each
+    chunk is recomputed in the backward (JAX's ``jax.checkpoint``), so one
+    chunk's f32 logits live at a time: on a split vocabulary the rank's
+    (B, cs, V/m) block of them, ``h`` entering through f
+    (``core.mesh.copy_to_axis``), so its gradient sums the blocks'."""
     b, t, _ = h.shape
     nc = max(t // chunk, 1)
     cs = t // nc
     if mask is None:
         mask = torch.ones((b, t), dtype=F32, device=h.device)
+    if axis is not None:
+        h = copy_to_axis(h, axis)
     tot = torch.zeros((), dtype=F32, device=h.device)
     cnt = torch.zeros((), dtype=F32, device=h.device)
     for i in range(nc):
         part = slice(i * cs, (i + 1) * cs)
-        args = (h[:, part], embed_w, labels[:, part], mask[:, part])
+        args = (h[:, part], embed_w, labels[:, part], mask[:, part], axis)
         if torch.is_grad_enabled():
             s, c = checkpoint(_xent_chunk, *args, use_reentrant=False)
         else:
@@ -394,11 +397,12 @@ def xent_parts(h, embed_w, labels, mask=None, chunk: int = LOSS_CHUNK):
 
 
 def chunked_xent(h, embed_w, labels, mask=None, chunk: int = LOSS_CHUNK,
-                 mesh=None):
-    """The mean cross-entropy of :func:`xent_parts`; on a mesh the global
-    batch's, its sum and count summed over the data axes first (JAX's
-    over the global arrays), the same on every rank."""
-    tot, cnt = xent_parts(h, embed_w, labels, mask, chunk)
+                 mesh=None, axis=None):
+    """The mean cross-entropy of :func:`xent_parts` (``axis``: the
+    vocabulary's, where ``embed_w`` is the rank's block); on a mesh the
+    global batch's, its sum and count summed over the data axes first
+    (JAX's over the global arrays), the same on every rank."""
+    tot, cnt = xent_parts(h, embed_w, labels, mask, chunk, axis)
     if mesh is not None:
         both = torch.stack([tot, cnt])
         for name in data_axes_of(mesh):
@@ -431,21 +435,22 @@ def loss_fn(params, cfg, batch, ctx: ModelCtx):
     ``mtp``.  On a mesh each rank passes its rows of the batch, and the
     loss and metrics are the global batch's (``aux`` data shard 0's, as
     JAX's), the same on every rank."""
-    _refuse_tensor_parallel(params, cfg)
     x, labels, mask = _embed_inputs(params, cfg, batch, ctx)
     x = ctx.sharder.act(x, "act_resid_in")
     x, _, aux = _apply_segments(params, cfg, x, ctx)
     h = _final_hidden(params, cfg, x)
     if labels is None:
         labels, mask = _next_token(batch["tokens"], h.device)
-    loss = chunked_xent(h, params["embed"], labels, mask, mesh=ctx.mesh)
+    vocab = split_axis(ctx.mesh, params["embed"].shape[0], cfg.vocab_size)
+    loss = chunked_xent(h, params["embed"], labels, mask, mesh=ctx.mesh,
+                        axis=vocab)
     metrics = {"xent": loss, "aux": aux}
     if cfg.mtp_weight > 0 and not cfg.is_encoder:
         h2 = torch.einsum("btd,de->bte", h, params["mtp_proj"])
         mask2 = mask if mask is not None else torch.ones(
             labels.shape, dtype=F32, device=h.device)
         mtp = chunked_xent(h2, params["embed"], _shift_left(labels),
-                           _shift_left(mask2), mesh=ctx.mesh)
+                           _shift_left(mask2), mesh=ctx.mesh, axis=vocab)
         metrics["mtp"] = mtp
         loss = loss + cfg.mtp_weight * mtp
     if cfg.is_moe:
@@ -457,10 +462,12 @@ def loss_and_grads(params, cfg, batch, ctx: ModelCtx):
     """(loss, metrics, grads): the loss and its gradient with respect to
     every leaf of ``params`` (a tree of the parameters' structure and
     dtypes; a leaf the loss does not reach gets zeros, as in JAX).  On a
-    mesh each leaf is then summed over the data axes, one all-reduce a
-    leaf (``core.mesh.all_reduce_grads``), in the ``lm_step.grad_reduce``
+    mesh (``params`` placed as :func:`check_layout` holds) each leaf is
+    then summed over the data axes, one all-reduce a leaf
+    (``core.mesh.all_reduce_grads``), in the ``lm_step.grad_reduce``
     range, and the whole leaves take model rank 0's bits
     (``core.mesh.broadcast_first``, ``lm_step.grad_broadcast``)."""
+    check_layout(params, cfg, ctx)
     leaves = tree_leaves(params)
     flags = [p.requires_grad for p in leaves]
     try:
@@ -488,33 +495,94 @@ def loss_and_grads(params, cfg, batch, ctx: ModelCtx):
         # CPU's GEMMs by the operands' alignment): model rank 0's become
         # every rank's, so the whole leaves stay equal bit for bit
         with record_function("lm_step.grad_broadcast"):
-            broadcast_first(_split_blocks(grads, ctx)[0],
+            broadcast_first(_split_blocks(grads, cfg, ctx)[0],
                             ctx.mesh.axis(BLOCK_AXIS))
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, grads
 
 
-def _split_blocks(tree, ctx: ModelCtx):
+# (config, mesh shape, MoE mode) -> (block dims, the rank's leaf shapes)
+_LAYOUTS: Dict[tuple, tuple] = {}
+
+
+def _layout(cfg, ctx: ModelCtx):
+    """(the tree of each leaf's block dim or None, ``shard.block_dims`` of
+    ``shard.block_leaves(ctx.mesh, ctx.moe_mode)``, and the tree of the
+    leaves' shapes as a rank of ``ctx.mesh`` holds them) of ``cfg``'s
+    parameters, made once a (config, mesh shape, mode)."""
+    mesh = ctx.mesh
+    key = (cfg, tuple(mesh.shape.items()), ctx.moe_mode)
+    if key not in _LAYOUTS:
+        shapes = param_shapes(cfg)
+        dims = block_dims(param_specs(shapes, mesh),
+                          block_leaves(mesh, ctx.moe_mode))
+        m = mesh.shape[BLOCK_AXIS]
+        _LAYOUTS[key] = dims, map_with_path(
+            lambda _, leaf, dim: tuple(n // m if i == dim else n
+                                       for i, n in enumerate(leaf[0])),
+            shapes, dims)
+    return _LAYOUTS[key]
+
+
+def _prepare_layout(cfg, ctx: ModelCtx) -> None:
+    """Makes the layout of a step's mesh when the step is made: its
+    meta-device shapes are then no part of a counted step
+    (``roofline.count``), which sees the same ops on every call."""
+    if ctx.mesh is not None:
+        _layout(cfg, ctx)
+
+
+def check_layout(params, cfg, ctx: ModelCtx) -> None:
+    """On a mesh, raises ``ValueError`` naming the first leaf of
+    ``params`` (by its JAX key path) whose shape is not the one a rank
+    holds in the layout of ``shard.block_leaves(ctx.mesh, ctx.moe_mode)``:
+    a tree in another layout would give a wrong norm and wrong whole-leaf
+    broadcasts."""
+    if ctx.mesh is None:
+        return
+    bad = _misplaced(params, _layout(cfg, ctx)[1])
+    if bad is not None:
+        path, got, want = bad
+        raise ValueError(
+            f"the leaf {path} is {got} on this rank, {want} in the layout "
+            f"of shard.block_leaves(mesh, {ctx.moe_mode!r}) = "
+            f"{block_leaves(ctx.mesh, ctx.moe_mode)}: place the parameters "
+            f"with Sharder.place_params(..., block_leaves(mesh, moe_mode))")
+
+
+def _misplaced(tree, want, path=""):
+    """(key path, shape, wanted shape) of the first leaf of ``tree`` whose
+    shape is not ``want``'s, or None."""
+    if isinstance(tree, (dict, list)):
+        keys = tree if isinstance(tree, dict) else range(len(tree))
+        for k in keys:
+            bad = _misplaced(tree[k], want[k], f"{path}[{k!r}]")
+            if bad is not None:
+                return bad
+        return None
+    got = tuple(tree.shape)
+    return None if got == want else (path, got, want)
+
+
+def _split_blocks(tree, cfg, ctx: ModelCtx):
     """([whole leaves], [the leaves a rank holds as blocks over ``model``,
-    ``shard.block_leaves``]) of a tree of the parameters' structure."""
-    names = block_leaves(ctx.mesh, ctx.moe_mode)
+    ``shard.block_dims``]) of a tree of the parameters' structure."""
     whole, blocks = [], []
-    map_with_path(lambda path, g, kind: (blocks if kind in names
-                                         else whole).append(g),
-                  tree, leaf_kinds(tree))
+    map_with_path(lambda path, g, dim: (whole if dim is None
+                                        else blocks).append(g),
+                  tree, _layout(cfg, ctx)[0])
     return whole, blocks
 
 
 # ------------------------------------------------------------- steps -------
 
-def grad_norm(grads, ctx: ModelCtx) -> torch.Tensor:
+def grad_norm(grads, cfg, ctx: ModelCtx) -> torch.Tensor:
     """The f32 global norm of the gradients: on a mesh whose ranks hold
-    the experts as blocks (``shard.block_leaves``), the whole leaves'
-    squares and the blocks' summed over ``model``, the same on every
-    rank."""
+    blocks (``shard.block_leaves``), the blocks' squares summed over
+    ``model`` and the whole leaves' added once, the same on every rank."""
     if not block_leaves(ctx.mesh, ctx.moe_mode):
         return optim.global_norm(grads)
-    whole, blocks = _split_blocks(grads, ctx)
+    whole, blocks = _split_blocks(grads, cfg, ctx)
     sq = torch.zeros((1,), dtype=F32, device=whole[0].device)
     for g in blocks:
         sq += torch.sum(torch.square(g.float()))
@@ -532,14 +600,17 @@ def make_train_step(cfg, ctx: ModelCtx, *, lr: float = 3e-4,
     both in place.  metrics: ``loss_fn``'s, ``loss`` and ``grad_norm`` (0
     without clipping); with ``with_grads`` also ``grads``, the gradients
     Adam took.  On a mesh every rank calls it on its rows of the batch
-    and its parameters (the experts' blocks where ``shard.block_leaves``
-    says), and the norm is the global one (:func:`grad_norm`)."""
+    and its parameters (its blocks of ``shard.block_leaves``, which
+    :func:`check_layout` holds), and the norm is the global one
+    (:func:`grad_norm`)."""
+    _prepare_layout(cfg, ctx)
+
     def train_step(params, opt, batch, *, with_grads: bool = False):
         loss, metrics, grads = loss_and_grads(params, cfg, batch, ctx)
         with record_function("lm_step.clip"):
             if clip_norm is not None:
                 gnorm = optim.clip_by_global_norm_(
-                    grads, clip_norm, grad_norm(grads, ctx))
+                    grads, clip_norm, grad_norm(grads, cfg, ctx))
             else:
                 gnorm = torch.zeros((), dtype=F32, device=loss.device)
         with record_function("lm_step.adam"):
@@ -552,8 +623,14 @@ def make_train_step(cfg, ctx: ModelCtx, *, lr: float = 3e-4,
 
 
 def make_eval_step(cfg, ctx: ModelCtx):
+    """``eval_step(params, batch) -> metrics``: ``loss_fn``'s metrics
+    under ``no_grad``, on a mesh from the rank's blocks
+    (:func:`check_layout`)."""
+    _prepare_layout(cfg, ctx)
+
     @torch.no_grad()
     def eval_step(params, batch):
+        check_layout(params, cfg, ctx)
         _, metrics = loss_fn(params, cfg, batch, ctx)
         return metrics
     return eval_step

@@ -18,14 +18,18 @@ of its ``sharding.param_specs`` entry (layout "tp", ``zero3=False``):
 
 - ``experts``: the MoE leaves ``ewg``/``ewu``/``ewo`` on their expert dim,
   where the layer is expert-parallel (``models.ffn.moe_sharded_apply``);
-- on the serving path also ``attn``: a GQA mixer's ``wq``/``wk``/``wv``
-  on their heads and ``wo`` on its head rows; ``ffn``: an MLP's or the
-  MoE shared experts' ``wu``/``wg`` on d_ff and ``wo`` on its d_ff rows;
-  ``embed``: the vocabulary rows.  This is JAX's tensor parallelism
-  (``act_qkv``, ``act_ffn``): a rank computes its heads, its d_ff columns
-  and its vocabulary block, and the partial outputs are summed (or the
-  logits gathered) over ``model``.
+- ``attn``: a GQA mixer's ``wq``/``wk``/``wv`` on their heads and ``wo``
+  on its head rows; ``ffn``: an MLP's or the MoE shared experts'
+  ``wu``/``wg`` on d_ff and ``wo`` on its d_ff rows; ``embed``: the
+  vocabulary rows.  This is JAX's tensor parallelism (``act_qkv``,
+  ``act_ffn``): a rank computes its heads, its d_ff columns and its
+  vocabulary block, the replicated input enters that split work through
+  Megatron's f (``core.mesh.copy_to_axis``, its gradient summed over
+  ``model``) and the partial outputs leave through g (``reduce_from_axis``;
+  the serving head gathers its logits, the loss combines its
+  logsumexp over ``model``).
 
+The same blocks on every path: serving, training and the eval step.
 A leaf is matched by its path and its siblings, never by its last name
 alone (RWKV's channel mix also has ``wk``/``wv``; MLA's mixer a ``wo``),
 and only where JAX's spec puts ``model`` on one of its dims; a GQA layer
@@ -34,10 +38,11 @@ kv heads do not split (KV % m != 0) a rank holds ``wk``/``wv`` whole and
 keeps the kv heads its query heads read.  Every other leaf (RWKV-6's
 mixers, Mamba, MLA, ``frontend_proj``, norms, the router) stays whole on
 every rank, a deliberate divergence from JAX's plan, whose bytes per
-device :func:`plan_bytes` gives beside the rank's own.  Training holds the
-experts only (the refusal of tensor-parallel blocks names queue A9b) and
-sums every gradient leaf over the data axes (``sharding.data_axes_of``)
-and none over ``model``.
+device :func:`plan_bytes` gives beside the rank's own.  Training sums
+every gradient leaf over the data axes (``sharding.data_axes_of``); a
+whole leaf's gradient is complete on every rank of ``model`` (a split
+weight read whole, as ``wk`` at KV % m != 0, enters through f), and the
+norm sums the blocks' squares over ``model`` (``models.lm``).
 """
 from __future__ import annotations
 
@@ -58,19 +63,18 @@ EXPERTS, ATTENTION, FFN, EMBED = "experts", "attn", "ffn", "embed"
 TENSOR_PARALLEL = (ATTENTION, FFN, EMBED)
 GQA_LEAVES = ("wq", "wk", "wv", "wo")
 FFN_LEAVES = ("wu", "wg", "wo")
-A9B = "A9b, LM training with tensor parallelism on the mesh"
 
 
-def block_leaves(mesh, moe_mode: str, *, serving: bool = False) -> tuple:
+def block_leaves(mesh, moe_mode: str) -> tuple:
     """The kinds of leaves a rank holds as blocks over ``model``
-    (``BLOCK_AXIS``): the MoE experts where the layer is expert-parallel
-    on a mesh (not with ``moe_mode="dense"``, whose layer needs every
-    expert), and on the ``serving`` path the tensor-parallel kinds
-    (``TENSOR_PARALLEL``); none on one device."""
+    (``BLOCK_AXIS``), JAX's layout on every path: the MoE experts where
+    the layer is expert-parallel on a mesh (not with
+    ``moe_mode="dense"``, whose layer needs every expert) and the
+    tensor-parallel kinds (``TENSOR_PARALLEL``); none on one device."""
     if mesh is None:
         return ()
     kinds = (EXPERTS,) if moe_mode != "dense" else ()
-    return kinds + TENSOR_PARALLEL if serving else kinds
+    return kinds + TENSOR_PARALLEL
 
 
 def leaf_kinds(tree, path=()):

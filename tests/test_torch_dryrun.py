@@ -108,9 +108,9 @@ def test_a_dry_run_makes_nothing_on_a_real_device():
 @pytest.mark.parametrize("shape_name", ["train_4k", "decode_32k"])
 def test_argument_bytes_are_the_placed_inputs(shape_name):
     """qwen2-moe-a2.7b at 16×16: the experts a block over ``model`` and,
-    at the decode shape, the serving blocks too (the attention heads, the
-    shared experts' d_ff and the vocabulary, all of which split 16 ways
-    there), every other leaf whole; the batch rows over ``data``."""
+    at both shapes, the tensor-parallel blocks too (the attention heads,
+    the shared experts' d_ff and the vocabulary, all of which split 16
+    ways there), every other leaf whole; the batch rows over ``data``."""
     cfg, shape = get_arch("qwen2-moe-a2.7b"), SHAPES[shape_name]
     mesh = dryrun.production_mesh()
     rs = dryrun.rank_step(cfg, shape, mesh, zero3=True)
@@ -120,12 +120,11 @@ def test_argument_bytes_are_the_placed_inputs(shape_name):
     assert params["segments"][0][0]["ffn"]["ewg"].shape[1] == e_loc
     blk = params["segments"][0][0]
     blocks = [blk["ffn"][k] for k in ("ewg", "ewu", "ewo")]
-    if shape_name == "decode_32k":
-        assert params["embed"].shape[0] == cfg.vocab_size // 16
-        assert blk["mixer"]["wq"].shape[2] == cfg.n_heads // 16
-        assert blk["ffn"]["shared"]["wo"].shape[1] == 4 * 1408 // 16
-        blocks += [params["embed"]] + list(blk["mixer"].values()) + list(
-            blk["ffn"]["shared"].values())
+    assert params["embed"].shape[0] == cfg.vocab_size // 16
+    assert blk["mixer"]["wq"].shape[2] == cfg.n_heads // 16
+    assert blk["ffn"]["shared"]["wo"].shape[1] == 4 * 1408 // 16
+    blocks += [params["embed"]] + list(blk["mixer"].values()) + list(
+        blk["ffn"]["shared"].values())
     ex = sum(p.numel() * p.element_size() for p in blocks)
     assert tree_bytes(params) == full - 15 * ex
     rec = dryrun.count_rank_step(rs)

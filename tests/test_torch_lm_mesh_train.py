@@ -1,6 +1,9 @@
 """LM training on the port's LM mesh against the JAX package on the CPU:
-the expert-parallel MoE layer's gradient in its three modes, the train
-step in lockstep on the mesh, the eval step and the launcher's
+the expert-parallel MoE layer's gradient in its three modes, the
+vocabulary-parallel loss, the train step in lockstep on the mesh in JAX's
+layout "tp" (a rank holds the experts, the GQA heads, the MLP's and
+shared experts' d_ff and the vocabulary as its blocks over ``model``,
+``models.shard.block_leaves``), the eval step and the launcher's
 ``--production-mesh``, on gloo ranks started by ``spawn_mesh``, held to
 JAX's jitted steps on forced host devices.
 
@@ -28,23 +31,31 @@ Bars:
   of ``jax.vjp``'s on the same cotangents; the router's gradient of the
   aux alone is JAX's mean over the devices of their own aux gradients
   (``test_router_gradient_is_the_mean_over_devices_aux_gradients``);
+- the vocabulary-parallel ``xent_parts`` at (1,2) and (1,4), with a mask
+  and a sequence remainder: the sum, count and the gradients of ``h`` and
+  of the rank's rows of the head against the one-device function's by the
+  rule above, and no tensor of a rank with the whole vocabulary as its
+  last dim;
 - the train step (lr 1e-3, clip 1.0, remat on) at (1,2) allreduce, (2,2)
-  allreduce and alltoall and (1,4) alltoall, and the reduced
-  deepseek-v3-671b (MTP 0.3) and gemma3-4b at (2,2): three steps, each
+  allreduce and alltoall and (1,4) alltoall, the reduced
+  deepseek-v3-671b (MTP 0.3) and gemma3-4b at (2,2), gemma3-4b at (1,4)
+  and granite-20b (one kv head, wk/wv whole) at (1,2): three steps, each
   from JAX's state before it, with loss, ``xent``, ``aux``, ``mtp`` and
   ``grad_norm`` within 1e-5, every gradient within the rule above (each
-  expert block against its block of JAX's) and the parameters and
-  moments by ``test_torch_lm_train_step.adam_rule``; every whole leaf
-  equal bit for bit on every rank after each step (also at (1,4) where
-  the ranks' own gradients of them differ,
+  block against its block of JAX's) and the parameters and moments by
+  ``test_torch_lm_train_step.adam_rule``; every whole leaf equal bit for
+  bit on every rank after each step (also at (1,4) where the ranks' own
+  gradients of them differ,
   ``test_whole_leaves_take_model_rank_0s_gradients``); gemma3-4b's mesh
-  step equal to the port's one-device step;
+  steps equal to the port's one-device step on every rank's blocks;
 - the eval step's metrics at (2,2) within 1e-5;
 - the launcher on the (2,2) mesh: three losses and grad norms within
   1e-5 of JAX's jitted step in allreduce mode and in dense mode (whole
-  experts); its (1,2) checkpoint read by JAX's ``restore_checkpoint``
-  with every leaf whole and equal to the rank's gathered tree; a (1,2)
-  run resumed from a one-device checkpoint."""
+  experts), the heads, d_ff and vocabulary as blocks in both; its (1,2)
+  checkpoint, gathered from every block kind, read by JAX's
+  ``restore_checkpoint`` with every leaf whole and equal to the rank's
+  gathered tree; a (1,2) run resumed from a one-device checkpoint, placed
+  into the blocks."""
 import dataclasses
 import os
 import shutil
@@ -68,9 +79,10 @@ from repro_torch.core import mesh as core_mesh
 from repro_torch.launch import train
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import ModelCtx, make_train_step
+from repro_torch.models.lm import xent_parts
 from test_torch_lm_train import GRAD_RTOL
 from test_torch_lm_train_step import adam_rule
-from torch_mesh_ranks import LM_MODES, lm_mesh_train, npz_tree
+from torch_mesh_ranks import LM_MODES, lm_mesh_train, npz_tree, xent_inputs
 
 ARCH = "qwen2-moe-a2.7b"
 OVER = dict(dtype="float32", n_experts=60, experts_per_token=4)
@@ -86,19 +98,27 @@ RUNS = (("qwen-1x2-allreduce", ARCH, TRAIN_OVER, (1, 2), "allreduce"),
         ("qwen-1x4-alltoall", ARCH, TRAIN_OVER, (1, 4), "alltoall"),
         ("deepseek-2x2-allreduce", "deepseek-v3-671b", dict(mtp_weight=0.3),
          (2, 2), "allreduce"),
-        ("gemma3-2x2", "gemma3-4b", {}, (2, 2), "allreduce"))
+        ("gemma3-2x2", "gemma3-4b", {}, (2, 2), "allreduce"),
+        ("gemma3-1x4", "gemma3-4b", {}, (1, 4), "allreduce"),
+        # one kv head: wk/wv whole, their gradient summed over ``model``
+        ("granite-1x2", "granite-20b", {}, (1, 2), "allreduce"))
 EVAL_RUN = "qwen-2x2-allreduce"
 B, T, STEPS, LR, CLIP = 4, 16, 3, 1e-3, 1.0
 LAUNCH = ["--arch", ARCH, "--reduced", "--batch", "4", "--seq", "16",
           "--device", "cpu"]
 LAUNCH_STEPS = 3
-# (B, T, CPU threads a rank) of the step whose ranks' own gradients of the
-# whole leaves differ: chip_smoke.py's reduced (f) step and seeds, whose
-# (1,4) ranks compute embedding gradients a few 1e-9 apart on the CPU in
-# alltoall mode (without the step's broadcast this test fails)
+# (B, T, CPU threads a rank) of chip_smoke.py's reduced (f) step and seeds
+# at (1,4).  While a rank held the embedding whole its ranks computed its
+# gradient a few 1e-9 apart on the CPU in alltoall mode; in JAX's layout
+# the embedding is a block and every whole leaf's gradient is computed
+# from the same all-reduced bytes, so the step's broadcast from model rank
+# 0 guards bits that agree here
 WHOLE_BITS = (4, 32, 2)
 GRAD_ATOL = 1e-5
 SPAWN_TIMEOUT_S = 600.0
+# the vocabulary-parallel loss's unit case (B, T, V, d, seed, chunk): 3
+# chunks of 4 tokens and a remainder of 1 left out, as JAX cuts T = 13
+XENT = (2, 13, 24, 8, 41, 4)
 
 _CHILD = textwrap.dedent("""
     import os, sys
@@ -278,7 +298,7 @@ def ranks(children):
     plan = dict(layer=(ARCH, OVER, LAYER_CASES, AUX_CASE), runs=RUNS,
                 steps=STEPS, lr=LR, clip=CLIP, eval_run=EVAL_RUN,
                 launch=(LAUNCH, LAUNCH_STEPS, jparams),
-                whole_bits=(ARCH, OVER) + WHOLE_BITS)
+                whole_bits=(ARCH, OVER) + WHOLE_BITS, xent=XENT)
     try:
         return core_mesh.spawn_mesh(lm_mesh_train, 1, 4, device="cpu",
                                     backend="gloo",
@@ -411,20 +431,21 @@ def test_train_step_lockstep_on_the_mesh(run, ref, ranks):
 
 
 def test_whole_leaves_take_model_rank_0s_gradients(ranks):
-    """At (1,4) every rank computes the whole leaves' gradients itself, by
-    kernels whose bits can differ between processes (on the CPU the
-    embedding's do here in alltoall mode); after the step's broadcast from
-    model rank 0 the gradients, parameters and moments of the whole leaves
-    are the same bytes on every rank, in both modes."""
+    """At (1,4) every rank computes the whole leaves' gradients itself
+    (the norms and the router), by kernels whose bits can differ between
+    processes; after the step's broadcast from model rank 0 the
+    gradients, parameters and moments of the whole leaves are the same
+    bytes on every rank, in both modes."""
     for mode in ("allreduce", "alltoall"):
         got = [r["whole_bits"][mode] for r in ranks]
         assert len(set(got)) == 1, (mode, got)
 
 
 def _gemma_equals_one_device(ref, want, ranks, name):
-    """The dense architecture's mesh step is pure data parallelism: the
-    port's one-device step from JAX's state on the whole batch gives the
-    mesh's loss and gradients."""
+    """The dense architecture's mesh step is the global one (no capacity
+    depends on the mesh): the port's one-device step from JAX's state on
+    the whole batch gives the mesh's loss and gradients, each rank's
+    blocks those of the one-device gradient."""
     cfg = _cfg("gemma3-4b", {})
     tree = npz_tree(want, "s0/params", cfg)
     params = lm_params_from_numpy(tree, cfg, device="cpu")
@@ -433,11 +454,47 @@ def _gemma_equals_one_device(ref, want, ranks, name):
     from repro_torch.optim import adam_init
     step = make_train_step(cfg, ModelCtx(), lr=LR, clip_norm=CLIP)
     _, _, m = step(params, adam_init(params), batch, with_grads=True)
-    got = ranks[0]["runs"][name][0]
-    assert got["metrics"]["loss"] == pytest.approx(float(m["loss"]),
-                                                   rel=1e-6)
-    for path, g in keyed_leaves(m["grads"]):
-        _grad_ok(got["whole"][path][0], g.numpy(), ("one device", path))
+    for rk, r in enumerate(ranks):
+        got = r["runs"][name][0]
+        assert got["metrics"]["loss"] == pytest.approx(float(m["loss"]),
+                                                       rel=1e-6)
+        for path, g in keyed_leaves(m["grads"]):
+            g = g.numpy()
+            if path in got["blocks"]:
+                vals, block = got["blocks"][path]
+                _grad_ok(vals[0], g, ("one device", rk, path), block)
+            elif rk == 0:
+                _grad_ok(got["whole"][path][0], g, ("one device", path))
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (1, 4)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_vocabulary_parallel_loss_matches_one_device(shape, ranks):
+    """``xent_parts`` with the vocabulary split over ``model`` (a rank's
+    rows of the head, its logsumexp combined over the axis, its gold
+    logit where the label lies in its block), with a mask and a sequence
+    remainder: each rank's sum and count, its gradient of ``h`` and of its
+    rows of the head match the one-device function's, and no rank made a
+    tensor with the whole vocabulary as its last dim (its chunks' logits
+    are (B, cs, V/m))."""
+    b, t, v, d, seed, chunk = XENT
+    h, head, labels, mask = (torch.from_numpy(a) for a in
+                             xent_inputs(b, t, v, d, seed))
+    h.requires_grad_(True)
+    head.requires_grad_(True)
+    tot, cnt = xent_parts(h, head, labels, mask, chunk)
+    dh, dhead = (g.numpy() for g in torch.autograd.grad(tot, (h, head)))
+    m = shape[1]
+    for rk, r in enumerate(ranks):
+        got = r["xent"][shape]
+        lo, hi = got["rows"]
+        assert (lo, hi) == (rk % m * v // m, (rk % m + 1) * v // m)
+        assert got["sum"] == pytest.approx(float(tot.detach()), rel=1e-6)
+        assert got["count"] == float(cnt) < b * t
+        _grad_ok(got["dh"], dh, (shape, rk, "h"))
+        _grad_ok(got["dblock"], dhead[lo:hi], (shape, rk, "head"))
+        assert (b, chunk, v // m) in got["shapes"]
+        assert not [s for s in got["shapes"] if s and s[-1] == v], rk
 
 
 def test_eval_step_on_the_mesh_matches_jax(ref, ranks):

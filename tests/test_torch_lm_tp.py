@@ -1,9 +1,9 @@
 """Tensor parallelism on the LM mesh's serving path against the JAX
 package on the CPU: a rank holds the attention heads, the MLP's and the
 MoE shared experts' d_ff and the vocabulary as its blocks over ``model``
-(``repro_torch.models.shard.block_leaves(serving=True)``, by JAX's
-``param_specs``), beside the expert blocks, and computes its heads, its
-d_ff columns and its vocabulary block of the logits.
+(``repro_torch.models.shard.block_leaves``, by JAX's ``param_specs``, the
+same blocks as training's), beside the expert blocks, and computes its
+heads, its d_ff columns and its vocabulary block of the logits.
 
 The reference is one JAX child on 4 forced host devices
 (``--xla_force_host_platform_device_count=4``, as
@@ -28,8 +28,10 @@ its blocks equal to JAX's plan (``param_specs(zero3=False)``).  With no
 collectives (``core.mesh.shape_mesh``, meta tensors): every arch's full
 config at (1,4) and 16×16 holds its blocks at JAX's plan to the byte,
 RWKV's channel mix stays whole, a dense layer's forward sums twice over
-``model``, the decode cache holds the rank's kv heads, and the train and
-eval steps refuse tensor-parallel blocks, naming ROADMAP A9b."""
+``model``, a train step's backward takes Megatron's f as many times as
+chip_smoke.py's ``lm_f_backward`` predicts, the decode cache holds the
+rank's kv heads, and the train step, ``loss_and_grads`` and the eval step
+refuse a tree placed in another layout, naming its first such leaf."""
 import dataclasses
 import os
 import subprocess
@@ -49,11 +51,12 @@ from repro_torch.models import (ModelCtx, cache_shapes, init_params,
                                 make_train_step, param_shapes)
 from repro_torch.models.attention import rank_kv_heads
 from repro_torch.models.common import tree_map
-from repro_torch.models.shard import (A9B, ATTENTION, EMBED, EXPERTS, FFN,
-                                      Sharder, block_bytes, block_dims,
-                                      block_leaves, leaf_kinds)
+from repro_torch.models.shard import (ATTENTION, EMBED, EXPERTS, FFN,
+                                      TENSOR_PARALLEL, Sharder, block_bytes,
+                                      block_dims, block_leaves, leaf_kinds)
 from repro_torch.optim import adam_init
 from repro_torch.sharding import param_specs
+from test_torch_walk import _chip_smoke
 from torch_mesh_ranks import lm_tp_runs
 
 QWEN = ("qwen2-moe-a2.7b", dict(dtype="float32", n_experts=60,
@@ -262,8 +265,7 @@ def test_block_bytes_are_jax_plan_for_every_arch(arch, shape):
     cfg, lm = get_arch(arch), _rank_of(shape)
     shapes = param_shapes(cfg)
     specs = param_specs(shapes, lm)
-    names = block_leaves(lm, "allreduce" if cfg.is_moe else "dense",
-                         serving=True)
+    names = block_leaves(lm, "allreduce" if cfg.is_moe else "dense")
     placed = Sharder(lm, {}).place_params(_meta(shapes), specs, names)
     held, plan = block_bytes(placed, shapes, specs, lm, names)
     assert held == plan > 0
@@ -286,7 +288,7 @@ def test_path_matching_keeps_rwkv_and_mla_whole():
     for arch in ("rwkv6-7b", "deepseek-v3-671b"):
         cfg = get_arch(arch)
         specs = param_specs(param_shapes(cfg), lm)
-        dims = block_dims(specs, block_leaves(lm, "allreduce", serving=True))
+        dims = block_dims(specs, block_leaves(lm, "allreduce"))
         kinds = leaf_kinds(specs)
         blk, kblk, sblk = (dims["segments"][0][0], kinds["segments"][0][0],
                            specs["segments"][0][0])
@@ -304,9 +306,10 @@ def test_path_matching_keeps_rwkv_and_mla_whole():
     assert kinds["ffn"]["shared"] == dict.fromkeys(("wu", "wo", "wg"), FFN)
     assert {kinds["ffn"][k] for k in ("ewg", "ewu", "ewo")} == {EXPERTS}
     assert kinds["ffn"]["router"] is None
-    assert block_leaves(lm, "allreduce") == (EXPERTS,)
-    assert block_leaves(lm, "dense", serving=True) == (ATTENTION, FFN, EMBED)
-    assert block_leaves(None, "allreduce", serving=True) == ()
+    assert block_leaves(lm, "allreduce") == (EXPERTS, ATTENTION, FFN, EMBED)
+    assert block_leaves(lm, "dense") == TENSOR_PARALLEL == (ATTENTION, FFN,
+                                                            EMBED)
+    assert block_leaves(None, "allreduce") == ()
 
 
 @pytest.mark.parametrize("mode", ["prefill", "decode"])
@@ -344,18 +347,58 @@ def test_decode_cache_holds_the_rank_kv_heads():
         assert cache_shapes(cfg, 8, 32)[0][0]["k"][0][-2] == cfg.n_kv_heads
 
 
-def test_train_and_eval_steps_refuse_tensor_parallel_blocks():
-    """The training path holds the experts only: a rank holding the
-    serving blocks is refused by the train step, ``loss_and_grads`` and
-    the eval step, each naming the queue item by its title."""
+# (config key, MoE mode, "all_reduce model backward" of a train step at
+# (1,4)): a layer's attention 1 (granite-20b's whole wk/wv 2 more, MLA
+# none), its MLP 1, its MoE layer 2 in allreduce, 3 in alltoall (the
+# shared experts' own), 1 in dense; the head 1 a loss (deepseek's MTP 2)
+F_CASES = (("qwen", "allreduce", 7), ("qwen", "alltoall", 9),
+           ("qwen", "dense", 5), ("gemma", "dense", 13),
+           ("granite", "dense", 9), ("deepseek", "allreduce", 5))
+
+
+@pytest.mark.parametrize("case", F_CASES, ids=lambda c: f"{c[0]}-{c[1]}")
+def test_train_step_takes_megatrons_f_as_predicted(case):
+    """A train rank of a reduced config at (1,4) on a shape-only mesh: the
+    backward's all-reduces over ``model`` (Megatron's f: the split heads'
+    input, whole wk/wv at KV % m != 0, the split d_ff's input, the MoE
+    layer's tokens and router, the head's hidden) are the count that
+    chip_smoke.py's ``lm_f_backward`` gives from the layer program, and
+    the loss takes each chunk's max over ``model``."""
+    key, mode, want = case
+    arch, over = CONFIGS.get(key, ("deepseek-v3-671b", {}))
+    cfg = dataclasses.replace(get_arch(arch).reduced(), **over,
+                              **({"mtp_weight": 0.3} if key == "deepseek"
+                                 else {}))
     lm = _rank_of((1, 4))
-    for key in ("qwen", "gemma"):
+    rs = dryrun.rank_step(cfg, ShapeConfig("train", 16, 4, "train"), lm,
+                          moe_mode=mode)
+    core_mesh.reset_traffic(lm)
+    rs.step(*rs.args)
+    traffic = core_mesh.reset_traffic(lm)
+    assert traffic["all_reduce model backward"][0] == want
+    assert _chip_smoke().lm_f_backward(cfg, 4, rs.ctx.moe_mode) == want
+    # one chunk a loss (two with the MTP head), in the forward and again
+    # in the backward's recomputation
+    losses = 1 + (key == "deepseek")
+    assert traffic["all_reduce_max model"][0] == 2 * losses
+
+
+def test_steps_refuse_a_tree_in_another_layout():
+    """The train step, ``loss_and_grads`` and the eval step take a tree
+    placed as ``block_leaves(mesh, moe_mode)`` says, and raise naming the
+    first leaf that is not: the expert-only layout (the embedding whole),
+    and a tree placed for the dense MoE layer stepped in allreduce mode
+    (the experts whole)."""
+    lm = _rank_of((1, 4))
+    cases = (("qwen", "allreduce", (EXPERTS,), "['embed']"),
+             ("qwen", "allreduce", block_leaves(lm, "dense"),
+              "['segments'][0][0]['ffn']['ewg']"),
+             ("gemma", "dense", (), "['embed']"))
+    for key, mode, names, leaf in cases:
         cfg = _cfg(key)
-        mode = "allreduce" if cfg.is_moe else "dense"
         shapes = param_shapes(cfg)
         params = Sharder(lm, {}).place_params(
-            _meta(shapes), param_specs(shapes, lm),
-            block_leaves(lm, mode, serving=True))
+            _meta(shapes), param_specs(shapes, lm), names)
         ctx = ModelCtx(mesh=lm, moe_mode=mode)
         batch = {"tokens": torch.zeros((4, 16), dtype=torch.int32,
                                        device="meta")}
@@ -363,6 +406,6 @@ def test_train_and_eval_steps_refuse_tensor_parallel_blocks():
                          params, adam_init(params), batch),
                      lambda: loss_and_grads(params, cfg, batch, ctx),
                      lambda: make_eval_step(cfg, ctx)(params, batch)):
-            with pytest.raises(ValueError, match=A9B):
+            with pytest.raises(ValueError) as err:
                 call()
-    assert A9B == "A9b, LM training with tensor parallelism on the mesh"
+            assert f"the leaf {leaf} is" in str(err.value), (key, names)

@@ -937,7 +937,7 @@ def lm_moe_layer(lm, dev, cfg, moe, x, factors):
 
 def lm_model_run(lm, dev, cfg, weights, mode, tokens, first, steps, slots):
     """The reduced model on the named mesh ``lm`` in MoE mode ``mode`` on
-    the serving blocks (``shard.block_leaves(serving=True)``): the prefill
+    the rank's blocks (``shard.block_leaves``): the prefill
     of this rank's rows of ``tokens`` (B, T), then ``steps`` greedy decode
     steps from a fresh cache of ``slots`` (the rank's kv heads) from
     ``first`` (B, 1), each rank on its rows (its own next tokens fed
@@ -962,7 +962,7 @@ def lm_model_run(lm, dev, cfg, weights, mode, tokens, first, steps, slots):
     sh = Sharder(lm, activation_rules(lm, shp))
     shapes = param_shapes(cfg)
     specs = param_specs(shapes, lm)
-    names = block_leaves(lm, mode, serving=True)
+    names = block_leaves(lm, mode)
     params = sh.place_params(lm_params_from_numpy(weights, cfg, device=dev),
                              specs, names)
     ctx = ModelCtx(mesh=lm, moe_mode=mode, sharder=sh, remat=False)
@@ -1037,7 +1037,7 @@ def _greedy_ties(lm):
 def lm_tp_runs(mesh, dev, runs, weights, tokens, first, steps, slots):
     """Every rank-side run of tests/test_torch_lm_tp.py in one spawn of 4
     ranks, on named meshes (2,2), (1,4) and two side-by-side (1,2) ones
-    (``_twin_meshes``): ``lm_model_run`` on the serving blocks for each
+    (``_twin_meshes``): ``lm_model_run`` on the rank's blocks for each
     (key, (arch, overrides), shape, mode) of ``runs`` on the seeded
     ``weights[key]``, then Alg. 4's pick on ties (``_greedy_ties``)."""
     import dataclasses
@@ -1123,17 +1123,18 @@ def _block(lm, spec):
 def _split(lm, trees, specs, names):
     """The rank's leaves of parallel trees ``trees`` (numpy): {path:
     values} of the whole leaves and {path: (values, block)} of its blocks
-    (the expert leaves, where ``names``, the training path's block kinds,
-    holds them), and a digest of the whole leaves' bytes."""
+    (the leaves of the kinds ``names``, ``shard.block_leaves``, that
+    ``shard.block_dims`` cuts), and a digest of the whole leaves'
+    bytes."""
     import hashlib
-    from repro_torch.models.shard import EXPERT_LEAVES, EXPERTS
-    experts = EXPERT_LEAVES if EXPERTS in names else ()
+    from repro_torch.models.shard import block_dims
     flat = [_with_specs(t, specs) for t in trees]
+    dims = [e[3] for e in _with_specs(block_dims(specs, names), specs)]
     whole, blocks, digest = {}, {}, hashlib.sha256()
-    for entries in zip(*flat):
+    for dim, *entries in zip(dims, *flat):
         path, name, spec, _ = entries[0]
         vals = tuple(e[3].detach().cpu().numpy() for e in entries)
-        if name in experts:
+        if dim is not None:
             blocks[path] = (vals, _block(lm, spec))
         else:
             whole[path] = vals
@@ -1230,6 +1231,52 @@ def _lm_train_run(lm, dev, ref, run, plan, out):
                       "blocks": blocks, "digest": digest})
     z.close()
     return steps
+
+
+def xent_inputs(b, t, v, d, seed):
+    """(h (b, t, d), the head (v, d), labels (b, t), a mask with zeros) of
+    the vocabulary-parallel loss's unit case, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, t, d)).astype(np.float32),
+            rng.standard_normal((v, d)).astype(np.float32),
+            rng.integers(0, v, (b, t)).astype(np.int64),
+            (rng.random((b, t)) > 0.25).astype(np.float32))
+
+
+def _xent_split(lm, dev, case):
+    """``models.lm.xent_parts`` on the named mesh ``lm`` with the
+    vocabulary split over ``model`` (the rank's rows of the head of
+    ``xent_inputs(*case[:5])``, chunk ``case[5]``): its sum and count, the
+    gradients of ``h`` and of the rank's rows of the head (of the sum),
+    and the shapes of every tensor made in the forward and backward
+    (a dispatch mode), so that a test can see no (B, cs, V) logits."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.models.lm import xent_parts
+    from repro_torch.models.shard import split_axis
+    b, t, v, d, seed, chunk = case
+    h, head, labels, mask = (torch.as_tensor(a, device=dev) for a in
+                             xent_inputs(b, t, v, d, seed))
+    ax = lm.axis("model")
+    n = v // ax.size
+    rows = (ax.index * n, (ax.index + 1) * n)
+    block = head[rows[0]:rows[1]].clone().requires_grad_(True)
+    h.requires_grad_(True)
+    shapes = set()
+
+    class Shapes(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for x in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(x, torch.Tensor):
+                    shapes.add(tuple(x.shape))
+            return out
+    with Shapes():
+        tot, cnt = xent_parts(h, block, labels, mask, chunk,
+                              split_axis(lm, n, v))
+        dh, dblock = torch.autograd.grad(tot, (h, block))
+    return {"rows": rows, "sum": float(tot.detach()), "count": float(cnt),
+            "dh": dh.cpu().numpy(), "dblock": dblock.cpu().numpy(),
+            "shapes": sorted(shapes)}
 
 
 def _lm_whole_bits_step(lm, dev, cfg, b, t, threads):
@@ -1335,8 +1382,9 @@ def lm_mesh_train(mesh, dev, ref, plan):
     mode at (2,2), a (1,2) run's checkpoint with the rank's gathered trees,
     a (1,2) run resumed from the one-device checkpoint in
     ``ref``/one_device) and a step at (1,4) whose ranks' own gradients of
-    the whole leaves can differ (``_lm_whole_bits_step``), then the MoE
-    layer's vjp, the lockstep train runs
+    the whole leaves can differ (``_lm_whole_bits_step``) and the
+    vocabulary-parallel loss at (1,2) and (1,4) (``_xent_split``), then
+    the MoE layer's vjp, the lockstep train runs
     and the eval step, JAX's trees read from each npz file in ``ref`` as
     it lands (``_ready``)."""
     import dataclasses
@@ -1383,6 +1431,8 @@ def lm_mesh_train(mesh, dev, ref, plan):
     out["resume"] = _launch(argv + ["--steps", "1", "--moe-mode",
                                     "allreduce", "--ckpt-dir", resume],
                             lm)[1]
+    out["xent"] = {shape: _xent_split(meshes[shape], dev, plan["xent"])
+                   for shape in ((1, 2), (1, 4))}
     arch, over, b, t, threads = plan["whole_bits"]
     out["whole_bits"] = _lm_whole_bits_step(
         meshes[(1, 4)], dev, dataclasses.replace(get_arch(arch).reduced(),
